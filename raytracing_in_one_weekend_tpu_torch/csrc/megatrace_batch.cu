@@ -29,97 +29,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "megatrace_common.cuh"
+
 namespace {
 
-constexpr float kBig = 1e30f;
-constexpr float kSelfEps = 1e-3f;  // Ray.OffsetTowards epsilon (Ray.cs:19)
-constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kInv2_24 = 1.0f / 16777216.0f;
-constexpr float kPlasticIor = 1.5f;
-constexpr float kIorSpan = (float)(1.1 - 1.5);  // METAL_IOR - PLASTIC_IOR
-constexpr uint32_t kSaltStep = 1013904223u;
-constexpr uint32_t kSaltBounce = 7919u;
+using namespace rtiw;
+
 constexpr int kRec = 16;  // record columns: 0-10 material | 11 id |
                           // 12-14 centre | 15 1/r
 constexpr int kOutRows = 18;
 constexpr int kThreads = 128;
-
-// Correctly rounded helpers (see ops/megatrace.py).
-__device__ __forceinline__ float rsqrt_cr(float x) {
-  return (float)(1.0 / sqrt((double)x));
-}
-__device__ __forceinline__ float sin_cr(float x) { return (float)sin((double)x); }
-__device__ __forceinline__ float cos_cr(float x) { return (float)cos((double)x); }
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
-  return fmaf(az, bz, fmaf(ax, bx, ay * by));
-}
-
-__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
-  const float inv = rsqrt_cr(fmaxf(dot3(x, y, z, x, y, z), 1e-12f));
-  x = x * inv;
-  y = y * inv;
-  z = z * inv;
-}
-
-// lowbias32 integer hash (public-domain constants).
-__device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// U[0,1) with 24 mantissa bits for stream k; base = seed + lane*9781 +
-// salt (all mod 2^32, as the JAX kernels' wrapping int32 sums).
-__device__ __forceinline__ float uniform(uint32_t base, int k) {
-  return (float)(lowbias32(base + (uint32_t)k * 6271u) >> 8) * kInv2_24;
-}
-
-// Cosine-weighted hemisphere direction about unit n (Duff et al. basis).
-__device__ __forceinline__ void cosine_hemisphere(
-    float u, float v, float nx, float ny, float nz,
-    float& ox, float& oy, float& oz) {
-  const float r = sqrtf(u);
-  const float th = v * kTwoPi;
-  const float x = r * cos_cr(th);
-  const float z = r * sin_cr(th);
-  const float y = sqrtf(fmaxf(1.0f - u, 0.0f));
-  const float sign = nz >= 0.0f ? 1.0f : -1.0f;
-  const float a = -1.0f / (sign + nz);
-  const float b = nx * ny * a;
-  const float tx = fmaf(sign * nx * nx, a, 1.0f), ty = sign * b,
-              tz = -sign * nx;
-  const float bx = b, by = fmaf(ny * ny, a, sign), bz = -ny;
-  ox = fmaf(z, bx, fmaf(x, tx, y * nx));
-  oy = fmaf(z, by, fmaf(x, ty, y * ny));
-  oz = fmaf(z, bz, fmaf(x, tz, y * nz));
-}
-
-__device__ __forceinline__ float schlick(float cosine, float ior) {
-  float r0 = (1.0f - ior) / (1.0f + ior);
-  r0 = r0 * r0;
-  const float m = fmaxf(1.0f - cosine, 0.0f);
-  return fmaf((1.0f - r0) * m * m * m * m, m, r0);
-}
-
-__device__ __forceinline__ float smith_masking(float cos_theta,
-                                               float roughness) {
-  const float sq_cos = cos_theta * cos_theta;
-  const float sq_sin = fmaxf(1.0f - sq_cos, 0.0f);
-  const bool degenerate = sq_cos < 1e-12f;
-  const float safe = degenerate ? 1.0f : sq_cos;
-  const float sq_tan = (degenerate ? 0.0f : sq_sin) / safe;
-  const float x = logf(fmaxf(roughness, 1e-3f));
-  const float alpha = 1.62142f + 0.819955f * x + 0.1734f * x * x +
-                      0.0171201f * x * x * x + 0.000640711f * x * x * x * x;
-  float lam = (-1.0f + sqrtf(fmaf(alpha * alpha, sq_tan, 1.0f))) / 2.0f;
-  lam = degenerate ? 0.0f : lam;
-  return 1.0f / (1.0f + lam);
-}
 
 __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,

@@ -1,0 +1,112 @@
+// Per-lane math shared by the forward batch kernel (megatrace_batch.cu) and
+// the backward kernel (megatrace_bwd.cu), under one precision contract with
+// their plain PyTorch versions (ops/megatrace.py): no --use_fast_math,
+// -fmad=false, fmaf exactly where written; sqrtf is IEEE, and rsqrt, sin
+// and cos are taken in FP64 and rounded once (correctly rounded).
+//
+// The helpers are host-and-device functions: the same lane code also
+// compiles as plain C++ (RTIW_FN is `inline` there), which lets a host
+// build check it against the plain versions without a card.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define RTIW_FN __host__ __device__ __forceinline__
+#else
+#define RTIW_FN inline
+#endif
+
+namespace rtiw {
+
+constexpr float kBig = 1e30f;
+constexpr float kSelfEps = 1e-3f;  // Ray.OffsetTowards epsilon (Ray.cs:19)
+constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kInv2_24 = 1.0f / 16777216.0f;
+constexpr float kPlasticIor = 1.5f;
+constexpr float kIorSpan = (float)(1.1 - 1.5);  // METAL_IOR - PLASTIC_IOR
+constexpr uint32_t kSaltStep = 1013904223u;
+constexpr uint32_t kSaltBounce = 7919u;
+
+RTIW_FN float rsqrt_cr(float x) {
+  return (float)(1.0 / sqrt((double)x));
+}
+RTIW_FN float sin_cr(float x) { return (float)sin((double)x); }
+RTIW_FN float cos_cr(float x) { return (float)cos((double)x); }
+
+RTIW_FN float dot3(float ax, float ay, float az, float bx, float by,
+                  float bz) {
+  return fmaf(az, bz, fmaf(ax, bx, ay * by));
+}
+
+RTIW_FN void normalize3(float& x, float& y, float& z) {
+  const float inv = rsqrt_cr(fmaxf(dot3(x, y, z, x, y, z), 1e-12f));
+  x = x * inv;
+  y = y * inv;
+  z = z * inv;
+}
+
+// lowbias32 integer hash (public-domain constants).
+RTIW_FN uint32_t lowbias32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// U[0,1) with 24 mantissa bits for stream k; base = seed + lane*9781 +
+// salt (all mod 2^32, as the JAX kernels' wrapping int32 sums).
+RTIW_FN float uniform(uint32_t base, int k) {
+  return (float)(lowbias32(base + (uint32_t)k * 6271u) >> 8) * kInv2_24;
+}
+
+// Cosine-weighted hemisphere direction about unit n (Duff et al. basis).
+RTIW_FN void cosine_hemisphere(
+    float u, float v, float nx, float ny, float nz,
+    float& ox, float& oy, float& oz) {
+  const float r = sqrtf(u);
+  const float th = v * kTwoPi;
+  const float x = r * cos_cr(th);
+  const float z = r * sin_cr(th);
+  const float y = sqrtf(fmaxf(1.0f - u, 0.0f));
+  const float sign = nz >= 0.0f ? 1.0f : -1.0f;
+  const float a = -1.0f / (sign + nz);
+  const float b = nx * ny * a;
+  const float tx = fmaf(sign * nx * nx, a, 1.0f), ty = sign * b,
+              tz = -sign * nx;
+  const float bx = b, by = fmaf(ny * ny, a, sign), bz = -ny;
+  ox = fmaf(z, bx, fmaf(x, tx, y * nx));
+  oy = fmaf(z, by, fmaf(x, ty, y * ny));
+  oz = fmaf(z, bz, fmaf(x, tz, y * nz));
+}
+
+RTIW_FN float schlick(float cosine, float ior) {
+  float r0 = (1.0f - ior) / (1.0f + ior);
+  r0 = r0 * r0;
+  const float m = fmaxf(1.0f - cosine, 0.0f);
+  return fmaf((1.0f - r0) * m * m * m * m, m, r0);
+}
+
+RTIW_FN float roughness_to_alpha(float roughness) {
+  const float x = logf(fmaxf(roughness, 1e-3f));
+  return 1.62142f + 0.819955f * x + 0.1734f * x * x +
+         0.0171201f * x * x * x + 0.000640711f * x * x * x * x;
+}
+
+RTIW_FN float smith_masking(float cos_theta, float roughness) {
+  const float sq_cos = cos_theta * cos_theta;
+  const float sq_sin = fmaxf(1.0f - sq_cos, 0.0f);
+  const bool degenerate = sq_cos < 1e-12f;
+  const float safe = degenerate ? 1.0f : sq_cos;
+  const float sq_tan = (degenerate ? 0.0f : sq_sin) / safe;
+  const float alpha = roughness_to_alpha(roughness);
+  float lam = (-1.0f + sqrtf(fmaf(alpha * alpha, sq_tan, 1.0f))) / 2.0f;
+  lam = degenerate ? 0.0f : lam;
+  return 1.0f / (1.0f + lam);
+}
+
+}  // namespace rtiw

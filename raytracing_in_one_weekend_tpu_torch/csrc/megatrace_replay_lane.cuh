@@ -1,0 +1,760 @@
+// One lane of the tape replay (ops/megatrace_replay.replay_iteration) and
+// its adjoint, derived by hand.  Used by the backward kernel
+// (megatrace_bwd.cu); the code is host-and-device (megatrace_common.cuh),
+// so a host build can hold it against torch.autograd of the plain replay.
+//
+// State: the 21 floats of STATE_KEYS (ops/megatrace_replay.py), in order.
+// Of those, active/valid/started/depth_ct are decisions and counters with
+// no gradient; the other 17 carry cotangents.  Every branch the forward
+// takes is a constant of the tape and of the hash PRNG, so the adjoint
+// follows the one branch this lane took.  The NaN guards of the primal
+// are kept in the adjoint: the 1e-8 floors of the sphere and refraction
+// discriminants, the r == 0 and degenerate-Smith branches, the 1e-12 log
+// floors and the dielectric ior floor; each passes a derivative exactly
+// where the plain replay's torch.clamp/torch.where would (and the lottery
+// clip halves it at a tie, as the plain replay and jnp.clip do).
+#pragma once
+
+#include "megatrace_common.cuh"
+
+namespace rtiw {
+
+constexpr int kStateVars = 21;
+enum StateIdx {
+  kOX = 0, kOY, kOZ, kDX, kDY, kDZ, kTHX, kTHY, kTHZ, kRX, kRY, kRZ,
+  kActive, kValid, kStarted, kDepth, kCSX, kCSY, kCSZ, kCnt, kLp
+};
+constexpr int kEntCols = 23;  // build_entity_rows layout
+constexpr int kGradCols = 13;  // entity columns 0-3 and 11-19
+// camera row 0-23 (origin, lower-left, horizontal, vertical, right, up,
+// lens radius, width, height, pad) | sky bottom 24-26 | sky top 27-29
+constexpr int kScal = 30;
+enum CamIdx {
+  kCO = 0, kLL = 3, kHH = 6, kVV = 9, kRR = 12, kUU = 15, kLens = 18,
+  kWidth = 19, kHeight = 20, kSkyB = 24, kSkyT = 27
+};
+// gradient columns: 0-2 center, 3 radius, 4-6 albedo, 7-9 emission,
+// 10 gloss, 11 metallic, 12 parameter
+enum GradIdx { kGC = 0, kGR = 3, kGAlb = 4, kGEm = 7, kGGloss = 10,
+               kGMetal = 11, kGParam = 12 };
+
+struct LaneEnv {
+  const float* cam;  // kScal constants
+  const float* ent;  // (rows, kEntCols) entity table
+  float per_pixel, px_row, py_row;
+  uint32_t key;  // seed + global lane * 9781
+  float trace_depth, t_min;
+  bool has_diel, sky_on, jitter;
+};
+
+RTIW_FN LaneEnv make_lane_env(const float* cam, const float* ent, int i,
+                              float per_pixel, int seed, int lane_base,
+                              int trace_depth, float t_min, int has_diel,
+                              int sky_on, int jitter) {
+  LaneEnv e;
+  e.cam = cam;
+  e.ent = ent;
+  e.per_pixel = per_pixel;
+  const float pixel = (float)i;
+  e.py_row = floorf(pixel / cam[kWidth]);
+  e.px_row = pixel - e.py_row * cam[kWidth];
+  // global lane id through float32, as the forward kernel keys its PRNG
+  const uint32_t lane = (uint32_t)(int)((float)i + (float)lane_base);
+  e.key = (uint32_t)seed + lane * 9781u;
+  e.trace_depth = (float)trace_depth;
+  e.t_min = t_min;
+  e.has_diel = has_diel != 0;
+  e.sky_on = sky_on != 0;
+  e.jitter = jitter != 0;
+  return e;
+}
+
+// Forward values of one iteration that the adjoint reads.
+struct Iter {
+  bool regen, was_active, hit, near_root, rough, is_diel, take_spec,
+      take_metal, spec_like, exiting, can_refract, do_refract, ok;
+  // camera (regen lanes)
+  float un, vn, sr3, cth, sth, rdx, rdy, off[3], q3[3];
+  // state after regen
+  float o[3], d[3], th[3], rad[3], lp, valid, depth;
+  // winner (hit lanes)
+  int w;
+  float c[3], r, alb[3], em[3], gloss, metal, param;
+  float a, b, cc, disc, sq, inv_a, t, p[3], inv_r, n[3];
+  float ua, ub, uc, ud;
+  // Standard scatter
+  float roughness, cs[3], q[3], rn[3], spec_dot, std_ior, fresnel, cos_dn,
+      masking, x, rc;
+  // dielectric
+  float ss[3], q2[3], dr[3], ddot, on[3], ior, ni, cosine, dt, m, disc_r,
+      sq_r, wv[3], rp;
+  // scatter result, sky and fold
+  float sd[3], sr[3], lp_inc, off_n, tsky, em2[3], rad_new[3];
+};
+
+RTIW_FN void norm3(const float* x, float* y) {
+  const float inv = rsqrt_cr(fmaxf(dot3(x[0], x[1], x[2], x[0], x[1], x[2]),
+                                   1e-12f));
+  y[0] = x[0] * inv;
+  y[1] = x[1] * inv;
+  y[2] = x[2] * inv;
+}
+
+RTIW_FN float dotv(const float* a, const float* b) {
+  return dot3(a[0], a[1], a[2], b[0], b[1], b[2]);
+}
+
+RTIW_FN float log_floor(float x) { return logf(fmaxf(x, 1e-12f)); }
+
+// Regen, one bounce at the tape's winner, fold: everything but the state
+// update, which step_forward applies.
+RTIW_FN void iter_forward(const float* s, float code, int it,
+                          const LaneEnv& E, Iter& I) {
+  const float* cam = E.cam;
+  I.regen = s[kActive] < 0.5f && s[kStarted] < E.per_pixel;
+  for (int k = 0; k < 3; ++k) {
+    I.o[k] = s[kOX + k];
+    I.d[k] = s[kDX + k];
+    I.th[k] = s[kTHX + k];
+    I.rad[k] = s[kRX + k];
+  }
+  I.lp = s[kLp];
+  I.valid = s[kValid];
+  I.depth = s[kDepth];
+  const uint32_t salt = (uint32_t)it * kSaltStep;
+  if (I.regen) {
+    // ---- thin-lens camera ray (View.cs:38-48) -------------------------
+    const uint32_t base = E.key + salt;
+    const float jx = E.jitter ? uniform(base, 0) : 0.5f;
+    const float jy = E.jitter ? uniform(base, 1) : 0.5f;
+    I.un = (E.px_row + jx) / cam[kWidth];
+    I.vn = (E.py_row + jy) / cam[kHeight];
+    const float theta = uniform(base, 2) * kTwoPi;
+    I.sr3 = sqrtf(uniform(base, 3));
+    const float radius = I.sr3 * cam[kLens];
+    I.cth = cos_cr(theta);
+    I.sth = sin_cr(theta);
+    I.rdx = radius * I.cth;
+    I.rdy = radius * I.sth;
+    for (int k = 0; k < 3; ++k) {
+      I.off[k] = fmaf(I.rdx, cam[kRR + k], I.rdy * cam[kUU + k]);
+      I.q3[k] = fmaf(I.vn, cam[kVV + k],
+                     fmaf(I.un, cam[kHH + k], cam[kLL + k] - I.off[k]));
+    }
+    norm3(I.q3, I.d);
+    for (int k = 0; k < 3; ++k) {
+      I.o[k] = cam[kCO + k] + I.off[k];
+      I.th[k] = 1.0f;
+      I.rad[k] = 0.0f;
+    }
+    I.lp = 0.0f;
+    I.valid = 0.0f;
+    I.depth = 0.0f;
+  }
+  I.was_active = I.regen || s[kActive] > 0.5f;
+  I.hit = false;
+  I.ok = false;
+  if (!I.was_active) return;  // idle lane: an identity step
+
+  I.hit = code >= -0.5f;
+  const uint32_t bbase = E.key + salt + kSaltBounce;
+  I.ua = uniform(bbase, 0);
+  I.ub = uniform(bbase, 1);
+  I.uc = uniform(bbase, 2);
+  I.ud = uniform(bbase, 3);
+  const float u_choice = uniform(bbase, 4), u_choice2 = uniform(bbase, 5);
+  const float* o = I.o;
+  const float* d = I.d;
+  if (I.hit) {
+    // ---- the sweep's quadratic at the winner -----------------------------
+    I.w = (int)code;
+    const float* e = E.ent + (size_t)I.w * kEntCols;
+    for (int k = 0; k < 3; ++k) {
+      I.c[k] = e[k];
+      I.alb[k] = e[11 + k];
+      I.em[k] = e[14 + k];
+    }
+    I.r = e[3];
+    const float mtype = e[10];
+    I.gloss = e[17];
+    I.metal = e[18];
+    I.param = e[19];
+    const float* c = I.c;
+    I.a = dotv(d, d);
+    I.b = dotv(o, d) - dotv(d, c);
+    const float cmr2 = (c[0] * c[0] + c[1] * c[1]) + c[2] * c[2] - I.r * I.r;
+    I.cc = (dotv(o, o) - 2.0f * dotv(o, c)) + cmr2;
+    I.disc = fmaf(I.b, I.b, -(I.a * I.cc));
+    I.sq = sqrtf(fmaxf(I.disc, 1e-8f));
+    I.inv_a = 1.0f / I.a;
+    const float t_near = (-I.b - I.sq) * I.inv_a;
+    const float t_far = (-I.b + I.sq) * I.inv_a;
+    I.near_root = t_near > E.t_min;
+    I.t = I.near_root ? t_near : t_far;
+    I.inv_r = 1.0f / (I.r != 0.0f ? I.r : 1.0f);
+    for (int k = 0; k < 3; ++k) {
+      I.p[k] = fmaf(I.t, d[k], o[k]);
+      I.n[k] = (I.p[k] - c[k]) * I.inv_r;
+    }
+    const float* n = I.n;
+    I.is_diel = E.has_diel && mtype > 0.5f;
+    if (!I.is_diel) {
+      // ---- Standard: Lambert / GGX metal (Material.cs:75-119) ----------
+      I.roughness = (1.0f - I.gloss) * (1.0f - I.gloss);
+      I.rough = I.roughness > 0.0f;
+      cosine_hemisphere(I.ua, I.ub, n[0], n[1], n[2], I.cs[0], I.cs[1],
+                        I.cs[2]);
+      for (int k = 0; k < 3; ++k)
+        I.q[k] = fmaf(I.cs[k] - n[k], I.roughness, n[k]);
+      if (I.rough) {
+        norm3(I.q, I.rn);
+      } else {
+        for (int k = 0; k < 3; ++k) I.rn[k] = n[k];
+      }
+      I.spec_dot = dotv(d, I.rn);
+      I.std_ior = fmaf(kIorSpan, I.metal, kPlasticIor);
+      I.fresnel = schlick(-I.spec_dot, I.std_ior);
+      I.cos_dn = dotv(d, n);
+      I.masking = smith_masking(I.cos_dn, I.roughness);
+      I.x = I.fresnel * I.gloss * I.masking;
+      I.rc = fminf(fmaxf(I.x, 0.0f), 1.0f);
+      I.take_spec = I.rc > 0.0f && u_choice < I.rc;
+      I.take_metal = I.metal > 0.0f && u_choice2 < I.metal;
+      I.spec_like = I.take_spec || I.take_metal;
+      if (I.spec_like) {
+        for (int k = 0; k < 3; ++k)
+          I.sd[k] = fmaf(-(2.0f * I.spec_dot), I.rn[k], d[k]);
+      } else {
+        cosine_hemisphere(I.uc, I.ud, n[0], n[1], n[2], I.sd[0], I.sd[1],
+                          I.sd[2]);
+      }
+      for (int k = 0; k < 3; ++k) I.sr[k] = I.take_spec ? 1.0f : I.alb[k];
+      I.lp_inc = I.take_spec
+                     ? log_floor(I.rc)
+                     : log_floor(1.0f - I.rc) +
+                           (I.take_metal ? log_floor(I.metal)
+                                         : log_floor(1.0f - I.metal));
+    } else {
+      // ---- dielectric (Material.cs:121-161) ------------------------------
+      const float d_rough = 1.0f - I.gloss;
+      const float z = I.ua * 2.0f - 1.0f;
+      const float rz = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+      const float th = I.ub * kTwoPi;
+      I.ss[0] = cos_cr(th) * rz;
+      I.ss[1] = sin_cr(th) * rz;
+      I.ss[2] = z;
+      for (int k = 0; k < 3; ++k) I.q2[k] = fmaf(d_rough, I.ss[k], n[k]);
+      norm3(I.q2, I.dr);
+      I.ddot = dotv(d, I.dr);
+      I.exiting = I.ddot > 0.0f;
+      for (int k = 0; k < 3; ++k) I.on[k] = I.exiting ? -I.dr[k] : I.dr[k];
+      I.ior = fmaxf(I.param, 1e-3f);
+      I.ni = I.exiting ? I.ior : 1.0f / I.ior;
+      I.cosine = I.exiting ? I.ior * I.ddot : -I.ddot;
+      I.dt = dotv(d, I.on);
+      I.m = fmaf(-I.dt, I.dt, 1.0f);
+      I.disc_r = fmaf(-(I.ni * I.ni), I.m, 1.0f);
+      I.can_refract = I.disc_r > 0.0f;
+      I.sq_r = sqrtf(I.can_refract ? fmaxf(I.disc_r, 1e-8f) : 1.0f);
+      for (int k = 0; k < 3; ++k) I.wv[k] = fmaf(-I.on[k], I.dt, d[k]);
+      I.rp = schlick(I.cosine, I.ior);
+      I.do_refract = I.can_refract && u_choice > I.rp;
+      for (int k = 0; k < 3; ++k) {
+        if (I.do_refract) {
+          I.sd[k] = fmaf(I.ni, I.wv[k], -(I.on[k] * I.sq_r));
+          I.sr[k] = I.alb[k];
+        } else {
+          I.sd[k] = fmaf(-(2.0f * I.ddot), I.dr[k], d[k]);
+          I.sr[k] = 1.0f;
+        }
+      }
+      I.lp_inc = !I.can_refract ? 0.0f
+                 : I.do_refract ? log_floor(1.0f - I.rp)
+                                : log_floor(I.rp);
+    }
+    I.off_n = kSelfEps * (dotv(I.sd, n) >= 0.0f ? 1.0f : -1.0f);
+    for (int k = 0; k < 3; ++k) I.em2[k] = I.em[k];
+  } else {
+    // ---- gradient sky (SampleBatchJob.cs:352-354) ------------------------
+    I.tsky = 0.5f * (d[1] + 1.0f);
+    for (int k = 0; k < 3; ++k)
+      I.em2[k] = E.sky_on ? fmaf(cam[kSkyT + k] - cam[kSkyB + k], I.tsky,
+                                 cam[kSkyB + k])
+                          : 0.0f;
+  }
+  for (int k = 0; k < 3; ++k) I.rad_new[k] = fmaf(I.th[k], I.em2[k], I.rad[k]);
+  // termination: a miss ends the sample validly, depth exhaustion fails it
+  const float depth = I.depth + 1.0f;
+  const bool active = I.hit && !(depth > E.trace_depth - 0.5f);
+  I.ok = !active && (!I.hit || I.valid > 0.5f);
+}
+
+// One replay iteration, in place.
+RTIW_FN void step_forward(float* s, float code, int it, const LaneEnv& E) {
+  Iter I;
+  iter_forward(s, code, it, E, I);
+  if (!I.was_active) return;
+  for (int k = 0; k < 3; ++k) {
+    s[kOX + k] = I.hit ? fmaf(I.off_n, I.n[k], I.p[k]) : I.o[k];
+    s[kDX + k] = I.hit ? I.sd[k] : I.d[k];
+    s[kTHX + k] = I.hit ? I.th[k] * I.sr[k] : I.th[k];
+    s[kRX + k] = I.rad_new[k];
+    if (I.ok) s[kCSX + k] = s[kCSX + k] + I.rad_new[k];
+  }
+  s[kLp] = I.hit ? I.lp + I.lp_inc : I.lp;
+  s[kStarted] = s[kStarted] + (I.regen ? 1.0f : 0.0f);
+  s[kDepth] = I.depth + 1.0f;
+  s[kValid] = I.hit ? I.valid : 1.0f;
+  s[kActive] = (I.hit && !(s[kDepth] > E.trace_depth - 0.5f)) ? 1.0f : 0.0f;
+  if (I.ok) s[kCnt] = s[kCnt] + 1.0f;
+}
+
+// ---------------------------------------------------------------------------
+// Adjoints of the helpers
+// ---------------------------------------------------------------------------
+
+// y = x / |x| (|x|^2 floored at 1e-12): gx = inv gy - inv^3 (gy.x) x.
+RTIW_FN void norm3_vjp(const float* x, const float* gy, float* gx) {
+  const float s2 = dotv(x, x);
+  const float inv = rsqrt_cr(fmaxf(s2, 1e-12f));
+  const float k = s2 >= 1e-12f ? -inv * inv * inv * dotv(gy, x) : 0.0f;
+  for (int j = 0; j < 3; ++j) gx[j] = inv * gy[j] + k * x[j];
+}
+
+// Cotangent of n (added to gn) of cosine_hemisphere(u, v, n) given g.
+RTIW_FN void cosine_hemisphere_vjp(float u, float v, const float* n,
+                                   const float* g, float* gn) {
+  const float r = sqrtf(u);
+  const float th = v * kTwoPi;
+  const float x = r * cos_cr(th);
+  const float z = r * sin_cr(th);
+  const float y = sqrtf(fmaxf(1.0f - u, 0.0f));
+  const float nx = n[0], ny = n[1];
+  const float sign = n[2] >= 0.0f ? 1.0f : -1.0f;
+  const float den = sign + n[2];
+  const float a = -1.0f / den;
+  // out = z * (b, ny^2 a + sign, -ny) + x * (sign nx^2 a + 1, sign b,
+  //       -sign nx) + y * n, with b = nx ny a
+  float ga = 0.0f, gb = 0.0f;
+  for (int k = 0; k < 3; ++k) gn[k] += y * g[k];
+  const float gt0 = x * g[0], gt1 = x * g[1], gt2 = x * g[2];
+  const float gb0 = z * g[0], gb1 = z * g[1], gb2 = z * g[2];
+  gn[0] += gt0 * sign * 2.0f * nx * a;
+  ga += gt0 * sign * nx * nx;
+  gb += sign * gt1;
+  gn[0] -= sign * gt2;
+  gb += gb0;
+  gn[1] += gb1 * 2.0f * ny * a;
+  ga += gb1 * ny * ny;
+  gn[1] -= gb2;
+  gn[0] += gb * ny * a;
+  gn[1] += gb * nx * a;
+  ga += gb * nx * ny;
+  gn[2] += ga / (den * den);  // da/dnz = 1 / den^2
+}
+
+// f = (1 - r0) m^5 + r0, m = max(1 - cos, 0), r0 = ((1 - ior)/(1 + ior))^2.
+RTIW_FN void schlick_vjp(float cosine, float ior, float gf, float& gcos,
+                         float& gior) {
+  const float q = (1.0f - ior) / (1.0f + ior);
+  const float r0 = q * q;
+  const float m_raw = 1.0f - cosine;
+  const float m = fmaxf(m_raw, 0.0f);
+  const float m4 = m * m * m * m;
+  const float gm = gf * 5.0f * (1.0f - r0) * m4;
+  const float gr0 = gf * (1.0f - m4 * m);
+  gcos = m_raw >= 0.0f ? -gm : 0.0f;
+  gior = 2.0f * q * gr0 * (-2.0f / ((1.0f + ior) * (1.0f + ior)));
+}
+
+RTIW_FN void smith_masking_vjp(float cos_theta, float roughness, float gG,
+                               float& gcos, float& grough) {
+  gcos = 0.0f;
+  grough = 0.0f;
+  const float sq_cos = cos_theta * cos_theta;
+  if (sq_cos < 1e-12f) return;  // degenerate: constant masking
+  const float sq_sin_raw = 1.0f - sq_cos;
+  const float sq_tan = fmaxf(sq_sin_raw, 0.0f) / sq_cos;
+  const float xl = logf(fmaxf(roughness, 1e-3f));
+  const float alpha = roughness_to_alpha(roughness);
+  const float root = sqrtf(fmaf(alpha * alpha, sq_tan, 1.0f));
+  const float lam = (-1.0f + root) / 2.0f;
+  const float G = 1.0f / (1.0f + lam);
+  const float glam = -gG * G * G;
+  const float gs = glam * 0.25f / root;
+  const float galpha = gs * 2.0f * alpha * sq_tan;
+  const float gtan = gs * alpha * alpha;
+  float gsq_cos = -gtan * sq_tan / sq_cos;
+  if (sq_sin_raw >= 0.0f) gsq_cos -= gtan / sq_cos;
+  gcos = 2.0f * cos_theta * gsq_cos;
+  if (roughness >= 1e-3f) {
+    const float dalpha = 0.819955f + 2.0f * 0.1734f * xl +
+                         3.0f * 0.0171201f * xl * xl +
+                         4.0f * 0.000640711f * xl * xl * xl;
+    grough = galpha * dalpha / roughness;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The iteration's adjoint
+// ---------------------------------------------------------------------------
+
+// Standard scatter: cotangents of (sd, sr, lp_inc) into n, d and the
+// winner's albedo, gloss and metallic.
+RTIW_FN void standard_vjp(const Iter& I, const float* gsd, const float* gsr,
+                          float glp_inc, float* gn, float* gd, float* ge) {
+  const float* n = I.n;
+  const float* d = I.d;
+  if (!I.take_spec)
+    for (int k = 0; k < 3; ++k) ge[kGAlb + k] += gsr[k];
+  float grc = 0.0f, gmet = 0.0f, ggloss = 0.0f, grough = 0.0f;
+  if (I.take_spec) {
+    if (I.rc >= 1e-12f) grc += glp_inc / I.rc;
+  } else {
+    if (1.0f - I.rc >= 1e-12f) grc -= glp_inc / (1.0f - I.rc);
+    if (I.take_metal) {
+      if (I.metal >= 1e-12f) gmet += glp_inc / I.metal;
+    } else {
+      if (1.0f - I.metal >= 1e-12f) gmet -= glp_inc / (1.0f - I.metal);
+    }
+  }
+  float grn[3] = {0.0f, 0.0f, 0.0f};
+  float gspec = 0.0f;
+  if (I.spec_like) {
+    // sd = d - 2 spec_dot rn
+    for (int k = 0; k < 3; ++k) {
+      gd[k] += gsd[k];
+      grn[k] += -2.0f * I.spec_dot * gsd[k];
+    }
+    gspec += -2.0f * dotv(gsd, I.rn);
+  } else {
+    cosine_hemisphere_vjp(I.uc, I.ud, n, gsd, gn);
+  }
+  // rc = clip(fresnel * gloss * masking, 0, 1); the derivative is split
+  // in half at a tie (x == 0 on every Lambert hit), as jnp.clip's is
+  const float gx = (I.x > 0.0f && I.x < 1.0f)     ? grc
+                   : (I.x == 0.0f || I.x == 1.0f) ? 0.5f * grc
+                                                   : 0.0f;
+  const float gfres = gx * I.gloss * I.masking;
+  ggloss += gx * I.fresnel * I.masking;
+  const float gmask = gx * I.fresnel * I.gloss;
+  float gcdn, gr_s;
+  smith_masking_vjp(I.cos_dn, I.roughness, gmask, gcdn, gr_s);
+  grough += gr_s;
+  for (int k = 0; k < 3; ++k) {
+    gd[k] += gcdn * n[k];
+    gn[k] += gcdn * d[k];
+  }
+  float ginc, gior;
+  schlick_vjp(-I.spec_dot, I.std_ior, gfres, ginc, gior);
+  gspec -= ginc;
+  gmet += kIorSpan * gior;
+  for (int k = 0; k < 3; ++k) {
+    gd[k] += gspec * I.rn[k];
+    grn[k] += gspec * d[k];
+  }
+  if (I.rough) {
+    // rn = normalize(n + (cs - n) roughness), cs = cosine_hemisphere(n)
+    float gq[3], gcs[3];
+    norm3_vjp(I.q, grn, gq);
+    for (int k = 0; k < 3; ++k) {
+      gcs[k] = gq[k] * I.roughness;
+      gn[k] += gq[k] * (1.0f - I.roughness);
+      grough += gq[k] * (I.cs[k] - n[k]);
+    }
+    cosine_hemisphere_vjp(I.ua, I.ub, n, gcs, gn);
+  } else {
+    for (int k = 0; k < 3; ++k) gn[k] += grn[k];
+  }
+  ggloss += -2.0f * (1.0f - I.gloss) * grough;
+  ge[kGGloss] += ggloss;
+  ge[kGMetal] += gmet;
+}
+
+// Dielectric scatter: cotangents of (sd, sr, lp_inc) into n, d and the
+// winner's albedo, gloss and parameter (ior).
+RTIW_FN void dielectric_vjp(const Iter& I, const float* gsd,
+                            const float* gsr, float glp_inc, float* gn,
+                            float* gd, float* ge) {
+  const float* d = I.d;
+  if (I.do_refract)
+    for (int k = 0; k < 3; ++k) ge[kGAlb + k] += gsr[k];
+  float grp = 0.0f;
+  if (I.can_refract) {
+    if (I.do_refract) {
+      if (1.0f - I.rp >= 1e-12f) grp -= glp_inc / (1.0f - I.rp);
+    } else {
+      if (I.rp >= 1e-12f) grp += glp_inc / I.rp;
+    }
+  }
+  float gdr[3] = {0.0f, 0.0f, 0.0f}, gon[3] = {0.0f, 0.0f, 0.0f};
+  float gddot = 0.0f, gdt = 0.0f, gni = 0.0f, gior = 0.0f, gsq_r = 0.0f;
+  if (I.do_refract) {
+    // sd = ni (d - on dt) - on sq_r
+    gni += dotv(gsd, I.wv);
+    gsq_r -= dotv(I.on, gsd);
+    float gw[3];
+    for (int k = 0; k < 3; ++k) {
+      gw[k] = I.ni * gsd[k];
+      gon[k] -= I.sq_r * gsd[k];
+      gd[k] += gw[k];
+      gon[k] -= I.dt * gw[k];
+    }
+    gdt -= dotv(I.on, gw);
+  } else {
+    // sd = d - 2 ddot dr
+    for (int k = 0; k < 3; ++k) {
+      gd[k] += gsd[k];
+      gdr[k] += -2.0f * I.ddot * gsd[k];
+    }
+    gddot += -2.0f * dotv(gsd, I.dr);
+  }
+  float gcos, gior_s;
+  schlick_vjp(I.cosine, I.ior, grp, gcos, gior_s);
+  gior += gior_s;
+  if (I.can_refract && I.disc_r >= 1e-8f) {
+    // disc_r = 1 - ni^2 (1 - dt^2)
+    const float gdisc = gsq_r * 0.5f / I.sq_r;
+    gni += gdisc * (-2.0f * I.ni * I.m);
+    gdt += -gdisc * I.ni * I.ni * (-2.0f * I.dt);
+  }
+  for (int k = 0; k < 3; ++k) {
+    gd[k] += gdt * I.on[k];
+    gon[k] += gdt * d[k];
+  }
+  if (I.exiting) {
+    gior += gcos * I.ddot;
+    gddot += gcos * I.ior;
+    gior += gni;
+  } else {
+    gddot -= gcos;
+    gior -= gni / (I.ior * I.ior);
+  }
+  if (I.param >= 1e-3f) ge[kGParam] += gior;
+  for (int k = 0; k < 3; ++k) {
+    gdr[k] += I.exiting ? -gon[k] : gon[k];
+    gd[k] += gddot * I.dr[k];
+    gdr[k] += gddot * d[k];
+  }
+  // dr = normalize(n + (1 - gloss) ss)
+  float gq2[3];
+  norm3_vjp(I.q2, gdr, gq2);
+  for (int k = 0; k < 3; ++k) gn[k] += gq2[k];
+  ge[kGGloss] -= dotv(gq2, I.ss);
+}
+
+// Adjoint of step_forward.  g holds the cotangent of the output state on
+// entry and of the input state on exit.  ge (kGradCols) receives the
+// winner row's cotangent and gs (kScal) accumulates the camera and sky
+// cotangents.  Returns the winner row, or -1 when ge is unused.
+RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
+                     const LaneEnv& E, float* ge, float* gs) {
+  Iter I;
+  iter_forward(s, code, it, E, I);
+  for (int k = 0; k < kGradCols; ++k) ge[k] = 0.0f;
+  g[kActive] = g[kValid] = g[kStarted] = g[kDepth] = 0.0f;
+  if (!I.was_active) return -1;
+  const float* cam = E.cam;
+
+  // ---- accumulators with the score-function carrier --------------------
+  float grad[3], go[3] = {0.0f, 0.0f, 0.0f}, gd[3] = {0.0f, 0.0f, 0.0f};
+  float gth[3], gn[3] = {0.0f, 0.0f, 0.0f}, gp[3] = {0.0f, 0.0f, 0.0f};
+  float glp = g[kLp];
+  for (int k = 0; k < 3; ++k) grad[k] = g[kRX + k];
+  if (I.ok) {
+    // cs += rad + sg(rad) (lp - sg(lp)); cnt += 1 + (lp - sg(lp))
+    for (int k = 0; k < 3; ++k) grad[k] += g[kCSX + k];
+    glp += g[kCSX] * I.rad_new[0] + g[kCSX + 1] * I.rad_new[1] +
+           g[kCSX + 2] * I.rad_new[2] + g[kCnt];
+  }
+  // ---- advance and fold --------------------------------------------------
+  float gsd[3] = {0.0f, 0.0f, 0.0f}, gsr[3] = {0.0f, 0.0f, 0.0f};
+  const float glp_inc = I.hit ? glp : 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    if (I.hit) {
+      gn[k] += I.off_n * g[kOX + k];
+      gp[k] += g[kOX + k];
+      gsd[k] = g[kDX + k];
+      gth[k] = g[kTHX + k] * I.sr[k];
+      gsr[k] = g[kTHX + k] * I.th[k];
+    } else {
+      go[k] = g[kOX + k];
+      gd[k] = g[kDX + k];
+      gth[k] = g[kTHX + k];
+    }
+    gth[k] += grad[k] * I.em2[k];  // rad_new = th em2 + rad
+  }
+  if (!I.hit) {
+    if (E.sky_on) {
+      float gtsky = 0.0f;
+      for (int k = 0; k < 3; ++k) {
+        const float gem = grad[k] * I.th[k];
+        gtsky += gem * (cam[kSkyT + k] - cam[kSkyB + k]);
+        gs[kSkyT + k] += gem * I.tsky;
+        gs[kSkyB + k] += gem * (1.0f - I.tsky);
+      }
+      gd[1] += 0.5f * gtsky;
+    }
+  } else {
+    for (int k = 0; k < 3; ++k) ge[kGEm + k] += grad[k] * I.th[k];
+    if (I.is_diel)
+      dielectric_vjp(I, gsd, gsr, glp_inc, gn, gd, ge);
+    else
+      standard_vjp(I, gsd, gsr, glp_inc, gn, gd, ge);
+
+    // ---- hit point and normal -------------------------------------------
+    const float* o = I.o;
+    const float* d = I.d;
+    const float* c = I.c;
+    float gc[3], ginv_r = 0.0f, gr = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      gp[k] += gn[k] * I.inv_r;
+      gc[k] = -gn[k] * I.inv_r;
+      ginv_r += gn[k] * (I.p[k] - c[k]);
+    }
+    if (I.r != 0.0f) gr -= ginv_r * I.inv_r * I.inv_r;
+    const float gt = dotv(gp, d);
+    for (int k = 0; k < 3; ++k) {
+      gd[k] += I.t * gp[k];
+      go[k] += gp[k];
+    }
+    // t = (-b -+ sq) / a
+    float gb = -gt * I.inv_a;
+    const float gsq = I.near_root ? -gt * I.inv_a : gt * I.inv_a;
+    const float ginv_a = gt * (I.near_root ? (-I.b - I.sq) : (-I.b + I.sq));
+    float ga = -ginv_a * I.inv_a * I.inv_a;
+    const float gdisc = I.disc >= 1e-8f ? gsq * 0.5f / I.sq : 0.0f;
+    gb += 2.0f * I.b * gdisc;
+    ga -= I.cc * gdisc;
+    const float gcc = -I.a * gdisc;
+    // cc = |o - c|^2 - r^2, b = d.(o - c), a = d.d: the derivatives of
+    // the expanded forms the primal rounds, taken in (o - c) form, which
+    // does not cancel (the plain replay does the same)
+    for (int k = 0; k < 3; ++k) {
+      const float oc = o[k] - c[k];
+      const float gq = 2.0f * oc * gcc + d[k] * gb;
+      gc[k] -= gq;
+      go[k] += gq;
+      gd[k] += oc * gb + 2.0f * d[k] * ga;
+    }
+    gr -= 2.0f * I.r * gcc;
+    for (int k = 0; k < 3; ++k) ge[kGC + k] += gc[k];
+    ge[kGR] += gr;
+  }
+
+  // ---- regen -------------------------------------------------------------
+  if (I.regen) {
+    float gq3[3], goff[3];
+    norm3_vjp(I.q3, gd, gq3);
+    float gun = 0.0f, gvn = 0.0f, grdx = 0.0f, grdy = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      gs[kCO + k] += go[k];
+      goff[k] = go[k] - gq3[k];
+      gs[kLL + k] += gq3[k];
+      gs[kHH + k] += I.un * gq3[k];
+      gun += cam[kHH + k] * gq3[k];
+      gs[kVV + k] += I.vn * gq3[k];
+      gvn += cam[kVV + k] * gq3[k];
+      gs[kRR + k] += I.rdx * goff[k];
+      gs[kUU + k] += I.rdy * goff[k];
+      grdx += cam[kRR + k] * goff[k];
+      grdy += cam[kUU + k] * goff[k];
+    }
+    gs[kLens] += (grdx * I.cth + grdy * I.sth) * I.sr3;
+    // un = (pixel - py_row width + jx) / width, py_row a constant
+    gs[kWidth] += gun * (-(E.py_row + I.un) / cam[kWidth]);
+    gs[kHeight] += gvn * (-I.vn / cam[kHeight]);
+    for (int k = 0; k < 3; ++k) {
+      g[kOX + k] = g[kDX + k] = g[kTHX + k] = g[kRX + k] = 0.0f;
+    }
+    g[kLp] = 0.0f;
+  } else {
+    for (int k = 0; k < 3; ++k) {
+      g[kOX + k] = go[k];
+      g[kDX + k] = gd[k];
+      g[kTHX + k] = gth[k];
+      g[kRX + k] = grad[k];
+    }
+    g[kLp] = glp;
+  }
+  return I.hit ? I.w : -1;
+}
+
+// ---------------------------------------------------------------------------
+// One lane's whole backward
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxHistory = 64;  // deepest trace_depth the history holds
+
+// Adds a winner row's cotangent into the (rows, kGradCols) table `base`:
+// shared-memory atomics on the card, plain sums on the host.
+struct EntityAdd {
+  float* base;
+  RTIW_FN void operator()(int w, const float* ge) const {
+    for (int k = 0; k < kGradCols; ++k) {
+      if (ge[k] == 0.0f) continue;
+#ifdef __CUDA_ARCH__
+      atomicAdd(base + w * kGradCols + k, ge[k]);
+#else
+      base[w * kGradCols + k] += ge[k];
+#endif
+    }
+  }
+};
+
+// Phase 1 sweeps the lane's tape forward, storing the state at every
+// block boundary into ckpt [block][var][lane]; phase 2 re-runs each block
+// into a local history and applies step_vjp in reverse.  The tape is idle
+// (-2) from the lane's last sample on and those iterations are identity
+// steps, so both phases stop at the first idle row.  The color and count
+// cotangents seed the state cotangent; gs accumulates the camera and sky
+// cotangents and add_ent receives each winner row's.
+template <class AddEnt>
+RTIW_FN void lane_backward(const float* tape, int n, int i, int iters,
+                           const LaneEnv& E, float cot_r, float cot_g,
+                           float cot_b, float cot_count, float* ckpt,
+                           float* gs, AddEnt add_ent) {
+  const int depth = (int)E.trace_depth;
+  float st[kStateVars];
+  for (int k = 0; k < kStateVars; ++k) st[k] = 0.0f;
+  st[kTHX] = st[kTHY] = st[kTHZ] = 1.0f;
+  int live = iters;
+  for (int it = 0; it < iters; ++it) {
+    if (it % depth == 0) {
+      float* dst = ckpt + (size_t)(it / depth) * kStateVars * n + i;
+      for (int k = 0; k < kStateVars; ++k) dst[(size_t)k * n] = st[k];
+    }
+    const float code = tape[(size_t)it * n + i];
+    if (code < -1.5f) {
+      live = it;
+      break;
+    }
+    step_forward(st, code, it, E);
+  }
+
+  float g[kStateVars], ge[kGradCols];
+  for (int k = 0; k < kStateVars; ++k) g[k] = 0.0f;
+  g[kCSX] = cot_r;
+  g[kCSY] = cot_g;
+  g[kCSZ] = cot_b;
+  g[kCnt] = cot_count;
+  float hist[kMaxHistory * kStateVars];
+  for (int b0 = live > 0 ? ((live - 1) / depth) * depth : -1; b0 >= 0;
+       b0 -= depth) {
+    const float* src = ckpt + (size_t)(b0 / depth) * kStateVars * n + i;
+    for (int k = 0; k < kStateVars; ++k) st[k] = src[(size_t)k * n];
+    const int len = live - b0 < depth ? live - b0 : depth;
+    for (int j = 0; j < len; ++j) {
+      for (int k = 0; k < kStateVars; ++k) hist[j * kStateVars + k] = st[k];
+      step_forward(st, tape[(size_t)(b0 + j) * n + i], b0 + j, E);
+    }
+    for (int j = len - 1; j >= 0; --j) {
+      const int w = step_vjp(hist + j * kStateVars, g,
+                             tape[(size_t)(b0 + j) * n + i], b0 + j, E, ge,
+                             gs);
+      if (w >= 0) add_ent(w, ge);
+    }
+  }
+}
+
+}  // namespace rtiw

@@ -51,8 +51,10 @@ def build_library(source: str) -> tuple[ctypes.CDLL, str]:
     Returns (library, compiler log); the log holds `-Xptxas -v`'s
     register and spill report when this call compiled, else ""."""
     src = CSRC_DIR / source
+    # the digest covers the shared headers too: a header edit rebuilds
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     log = ""

@@ -99,6 +99,13 @@ def sphere_pad_count(s: int) -> int:
     return max(SPHERE_PAD, -(-s // SPHERE_PAD) * SPHERE_PAD)
 
 
+def center_sq_minus_r2(cx, cy, cz, r):
+    """|c|^2 - r^2 of the sphere quadratic, summed in one fixed order so
+    that the packer, the tape replay and the backward kernel
+    (csrc/megatrace_bwd.cu) round it identically."""
+    return (cx * cx + cy * cy) + cz * cz - r * r
+
+
 def _pack_scene_tables(centers, radii, records):
     """Sphere and record tables in the JAX kernel's layout.
 
@@ -111,7 +118,8 @@ def _pack_scene_tables(centers, radii, records):
 
     sph = torch.full((s_pad, 8), PAD_CENTER, **f32)
     sph[:s, 0:3] = centers
-    sph[:s, 3] = torch.sum(centers * centers, dim=-1) - radii * radii
+    sph[:s, 3] = center_sq_minus_r2(centers[:, 0], centers[:, 1],
+                                    centers[:, 2], radii)
     sph[s:, 3] = float("inf")
 
     safe_r = torch.where(radii == 0.0, 1.0, radii)
@@ -618,6 +626,10 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
             acc[row] = torch.where(first_ever, value, acc[row])
         acc[3] += ok.to(torch.float32)
     return acc
+
+
+OUTPUT_KEYS = ("color", "count", "normal", "albedo", "weight", "rays",
+               "fallback_normal", "fallback_albedo")
 
 
 def _outputs(acc: torch.Tensor, tape: torch.Tensor | None) -> dict:

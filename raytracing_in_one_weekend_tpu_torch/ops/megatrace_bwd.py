@@ -1,0 +1,326 @@
+"""Backward of the fused batch kernel: the tape replay's VJP (counterpart
+of the JAX package's ops/megatrace_bwd.py, its sphere arm).
+
+* `replay_grad_reference` is the plain version: torch.autograd over
+  `ops/megatrace_replay.replay`, the counterpart of the JAX package's
+  XLA-replay VJP oracle.
+* `csrc/megatrace_bwd.cu` is the hand-written CUDA kernel for Hopper: one
+  thread per lane sweeps the tape forward (checkpointing the state every
+  trace_depth iterations), then walks the blocks in reverse with the
+  adjoint of `replay_iteration` derived by hand
+  (csrc/megatrace_replay_lane.cuh).
+* `replay_grad` is the wrapper: CPU tensors take the plain version; CUDA
+  tensors launch the kernel or raise.  It counts launches in `LAUNCHES`.
+
+The kernel returns the cotangent of the winner entity rows (the 13
+columns that carry gradients) and of the camera and sky constants; the
+entity-row cotangent goes back to centers, radii and records through
+torch.autograd of `build_entity_rows`, as the JAX package does with
+jax.vjp.
+
+`replay_step_vjp` exposes the kernel's one-iteration VJP (and
+`replay_step_vjp_reference` its autograd counterpart) so that the hand
+derivation can be checked iteration by iteration on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from raytracing_in_one_weekend_tpu_torch.ops import megatrace as mk
+from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay as mr
+
+MAX_DEPTH = 64  # deepest trace_depth the kernel's per-lane history holds
+N_SCAL = 30  # camera row (24) | sky bottom (3) | sky top (3)
+
+LAUNCHES = 0  # CUDA launches of the backward kernel made by replay_grad
+
+_DIFF_ENV = ("co", "ll", "hh", "vv", "rr", "uu")
+
+# The cotangent tensors of one iteration's VJP, as (name, output, rows) of
+# replay_step_vjp's (cot_in, cot_entity, cot_scal): each state vector, each
+# scene leaf, the camera row and the two sky colors.  A check holds each
+# to its own max abs.
+STEP_COTANGENTS = (
+    ("origin", 0, slice(0, 3)), ("direction", 0, slice(3, 6)),
+    ("throughput", 0, slice(6, 9)), ("radiance", 0, slice(9, 12)),
+    ("color_sum", 0, slice(16, 19)), ("count", 0, slice(19, 20)),
+    ("lp", 0, slice(20, 21)), ("centers", 1, slice(0, 3)),
+    ("radii", 1, slice(3, 4)), ("records", 1, slice(4, 13)),
+    ("camera_row", 2, slice(0, 24)), ("sky_bottom", 2, slice(24, 27)),
+    ("sky_top", 2, slice(27, 30)),
+)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def replay_grad_reference(tape, lane_count, camera_row, centers, radii,
+                          records, sky_bottom, sky_top, seed, cot_color,
+                          cot_count, lane_base: int = 0, *, samples: int,
+                          trace_depth: int, t_min: float = 0.0,
+                          has_dielectrics: bool = True, sky_on: bool = True,
+                          jitter: bool = True) -> tuple:
+    """Cotangents (camera_row, centers, radii, records, sky_bottom,
+    sky_top) of the replay's (color_sum, count) given theirs: autograd over
+    the plain replay."""
+    leaves = tuple(t.detach().to(torch.float32).requires_grad_()
+                   for t in (camera_row, centers, radii, records,
+                             sky_bottom, sky_top))
+    with torch.enable_grad():
+        csum, cnt = mr.replay(
+            tape, lane_count, *leaves, seed, lane_base, samples=samples,
+            trace_depth=trace_depth, t_min=t_min,
+            has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
+        )
+        grads = torch.autograd.grad(
+            (csum, cnt), leaves,
+            (cot_color.to(torch.float32), cot_count.to(torch.float32)),
+            allow_unused=True,
+        )
+    return tuple(torch.zeros_like(leaf) if g is None else g
+                 for g, leaf in zip(grads, leaves))
+
+
+def _lane_env(lane_count, cam_rows, sky_rows, seed, lane_base):
+    """make_env with per-lane camera (24, n) and sky (6, n) rows."""
+    env = mr.make_env(lane_count, cam_rows[:, 0], sky_rows[0:3, 0],
+                      sky_rows[3:6, 0], seed, lane_base)
+    for j, k in enumerate(_DIFF_ENV):
+        env[k] = tuple(cam_rows[3 * j + c] for c in range(3))
+    env.update(lens_radius=cam_rows[18], width=cam_rows[19],
+               height=cam_rows[20],
+               sky_b=tuple(sky_rows[c] for c in range(3)),
+               sky_t=tuple(sky_rows[3 + c] for c in range(3)))
+    return env
+
+
+def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
+                              lane_count, camera_row, centers, radii,
+                              records, sky_bottom, sky_top, seed,
+                              lane_base: int = 0, *, trace_depth: int,
+                              t_min: float = 0.0, has_dielectrics: bool = True,
+                              sky_on: bool = True, jitter: bool = True):
+    """Per-lane VJP of one `replay_iteration`: autograd with every lane's
+    state, winner row, camera and sky as leaves of their own.
+
+    state, cot_out: (21, n) in STATE_KEYS order.  Returns (cot_in (21, n),
+    cot_entity (13, n) over GRAD_COLS, cot_scal (30, n): camera row, sky
+    bottom, sky top)."""
+    n = lane_count.shape[0]
+    table = mr.build_entity_rows(centers, radii, records).detach()
+    winners = torch.clamp(tape_row, min=0.0).to(torch.int64)
+    with torch.enable_grad():
+        st = state.detach().clone().requires_grad_()
+        wt = table[winners].T.contiguous().requires_grad_()
+        cam = camera_row.detach().to(torch.float32)[:, None].expand(24, n) \
+            .contiguous().requires_grad_()
+        sky = torch.cat([sky_bottom, sky_top]).detach() \
+            .to(torch.float32)[:, None].expand(6, n).contiguous() \
+            .requires_grad_()
+        env = _lane_env(lane_count, cam, sky, seed, lane_base)
+        out = mr.replay_iteration(
+            dict(zip(mr.STATE_KEYS, st)), wt, tape_row, it, env,
+            jitter=jitter, has_dielectrics=has_dielectrics, sky_on=sky_on,
+            trace_depth=trace_depth, t_min=t_min,
+        )
+        outs = [out[k] for k in mr.STATE_KEYS]
+        keep = [j for j, o in enumerate(outs) if o.requires_grad]
+        g_st, g_wt, g_cam, g_sky = torch.autograd.grad(
+            [outs[j] for j in keep], (st, wt, cam, sky),
+            [cot_out[j] for j in keep], allow_unused=True,
+        )
+
+    def dense(g, like):
+        return torch.zeros_like(like) if g is None else g
+
+    return (dense(g_st, st).detach(),
+            dense(g_wt, wt).detach()[list(mr.GRAD_COLS)],
+            torch.cat([dense(g_cam, cam), dense(g_sky, sky)]).detach())
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+_KERNEL = None  # the loaded library, built at first use
+BUILD_LOG = ""  # nvcc's output of the build this process made, if any
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load csrc/megatrace_bwd.cu."""
+    global _KERNEL, BUILD_LOG
+    if _KERNEL is None:
+        from raytracing_in_one_weekend_tpu_torch.ops import cuda_build
+
+        lib, BUILD_LOG = cuda_build.build_library("megatrace_bwd.cu")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.rtiw_megatrace_bwd.argtypes = [
+            p, p, p, p, p, p, p, p,  # tape lane_count consts ent cot ckpt
+            #                          dent dscal
+            i, i, i, i, i, i,  # n s seed lane_base samples trace_depth
+            f, i, i, i,  # t_min has_diel sky_on jitter
+            p,  # stream
+        ]
+        lib.rtiw_megatrace_bwd.restype = i
+        lib.rtiw_replay_step_vjp.argtypes = [
+            p, p, p, p, p, p,  # state codes cot_out lane_count consts ent
+            p, p, p,  # cot_in cot_ent cot_scal
+            i, i, i, i, i,  # n it seed lane_base trace_depth
+            f, i, i, i,  # t_min has_diel sky_on jitter
+            p,  # stream
+        ]
+        lib.rtiw_replay_step_vjp.restype = i
+        _KERNEL = lib
+    return _KERNEL
+
+
+def _consts(camera_row, sky_bottom, sky_top):
+    return torch.cat([camera_row.to(torch.float32),
+                      sky_bottom.to(torch.float32),
+                      sky_top.to(torch.float32),
+                      camera_row.new_zeros(2, dtype=torch.float32)])
+
+
+def _check(name: str, tensors: dict, shapes: dict, dev) -> None:
+    for key, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} is on {t.device}, want {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} must be float32, is {t.dtype}")
+        if key in shapes and tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"want {shapes[key]}")
+
+
+def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
+                      sky_bottom, sky_top, seed, cot_color, cot_count,
+                      lane_base, *, samples, trace_depth, t_min,
+                      has_dielectrics, sky_on, jitter):
+    global LAUNCHES
+    dev = centers.device
+    n, s = lane_count.shape[0], centers.shape[0]
+    iters = samples * trace_depth
+    _check("replay_grad", dict(
+        tape=tape, camera_row=camera_row, centers=centers, radii=radii,
+        records=records, sky_bottom=sky_bottom, sky_top=sky_top,
+        cot_color=cot_color, cot_count=cot_count,
+    ), dict(tape=(iters, n), camera_row=(24,), centers=(s, 3), radii=(s,),
+            sky_bottom=(3,), sky_top=(3,), cot_color=(n, 3),
+            cot_count=(n,)), dev)
+    if lane_count.device != dev:
+        raise ValueError(f"replay_grad: lane_count is on {lane_count.device}")
+    if not 0 < trace_depth <= MAX_DEPTH:
+        raise ValueError(f"replay_grad: trace_depth {trace_depth}; the "
+                         f"kernel's history holds at most {MAX_DEPTH}")
+    if s > mk.SPH_CULL_MIN:
+        raise ValueError(f"replay_grad: {s} spheres; the kernel's shared "
+                         f"cotangent table holds at most {mk.SPH_CULL_MIN}")
+
+    lib = load_kernel()
+    with torch.enable_grad():
+        leaves = tuple(t.detach().requires_grad_()
+                       for t in (centers, radii, records))
+        entity_rows = mr.build_entity_rows(*leaves)
+    ent = entity_rows.detach()[:s].contiguous()
+    consts = _consts(camera_row, sky_bottom, sky_top)
+    cot = torch.cat([cot_color.T, cot_count[None]]).contiguous()
+    ckpt = torch.empty(samples * len(mr.STATE_KEYS) * n, dtype=torch.float32,
+                       device=dev)
+    tape = tape.contiguous()
+    per_pixel = lane_count.to(torch.float32).contiguous()
+    dent = torch.zeros((s, len(mr.GRAD_COLS)), dtype=torch.float32,
+                       device=dev)
+    dscal = torch.zeros(N_SCAL, dtype=torch.float32, device=dev)
+    err = lib.rtiw_megatrace_bwd(
+        tape.data_ptr(), per_pixel.data_ptr(), consts.data_ptr(),
+        ent.data_ptr(),
+        cot.data_ptr(), ckpt.data_ptr(), dent.data_ptr(), dscal.data_ptr(),
+        n, s, int(seed), int(lane_base), samples, trace_depth, float(t_min),
+        int(has_dielectrics), int(sky_on), int(jitter),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"megatrace_bwd launch failed: cudaError {err}")
+    LAUNCHES += 1
+    dtable = torch.zeros_like(entity_rows)
+    dtable[:s, list(mr.GRAD_COLS)] = dent
+    g_c, g_r, g_rec = torch.autograd.grad(entity_rows, leaves, dtable)
+    return (dscal[:24], g_c, g_r, g_rec, dscal[24:27], dscal[27:30])
+
+
+def replay_grad(tape, lane_count, camera_row, centers, radii, records,
+                sky_bottom, sky_top, seed, cot_color, cot_count,
+                lane_base: int = 0, *, samples: int, trace_depth: int,
+                t_min: float = 0.0, has_dielectrics: bool = True,
+                sky_on: bool = True, jitter: bool = True) -> tuple:
+    """Cotangents (camera_row, centers, radii, records, sky_bottom,
+    sky_top) of one batch's (color_sum (N, 3), count (N,)) given the color
+    and count cotangents, replaying the tape (samples*trace_depth, N).
+
+    The device of `centers` decides: CUDA tensors launch the kernel
+    (csrc/megatrace_bwd.cu) or raise; CPU tensors run the plain version."""
+    args = (tape, lane_count, camera_row, centers, radii, records,
+            sky_bottom, sky_top, seed, cot_color, cot_count, lane_base)
+    kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
+                  has_dielectrics=has_dielectrics, sky_on=sky_on,
+                  jitter=jitter)
+    if centers.device.type == "cuda":
+        return _replay_grad_cuda(*args, **kwargs)
+    if centers.device.type == "cpu":
+        return replay_grad_reference(*args, **kwargs)
+    raise ValueError(f"replay_grad: unsupported device {centers.device}")
+
+
+def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
+                    camera_row, centers, radii, records, sky_bottom,
+                    sky_top, seed, lane_base: int = 0, *, trace_depth: int,
+                    t_min: float = 0.0, has_dielectrics: bool = True,
+                    sky_on: bool = True, jitter: bool = True):
+    """The backward kernel's one-iteration VJP on every lane (see
+    `replay_step_vjp_reference` for the arguments and outputs).  CUDA
+    tensors launch the kernel's step entry point; CPU tensors run the
+    plain version."""
+    kwargs = dict(trace_depth=trace_depth, t_min=t_min,
+                  has_dielectrics=has_dielectrics, sky_on=sky_on,
+                  jitter=jitter)
+    args = (state, tape_row, it, cot_out, lane_count, camera_row, centers,
+            radii, records, sky_bottom, sky_top, seed, lane_base)
+    if centers.device.type == "cpu":
+        return replay_step_vjp_reference(*args, **kwargs)
+    if centers.device.type != "cuda":
+        raise ValueError(f"replay_step_vjp: unsupported device "
+                         f"{centers.device}")
+    dev = centers.device
+    n = lane_count.shape[0]
+    _check("replay_step_vjp", dict(state=state, tape_row=tape_row,
+                                   cot_out=cot_out),
+           dict(state=(len(mr.STATE_KEYS), n), tape_row=(n,),
+                cot_out=(len(mr.STATE_KEYS), n)), dev)
+    lib = load_kernel()
+    ent = mr.build_entity_rows(centers, radii, records).detach() \
+        .contiguous()
+    consts = _consts(camera_row, sky_bottom, sky_top)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cot_in = torch.empty((len(mr.STATE_KEYS), n), **f32)
+    cot_ent = torch.empty((len(mr.GRAD_COLS), n), **f32)
+    cot_scal = torch.empty((N_SCAL, n), **f32)
+    # keep every buffer the launch reads bound until it is enqueued
+    state, tape_row, cot_out = (t.contiguous()
+                                for t in (state, tape_row, cot_out))
+    per_pixel = lane_count.to(torch.float32).contiguous()
+    err = lib.rtiw_replay_step_vjp(
+        state.data_ptr(), tape_row.data_ptr(), cot_out.data_ptr(),
+        per_pixel.data_ptr(), consts.data_ptr(), ent.data_ptr(),
+        cot_in.data_ptr(), cot_ent.data_ptr(), cot_scal.data_ptr(), n,
+        int(it), int(seed), int(lane_base), trace_depth, float(t_min),
+        int(has_dielectrics), int(sky_on), int(jitter),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"replay_step_vjp launch failed: cudaError {err}")
+    return cot_in, cot_ent, cot_scal

@@ -1,0 +1,537 @@
+"""Differentiable tape replay of the fused batch kernel (counterpart of the
+JAX package's ops/megatrace_replay.py, its sphere arm).
+
+The forward kernel (ops/megatrace.sample_batch, want_tape=True) records
+the winner of every iteration on every lane: the sphere row, -1 for the
+sky, -2 for an idle lane.  Its hit attributes carry no gradient.  The
+replay re-runs the persistent-lane state machine along that tape in plain
+differentiable PyTorch: each iteration gathers only the winner's entity
+row, so there is no (lanes, spheres) intersection work and no kernel in
+the autograd graph.  Discrete decisions (winner, root, lotteries) are
+constants of the tape: the detached-decision gradient estimator, plus the
+score-function `lp` terms that carry the lotteries' probability shift.
+
+Replay-vs-kernel contract: the same hash PRNG, the same branch rules and
+the same precision helpers (`ops/megatrace._fma`, `_sqrt`, ...) where the
+forward kernel uses them, so that the replay takes the kernel's branches
+on the card and its primal equals the kernel's.  Two NaN guards change
+the primal where the kernel's value would give an infinite derivative:
+the sphere discriminant and the refraction discriminant are floored at
+1e-8 (grazing hits only).
+
+* `replay_iteration` is one iteration (regen, one bounce at the tape's
+  winner, fold and termination), on per-lane rows.
+* `replay` runs it over the whole tape, one `torch.utils.checkpoint`
+  block per `trace_depth` iterations, so autograd memory stays bounded.
+* `sample_batch_diff` is the `torch.autograd.Function` whose forward is
+  the kernel (with the tape) and whose backward is
+  `ops/megatrace_bwd.replay_grad`: the CUDA backward kernel on CUDA
+  tensors, autograd over `replay` on CPU tensors.
+
+Scope: every scene `ops/megatrace.scene_eligible` accepts (spheres,
+Lambert/GGX metal/dielectric, gradient or no sky, white noise).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils import checkpoint as torch_checkpoint
+
+from raytracing_in_one_weekend_tpu_torch.ops import megatrace as mk
+from raytracing_in_one_weekend_tpu_torch.ops.megatrace import (
+    _cos,
+    _cosine_hemisphere,
+    _dot3,
+    _fma,
+    _normalize3,
+    _schlick,
+    _sin,
+    _smith_masking,
+    _sqrt,
+    _unit_sphere,
+    uniforms_hash,
+)
+
+ENTITY_COLS = 23  # build_entity_rows layout, sphere arm
+# entity columns that carry gradients: center, radius, albedo, emission,
+# gloss, metallic, parameter (material rows 1-9)
+GRAD_COLS = (0, 1, 2, 3, 11, 12, 13, 14, 15, 16, 17, 18, 19)
+STATE_KEYS = (
+    "ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
+    "radx", "rady", "radz", "active", "valid", "started", "depth_ct",
+    "csx", "csy", "csz", "cnt", "lp",
+)
+AOV_OUTPUTS = ("normal", "albedo", "weight", "fallback_normal",
+               "fallback_albedo")
+
+
+def replay_eligible(scene) -> bool:
+    """Can this scene take the differentiable fused path?  The same scope
+    as the forward kernel for now."""
+    return mk.scene_eligible(scene)
+
+
+def build_entity_rows(centers, radii, records):
+    """(S_pad, 23) entity table in the kernel's padded row space, the JAX
+    package's layout: 0:3 center, 3 radius, 10:21 material rows 0-10,
+    21 kind (0 = sphere), 22 material id.  Differentiable with respect to
+    centers, radii and records; pad rows are zero and never referenced."""
+    s = centers.shape[0]
+    s_pad = mk.sphere_pad_count(s)
+    f32 = dict(dtype=torch.float32, device=centers.device)
+    mat_id = (records[:, 11:12] if records.shape[1] > 11
+              else torch.zeros((s, 1), **f32))
+    rows = torch.cat([
+        centers.to(torch.float32),
+        radii.to(torch.float32)[:, None],
+        torch.zeros((s, 6), **f32),
+        records[:, :11].to(torch.float32),
+        torch.zeros((s, 1), **f32),
+        mat_id.to(torch.float32),
+    ], dim=1)
+    return torch.cat([rows, torch.zeros((s_pad - s, ENTITY_COLS), **f32)])
+
+
+def initial_state(n: int, device) -> dict:
+    zero = torch.zeros(n, dtype=torch.float32, device=device)
+    state = {k: zero for k in STATE_KEYS}
+    state.update(thx=zero + 1.0, thy=zero + 1.0, thz=zero + 1.0)
+    return state
+
+
+def make_env(lane_count, camera_row, sky_bottom, sky_top, seed,
+             lane_base: int = 0) -> dict:
+    """Per-call constants of `replay_iteration`: per-lane rows and the
+    camera and sky pieces (0-d tensors, differentiable)."""
+    n = lane_count.shape[0]
+    dev = lane_count.device
+    cam = camera_row.to(torch.float32)
+    return dict(
+        per_pixel=lane_count.to(torch.float32),
+        # global lane ids through float32, as the kernel keys its PRNG
+        lanes=(torch.arange(n, dtype=torch.float32, device=dev)
+               + torch.tensor(float(lane_base), dtype=torch.float32))
+        .to(torch.int64),
+        pixels=torch.arange(n, dtype=torch.float32, device=dev),
+        seed=int(seed),
+        co=cam[0:3], ll=cam[3:6], hh=cam[6:9], vv=cam[9:12],
+        rr=cam[12:15], uu=cam[15:18],
+        lens_radius=cam[18], width=cam[19], height=cam[20],
+        sky_b=sky_bottom.to(torch.float32), sky_t=sky_top.to(torch.float32),
+    )
+
+
+def _primal_of(value, smooth):
+    """`value` exactly, with the derivative of `smooth` (the same quantity
+    in a form that rounds better): value + (smooth - smooth) adds 0."""
+    return value.detach() + (smooth - smooth.detach())
+
+
+def _clip01(x):
+    """clip(x, 0, 1) whose derivative is split in half at x == 0 or 1, as
+    jnp.clip's is: Lambert hits (gloss 0) sit exactly at the lower tie,
+    and this keeps the lottery's gloss gradient the JAX package's."""
+    return torch.minimum(torch.maximum(x, torch.zeros_like(x)),
+                         torch.ones_like(x))
+
+
+def _log_floor(x):
+    return torch.log(torch.clamp(x, min=1e-12))
+
+
+def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
+                     jitter: bool, has_dielectrics: bool, sky_on: bool,
+                     trace_depth: int, t_min: float = 0.0) -> dict:
+    """One persistent-lane iteration along the tape: regen, one bounce at
+    the tape's winner, fold and termination (JAX replay_iteration :260,
+    sphere arm).
+
+    state: dict of (n,) float32 rows, STATE_KEYS.  wt: (23, n) winner
+    entity rows (row k = column k of build_entity_rows, per lane).
+    tape_row: (n,) winner codes.  env: make_env's dict; its camera and sky
+    entries may also be (n,) rows."""
+    per_pixel, lanes, seed = env["per_pixel"], env["lanes"], env["seed"]
+    co, ll, hh, vv = env["co"], env["ll"], env["hh"], env["vv"]
+    rr, uu = env["rr"], env["uu"]
+    lens_radius, width, height = (env["lens_radius"], env["width"],
+                                  env["height"])
+    sky_b, sky_t = env["sky_b"], env["sky_t"]
+    py_row = torch.floor(env["pixels"] / width)
+    px_row = env["pixels"] - py_row * width
+
+    ox, oy, oz = state["ox"], state["oy"], state["oz"]
+    dx, dy, dz = state["dx"], state["dy"], state["dz"]
+    thx, thy, thz = state["thx"], state["thy"], state["thz"]
+    radx, rady, radz = state["radx"], state["rady"], state["radz"]
+    active, valid = state["active"], state["valid"]
+    started, depth_ct = state["started"], state["depth_ct"]
+
+    # ---- regen: thin-lens camera ray (View.cs:38-48) --------------------
+    regen = (active < 0.5) & (started < per_pixel)
+    salt = it * mk.SALT_STEP
+    u = uniforms_hash(seed, salt, lanes, 4)
+    jx, jy = (u[0], u[1]) if jitter else (0.5, 0.5)
+    un = (px_row + jx) / width
+    vn = (py_row + jy) / height
+    theta = u[2] * mk.TWO_PI
+    radius = _sqrt(u[3]) * lens_radius
+    rdx = radius * _cos(theta)
+    rdy = radius * _sin(theta)
+    offx = _fma(rdx, rr[0], rdy * uu[0])
+    offy = _fma(rdx, rr[1], rdy * uu[1])
+    offz = _fma(rdx, rr[2], rdy * uu[2])
+    cdx = _fma(vn, vv[0], _fma(un, hh[0], ll[0] - offx))
+    cdy = _fma(vn, vv[1], _fma(un, hh[1], ll[1] - offy))
+    cdz = _fma(vn, vv[2], _fma(un, hh[2], ll[2] - offz))
+    cdx, cdy, cdz = _normalize3(cdx, cdy, cdz)
+    ox = torch.where(regen, co[0] + offx, ox)
+    oy = torch.where(regen, co[1] + offy, oy)
+    oz = torch.where(regen, co[2] + offz, oz)
+    dx = torch.where(regen, cdx, dx)
+    dy = torch.where(regen, cdy, dy)
+    dz = torch.where(regen, cdz, dz)
+    thx = torch.where(regen, 1.0, thx)
+    thy = torch.where(regen, 1.0, thy)
+    thz = torch.where(regen, 1.0, thz)
+    radx = torch.where(regen, 0.0, radx)
+    rady = torch.where(regen, 0.0, rady)
+    radz = torch.where(regen, 0.0, radz)
+    valid = torch.where(regen, 0.0, valid)
+    depth_ct = torch.where(regen, 0.0, depth_ct)
+    started = started + torch.where(regen, 1.0, 0.0)
+    active = torch.where(regen, 1.0, active)
+    was_active = active > 0.5
+    lp = torch.where(regen, 0.0, state["lp"])
+
+    # ---- one bounce at the tape's winner ---------------------------------
+    ua, ub, uc, ud, u_choice, u_choice2 = uniforms_hash(
+        seed, salt + mk.SALT_BOUNCE, lanes, 6
+    )
+    hit = was_active & (tape_row >= -0.5)
+    miss = was_active & ~hit
+    cx, cy, cz, r = wt[0], wt[1], wt[2], wt[3]
+
+    # the kernel's sweep expressions at the winner; their derivatives are
+    # taken through the same quantities in (o - c) form, which does not
+    # cancel (the expanded form loses ~12 bits on the cover's far spheres)
+    a = _dot3(dx, dy, dz, dx, dy, dz)
+    o_dot_d = _dot3(ox, oy, oz, dx, dy, dz)
+    o_sq = _dot3(ox, oy, oz, ox, oy, oz)
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    b = _primal_of(o_dot_d - _dot3(dx, dy, dz, cx, cy, cz),
+                   _dot3(dx, dy, dz, ocx, ocy, ocz))
+    c_term = _primal_of(
+        (o_sq - 2.0 * _dot3(ox, oy, oz, cx, cy, cz))
+        + mk.center_sq_minus_r2(cx, cy, cz, r),
+        _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r,
+    )
+    disc = _fma(b, b, -(a * c_term))
+    # idle and sky lanes hold unrelated rows: sanitise every sqrt and
+    # division argument so that the unselected branch stays finite; the
+    # floor keeps sqrt' finite on grazing hits
+    sq = _sqrt(torch.where(hit, torch.clamp(disc, min=1e-8), 1.0))
+    inv_a = 1.0 / torch.where(hit, a, 1.0)
+    t_near = (-b - sq) * inv_a
+    t_far = (-b + sq) * inv_a
+    t_hit = torch.where(t_near > t_min, t_near, t_far)
+    t_hit = torch.where(hit, t_hit, 0.0)
+    px = _fma(t_hit, dx, ox)
+    py = _fma(t_hit, dy, oy)
+    pz = _fma(t_hit, dz, oz)
+    inv_r = 1.0 / torch.where(hit & (r != 0.0), r, 1.0)
+    nx = torch.where(hit, (px - cx) * inv_r, 0.0)
+    ny = torch.where(hit, (py - cy) * inv_r, 0.0)
+    nz = torch.where(hit, (pz - cz) * inv_r, 0.0)
+
+    mtype = wt[10]
+    alb_r, alb_g, alb_b = wt[11], wt[12], wt[13]
+    em_r, em_g, em_b = wt[14], wt[15], wt[16]
+    gloss, metallic, parameter = wt[17], wt[18], wt[19]
+
+    # ---- Standard scatter (Material.cs:75-119) ---------------------------
+    roughness = (1.0 - gloss) * (1.0 - gloss)
+    csx, csy, csz = _cosine_hemisphere(ua, ub, nx, ny, nz)
+    rnx, rny, rnz = _normalize3(
+        _fma(csx - nx, roughness, nx),
+        _fma(csy - ny, roughness, ny),
+        _fma(csz - nz, roughness, nz),
+    )
+    rough = roughness > 0.0
+    rnx = torch.where(rough, rnx, nx)
+    rny = torch.where(rough, rny, ny)
+    rnz = torch.where(rough, rnz, nz)
+    spec_dot = _dot3(dx, dy, dz, rnx, rny, rnz)
+    std_ior = _fma(torch.full_like(metallic, mk.METAL_IOR - mk.PLASTIC_IOR),
+                   metallic, mk.PLASTIC_IOR)
+    fresnel = _schlick(-spec_dot, std_ior)
+    masking = _smith_masking(_dot3(dx, dy, dz, nx, ny, nz), roughness)
+    refl_chance = _clip01(fresnel * gloss * masking)
+    spx = _fma(-(2.0 * spec_dot), rnx, dx)
+    spy = _fma(-(2.0 * spec_dot), rny, dy)
+    spz = _fma(-(2.0 * spec_dot), rnz, dz)
+    lmx, lmy, lmz = _cosine_hemisphere(uc, ud, nx, ny, nz)
+    take_spec = (refl_chance > 0.0) & (u_choice < refl_chance)
+    take_metal = (metallic > 0.0) & (u_choice2 < metallic)
+    # lottery log-probability (score-function term, materials Scatter.logp)
+    lp_inc = torch.where(
+        take_spec,
+        _log_floor(refl_chance),
+        _log_floor(1.0 - refl_chance) + torch.where(
+            take_metal, _log_floor(metallic), _log_floor(1.0 - metallic)
+        ),
+    )
+    spec_like = take_spec | take_metal
+    sdx = torch.where(spec_like, spx, lmx)
+    sdy = torch.where(spec_like, spy, lmy)
+    sdz = torch.where(spec_like, spz, lmz)
+    srr = torch.where(take_spec, 1.0, alb_r)
+    srg = torch.where(take_spec, 1.0, alb_g)
+    srb = torch.where(take_spec, 1.0, alb_b)
+
+    if has_dielectrics:
+        # ---- Dielectric (Material.cs:121-161) ----------------------------
+        d_roughness = 1.0 - gloss
+        ssx, ssy, ssz = _unit_sphere(ua, ub)
+        drx, dry, drz = _normalize3(
+            _fma(d_roughness, ssx, nx),
+            _fma(d_roughness, ssy, ny),
+            _fma(d_roughness, ssz, nz),
+        )
+        ddot = _dot3(dx, dy, dz, drx, dry, drz)
+        exiting = ddot > 0.0
+        onx = torch.where(exiting, -drx, drx)
+        ony = torch.where(exiting, -dry, dry)
+        onz = torch.where(exiting, -drz, drz)
+        # non-dielectric lanes see a constant ior: 1/0 upstream of the
+        # differentiable refl_prob would NaN the backward
+        is_diel = mtype > 0.5
+        ior = torch.where(is_diel, torch.clamp(parameter, min=1e-3), 1.5)
+        ni_over_nt = torch.where(exiting, ior, 1.0 / ior)
+        cosine = torch.where(exiting, ior * ddot, -ddot)
+        dt = _dot3(dx, dy, dz, onx, ony, onz)
+        disc_r = _fma(-(ni_over_nt * ni_over_nt), _fma(-dt, dt, 1.0), 1.0)
+        can_refract = disc_r > 0.0
+        sq_r = _sqrt(torch.where(can_refract, torch.clamp(disc_r, min=1e-8),
+                                 1.0))
+        rfx = _fma(ni_over_nt, _fma(-onx, dt, dx), -(onx * sq_r))
+        rfy = _fma(ni_over_nt, _fma(-ony, dt, dy), -(ony * sq_r))
+        rfz = _fma(ni_over_nt, _fma(-onz, dt, dz), -(onz * sq_r))
+        refl_prob = _schlick(cosine, ior)
+        do_refract = can_refract & (u_choice > refl_prob)
+        diel_lp = torch.where(
+            can_refract,
+            torch.where(do_refract, _log_floor(1.0 - refl_prob),
+                        _log_floor(refl_prob)),
+            0.0,
+        )
+        lp_inc = torch.where(is_diel, diel_lp, lp_inc)
+        dlx = torch.where(do_refract, rfx, _fma(-(2.0 * ddot), drx, dx))
+        dly = torch.where(do_refract, rfy, _fma(-(2.0 * ddot), dry, dy))
+        dlz = torch.where(do_refract, rfz, _fma(-(2.0 * ddot), drz, dz))
+        sdx = torch.where(is_diel, dlx, sdx)
+        sdy = torch.where(is_diel, dly, sdy)
+        sdz = torch.where(is_diel, dlz, sdz)
+        srr = torch.where(is_diel, torch.where(do_refract, alb_r, 1.0), srr)
+        srg = torch.where(is_diel, torch.where(do_refract, alb_g, 1.0), srg)
+        srb = torch.where(is_diel, torch.where(do_refract, alb_b, 1.0), srb)
+
+    # ---- sky + fold (SampleBatchJob.cs:341-396) --------------------------
+    if sky_on:
+        tsky = 0.5 * (dy + 1.0)
+        skr = _fma(sky_t[0] - sky_b[0], tsky, sky_b[0])
+        skg = _fma(sky_t[1] - sky_b[1], tsky, sky_b[1])
+        skb = _fma(sky_t[2] - sky_b[2], tsky, sky_b[2])
+    else:
+        skr = skg = skb = torch.zeros_like(dx)
+    lp = lp + torch.where(hit, lp_inc, 0.0)
+    emr = torch.where(hit, em_r, torch.where(miss, skr, 0.0))
+    emg = torch.where(hit, em_g, torch.where(miss, skg, 0.0))
+    emb = torch.where(hit, em_b, torch.where(miss, skb, 0.0))
+    radx = _fma(thx, emr, radx)
+    rady = _fma(thy, emg, rady)
+    radz = _fma(thz, emb, radz)
+    thx = torch.where(hit, thx * srr, thx)
+    thy = torch.where(hit, thy * srg, thy)
+    thz = torch.where(hit, thz * srb, thz)
+
+    # ---- advance + termination -------------------------------------------
+    off = mk.SELF_EPS * torch.where(
+        _dot3(sdx, sdy, sdz, nx, ny, nz) >= 0.0, 1.0, -1.0
+    )
+    ox = torch.where(hit, _fma(off, nx, px), ox)
+    oy = torch.where(hit, _fma(off, ny, py), oy)
+    oz = torch.where(hit, _fma(off, nz, pz), oz)
+    dx = torch.where(hit, sdx, dx)
+    dy = torch.where(hit, sdy, dy)
+    dz = torch.where(hit, sdz, dz)
+    active = torch.where(miss, 0.0, active)
+    valid = torch.where(miss, 1.0, valid)
+    depth_ct = depth_ct + torch.where(was_active, 1.0, 0.0)
+    exhausted = (active > 0.5) & (depth_ct > trace_depth - 0.5)
+    active = torch.where(exhausted, 0.0, active)
+    terminated = was_active & (active < 0.5)
+    ok = terminated & (valid > 0.5)
+    # zero-valued score surrogates on both accumulators (the valid count
+    # is itself an outcome of the lotteries); their primal adds 0
+    carrier = torch.where(ok, lp - lp.detach(), 0.0)
+    rad_okx = torch.where(ok, radx, 0.0)
+    rad_oky = torch.where(ok, rady, 0.0)
+    rad_okz = torch.where(ok, radz, 0.0)
+    ok_f = torch.where(ok, 1.0, 0.0)
+    return dict(
+        ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
+        thx=thx, thy=thy, thz=thz, radx=radx, rady=rady, radz=radz,
+        active=active, valid=valid, started=started, depth_ct=depth_ct,
+        csx=state["csx"] + rad_okx + rad_okx.detach() * carrier,
+        csy=state["csy"] + rad_oky + rad_oky.detach() * carrier,
+        csz=state["csz"] + rad_okz + rad_okz.detach() * carrier,
+        cnt=state["cnt"] + ok_f + ok_f * carrier,
+        lp=lp,
+    )
+
+
+def replay(
+    tape,  # (samples*trace_depth, N) winner codes from the kernel
+    lane_count,  # (N,)
+    camera_row,  # (24,)
+    centers,  # (S, 3)
+    radii,  # (S,)
+    records,  # (S, >= 11) pack_sphere_records
+    sky_bottom,  # (3,)
+    sky_top,  # (3,)
+    seed,  # int32 batch seed
+    lane_base: int = 0,
+    *,
+    samples: int,
+    trace_depth: int,
+    t_min: float = 0.0,
+    has_dielectrics: bool = True,
+    sky_on: bool = True,
+    jitter: bool = True,
+):
+    """Differentiable (color_sum (N, 3), count (N,)) of one batch,
+    replaying the kernel's persistent-lane loop along the recorded tape.
+
+    One checkpointed block per `trace_depth` iterations (JAX :1167-1201):
+    the winner rows of the block are gathered at once, and only the
+    block-entry state is kept for the backward.  Blocks whose tape rows
+    are all idle are identity steps and are skipped."""
+    n = lane_count.shape[0]
+    entity_rows = build_entity_rows(centers, radii, records)
+    env = make_env(lane_count, camera_row, sky_bottom, sky_top, seed,
+                   lane_base)
+    statics = dict(jitter=jitter, has_dielectrics=has_dielectrics,
+                   sky_on=sky_on, trace_depth=trace_depth, t_min=t_min)
+    state = initial_state(n, lane_count.device)
+    winners = torch.clamp(tape, min=0.0).to(torch.int64)
+    block = trace_depth
+
+    def run_block(b0, *flat):
+        st = dict(zip(STATE_KEYS, flat))
+        for it in range(b0, b0 + block):
+            wt = entity_rows[winners[it]].T  # (23, n) winner rows
+            st = replay_iteration(st, wt, tape[it], it, env, **statics)
+        return tuple(st[k] for k in STATE_KEYS)
+
+    for b0 in range(0, samples * trace_depth, block):
+        if not bool((tape[b0:b0 + block] > -1.5).any()):
+            continue
+        out = torch_checkpoint.checkpoint(
+            run_block, b0, *(state[k] for k in STATE_KEYS),
+            use_reentrant=False,
+        )
+        state = dict(zip(STATE_KEYS, out))
+    return (torch.stack([state["csx"], state["csy"], state["csz"]], dim=-1),
+            state["cnt"])
+
+
+# ---------------------------------------------------------------------------
+# autograd.Function: kernel primal, replay backward
+# ---------------------------------------------------------------------------
+
+
+class _SampleBatchDiff(torch.autograd.Function):
+    """Inputs: the six differentiable tables, then the non-differentiable
+    lane rows, the seed, the lane base and the static options."""
+
+    @staticmethod
+    def forward(ctx, camera_row, centers, radii, records, sky_bottom,
+                sky_top, lane_count, count_in, seed, lane_base, statics):
+        out = mk.sample_batch(
+            lane_count, count_in, camera_row, centers, radii, records,
+            sky_bottom, sky_top, seed, lane_base, want_tape=True, **statics,
+        )
+        ctx.save_for_backward(out["tape"], lane_count, camera_row, centers,
+                              radii, records, sky_bottom, sky_top)
+        ctx.seed, ctx.lane_base, ctx.statics = seed, lane_base, statics
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(out["rays"])
+        # separate contiguous tensors, not views of one accumulator buffer
+        return tuple(out[k].clone(memory_format=torch.contiguous_format)
+                     for k in mk.OUTPUT_KEYS)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        cot = dict(zip(mk.OUTPUT_KEYS, cots))
+        leaked = [k for k in AOV_OUTPUTS if cot[k] is not None]
+        if leaked:
+            raise NotImplementedError(
+                "the differentiable fused path propagates only the color "
+                "sum's and valid count's cotangents, but this loss also "
+                f"differentiates through {leaked}: AOV gradients need the "
+                "wavefront integrator's AOV graft (ROADMAP queue 1, step 9)"
+            )
+        from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
+
+        (tape, lane_count, camera_row, centers, radii, records, sky_bottom,
+         sky_top) = ctx.saved_tensors
+        n = lane_count.shape[0]
+        zeros = torch.zeros(n, dtype=torch.float32, device=tape.device)
+        cot_color = (cot["color"] if cot["color"] is not None
+                     else zeros[:, None].expand(n, 3))
+        cot_count = cot["count"] if cot["count"] is not None else zeros
+        grads = megatrace_bwd.replay_grad(
+            tape, lane_count, camera_row, centers, radii, records,
+            sky_bottom, sky_top, ctx.seed, cot_color, cot_count,
+            ctx.lane_base, **ctx.statics,
+        )
+        return (*grads, None, None, None, None, None)
+
+
+def sample_batch_diff(
+    lane_count: torch.Tensor,
+    count_in: torch.Tensor,
+    camera_row: torch.Tensor,
+    centers: torch.Tensor,
+    radii: torch.Tensor,
+    records: torch.Tensor,
+    sky_bottom: torch.Tensor,
+    sky_top: torch.Tensor,
+    seed,
+    lane_base: int = 0,
+    *,
+    samples: int,
+    trace_depth: int,
+    t_min: float = 0.0,
+    has_dielectrics: bool = True,
+    sky_on: bool = True,
+    jitter: bool = True,
+) -> dict:
+    """`megatrace.sample_batch` with gradients with respect to camera_row,
+    centers, radii, records, sky_bottom and sky_top, through the tape
+    replay.  Outputs are the kernel's (no tape).  Only the `color` and
+    `count` cotangents propagate; a loss that differentiates an AOV output
+    raises NotImplementedError in backward.  When no input requires a
+    gradient (or grad mode is off) this is the forward path, with no
+    tape."""
+    statics = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
+                   has_dielectrics=has_dielectrics, sky_on=sky_on,
+                   jitter=jitter)
+    diff_inputs = (camera_row, centers, radii, records, sky_bottom, sky_top)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in diff_inputs)):
+        return mk.sample_batch(lane_count, count_in, *diff_inputs, seed,
+                               lane_base, **statics)
+    outs = _SampleBatchDiff.apply(*diff_inputs, lane_count, count_in,
+                                  int(seed), int(lane_base), statics)
+    return dict(zip(mk.OUTPUT_KEYS, outs))

@@ -8,10 +8,16 @@ metrics.  Here one `render_batch` call is one `ops.megatrace.sample_batch`
 launch plus the merge and the metric reduction.  The accumulators are
 updated in place, which stands in for the JAX renderer's buffer donation.
 
-Only the forward fused path is ported.  Everything else raises
-NotImplementedError naming its ROADMAP item: the differentiable path,
-sampler flavors, and the scene features `ops.megatrace.unsupported_feature`
-lists.  An explicit refusal, not a fallback.
+The fused arm is ported, forward and differentiable.  With
+`differentiable=True` the batch goes through
+`ops.megatrace_replay.sample_batch_diff`: the same kernel (with its winner
+tape) as primal, the tape replay's backward kernel as gradient.  Only the
+color sum's and valid count's cotangents propagate; a loss on an AOV
+raises NotImplementedError in backward (the AOV graft of the JAX renderer
+needs the wavefront, ROADMAP queue 1, step 9).  Sampler flavors and the
+scene features `ops.megatrace.unsupported_feature` lists raise
+NotImplementedError naming their ROADMAP item.  An explicit refusal, not a
+fallback.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 from raytracing_in_one_weekend_tpu_torch.core import materials
 from raytracing_in_one_weekend_tpu_torch.core.camera import Camera
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
+from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay
 from raytracing_in_one_weekend_tpu_torch.render import film
 from raytracing_in_one_weekend_tpu_torch.scene.scene import Scene
 from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
@@ -59,7 +66,8 @@ def _reduce_metrics(acc: film.Accumulators, pixel_rays) -> BatchMetrics:
 
 
 def _apply_deltas(acc: film.Accumulators, d: dict, lane_count) -> BatchMetrics:
-    """Merge a sample_batch delta dict into `acc`, in place."""
+    """Merge a sample_batch delta dict into `acc`, in place.  Deltas that
+    carry gradients make the accumulators carry them too."""
     fb_new = ((acc.sample_count == 0) & (lane_count > 0))[:, None]
     acc.color.add_(d["color"])
     acc.sample_count.add_(d["count"])
@@ -75,14 +83,9 @@ def _apply_deltas(acc: film.Accumulators, d: dict, lane_count) -> BatchMetrics:
     return _reduce_metrics(acc, d["rays"])
 
 
-def check_scope(scene: Scene, differentiable: bool = False,
-                noise_color: int = 0) -> None:
-    """Raise NotImplementedError for anything outside the ported slice."""
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable rendering is not ported yet "
-            "(ROADMAP queue 1, step 6); pass differentiable=False"
-        )
+def check_scope(scene: Scene, noise_color: int = 0) -> None:
+    """Raise NotImplementedError for anything outside the ported slice
+    (the same scope, forward and differentiable)."""
     if noise_color != 0:
         raise NotImplementedError(
             "blue-noise sampler flavors are not ported yet "
@@ -105,7 +108,7 @@ def render_batch(
     trace_depth: int,
     sub_pixel_jitter: bool = True,
     interlace: tuple[int, int] = (0, 1),
-    differentiable: bool = False,
+    differentiable: bool = True,
     sample_range: tuple[int, int] | None = None,
     weight_extrema: torch.Tensor | None = None,
     noise_color: int = 0,
@@ -123,8 +126,14 @@ def render_batch(
     (min, max) and the previous batch's `weight_extrema` (2,), each pixel
     takes round(lerp(min, max, unlerp(extrema, weight))) samples; pixels
     with zero weight take the minimum.
+
+    differentiable (the default, as in the JAX package): the deltas carry
+    gradients to the sphere centers, radii, materials, sky and camera
+    (whichever of them require grad) through the tape replay's backward
+    kernel.  When none does, or grad mode is off, the batch is the forward
+    path unchanged.
     """
-    check_scope(scene, differentiable, noise_color)
+    check_scope(scene, noise_color)
     if seed is None:
         if generator is None:
             raise ValueError("render_batch needs a generator or a seed")
@@ -153,7 +162,9 @@ def render_batch(
     records = megatrace.pack_sphere_records(
         scene, materials.pack_materials(scene)
     )
-    d = megatrace.sample_batch(
+    batch = (megatrace_replay.sample_batch_diff if differentiable
+             else megatrace.sample_batch)
+    d = batch(
         lane_count,
         acc.sample_count,
         megatrace.pack_camera_row(camera, width, height),
@@ -182,10 +193,12 @@ def render_image(
     samples_per_pixel: int,
     trace_depth: int,
     sub_pixel_jitter: bool = True,
-    differentiable: bool = False,
+    differentiable: bool = True,
     seed: int | None = None,
 ) -> film.CombinedImage:
-    """One-shot render: one batch of `samples_per_pixel` samples."""
+    """One-shot render: one batch of `samples_per_pixel` samples.  With
+    `differentiable` (the default, as in the JAX package) `color` carries
+    gradients to whatever scene or camera tensors require grad."""
     acc = film.zero_accumulators(
         width * height, device=scene.spheres.center.device
     )

@@ -1,4 +1,5 @@
-"""The PyTorch port imports no jax and renders on the CPU on its own."""
+"""The PyTorch port imports no jax and renders, differentiates and trains
+on the CPU on its own."""
 
 import os
 import subprocess
@@ -31,6 +32,22 @@ _, metrics = renderer.render_batch(
 )
 assert float(metrics.total_rays) > 0
 assert float(acc.sample_count.sum()) > 0
+
+# the differentiable path and the trainer, on the plain versions
+from raytracing_in_one_weekend_tpu_torch.diff import inverse, params
+
+centers = scene.spheres.center.clone().requires_grad_()
+img = renderer.render_image(params.set_sphere_centers(scene, centers), cam,
+                            width=8, height=8, samples_per_pixel=1,
+                            trace_depth=3, seed=1)
+img.color.mean().backward()
+assert bool(torch.isfinite(centers.grad).all())
+_, losses = inverse.optimize(
+    scene, cam, img.color.detach(),
+    {"sphere_centers": scene.spheres.center},
+    inverse.InverseRenderConfig(width=8, height=8, samples_per_pixel=1,
+                                trace_depth=3, steps=1))
+assert len(losses) == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib",
                                     "raytracing_in_one_weekend_tpu"))

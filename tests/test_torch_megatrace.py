@@ -41,7 +41,7 @@ from raytracing_in_one_weekend_tpu.models import book_scenes as jax_scenes
 from raytracing_in_one_weekend_tpu.ops import pallas_megatrace
 from raytracing_in_one_weekend_tpu_torch.core import camera, materials
 from raytracing_in_one_weekend_tpu_torch.models import book_scenes
-from raytracing_in_one_weekend_tpu_torch.ops import megatrace
+from raytracing_in_one_weekend_tpu_torch.ops import megatrace, megatrace_replay
 from raytracing_in_one_weekend_tpu_torch.render import renderer
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -238,8 +238,9 @@ def test_scope_refusals_name_the_roadmap():
             renderer.check_scope(scene)
     scene, _ = book_scenes.cover_scene()
     assert megatrace.scene_eligible(scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        renderer.check_scope(scene, differentiable=True)
+    # the differentiable path is ported: same scope as the forward one
+    assert megatrace_replay.replay_eligible(scene)
+    renderer.check_scope(scene)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         renderer.check_scope(scene, noise_color=1)
 
