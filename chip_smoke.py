@@ -1,12 +1,15 @@
-"""GPU smoke run of the PyTorch port's main paths: the forward render and
-the differentiable render (forward with tape, backward kernel, trainer).
+"""GPU smoke run of the PyTorch port's main paths: the forward render, the
+differentiable render (forward with tape, backward kernel, trainer) and
+the wavefront integrator (per-ray megatrace, fused sphere selection, the
+AOV-gradient graft).
 
     python3 chip_smoke.py
 
 Needs one CUDA card.  Phases, each of which raises on failure:
   1. report the card (nvidia-smi name and power limit) and versions;
-  2. build both kernels (csrc/megatrace_batch.cu, csrc/megatrace_bwd.cu),
-     one nvcc each, at once; print ptxas's register and spill lines;
+  2. build the four kernel sources (csrc/megatrace_batch.cu,
+     csrc/megatrace_bwd.cu, csrc/sphere_select.cu, csrc/megatrace_wave.cu),
+     one nvcc each, all at once; print ptxas's register and spill lines;
   3. compare the batch kernel with its plain PyTorch version on the card
      (cover, 128x128, 8 spp, depth 8, two seeds): lanes whose winner tape,
      sample count and ray count are identical and whose float channels
@@ -50,9 +53,41 @@ Needs one CUDA card.  Phases, each of which raises on failure:
      launched), then 10 steps on its albedos from 0.5: the last loss
      below half the first, the albedo error below half its start;
  10. time the backward kernel and its plain version at 512x512, depth 8,
-     4 spp, and compare their gradients.
+     4 spp, and compare their gradients;
+ 11. the wavefront's kernels against their plain versions on the card:
+     sphere_select and sphere_select_full on random cases (512x37, 256x21,
+     1024x5 with inactive blocks) and on one bounce of 512x512 cover
+     camera rays (t, index, exit and record identical on >= 99% of lanes,
+     expected 1.0), timed there; the per-ray megatrace on 512x512 cover
+     camera rays at depth 8 and 35 (valid and ray count identical, floats
+     within 1e-4, >= 99% of lanes), timed at depth 8.  Their kernel times
+     are the kernels' own device time under torch.profiler (`kernel_ms`);
+     a wrapper call, timed by CUDA events, also pays its host's packing;
+ 12. the wavefront's full-width paths, each with its launch counts set to
+     0 just before and read just after (each must be > 0), finite outputs
+     and MRays/s: (a) integrator.trace(differentiable=False) on 512x512
+     cover camera rays, depth 8: the `mega` arm (megatrace_wave.cu);
+     (b) render_batch(differentiable=False) on the cover at 512x512, 64 spp,
+     depth 8 with the batch kernel refused as `bench_matrix.py --wavefront`
+     refuses it (megatrace.scene_eligible patched to False): the `fast`
+     arm, sphere_select_full on every bounce, median of 3 batches after a
+     warm-up, and the device's busy share of a 1-sample batch under
+     torch.profiler; (c) the AOV step: render_image(differentiable=True)
+     on the cover at 512x512, 64 spp, depth 8, loss mean((color -
+     target)^2) + mean(normal^2) + mean(albedo^2), .backward() to the
+     sphere centers and the texture colors (the albedos): step time, peak
+     memory and sphere_select launches (the graft's nearest_hit); then a
+     photometric step, in which sphere_select must not launch; the
+     backward of a gather of 90%-equal rows by advanced indexing and by
+     index_select (why the graft uses the latter); the device's busy share
+     of a 1-sample AOV step; then the AOV gradient at 128x128, 8 spp
+     against the same computed by the plain versions (the same inputs on
+     the CPU), each leaf within 5e-4 of its max abs.
 MRays/s counts every bounce of every sample as one ray, with the ray
-count the kernel itself reports.  The last line is the JSON status.
+count the kernels themselves report.  Each kernel's bound is the larger of
+its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
+read once, each output written once) over 3.35 TB/s, counted from this
+run's inputs (see `bound`).  The last line is the JSON status.
 """
 
 from __future__ import annotations
@@ -69,14 +104,17 @@ import numpy as np
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.core import camera as camera_mod
-from raytracing_in_one_weekend_tpu_torch.core import materials
+from raytracing_in_one_weekend_tpu_torch.core import materials, rng
 from raytracing_in_one_weekend_tpu_torch.diff import inverse
 from raytracing_in_one_weekend_tpu_torch.diff import params as params_mod
 from raytracing_in_one_weekend_tpu_torch.models import book_scenes
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay
-from raytracing_in_one_weekend_tpu_torch.render import film, renderer
+from raytracing_in_one_weekend_tpu_torch.ops import sphere_select
+from raytracing_in_one_weekend_tpu_torch.render import (
+    film, integrator, renderer,
+)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = 5e-4  # of each cotangent's / leaf's max abs
@@ -84,6 +122,27 @@ LEAVES = ("camera_row", "centers", "radii", "records", "sky_bottom",
           "sky_top")
 FLOAT_CHANNELS = ("color", "normal", "albedo", "weight", "fallback_normal",
                   "fallback_albedo")
+WAVE_FLOATS = ("radiance", "aov_normal", "aov_albedo", "events")
+
+# Roofline of an H100 SXM (NVIDIA's data sheet, at the 700 W limit)
+PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12  # B/s of HBM3
+# Operation counts, from the kernels' code (a fused multiply-add counts 2):
+SWEEP_FLOPS = 18  # per (ray, sphere) pair of the sweep: two 3-dots (10),
+#   b (1), c (3), the discriminant (3), its test (1); the roots only where
+#   it is positive, which is rare
+SHADE_FLOPS = 250  # per bounce of a lane: winner normal, scatter (two
+#   hemisphere draws, rough normal, Fresnel, Smith masking, reflection,
+#   dielectric), sky, fold, AOV capture, events and advance
+BWD_FLOPS = 3 * SHADE_FLOPS  # per live iteration of the backward: the
+#   step once forward and its VJP (about twice the forward), the least a
+#   reverse sweep from the winner tape needs
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least milliseconds on the card, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def card_line() -> str:
@@ -458,12 +517,448 @@ def differentiable_phases(dev, card, scene, cs, camera, target) -> dict:
                                 repeats=1, **kw)
     a, r = leaf_errors(got, want)
     max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+    live = float(fwd["rays"].sum())  # live iterations of the tape
+    s_count = tables[1].shape[0]
+    bound_ms, bound_by = bound(
+        live * BWD_FLOPS,
+        fwd["tape"].numel() * 4 + n * 4 * 5 + s_count * 4 * 16 + 4 * 30)
     print(f"512x512 depth 8, 4 spp backward: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; max error {r:.3e} of the leaf's max abs "
-          f"[{card}]")
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({live:.0f} live iterations); max error {r:.3e} of the leaf's "
+          f"max abs [{card}]")
     out.update(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-               max_rel_err=max_rel)
+               max_rel_err=max_rel, bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+def random_rays(n, s, seed, dev):
+    """tests/test_pallas.py's random case: rays, spheres (centres, radii)."""
+    g = np.random.default_rng(seed)
+    o = g.normal(size=(n, 3)) * 2
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    c = g.normal(size=(s, 3)) * 2
+    r = g.uniform(0.4, 1.5, s)
+    return tuple(torch.tensor(v, dtype=torch.float32, device=dev)
+                 for v in (o, d, c, r))
+
+
+def camera_rays(camera, width, height, seed, dev):
+    key = rng.PRNGKey(seed)
+    coords = camera_mod.pixel_coords(width, height, key, True, device=dev)
+    return camera_mod.generate_rays(camera, coords, key)
+
+
+def select_parity(label, o, d, c, r, rec, active) -> tuple[float, float]:
+    """sphere_select and sphere_select_full against their plain versions on
+    the card: (share of lanes identical in both, max abs error)."""
+    got = sphere_select.sphere_select(o, d, c, r)
+    torch.cuda.synchronize()
+    want = sphere_select.sphere_select_reference(o, d, c, r)
+    same = (got[0] == want[0]) & (got[1] == want[1]) & (got[2] == want[2])
+    hit = (got[0] < sphere_select.BIG) & (want[0] < sphere_select.BIG)
+    err = max(float((got[k] - want[k])[hit].abs().max()) if bool(hit.any())
+              else 0.0 for k in (0, 2))
+    share4 = float(same.float().mean())
+    got = sphere_select.sphere_select_full(o, d, c, r, rec, active=active,
+                                           want_exit=True)
+    torch.cuda.synchronize()
+    want = sphere_select.sphere_select_full_reference(
+        o, d, c, r, rec, active=active, want_exit=True)
+    same = ((got[0] == want[0]) & (got[1] == want[1])
+            & (got[3] == want[2]).all(dim=1))
+    share3 = float(same.float().mean())
+    hit = (got[0] < sphere_select.BIG) & (want[0] < sphere_select.BIG)
+    if bool(hit.any()):
+        err = max(err, float((got[0] - want[0])[hit].abs().max()),
+                  float((got[3] - want[2])[hit].abs().max()))
+    print(f"sphere selection vs plain, {label}: sphere_select "
+          f"{share4:.6f}, sphere_select_full {share3:.6f} of lanes "
+          f"identical; max abs err {err:.3g}")
+    if min(share4, share3) < 0.99:
+        raise RuntimeError(f"sphere selection kernel/plain agreement "
+                           f"{min(share4, share3)} < 0.99 ({label})")
+    return min(share4, share3), err
+
+
+def wave_agreement(a: dict, b: dict) -> tuple[float, float]:
+    """Per-ray megatrace outputs: (share of lanes with identical valid and
+    ray count and floats within TOL, max abs float error on those)."""
+    same = (a["valid"] == b["valid"]) & (a["pixel_rays"] == b["pixel_rays"])
+    for k in WAVE_FLOATS:
+        close = torch.isclose(a[k], b[k], **TOL)
+        same &= close.reshape(close.shape[0], -1).all(dim=1)
+    if not bool(same.any()):
+        return 0.0, float("inf")
+    err = max(float((a[k] - b[k]).abs().reshape(same.shape[0], -1)[same]
+                    .max()) for k in WAVE_FLOATS)
+    return float(same.float().mean()), err
+
+
+def aov_gradient(scene, cs, dev, width, samples, key_seed):
+    """Gradients of the AOV loss (phase 12c) to the sphere centres and the
+    texture colors, rendered on `dev`."""
+    sc = scene.to(dev)
+    cam = camera_mod.make_camera(
+        cs.origin, cs.look_at, cs.up, cs.vertical_fov, 1.0,
+        aperture=cs.aperture, focus_distance=cs.focus_distance, device=dev)
+    centers = sc.spheres.center.clone().requires_grad_()
+    colors = sc.textures.main_color.clone().requires_grad_()
+    img = renderer.render_image(
+        params_mod.set_texture_colors(
+            params_mod.set_sphere_centers(sc, centers), colors),
+        cam, width=width, height=width, samples_per_pixel=samples,
+        trace_depth=8, key=rng.PRNGKey(key_seed))
+    loss = (torch.mean((img.color - 0.5) ** 2) + torch.mean(img.normal ** 2)
+            + torch.mean(img.albedo ** 2))
+    return [g.cpu() for g in torch.autograd.grad(loss, [centers, colors])]
+
+
+def device_busy_share(fn, refuse_batch_kernel: bool = False) -> float:
+    """Device time over wall time of one call of `fn` under torch.profiler
+    (kernel self time summed; the rest of the window the card idles).  The
+    profiler's own host overhead lengthens the window, so this is a lower
+    bound of the untraced share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eligible = megatrace.scene_eligible
+    if refuse_batch_kernel:
+        megatrace.scene_eligible = lambda *a, **k: False
+    try:
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+    finally:
+        megatrace.scene_eligible = eligible
+    # the kernels' own events, as the profiler table's device total counts
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return busy_us / wall_us
+
+
+def kernel_ms(fn, kernel: str, repeats: int) -> float:
+    """Device milliseconds per launch of the kernel whose name contains
+    `kernel`, over `repeats` calls of `fn` under torch.profiler: the
+    kernel alone, without the gaps a host-bound wrapper leaves between
+    launches (CUDA events around the calls would count those)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.key]
+    launches = sum(e.count for e in events)
+    if launches != repeats:
+        raise RuntimeError(f"profiled {launches} launches of {kernel}, "
+                           f"expected {repeats}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / launches
+
+
+def reset_launches() -> None:
+    megatrace.LAUNCHES = megatrace.WAVE_LAUNCHES = megatrace_bwd.LAUNCHES = 0
+    for k in sphere_select.LAUNCHES:
+        sphere_select.LAUNCHES[k] = 0
+
+
+def wavefront_phases(dev, card, scene, cs, camera, target,
+                     width: int = 512) -> dict:
+    """Phases 11 and 12 on a square image of `width` (the main path's 512;
+    `camera` and `target` at that size)."""
+    s_count = scene.spheres.center.shape[0]
+    height = width
+    n = width * height
+    kernels, paths = {}, {}
+
+    # ---- 11. kernels vs plain versions ---------------------------------------
+    shares, errs = [], []
+    for label, (nn, ss, seed) in (("random 512x37", (512, 37, 0)),
+                                  ("random 256x21", (256, 21, 3)),
+                                  ("random 1024x5", (1024, 5, 7))):
+        o, d, c, r = random_rays(nn, ss, seed, dev)
+        rec = torch.randn((ss, 12), generator=torch.Generator().manual_seed(
+            1)).to(dev)
+        active = torch.ones(nn, dtype=torch.bool, device=dev)
+        if nn == 1024:
+            active[:512] = False  # four blocks of inactive rays
+        share, err = select_parity(label, o, d, c, r, rec, active)
+        shares.append(share)
+        errs.append(err)
+    cam_rays = camera_rays(camera, width, height, 1, dev)
+    o, d = cam_rays.origin, cam_rays.direction
+    c, r = scene.spheres.center, scene.spheres.radius
+    packed = materials.pack_materials(scene)
+    mat = scene.spheres.material.long()
+    rec = torch.cat([packed[mat][:, :11], mat[:, None].float()], dim=1)
+    active = (torch.arange(n, device=dev) // 4096) % 4 != 3
+    share, err = select_parity(f"cover {width}x{height} camera rays", o, d, c, r, rec,
+                               active)
+    shares.append(share)
+    errs.append(err)
+    sel_ms = kernel_ms(lambda: sphere_select.sphere_select(o, d, c, r),
+                       "sphere_select_kernel", repeats=20)
+    sel_call_ms, _ = time_batch(sphere_select.sphere_select, o, d, c, r,
+                                repeats=20)
+    sel_plain_ms, _ = time_batch(sphere_select.sphere_select_reference, o, d,
+                                 c, r, repeats=1)
+    full_ms = kernel_ms(lambda: sphere_select.sphere_select_full(
+        o, d, c, r, rec, active=active), "sphere_select_full_kernel",
+        repeats=20)
+    full_call_ms, _ = time_batch(sphere_select.sphere_select_full, o, d, c,
+                                 r, rec, active=active, repeats=20)
+    full_plain_ms, _ = time_batch(sphere_select.sphere_select_full_reference,
+                                  o, d, c, r, rec, active=active, repeats=1)
+    live = float(sphere_select._block_active(active).sum())
+    sel_bound = bound(n * s_count * SWEEP_FLOPS, n * (24 + 12) + s_count * 16)
+    full_bound = bound(live * s_count * SWEEP_FLOPS,
+                       n * (24 + 1 + 8 + 64) + s_count * (16 + 64))
+    print(f"sphere_select, cover {width}x{height} camera rays x {s_count} "
+          f"spheres: "
+          f"kernel {sel_ms:.4f} ms (a wrapper call {sel_call_ms:.4f} ms), "
+          f"plain {sel_plain_ms:.3f} ms, bound {sel_bound[0]:.4f} ms by "
+          f"{sel_bound[1]} [{card}]")
+    print(f"sphere_select_full, same rays, {live:.0f} in live blocks: "
+          f"kernel {full_ms:.4f} ms (a wrapper call {full_call_ms:.4f} ms), "
+          f"plain {full_plain_ms:.3f} ms, bound {full_bound[0]:.4f} ms by "
+          f"{full_bound[1]} [{card}]")
+
+    records = packed[mat][:, :11]
+    sky = (scene.environment.sky_bottom, scene.environment.sky_top)
+    all_on = torch.ones(n, dtype=torch.bool, device=dev)
+    wave_args = (o, d, all_on, c, r, records, *sky, 5)
+    wshares, werrs = [], []
+    for depth in (8, 35):
+        got = megatrace.megatrace(*wave_args, trace_depth=depth)
+        torch.cuda.synchronize()
+        want = megatrace.megatrace_reference(*wave_args, trace_depth=depth)
+        share, err = wave_agreement(got, want)
+        print(f"megatrace vs plain, cover {width}x{height} camera rays, "
+              f"depth {depth}: {share:.6f} of lanes identical (valid, rays; "
+              f"floats within 1e-4), max abs err {err:.3g}")
+        if share < 0.99:
+            raise RuntimeError(f"megatrace kernel/plain agreement {share} "
+                               f"< 0.99 (depth {depth})")
+        wshares.append(share)
+        werrs.append(err)
+    wave_ms = kernel_ms(lambda: megatrace.megatrace(*wave_args,
+                                                    trace_depth=8),
+                        "megatrace_wave_kernel", repeats=5)
+    wave_call_ms, wout = time_batch(megatrace.megatrace, *wave_args,
+                                    trace_depth=8, repeats=5)
+    wave_plain_ms, _ = time_batch(megatrace.megatrace_reference, *wave_args,
+                                  trace_depth=8, repeats=1)
+    bounces = float(wout["pixel_rays"].sum())
+    wave_bound = bound(bounces * (s_count * SWEEP_FLOPS + SHADE_FLOPS),
+                       n * (24 + 1 + 48) + s_count * (16 + 64) + 24)
+    print(f"megatrace, cover {width}x{height} depth 8 ({bounces:.0f} "
+          f"bounces): "
+          f"kernel {wave_ms:.3f} ms ({bounces / wave_ms / 1e3:.3f} MRays/s; "
+          f"a wrapper call {wave_call_ms:.3f} ms), "
+          f"plain {wave_plain_ms:.3f} ms, bound {wave_bound[0]:.4f} ms by "
+          f"{wave_bound[1]} [{card}]")
+
+    # ---- 12a. integrator.trace, the mega arm ---------------------------------
+    key = rng.PRNGKey(3)
+    cam_rays = camera_rays(camera, width, height, 3, dev)
+    integrator.trace(scene, cam_rays, key, 8,
+                     differentiable=False)  # warm-up
+    reset_launches()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = integrator.trace(scene, cam_rays, key, 8, differentiable=False)
+        count = int(res.ray_count)  # waits for the device
+        runs.append(count / (time.perf_counter() - t) / 1e6)
+    mega_launches = megatrace.WAVE_LAUNCHES
+    if (mega_launches == 0 or megatrace.LAUNCHES != 0
+            or sum(sphere_select.LAUNCHES.values()) != 0):
+        raise RuntimeError("trace(differentiable=False) did not take the "
+                           "mega arm alone")
+    if (not bool(torch.isfinite(res.radiance).all())
+            or float(res.valid.float().mean()) < 0.5):
+        raise RuntimeError("bad mega-arm trace")
+    paths["mega_mrays"] = statistics.median(runs)
+    print(f"(a) trace, mega arm: cover {width}x{height} camera rays, depth "
+          f"8: median "
+          f"{paths['mega_mrays']:.3f} MRays/s over 3 ({count} rays, "
+          f"{mega_launches} megatrace launches) [{card}]")
+
+    # ---- 12b. render_batch with the batch kernel refused: the fast arm -----
+    eligible = megatrace.scene_eligible
+    megatrace.scene_eligible = lambda *a, **k: False
+    try:
+        acc = film.zero_accumulators(n, device=dev)
+
+        def wave_batch(i):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = renderer.render_batch(
+                scene, camera, acc, key=rng.PRNGKey(100 + i), width=width,
+                height=height, samples=64, trace_depth=8,
+                differentiable=False)
+            total = float(m.total_rays)  # waits for the device
+            torch.cuda.synchronize()
+            return total, time.perf_counter() - t
+
+        wave_batch(0)  # warm-up
+        reset_launches()
+        runs = [wave_batch(i) for i in (1, 2, 3)]
+        fast_launches = sphere_select.LAUNCHES["sphere_select_full"]
+        if (fast_launches == 0 or megatrace.LAUNCHES != 0
+                or megatrace.WAVE_LAUNCHES != 0):
+            raise RuntimeError("the refused batch did not take the fast arm")
+    finally:
+        megatrace.scene_eligible = eligible
+    paths["fast_mrays"] = statistics.median(r / t / 1e6 for r, t in runs)
+    paths["fast_device_busy"] = device_busy_share(
+        lambda: renderer.render_batch(
+            scene, camera, film.zero_accumulators(n, device=dev),
+            key=rng.PRNGKey(7), width=width, height=height, samples=1,
+            trace_depth=8, differentiable=False),
+        refuse_batch_kernel=True)
+    img = film.combine(acc, width, height).color
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.2:
+        raise RuntimeError(f"bad fast-arm image: mean {float(img.mean())}")
+    print(f"(b) render_batch, batch kernel refused (fast arm): cover "
+          f"{width}x{height} depth 8, 64 spp/batch: median "
+          f"{paths['fast_mrays']:.3f} MRays/s over 3 batches "
+          f"({runs[0][0]:.0f} rays/batch, {fast_launches} sphere_select_full "
+          f"launches); image mean {float(img.mean()):.4f}; device busy "
+          f"{paths['fast_device_busy']:.3f} of a 1-sample batch [{card}]")
+
+    # ---- 12c. the AOV step --------------------------------------------------
+    def step(aov: bool):
+        centers = scene.spheres.center.clone().requires_grad_()
+        colors = scene.textures.main_color.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = renderer.render_image(
+            params_mod.set_texture_colors(
+                params_mod.set_sphere_centers(scene, centers), colors),
+            camera, width=width, height=height, samples_per_pixel=64,
+            trace_depth=8, key=rng.PRNGKey(11))
+        loss = torch.mean((img.color - target) ** 2)
+        if aov:
+            loss = loss + torch.mean(img.normal ** 2) + torch.mean(
+                img.albedo ** 2)
+        loss.backward()
+        torch.cuda.synchronize()
+        for g in (centers.grad, colors.grad):
+            if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0:
+                raise RuntimeError(f"bad gradient in the AOV step ({aov})")
+        return time.perf_counter() - t
+
+    def step_small():
+        centers = scene.spheres.center.clone().requires_grad_()
+        img = renderer.render_image(
+            params_mod.set_sphere_centers(scene, centers), camera,
+            width=width, height=height, samples_per_pixel=1, trace_depth=8,
+            key=rng.PRNGKey(12))
+        torch.mean(img.normal ** 2).backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runs_before = renderer.AOV_GRAFT_RUNS
+    aov_s = step(True)
+    aov_peak = torch.cuda.max_memory_allocated() / 1e9
+    select_launches = sphere_select.LAUNCHES["sphere_select"]
+    if (select_launches == 0 or megatrace.LAUNCHES == 0
+            or megatrace_bwd.LAUNCHES == 0
+            or renderer.AOV_GRAFT_RUNS != runs_before + 1):
+        raise RuntimeError("the AOV step did not run the graft's kernels")
+    print(f"(c) AOV step: cover {width}x{height}, 64 spp, depth 8: "
+          f"{aov_s:.3f} s, peak {aov_peak:.3f} GB, launches sphere_select "
+          f"{select_launches}, batch {megatrace.LAUNCHES}, backward "
+          f"{megatrace_bwd.LAUNCHES} [{card}]")
+    photo_s = step(False)
+    if (sphere_select.LAUNCHES["sphere_select"] != select_launches
+            or renderer.AOV_GRAFT_RUNS != runs_before + 1):
+        raise RuntimeError("a photometric step ran the wavefront")
+    print(f"    photometric step: {photo_s:.3f} s, no sphere_select launch")
+    # why the graft gathers rows with index_select (ops/intersect.py)
+    table = torch.randn((s_count, 3), device=dev, requires_grad=True)
+    rows = torch.randint(1, s_count, (n,), device=dev)
+    rows[: n * 9 // 10] = 0  # most rays hit one sphere, as the ground
+    for label, gather in (("advanced indexing", lambda: table[rows]),
+                          ("index_select", lambda: torch.index_select(
+                              table, 0, rows))):
+        ms_back, _ = time_batch(
+            lambda: torch.autograd.grad(gather().sum(), table), repeats=10)
+        paths[f"gather_backward_ms_{label.split()[0]}"] = ms_back
+        print(f"    gather backward, {n} rows of ({s_count}, 3), 90% one "
+              f"row: {label} {ms_back:.3f} ms")
+    paths["aov_device_busy"] = device_busy_share(lambda: step_small())
+    paths.update(aov_step_s=aov_s, aov_peak_gb=aov_peak,
+                 photometric_step_s=photo_s)
+
+    t = time.perf_counter()
+    got = aov_gradient(scene, cs, dev, 128, 8, 4)
+    want = aov_gradient(scene, cs, torch.device("cpu"), 128, 8, 4)
+    rel = 0.0
+    for name, g, w in zip(("centers", "texture colors"), got, want):
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        if not (err <= GRAD_TOL * scale) or scale == 0.0:
+            raise RuntimeError(f"AOV gradient, card vs plain: {name} error "
+                               f"{err} against max abs {scale}")
+        rel = max(rel, err / scale)
+    print(f"    device busy {paths['aov_device_busy']:.3f} of a 1-sample AOV "
+          f"step")
+    print(f"    AOV gradient, cover 128x128, 8 spp: card vs plain versions "
+          f"on the CPU within {rel:.3e} of each leaf's max abs "
+          f"({time.perf_counter() - t:.1f} s)")
+    paths["aov_grad_rel_err"] = rel
+
+    kernels = [{
+        "name": "megatrace_wave",
+        "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_wave.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:1585",
+        "launches": mega_launches,
+        "max_abs_err": max(werrs),
+        "ms": wave_ms,
+        "plain_ms": wave_plain_ms,
+        "bound_ms": wave_bound[0],
+        "bound_by": wave_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "sphere_select_full",
+        "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/sphere_select.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_sphere.py:161",
+        "launches": fast_launches,
+        "max_abs_err": max(errs),
+        "ms": full_ms,
+        "plain_ms": full_plain_ms,
+        "bound_ms": full_bound[0],
+        "bound_by": full_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "sphere_select",
+        "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/sphere_select.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_sphere.py:41",
+        "launches": select_launches,
+        "max_abs_err": max(errs),
+        "ms": sel_ms,
+        "plain_ms": sel_plain_ms,
+        "bound_ms": sel_bound[0],
+        "bound_by": sel_bound[1],
+        "library_ms": None,
+    }]
+    paths.update(select_share=min(shares), wave_share=min(wshares))
+    return {"kernels": kernels, "paths": paths}
 
 
 def main() -> int:
@@ -481,14 +976,17 @@ def main() -> int:
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for build in [pool.submit(megatrace.load_kernel),
-                      pool.submit(megatrace_bwd.load_kernel)]:
+    loaders = (megatrace.load_kernel, megatrace_bwd.load_kernel,
+               sphere_select.load_kernel, megatrace.load_wave_kernel)
+    with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
+        for build in [pool.submit(load) for load in loaders]:
             build.result()
-    print(f"build: megatrace_batch.cu and megatrace_bwd.cu in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"build: megatrace_batch.cu, megatrace_bwd.cu, sphere_select.cu "
+          f"and megatrace_wave.cu in {time.perf_counter() - t0:.1f} s")
     for name, log in (("megatrace_batch", megatrace.BUILD_LOG),
-                      ("megatrace_bwd", megatrace_bwd.BUILD_LOG)):
+                      ("megatrace_bwd", megatrace_bwd.BUILD_LOG),
+                      ("sphere_select", sphere_select.BUILD_LOG),
+                      ("megatrace_wave", megatrace.WAVE_BUILD_LOG)):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -607,15 +1105,21 @@ def main() -> int:
         raise RuntimeError(f"kernel/plain agreement {share} < 0.99 in the "
                            "timed 4 spp batch")
     max_err = max(max_err, err)
+    s_count = scene.spheres.center.shape[0]
+    batch_bound = bound(
+        rays4 * (s_count * SWEEP_FLOPS + SHADE_FLOPS),
+        n * 4 * (2 + megatrace.OUT_ROWS) + s_count * 4 * (4 + 16) + 4 * 32)
     print(f"512x512 depth 8, 4 spp: kernel {ms:.3f} ms "
           f"({rays4 / ms / 1e3:.3f} MRays/s), plain {plain_ms:.3f} ms "
-          f"({rays4 / plain_ms / 1e3:.3f} MRays/s); {share:.6f} of lanes "
-          f"agree, max abs err {err:.3g} [{card}]")
+          f"({rays4 / plain_ms / 1e3:.3f} MRays/s), bound "
+          f"{batch_bound[0]:.4f} ms by {batch_bound[1]}; {share:.6f} of "
+          f"lanes agree, max abs err {err:.3g} [{card}]")
 
     target = img.detach()  # bench.py's target: the forward image
     bwd = differentiable_phases(dev, card, scene, cs, camera, target)
+    wave = wavefront_phases(dev, card, scene, cs, camera, target)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "megatrace_batch",
         "route": "cuda",
         "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_batch.cu",
@@ -624,6 +1128,9 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": batch_bound[0],
+        "bound_by": batch_bound[1],
+        "library_ms": None,
     }, {
         "name": "megatrace_bwd",
         "route": "cuda",
@@ -634,13 +1141,19 @@ def main() -> int:
         "max_rel_err": bwd["max_rel_err"],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
-    }], "parity_share": min(shares), "fwd_mrays": fwd,
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": None,
+    }] + wave["kernels"]
+    print(json.dumps({
+        "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
         "depth35_fwd_bwd_mrays": bwd["depth35_fwd_bwd_mrays"],
         "step_vjp_rel_err": bwd["step_vjp_rel_err"],
         "replay_primal_share": bwd["replay_primal_share"],
         "peak_gb": bwd["peak_gb"], "trainer_losses": bwd["trainer_losses"],
-        "albedo_fit_losses": bwd["albedo_fit_losses"]}))
+        "albedo_fit_losses": bwd["albedo_fit_losses"],
+        "wavefront": wave["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,14 @@ code is plain PyTorch: functions on tensors, frozen dataclasses of
 tensors with a `.to(device)` method, an explicit `device` everywhere and
 an explicit `torch.Generator` for every random draw on the host.
 
-The forward render of sphere scenes is ported (the book-cover main
-path): `render.renderer.render_batch` -> `ops.megatrace.sample_batch`,
-which launches a hand-written CUDA kernel (`csrc/megatrace_batch.cu`)
-on CUDA tensors and runs its plain PyTorch version on CPU tensors.
-Everything the slice does not cover raises NotImplementedError naming
-its ROADMAP item.
+Ported for sphere scenes: the forward render (the book-cover main path,
+`render.renderer.render_batch` -> `ops.megatrace.sample_batch`), its
+gradient (`ops.megatrace_replay.sample_batch_diff` -> the backward kernel)
+and the wavefront integrator (`render.integrator.trace`, threefry keys in
+`core.rng`), which carries the AOV gradients and the autofocus raycast.
+Each kernel is hand-written CUDA under `csrc/`, launched on CUDA tensors;
+on CPU tensors its plain PyTorch version runs.  Everything the port does
+not cover yet raises NotImplementedError naming its ROADMAP item.
 
 This package never imports jax, nor the JAX package.
 """

@@ -1,9 +1,9 @@
 """Thin-lens camera (counterpart of the JAX package's core/camera.py).
 
-Reference: Runtime/View.cs:6-49.  Only the basis is ported: ray
-generation happens inside the batch kernel (ops/megatrace.py).  The
-wavefront's `generate_rays` / `pixel_coords` wait for the wavefront
-integrator (ROADMAP queue 1, step 9).
+Reference: Runtime/View.cs:6-49.  The batch kernel (ops/megatrace.py)
+generates its own camera rays; `pixel_coords` and `generate_rays` make
+the wavefront integrator's, from threefry keys (core/rng.py), as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ import math
 
 import torch
 
-from raytracing_in_one_weekend_tpu_torch.core import math3
+from raytracing_in_one_weekend_tpu_torch.core import math3, rng, sampling
+from raytracing_in_one_weekend_tpu_torch.core.ray import Rays
 from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
 
 
@@ -75,3 +76,59 @@ def make_camera(
         right=right,
         lens_radius=torch.as_tensor(aperture, **f32) / 2.0,
     )
+
+
+def generate_rays(
+    camera: Camera,
+    normalized_coords: torch.Tensor,
+    key: torch.Tensor,
+) -> Rays:
+    """Primary rays for normalized pixel coords (N, 2) in [0,1)^2
+    (View.cs:38-48 GetRay): a lens-disk defocus offset on the camera's
+    right/up axes from the LENS stream, a shutter time from the TIME
+    stream."""
+    n = normalized_coords.shape[0]
+    dev = normalized_coords.device
+    u1, u2 = rng.uniform(rng.purpose_key(key, rng.Purpose.LENS), (2, n),
+                         device=dev)
+    disk = sampling.in_unit_disk(u1, u2)
+    rd = camera.lens_radius * disk
+    offset = rd[:, 0:1] * camera.right + rd[:, 1:2] * camera.up
+    direction = (
+        camera.lower_left_corner
+        - offset
+        + normalized_coords[:, 0:1] * camera.horizontal
+        + normalized_coords[:, 1:2] * camera.vertical
+    )
+    time = rng.uniform(rng.purpose_key(key, rng.Purpose.TIME), (n,),
+                       device=dev)
+    return Rays(
+        origin=camera.origin + offset,
+        direction=math3.normalize(direction),
+        time=time,
+    )
+
+
+def pixel_coords(
+    width: int,
+    height: int,
+    key: torch.Tensor | None,
+    sub_pixel_jitter: bool,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """Normalized sample coordinates of the full pixel grid, row-major
+    (N, 2) with N = width * height: (coords + jitter, or 0.5) / size
+    (SampleBatchJob.cs:134), jitter from the PIXEL_JITTER stream."""
+    xs = torch.arange(width, dtype=torch.float32, device=device)
+    ys = torch.arange(height, dtype=torch.float32, device=device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # (H, W)
+    coords = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+    if sub_pixel_jitter and key is not None:
+        jitter = rng.uniform(
+            rng.purpose_key(key, rng.Purpose.PIXEL_JITTER), coords.shape,
+            device=device,
+        )
+    else:
+        jitter = 0.5
+    size = torch.tensor([width, height], dtype=torch.float32, device=device)
+    return (coords + jitter) / size

@@ -1,11 +1,25 @@
 """Batched 3-vector math over (..., 3) tensors (counterpart of the JAX
-package's core/math3.py): the part the camera and the film use."""
+package's core/math3.py): the part the camera, the film and the
+wavefront integrator use."""
 
 from __future__ import annotations
 
 import torch
 
 EPSILON = 1e-8
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise dot product over the trailing xyz axis."""
+    return torch.sum(a * b, dim=-1)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(a, b)
+
+
+def length_sq(a: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * a, dim=-1)
 
 
 def length(a: torch.Tensor) -> torch.Tensor:
@@ -28,8 +42,42 @@ def normalize_safe(a: torch.Tensor, eps: float = EPSILON) -> torch.Tensor:
     return torch.where((norm > eps)[..., None], out, torch.zeros_like(a))
 
 
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
 def saturate(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, 0.0, 1.0)
+    """clip(x, 0, 1) whose derivative is split in half at x == 0 or 1, as
+    jnp.clip's is (torch.clamp passes it whole): Lambert hits sit exactly
+    at the reflection lottery's lower tie."""
+    return torch.minimum(torch.maximum(x, torch.zeros_like(x)),
+                         torch.ones_like(x))
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection of direction d about normal n."""
+    return d - 2.0 * dot(d, n)[..., None] * n
+
+
+def orthonormal_basis(n: torch.Tensor):
+    """Branchless Duff et al. orthonormal basis of a unit normal
+    (Util/Tools.cs:19-28).  Returns (tangent, bitangent)."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    sign = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    tangent = torch.stack(
+        [1.0 + sign * nx * nx * a, sign * b, -sign * nx], dim=-1
+    )
+    bitangent = torch.stack([b, sign + ny * ny * a, -ny], dim=-1)
+    return tangent, bitangent
+
+
+def tangent_to_world(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Map a tangent-space direction (y up) into the frame of the world
+    normal n (Util/Tools.cs:30-46)."""
+    tangent, bitangent = orthonormal_basis(n)
+    return v[..., 0:1] * tangent + v[..., 1:2] * n + v[..., 2:3] * bitangent
 
 
 def linear_to_gamma(c: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,222 @@
+// One path-tracing bounce of one lane, sphere-only scenes: the code the
+// batch kernel (megatrace_batch.cu) and the per-ray megatrace
+// (megatrace_wave.cu) share, as the JAX package's kernels share
+// pallas_megatrace.py::_bounce_step.  Plain version:
+// ops/megatrace.py::_bounce, under the precision contract of
+// megatrace_common.cuh.
+#pragma once
+
+#include <stdint.h>
+
+#include "megatrace_common.cuh"
+
+namespace rtiw {
+
+constexpr int kRec = 16;  // record columns: 0-10 material | 11 id |
+                          // 12-14 centre | 15 1/r
+
+// The state of one path (SampleBatchJob.cs:166-401).
+struct Path {
+  float ox, oy, oz, dx, dy, dz;
+  float thx, thy, thz, rx, ry, rz;
+  float anx, any, anz, aax, aay, aaz;
+  float events;
+  bool active, valid, got;
+};
+
+// Bounce the active path `p` once: the dense sweep over the s spheres in
+// shared memory `sph` (centre, |c|^2 - r^2), the winner's record from
+// `rec`, Lambert / GGX-metal / dielectric scatter with the uniforms of
+// hash base `bbase`, the gradient sky `sky` (bottom rgb, top rgb) or none,
+// the fold, AOV capture and events at path depth `depth`, and the
+// advance.  Returns the winner's row, -1 on a miss.
+__device__ __forceinline__ int bounce(
+    Path& p, const float4* sph, int s, const float* __restrict__ rec,
+    float t_min, bool has_dielectrics, bool sky_on, const float* sky,
+    uint32_t bbase, int depth) {
+  // ---- dense sphere sweep ------------------------------------------------
+  const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
+              oz = p.oz;
+  const float a = dot3(dx, dy, dz, dx, dy, dz);
+  const float o_dot_d = dot3(ox, oy, oz, dx, dy, dz);
+  const float o_sq = dot3(ox, oy, oz, ox, oy, oz);
+  const float inv_a = 1.0f / a;
+  float best_t = kBig;
+  int best = 0;
+  for (int k = 0; k < s; ++k) {
+    const float4 g = sph[k];
+    const float b = o_dot_d - dot3(dx, dy, dz, g.x, g.y, g.z);
+    const float c = fmaf(-2.0f, dot3(ox, oy, oz, g.x, g.y, g.z), o_sq) + g.w;
+    const float disc = fmaf(b, b, -(a * c));
+    if (disc > 0.0f) {
+      const float sq = sqrtf(disc);
+      const float t_near = (-b - sq) * inv_a;
+      const float t_far = (-b + sq) * inv_a;
+      const float t = t_near > t_min ? t_near : (t_far > t_min ? t_far : kBig);
+      if (t < best_t) {  // strict: the first index wins a tie (argmin)
+        best_t = t;
+        best = k;
+      }
+    }
+  }
+  const bool hit = best_t < kBig;
+
+  if (!hit) {
+    // gradient sky (SampleBatchJob.cs:352-354)
+    float skr = 0.f, skg = 0.f, skb = 0.f;
+    if (sky_on) {
+      const float tsky = 0.5f * (dy + 1.0f);
+      skr = fmaf(sky[3] - sky[0], tsky, sky[0]);
+      skg = fmaf(sky[4] - sky[1], tsky, sky[1]);
+      skb = fmaf(sky[5] - sky[2], tsky, sky[2]);
+    }
+    p.rx = fmaf(p.thx, skr, p.rx);
+    p.ry = fmaf(p.thy, skg, p.ry);
+    p.rz = fmaf(p.thz, skb, p.rz);
+    if (!p.got) {
+      p.anx = -dx;
+      p.any = -dy;
+      p.anz = -dz;
+      p.aax = skr;
+      p.aay = skg;
+      p.aaz = skb;
+      p.got = true;
+    }
+    p.active = false;
+    p.valid = true;
+    return -1;
+  }
+
+  const float* w = rec + (size_t)best * kRec;
+  const float px = fmaf(best_t, dx, ox);
+  const float py = fmaf(best_t, dy, oy);
+  const float pz = fmaf(best_t, dz, oz);
+  const float inv_r = __ldg(w + 15);
+  const float nx = (px - __ldg(w + 12)) * inv_r;
+  const float ny = (py - __ldg(w + 13)) * inv_r;
+  const float nz = (pz - __ldg(w + 14)) * inv_r;
+  const float mtype = __ldg(w + 0);
+  const float alb_r = __ldg(w + 1), alb_g = __ldg(w + 2),
+              alb_b = __ldg(w + 3);
+  const float em_r = __ldg(w + 4), em_g = __ldg(w + 5), em_b = __ldg(w + 6);
+  const float gloss = __ldg(w + 7), metallic = __ldg(w + 8),
+              parameter = __ldg(w + 9);
+  float perfect = __ldg(w + 10);
+
+  const float ua = uniform(bbase, 0), ub = uniform(bbase, 1);
+  const float u_choice = uniform(bbase, 4);
+  float sdx, sdy, sdz, srr, srg, srb, step_events;
+  if (has_dielectrics && mtype > 0.5f) {
+    // ---- dielectric (Material.cs:121-161) ------------------------------
+    const float d_rough = 1.0f - gloss;
+    const float z = ua * 2.0f - 1.0f;
+    const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+    const float th = ub * kTwoPi;
+    const float ssx = cos_cr(th) * r, ssy = sin_cr(th) * r, ssz = z;
+    float drx = fmaf(d_rough, ssx, nx);
+    float dry = fmaf(d_rough, ssy, ny);
+    float drz = fmaf(d_rough, ssz, nz);
+    normalize3(drx, dry, drz);
+    const float ddot = dot3(dx, dy, dz, drx, dry, drz);
+    const bool exiting = ddot > 0.0f;
+    const float onx = exiting ? -drx : drx;
+    const float ony = exiting ? -dry : dry;
+    const float onz = exiting ? -drz : drz;
+    const float ior = parameter;
+    const float ni_over_nt = exiting ? ior : 1.0f / ior;
+    const float cosine = exiting ? ior * ddot : -ddot;
+    const float dt = dot3(dx, dy, dz, onx, ony, onz);
+    const float disc_r =
+        fmaf(-(ni_over_nt * ni_over_nt), fmaf(-dt, dt, 1.0f), 1.0f);
+    const bool can_refract = disc_r > 0.0f;
+    const float sq_r = sqrtf(can_refract ? disc_r : 0.0f);
+    const float refl_prob = schlick(cosine, ior);
+    const bool do_refract = can_refract && (u_choice > refl_prob);
+    if (do_refract) {
+      sdx = fmaf(ni_over_nt, fmaf(-onx, dt, dx), -(onx * sq_r));
+      sdy = fmaf(ni_over_nt, fmaf(-ony, dt, dy), -(ony * sq_r));
+      sdz = fmaf(ni_over_nt, fmaf(-onz, dt, dz), -(onz * sq_r));
+      srr = alb_r;
+      srg = alb_g;
+      srb = alb_b;
+    } else {
+      sdx = fmaf(-(2.0f * ddot), drx, dx);
+      sdy = fmaf(-(2.0f * ddot), dry, dy);
+      sdz = fmaf(-(2.0f * ddot), drz, dz);
+      srr = srg = srb = 1.0f;
+    }
+    step_events = 1.0f + d_rough;
+    perfect = 1.0f;
+  } else {
+    // ---- Standard: Lambert / GGX metal (Material.cs:75-119) ------------
+    const float roughness = (1.0f - gloss) * (1.0f - gloss);
+    float rnx = nx, rny = ny, rnz = nz;
+    if (roughness > 0.0f) {
+      float csx, csy, csz;
+      cosine_hemisphere(ua, ub, nx, ny, nz, csx, csy, csz);
+      rnx = fmaf(csx - nx, roughness, nx);
+      rny = fmaf(csy - ny, roughness, ny);
+      rnz = fmaf(csz - nz, roughness, nz);
+      normalize3(rnx, rny, rnz);
+    }
+    const float spec_dot = dot3(dx, dy, dz, rnx, rny, rnz);
+    const float incident_cos = -spec_dot;
+    const float std_ior = fmaf(kIorSpan, metallic, kPlasticIor);
+    const float fresnel = schlick(incident_cos, std_ior);
+    const float masking =
+        smith_masking(dot3(dx, dy, dz, nx, ny, nz), roughness);
+    const float refl_chance =
+        fminf(fmaxf(fresnel * gloss * masking, 0.0f), 1.0f);
+    const bool take_spec = (refl_chance > 0.0f) && (u_choice < refl_chance);
+    const bool take_metal =
+        (metallic > 0.0f) && (uniform(bbase, 5) < metallic);
+    if (take_spec || take_metal) {
+      sdx = fmaf(-(2.0f * spec_dot), rnx, dx);
+      sdy = fmaf(-(2.0f * spec_dot), rny, dy);
+      sdz = fmaf(-(2.0f * spec_dot), rnz, dz);
+    } else {
+      cosine_hemisphere(uniform(bbase, 2), uniform(bbase, 3), nx, ny, nz,
+                        sdx, sdy, sdz);
+    }
+    srr = take_spec ? 1.0f : alb_r;
+    srg = take_spec ? 1.0f : alb_g;
+    srb = take_spec ? 1.0f : alb_b;
+    step_events =
+        ((refl_chance > 0.0f && refl_chance < 1.0f) ? 1.0f : 0.0f) +
+        ((metallic > 0.0f && metallic < 1.0f) ? 1.0f : 0.0f) +
+        roughness * (refl_chance + (1.0f - refl_chance) * metallic) +
+        (1.0f - refl_chance) * (1.0f - metallic);
+  }
+
+  // ---- fold, AOVs, events, advance --------------------------------------
+  p.rx = fmaf(p.thx, em_r, p.rx);
+  p.ry = fmaf(p.thy, em_g, p.ry);
+  p.rz = fmaf(p.thz, em_b, p.rz);
+  p.thx = p.thx * srr;
+  p.thy = p.thy * srg;
+  p.thz = p.thz * srb;
+  const bool first_nonspec = !p.got && perfect < 0.5f;
+  if ((depth == 0 && !p.got) || first_nonspec) {
+    p.anx = nx;
+    p.any = ny;
+    p.anz = nz;
+  }
+  if (first_nonspec) {
+    p.aax = em_r + srr;
+    p.aay = em_g + srg;
+    p.aaz = em_b + srb;
+    p.got = true;
+  }
+  p.events = p.events + step_events * exp2f(-(float)depth);
+  const float off =
+      kSelfEps * (dot3(sdx, sdy, sdz, nx, ny, nz) >= 0.0f ? 1.0f : -1.0f);
+  p.ox = fmaf(off, nx, px);
+  p.oy = fmaf(off, ny, py);
+  p.oz = fmaf(off, nz, pz);
+  p.dx = sdx;
+  p.dy = sdy;
+  p.dz = sdz;
+  return best;
+}
+
+}  // namespace rtiw

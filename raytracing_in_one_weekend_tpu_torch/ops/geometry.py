@@ -1,0 +1,84 @@
+"""Batched ray-sphere intersection (counterpart of the JAX package's
+ops/geometry.py, its sphere functions).
+
+Reference: Runtime/HitTests.cs:23-60.  Every function returns a large
+but finite "miss" distance (BIG) instead of a flag, so the nearest-hit
+reduction is a masked min and everything stays differentiable.  The
+square roots are adjoint-safe: lanes without a root never see sqrt(0),
+whose backward is inf and would poison the gradient through 0 * inf.
+Rects, boxes and triangles wait for ROADMAP queue 1, step 7.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracing_in_one_weekend_tpu_torch.core import math3
+
+BIG = 1e30  # "no hit" distance sentinel
+T_MIN = 0.0  # reference FindHits uses tMin = 0 (SampleBatchJob.cs:458)
+
+
+def _roots(b, a, c_term, t_min):
+    """(t_entry, t_exit) of the quadratic a t^2 + 2 b t + c = 0."""
+    discriminant = b * b - a * c_term
+    has_root = discriminant > 0.0
+    sqrt_disc = torch.sqrt(torch.where(has_root, discriminant, 1.0))
+    sqrt_disc = torch.where(has_root, sqrt_disc, 0.0)
+    t_near = (-b - sqrt_disc) / a
+    t_far = (-b + sqrt_disc) / a
+    near_ok = has_root & (t_near > t_min)
+    far_ok = has_root & (t_far > t_min)
+    # the near root, then the far root (HitTests.cs:40-56): a ray that
+    # starts inside the sphere hits the far one
+    t_entry = torch.where(near_ok, t_near, torch.where(far_ok, t_far, BIG))
+    t_exit = torch.where(far_ok, t_far, BIG)
+    return t_entry, t_exit
+
+
+def sphere_hit_all(
+    origin: torch.Tensor,  # (N, 3)
+    direction: torch.Tensor,  # (N, 3)
+    centers: torch.Tensor,  # (S, 3)
+    radii: torch.Tensor,  # (S,)
+    t_min: float = T_MIN,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quadratic sphere test, all rays x all spheres, with the dot
+    products expanded as the JAX package's (b = o.d - d.c, |o - c|^2 =
+    |o|^2 - 2 o.c + |c|^2).  Returns (t_entry (N, S), t_exit (N, S)), BIG
+    where there is no hit."""
+    o_dot_d = math3.dot(origin, direction)[:, None]
+    a = math3.length_sq(direction)[:, None]
+    o_sq = math3.length_sq(origin)[:, None]
+    d_dot_c = direction @ centers.T
+    o_dot_c = origin @ centers.T
+    c_sq = math3.length_sq(centers)[None, :]
+    b = o_dot_d - d_dot_c
+    c_term = o_sq - 2.0 * o_dot_c + c_sq - (radii * radii)[None, :]
+    return _roots(b, a, c_term, t_min)
+
+
+def sphere_hit_single(
+    origin: torch.Tensor,  # (N, 3)
+    direction: torch.Tensor,  # (N, 3)
+    centers: torch.Tensor,  # (N, 3): one (gathered) sphere per ray
+    radii: torch.Tensor,  # (N,)
+    t_min: float = T_MIN,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-ray single-sphere quadratic: the differentiable re-evaluation
+    of the winner that the selection kernel (ops/sphere_select.py)
+    picked, with gradients to the gathered center and radius."""
+    oc = origin - centers
+    a = math3.length_sq(direction)
+    b = math3.dot(oc, direction)
+    c = math3.length_sq(oc) - radii * radii
+    return _roots(b, a, c, t_min)
+
+
+def sphere_normal_at(
+    point: torch.Tensor,  # (N, 3)
+    center: torch.Tensor,  # (N, 3)
+    radius: torch.Tensor,  # (N,)
+) -> torch.Tensor:
+    """Outward geometric normal (p - c) / r (HitTests.cs:41,52)."""
+    return (point - center) / radius[..., None]

@@ -1,0 +1,104 @@
+"""Scene-level nearest-hit query (counterpart of the JAX package's
+ops/intersect.py), for sphere scenes.
+
+Reference: the per-ray candidate walk, brute-force test and distance sort
+of SampleBatchJob.cs:403-475, as a wavefront "intersect every sphere,
+reduce to the nearest" pass.  The selection runs in the sphere-selection
+kernel (ops/sphere_select.py, detached); the winner is then evaluated
+again in plain PyTorch (ops/geometry.sphere_hit_single), which carries the
+gradients to its centre and radius.  Rects, boxes, triangles, motion and
+the BVH raise NotImplementedError naming their ROADMAP steps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from raytracing_in_one_weekend_tpu_torch.core import math3
+from raytracing_in_one_weekend_tpu_torch.core.ray import Rays
+from raytracing_in_one_weekend_tpu_torch.ops import (
+    geometry, megatrace, sphere_select,
+)
+from raytracing_in_one_weekend_tpu_torch.scene.scene import EntityKind, Scene
+from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
+
+BIG = geometry.BIG
+
+
+def gather_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """table[index] along rows, through index_select: its backward adds
+    into the rows with atomics, while advanced indexing's backward on CUDA
+    sorts the indices and walks each run of equal ones in a single warp,
+    which crawls when most rays hit one sphere (the cover's ground)."""
+    return torch.index_select(table, 0, index)
+
+
+@dataclasses.dataclass(frozen=True)
+class Hit(TensorGroup):
+    t: torch.Tensor  # (N,) distance, BIG on a miss
+    hit: torch.Tensor  # (N,) bool
+    point: torch.Tensor  # (N, 3)
+    normal: torch.Tensor  # (N, 3) geometric, unit
+    uv: torch.Tensor  # (N, 2)
+    material: torch.Tensor  # (N,) int32 (0 on a miss; gate on .hit)
+    kind: torch.Tensor  # (N,) int32 EntityKind (-1 on a miss)
+    index: torch.Tensor  # (N,) int32 index within the kind
+    t_exit: torch.Tensor  # (N,) exit distance of the hit entity, else BIG
+
+
+def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
+    """All rays against every sphere; the nearest surface hit per ray."""
+    missing = megatrace.unported_feature(scene)
+    if missing is not None:
+        raise NotImplementedError(f"wavefront not ported for {missing}")
+    sph = scene.spheres
+    n = rays.origin.shape[0]
+    # detached selection kernel, then the differentiable (N,)-sized
+    # re-evaluation of the winner
+    _, idx, _ = sphere_select.sphere_select(
+        rays.origin.detach(), rays.direction.detach(), sph.center.detach(),
+        sph.radius.detach(), t_min=t_min,
+    )
+    win = idx.long()
+    t, t_exit = geometry.sphere_hit_single(
+        rays.origin, rays.direction, gather_rows(sph.center, win),
+        gather_rows(sph.radius, win), t_min,
+    )
+    closer = t < BIG
+    best_t = torch.where(closer, t, BIG)
+    best_kind = torch.where(closer, int(EntityKind.SPHERE), -1).to(
+        torch.int32)
+    best_index = torch.where(closer, idx, 0).to(torch.int32)
+    best_exit = torch.where(closer, t_exit, BIG)
+
+    hit = best_t < BIG
+    point = rays.at(torch.where(hit, best_t, 0.0))
+    normal, uv, material = _shading_attributes(scene, point, best_kind,
+                                               best_index)
+    assert normal.shape == (n, 3)
+    return Hit(t=best_t, hit=hit, point=point, normal=normal, uv=uv,
+               material=material, kind=best_kind, index=best_index,
+               t_exit=best_exit)
+
+
+def _shading_attributes(scene: Scene, point, kind, index):
+    """Normal, uv and material of the winning sphere only."""
+    sph = scene.spheres
+    gi = torch.clamp(index, 0, sph.center.shape[0] - 1).long()
+    is_sph = kind == EntityKind.SPHERE
+    sn = geometry.sphere_normal_at(point, gather_rows(sph.center, gi),
+                                   gather_rows(sph.radius, gi))
+    normal = torch.where(is_sph[:, None], sn, torch.zeros_like(sn))
+    material = torch.where(is_sph, sph.material[gi].to(torch.int32), 0)
+    # Shirley Book-2 spherical texcoords from the outward normal:
+    # u = (atan2(-z, x) + pi) / 2pi, v = acos(-y) / pi (the reference
+    # zeroes them, HitTests.cs:123; the JAX package restores the book's)
+    sph_u = (torch.atan2(-sn[:, 2], sn[:, 0]) + math.pi) / (2.0 * math.pi)
+    sph_v = torch.arccos(torch.clamp(-sn[:, 1], -1.0, 1.0)) / math.pi
+    uv = torch.where(is_sph[:, None], torch.stack([sph_u, sph_v], dim=-1),
+                     0.0)
+    # world normals are normalized (Entity.cs:65)
+    return math3.normalize_safe(normal), uv, material

@@ -18,6 +18,13 @@ and the per-pixel fold, AOVs, noise weight and ray count.
 * `sample_batch` is the wrapper: CPU tensors take the plain version; CUDA
   tensors launch the kernel or raise.  It counts launches in `LAUNCHES`.
 
+The module also holds the per-ray fused trace `megatrace` (the JAX
+package's `_kernel`, the wavefront integrator's `mega` arm): given rays
+traced to the end of `trace_depth` bounces, with the same bounce code
+(`_bounce`; on the card `csrc/megatrace_bounce.cuh`), its plain version
+`megatrace_reference` and its kernel `csrc/megatrace_wave.cu`, launches
+counted in `WAVE_LAUNCHES`.
+
 Both use the kernels' counter-based hash PRNG (lowbias32 of seed, global
 lane, stream and an iteration salt), bit for bit, so the port traces the
 same paths as the JAX kernel in interpret mode with `hw_prng=False`.
@@ -51,6 +58,10 @@ SALT_BOUNCE = 7919  # extra salt of the bounce draws
 _MASK32 = 0xFFFFFFFF
 
 LAUNCHES = 0  # CUDA kernel launches made by sample_batch
+WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
+SALT_DEPTH = 26699  # per-bounce salt of the per-ray megatrace's draws
+WAVE_ROWS = 12  # radiance 0-2 | valid 3 | normal 4-6 | albedo 7-9 |
+#   events 10 | rays 11
 
 
 # ---------------------------------------------------------------------------
@@ -58,15 +69,12 @@ LAUNCHES = 0  # CUDA kernel launches made by sample_batch
 # ---------------------------------------------------------------------------
 
 
-def unsupported_feature(scene) -> str | None:
-    """The first feature of `scene` this slice does not render, named
-    with its ROADMAP item, or None when the scene is in scope."""
-    s = scene.spheres.center.shape[0]
+def unported_feature(scene) -> str | None:
+    """The first scene feature no ported path draws, named with its
+    ROADMAP item, or None (the scope of the wavefront integrator)."""
     checks = (
-        (s == 0, "scenes without spheres (ROADMAP queue 1, step 7.1)"),
-        (s > SPH_CULL_MIN,
-         f"more than {SPH_CULL_MIN} spheres: the blocked sweep "
-         "(ROADMAP queue 1, step 7)"),
+        (scene.spheres.center.shape[0] == 0,
+         "scenes without spheres (ROADMAP queue 1, step 7.1)"),
         (scene.rects.rot.shape[0] > 0 or scene.boxes.rot.shape[0] > 0,
          "rects and boxes (ROADMAP queue 1, step 7.1)"),
         (scene.flags.has_volumes, "volumes (ROADMAP queue 1, step 7.2)"),
@@ -82,6 +90,16 @@ def unsupported_feature(scene) -> str | None:
         if refused:
             return what
     return None
+
+
+def unsupported_feature(scene) -> str | None:
+    """The first feature of `scene` the batch kernel does not render,
+    named with its ROADMAP item, or None when the scene is in scope: the
+    ported features, and at most SPH_CULL_MIN spheres."""
+    if scene.spheres.center.shape[0] > SPH_CULL_MIN:
+        return (f"more than {SPH_CULL_MIN} spheres: the blocked sweep "
+                "(ROADMAP queue 1, step 7)")
+    return unported_feature(scene)
 
 
 def scene_eligible(scene) -> bool:
@@ -128,6 +146,18 @@ def _pack_scene_tables(centers, radii, records):
     rec_t[12:15, :s] = centers.T
     rec_t[15, :s] = 1.0 / safe_r
     return sph, rec_t, s_pad
+
+
+def sweep_tables(centers, radii, records=None):
+    """The kernels' tables without the TPU padding: (S, 4) sphere rows
+    (centre, |c|^2 - r^2) and (S, 16) winner records (`records` in columns
+    0-11, centre, 1/r).  Pad rows never hit and come last, so sweeping the
+    real rows keeps every winner index."""
+    s = centers.shape[0]
+    if records is None:
+        records = centers[:, :0]
+    sph, rec_t, _ = _pack_scene_tables(centers, radii, records)
+    return sph[:s, :4].contiguous(), rec_t[:KERNEL_REC, :s].T.contiguous()
 
 
 def _pack_sky_row(sky_bottom, sky_top):
@@ -360,6 +390,187 @@ def _sweep(o, d, sph, t_min):
     return torch.min(t_entry, dim=0).values, torch.argmin(t_entry, dim=0)
 
 
+STATE_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
+              "rx", "ry", "rz", "anx", "any", "anz", "aax", "aay", "aaz",
+              "events", "active", "valid", "got")
+
+
+def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
+            sky):
+    """One bounce of every active path in `p` (a dict of (C,) rows keyed
+    by STATE_KEYS, updated in place): the dense sphere sweep, Lambert /
+    GGX-metal / dielectric scatter, the gradient sky, the fold, AOV
+    capture, events and the advance.  `u` holds the bounce's six uniform
+    rows, `depth` the path's bounce count ((C,) float or a number).
+    Returns (hit, best_idx) for the winner tape.  Shared by the batch
+    kernel's and the per-ray megatrace's plain versions, as the CUDA
+    kernels share csrc/megatrace_bounce.cuh."""
+    ua, ub, uc, ud, u_choice, u_choice2 = u
+    ox, oy, oz, dx, dy, dz = (p[k] for k in ("ox", "oy", "oz", "dx", "dy",
+                                              "dz"))
+    pactive, got = p["active"], p["got"]
+    sky_b, sky_t = sky[0:3], sky[3:6]
+    # sweep the active lanes only (idle lanes' results go unused)
+    live = torch.nonzero(pactive, as_tuple=True)[0]
+    best_t = torch.full_like(ox, BIG)
+    best_idx = torch.zeros_like(ox, dtype=torch.int64)
+    best_t[live], best_idx[live] = _sweep(
+        (ox[live], oy[live], oz[live]), (dx[live], dy[live], dz[live]),
+        sph, t_min,
+    )
+    hit = best_t < BIG
+    scatter_mask = pactive & hit
+    miss = pactive & ~hit
+
+    w = rec[best_idx]  # (C, 16) winner records
+    t_hit = torch.where(hit, best_t, 0.0)
+    px = _fma(t_hit, dx, ox)
+    py = _fma(t_hit, dy, oy)
+    pz = _fma(t_hit, dz, oz)
+    inv_r = w[:, 15]
+    nx = (px - w[:, 12]) * inv_r
+    ny = (py - w[:, 13]) * inv_r
+    nz = (pz - w[:, 14]) * inv_r
+    mtype = w[:, 0]
+    alb_r, alb_g, alb_b = w[:, 1], w[:, 2], w[:, 3]
+    em_r, em_g, em_b = w[:, 4], w[:, 5], w[:, 6]
+    gloss, metallic, parameter = w[:, 7], w[:, 8], w[:, 9]
+    perfect_f = w[:, 10]
+
+    # Standard scatter (Material.cs:75-119)
+    roughness = (1.0 - gloss) * (1.0 - gloss)
+    csx, csy, csz = _cosine_hemisphere(ua, ub, nx, ny, nz)
+    rnx, rny, rnz = _normalize3(
+        _fma(csx - nx, roughness, nx),
+        _fma(csy - ny, roughness, ny),
+        _fma(csz - nz, roughness, nz),
+    )
+    rough = roughness > 0.0
+    rnx = torch.where(rough, rnx, nx)
+    rny = torch.where(rough, rny, ny)
+    rnz = torch.where(rough, rnz, nz)
+    incident_cos = -_dot3(dx, dy, dz, rnx, rny, rnz)
+    std_ior = _fma(torch.full_like(metallic, METAL_IOR - PLASTIC_IOR),
+                   metallic, PLASTIC_IOR)
+    fresnel = _schlick(incident_cos, std_ior)
+    masking = _smith_masking(_dot3(dx, dy, dz, nx, ny, nz), roughness)
+    refl_chance = torch.clamp(fresnel * gloss * masking, 0.0, 1.0)
+    spec_dot = _dot3(dx, dy, dz, rnx, rny, rnz)
+    spx = _fma(-(2.0 * spec_dot), rnx, dx)
+    spy = _fma(-(2.0 * spec_dot), rny, dy)
+    spz = _fma(-(2.0 * spec_dot), rnz, dz)
+    lmx, lmy, lmz = _cosine_hemisphere(uc, ud, nx, ny, nz)
+    take_spec = (refl_chance > 0.0) & (u_choice < refl_chance)
+    take_metal = (metallic > 0.0) & (u_choice2 < metallic)
+    spec_like = take_spec | take_metal
+    sdx = torch.where(spec_like, spx, lmx)
+    sdy = torch.where(spec_like, spy, lmy)
+    sdz = torch.where(spec_like, spz, lmz)
+    srr = torch.where(take_spec, 1.0, alb_r)
+    srg = torch.where(take_spec, 1.0, alb_g)
+    srb = torch.where(take_spec, 1.0, alb_b)
+    std_events = (
+        torch.where((refl_chance > 0.0) & (refl_chance < 1.0), 1.0, 0.0)
+        + torch.where((metallic > 0.0) & (metallic < 1.0), 1.0, 0.0)
+        + roughness * (refl_chance + (1.0 - refl_chance) * metallic)
+        + (1.0 - refl_chance) * (1.0 - metallic)
+    )
+
+    if has_dielectrics:
+        # Dielectric (Material.cs:121-161)
+        d_roughness = 1.0 - gloss
+        ssx, ssy, ssz = _unit_sphere(ua, ub)
+        drx, dry, drz = _normalize3(
+            _fma(d_roughness, ssx, nx),
+            _fma(d_roughness, ssy, ny),
+            _fma(d_roughness, ssz, nz),
+        )
+        ddot = _dot3(dx, dy, dz, drx, dry, drz)
+        exiting = ddot > 0.0
+        onx = torch.where(exiting, -drx, drx)
+        ony = torch.where(exiting, -dry, dry)
+        onz = torch.where(exiting, -drz, drz)
+        ior = parameter
+        ni_over_nt = torch.where(exiting, ior, 1.0 / ior)
+        cosine = torch.where(exiting, ior * ddot, -ddot)
+        dt = _dot3(dx, dy, dz, onx, ony, onz)
+        disc_r = _fma(-(ni_over_nt * ni_over_nt), _fma(-dt, dt, 1.0), 1.0)
+        can_refract = disc_r > 0.0
+        sq_r = _sqrt(torch.where(can_refract, disc_r, 0.0))
+        rfx = _fma(ni_over_nt, _fma(-onx, dt, dx), -(onx * sq_r))
+        rfy = _fma(ni_over_nt, _fma(-ony, dt, dy), -(ony * sq_r))
+        rfz = _fma(ni_over_nt, _fma(-onz, dt, dz), -(onz * sq_r))
+        refl_prob = _schlick(cosine, ior)
+        do_refract = can_refract & (u_choice > refl_prob)
+        dlx = torch.where(do_refract, rfx, _fma(-(2.0 * ddot), drx, dx))
+        dly = torch.where(do_refract, rfy, _fma(-(2.0 * ddot), dry, dy))
+        dlz = torch.where(do_refract, rfz, _fma(-(2.0 * ddot), drz, dz))
+        is_diel = mtype > 0.5
+        sdx = torch.where(is_diel, dlx, sdx)
+        sdy = torch.where(is_diel, dly, sdy)
+        sdz = torch.where(is_diel, dlz, sdz)
+        srr = torch.where(is_diel, torch.where(do_refract, alb_r, 1.0), srr)
+        srg = torch.where(is_diel, torch.where(do_refract, alb_g, 1.0), srg)
+        srb = torch.where(is_diel, torch.where(do_refract, alb_b, 1.0), srb)
+        std_events = torch.where(is_diel, 1.0 + d_roughness, std_events)
+        perfect_f = torch.where(is_diel, 1.0, perfect_f)
+
+    # Gradient sky (SampleBatchJob.cs:352-354)
+    if sky_on:
+        tsky = 0.5 * (dy + 1.0)
+        skr = _fma(sky_t[0] - sky_b[0], tsky, sky_b[0])
+        skg = _fma(sky_t[1] - sky_b[1], tsky, sky_b[1])
+        skb = _fma(sky_t[2] - sky_b[2], tsky, sky_b[2])
+    else:
+        skr = skg = skb = torch.zeros_like(ox)
+
+    # Fold
+    emr = torch.where(scatter_mask, em_r, torch.where(miss, skr, 0.0))
+    emg = torch.where(scatter_mask, em_g, torch.where(miss, skg, 0.0))
+    emb = torch.where(scatter_mask, em_b, torch.where(miss, skb, 0.0))
+    thx, thy, thz = p["thx"], p["thy"], p["thz"]
+    p["rx"] = _fma(thx, emr, p["rx"])
+    p["ry"] = _fma(thy, emg, p["ry"])
+    p["rz"] = _fma(thz, emb, p["rz"])
+    p["thx"] = torch.where(scatter_mask, thx * srr, thx)
+    p["thy"] = torch.where(scatter_mask, thy * srg, thy)
+    p["thz"] = torch.where(scatter_mask, thz * srb, thz)
+
+    # AOV capture
+    cap0 = scatter_mask & (depth == 0) & ~got
+    first_nonspec = scatter_mask & ~got & (perfect_f < 0.5)
+    capn = cap0 | first_nonspec
+    sky_first = miss & ~got
+    for k, sky_v, n_v in (("anx", -dx, nx), ("any", -dy, ny),
+                          ("anz", -dz, nz)):
+        p[k] = torch.where(sky_first, sky_v, torch.where(capn, n_v, p[k]))
+    for k, sky_v, a_v in (("aax", skr, em_r + srr), ("aay", skg, em_g + srg),
+                          ("aaz", skb, em_b + srb)):
+        p[k] = torch.where(sky_first, sky_v,
+                           torch.where(first_nonspec, a_v, p[k]))
+    p["got"] = got | first_nonspec | sky_first
+
+    # Events (adaptive-sampling noise weight)
+    depth_weight = (torch.exp2(-depth) if isinstance(depth, torch.Tensor)
+                    else 2.0 ** -depth)
+    p["events"] = p["events"] + torch.where(scatter_mask, std_events, 0.0) \
+        * depth_weight
+
+    # Advance
+    off = SELF_EPS * torch.where(
+        _dot3(sdx, sdy, sdz, nx, ny, nz) >= 0.0, 1.0, -1.0
+    )
+    p["ox"] = torch.where(scatter_mask, _fma(off, nx, px), ox)
+    p["oy"] = torch.where(scatter_mask, _fma(off, ny, py), oy)
+    p["oz"] = torch.where(scatter_mask, _fma(off, nz, pz), oz)
+    p["dx"] = torch.where(scatter_mask, sdx, dx)
+    p["dy"] = torch.where(scatter_mask, sdy, dy)
+    p["dz"] = torch.where(scatter_mask, sdz, dz)
+    p["active"] = pactive & ~miss
+    p["valid"] = p["valid"] | miss
+    return hit, best_idx
+
+
 def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
                  seed, *, samples, trace_depth, t_min, has_dielectrics,
                  sky_on, jitter, tape):
@@ -367,30 +578,27 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
     accumulators and fills `tape` ((samples*trace_depth, C) or None)."""
     dev = pixel.device
     zero = torch.zeros_like(pixel)
-    one = torch.ones_like(pixel)
     co, ll, hh, vv, rr, uu = (cam[3 * k:3 * k + 3] for k in range(6))
     lens_radius, width, height = cam[18], cam[19], cam[20]
-    sky_b, sky_t = sky[0:3], sky[3:6]
 
     py_row = torch.floor(pixel / width)
     px_row = pixel - py_row * width
 
-    ox, oy, oz, dx, dy, dz = (zero,) * 6
-    thx = thy = thz = one
-    rx = ry = rz = zero
-    pactive = valid = got = torch.zeros_like(pixel, dtype=torch.bool)
-    anx = any_ = anz = aax = aay = aaz = zero
-    events = depth_ct = started = zero
+    p = {k: zero for k in STATE_KEYS}
+    p.update(thx=zero + 1.0, thy=zero + 1.0, thz=zero + 1.0)
+    for k in ("active", "valid", "got"):
+        p[k] = torch.zeros_like(pixel, dtype=torch.bool)
+    depth_ct = started = zero
     acc = torch.zeros((OUT_ROWS, pixel.shape[0]), dtype=torch.float32,
                       device=dev)
 
     for it in range(samples * trace_depth):
         started_all = started >= per_pixel
-        if not bool(torch.any(pactive | ~started_all)):
+        if not bool(torch.any(p["active"] | ~started_all)):
             break  # every lane done: the rest of the tape stays idle (-2)
 
         # ---- regenerate: start the next sample on idle lanes ----------
-        regen = ~pactive & ~started_all
+        regen = ~p["active"] & ~started_all
         salt = it * SALT_STEP
         u = uniforms_hash(seed, salt, lanes, 4)
         jx, jy = (u[0], u[1]) if jitter else (0.5, 0.5)
@@ -408,196 +616,26 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         cdz = _fma(vn, vv[2], _fma(un, hh[2], ll[2] - offz))
         cdx, cdy, cdz = _normalize3(cdx, cdy, cdz)
 
-        ox = torch.where(regen, co[0] + offx, ox)
-        oy = torch.where(regen, co[1] + offy, oy)
-        oz = torch.where(regen, co[2] + offz, oz)
-        dx = torch.where(regen, cdx, dx)
-        dy = torch.where(regen, cdy, dy)
-        dz = torch.where(regen, cdz, dz)
-        thx = torch.where(regen, 1.0, thx)
-        thy = torch.where(regen, 1.0, thy)
-        thz = torch.where(regen, 1.0, thz)
-        rx = torch.where(regen, 0.0, rx)
-        ry = torch.where(regen, 0.0, ry)
-        rz = torch.where(regen, 0.0, rz)
-        anx = torch.where(regen, 0.0, anx)
-        any_ = torch.where(regen, 0.0, any_)
-        anz = torch.where(regen, 0.0, anz)
-        aax = torch.where(regen, 0.0, aax)
-        aay = torch.where(regen, 0.0, aay)
-        aaz = torch.where(regen, 0.0, aaz)
-        got = got & ~regen
-        events = torch.where(regen, 0.0, events)
+        for k, value in (("ox", co[0] + offx), ("oy", co[1] + offy),
+                         ("oz", co[2] + offz), ("dx", cdx), ("dy", cdy),
+                         ("dz", cdz), ("thx", 1.0), ("thy", 1.0),
+                         ("thz", 1.0), ("rx", 0.0), ("ry", 0.0),
+                         ("rz", 0.0), ("anx", 0.0), ("any", 0.0),
+                         ("anz", 0.0), ("aax", 0.0), ("aay", 0.0),
+                         ("aaz", 0.0), ("events", 0.0)):
+            p[k] = torch.where(regen, value, p[k])
+        p["got"] = p["got"] & ~regen
         depth_ct = torch.where(regen, 0.0, depth_ct)
-        valid = valid & ~regen
-        pactive = pactive | regen
+        p["valid"] = p["valid"] & ~regen
+        p["active"] = p["active"] | regen
         started = started + torch.where(regen, 1.0, 0.0)
-        was_active = pactive
+        was_active = p["active"]
 
         # ---- one bounce ------------------------------------------------
-        ua, ub, uc, ud, u_choice, u_choice2 = uniforms_hash(
-            seed, salt + SALT_BOUNCE, lanes, 6
-        )
-        # sweep the active lanes only (idle lanes' results go unused)
-        live = torch.nonzero(pactive, as_tuple=True)[0]
-        best_t = torch.full_like(ox, BIG)
-        best_idx = torch.zeros_like(lanes)
-        best_t[live], best_idx[live] = _sweep(
-            (ox[live], oy[live], oz[live]), (dx[live], dy[live], dz[live]),
-            sph, t_min,
-        )
-        hit = best_t < BIG
-        scatter_mask = pactive & hit
-        miss = pactive & ~hit
-
-        w = rec[best_idx]  # (C, 16) winner records
-        t_hit = torch.where(hit, best_t, 0.0)
-        px = _fma(t_hit, dx, ox)
-        py = _fma(t_hit, dy, oy)
-        pz = _fma(t_hit, dz, oz)
-        inv_r = w[:, 15]
-        nx = (px - w[:, 12]) * inv_r
-        ny = (py - w[:, 13]) * inv_r
-        nz = (pz - w[:, 14]) * inv_r
-        mtype = w[:, 0]
-        alb_r, alb_g, alb_b = w[:, 1], w[:, 2], w[:, 3]
-        em_r, em_g, em_b = w[:, 4], w[:, 5], w[:, 6]
-        gloss, metallic, parameter = w[:, 7], w[:, 8], w[:, 9]
-        perfect_f = w[:, 10]
-
-        # Standard scatter (Material.cs:75-119)
-        roughness = (1.0 - gloss) * (1.0 - gloss)
-        csx, csy, csz = _cosine_hemisphere(ua, ub, nx, ny, nz)
-        rnx, rny, rnz = _normalize3(
-            _fma(csx - nx, roughness, nx),
-            _fma(csy - ny, roughness, ny),
-            _fma(csz - nz, roughness, nz),
-        )
-        rough = roughness > 0.0
-        rnx = torch.where(rough, rnx, nx)
-        rny = torch.where(rough, rny, ny)
-        rnz = torch.where(rough, rnz, nz)
-        incident_cos = -_dot3(dx, dy, dz, rnx, rny, rnz)
-        std_ior = _fma(torch.full_like(metallic, METAL_IOR - PLASTIC_IOR),
-                       metallic, PLASTIC_IOR)
-        fresnel = _schlick(incident_cos, std_ior)
-        masking = _smith_masking(_dot3(dx, dy, dz, nx, ny, nz), roughness)
-        refl_chance = torch.clamp(fresnel * gloss * masking, 0.0, 1.0)
-        spec_dot = _dot3(dx, dy, dz, rnx, rny, rnz)
-        spx = _fma(-(2.0 * spec_dot), rnx, dx)
-        spy = _fma(-(2.0 * spec_dot), rny, dy)
-        spz = _fma(-(2.0 * spec_dot), rnz, dz)
-        lmx, lmy, lmz = _cosine_hemisphere(uc, ud, nx, ny, nz)
-        take_spec = (refl_chance > 0.0) & (u_choice < refl_chance)
-        take_metal = (metallic > 0.0) & (u_choice2 < metallic)
-        spec_like = take_spec | take_metal
-        sdx = torch.where(spec_like, spx, lmx)
-        sdy = torch.where(spec_like, spy, lmy)
-        sdz = torch.where(spec_like, spz, lmz)
-        srr = torch.where(take_spec, 1.0, alb_r)
-        srg = torch.where(take_spec, 1.0, alb_g)
-        srb = torch.where(take_spec, 1.0, alb_b)
-        std_events = (
-            torch.where((refl_chance > 0.0) & (refl_chance < 1.0), 1.0, 0.0)
-            + torch.where((metallic > 0.0) & (metallic < 1.0), 1.0, 0.0)
-            + roughness * (refl_chance + (1.0 - refl_chance) * metallic)
-            + (1.0 - refl_chance) * (1.0 - metallic)
-        )
-
-        if has_dielectrics:
-            # Dielectric (Material.cs:121-161)
-            d_roughness = 1.0 - gloss
-            ssx, ssy, ssz = _unit_sphere(ua, ub)
-            drx, dry, drz = _normalize3(
-                _fma(d_roughness, ssx, nx),
-                _fma(d_roughness, ssy, ny),
-                _fma(d_roughness, ssz, nz),
-            )
-            ddot = _dot3(dx, dy, dz, drx, dry, drz)
-            exiting = ddot > 0.0
-            onx = torch.where(exiting, -drx, drx)
-            ony = torch.where(exiting, -dry, dry)
-            onz = torch.where(exiting, -drz, drz)
-            ior = parameter
-            ni_over_nt = torch.where(exiting, ior, 1.0 / ior)
-            cosine = torch.where(exiting, ior * ddot, -ddot)
-            dt = _dot3(dx, dy, dz, onx, ony, onz)
-            disc_r = _fma(-(ni_over_nt * ni_over_nt), _fma(-dt, dt, 1.0), 1.0)
-            can_refract = disc_r > 0.0
-            sq_r = _sqrt(torch.where(can_refract, disc_r, 0.0))
-            rfx = _fma(ni_over_nt, _fma(-onx, dt, dx), -(onx * sq_r))
-            rfy = _fma(ni_over_nt, _fma(-ony, dt, dy), -(ony * sq_r))
-            rfz = _fma(ni_over_nt, _fma(-onz, dt, dz), -(onz * sq_r))
-            refl_prob = _schlick(cosine, ior)
-            do_refract = can_refract & (u_choice > refl_prob)
-            dlx = torch.where(do_refract, rfx, _fma(-(2.0 * ddot), drx, dx))
-            dly = torch.where(do_refract, rfy, _fma(-(2.0 * ddot), dry, dy))
-            dlz = torch.where(do_refract, rfz, _fma(-(2.0 * ddot), drz, dz))
-            is_diel = mtype > 0.5
-            sdx = torch.where(is_diel, dlx, sdx)
-            sdy = torch.where(is_diel, dly, sdy)
-            sdz = torch.where(is_diel, dlz, sdz)
-            srr = torch.where(is_diel, torch.where(do_refract, alb_r, 1.0),
-                              srr)
-            srg = torch.where(is_diel, torch.where(do_refract, alb_g, 1.0),
-                              srg)
-            srb = torch.where(is_diel, torch.where(do_refract, alb_b, 1.0),
-                              srb)
-            std_events = torch.where(is_diel, 1.0 + d_roughness, std_events)
-            perfect_f = torch.where(is_diel, 1.0, perfect_f)
-
-        # Gradient sky (SampleBatchJob.cs:352-354)
-        if sky_on:
-            tsky = 0.5 * (dy + 1.0)
-            skr = _fma(sky_t[0] - sky_b[0], tsky, sky_b[0])
-            skg = _fma(sky_t[1] - sky_b[1], tsky, sky_b[1])
-            skb = _fma(sky_t[2] - sky_b[2], tsky, sky_b[2])
-        else:
-            skr = skg = skb = zero
-
-        # Fold
-        emr = torch.where(scatter_mask, em_r, torch.where(miss, skr, 0.0))
-        emg = torch.where(scatter_mask, em_g, torch.where(miss, skg, 0.0))
-        emb = torch.where(scatter_mask, em_b, torch.where(miss, skb, 0.0))
-        rx = _fma(thx, emr, rx)
-        ry = _fma(thy, emg, ry)
-        rz = _fma(thz, emb, rz)
-        thx = torch.where(scatter_mask, thx * srr, thx)
-        thy = torch.where(scatter_mask, thy * srg, thy)
-        thz = torch.where(scatter_mask, thz * srb, thz)
-
-        # AOV capture
-        cap0 = scatter_mask & (depth_ct == 0) & ~got
-        first_nonspec = scatter_mask & ~got & (perfect_f < 0.5)
-        capn = cap0 | first_nonspec
-        sky_first = miss & ~got
-        anx = torch.where(sky_first, -dx, torch.where(capn, nx, anx))
-        any_ = torch.where(sky_first, -dy, torch.where(capn, ny, any_))
-        anz = torch.where(sky_first, -dz, torch.where(capn, nz, anz))
-        aax = torch.where(sky_first, skr,
-                          torch.where(first_nonspec, em_r + srr, aax))
-        aay = torch.where(sky_first, skg,
-                          torch.where(first_nonspec, em_g + srg, aay))
-        aaz = torch.where(sky_first, skb,
-                          torch.where(first_nonspec, em_b + srb, aaz))
-        got = got | first_nonspec | sky_first
-
-        # Events (adaptive-sampling noise weight)
-        events = events + torch.where(scatter_mask, std_events, 0.0) \
-            * torch.exp2(-depth_ct)
-
-        # Advance
-        off = SELF_EPS * torch.where(
-            _dot3(sdx, sdy, sdz, nx, ny, nz) >= 0.0, 1.0, -1.0
-        )
-        ox = torch.where(scatter_mask, _fma(off, nx, px), ox)
-        oy = torch.where(scatter_mask, _fma(off, ny, py), oy)
-        oz = torch.where(scatter_mask, _fma(off, nz, pz), oz)
-        dx = torch.where(scatter_mask, sdx, dx)
-        dy = torch.where(scatter_mask, sdy, dy)
-        dz = torch.where(scatter_mask, sdz, dz)
-        pactive = pactive & ~miss
-        valid = valid | miss
+        u = uniforms_hash(seed, salt + SALT_BOUNCE, lanes, 6)
+        hit, best_idx = _bounce(p, u, sph, rec, depth_ct, t_min=t_min,
+                                has_dielectrics=has_dielectrics,
+                                sky_on=sky_on, sky=sky)
 
         if tape is not None:
             tape[it] = torch.where(
@@ -611,19 +649,19 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         depth_ct = depth_ct + fa
         acc[11] += fa  # rays
         # depth exhaustion fails the sample (SampleBatchJob.cs:380-381)
-        pactive = pactive & ~(depth_ct > trace_depth - 0.5)
-        terminated = was_active & ~pactive
-        ok = terminated & valid
-        for row, value in ((0, rx), (1, ry), (2, rz), (4, anx), (5, any_),
-                           (6, anz), (7, aax), (8, aay), (9, aaz),
-                           (10, events)):
-            acc[row] += torch.where(ok, value, 0.0)
+        p["active"] = p["active"] & ~(depth_ct > trace_depth - 0.5)
+        terminated = was_active & ~p["active"]
+        ok = terminated & p["valid"]
+        for row, k in ((0, "rx"), (1, "ry"), (2, "rz"), (4, "anx"),
+                       (5, "any"), (6, "anz"), (7, "aax"), (8, "aay"),
+                       (9, "aaz"), (10, "events")):
+            acc[row] += torch.where(ok, p[k], 0.0)
         # fallback AOVs while the pixel has no valid sample yet
         # (SampleBatchJob.cs:146-151; captured valid or not)
         first_ever = terminated & ((count_in + acc[3]) < 0.5)
-        for row, value in ((12, anx), (13, any_), (14, anz), (15, aax),
-                           (16, aay), (17, aaz)):
-            acc[row] = torch.where(first_ever, value, acc[row])
+        for row, k in ((12, "anx"), (13, "any"), (14, "anz"), (15, "aax"),
+                       (16, "aay"), (17, "aaz")):
+            acc[row] = torch.where(first_ever, p[k], acc[row])
         acc[3] += ok.to(torch.float32)
     return acc
 
@@ -678,9 +716,7 @@ def sample_batch_reference(
     dev = centers.device
     n = lane_count.shape[0]
     s = centers.shape[0]
-    sph, rec_t, _ = _pack_scene_tables(centers, radii, records)
-    sph = sph[:s, :4]  # pad rows never hit and come last: sweep real rows
-    rec = rec_t[:KERNEL_REC, :s].T.contiguous()
+    sph, rec = sweep_tables(centers, radii, records)
     cam = camera_row.to(torch.float32)
     sky = _pack_sky_row(sky_bottom, sky_top)[0]
     lanes_all = (
@@ -768,9 +804,7 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
             raise ValueError(f"sample_batch: {name} must be float32")
 
     lib = load_kernel()
-    sph, rec_t, _ = _pack_scene_tables(centers, radii, records)
-    sph = sph[:s, :4].contiguous()  # (S, 4) float4 rows
-    rec = rec_t[:KERNEL_REC, :s].T.contiguous()  # (S, 16)
+    sph, rec = sweep_tables(centers, radii, records)
     consts = torch.zeros(32, dtype=torch.float32, device=dev)
     consts[:24] = camera_row
     consts[24:27] = sky_bottom
@@ -831,3 +865,186 @@ def sample_batch(
     if centers.device.type == "cpu":
         return sample_batch_reference(*args, **kwargs)
     raise ValueError(f"sample_batch: unsupported device {centers.device}")
+
+
+# ---------------------------------------------------------------------------
+# Per-ray fused trace (the wavefront's `mega` arm)
+# ---------------------------------------------------------------------------
+
+WAVE_KEYS = ("radiance", "valid", "aov_normal", "aov_albedo", "events",
+             "pixel_rays")
+
+
+def _wave_outputs(out: torch.Tensor) -> dict:
+    return {
+        "radiance": out[0:3].T,
+        "valid": out[3] > 0.5,
+        "aov_normal": out[4:7].T,
+        "aov_albedo": out[7:10].T,
+        "events": out[10],
+        "pixel_rays": out[11].to(torch.int32),
+    }
+
+
+def megatrace_reference(
+    origin: torch.Tensor,  # (N, 3)
+    direction: torch.Tensor,  # (N, 3)
+    active: torch.Tensor,  # (N,) bool
+    centers: torch.Tensor,  # (S, 3)
+    radii: torch.Tensor,  # (S,)
+    records: torch.Tensor,  # (S, 11) packed material rows
+    sky_bottom: torch.Tensor,  # (3,)
+    sky_top: torch.Tensor,  # (3,)
+    seed,  # int32
+    *,
+    trace_depth: int,
+    t_min: float = 0.0,
+    has_dielectrics: bool = True,
+    sky_on: bool = True,
+    chunk_lanes: int | None = None,
+) -> dict:
+    """Plain PyTorch version of `megatrace` (any device).
+
+    Every active ray bounces until it leaves to the sky or `trace_depth`
+    bounces are spent (then it stays invalid).  Bounce `depth` draws its
+    uniforms from the hash of (seed, lane, stream, depth * SALT_DEPTH),
+    the lane being the ray's index.  Returns radiance (N, 3), zero where
+    invalid; valid (N,) bool; aov_normal, aov_albedo (N, 3); events (N,);
+    pixel_rays (N,) int32, the bounces each ray took."""
+    dev = centers.device
+    n, s = origin.shape[0], centers.shape[0]
+    sph, rec = sweep_tables(centers, radii, records)
+    sky = _pack_sky_row(sky_bottom, sky_top)[0]
+    lanes_all = torch.arange(n, dtype=torch.float32, device=dev).to(
+        torch.int64)
+    if chunk_lanes is None:
+        budget = (1 << 25) if dev.type == "cuda" else (1 << 22)
+        chunk_lanes = max(1024, budget // max(s, 1))
+    out = torch.empty((WAVE_ROWS, n), dtype=torch.float32, device=dev)
+    for c0 in range(0, n, chunk_lanes):
+        c1 = min(n, c0 + chunk_lanes)
+        o, d = origin[c0:c1].to(torch.float32), direction[c0:c1].to(
+            torch.float32)
+        zero = torch.zeros(c1 - c0, dtype=torch.float32, device=dev)
+        p = {k: zero for k in STATE_KEYS}
+        p.update(ox=o[:, 0], oy=o[:, 1], oz=o[:, 2], dx=d[:, 0],
+                 dy=d[:, 1], dz=d[:, 2], thx=zero + 1.0, thy=zero + 1.0,
+                 thz=zero + 1.0, active=active[c0:c1].to(torch.bool),
+                 valid=torch.zeros_like(zero, dtype=torch.bool),
+                 got=torch.zeros_like(zero, dtype=torch.bool))
+        rays = zero
+        for depth in range(trace_depth):
+            if not bool(torch.any(p["active"])):
+                break  # every lane has terminated
+            was_active = p["active"]
+            u = uniforms_hash(int(seed), depth * SALT_DEPTH,
+                              lanes_all[c0:c1], 6)
+            _bounce(p, u, sph, rec, depth, t_min=t_min,
+                    has_dielectrics=has_dielectrics, sky_on=sky_on, sky=sky)
+            rays = rays + was_active.to(torch.float32)
+        valid = p["valid"]
+        rows = (torch.where(valid, p["rx"], 0.0),
+                torch.where(valid, p["ry"], 0.0),
+                torch.where(valid, p["rz"], 0.0), valid.to(torch.float32),
+                p["anx"], p["any"], p["anz"], p["aax"], p["aay"], p["aaz"],
+                p["events"], rays)
+        out[:, c0:c1] = torch.stack(rows)
+    return _wave_outputs(out)
+
+
+_WAVE_KERNEL = None
+WAVE_BUILD_LOG = ""
+
+
+def load_wave_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load csrc/megatrace_wave.cu."""
+    global _WAVE_KERNEL, WAVE_BUILD_LOG
+    if _WAVE_KERNEL is None:
+        from raytracing_in_one_weekend_tpu_torch.ops import cuda_build
+
+        lib, WAVE_BUILD_LOG = cuda_build.build_library("megatrace_wave.cu")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rtiw_megatrace_wave.argtypes = [
+            p, p, p, p, p, p, p,  # origin direction active sky sph rec out
+            i, i, i, i,  # n s seed trace_depth
+            ctypes.c_float, i, i,  # t_min has_diel sky_on
+            p,  # stream
+        ]
+        lib.rtiw_megatrace_wave.restype = ctypes.c_int
+        _WAVE_KERNEL = lib
+    return _WAVE_KERNEL
+
+
+def _megatrace_cuda(origin, direction, active, centers, radii, records,
+                    sky_bottom, sky_top, seed, *, trace_depth, t_min,
+                    has_dielectrics, sky_on):
+    global WAVE_LAUNCHES
+    dev = centers.device
+    n, s = origin.shape[0], centers.shape[0]
+    tensors = dict(origin=(origin, (n, 3)), direction=(direction, (n, 3)),
+                   active=(active, (n,)), centers=(centers, (s, 3)),
+                   radii=(radii, (s,)), sky_bottom=(sky_bottom, (3,)),
+                   sky_top=(sky_top, (3,)))
+    for name, (t, shape) in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"megatrace: {name} is on {t.device}, "
+                             f"centers on {dev}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"megatrace: {name} has shape "
+                             f"{tuple(t.shape)}, want {shape}")
+        if name != "active" and t.dtype != torch.float32:
+            raise ValueError(f"megatrace: {name} must be float32")
+    if records.shape[0] != s or records.shape[1] < 11 or records.device != dev:
+        raise ValueError(f"megatrace: records has shape "
+                         f"{tuple(records.shape)}, want ({s}, 11 or 12)")
+    if s > SPH_CULL_MIN:
+        raise ValueError(f"megatrace: {s} spheres; the kernel stages at "
+                         f"most {SPH_CULL_MIN} in shared memory")
+    lib = load_wave_kernel()
+    sph, rec = sweep_tables(centers, radii, records)
+    sky = _pack_sky_row(sky_bottom, sky_top)[0].contiguous()
+    out = torch.empty((WAVE_ROWS, n), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rtiw_megatrace_wave(
+        origin.contiguous().data_ptr(), direction.contiguous().data_ptr(),
+        active.to(torch.uint8).contiguous().data_ptr(), sky.data_ptr(),
+        sph.data_ptr(), rec.data_ptr(), out.data_ptr(), n, s, int(seed),
+        trace_depth, float(t_min), int(has_dielectrics), int(sky_on),
+        stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"megatrace_wave launch failed: cudaError {err}")
+    WAVE_LAUNCHES += 1
+    return _wave_outputs(out)
+
+
+def megatrace(
+    origin: torch.Tensor,
+    direction: torch.Tensor,
+    active: torch.Tensor,
+    centers: torch.Tensor,
+    radii: torch.Tensor,
+    records: torch.Tensor,
+    sky_bottom: torch.Tensor,
+    sky_top: torch.Tensor,
+    seed,
+    *,
+    trace_depth: int,
+    t_min: float = 0.0,
+    has_dielectrics: bool = True,
+    sky_on: bool = True,
+) -> dict:
+    """Per-ray fused trace of a wavefront of rays (see
+    `megatrace_reference` for the outputs).  CUDA tensors launch the
+    kernel (csrc/megatrace_wave.cu) or raise; CPU tensors run the plain
+    version."""
+    kwargs = dict(trace_depth=trace_depth, t_min=t_min,
+                  has_dielectrics=has_dielectrics, sky_on=sky_on)
+    args = (origin, direction, active, centers, radii, records, sky_bottom,
+            sky_top, seed)
+    with torch.no_grad():
+        if centers.device.type == "cuda":
+            return _megatrace_cuda(*args, **kwargs)
+        if centers.device.type == "cpu":
+            return megatrace_reference(*args, **kwargs)
+    raise ValueError(f"megatrace: unsupported device {centers.device}")

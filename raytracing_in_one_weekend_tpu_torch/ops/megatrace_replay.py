@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
+from raytracing_in_one_weekend_tpu_torch.core import math3
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace as mk
 from raytracing_in_one_weekend_tpu_torch.ops.megatrace import (
     _cos,
@@ -125,14 +126,6 @@ def _primal_of(value, smooth):
     """`value` exactly, with the derivative of `smooth` (the same quantity
     in a form that rounds better): value + (smooth - smooth) adds 0."""
     return value.detach() + (smooth - smooth.detach())
-
-
-def _clip01(x):
-    """clip(x, 0, 1) whose derivative is split in half at x == 0 or 1, as
-    jnp.clip's is: Lambert hits (gloss 0) sit exactly at the lower tie,
-    and this keeps the lottery's gloss gradient the JAX package's."""
-    return torch.minimum(torch.maximum(x, torch.zeros_like(x)),
-                         torch.ones_like(x))
 
 
 def _log_floor(x):
@@ -265,7 +258,7 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
                    metallic, mk.PLASTIC_IOR)
     fresnel = _schlick(-spec_dot, std_ior)
     masking = _smith_masking(_dot3(dx, dy, dz, nx, ny, nz), roughness)
-    refl_chance = _clip01(fresnel * gloss * masking)
+    refl_chance = math3.saturate(fresnel * gloss * masking)
     spx = _fma(-(2.0 * spec_dot), rnx, dx)
     spy = _fma(-(2.0 * spec_dot), rny, dy)
     spz = _fma(-(2.0 * spec_dot), rnz, dz)
@@ -476,10 +469,10 @@ class _SampleBatchDiff(torch.autograd.Function):
         leaked = [k for k in AOV_OUTPUTS if cot[k] is not None]
         if leaked:
             raise NotImplementedError(
-                "the differentiable fused path propagates only the color "
-                "sum's and valid count's cotangents, but this loss also "
-                f"differentiates through {leaked}: AOV gradients need the "
-                "wavefront integrator's AOV graft (ROADMAP queue 1, step 9)"
+                "sample_batch_diff propagates only the color sum's and "
+                "valid count's cotangents, but this loss also "
+                f"differentiates through {leaked}: render_batch gives AOV "
+                "channels their gradients through the wavefront's AOV graft"
             )
         from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 
@@ -521,7 +514,8 @@ def sample_batch_diff(
     centers, radii, records, sky_bottom and sky_top, through the tape
     replay.  Outputs are the kernel's (no tape).  Only the `color` and
     `count` cotangents propagate; a loss that differentiates an AOV output
-    raises NotImplementedError in backward.  When no input requires a
+    raises NotImplementedError in backward (render_batch grafts the AOV
+    gradients on from the wavefront).  When no input requires a
     gradient (or grad mode is off) this is the forward path, with no
     tape."""
     statics = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,

@@ -7,8 +7,8 @@ schedules the next SampleBatchJob, cycling the interlace offset and
 feeding the previous batch's noise-weight extrema to the adaptive sampler.
 
 Ported: reset, step, run, completion, MRays/s, combined (no denoise),
-images and save, and autofocus when the camera settings give a focus
-distance.  Checkpoints, diagnostics, denoisers and the BVH wait for ROADMAP
+images and save, and autofocus (the given distance or a nearest-hit
+raycast).  Checkpoints, diagnostics, denoisers and the BVH wait for ROADMAP
 queue 1, steps 13-14.
 """
 
@@ -21,6 +21,9 @@ from typing import Callable
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.core import camera as camera_mod
+from raytracing_in_one_weekend_tpu_torch.core import math3
+from raytracing_in_one_weekend_tpu_torch.core.ray import Rays
+from raytracing_in_one_weekend_tpu_torch.ops import intersect
 from raytracing_in_one_weekend_tpu_torch.render import film, renderer
 from raytracing_in_one_weekend_tpu_torch.scene.scene import Scene
 from raytracing_in_one_weekend_tpu_torch.utils import image as image_util
@@ -33,15 +36,20 @@ from raytracing_in_one_weekend_tpu_torch.utils.config import (
 
 
 def autofocus(scene: Scene, cs: CameraSettings) -> float:
-    """Focus distance for the camera (Raytracer.cs:608-612).  Only the
-    given-distance case is ported; the nearest-hit raycast waits for the
-    wavefront intersector (ROADMAP queue 1, step 14)."""
+    """Focus distance via a nearest-hit raycast along the camera's forward
+    ray (Raytracer.cs:608-612, HitWorld on the view ray); |look_at -
+    origin| on a miss, and the settings' distance when they give one."""
     if cs.focus_distance is not None:
         return float(cs.focus_distance)
-    raise NotImplementedError(
-        "autofocus raycast is not ported yet (ROADMAP queue 1, step 14); "
-        "give CameraSettings.focus_distance"
+    f32 = dict(dtype=torch.float32, device=scene.spheres.center.device)
+    origin = torch.tensor([cs.origin], **f32)
+    fwd = torch.tensor([cs.look_at], **f32) - origin
+    hit = intersect.nearest_hit(
+        scene, Rays(origin, math3.normalize(fwd), torch.zeros(1, **f32))
     )
+    t = float(hit.t[0])
+    fallback = float(torch.linalg.norm(fwd[0]))
+    return t if (bool(hit.hit[0]) and t < intersect.BIG) else fallback
 
 
 @dataclasses.dataclass

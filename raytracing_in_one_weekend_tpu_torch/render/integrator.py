@@ -1,0 +1,286 @@
+"""Wavefront path-tracing integrator (counterpart of the JAX package's
+render/integrator.py), for sphere scenes.
+
+Reference: the Sample() bounce loop of SampleBatchJob.cs:166-401 — nearest
+hit, material scatter, the emission/attenuation fold, AOV capture, sky
+termination; depth exhaustion fails the sample (:380-381).  Every ray of
+the wavefront advances in lockstep with an active mask; the two-stack fold
+is the running pair radiance += throughput * e, throughput *= a.
+
+`trace` takes one of three arms, in the JAX package's order and on its
+conditions:
+
+* `mega`: not differentiable, no pre-drawn first-bounce directions, and
+  the scene in the per-ray megatrace kernel's scope
+  (`ops.megatrace.scene_eligible`): the whole depth loop in one launch of
+  `ops.megatrace.megatrace` (CUDA: csrc/megatrace_wave.cu).
+* `fast`: not differentiable otherwise: per bounce, the fused selection
+  `ops.sphere_select.sphere_select_full` (csrc/sphere_select.cu) hands the
+  winner's record to the scatter, which carries no geometry gradients.
+* the differentiable arm: per bounce, `ops.intersect.nearest_hit` (the
+  detached selection `sphere_select`, then the winner's quadratic with
+  gradients).
+
+On CPU tensors each kernel runs its plain PyTorch version.  Volumes,
+motion, rects, boxes, triangles, procedural textures and cubemap skies
+raise NotImplementedError naming their ROADMAP steps, and so does a noise
+context (sampler flavors, step 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from raytracing_in_one_weekend_tpu_torch.core import (
+    environment, materials, math3, rng,
+)
+from raytracing_in_one_weekend_tpu_torch.core.ray import (
+    SELF_INTERSECTION_OFFSET, Rays,
+)
+from raytracing_in_one_weekend_tpu_torch.ops import (
+    intersect, megatrace, sphere_select,
+)
+from raytracing_in_one_weekend_tpu_torch.scene.scene import EntityKind, Scene
+from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
+
+SEED_RANGE = 2**31 - 1  # kernel seeds are drawn from [0, SEED_RANGE)
+
+
+@dataclasses.dataclass(frozen=True)
+class PathState(TensorGroup):
+    origin: torch.Tensor  # (N, 3)
+    direction: torch.Tensor  # (N, 3)
+    time: torch.Tensor  # (N,)
+    throughput: torch.Tensor  # (N, 3)
+    radiance: torch.Tensor  # (N, 3)
+    active: torch.Tensor  # (N,) bool: still bouncing
+    valid: torch.Tensor  # (N,) bool: terminated at the sky
+    inside_volume: torch.Tensor  # (N,) int32 material id or -1
+    aov_normal: torch.Tensor  # (N, 3)
+    aov_albedo: torch.Tensor  # (N, 3)
+    got_nonspecular: torch.Tensor  # (N,) bool
+    events: torch.Tensor  # (N,) RandomEvents accumulator
+    logp: torch.Tensor  # (N,) log-probability of the path's sampling
+    # decisions as a function of the scene parameters (score function)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceResult(TensorGroup):
+    radiance: torch.Tensor  # (N, 3), zero where invalid
+    valid: torch.Tensor  # (N,) bool
+    logp: torch.Tensor  # (N,) score-function accumulator: consumers that
+    # want decision gradients attach the zero-valued surrogate
+    # x.detach() * (logp - logp.detach()) once per accumulated product
+    aov_normal: torch.Tensor  # (N, 3)
+    aov_albedo: torch.Tensor  # (N, 3)
+    events: torch.Tensor  # (N,)
+    ray_count: torch.Tensor  # () rays cast
+    pixel_rays: torch.Tensor  # (N,) int32 rays cast per lane
+
+
+def check_scope(scene: Scene) -> None:
+    missing = megatrace.unported_feature(scene)
+    if missing is not None:
+        raise NotImplementedError(f"wavefront not ported for {missing}")
+
+
+def trace(
+    scene: Scene,
+    rays: Rays,
+    key: torch.Tensor,
+    trace_depth: int,
+    differentiable: bool = True,
+    active: torch.Tensor | None = None,
+    first_bounce_tsd: torch.Tensor | None = None,  # (N, 3) pre-drawn
+    #   tangent-space cosine directions for the first bounce's Lambert draw
+    noise_ctx: tuple | None = None,
+) -> TraceResult:
+    """Trace a wavefront of rays to completion, one path per ray.
+
+    differentiable=False takes the fused kernels, whose hit attributes
+    carry no gradients with respect to the scene geometry; keep True under
+    autograd.  `active` masks lanes off from the start: they cast no
+    counted rays and never become valid."""
+    if noise_ctx is not None:
+        raise NotImplementedError(
+            "flavored-sampler routing (noise_ctx) is not ported yet "
+            "(ROADMAP queue 1, step 11)"
+        )
+    check_scope(scene)
+    n = rays.origin.shape[0]
+    dev = rays.origin.device
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+    packed = materials.pack_materials(scene)
+    mat = scene.spheres.material.long()
+
+    if (not differentiable and first_bounce_tsd is None
+            and megatrace.scene_eligible(scene)):
+        seed = int(rng.randint(rng.purpose_key(key, rng.Purpose.SCATTER_A),
+                               (), 0, SEED_RANGE))
+        out = megatrace.megatrace(
+            rays.origin, rays.direction, active, scene.spheres.center,
+            scene.spheres.radius, packed[mat][:, :11],
+            scene.environment.sky_bottom, scene.environment.sky_top, seed,
+            trace_depth=trace_depth,
+            has_dielectrics=scene.flags.has_dielectrics,
+            sky_on=scene.flags.sky == 1,
+        )
+        return TraceResult(
+            radiance=out["radiance"], valid=out["valid"],
+            logp=torch.zeros(n, dtype=torch.float32, device=dev),
+            aov_normal=out["aov_normal"], aov_albedo=out["aov_albedo"],
+            events=out["events"], ray_count=torch.sum(out["pixel_rays"]),
+            pixel_rays=out["pixel_rays"],
+        )
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = PathState(
+        origin=rays.origin,
+        direction=rays.direction,
+        time=rays.time,
+        throughput=torch.ones((n, 3), **f32),
+        radiance=torch.zeros((n, 3), **f32),
+        active=active.to(torch.bool),
+        valid=torch.zeros(n, dtype=torch.bool, device=dev),
+        inside_volume=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        aov_normal=torch.zeros((n, 3), **f32),
+        aov_albedo=torch.zeros((n, 3), **f32),
+        got_nonspecular=torch.zeros(n, dtype=torch.bool, device=dev),
+        events=torch.zeros(n, **f32),
+        logp=torch.zeros(n, **f32),
+    )
+    # the fast arm's per-sphere records: packed material row + material id
+    sph_records = None
+    if not differentiable:
+        sph_records = torch.cat(
+            [packed[mat][:, :11], mat[:, None].to(torch.float32)], dim=1)
+
+    pixel_rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    for bounce_index in range(trace_depth):
+        if not bool(state.active.any()):
+            break  # every path has ended: later bounces change nothing
+        pixel_rays = pixel_rays + state.active.to(torch.int32)
+        state = _bounce_once(
+            scene, state, rng.bounce_key(key, bounce_index), bounce_index,
+            packed, sph_records, first_bounce_tsd,
+        )
+
+    valid = state.valid
+    return TraceResult(
+        radiance=torch.where(valid[:, None], state.radiance, 0.0),
+        valid=valid,
+        logp=state.logp,
+        aov_normal=state.aov_normal,
+        aov_albedo=state.aov_albedo,
+        events=state.events,
+        ray_count=torch.sum(pixel_rays),
+        pixel_rays=pixel_rays,
+    )
+
+
+def _bounce_once(
+    scene: Scene,
+    state: PathState,
+    key: torch.Tensor,
+    bounce_index: int,
+    packed: torch.Tensor,
+    sph_records: torch.Tensor | None = None,
+    first_bounce_tsd: torch.Tensor | None = None,
+) -> PathState:
+    rays = Rays(state.origin, state.direction, state.time)
+    n = state.origin.shape[0]
+    row = None  # the winner's material record (fast arm only)
+    if sph_records is not None:
+        t, t_exit, normal, rec = sphere_select.sphere_select_full(
+            rays.origin, rays.direction, scene.spheres.center,
+            scene.spheres.radius, sph_records, active=state.active,
+        )
+        hit_mask = t < intersect.BIG
+        hit = intersect.Hit(
+            t=t,
+            hit=hit_mask,
+            point=rays.at(torch.where(hit_mask, t, 0.0)),
+            normal=normal,
+            uv=torch.zeros((n, 2), dtype=torch.float32, device=t.device),
+            material=rec[:, 11].to(torch.int32),
+            kind=torch.where(hit_mask, int(EntityKind.SPHERE), -1).to(
+                torch.int32),
+            index=torch.zeros(n, dtype=torch.int32, device=t.device),
+            t_exit=t_exit,
+        )
+        row = rec[:, :12]
+    else:
+        hit = intersect.nearest_hit(scene, rays)
+
+    scatter_mask = state.active & hit.hit
+    tsd_on = first_bounce_tsd is not None and bounce_index == 0
+    sc = materials.scatter(
+        scene, state.direction, hit.normal, hit.point, hit.uv, hit.material,
+        key, packed=packed, row=row, lambert_tsd=first_bounce_tsd,
+        lambert_tsd_on=tsd_on,
+    )
+    # material-lottery decisions join the path's score accumulator; zero
+    # along deterministic branches
+    logp = state.logp + torch.where(scatter_mask, sc.logp, 0.0)
+
+    # ---- sky termination (SampleBatchJob.cs:341-374) ------------------------
+    miss = state.active & ~hit.hit
+    sky = environment.sample_sky(scene.environment, state.direction)
+
+    # ---- emission/attenuation running fold ----------------------------------
+    emission = torch.where(scatter_mask[:, None], sc.emission,
+                           torch.where(miss[:, None], sky, 0.0))
+    radiance = state.radiance + state.throughput * emission
+    throughput = torch.where(scatter_mask[:, None],
+                             state.throughput * sc.reflectance,
+                             state.throughput)
+
+    # ---- AOV capture (SampleBatchJob.cs:313-330,366-372) ---------------------
+    got = state.got_nonspecular
+    aov_normal = torch.where(
+        (scatter_mask & (bounce_index == 0) & ~got)[:, None], hit.normal,
+        state.aov_normal)
+    first_nonspec = scatter_mask & ~got & ~sc.perfect_specular
+    aov_normal = torch.where(first_nonspec[:, None], hit.normal, aov_normal)
+    aov_albedo = torch.where(first_nonspec[:, None],
+                             sc.emission + sc.reflectance, state.aov_albedo)
+    sky_first = miss & ~got
+    aov_normal = torch.where(sky_first[:, None], -state.direction,
+                             aov_normal)
+    aov_albedo = torch.where(sky_first[:, None], sky, aov_albedo)
+    got_nonspecular = got | first_nonspec | sky_first
+
+    # ---- RandomEvents accumulation (SampleBatchJob.cs:332,363) ---------------
+    step_events = torch.where(scatter_mask, sc.random_events, 0.0)
+    events = state.events + step_events * 2.0 ** -bounce_index
+
+    # ---- advance -------------------------------------------------------------
+    offset_sign = torch.where(math3.dot(sc.direction, hit.normal) >= 0.0,
+                              1.0, -1.0)
+    new_origin = torch.where(
+        scatter_mask[:, None],
+        hit.point + SELF_INTERSECTION_OFFSET * offset_sign[:, None]
+        * hit.normal,
+        state.origin,
+    )
+    new_direction = torch.where(scatter_mask[:, None], sc.direction,
+                                state.direction)
+    was = state.active
+    return PathState(
+        origin=new_origin,
+        direction=new_direction,
+        time=state.time,
+        throughput=torch.where(was[:, None], throughput, state.throughput),
+        radiance=torch.where(was[:, None], radiance, state.radiance),
+        active=was & ~miss,
+        valid=state.valid | miss,
+        inside_volume=state.inside_volume,
+        aov_normal=torch.where(was[:, None], aov_normal, state.aov_normal),
+        aov_albedo=torch.where(was[:, None], aov_albedo, state.aov_albedo),
+        got_nonspecular=torch.where(was, got_nonspecular, got),
+        events=events,
+        logp=logp,
+    )

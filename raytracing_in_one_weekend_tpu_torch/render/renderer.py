@@ -1,23 +1,29 @@
 """Render step: a batch of samples for every pixel, accumulated
-(counterpart of the JAX package's render/renderer.py, its fused forward
-arm).
+(counterpart of the JAX package's render/renderer.py).
 
 Reference: the ScheduleSample job graph (Unity/Raytracer.cs:602-816):
 run SampleBatchJob over W x H pixels, merge into the accumulators, reduce
-metrics.  Here one `render_batch` call is one `ops.megatrace.sample_batch`
-launch plus the merge and the metric reduction.  The accumulators are
-updated in place, which stands in for the JAX renderer's buffer donation.
+metrics.  The accumulators are updated in place, which stands in for the
+JAX renderer's buffer donation.  `render_batch` takes the JAX renderer's
+arms on its conditions:
 
-The fused arm is ported, forward and differentiable.  With
-`differentiable=True` the batch goes through
-`ops.megatrace_replay.sample_batch_diff`: the same kernel (with its winner
-tape) as primal, the tape replay's backward kernel as gradient.  Only the
-color sum's and valid count's cotangents propagate; a loss on an AOV
-raises NotImplementedError in backward (the AOV graft of the JAX renderer
-needs the wavefront, ROADMAP queue 1, step 9).  Sampler flavors and the
-scene features `ops.megatrace.unsupported_feature` lists raise
-NotImplementedError naming their ROADMAP item.  An explicit refusal, not a
-fallback.
+* the fused arm, forward (`differentiable=False`): one
+  `ops.megatrace.sample_batch` launch per batch;
+* the fused arm, differentiable: `ops.megatrace_replay.sample_batch_diff`
+  (the same kernel with its winner tape as primal, the tape replay's
+  backward kernel as gradient of the color sum and the valid count), plus
+  the AOV graft: the normal, albedo, weight and fallback AOVs keep the
+  kernel's values, and their gradients come from the differentiable
+  wavefront on the batch key (`wavefront_pass`).  The graft runs only when
+  a loss gives an AOV channel a nonzero cotangent, one sample at a time in
+  backward, so a photometric loss pays nothing for it (torch removes no
+  dead code, unlike XLA);
+* the wavefront arm (`wavefront_pass`, render/integrator.py) where the
+  batch kernel is refused: a scene outside its scope, or a sampler flavor
+  asked for without a noise state (which the port does not have yet).
+
+Scenes outside the wavefront's scope raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,11 +32,12 @@ import dataclasses
 
 import torch
 
-from raytracing_in_one_weekend_tpu_torch.core import materials
+from raytracing_in_one_weekend_tpu_torch.core import camera as camera_mod
+from raytracing_in_one_weekend_tpu_torch.core import materials, rng
 from raytracing_in_one_weekend_tpu_torch.core.camera import Camera
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay
-from raytracing_in_one_weekend_tpu_torch.render import film
+from raytracing_in_one_weekend_tpu_torch.render import film, integrator
 from raytracing_in_one_weekend_tpu_torch.scene.scene import Scene
 from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
 
@@ -83,17 +90,198 @@ def _apply_deltas(acc: film.Accumulators, d: dict, lane_count) -> BatchMetrics:
     return _reduce_metrics(acc, d["rays"])
 
 
+AOV_KEYS = megatrace_replay.AOV_OUTPUTS
+AOV_GRAFT_RUNS = 0  # backward passes that ran the wavefront for AOV grads
+
+
 def check_scope(scene: Scene, noise_color: int = 0) -> None:
-    """Raise NotImplementedError for anything outside the ported slice
-    (the same scope, forward and differentiable)."""
+    """Raise NotImplementedError for anything outside the ported slice:
+    scenes the wavefront cannot trace, and sampler flavors (their noise
+    state is not ported)."""
     if noise_color != 0:
         raise NotImplementedError(
             "blue-noise sampler flavors are not ported yet "
             "(ROADMAP queue 1, step 11)"
         )
-    missing = megatrace.unsupported_feature(scene)
-    if missing is not None:
-        raise NotImplementedError(f"not ported yet: {missing}")
+    integrator.check_scope(scene)
+
+
+def _sample_step(scene, camera, acc, key, sample_index, row_active,
+                 per_pixel, *, width, height, trace_depth, sub_pixel_jitter,
+                 differentiable):
+    """One wavefront sample for every pixel: (new accumulators, pixel
+    rays, trace result, valid as float)."""
+    dev = row_active.device
+    skey = rng.sample_key(key, sample_index)
+    coords = camera_mod.pixel_coords(
+        width, height, skey if sub_pixel_jitter else None, sub_pixel_jitter,
+        device=dev)
+    rays = camera_mod.generate_rays(camera, coords, skey)
+    lane_active = row_active & (sample_index < per_pixel)
+    result = integrator.trace(scene, rays, skey, trace_depth,
+                              differentiable=differentiable,
+                              active=lane_active)
+    fvalid = (result.valid & row_active).to(torch.float32)
+    first = ((acc.sample_count == 0.0) & lane_active)[:, None]
+    color_add = result.radiance * fvalid[:, None]
+    count_add = fvalid
+    if differentiable:
+        # zero-valued score-function surrogates, one per accumulated
+        # product: unbiased gradients of the sampling decisions (material
+        # lotteries) on the color sum and on the valid count
+        carrier = result.logp - result.logp.detach()
+        color_add = color_add + color_add.detach() * carrier[:, None]
+        count_add = count_add + count_add.detach() * carrier
+    new = film.Accumulators(
+        color=acc.color + color_add,
+        sample_count=acc.sample_count + count_add,
+        normal=acc.normal + result.aov_normal * fvalid[:, None],
+        albedo=acc.albedo + result.aov_albedo * fvalid[:, None],
+        weight=acc.weight + result.events * fvalid,
+        # the first sample's AOVs, valid or not (SampleBatchJob.cs:146-151)
+        fallback_normal=torch.where(first, result.aov_normal,
+                                    acc.fallback_normal),
+        fallback_albedo=torch.where(first, result.aov_albedo,
+                                    acc.fallback_albedo),
+    )
+    return new, result.pixel_rays, result, fvalid
+
+
+def wavefront_pass(
+    scene: Scene,
+    camera: Camera,
+    acc: film.Accumulators,
+    key: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    samples: int,
+    trace_depth: int,
+    sub_pixel_jitter: bool = True,
+    differentiable: bool = True,
+    row_active: torch.Tensor | None = None,
+    per_pixel: torch.Tensor | None = None,
+) -> tuple[film.Accumulators, torch.Tensor]:
+    """The wavefront integrator over `samples` samples per pixel (the JAX
+    renderer's `_wavefront_pass`): sample s traces camera rays keyed by
+    `rng.sample_key(key, s)` through `integrator.trace`.  Lanes of rows
+    outside `row_active`, or past their pixel's `per_pixel` count, take no
+    sample.  Returns (new accumulators, rays cast per pixel); `acc` is not
+    modified.  With `differentiable`, the results carry gradients to the
+    scene and camera tensors that require them."""
+    n = width * height
+    dev = acc.color.device
+    if row_active is None:
+        row_active = torch.ones(n, dtype=torch.bool, device=dev)
+    if per_pixel is None:
+        per_pixel = torch.full((n,), samples, dtype=torch.int32, device=dev)
+    pixel_rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    for sample_index in range(samples):
+        if not bool((row_active & (sample_index < per_pixel)).any()):
+            continue  # no lane takes this sample: it would change nothing
+        acc, rays, _, _ = _sample_step(
+            scene, camera, acc, key, sample_index, row_active, per_pixel,
+            width=width, height=height, trace_depth=trace_depth,
+            sub_pixel_jitter=sub_pixel_jitter,
+            differentiable=differentiable)
+        pixel_rays = pixel_rays + rays
+    return acc, pixel_rays
+
+
+def _grad_tensors(*groups) -> list[torch.Tensor]:
+    """Every tensor of the (nested) TensorGroups that requires grad."""
+    found = []
+
+    def walk(value):
+        if isinstance(value, torch.Tensor):
+            if value.requires_grad:
+                found.append(value)
+        elif isinstance(value, TensorGroup):
+            for f in dataclasses.fields(value):
+                walk(getattr(value, f.name))
+
+    for g in groups:
+        walk(g)
+    return found
+
+
+def _aov_vjp(wave: dict, cots: dict, inputs: list) -> list:
+    """The gradient of sum(cot * AOV) over the graft's AOV channels with
+    respect to `inputs`, from the differentiable wavefront, one sample at
+    a time (each sample's graph is freed before the next is built)."""
+    global AOV_GRAFT_RUNS
+    AOV_GRAFT_RUNS += 1
+    row_active, per_pixel = wave["row_active"], wave["per_pixel"]
+    samples = wave["samples"]
+    n = row_active.shape[0]
+    acc = film.zero_accumulators(n, device=row_active.device)
+    total = [torch.zeros_like(t) for t in inputs]
+    for s in range(samples):
+        lane_active = row_active & (s < per_pixel)
+        if not bool(lane_active.any()):
+            continue
+        with torch.enable_grad():
+            _, _, result, fvalid = _sample_step(
+                wave["scene"], wave["camera"], acc, wave["key"], s,
+                row_active, per_pixel, width=wave["width"],
+                height=wave["height"], trace_depth=wave["trace_depth"],
+                sub_pixel_jitter=wave["jitter"], differentiable=True)
+            # this sample owns the fallback AOVs of the lanes where it is
+            # the last sample taken while the pixel had no valid sample
+            first = (acc.sample_count == 0.0) & lane_active
+            count = acc.sample_count + fvalid
+            next_first = torch.zeros_like(first)
+            if s + 1 < samples:
+                next_first = (count == 0.0) & row_active & (s + 1 < per_pixel)
+            owner = (first & ~next_first).to(torch.float32)[:, None]
+            terms = (
+                ("normal", result.aov_normal * fvalid[:, None]),
+                ("albedo", result.aov_albedo * fvalid[:, None]),
+                ("weight", result.events * fvalid),
+                ("fallback_normal", result.aov_normal * owner),
+                ("fallback_albedo", result.aov_albedo * owner),
+            )
+            loss = sum((cots[k] * v).sum() for k, v in terms
+                       if cots[k] is not None)
+            if isinstance(loss, torch.Tensor) and loss.requires_grad:
+                grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+                for acc_g, g in zip(total, grads):
+                    if g is not None:
+                        acc_g.add_(g)
+        acc = dataclasses.replace(acc, sample_count=count.detach())
+    return total
+
+
+class _AovGraft(torch.autograd.Function):
+    """Identity on the kernel's five AOV channels in forward; in backward,
+    their cotangents go to the scene and camera tensors `inputs` through
+    the differentiable wavefront (`_aov_vjp`), and only when one of them
+    is given (set_materialize_grads(False): unused outputs get None)."""
+
+    @staticmethod
+    def forward(ctx, wave, *tensors):
+        ctx.wave = wave
+        ctx.set_materialize_grads(False)
+        aovs = tensors[:len(AOV_KEYS)]
+        return tuple(a.clone() for a in aovs)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        wave = ctx.wave
+        inputs = wave["inputs"]
+        none = (None,) * (1 + len(AOV_KEYS))
+        if all(c is None for c in cots):
+            return (*none, *(None,) * len(inputs))
+        grads = _aov_vjp(wave, dict(zip(AOV_KEYS, cots)), inputs)
+        return (*none, *grads)
+
+
+def _graft_aovs(d: dict, wave: dict) -> dict:
+    """d with its AOV channels passed through _AovGraft."""
+    inputs = wave["inputs"]
+    outs = _AovGraft.apply(wave, *(d[k].detach() for k in AOV_KEYS),
+                           *inputs)
+    return {**d, **dict(zip(AOV_KEYS, outs))}
 
 
 def render_batch(
@@ -113,12 +301,17 @@ def render_batch(
     weight_extrema: torch.Tensor | None = None,
     noise_color: int = 0,
     seed: int | None = None,
+    key: torch.Tensor | None = None,
 ) -> tuple[film.Accumulators, BatchMetrics]:
     """Accumulate up to `samples` new samples per pixel into `acc` (in
     place; `acc` is also returned).
 
-    The batch's int32 seed is drawn from `generator` (a host
-    torch.Generator); `seed=` overrides the draw.
+    Randomness: with a threefry `key` (core/rng.py, as the JAX package's
+    render_batch takes one), the batch kernel's int32 seed is
+    `rng.randint(key, (), 0, 2**31 - 1)`, bit for bit the JAX renderer's,
+    and the wavefront draws from `key`.  Otherwise the seed is `seed=` or
+    drawn from `generator` (a host torch.Generator), and the wavefront's
+    key is `rng.PRNGKey(seed)`.
 
     interlace = (slice_offset, slice_divider): only rows with
     row % divider == offset take samples (SampleBatchJob.cs:69-70).
@@ -127,17 +320,23 @@ def render_batch(
     takes round(lerp(min, max, unlerp(extrema, weight))) samples; pixels
     with zero weight take the minimum.
 
-    differentiable (the default, as in the JAX package): the deltas carry
-    gradients to the sphere centers, radii, materials, sky and camera
-    (whichever of them require grad) through the tape replay's backward
-    kernel.  When none does, or grad mode is off, the batch is the forward
-    path unchanged.
+    differentiable (the default, as in the JAX package): the accumulators
+    carry gradients to whichever scene or camera tensors require grad
+    (color and count through the tape replay's backward kernel, the AOV
+    channels through the wavefront graft).  When none does, or grad mode
+    is off, the batch is the forward path unchanged.  A `noise_color`
+    other than 0 takes the wavefront with white noise, as the JAX renderer
+    does without a noise state.
     """
-    check_scope(scene, noise_color)
-    if seed is None:
+    if key is not None:
+        seed = int(rng.randint(key, (), 0, SEED_RANGE))
+    elif seed is None:
         if generator is None:
-            raise ValueError("render_batch needs a generator or a seed")
+            raise ValueError("render_batch needs a key, a generator or a "
+                             "seed")
         seed = int(torch.randint(0, SEED_RANGE, (), generator=generator))
+    if key is None:
+        key = rng.PRNGKey(seed)
     dev = scene.spheres.center.device
     n = width * height
 
@@ -157,8 +356,21 @@ def render_batch(
         ).to(torch.int32)
     else:
         per_pixel = torch.full((n,), samples, dtype=torch.int32, device=dev)
-    lane_count = torch.where(row_active, per_pixel, 0)
 
+    if noise_color != 0 or not megatrace.scene_eligible(scene):
+        # ---- the wavefront arm: the batch kernel is refused ---------------
+        integrator.check_scope(scene)
+        new, pixel_rays = wavefront_pass(
+            scene, camera, acc, key, width=width, height=height,
+            samples=samples, trace_depth=trace_depth,
+            sub_pixel_jitter=sub_pixel_jitter, differentiable=differentiable,
+            row_active=row_active, per_pixel=per_pixel,
+        )
+        for f in dataclasses.fields(film.Accumulators):
+            getattr(acc, f.name).copy_(getattr(new, f.name))
+        return acc, _reduce_metrics(acc, pixel_rays)
+
+    lane_count = torch.where(row_active, per_pixel, 0)
     records = megatrace.pack_sphere_records(
         scene, materials.pack_materials(scene)
     )
@@ -180,6 +392,15 @@ def render_batch(
         sky_on=scene.flags.sky == 1,
         jitter=sub_pixel_jitter,
     )
+    inputs = _grad_tensors(scene, camera) if differentiable else []
+    if inputs and torch.is_grad_enabled():
+        # the AOV graft: the kernel's AOV values, the wavefront's gradients
+        d = _graft_aovs(d, dict(
+            scene=scene, camera=camera, key=key, width=width, height=height,
+            samples=samples, trace_depth=trace_depth,
+            jitter=sub_pixel_jitter, row_active=row_active,
+            per_pixel=per_pixel, inputs=inputs,
+        ))
     return acc, _apply_deltas(acc, d, lane_count)
 
 
@@ -195,10 +416,11 @@ def render_image(
     sub_pixel_jitter: bool = True,
     differentiable: bool = True,
     seed: int | None = None,
+    key: torch.Tensor | None = None,
 ) -> film.CombinedImage:
     """One-shot render: one batch of `samples_per_pixel` samples.  With
-    `differentiable` (the default, as in the JAX package) `color` carries
-    gradients to whatever scene or camera tensors require grad."""
+    `differentiable` (the default, as in the JAX package) the outputs
+    carry gradients to whatever scene or camera tensors require grad."""
     acc = film.zero_accumulators(
         width * height, device=scene.spheres.center.device
     )
@@ -206,6 +428,6 @@ def render_image(
         scene, camera, acc, generator,
         width=width, height=height, samples=samples_per_pixel,
         trace_depth=trace_depth, sub_pixel_jitter=sub_pixel_jitter,
-        differentiable=differentiable, seed=seed,
+        differentiable=differentiable, seed=seed, key=key,
     )
     return film.combine(acc, width, height)

@@ -6,8 +6,9 @@
   within 5e-4 of each leaf's max abs.
 * End to end in the port: render_image(differentiable=True) with an L2
   loss equals the sample_batch_diff-level gradient; a loss on an AOV
-  raises NotImplementedError naming ROADMAP step 9; with nothing
-  requiring grad the outputs equal the forward path's.
+  gets its gradient from the wavefront graft (tests/test_torch_aov_graft.py
+  holds it against JAX); with nothing requiring grad the outputs equal the
+  forward path's.
 * Finite differences with common random numbers (tests/test_replay.py
   :85-148 protocol, on three_spheres): an interior-masked loss, so that no
   silhouette crosses a pixel of the loss as eps moves the spheres.
@@ -125,13 +126,30 @@ def test_render_image_gradient_equals_sample_batch_diff():
 
 @pytest.mark.parametrize("aov", ["normal", "albedo"])
 def test_aov_loss_is_refused(aov):
+    """A loss on an AOV used to be refused (NotImplementedError naming
+    ROADMAP step 9); the wavefront graft now gives it a gradient, finite
+    and nonzero, and the low-level sample_batch_diff still refuses AOV
+    cotangents it cannot propagate."""
     scene, cam = scene_camera("three_spheres", 8, 8)
     centers = scene.spheres.center.clone().requires_grad_()
     img = renderer.render_image(
         params_mod.set_sphere_centers(scene, centers), cam, width=8,
         height=8, samples_per_pixel=1, trace_depth=3, seed=1)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        getattr(img, aov).sum().backward()
+    runs = renderer.AOV_GRAFT_RUNS
+    getattr(img, aov).sum().backward()
+    assert renderer.AOV_GRAFT_RUNS == runs + 1
+    assert bool(torch.isfinite(centers.grad).all())
+    assert float(centers.grad.abs().max()) > 0
+    records = megatrace.pack_sphere_records(scene,
+                                            materials.pack_materials(scene))
+    c2 = scene.spheres.center.clone().requires_grad_()
+    d = mr.sample_batch_diff(
+        torch.full((64,), 1, dtype=torch.int32), torch.zeros(64),
+        megatrace.pack_camera_row(cam, 8, 8), c2, scene.spheres.radius,
+        records, scene.environment.sky_bottom, scene.environment.sky_top, 1,
+        samples=1, trace_depth=3)
+    with pytest.raises(NotImplementedError, match="AOV graft"):
+        d[aov].sum().backward()
 
 
 def test_forward_outputs_unchanged_without_grad():

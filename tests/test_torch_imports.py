@@ -48,6 +48,25 @@ _, losses = inverse.optimize(
     inverse.InverseRenderConfig(width=8, height=8, samples_per_pixel=1,
                                 trace_depth=3, steps=1))
 assert len(losses) == 1
+
+# the wavefront: its three arms, the AOV graft and the autofocus raycast
+from raytracing_in_one_weekend_tpu_torch.core import rng
+from raytracing_in_one_weekend_tpu_torch.render import driver, integrator
+
+key = rng.PRNGKey(3)
+rays = camera.generate_rays(cam, camera.pixel_coords(8, 8, key, True), key)
+for differentiable, tsd in ((True, None), (False, None),
+                            (False, torch.tensor([[0.0, 1.0, 0.0]] * 64))):
+    out = integrator.trace(scene, rays, key, 4,
+                           differentiable=differentiable,
+                           first_bounce_tsd=tsd)
+    assert int(out.ray_count) > 0
+img = renderer.render_image(params.set_sphere_centers(scene, centers), cam,
+                            width=8, height=8, samples_per_pixel=1,
+                            trace_depth=3, key=key)
+img.normal.sum().backward()
+assert bool(torch.isfinite(centers.grad).all())
+assert driver.autofocus(scene, cs) > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib",
                                     "raytracing_in_one_weekend_tpu"))

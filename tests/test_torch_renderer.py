@@ -182,8 +182,10 @@ def test_driver_refuses_unported_features():
             scene, cs, RenderSettings(denoise_mode=DenoiseMode.ATROUS),
             device="cpu",
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.autofocus(scene, dataclasses.replace(cs, focus_distance=None))
+    # the autofocus raycast is ported (tests/test_torch_integrator.py)
+    focus = driver.autofocus(scene, dataclasses.replace(cs,
+                                                        focus_distance=None))
+    assert 0.0 < focus < 1e29
     cornell, ccs = book_scenes.cornell_box()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         driver.ProgressiveRenderer(cornell, ccs, RenderSettings(),
