@@ -1,15 +1,18 @@
 """GPU smoke run of the PyTorch port's main paths: the forward render, the
 differentiable render (forward with tape, backward kernel, trainer) and
 the wavefront integrator (per-ray megatrace, fused sphere selection, the
-AOV-gradient graft).
+AOV-gradient graft), on the book cover and on the `mesh_showcase` mesh
+scene (triangle selection, the triangle arms of the batch and backward
+kernels).
 
     python3 chip_smoke.py
 
 Needs one CUDA card.  Phases, each of which raises on failure:
   1. report the card (nvidia-smi name and power limit) and versions;
-  2. build the four kernel sources (csrc/megatrace_batch.cu,
-     csrc/megatrace_bwd.cu, csrc/sphere_select.cu, csrc/megatrace_wave.cu),
-     one nvcc each, all at once; print ptxas's register and spill lines;
+  2. build the five kernel sources (csrc/megatrace_batch.cu,
+     csrc/megatrace_bwd.cu, csrc/sphere_select.cu, csrc/megatrace_wave.cu,
+     csrc/triangle_select.cu), one nvcc each, all at once; print ptxas's
+     register and spill lines;
   3. compare the batch kernel with its plain PyTorch version on the card
      (cover, 128x128, 8 spp, depth 8, two seeds): lanes whose winner tape,
      sample count and ray count are identical and whose float channels
@@ -82,7 +85,39 @@ Needs one CUDA card.  Phases, each of which raises on failure:
      index_select (why the graft uses the latter); the device's busy share
      of a 1-sample AOV step; then the AOV gradient at 128x128, 8 spp
      against the same computed by the plain versions (the same inputs on
-     the CPU), each leaf within 5e-4 of its max abs.
+     the CPU), each leaf within 5e-4 of its max abs;
+ 13. triangle_select against its plain version on the card: random cases
+     (with inactive 256-ray tiles, up to TRI_MAX triangles) and 512x512
+     mesh_showcase camera rays and one bounce of them (t and row identical
+     on >= 99% of lanes), timed on the camera rays (`kernel_ms`);
+ 14. the batch kernel's triangle arm against its plain version, by phase
+     3's criterion: mesh_showcase at 128x128, 8 spp, depth 8, two seeds,
+     and a two-block mesh (icosphere(2) and a cube, 332 triangles); then
+     both timed at 512x512, depth 8, 4 spp;
+ 15. the forward mesh path: render_batch on mesh_showcase at 512x512,
+     depth 8, 64 spp per batch, 1 warm-up and 5 timed batches (median
+     MRays/s), the image finite and the batch kernel launched;
+ 16. the wavefront mesh path: the batch kernel refused as in phase 12b,
+     512x512, depth 8, 16 spp per batch, median of 3 after a warm-up;
+     triangle_select and sphere_select must launch;
+ 17. the differentiable mesh path: (a) render_image(differentiable=True)
+     on mesh_showcase at 512x512, 64 spp, depth 8, gradients to the soup
+     vertices (set_triangle_vertices) and the sphere centres, median
+     fwd+bwd MRays/s of 3 steps after a warm-up; (b) the one-iteration
+     VJP on every live iteration of a 64x64 batch with triangle winners;
+     (c) the backward kernel against its plain version at 128x128, depth 8
+     and depth 35, each leaf (the triangle tables too) within 5e-4; (d)
+     an AOV step (normal and albedo terms, 512x512, 16 spp, depth 8) whose
+     graft launches triangle_select; (e) 10 optimize steps on the vertices
+     of one smooth triangle (finite losses; without the silhouette term,
+     ROADMAP step 12, they need not converge), then 10 on its albedo from
+     0.5, which must (last loss below half the first, the albedo error
+     below half its start); (f) the backward kernel and its plain version
+     timed at 512x512, depth 8, 4 spp;
+ 18. the CLI (`python -m raytracing_in_one_weekend_tpu_torch`'s `main`)
+     renders `--scene triangle` and `--scene mesh_showcase` on the card at
+     256x256, 16 spp, depth 8 into a temporary directory of the checkout:
+     exit code 0, a PNG, the batch kernel launched.
 MRays/s counts every bounce of every sample as one ray, with the ray
 count the kernels themselves report.  Each kernel's bound is the larger of
 its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
@@ -94,28 +129,35 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from raytracing_in_one_weekend_tpu_torch import __main__ as cli
 from raytracing_in_one_weekend_tpu_torch.core import camera as camera_mod
 from raytracing_in_one_weekend_tpu_torch.core import materials, rng
 from raytracing_in_one_weekend_tpu_torch.diff import inverse
 from raytracing_in_one_weekend_tpu_torch.diff import params as params_mod
-from raytracing_in_one_weekend_tpu_torch.models import book_scenes
+from raytracing_in_one_weekend_tpu_torch.models import book_scenes, meshes
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay
 from raytracing_in_one_weekend_tpu_torch.ops import sphere_select
+from raytracing_in_one_weekend_tpu_torch.ops import triangle_select
 from raytracing_in_one_weekend_tpu_torch.render import (
     film, integrator, renderer,
 )
+from raytracing_in_one_weekend_tpu_torch.scene.scene import SceneBuilder
+from raytracing_in_one_weekend_tpu_torch.utils.config import CameraSettings
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = 5e-4  # of each cotangent's / leaf's max abs
 LEAVES = ("camera_row", "centers", "radii", "records", "sky_bottom",
@@ -137,6 +179,10 @@ SHADE_FLOPS = 250  # per bounce of a lane: winner normal, scatter (two
 BWD_FLOPS = 3 * SHADE_FLOPS  # per live iteration of the backward: the
 #   step once forward and its VJP (about twice the forward), the least a
 #   reverse sweep from the winner tape needs
+MT_FLOPS = 56  # per (ray, triangle) pair of Möller–Trumbore
+#   (megatrace_common.cuh): two cross products (18), three 3-dots and
+#   their scalings (18), det and its guarded division (5), the edge vector
+#   (3), the hit test (7), the select (1) and the running minimum (1)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -254,11 +300,13 @@ def probe_cotangents(color, count):
     return probe / safe[:, None], cot_count
 
 
-def leaf_errors(got, want) -> tuple[float, float]:
+def leaf_errors(got, want, names=LEAVES) -> tuple[float, float]:
     """(max abs error, max error relative to the leaf's max abs) over the
-    six leaves; raises unless each is within GRAD_TOL."""
+    leaves `names`; raises unless each is within GRAD_TOL."""
+    if not len(got) == len(want) == len(names):
+        raise RuntimeError(f"{len(got)} gradients for {len(names)} leaves")
     max_abs = max_rel = 0.0
-    for name, g, w in zip(LEAVES, got, want):
+    for name, g, w in zip(names, got, want):
         scale = float(w.abs().max())
         err = float((g - w).abs().max())
         if not (err <= GRAD_TOL * scale) or scale == 0.0:
@@ -268,20 +316,29 @@ def leaf_errors(got, want) -> tuple[float, float]:
     return max_abs, max_rel
 
 
-def step_vjp_check(dev, scene, cs) -> float:
-    """Phase 6: the kernel's one-iteration VJP against autograd of the
-    plain replay_iteration on every lane, at every live iteration (three
-    of them printed in full)."""
+def tri_tables_of(scene):
+    """pack_tri_tables' pair of a mesh scene, None without triangles."""
+    return megatrace.pack_tri_tables(scene, materials.pack_materials(scene))
+
+
+def step_vjp_check(dev, scene, cs, label: str = "cover") -> float:
+    """Phase 6 (17b on a mesh scene): the kernel's one-iteration VJP
+    against autograd of the plain replay_iteration on every lane, at every
+    live iteration (three of them printed in full: the first, the first
+    later one with regen, sky lanes and the scene's other winner kind,
+    dielectric on the cover, triangle on a mesh, and the last)."""
     w, spp, depth, seed = 64, 4, 8, 21
     n = w * w
     _, tables = batch_inputs(scene, cs, w, w, dev)
+    tri = tri_tables_of(scene)
+    s_pad = megatrace.sphere_pad_count(tables[1].shape[0])
     lane_count = torch.full((n,), spp, dtype=torch.int32, device=dev)
     kw = dict(samples=spp, trace_depth=depth,
               has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
     tape = megatrace.sample_batch(lane_count, torch.zeros(n, device=dev),
                                   *tables, seed, want_tape=True,
-                                  **kw)["tape"]
-    ent = megatrace_replay.build_entity_rows(*tables[1:4]).detach()
+                                  tri_tables=tri, **kw)["tape"]
+    ent = megatrace_replay.build_entity_rows(*tables[1:4], tri).detach()
     env = megatrace_replay.make_env(lane_count, tables[0], tables[4],
                                     tables[5], seed)
     keys = megatrace_replay.STATE_KEYS
@@ -293,18 +350,21 @@ def step_vjp_check(dev, scene, cs) -> float:
             states.append(torch.stack([state[k] for k in keys]))
             regen = (state["active"] < 0.5) & (state["started"] < lane_count)
             winner = ent[torch.clamp(codes, min=0).long()]
-            diel = (codes >= 0) & (winner[:, 10] > 0.5)
+            other = ((codes >= s_pad) if tri is not None
+                     else (codes >= 0) & (winner[:, 10] > 0.5))
             if (mixed is None and it > 0 and bool(regen.any())
-                    and bool(diel.any()) and bool((codes == -1).any())):
+                    and bool(other.any()) and bool((codes == -1).any())):
                 mixed = it
             if bool((codes > -1.5).any()):
                 last = it
             state = megatrace_replay.replay_iteration(
                 state, winner.T, codes, it, env, jitter=True,
                 has_dielectrics=kw["has_dielectrics"], sky_on=True,
-                trace_depth=depth)
+                trace_depth=depth, has_tris=tri is not None)
     if mixed is None:
-        raise RuntimeError("no iteration with regen, dielectric and sky lanes")
+        raise RuntimeError(f"{label}: no iteration with regen, sky lanes and "
+                           f"{'triangle' if tri is not None else 'dielectric'}"
+                           f" winners")
     rng = np.random.default_rng(0)
     worst, worst_it = 0.0, 0
     for it in range(last + 1):
@@ -313,13 +373,14 @@ def step_vjp_check(dev, scene, cs) -> float:
         cot[12:16] = 0.0  # decisions and counters carry no cotangent
         args = (states[it], tape[it].contiguous(), it, cot, lane_count,
                 *tables, seed)
-        got = megatrace_bwd.replay_step_vjp(*args, trace_depth=depth,
-                                            has_dielectrics=True)
+        vkw = dict(trace_depth=depth, tri_tables=tri,
+                   has_dielectrics=kw["has_dielectrics"])
+        got = megatrace_bwd.replay_step_vjp(*args, **vkw)
         torch.cuda.synchronize()
-        want = megatrace_bwd.replay_step_vjp_reference(
-            *args, trace_depth=depth, has_dielectrics=True)
+        want = megatrace_bwd.replay_step_vjp_reference(*args, **vkw)
         errs = []
-        for name, k, rows in megatrace_bwd.STEP_COTANGENTS:
+        for name, k, rows in (megatrace_bwd.STEP_COTANGENTS if tri is None
+                              else megatrace_bwd.TRI_STEP_COTANGENTS):
             g, r = got[k][rows], want[k][rows]
             scale = float(r.abs().max())
             err = float((g - r).abs().max())
@@ -331,9 +392,9 @@ def step_vjp_check(dev, scene, cs) -> float:
             if rel > worst:
                 worst, worst_it = rel, it
         if it in (0, mixed, last):
-            print(f"step VJP, cover {w}x{w} iteration {it}: "
+            print(f"step VJP, {label} {w}x{w} iteration {it}: "
                   + ", ".join(errs))
-    print(f"step VJP, cover {w}x{w}: every iteration 0..{last} within "
+    print(f"step VJP, {label} {w}x{w}: every iteration 0..{last} within "
           f"{GRAD_TOL:g}; worst {worst:.3e} of a cotangent's max abs "
           f"(iteration {worst_it})")
     return worst
@@ -646,7 +707,10 @@ def kernel_ms(fn, kernel: str, repeats: int) -> float:
     """Device milliseconds per launch of the kernel whose name contains
     `kernel`, over `repeats` calls of `fn` under torch.profiler: the
     kernel alone, without the gaps a host-bound wrapper leaves between
-    launches (CUDA events around the calls would count those)."""
+    launches (CUDA events around the calls would count those).  A
+    profiler run after earlier ones in the process may lose an event of
+    its first launches, so the mean is over the launches the profiler
+    saw, at least half of `repeats`."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
@@ -659,7 +723,7 @@ def kernel_ms(fn, kernel: str, repeats: int) -> float:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and kernel in e.key]
     launches = sum(e.count for e in events)
-    if launches != repeats:
+    if not repeats / 2 <= launches <= repeats:
         raise RuntimeError(f"profiled {launches} launches of {kernel}, "
                            f"expected {repeats}")
     return sum(e.self_device_time_total for e in events) / 1e3 / launches
@@ -667,6 +731,7 @@ def kernel_ms(fn, kernel: str, repeats: int) -> float:
 
 def reset_launches() -> None:
     megatrace.LAUNCHES = megatrace.WAVE_LAUNCHES = megatrace_bwd.LAUNCHES = 0
+    triangle_select.LAUNCHES = 0
     for k in sphere_select.LAUNCHES:
         sphere_select.LAUNCHES[k] = 0
 
@@ -961,6 +1026,471 @@ def wavefront_phases(dev, card, scene, cs, camera, target,
     return {"kernels": kernels, "paths": paths}
 
 
+def random_triangles(n, t, seed, dev):
+    """Random rays and triangles (5 degenerate rows) with whole inactive
+    256-ray tiles: (origin, direction, edge_a, edge_b, vert0, active)."""
+    g = np.random.default_rng(seed)
+    v0 = g.uniform(-2, 2, (t, 3))
+    ea = g.normal(0, 0.6, (t, 3))
+    eb = g.normal(0, 0.6, (t, 3))
+    ea[:5] = 0.0
+    o = g.uniform(-4, 4, (n, 3))
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    active = g.random(n) < 0.7
+    active[256:512] = False
+    return (*(torch.tensor(v, dtype=torch.float32, device=dev)
+              for v in (o, d, ea, eb, v0)),
+            torch.tensor(active, device=dev))
+
+
+def triangle_parity(label, o, d, ea, eb, v0, active) -> tuple[float, float]:
+    """triangle_select against its plain version on the card: (share of
+    lanes with identical t and row, max abs t error on hit lanes)."""
+    got = triangle_select.triangle_select(o, d, ea, eb, v0, active)
+    torch.cuda.synchronize()
+    want = triangle_select.triangle_select_reference(o, d, ea, eb, v0, active)
+    same = (got[0] == want[0]) & (got[1] == want[1])
+    hit = (got[0] < megatrace.BIG) & (want[0] < megatrace.BIG)
+    err = (float((got[0] - want[0])[hit].abs().max()) if bool(hit.any())
+           else 0.0)
+    share = float(same.float().mean())
+    print(f"triangle_select vs plain, {label}: {share:.6f} of lanes "
+          f"identical (t, row), {float(hit.float().mean()):.4f} hit; max abs "
+          f"t err {err:.3g}")
+    if share < 0.99:
+        raise RuntimeError(f"triangle_select kernel/plain agreement {share} "
+                           f"< 0.99 ({label})")
+    return share, err
+
+
+def two_block_mesh(dev):
+    """tests/test_torch_mesh_megatrace.py's two-block mesh: a ground
+    sphere, icosphere(2) and a cube, 332 triangles (T_pad 384)."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambert((0.5, 0.5, 0.5)))
+    v, f, nrm, _ = meshes.icosphere(2)
+    b.add_mesh(v, f, b.metal((0.8, 0.7, 0.5), glossiness=0.9), normals=nrm,
+               translation=(-1.2, 1.0, 0.0))
+    v, f, _, _ = meshes.cube()
+    b.add_mesh(v, f, b.lambert((0.8, 0.3, 0.2)), translation=(1.2, 0.5, 0.0),
+               face_normals=True)
+    b.set_gradient_sky()
+    cs = CameraSettings(origin=(0.0, 2.0, 6.0), look_at=(0.0, 0.7, 0.0),
+                        vertical_fov=35.0, focus_distance=6.0)
+    return b.build().to(dev), cs
+
+
+def smooth_triangle(dev):
+    """One triangle with distinct vertex normals over a ground sphere
+    (tests/test_replay.py:483): its interior vertex gradients are smooth."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambert((0.1, 0.7, 0.1)))
+    v = np.asarray([[-1.5, 0.3, 0.0], [1.5, 0.5, 0.0], [0.0, 2.2, -1.0]],
+                   np.float32)
+    nrm = np.asarray([[0.6, 0.6, 0.52], [-0.6, 0.6, 0.52], [0.0, 0.2, 0.98]],
+                     np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    b.add_mesh(v, np.asarray([[0, 1, 2]]), b.lambert((0.8, 0.4, 0.2)),
+               normals=nrm)
+    b.set_gradient_sky()
+    cam = camera_mod.make_camera((0.0, 2.0, 6.0), (0.0, 0.9, 0.0),
+                                 (0.0, 1.0, 0.0), 35.0, 1.0, device=dev)
+    return b.build().to(dev), cam
+
+
+def mesh_phases(dev, card) -> dict:
+    """Phases 13-17 on mesh_showcase (908 triangles over a ground sphere)."""
+    scene, cs = meshes.mesh_showcase()
+    scene = scene.to(dev)
+    if (not megatrace.scene_eligible(scene, allow_triangles=True)
+            or megatrace.scene_eligible(scene)):
+        raise RuntimeError("mesh_showcase left the batch kernel's scope, or "
+                           "entered the sphere-only per-ray megatrace's")
+    tri = tri_tables_of(scene)
+    tris = scene.triangles
+    t_count, t_pad = tris.vert0.shape[0], tri[0].shape[0]
+    s_count = scene.spheres.center.shape[0]
+    width = height = 512
+    n = width * height
+    camera, _ = batch_inputs(scene, cs, width, height, dev)
+    out, kernel = {}, {}
+
+    # ---- 13. triangle_select vs plain ----------------------------------------
+    shares, errs = [], []
+    for label, (nn, tt, seed) in (("random 4096x1000", (4096, 1000, 7)),
+                                  ("random 1024x4096", (1024, 4096, 3)),
+                                  ("random 768x130", (768, 130, 5))):
+        share, err = triangle_parity(label, *random_triangles(nn, tt, seed,
+                                                              dev))
+        shares.append(share)
+        errs.append(err)
+    rays = camera_rays(camera, width, height, 1, dev)
+    o, d = rays.origin, rays.direction
+    geo = (tris.edge_a, tris.edge_b, tris.vert0)
+    share, err = triangle_parity(f"mesh_showcase {width}x{height} camera "
+                                 "rays", o, d, *geo, None)
+    shares.append(share)
+    errs.append(err)
+    # one bounce: from each hit point, a direction about the face normal
+    t, idx = triangle_select.triangle_select(o, d, *geo)
+    hit = t < megatrace.BIG
+    fn = torch.linalg.cross(tris.edge_b[idx.long()], tris.edge_a[idx.long()])
+    fn = fn / fn.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    fn = fn * -torch.sign((fn * d).sum(1, keepdim=True))
+    g = torch.Generator().manual_seed(4)
+    rd = torch.randn((n, 3), generator=g).to(dev) + fn
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    o2 = torch.where(hit[:, None], o + t[:, None] * d + 1e-3 * fn, o)
+    d2 = torch.where(hit[:, None], rd, d)
+    share, err = triangle_parity("one bounce of them", o2, d2, *geo, hit)
+    shares.append(share)
+    errs.append(err)
+    sel_ms = kernel_ms(lambda: triangle_select.triangle_select(o, d, *geo),
+                       "triangle_select_kernel", repeats=20)
+    sel_plain_ms, _ = time_batch(triangle_select.triangle_select_reference,
+                                 o, d, *geo, repeats=1)
+    sel_bound = bound(n * t_count * MT_FLOPS, n * (24 + 8) + t_count * 36)
+    print(f"triangle_select, mesh_showcase {width}x{height} camera rays x "
+          f"{t_count} triangles: kernel {sel_ms:.4f} ms, plain "
+          f"{sel_plain_ms:.3f} ms, bound {sel_bound[0]:.4f} ms by "
+          f"{sel_bound[1]} [{card}]")
+    out["select_share"] = min(shares)
+
+    # ---- 14. the batch kernel's triangle arm vs plain --------------------------
+    w = h = 128
+    kw = dict(has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
+    zeros = torch.zeros(w * h, device=dev)
+    _, tables = batch_inputs(scene, cs, w, h, dev)
+    lanes8 = torch.full((w * h,), 8, dtype=torch.int32, device=dev)
+    max_err = 0.0
+    for seed in (11, 12):
+        share, err = check_parity(
+            f"mesh_showcase {w}x{h} 8 spp depth 8 seed {seed}",
+            (lanes8, zeros, *tables, seed),
+            dict(kw, samples=8, trace_depth=8, tri_tables=tri))
+        shares.append(share)
+        max_err = max(max_err, err)
+    scene2, cs2 = two_block_mesh(dev)
+    tri2 = tri_tables_of(scene2)
+    if tri2[0].shape[0] != 384:
+        raise RuntimeError("the two-block mesh does not pad to 384 rows")
+    _, tables2 = batch_inputs(scene2, cs2, w, h, dev)
+    share, err = check_parity(
+        f"two-block mesh (332 triangles) {w}x{h} 4 spp depth 6",
+        (torch.full((w * h,), 4, dtype=torch.int32, device=dev), zeros,
+         *tables2, 13),
+        dict(kw, samples=4, trace_depth=6, tri_tables=tri2))
+    shares.append(share)
+    max_err = max(max_err, err)
+    _, tables = batch_inputs(scene, cs, width, height, dev)
+    args4 = (torch.full((n,), 4, dtype=torch.int32, device=dev),
+             torch.zeros(n, device=dev), *tables, 7)
+    kw4 = dict(kw, samples=4, trace_depth=8, tri_tables=tri)
+    batch_ms, got = time_batch(megatrace.sample_batch, *args4, repeats=5,
+                               **kw4)
+    megatrace.TRI_PAIRS = 0
+    batch_plain_ms, want = time_batch(megatrace.sample_batch_reference,
+                                      *args4, repeats=1, **kw4)
+    pairs = megatrace.TRI_PAIRS / 2  # time_batch made two calls
+    share, err = lane_agreement(got, want)
+    if share < 0.99:
+        raise RuntimeError(f"triangle arm agreement {share} < 0.99 in the "
+                           "timed 4 spp batch")
+    max_err = max(max_err, err)
+    bounces = float(got["rays"].sum())
+    blocks = -(-t_pad // megatrace.TRI_BLOCK)
+    batch_bound = bound(
+        bounces * (s_count * SWEEP_FLOPS + SHADE_FLOPS) + pairs * MT_FLOPS,
+        n * 4 * (2 + megatrace.OUT_ROWS) + s_count * 4 * 20 + 4 * 32
+        + t_pad * 4 * (12 + megatrace.TRI_REC_ROWS) + blocks * 32)
+    print(f"batch kernel, triangle arm, mesh_showcase 512x512 depth 8, 4 spp "
+          f"({bounces:.0f} bounces, {pairs / bounces:.1f} triangles tested "
+          f"per bounce of {t_count}): kernel {batch_ms:.3f} ms "
+          f"({bounces / batch_ms / 1e3:.3f} MRays/s), plain "
+          f"{batch_plain_ms:.3f} ms, bound {batch_bound[0]:.4f} ms by "
+          f"{batch_bound[1]}; {share:.6f} of lanes agree, max abs err "
+          f"{err:.3g} [{card}]")
+
+    # ---- 15. the forward mesh path ---------------------------------------------
+    gen = torch.Generator().manual_seed(0)
+    acc = film.zero_accumulators(n, device=dev)
+
+    def forward():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = renderer.render_batch(scene, camera, acc, gen, width=width,
+                                     height=height, samples=64, trace_depth=8)
+        rays_ = float(m.total_rays)  # waits for the device
+        torch.cuda.synchronize()
+        return rays_, time.perf_counter() - t0
+
+    forward()  # warm-up
+    reset_launches()
+    runs = [forward() for _ in range(5)]
+    fwd_launches = megatrace.LAUNCHES
+    if fwd_launches == 0 or megatrace_bwd.LAUNCHES or triangle_select.LAUNCHES:
+        raise RuntimeError("the forward mesh path did not take the batch "
+                           "kernel alone")
+    img = film.combine(acc, width, height).color
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.1:
+        raise RuntimeError(f"bad mesh image: mean {float(img.mean())}")
+    out["fwd_mrays"] = statistics.median(r / s / 1e6 for r, s in runs)
+    print(f"forward mesh path: mesh_showcase {width}x{height} depth 8, 64 "
+          f"spp/batch: median {out['fwd_mrays']:.3f} MRays/s over 5 batches "
+          f"({runs[0][0]:.0f} rays/batch, {fwd_launches} kernel launches); "
+          f"image mean {float(img.mean()):.4f} [{card}]")
+    target = img.detach()
+
+    # ---- 16. the wavefront mesh path -------------------------------------------
+    eligible = megatrace.scene_eligible
+    megatrace.scene_eligible = lambda *a, **k: False
+    try:
+        wacc = film.zero_accumulators(n, device=dev)
+
+        def wave_batch(i, samples):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = renderer.render_batch(
+                scene, camera, wacc, key=rng.PRNGKey(200 + i), width=width,
+                height=height, samples=samples, trace_depth=8,
+                differentiable=False)
+            total = float(m.total_rays)  # waits for the device
+            torch.cuda.synchronize()
+            return total, time.perf_counter() - t0
+
+        wave_batch(0, 1)  # warm-up
+        reset_launches()
+        runs = [wave_batch(i, 16) for i in (1, 2, 3)]
+        tri_launches = triangle_select.LAUNCHES
+        sph_launches = sphere_select.LAUNCHES["sphere_select"]
+        if (tri_launches == 0 or sph_launches == 0 or megatrace.LAUNCHES
+                or megatrace.WAVE_LAUNCHES
+                or sphere_select.LAUNCHES["sphere_select_full"]):
+            raise RuntimeError("the refused mesh batch did not take the "
+                               "general arm's selections")
+    finally:
+        megatrace.scene_eligible = eligible
+    wimg = film.combine(wacc, width, height).color
+    if not bool(torch.isfinite(wimg).all()):
+        raise RuntimeError("bad wavefront mesh image")
+    out["wave_mrays"] = statistics.median(r / s / 1e6 for r, s in runs)
+    print(f"wavefront mesh path (batch kernel refused): mesh_showcase "
+          f"{width}x{height} depth 8, 16 spp/batch: median "
+          f"{out['wave_mrays']:.3f} MRays/s over 3 batches ({runs[0][0]:.0f} "
+          f"rays/batch; launches triangle_select {tri_launches}, "
+          f"sphere_select {sph_launches}); image mean "
+          f"{float(wimg.mean()):.4f} [{card}]")
+
+    # ---- 17a. fwd+bwd to the soup vertices and the sphere centres -------------
+    verts0 = params_mod.soup_vertices(scene)
+    seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
+             for _ in range(4)]
+    rays_per = []
+    for seed in seeds:
+        _, m = renderer.render_batch(
+            scene, camera, film.zero_accumulators(n, device=dev),
+            width=width, height=height, samples=64, trace_depth=8, seed=seed,
+            differentiable=False)
+        rays_per.append(float(m.total_rays))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rates = []
+    for seed, r in zip(seeds, rays_per):
+        verts = verts0.clone().requires_grad_()
+        centers = scene.spheres.center.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = renderer.render_image(
+            params_mod.apply_params(scene, {"triangle_vertices": verts,
+                                            "sphere_centers": centers}),
+            camera, width=width, height=height, samples_per_pixel=64,
+            trace_depth=8, seed=seed, differentiable=True)
+        torch.mean((img.color - target) ** 2).backward()
+        torch.cuda.synchronize()
+        rates.append(r / (time.perf_counter() - t0) / 1e6)
+    fb_launches = (megatrace.LAUNCHES, megatrace_bwd.LAUNCHES)
+    for name, grad in (("vertices", verts.grad), ("centres", centers.grad)):
+        if not bool(torch.isfinite(grad).all()) or float(grad.abs().max()) == 0:
+            raise RuntimeError(f"bad mesh gradient to the {name}")
+    if min(fb_launches) == 0 or triangle_select.LAUNCHES:
+        raise RuntimeError(f"fwd+bwd mesh path: launches {fb_launches}, "
+                           f"triangle_select {triangle_select.LAUNCHES}")
+    out["fwd_bwd_mrays"] = statistics.median(rates[1:])
+    out["fwd_bwd_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"fwd+bwd mesh path: mesh_showcase {width}x{height} depth 8, 64 "
+          f"spp, gradients to {t_count} soup triangles' vertices and the "
+          f"sphere centres: median {out['fwd_bwd_mrays']:.3f} MRays/s over 3 "
+          f"steps ({rays_per[-1]:.0f} forward rays/step; launches batch "
+          f"{fb_launches[0]}, backward {fb_launches[1]}); peak "
+          f"{out['fwd_bwd_peak_gb']:.3f} GB [{card}]")
+
+    # ---- 17b. the one-iteration VJP on triangle winners -----------------------
+    out["step_vjp_rel_err"] = step_vjp_check(dev, scene, cs, "mesh_showcase")
+
+    # ---- 17c. backward kernel vs plain, 128x128 ---------------------------------
+    names = LEAVES + ("tri_geo", "tri_rec")
+    _, tables = batch_inputs(scene, cs, w, h, dev)
+    bwd_abs = bwd_rel = 0.0
+    for spp, depth, seed in ((8, 8, 11), (4, 35, 13)):
+        lane_count = torch.full((w * h,), spp, dtype=torch.int32, device=dev)
+        bkw = dict(kw, samples=spp, trace_depth=depth)
+        fwd = megatrace.sample_batch(lane_count, zeros, *tables, seed,
+                                     want_tape=True, tri_tables=tri, **bkw)
+        cots = probe_cotangents(fwd["color"], fwd["count"])
+        got = megatrace_bwd.replay_grad(fwd["tape"], lane_count, *tables,
+                                        seed, *cots, tri_tables=tri, **bkw)
+        torch.cuda.synchronize()
+        want = megatrace_bwd.replay_grad_reference(
+            fwd["tape"], lane_count, *tables, seed, *cots, tri_tables=tri,
+            **bkw)
+        a, r = leaf_errors(got, want, names)
+        bwd_abs, bwd_rel = max(bwd_abs, a), max(bwd_rel, r)
+        print(f"backward kernel vs plain, mesh_showcase {w}x{h} {spp} spp "
+              f"depth {depth}: max error {r:.3e} of the leaf's max abs "
+              f"({a:.3g} abs), triangle leaves included")
+
+    # ---- 17d. the AOV step -----------------------------------------------------
+    reset_launches()
+    runs_before = renderer.AOV_GRAFT_RUNS
+    verts = verts0.clone().requires_grad_()
+    centers = scene.spheres.center.clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = renderer.render_image(
+        params_mod.apply_params(scene, {"triangle_vertices": verts,
+                                        "sphere_centers": centers}),
+        camera, width=width, height=height, samples_per_pixel=16,
+        trace_depth=8, key=rng.PRNGKey(11))
+    (torch.mean((img.color - target) ** 2) + torch.mean(img.normal ** 2)
+     + torch.mean(img.albedo ** 2)).backward()
+    torch.cuda.synchronize()
+    out["aov_step_s"] = time.perf_counter() - t0
+    aov_tri = triangle_select.LAUNCHES
+    if (aov_tri == 0 or renderer.AOV_GRAFT_RUNS != runs_before + 1
+            or not bool(torch.isfinite(verts.grad).all())
+            or float(verts.grad.abs().max()) == 0):
+        raise RuntimeError("the mesh AOV step did not graft through "
+                           "triangle_select")
+    print(f"AOV step, mesh_showcase {width}x{height}, 16 spp, depth 8: "
+          f"{out['aov_step_s']:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches "
+          f"triangle_select {aov_tri}, sphere_select "
+          f"{sphere_select.LAUNCHES['sphere_select']} [{card}]")
+
+    # ---- 17e. the trainer on a small mesh's vertices --------------------------
+    small, scam = smooth_triangle(dev)
+    true = params_mod.soup_vertices(small)
+    starget = renderer.render_image(small, scam, width=128, height=128,
+                                    samples_per_pixel=64, trace_depth=8,
+                                    seed=5, differentiable=False).color
+    cfg = inverse.InverseRenderConfig(width=128, height=128,
+                                      samples_per_pixel=8, trace_depth=8,
+                                      learning_rate=1e-2, steps=10)
+    init = true + torch.tensor([0.0, 0.1, 0.0], device=dev)
+    megatrace_bwd.LAUNCHES = 0
+    fit, losses = inverse.optimize(small, scam, starget,
+                                   {"triangle_vertices": init}, cfg, seed=0)
+    err0 = float((init - true).abs().max())
+    err = float((fit["triangle_vertices"] - true).abs().max())
+    print(f"trainer: one smooth triangle 128x128, 8 spp, depth 8, 10 Adam "
+          f"steps on its vertices: losses {[round(x, 6) for x in losses]}; "
+          f"vertex max error {err0:.3f} -> {err:.4f} (backward launches "
+          f"{megatrace_bwd.LAUNCHES})")
+    if not all(np.isfinite(losses)) or megatrace_bwd.LAUNCHES == 0:
+        raise RuntimeError("the mesh trainer failed")
+    out["trainer_losses"] = losses
+    # the triangle's albedo reaches the image through its record rows and
+    # needs no silhouette term, so its fit must converge
+    row = int(small.triangles.material[0])
+    true = small.textures.main_color
+    start = true.clone()
+    start[row] = 0.5
+    megatrace_bwd.LAUNCHES = 0
+    fit, losses = inverse.optimize(
+        small, scam, starget, {"texture_colors": start},
+        cfg._replace(learning_rate=5e-2), seed=0,
+        project=lambda p: {"texture_colors": p["texture_colors"].clamp(0, 1)})
+    err0 = float((start - true)[row].abs().max())
+    err = float((fit["texture_colors"] - true)[row].abs().max())
+    print(f"trainer: the smooth triangle's albedo from 0.5, 10 Adam steps at "
+          f"lr 5e-2: losses {[round(x, 6) for x in losses]}; albedo max "
+          f"error {err0:.3f} -> {err:.4f} (backward launches "
+          f"{megatrace_bwd.LAUNCHES})")
+    if (not all(np.isfinite(losses)) or losses[-1] >= 0.5 * losses[0]
+            or err >= 0.5 * err0 or megatrace_bwd.LAUNCHES == 0):
+        raise RuntimeError("the triangle albedo fit did not converge")
+    out["albedo_fit_losses"] = losses
+
+    # ---- 17f. backward kernel vs plain time, 512x512, depth 8, 4 spp ---------
+    fwd = megatrace.sample_batch(*args4, want_tape=True, **kw4)
+    cots = probe_cotangents(fwd["color"], fwd["count"])
+    bargs = (fwd["tape"], args4[0], *args4[2:8], 7, *cots)
+    bwd_ms, got = time_batch(megatrace_bwd.replay_grad, *bargs, repeats=5,
+                             **kw4)
+    bwd_plain_ms, want = time_batch(megatrace_bwd.replay_grad_reference,
+                                    *bargs, repeats=1, **kw4)
+    a, r = leaf_errors(got, want, names)
+    bwd_abs, bwd_rel = max(bwd_abs, a), max(bwd_rel, r)
+    live = float(fwd["rays"].sum())
+    s_pad = megatrace.sphere_pad_count(s_count)
+    tri_iters = float((fwd["tape"] >= s_pad).sum())
+    bwd_bound = bound(
+        live * BWD_FLOPS + tri_iters * 3 * MT_FLOPS,
+        fwd["tape"].numel() * 4 + n * 4 * 5 + s_count * 4 * 16
+        + t_pad * 4 * (16 + megatrace.TRI_REC_ROWS) + 4 * 30)
+    print(f"backward kernel, triangle arm, mesh_showcase 512x512 depth 8, "
+          f"4 spp ({live:.0f} live iterations, {tri_iters:.0f} at triangle "
+          f"winners): kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
+          f"bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]}; max error "
+          f"{r:.3e} of the leaf's max abs [{card}]")
+
+    # ---- 18. the CLI on the mesh scenes ----------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for name in ("triangle", "mesh_showcase"):
+            png = os.path.join(tmp, f"{name}.png")
+            megatrace.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["--scene", name, "--width", "256", "--height",
+                           "256", "--spp", "16", "--depth", "8", "--output",
+                           png, "--quiet"])
+            seconds = time.perf_counter() - t0
+            with open(png, "rb") as f:
+                header = f.read(8)
+            if (rc != 0 or header != b"\x89PNG\r\n\x1a\n"
+                    or megatrace.LAUNCHES == 0):
+                raise RuntimeError(f"the CLI did not render --scene {name} "
+                                   f"through the batch kernel (rc {rc})")
+            print(f"CLI: --scene {name} 256x256, 16 spp, depth 8 on the card: "
+                  f"PNG written in {seconds:.2f} s, {megatrace.LAUNCHES} "
+                  f"batch kernel launches")
+
+    kernel = {
+        "name": "triangle_select",
+        "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/triangle_select.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_triangle.py:42",
+        "launches": tri_launches,
+        "max_abs_err": max(errs),
+        "ms": sel_ms,
+        "plain_ms": sel_plain_ms,
+        "bound_ms": sel_bound[0],
+        "bound_by": sel_bound[1],
+        "library_ms": None,
+    }
+    out["batch_triangle_arm"] = dict(
+        launches=fwd_launches, max_abs_err=max_err, ms=batch_ms,
+        plain_ms=batch_plain_ms, bound_ms=batch_bound[0],
+        bound_by=batch_bound[1], parity_share=min(shares[-4:]))
+    out["bwd_triangle_arm"] = dict(
+        launches=fb_launches[1], max_abs_err=bwd_abs, max_rel_err=bwd_rel,
+        ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0],
+        bound_by=bwd_bound[1])
+    return {"kernel": kernel, "paths": out}
+
+
 def main() -> int:
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -977,16 +1507,19 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     loaders = (megatrace.load_kernel, megatrace_bwd.load_kernel,
-               sphere_select.load_kernel, megatrace.load_wave_kernel)
+               sphere_select.load_kernel, megatrace.load_wave_kernel,
+               triangle_select.load_kernel)
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
         for build in [pool.submit(load) for load in loaders]:
             build.result()
-    print(f"build: megatrace_batch.cu, megatrace_bwd.cu, sphere_select.cu "
-          f"and megatrace_wave.cu in {time.perf_counter() - t0:.1f} s")
+    print(f"build: megatrace_batch.cu, megatrace_bwd.cu, sphere_select.cu, "
+          f"megatrace_wave.cu and triangle_select.cu in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name, log in (("megatrace_batch", megatrace.BUILD_LOG),
                       ("megatrace_bwd", megatrace_bwd.BUILD_LOG),
                       ("sphere_select", sphere_select.BUILD_LOG),
-                      ("megatrace_wave", megatrace.WAVE_BUILD_LOG)):
+                      ("megatrace_wave", megatrace.WAVE_BUILD_LOG),
+                      ("triangle_select", triangle_select.BUILD_LOG)):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -1118,6 +1651,7 @@ def main() -> int:
     target = img.detach()  # bench.py's target: the forward image
     bwd = differentiable_phases(dev, card, scene, cs, camera, target)
     wave = wavefront_phases(dev, card, scene, cs, camera, target)
+    mesh = mesh_phases(dev, card)
 
     kernels = [{
         "name": "megatrace_batch",
@@ -1144,7 +1678,7 @@ def main() -> int:
         "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"],
         "library_ms": None,
-    }] + wave["kernels"]
+    }] + wave["kernels"] + [mesh["kernel"]]
     print(json.dumps({
         "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
@@ -1153,7 +1687,7 @@ def main() -> int:
         "replay_primal_share": bwd["replay_primal_share"],
         "peak_gb": bwd["peak_gb"], "trainer_losses": bwd["trainer_losses"],
         "albedo_fit_losses": bwd["albedo_fit_losses"],
-        "wavefront": wave["paths"]}))
+        "wavefront": wave["paths"], "mesh": mesh["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,14 @@ code is plain PyTorch: functions on tensors, frozen dataclasses of
 tensors with a `.to(device)` method, an explicit `device` everywhere and
 an explicit `torch.Generator` for every random draw on the host.
 
-Ported for sphere scenes: the forward render (the book-cover main path,
+Ported for sphere scenes and triangle meshes of at most TRI_MAX (4096)
+triangles: the forward render (the book-cover main path,
 `render.renderer.render_batch` -> `ops.megatrace.sample_batch`), its
 gradient (`ops.megatrace_replay.sample_batch_diff` -> the backward kernel)
 and the wavefront integrator (`render.integrator.trace`, threefry keys in
-`core.rng`), which carries the AOV gradients and the autofocus raycast.
+`core.rng`), which carries the AOV gradients and the autofocus raycast;
+meshes come from `models.meshes` (generators, an OBJ reader) through
+`SceneBuilder.add_mesh` / `add_triangle`.
 Each kernel is hand-written CUDA under `csrc/`, launched on CUDA tensors;
 on CPU tensors its plain PyTorch version runs.  Everything the port does
 not cover yet raises NotImplementedError naming its ROADMAP item.

@@ -20,7 +20,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Path tracer (PyTorch / CUDA port)",
     )
     p.add_argument("--scene", default="cover",
-                   help="scene name from models.book_scenes")
+                   help="scene name from models.book_scenes / "
+                        "models.testbeds")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--spp", type=int, default=64,
@@ -49,7 +50,9 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
-    from raytracing_in_one_weekend_tpu_torch.models import book_scenes
+    from raytracing_in_one_weekend_tpu_torch.models import (
+        book_scenes, testbeds,
+    )
     from raytracing_in_one_weekend_tpu_torch.render import driver as driver_mod
     from raytracing_in_one_weekend_tpu_torch.utils import image as image_util
     from raytracing_in_one_weekend_tpu_torch.utils.config import RenderSettings
@@ -59,11 +62,12 @@ def main(argv: list[str] | None = None) -> int:
         print("error: CUDA is not available; pass --device cpu to render "
               "with the plain PyTorch version", file=sys.stderr)
         return 2
-    if args.scene not in book_scenes.SCENES:
+    registry = {**book_scenes.SCENES, **testbeds.SCENES}
+    if args.scene not in registry:
         print(f"error: unknown scene {args.scene!r}; available: "
-              f"{', '.join(sorted(book_scenes.SCENES))}", file=sys.stderr)
+              f"{', '.join(sorted(registry))}", file=sys.stderr)
         return 2
-    scene, camera_settings = book_scenes.SCENES[args.scene]()
+    scene, camera_settings = registry[args.scene]()
     settings = RenderSettings(
         width=args.width,
         height=args.height,

@@ -1,9 +1,12 @@
 // Fused sample-batch path tracer for Hopper (sm_90a): one whole
-// SampleBatchJob per launch, sphere-only scenes, gradient or no sky.
+// SampleBatchJob per launch, sphere scenes and mesh scenes of at most
+// TRI_MAX triangles, gradient or no sky.
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
-// sphere-only arm (white-noise hash PRNG, dense sphere sweep, Standard
-// Lambert/GGX-metal and dielectric scatter, gradient sky, per-pixel fold).
+// sphere arm and its triangle (VMEM) arm (white-noise hash PRNG, dense
+// sphere sweep, the Möller–Trumbore sweep over AABB-culled 192-row
+// triangle blocks, Standard Lambert/GGX-metal and dielectric scatter,
+// gradient sky, per-pixel fold).
 // Plain version: ops/megatrace.py::sample_batch_reference, which this
 // kernel matches bit for bit up to log/exp2 (see the precision contract
 // there): no --use_fast_math, -fmad=false, and the same explicit fmaf
@@ -27,6 +30,20 @@
 // loop runs over real spheres only and winner indices are unchanged.  The
 // bounce itself lives in megatrace_bounce.cuh, shared with the per-ray
 // megatrace (megatrace_wave.cu).
+//
+// Triangles (a second instantiation, kTris; the sphere-only one compiles
+// none of it): up to 4096 triangles are 192 KB of geometry, too much for
+// shared memory beside the spheres, and a lane leaves the iteration loop
+// when its samples end, so no block-wide barrier can stage them.  Each
+// lane reads them from device memory through the read-only cache instead
+// (48 bytes a triangle, the whole table L1/L2-resident; the lanes of a
+// warp that sweep a block read the same row at the same step).  The JAX
+// kernel skips a 192-row block for a whole tile when no active lane's ray
+// meets its AABB before the lane's best hit; here each lane makes that
+// test for itself, which cannot change its winner (the AABB bounds every
+// hit in the block) and skips more.  The Möller–Trumbore sweep costs ~56
+// flops a triangle, three times a sphere's, so mesh scenes are ALU-bound
+// in the blocks a ray cannot skip.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,10 +57,11 @@ using namespace rtiw;
 constexpr int kOutRows = 18;
 constexpr int kThreads = 128;
 
+template <bool kTris>
 __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
     const float* __restrict__ consts, const float4* __restrict__ sph_g,
-    const float* __restrict__ rec, float* __restrict__ out,
+    const float* __restrict__ rec, TriScene tri, float* __restrict__ out,
     float* __restrict__ tape, int n, int s, int seed, int lane_base,
     int samples, int trace_depth, float t_min, int has_dielectrics,
     int sky_on, int jitter) {
@@ -117,9 +135,9 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
     }
 
     // ---- one bounce (megatrace_bounce.cuh) -------------------------------
-    const int winner = bounce(p, sph, s, rec, t_min, has_dielectrics != 0,
-                              sky_on != 0, cam + 24,
-                              lane_key + salt + kSaltBounce, depth);
+    const int winner = bounce<kTris>(
+        p, sph, s, rec, t_min, has_dielectrics != 0, sky_on != 0, cam + 24,
+        lane_key + salt + kSaltBounce, depth, tri);
     if (tape != nullptr) tape[(size_t)it * n + i] = (float)winner;
 
     // ---- per-lane bookkeeping ------------------------------------------
@@ -163,20 +181,33 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Launches on `stream` and
-// returns cudaGetLastError() right after the launch.
+// returns cudaGetLastError() right after the launch.  tri_rows == 0 takes
+// the sphere-only build; otherwise tri_geo holds (tri_rows, 12) floats,
+// tri_aabb (tri_blocks, 8) and tri_rec (tri_rows, 32), and a triangle's
+// tape code is tri_code_base + its row.
 extern "C" int rtiw_megatrace_batch(
     const float* lane_count, const float* count_in, const float* consts,
-    const float* sph, const float* rec, float* out, float* tape, int n, int s,
-    int seed, int lane_base, int samples, int trace_depth, float t_min,
+    const float* sph, const float* rec, const float* tri_geo,
+    const float* tri_aabb, const float* tri_rec, float* out, float* tape,
+    int n, int s, int tri_rows, int tri_blocks, int tri_code_base, int seed,
+    int lane_base, int samples, int trace_depth, float t_min,
     int has_dielectrics, int sky_on, int jitter, void* stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     const size_t shmem = (size_t)s * sizeof(float4);
-    megatrace_batch_kernel<<<blocks, kThreads, shmem,
-                             static_cast<cudaStream_t>(stream)>>>(
+    TriScene tri;
+    tri.geo = reinterpret_cast<const float4*>(tri_geo);
+    tri.aabb = reinterpret_cast<const float4*>(tri_aabb);
+    tri.rec = tri_rec;
+    tri.rows = tri_rows;
+    tri.blocks = tri_blocks;
+    tri.code_base = tri_code_base;
+    auto kernel = tri_rows > 0 ? megatrace_batch_kernel<true>
+                               : megatrace_batch_kernel<false>;
+    kernel<<<blocks, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
         lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
-        rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
-        has_dielectrics, sky_on, jitter);
+        rec, tri, out, tape, n, s, seed, lane_base, samples, trace_depth,
+        t_min, has_dielectrics, sky_on, jitter);
   }
   return static_cast<int>(cudaGetLastError());
 }

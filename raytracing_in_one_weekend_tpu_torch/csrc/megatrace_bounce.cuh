@@ -1,9 +1,10 @@
-// One path-tracing bounce of one lane, sphere-only scenes: the code the
-// batch kernel (megatrace_batch.cu) and the per-ray megatrace
-// (megatrace_wave.cu) share, as the JAX package's kernels share
-// pallas_megatrace.py::_bounce_step.  Plain version:
-// ops/megatrace.py::_bounce, under the precision contract of
-// megatrace_common.cuh.
+// One path-tracing bounce of one lane: the code the batch kernel
+// (megatrace_batch.cu) and the per-ray megatrace (megatrace_wave.cu)
+// share, as the JAX package's kernels share
+// pallas_megatrace.py::_bounce_step.  The triangle arm is a compile-time
+// flag: the batch kernel's mesh build takes it, the sphere-only builds
+// compile none of it.  Plain version: ops/megatrace.py::_bounce, under the
+// precision contract of megatrace_common.cuh.
 #pragma once
 
 #include <stdint.h>
@@ -14,6 +15,21 @@ namespace rtiw {
 
 constexpr int kRec = 16;  // record columns: 0-10 material | 11 id |
                           // 12-14 centre | 15 1/r
+constexpr int kTriRec = 32;  // triangle record columns: 0-10 material |
+                             // 11 id | 12-20 vertex normals | 21-26 uvs
+constexpr int kTriBlock = 192;  // triangle rows under one AABB
+
+// A mesh scene's triangles, in device memory, read through the read-only
+// cache: geometry rows (edge_a | edge_b | vert0 | pad, three float4 a
+// row), one AABB per kTriBlock rows (lo | hi, two float4; a pad-only
+// block holds a point at 1e30) and the records.  A triangle's tape code
+// is code_base (the padded sphere rows) plus its row.
+struct TriScene {
+  const float4* geo = nullptr;
+  const float4* aabb = nullptr;
+  const float* rec = nullptr;
+  int rows = 0, blocks = 0, code_base = 0;
+};
 
 // The state of one path (SampleBatchJob.cs:166-401).
 struct Path {
@@ -25,15 +41,20 @@ struct Path {
 };
 
 // Bounce the active path `p` once: the dense sweep over the s spheres in
-// shared memory `sph` (centre, |c|^2 - r^2), the winner's record from
-// `rec`, Lambert / GGX-metal / dielectric scatter with the uniforms of
-// hash base `bbase`, the gradient sky `sky` (bottom rgb, top rgb) or none,
-// the fold, AOV capture and events at path depth `depth`, and the
-// advance.  Returns the winner's row, -1 on a miss.
+// shared memory `sph` (centre, |c|^2 - r^2), with kTris the sweep over
+// the triangles of `tri` (a block is skipped when the ray misses its AABB
+// or meets it beyond the best hit so far; a triangle wins only with a
+// strictly smaller t, the earlier row on a tie), the winner's record,
+// Lambert / GGX-metal / dielectric scatter with the uniforms of hash base
+// `bbase`, the gradient sky `sky` (bottom rgb, top rgb) or none, the fold,
+// AOV capture and events at path depth `depth`, and the advance.  Returns
+// the winner's tape code (sphere row, or tri.code_base + triangle row),
+// -1 on a miss.
+template <bool kTris = false>
 __device__ __forceinline__ int bounce(
     Path& p, const float4* sph, int s, const float* __restrict__ rec,
     float t_min, bool has_dielectrics, bool sky_on, const float* sky,
-    uint32_t bbase, int depth) {
+    uint32_t bbase, int depth, const TriScene& tri = TriScene{}) {
   // ---- dense sphere sweep ------------------------------------------------
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
@@ -58,6 +79,45 @@ __device__ __forceinline__ int bounce(
         best = k;
       }
     }
+  }
+  // ---- triangle sweep (kTris) -------------------------------------------
+  bool tri_wins = false;
+  int tri_idx = 0;
+  float tri_u = 0.f, tri_v = 0.f;
+  if (kTris) {
+    const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
+    float tri_t = kBig;
+    for (int blk = 0; blk < tri.blocks; ++blk) {
+      const float4 lo = __ldg(tri.aabb + 2 * blk);
+      const float4 hi = __ldg(tri.aabb + 2 * blk + 1);
+      const float bx0 = (lo.x - ox) * ivx, bx1 = (hi.x - ox) * ivx;
+      const float by0 = (lo.y - oy) * ivy, by1 = (hi.y - oy) * ivy;
+      const float bz0 = (lo.z - oz) * ivz, bz1 = (hi.z - oz) * ivz;
+      const float b_near = fmaxf(fminf(bx0, bx1),
+                                 fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
+      const float b_far = fminf(fmaxf(bx0, bx1),
+                                fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
+      if (!(b_far >= fmaxf(b_near, t_min) && b_near < fminf(tri_t, best_t)))
+        continue;
+      const int end = min((blk + 1) * kTriBlock, tri.rows);
+      for (int k = blk * kTriBlock; k < end; ++k) {
+        const float4 g0 = __ldg(tri.geo + 3 * k);
+        const float4 g1 = __ldg(tri.geo + 3 * k + 1);
+        const float4 g2 = __ldg(tri.geo + 3 * k + 2);
+        float u, v;
+        const float t =
+            moller_trumbore(ox, oy, oz, dx, dy, dz, g0.x, g0.y, g0.z, g0.w,
+                            g1.x, g1.y, g1.z, g1.w, g2.x, t_min, u, v);
+        if (t < tri_t) {  // strict: the first row wins a tie
+          tri_t = t;
+          tri_idx = k;
+          tri_u = u;
+          tri_v = v;
+        }
+      }
+    }
+    tri_wins = tri_t < best_t;
+    if (tri_wins) best_t = tri_t;
   }
   const bool hit = best_t < kBig;
 
@@ -87,14 +147,22 @@ __device__ __forceinline__ int bounce(
     return -1;
   }
 
-  const float* w = rec + (size_t)best * kRec;
   const float px = fmaf(best_t, dx, ox);
   const float py = fmaf(best_t, dy, oy);
   const float pz = fmaf(best_t, dz, oz);
-  const float inv_r = __ldg(w + 15);
-  const float nx = (px - __ldg(w + 12)) * inv_r;
-  const float ny = (py - __ldg(w + 13)) * inv_r;
-  const float nz = (pz - __ldg(w + 14)) * inv_r;
+  const float* w;
+  float nx, ny, nz;
+  if (kTris && tri_wins) {
+    w = tri.rec + (size_t)tri_idx * kTriRec;
+    tri_normal(w + 12, w + 15, w + 18, tri_u, tri_v, nx, ny, nz);
+    best = tri.code_base + tri_idx;
+  } else {
+    w = rec + (size_t)best * kRec;
+    const float inv_r = __ldg(w + 15);
+    nx = (px - __ldg(w + 12)) * inv_r;
+    ny = (py - __ldg(w + 13)) * inv_r;
+    nz = (pz - __ldg(w + 14)) * inv_r;
+  }
   const float mtype = __ldg(w + 0);
   const float alb_r = __ldg(w + 1), alb_g = __ldg(w + 2),
               alb_b = __ldg(w + 3);

@@ -97,6 +97,53 @@ RTIW_FN float roughness_to_alpha(float roughness) {
          0.0171201f * x * x * x + 0.000640711f * x * x * x * x;
 }
 
+// Möller–Trumbore (HitTests.cs:116-150) of the ray (o, d) against the
+// triangle (edge_a, edge_b, vert0): t, or kBig without a hit (det == 0
+// takes inv_det = 1 and never hits), and the barycentrics (u, v).  The
+// products XLA's CPU compile contracts are fused (a cross product's
+// x*y - z*w is fmaf(x, y, -(z*w)), a 3-dot is dot3); plain version:
+// ops/megatrace.py::moller_trumbore.
+RTIW_FN float moller_trumbore(float ox, float oy, float oz, float dx,
+                              float dy, float dz, float eax, float eay,
+                              float eaz, float ebx, float eby, float ebz,
+                              float v0x, float v0y, float v0z, float t_min,
+                              float& u, float& v) {
+  const float pvx = fmaf(dy, eaz, -(dz * eay));
+  const float pvy = fmaf(dz, eax, -(dx * eaz));
+  const float pvz = fmaf(dx, eay, -(dy * eax));
+  const float det = dot3(ebx, eby, ebz, pvx, pvy, pvz);
+  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
+  u = dot3(tvx, tvy, tvz, pvx, pvy, pvz) * inv_det;
+  const float qvx = fmaf(tvy, ebz, -(tvz * eby));
+  const float qvy = fmaf(tvz, ebx, -(tvx * ebz));
+  const float qvz = fmaf(tvx, eby, -(tvy * ebx));
+  v = dot3(dx, dy, dz, qvx, qvy, qvz) * inv_det;
+  const float t = dot3(eax, eay, eaz, qvx, qvy, qvz) * inv_det;
+  const bool ok = det != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+                  (u + v) <= 1.0f && t > t_min;
+  return ok ? t : kBig;
+}
+
+// 1 / c with |c| floored at 1e-12: the AABB slab test's inverse.
+RTIW_FN float inv_dir(float c) {
+  return 1.0f / (fabsf(c) < 1e-12f ? (c >= 0.0f ? 1e-12f : -1e-12f) : c);
+}
+
+// Barycentric lerp of the vertex normals n0, n1, n2 (each 3 floats),
+// normalised after the lerp (Entity.cs:65).
+RTIW_FN void tri_normal(const float* n0, const float* n1, const float* n2,
+                        float u, float v, float& nx, float& ny, float& nz) {
+  const float w0 = 1.0f - u - v;
+  const float tx = fmaf(n2[0], v, fmaf(n0[0], w0, n1[0] * u));
+  const float ty = fmaf(n2[1], v, fmaf(n0[1], w0, n1[1] * u));
+  const float tz = fmaf(n2[2], v, fmaf(n0[2], w0, n1[2] * u));
+  const float inv = rsqrt_cr(fmaxf(dot3(tx, ty, tz, tx, ty, tz), 1e-24f));
+  nx = tx * inv;
+  ny = ty * inv;
+  nz = tz * inv;
+}
+
 RTIW_FN float smith_masking(float cos_theta, float roughness) {
   const float sq_cos = cos_theta * cos_theta;
   const float sq_sin = fmaxf(1.0f - sq_cos, 0.0f);

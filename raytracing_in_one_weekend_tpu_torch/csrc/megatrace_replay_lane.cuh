@@ -13,6 +13,14 @@
 // floors and the dielectric ior floor; each passes a derivative exactly
 // where the plain replay's torch.clamp/torch.where would (and the lottery
 // clip halves it at a tie, as the plain replay and jnp.clip do).
+//
+// Mesh scenes take the kTris instantiation (the sphere-only one compiles
+// none of it): the entity table is kTriEntCols wide, a triangle winner
+// (kind 3) takes Möller–Trumbore and the barycentric normal lerp instead
+// of the sphere quadratic, and its cotangent row is kTriGradCols wide.
+// The adjoint keeps the primal's guards there too: det == 0 divides by 1
+// and passes no derivative, and the normal's 1e-24 floor passes one only
+// where torch.clamp does.
 #pragma once
 
 #include "megatrace_common.cuh"
@@ -24,8 +32,13 @@ enum StateIdx {
   kOX = 0, kOY, kOZ, kDX, kDY, kDZ, kTHX, kTHY, kTHZ, kRX, kRY, kRZ,
   kActive, kValid, kStarted, kDepth, kCSX, kCSY, kCSZ, kCnt, kLp
 };
-constexpr int kEntCols = 23;  // build_entity_rows layout
+constexpr int kEntCols = 23;  // build_entity_rows layout, sphere scenes
+constexpr int kTriEntCols = 38;  // ... mesh scenes (23-31 vertex normals)
 constexpr int kGradCols = 13;  // entity columns 0-3 and 11-19
+// mesh scenes: those, then columns 4-9 (a triangle's edge_b, vert0) and
+// 23-31 (its vertex normals); columns 0-2 hold a triangle's edge_a
+// (megatrace_replay.TRI_GRAD_COLS)
+constexpr int kTriGradCols = 28;
 // camera row 0-23 (origin, lower-left, horizontal, vertical, right, up,
 // lens radius, width, height, pad) | sky bottom 24-26 | sky top 27-29
 constexpr int kScal = 30;
@@ -36,7 +49,14 @@ enum CamIdx {
 // gradient columns: 0-2 center, 3 radius, 4-6 albedo, 7-9 emission,
 // 10 gloss, 11 metallic, 12 parameter
 enum GradIdx { kGC = 0, kGR = 3, kGAlb = 4, kGEm = 7, kGGloss = 10,
-               kGMetal = 11, kGParam = 12 };
+               kGMetal = 11, kGParam = 12, kGEb = 13, kGV0 = 16,
+               kGNrm = 19 };
+
+template <bool kTris>
+struct Layout {
+  static constexpr int ent = kTris ? kTriEntCols : kEntCols;
+  static constexpr int grad = kTris ? kTriGradCols : kGradCols;
+};
 
 struct LaneEnv {
   const float* cam;  // kScal constants
@@ -79,8 +99,12 @@ struct Iter {
   float o[3], d[3], th[3], rad[3], lp, valid, depth;
   // winner (hit lanes)
   int w;
+  bool tri;  // a triangle (kTris builds only)
   float c[3], r, alb[3], em[3], gloss, metal, param;
   float a, b, cc, disc, sq, inv_a, t, p[3], inv_r, n[3];
+  // triangle winner: Möller–Trumbore's terms and the normal lerp
+  float eb[3], v0[3], nrm[9], pv[3], tv[3], qv[3], det, inv_det, mu, mv, mt,
+      bu, bv, tn[3];
   float ua, ub, uc, ud;
   // Standard scatter
   float roughness, cs[3], q[3], rn[3], spec_dot, std_ior, fresnel, cos_dn,
@@ -106,8 +130,68 @@ RTIW_FN float dotv(const float* a, const float* b) {
 
 RTIW_FN float log_floor(float x) { return logf(fmaxf(x, 1e-12f)); }
 
+// The sweep's quadratic at a sphere winner (centre c, radius r): the hit
+// distance, point and outward normal.
+RTIW_FN void sphere_hit(Iter& I, float t_min) {
+  const float* o = I.o;
+  const float* d = I.d;
+  const float* c = I.c;
+  I.a = dotv(d, d);
+  I.b = dotv(o, d) - dotv(d, c);
+  const float cmr2 = (c[0] * c[0] + c[1] * c[1]) + c[2] * c[2] - I.r * I.r;
+  I.cc = (dotv(o, o) - 2.0f * dotv(o, c)) + cmr2;
+  I.disc = fmaf(I.b, I.b, -(I.a * I.cc));
+  I.sq = sqrtf(fmaxf(I.disc, 1e-8f));
+  I.inv_a = 1.0f / I.a;
+  const float t_near = (-I.b - I.sq) * I.inv_a;
+  const float t_far = (-I.b + I.sq) * I.inv_a;
+  I.near_root = t_near > t_min;
+  I.t = I.near_root ? t_near : t_far;
+  I.inv_r = 1.0f / (I.r != 0.0f ? I.r : 1.0f);
+  for (int k = 0; k < 3; ++k) {
+    I.p[k] = fmaf(I.t, d[k], o[k]);
+    I.n[k] = (I.p[k] - c[k]) * I.inv_r;
+  }
+}
+
+// Möller–Trumbore of the lane's ray at a triangle winner (c holds its
+// edge_a) and the barycentric normal lerp, in the forward kernel's
+// expressions (megatrace_common.cuh::moller_trumbore, tri_normal): the hit
+// distance, point and unit normal.  The tape guarantees det != 0; it still
+// divides by 1 where det == 0, as the plain replay does.
+RTIW_FN void tri_hit(Iter& I) {
+  const float* o = I.o;
+  const float* d = I.d;
+  const float* ea = I.c;
+  const float* eb = I.eb;
+  I.pv[0] = fmaf(d[1], ea[2], -(d[2] * ea[1]));
+  I.pv[1] = fmaf(d[2], ea[0], -(d[0] * ea[2]));
+  I.pv[2] = fmaf(d[0], ea[1], -(d[1] * ea[0]));
+  I.det = dotv(eb, I.pv);
+  I.inv_det = 1.0f / (I.det != 0.0f ? I.det : 1.0f);
+  for (int k = 0; k < 3; ++k) I.tv[k] = o[k] - I.v0[k];
+  I.mu = dotv(I.tv, I.pv);
+  I.bu = I.mu * I.inv_det;
+  I.qv[0] = fmaf(I.tv[1], eb[2], -(I.tv[2] * eb[1]));
+  I.qv[1] = fmaf(I.tv[2], eb[0], -(I.tv[0] * eb[2]));
+  I.qv[2] = fmaf(I.tv[0], eb[1], -(I.tv[1] * eb[0]));
+  I.mv = dotv(d, I.qv);
+  I.bv = I.mv * I.inv_det;
+  I.mt = dotv(ea, I.qv);
+  I.t = I.mt * I.inv_det;
+  const float w0 = 1.0f - I.bu - I.bv;
+  for (int k = 0; k < 3; ++k) {
+    I.p[k] = fmaf(I.t, d[k], o[k]);
+    I.tn[k] = fmaf(I.nrm[6 + k], I.bv,
+                   fmaf(I.nrm[k], w0, I.nrm[3 + k] * I.bu));
+  }
+  const float inv = rsqrt_cr(fmaxf(dotv(I.tn, I.tn), 1e-24f));
+  for (int k = 0; k < 3; ++k) I.n[k] = I.tn[k] * inv;
+}
+
 // Regen, one bounce at the tape's winner, fold: everything but the state
 // update, which step_forward applies.
+template <bool kTris = false>
 RTIW_FN void iter_forward(const float* s, float code, int it,
                           const LaneEnv& E, Iter& I) {
   const float* cam = E.cam;
@@ -163,12 +247,11 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
   I.uc = uniform(bbase, 2);
   I.ud = uniform(bbase, 3);
   const float u_choice = uniform(bbase, 4), u_choice2 = uniform(bbase, 5);
-  const float* o = I.o;
   const float* d = I.d;
   if (I.hit) {
-    // ---- the sweep's quadratic at the winner -----------------------------
+    // ---- the winner: its hit point and normal ----------------------------
     I.w = (int)code;
-    const float* e = E.ent + (size_t)I.w * kEntCols;
+    const float* e = E.ent + (size_t)I.w * Layout<kTris>::ent;
     for (int k = 0; k < 3; ++k) {
       I.c[k] = e[k];
       I.alb[k] = e[11 + k];
@@ -179,22 +262,16 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
     I.gloss = e[17];
     I.metal = e[18];
     I.param = e[19];
-    const float* c = I.c;
-    I.a = dotv(d, d);
-    I.b = dotv(o, d) - dotv(d, c);
-    const float cmr2 = (c[0] * c[0] + c[1] * c[1]) + c[2] * c[2] - I.r * I.r;
-    I.cc = (dotv(o, o) - 2.0f * dotv(o, c)) + cmr2;
-    I.disc = fmaf(I.b, I.b, -(I.a * I.cc));
-    I.sq = sqrtf(fmaxf(I.disc, 1e-8f));
-    I.inv_a = 1.0f / I.a;
-    const float t_near = (-I.b - I.sq) * I.inv_a;
-    const float t_far = (-I.b + I.sq) * I.inv_a;
-    I.near_root = t_near > E.t_min;
-    I.t = I.near_root ? t_near : t_far;
-    I.inv_r = 1.0f / (I.r != 0.0f ? I.r : 1.0f);
-    for (int k = 0; k < 3; ++k) {
-      I.p[k] = fmaf(I.t, d[k], o[k]);
-      I.n[k] = (I.p[k] - c[k]) * I.inv_r;
+    I.tri = kTris && e[21] > 2.5f;
+    if (kTris && I.tri) {
+      for (int k = 0; k < 3; ++k) {
+        I.eb[k] = e[4 + k];
+        I.v0[k] = e[7 + k];
+      }
+      for (int k = 0; k < 9; ++k) I.nrm[k] = e[23 + k];
+      tri_hit(I);
+    } else {
+      sphere_hit(I, E.t_min);
     }
     const float* n = I.n;
     I.is_diel = E.has_diel && mtype > 0.5f;
@@ -290,9 +367,10 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
 }
 
 // One replay iteration, in place.
+template <bool kTris = false>
 RTIW_FN void step_forward(float* s, float code, int it, const LaneEnv& E) {
   Iter I;
-  iter_forward(s, code, it, E, I);
+  iter_forward<kTris>(s, code, it, E, I);
   if (!I.was_active) return;
   for (int k = 0; k < 3; ++k) {
     s[kOX + k] = I.hit ? fmaf(I.off_n, I.n[k], I.p[k]) : I.o[k];
@@ -392,6 +470,117 @@ RTIW_FN void smith_masking_vjp(float cos_theta, float roughness, float gG,
                          3.0f * 0.0171201f * xl * xl +
                          4.0f * 0.000640711f * xl * xl * xl;
     grough = galpha * dalpha / roughness;
+  }
+}
+
+// Cotangents of a sphere winner's hit point p and normal n (gp is
+// updated in place, gn read) into the ray (go, gd) and the winner row's
+// centre and radius (ge).
+RTIW_FN void sphere_hit_vjp(const Iter& I, float* gp, const float* gn,
+                            float* go, float* gd, float* ge) {
+  const float* o = I.o;
+  const float* d = I.d;
+  const float* c = I.c;
+  float gc[3], ginv_r = 0.0f, gr = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    gp[k] += gn[k] * I.inv_r;
+    gc[k] = -gn[k] * I.inv_r;
+    ginv_r += gn[k] * (I.p[k] - c[k]);
+  }
+  if (I.r != 0.0f) gr -= ginv_r * I.inv_r * I.inv_r;
+  const float gt = dotv(gp, d);
+  for (int k = 0; k < 3; ++k) {
+    gd[k] += I.t * gp[k];
+    go[k] += gp[k];
+  }
+  // t = (-b -+ sq) / a
+  float gb = -gt * I.inv_a;
+  const float gsq = I.near_root ? -gt * I.inv_a : gt * I.inv_a;
+  const float ginv_a = gt * (I.near_root ? (-I.b - I.sq) : (-I.b + I.sq));
+  float ga = -ginv_a * I.inv_a * I.inv_a;
+  const float gdisc = I.disc >= 1e-8f ? gsq * 0.5f / I.sq : 0.0f;
+  gb += 2.0f * I.b * gdisc;
+  ga -= I.cc * gdisc;
+  const float gcc = -I.a * gdisc;
+  // cc = |o - c|^2 - r^2, b = d.(o - c), a = d.d: the derivatives of
+  // the expanded forms the primal rounds, taken in (o - c) form, which
+  // does not cancel (the plain replay does the same)
+  for (int k = 0; k < 3; ++k) {
+    const float oc = o[k] - c[k];
+    const float gq = 2.0f * oc * gcc + d[k] * gb;
+    gc[k] -= gq;
+    go[k] += gq;
+    gd[k] += oc * gb + 2.0f * d[k] * ga;
+  }
+  gr -= 2.0f * I.r * gcc;
+  for (int k = 0; k < 3; ++k) ge[kGC + k] += gc[k];
+  ge[kGR] += gr;
+}
+
+// Cotangents of a triangle winner's hit point p and unit normal n (gp,
+// gn) into the ray (go, gd) and the winner row: edge_a, edge_b, vert0 and
+// the three vertex normals (ge, the kTriGradCols layout).
+RTIW_FN void tri_hit_vjp(const Iter& I, const float* gp, const float* gn,
+                         float* go, float* gd, float* ge) {
+  const float* d = I.d;
+  // n = tn rsqrt(max(|tn|^2, 1e-24))
+  const float l2 = dotv(I.tn, I.tn);
+  const float inv = rsqrt_cr(fmaxf(l2, 1e-24f));
+  const float kn = l2 >= 1e-24f ? -inv * inv * inv * dotv(gn, I.tn) : 0.0f;
+  // tn = n0 (1 - u - v) + n1 u + n2 v
+  const float w0 = 1.0f - I.bu - I.bv;
+  float gw0 = 0.0f, gu = 0.0f, gv = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    const float gtn = inv * gn[k] + kn * I.tn[k];
+    ge[kGNrm + k] += gtn * w0;
+    ge[kGNrm + 3 + k] += gtn * I.bu;
+    ge[kGNrm + 6 + k] += gtn * I.bv;
+    gw0 += gtn * I.nrm[k];
+    gu += gtn * I.nrm[3 + k];
+    gv += gtn * I.nrm[6 + k];
+  }
+  gu -= gw0;
+  gv -= gw0;
+  // p = t d + o
+  const float gt = dotv(gp, d);
+  for (int k = 0; k < 3; ++k) {
+    gd[k] += I.t * gp[k];
+    go[k] += gp[k];
+  }
+  // (t, u, v) = (ea.qv, tv.pv, d.qv) / det
+  const float ginv = gt * I.mt + gu * I.mu + gv * I.mv;
+  const float gmt = gt * I.inv_det, gmu = gu * I.inv_det,
+              gmv = gv * I.inv_det;
+  const float gdet = I.det != 0.0f ? -ginv * I.inv_det * I.inv_det : 0.0f;
+  float gqv[3], gpv[3], gtv[3], gea[3], geb[3];
+  for (int k = 0; k < 3; ++k) {
+    gqv[k] = gmt * I.c[k] + gmv * d[k];
+    gea[k] = gmt * I.qv[k];
+    gd[k] += gmv * I.qv[k];
+    gtv[k] = gmu * I.pv[k];
+    gpv[k] = gmu * I.tv[k] + gdet * I.eb[k];
+    geb[k] = gdet * I.pv[k];
+  }
+  // qv = tv x eb: gtv += eb x gqv, geb += gqv x tv
+  gtv[0] += I.eb[1] * gqv[2] - I.eb[2] * gqv[1];
+  gtv[1] += I.eb[2] * gqv[0] - I.eb[0] * gqv[2];
+  gtv[2] += I.eb[0] * gqv[1] - I.eb[1] * gqv[0];
+  geb[0] += gqv[1] * I.tv[2] - gqv[2] * I.tv[1];
+  geb[1] += gqv[2] * I.tv[0] - gqv[0] * I.tv[2];
+  geb[2] += gqv[0] * I.tv[1] - gqv[1] * I.tv[0];
+  // pv = d x ea: gd += ea x gpv, gea += gpv x d
+  gd[0] += I.c[1] * gpv[2] - I.c[2] * gpv[1];
+  gd[1] += I.c[2] * gpv[0] - I.c[0] * gpv[2];
+  gd[2] += I.c[0] * gpv[1] - I.c[1] * gpv[0];
+  gea[0] += gpv[1] * d[2] - gpv[2] * d[1];
+  gea[1] += gpv[2] * d[0] - gpv[0] * d[2];
+  gea[2] += gpv[0] * d[1] - gpv[1] * d[0];
+  // tv = o - v0
+  for (int k = 0; k < 3; ++k) {
+    go[k] += gtv[k];
+    ge[kGC + k] += gea[k];
+    ge[kGEb + k] += geb[k];
+    ge[kGV0 + k] -= gtv[k];
   }
 }
 
@@ -544,14 +733,15 @@ RTIW_FN void dielectric_vjp(const Iter& I, const float* gsd,
 }
 
 // Adjoint of step_forward.  g holds the cotangent of the output state on
-// entry and of the input state on exit.  ge (kGradCols) receives the
-// winner row's cotangent and gs (kScal) accumulates the camera and sky
+// entry and of the input state on exit.  ge (Layout<kTris>::grad) receives
+// the winner row's cotangent and gs (kScal) accumulates the camera and sky
 // cotangents.  Returns the winner row, or -1 when ge is unused.
+template <bool kTris = false>
 RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
                      const LaneEnv& E, float* ge, float* gs) {
   Iter I;
-  iter_forward(s, code, it, E, I);
-  for (int k = 0; k < kGradCols; ++k) ge[k] = 0.0f;
+  iter_forward<kTris>(s, code, it, E, I);
+  for (int k = 0; k < Layout<kTris>::grad; ++k) ge[k] = 0.0f;
   g[kActive] = g[kValid] = g[kStarted] = g[kDepth] = 0.0f;
   if (!I.was_active) return -1;
   const float* cam = E.cam;
@@ -603,43 +793,10 @@ RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
       standard_vjp(I, gsd, gsr, glp_inc, gn, gd, ge);
 
     // ---- hit point and normal -------------------------------------------
-    const float* o = I.o;
-    const float* d = I.d;
-    const float* c = I.c;
-    float gc[3], ginv_r = 0.0f, gr = 0.0f;
-    for (int k = 0; k < 3; ++k) {
-      gp[k] += gn[k] * I.inv_r;
-      gc[k] = -gn[k] * I.inv_r;
-      ginv_r += gn[k] * (I.p[k] - c[k]);
-    }
-    if (I.r != 0.0f) gr -= ginv_r * I.inv_r * I.inv_r;
-    const float gt = dotv(gp, d);
-    for (int k = 0; k < 3; ++k) {
-      gd[k] += I.t * gp[k];
-      go[k] += gp[k];
-    }
-    // t = (-b -+ sq) / a
-    float gb = -gt * I.inv_a;
-    const float gsq = I.near_root ? -gt * I.inv_a : gt * I.inv_a;
-    const float ginv_a = gt * (I.near_root ? (-I.b - I.sq) : (-I.b + I.sq));
-    float ga = -ginv_a * I.inv_a * I.inv_a;
-    const float gdisc = I.disc >= 1e-8f ? gsq * 0.5f / I.sq : 0.0f;
-    gb += 2.0f * I.b * gdisc;
-    ga -= I.cc * gdisc;
-    const float gcc = -I.a * gdisc;
-    // cc = |o - c|^2 - r^2, b = d.(o - c), a = d.d: the derivatives of
-    // the expanded forms the primal rounds, taken in (o - c) form, which
-    // does not cancel (the plain replay does the same)
-    for (int k = 0; k < 3; ++k) {
-      const float oc = o[k] - c[k];
-      const float gq = 2.0f * oc * gcc + d[k] * gb;
-      gc[k] -= gq;
-      go[k] += gq;
-      gd[k] += oc * gb + 2.0f * d[k] * ga;
-    }
-    gr -= 2.0f * I.r * gcc;
-    for (int k = 0; k < 3; ++k) ge[kGC + k] += gc[k];
-    ge[kGR] += gr;
+    if (kTris && I.tri)
+      tri_hit_vjp(I, gp, gn, go, gd, ge);
+    else
+      sphere_hit_vjp(I, gp, gn, go, gd, ge);
   }
 
   // ---- regen -------------------------------------------------------------
@@ -686,19 +843,39 @@ RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
 
 constexpr int kMaxHistory = 64;  // deepest trace_depth the history holds
 
+RTIW_FN void add_row(float* row, const float* ge, int cols) {
+  for (int k = 0; k < cols; ++k) {
+    if (ge[k] == 0.0f) continue;
+#ifdef __CUDA_ARCH__
+    atomicAdd(row + k, ge[k]);
+#else
+    row[k] += ge[k];
+#endif
+  }
+}
+
 // Adds a winner row's cotangent into the (rows, kGradCols) table `base`:
 // shared-memory atomics on the card, plain sums on the host.
 struct EntityAdd {
   float* base;
   RTIW_FN void operator()(int w, const float* ge) const {
-    for (int k = 0; k < kGradCols; ++k) {
-      if (ge[k] == 0.0f) continue;
-#ifdef __CUDA_ARCH__
-      atomicAdd(base + w * kGradCols + k, ge[k]);
-#else
-      base[w * kGradCols + k] += ge[k];
-#endif
-    }
+    add_row(base + w * kGradCols, ge, kGradCols);
+  }
+};
+
+// Mesh scenes: spheres as EntityAdd; a triangle (code w >= tri_base, the
+// padded sphere count) into the (T_pad, kTriGradCols) table `tri`, in
+// device memory on the card (4096 rows of 28 floats do not fit in shared
+// memory).
+struct MeshEntityAdd {
+  float* base;
+  float* tri;
+  int tri_base;
+  RTIW_FN void operator()(int w, const float* ge) const {
+    if (w >= tri_base)
+      add_row(tri + (size_t)(w - tri_base) * kTriGradCols, ge, kTriGradCols);
+    else
+      add_row(base + w * kGradCols, ge, kGradCols);
   }
 };
 
@@ -709,7 +886,7 @@ struct EntityAdd {
 // steps, so both phases stop at the first idle row.  The color and count
 // cotangents seed the state cotangent; gs accumulates the camera and sky
 // cotangents and add_ent receives each winner row's.
-template <class AddEnt>
+template <bool kTris = false, class AddEnt>
 RTIW_FN void lane_backward(const float* tape, int n, int i, int iters,
                            const LaneEnv& E, float cot_r, float cot_g,
                            float cot_b, float cot_count, float* ckpt,
@@ -729,10 +906,10 @@ RTIW_FN void lane_backward(const float* tape, int n, int i, int iters,
       live = it;
       break;
     }
-    step_forward(st, code, it, E);
+    step_forward<kTris>(st, code, it, E);
   }
 
-  float g[kStateVars], ge[kGradCols];
+  float g[kStateVars], ge[Layout<kTris>::grad];
   for (int k = 0; k < kStateVars; ++k) g[k] = 0.0f;
   g[kCSX] = cot_r;
   g[kCSY] = cot_g;
@@ -746,10 +923,10 @@ RTIW_FN void lane_backward(const float* tape, int n, int i, int iters,
     const int len = live - b0 < depth ? live - b0 : depth;
     for (int j = 0; j < len; ++j) {
       for (int k = 0; k < kStateVars; ++k) hist[j * kStateVars + k] = st[k];
-      step_forward(st, tape[(size_t)(b0 + j) * n + i], b0 + j, E);
+      step_forward<kTris>(st, tape[(size_t)(b0 + j) * n + i], b0 + j, E);
     }
     for (int j = len - 1; j >= 0; --j) {
-      const int w = step_vjp(hist + j * kStateVars, g,
+      const int w = step_vjp<kTris>(hist + j * kStateVars, g,
                              tape[(size_t)(b0 + j) * n + i], b0 + j, E, ge,
                              gs);
       if (w >= 0) add_ent(w, ge);

@@ -1,0 +1,45 @@
+"""Feature-matrix testbed scenes (counterpart of the JAX package's
+models/testbeds.py), holding the entries the port renders: the raw
+triangle test and the mesh showcase.  The other testbeds follow with
+their ROADMAP steps.
+
+Reference: the legacy scene assets (Assets/Scenes/Legacy/*.asset); each
+function covers the same feature axis with the scene builder, with the
+JAX package's arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from raytracing_in_one_weekend_tpu_torch.models import meshes
+from raytracing_in_one_weekend_tpu_torch.scene.scene import Scene, SceneBuilder
+from raytracing_in_one_weekend_tpu_torch.utils.config import CameraSettings
+
+
+def triangle_test() -> tuple[Scene, CameraSettings]:
+    """Triangle Test.asset: raw triangles with face and vertex normals."""
+    b = SceneBuilder()
+    ground = b.lambert((0.5, 0.5, 0.5))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, ground)
+    red = b.lambert((0.8, 0.2, 0.2))
+    blue = b.lambert((0.2, 0.3, 0.8))
+    b.add_triangle((-1.2, 0.0, 0.0), (-0.2, 0.0, 0.0), (-0.7, 1.0, 0.0), red)
+    # vertex-normal triangle (the smooth shading path, Triangle.cs:22-29)
+    n = np.array([[0.3, 0.2, 0.93], [-0.3, 0.2, 0.93], [0.0, 0.4, 0.92]])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    b.add_triangle(
+        (0.2, 0.0, 0.0), (1.2, 0.0, 0.0), (0.7, 1.0, 0.0), blue, normals=n
+    )
+    b.set_gradient_sky()
+    cam = CameraSettings(origin=(0.0, 1.0, 3.0), look_at=(0.0, 0.5, 0.0),
+                         vertical_fov=40.0, focus_distance=3.0)
+    return b.build(), cam
+
+
+# mesh_large and mesh_huge (models/meshes.py) exceed TRI_MAX: they join
+# with the streamed meshes (ROADMAP queue 1, step 10)
+SCENES = {
+    "mesh_showcase": meshes.mesh_showcase,
+    "triangle": triangle_test,
+}

@@ -1,12 +1,14 @@
-"""Batched ray-sphere intersection (counterpart of the JAX package's
-ops/geometry.py, its sphere functions).
+"""Batched ray-sphere and ray-triangle intersection (counterpart of the
+JAX package's ops/geometry.py, its sphere and triangle functions).
 
-Reference: Runtime/HitTests.cs:23-60.  Every function returns a large
-but finite "miss" distance (BIG) instead of a flag, so the nearest-hit
-reduction is a masked min and everything stays differentiable.  The
-square roots are adjoint-safe: lanes without a root never see sqrt(0),
-whose backward is inf and would poison the gradient through 0 * inf.
-Rects, boxes and triangles wait for ROADMAP queue 1, step 7.
+Reference: Runtime/HitTests.cs:23-60 (spheres) and :116-150
+(Möller–Trumbore).  Every function returns a large but finite "miss"
+distance (BIG) instead of a flag, so the nearest-hit reduction is a masked
+min and everything stays differentiable.  The square roots are
+adjoint-safe: lanes without a root never see sqrt(0), whose backward is
+inf and would poison the gradient through 0 * inf; a degenerate triangle
+(det == 0) divides by 1.  Rects and boxes wait for ROADMAP queue 1, step
+7.1.
 """
 
 from __future__ import annotations
@@ -82,3 +84,61 @@ def sphere_normal_at(
 ) -> torch.Tensor:
     """Outward geometric normal (p - c) / r (HitTests.cs:41,52)."""
     return (point - center) / radius[..., None]
+
+
+def _moller_trumbore(origin, direction, edge_a, edge_b, vert0):
+    """(det, u, v, t) of Möller–Trumbore, broadcasting over leading axes
+    (the JAX package's expression order, plain float32)."""
+    pvec = math3.cross(direction, edge_a)
+    det = math3.dot(edge_b, pvec)
+    inv_det = 1.0 / torch.where(det == 0.0, 1.0, det)
+    tvec = origin - vert0
+    u = math3.dot(tvec, pvec) * inv_det
+    qvec = math3.cross(tvec, edge_b)
+    v = math3.dot(direction, qvec) * inv_det
+    t = math3.dot(edge_a, qvec) * inv_det
+    return det, u, v, t
+
+
+def _tri_ok(det, u, v, t, t_min):
+    return ((det != 0.0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+            & (u + v <= 1.0) & (t > t_min))
+
+
+def triangle_hit_single(
+    origin: torch.Tensor,  # (M, 3)
+    direction: torch.Tensor,  # (M, 3)
+    edge_a: torch.Tensor,  # (M, 3): one (gathered) triangle per ray
+    edge_b: torch.Tensor,  # (M, 3)
+    vert0: torch.Tensor,  # (M, 3)
+    t_min: float = T_MIN,
+) -> torch.Tensor:
+    """Per-ray single-triangle Möller–Trumbore: the differentiable
+    re-evaluation of the winner that the selection kernel
+    (ops/triangle_select.py) picked; distance only (the winner's normal and
+    uv come from intersect._shading_attributes)."""
+    det, u, v, t = _moller_trumbore(origin, direction, edge_a, edge_b, vert0)
+    return torch.where(_tri_ok(det, u, v, t, t_min), t, BIG)
+
+
+def triangle_hit_all(
+    origin: torch.Tensor,  # (N, 3)
+    direction: torch.Tensor,  # (N, 3)
+    edge_a: torch.Tensor,  # (T, 3) v2 - v0 (reference Data[0])
+    edge_b: torch.Tensor,  # (T, 3) v1 - v0 (reference Data[1])
+    vert0: torch.Tensor,  # (T, 3) v0 (reference Data[2])
+    normals: torch.Tensor,  # (T, 3, 3) per-vertex normals (columns)
+    uvs: torch.Tensor,  # (T, 2, 3) per-vertex texcoords (columns)
+    t_min: float = T_MIN,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Möller–Trumbore of all rays against all triangles, with the
+    barycentric normal and uv lerps (world-space triangles, Entity.cs:
+    91-97).  Returns (t (N, T), normal (N, T, 3), uv (N, T, 2))."""
+    det, u, v, t = _moller_trumbore(
+        origin[:, None], direction[:, None], edge_a[None], edge_b[None],
+        vert0[None])
+    t = torch.where(_tri_ok(det, u, v, t, t_min), t, BIG)
+    bary = torch.stack([1.0 - u - v, u, v], dim=-1)  # (N, T, 3)
+    normal = torch.einsum("tij,ntj->nti", normals, bary)
+    uv = torch.einsum("tij,ntj->nti", uvs, bary)
+    return t, normal, uv

@@ -1,13 +1,16 @@
 """Scene-level nearest-hit query (counterpart of the JAX package's
-ops/intersect.py), for sphere scenes.
+ops/intersect.py), for sphere and triangle scenes.
 
 Reference: the per-ray candidate walk, brute-force test and distance sort
-of SampleBatchJob.cs:403-475, as a wavefront "intersect every sphere,
-reduce to the nearest" pass.  The selection runs in the sphere-selection
-kernel (ops/sphere_select.py, detached); the winner is then evaluated
-again in plain PyTorch (ops/geometry.sphere_hit_single), which carries the
-gradients to its centre and radius.  Rects, boxes, triangles, motion and
-the BVH raise NotImplementedError naming their ROADMAP steps.
+of SampleBatchJob.cs:403-475, as a wavefront "intersect every entity,
+reduce to the nearest" pass.  Each kind's selection runs in its kernel,
+detached (spheres: ops/sphere_select.py; triangles: ops/triangle_select.py
+up to its MAX_TRI_PAD, the brute force `geometry.triangle_hit_all` above,
+as in the JAX package); the winner is then evaluated again in plain
+PyTorch (ops/geometry.sphere_hit_single / triangle_hit_single), which
+carries the gradients to its geometry.  A triangle wins only with a
+strictly smaller t.  Rects, boxes, motion and the BVH raise
+NotImplementedError naming their ROADMAP steps.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from raytracing_in_one_weekend_tpu_torch.core import math3
 from raytracing_in_one_weekend_tpu_torch.core.ray import Rays
 from raytracing_in_one_weekend_tpu_torch.ops import (
-    geometry, megatrace, sphere_select,
+    geometry, megatrace, sphere_select, triangle_select,
 )
 from raytracing_in_one_weekend_tpu_torch.scene.scene import EntityKind, Scene
 from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
@@ -49,8 +52,39 @@ class Hit(TensorGroup):
     t_exit: torch.Tensor  # (N,) exit distance of the hit entity, else BIG
 
 
+def _nearest_triangle(tri, rays: Rays, t_min: float):
+    """(t, row) of each ray's nearest triangle, t differentiable: the
+    detached selection kernel and the winner's re-evaluation, or (above
+    the kernel's MAX_TRI_PAD) the brute force, chunked over rays."""
+    if triangle_select.fits_vmem(tri.vert0.shape[0]):
+        _, idx = triangle_select.triangle_select(
+            rays.origin.detach(), rays.direction.detach(),
+            tri.edge_a.detach(), tri.edge_b.detach(), tri.vert0.detach(),
+            t_min=t_min,
+        )
+        win = idx.long()
+        t = geometry.triangle_hit_single(
+            rays.origin, rays.direction, gather_rows(tri.edge_a, win),
+            gather_rows(tri.edge_b, win), gather_rows(tri.vert0, win), t_min,
+        )
+        return t, idx
+    n = rays.origin.shape[0]
+    chunk = max(1, (1 << 22) // tri.vert0.shape[0])
+    ts, idxs = [], []
+    for c0 in range(0, n, chunk):
+        t_all, _, _ = geometry.triangle_hit_all(
+            rays.origin[c0:c0 + chunk], rays.direction[c0:c0 + chunk],
+            tri.edge_a, tri.edge_b, tri.vert0, tri.normals, tri.uvs, t_min,
+        )
+        idx = torch.argmin(t_all, dim=1)
+        ts.append(torch.gather(t_all, 1, idx[:, None])[:, 0])
+        idxs.append(idx.to(torch.int32))
+    return torch.cat(ts), torch.cat(idxs)
+
+
 def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
-    """All rays against every sphere; the nearest surface hit per ray."""
+    """All rays against every sphere and triangle; the nearest surface hit
+    per ray."""
     missing = megatrace.unported_feature(scene)
     if missing is not None:
         raise NotImplementedError(f"wavefront not ported for {missing}")
@@ -74,9 +108,18 @@ def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
     best_index = torch.where(closer, idx, 0).to(torch.int32)
     best_exit = torch.where(closer, t_exit, BIG)
 
+    tri = scene.triangles
+    if tri.vert0.shape[0] > 0:
+        t, idx = _nearest_triangle(tri, rays, t_min)
+        closer = t < best_t
+        best_t = torch.where(closer, t, best_t)
+        best_kind = torch.where(closer, int(EntityKind.TRIANGLE), best_kind)
+        best_index = torch.where(closer, idx, best_index)
+        best_exit = torch.where(closer, BIG, best_exit)
+
     hit = best_t < BIG
     point = rays.at(torch.where(hit, best_t, 0.0))
-    normal, uv, material = _shading_attributes(scene, point, best_kind,
+    normal, uv, material = _shading_attributes(scene, rays, point, best_kind,
                                                best_index)
     assert normal.shape == (n, 3)
     return Hit(t=best_t, hit=hit, point=point, normal=normal, uv=uv,
@@ -84,8 +127,8 @@ def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
                t_exit=best_exit)
 
 
-def _shading_attributes(scene: Scene, point, kind, index):
-    """Normal, uv and material of the winning sphere only."""
+def _shading_attributes(scene: Scene, rays: Rays, point, kind, index):
+    """Normal, uv and material of the winning entity only."""
     sph = scene.spheres
     gi = torch.clamp(index, 0, sph.center.shape[0] - 1).long()
     is_sph = kind == EntityKind.SPHERE
@@ -100,5 +143,22 @@ def _shading_attributes(scene: Scene, point, kind, index):
     sph_v = torch.arccos(torch.clamp(-sn[:, 1], -1.0, 1.0)) / math.pi
     uv = torch.where(is_sph[:, None], torch.stack([sph_u, sph_v], dim=-1),
                      0.0)
+
+    tri = scene.triangles
+    if tri.vert0.shape[0] > 0:
+        gi = torch.clamp(index, 0, tri.vert0.shape[0] - 1).long()
+        # the winner's barycentrics by Möller–Trumbore again, then the
+        # vertex normal and uv lerps
+        _, u, v, _ = geometry._moller_trumbore(
+            rays.origin, rays.direction, gather_rows(tri.edge_a, gi),
+            gather_rows(tri.edge_b, gi), gather_rows(tri.vert0, gi))
+        bary = torch.stack([1.0 - u - v, u, v], dim=-1)
+        tn = torch.einsum("nij,nj->ni", gather_rows(tri.normals, gi), bary)
+        tuv = torch.einsum("nij,nj->ni", gather_rows(tri.uvs, gi), bary)
+        is_tri = kind == EntityKind.TRIANGLE
+        normal = torch.where(is_tri[:, None], tn, normal)
+        uv = torch.where(is_tri[:, None], tuv, uv)
+        material = torch.where(is_tri, tri.material[gi].to(torch.int32),
+                               material)
     # world normals are normalized (Entity.cs:65)
     return math3.normalize_safe(normal), uv, material

@@ -1,29 +1,33 @@
 """Fused sample-batch path tracer: the CUDA kernel and its plain version.
 
-Counterpart of the JAX package's `ops/pallas_megatrace.py`, restricted to
-the sphere-only arm of its `_batch_kernel` (gradient or no sky, white
-noise): the forward main path of the book-cover render.  One call runs a
-whole SampleBatchJob (reference: SampleBatchJob.cs:59-164, 166-401) and
-returns per-lane accumulation deltas: thin-lens camera rays, persistent-
-lane path regeneration over `samples * trace_depth` iterations, the dense
-sphere sweep, Lambert / GGX-metal / dielectric scatter, the gradient sky,
-and the per-pixel fold, AOVs, noise weight and ray count.
+Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm
+and the triangle (VMEM) arm of its `_batch_kernel` (gradient or no sky,
+white noise), the forward path of the book cover and of mesh scenes of
+at most TRI_MAX triangles.  One call runs a whole SampleBatchJob
+(reference: SampleBatchJob.cs:59-164, 166-401) and returns per-lane
+accumulation deltas: thin-lens camera rays, persistent-lane path
+regeneration over `samples * trace_depth` iterations, the dense sphere
+sweep, the Möller–Trumbore sweep over TRI_BLOCK-row triangle blocks
+(each skipped by a lane whose ray misses the block's AABB),
+Lambert / GGX-metal / dielectric scatter, the gradient sky, and the
+per-pixel fold, AOVs, noise weight and ray count.
 
 * `sample_batch_reference` is the plain PyTorch version: vectorised over
   lanes, a Python loop over iterations, lanes processed in chunks so the
-  (spheres, lanes) sweep temporaries stay bounded.
+  (spheres or triangles, lanes) sweep temporaries stay bounded.
 * `csrc/megatrace_batch.cu` is the hand-written CUDA kernel for Hopper:
   one thread per lane, path state in registers, sphere geometry staged in
-  shared memory.
+  shared memory, triangles read through the read-only cache (a
+  compile-time arm: the sphere-only build is unchanged).
 * `sample_batch` is the wrapper: CPU tensors take the plain version; CUDA
   tensors launch the kernel or raise.  It counts launches in `LAUNCHES`.
 
 The module also holds the per-ray fused trace `megatrace` (the JAX
-package's `_kernel`, the wavefront integrator's `mega` arm): given rays
-traced to the end of `trace_depth` bounces, with the same bounce code
-(`_bounce`; on the card `csrc/megatrace_bounce.cuh`), its plain version
-`megatrace_reference` and its kernel `csrc/megatrace_wave.cu`, launches
-counted in `WAVE_LAUNCHES`.
+package's `_kernel`, the wavefront integrator's `mega` arm, sphere-only
+as in the JAX package): given rays traced to the end of `trace_depth`
+bounces, with the same bounce code (`_bounce`; on the card
+`csrc/megatrace_bounce.cuh`), its plain version `megatrace_reference` and
+its kernel `csrc/megatrace_wave.cu`, launches counted in `WAVE_LAUNCHES`.
 
 Both use the kernels' counter-based hash PRNG (lowbias32 of seed, global
 lane, stream and an iteration salt), bit for bit, so the port traces the
@@ -59,9 +63,19 @@ _MASK32 = 0xFFFFFFFF
 
 LAUNCHES = 0  # CUDA kernel launches made by sample_batch
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
+TRI_PAIRS = 0  # (lane, triangle) pairs the plain version's sweep tested:
+#   the kernel tests the same ones (the operation count of its bound)
 SALT_DEPTH = 26699  # per-bounce salt of the per-ray megatrace's draws
 WAVE_ROWS = 12  # radiance 0-2 | valid 3 | normal 4-6 | albedo 7-9 |
 #   events 10 | rays 11
+
+TRI_PAD = 128
+TRI_BLOCK = 192  # triangle rows per culled block (the JAX kernel's chunk)
+TRI_MAX = 4096  # triangles the batch kernel takes (the JAX kernel's VMEM
+# residence); beyond it the JAX package streams them (ROADMAP step 10)
+TRI_REC_ROWS = 32  # 0-10 material | 11 id | 12-20 vertex normals |
+#   21-23 vertex u | 24-26 vertex v
+STREAMED_MESHES = "streamed meshes (ROADMAP queue 1, step 10)"
 
 
 # ---------------------------------------------------------------------------
@@ -79,8 +93,6 @@ def unported_feature(scene) -> str | None:
          "rects and boxes (ROADMAP queue 1, step 7.1)"),
         (scene.flags.has_volumes, "volumes (ROADMAP queue 1, step 7.2)"),
         (scene.flags.has_motion, "motion blur (ROADMAP queue 1, step 7.3)"),
-        (scene.triangles.vert0.shape[0] > 0,
-         "triangles (ROADMAP queue 1, step 7.4)"),
         (scene.flags.has_procedural_textures,
          "checker, Perlin and image textures (ROADMAP queue 1, step 7.5)"),
         (scene.flags.sky not in (0, 1),
@@ -92,19 +104,28 @@ def unported_feature(scene) -> str | None:
     return None
 
 
-def unsupported_feature(scene) -> str | None:
-    """The first feature of `scene` the batch kernel does not render,
-    named with its ROADMAP item, or None when the scene is in scope: the
-    ported features, and at most SPH_CULL_MIN spheres."""
+def unsupported_feature(scene, allow_triangles: bool = False) -> str | None:
+    """The first feature of `scene` the fused kernels do not render, named
+    with its ROADMAP item, or None when the scene is in scope: the ported
+    features, at most SPH_CULL_MIN spheres, and triangles only with
+    `allow_triangles` (the batch kernel; the per-ray megatrace is
+    sphere-only, as the JAX package's), at most TRI_MAX of them."""
     if scene.spheres.center.shape[0] > SPH_CULL_MIN:
         return (f"more than {SPH_CULL_MIN} spheres: the blocked sweep "
                 "(ROADMAP queue 1, step 7)")
+    tri_count = scene.triangles.vert0.shape[0]
+    if tri_count > 0 and not allow_triangles:
+        return "triangles (the per-ray megatrace is sphere-only)"
+    if tri_count > TRI_MAX:
+        return f"more than {TRI_MAX} triangles: {STREAMED_MESHES}"
     return unported_feature(scene)
 
 
-def scene_eligible(scene) -> bool:
-    """Can this scene run in the ported batch kernel?"""
-    return unsupported_feature(scene) is None
+def scene_eligible(scene, allow_triangles: bool = False) -> bool:
+    """Can this scene run in the ported fused kernels?  The batch kernel
+    asks with allow_triangles=True, the per-ray megatrace without (the
+    JAX package's `scene_eligible` flags)."""
+    return unsupported_feature(scene, allow_triangles) is None
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +197,55 @@ def pack_sphere_records(scene, packed_materials):
         ],
         dim=1,
     )
+
+
+def tri_pad_count(t: int) -> int:
+    return max(TRI_PAD, -(-t // TRI_PAD) * TRI_PAD)
+
+
+def pack_tri_tables(scene, packed_materials):
+    """Triangle tables in the JAX kernel's layout (JAX pack_tri_tables),
+    or None when the scene has none.
+
+    geo (T_pad, 16): edge_a xyz | edge_b xyz | vert0 xyz, world space
+    (Entity.cs:91-97); cols 9-15 of each TRI_BLOCK's first row hold the
+    block's AABB (min xyz | max xyz, padded by 1e-4); a pad-only block
+    holds a degenerate point at 1e30 that no slab test passes.  rec
+    (TRI_REC_ROWS, T_pad): material rows 0-10 | material id 11 |
+    per-vertex normals 12-14 / 15-17 / 18-20 | per-vertex u 21-23 / v
+    24-26.  Pad rows keep zero edges (det == 0: never hit).  Gradients
+    flow to the soup's edges, vertices, normals and uvs and to the
+    material rows; the AABBs carry none."""
+    tri = scene.triangles
+    t = tri.vert0.shape[0]
+    if t == 0:
+        return None
+    t_pad = tri_pad_count(t)
+    f32 = dict(dtype=torch.float32, device=tri.vert0.device)
+    geo = torch.zeros((t_pad, 16), **f32)
+    geo[:t, 0:3] = tri.edge_a
+    geo[:t, 3:6] = tri.edge_b
+    geo[:t, 6:9] = tri.vert0
+    with torch.no_grad():
+        v0 = tri.vert0
+        vs_all = torch.stack([v0, v0 + tri.edge_b, v0 + tri.edge_a])
+        for st in range(0, t_pad, TRI_BLOCK):
+            lo, hi = st, min(st + TRI_BLOCK, t)
+            if lo >= t:
+                geo[st, 9:15] = 1e30
+                continue
+            vs = vs_all[:, lo:hi].reshape(-1, 3)
+            geo[st, 9:12] = vs.min(dim=0).values - 1e-4
+            geo[st, 12:15] = vs.max(dim=0).values + 1e-4
+    rec = torch.zeros((TRI_REC_ROWS, t_pad), **f32)
+    rec[:11, :t] = packed_materials[tri.material.long()][:, :11].T
+    rec[11, :t] = tri.material.to(torch.float32)
+    rec[12:15, :t] = tri.normals[:, :, 0].T
+    rec[15:18, :t] = tri.normals[:, :, 1].T
+    rec[18:21, :t] = tri.normals[:, :, 2].T
+    rec[21:24, :t] = tri.uvs[:, 0, :].T
+    rec[24:27, :t] = tri.uvs[:, 1, :].T
+    return geo, rec
 
 
 def pack_camera_row(camera, width: int, height: int) -> torch.Tensor:
@@ -390,19 +460,122 @@ def _sweep(o, d, sph, t_min):
     return torch.min(t_entry, dim=0).values, torch.argmin(t_entry, dim=0)
 
 
+def _cross_fma(a, b):
+    """a x b with each x*y - z*w as fma(x, y, -(z*w))."""
+    return (_fma(a[1], b[2], -(a[2] * b[1])),
+            _fma(a[2], b[0], -(a[0] * b[2])),
+            _fma(a[0], b[1], -(a[1] * b[0])))
+
+
+def mt_parts(o, d, ea, eb, v0, mask=None):
+    """(det, u, v, t) of Möller–Trumbore (HitTests.cs:116-150) for rays
+    o, d against triangles ea (v2 - v0), eb (v1 - v0), v0, each a 3-tuple
+    of broadcastable tensors.  The division takes det where det != 0 (and
+    `mask`, if given) and 1 elsewhere.  The products that XLA's CPU compile
+    contracts are fused here (the precision contract above): a cross
+    product's x*y - z*w is fma(x, y, -(z*w)), a 3-dot is `_dot3`.  The
+    tape replay runs it with gradients."""
+    pv = _cross_fma(d, ea)
+    det = _dot3(*eb, *pv)
+    divide = det != 0.0 if mask is None else mask & (det != 0.0)
+    inv_det = 1.0 / torch.where(divide, det, 1.0)
+    tv = (o[0] - v0[0], o[1] - v0[1], o[2] - v0[2])
+    u = _dot3(*tv, *pv) * inv_det
+    qv = _cross_fma(tv, eb)
+    v = _dot3(*d, *qv) * inv_det
+    t = _dot3(*ea, *qv) * inv_det
+    return det, u, v, t
+
+
+def moller_trumbore(o, d, ea, eb, v0, t_min):
+    """Möller–Trumbore of rays o, d (3-tuples of rows) against triangles
+    ea, eb, v0 (3-tuples of columns), broadcast: (t, u, v) with t = BIG
+    where there is no hit (det == 0 divides by 1 and never hits)."""
+    det, u, v, t = mt_parts(o, d, ea, eb, v0)
+    ok = ((det != 0.0) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & ((u + v) <= 1.0) & (t > t_min))
+    return torch.where(ok, t, BIG), u, v
+
+
+def _inv_d(c):
+    """1 / c with |c| floored at 1e-12, the slab test's inverse."""
+    return 1.0 / torch.where(torch.abs(c) < 1e-12,
+                             torch.where(c >= 0.0, 1e-12, -1e-12), c)
+
+
+def _tri_sweep(o, d, best_t, geo, t_min):
+    """Nearest triangle per lane, TRI_BLOCK rows at a time: a lane sweeps
+    a block only when its ray meets the block's AABB before its best hit
+    so far (spheres' `best_t`, then earlier blocks), the per-lane form of
+    the JAX kernel's per-tile skip.  Returns (t, row, u, v); BIG, 0, 0, 0
+    where no triangle is hit.  First row wins a tie.  Adds the (lane,
+    triangle) pairs it tests to TRI_PAIRS."""
+    global TRI_PAIRS
+    ox, oy, oz = o
+    n = ox.shape[0]
+    inv = [_inv_d(c) for c in d]
+    tri_t = torch.full_like(ox, BIG)
+    tri_idx = torch.zeros(n, dtype=torch.int64, device=ox.device)
+    tri_u = torch.zeros_like(ox)
+    tri_v = torch.zeros_like(ox)
+    for st in range(0, geo.shape[0], TRI_BLOCK):
+        en = min(st + TRI_BLOCK, geo.shape[0])
+        slab = [((geo[st, 9 + k] - o[k]) * inv[k],
+                 (geo[st, 12 + k] - o[k]) * inv[k]) for k in range(3)]
+        b_near = torch.maximum(
+            torch.minimum(*slab[0]),
+            torch.maximum(torch.minimum(*slab[1]), torch.minimum(*slab[2])))
+        b_far = torch.minimum(
+            torch.maximum(*slab[0]),
+            torch.minimum(torch.maximum(*slab[1]), torch.maximum(*slab[2])))
+        may = ((b_far >= torch.clamp(b_near, min=t_min))
+               & (b_near < torch.minimum(tri_t, best_t)))
+        lanes = torch.nonzero(may, as_tuple=True)[0]
+        if lanes.numel() == 0:
+            continue
+        TRI_PAIRS += lanes.numel() * (en - st)
+        rows = geo[st:en]
+        t, u, v = moller_trumbore(
+            tuple(c[lanes] for c in o), tuple(c[lanes] for c in d),
+            tuple(rows[:, k:k + 1] for k in range(0, 3)),
+            tuple(rows[:, k:k + 1] for k in range(3, 6)),
+            tuple(rows[:, k:k + 1] for k in range(6, 9)), t_min)
+        blk_t, blk_i = torch.min(t, dim=0)
+        pos = torch.nonzero(blk_t < tri_t[lanes], as_tuple=True)[0]
+        lw, bi = lanes[pos], blk_i[pos]
+        tri_t[lw] = blk_t[pos]
+        tri_idx[lw] = st + bi
+        tri_u[lw] = u[bi, pos]
+        tri_v[lw] = v[bi, pos]
+    return tri_t, tri_idx, tri_u, tri_v
+
+
+def tri_normal(n0, n1, n2, u, v):
+    """Barycentric lerp of the three vertex normals (each a 3-tuple),
+    normalised after the lerp (Entity.cs:65): correctly rounded rsqrt of
+    the squared length floored at 1e-24."""
+    w0 = 1.0 - u - v
+    tn = [_fma(n2[k], v, _fma(n0[k], w0, n1[k] * u)) for k in range(3)]
+    inv = _rsqrt(torch.clamp(_dot3(*tn, *tn), min=1e-24))
+    return tn[0] * inv, tn[1] * inv, tn[2] * inv
+
+
 STATE_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
               "rx", "ry", "rz", "anx", "any", "anz", "aax", "aay", "aaz",
               "events", "active", "valid", "got")
 
 
 def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
-            sky):
+            sky, tri=None):
     """One bounce of every active path in `p` (a dict of (C,) rows keyed
-    by STATE_KEYS, updated in place): the dense sphere sweep, Lambert /
-    GGX-metal / dielectric scatter, the gradient sky, the fold, AOV
-    capture, events and the advance.  `u` holds the bounce's six uniform
-    rows, `depth` the path's bounce count ((C,) float or a number).
-    Returns (hit, best_idx) for the winner tape.  Shared by the batch
+    by STATE_KEYS, updated in place): the dense sphere sweep, then with
+    `tri` = (geo (T_pad, 16), records (T_pad, 32), code base) the
+    triangle sweep (a triangle wins only with a strictly smaller t),
+    Lambert / GGX-metal / dielectric scatter, the gradient sky, the fold,
+    AOV capture, events and the advance.  `u` holds the bounce's six
+    uniform rows, `depth` the path's bounce count ((C,) float or a
+    number).  Returns (hit, winner code) for the winner tape: the sphere
+    row, or the code base plus the triangle row.  Shared by the batch
     kernel's and the per-ray megatrace's plain versions, as the CUDA
     kernels share csrc/megatrace_bounce.cuh."""
     ua, ub, uc, ud, u_choice, u_choice2 = u
@@ -414,10 +587,19 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     live = torch.nonzero(pactive, as_tuple=True)[0]
     best_t = torch.full_like(ox, BIG)
     best_idx = torch.zeros_like(ox, dtype=torch.int64)
-    best_t[live], best_idx[live] = _sweep(
-        (ox[live], oy[live], oz[live]), (dx[live], dy[live], dz[live]),
-        sph, t_min,
-    )
+    o_live = (ox[live], oy[live], oz[live])
+    d_live = (dx[live], dy[live], dz[live])
+    best_t[live], best_idx[live] = _sweep(o_live, d_live, sph, t_min)
+    if tri is not None:
+        geo, trec, code_base = tri
+        tri_t = torch.full_like(ox, BIG)
+        tri_idx = torch.zeros_like(best_idx)
+        tri_u = torch.zeros_like(ox)
+        tri_v = torch.zeros_like(ox)
+        tri_t[live], tri_idx[live], tri_u[live], tri_v[live] = _tri_sweep(
+            o_live, d_live, best_t[live], geo, t_min)
+        tri_wins = tri_t < best_t
+        best_t = torch.where(tri_wins, tri_t, best_t)
     hit = best_t < BIG
     scatter_mask = pactive & hit
     miss = pactive & ~hit
@@ -431,6 +613,17 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     nx = (px - w[:, 12]) * inv_r
     ny = (py - w[:, 13]) * inv_r
     nz = (pz - w[:, 14]) * inv_r
+    if tri is not None:
+        tw = trec[tri_idx]  # (C, 32) triangle winner records
+        w = torch.where(tri_wins[:, None], tw[:, :16], w)
+        tnx, tny, tnz = tri_normal(
+            (tw[:, 12], tw[:, 13], tw[:, 14]), (tw[:, 15], tw[:, 16],
+                                                tw[:, 17]),
+            (tw[:, 18], tw[:, 19], tw[:, 20]), tri_u, tri_v)
+        nx = torch.where(tri_wins, tnx, nx)
+        ny = torch.where(tri_wins, tny, ny)
+        nz = torch.where(tri_wins, tnz, nz)
+        best_idx = torch.where(tri_wins, code_base + tri_idx, best_idx)
     mtype = w[:, 0]
     alb_r, alb_g, alb_b = w[:, 1], w[:, 2], w[:, 3]
     em_r, em_g, em_b = w[:, 4], w[:, 5], w[:, 6]
@@ -572,7 +765,7 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
 
 
 def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
-                 seed, *, samples, trace_depth, t_min, has_dielectrics,
+                 tri, seed, *, samples, trace_depth, t_min, has_dielectrics,
                  sky_on, jitter, tape):
     """Run one SampleBatchJob over a chunk of lanes; returns the (18, C)
     accumulators and fills `tape` ((samples*trace_depth, C) or None)."""
@@ -635,7 +828,7 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         u = uniforms_hash(seed, salt + SALT_BOUNCE, lanes, 6)
         hit, best_idx = _bounce(p, u, sph, rec, depth_ct, t_min=t_min,
                                 has_dielectrics=has_dielectrics,
-                                sky_on=sky_on, sky=sky)
+                                sky_on=sky_on, sky=sky, tri=tri)
 
         if tape is not None:
             tape[it] = torch.where(
@@ -664,6 +857,17 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
             acc[row] = torch.where(first_ever, p[k], acc[row])
         acc[3] += ok.to(torch.float32)
     return acc
+
+
+def _tri_arg(tri_tables, s: int):
+    """_bounce's `tri` argument from pack_tri_tables' pair: the geometry,
+    the records as rows, and the tape code of triangle row 0 (after the
+    padded sphere rows, the JAX kernel's combined row space)."""
+    if tri_tables is None:
+        return None
+    geo, rec = tri_tables
+    return (geo.to(torch.float32), rec.to(torch.float32).T.contiguous(),
+            sphere_pad_count(s))
 
 
 OUTPUT_KEYS = ("color", "count", "normal", "albedo", "weight", "rays",
@@ -705,18 +909,23 @@ def sample_batch_reference(
     sky_on: bool = True,
     jitter: bool = True,
     want_tape: bool = False,
+    tri_tables: tuple | None = None,
     chunk_lanes: int | None = None,
 ) -> dict:
     """Plain PyTorch version of the batch kernel (any device).
 
-    Returns per-lane deltas: color (N, 3), count (N,), normal (N, 3),
-    albedo (N, 3), weight (N,), rays (N,) int32, fallback_normal (N, 3),
+    `tri_tables` is pack_tri_tables' (geo, rec) pair, or None.  Returns
+    per-lane deltas: color (N, 3), count (N,), normal (N, 3), albedo
+    (N, 3), weight (N,), rays (N,) int32, fallback_normal (N, 3),
     fallback_albedo (N, 3), and with `want_tape` the (samples *
-    trace_depth, N) winner tape: -2 idle, -1 sky, else the sphere row."""
+    trace_depth, N) winner tape: -2 idle, -1 sky, else the sphere row, or
+    sphere_pad_count(S) plus the triangle row (the JAX kernel's combined
+    row space)."""
     dev = centers.device
     n = lane_count.shape[0]
     s = centers.shape[0]
     sph, rec = sweep_tables(centers, radii, records)
+    tri = _tri_arg(tri_tables, s)
     cam = camera_row.to(torch.float32)
     sky = _pack_sky_row(sky_bottom, sky_top)[0]
     lanes_all = (
@@ -731,13 +940,14 @@ def sample_batch_reference(
             if want_tape else None)
     if chunk_lanes is None:
         budget = (1 << 25) if dev.type == "cuda" else (1 << 22)
-        chunk_lanes = max(1024, budget // max(s, 1))
+        width = max(s, 1 if tri is None else TRI_BLOCK)
+        chunk_lanes = max(1024, budget // width)
     acc = torch.empty((OUT_ROWS, n), dtype=torch.float32, device=dev)
     for c0 in range(0, n, chunk_lanes):
         c1 = min(n, c0 + chunk_lanes)
         acc[:, c0:c1] = _trace_chunk(
             lanes_all[c0:c1], pixel_all[c0:c1], per_pixel_all[c0:c1],
-            count_in_all[c0:c1], cam, sky, sph, rec, int(seed),
+            count_in_all[c0:c1], cam, sky, sph, rec, tri, int(seed),
             samples=samples, trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
             tape=None if tape is None else tape[:, c0:c1],
@@ -762,8 +972,10 @@ def load_kernel() -> ctypes.CDLL:
         lib, BUILD_LOG = cuda_build.build_library("megatrace_batch.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rtiw_megatrace_batch.argtypes = [
-            p, p, p, p, p, p, p,  # lane_count count_in consts sph rec out tape
-            i, i, i, i, i, i,  # n s seed lane_base samples trace_depth
+            p, p, p, p, p,  # lane_count count_in consts sph rec
+            p, p, p, p, p,  # tri_geo tri_aabb tri_rec out tape
+            i, i, i, i, i,  # n s tri_rows tri_blocks tri_code_base
+            i, i, i, i,  # seed lane_base samples trace_depth
             ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
             p,  # stream
         ]
@@ -772,10 +984,26 @@ def load_kernel() -> ctypes.CDLL:
     return _KERNEL
 
 
+def kernel_tri_tables(tri_tables):
+    """The batch kernel's triangle tables from pack_tri_tables' pair:
+    geometry rows (T_pad, 12) = edge_a | edge_b | vert0 | 0, the block
+    AABBs (blocks, 8) = lo | 0 | hi | 0, the records (T_pad, 32)."""
+    geo, rec = (t.detach().to(torch.float32) for t in tri_tables)
+    rows = geo.shape[0]
+    tri_geo = torch.zeros((rows, 12), dtype=torch.float32, device=geo.device)
+    tri_geo[:, :9] = geo[:, :9]
+    firsts = geo[::TRI_BLOCK]
+    aabb = torch.zeros((firsts.shape[0], 8), dtype=torch.float32,
+                       device=geo.device)
+    aabb[:, 0:3] = firsts[:, 9:12]
+    aabb[:, 4:7] = firsts[:, 12:15]
+    return tri_geo, aabb, rec.T.contiguous()
+
+
 def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        records, sky_bottom, sky_top, seed, lane_base, *,
                        samples, trace_depth, t_min, has_dielectrics, sky_on,
-                       jitter, want_tape):
+                       jitter, want_tape, tri_tables):
     global LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
@@ -803,6 +1031,25 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
         if tensors[name].dtype != torch.float32:
             raise ValueError(f"sample_batch: {name} must be float32")
 
+    if tri_tables is not None:
+        geo, trec = tri_tables
+        rows = geo.shape[0]
+        if (geo.device != dev or trec.device != dev
+                or tuple(geo.shape) != (rows, 16)
+                or tuple(trec.shape) != (TRI_REC_ROWS, rows)
+                or rows % TRI_PAD or rows > TRI_MAX):
+            raise ValueError(
+                f"sample_batch: tri_tables have shapes {tuple(geo.shape)}, "
+                f"{tuple(trec.shape)} on {geo.device}; want pack_tri_tables' "
+                f"(T_pad, 16), ({TRI_REC_ROWS}, T_pad), T_pad <= {TRI_MAX}, "
+                f"on {dev}")
+        tri_geo, tri_aabb, tri_rec = kernel_tri_tables(tri_tables)
+        tri_args = (tri_geo.data_ptr(), tri_aabb.data_ptr(),
+                    tri_rec.data_ptr())
+        tri_dims = (rows, tri_aabb.shape[0], sphere_pad_count(s))
+    else:
+        tri_args, tri_dims = (0, 0, 0), (0, 0, 0)
+
     lib = load_kernel()
     sph, rec = sweep_tables(centers, radii, records)
     consts = torch.zeros(32, dtype=torch.float32, device=dev)
@@ -817,9 +1064,9 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rtiw_megatrace_batch(
         per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
-        sph.data_ptr(), rec.data_ptr(), out.data_ptr(),
+        sph.data_ptr(), rec.data_ptr(), *tri_args, out.data_ptr(),
         0 if tape is None else tape.data_ptr(),
-        n, s, int(seed), int(lane_base), samples, trace_depth,
+        n, s, *tri_dims, int(seed), int(lane_base), samples, trace_depth,
         float(t_min), int(has_dielectrics), int(sky_on), int(jitter),
         stream,
     )
@@ -848,16 +1095,18 @@ def sample_batch(
     sky_on: bool = True,
     jitter: bool = True,
     want_tape: bool = False,
+    tri_tables: tuple | None = None,
 ) -> dict:
     """Fused SampleBatchJob: per-lane accumulation deltas for one batch
-    (see `sample_batch_reference` for the outputs).
+    (see `sample_batch_reference` for the outputs; `tri_tables` is
+    pack_tri_tables' pair for a mesh scene, else None).
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
     version."""
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
-                  jitter=jitter, want_tape=want_tape)
+                  jitter=jitter, want_tape=want_tape, tri_tables=tri_tables)
     args = (lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cuda":

@@ -1,5 +1,5 @@
 """Backward of the fused batch kernel: the tape replay's VJP (counterpart
-of the JAX package's ops/megatrace_bwd.py, its sphere arm).
+of the JAX package's ops/megatrace_bwd.py, its sphere and triangle arms).
 
 * `replay_grad_reference` is the plain version: torch.autograd over
   `ops/megatrace_replay.replay`, the counterpart of the JAX package's
@@ -13,10 +13,13 @@ of the JAX package's ops/megatrace_bwd.py, its sphere arm).
   tensors launch the kernel or raise.  It counts launches in `LAUNCHES`.
 
 The kernel returns the cotangent of the winner entity rows (the 13
-columns that carry gradients) and of the camera and sky constants; the
-entity-row cotangent goes back to centers, radii and records through
-torch.autograd of `build_entity_rows`, as the JAX package does with
-jax.vjp.
+columns that carry gradients; in a mesh scene 28, megatrace_replay.
+TRI_GRAD_COLS) and of the camera and sky constants; the entity-row
+cotangent goes back to centers, radii, records and the triangle tables
+through torch.autograd of `build_entity_rows`, as the JAX package does
+with jax.vjp.  Mesh scenes take the kernel's triangle instantiation:
+sphere rows sum in shared memory as before, triangle rows (up to TRI_MAX)
+in device memory.
 
 `replay_step_vjp` exposes the kernel's one-iteration VJP (and
 `replay_step_vjp_reference` its autograd counterpart) so that the hand
@@ -52,6 +55,12 @@ STEP_COTANGENTS = (
     ("camera_row", 2, slice(0, 24)), ("sky_bottom", 2, slice(24, 27)),
     ("sky_top", 2, slice(27, 30)),
 )
+# ... in mesh scenes, where cot_entity follows TRI_GRAD_COLS ("centers"
+# then also holds a triangle's edge_a)
+TRI_STEP_COTANGENTS = STEP_COTANGENTS + (
+    ("edge_b", 1, slice(13, 16)), ("vert0", 1, slice(16, 19)),
+    ("vertex_normals", 1, slice(19, 28)),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -64,18 +73,20 @@ def replay_grad_reference(tape, lane_count, camera_row, centers, radii,
                           cot_count, lane_base: int = 0, *, samples: int,
                           trace_depth: int, t_min: float = 0.0,
                           has_dielectrics: bool = True, sky_on: bool = True,
-                          jitter: bool = True) -> tuple:
+                          jitter: bool = True,
+                          tri_tables: tuple | None = None) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
-    sky_top) of the replay's (color_sum, count) given theirs: autograd over
-    the plain replay."""
+    sky_top[, tri_geo, tri_rec]) of the replay's (color_sum, count) given
+    theirs: autograd over the plain replay."""
     leaves = tuple(t.detach().to(torch.float32).requires_grad_()
                    for t in (camera_row, centers, radii, records,
-                             sky_bottom, sky_top))
+                             sky_bottom, sky_top, *(tri_tables or ())))
     with torch.enable_grad():
         csum, cnt = mr.replay(
-            tape, lane_count, *leaves, seed, lane_base, samples=samples,
+            tape, lane_count, *leaves[:6], seed, lane_base, samples=samples,
             trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
+            tri_tables=leaves[6:] or None,
         )
         grads = torch.autograd.grad(
             (csum, cnt), leaves,
@@ -104,15 +115,17 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
                               records, sky_bottom, sky_top, seed,
                               lane_base: int = 0, *, trace_depth: int,
                               t_min: float = 0.0, has_dielectrics: bool = True,
-                              sky_on: bool = True, jitter: bool = True):
+                              sky_on: bool = True, jitter: bool = True,
+                              tri_tables: tuple | None = None):
     """Per-lane VJP of one `replay_iteration`: autograd with every lane's
     state, winner row, camera and sky as leaves of their own.
 
     state, cot_out: (21, n) in STATE_KEYS order.  Returns (cot_in (21, n),
-    cot_entity (13, n) over GRAD_COLS, cot_scal (30, n): camera row, sky
-    bottom, sky top)."""
+    cot_entity (13, n) over GRAD_COLS, or (28, n) over TRI_GRAD_COLS with
+    `tri_tables`, cot_scal (30, n): camera row, sky bottom, sky top)."""
     n = lane_count.shape[0]
-    table = mr.build_entity_rows(centers, radii, records).detach()
+    table = mr.build_entity_rows(centers, radii, records,
+                                 tri_tables).detach()
     winners = torch.clamp(tape_row, min=0.0).to(torch.int64)
     with torch.enable_grad():
         st = state.detach().clone().requires_grad_()
@@ -127,6 +140,7 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
             dict(zip(mr.STATE_KEYS, st)), wt, tape_row, it, env,
             jitter=jitter, has_dielectrics=has_dielectrics, sky_on=sky_on,
             trace_depth=trace_depth, t_min=t_min,
+            has_tris=tri_tables is not None,
         )
         outs = [out[k] for k in mr.STATE_KEYS]
         keep = [j for j, o in enumerate(outs) if o.requires_grad]
@@ -138,8 +152,8 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
     def dense(g, like):
         return torch.zeros_like(like) if g is None else g
 
-    return (dense(g_st, st).detach(),
-            dense(g_wt, wt).detach()[list(mr.GRAD_COLS)],
+    cols = mr.GRAD_COLS if tri_tables is None else mr.TRI_GRAD_COLS
+    return (dense(g_st, st).detach(), dense(g_wt, wt).detach()[list(cols)],
             torch.cat([dense(g_cam, cam), dense(g_sky, sky)]).detach())
 
 
@@ -162,6 +176,7 @@ def load_kernel() -> ctypes.CDLL:
         lib.rtiw_megatrace_bwd.argtypes = [
             p, p, p, p, p, p, p, p,  # tape lane_count consts ent cot ckpt
             #                          dent dscal
+            p, i,  # dent_tri tri_base
             i, i, i, i, i, i,  # n s seed lane_base samples trace_depth
             f, i, i, i,  # t_min has_diel sky_on jitter
             p,  # stream
@@ -171,7 +186,7 @@ def load_kernel() -> ctypes.CDLL:
             p, p, p, p, p, p,  # state codes cot_out lane_count consts ent
             p, p, p,  # cot_in cot_ent cot_scal
             i, i, i, i, i,  # n it seed lane_base trace_depth
-            f, i, i, i,  # t_min has_diel sky_on jitter
+            f, i, i, i, i,  # t_min has_diel sky_on jitter has_tris
             p,  # stream
         ]
         lib.rtiw_replay_step_vjp.restype = i
@@ -200,7 +215,7 @@ def _check(name: str, tensors: dict, shapes: dict, dev) -> None:
 def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                       sky_bottom, sky_top, seed, cot_color, cot_count,
                       lane_base, *, samples, trace_depth, t_min,
-                      has_dielectrics, sky_on, jitter):
+                      has_dielectrics, sky_on, jitter, tri_tables):
     global LAUNCHES
     dev = centers.device
     n, s = lane_count.shape[0], centers.shape[0]
@@ -220,26 +235,41 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
     if s > mk.SPH_CULL_MIN:
         raise ValueError(f"replay_grad: {s} spheres; the kernel's shared "
                          f"cotangent table holds at most {mk.SPH_CULL_MIN}")
+    tri = tuple(tri_tables or ())
+    if tri:
+        t_pad = tri[0].shape[0]
+        _check("replay_grad", dict(tri_geo=tri[0], tri_rec=tri[1]),
+               dict(tri_geo=(t_pad, 16), tri_rec=(mk.TRI_REC_ROWS, t_pad)),
+               dev)
+        if t_pad % mk.TRI_PAD or t_pad > mk.TRI_MAX:
+            raise ValueError(f"replay_grad: {t_pad} triangle rows; want a "
+                             f"multiple of {mk.TRI_PAD} up to {mk.TRI_MAX}")
 
     lib = load_kernel()
     with torch.enable_grad():
         leaves = tuple(t.detach().requires_grad_()
-                       for t in (centers, radii, records))
-        entity_rows = mr.build_entity_rows(*leaves)
-    ent = entity_rows.detach()[:s].contiguous()
+                       for t in (centers, radii, records, *tri))
+        entity_rows = mr.build_entity_rows(*leaves[:3], leaves[3:] or None)
+    # sphere scenes: the real sphere rows; mesh scenes: the whole padded
+    # table, which the tape's triangle codes (s_pad + row) index
+    ent = entity_rows.detach()[:None if tri else s].contiguous()
     consts = _consts(camera_row, sky_bottom, sky_top)
     cot = torch.cat([cot_color.T, cot_count[None]]).contiguous()
     ckpt = torch.empty(samples * len(mr.STATE_KEYS) * n, dtype=torch.float32,
                        device=dev)
     tape = tape.contiguous()
     per_pixel = lane_count.to(torch.float32).contiguous()
-    dent = torch.zeros((s, len(mr.GRAD_COLS)), dtype=torch.float32,
-                       device=dev)
-    dscal = torch.zeros(N_SCAL, dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dent = torch.zeros((s, len(mr.GRAD_COLS)), **f32)
+    dscal = torch.zeros(N_SCAL, **f32)
+    s_pad = mk.sphere_pad_count(s)
+    dent_tri = (torch.zeros((tri[0].shape[0], len(mr.TRI_GRAD_COLS)), **f32)
+                if tri else None)
     err = lib.rtiw_megatrace_bwd(
         tape.data_ptr(), per_pixel.data_ptr(), consts.data_ptr(),
         ent.data_ptr(),
         cot.data_ptr(), ckpt.data_ptr(), dent.data_ptr(), dscal.data_ptr(),
+        0 if dent_tri is None else dent_tri.data_ptr(), s_pad,
         n, s, int(seed), int(lane_base), samples, trace_depth, float(t_min),
         int(has_dielectrics), int(sky_on), int(jitter),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -249,18 +279,23 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
     LAUNCHES += 1
     dtable = torch.zeros_like(entity_rows)
     dtable[:s, list(mr.GRAD_COLS)] = dent
-    g_c, g_r, g_rec = torch.autograd.grad(entity_rows, leaves, dtable)
-    return (dscal[:24], g_c, g_r, g_rec, dscal[24:27], dscal[27:30])
+    if tri:
+        dtable[s_pad:, list(mr.TRI_GRAD_COLS)] = dent_tri
+    grads = torch.autograd.grad(entity_rows, leaves, dtable)
+    return (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30], *grads[3:])
 
 
 def replay_grad(tape, lane_count, camera_row, centers, radii, records,
                 sky_bottom, sky_top, seed, cot_color, cot_count,
                 lane_base: int = 0, *, samples: int, trace_depth: int,
                 t_min: float = 0.0, has_dielectrics: bool = True,
-                sky_on: bool = True, jitter: bool = True) -> tuple:
+                sky_on: bool = True, jitter: bool = True,
+                tri_tables: tuple | None = None) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
-    sky_top) of one batch's (color_sum (N, 3), count (N,)) given the color
-    and count cotangents, replaying the tape (samples*trace_depth, N).
+    sky_top[, tri_geo, tri_rec]) of one batch's (color_sum (N, 3), count
+    (N,)) given the color and count cotangents, replaying the tape
+    (samples*trace_depth, N); `tri_tables` is pack_tri_tables' pair of a
+    mesh scene.
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_bwd.cu) or raise; CPU tensors run the plain version."""
@@ -268,7 +303,7 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, cot_color, cot_count, lane_base)
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
-                  jitter=jitter)
+                  jitter=jitter, tri_tables=tri_tables)
     if centers.device.type == "cuda":
         return _replay_grad_cuda(*args, **kwargs)
     if centers.device.type == "cpu":
@@ -280,14 +315,15 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
                     camera_row, centers, radii, records, sky_bottom,
                     sky_top, seed, lane_base: int = 0, *, trace_depth: int,
                     t_min: float = 0.0, has_dielectrics: bool = True,
-                    sky_on: bool = True, jitter: bool = True):
+                    sky_on: bool = True, jitter: bool = True,
+                    tri_tables: tuple | None = None):
     """The backward kernel's one-iteration VJP on every lane (see
     `replay_step_vjp_reference` for the arguments and outputs).  CUDA
     tensors launch the kernel's step entry point; CPU tensors run the
     plain version."""
     kwargs = dict(trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
-                  jitter=jitter)
+                  jitter=jitter, tri_tables=tri_tables)
     args = (state, tape_row, it, cot_out, lane_count, camera_row, centers,
             radii, records, sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cpu":
@@ -302,12 +338,13 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
            dict(state=(len(mr.STATE_KEYS), n), tape_row=(n,),
                 cot_out=(len(mr.STATE_KEYS), n)), dev)
     lib = load_kernel()
-    ent = mr.build_entity_rows(centers, radii, records).detach() \
-        .contiguous()
+    ent = mr.build_entity_rows(centers, radii, records,
+                               tri_tables).detach().contiguous()
     consts = _consts(camera_row, sky_bottom, sky_top)
     f32 = dict(dtype=torch.float32, device=dev)
+    cols = mr.GRAD_COLS if tri_tables is None else mr.TRI_GRAD_COLS
     cot_in = torch.empty((len(mr.STATE_KEYS), n), **f32)
-    cot_ent = torch.empty((len(mr.GRAD_COLS), n), **f32)
+    cot_ent = torch.empty((len(cols), n), **f32)
     cot_scal = torch.empty((N_SCAL, n), **f32)
     # keep every buffer the launch reads bound until it is enqueued
     state, tape_row, cot_out = (t.contiguous()
@@ -319,6 +356,7 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
         cot_in.data_ptr(), cot_ent.data_ptr(), cot_scal.data_ptr(), n,
         int(it), int(seed), int(lane_base), trace_depth, float(t_min),
         int(has_dielectrics), int(sky_on), int(jitter),
+        int(tri_tables is not None),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

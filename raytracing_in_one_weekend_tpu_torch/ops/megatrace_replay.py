@@ -1,13 +1,15 @@
 """Differentiable tape replay of the fused batch kernel (counterpart of the
-JAX package's ops/megatrace_replay.py, its sphere arm).
+JAX package's ops/megatrace_replay.py, its sphere and triangle arms).
 
 The forward kernel (ops/megatrace.sample_batch, want_tape=True) records
-the winner of every iteration on every lane: the sphere row, -1 for the
-sky, -2 for an idle lane.  Its hit attributes carry no gradient.  The
-replay re-runs the persistent-lane state machine along that tape in plain
-differentiable PyTorch: each iteration gathers only the winner's entity
-row, so there is no (lanes, spheres) intersection work and no kernel in
-the autograd graph.  Discrete decisions (winner, root, lotteries) are
+the winner of every iteration on every lane: the sphere row, the padded
+sphere count plus the triangle row, -1 for the sky, -2 for an idle lane.
+Its hit attributes carry no gradient.  The replay re-runs the
+persistent-lane state machine along that tape in plain differentiable
+PyTorch: each iteration gathers only the winner's entity row (a sphere's
+quadratic, or a triangle's Möller–Trumbore and barycentric normal lerp),
+so there is no (lanes, entities) intersection work and no kernel in the
+autograd graph.  Discrete decisions (winner, root, lotteries) are
 constants of the tape: the detached-decision gradient estimator, plus the
 score-function `lp` terms that carry the lotteries' probability shift.
 
@@ -28,8 +30,10 @@ the sphere discriminant and the refraction discriminant are floored at
   `ops/megatrace_bwd.replay_grad`: the CUDA backward kernel on CUDA
   tensors, autograd over `replay` on CPU tensors.
 
-Scope: every scene `ops/megatrace.scene_eligible` accepts (spheres,
-Lambert/GGX metal/dielectric, gradient or no sky, white noise).
+Scope: every scene the batch kernel accepts
+(`ops/megatrace.scene_eligible(scene, allow_triangles=True)`: spheres,
+meshes of at most TRI_MAX triangles, Lambert/GGX metal/dielectric,
+gradient or no sky, white noise).
 """
 
 from __future__ import annotations
@@ -53,10 +57,15 @@ from raytracing_in_one_weekend_tpu_torch.ops.megatrace import (
     uniforms_hash,
 )
 
-ENTITY_COLS = 23  # build_entity_rows layout, sphere arm
+ENTITY_COLS = 23  # build_entity_rows layout, sphere scenes
+TRI_ENTITY_COLS = 38  # ... and mesh scenes (vertex normals and uvs added)
 # entity columns that carry gradients: center, radius, albedo, emission,
 # gloss, metallic, parameter (material rows 1-9)
 GRAD_COLS = (0, 1, 2, 3, 11, 12, 13, 14, 15, 16, 17, 18, 19)
+# ... in mesh scenes: those, then a triangle row's edge_b and vert0 and its
+# three vertex normals (columns 0-2 hold a triangle's edge_a; uvs carry no
+# gradient without textures): the backward kernel's cotangent layout
+TRI_GRAD_COLS = (*GRAD_COLS, *range(4, 10), *range(23, 32))
 STATE_KEYS = (
     "ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
     "radx", "rady", "radz", "active", "valid", "started", "depth_ct",
@@ -67,18 +76,24 @@ AOV_OUTPUTS = ("normal", "albedo", "weight", "fallback_normal",
 
 
 def replay_eligible(scene) -> bool:
-    """Can this scene take the differentiable fused path?  The same scope
-    as the forward kernel for now."""
-    return mk.scene_eligible(scene)
+    """Can this scene take the differentiable fused path?  The forward
+    batch kernel's scope, meshes of at most TRI_MAX triangles included
+    (JAX replay_eligible)."""
+    return mk.scene_eligible(scene, allow_triangles=True)
 
 
-def build_entity_rows(centers, radii, records):
-    """(S_pad, 23) entity table in the kernel's padded row space, the JAX
-    package's layout: 0:3 center, 3 radius, 10:21 material rows 0-10,
-    21 kind (0 = sphere), 22 material id.  Differentiable with respect to
-    centers, radii and records; pad rows are zero and never referenced."""
+def build_entity_rows(centers, radii, records, tri_tables=None):
+    """Entity table in the kernel's padded combined row space, the JAX
+    package's layout: spheres in rows [0, S_pad), then with `tri_tables`
+    (pack_tri_tables' pair) the T_pad triangle rows.  Columns: 0:3 center
+    | edge_a, 3 radius, 4:7 edge_b, 7:10 vert0, 10:21 material rows 0-10,
+    21 kind (0 sphere, 3 triangle), 22 material id, and in mesh scenes
+    23:32 the vertex normals (v0, v1, v2 xyz) and 32:38 the uvs (u0-u2,
+    v0-v2): ENTITY_COLS or TRI_ENTITY_COLS wide.  Differentiable with
+    respect to every input; pad rows are zero and never referenced."""
     s = centers.shape[0]
     s_pad = mk.sphere_pad_count(s)
+    cols = ENTITY_COLS if tri_tables is None else TRI_ENTITY_COLS
     f32 = dict(dtype=torch.float32, device=centers.device)
     mat_id = (records[:, 11:12] if records.shape[1] > 11
               else torch.zeros((s, 1), **f32))
@@ -89,8 +104,21 @@ def build_entity_rows(centers, radii, records):
         records[:, :11].to(torch.float32),
         torch.zeros((s, 1), **f32),
         mat_id.to(torch.float32),
+        torch.zeros((s, cols - ENTITY_COLS), **f32),
     ], dim=1)
-    return torch.cat([rows, torch.zeros((s_pad - s, ENTITY_COLS), **f32)])
+    blocks = [rows, torch.zeros((s_pad - s, cols), **f32)]
+    if tri_tables is not None:
+        geo, trec = (t.to(torch.float32) for t in tri_tables)
+        t_pad = geo.shape[0]
+        blocks.append(torch.cat([
+            geo[:, 0:3],
+            torch.zeros((t_pad, 1), **f32),
+            geo[:, 3:9],
+            trec[0:11].T,
+            torch.full((t_pad, 1), 3.0, **f32),
+            trec[11:27].T,
+        ], dim=1))
+    return torch.cat(blocks)
 
 
 def initial_state(n: int, device) -> dict:
@@ -134,15 +162,17 @@ def _log_floor(x):
 
 def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
                      jitter: bool, has_dielectrics: bool, sky_on: bool,
-                     trace_depth: int, t_min: float = 0.0) -> dict:
+                     trace_depth: int, t_min: float = 0.0,
+                     has_tris: bool = False) -> dict:
     """One persistent-lane iteration along the tape: regen, one bounce at
     the tape's winner, fold and termination (JAX replay_iteration :260,
-    sphere arm).
+    sphere and triangle arms).
 
-    state: dict of (n,) float32 rows, STATE_KEYS.  wt: (23, n) winner
+    state: dict of (n,) float32 rows, STATE_KEYS.  wt: (cols, n) winner
     entity rows (row k = column k of build_entity_rows, per lane).
     tape_row: (n,) winner codes.  env: make_env's dict; its camera and sky
-    entries may also be (n,) rows."""
+    entries may also be (n,) rows.  has_tris: the table has triangle rows
+    (kind 3), whose winners take Möller–Trumbore and the normal lerp."""
     per_pixel, lanes, seed = env["per_pixel"], env["lanes"], env["seed"]
     co, ll, hh, vv = env["co"], env["ll"], env["hh"], env["vv"]
     rr, uu = env["rr"], env["uu"]
@@ -203,6 +233,11 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     hit = was_active & (tape_row >= -0.5)
     miss = was_active & ~hit
     cx, cy, cz, r = wt[0], wt[1], wt[2], wt[3]
+    # triangle rows hold edges where spheres hold center and radius: the
+    # sphere expressions see only sphere winners (s_hit), the triangle
+    # ones only triangle winners (t3_hit)
+    t3_hit = hit & (wt[21] > 2.5) if has_tris else None
+    s_hit = hit & ~t3_hit if has_tris else hit
 
     # the kernel's sweep expressions at the winner; their derivatives are
     # taken through the same quantities in (o - c) form, which does not
@@ -222,19 +257,35 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     # idle and sky lanes hold unrelated rows: sanitise every sqrt and
     # division argument so that the unselected branch stays finite; the
     # floor keeps sqrt' finite on grazing hits
-    sq = _sqrt(torch.where(hit, torch.clamp(disc, min=1e-8), 1.0))
-    inv_a = 1.0 / torch.where(hit, a, 1.0)
+    sq = _sqrt(torch.where(s_hit, torch.clamp(disc, min=1e-8), 1.0))
+    inv_a = 1.0 / torch.where(s_hit, a, 1.0)
     t_near = (-b - sq) * inv_a
     t_far = (-b + sq) * inv_a
     t_hit = torch.where(t_near > t_min, t_near, t_far)
-    t_hit = torch.where(hit, t_hit, 0.0)
+    t_hit = torch.where(s_hit, t_hit, 0.0)
+    if has_tris:
+        # Möller–Trumbore at the tape's winner, the kernel's expressions;
+        # the tape guarantees det != 0 on triangle winners, every other
+        # lane divides by 1
+        _, bu, bv, t_mt = mk.mt_parts(
+            (ox, oy, oz), (dx, dy, dz), (wt[0], wt[1], wt[2]),
+            (wt[4], wt[5], wt[6]), (wt[7], wt[8], wt[9]), mask=t3_hit)
+        t_hit = torch.where(t3_hit, t_mt, t_hit)
     px = _fma(t_hit, dx, ox)
     py = _fma(t_hit, dy, oy)
     pz = _fma(t_hit, dz, oz)
-    inv_r = 1.0 / torch.where(hit & (r != 0.0), r, 1.0)
-    nx = torch.where(hit, (px - cx) * inv_r, 0.0)
-    ny = torch.where(hit, (py - cy) * inv_r, 0.0)
-    nz = torch.where(hit, (pz - cz) * inv_r, 0.0)
+    inv_r = 1.0 / torch.where(s_hit & (r != 0.0), r, 1.0)
+    nx = torch.where(s_hit, (px - cx) * inv_r, 0.0)
+    ny = torch.where(s_hit, (py - cy) * inv_r, 0.0)
+    nz = torch.where(s_hit, (pz - cz) * inv_r, 0.0)
+    if has_tris:
+        # barycentric vertex-normal lerp, normalised after the lerp
+        tnx, tny, tnz = mk.tri_normal(
+            (wt[23], wt[24], wt[25]), (wt[26], wt[27], wt[28]),
+            (wt[29], wt[30], wt[31]), bu, bv)
+        nx = torch.where(t3_hit, tnx, nx)
+        ny = torch.where(t3_hit, tny, ny)
+        nz = torch.where(t3_hit, tnz, nz)
 
     mtype = wt[10]
     alb_r, alb_g, alb_b = wt[11], wt[12], wt[13]
@@ -401,20 +452,24 @@ def replay(
     has_dielectrics: bool = True,
     sky_on: bool = True,
     jitter: bool = True,
+    tri_tables: tuple | None = None,
 ):
     """Differentiable (color_sum (N, 3), count (N,)) of one batch,
-    replaying the kernel's persistent-lane loop along the recorded tape.
+    replaying the kernel's persistent-lane loop along the recorded tape
+    (`tri_tables`: pack_tri_tables' pair, differentiable, for a mesh
+    scene).
 
     One checkpointed block per `trace_depth` iterations (JAX :1167-1201):
     the winner rows of the block are gathered at once, and only the
     block-entry state is kept for the backward.  Blocks whose tape rows
     are all idle are identity steps and are skipped."""
     n = lane_count.shape[0]
-    entity_rows = build_entity_rows(centers, radii, records)
+    entity_rows = build_entity_rows(centers, radii, records, tri_tables)
     env = make_env(lane_count, camera_row, sky_bottom, sky_top, seed,
                    lane_base)
     statics = dict(jitter=jitter, has_dielectrics=has_dielectrics,
-                   sky_on=sky_on, trace_depth=trace_depth, t_min=t_min)
+                   sky_on=sky_on, trace_depth=trace_depth, t_min=t_min,
+                   has_tris=tri_tables is not None)
     state = initial_state(n, lane_count.device)
     winners = torch.clamp(tape, min=0.0).to(torch.int64)
     block = trace_depth
@@ -422,7 +477,7 @@ def replay(
     def run_block(b0, *flat):
         st = dict(zip(STATE_KEYS, flat))
         for it in range(b0, b0 + block):
-            wt = entity_rows[winners[it]].T  # (23, n) winner rows
+            wt = entity_rows[winners[it]].T  # (cols, n) winner rows
             st = replay_iteration(st, wt, tape[it], it, env, **statics)
         return tuple(st[k] for k in STATE_KEYS)
 
@@ -444,18 +499,23 @@ def replay(
 
 
 class _SampleBatchDiff(torch.autograd.Function):
-    """Inputs: the six differentiable tables, then the non-differentiable
-    lane rows, the seed, the lane base and the static options."""
+    """Inputs: the six differentiable tables, the two triangle tables
+    (None in sphere scenes), then the non-differentiable lane rows, the
+    seed, the lane base and the static options."""
 
     @staticmethod
     def forward(ctx, camera_row, centers, radii, records, sky_bottom,
-                sky_top, lane_count, count_in, seed, lane_base, statics):
+                sky_top, tri_geo, tri_rec, lane_count, count_in, seed,
+                lane_base, statics):
+        tri_tables = None if tri_geo is None else (tri_geo, tri_rec)
         out = mk.sample_batch(
             lane_count, count_in, camera_row, centers, radii, records,
-            sky_bottom, sky_top, seed, lane_base, want_tape=True, **statics,
+            sky_bottom, sky_top, seed, lane_base, want_tape=True,
+            tri_tables=tri_tables, **statics,
         )
         ctx.save_for_backward(out["tape"], lane_count, camera_row, centers,
-                              radii, records, sky_bottom, sky_top)
+                              radii, records, sky_bottom, sky_top, tri_geo,
+                              tri_rec)
         ctx.seed, ctx.lane_base, ctx.statics = seed, lane_base, statics
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(out["rays"])
@@ -477,7 +537,7 @@ class _SampleBatchDiff(torch.autograd.Function):
         from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 
         (tape, lane_count, camera_row, centers, radii, records, sky_bottom,
-         sky_top) = ctx.saved_tensors
+         sky_top, tri_geo, tri_rec) = ctx.saved_tensors
         n = lane_count.shape[0]
         zeros = torch.zeros(n, dtype=torch.float32, device=tape.device)
         cot_color = (cot["color"] if cot["color"] is not None
@@ -486,8 +546,12 @@ class _SampleBatchDiff(torch.autograd.Function):
         grads = megatrace_bwd.replay_grad(
             tape, lane_count, camera_row, centers, radii, records,
             sky_bottom, sky_top, ctx.seed, cot_color, cot_count,
-            ctx.lane_base, **ctx.statics,
+            ctx.lane_base,
+            tri_tables=None if tri_geo is None else (tri_geo, tri_rec),
+            **ctx.statics,
         )
+        if tri_geo is None:
+            grads = (*grads, None, None)
         return (*grads, None, None, None, None, None)
 
 
@@ -509,10 +573,13 @@ def sample_batch_diff(
     has_dielectrics: bool = True,
     sky_on: bool = True,
     jitter: bool = True,
+    tri_tables: tuple | None = None,
 ) -> dict:
     """`megatrace.sample_batch` with gradients with respect to camera_row,
-    centers, radii, records, sky_bottom and sky_top, through the tape
-    replay.  Outputs are the kernel's (no tape).  Only the `color` and
+    centers, radii, records, sky_bottom, sky_top and, in a mesh scene,
+    the two tables of `tri_tables` (pack_tri_tables' pair: the soup's
+    edges, vertices and normals and the triangle materials), through the
+    tape replay.  Outputs are the kernel's (no tape).  Only the `color` and
     `count` cotangents propagate; a loss that differentiates an AOV output
     raises NotImplementedError in backward (render_batch grafts the AOV
     gradients on from the wavefront).  When no input requires a
@@ -522,10 +589,12 @@ def sample_batch_diff(
                    has_dielectrics=has_dielectrics, sky_on=sky_on,
                    jitter=jitter)
     diff_inputs = (camera_row, centers, radii, records, sky_bottom, sky_top)
+    tri = (None, None) if tri_tables is None else tuple(tri_tables)
     if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in diff_inputs)):
+            and any(t is not None and t.requires_grad
+                    for t in (*diff_inputs, *tri))):
         return mk.sample_batch(lane_count, count_in, *diff_inputs, seed,
-                               lane_base, **statics)
-    outs = _SampleBatchDiff.apply(*diff_inputs, lane_count, count_in,
+                               lane_base, tri_tables=tri_tables, **statics)
+    outs = _SampleBatchDiff.apply(*diff_inputs, *tri, lane_count, count_in,
                                   int(seed), int(lane_base), statics)
     return dict(zip(mk.OUTPUT_KEYS, outs))

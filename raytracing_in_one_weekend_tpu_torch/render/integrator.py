@@ -1,5 +1,5 @@
 """Wavefront path-tracing integrator (counterpart of the JAX package's
-render/integrator.py), for sphere scenes.
+render/integrator.py), for sphere and triangle scenes.
 
 Reference: the Sample() bounce loop of SampleBatchJob.cs:166-401 — nearest
 hit, material scatter, the emission/attenuation fold, AOV capture, sky
@@ -12,18 +12,19 @@ conditions:
 
 * `mega`: not differentiable, no pre-drawn first-bounce directions, and
   the scene in the per-ray megatrace kernel's scope
-  (`ops.megatrace.scene_eligible`): the whole depth loop in one launch of
-  `ops.megatrace.megatrace` (CUDA: csrc/megatrace_wave.cu).
-* `fast`: not differentiable otherwise: per bounce, the fused selection
-  `ops.sphere_select.sphere_select_full` (csrc/sphere_select.cu) hands the
-  winner's record to the scatter, which carries no geometry gradients.
-* the differentiable arm: per bounce, `ops.intersect.nearest_hit` (the
-  detached selection `sphere_select`, then the winner's quadratic with
-  gradients).
+  (`ops.megatrace.scene_eligible`, sphere-only): the whole depth loop in
+  one launch of `ops.megatrace.megatrace` (CUDA: csrc/megatrace_wave.cu).
+* `fast`: not differentiable otherwise, for scenes without triangles: per
+  bounce, the fused selection `ops.sphere_select.sphere_select_full`
+  (csrc/sphere_select.cu) hands the winner's record to the scatter,
+  which carries no geometry gradients.
+* the general arm, differentiable or a mesh scene: per bounce,
+  `ops.intersect.nearest_hit` (the detached selections `sphere_select`
+  and `triangle_select`, then the winners' tests with gradients).
 
 On CPU tensors each kernel runs its plain PyTorch version.  Volumes,
-motion, rects, boxes, triangles, procedural textures and cubemap skies
-raise NotImplementedError naming their ROADMAP steps, and so does a noise
+motion, rects, boxes, procedural textures and cubemap skies raise
+NotImplementedError naming their ROADMAP steps, and so does a noise
 context (sampler flavors, step 11).
 """
 
@@ -154,7 +155,7 @@ def trace(
     )
     # the fast arm's per-sphere records: packed material row + material id
     sph_records = None
-    if not differentiable:
+    if not differentiable and scene.triangles.vert0.shape[0] == 0:
         sph_records = torch.cat(
             [packed[mat][:, :11], mat[:, None].to(torch.float32)], dim=1)
 

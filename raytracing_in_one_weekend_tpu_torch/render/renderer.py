@@ -8,22 +8,26 @@ JAX renderer's buffer donation.  `render_batch` takes the JAX renderer's
 arms on its conditions:
 
 * the fused arm, forward (`differentiable=False`): one
-  `ops.megatrace.sample_batch` launch per batch;
+  `ops.megatrace.sample_batch` launch per batch, with the triangle tables
+  of a mesh scene (`pack_tri_tables`);
 * the fused arm, differentiable: `ops.megatrace_replay.sample_batch_diff`
   (the same kernel with its winner tape as primal, the tape replay's
-  backward kernel as gradient of the color sum and the valid count), plus
-  the AOV graft: the normal, albedo, weight and fallback AOVs keep the
-  kernel's values, and their gradients come from the differentiable
-  wavefront on the batch key (`wavefront_pass`).  The graft runs only when
-  a loss gives an AOV channel a nonzero cotangent, one sample at a time in
-  backward, so a photometric loss pays nothing for it (torch removes no
-  dead code, unlike XLA);
+  backward kernel as gradient of the color sum and the valid count, to
+  the spheres, the triangle soup and the materials), plus the AOV graft:
+  the normal, albedo, weight and fallback AOVs keep the kernel's values,
+  and their gradients come from the differentiable wavefront on the batch
+  key (`wavefront_pass`, which selects triangles with
+  `ops.triangle_select`).  The graft runs only when a loss gives an AOV
+  channel a nonzero cotangent, one sample at a time in backward, so a
+  photometric loss pays nothing for it (torch removes no dead code,
+  unlike XLA);
 * the wavefront arm (`wavefront_pass`, render/integrator.py) where the
   batch kernel is refused: a scene outside its scope, or a sampler flavor
   asked for without a noise state (which the port does not have yet).
 
 Scenes outside the wavefront's scope raise NotImplementedError naming
-their ROADMAP item.
+their ROADMAP item, and so do meshes of more than TRI_MAX triangles,
+which the JAX package streams (ROADMAP queue 1, step 10).
 """
 
 from __future__ import annotations
@@ -94,10 +98,19 @@ AOV_KEYS = megatrace_replay.AOV_OUTPUTS
 AOV_GRAFT_RUNS = 0  # backward passes that ran the wavefront for AOV grads
 
 
+def _check_mesh_size(scene: Scene) -> None:
+    if scene.triangles.vert0.shape[0] > megatrace.TRI_MAX:
+        raise NotImplementedError(
+            f"meshes of more than {megatrace.TRI_MAX} triangles: "
+            f"{megatrace.STREAMED_MESHES}"
+        )
+
+
 def check_scope(scene: Scene, noise_color: int = 0) -> None:
     """Raise NotImplementedError for anything outside the ported slice:
-    scenes the wavefront cannot trace, and sampler flavors (their noise
-    state is not ported)."""
+    scenes the wavefront cannot trace, meshes beyond TRI_MAX, and sampler
+    flavors (their noise state is not ported)."""
+    _check_mesh_size(scene)
     if noise_color != 0:
         raise NotImplementedError(
             "blue-noise sampler flavors are not ported yet "
@@ -208,9 +221,18 @@ def _grad_tensors(*groups) -> list[torch.Tensor]:
 def _aov_vjp(wave: dict, cots: dict, inputs: list) -> list:
     """The gradient of sum(cot * AOV) over the graft's AOV channels with
     respect to `inputs`, from the differentiable wavefront, one sample at
-    a time (each sample's graph is freed before the next is built)."""
+    a time (each sample's graph is freed before the next is built).
+
+    The wavefront runs on detached copies of the inputs: an input may be
+    computed from another (set_triangle_vertices makes edge_b = v1 -
+    vert0), and the gradient to each must be its own partial derivative,
+    or autograd would count the shared path twice."""
     global AOV_GRAFT_RUNS
     AOV_GRAFT_RUNS += 1
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    swap = {id(t): leaf for t, leaf in zip(inputs, leaves)}
+    scene, camera = (group.map_tensors(lambda t: swap.get(id(t), t))
+                     for group in (wave["scene"], wave["camera"]))
     row_active, per_pixel = wave["row_active"], wave["per_pixel"]
     samples = wave["samples"]
     n = row_active.shape[0]
@@ -222,7 +244,7 @@ def _aov_vjp(wave: dict, cots: dict, inputs: list) -> list:
             continue
         with torch.enable_grad():
             _, _, result, fvalid = _sample_step(
-                wave["scene"], wave["camera"], acc, wave["key"], s,
+                scene, camera, acc, wave["key"], s,
                 row_active, per_pixel, width=wave["width"],
                 height=wave["height"], trace_depth=wave["trace_depth"],
                 sub_pixel_jitter=wave["jitter"], differentiable=True)
@@ -244,7 +266,7 @@ def _aov_vjp(wave: dict, cots: dict, inputs: list) -> list:
             loss = sum((cots[k] * v).sum() for k, v in terms
                        if cots[k] is not None)
             if isinstance(loss, torch.Tensor) and loss.requires_grad:
-                grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
                 for acc_g, g in zip(total, grads):
                     if g is not None:
                         acc_g.add_(g)
@@ -337,6 +359,7 @@ def render_batch(
         seed = int(torch.randint(0, SEED_RANGE, (), generator=generator))
     if key is None:
         key = rng.PRNGKey(seed)
+    _check_mesh_size(scene)
     dev = scene.spheres.center.device
     n = width * height
 
@@ -357,7 +380,8 @@ def render_batch(
     else:
         per_pixel = torch.full((n,), samples, dtype=torch.int32, device=dev)
 
-    if noise_color != 0 or not megatrace.scene_eligible(scene):
+    if (noise_color != 0
+            or not megatrace.scene_eligible(scene, allow_triangles=True)):
         # ---- the wavefront arm: the batch kernel is refused ---------------
         integrator.check_scope(scene)
         new, pixel_rays = wavefront_pass(
@@ -371,9 +395,8 @@ def render_batch(
         return acc, _reduce_metrics(acc, pixel_rays)
 
     lane_count = torch.where(row_active, per_pixel, 0)
-    records = megatrace.pack_sphere_records(
-        scene, materials.pack_materials(scene)
-    )
+    packed = materials.pack_materials(scene)
+    records = megatrace.pack_sphere_records(scene, packed)
     batch = (megatrace_replay.sample_batch_diff if differentiable
              else megatrace.sample_batch)
     d = batch(
@@ -391,6 +414,9 @@ def render_batch(
         has_dielectrics=scene.flags.has_dielectrics,
         sky_on=scene.flags.sky == 1,
         jitter=sub_pixel_jitter,
+        # gradients to the soup's vertices, normals and materials flow
+        # through this pack
+        tri_tables=megatrace.pack_tri_tables(scene, packed),
     )
     inputs = _grad_tensors(scene, camera) if differentiable else []
     if inputs and torch.is_grad_enabled():

@@ -8,9 +8,11 @@ produces the same arrays as the JAX builder, including the empty
 rect/box/triangle arrays.  `scene_from_arrays` carries a scene built by
 the JAX package across as numpy arrays.
 
-Builder calls whose later stages are not ported yet raise
+Triangles (`add_triangle`, `add_mesh`) are baked to world space in the
+reference's edge form and Morton-sorted by centroid at build, as the JAX
+builder does.  Builder calls whose later stages are not ported yet raise
 NotImplementedError naming the ROADMAP item: image textures, Perlin
-tables, cubemap skies and triangle meshes.
+tables and cubemap skies.
 """
 
 from __future__ import annotations
@@ -289,6 +291,27 @@ def _morton_sphere_order(centers: np.ndarray) -> np.ndarray:
     return np.argsort(key, kind="stable")
 
 
+def _morton_perm(centroids: np.ndarray) -> np.ndarray:
+    """Stable Z-order permutation of triangle centroids (10 bits per axis
+    over their bounding box), the JAX builder's: consecutive TRI_BLOCK
+    rows then cover compact regions, so the batch kernel's per-block
+    AABB test skips most blocks."""
+    cen = np.asarray(centroids, np.float64)
+    lo = cen.min(axis=0)
+    span = np.maximum(cen.max(axis=0) - lo, 1e-12)
+    q = np.clip((cen - lo) / span * 1024.0, 0.0, 1023.0).astype(np.uint32)
+
+    def spread(v):  # 10 bits -> every 3rd bit of a 30-bit code
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    code = (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
+    return np.argsort(code, kind="stable")
+
+
 class SceneBuilder:
     """Imperative scene assembly -> Scene of tensors (the analog of the
     reference's material conversion + entity-buffer rebuild,
@@ -300,6 +323,7 @@ class SceneBuilder:
         self._spheres: list[tuple] = []
         self._rects: list[tuple] = []
         self._boxes: list[tuple] = []
+        self._triangles: list[tuple] = []
         self._sky = (SkyType.GRADIENT, (1.0, 1.0, 1.0), (0.5, 0.7, 1.0))
 
     # -- textures / images --------------------------------------------------
@@ -433,16 +457,73 @@ class SceneBuilder:
             )
         )
 
-    def add_triangle(self, *args, **kwargs):
-        raise NotImplementedError(
-            "triangles are not ported yet (ROADMAP queue 1, step 7.4)"
-        )
+    def add_triangle(self, v0, v1, v2, material: int, normals=None,
+                     uvs=None):
+        """World-space triangle in the reference's edge form
+        (EntityTypes/Triangle.cs:7-51: Data = {v2 - v0, v1 - v0, v0})."""
+        v0 = np.asarray(v0, np.float32)
+        v1 = np.asarray(v1, np.float32)
+        v2 = np.asarray(v2, np.float32)
+        if normals is None:
+            face_n = np.cross(v1 - v0, v2 - v0)
+            norm = np.linalg.norm(face_n)
+            face_n = face_n / (norm if norm > 0 else 1.0)
+            normals = np.stack([face_n] * 3, axis=-1)  # (3, 3) columns
+        else:
+            normals = np.stack(
+                [np.asarray(n, np.float32) for n in normals], axis=-1
+            )
+        if uvs is None:
+            uvs = np.zeros((2, 3), np.float32)
+        else:
+            uvs = np.stack([np.asarray(u, np.float32) for u in uvs], axis=-1)
+        self._triangles.append((
+            (v2 - v0)[None], (v1 - v0)[None], v0[None], normals[None],
+            uvs[None], np.full((1,), material, np.int32),
+        ))
 
-    def add_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "triangle meshes are not ported yet (ROADMAP queue 1, steps "
-            "7.4 and 10)"
-        )
+    def add_mesh(
+        self, vertices, faces, material: int, normals=None, uvs=None,
+        translation=(0, 0, 0), scale=1.0, face_normals=False,
+    ):
+        """Triangle soup from an indexed mesh, the transform baked into
+        world space (Jobs/AddMeshRuntimeEntitiesJob.cs:15-92), appended
+        as one (F, ...) chunk."""
+        vertices = np.asarray(vertices, np.float32) * float(scale) \
+            + np.asarray(translation, np.float32)
+        faces = np.asarray(faces, np.int64)
+        if faces.shape[0] == 0:
+            return
+        v0 = vertices[faces[:, 0]]
+        v1 = vertices[faces[:, 1]]
+        v2 = vertices[faces[:, 2]]
+        if normals is None or face_normals:
+            # the face normal in the three vertex slots
+            # (AddMeshRuntimeEntitiesJob.cs:70-78, add_triangle's rule)
+            fn = np.cross(v1 - v0, v2 - v0)
+            nrm = np.linalg.norm(fn, axis=-1, keepdims=True)
+            fn = fn / np.where(nrm > 0, nrm, 1.0)
+            tri_normals = np.repeat(fn[:, :, None], 3, axis=2)
+        else:
+            nsrc = np.asarray(normals, np.float32)
+            tri_normals = np.stack(
+                [nsrc[faces[:, 0]], nsrc[faces[:, 1]], nsrc[faces[:, 2]]],
+                axis=-1,
+            )
+        if uvs is None:
+            tri_uvs = np.zeros((faces.shape[0], 2, 3), np.float32)
+        else:
+            usrc = np.asarray(uvs, np.float32)
+            tri_uvs = np.stack(
+                [usrc[faces[:, 0]], usrc[faces[:, 1]], usrc[faces[:, 2]]],
+                axis=-1,
+            )
+        self._triangles.append((
+            (v2 - v0).astype(np.float32), (v1 - v0).astype(np.float32),
+            v0.astype(np.float32), tri_normals.astype(np.float32),
+            tri_uvs.astype(np.float32),
+            np.full((faces.shape[0],), material, np.int32),
+        ))
 
     # -- environment -----------------------------------------------------------
 
@@ -570,11 +651,27 @@ class SceneBuilder:
                 material=empty(0, dtype=i32),
             )
 
-        triangles = Triangles(
-            edge_a=empty(0, 3), edge_b=empty(0, 3), vert0=empty(0, 3),
-            normals=empty(0, 3, 3), uvs=empty(0, 2, 3),
-            material=empty(0, dtype=i32),
-        )
+        if self._triangles:
+            # each entry is a (k, ...) chunk: k = 1 for add_triangle, F
+            # for add_mesh
+            edge_a, edge_b, vert0, normals, uvs, tri_mat = (
+                np.concatenate([tr[k] for tr in self._triangles])
+                for k in range(6)
+            )
+            # Morton order by centroid, once at build (the JAX builder's
+            # float32 expression), so TRI_BLOCK row blocks are compact
+            perm = _morton_perm(vert0 + (edge_a + edge_b) * (1.0 / 3.0))
+            triangles = Triangles(
+                edge_a=t(edge_a[perm], f32), edge_b=t(edge_b[perm], f32),
+                vert0=t(vert0[perm], f32), normals=t(normals[perm], f32),
+                uvs=t(uvs[perm], f32), material=t(tri_mat[perm], i32),
+            )
+        else:
+            triangles = Triangles(
+                edge_a=empty(0, 3), edge_b=empty(0, 3), vert0=empty(0, 3),
+                normals=empty(0, 3, 3), uvs=empty(0, 2, 3),
+                material=empty(0, dtype=i32),
+            )
 
         sky_type, bottom, top = self._sky
         environment = Environment(
@@ -599,7 +696,11 @@ class SceneBuilder:
             ),
             has_procedural_textures=any(s.type in procedural for s in tex),
             sky=int(sky_type),
-            has_nonconvex_volumes=any(r[4] in vol_ids for r in self._rects),
+            has_nonconvex_volumes=(
+                any(r[4] in vol_ids for r in self._rects)
+                or any(bool(np.isin(tr[5], list(vol_ids)).any())
+                       for tr in self._triangles)
+            ),
             motion_unit_time=all(
                 s[3] is None
                 or (float(s[4][0]) == 0.0 and float(s[4][1]) == 1.0)

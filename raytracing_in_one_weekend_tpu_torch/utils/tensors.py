@@ -9,19 +9,23 @@ import torch
 
 class TensorGroup:
     """Mixin for frozen dataclasses whose fields are tensors, nested
-    groups, None or plain values.  `.to(device)` returns a copy with every
-    tensor (recursively) on `device`; other fields are kept as they are."""
+    groups, None or plain values.  `.map_tensors(fn)` returns a copy with
+    fn applied to every tensor (recursively), `.to(device)` one with every
+    tensor on `device`; other fields are kept as they are."""
 
-    def to(self, device):
-        def move(value):
+    def map_tensors(self, fn):
+        def apply(value):
             if isinstance(value, torch.Tensor):
-                return value.to(device)
+                return fn(value)
             if isinstance(value, TensorGroup):
-                return value.to(device)
+                return value.map_tensors(fn)
             return value
 
         return dataclasses.replace(
             self,
-            **{f.name: move(getattr(self, f.name))
+            **{f.name: apply(getattr(self, f.name))
                for f in dataclasses.fields(self)},
         )
+
+    def to(self, device):
+        return self.map_tensors(lambda t: t.to(device))

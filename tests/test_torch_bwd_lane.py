@@ -16,6 +16,13 @@ library here (the CUDA build needs the card).  Checks:
 * the whole backward (checkpoint sweep, block re-runs, shared cotangent
   sums) against `replay_grad_reference`, each leaf within 5e-4, at depths
   5 and 8 and at 35 and 64, whose blocks fill the per-lane history.
+
+The mesh instantiation (triangle winners: Möller–Trumbore and the normal
+lerp, 38-column entity rows, 28-column cotangent rows summed apart from
+the spheres') is held the same way on `mesh_showcase` and on one smooth
+triangle (tests/test_torch_mesh_replay.py), with the triangle leaves
+(edge_a, edge_b, vert0, vertex normals; the geometry and record tables)
+added to the checks.
 """
 
 import ctypes
@@ -28,7 +35,7 @@ import pytest
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.core import camera, materials
-from raytracing_in_one_weekend_tpu_torch.models import book_scenes
+from raytracing_in_one_weekend_tpu_torch.models import book_scenes, meshes
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd as mb
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay as mr
@@ -39,49 +46,77 @@ TOL = 5e-4
 _HARNESS = r"""
 #include "megatrace_replay_lane.cuh"
 using namespace rtiw;
-extern "C" {
-void step_forward_all(float* state, const float* codes, const float* lc,
-                      const float* consts, const float* ent, int n, int it,
-                      int seed, int td, int diel) {
+
+// tris != 0 takes the mesh instantiation: a 38-column entity table, the
+// 28-column cotangent rows and triangle rows (codes >= tri_base) summed
+// into dent_tri.
+template <bool kTris>
+void step_forward_t(float* state, const float* codes, const float* lc,
+                    const float* consts, const float* ent, int n, int it,
+                    int seed, int td, int diel) {
   for (int i = 0; i < n; ++i) {
     LaneEnv E = make_lane_env(consts, ent, i, lc[i], seed, 0, td, 0.0f,
                               diel, 1, 1);
     float st[kStateVars];
     for (int k = 0; k < kStateVars; ++k) st[k] = state[(size_t)k * n + i];
-    step_forward(st, codes[i], it, E);
+    step_forward<kTris>(st, codes[i], it, E);
     for (int k = 0; k < kStateVars; ++k) state[(size_t)k * n + i] = st[k];
   }
 }
-void step_vjp_all(const float* state, const float* codes,
-                  const float* cot_out, const float* lc, const float* consts,
-                  const float* ent, float* cot_in, float* cot_ent,
-                  float* cot_scal, int n, int it, int seed, int td,
-                  int diel) {
+
+template <bool kTris>
+void step_vjp_t(const float* state, const float* codes, const float* cot_out,
+                const float* lc, const float* consts, const float* ent,
+                float* cot_in, float* cot_ent, float* cot_scal, int n, int it,
+                int seed, int td, int diel) {
+  constexpr int cols = Layout<kTris>::grad;
   for (int i = 0; i < n; ++i) {
     LaneEnv E = make_lane_env(consts, ent, i, lc[i], seed, 0, td, 0.0f,
                               diel, 1, 1);
-    float st[kStateVars], g[kStateVars], ge[kGradCols], gs[kScal];
+    float st[kStateVars], g[kStateVars], ge[cols], gs[kScal];
     for (int k = 0; k < kStateVars; ++k) {
       st[k] = state[(size_t)k * n + i];
       g[k] = cot_out[(size_t)k * n + i];
     }
     for (int k = 0; k < kScal; ++k) gs[k] = 0.0f;
-    step_vjp(st, g, codes[i], it, E, ge, gs);
+    step_vjp<kTris>(st, g, codes[i], it, E, ge, gs);
     for (int k = 0; k < kStateVars; ++k) cot_in[(size_t)k * n + i] = g[k];
-    for (int k = 0; k < kGradCols; ++k) cot_ent[(size_t)k * n + i] = ge[k];
+    for (int k = 0; k < cols; ++k) cot_ent[(size_t)k * n + i] = ge[k];
     for (int k = 0; k < kScal; ++k) cot_scal[(size_t)k * n + i] = gs[k];
   }
+}
+
+extern "C" {
+void step_forward_all(float* state, const float* codes, const float* lc,
+                      const float* consts, const float* ent, int n, int it,
+                      int seed, int td, int diel, int tris) {
+  (tris ? step_forward_t<true> : step_forward_t<false>)(
+      state, codes, lc, consts, ent, n, it, seed, td, diel);
+}
+void step_vjp_all(const float* state, const float* codes,
+                  const float* cot_out, const float* lc, const float* consts,
+                  const float* ent, float* cot_in, float* cot_ent,
+                  float* cot_scal, int n, int it, int seed, int td,
+                  int diel, int tris) {
+  (tris ? step_vjp_t<true> : step_vjp_t<false>)(
+      state, codes, cot_out, lc, consts, ent, cot_in, cot_ent, cot_scal, n,
+      it, seed, td, diel);
 }
 void backward_all(const float* tape, const float* lc, const float* consts,
                   const float* ent, const float* cot, float* ckpt,
                   float* dent, float* dscal, int n, int seed, int samples,
-                  int td, int diel) {
+                  int td, int diel, float* dent_tri, int tri_base) {
   for (int i = 0; i < n; ++i) {
     LaneEnv E = make_lane_env(consts, ent, i, lc[i], seed, 0, td, 0.0f,
                               diel, 1, 1);
-    lane_backward(tape, n, i, samples * td, E, cot[i], cot[n + i],
-                  cot[2 * n + i], cot[3 * n + i], ckpt, dscal,
-                  EntityAdd{dent});
+    if (dent_tri == nullptr)
+      lane_backward(tape, n, i, samples * td, E, cot[i], cot[n + i],
+                    cot[2 * n + i], cot[3 * n + i], ckpt, dscal,
+                    EntityAdd{dent});
+    else
+      lane_backward<true>(tape, n, i, samples * td, E, cot[i], cot[n + i],
+                          cot[2 * n + i], cot[3 * n + i], ckpt, dscal,
+                          MeshEntityAdd{dent, dent_tri, tri_base});
   }
 }
 }
@@ -108,14 +143,31 @@ def _p(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _smooth_triangle():
+    from test_torch_mesh_replay import CAMERA, smooth_triangle_scene
+
+    from raytracing_in_one_weekend_tpu_torch.scene import scene as scene_mod
+    from raytracing_in_one_weekend_tpu_torch.utils.config import \
+        CameraSettings
+
+    return smooth_triangle_scene(scene_mod), CameraSettings(
+        origin=CAMERA["origin"], look_at=CAMERA["look_at"],
+        vertical_fov=CAMERA["vfov"], focus_distance=6.0)
+
+
+MESH_SCENES = {"mesh_showcase": meshes.mesh_showcase,
+               "smooth_triangle": _smooth_triangle}
+
+
 def setup(name, size, spp, depth, seed):
-    scene, cs = book_scenes.SCENES[name]()
+    """The batch inputs, the tape and the lane code's tables; mesh scenes
+    add `tri_tables` to kw and pass the whole padded entity table."""
+    scene, cs = (MESH_SCENES.get(name) or book_scenes.SCENES[name])()
     cam = camera.make_camera(cs.origin, cs.look_at, cs.up, cs.vertical_fov,
                              1.0, aperture=cs.aperture,
                              focus_distance=cs.focus_distance)
-    records = megatrace.pack_sphere_records(
-        scene, materials.pack_materials(scene)
-    )
+    packed = materials.pack_materials(scene)
+    records = megatrace.pack_sphere_records(scene, packed)
     tables = (megatrace.pack_camera_row(cam, size, size),
               scene.spheres.center, scene.spheres.radius, records,
               scene.environment.sky_bottom, scene.environment.sky_top)
@@ -123,17 +175,29 @@ def setup(name, size, spp, depth, seed):
     lane_count = torch.full((n,), spp, dtype=torch.int32)
     kw = dict(samples=spp, trace_depth=depth,
               has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
+    tri = megatrace.pack_tri_tables(scene, packed)
+    if tri is not None:
+        kw["tri_tables"] = tri
     out = megatrace.sample_batch(lane_count, torch.zeros(n), *tables, seed,
                                  want_tape=True, **kw)
-    ent = mr.build_entity_rows(*tables[1:4]).detach().contiguous()
+    ent = mr.build_entity_rows(*tables[1:4], tri).detach().contiguous()
     consts = torch.cat([tables[0], tables[4], tables[5], torch.zeros(2)])
     return tables, lane_count, kw, out, ent, consts
 
 
-def test_step_and_its_adjoint_match_autograd(lane_lib):
+@pytest.mark.parametrize("name", ["cover", "mesh_showcase"])
+def test_step_and_its_adjoint_match_autograd(lane_lib, name):
     seed, depth = 7, 8
-    tables, lane_count, kw, out, ent, consts = setup("cover", 24, 2, depth,
+    tables, lane_count, kw, out, ent, consts = setup(name, 24, 2, depth,
                                                      seed)
+    tri = kw.get("tri_tables")
+    tris = int(tri is not None)
+    cols = mr.TRI_GRAD_COLS if tri is not None else mr.GRAD_COLS
+    cotangents = mb.TRI_STEP_COTANGENTS if tri is not None \
+        else mb.STEP_COTANGENTS
+    if tri is not None:  # triangle winners on the tape
+        s_pad = megatrace.sphere_pad_count(tables[1].shape[0])
+        assert float((out["tape"] >= s_pad).float().mean()) > 0.05
     n = lane_count.shape[0]
     lcf = lane_count.float().contiguous()
     env = mr.make_env(lane_count, tables[0], tables[4], tables[5], seed)
@@ -147,11 +211,11 @@ def test_step_and_its_adjoint_match_autograd(lane_lib):
         s_host = s_in.clone()
         lane_lib.step_forward_all(_p(s_host), _p(codes), _p(lcf),
                                   _p(consts), _p(ent), n, it, seed, depth,
-                                  diel)
+                                  diel, tris)
         wt = ent[torch.clamp(codes, min=0).long()].T
         state = mr.replay_iteration(state, wt, codes, it, env, jitter=True,
                                     has_dielectrics=bool(diel), sky_on=True,
-                                    trace_depth=depth)
+                                    trace_depth=depth, has_tris=bool(tris))
         s_out = torch.stack([state[k] for k in mr.STATE_KEYS])
         assert torch.equal(s_host[:-1], s_out[:-1]), it
 
@@ -159,14 +223,14 @@ def test_step_and_its_adjoint_match_autograd(lane_lib):
             rng.standard_normal((len(mr.STATE_KEYS), n)).astype(np.float32))
         cot_out[12:16] = 0.0  # decisions and counters carry no cotangent
         got = (torch.empty(len(mr.STATE_KEYS), n),
-               torch.empty(len(mr.GRAD_COLS), n), torch.empty(mb.N_SCAL, n))
+               torch.empty(len(cols), n), torch.empty(mb.N_SCAL, n))
         lane_lib.step_vjp_all(_p(s_in), _p(codes), _p(cot_out), _p(lcf),
                               _p(consts), _p(ent), *(_p(t) for t in got), n,
-                              it, seed, depth, diel)
+                              it, seed, depth, diel, tris)
         want = mb.replay_step_vjp_reference(
             s_in, codes, it, cot_out, lane_count, *tables, seed,
-            trace_depth=depth, has_dielectrics=bool(diel))
-        for name, k, rows in mb.STEP_COTANGENTS:
+            trace_depth=depth, has_dielectrics=bool(diel), tri_tables=tri)
+        for name, k, rows in cotangents:
             g, r = got[k][rows], want[k][rows]
             scale = float(r.abs().max())
             if scale == 0.0:
@@ -181,7 +245,8 @@ def test_step_and_its_adjoint_match_autograd(lane_lib):
 # kernel's MAX_DEPTH) run blocks longer than 16 iterations
 @pytest.mark.parametrize("name,size,spp,depth", [
     ("three_spheres", 16, 3, 5), ("cover", 24, 4, 8), ("cover", 12, 2, 35),
-    ("three_spheres", 8, 2, 64),
+    ("three_spheres", 8, 2, 64), ("mesh_showcase", 16, 2, 8),
+    ("smooth_triangle", 12, 2, 35),
 ])
 def test_lane_backward_matches_replay_grad_reference(lane_lib, name, size,
                                                      spp, depth):
@@ -197,23 +262,32 @@ def test_lane_backward_matches_replay_grad_reference(lane_lib, name, size,
                                     cot_color, cot_count, **kw)
 
     s = tables[1].shape[0]
+    s_pad = megatrace.sphere_pad_count(s)
+    tri = tuple(kw.get("tri_tables", ()))
     cot = torch.cat([cot_color.T, cot_count[None]]).contiguous()
     ckpt = torch.empty(spp * len(mr.STATE_KEYS) * n)
     dent = torch.zeros(s, len(mr.GRAD_COLS))
+    dent_tri = (torch.zeros(tri[0].shape[0], len(mr.TRI_GRAD_COLS))
+                if tri else None)
     dscal = torch.zeros(mb.N_SCAL)
     lcf = lane_count.float().contiguous()  # bound while the call runs
     lane_lib.backward_all(_p(out["tape"]), _p(lcf), _p(consts), _p(ent),
                           _p(cot), _p(ckpt), _p(dent), _p(dscal), n, seed,
-                          spp, depth, int(kw["has_dielectrics"]))
+                          spp, depth, int(kw["has_dielectrics"]),
+                          None if dent_tri is None else _p(dent_tri), s_pad)
     with torch.enable_grad():
-        leaves = tuple(t.detach().requires_grad_() for t in tables[1:4])
-        rows = mr.build_entity_rows(*leaves)
+        leaves = tuple(t.detach().requires_grad_()
+                       for t in (*tables[1:4], *tri))
+        rows = mr.build_entity_rows(*leaves[:3], leaves[3:] or None)
     dtable = torch.zeros_like(rows)
     dtable[:s, list(mr.GRAD_COLS)] = dent
-    got = (dscal[:24], *torch.autograd.grad(rows, leaves, dtable),
-           dscal[24:27], dscal[27:30])
+    if tri:
+        dtable[s_pad:, list(mr.TRI_GRAD_COLS)] = dent_tri
+    grads = torch.autograd.grad(rows, leaves, dtable)
+    got = (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30], *grads[3:])
     for leaf, g, r in zip(("camera_row", "centers", "radii", "records",
-                           "sky_bottom", "sky_top"), got, want):
+                           "sky_bottom", "sky_top", "tri_geo", "tri_rec"),
+                          got, want):
         scale = float(r.abs().max())
         assert scale > 0, leaf
         assert float((g - r).abs().max()) <= TOL * scale, (

@@ -17,8 +17,9 @@ from raytracing_in_one_weekend_tpu.core import materials as jax_materials
 from raytracing_in_one_weekend_tpu.models import book_scenes as jax_scenes
 from raytracing_in_one_weekend_tpu.ops import pallas_megatrace
 from raytracing_in_one_weekend_tpu_torch.core import camera, materials
-from raytracing_in_one_weekend_tpu_torch.models import book_scenes
+from raytracing_in_one_weekend_tpu_torch.models import book_scenes, meshes
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
+from raytracing_in_one_weekend_tpu_torch.render import renderer
 from raytracing_in_one_weekend_tpu_torch.scene import scene as scene_mod
 
 SCENES = ["cover", "three_spheres", "single_sphere", "cover_motion",
@@ -143,11 +144,27 @@ def test_scene_to_device_keeps_values():
     assert_same_leaves(port_leaves(moved), port_leaves(ts))
 
 
+def _textured_triangle(b):
+    """Triangles are ported; a checker-textured one is refused by the
+    renderer (procedural textures, step 7.5)."""
+    b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
+                   b.lambert(scene_mod.checker((1, 1, 1), (0, 0, 0))))
+    renderer.check_scope(b.build())
+
+
+def _streamed_mesh(b):
+    """Meshes are ported up to TRI_MAX; above it the renderer refuses them
+    (streamed meshes, step 10)."""
+    v, f, _, _ = meshes.icosphere(4)  # 5120 faces
+    b.add_mesh(v, f, b.lambert((0.5, 0.5, 0.5)))
+    renderer.check_scope(b.build())
+
+
 @pytest.mark.parametrize("call", [
     lambda b: b.add_image("img", np.zeros((2, 2, 3), np.float32)),
     lambda b: b.set_cubemap_sky(np.zeros((6, 2, 2, 3), np.float32)),
-    lambda b: b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), 0),
-    lambda b: b.add_mesh(np.zeros((3, 3)), np.array([[0, 1, 2]]), 0),
+    _textured_triangle,
+    _streamed_mesh,
     lambda b: (b.lambert(scene_mod.perlin((1, 1, 1))),
                b.add_sphere((0, 0, 0), 1.0, 0), b.build()),
 ], ids=["image", "cubemap", "triangle", "mesh", "perlin"])
