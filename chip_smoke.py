@@ -3,16 +3,19 @@ differentiable render (forward with tape, backward kernel, trainer) and
 the wavefront integrator (per-ray megatrace, fused sphere selection, the
 AOV-gradient graft), on the book cover and on the `mesh_showcase` mesh
 scene (triangle selection, the triangle arms of the batch and backward
-kernels).
+kernels), and the streamed meshes `mesh_large` and `mesh_huge` (the batch
+kernel's streamed arm with Morton lanes, the bounce-synchronous sampler's
+bounce, pair compaction and restore).
 
     python3 chip_smoke.py
 
 Needs one CUDA card.  Phases, each of which raises on failure:
   1. report the card (nvidia-smi name and power limit) and versions;
-  2. build the five kernel sources (csrc/megatrace_batch.cu,
+  2. build the seven kernel sources (csrc/megatrace_batch.cu,
      csrc/megatrace_bwd.cu, csrc/sphere_select.cu, csrc/megatrace_wave.cu,
-     csrc/triangle_select.cu), one nvcc each, all at once; print ptxas's
-     register and spill lines;
+     csrc/triangle_select.cu, csrc/meshtrace_sync.cu,
+     csrc/meshtrace_permute.cu), one nvcc each, all at once; print
+     ptxas's register and spill lines;
   3. compare the batch kernel with its plain PyTorch version on the card
      (cover, 128x128, 8 spp, depth 8, two seeds): lanes whose winner tape,
      sample count and ray count are identical and whose float channels
@@ -117,7 +120,32 @@ Needs one CUDA card.  Phases, each of which raises on failure:
  18. the CLI (`python -m raytracing_in_one_weekend_tpu_torch`'s `main`)
      renders `--scene triangle` and `--scene mesh_showcase` on the card at
      256x256, 16 spp, depth 8 into a temporary directory of the checkout:
-     exit code 0, a PNG, the batch kernel launched.
+     exit code 0, a PNG, the batch kernel launched; then `--scene
+     mesh_large` (the batch kernel) and `--scene mesh_huge` (the sync
+     sampler's three kernels) at 256x256, 8 spp;
+ 19. the sync sampler's kernels against their plain versions:
+     pair_compact and restore on random (24, N) states (2, 3, 4 and 1024
+     tiles; all, half and no lanes alive; +-0.0 in the directions) and on
+     the states of a mesh_huge wave, bit-identical; bounce_sync on bounces
+     0 and 3 of 128x128 mesh_huge lanes (8 spp) and bounce 1 of the
+     512x512 wave: the flags, ray count and lane id identical and the
+     floats within 1e-4 on >= 99% of lanes.  Each timed on the 512x512
+     wave (2,097,152 lanes) by CUDA events (bounce_sync one launch at a
+     time on fresh copies, the permutes over 20 launches), `index_copy_`
+     beside restore;
+ 20. the batch kernel's streamed arm against its plain version by phase
+     3's criterion (no tape: streamed meshes have none): mesh_large at
+     128x128, 8 spp, depth 8, two seeds, Morton lanes; then both timed at
+     512x512, depth 8, 4 spp;
+ 21. the forward streamed-mesh paths: render_batch at 512x512, depth 8, 64
+     spp per batch, 1 warm-up and 5 timed batches (median MRays/s), image
+     finite, on mesh_large (the batch kernel's streamed arm, no sync
+     kernel) and on mesh_huge (bounce_sync, pair_compact and restore, no
+     batch kernel); then the other route on each scene, 3 batches, by
+     calling megatrace.sample_batch and meshtrace.sample_batch_sync
+     directly; then sample_batch_sync with its kernels against it with
+     its plain versions, mesh_huge 128x128, 8 spp, depth 8: count and
+     rays identical and floats within 1e-4 on >= 99% of pixels.
 MRays/s counts every bounce of every sample as one ray, with the ray
 count the kernels themselves report.  Each kernel's bound is the larger of
 its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
@@ -149,6 +177,7 @@ from raytracing_in_one_weekend_tpu_torch.models import book_scenes, meshes
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay
+from raytracing_in_one_weekend_tpu_torch.ops import meshtrace
 from raytracing_in_one_weekend_tpu_torch.ops import sphere_select
 from raytracing_in_one_weekend_tpu_torch.ops import triangle_select
 from raytracing_in_one_weekend_tpu_torch.render import (
@@ -183,6 +212,9 @@ MT_FLOPS = 56  # per (ray, triangle) pair of Möller–Trumbore
 #   (megatrace_common.cuh): two cross products (18), three 3-dots and
 #   their scalings (18), det and its guarded division (5), the edge vector
 #   (3), the hit test (7), the select (1) and the running minimum (1)
+SLAB_FLOPS = 26  # per (ray, AABB) slab test (megatrace_bounce.cuh
+#   slab_may): 6 differences, 6 products, 10 min/max, the bound's min and
+#   max and the two comparisons
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -233,10 +265,12 @@ def lane_agreement(a: dict, b: dict) -> tuple[float, float]:
     return float(same.float().mean()), err
 
 
-def check_parity(label: str, args: tuple, kwargs: dict) -> tuple[float, float]:
+def check_parity(label: str, args: tuple, kwargs: dict,
+                 tape: bool = True) -> tuple[float, float]:
     """Run the kernel and the plain version on the same inputs, with the
-    winner tape; raise unless >= 99% of lanes agree."""
-    kwargs = dict(kwargs, want_tape=True)
+    winner tape unless `tape` is False; raise unless >= 99% of lanes
+    agree."""
+    kwargs = dict(kwargs, want_tape=tape)
     before = megatrace.LAUNCHES
     got = megatrace.sample_batch(*args, **kwargs)
     torch.cuda.synchronize()
@@ -244,8 +278,9 @@ def check_parity(label: str, args: tuple, kwargs: dict) -> tuple[float, float]:
         raise RuntimeError("sample_batch did not launch the kernel")
     want = megatrace.sample_batch_reference(*args, **kwargs)
     share, err = lane_agreement(got, want)
-    print(f"parity {label}: {share:.6f} of lanes identical (tape, count, "
-          f"rays; floats within 1e-4), max abs err {err:.3g}")
+    print(f"parity {label}: {share:.6f} of lanes identical "
+          f"({'tape, ' if tape else ''}count, rays; floats within 1e-4), "
+          f"max abs err {err:.3g}")
     if share < 0.99:
         raise RuntimeError(f"kernel/plain agreement {share} < 0.99 ({label})")
     return share, err
@@ -732,6 +767,8 @@ def kernel_ms(fn, kernel: str, repeats: int) -> float:
 def reset_launches() -> None:
     megatrace.LAUNCHES = megatrace.WAVE_LAUNCHES = megatrace_bwd.LAUNCHES = 0
     triangle_select.LAUNCHES = 0
+    meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
+    meshtrace.RESTORE_LAUNCHES = 0
     for k in sphere_select.LAUNCHES:
         sphere_select.LAUNCHES[k] = 0
 
@@ -1448,24 +1485,33 @@ def mesh_phases(dev, card) -> dict:
           f"{r:.3e} of the leaf's max abs [{card}]")
 
     # ---- 18. the CLI on the mesh scenes ----------------------------------------
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        for name in ("triangle", "mesh_showcase"):
+        for name, spp in (("triangle", 16), ("mesh_showcase", 16),
+                          ("mesh_large", 8), ("mesh_huge", 8)):
             png = os.path.join(tmp, f"{name}.png")
-            megatrace.LAUNCHES = 0
+            reset_launches()
             t0 = time.perf_counter()
             rc = cli.main(["--scene", name, "--width", "256", "--height",
-                           "256", "--spp", "16", "--depth", "8", "--output",
-                           png, "--quiet"])
+                           "256", "--spp", str(spp), "--depth", "8",
+                           "--output", png, "--quiet"])
             seconds = time.perf_counter() - t0
             with open(png, "rb") as f:
                 header = f.read(8)
-            if (rc != 0 or header != b"\x89PNG\r\n\x1a\n"
-                    or megatrace.LAUNCHES == 0):
+            sync = (meshtrace.SYNC_LAUNCHES, meshtrace.COMPACT_LAUNCHES,
+                    meshtrace.RESTORE_LAUNCHES)
+            took = (min(sync) > 0 and megatrace.LAUNCHES == 0
+                    if name == "mesh_huge"
+                    else megatrace.LAUNCHES > 0 and max(sync) == 0)
+            if rc != 0 or header != b"\x89PNG\r\n\x1a\n" or not took:
                 raise RuntimeError(f"the CLI did not render --scene {name} "
-                                   f"through the batch kernel (rc {rc})")
-            print(f"CLI: --scene {name} 256x256, 16 spp, depth 8 on the card: "
-                  f"PNG written in {seconds:.2f} s, {megatrace.LAUNCHES} "
-                  f"batch kernel launches")
+                                   f"through its kernels (rc {rc}, batch "
+                                   f"{megatrace.LAUNCHES}, sync {sync})")
+            print(f"CLI: --scene {name} 256x256, {spp} spp, depth 8 on the "
+                  f"card: PNG written in {seconds:.2f} s, launches batch "
+                  f"kernel {megatrace.LAUNCHES}, bounce_sync / pair_compact "
+                  f"/ restore {sync}")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
     kernel = {
         "name": "triangle_select",
@@ -1491,6 +1537,430 @@ def mesh_phases(dev, card) -> dict:
     return {"kernel": kernel, "paths": out}
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-21: streamed meshes
+# ---------------------------------------------------------------------------
+
+FLAG_ROWS = (12, 13, 20, meshtrace.RAYS_ROW, meshtrace.LANE_ROW)
+STATE_FLOATS = tuple(r for r in range(meshtrace.ST_ROWS) if r not in FLAG_ROWS)
+
+
+def launch_ms(fn, inputs: list) -> float:
+    """Median milliseconds of `fn(x)` over the inputs after the first (a
+    warm-up), each call alone between two CUDA events.  The inputs are
+    made beforehand, so an in-place kernel's fresh copy is not timed."""
+    fn(inputs[0])
+    times = []
+    for x in inputs[1:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_once(fn) -> tuple[float, object]:
+    """(milliseconds of one call from CUDA events, its result): for the
+    plain versions, which need no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), result
+
+
+def random_state(tiles: int, alive_share: float, seed: int, dev):
+    """A (24, tiles * 1024) state for the permutes: normal rows, lane ids
+    0..n-1, `alive_share` of the lanes alive, a fifth of the direction
+    components +0.0 and a fifth -0.0."""
+    g = torch.Generator().manual_seed(seed)
+    n = tiles * meshtrace.RAY_TILE
+    state = torch.randn((meshtrace.ST_ROWS, n), generator=g)
+    d = state[3:6]
+    d.masked_fill_(torch.rand(d.shape, generator=g) < 0.2, 0.0)
+    d.masked_fill_(torch.rand(d.shape, generator=g) < 0.2, -0.0)
+    state[12] = 0.0
+    state[12, torch.randperm(n, generator=g)[:round(n * alive_share)]] = 1.0
+    state[meshtrace.LANE_ROW] = torch.arange(n, dtype=torch.float32)
+    return state.to(dev)
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def check_permutes(label: str, state, restore: bool = True) -> None:
+    """pair_compact (and restore of its result) against the plain versions,
+    bit for bit; raises otherwise."""
+    got = meshtrace.pair_compact(state)
+    ok = same_bits(got, meshtrace.pair_compact_reference(state))
+    if restore:
+        back = meshtrace.restore(got)
+        ok = (ok and same_bits(back, meshtrace.restore_reference(got))
+              and same_bits(back[:, :state.shape[1]], state))
+    torch.cuda.synchronize()
+    print(f"permutes {label}: {'bit-identical' if ok else 'DIFFER'}")
+    if not ok:
+        raise RuntimeError(f"pair_compact/restore differ from their plain "
+                           f"versions ({label})")
+
+
+def state_agreement(a, b) -> tuple[float, float]:
+    """(share of lanes whose flags, ray count and lane id are identical and
+    whose float rows agree within TOL, max abs float error on them)."""
+    fa, fb = a[list(STATE_FLOATS)], b[list(STATE_FLOATS)]
+    same = (a[list(FLAG_ROWS)] == b[list(FLAG_ROWS)]).all(dim=0)
+    same &= torch.isclose(fa, fb, **TOL).all(dim=0)
+    if not bool(same.any()):
+        return 0.0, float("inf")
+    return (float(same.float().mean()),
+            float((fa - fb).abs()[:, same].max()))
+
+
+def sync_args(scene):
+    """sample_batch_sync's scene arguments, streamed tables included."""
+    packed = materials.pack_materials(scene)
+    return (scene.spheres.center, scene.spheres.radius,
+            megatrace.pack_sphere_records(scene, packed),
+            scene.environment.sky_bottom, scene.environment.sky_top,
+            megatrace.pack_tri_stream_tables(scene, packed))
+
+
+def run_sync(scene, camera, width, height, samples, key):
+    n = width * height
+    dev = scene.spheres.center.device
+    return meshtrace.sample_batch_sync(
+        torch.full((n,), samples, dtype=torch.int32, device=dev),
+        torch.zeros(n, device=dev), camera, key, *sync_args(scene),
+        width=width, height=height, samples=samples, trace_depth=8,
+        has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
+
+
+@contextlib.contextmanager
+def plain_sync_kernels():
+    """sample_batch_sync with the plain versions of its three kernels."""
+    names = ("bounce_sync", "pair_compact", "restore")
+    saved = {k: getattr(meshtrace, k) for k in names}
+    for k in names:
+        setattr(meshtrace, k, getattr(meshtrace, f"{k}_reference"))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(meshtrace, k, v)
+
+
+def recorded_wave(scene, cs, width, height, dev):
+    """The inputs and results of every bounce_sync, pair_compact and
+    restore call of one 8-spp wave of `scene` at width x height."""
+    cam, _ = batch_inputs(scene, cs, width, height, dev)
+    with recorded_calls(meshtrace, "bounce_sync") as bounces, \
+            recorded_calls(meshtrace, "pair_compact") as compacts, \
+            recorded_calls(meshtrace, "restore") as restores:
+        run_sync(scene, cam, width, height, 8, rng.PRNGKey(5))
+    torch.cuda.synchronize()
+    if len(bounces) != 8 or len(compacts) != 7 or len(restores) != 1:
+        raise RuntimeError(f"a depth-8 wave made {len(bounces)} bounces, "
+                           f"{len(compacts)} compactions, {len(restores)} "
+                           "restores")
+    return bounces, compacts, restores
+
+
+def stream_bytes(stream) -> int:
+    return sum(t.numel() * 4 for t in stream)
+
+
+def streamed_phases(dev, card, width: int = 512, small: int = 128,
+                    spp: int = 64) -> dict:
+    """Phases 19-21 on mesh_large (20,748 triangles: the batch kernel's
+    streamed arm) and mesh_huge (102,656: the sync sampler), at width x
+    width and small x small, `spp` samples per main-path batch."""
+    scenes = {}
+    for name in ("mesh_large", "mesh_huge"):
+        scene, cs = getattr(meshes, name)()
+        scene = scene.to(dev)
+        if (not megatrace.scene_eligible(scene, allow_triangles=True)
+                or megatrace_replay.replay_eligible(scene)):
+            raise RuntimeError(f"{name} left the streamed arm's scope")
+        scenes[name] = (scene, cs)
+    huge, huge_cs = scenes["mesh_huge"]
+    large, large_cs = scenes["mesh_large"]
+    height = width
+    n = width * height
+    out = {}
+
+    # ---- 19. the sync sampler's kernels vs plain --------------------------------
+    t_phase = time.perf_counter()
+    for tiles in (2, 3, 4, 1024):
+        for share in (0.0, 0.5, 1.0):
+            check_permutes(f"random {tiles} tiles, {share:.0%} alive",
+                           random_state(tiles, share, 100 + tiles, dev))
+    wave = recorded_wave(huge, huge_cs, small, small, dev)
+    for i, (args, _, _) in enumerate(wave[1]):
+        check_permutes(f"mesh_huge {small}x{small} wave, compaction {i}",
+                       args[0], restore=False)
+    (args, _, _), = wave[2]
+    if not same_bits(meshtrace.restore(args[0]),
+                     meshtrace.restore_reference(args[0])):
+        raise RuntimeError("restore differs from its plain version on the "
+                           "mesh_huge wave")
+    sync_err = 0.0
+    for b in (0, 3):
+        args, kw, _ = wave[0][b]
+        got = meshtrace.bounce_sync(args[0].clone(), *args[1:], **kw)
+        want = meshtrace.bounce_sync_reference(args[0].clone(), *args[1:],
+                                               **kw)
+        share, err = state_agreement(got, want)
+        sync_err = max(sync_err, err)
+        print(f"bounce_sync vs plain, mesh_huge {small}x{small} 8 spp, "
+              f"bounce {b} "
+              f"({int((args[0][12] > 0).sum())} live lanes): {share:.6f} of "
+              f"lanes identical (flags, rays, lane; floats within 1e-4), max "
+              f"abs err {err:.3g}")
+        if share < 0.99:
+            raise RuntimeError(f"bounce_sync agreement {share} < 0.99")
+
+    full = recorded_wave(huge, huge_cs, width, height, dev)
+    for i, (args, _, _) in enumerate(full[1]):
+        check_permutes(f"mesh_huge {width}x{height} wave, compaction {i}",
+                       args[0], restore=False)
+    args, kw, _ = full[0][1]
+    st1 = args[0]
+    n_pad = st1.shape[1]
+    live = int((st1[12] > 0).sum())
+    # CUDA events: after the earlier phases' profiler sessions, torch.profiler
+    # saw none of this kernel's launches (chip call 2, PR 5)
+    sync_ms = launch_ms(lambda x: meshtrace.bounce_sync(x, *args[1:], **kw),
+                        [st1.clone() for _ in range(4)])
+    megatrace.TRI_PAIRS = megatrace.SLAB_TESTS = 0
+    sync_plain_ms, want = time_once(
+        lambda: meshtrace.bounce_sync_reference(st1.clone(), *args[1:], **kw))
+    pairs, slabs = megatrace.TRI_PAIRS, megatrace.SLAB_TESTS
+    got = meshtrace.bounce_sync(st1.clone(), *args[1:], **kw)
+    share, err = state_agreement(got, want)
+    if share < 0.99:
+        raise RuntimeError(f"bounce_sync agreement {share} < 0.99 at "
+                           f"{width}x{height}")
+    sync_err = max(sync_err, err)
+    s_count = huge.spheres.center.shape[0]
+    huge_stream = args[5]
+    sync_bound = bound(
+        live * (s_count * SWEEP_FLOPS + SHADE_FLOPS) + pairs * MT_FLOPS
+        + slabs * SLAB_FLOPS,
+        2 * meshtrace.ST_ROWS * 4 * n_pad + stream_bytes(huge_stream))
+    print(f"bounce_sync, mesh_huge {width}x{height} 8 spp, bounce 1 "
+          f"({n_pad} lanes, "
+          f"{live} live; {pairs / live:.1f} triangles and "
+          f"{slabs / live:.1f} AABBs tested per live lane): kernel "
+          f"{sync_ms:.3f} ms, plain {sync_plain_ms:.3f} ms, bound "
+          f"{sync_bound[0]:.4f} ms by {sync_bound[1]}; {share:.6f} of lanes "
+          f"agree, max abs err {err:.3g} [{card}]")
+
+    perm_bound = bound(0.0, 2 * meshtrace.ST_ROWS * 4 * n_pad)
+    cst = full[1][0][0][0]
+    compact_ms, _ = time_batch(meshtrace.pair_compact, cst, repeats=20)
+    compact_plain_ms, _ = time_once(
+        lambda: meshtrace.pair_compact_reference(cst))
+    rst = full[2][0][0][0]
+    restore_ms, _ = time_batch(meshtrace.restore, rst, repeats=20)
+    restore_plain_ms, want = time_once(
+        lambda: meshtrace.restore_reference(rst))
+    ids = rst[meshtrace.LANE_ROW].long()
+    lib_out = torch.empty_like(rst)
+    index_copy_ms, _ = time_batch(lambda: lib_out.index_copy_(1, ids, rst),
+                                  repeats=20)
+    if not (same_bits(meshtrace.restore(rst), want)
+            and same_bits(lib_out, want)):
+        raise RuntimeError("restore, its plain version and index_copy_ "
+                           "differ on the full-width wave")
+    print(f"pair_compact, {width}x{height} wave ({n_pad} lanes): kernel "
+          f"{compact_ms:.4f} ms, plain {compact_plain_ms:.3f} ms; restore: "
+          f"kernel {restore_ms:.4f} ms, plain {restore_plain_ms:.3f} ms, "
+          f"index_copy_ {index_copy_ms:.4f} ms; bound {perm_bound[0]:.4f} ms "
+          f"by {perm_bound[1]} each [{card}]")
+    del wave, full, st1, cst, rst, lib_out, want, got
+    torch.cuda.empty_cache()
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 20. the batch kernel's streamed arm vs plain -------------------------
+    t_phase = time.perf_counter()
+    large_stream = megatrace.pack_tri_stream_tables(
+        large, materials.pack_materials(large))
+    kw = dict(has_dielectrics=large.flags.has_dielectrics, sky_on=True,
+              tri_stream_tables=large_stream)
+    w = h = small
+    _, tables = batch_inputs(large, large_cs, w, h, dev)
+    order, _ = (t.to(dev) for t in megatrace.morton_order(w, h))
+    lanes8 = torch.full((w * h,), 8, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(w * h, device=dev)
+    arm_shares, arm_err = [], 0.0
+    for seed in (11, 12):
+        share, err = check_parity(
+            f"streamed arm, mesh_large {w}x{h} 8 spp depth 8 seed {seed}, "
+            "Morton lanes", (lanes8, zeros, *tables, seed),
+            dict(kw, samples=8, trace_depth=8, pixel_index=order), tape=False)
+        arm_shares.append(share)
+        arm_err = max(arm_err, err)
+    camera, tables = batch_inputs(large, large_cs, width, height, dev)
+    order, _ = (t.to(dev) for t in megatrace.morton_order(width, height))
+    args4 = (torch.full((n,), 4, dtype=torch.int32, device=dev),
+             torch.zeros(n, device=dev), *tables, 7)
+    kw4 = dict(kw, samples=4, trace_depth=8, pixel_index=order)
+    arm_ms, got = time_batch(megatrace.sample_batch, *args4, repeats=5,
+                             **kw4)
+    megatrace.TRI_PAIRS = megatrace.SLAB_TESTS = 0
+    arm_plain_ms, want = time_once(
+        lambda: megatrace.sample_batch_reference(*args4, **kw4))
+    pairs, slabs = megatrace.TRI_PAIRS, megatrace.SLAB_TESTS
+    share, err = lane_agreement(got, want)
+    if share < 0.99:
+        raise RuntimeError(f"streamed arm agreement {share} < 0.99 in the "
+                           "timed 4 spp batch")
+    arm_shares.append(share)
+    arm_err = max(arm_err, err)
+    bounces = float(got["rays"].sum())
+    s_count = large.spheres.center.shape[0]
+    arm_bound = bound(
+        bounces * (s_count * SWEEP_FLOPS + SHADE_FLOPS) + pairs * MT_FLOPS
+        + slabs * SLAB_FLOPS,
+        n * 4 * (3 + megatrace.OUT_ROWS) + s_count * 4 * 20 + 4 * 32
+        + stream_bytes(large_stream))
+    print(f"batch kernel, streamed arm, mesh_large {width}x{height} depth 8, "
+          f"4 spp, "
+          f"Morton lanes ({bounces:.0f} bounces, {pairs / bounces:.1f} "
+          f"triangles and {slabs / bounces:.1f} AABBs tested per bounce of "
+          f"{large.triangles.vert0.shape[0]}): kernel {arm_ms:.3f} ms "
+          f"({bounces / arm_ms / 1e3:.3f} MRays/s), plain {arm_plain_ms:.3f} "
+          f"ms, bound {arm_bound[0]:.4f} ms by {arm_bound[1]}; {share:.6f} "
+          f"of lanes agree, max abs err {err:.3g} [{card}]")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 21. the forward streamed-mesh paths ------------------------------------
+    t_phase = time.perf_counter()
+    launches = {}
+    for name, (scene, cs) in scenes.items():
+        camera, _ = batch_inputs(scene, cs, width, height, dev)
+        acc = film.zero_accumulators(n, device=dev)
+        gen = torch.Generator().manual_seed(0)
+
+        def forward():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = renderer.render_batch(scene, camera, acc, gen,
+                                         width=width, height=height,
+                                         samples=spp, trace_depth=8)
+            rays_ = float(m.total_rays)  # waits for the device
+            torch.cuda.synchronize()
+            return rays_, time.perf_counter() - t0
+
+        forward()  # warm-up
+        reset_launches()
+        runs = [forward() for _ in range(5)]
+        counts = dict(batch=megatrace.LAUNCHES,
+                      bounce_sync=meshtrace.SYNC_LAUNCHES,
+                      pair_compact=meshtrace.COMPACT_LAUNCHES,
+                      restore=meshtrace.RESTORE_LAUNCHES,
+                      backward=megatrace_bwd.LAUNCHES)
+        sync_counts = [counts[k] for k in ("bounce_sync", "pair_compact",
+                                           "restore")]
+        took = (min(sync_counts) > 0 and counts["batch"] == 0
+                if name == "mesh_huge"
+                else counts["batch"] > 0 and max(sync_counts) == 0)
+        if not took or counts["backward"]:
+            raise RuntimeError(f"the forward {name} path took the wrong "
+                               f"kernels: {counts}")
+        launches[name] = counts
+        img = film.combine(acc, width, height).color
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.05:
+            raise RuntimeError(f"bad {name} image: mean {float(img.mean())}")
+        out[f"{name}_mrays"] = statistics.median(r / s / 1e6 for r, s in runs)
+        route = "sync sampler" if name == "mesh_huge" else "streamed arm"
+        print(f"forward {name} ({route}): {width}x{height} depth 8, {spp} "
+              f"spp/batch: median {out[f'{name}_mrays']:.3f} MRays/s over 5 "
+              f"batches ({runs[0][0]:.0f} rays/batch; launches {counts}); "
+              f"image mean {float(img.mean()):.4f} [{card}]")
+
+    # the other route on each scene, called directly
+    camera, tables = batch_inputs(large, large_cs, width, height, dev)
+    runs = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = run_sync(large, camera, width, height, spp, rng.PRNGKey(300 + i))
+        runs.append(float(d["rays"].sum()) / (time.perf_counter() - t0) / 1e6)
+    out["mesh_large_sync_mrays"] = statistics.median(runs)
+    camera, tables = batch_inputs(huge, huge_cs, width, height, dev)
+    huge_stream = megatrace.pack_tri_stream_tables(
+        huge, materials.pack_materials(huge))
+    lanes = torch.full((n,), spp, dtype=torch.int32, device=dev)
+    runs = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = megatrace.sample_batch(
+            lanes, torch.zeros(n, device=dev), *tables, 400 + i,
+            pixel_index=order, tri_stream_tables=huge_stream, samples=spp,
+            trace_depth=8, has_dielectrics=huge.flags.has_dielectrics)
+        runs.append(float(d["rays"].sum()) / (time.perf_counter() - t0) / 1e6)
+    out["mesh_huge_batch_mrays"] = statistics.median(runs)
+    print(f"other routes, {width}x{height} depth 8, {spp} spp, median of 3 "
+          f"batches: "
+          f"mesh_large through the sync sampler "
+          f"{out['mesh_large_sync_mrays']:.3f} MRays/s, mesh_huge through "
+          f"the batch kernel's streamed arm "
+          f"{out['mesh_huge_batch_mrays']:.3f} MRays/s [{card}]")
+
+    # sample_batch_sync with its kernels against it with the plain versions
+    w = h = small
+    camera, _ = batch_inputs(huge, huge_cs, w, h, dev)
+    got = run_sync(huge, camera, w, h, 8, rng.PRNGKey(9))
+    with plain_sync_kernels():
+        want = run_sync(huge, camera, w, h, 8, rng.PRNGKey(9))
+    share, err = lane_agreement(got, want)
+    print(f"sample_batch_sync kernels vs plain, mesh_huge {w}x{h} 8 spp "
+          f"depth 8: {share:.6f} of pixels identical (count, rays; floats "
+          f"within 1e-4), max abs err {err:.3g}")
+    if share < 0.99:
+        raise RuntimeError(f"sync sampler agreement {share} < 0.99")
+    out["sync_pixel_share"] = share
+    out["streamed_arm_share"] = min(arm_shares)
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+    def entry(name, source, replaces, launches_, err_, ms, plain_ms, bnd,
+              library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"raytracing_in_one_weekend_tpu_torch/csrc/{source}",
+                "replaces": f"raytracing_in_one_weekend_tpu/ops/{replaces}",
+                "launches": launches_, "max_abs_err": err_, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
+    sync_launches = launches["mesh_huge"]
+    kernels = [
+        entry("megatrace_batch_streamed_arm", "megatrace_batch.cu",
+              "pallas_megatrace.py:2457", launches["mesh_large"]["batch"],
+              arm_err, arm_ms, arm_plain_ms, arm_bound),
+        entry("meshtrace_sync", "meshtrace_sync.cu", "pallas_meshtrace.py:117",
+              sync_launches["bounce_sync"], sync_err, sync_ms,
+              sync_plain_ms, sync_bound),
+        entry("pair_compact", "meshtrace_permute.cu",
+              "pallas_meshtrace.py:174", sync_launches["pair_compact"], 0.0,
+              compact_ms, compact_plain_ms, perm_bound),
+        entry("restore", "meshtrace_permute.cu", "pallas_meshtrace.py:278",
+              sync_launches["restore"], 0.0, restore_ms, restore_plain_ms,
+              perm_bound, index_copy_ms),
+    ]
+    return {"kernels": kernels, "paths": out}
+
+
 def main() -> int:
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -1508,18 +1978,21 @@ def main() -> int:
     # one nvcc per source, all started together
     loaders = (megatrace.load_kernel, megatrace_bwd.load_kernel,
                sphere_select.load_kernel, megatrace.load_wave_kernel,
-               triangle_select.load_kernel)
+               triangle_select.load_kernel, meshtrace.load_sync_kernel,
+               meshtrace.load_permute_kernel)
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
         for build in [pool.submit(load) for load in loaders]:
             build.result()
     print(f"build: megatrace_batch.cu, megatrace_bwd.cu, sphere_select.cu, "
-          f"megatrace_wave.cu and triangle_select.cu in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"megatrace_wave.cu, triangle_select.cu, meshtrace_sync.cu and "
+          f"meshtrace_permute.cu in {time.perf_counter() - t0:.1f} s")
     for name, log in (("megatrace_batch", megatrace.BUILD_LOG),
                       ("megatrace_bwd", megatrace_bwd.BUILD_LOG),
                       ("sphere_select", sphere_select.BUILD_LOG),
                       ("megatrace_wave", megatrace.WAVE_BUILD_LOG),
-                      ("triangle_select", triangle_select.BUILD_LOG)):
+                      ("triangle_select", triangle_select.BUILD_LOG),
+                      ("meshtrace_sync", meshtrace.SYNC_BUILD_LOG),
+                      ("meshtrace_permute", meshtrace.PERMUTE_BUILD_LOG)):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -1652,6 +2125,7 @@ def main() -> int:
     bwd = differentiable_phases(dev, card, scene, cs, camera, target)
     wave = wavefront_phases(dev, card, scene, cs, camera, target)
     mesh = mesh_phases(dev, card)
+    streamed = streamed_phases(dev, card)
 
     kernels = [{
         "name": "megatrace_batch",
@@ -1678,7 +2152,7 @@ def main() -> int:
         "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"],
         "library_ms": None,
-    }] + wave["kernels"] + [mesh["kernel"]]
+    }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"]
     print(json.dumps({
         "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
@@ -1687,7 +2161,8 @@ def main() -> int:
         "replay_primal_share": bwd["replay_primal_share"],
         "peak_gb": bwd["peak_gb"], "trainer_losses": bwd["trainer_losses"],
         "albedo_fit_losses": bwd["albedo_fit_losses"],
-        "wavefront": wave["paths"], "mesh": mesh["paths"]}))
+        "wavefront": wave["paths"], "mesh": mesh["paths"],
+        "streamed": streamed["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

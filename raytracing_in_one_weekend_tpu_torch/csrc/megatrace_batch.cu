@@ -1,12 +1,12 @@
 // Fused sample-batch path tracer for Hopper (sm_90a): one whole
 // SampleBatchJob per launch, sphere scenes and mesh scenes of at most
-// TRI_MAX triangles, gradient or no sky.
+// TRI_STREAM_MAX triangles, gradient or no sky.
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
-// sphere arm and its triangle (VMEM) arm (white-noise hash PRNG, dense
-// sphere sweep, the Möller–Trumbore sweep over AABB-culled 192-row
-// triangle blocks, Standard Lambert/GGX-metal and dielectric scatter,
-// gradient sky, per-pixel fold).
+// sphere arm, its triangle (VMEM) arm and its streamed-triangle arm
+// (white-noise hash PRNG, dense sphere sweep, the Möller–Trumbore sweep
+// over AABB-culled 192-row triangle blocks, Standard Lambert/GGX-metal and
+// dielectric scatter, gradient sky, per-pixel fold).
 // Plain version: ops/megatrace.py::sample_batch_reference, which this
 // kernel matches bit for bit up to log/exp2 (see the precision contract
 // there): no --use_fast_math, -fmad=false, and the same explicit fmaf
@@ -44,6 +44,17 @@
 // hit in the block) and skips more.  The Möller–Trumbore sweep costs ~56
 // flops a triangle, three times a sphere's, so mesh scenes are ALU-bound
 // in the blocks a ray cannot skip.
+//
+// Streamed meshes (a third instantiation, kStream; TRI_MAX < T <=
+// TRI_STREAM_MAX): the JAX kernel keeps such tables in HBM and DMAs a
+// super-block of 16 blocks into VMEM when a tile may hit it.  On Hopper
+// nothing has to stream: 262,144 triangles are 46 MB of tables in device
+// memory, and mesh_huge's (~18 MB) fit the 50 MB L2.  The arm is the
+// triangle arm above with one more cull level, one slab test per 16
+// blocks before their own, made per lane like the block test, and no row
+// cap.  Lanes follow the caller's `pixel_index` (the renderer passes a
+// Morton order), so the lanes of a warp trace neighbouring pixels and
+// their culls agree; the hash PRNG stays keyed by the lane, as in JAX.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,10 +68,11 @@ using namespace rtiw;
 constexpr int kOutRows = 18;
 constexpr int kThreads = 128;
 
-template <bool kTris>
+template <bool kTris, bool kStream>
 __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
-    const float* __restrict__ consts, const float4* __restrict__ sph_g,
+    const float* __restrict__ pixel_index, const float* __restrict__ consts,
+    const float4* __restrict__ sph_g,
     const float* __restrict__ rec, TriScene tri, float* __restrict__ out,
     float* __restrict__ tape, int n, int s, int seed, int lane_base,
     int samples, int trace_depth, float t_min, int has_dielectrics,
@@ -83,7 +95,9 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
   // global lane id through float32, as the JAX kernel keys its PRNG
   const uint32_t lane = (uint32_t)(int)((float)i + (float)lane_base);
   const uint32_t lane_key = (uint32_t)seed + lane * 9781u;
-  const float pixel = (float)i;
+  // the pixel this lane renders: pixel_index (streamed build) or the lane
+  const float pixel =
+      (kStream && pixel_index != nullptr) ? pixel_index[i] : (float)i;
   const float py_row = floorf(pixel / width);
   const float px_row = pixel - py_row * width;
 
@@ -135,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
     }
 
     // ---- one bounce (megatrace_bounce.cuh) -------------------------------
-    const int winner = bounce<kTris>(
+    const int winner = bounce<kTris, kStream>(
         p, sph, s, rec, t_min, has_dielectrics != 0, sky_on != 0, cam + 24,
         lane_key + salt + kSaltBounce, depth, tri);
     if (tape != nullptr) tape[(size_t)it * n + i] = (float)winner;
@@ -184,13 +198,17 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
 // returns cudaGetLastError() right after the launch.  tri_rows == 0 takes
 // the sphere-only build; otherwise tri_geo holds (tri_rows, 12) floats,
 // tri_aabb (tri_blocks, 8) and tri_rec (tri_rows, 32), and a triangle's
-// tape code is tri_code_base + its row.
+// tape code is tri_code_base + its row.  tri_supers > 0 takes the
+// streamed build: tri_sup holds (tri_supers, 8) floats, tri_blocks is
+// 16 * tri_supers, and pixel_index (n floats, or null for lane i ->
+// pixel i) names each lane's pixel.
 extern "C" int rtiw_megatrace_batch(
-    const float* lane_count, const float* count_in, const float* consts,
-    const float* sph, const float* rec, const float* tri_geo,
-    const float* tri_aabb, const float* tri_rec, float* out, float* tape,
-    int n, int s, int tri_rows, int tri_blocks, int tri_code_base, int seed,
-    int lane_base, int samples, int trace_depth, float t_min,
+    const float* lane_count, const float* count_in, const float* pixel_index,
+    const float* consts, const float* sph, const float* rec,
+    const float* tri_geo, const float* tri_aabb, const float* tri_sup,
+    const float* tri_rec, float* out, float* tape, int n, int s,
+    int tri_rows, int tri_blocks, int tri_supers, int tri_code_base,
+    int seed, int lane_base, int samples, int trace_depth, float t_min,
     int has_dielectrics, int sky_on, int jitter, void* stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
@@ -198,16 +216,20 @@ extern "C" int rtiw_megatrace_batch(
     TriScene tri;
     tri.geo = reinterpret_cast<const float4*>(tri_geo);
     tri.aabb = reinterpret_cast<const float4*>(tri_aabb);
+    tri.sup = reinterpret_cast<const float4*>(tri_sup);
     tri.rec = tri_rec;
     tri.rows = tri_rows;
     tri.blocks = tri_blocks;
+    tri.supers = tri_supers;
     tri.code_base = tri_code_base;
-    auto kernel = tri_rows > 0 ? megatrace_batch_kernel<true>
-                               : megatrace_batch_kernel<false>;
+    auto kernel = tri_supers > 0 ? megatrace_batch_kernel<true, true>
+                  : tri_rows > 0 ? megatrace_batch_kernel<true, false>
+                                 : megatrace_batch_kernel<false, false>;
     kernel<<<blocks, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
-        lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
-        rec, tri, out, tape, n, s, seed, lane_base, samples, trace_depth,
-        t_min, has_dielectrics, sky_on, jitter);
+        lane_count, count_in, pixel_index, consts,
+        reinterpret_cast<const float4*>(sph), rec, tri, out, tape, n, s,
+        seed, lane_base, samples, trace_depth, t_min, has_dielectrics,
+        sky_on, jitter);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,7 @@ parameter tensors (sphere centers and radii, texture colors, material
 IOR, ...) into a scene template with `dataclasses.replace`, so that
 autograd differentiates the render with respect to exactly the chosen
 parameters.  Setters for kinds the renderer cannot draw yet (rects, boxes,
-triangles, image atlases, cubemaps, motion) are plain setters too; the
+image atlases, cubemaps, motion) are plain setters too; the
 renderer's `check_scope` refuses such scenes.
 """
 

@@ -8,8 +8,9 @@ generators and the same float order as the JAX package, so the triangle
 soups are equal bit for bit.  `load_obj` is the JAX package's pure-Python
 reader (its oracle); the native C++ loader is ROADMAP queue 1, step 14.
 
-`mesh_large` and `mesh_huge` build, but hold more than TRI_MAX triangles:
-the renderer refuses them (streamed meshes, ROADMAP queue 1, step 10).
+`mesh_large` and `mesh_huge` hold more than TRI_MAX triangles: the
+renderer takes the streamed tables for them (the batch kernel's streamed
+arm, and above meshtrace.SYNC_TRI_MIN the bounce-synchronous sampler).
 """
 
 from __future__ import annotations

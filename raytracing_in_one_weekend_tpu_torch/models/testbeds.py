@@ -1,6 +1,7 @@
 """Feature-matrix testbed scenes (counterpart of the JAX package's
 models/testbeds.py), holding the entries the port renders: the raw
-triangle test and the mesh showcase.  The other testbeds follow with
+triangle test and the mesh scenes (the showcase, and `mesh_large` and
+`mesh_huge` beyond TRI_MAX triangles).  The other testbeds follow with
 their ROADMAP steps.
 
 Reference: the legacy scene assets (Assets/Scenes/Legacy/*.asset); each
@@ -37,9 +38,9 @@ def triangle_test() -> tuple[Scene, CameraSettings]:
     return b.build(), cam
 
 
-# mesh_large and mesh_huge (models/meshes.py) exceed TRI_MAX: they join
-# with the streamed meshes (ROADMAP queue 1, step 10)
 SCENES = {
     "mesh_showcase": meshes.mesh_showcase,
+    "mesh_large": meshes.mesh_large,
+    "mesh_huge": meshes.mesh_huge,
     "triangle": triangle_test,
 }

@@ -1,24 +1,28 @@
 """Fused sample-batch path tracer: the CUDA kernel and its plain version.
 
-Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm
-and the triangle (VMEM) arm of its `_batch_kernel` (gradient or no sky,
-white noise), the forward path of the book cover and of mesh scenes of
-at most TRI_MAX triangles.  One call runs a whole SampleBatchJob
-(reference: SampleBatchJob.cs:59-164, 166-401) and returns per-lane
-accumulation deltas: thin-lens camera rays, persistent-lane path
-regeneration over `samples * trace_depth` iterations, the dense sphere
-sweep, the Möller–Trumbore sweep over TRI_BLOCK-row triangle blocks
-(each skipped by a lane whose ray misses the block's AABB),
-Lambert / GGX-metal / dielectric scatter, the gradient sky, and the
-per-pixel fold, AOVs, noise weight and ray count.
+Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm,
+the triangle (VMEM) arm and the streamed-triangle arm of its
+`_batch_kernel` (gradient or no sky, white noise), the forward path of the
+book cover and of mesh scenes of at most TRI_STREAM_MAX triangles.  One
+call runs a whole SampleBatchJob (reference: SampleBatchJob.cs:59-164,
+166-401) and returns per-lane accumulation deltas: thin-lens camera rays,
+persistent-lane path regeneration over `samples * trace_depth`
+iterations, the dense sphere sweep, the Möller–Trumbore sweep over
+TRI_BLOCK-row triangle blocks (each skipped by a lane whose ray misses the
+block's AABB; a streamed mesh adds a level above, one AABB per TRI_SUP
+blocks), Lambert / GGX-metal / dielectric scatter, the gradient sky, and
+the per-pixel fold, AOVs, noise weight and ray count.  With `pixel_index`
+lane i renders that pixel (the renderer passes `morton_order` for
+streamed meshes) and the deltas stay in lane order.
 
 * `sample_batch_reference` is the plain PyTorch version: vectorised over
   lanes, a Python loop over iterations, lanes processed in chunks so the
   (spheres or triangles, lanes) sweep temporaries stay bounded.
 * `csrc/megatrace_batch.cu` is the hand-written CUDA kernel for Hopper:
   one thread per lane, path state in registers, sphere geometry staged in
-  shared memory, triangles read through the read-only cache (a
-  compile-time arm: the sphere-only build is unchanged).
+  shared memory, triangles read through the read-only cache (compile-time
+  arms: the sphere-only build is unchanged, the VMEM-triangle and the
+  streamed-triangle builds are instantiations of their own).
 * `sample_batch` is the wrapper: CPU tensors take the plain version; CUDA
   tensors launch the kernel or raise.  It counts launches in `LAUNCHES`.
 
@@ -39,6 +43,8 @@ with like.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -65,17 +71,22 @@ LAUNCHES = 0  # CUDA kernel launches made by sample_batch
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
 TRI_PAIRS = 0  # (lane, triangle) pairs the plain version's sweep tested:
 #   the kernel tests the same ones (the operation count of its bound)
+SLAB_TESTS = 0  # (lane, AABB) slab tests of the plain version's culls
 SALT_DEPTH = 26699  # per-bounce salt of the per-ray megatrace's draws
 WAVE_ROWS = 12  # radiance 0-2 | valid 3 | normal 4-6 | albedo 7-9 |
 #   events 10 | rays 11
 
 TRI_PAD = 128
 TRI_BLOCK = 192  # triangle rows per culled block (the JAX kernel's chunk)
-TRI_MAX = 4096  # triangles the batch kernel takes (the JAX kernel's VMEM
-# residence); beyond it the JAX package streams them (ROADMAP step 10)
+TRI_MAX = 4096  # triangles of pack_tri_tables (the JAX kernel's VMEM
+# residence); beyond it pack_tri_stream_tables' streamed arm takes them
+TRI_STREAM_MAX = 262144  # triangles the streamed arm takes (JAX's cap)
+TRI_SUP = 16  # blocks under one super-block AABB (the second cull level)
 TRI_REC_ROWS = 32  # 0-10 material | 11 id | 12-20 vertex normals |
 #   21-23 vertex u | 24-26 vertex v
-STREAMED_MESHES = "streamed meshes (ROADMAP queue 1, step 10)"
+TOO_MANY_TRIANGLES = (f"meshes of more than {TRI_STREAM_MAX} triangles "
+                      "(the JAX package's cap; the BVH, ROADMAP queue 1, "
+                      "step 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -109,15 +120,16 @@ def unsupported_feature(scene, allow_triangles: bool = False) -> str | None:
     with its ROADMAP item, or None when the scene is in scope: the ported
     features, at most SPH_CULL_MIN spheres, and triangles only with
     `allow_triangles` (the batch kernel; the per-ray megatrace is
-    sphere-only, as the JAX package's), at most TRI_MAX of them."""
+    sphere-only, as the JAX package's), at most TRI_STREAM_MAX of them
+    (the JAX package's `scene_eligible`)."""
     if scene.spheres.center.shape[0] > SPH_CULL_MIN:
         return (f"more than {SPH_CULL_MIN} spheres: the blocked sweep "
                 "(ROADMAP queue 1, step 7)")
     tri_count = scene.triangles.vert0.shape[0]
     if tri_count > 0 and not allow_triangles:
         return "triangles (the per-ray megatrace is sphere-only)"
-    if tri_count > TRI_MAX:
-        return f"more than {TRI_MAX} triangles: {STREAMED_MESHES}"
+    if tri_count > TRI_STREAM_MAX:
+        return TOO_MANY_TRIANGLES
     return unported_feature(scene)
 
 
@@ -246,6 +258,125 @@ def pack_tri_tables(scene, packed_materials):
     rec[21:24, :t] = tri.uvs[:, 0, :].T
     rec[24:27, :t] = tri.uvs[:, 1, :].T
     return geo, rec
+
+
+class TriStream(NamedTuple):
+    """pack_tri_stream_tables' tables, in the kernel's per-triangle layout:
+    geo (T_pad, 12) = edge_a | edge_b | vert0 | 0 (three float4 a row),
+    rec (T_pad, 32) the records (pack_tri_tables' rows, transposed), aabb
+    (n_blk, 8) = lo | 0 | hi | 0 per TRI_BLOCK rows and sup (n_sup, 8) the
+    same per TRI_SUP blocks.  Pad-only blocks and supers hold the
+    degenerate far point 1e30, which no slab test passes."""
+
+    geo: torch.Tensor
+    rec: torch.Tensor
+    aabb: torch.Tensor
+    sup: torch.Tensor
+
+
+def _spread3(x: torch.Tensor) -> torch.Tensor:
+    """10-bit integers spread to every third bit (JAX's _spread)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def pack_tri_stream_tables(scene, packed_materials) -> TriStream | None:
+    """The streamed-triangle arm's tables for TRI_MAX < T <= TRI_STREAM_MAX
+    (JAX pack_tri_stream_tables), or None when the scene has none.
+
+    The triangles are sorted a second time, by the Morton code of their
+    centroid (vert0 + (edge_a + edge_b) / 3, 10 bits an axis over the
+    centroid bounds, stable), so that each TRI_BLOCK is a spatial cluster
+    with a tight AABB (padded by 1e-4).  n_blk is padded to a multiple of
+    TRI_SUP.  The JAX package packs three triangles into each 128-column
+    row for the TPU's DMA alignment; this layout holds the same triangles
+    in the same order, one a row.  No gradients: streamed meshes take the
+    wavefront when something requires grad."""
+    tri = scene.triangles
+    t = tri.vert0.shape[0]
+    if t == 0:
+        return None
+    f32 = dict(dtype=torch.float32, device=tri.vert0.device)
+    with torch.no_grad():
+        edge_a, edge_b, vert0 = (x.detach().to(torch.float32) for x in (
+            tri.edge_a, tri.edge_b, tri.vert0))
+        cen = vert0 + (edge_a + edge_b) * (1.0 / 3.0)
+        lo = cen.min(dim=0).values
+        span = torch.clamp(cen.max(dim=0).values - lo, min=1e-30)
+        q = torch.clamp((cen - lo) / span * 1023.0, 0.0, 1023.0).to(
+            torch.int64)
+        key = ((_spread3(q[:, 0]) << 2) | (_spread3(q[:, 1]) << 1)
+               | _spread3(q[:, 2]))
+        order = torch.argsort(key, stable=True)
+        edge_a, edge_b, vert0 = edge_a[order], edge_b[order], vert0[order]
+
+        n_blk = -(-t // TRI_BLOCK)
+        n_blk = -(-n_blk // TRI_SUP) * TRI_SUP
+        t_pad = n_blk * TRI_BLOCK
+        geo = torch.zeros((t_pad, 12), **f32)
+        geo[:t, 0:3] = edge_a
+        geo[:t, 3:6] = edge_b
+        geo[:t, 6:9] = vert0
+        v1, v2 = vert0 + edge_b, vert0 + edge_a
+        pad_lo = torch.full((t_pad, 3), float("inf"), **f32)
+        pad_hi = torch.full((t_pad, 3), float("-inf"), **f32)
+        pad_lo[:t] = torch.minimum(torch.minimum(vert0, v1), v2)
+        pad_hi[:t] = torch.maximum(torch.maximum(vert0, v1), v2)
+        blk_lo = pad_lo.reshape(n_blk, TRI_BLOCK, 3).min(dim=1).values - 1e-4
+        blk_hi = pad_hi.reshape(n_blk, TRI_BLOCK, 3).max(dim=1).values + 1e-4
+        blk_real = (torch.arange(n_blk, device=geo.device) * TRI_BLOCK
+                    < t)[:, None]
+        far = torch.full((3,), 1e30, **f32)
+        n_sup = n_blk // TRI_SUP
+        sup_lo = torch.where(blk_real, blk_lo, float("inf")).reshape(
+            n_sup, TRI_SUP, 3).min(dim=1).values
+        sup_hi = torch.where(blk_real, blk_hi, float("-inf")).reshape(
+            n_sup, TRI_SUP, 3).max(dim=1).values
+        sup_real = blk_real.reshape(n_sup, TRI_SUP).any(dim=1)[:, None]
+
+        def boxes(lo_, hi_, real):
+            out = torch.zeros((lo_.shape[0], 8), **f32)
+            out[:, 0:3] = torch.where(real, lo_, far)
+            out[:, 4:7] = torch.where(real, hi_, far)
+            return out
+
+        rec = torch.zeros((t_pad, TRI_REC_ROWS), **f32)
+        mat = tri.material[order]
+        rec[:t, :11] = packed_materials.detach()[mat.long()][:, :11]
+        rec[:t, 11] = mat.to(torch.float32)
+        normals, uvs = tri.normals.detach()[order], tri.uvs.detach()[order]
+        rec[:t, 12:21] = normals.transpose(1, 2).reshape(t, 9)
+        rec[:t, 21:24] = uvs[:, 0, :]
+        rec[:t, 24:27] = uvs[:, 1, :]
+        return TriStream(geo, rec, boxes(blk_lo, blk_hi, blk_real),
+                         boxes(sup_lo, sup_hi, sup_real))
+
+
+@functools.lru_cache(maxsize=8)
+def morton_order(width: int, height: int):
+    """(order, rank): the lane -> pixel Z-order permutation and its inverse
+    (JAX morton_order), int64 CPU tensors cached per resolution and
+    shared by every caller (read them only).  With
+    lanes in this order a run of lanes is a compact block of pixels, so
+    its rays stay near each other and so do their AABB culls."""
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.int64),
+                            torch.arange(width, dtype=torch.int64),
+                            indexing="ij")
+
+    def spread(v):
+        v = (v | (v << 16)) & 0x0000FFFF0000FFFF
+        v = (v | (v << 8)) & 0x00FF00FF00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0F
+        v = (v | (v << 2)) & 0x3333333333333333
+        return (v | (v << 1)) & 0x5555555555555555
+
+    code = (spread(xs) | (spread(ys) << 1)).reshape(-1)
+    order = torch.argsort(code, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel())
+    return order, rank
 
 
 def pack_camera_row(camera, width: int, height: int) -> torch.Tensor:
@@ -503,51 +634,94 @@ def _inv_d(c):
                              torch.where(c >= 0.0, 1e-12, -1e-12), c)
 
 
-def _tri_sweep(o, d, best_t, geo, t_min):
-    """Nearest triangle per lane, TRI_BLOCK rows at a time: a lane sweeps
-    a block only when its ray meets the block's AABB before its best hit
-    so far (spheres' `best_t`, then earlier blocks), the per-lane form of
-    the JAX kernel's per-tile skip.  Returns (t, row, u, v); BIG, 0, 0, 0
-    where no triangle is hit.  First row wins a tie.  Adds the (lane,
+def _slab_may(lo, hi, o, inv, t_min, bound):
+    """Lanes whose ray (o, 1/d = inv) meets the AABB lo..hi at or after
+    t_min and before `bound`: the slab test of the JAX kernel's culls.
+    Adds the lanes it tests to SLAB_TESTS."""
+    global SLAB_TESTS
+    SLAB_TESTS += o[0].numel()
+    slab = [((lo[k] - o[k]) * inv[k], (hi[k] - o[k]) * inv[k])
+            for k in range(3)]
+    b_near = torch.maximum(
+        torch.minimum(*slab[0]),
+        torch.maximum(torch.minimum(*slab[1]), torch.minimum(*slab[2])))
+    b_far = torch.minimum(
+        torch.maximum(*slab[0]),
+        torch.minimum(torch.maximum(*slab[1]), torch.maximum(*slab[2])))
+    return (b_far >= torch.clamp(b_near, min=t_min)) & (b_near < bound)
+
+
+def _tri_block(o, d, inv, lanes, best_t, lo, hi, rows, st, hit, t_min):
+    """Sweep triangle rows st.. (geometry `rows`, edge_a | edge_b | vert0
+    in columns 0-8) for those of `lanes` whose ray meets the block's AABB
+    before their best hit so far (spheres' `best_t`, then earlier blocks),
+    updating hit = [t, row, u, v] in place.  A row wins only with a
+    strictly smaller t, so the first row wins a tie.  Adds the (lane,
     triangle) pairs it tests to TRI_PAIRS."""
     global TRI_PAIRS
-    ox, oy, oz = o
-    n = ox.shape[0]
+    tri_t, tri_idx, tri_u, tri_v = hit
+    ol, il = [c[lanes] for c in o], [c[lanes] for c in inv]
+    may = _slab_may(lo, hi, ol, il, t_min,
+                    torch.minimum(tri_t[lanes], best_t[lanes]))
+    lanes = lanes[may]
+    if lanes.numel() == 0:
+        return
+    TRI_PAIRS += lanes.numel() * rows.shape[0]
+    t, u, v = moller_trumbore(
+        tuple(c[lanes] for c in o), tuple(c[lanes] for c in d),
+        tuple(rows[:, k:k + 1] for k in range(0, 3)),
+        tuple(rows[:, k:k + 1] for k in range(3, 6)),
+        tuple(rows[:, k:k + 1] for k in range(6, 9)), t_min)
+    blk_t, blk_i = torch.min(t, dim=0)
+    pos = torch.nonzero(blk_t < tri_t[lanes], as_tuple=True)[0]
+    lw, bi = lanes[pos], blk_i[pos]
+    tri_t[lw] = blk_t[pos]
+    tri_idx[lw] = st + bi
+    tri_u[lw] = u[bi, pos]
+    tri_v[lw] = v[bi, pos]
+
+
+def _no_tri_hit(ox):
+    """[t, row, u, v] of lanes that hit no triangle: BIG, 0, 0, 0."""
+    return [torch.full_like(ox, BIG),
+            torch.zeros(ox.shape[0], dtype=torch.int64, device=ox.device),
+            torch.zeros_like(ox), torch.zeros_like(ox)]
+
+
+def _tri_sweep(o, d, best_t, geo, t_min):
+    """Nearest triangle per lane, TRI_BLOCK rows of pack_tri_tables' geo
+    at a time (each block's AABB in columns 9-15 of its first row), the
+    per-lane form of the JAX kernel's per-tile skip.  Returns (t, row, u,
+    v); BIG, 0, 0, 0 where no triangle is hit."""
     inv = [_inv_d(c) for c in d]
-    tri_t = torch.full_like(ox, BIG)
-    tri_idx = torch.zeros(n, dtype=torch.int64, device=ox.device)
-    tri_u = torch.zeros_like(ox)
-    tri_v = torch.zeros_like(ox)
+    hit = _no_tri_hit(o[0])
+    lanes = torch.arange(o[0].shape[0], device=o[0].device)
     for st in range(0, geo.shape[0], TRI_BLOCK):
-        en = min(st + TRI_BLOCK, geo.shape[0])
-        slab = [((geo[st, 9 + k] - o[k]) * inv[k],
-                 (geo[st, 12 + k] - o[k]) * inv[k]) for k in range(3)]
-        b_near = torch.maximum(
-            torch.minimum(*slab[0]),
-            torch.maximum(torch.minimum(*slab[1]), torch.minimum(*slab[2])))
-        b_far = torch.minimum(
-            torch.maximum(*slab[0]),
-            torch.minimum(torch.maximum(*slab[1]), torch.maximum(*slab[2])))
-        may = ((b_far >= torch.clamp(b_near, min=t_min))
-               & (b_near < torch.minimum(tri_t, best_t)))
-        lanes = torch.nonzero(may, as_tuple=True)[0]
+        _tri_block(o, d, inv, lanes, best_t, geo[st, 9:12], geo[st, 12:15],
+                   geo[st:st + TRI_BLOCK], st, hit, t_min)
+    return tuple(hit)
+
+
+def _tri_stream_sweep(o, d, best_t, stream: TriStream, t_min):
+    """Nearest triangle per lane over pack_tri_stream_tables' tables: a
+    lane tests a super-block's AABB before its TRI_SUP blocks, each block
+    as `_tri_sweep` does (the per-lane form of the JAX kernel's two-level
+    per-tile cull; JAX and the kernel take the same nearest hit, the
+    earlier row on a tie)."""
+    inv = [_inv_d(c) for c in d]
+    hit = _no_tri_hit(o[0])
+    every = torch.arange(o[0].shape[0], device=o[0].device)
+    for s in range(stream.sup.shape[0]):
+        box = stream.sup[s]
+        lanes = every[_slab_may(box[0:3], box[4:7], o, inv, t_min,
+                                torch.minimum(hit[0], best_t))]
         if lanes.numel() == 0:
             continue
-        TRI_PAIRS += lanes.numel() * (en - st)
-        rows = geo[st:en]
-        t, u, v = moller_trumbore(
-            tuple(c[lanes] for c in o), tuple(c[lanes] for c in d),
-            tuple(rows[:, k:k + 1] for k in range(0, 3)),
-            tuple(rows[:, k:k + 1] for k in range(3, 6)),
-            tuple(rows[:, k:k + 1] for k in range(6, 9)), t_min)
-        blk_t, blk_i = torch.min(t, dim=0)
-        pos = torch.nonzero(blk_t < tri_t[lanes], as_tuple=True)[0]
-        lw, bi = lanes[pos], blk_i[pos]
-        tri_t[lw] = blk_t[pos]
-        tri_idx[lw] = st + bi
-        tri_u[lw] = u[bi, pos]
-        tri_v[lw] = v[bi, pos]
-    return tri_t, tri_idx, tri_u, tri_v
+        for blk in range(s * TRI_SUP, (s + 1) * TRI_SUP):
+            box, st = stream.aabb[blk], blk * TRI_BLOCK
+            _tri_block(o, d, inv, lanes, best_t, box[0:3], box[4:7],
+                       stream.geo[st:st + TRI_BLOCK], st, hit, t_min)
+    return tuple(hit)
 
 
 def tri_normal(n0, n1, n2, u, v):
@@ -569,8 +743,8 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
             sky, tri=None):
     """One bounce of every active path in `p` (a dict of (C,) rows keyed
     by STATE_KEYS, updated in place): the dense sphere sweep, then with
-    `tri` = (geo (T_pad, 16), records (T_pad, 32), code base) the
-    triangle sweep (a triangle wins only with a strictly smaller t),
+    `tri` = (sweep, records (T_pad, 32), code base) the triangle sweep
+    (`_tri_arg`: a triangle wins only with a strictly smaller t),
     Lambert / GGX-metal / dielectric scatter, the gradient sky, the fold,
     AOV capture, events and the advance.  `u` holds the bounce's six
     uniform rows, `depth` the path's bounce count ((C,) float or a
@@ -591,13 +765,10 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     d_live = (dx[live], dy[live], dz[live])
     best_t[live], best_idx[live] = _sweep(o_live, d_live, sph, t_min)
     if tri is not None:
-        geo, trec, code_base = tri
-        tri_t = torch.full_like(ox, BIG)
-        tri_idx = torch.zeros_like(best_idx)
-        tri_u = torch.zeros_like(ox)
-        tri_v = torch.zeros_like(ox)
-        tri_t[live], tri_idx[live], tri_u[live], tri_v[live] = _tri_sweep(
-            o_live, d_live, best_t[live], geo, t_min)
+        sweep, trec, code_base = tri
+        tri_t, tri_idx, tri_u, tri_v = _no_tri_hit(ox)
+        tri_t[live], tri_idx[live], tri_u[live], tri_v[live] = sweep(
+            o_live, d_live, best_t[live], t_min=t_min)
         tri_wins = tri_t < best_t
         best_t = torch.where(tri_wins, tri_t, best_t)
     hit = best_t < BIG
@@ -859,14 +1030,19 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
     return acc
 
 
-def _tri_arg(tri_tables, s: int):
-    """_bounce's `tri` argument from pack_tri_tables' pair: the geometry,
-    the records as rows, and the tape code of triangle row 0 (after the
-    padded sphere rows, the JAX kernel's combined row space)."""
+def _tri_arg(tri_tables, tri_stream_tables, s: int):
+    """_bounce's `tri` argument from pack_tri_tables' pair or
+    pack_tri_stream_tables' tables: the sweep, the records as rows, and
+    the tape code of triangle row 0 (after the padded sphere rows, the JAX
+    kernel's combined row space)."""
+    if tri_stream_tables is not None:
+        stream = TriStream(*(t.to(torch.float32) for t in tri_stream_tables))
+        return (functools.partial(_tri_stream_sweep, stream=stream),
+                stream.rec, sphere_pad_count(s))
     if tri_tables is None:
         return None
-    geo, rec = tri_tables
-    return (geo.to(torch.float32), rec.to(torch.float32).T.contiguous(),
+    geo, rec = (t.to(torch.float32) for t in tri_tables)
+    return (functools.partial(_tri_sweep, geo=geo), rec.T.contiguous(),
             sphere_pad_count(s))
 
 
@@ -910,12 +1086,16 @@ def sample_batch_reference(
     jitter: bool = True,
     want_tape: bool = False,
     tri_tables: tuple | None = None,
+    pixel_index: torch.Tensor | None = None,
+    tri_stream_tables: TriStream | None = None,
     chunk_lanes: int | None = None,
 ) -> dict:
     """Plain PyTorch version of the batch kernel (any device).
 
-    `tri_tables` is pack_tri_tables' (geo, rec) pair, or None.  Returns
-    per-lane deltas: color (N, 3), count (N,), normal (N, 3), albedo
+    `tri_tables` is pack_tri_tables' (geo, rec) pair, `tri_stream_tables`
+    pack_tri_stream_tables' tables, or neither.  `pixel_index` (N,) is the
+    pixel each lane renders (default: lane i renders pixel i); the hash
+    PRNG stays keyed by the lane.  Returns per-lane deltas, in lane order: color (N, 3), count (N,), normal (N, 3), albedo
     (N, 3), weight (N,), rays (N,) int32, fallback_normal (N, 3),
     fallback_albedo (N, 3), and with `want_tape` the (samples *
     trace_depth, N) winner tape: -2 idle, -1 sky, else the sphere row, or
@@ -925,14 +1105,15 @@ def sample_batch_reference(
     n = lane_count.shape[0]
     s = centers.shape[0]
     sph, rec = sweep_tables(centers, radii, records)
-    tri = _tri_arg(tri_tables, s)
+    tri = _tri_arg(tri_tables, tri_stream_tables, s)
     cam = camera_row.to(torch.float32)
     sky = _pack_sky_row(sky_bottom, sky_top)[0]
     lanes_all = (
         torch.arange(n, dtype=torch.float32, device=dev)
         + torch.tensor(float(lane_base), dtype=torch.float32)
     ).to(torch.int64)
-    pixel_all = torch.arange(n, dtype=torch.float32, device=dev)
+    pixel_all = (torch.arange(n, dtype=torch.float32, device=dev)
+                 if pixel_index is None else pixel_index.to(torch.float32))
     per_pixel_all = lane_count.to(torch.float32)
     count_in_all = count_in.to(torch.float32)
     iters = samples * trace_depth
@@ -972,9 +1153,9 @@ def load_kernel() -> ctypes.CDLL:
         lib, BUILD_LOG = cuda_build.build_library("megatrace_batch.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rtiw_megatrace_batch.argtypes = [
-            p, p, p, p, p,  # lane_count count_in consts sph rec
-            p, p, p, p, p,  # tri_geo tri_aabb tri_rec out tape
-            i, i, i, i, i,  # n s tri_rows tri_blocks tri_code_base
+            p, p, p, p, p, p,  # lane_count count_in pixel consts sph rec
+            p, p, p, p, p, p,  # tri_geo tri_aabb tri_sup tri_rec out tape
+            i, i, i, i, i, i,  # n s tri_rows tri_blocks tri_supers code_base
             i, i, i, i,  # seed lane_base samples trace_depth
             ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
             p,  # stream
@@ -1000,10 +1181,33 @@ def kernel_tri_tables(tri_tables):
     return tri_geo, aabb, rec.T.contiguous()
 
 
+def _kernel_stream_args(stream_tables, dev, s):
+    """The streamed build's table pointers and dimensions, after checking
+    pack_tri_stream_tables' shapes."""
+    geo, rec, aabb, sup = stream_tables
+    rows, n_sup = geo.shape[0], sup.shape[0]
+    n_blk = n_sup * TRI_SUP
+    want = dict(geo=(rows, 12), rec=(rows, TRI_REC_ROWS), aabb=(n_blk, 8),
+                sup=(n_sup, 8))
+    for name, t in zip(TriStream._fields, stream_tables):
+        if (tuple(t.shape) != want[name] or t.device != dev
+                or t.dtype != torch.float32 or not t.is_contiguous()):
+            raise ValueError(
+                f"sample_batch: tri_stream_tables.{name} has shape "
+                f"{tuple(t.shape)} ({t.dtype}, {t.device}); want "
+                f"pack_tri_stream_tables' {want[name]} float32 on {dev}")
+    if rows != n_blk * TRI_BLOCK:
+        raise ValueError(f"sample_batch: tri_stream_tables hold {rows} rows "
+                         f"for {n_sup} supers")
+    return ((geo.data_ptr(), aabb.data_ptr(), sup.data_ptr(),
+             rec.data_ptr()), (rows, n_blk, n_sup, sphere_pad_count(s)))
+
+
 def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        records, sky_bottom, sky_top, seed, lane_base, *,
                        samples, trace_depth, t_min, has_dielectrics, sky_on,
-                       jitter, want_tape, tri_tables):
+                       jitter, want_tape, tri_tables, pixel_index=None,
+                       tri_stream_tables=None):
     global LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
@@ -1044,11 +1248,23 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                 f"(T_pad, 16), ({TRI_REC_ROWS}, T_pad), T_pad <= {TRI_MAX}, "
                 f"on {dev}")
         tri_geo, tri_aabb, tri_rec = kernel_tri_tables(tri_tables)
-        tri_args = (tri_geo.data_ptr(), tri_aabb.data_ptr(),
+        tri_args = (tri_geo.data_ptr(), tri_aabb.data_ptr(), 0,
                     tri_rec.data_ptr())
-        tri_dims = (rows, tri_aabb.shape[0], sphere_pad_count(s))
+        tri_dims = (rows, tri_aabb.shape[0], 0, sphere_pad_count(s))
+    elif tri_stream_tables is not None:
+        tri_args, tri_dims = _kernel_stream_args(tri_stream_tables, dev, s)
     else:
-        tri_args, tri_dims = (0, 0, 0), (0, 0, 0)
+        tri_args, tri_dims = (0, 0, 0, 0), (0, 0, 0, 0)
+    pixel = None
+    if pixel_index is not None:
+        if tri_stream_tables is None:
+            raise ValueError("sample_batch: the kernel takes pixel_index "
+                             "with tri_stream_tables only")
+        if tuple(pixel_index.shape) != (n,) or pixel_index.device != dev:
+            raise ValueError(f"sample_batch: pixel_index has shape "
+                             f"{tuple(pixel_index.shape)} on "
+                             f"{pixel_index.device}; want ({n},) on {dev}")
+        pixel = pixel_index.to(torch.float32).contiguous()
 
     lib = load_kernel()
     sph, rec = sweep_tables(centers, radii, records)
@@ -1063,7 +1279,8 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                         device=dev) if want_tape else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rtiw_megatrace_batch(
-        per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+        per_pixel.data_ptr(), cin.data_ptr(),
+        0 if pixel is None else pixel.data_ptr(), consts.data_ptr(),
         sph.data_ptr(), rec.data_ptr(), *tri_args, out.data_ptr(),
         0 if tape is None else tape.data_ptr(),
         n, s, *tri_dims, int(seed), int(lane_base), samples, trace_depth,
@@ -1096,17 +1313,30 @@ def sample_batch(
     jitter: bool = True,
     want_tape: bool = False,
     tri_tables: tuple | None = None,
+    pixel_index: torch.Tensor | None = None,
+    tri_stream_tables: TriStream | None = None,
 ) -> dict:
     """Fused SampleBatchJob: per-lane accumulation deltas for one batch
     (see `sample_batch_reference` for the outputs; `tri_tables` is
-    pack_tri_tables' pair for a mesh scene, else None).
+    pack_tri_tables' pair for a mesh scene of at most TRI_MAX triangles,
+    `tri_stream_tables` pack_tri_stream_tables' tables for a bigger one,
+    `pixel_index` the pixel of each lane).
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
-    version."""
+    version.  No tape with streamed tables (JAX asserts so too): the tape
+    replay covers meshes of at most TRI_MAX triangles."""
+    if want_tape and tri_stream_tables is not None:
+        raise ValueError("sample_batch: no winner tape with streamed "
+                         "triangle tables (not replay-eligible)")
+    if tri_tables is not None and tri_stream_tables is not None:
+        raise ValueError("sample_batch: tri_tables and tri_stream_tables "
+                         "clash")
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
-                  jitter=jitter, want_tape=want_tape, tri_tables=tri_tables)
+                  jitter=jitter, want_tape=want_tape, tri_tables=tri_tables,
+                  pixel_index=pixel_index,
+                  tri_stream_tables=tri_stream_tables)
     args = (lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cuda":

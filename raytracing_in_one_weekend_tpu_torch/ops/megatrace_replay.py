@@ -78,8 +78,9 @@ AOV_OUTPUTS = ("normal", "albedo", "weight", "fallback_normal",
 def replay_eligible(scene) -> bool:
     """Can this scene take the differentiable fused path?  The forward
     batch kernel's scope, meshes of at most TRI_MAX triangles included
-    (JAX replay_eligible)."""
-    return mk.scene_eligible(scene, allow_triangles=True)
+    (JAX replay_eligible: the tape has no streamed-triangle arm)."""
+    return (mk.scene_eligible(scene, allow_triangles=True)
+            and scene.triangles.vert0.shape[0] <= mk.TRI_MAX)
 
 
 def build_entity_rows(centers, radii, records, tri_tables=None):

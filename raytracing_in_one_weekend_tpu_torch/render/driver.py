@@ -8,8 +8,9 @@ feeding the previous batch's noise-weight extrema to the adaptive sampler.
 
 Ported: reset, step, run, completion, MRays/s, combined (no denoise),
 images and save, and autofocus (the given distance or a nearest-hit
-raycast).  Checkpoints, diagnostics, denoisers and the BVH wait for ROADMAP
-queue 1, steps 13-14.
+raycast), on every scene `renderer.check_scope` takes (meshes up to
+TRI_STREAM_MAX triangles).  Checkpoints, diagnostics, denoisers and the
+BVH wait for ROADMAP queue 1, steps 9, 13 and 14.
 """
 
 from __future__ import annotations

@@ -7,9 +7,14 @@ metrics.  The accumulators are updated in place, which stands in for the
 JAX renderer's buffer donation.  `render_batch` takes the JAX renderer's
 arms on its conditions:
 
-* the fused arm, forward (`differentiable=False`): one
-  `ops.megatrace.sample_batch` launch per batch, with the triangle tables
-  of a mesh scene (`pack_tri_tables`);
+* the fused arm, forward (`differentiable=False`, or nothing requiring
+  grad): one `ops.megatrace.sample_batch` launch per batch, with the
+  triangle tables of a mesh scene (`pack_tri_tables`); a mesh of more
+  than TRI_MAX triangles takes the streamed tables
+  (`pack_tri_stream_tables`) with lanes in Morton order
+  (`megatrace.morton_order`, deltas un-permuted by its rank), and above
+  `meshtrace.SYNC_TRI_MIN` triangles the bounce-synchronous sampler
+  (`ops.meshtrace.sample_batch_sync`, one launch per bounce);
 * the fused arm, differentiable: `ops.megatrace_replay.sample_batch_diff`
   (the same kernel with its winner tape as primal, the tape replay's
   backward kernel as gradient of the color sum and the valid count, to
@@ -22,12 +27,15 @@ arms on its conditions:
   photometric loss pays nothing for it (torch removes no dead code,
   unlike XLA);
 * the wavefront arm (`wavefront_pass`, render/integrator.py) where the
-  batch kernel is refused: a scene outside its scope, or a sampler flavor
-  asked for without a noise state (which the port does not have yet).
+  batch kernel is refused: a scene outside its scope, a sampler flavor
+  asked for without a noise state (which the port does not have yet), or
+  a mesh of more than TRI_MAX triangles with something requiring grad
+  (not replay-eligible, as in the JAX package: the brute-force nearest
+  hit, which fits small images only until the BVH of ROADMAP step 9).
 
 Scenes outside the wavefront's scope raise NotImplementedError naming
-their ROADMAP item, and so do meshes of more than TRI_MAX triangles,
-which the JAX package streams (ROADMAP queue 1, step 10).
+their ROADMAP item; `check_scope` also refuses meshes of more than
+TRI_STREAM_MAX triangles.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from raytracing_in_one_weekend_tpu_torch.core import materials, rng
 from raytracing_in_one_weekend_tpu_torch.core.camera import Camera
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay
+from raytracing_in_one_weekend_tpu_torch.ops import meshtrace
 from raytracing_in_one_weekend_tpu_torch.render import film, integrator
 from raytracing_in_one_weekend_tpu_torch.scene.scene import Scene
 from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
@@ -98,19 +107,12 @@ AOV_KEYS = megatrace_replay.AOV_OUTPUTS
 AOV_GRAFT_RUNS = 0  # backward passes that ran the wavefront for AOV grads
 
 
-def _check_mesh_size(scene: Scene) -> None:
-    if scene.triangles.vert0.shape[0] > megatrace.TRI_MAX:
-        raise NotImplementedError(
-            f"meshes of more than {megatrace.TRI_MAX} triangles: "
-            f"{megatrace.STREAMED_MESHES}"
-        )
-
-
 def check_scope(scene: Scene, noise_color: int = 0) -> None:
     """Raise NotImplementedError for anything outside the ported slice:
-    scenes the wavefront cannot trace, meshes beyond TRI_MAX, and sampler
-    flavors (their noise state is not ported)."""
-    _check_mesh_size(scene)
+    scenes the wavefront cannot trace, meshes beyond TRI_STREAM_MAX, and
+    sampler flavors (their noise state is not ported)."""
+    if scene.triangles.vert0.shape[0] > megatrace.TRI_STREAM_MAX:
+        raise NotImplementedError(megatrace.TOO_MANY_TRIANGLES)
     if noise_color != 0:
         raise NotImplementedError(
             "blue-noise sampler flavors are not ported yet "
@@ -359,7 +361,6 @@ def render_batch(
         seed = int(torch.randint(0, SEED_RANGE, (), generator=generator))
     if key is None:
         key = rng.PRNGKey(seed)
-    _check_mesh_size(scene)
     dev = scene.spheres.center.device
     n = width * height
 
@@ -380,8 +381,12 @@ def render_batch(
     else:
         per_pixel = torch.full((n,), samples, dtype=torch.int32, device=dev)
 
+    inputs = (_grad_tensors(scene, camera)
+              if differentiable and torch.is_grad_enabled() else [])
+    streamed = scene.triangles.vert0.shape[0] > megatrace.TRI_MAX
     if (noise_color != 0
-            or not megatrace.scene_eligible(scene, allow_triangles=True)):
+            or not megatrace.scene_eligible(scene, allow_triangles=True)
+            or (streamed and inputs)):
         # ---- the wavefront arm: the batch kernel is refused ---------------
         integrator.check_scope(scene)
         new, pixel_rays = wavefront_pass(
@@ -397,29 +402,44 @@ def render_batch(
     lane_count = torch.where(row_active, per_pixel, 0)
     packed = materials.pack_materials(scene)
     records = megatrace.pack_sphere_records(scene, packed)
+    sphere_args = (scene.spheres.center, scene.spheres.radius, records,
+                   scene.environment.sky_bottom, scene.environment.sky_top)
+    statics = dict(samples=samples, trace_depth=trace_depth,
+                   has_dielectrics=scene.flags.has_dielectrics,
+                   sky_on=scene.flags.sky == 1, jitter=sub_pixel_jitter)
+    if streamed:
+        # ---- a mesh beyond TRI_MAX: the streamed tables, forward only ------
+        stream = megatrace.pack_tri_stream_tables(scene, packed)
+        if scene.triangles.vert0.shape[0] > meshtrace.SYNC_TRI_MIN:
+            d = meshtrace.sample_batch_sync(
+                lane_count, acc.sample_count, camera, key, *sphere_args,
+                stream, width=width, height=height, **statics)
+            return acc, _apply_deltas(acc, d, lane_count)
+        # Morton lanes: a warp's rays start from neighbouring pixels, so
+        # their AABB culls agree; pixel p is rendered by lane rank[p]
+        order, rank = (t.to(dev) for t in megatrace.morton_order(width,
+                                                                  height))
+        d = megatrace.sample_batch(
+            lane_count[order], acc.sample_count[order],
+            megatrace.pack_camera_row(camera, width, height), *sphere_args,
+            seed, pixel_index=order, tri_stream_tables=stream, **statics)
+        d = {k: v[rank] for k, v in d.items()}
+        return acc, _apply_deltas(acc, d, lane_count)
+
     batch = (megatrace_replay.sample_batch_diff if differentiable
              else megatrace.sample_batch)
     d = batch(
         lane_count,
         acc.sample_count,
         megatrace.pack_camera_row(camera, width, height),
-        scene.spheres.center,
-        scene.spheres.radius,
-        records,
-        scene.environment.sky_bottom,
-        scene.environment.sky_top,
+        *sphere_args,
         seed,
-        samples=samples,
-        trace_depth=trace_depth,
-        has_dielectrics=scene.flags.has_dielectrics,
-        sky_on=scene.flags.sky == 1,
-        jitter=sub_pixel_jitter,
         # gradients to the soup's vertices, normals and materials flow
         # through this pack
         tri_tables=megatrace.pack_tri_tables(scene, packed),
+        **statics,
     )
-    inputs = _grad_tensors(scene, camera) if differentiable else []
-    if inputs and torch.is_grad_enabled():
+    if inputs:
         # the AOV graft: the kernel's AOV values, the wavefront's gradients
         d = _graft_aovs(d, dict(
             scene=scene, camera=camera, key=key, width=width, height=height,

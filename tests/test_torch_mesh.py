@@ -10,8 +10,10 @@ packer against the JAX package's, bit for bit.
 * `pack_tri_tables` (geometry with the per-block AABBs, records), on
   `mesh_showcase` and on a mesh whose last TRI_BLOCK is pad only (its
   AABB is a point at 1e30 that no slab test passes);
-* the scope: meshes beyond TRI_MAX are refused naming ROADMAP step 10,
-  the per-ray megatrace refuses triangles, the batch kernel takes them;
+* the scope: the batch kernel takes meshes up to TRI_STREAM_MAX (beyond
+  TRI_MAX streamed, without the tape replay), the driver's scope check
+  refuses bigger ones naming ROADMAP step 9, the per-ray megatrace
+  refuses triangles;
 * the CLI renders `--scene triangle` and `--scene mesh_showcase` on the
   CPU.
 """
@@ -85,11 +87,14 @@ def _scenes(name):
     return jax_testbeds.SCENES[name](), testbeds.SCENES[name]()
 
 
-@pytest.mark.parametrize("name", ["mesh_showcase", "triangle"])
+TRIANGLES = {"mesh_showcase": 908, "triangle": 2, "mesh_large": 20748,
+             "mesh_huge": 102656}
+
+
+@pytest.mark.parametrize("name", list(TRIANGLES))
 def test_mesh_scenes_equal_jax(name):
     (js, jcs), (ts, tcs) = _scenes(name)
-    assert ts.triangles.vert0.shape[0] == (908 if name == "mesh_showcase"
-                                           else 2)
+    assert ts.triangles.vert0.shape[0] == TRIANGLES[name]
     assert_same_leaves(port_leaves(ts), jax_leaves(js))
     assert dataclasses.asdict(ts.flags) == dataclasses.asdict(js.flags)
     assert dataclasses.asdict(tcs) == dataclasses.asdict(jcs)
@@ -203,14 +208,19 @@ def test_scope_of_mesh_scenes():
     assert not megatrace.scene_eligible(scene)
     assert "sphere-only" in megatrace.unsupported_feature(scene)
     renderer.check_scope(scene)
+    # beyond TRI_MAX the batch kernel streams the triangles (no replay);
+    # beyond TRI_STREAM_MAX the driver's scope check refuses the mesh
     big, cs = meshes.mesh_large()
     assert big.triangles.vert0.shape[0] > megatrace.TRI_MAX
-    assert not megatrace.scene_eligible(big, allow_triangles=True)
-    with pytest.raises(NotImplementedError, match="step 10"):
-        renderer.check_scope(big)
-    with pytest.raises(NotImplementedError, match="step 10"):
-        renderer.render_image(big, None, width=4, height=4,
-                              samples_per_pixel=1, trace_depth=1, seed=0)
+    assert megatrace.scene_eligible(big, allow_triangles=True)
+    assert not mr.replay_eligible(big)
+    renderer.check_scope(big)
+    huge = dataclasses.replace(big, triangles=dataclasses.replace(
+        big.triangles,
+        vert0=torch.zeros((megatrace.TRI_STREAM_MAX + 1, 3))))
+    assert not megatrace.scene_eligible(huge, allow_triangles=True)
+    with pytest.raises(NotImplementedError, match="step 9"):
+        renderer.check_scope(huge)
 
 
 @pytest.mark.parametrize("scene", ["triangle", "mesh_showcase"])
