@@ -130,9 +130,14 @@ Needs one CUDA card.  Phases, each of which raises on failure:
      0 and 3 of 128x128 mesh_huge lanes (8 spp) and bounce 1 of the
      512x512 wave: the flags, ray count and lane id identical and the
      floats within 1e-4 on >= 99% of lanes.  Each timed on the 512x512
-     wave (2,097,152 lanes) by CUDA events (bounce_sync one launch at a
-     time on fresh copies, the permutes over 20 launches), `index_copy_`
-     beside restore;
+     wave (2,097,152 lanes) by CUDA events: bounce_sync one launch at a
+     time on fresh copies, on every bounce of the wave, beside the
+     triangle and AABB tests of its traversal model per lane, per warp and
+     per group (the model's visit order first held equal to the one the
+     kernel's blocks compute, read back); its bound the lower of those
+     from the model's and from the plain version's counts, the plain
+     version's index-order bound printed beside it; the permutes over 20
+     launches, restore and `index_copy_` in turns;
  20. the batch kernel's streamed arm against its plain version by phase
      3's criterion (no tape: streamed meshes have none): mesh_large at
      128x128, 8 spp, depth 8, two seeds, Morton lanes; then both timed at
@@ -1678,6 +1683,28 @@ def stream_bytes(stream) -> int:
     return sum(t.numel() * 4 for t in stream)
 
 
+def traversal_counts(state, args) -> dict:
+    """The triangle and AABB tests of bounce_sync's sweep on `state`, from
+    its plain model (meshtrace.sync_traversal) in groups of SYNC_GROUP
+    lanes: the lanes' own, the warps' (32 lanes per warp that runs a
+    staged block) and the groups' (every live lane against every staged
+    block).  Raises unless the visit order the kernel's blocks compute
+    (meshtrace.kernel_visit_order) is the model's, bit for bit."""
+    sph, stream = args[4][0], args[5]
+    group = meshtrace.SYNC_GROUP
+    o = tuple(state[i] for i in range(3))
+    d = tuple(state[i] for i in range(3, 6))
+    best_t, _ = megatrace._sweep(o, d, sph, 0.0)
+    order, dist = meshtrace.tile_super_order(state, stream.sup, group)
+    k_order, k_dist = meshtrace.kernel_visit_order(state, stream.sup)
+    if not (torch.equal(order, k_order) and same_bits(dist, k_dist)):
+        raise RuntimeError("the kernel's visit order differs from "
+                           "tile_super_order's")
+    _, counts = meshtrace.sync_traversal(o, d, best_t, state[12] > 0.0,
+                                         stream, group, order, dist)
+    return counts
+
+
 def streamed_phases(dev, card, width: int = 512, small: int = 128,
                     spp: int = 64) -> dict:
     """Phases 19-21 on mesh_large (20,748 triangles: the batch kernel's
@@ -1732,14 +1759,36 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     for i, (args, _, _) in enumerate(full[1]):
         check_permutes(f"mesh_huge {width}x{height} wave, compaction {i}",
                        args[0], restore=False)
+    huge_stream = full[0][0][0][5]
+    group = meshtrace.SYNC_GROUP
+
+    # every bounce of the wave, by CUDA events (after the earlier phases'
+    # profiler sessions, torch.profiler once saw none of this kernel's
+    # launches), and the traversal model's counts
+    per_bounce = []
+    for b, (args, kw, _) in enumerate(full[0]):
+        st = args[0]
+        live_b = int((st[12] > 0).sum())
+        k_ms = launch_ms(lambda x: meshtrace.bounce_sync(x, *args[1:], **kw),
+                         [st.clone() for _ in range(4)])
+        counts = traversal_counts(st, args)
+        per_bounce.append(dict(bounce=b, live=live_b, kernel_ms=k_ms,
+                               **counts))
+        print(f"bounce_sync, mesh_huge {width}x{height} 8 spp, bounce {b}: "
+              f"{live_b} live lanes, kernel {k_ms:.3f} ms; per live lane "
+              f"{counts['lane_pairs'] / max(live_b, 1):.1f} triangles and "
+              f"{counts['lane_slabs'] / max(live_b, 1):.1f} AABBs tested; "
+              f"the lanes' share of the triangle tests of warps of one "
+              f"lane a thread "
+              f"{counts['lane_pairs'] / max(counts['warp_pairs'], 1):.3f}, "
+              f"of {group}-lane groups testing every staged block "
+              f"{counts['lane_pairs'] / max(counts['group_pairs'], 1):.3f} "
+              f"[{card}]")
     args, kw, _ = full[0][1]
     st1 = args[0]
     n_pad = st1.shape[1]
     live = int((st1[12] > 0).sum())
-    # CUDA events: after the earlier phases' profiler sessions, torch.profiler
-    # saw none of this kernel's launches (chip call 2, PR 5)
-    sync_ms = launch_ms(lambda x: meshtrace.bounce_sync(x, *args[1:], **kw),
-                        [st1.clone() for _ in range(4)])
+    sync_ms = per_bounce[1]["kernel_ms"]
     megatrace.TRI_PAIRS = megatrace.SLAB_TESTS = 0
     sync_plain_ms, want = time_once(
         lambda: meshtrace.bounce_sync_reference(st1.clone(), *args[1:], **kw))
@@ -1751,18 +1800,30 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
                            f"{width}x{height}")
     sync_err = max(sync_err, err)
     s_count = huge.spheres.center.shape[0]
-    huge_stream = args[5]
-    sync_bound = bound(
-        live * (s_count * SWEEP_FLOPS + SHADE_FLOPS) + pairs * MT_FLOPS
-        + slabs * SLAB_FLOPS,
-        2 * meshtrace.ST_ROWS * 4 * n_pad + stream_bytes(huge_stream))
+    own = per_bounce[1]
+
+    def sync_bound_of(pairs_, slabs_):
+        return bound(
+            live * (s_count * SWEEP_FLOPS + SHADE_FLOPS) + pairs_ * MT_FLOPS
+            + slabs_ * SLAB_FLOPS,
+            2 * meshtrace.ST_ROWS * 4 * n_pad + stream_bytes(huge_stream))
+
+    # the least work: the kernel's own tests (the model's, in the order the
+    # kernel computes) or the plain version's index order's, whichever
+    # bound is lower
+    index_bound = sync_bound_of(pairs, slabs)
+    sync_bound = min(sync_bound_of(own["lane_pairs"], own["lane_slabs"]),
+                     index_bound)
     print(f"bounce_sync, mesh_huge {width}x{height} 8 spp, bounce 1 "
           f"({n_pad} lanes, "
-          f"{live} live; {pairs / live:.1f} triangles and "
-          f"{slabs / live:.1f} AABBs tested per live lane): kernel "
+          f"{live} live; the plain version's index order tests "
+          f"{pairs / live:.1f} triangles and {slabs / live:.1f} AABBs per "
+          f"live lane, the kernel {own['lane_pairs'] / live:.1f} and "
+          f"{own['lane_slabs'] / live:.1f}): kernel "
           f"{sync_ms:.3f} ms, plain {sync_plain_ms:.3f} ms, bound "
-          f"{sync_bound[0]:.4f} ms by {sync_bound[1]}; {share:.6f} of lanes "
-          f"agree, max abs err {err:.3g} [{card}]")
+          f"{sync_bound[0]:.4f} ms by {sync_bound[1]} (by the index order's "
+          f"counts {index_bound[0]:.4f} ms); {share:.6f} of lanes agree, "
+          f"max abs err {err:.3g} [{card}]")
 
     perm_bound = bound(0.0, 2 * meshtrace.ST_ROWS * 4 * n_pad)
     cst = full[1][0][0][0]
@@ -1770,22 +1831,33 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     compact_plain_ms, _ = time_once(
         lambda: meshtrace.pair_compact_reference(cst))
     rst = full[2][0][0][0]
-    restore_ms, _ = time_batch(meshtrace.restore, rst, repeats=20)
     restore_plain_ms, want = time_once(
         lambda: meshtrace.restore_reference(rst))
     ids = rst[meshtrace.LANE_ROW].long()
     lib_out = torch.empty_like(rst)
-    index_copy_ms, _ = time_batch(lambda: lib_out.index_copy_(1, ids, rst),
-                                  repeats=20)
+    # in turns: restore, index_copy_, index_copy_, restore
+    turns = {"restore": [], "index_copy_": []}
+    calls = {"restore": lambda: meshtrace.restore(rst),
+             "index_copy_": lambda: lib_out.index_copy_(1, ids, rst)}
+    for name in ("restore", "index_copy_", "index_copy_", "restore"):
+        turns[name].append(time_batch(calls[name], repeats=20)[0])
+    restore_ms, index_copy_ms = (statistics.mean(turns[k])
+                                 for k in ("restore", "index_copy_"))
     if not (same_bits(meshtrace.restore(rst), want)
             and same_bits(lib_out, want)):
         raise RuntimeError("restore, its plain version and index_copy_ "
                            "differ on the full-width wave")
     print(f"pair_compact, {width}x{height} wave ({n_pad} lanes): kernel "
-          f"{compact_ms:.4f} ms, plain {compact_plain_ms:.3f} ms; restore: "
-          f"kernel {restore_ms:.4f} ms, plain {restore_plain_ms:.3f} ms, "
-          f"index_copy_ {index_copy_ms:.4f} ms; bound {perm_bound[0]:.4f} ms "
-          f"by {perm_bound[1]} each [{card}]")
+          f"{compact_ms:.4f} ms, plain {compact_plain_ms:.3f} ms; restore "
+          f"(in turns, ms: {turns}): kernel {restore_ms:.4f} ms, "
+          f"index_copy_ {index_copy_ms:.4f} ms, plain "
+          f"{restore_plain_ms:.3f} ms; bound "
+          f"{perm_bound[0]:.4f} ms by {perm_bound[1]} each [{card}]")
+    if restore_ms > index_copy_ms:
+        print(f"NOTE: restore ({restore_ms:.4f} ms) is slower than "
+              f"index_copy_ ({index_copy_ms:.4f} ms)")
+    out["sync_bounces"] = per_bounce
+    out["restore_turns"] = turns
     del wave, full, st1, cst, rst, lib_out, want, got
     torch.cuda.empty_cache()
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")

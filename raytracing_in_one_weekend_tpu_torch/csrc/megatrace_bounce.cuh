@@ -1,7 +1,9 @@
 // One path-tracing bounce of one lane: the code the batch kernel
 // (megatrace_batch.cu), the per-ray megatrace (megatrace_wave.cu) and the
 // bounce-synchronous mesh sampler (meshtrace_sync.cu) share, as the JAX
-// package's kernels share pallas_megatrace.py::_bounce_step.  The triangle
+// package's kernels share pallas_megatrace.py::_bounce_step.  The sampler
+// runs its own cooperative triangle sweep between `sphere_sweep` and
+// `shade`; the others call `bounce`, which runs all three.  The triangle
 // arms are compile-time flags: the batch kernel's mesh builds take them,
 // the sphere-only builds compile none of it.  Plain version:
 // ops/megatrace.py::_bounce, under the precision contract of
@@ -91,31 +93,20 @@ struct Path {
   bool active, valid, got;
 };
 
-// Bounce the active path `p` once: the dense sweep over the s spheres in
-// shared memory `sph` (centre, |c|^2 - r^2), with kTris the sweep over
-// the triangles of `tri` (a block is skipped when the ray misses its AABB
-// or meets it beyond the best hit so far, and with kStream so is a whole
-// super-block; a triangle wins only with a strictly smaller t, the
-// earlier row on a tie), the winner's record,
-// Lambert / GGX-metal / dielectric scatter with the uniforms of hash base
-// `bbase`, the gradient sky `sky` (bottom rgb, top rgb) or none, the fold,
-// AOV capture and events at path depth `depth`, and the advance.  Returns
-// the winner's tape code (sphere row, or tri.code_base + triangle row),
-// -1 on a miss.
-template <bool kTris = false, bool kStream = false>
-__device__ __forceinline__ int bounce(
-    Path& p, const float4* sph, int s, const float* __restrict__ rec,
-    float t_min, bool has_dielectrics, bool sky_on, const float* sky,
-    uint32_t bbase, int depth, const TriScene& tri = TriScene{}) {
-  // ---- dense sphere sweep ------------------------------------------------
+// The dense sweep of the path `p` over the s spheres in shared memory
+// `sph` (centre, |c|^2 - r^2): the nearest t after t_min (kBig on a miss)
+// and its row, the first row on a tie.
+__device__ __forceinline__ void sphere_sweep(const Path& p, const float4* sph,
+                                             int s, float t_min,
+                                             float& best_t, int& best) {
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
   const float a = dot3(dx, dy, dz, dx, dy, dz);
   const float o_dot_d = dot3(ox, oy, oz, dx, dy, dz);
   const float o_sq = dot3(ox, oy, oz, ox, oy, oz);
   const float inv_a = 1.0f / a;
-  float best_t = kBig;
-  int best = 0;
+  best_t = kBig;
+  best = 0;
   for (int k = 0; k < s; ++k) {
     const float4 g = sph[k];
     const float b = o_dot_d - dot3(dx, dy, dz, g.x, g.y, g.z);
@@ -132,61 +123,24 @@ __device__ __forceinline__ int bounce(
       }
     }
   }
-  // ---- triangle sweep (kTris) -------------------------------------------
-  bool tri_wins = false;
-  int tri_idx = 0;
-  float tri_u = 0.f, tri_v = 0.f;
-  if (kTris) {
-    const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
-    float tri_t = kBig;
-    if (kStream) {
-      // the JAX kernel's two-level cull, per lane: one slab test for
-      // kTriSup blocks, then the blocks of a super the ray may hit
-      for (int sup = 0; sup < tri.supers; ++sup) {
-        if (!slab_may(tri.sup + 2 * sup, ox, oy, oz, ivx, ivy, ivz, t_min,
-                      fminf(tri_t, best_t)))
-          continue;
-        for (int blk = sup * kTriSup; blk < (sup + 1) * kTriSup; ++blk)
-          tri_block(tri, blk, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min,
-                    best_t, tri_t, tri_idx, tri_u, tri_v);
-      }
-    } else {
-      // the same sweep written out, as the kTris build has compiled since
-      // it was written (tri_block generates one more register here)
-      for (int blk = 0; blk < tri.blocks; ++blk) {
-        const float4 lo = __ldg(tri.aabb + 2 * blk);
-        const float4 hi = __ldg(tri.aabb + 2 * blk + 1);
-        const float bx0 = (lo.x - ox) * ivx, bx1 = (hi.x - ox) * ivx;
-        const float by0 = (lo.y - oy) * ivy, by1 = (hi.y - oy) * ivy;
-        const float bz0 = (lo.z - oz) * ivz, bz1 = (hi.z - oz) * ivz;
-        const float b_near = fmaxf(fminf(bx0, bx1),
-                                   fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
-        const float b_far = fminf(fmaxf(bx0, bx1),
-                                  fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
-        if (!(b_far >= fmaxf(b_near, t_min) &&
-              b_near < fminf(tri_t, best_t)))
-          continue;
-        const int end = min((blk + 1) * kTriBlock, tri.rows);
-        for (int k = blk * kTriBlock; k < end; ++k) {
-          const float4 g0 = __ldg(tri.geo + 3 * k);
-          const float4 g1 = __ldg(tri.geo + 3 * k + 1);
-          const float4 g2 = __ldg(tri.geo + 3 * k + 2);
-          float u, v;
-          const float t =
-              moller_trumbore(ox, oy, oz, dx, dy, dz, g0.x, g0.y, g0.z, g0.w,
-                              g1.x, g1.y, g1.z, g1.w, g2.x, t_min, u, v);
-          if (t < tri_t) {  // strict: the first row wins a tie
-            tri_t = t;
-            tri_idx = k;
-            tri_u = u;
-            tri_v = v;
-          }
-        }
-      }
-    }
-    tri_wins = tri_t < best_t;
-    if (tri_wins) best_t = tri_t;
-  }
+}
+
+// The rest of a bounce once the sweeps have found the nearest hit at
+// best_t (kBig: a miss) on sphere row `best` or, when tri_wins, triangle
+// row tri_idx at barycentrics (tri_u, tri_v): the winner's record,
+// Lambert / GGX-metal / dielectric scatter with the uniforms of hash base
+// `bbase`, the gradient sky `sky` (bottom rgb, top rgb) or none, the fold,
+// AOV capture and events at path depth `depth`, and the advance.  Returns
+// the winner's tape code, -1 on a miss.
+template <bool kTris>
+__device__ __forceinline__ int shade(Path& p, float best_t, int best,
+                                     bool tri_wins, int tri_idx, float tri_u,
+                                     float tri_v, const float* __restrict__ rec,
+                                     bool has_dielectrics, bool sky_on,
+                                     const float* sky, uint32_t bbase,
+                                     int depth, const TriScene& tri) {
+  const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
+              oz = p.oz;
   const bool hit = best_t < kBig;
 
   if (!hit) {
@@ -353,6 +307,81 @@ __device__ __forceinline__ int bounce(
   p.dy = sdy;
   p.dz = sdz;
   return best;
+}
+
+// Bounce the active path `p` once: `sphere_sweep`, with kTris the sweep
+// over the triangles of `tri` (a block is skipped when the ray misses its
+// AABB or meets it beyond the best hit so far, and with kStream so is a
+// whole super-block; a triangle wins only with a strictly smaller t, the
+// earlier row on a tie), then `shade`.  Returns the winner's tape code
+// (sphere row, or tri.code_base + triangle row), -1 on a miss.
+template <bool kTris = false, bool kStream = false>
+__device__ __forceinline__ int bounce(
+    Path& p, const float4* sph, int s, const float* __restrict__ rec,
+    float t_min, bool has_dielectrics, bool sky_on, const float* sky,
+    uint32_t bbase, int depth, const TriScene& tri = TriScene{}) {
+  const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
+              oz = p.oz;
+  float best_t;
+  int best;
+  sphere_sweep(p, sph, s, t_min, best_t, best);
+  // ---- triangle sweep (kTris) -------------------------------------------
+  bool tri_wins = false;
+  int tri_idx = 0;
+  float tri_u = 0.f, tri_v = 0.f;
+  if (kTris) {
+    const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
+    float tri_t = kBig;
+    if (kStream) {
+      // the JAX kernel's two-level cull, per lane: one slab test for
+      // kTriSup blocks, then the blocks of a super the ray may hit
+      for (int sup = 0; sup < tri.supers; ++sup) {
+        if (!slab_may(tri.sup + 2 * sup, ox, oy, oz, ivx, ivy, ivz, t_min,
+                      fminf(tri_t, best_t)))
+          continue;
+        for (int blk = sup * kTriSup; blk < (sup + 1) * kTriSup; ++blk)
+          tri_block(tri, blk, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min,
+                    best_t, tri_t, tri_idx, tri_u, tri_v);
+      }
+    } else {
+      // the same sweep written out, as the kTris build has compiled since
+      // it was written (tri_block generates one more register here)
+      for (int blk = 0; blk < tri.blocks; ++blk) {
+        const float4 lo = __ldg(tri.aabb + 2 * blk);
+        const float4 hi = __ldg(tri.aabb + 2 * blk + 1);
+        const float bx0 = (lo.x - ox) * ivx, bx1 = (hi.x - ox) * ivx;
+        const float by0 = (lo.y - oy) * ivy, by1 = (hi.y - oy) * ivy;
+        const float bz0 = (lo.z - oz) * ivz, bz1 = (hi.z - oz) * ivz;
+        const float b_near = fmaxf(fminf(bx0, bx1),
+                                   fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
+        const float b_far = fminf(fmaxf(bx0, bx1),
+                                  fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
+        if (!(b_far >= fmaxf(b_near, t_min) &&
+              b_near < fminf(tri_t, best_t)))
+          continue;
+        const int end = min((blk + 1) * kTriBlock, tri.rows);
+        for (int k = blk * kTriBlock; k < end; ++k) {
+          const float4 g0 = __ldg(tri.geo + 3 * k);
+          const float4 g1 = __ldg(tri.geo + 3 * k + 1);
+          const float4 g2 = __ldg(tri.geo + 3 * k + 2);
+          float u, v;
+          const float t =
+              moller_trumbore(ox, oy, oz, dx, dy, dz, g0.x, g0.y, g0.z, g0.w,
+                              g1.x, g1.y, g1.z, g1.w, g2.x, t_min, u, v);
+          if (t < tri_t) {  // strict: the first row wins a tie
+            tri_t = t;
+            tri_idx = k;
+            tri_u = u;
+            tri_v = v;
+          }
+        }
+      }
+    }
+    tri_wins = tri_t < best_t;
+    if (tri_wins) best_t = tri_t;
+  }
+  return shade<kTris>(p, best_t, best, tri_wins, tri_idx, tri_u, tri_v, rec,
+                      has_dielectrics, sky_on, sky, bbase, depth, tri);
 }
 
 }  // namespace rtiw

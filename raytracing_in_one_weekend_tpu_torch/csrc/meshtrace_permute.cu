@@ -16,14 +16,26 @@
 // destination.  A partial pair at the end (fewer than 2048 lanes) is
 // copied as it is, as JAX leaves it.
 //
-// restore_kernel replaces ops/pallas_meshtrace.py::_restore_kernel: the
+// The restore replaces ops/pallas_meshtrace.py::_restore_kernel: the
 // inverse permutation, column j to column state[23][j].  JAX gathers each
-// tile from the tiles within 8 of it (its VMEM holds no more); a scatter by
-// lane id is exact for any permutation and needs no band.
+// tile from the tiles within 8 of it (its VMEM holds no more) by one-hot
+// products.  Here it is a gather with coalesced stores, in two launches:
+// restore_index_kernel writes the inverse index inv[id[j]] = j (one
+// scattered 4-byte store a lane instead of 24), and a gather kernel writes
+// out[r][i] = in[r][inv[i]] row by row.  The compaction moves a lane by at
+// most one tile a pass and the sampler runs at most 8 passes a wave, so a
+// tile's sources lie within 8 tiles of it, and the stable passes keep
+// neighbouring lanes together: the reads come in runs from a band that the
+// caches hold, so restore_gather_kernel reads them through L1 with __ldg
+// (a variant that staged each tile's span of a row in shared memory first
+// was slower, PERF.md).  A lane id that is out of range, not an integer,
+// or not a permutation (a hole: no column carries id i) stops the kernel
+// with __trap(), so the next synchronise raises instead of returning
+// columns nobody wrote.
 //
 // What bounds them on this card: bytes.  Each reads and writes 96 bytes a
-// lane (2 x 24 x 4 x n); the reads are coalesced, the writes scattered
-// within a pair (compaction) or wherever the lane started (restore).
+// lane (2 x 24 x 4 x n); the compaction's reads are coalesced and its
+// writes scattered within a pair; the restore's writes are coalesced.
 // Plain versions: ops/meshtrace.py::pair_compact_reference,
 // restore_reference, bit for bit.
 #include <cuda_runtime.h>
@@ -97,14 +109,34 @@ __global__ void __launch_bounds__(kTile) pair_compact_kernel(
   }
 }
 
-__global__ void __launch_bounds__(256) restore_kernel(
-    const float* __restrict__ in, float* __restrict__ out, int n) {
+constexpr int kGatherThreads = 256;
+
+__global__ void __launch_bounds__(kGatherThreads) restore_index_kernel(
+    const float* __restrict__ in, int* __restrict__ inv, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  const int id = (int)in[(size_t)kLaneRow * n + j];
-  if (id < 0 || id >= n) return;  // not a lane id: the state is corrupt
-  for (int r = 0; r < kRows; ++r)
-    out[(size_t)r * n + id] = in[(size_t)r * n + j];
+  const float id = in[(size_t)kLaneRow * n + j];
+  if (!(id >= 0.0f && id < (float)n)) __trap();  // not a lane id (or NaN)
+  inv[(int)id] = j;
+}
+
+// Output column i from the source column inv[i], checked: in range and
+// carrying id i (inv is not initialised, so a hole holds whatever was
+// there).
+__global__ void __launch_bounds__(kGatherThreads) restore_gather_kernel(
+    const float* __restrict__ in, const int* __restrict__ inv,
+    float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int src = __ldg(inv + i);
+  if (src < 0 || src >= n ||
+      __ldg(in + (size_t)kLaneRow * n + src) != (float)i)
+    __trap();
+  float v[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) v[r] = __ldg(in + (size_t)r * n + src);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) out[(size_t)r * n + i] = v[r];
 }
 
 }  // namespace
@@ -122,10 +154,16 @@ extern "C" int rtiw_pair_compact(const float* in, int ld_in, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rtiw_restore(const float* in, float* out, int n,
+// restore: `inv` is n int32 of scratch (not initialised).
+extern "C" int rtiw_restore(const float* in, int* inv, float* out, int n,
                             void* stream) {
-  if (n > 0)
-    restore_kernel<<<(n + 255) / 256, 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(in, out, n);
+  if (n > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int blocks = (n + kGatherThreads - 1) / kGatherThreads;
+    restore_index_kernel<<<blocks, kGatherThreads, 0, st>>>(in, inv, n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    restore_gather_kernel<<<blocks, kGatherThreads, 0, st>>>(in, inv, out, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,11 +16,15 @@ lane-id row undoes the permutation.
 
 * `bounce_sync`: one bounce of every live lane, `megatrace._bounce` with
   the streamed-triangle arm, uniforms keyed by the lane-id row
-  (csrc/meshtrace_sync.cu; launches counted in SYNC_LAUNCHES).
+  (csrc/meshtrace_sync.cu; launches counted in SYNC_LAUNCHES).  The
+  kernel sweeps the triangles group by group of SYNC_GROUP lanes, in the
+  near-to-far super order of `tile_super_order` (which each thread block
+  computes for itself; `kernel_visit_order` reads it back);
+  `sync_traversal` is the plain model of that sweep.
 * `pair_compact`: the stable 9-class partition of each 2048-lane pair
   (csrc/meshtrace_permute.cu; COMPACT_LAUNCHES).
-* `restore`: the inverse permutation by the lane-id row
-  (csrc/meshtrace_permute.cu; RESTORE_LAUNCHES).
+* `restore`: the inverse permutation by the lane-id row, as an inverse
+  index and a gather (csrc/meshtrace_permute.cu; RESTORE_LAUNCHES).
 * `sample_batch_sync`: the wave loop, the per-pixel reduction and the
   Morton -> pixel un-permute.
 
@@ -58,6 +62,11 @@ ROW_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
             "rx", "ry", "rz", "active", "valid", "anx", "any", "anz",
             "aax", "aay", "aaz", "got", "events")
 _FLAGS = ("active", "valid", "got")
+
+SYNC_GROUP = 128  # lanes of one bounce_sync thread block (the kernel's
+# kGroup, checked at load; PERF.md has the readings that chose it)
+_UNREACHED = 1e29  # tile_super_order's distances at or above: unreachable
+_MAX_SUPERS = 128  # supers the kernel orders (TRI_STREAM_MAX's: 86)
 
 SYNC_LAUNCHES = 0  # CUDA launches made by bounce_sync
 COMPACT_LAUNCHES = 0  # ... by pair_compact
@@ -144,6 +153,149 @@ def restore_reference(state):
 
 
 # ---------------------------------------------------------------------------
+# The triangle sweep's visit order, and a plain model of the kernel's sweep
+# ---------------------------------------------------------------------------
+
+
+def tile_super_order(state, sup, group: int):
+    """Per group of `group` lanes of `state` (the last one padded with dead
+    lanes), the supers of `sup` ((n_sup, 8): lo | 0 | hi | 0) near to far:
+    (order (groups, n_sup) int32, dist (groups, n_sup) float32), JAX's
+    `_tile_super_order` with the group size a parameter.  From the AABB of
+    the live lanes' origins (row 12 >= 0.5), dist is 0.999 x the Euclidean
+    gap between it and the super, a lower bound on the t at which a ray of
+    unit direction enters it.  A super wholly on one side of the origins
+    that no live direction points towards is unreachable: +inf, sorted
+    last (stable).  The CUDA kernel computes the same order per thread
+    block (csrc/meshtrace_sync.cu `visit_order`)."""
+    n = state.shape[1]
+    groups = -(-n // group)
+    rows = state[[0, 1, 2, 3, 4, 5, 12]]
+    if groups * group != n:
+        rows = torch.cat([rows, rows.new_zeros((7, groups * group - n))], 1)
+    rows = rows.reshape(7, groups, group)
+    act = (rows[6] >= 0.5)[None]
+    o, d = rows[0:3], rows[3:6]
+    big = 1e30
+    olo = torch.where(act, o, big).amin(dim=2).T[:, None]  # (G, 1, 3)
+    ohi = torch.where(act, o, -big).amax(dim=2).T[:, None]
+    dlo = torch.where(act, d, big).amin(dim=2).T[:, None]
+    dhi = torch.where(act, d, -big).amax(dim=2).T[:, None]
+    slo, shi = sup[None, :, 0:3], sup[None, :, 4:7]  # (1, S, 3)
+    gap = torch.clamp(torch.maximum(slo - ohi, olo - shi), min=0.0)
+    dist = torch.sqrt(gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
+                      + gap[..., 2] * gap[..., 2]) * 0.999
+    unreach = (((slo > ohi) & (dhi <= 0.0))
+               | ((shi < olo) & (dlo >= 0.0))).any(dim=2)
+    key = torch.where(unreach, float("inf"), dist)
+    order = torch.argsort(key, dim=1, stable=True)
+    return (order.to(torch.int32).contiguous(),
+            torch.gather(key, 1, order).contiguous())
+
+
+def _rows_lexmin(o, d, lanes, blk, geo, hit, t_min, chunk=1 << 15):
+    """Test each lane of `lanes` against the TRI_BLOCK rows of its block
+    `blk` (geo: (blocks, TRI_BLOCK, 12)) and take a hit whose (t, row) is
+    lexicographically below hit = [t, row, u, v]'s, in place."""
+    tri_t, tri_idx, tri_u, tri_v = hit
+    for c in range(0, lanes.numel(), chunk):
+        ln, b = lanes[c:c + chunk], blk[c:c + chunk]
+        rows = geo[b]
+        t, u, v = mk.moller_trumbore(
+            tuple(x[ln, None] for x in o), tuple(x[ln, None] for x in d),
+            tuple(rows[..., k] for k in range(0, 3)),
+            tuple(rows[..., k] for k in range(3, 6)),
+            tuple(rows[..., k] for k in range(6, 9)), t_min)
+        blk_t, blk_i = torch.min(t, dim=1)  # the first row on a tie
+        row = b * mk.TRI_BLOCK + blk_i
+        best = tri_t[ln]
+        win = (blk_t < best) | ((blk_t == best) & (row < tri_idx[ln]))
+        lw, bi = ln[win], blk_i[win]
+        tri_t[lw] = blk_t[win]
+        tri_idx[lw] = row[win]
+        pos = torch.nonzero(win, as_tuple=True)[0]
+        tri_u[lw] = u[pos, bi]
+        tri_v[lw] = v[pos, bi]
+
+
+def sync_traversal(o, d, best_t, live, stream: mk.TriStream, group: int,
+                   order, dist, t_min: float = 0.0):
+    """The triangle sweep of csrc/meshtrace_sync.cu, step for step, over
+    lanes o, d (3-tuples of (n,) rows), their sphere hits best_t and the
+    live mask, in groups of `group` lanes visiting the supers in `order`
+    with lower-bound distances `dist` (tile_super_order's).  Per group and
+    super, in its order: stop when no live lane's best hit so far,
+    min(tri_t, best_t), lies beyond the super's distance; else one vote
+    over the live lanes within reach (each: the super's slab test, then its
+    16 blocks') picks the blocks to stage, and in index order every live
+    lane of the group tests each staged block's slab against its bound
+    then, if it passes, the block's rows, taking a hit only if (t, row) is
+    lexicographically smaller.  Returns ((t, row, u, v), counts): BIG, 0,
+    0, 0 where no triangle is hit; counts of the lanes' own triangle and
+    AABB tests (`lane_pairs`, `lane_slabs`), of the triangle tests of the
+    warps that run a staged block for at least one lane (`warp_pairs`,
+    32 lanes each) and of every live lane of a group against every block
+    it stages (`group_pairs`), and `staged` blocks."""
+    dev = o[0].device
+    n = o[0].shape[0]
+    n_sup = stream.sup.shape[0]
+    inv = [mk._inv_d(c) for c in d]
+    hit = mk._no_tri_hit(o[0])
+    tri_t = hit[0]
+    lane_group = torch.arange(n, device=dev) // group
+    warp = torch.arange(n, device=dev) // 32
+    n_live = torch.bincount(lane_group[live], minlength=order.shape[0])
+    geo = stream.geo.reshape(-1, mk.TRI_BLOCK, 12)
+    counts = dict(lane_pairs=0, lane_slabs=0, warp_pairs=0, group_pairs=0,
+                  staged=0)
+    going = torch.ones(order.shape[0], dtype=torch.bool, device=dev)
+
+    def slab(lanes, boxes, bound):
+        counts["lane_slabs"] += lanes.numel()
+        return mk._slab_may(boxes[:, 0:3].T, boxes[:, 4:7].T,
+                            [c[lanes] for c in o], [c[lanes] for c in inv],
+                            t_min, bound)
+
+    for k in range(n_sup):
+        sup = order[:, k].long()
+        going &= dist[:, k] < _UNREACHED
+        within = live & going[lane_group] & (
+            dist[:, k][lane_group] < torch.minimum(tri_t, best_t))
+        going &= torch.zeros_like(going).index_fill_(
+            0, lane_group[within], True)
+        if not bool(going.any()):
+            break
+        # the vote: the blocks some lane within reach may hit before its bound
+        lanes = torch.nonzero(within, as_tuple=True)[0]
+        bound = torch.minimum(tri_t[lanes], best_t[lanes])
+        sup_l = sup[lane_group[lanes]]
+        ok = slab(lanes, stream.sup[sup_l], bound)
+        lanes, bound, sup_l = lanes[ok], bound[ok], sup_l[ok]
+        staged = torch.zeros((order.shape[0], mk.TRI_SUP), dtype=torch.bool,
+                             device=dev)
+        for j in range(mk.TRI_SUP):
+            reach = slab(lanes, stream.aabb[sup_l * mk.TRI_SUP + j], bound)
+            staged[lane_group[lanes[reach]], j] = True
+        for j in range(mk.TRI_SUP):
+            counts["staged"] += int(staged[:, j].sum())
+            counts["group_pairs"] += int(n_live[staged[:, j]].sum()) \
+                * mk.TRI_BLOCK
+            lanes = torch.nonzero(live & staged[lane_group, j],
+                                  as_tuple=True)[0]
+            if lanes.numel() == 0:
+                continue
+            blk = sup[lane_group[lanes]] * mk.TRI_SUP + j
+            ok = slab(lanes, stream.aabb[blk],
+                      torch.minimum(tri_t[lanes], best_t[lanes]))
+            lanes, blk = lanes[ok], blk[ok]
+            counts["lane_pairs"] += lanes.numel() * mk.TRI_BLOCK
+            counts["warp_pairs"] += (torch.unique(warp[lanes]).numel() * 32
+                                     * mk.TRI_BLOCK)
+            _rows_lexmin(o, d, lanes, blk, geo, hit, t_min)
+    return tuple(hit), counts
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -161,6 +313,13 @@ def load_sync_kernel() -> ctypes.CDLL:
 
         lib, SYNC_BUILD_LOG = cuda_build.build_library("meshtrace_sync.cu")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.rtiw_meshtrace_sync_group.argtypes = []
+        lib.rtiw_meshtrace_sync_group.restype = ctypes.c_int
+        if lib.rtiw_meshtrace_sync_group() != SYNC_GROUP:
+            raise RuntimeError(
+                f"meshtrace_sync.cu works in groups of "
+                f"{lib.rtiw_meshtrace_sync_group()} lanes, SYNC_GROUP is "
+                f"{SYNC_GROUP}")
         lib.rtiw_meshtrace_sync.argtypes = [
             p, i,  # state n
             p, i, p, p,  # sph s rec sky
@@ -171,6 +330,8 @@ def load_sync_kernel() -> ctypes.CDLL:
             p,  # stream
         ]
         lib.rtiw_meshtrace_sync.restype = ctypes.c_int
+        lib.rtiw_meshtrace_visit_order.argtypes = [p, i, p, i, p, p, p]
+        lib.rtiw_meshtrace_visit_order.restype = ctypes.c_int
         _SYNC_KERNEL = lib
     return _SYNC_KERNEL
 
@@ -186,7 +347,7 @@ def load_permute_kernel() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rtiw_pair_compact.argtypes = [p, i, p, i, i, p]
         lib.rtiw_pair_compact.restype = ctypes.c_int
-        lib.rtiw_restore.argtypes = [p, p, i, p]
+        lib.rtiw_restore.argtypes = [p, p, p, i, p]
         lib.rtiw_restore.restype = ctypes.c_int
         _PERMUTE_KERNEL = lib
     return _PERMUTE_KERNEL
@@ -202,6 +363,12 @@ def _check_state(name, state, contiguous=True):
     if state.shape[1] >= 1 << 24:
         raise ValueError(f"{name}: {state.shape[1]} lanes; the float32 "
                          "lane-id row is exact below 2^24")
+
+
+def _check_supers(name, sup):
+    if sup.shape[0] > _MAX_SUPERS:
+        raise ValueError(f"{name}: {sup.shape[0]} supers; the kernel orders "
+                         f"at most {_MAX_SUPERS}")
 
 
 def _bounce_sync_cuda(state, seed, salt, bounce, tables, stream, *, t_min,
@@ -221,6 +388,10 @@ def _bounce_sync_cuda(state, seed, salt, bounce, tables, stream, *, t_min,
         raise ValueError(f"bounce_sync: {s} spheres; the kernel stages at "
                          f"most {mk.SPH_CULL_MIN} in shared memory")
     tri_args, tri_dims = mk._kernel_stream_args(stream, dev, s)
+    if stream.geo.data_ptr() % 16:
+        raise ValueError("bounce_sync: the triangle rows are not 16-byte "
+                         "aligned (the kernel copies them with TMA)")
+    _check_supers("bounce_sync", stream.sup)
     lib = load_sync_kernel()
     err = lib.rtiw_meshtrace_sync(
         state.data_ptr(), state.shape[1], sph.data_ptr(), s, rec.data_ptr(),
@@ -231,6 +402,33 @@ def _bounce_sync_cuda(state, seed, salt, bounce, tables, stream, *, t_min,
         raise RuntimeError(f"meshtrace_sync launch failed: cudaError {err}")
     SYNC_LAUNCHES += 1
     return state
+
+
+def kernel_visit_order(state, sup):
+    """The super order that each thread block of bounce_sync's kernel
+    computes for its SYNC_GROUP lanes of `state` (on the card), read back
+    by csrc/meshtrace_sync.cu's meshtrace_visit_order_kernel, which calls
+    the same device function: (order, dist) as `tile_super_order(state,
+    sup, SYNC_GROUP)` gives them.  For checks; not counted in
+    SYNC_LAUNCHES."""
+    _check_state("kernel_visit_order", state)
+    _check_supers("kernel_visit_order", sup)
+    if (state.device.type != "cuda" or sup.device != state.device
+            or sup.dim() != 2 or sup.shape[1] != 8
+            or sup.dtype != torch.float32 or not sup.is_contiguous()):
+        raise ValueError("kernel_visit_order: want the state and the (n_sup, "
+                         "8) float32 super boxes on the same card")
+    shape = (-(-state.shape[1] // SYNC_GROUP), sup.shape[0])
+    order = torch.empty(shape, dtype=torch.int32, device=state.device)
+    dist = torch.empty(shape, dtype=torch.float32, device=state.device)
+    err = load_sync_kernel().rtiw_meshtrace_visit_order(
+        state.data_ptr(), state.shape[1], sup.data_ptr(), sup.shape[0],
+        order.data_ptr(), dist.data_ptr(),
+        torch.cuda.current_stream(state.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"meshtrace_visit_order launch failed: cudaError "
+                           f"{err}")
+    return order, dist
 
 
 def _pair_compact_cuda(state):
@@ -252,9 +450,10 @@ def _restore_cuda(state):
     global RESTORE_LAUNCHES
     _check_state("restore", state)
     out = torch.empty_like(state)
+    inv = torch.empty(state.shape[1], dtype=torch.int32, device=state.device)
     lib = load_permute_kernel()
     err = lib.rtiw_restore(
-        state.data_ptr(), out.data_ptr(), state.shape[1],
+        state.data_ptr(), inv.data_ptr(), out.data_ptr(), state.shape[1],
         torch.cuda.current_stream(state.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"restore launch failed: cudaError {err}")
@@ -291,8 +490,9 @@ def pair_compact(state):
 
 def restore(state):
     """The inverse permutation by the lane-id row (see
-    `restore_reference`) into a new tensor.  CUDA: restore_kernel of
-    csrc/meshtrace_permute.cu."""
+    `restore_reference`) into a new tensor.  CUDA: restore_index_kernel and
+    the gather of csrc/meshtrace_permute.cu, which stop the device (the
+    next synchronise raises) when the lane-id row is not a permutation."""
     return _dispatch("restore", state, _restore_cuda, restore_reference)
 
 
