@@ -8,8 +8,15 @@ kernel's streamed arm with Morton lanes, the bounce-synchronous sampler's
 bounce, pair compaction and restore).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR
 
-Needs one CUDA card.  Phases, each of which raises on failure:
+The second form compares this tree with another unpacked at DIR (say,
+the parent commit, by `git archive`): the SASS of megatrace_batch's
+sphere-only and triangle builds and of megatrace_wave, function by
+function, then `turn_readings` (the streamed arm, bounce_sync's bounce 1,
+forward and fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn a
+process of its own.  The first form needs one CUDA card.  Phases, each of
+which raises on failure:
   1. report the card (nvidia-smi name and power limit) and versions;
   2. build the seven kernel sources (csrc/megatrace_batch.cu,
      csrc/megatrace_bwd.cu, csrc/sphere_select.cu, csrc/megatrace_wave.cu,
@@ -140,8 +147,16 @@ Needs one CUDA card.  Phases, each of which raises on failure:
      launches, restore and `index_copy_` in turns;
  20. the batch kernel's streamed arm against its plain version by phase
      3's criterion (no tape: streamed meshes have none): mesh_large at
-     128x128, 8 spp, depth 8, two seeds, Morton lanes; then both timed at
-     512x512, depth 8, 4 spp;
+     128x128, 8 spp, depth 8, two seeds, Morton lanes, and on 16,339 of
+     those lanes with uneven lane counts (0-8 samples, a group with one
+     live lane and one with none, a partial last group); the triangle
+     tests of its traversal model (meshtrace.sync_traversal over each
+     iteration's live lanes in groups of 128, its winners held equal to
+     the index-order sweep's) per lane, per warp of one lane a thread and
+     per group, and the blocks it stages, on the second 128x128 batch;
+     then kernel (CUDA events) and plain version timed at 512x512, depth
+     8, 4 spp, the bound the lower of those from the model's and from the
+     plain version's counts;
  21. the forward streamed-mesh paths: render_batch at 512x512, depth 8, 64
      spp per batch, 1 warm-up and 5 timed batches (median MRays/s), image
      finite, on mesh_large (the batch kernel's streamed arm, no sync
@@ -161,8 +176,10 @@ run's inputs (see `bound`).  The last line is the JSON status.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1141,6 +1158,43 @@ def smooth_triangle(dev):
     return b.build().to(dev), cam
 
 
+def mesh_fwd_bwd_steps(scene, camera, target, width, seeds):
+    """Forward+backward steps of a mesh scene through render_image(
+    differentiable=True), gradients to its soup vertices and sphere
+    centres, loss mean((color - target)^2): (median MRays/s of the steps
+    after the first seed's, counting the forward rays of each step's seed;
+    the last step's forward rays, vertices and centres).  Launch counts
+    start at 0."""
+    dev = target.device
+    n = width * width
+    verts0 = params_mod.soup_vertices(scene)
+    rays_per = []
+    for seed in seeds:
+        _, m = renderer.render_batch(
+            scene, camera, film.zero_accumulators(n, device=dev),
+            width=width, height=width, samples=64, trace_depth=8, seed=seed,
+            differentiable=False)
+        rays_per.append(float(m.total_rays))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rates = []
+    for seed, r in zip(seeds, rays_per):
+        verts = verts0.clone().requires_grad_()
+        centers = scene.spheres.center.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = renderer.render_image(
+            params_mod.apply_params(scene, {"triangle_vertices": verts,
+                                            "sphere_centers": centers}),
+            camera, width=width, height=width, samples_per_pixel=64,
+            trace_depth=8, seed=seed, differentiable=True)
+        torch.mean((img.color - target) ** 2).backward()
+        torch.cuda.synchronize()
+        rates.append(r / (time.perf_counter() - t0) / 1e6)
+    return statistics.median(rates[1:]), rays_per[-1], verts, centers
+
+
 def mesh_phases(dev, card) -> dict:
     """Phases 13-17 on mesh_showcase (908 triangles over a ground sphere)."""
     scene, cs = meshes.mesh_showcase()
@@ -1325,33 +1379,10 @@ def mesh_phases(dev, card) -> dict:
           f"{float(wimg.mean()):.4f} [{card}]")
 
     # ---- 17a. fwd+bwd to the soup vertices and the sphere centres -------------
-    verts0 = params_mod.soup_vertices(scene)
     seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
              for _ in range(4)]
-    rays_per = []
-    for seed in seeds:
-        _, m = renderer.render_batch(
-            scene, camera, film.zero_accumulators(n, device=dev),
-            width=width, height=height, samples=64, trace_depth=8, seed=seed,
-            differentiable=False)
-        rays_per.append(float(m.total_rays))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    rates = []
-    for seed, r in zip(seeds, rays_per):
-        verts = verts0.clone().requires_grad_()
-        centers = scene.spheres.center.clone().requires_grad_()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = renderer.render_image(
-            params_mod.apply_params(scene, {"triangle_vertices": verts,
-                                            "sphere_centers": centers}),
-            camera, width=width, height=height, samples_per_pixel=64,
-            trace_depth=8, seed=seed, differentiable=True)
-        torch.mean((img.color - target) ** 2).backward()
-        torch.cuda.synchronize()
-        rates.append(r / (time.perf_counter() - t0) / 1e6)
+    fb_mrays, rays_per, verts, centers = mesh_fwd_bwd_steps(
+        scene, camera, target, width, seeds)
     fb_launches = (megatrace.LAUNCHES, megatrace_bwd.LAUNCHES)
     for name, grad in (("vertices", verts.grad), ("centres", centers.grad)):
         if not bool(torch.isfinite(grad).all()) or float(grad.abs().max()) == 0:
@@ -1359,12 +1390,12 @@ def mesh_phases(dev, card) -> dict:
     if min(fb_launches) == 0 or triangle_select.LAUNCHES:
         raise RuntimeError(f"fwd+bwd mesh path: launches {fb_launches}, "
                            f"triangle_select {triangle_select.LAUNCHES}")
-    out["fwd_bwd_mrays"] = statistics.median(rates[1:])
+    out["fwd_bwd_mrays"] = fb_mrays
     out["fwd_bwd_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"fwd+bwd mesh path: mesh_showcase {width}x{height} depth 8, 64 "
           f"spp, gradients to {t_count} soup triangles' vertices and the "
           f"sphere centres: median {out['fwd_bwd_mrays']:.3f} MRays/s over 3 "
-          f"steps ({rays_per[-1]:.0f} forward rays/step; launches batch "
+          f"steps ({rays_per:.0f} forward rays/step; launches batch "
           f"{fb_launches[0]}, backward {fb_launches[1]}); peak "
           f"{out['fwd_bwd_peak_gb']:.3f} GB [{card}]")
 
@@ -1396,7 +1427,7 @@ def mesh_phases(dev, card) -> dict:
     # ---- 17d. the AOV step -----------------------------------------------------
     reset_launches()
     runs_before = renderer.AOV_GRAFT_RUNS
-    verts = verts0.clone().requires_grad_()
+    verts = params_mod.soup_vertices(scene).clone().requires_grad_()
     centers = scene.spheres.center.clone().requires_grad_()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1581,6 +1612,31 @@ def time_once(fn) -> tuple[float, object]:
     return start.elapsed_time(end), result
 
 
+def forward_mrays(scene, camera, width, batches, samples=64, depth=8):
+    """Forward render_batch calls (width x width) into one set of
+    accumulators: a warm-up, the launch counts set to 0, then `batches`
+    timed calls, host clock to the ray count's arrival.  Returns (their
+    median MRays/s, the rays of the first, the accumulators)."""
+    dev = scene.spheres.center.device
+    acc = film.zero_accumulators(width * width, device=dev)
+    gen = torch.Generator().manual_seed(0)
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = renderer.render_batch(scene, camera, acc, gen, width=width,
+                                     height=width, samples=samples,
+                                     trace_depth=depth)
+        rays = float(m.total_rays)  # waits for the device
+        torch.cuda.synchronize()
+        return rays, time.perf_counter() - t0
+
+    one()  # warm-up
+    reset_launches()
+    runs = [one() for _ in range(batches)]
+    return statistics.median(r / t / 1e6 for r, t in runs), runs[0][0], acc
+
+
 def random_state(tiles: int, alive_share: float, seed: int, dev):
     """A (24, tiles * 1024) state for the permutes: normal rows, lane ids
     0..n-1, `alive_share` of the lanes alive, a fifth of the direction
@@ -1703,6 +1759,77 @@ def traversal_counts(state, args) -> dict:
     _, counts = meshtrace.sync_traversal(o, d, best_t, state[12] > 0.0,
                                          stream, group, order, dist)
     return counts
+
+
+@contextlib.contextmanager
+def recorded_sweeps():
+    """Keep, for each bounce of the plain streamed batch run inside the
+    block (megatrace.sample_batch_reference with tri_stream_tables): the
+    lanes that bounce (the active mask `_bounce` receives; the streamed
+    kernel's live lanes) and, on them, the rays, the spheres' best t and
+    the (t, row, u, v) of the index-order sweep `_tri_stream_sweep`."""
+    calls = []
+    bounce, sweep = megatrace._bounce, megatrace._tri_stream_sweep
+
+    def recording_bounce(p, *args, **kwargs):
+        calls.append({"live": p["active"]})
+        return bounce(p, *args, **kwargs)
+
+    def recording_sweep(o, d, best_t, stream, t_min):
+        hit = sweep(o, d, best_t, stream, t_min)
+        calls[-1].update(o=o, d=d, best_t=best_t, hit=hit)
+        return hit
+
+    megatrace._bounce = recording_bounce
+    megatrace._tri_stream_sweep = recording_sweep
+    try:
+        yield calls
+    finally:
+        megatrace._bounce, megatrace._tri_stream_sweep = bounce, sweep
+
+
+def group_traversal(call: dict, stream) -> tuple:
+    """The streamed batch kernel's triangle sweep on one recorded bounce
+    (`recorded_sweeps`), from its plain model: the live lanes' rays in
+    their lane places, in groups of SYNC_GROUP lanes in lane order (the
+    last one partial), each visiting the supers in tile_super_order's
+    order over its live lanes (meshtrace.sync_traversal).  Returns (the
+    model's (t, row, u, v) on the live lanes, the model's counts)."""
+    live = call["live"]
+    idx = torch.nonzero(live, as_tuple=True)[0]
+    state = torch.zeros((meshtrace.ST_ROWS, live.shape[0]),
+                        device=live.device)
+    for r, x in enumerate((*call["o"], *call["d"])):
+        state[r, idx] = x
+    state[12] = live.float()
+    best_t = torch.zeros(live.shape[0], device=live.device)
+    best_t[idx] = call["best_t"]
+    group = meshtrace.SYNC_GROUP
+    order, dist = meshtrace.tile_super_order(state, stream.sup, group)
+    hit, counts = meshtrace.sync_traversal(
+        tuple(state[0:3]), tuple(state[3:6]), best_t, live, stream, group,
+        order, dist)
+    return tuple(h[idx] for h in hit), counts
+
+
+def batch_traversal_counts(calls: list, stream) -> dict:
+    """The model's counts (`group_traversal`) summed over a batch's
+    recorded bounces; raises unless the model's winner is the index-order
+    sweep's on every live lane of every bounce."""
+    total = {}
+    for call in calls:
+        hit, counts = group_traversal(call, stream)
+        want, best_t = call["hit"], call["best_t"]
+        wins = want[0] < best_t
+        same = (hit[0] < best_t) == wins
+        for got_, want_ in zip(hit, want):
+            same &= ~wins | (got_ == want_)
+        if not bool(same.all()):
+            raise RuntimeError("the group traversal's winners differ from "
+                               "the index-order sweep's")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def streamed_phases(dev, card, width: int = 512, small: int = 128,
@@ -1873,14 +2000,50 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     order, _ = (t.to(dev) for t in megatrace.morton_order(w, h))
     lanes8 = torch.full((w * h,), 8, dtype=torch.int32, device=dev)
     zeros = torch.zeros(w * h, device=dev)
+    kw8 = dict(kw, samples=8, trace_depth=8, pixel_index=order)
     arm_shares, arm_err = [], 0.0
     for seed in (11, 12):
-        share, err = check_parity(
-            f"streamed arm, mesh_large {w}x{h} 8 spp depth 8 seed {seed}, "
-            "Morton lanes", (lanes8, zeros, *tables, seed),
-            dict(kw, samples=8, trace_depth=8, pixel_index=order), tape=False)
+        with recorded_sweeps() as calls:
+            share, err = check_parity(
+                f"streamed arm, mesh_large {w}x{h} 8 spp depth 8 seed {seed}, "
+                "Morton lanes", (lanes8, zeros, *tables, seed), kw8,
+                tape=False)
         arm_shares.append(share)
         arm_err = max(arm_err, err)
+    # the traversal model on the last batch: the divergence dealing removes
+    model = batch_traversal_counts(calls, large_stream)
+    bounces = sum(int(c["live"].sum()) for c in calls)
+    per_group = len(calls) * w * h / meshtrace.SYNC_GROUP
+    print(f"streamed arm's traversal model, mesh_large {w}x{h} 8 spp depth 8 "
+          f"seed 12 ({bounces} bounces in {len(calls)} iterations, groups of "
+          f"{meshtrace.SYNC_GROUP} lanes; winners equal to the index-order "
+          f"sweep's on every live lane), triangle tests per bounce: the "
+          f"lanes' own (lane_pairs) {model['lane_pairs'] / bounces:.1f}, "
+          f"their warps' with one thread a lane (warp_pairs) "
+          f"{model['warp_pairs'] / bounces:.1f}, every live lane of a group "
+          f"against every staged block (group_pairs) "
+          f"{model['group_pairs'] / bounces:.1f}; AABB tests "
+          f"{model['lane_slabs'] / bounces:.1f}; staged {model['staged']} "
+          f"blocks ({model['staged'] / per_group:.2f} per group and "
+          f"iteration, "
+          f"{model['staged'] * megatrace.TRI_BLOCK * 48 / 1e6:.1f} MB)")
+    # uneven lane counts (0 to 8 samples; one group with a single live
+    # lane, one with none) and a partial last block
+    m = w * h - 45
+    g = torch.Generator().manual_seed(13)
+    uneven = torch.randint(0, 9, (m,), generator=g, dtype=torch.int32)
+    group = meshtrace.SYNC_GROUP
+    uneven[2 * group:3 * group] = 0
+    uneven[2 * group + 77] = 8
+    uneven[5 * group:6 * group] = 0  # a group with no live lane
+    share, err = check_parity(
+        f"streamed arm, mesh_large {m} lanes of {w}x{h}, 0-8 spp, depth 8, "
+        "a group with one live lane and one with none, Morton lanes",
+        (uneven.to(dev), zeros[:m], *tables, 13),
+        dict(kw8, pixel_index=order[:m]), tape=False)
+    arm_shares.append(share)
+    arm_err = max(arm_err, err)
+
     camera, tables = batch_inputs(large, large_cs, width, height, dev)
     order, _ = (t.to(dev) for t in megatrace.morton_order(width, height))
     args4 = (torch.full((n,), 4, dtype=torch.int32, device=dev),
@@ -1889,9 +2052,12 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     arm_ms, got = time_batch(megatrace.sample_batch, *args4, repeats=5,
                              **kw4)
     megatrace.TRI_PAIRS = megatrace.SLAB_TESTS = 0
-    arm_plain_ms, want = time_once(
-        lambda: megatrace.sample_batch_reference(*args4, **kw4))
+    with recorded_sweeps() as calls:
+        arm_plain_ms, want = time_once(
+            lambda: megatrace.sample_batch_reference(*args4, **kw4))
     pairs, slabs = megatrace.TRI_PAIRS, megatrace.SLAB_TESTS
+    model = batch_traversal_counts(calls, large_stream)
+    del calls
     share, err = lane_agreement(got, want)
     if share < 0.99:
         raise RuntimeError(f"streamed arm agreement {share} < 0.99 in the "
@@ -1900,19 +2066,35 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     arm_err = max(arm_err, err)
     bounces = float(got["rays"].sum())
     s_count = large.spheres.center.shape[0]
-    arm_bound = bound(
-        bounces * (s_count * SWEEP_FLOPS + SHADE_FLOPS) + pairs * MT_FLOPS
-        + slabs * SLAB_FLOPS,
-        n * 4 * (3 + megatrace.OUT_ROWS) + s_count * 4 * 20 + 4 * 32
-        + stream_bytes(large_stream))
+
+    def arm_bound_of(pairs_, slabs_):
+        return bound(
+            bounces * (s_count * SWEEP_FLOPS + SHADE_FLOPS) + pairs_ * MT_FLOPS
+            + slabs_ * SLAB_FLOPS,
+            n * 4 * (3 + megatrace.OUT_ROWS) + s_count * 4 * 20 + 4 * 32
+            + stream_bytes(large_stream))
+
+    # the least work: the lanes' own tests in the kernel's order (the
+    # model's) or in the plain version's index order, whichever is lower
+    index_bound = arm_bound_of(pairs, slabs)
+    arm_bound = min(arm_bound_of(model["lane_pairs"], model["lane_slabs"]),
+                    index_bound)
     print(f"batch kernel, streamed arm, mesh_large {width}x{height} depth 8, "
-          f"4 spp, "
-          f"Morton lanes ({bounces:.0f} bounces, {pairs / bounces:.1f} "
-          f"triangles and {slabs / bounces:.1f} AABBs tested per bounce of "
-          f"{large.triangles.vert0.shape[0]}): kernel {arm_ms:.3f} ms "
+          f"4 spp, Morton lanes ({bounces:.0f} bounces of "
+          f"{large.triangles.vert0.shape[0]} triangles; per bounce the plain "
+          f"version's index order tests {pairs / bounces:.1f} triangles and "
+          f"{slabs / bounces:.1f} AABBs, the kernel's traversal "
+          f"{model['lane_pairs'] / bounces:.1f} and "
+          f"{model['lane_slabs'] / bounces:.1f}, its warps of one lane a "
+          f"thread would run {model['warp_pairs'] / bounces:.1f} and its "
+          f"groups testing every staged block "
+          f"{model['group_pairs'] / bounces:.1f}; {model['staged']} blocks "
+          f"staged): kernel {arm_ms:.3f} ms "
           f"({bounces / arm_ms / 1e3:.3f} MRays/s), plain {arm_plain_ms:.3f} "
-          f"ms, bound {arm_bound[0]:.4f} ms by {arm_bound[1]}; {share:.6f} "
-          f"of lanes agree, max abs err {err:.3g} [{card}]")
+          f"ms, bound {arm_bound[0]:.4f} ms by {arm_bound[1]} (by the index "
+          f"order's counts {index_bound[0]:.4f} ms); {share:.6f} of lanes "
+          f"agree, max abs err {err:.3g} [{card}]")
+    out["streamed_arm_model"] = model
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 21. the forward streamed-mesh paths ------------------------------------
@@ -1920,22 +2102,7 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     launches = {}
     for name, (scene, cs) in scenes.items():
         camera, _ = batch_inputs(scene, cs, width, height, dev)
-        acc = film.zero_accumulators(n, device=dev)
-        gen = torch.Generator().manual_seed(0)
-
-        def forward():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, m = renderer.render_batch(scene, camera, acc, gen,
-                                         width=width, height=height,
-                                         samples=spp, trace_depth=8)
-            rays_ = float(m.total_rays)  # waits for the device
-            torch.cuda.synchronize()
-            return rays_, time.perf_counter() - t0
-
-        forward()  # warm-up
-        reset_launches()
-        runs = [forward() for _ in range(5)]
+        mrays, rays, acc = forward_mrays(scene, camera, width, 5, spp)
         counts = dict(batch=megatrace.LAUNCHES,
                       bounce_sync=meshtrace.SYNC_LAUNCHES,
                       pair_compact=meshtrace.COMPACT_LAUNCHES,
@@ -1953,11 +2120,11 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
         img = film.combine(acc, width, height).color
         if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.05:
             raise RuntimeError(f"bad {name} image: mean {float(img.mean())}")
-        out[f"{name}_mrays"] = statistics.median(r / s / 1e6 for r, s in runs)
+        out[f"{name}_mrays"] = mrays
         route = "sync sampler" if name == "mesh_huge" else "streamed arm"
         print(f"forward {name} ({route}): {width}x{height} depth 8, {spp} "
               f"spp/batch: median {out[f'{name}_mrays']:.3f} MRays/s over 5 "
-              f"batches ({runs[0][0]:.0f} rays/batch; launches {counts}); "
+              f"batches ({rays:.0f} rays/batch; launches {counts}); "
               f"image mean {float(img.mean()):.4f} [{card}]")
 
     # the other route on each scene, called directly
@@ -2031,6 +2198,149 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
               perm_bound, index_copy_ms),
     ]
     return {"kernels": kernels, "paths": out}
+
+
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --against DIR: this tree against another on the card
+# ---------------------------------------------------------------------------
+
+SASS_SOURCES = ("megatrace_batch", "megatrace_wave")
+
+TURN = """
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])  # the tree whose package is measured
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+print("TURN " + json.dumps(smoke.turn_readings()))
+"""
+
+
+def turn_readings() -> dict:
+    """One turn of `--against`, on the package found first on sys.path, at
+    512x512, depth 8: the batch kernel's streamed arm on mesh_large (4
+    spp, Morton lanes; CUDA events over 5 launches after a warm-up);
+    bounce_sync at bounce 1 of the mesh_huge wave (median of 5 launches,
+    each alone); the forward MRays/s of render_batch (64 spp, median of 5
+    batches) on the cover, mesh_showcase and mesh_huge (the sync
+    sampler), and the fwd+bwd MRays/s of phases 8 (cover) and 17a
+    (mesh_showcase), median of 3 steps."""
+    dev = torch.device("cuda", 0)
+    for load in (megatrace.load_kernel, megatrace.load_wave_kernel,
+                 megatrace_bwd.load_kernel, meshtrace.load_sync_kernel,
+                 meshtrace.load_permute_kernel):
+        load()
+    width = 512
+    n = width * width
+    out = {}
+    large, large_cs = meshes.mesh_large()
+    large = large.to(dev)
+    _, tables = batch_inputs(large, large_cs, width, width, dev)
+    order, _ = (t.to(dev) for t in megatrace.morton_order(width, width))
+    out["arm_ms"], _ = time_batch(
+        megatrace.sample_batch, torch.full((n,), 4, dtype=torch.int32,
+                                           device=dev),
+        torch.zeros(n, device=dev), *tables, 7, repeats=5,
+        has_dielectrics=large.flags.has_dielectrics, sky_on=True,
+        tri_stream_tables=megatrace.pack_tri_stream_tables(
+            large, materials.pack_materials(large)),
+        samples=4, trace_depth=8, pixel_index=order)
+    huge, huge_cs = meshes.mesh_huge()
+    huge = huge.to(dev)
+    bounces, _, _ = recorded_wave(huge, huge_cs, width, width, dev)
+    args, kw, _ = bounces[1]
+    out["bounce1_ms"] = launch_ms(
+        lambda x: meshtrace.bounce_sync(x, *args[1:], **kw),
+        [args[0].clone() for _ in range(6)])
+    del bounces, args
+    camera, _ = batch_inputs(huge, huge_cs, width, width, dev)
+    out["mesh_huge_fwd"] = forward_mrays(huge, camera, width, 5)[0]
+    for name, (scene, cs) in (("cover", book_scenes.cover_scene()),
+                              ("mesh_showcase", meshes.mesh_showcase())):
+        scene = scene.to(dev)
+        camera, _ = batch_inputs(scene, cs, width, width, dev)
+        out[f"{name}_fwd"], _, acc = forward_mrays(scene, camera, width, 5)
+        target = film.combine(acc, width, width).color.detach()
+        if name == "cover":
+            out["cover_fwd_bwd"] = fwd_bwd_steps(
+                scene, camera, target, width, width, 64, 8, [1, 2, 3, 4])[0]
+        else:
+            out["mesh_showcase_fwd_bwd"] = mesh_fwd_bwd_steps(
+                scene, camera, target, width, [1, 2, 3, 4])[0]
+    return out
+
+
+def sass_functions(lib: str) -> dict:
+    """{kernel name: its SASS instructions} of a built library, by
+    cuobjdump; a template argument list <b, false> reads as <b> (the
+    batch kernel's streamed flag, which its builds before the streamed
+    kernel of its own carried)."""
+    from raytracing_in_one_weekend_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            # the anonymous namespace's name hashes the file
+            name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
+                          name)
+            name = re.sub(r"ILb(\d)ELb0EE", r"ILb\1EE", name)
+            funcs[name] = []
+        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            funcs[name].append(" ".join(line.split()))
+    return funcs
+
+
+def against(other: str) -> int:
+    """The tree unpacked at `other` (say, the parent commit) against this
+    one on the card: the SASS of megatrace_batch's sphere-only and
+    triangle builds and of megatrace_wave, function by function; then
+    `turn_readings` in turns (other, this, this, other), each turn a
+    process of its own importing that tree's package."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+    other = os.path.abspath(other)
+    readings = {other: [], ROOT: []}
+    for root in (other, ROOT, ROOT, other):
+        proc = subprocess.run(
+            [sys.executable, "-c", TURN, root, os.path.abspath(__file__)],
+            capture_output=True, text=True, cwd=root, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the turn of {root} failed")
+        got = json.loads(proc.stdout.split("TURN ")[-1])
+        readings[root].append(got)
+        print(f"turn {'this tree' if root == ROOT else other}: {got} [{card}]")
+    for key in readings[ROOT][0]:
+        mine = [r[key] for r in readings[ROOT]]
+        theirs = [r[key] for r in readings[other]]
+        print(f"{key}: this tree {mine}, {other} {theirs}; means "
+              f"{statistics.mean(mine):.3f} against "
+              f"{statistics.mean(theirs):.3f} ({card})")
+    same = True
+    for src in SASS_SOURCES:
+        libs = [sorted(glob.glob(os.path.join(
+            root, "raytracing_in_one_weekend_tpu_torch", "_build",
+            f"lib{src}_*.so")), key=os.path.getmtime)[-1]
+            for root in (other, ROOT)]
+        theirs, mine = (sass_functions(lib) for lib in libs)
+        for name, code in theirs.items():
+            if "ELb1EE" in name:  # the streamed build, now a kernel of its own
+                continue
+            equal = mine.get(name) == code
+            same &= equal
+            print(f"SASS {src} {name}: {len(code)} instructions, "
+                  f"{'identical' if equal else 'DIFFERENT'}")
+    print(f"SASS of the sphere-only and triangle builds and megatrace_wave: "
+          f"{'identical' if same else 'not identical'}")
+    return 0
 
 
 def main() -> int:
@@ -2243,4 +2553,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--against":
+        sys.exit(against(sys.argv[2]))
     sys.exit(main())

@@ -45,21 +45,34 @@
 // flops a triangle, three times a sphere's, so mesh scenes are ALU-bound
 // in the blocks a ray cannot skip.
 //
-// Streamed meshes (a third instantiation, kStream; TRI_MAX < T <=
-// TRI_STREAM_MAX): the JAX kernel keeps such tables in HBM and DMAs a
-// super-block of 16 blocks into VMEM when a tile may hit it.  On Hopper
-// nothing has to stream: 262,144 triangles are 46 MB of tables in device
-// memory, and mesh_huge's (~18 MB) fit the 50 MB L2.  The arm is the
-// triangle arm above with one more cull level, one slab test per 16
-// blocks before their own, made per lane like the block test, and no row
-// cap.  Lanes follow the caller's `pixel_index` (the renderer passes a
-// Morton order), so the lanes of a warp trace neighbouring pixels and
-// their culls agree; the hash PRNG stays keyed by the lane, as in JAX.
+// Streamed meshes (TRI_MAX < T <= TRI_STREAM_MAX) take a kernel of their
+// own, megatrace_stream_kernel.  The JAX kernel keeps such tables in HBM
+// and DMAs a super-block of 16 blocks into VMEM when a tile may hit it; on
+// Hopper 262,144 triangles are 46 MB of tables in device memory, and
+// mesh_huge's (~18 MB) fit the 50 MB L2.  What bounds it is ALU work in
+// the triangle sweep (56 flops a ray-triangle test, 26 an AABB) and how
+// much of it a warp's lanes share: with one thread a lane walking the
+// supers in index order, a warp ran a block's 192 rows whenever any one of
+// its lanes passed the block's test.  Here a thread block is a group of
+// kGroup = 128 lanes that run iteration `it` of the batch in lockstep: each
+// live lane's sphere sweep, then group_sweep.cuh's group traversal (the
+// bounce-synchronous sampler's: the group's near-to-far super order, an
+// early stop, one vote per super for the blocks to stage by TMA, the
+// (lane, row) pairs of each staged block dealt to all 128 threads, a
+// lane's best hit as one (t, row) key lowered by atomicMin, so the winner
+// is the index-order sweep's), then each live lane's shading.  A lane
+// whose samples have ended (or that has none, or lies past n) is dead: it
+// reaches every barrier, never votes and writes nothing; the block leaves
+// the loop when no lane has samples left.  The camera and sky constants,
+// the same for the whole block, sit in shared memory.  Lanes follow the
+// caller's `pixel_index` (the renderer passes a Morton order, so a group
+// is a 16x8 tile of pixels); the hash PRNG stays keyed by the lane, as in
+// JAX.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "megatrace_bounce.cuh"
+#include "group_sweep.cuh"
 
 namespace {
 
@@ -67,8 +80,89 @@ using namespace rtiw;
 
 constexpr int kOutRows = 18;
 constexpr int kThreads = 128;
+constexpr int kConsts = 30;  // camera row (24) | sky bottom | sky top
 
-template <bool kTris, bool kStream>
+// Start the next sample of a lane at pixel (px_row, py_row): the thin-lens
+// camera ray (View.cs:38-48) of the camera row `cam` (origin, lower_left,
+// horizontal, vertical, right, up, lens_radius, width, height) with the
+// uniforms of hash base `base`, and a fresh path.
+__device__ __forceinline__ void camera_ray(Path& p, const float* cam,
+                                           uint32_t base, float px_row,
+                                           float py_row, int jitter) {
+  const float lens_radius = cam[18], width = cam[19], height = cam[20];
+  const float jx = jitter ? uniform(base, 0) : 0.5f;
+  const float jy = jitter ? uniform(base, 1) : 0.5f;
+  const float un = (px_row + jx) / width;
+  const float vn = (py_row + jy) / height;
+  const float theta = uniform(base, 2) * kTwoPi;
+  const float radius = sqrtf(uniform(base, 3)) * lens_radius;
+  const float rdx = radius * cos_cr(theta);
+  const float rdy = radius * sin_cr(theta);
+  const float offx = fmaf(rdx, cam[12], rdy * cam[15]);
+  const float offy = fmaf(rdx, cam[13], rdy * cam[16]);
+  const float offz = fmaf(rdx, cam[14], rdy * cam[17]);
+  float cdx = fmaf(vn, cam[9], fmaf(un, cam[6], cam[3] - offx));
+  float cdy = fmaf(vn, cam[10], fmaf(un, cam[7], cam[4] - offy));
+  float cdz = fmaf(vn, cam[11], fmaf(un, cam[8], cam[5] - offz));
+  normalize3(cdx, cdy, cdz);
+  p.ox = cam[0] + offx;
+  p.oy = cam[1] + offy;
+  p.oz = cam[2] + offz;
+  p.dx = cdx;
+  p.dy = cdy;
+  p.dz = cdz;
+  p.thx = p.thy = p.thz = 1.f;
+  p.rx = p.ry = p.rz = 0.f;
+  p.anx = p.any = p.anz = p.aax = p.aay = p.aaz = 0.f;
+  p.got = false;
+  p.events = 0.f;
+  p.valid = false;
+  p.active = true;
+}
+
+// A lane's bookkeeping after the bounce at path depth `depth`: its ray,
+// the depth cut (depth exhaustion fails the sample,
+// SampleBatchJob.cs:380-381) and, when the sample ended, its deltas into
+// the accumulators `acc` and the fallback AOVs while the pixel has no
+// valid sample yet (SampleBatchJob.cs:146-151; captured valid or not).
+// Returns the path's new depth.
+__device__ __forceinline__ int close_bounce(Path& p, int depth,
+                                            int trace_depth, float cin,
+                                            float* acc) {
+  depth += 1;
+  acc[11] += 1.0f;  // rays
+  if (p.active && depth >= trace_depth) p.active = false;
+  if (!p.active) {
+    if (p.valid) {
+      acc[0] += p.rx;
+      acc[1] += p.ry;
+      acc[2] += p.rz;
+      acc[4] += p.anx;
+      acc[5] += p.any;
+      acc[6] += p.anz;
+      acc[7] += p.aax;
+      acc[8] += p.aay;
+      acc[9] += p.aaz;
+      acc[10] += p.events;
+    }
+    if (cin + acc[3] < 0.5f) {
+      acc[12] = p.anx;
+      acc[13] = p.any;
+      acc[14] = p.anz;
+      acc[15] = p.aax;
+      acc[16] = p.aay;
+      acc[17] = p.aaz;
+    }
+    if (p.valid) acc[3] += 1.0f;
+  }
+  return depth;
+}
+
+// The sphere-only (kTris false) and VMEM-triangle builds.  pixel_index
+// goes unused here (only streamed lanes follow a pixel order); it stays
+// in the parameter list, so these builds compile to the code they had
+// before the streamed kernel split off (chip_smoke.py --against).
+template <bool kTris>
 __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
     const float* __restrict__ pixel_index, const float* __restrict__ consts,
@@ -85,19 +179,17 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
 
   // camera row: origin, lower_left, horizontal, vertical, right, up,
   // lens_radius, width, height | sky bottom | sky top
-  float cam[30];
+  float cam[kConsts];
 #pragma unroll
-  for (int k = 0; k < 30; ++k) cam[k] = __ldg(consts + k);
-  const float lens_radius = cam[18], width = cam[19], height = cam[20];
+  for (int k = 0; k < kConsts; ++k) cam[k] = __ldg(consts + k);
+  const float width = cam[19];
 
   const float per_pixel = lane_count[i];
   const float cin = count_in[i];
   // global lane id through float32, as the JAX kernel keys its PRNG
   const uint32_t lane = (uint32_t)(int)((float)i + (float)lane_base);
   const uint32_t lane_key = (uint32_t)seed + lane * 9781u;
-  // the pixel this lane renders: pixel_index (streamed build) or the lane
-  const float pixel =
-      (kStream && pixel_index != nullptr) ? pixel_index[i] : (float)i;
+  const float pixel = (float)i;
   const float py_row = floorf(pixel / width);
   const float px_row = pixel - py_row * width;
 
@@ -114,76 +206,15 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
     const uint32_t salt = (uint32_t)it * kSaltStep;
     if (!p.active) {
       if (started >= per_pixel) break;  // this lane's samples are done
-      // ---- regenerate: thin-lens camera ray (View.cs:38-48) ----------
-      const uint32_t base = lane_key + salt;
-      const float jx = jitter ? uniform(base, 0) : 0.5f;
-      const float jy = jitter ? uniform(base, 1) : 0.5f;
-      const float un = (px_row + jx) / width;
-      const float vn = (py_row + jy) / height;
-      const float theta = uniform(base, 2) * kTwoPi;
-      const float radius = sqrtf(uniform(base, 3)) * lens_radius;
-      const float rdx = radius * cos_cr(theta);
-      const float rdy = radius * sin_cr(theta);
-      const float offx = fmaf(rdx, cam[12], rdy * cam[15]);
-      const float offy = fmaf(rdx, cam[13], rdy * cam[16]);
-      const float offz = fmaf(rdx, cam[14], rdy * cam[17]);
-      float cdx = fmaf(vn, cam[9], fmaf(un, cam[6], cam[3] - offx));
-      float cdy = fmaf(vn, cam[10], fmaf(un, cam[7], cam[4] - offy));
-      float cdz = fmaf(vn, cam[11], fmaf(un, cam[8], cam[5] - offz));
-      normalize3(cdx, cdy, cdz);
-      p.ox = cam[0] + offx;
-      p.oy = cam[1] + offy;
-      p.oz = cam[2] + offz;
-      p.dx = cdx;
-      p.dy = cdy;
-      p.dz = cdz;
-      p.thx = p.thy = p.thz = 1.f;
-      p.rx = p.ry = p.rz = 0.f;
-      p.anx = p.any = p.anz = p.aax = p.aay = p.aaz = 0.f;
-      p.got = false;
-      p.events = 0.f;
+      camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
       depth = 0;
-      p.valid = false;
-      p.active = true;
       started = started + 1.0f;
     }
-
-    // ---- one bounce (megatrace_bounce.cuh) -------------------------------
-    const int winner = bounce<kTris, kStream>(
+    const int winner = bounce<kTris>(
         p, sph, s, rec, t_min, has_dielectrics != 0, sky_on != 0, cam + 24,
         lane_key + salt + kSaltBounce, depth, tri);
     if (tape != nullptr) tape[(size_t)it * n + i] = (float)winner;
-
-    // ---- per-lane bookkeeping ------------------------------------------
-    depth += 1;
-    acc[11] += 1.0f;  // rays
-    // depth exhaustion fails the sample (SampleBatchJob.cs:380-381)
-    if (p.active && depth >= trace_depth) p.active = false;
-    if (!p.active) {
-      if (p.valid) {
-        acc[0] += p.rx;
-        acc[1] += p.ry;
-        acc[2] += p.rz;
-        acc[4] += p.anx;
-        acc[5] += p.any;
-        acc[6] += p.anz;
-        acc[7] += p.aax;
-        acc[8] += p.aay;
-        acc[9] += p.aaz;
-        acc[10] += p.events;
-      }
-      // fallback AOVs while the pixel has no valid sample yet
-      // (SampleBatchJob.cs:146-151; captured valid or not)
-      if (cin + acc[3] < 0.5f) {
-        acc[12] = p.anx;
-        acc[13] = p.any;
-        acc[14] = p.anz;
-        acc[15] = p.aax;
-        acc[16] = p.aay;
-        acc[17] = p.aaz;
-      }
-      if (p.valid) acc[3] += 1.0f;
-    }
+    depth = close_bounce(p, depth, trace_depth, cin, acc);
   }
   if (tape != nullptr) {
     for (; it < iters; ++it) tape[(size_t)it * n + i] = -2.0f;  // idle
@@ -192,15 +223,88 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
   for (int k = 0; k < kOutRows; ++k) out[(size_t)k * n + i] = acc[k];
 }
 
+// The streamed build: kGroup lanes a block in lockstep (see the top of
+// this file); no tape.
+__global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
+    const float* __restrict__ lane_count, const float* __restrict__ count_in,
+    const float* __restrict__ pixel_index, const float* __restrict__ consts,
+    const float4* __restrict__ sph_g, const float* __restrict__ rec,
+    TriScene tri, float* __restrict__ out, int n, int s, int seed,
+    int lane_base, int samples, int trace_depth, float t_min,
+    int has_dielectrics, int sky_on, int jitter) {
+  extern __shared__ float4 sph[];
+  __shared__ __align__(128) GroupShared g;
+  __shared__ float cam[kConsts];
+  for (int k = threadIdx.x; k < s; k += kGroup) sph[k] = sph_g[k];
+  if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
+  group_init(g);
+  __syncthreads();
+
+  const int i = blockIdx.x * kGroup + threadIdx.x;
+  // a lane past n has no samples
+  const float per_pixel = i < n ? lane_count[i] : 0.f;
+  const float cin = i < n ? count_in[i] : 0.f;
+  // global lane id through float32, as the JAX kernel keys its PRNG
+  const uint32_t lane = (uint32_t)(int)((float)i + (float)lane_base);
+  const uint32_t lane_key = (uint32_t)seed + lane * 9781u;
+  const float pixel =
+      i >= n ? 0.f : pixel_index != nullptr ? pixel_index[i] : (float)i;
+  const float py_row = floorf(pixel / cam[19]);
+  const float px_row = pixel - py_row * cam[19];
+
+  Path p{};  // idle until its first sample starts
+  float started = 0.f;
+  int depth = 0;
+  float acc[kOutRows];
+#pragma unroll
+  for (int k = 0; k < kOutRows; ++k) acc[k] = 0.f;
+  GroupCursor cursor;
+
+  const int iters = samples * trace_depth;
+  for (int it = 0; it < iters; ++it) {
+    // live: this lane bounces in iteration `it` (a sample in flight, or
+    // one more to start); the block stops when no lane is
+    const bool live = p.active || started < per_pixel;
+    if (!__syncthreads_or(live)) break;
+    const uint32_t salt = (uint32_t)it * kSaltStep;
+    if (live && !p.active) {
+      camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
+      depth = 0;
+      started = started + 1.0f;
+    }
+    float best_t = 0.f;
+    int best = 0;
+    if (live) sphere_sweep(p, sph, s, t_min, best_t, best);
+    bool tri_wins;
+    int tri_idx;
+    float tri_u, tri_v;
+    group_hit(g, cursor, p, live, live, tri, t_min, best_t, tri_wins,
+              tri_idx, tri_u, tri_v);
+    if (live) {
+      shade<true>(p, best_t, best, tri_wins, tri_idx, tri_u, tri_v, rec,
+                  has_dielectrics != 0, sky_on != 0, cam + 24,
+                  lane_key + salt + kSaltBounce, depth, tri);
+      depth = close_bounce(p, depth, trace_depth, cin, acc);
+    }
+  }
+  if (i < n) {
+#pragma unroll
+    for (int k = 0; k < kOutRows; ++k) out[(size_t)k * n + i] = acc[k];
+  }
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Launches on `stream` and
-// returns cudaGetLastError() right after the launch.  tri_rows == 0 takes
+// returns cudaGetLastError() right after the launch (or the error of
+// setting the streamed kernel's shared memory, or cudaErrorInvalidValue
+// for a request the streamed kernel does not take).  tri_rows == 0 takes
 // the sphere-only build; otherwise tri_geo holds (tri_rows, 12) floats,
 // tri_aabb (tri_blocks, 8) and tri_rec (tri_rows, 32), and a triangle's
 // tape code is tri_code_base + its row.  tri_supers > 0 takes the
-// streamed build: tri_sup holds (tri_supers, 8) floats, tri_blocks is
-// 16 * tri_supers, and pixel_index (n floats, or null for lane i ->
+// streamed kernel: tri_sup holds (tri_supers <= kMaxSupers, 8) floats,
+// tri_blocks is 16 * tri_supers, tri_geo is 16-byte aligned (TMA copies
+// it), there is no tape, and pixel_index (n floats, or null for lane i ->
 // pixel i) names each lane's pixel.
 extern "C" int rtiw_megatrace_batch(
     const float* lane_count, const float* count_in, const float* pixel_index,
@@ -211,7 +315,6 @@ extern "C" int rtiw_megatrace_batch(
     int seed, int lane_base, int samples, int trace_depth, float t_min,
     int has_dielectrics, int sky_on, int jitter, void* stream) {
   if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
     const size_t shmem = (size_t)s * sizeof(float4);
     TriScene tri;
     tri.geo = reinterpret_cast<const float4*>(tri_geo);
@@ -222,14 +325,32 @@ extern "C" int rtiw_megatrace_batch(
     tri.blocks = tri_blocks;
     tri.supers = tri_supers;
     tri.code_base = tri_code_base;
-    auto kernel = tri_supers > 0 ? megatrace_batch_kernel<true, true>
-                  : tri_rows > 0 ? megatrace_batch_kernel<true, false>
-                                 : megatrace_batch_kernel<false, false>;
-    kernel<<<blocks, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
-        lane_count, count_in, pixel_index, consts,
-        reinterpret_cast<const float4*>(sph), rec, tri, out, tape, n, s,
-        seed, lane_base, samples, trace_depth, t_min, has_dielectrics,
-        sky_on, jitter);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (tri_supers > 0) {
+      if (tri_supers > kMaxSupers || tape != nullptr ||
+          reinterpret_cast<uintptr_t>(tri_geo) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      // the sphere table beside ~34 KB of static shared memory
+      const cudaError_t err = cudaFuncSetAttribute(
+          megatrace_stream_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      megatrace_stream_kernel<<<(n + kGroup - 1) / kGroup, kGroup, shmem,
+                                st>>>(
+          lane_count, count_in, pixel_index, consts,
+          reinterpret_cast<const float4*>(sph), rec, tri, out, n, s, seed,
+          lane_base, samples, trace_depth, t_min, has_dielectrics, sky_on,
+          jitter);
+    } else {
+      const int blocks = (n + kThreads - 1) / kThreads;
+      auto kernel = tri_rows > 0 ? megatrace_batch_kernel<true>
+                                 : megatrace_batch_kernel<false>;
+      kernel<<<blocks, kThreads, shmem, st>>>(
+          lane_count, count_in, pixel_index, consts,
+          reinterpret_cast<const float4*>(sph), rec, tri, out, tape, n, s,
+          seed, lane_base, samples, trace_depth, t_min, has_dielectrics,
+          sky_on, jitter);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,12 @@
 // One path-tracing bounce of one lane: the code the batch kernel
 // (megatrace_batch.cu), the per-ray megatrace (megatrace_wave.cu) and the
 // bounce-synchronous mesh sampler (meshtrace_sync.cu) share, as the JAX
-// package's kernels share pallas_megatrace.py::_bounce_step.  The sampler
-// runs its own cooperative triangle sweep between `sphere_sweep` and
-// `shade`; the others call `bounce`, which runs all three.  The triangle
-// arms are compile-time flags: the batch kernel's mesh builds take them,
-// the sphere-only builds compile none of it.  Plain version:
+// package's kernels share pallas_megatrace.py::_bounce_step.  The kernels
+// of streamed tables (the sampler's bounce, the batch kernel's streamed
+// build) run group_sweep.cuh's cooperative triangle sweep between
+// `sphere_sweep` and `shade`; the others call `bounce`, which runs all
+// three.  The triangle arm is a compile-time flag: the batch kernel's mesh
+// build takes it, the sphere-only builds compile none of it.  Plain version:
 // ops/megatrace.py::_bounce, under the precision contract of
 // megatrace_common.cuh.
 #pragma once
@@ -37,52 +38,6 @@ struct TriScene {
   const float4* sup = nullptr;
   int rows = 0, blocks = 0, code_base = 0, supers = 0;
 };
-
-// Does the ray (o, 1/d = iv) meet the AABB at box[0] (lo) .. box[1] (hi)
-// at or after t_min and before `bound`?  The JAX kernel's slab test.
-__device__ __forceinline__ bool slab_may(const float4* box, float ox,
-                                         float oy, float oz, float ivx,
-                                         float ivy, float ivz, float t_min,
-                                         float bound) {
-  const float4 lo = __ldg(box);
-  const float4 hi = __ldg(box + 1);
-  const float bx0 = (lo.x - ox) * ivx, bx1 = (hi.x - ox) * ivx;
-  const float by0 = (lo.y - oy) * ivy, by1 = (hi.y - oy) * ivy;
-  const float bz0 = (lo.z - oz) * ivz, bz1 = (hi.z - oz) * ivz;
-  const float b_near =
-      fmaxf(fminf(bx0, bx1), fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
-  const float b_far =
-      fminf(fmaxf(bx0, bx1), fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
-  return b_far >= fmaxf(b_near, t_min) && b_near < bound;
-}
-
-// Sweep triangle block `blk` of `tri` when the ray meets its AABB before
-// its best hit so far (best_t of the spheres, tri_t of earlier blocks): a
-// row wins only with a strictly smaller t, so the first row wins a tie.
-__device__ __forceinline__ void tri_block(
-    const TriScene& tri, int blk, float ox, float oy, float oz, float dx,
-    float dy, float dz, float ivx, float ivy, float ivz, float t_min,
-    float best_t, float& tri_t, int& tri_idx, float& tri_u, float& tri_v) {
-  if (!slab_may(tri.aabb + 2 * blk, ox, oy, oz, ivx, ivy, ivz, t_min,
-                fminf(tri_t, best_t)))
-    return;
-  const int end = min((blk + 1) * kTriBlock, tri.rows);
-  for (int k = blk * kTriBlock; k < end; ++k) {
-    const float4 g0 = __ldg(tri.geo + 3 * k);
-    const float4 g1 = __ldg(tri.geo + 3 * k + 1);
-    const float4 g2 = __ldg(tri.geo + 3 * k + 2);
-    float u, v;
-    const float t = moller_trumbore(ox, oy, oz, dx, dy, dz, g0.x, g0.y, g0.z,
-                                    g0.w, g1.x, g1.y, g1.z, g1.w, g2.x, t_min,
-                                    u, v);
-    if (t < tri_t) {
-      tri_t = t;
-      tri_idx = k;
-      tri_u = u;
-      tri_v = v;
-    }
-  }
-}
 
 // The state of one path (SampleBatchJob.cs:166-401).
 struct Path {
@@ -311,11 +266,11 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
 
 // Bounce the active path `p` once: `sphere_sweep`, with kTris the sweep
 // over the triangles of `tri` (a block is skipped when the ray misses its
-// AABB or meets it beyond the best hit so far, and with kStream so is a
-// whole super-block; a triangle wins only with a strictly smaller t, the
-// earlier row on a tie), then `shade`.  Returns the winner's tape code
-// (sphere row, or tri.code_base + triangle row), -1 on a miss.
-template <bool kTris = false, bool kStream = false>
+// AABB or meets it beyond the best hit so far; a triangle wins only with a
+// strictly smaller t, the earlier row on a tie), then `shade`.  Returns
+// the winner's tape code (sphere row, or tri.code_base + triangle row), -1
+// on a miss.
+template <bool kTris = false>
 __device__ __forceinline__ int bounce(
     Path& p, const float4* sph, int s, const float* __restrict__ rec,
     float t_min, bool has_dielectrics, bool sky_on, const float* sky,
@@ -332,48 +287,33 @@ __device__ __forceinline__ int bounce(
   if (kTris) {
     const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
     float tri_t = kBig;
-    if (kStream) {
-      // the JAX kernel's two-level cull, per lane: one slab test for
-      // kTriSup blocks, then the blocks of a super the ray may hit
-      for (int sup = 0; sup < tri.supers; ++sup) {
-        if (!slab_may(tri.sup + 2 * sup, ox, oy, oz, ivx, ivy, ivz, t_min,
-                      fminf(tri_t, best_t)))
-          continue;
-        for (int blk = sup * kTriSup; blk < (sup + 1) * kTriSup; ++blk)
-          tri_block(tri, blk, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min,
-                    best_t, tri_t, tri_idx, tri_u, tri_v);
-      }
-    } else {
-      // the same sweep written out, as the kTris build has compiled since
-      // it was written (tri_block generates one more register here)
-      for (int blk = 0; blk < tri.blocks; ++blk) {
-        const float4 lo = __ldg(tri.aabb + 2 * blk);
-        const float4 hi = __ldg(tri.aabb + 2 * blk + 1);
-        const float bx0 = (lo.x - ox) * ivx, bx1 = (hi.x - ox) * ivx;
-        const float by0 = (lo.y - oy) * ivy, by1 = (hi.y - oy) * ivy;
-        const float bz0 = (lo.z - oz) * ivz, bz1 = (hi.z - oz) * ivz;
-        const float b_near = fmaxf(fminf(bx0, bx1),
-                                   fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
-        const float b_far = fminf(fmaxf(bx0, bx1),
-                                  fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
-        if (!(b_far >= fmaxf(b_near, t_min) &&
-              b_near < fminf(tri_t, best_t)))
-          continue;
-        const int end = min((blk + 1) * kTriBlock, tri.rows);
-        for (int k = blk * kTriBlock; k < end; ++k) {
-          const float4 g0 = __ldg(tri.geo + 3 * k);
-          const float4 g1 = __ldg(tri.geo + 3 * k + 1);
-          const float4 g2 = __ldg(tri.geo + 3 * k + 2);
-          float u, v;
-          const float t =
-              moller_trumbore(ox, oy, oz, dx, dy, dz, g0.x, g0.y, g0.z, g0.w,
-                              g1.x, g1.y, g1.z, g1.w, g2.x, t_min, u, v);
-          if (t < tri_t) {  // strict: the first row wins a tie
-            tri_t = t;
-            tri_idx = k;
-            tri_u = u;
-            tri_v = v;
-          }
+    for (int blk = 0; blk < tri.blocks; ++blk) {
+      const float4 lo = __ldg(tri.aabb + 2 * blk);
+      const float4 hi = __ldg(tri.aabb + 2 * blk + 1);
+      const float bx0 = (lo.x - ox) * ivx, bx1 = (hi.x - ox) * ivx;
+      const float by0 = (lo.y - oy) * ivy, by1 = (hi.y - oy) * ivy;
+      const float bz0 = (lo.z - oz) * ivz, bz1 = (hi.z - oz) * ivz;
+      const float b_near = fmaxf(fminf(bx0, bx1),
+                                 fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
+      const float b_far = fminf(fmaxf(bx0, bx1),
+                                fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
+      if (!(b_far >= fmaxf(b_near, t_min) &&
+            b_near < fminf(tri_t, best_t)))
+        continue;
+      const int end = min((blk + 1) * kTriBlock, tri.rows);
+      for (int k = blk * kTriBlock; k < end; ++k) {
+        const float4 g0 = __ldg(tri.geo + 3 * k);
+        const float4 g1 = __ldg(tri.geo + 3 * k + 1);
+        const float4 g2 = __ldg(tri.geo + 3 * k + 2);
+        float u, v;
+        const float t =
+            moller_trumbore(ox, oy, oz, dx, dy, dz, g0.x, g0.y, g0.z, g0.w,
+                            g1.x, g1.y, g1.z, g1.w, g2.x, t_min, u, v);
+        if (t < tri_t) {  // strict: the first row wins a tie
+          tri_t = t;
+          tri_idx = k;
+          tri_u = u;
+          tri_v = v;
         }
       }
     }

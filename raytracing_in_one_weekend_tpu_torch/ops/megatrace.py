@@ -18,11 +18,14 @@ streamed meshes) and the deltas stay in lane order.
 * `sample_batch_reference` is the plain PyTorch version: vectorised over
   lanes, a Python loop over iterations, lanes processed in chunks so the
   (spheres or triangles, lanes) sweep temporaries stay bounded.
-* `csrc/megatrace_batch.cu` is the hand-written CUDA kernel for Hopper:
-  one thread per lane, path state in registers, sphere geometry staged in
-  shared memory, triangles read through the read-only cache (compile-time
-  arms: the sphere-only build is unchanged, the VMEM-triangle and the
-  streamed-triangle builds are instantiations of their own).
+* `csrc/megatrace_batch.cu` holds the hand-written CUDA kernels for
+  Hopper: one thread per lane, path state in registers, sphere geometry
+  staged in shared memory.  Sphere scenes and meshes of at most TRI_MAX
+  triangles take `megatrace_batch_kernel` (the triangle arm a compile-time
+  instantiation, triangles read through the read-only cache); streamed
+  tables take `megatrace_stream_kernel`, whose thread blocks of 128 lanes
+  run the iterations in lockstep and sweep the triangles together
+  (`csrc/group_sweep.cuh`, the bounce-synchronous sampler's traversal).
 * `sample_batch` is the wrapper: CPU tensors take the plain version; CUDA
   tensors launch the kernel or raise.  It counts launches in `LAUNCHES`.
 
@@ -82,6 +85,7 @@ TRI_MAX = 4096  # triangles of pack_tri_tables (the JAX kernel's VMEM
 # residence); beyond it pack_tri_stream_tables' streamed arm takes them
 TRI_STREAM_MAX = 262144  # triangles the streamed arm takes (JAX's cap)
 TRI_SUP = 16  # blocks under one super-block AABB (the second cull level)
+MAX_SUPERS = 128  # supers the streamed kernels order (TRI_STREAM_MAX's: 86)
 TRI_REC_ROWS = 32  # 0-10 material | 11 id | 12-20 vertex normals |
 #   21-23 vertex u | 24-26 vertex v
 TOO_MANY_TRIANGLES = (f"meshes of more than {TRI_STREAM_MAX} triangles "
@@ -1181,24 +1185,31 @@ def kernel_tri_tables(tri_tables):
     return tri_geo, aabb, rec.T.contiguous()
 
 
-def _kernel_stream_args(stream_tables, dev, s):
-    """The streamed build's table pointers and dimensions, after checking
-    pack_tri_stream_tables' shapes."""
+def _kernel_stream_args(stream_tables, dev, s, name="sample_batch"):
+    """The streamed kernels' table pointers and dimensions, after checking
+    pack_tri_stream_tables' shapes, the count of supers and the 16-byte
+    alignment of the rows (the kernels copy them with TMA)."""
     geo, rec, aabb, sup = stream_tables
     rows, n_sup = geo.shape[0], sup.shape[0]
     n_blk = n_sup * TRI_SUP
     want = dict(geo=(rows, 12), rec=(rows, TRI_REC_ROWS), aabb=(n_blk, 8),
                 sup=(n_sup, 8))
-    for name, t in zip(TriStream._fields, stream_tables):
-        if (tuple(t.shape) != want[name] or t.device != dev
+    for field, t in zip(TriStream._fields, stream_tables):
+        if (tuple(t.shape) != want[field] or t.device != dev
                 or t.dtype != torch.float32 or not t.is_contiguous()):
             raise ValueError(
-                f"sample_batch: tri_stream_tables.{name} has shape "
+                f"{name}: tri_stream_tables.{field} has shape "
                 f"{tuple(t.shape)} ({t.dtype}, {t.device}); want "
-                f"pack_tri_stream_tables' {want[name]} float32 on {dev}")
+                f"pack_tri_stream_tables' {want[field]} float32 on {dev}")
     if rows != n_blk * TRI_BLOCK:
-        raise ValueError(f"sample_batch: tri_stream_tables hold {rows} rows "
+        raise ValueError(f"{name}: tri_stream_tables hold {rows} rows "
                          f"for {n_sup} supers")
+    if n_sup > MAX_SUPERS:
+        raise ValueError(f"{name}: {n_sup} supers; the kernels order at "
+                         f"most {MAX_SUPERS}")
+    if geo.data_ptr() % 16:
+        raise ValueError(f"{name}: the triangle rows are not 16-byte "
+                         "aligned (the kernels copy them with TMA)")
     return ((geo.data_ptr(), aabb.data_ptr(), sup.data_ptr(),
              rec.data_ptr()), (rows, n_blk, n_sup, sphere_pad_count(s)))
 

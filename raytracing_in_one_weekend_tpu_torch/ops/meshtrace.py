@@ -63,10 +63,11 @@ ROW_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
             "aax", "aay", "aaz", "got", "events")
 _FLAGS = ("active", "valid", "got")
 
-SYNC_GROUP = 128  # lanes of one bounce_sync thread block (the kernel's
-# kGroup, checked at load; PERF.md has the readings that chose it)
+SYNC_GROUP = 128  # lanes of a thread block of the group traversal
+# (bounce_sync and the batch kernel's streamed build: csrc/group_sweep.cuh's
+# kGroup, checked when meshtrace_sync.cu loads; PERF.md has the readings
+# that chose it)
 _UNREACHED = 1e29  # tile_super_order's distances at or above: unreachable
-_MAX_SUPERS = 128  # supers the kernel orders (TRI_STREAM_MAX's: 86)
 
 SYNC_LAUNCHES = 0  # CUDA launches made by bounce_sync
 COMPACT_LAUNCHES = 0  # ... by pair_compact
@@ -365,12 +366,6 @@ def _check_state(name, state, contiguous=True):
                          "lane-id row is exact below 2^24")
 
 
-def _check_supers(name, sup):
-    if sup.shape[0] > _MAX_SUPERS:
-        raise ValueError(f"{name}: {sup.shape[0]} supers; the kernel orders "
-                         f"at most {_MAX_SUPERS}")
-
-
 def _bounce_sync_cuda(state, seed, salt, bounce, tables, stream, *, t_min,
                       has_dielectrics, sky_on):
     global SYNC_LAUNCHES
@@ -387,11 +382,7 @@ def _bounce_sync_cuda(state, seed, salt, bounce, tables, stream, *, t_min,
     if s > mk.SPH_CULL_MIN:
         raise ValueError(f"bounce_sync: {s} spheres; the kernel stages at "
                          f"most {mk.SPH_CULL_MIN} in shared memory")
-    tri_args, tri_dims = mk._kernel_stream_args(stream, dev, s)
-    if stream.geo.data_ptr() % 16:
-        raise ValueError("bounce_sync: the triangle rows are not 16-byte "
-                         "aligned (the kernel copies them with TMA)")
-    _check_supers("bounce_sync", stream.sup)
+    tri_args, tri_dims = mk._kernel_stream_args(stream, dev, s, "bounce_sync")
     lib = load_sync_kernel()
     err = lib.rtiw_meshtrace_sync(
         state.data_ptr(), state.shape[1], sph.data_ptr(), s, rec.data_ptr(),
@@ -412,7 +403,9 @@ def kernel_visit_order(state, sup):
     sup, SYNC_GROUP)` gives them.  For checks; not counted in
     SYNC_LAUNCHES."""
     _check_state("kernel_visit_order", state)
-    _check_supers("kernel_visit_order", sup)
+    if sup.shape[0] > mk.MAX_SUPERS:
+        raise ValueError(f"kernel_visit_order: {sup.shape[0]} supers; the "
+                         f"kernel orders at most {mk.MAX_SUPERS}")
     if (state.device.type != "cuda" or sup.device != state.device
             or sup.dim() != 2 or sup.shape[1] != 8
             or sup.dtype != torch.float32 or not sup.is_contiguous()):
