@@ -14,15 +14,17 @@ The second form compares this tree with another unpacked at DIR (say,
 the parent commit, by `git archive`): the SASS of megatrace_batch's
 sphere-only and triangle builds and of megatrace_wave, function by
 function, then `turn_readings` (the streamed arm, bounce_sync's bounce 1,
-forward and fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn a
-process of its own.  The first form needs one CUDA card.  Phases, each of
+the backward at 64 spp on the cover and 4 spp on mesh_showcase, forward
+and fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn a process
+of its own.  The first form needs one CUDA card.  Phases, each of
 which raises on failure:
   1. report the card (nvidia-smi name and power limit) and versions;
   2. build the seven kernel sources (csrc/megatrace_batch.cu,
      csrc/megatrace_bwd.cu, csrc/sphere_select.cu, csrc/megatrace_wave.cu,
      csrc/triangle_select.cu, csrc/meshtrace_sync.cu,
      csrc/meshtrace_permute.cu), one nvcc each, all at once; print
-     ptxas's register and spill lines;
+     ptxas's register and spill lines (the backward's tape scan and path
+     kernel among them);
   3. compare the batch kernel with its plain PyTorch version on the card
      (cover, 128x128, 8 spp, depth 8, two seeds): lanes whose winner tape,
      sample count and ray count are identical and whose float channels
@@ -45,9 +47,10 @@ which raises on failure:
      replay_iteration on every lane; each cotangent tensor
      (megatrace_bwd.STEP_COTANGENTS: every state vector, leaf, the camera
      row and the sky colors) within 5e-4 of its max abs;
-  7. backward kernel vs plain version (autograd over the plain replay) on
-     the cover, 128x128: 8 spp, depth 8, two seeds, and 4 spp, depth 35
-     (blocks of 35 iterations through the kernel's history); probe loss
+  7. backward kernels vs plain versions on the cover, 128x128: 8 spp,
+     depth 8, two seeds, and 4 spp, depth 35 (long paths); the tape scan's
+     path table equal to `scan_paths_reference`'s; the gradients against
+     autograd over the plain replay, probe loss
      sum(color / max(count, 1) * cos(0.37 i)): camera_row, centers,
      radii, records, sky_bottom and sky_top each within 5e-4 of the leaf's
      max abs; the replay's primal equal to the kernel's within 1e-4 on
@@ -57,16 +60,20 @@ which raises on failure:
      mean((color - target)^2), .backward() to the sphere centers, on the
      cover at 512x512, 64 spp, depth 8 (1 warm-up + 3 timed steps, median
      MRays/s counting the forward rays of the same seed, as bench.py
-     does), then at depth 35, 128 spp; gradients finite and nonzero, both
-     kernels launched, peak device memory printed.  The backward kernel is
-     also held to its plain version, as in phase 7, on the inputs the last
-     depth-8 step gave it;
+     does), then at depth 35, 128 spp; gradients finite and nonzero, the
+     batch kernel, the tape scan and the path kernel launched, peak device
+     memory printed.  The backward is also held to its plain version, as
+     in phase 7, on the inputs the last depth-8 step gave it;
   9. the trainer: diff.inverse.optimize, 10 Adam steps on three_spheres
      with perturbed centers at 128x128 (finite losses, backward kernel
      launched), then 10 steps on its albedos from 0.5: the last loss
      below half the first, the albedo error below half its start;
- 10. time the backward kernel and its plain version at 512x512, depth 8,
-     4 spp, and compare their gradients;
+ 10. time the backward (replay_grad) and its plain version at 512x512,
+     depth 8, 4 spp, and compare their gradients; then, by CUDA events at
+     4 and 64 spp, the tape scan's two launches alone (its wrapper's glue,
+     the offsets between them, apart) and the path kernel, with the path
+     statistics: paths, paths per length, and the share of warp slots the
+     grouping leaves idle;
  11. the wavefront's kernels against their plain versions on the card:
      sphere_select and sphere_select_full on random cases (512x37, 256x21,
      1024x5 with inactive blocks) and on one bounce of 512x512 cover
@@ -122,8 +129,8 @@ which raises on failure:
      of one smooth triangle (finite losses; without the silhouette term,
      ROADMAP step 12, they need not converge), then 10 on its albedo from
      0.5, which must (last loss below half the first, the albedo error
-     below half its start); (f) the backward kernel and its plain version
-     timed at 512x512, depth 8, 4 spp;
+     below half its start); (f) the backward and its plain version timed
+     at 512x512, depth 8, 4 spp, then the scan and the path kernel apart;
  18. the CLI (`python -m raytracing_in_one_weekend_tpu_torch`'s `main`)
      renders `--scene triangle` and `--scene mesh_showcase` on the card at
      256x256, 16 spp, depth 8 into a temporary directory of the checkout:
@@ -243,6 +250,67 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """(least milliseconds on the card, "operations" or "bytes")."""
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def path_stats(paths, trace_depth: int) -> dict:
+    """Of the scan's path table (P, 3) in the path kernel's order: the
+    paths, the paths of each length 1..trace_depth, and the share of the
+    kernel's warp slots (32 consecutive paths a warp, each running its
+    warp's longest length in reverse) that no path fills."""
+    lengths = paths[:, 2]
+    per_length = torch.bincount(lengths, minlength=trace_depth + 1)[1:]
+    pad = (-lengths.shape[0]) % 32
+    warps = torch.cat([lengths, lengths.new_zeros(pad)]).reshape(-1, 32)
+    slots = 32 * float(warps.max(1).values.sum())
+    return dict(paths=int(lengths.shape[0]), per_length=per_length.tolist(),
+                idle_warp_slots=(1.0 - float(lengths.sum()) / slots
+                                 if slots else 0.0))
+
+
+def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
+                 repeats: int):
+    """The backward's kernels alone by CUDA events after a warm-up: (the
+    tape scan's ms, its count and scatter launches alone; its wrapper's
+    glue, the offsets and allocations between them; the path kernel's ms;
+    the scan's path table, decoded)."""
+    s = tables[1].shape[0]
+    args = megatrace_bwd.kernel_args(
+        tape, lane_count,
+        megatrace_bwd._consts(tables[0], tables[4], tables[5]),
+        megatrace_replay.build_entity_rows(*tables[1:4], tri), s, *cots,
+        has_tris=tri is not None)
+    scan = (args["tape"], args["per_pixel"], kw["samples"], kw["trace_depth"])
+    wrapper_ms, paths = time_batch(megatrace_bwd._scan_cuda, *scan,
+                                   repeats=repeats)
+    counts = torch.empty((-(-lane_count.shape[0] // 128), kw["trace_depth"]),
+                         dtype=torch.int32, device=tape.device)
+    count_ms, _ = time_batch(megatrace_bwd._scan_launch, *scan,
+                             counts=counts, repeats=repeats)
+    offsets, total = megatrace_bwd._scan_offsets(counts)
+    into = torch.empty((total, 2), dtype=torch.int32, device=tape.device)
+    scatter_ms, _ = time_batch(megatrace_bwd._scan_launch, *scan,
+                               offsets=offsets, paths=into, repeats=repeats)
+    if not torch.equal(megatrace_bwd.canonical_paths(
+            megatrace_bwd.decode_paths(into)),
+            megatrace_bwd.canonical_paths(megatrace_bwd.decode_paths(paths))):
+        raise RuntimeError("the timed scan launches wrote another path table")
+    paths_ms, _ = time_batch(
+        megatrace_bwd._paths_cuda, paths, args, seed, 0, repeats=repeats,
+        trace_depth=kw["trace_depth"], t_min=0.0,
+        has_dielectrics=kw["has_dielectrics"], sky_on=True, jitter=True)
+    scan_ms = count_ms + scatter_ms
+    return (scan_ms, wrapper_ms - scan_ms, paths_ms,
+            megatrace_bwd.decode_paths(paths))
+
+
+def bwd_bound(live: float, paths: int, n: int, table_bytes: float,
+              extra_flops: float = 0.0):
+    """The path kernel's bound: its operations (BWD_FLOPS a live
+    iteration, plus `extra_flops`) or its bytes (the live tape codes, the
+    path table, the lane counts and cotangents, the entity rows it reads,
+    `table_bytes`, and the camera and sky)."""
+    return bound(live * BWD_FLOPS + extra_flops,
+                 live * 4 + paths * 8 + n * 4 * 5 + table_bytes + 4 * 30)
 
 
 def card_line() -> str:
@@ -457,6 +525,30 @@ def step_vjp_check(dev, scene, cs, label: str = "cover") -> float:
     return worst
 
 
+def path_table_error(got, want, label: str) -> int:
+    """The largest difference between the rows (lane, first iteration,
+    length) of two path tables, both sorted longest first, then by lane and
+    first iteration; raises unless they are equal."""
+    same = got.shape == want.shape
+    err = int((got - want).abs().max()) if same and got.shape[0] else 0
+    if not same or err != 0:
+        raise RuntimeError(f"tape scan vs plain ({label}): {got.shape[0]} "
+                           f"paths against {want.shape[0]}, not equal")
+    return err
+
+
+def check_scan(tape, lane_count, samples: int, depth: int,
+               label: str) -> int:
+    """The tape scan kernel's path table against its plain version's: the
+    largest difference of their rows (path_table_error)."""
+    got = megatrace_bwd.canonical_paths(megatrace_bwd.scan_paths(
+        tape, lane_count, samples=samples, trace_depth=depth))
+    want = megatrace_bwd.scan_paths_reference(tape, lane_count, depth)
+    err = path_table_error(got, want, label)
+    print(f"tape scan vs plain, {label}: {want.shape[0]} paths, equal")
+    return err
+
+
 def fwd_bwd_steps(scene, camera, target, width, height, samples, depth,
                   seeds):
     """Forward+backward steps through render_image(differentiable=True):
@@ -508,8 +600,9 @@ def differentiable_phases(dev, card, scene, cs, camera, target) -> dict:
     n = w * h
     _, tables = batch_inputs(scene, cs, w, h, dev)
     max_abs = max_rel = 0.0
+    scan_err = 0
     shares = []
-    # depth 35 runs blocks of 35 iterations through the per-lane history
+    # depth 35 runs paths longer than any at depth 8
     for spp, depth, seed in ((8, 8, 11), (8, 8, 12), (4, 35, 13)):
         lane_count = torch.full((n,), spp, dtype=torch.int32, device=dev)
         kw = dict(samples=spp, trace_depth=depth,
@@ -517,6 +610,9 @@ def differentiable_phases(dev, card, scene, cs, camera, target) -> dict:
         fwd = megatrace.sample_batch(lane_count, torch.zeros(n, device=dev),
                                      *tables, seed, want_tape=True, **kw)
         cots = probe_cotangents(fwd["color"], fwd["count"])
+        scan_err = max(scan_err, check_scan(
+            fwd["tape"], lane_count, spp, depth,
+            f"cover {w}x{h} {spp} spp depth {depth}"))
         got = megatrace_bwd.replay_grad(fwd["tape"], lane_count, *tables,
                                         seed, *cots, **kw)
         torch.cuda.synchronize()
@@ -547,18 +643,22 @@ def differentiable_phases(dev, card, scene, cs, camera, target) -> dict:
                             (128, 35, "depth35_fwd_bwd_mrays")):
         seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
                  for _ in range(4)]
+        megatrace_bwd.SCAN_LAUNCHES = 0
         rate, rays, launches, peak, call = fwd_bwd_steps(
             scene, camera, target, width, height, samples, d, seeds)
+        scans = megatrace_bwd.SCAN_LAUNCHES
+        if scans == 0:
+            raise RuntimeError(f"fwd+bwd at depth {d}: no tape scan launch")
         rates[key], peaks[d] = rate, peak
         tape_gb = samples * d * width * height * 4 / 1e9
-        ckpt_gb = samples * 21 * width * height * 4 / 1e9
+        table_gb = samples * width * height * 8 / 1e9
         print(f"fwd+bwd: cover {width}x{height} depth {d}, {samples} spp: "
               f"median {rate:.3f} MRays/s over 3 steps ({rays:.0f} forward "
-              f"rays/step; launches batch {launches[0]}, backward "
-              f"{launches[1]}); peak {peak:.3f} GB (tape {tape_gb:.3f} GB, "
-              f"checkpoints {ckpt_gb:.3f} GB) [{card}]")
+              f"rays/step; launches batch {launches[0]}, tape scan {scans}, "
+              f"path kernel {launches[1]}); peak {peak:.3f} GB (tape "
+              f"{tape_gb:.3f} GB, path table {table_gb:.3f} GB) [{card}]")
         if d == 8:
-            out["launches"] = launches[1]
+            out["launches"], out["scan_launches"] = launches[1], scans
             # the plain version on the inputs the main path gave the
             # backward kernel (the last timed step)
             args, kwargs, got = call
@@ -620,33 +720,62 @@ def differentiable_phases(dev, card, scene, cs, camera, target) -> dict:
         raise RuntimeError("the albedo fit did not converge")
     out["albedo_fit_losses"] = losses
 
-    # ---- 10. backward kernel vs plain time, 512x512, depth 8, 4 spp ---------
+    # ---- 10. backward vs plain time, 512x512, depth 8, 4 and 64 spp ---------
     _, tables = batch_inputs(scene, cs, width, height, dev)
     n = width * height
-    lane_count = torch.full((n,), 4, dtype=torch.int32, device=dev)
-    kw = dict(samples=4, trace_depth=8,
-              has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
-    fwd = megatrace.sample_batch(lane_count, torch.zeros(n, device=dev),
-                                 *tables, 7, want_tape=True, **kw)
-    cots = probe_cotangents(fwd["color"], fwd["count"])
-    args = (fwd["tape"], lane_count, *tables, 7, *cots)
-    ms, got = time_batch(megatrace_bwd.replay_grad, *args, repeats=5, **kw)
-    plain_ms, want = time_batch(megatrace_bwd.replay_grad_reference, *args,
-                                repeats=1, **kw)
-    a, r = leaf_errors(got, want)
-    max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-    live = float(fwd["rays"].sum())  # live iterations of the tape
     s_count = tables[1].shape[0]
-    bound_ms, bound_by = bound(
-        live * BWD_FLOPS,
-        fwd["tape"].numel() * 4 + n * 4 * 5 + s_count * 4 * 16 + 4 * 30)
-    print(f"512x512 depth 8, 4 spp backward: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({live:.0f} live iterations); max error {r:.3e} of the leaf's "
-          f"max abs [{card}]")
-    out.update(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-               max_rel_err=max_rel, bound_ms=bound_ms, bound_by=bound_by)
+    for spp in (4, 64):
+        lane_count = torch.full((n,), spp, dtype=torch.int32, device=dev)
+        kw = dict(samples=spp, trace_depth=8,
+                  has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
+        fwd = megatrace.sample_batch(lane_count, torch.zeros(n, device=dev),
+                                     *tables, 7, want_tape=True, **kw)
+        cots = probe_cotangents(fwd["color"], fwd["count"])
+        live = float(fwd["rays"].sum())  # live iterations of the tape
+        # the scan and the path kernel alone
+        scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+            tables, None, lane_count, fwd["tape"], cots, 7, kw,
+            5 if spp == 4 else 3)
+        bnd = bwd_bound(live, table.shape[0], n, s_count * 4 * 16)
+        stats = path_stats(table, 8)
+        print(f"backward kernels alone, cover 512x512 depth 8, {spp} spp "
+              f"(CUDA events): tape scan's two launches {scan_ms:.3f} ms "
+              f"(its wrapper's glue {glue_ms:.3f} ms more), path kernel "
+              f"{paths_ms:.3f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, "
+              f"{live:.0f} live iterations); {stats['paths']} paths, per "
+              f"length 1..8 {stats['per_length']}, idle warp slots "
+              f"{stats['idle_warp_slots']:.6f} [{card}]")
+        out[f"paths_{spp}spp"] = stats
+        if spp == 64:
+            out.update(ms_64spp=paths_ms, scan_ms_64spp=scan_ms,
+                       scan_glue_ms_64spp=glue_ms, bound_ms_64spp=bnd[0])
+            break
+        out.update(ms=paths_ms, bound_ms=bnd[0], bound_by=bnd[1])
+        # the wrapper and the plain versions, at 4 spp
+        args = (fwd["tape"], lane_count, *tables, 7, *cots)
+        ms, got = time_batch(megatrace_bwd.replay_grad, *args, repeats=5,
+                             **kw)
+        plain_ms, want = time_batch(megatrace_bwd.replay_grad_reference,
+                                    *args, repeats=1, **kw)
+        a, r = leaf_errors(got, want)
+        max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+        scan_plain_ms, want = time_batch(megatrace_bwd.scan_paths_reference,
+                                         fwd["tape"], lane_count, 8,
+                                         repeats=1)
+        scan_err = max(scan_err, path_table_error(
+            megatrace_bwd.canonical_paths(table), want,
+            "the timed scan, cover 512x512 4 spp"))
+        out["scan"] = dict(ms=scan_ms, glue_ms=glue_ms, plain_ms=scan_plain_ms,
+                           max_abs_err=scan_err, bound=bound(
+                               0.0, live * 4 + n * 4 + table.shape[0] * 8))
+        print(f"512x512 depth 8, 4 spp backward: replay_grad {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms; plain tape scan {scan_plain_ms:.3f}"
+              f" ms; max error {r:.3e} of the leaf's max abs [{card}]")
+        out.update(replay_grad_ms=ms, plain_ms=plain_ms,
+                   max_abs_err=max_abs, max_rel_err=max_rel)
+        del fwd, got, want, args, table
     return out
+
 
 def random_rays(n, s, seed, dev):
     """tests/test_pallas.py's random case: rays, spheres (centres, radii)."""
@@ -788,6 +917,7 @@ def kernel_ms(fn, kernel: str, repeats: int) -> float:
 
 def reset_launches() -> None:
     megatrace.LAUNCHES = megatrace.WAVE_LAUNCHES = megatrace_bwd.LAUNCHES = 0
+    megatrace_bwd.SCAN_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
     meshtrace.RESTORE_LAUNCHES = 0
@@ -1383,7 +1513,8 @@ def mesh_phases(dev, card) -> dict:
              for _ in range(4)]
     fb_mrays, rays_per, verts, centers = mesh_fwd_bwd_steps(
         scene, camera, target, width, seeds)
-    fb_launches = (megatrace.LAUNCHES, megatrace_bwd.LAUNCHES)
+    fb_launches = (megatrace.LAUNCHES, megatrace_bwd.LAUNCHES,
+                   megatrace_bwd.SCAN_LAUNCHES)
     for name, grad in (("vertices", verts.grad), ("centres", centers.grad)):
         if not bool(torch.isfinite(grad).all()) or float(grad.abs().max()) == 0:
             raise RuntimeError(f"bad mesh gradient to the {name}")
@@ -1396,7 +1527,8 @@ def mesh_phases(dev, card) -> dict:
           f"spp, gradients to {t_count} soup triangles' vertices and the "
           f"sphere centres: median {out['fwd_bwd_mrays']:.3f} MRays/s over 3 "
           f"steps ({rays_per:.0f} forward rays/step; launches batch "
-          f"{fb_launches[0]}, backward {fb_launches[1]}); peak "
+          f"{fb_launches[0]}, path kernel {fb_launches[1]}, tape scan "
+          f"{fb_launches[2]}); peak "
           f"{out['fwd_bwd_peak_gb']:.3f} GB [{card}]")
 
     # ---- 17b. the one-iteration VJP on triangle winners -----------------------
@@ -1412,6 +1544,8 @@ def mesh_phases(dev, card) -> dict:
         fwd = megatrace.sample_batch(lane_count, zeros, *tables, seed,
                                      want_tape=True, tri_tables=tri, **bkw)
         cots = probe_cotangents(fwd["color"], fwd["count"])
+        check_scan(fwd["tape"], lane_count, spp, depth,
+                   f"mesh_showcase {w}x{h} {spp} spp depth {depth}")
         got = megatrace_bwd.replay_grad(fwd["tape"], lane_count, *tables,
                                         seed, *cots, tri_tables=tri, **bkw)
         torch.cuda.synchronize()
@@ -1510,15 +1644,23 @@ def mesh_phases(dev, card) -> dict:
     live = float(fwd["rays"].sum())
     s_pad = megatrace.sphere_pad_count(s_count)
     tri_iters = float((fwd["tape"] >= s_pad).sum())
-    bwd_bound = bound(
-        live * BWD_FLOPS + tri_iters * 3 * MT_FLOPS,
-        fwd["tape"].numel() * 4 + n * 4 * 5 + s_count * 4 * 16
-        + t_pad * 4 * (16 + megatrace.TRI_REC_ROWS) + 4 * 30)
-    print(f"backward kernel, triangle arm, mesh_showcase 512x512 depth 8, "
-          f"4 spp ({live:.0f} live iterations, {tri_iters:.0f} at triangle "
-          f"winners): kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
-          f"bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]}; max error "
-          f"{r:.3e} of the leaf's max abs [{card}]")
+    scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+        args4[2:8], tri, args4[0], fwd["tape"], cots, 7, kw4, 5)
+    tri_bound = bwd_bound(
+        live, table.shape[0], n,
+        s_count * 4 * 16 + t_pad * 4 * (16 + megatrace.TRI_REC_ROWS),
+        tri_iters * 3 * MT_FLOPS)
+    stats = path_stats(table, 8)
+    print(f"backward, triangle arm, mesh_showcase 512x512 depth 8, 4 spp "
+          f"({live:.0f} live iterations, {tri_iters:.0f} at triangle "
+          f"winners): replay_grad {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} "
+          f"ms; alone (CUDA events) tape scan's two launches {scan_ms:.3f} "
+          f"ms (glue {glue_ms:.3f} ms more), path kernel "
+          f"{paths_ms:.3f} ms, bound {tri_bound[0]:.4f} ms by "
+          f"{tri_bound[1]}; {stats['paths']} paths, per length 1..8 "
+          f"{stats['per_length']}, idle warp slots "
+          f"{stats['idle_warp_slots']:.6f}; max error {r:.3e} of the leaf's "
+          f"max abs [{card}]")
 
     # ---- 18. the CLI on the mesh scenes ----------------------------------------
     t_phase = time.perf_counter()
@@ -1567,9 +1709,10 @@ def mesh_phases(dev, card) -> dict:
         plain_ms=batch_plain_ms, bound_ms=batch_bound[0],
         bound_by=batch_bound[1], parity_share=min(shares[-4:]))
     out["bwd_triangle_arm"] = dict(
-        launches=fb_launches[1], max_abs_err=bwd_abs, max_rel_err=bwd_rel,
-        ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0],
-        bound_by=bwd_bound[1])
+        launches=fb_launches[1], scan_launches=fb_launches[2],
+        max_abs_err=bwd_abs, max_rel_err=bwd_rel, ms=paths_ms,
+        scan_ms=scan_ms, scan_glue_ms=glue_ms, replay_grad_ms=bwd_ms, plain_ms=bwd_plain_ms,
+        bound_ms=tri_bound[0], bound_by=tri_bound[1], paths=stats)
     return {"kernel": kernel, "paths": out}
 
 
@@ -2216,15 +2359,35 @@ print("TURN " + json.dumps(smoke.turn_readings()))
 """
 
 
+def replay_grad_ms(scene, cs, width: int, samples: int, repeats: int):
+    """The backward, megatrace_bwd.replay_grad (its launches and its
+    wrapper's glue), by CUDA events after a warm-up, on the tape of one
+    forward batch (seed 7) at width x width, depth 8, probe cotangents:
+    the same call in this tree and in an older one."""
+    dev = torch.device("cuda", 0)
+    _, tables = batch_inputs(scene, cs, width, width, dev)
+    tri = tri_tables_of(scene)
+    n = width * width
+    lane_count = torch.full((n,), samples, dtype=torch.int32, device=dev)
+    kw = dict(samples=samples, trace_depth=8, tri_tables=tri,
+              has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
+    fwd = megatrace.sample_batch(lane_count, torch.zeros(n, device=dev),
+                                 *tables, 7, want_tape=True, **kw)
+    cots = probe_cotangents(fwd["color"], fwd["count"])
+    return time_batch(megatrace_bwd.replay_grad, fwd["tape"], lane_count,
+                      *tables, 7, *cots, repeats=repeats, **kw)[0]
+
+
 def turn_readings() -> dict:
     """One turn of `--against`, on the package found first on sys.path, at
     512x512, depth 8: the batch kernel's streamed arm on mesh_large (4
     spp, Morton lanes; CUDA events over 5 launches after a warm-up);
     bounce_sync at bounce 1 of the mesh_huge wave (median of 5 launches,
-    each alone); the forward MRays/s of render_batch (64 spp, median of 5
-    batches) on the cover, mesh_showcase and mesh_huge (the sync
-    sampler), and the fwd+bwd MRays/s of phases 8 (cover) and 17a
-    (mesh_showcase), median of 3 steps."""
+    each alone); the backward (`replay_grad_ms`) on the cover at 64 spp
+    and on mesh_showcase at 4 spp; the forward MRays/s of render_batch (64
+    spp, median of 5 batches) on the cover, mesh_showcase and mesh_huge
+    (the sync sampler), and the fwd+bwd MRays/s of phases 8 (cover) and
+    17a (mesh_showcase), median of 3 steps."""
     dev = torch.device("cuda", 0)
     for load in (megatrace.load_kernel, megatrace.load_wave_kernel,
                  megatrace_bwd.load_kernel, meshtrace.load_sync_kernel,
@@ -2261,6 +2424,9 @@ def turn_readings() -> dict:
         camera, _ = batch_inputs(scene, cs, width, width, dev)
         out[f"{name}_fwd"], _, acc = forward_mrays(scene, camera, width, 5)
         target = film.combine(acc, width, width).color.detach()
+        spp = 64 if name == "cover" else 4
+        out[f"{name}_bwd_{spp}spp_ms"] = replay_grad_ms(scene, cs, width,
+                                                        spp, 3)
         if name == "cover":
             out["cover_fwd_bwd"] = fwd_bwd_steps(
                 scene, camera, target, width, width, 64, 8, [1, 2, 3, 4])[0]
@@ -2527,12 +2693,31 @@ def main() -> int:
         "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_bwd.cu",
         "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
         "launches": bwd["launches"],
+        "scan_launches": bwd["scan_launches"],
         "max_abs_err": bwd["max_abs_err"],
         "max_rel_err": bwd["max_rel_err"],
         "ms": bwd["ms"],
+        "ms_64spp": bwd["ms_64spp"],
+        "replay_grad_ms": bwd["replay_grad_ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],
+        "bound_ms_64spp": bwd["bound_ms_64spp"],
         "bound_by": bwd["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "megatrace_bwd_scan",
+        "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_bwd.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
+        "launches": bwd["scan_launches"],
+        "max_abs_err": bwd["scan"]["max_abs_err"],
+        "ms": bwd["scan"]["ms"],
+        "glue_ms": bwd["scan"]["glue_ms"],
+        "ms_64spp": bwd["scan_ms_64spp"],
+        "glue_ms_64spp": bwd["scan_glue_ms_64spp"],
+        "plain_ms": bwd["scan"]["plain_ms"],
+        "bound_ms": bwd["scan"]["bound"][0],
+        "bound_by": bwd["scan"]["bound"][1],
         "library_ms": None,
     }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"]
     print(json.dumps({
@@ -2543,6 +2728,7 @@ def main() -> int:
         "replay_primal_share": bwd["replay_primal_share"],
         "peak_gb": bwd["peak_gb"], "trainer_losses": bwd["trainer_losses"],
         "albedo_fit_losses": bwd["albedo_fit_losses"],
+        "bwd_paths": {k: bwd[k] for k in ("paths_4spp", "paths_64spp")},
         "wavefront": wave["paths"], "mesh": mesh["paths"],
         "streamed": streamed["paths"]}))
     print(card)

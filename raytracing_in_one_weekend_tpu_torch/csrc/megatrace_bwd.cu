@@ -10,31 +10,46 @@
 // iteration against torch.autograd of the plain replay_iteration through
 // the second entry point, rtiw_replay_step_vjp.
 //
-// What bounds it on this card: ALU work and local-memory traffic per lane.
-// A lane runs its live iterations three times forward (the checkpoint
-// sweep, the block re-run, the adjoint's own recompute) and once in
-// reverse; device memory sees the tape (4 bytes per lane and iteration,
-// read twice) and 21 floats of block checkpoint per lane and block.
+// What bounds it on this card: ALU work.  Each live iteration is run
+// forward twice (the path's forward sweep, step_vjp's own recompute) and
+// once in reverse; device memory sees the tape (read by the scan, then
+// twice a live iteration by the path kernel) and a path table of 8 bytes a
+// path.  The parent design (one thread a lane, a 21-float checkpoint every
+// trace_depth iterations, a 64-deep local history) spent ~46% of its time
+// in same-address shared-memory atomics (PERF.md §6, step 0).
 //
-// The simple design: one thread per lane.  Phase 1 sweeps the tape forward
-// and stores the 21-float state at each block boundary (every trace_depth
-// iterations) to a global scratch laid out [block][var][lane], so the
-// stores coalesce.  Phase 2 walks the blocks in reverse, re-runs each into
-// a per-thread history (local memory) and applies the hand VJP of each
-// iteration.  A lane's tape is idle (-2) from its last sample on, so both
-// phases stop there.  Winner rows are a plain gather.  Entity-row
-// cotangents (13 columns) accumulate in shared memory per CTA with
-// atomics and are flushed once per CTA; the camera and sky cotangents are
-// reduced by warp shuffle, one atomic per warp and value.  What the TPU
+// The design rests on the adjoint being local to a path
+// (megatrace_replay_lane.cuh, "Paths").  Three launches:
+//  1. tape_scan_kernel (count): one thread a lane walks its tape column
+//     (the [it][lane] layout makes the reads coalesce) and counts its paths
+//     by length, per block;
+//  2. the wrapper turns the counts into each block's offsets, lengths
+//     longest first (a prefix sum in torch), and tape_scan_kernel
+//     (scatter) scans again, writing (lane, it0 * 64 + length - 1) to the
+//     path table: grouped by length, so the 32 paths of a warp share one
+//     length and no warp waits for another path's length;
+//  3. megatrace_paths_kernel: one thread a path.  Persistent blocks take
+//     warps of 32 paths from a counter.  A path runs forward from its regen
+//     state with step_forward, keeping the 15 floats each iteration reads
+//     (o, d, th, rad, lp, valid, depth) in a per-thread array in local
+//     memory (L1; shared-memory slots measured no faster), then applies
+//     step_vjp in reverse.
+// Winner-row cotangents: the threads of a warp whose step hit the same row
+// sum their rows first (__match_any_sync, then a shuffle tree over each
+// row's peers), and one thread a row adds it with one atomic a column:
+// sphere rows into a shared (s, 13) table flushed once a block, triangle
+// rows (up to TRI_MAX x 28) into device memory.  Camera and sky cotangents
+// (30) accumulate in a shared row per thread, touched only at regen and
+// sky-miss steps, and are summed per warp at each path's end.  What the TPU
 // kernel needed and this one drops: the (8, 128) lane packing, the one-hot
-// MXU winner fetch and scatter, and the VMEM history budget.
+// MXU winner fetch and scatter, the VMEM history budget, and the fixed
+// checkpoint blocks that its lockstep lane tiles forced.
 //
 // Mesh scenes take a second instantiation (kTris; the sphere-only one
 // compiles none of it): the entity table is the whole padded row space
 // (38 columns), a triangle winner's adjoint runs Möller–Trumbore and the
 // normal lerp backwards (megatrace_replay_lane.cuh::tri_hit_vjp), and its
-// 28-column cotangent row goes to device memory with atomics: 4096 rows
-// of it (459 KB) do not fit in shared memory, where the sphere rows stay.
+// 28-column cotangent row goes to device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,52 +61,179 @@ namespace {
 using namespace rtiw;
 
 constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGsStride = kScal + 1;  // odd: a warp's rows and columns
+//                                       both spread over the 32 banks
 
-template <bool kTris>
-__global__ void __launch_bounds__(kThreads) megatrace_bwd_kernel(
+// The scan: count mode (paths == nullptr) writes each block's path count
+// per length to counts[block][length - 1]; scatter mode writes each path
+// to paths[offsets[block][length - 1] + its rank in the block].
+__global__ void __launch_bounds__(kThreads) tape_scan_kernel(
     const float* __restrict__ tape, const float* __restrict__ lane_count,
-    const float* __restrict__ consts, const float* __restrict__ ent,
-    const float* __restrict__ cot, float* __restrict__ ckpt,
+    int* __restrict__ counts, const int* __restrict__ offsets,
+    int2* __restrict__ paths, int n, int iters, int trace_depth) {
+  __shared__ int s_count[kMaxDepth];
+  for (int k = threadIdx.x; k < trace_depth; k += blockDim.x) s_count[k] = 0;
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t row = (size_t)blockIdx.x * trace_depth;
+  if (i < n)
+    scan_lane(tape, n, i, iters, lane_count[i], trace_depth,
+              [&](int it0, int len) {
+                const int r = atomicAdd(&s_count[len - 1], 1);
+                if (paths != nullptr)
+                  paths[offsets[row + len - 1] + r] =
+                      make_int2(i, path_code(it0, len));
+              });
+  __syncthreads();
+  if (paths == nullptr)
+    for (int k = threadIdx.x; k < trace_depth; k += blockDim.x)
+      counts[row + k] = s_count[k];
+}
+
+// Position of the k-th (from 0) set bit of m.
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const unsigned low = m & ((1u << w) - 1u);
+    const int c = __popc(low);
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    } else {
+      m = low;
+    }
+  }
+  return pos;
+}
+
+// A warp's winner rows: every thread calls it at every reverse step.  The
+// threads with the same row w >= 0 (its peers) sum their cotangent rows by
+// a shuffle tree over their ranks among the peers, and the first of them
+// adds the sum (Add: EntityAdd or MeshEntityAdd, one atomic a nonzero
+// column).
+template <bool kTris, class Add>
+struct WarpEntityAdd {
+  Add add;
+  __device__ void operator()(int w, float* ge) const {
+    constexpr int cols = Layout<kTris>::grad;
+    const int lane = threadIdx.x & 31;
+    const unsigned peers = __match_any_sync(kFull, w);
+    const int cnt = __popc(peers);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    const unsigned most = __reduce_max_sync(kFull, w >= 0 ? cnt : 1);
+    for (int s = 1; s < (int)most; s <<= 1) {
+      const bool take = (rank & (2 * s - 1)) == 0 && rank + s < cnt;
+      const int src = take ? nth_bit(peers, rank + s) : lane;
+#pragma unroll
+      for (int k = 0; k < cols; ++k) {
+        const float v = __shfl_sync(kFull, ge[k], src);
+        if (take) ge[k] += v;
+      }
+    }
+    if (rank == 0) add(w, ge);
+  }
+};
+
+// Sums the camera and sky cotangents of a warp's 32 rows (row t at
+// s_gs + t * kGsStride) into s_sum and zeroes the rows; every thread of
+// the warp calls it.
+__device__ void flush_scal(float* warp_rows, float* own_row, float* s_sum) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  if (lane < kScal) {
+    float v = 0.0f;
+    for (int t = 0; t < 32; ++t) v += warp_rows[t * kGsStride + lane];
+    if (v != 0.0f) atomicAdd(s_sum + lane, v);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < kScal; ++k) own_row[k] = 0.0f;
+  __syncwarp();
+}
+
+// The plain row adder of each build.
+template <bool kTris>
+struct RowAdd {
+  using type = EntityAdd;
+  __device__ static EntityAdd make(float* base, float*, int) {
+    return EntityAdd{base};
+  }
+};
+template <>
+struct RowAdd<true> {
+  using type = MeshEntityAdd;
+  __device__ static MeshEntityAdd make(float* base, float* tri,
+                                       int tri_base) {
+    return MeshEntityAdd{base, tri, tri_base};
+  }
+};
+
+// Three blocks an SM (at most 168 registers, some spilled) measured
+// faster on an H100 than the compiler's 242 at 64 spp, and four slower
+// (PERF.md, kernel #2).
+template <bool kTris>
+__global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
+    const float* __restrict__ tape, const int2* __restrict__ paths,
+    int total, int* __restrict__ next_warp,
+    const float* __restrict__ lane_count, const float* __restrict__ consts,
+    const float* __restrict__ ent, const float* __restrict__ cot,
     float* __restrict__ dent, float* __restrict__ dscal,
     float* __restrict__ dent_tri, int tri_base, int n, int s, int seed,
-    int lane_base, int iters, int trace_depth, float t_min,
-    int has_dielectrics, int sky_on, int jitter) {
-  extern __shared__ float s_dent[];  // (s, kGradCols)
-  __shared__ float s_cam[kScal];
-  for (int k = threadIdx.x; k < s * kGradCols; k += blockDim.x)
-    s_dent[k] = 0.0f;
-  if (threadIdx.x < kScal) s_cam[threadIdx.x] = consts[threadIdx.x];
+    int lane_base, int trace_depth, float t_min, int has_dielectrics,
+    int sky_on, int jitter) {
+  extern __shared__ float smem[];
+  float* s_dent = smem;                  // (s, kGradCols)
+  float* s_gs = s_dent + s * kGradCols;  // (kThreads, kGsStride)
+  __shared__ float s_cam[kScal], s_sum[kScal];
+  for (int k = threadIdx.x; k < s * kGradCols + kThreads * kGsStride;
+       k += blockDim.x)
+    smem[k] = 0.0f;
+  if (threadIdx.x < kScal) {
+    s_cam[threadIdx.x] = consts[threadIdx.x];
+    s_sum[threadIdx.x] = 0.0f;
+  }
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float gs[kScal];
-#pragma unroll
-  for (int k = 0; k < kScal; ++k) gs[k] = 0.0f;
-  if (i < n) {
+  const int lane = threadIdx.x & 31;
+  float* gs = s_gs + threadIdx.x * kGsStride;
+  float* warp_gs = s_gs + (threadIdx.x - lane) * kGsStride;
+  // a path's states, in local memory (L1): shared-memory slots laid out
+  // [slot][var][thread] measured no faster on an H100 (PERF.md, kernel #2)
+  float states[(kMaxDepth - 1) * kPathVars];
+  const ArrayHist hist{states};
+  WarpEntityAdd<kTris, typename RowAdd<kTris>::type> add{
+      RowAdd<kTris>::make(s_dent, dent_tri, tri_base)};
+  for (;;) {
+    int w0 = 0;
+    if (lane == 0) w0 = atomicAdd(next_warp, 1) * 32;
+    w0 = __shfl_sync(kFull, w0, 0);
+    if (w0 >= total) break;
+    const int p = w0 + lane;
+    int i = 0, it0 = 0, len = 0;
+    if (p < total) {
+      const int2 q = paths[p];
+      i = q.x;
+      it0 = q.y / kMaxDepth;
+      len = q.y % kMaxDepth + 1;
+    }
+    const int steps = (int)__reduce_max_sync(kFull, (unsigned)len);
     const LaneEnv E = make_lane_env(s_cam, ent, i, lane_count[i], seed,
                                     lane_base, trace_depth, t_min,
                                     has_dielectrics, sky_on, jitter);
-    if constexpr (kTris)
-      lane_backward<true>(tape, n, i, iters, E, cot[i], cot[n + i],
-                          cot[2 * n + i], cot[3 * n + i], ckpt, gs,
-                          MeshEntityAdd{s_dent, dent_tri, tri_base});
-    else
-      lane_backward(tape, n, i, iters, E, cot[i], cot[n + i],
-                    cot[2 * n + i], cot[3 * n + i], ckpt, gs,
-                    EntityAdd{s_dent});
+    path_backward<kTris>(tape, n, i, it0, len, steps, E, cot[i], cot[n + i],
+                         cot[2 * n + i], cot[3 * n + i], hist, gs, add);
+    flush_scal(warp_gs, gs, s_sum);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < s * kGradCols; k += blockDim.x) {
     const float v = s_dent[k];
     if (v != 0.0f) atomicAdd(dent + k, v);
   }
-#pragma unroll
-  for (int k = 0; k < kScal; ++k) {
-    float v = gs[k];
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if ((threadIdx.x & 31) == 0 && v != 0.0f) atomicAdd(dscal + k, v);
-  }
+  if (threadIdx.x < kScal && s_sum[threadIdx.x] != 0.0f)
+    atomicAdd(dscal + threadIdx.x, s_sum[threadIdx.x]);
 }
 
 // One iteration's VJP on every lane: the hand derivation, exposed so that
@@ -127,30 +269,63 @@ __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
 
 // Plain C entry points (loaded with ctypes).  Each launches on `stream`
 // and returns the CUDA error of the launch (0 when it was accepted).
-// `dent` (s, 13) and `dscal` (30) must be zeroed by the caller; `ckpt`
-// holds (iters / trace_depth) * 21 * n floats.  A mesh scene passes a
-// zeroed `dent_tri` (T_pad, 28), `tri_base` = the padded sphere count (the
-// first triangle's tape code) and the whole (s_pad + T_pad, 38) entity
-// table; a sphere scene passes dent_tri = nullptr and its (s, 23) rows.
-extern "C" int rtiw_megatrace_bwd(
-    const float* tape, const float* lane_count, const float* consts,
-    const float* ent, const float* cot, float* ckpt, float* dent,
-    float* dscal, float* dent_tri, int tri_base, int n, int s, int seed,
-    int lane_base, int samples, int trace_depth, float t_min,
-    int has_dielectrics, int sky_on, int jitter, void* stream) {
+//
+// rtiw_bwd_scan: with paths == nullptr it writes counts (blocks,
+// trace_depth), blocks = ceil(n / 128), each block's path count per length;
+// else it writes each path to paths (2 ints a path) at offsets (blocks,
+// trace_depth) plus its rank in the block.
+extern "C" int rtiw_bwd_scan(const float* tape, const float* lane_count,
+                             int* counts, const int* offsets, int* paths,
+                             int n, int samples, int trace_depth,
+                             void* stream) {
   if (n <= 0) return 0;
-  if (trace_depth > rtiw::kMaxHistory) return (int)cudaErrorInvalidValue;
-  const size_t shmem = (size_t)s * kGradCols * sizeof(float);
-  auto kernel = dent_tri != nullptr ? megatrace_bwd_kernel<true>
-                                    : megatrace_bwd_kernel<false>;
-  const cudaError_t err = cudaFuncSetAttribute(
+  if (trace_depth < 1 || trace_depth > kMaxDepth)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  tape_scan_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tape, lane_count, counts, offsets, reinterpret_cast<int2*>(paths), n,
+      samples * trace_depth, trace_depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rtiw_bwd_paths: the backward of the `total` paths of the scan's table.
+// `dent` (s, 13), `dscal` (30) and `next_warp` (1 int) must be zeroed by
+// the caller.  A mesh scene passes a zeroed `dent_tri` (T_pad, 28),
+// `tri_base` = the padded sphere count (the first triangle's tape code) and
+// the whole (s_pad + T_pad, 38) entity table; a sphere scene passes
+// dent_tri = nullptr and its (s, 23) rows.
+extern "C" int rtiw_bwd_paths(
+    const float* tape, const int* paths, int total, int* next_warp,
+    const float* lane_count, const float* consts, const float* ent,
+    const float* cot, float* dent, float* dscal, float* dent_tri,
+    int tri_base, int n, int s, int seed, int lane_base, int trace_depth,
+    float t_min, int has_dielectrics, int sky_on, int jitter, void* stream) {
+  if (total <= 0) return 0;
+  if (trace_depth < 1 || trace_depth > kMaxDepth)
+    return (int)cudaErrorInvalidValue;
+  const size_t shmem =
+      ((size_t)s * kGradCols + kThreads * kGsStride) * sizeof(float);
+  auto kernel = dent_tri != nullptr ? megatrace_paths_kernel<true>
+                                    : megatrace_paths_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kThreads - 1) / kThreads;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, shmem)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // persistent blocks: one flush of the shared sums each
+  const long wanted = ((long)total + kThreads - 1) / kThreads;
+  const int blocks = (int)(wanted < (long)sms * per_sm ? wanted
+                                                       : (long)sms * per_sm);
   kernel<<<blocks, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      tape, lane_count, consts, ent, cot, ckpt, dent, dscal, dent_tri,
-      tri_base, n, s, seed, lane_base, samples * trace_depth, trace_depth,
-      t_min, has_dielectrics, sky_on, jitter);
+      tape, reinterpret_cast<const int2*>(paths), total, next_warp,
+      lane_count, consts, ent, cot, dent, dscal, dent_tri, tri_base, n, s,
+      seed, lane_base, trace_depth, t_min, has_dielectrics, sky_on, jitter);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,6 +25,10 @@
 
 #include "megatrace_common.cuh"
 
+#ifndef __CUDACC__
+#include <vector>
+#endif
+
 namespace rtiw {
 
 constexpr int kStateVars = 21;
@@ -838,10 +842,130 @@ RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
 }
 
 // ---------------------------------------------------------------------------
-// One lane's whole backward
+// Paths: the tape scan and one path's backward
 // ---------------------------------------------------------------------------
+//
+// The adjoint is local to a path.  A regen iteration overwrites o, d, th,
+// rad, lp, valid and depth, so step_vjp passes them no cotangent; it never
+// writes the cotangents of cs and cnt, which stay the lane's own from the
+// first iteration to the last.  So each path (a regen, then one iteration
+// a bounce until a miss, the depth limit or the tape's end) runs its
+// backward alone from the regen state, its own tape codes and the lane's
+// color and count cotangents: no checkpoint, nothing from another path.
 
-constexpr int kMaxHistory = 64;  // deepest trace_depth the history holds
+// scan_lane and path_backward call their functors (device-only ones in the
+// kernels, host-only ones in host_backward) from host-and-device code
+#ifdef __CUDACC__
+#define RTIW_EXEC_CHECK_OFF _Pragma("nv_exec_check_disable")
+#else
+#define RTIW_EXEC_CHECK_OFF
+#endif
+
+constexpr int kMaxDepth = 64;  // deepest trace_depth the path codes hold
+// a path's states hold these: o, d, th, rad, lp, valid, depth
+constexpr int kPathVars = 15;
+
+RTIW_FN int path_var(int k) {
+  return k < 12 ? k : k == 12 ? kLp : k == 13 ? kValid : kDepth;
+}
+
+// A path in the table: (lane, it0 * kMaxDepth + length - 1).
+RTIW_FN int path_code(int it0, int len) { return it0 * kMaxDepth + len - 1; }
+
+// Walks lane i's tape column by the plain replay's rules (regen when idle
+// and started < per_pixel; a path ends at a miss, code < -0.5, or when its
+// depth reaches trace_depth; the lane is done once it is idle with every
+// sample started) and calls emit(it0, length) for each path, a path cut by
+// the tape's end included.
+RTIW_EXEC_CHECK_OFF
+template <class Emit>
+RTIW_FN void scan_lane(const float* tape, int n, int i, int iters,
+                       float per_pixel, int trace_depth, Emit emit) {
+  bool active = false;
+  float started = 0.0f;
+  int depth = 0, it0 = 0;
+  for (int it = 0; it < iters; ++it) {
+    if (!active) {
+      if (!(started < per_pixel)) return;
+      started += 1.0f;
+      active = true;
+      depth = 0;
+      it0 = it;
+    }
+    depth += 1;
+    if (!(tape[(size_t)it * n + i] >= -0.5f) || depth >= trace_depth) {
+      emit(it0, it - it0 + 1);
+      active = false;
+    }
+  }
+  if (active) emit(it0, iters - it0);
+}
+
+// The state a path's first iteration reads: idle, nothing started (so it
+// regenerates), the rest as the regen overwrites it.
+RTIW_FN void path_start(float* st) {
+  for (int k = 0; k < kStateVars; ++k) st[k] = 0.0f;
+  st[kTHX] = st[kTHY] = st[kTHZ] = 1.0f;
+}
+
+// A path's history: the 15 path variables of the input states of its
+// iterations 1..L-1, in slots 0..L-2 of a per-thread array (local memory
+// on the card).
+struct ArrayHist {
+  float* a;
+  RTIW_FN void store(int slot, const float* st) const {
+#pragma unroll
+    for (int k = 0; k < kPathVars; ++k)
+      a[slot * kPathVars + k] = st[path_var(k)];
+  }
+  RTIW_FN void load(int slot, float* st) const {
+#pragma unroll
+    for (int k = 0; k < kPathVars; ++k)
+      st[path_var(k)] = a[slot * kPathVars + k];
+  }
+};
+
+// One path's backward: lane `lane`, iterations it0 .. it0+len-1.  Runs the
+// path forward once, keeping the input state of each iteration in `hist`,
+// then applies step_vjp in reverse from the lane's color and count
+// cotangents.  `steps` >= len is the longest path of the thread's warp:
+// the reverse loop runs that many times so that every thread of a warp
+// reaches add_ent (a warp collective on the card) together, a shorter
+// path idle (w = -1) at its top steps.  gs receives the camera and sky
+// cotangents; add_ent(w, ge) each step's winner row (w = -1: none).
+RTIW_EXEC_CHECK_OFF
+template <bool kTris = false, class Hist, class AddEnt>
+RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
+                           int len, int steps, const LaneEnv& E,
+                           float cot_r, float cot_g, float cot_b,
+                           float cot_count, const Hist& hist, float* gs,
+                           AddEnt& add_ent) {
+  float st[kStateVars];
+  path_start(st);
+  for (int j = 0; j + 1 < len; ++j) {
+    step_forward<kTris>(st, tape[(size_t)(it0 + j) * n + lane], it0 + j, E);
+    hist.store(j, st);
+  }
+  float g[kStateVars], ge[Layout<kTris>::grad];
+  for (int k = 0; k < kStateVars; ++k) g[k] = 0.0f;
+  g[kCSX] = cot_r;
+  g[kCSY] = cot_g;
+  g[kCSZ] = cot_b;
+  g[kCnt] = cot_count;
+  for (int j = steps - 1; j >= 0; --j) {
+    int w = -1;
+    if (j < len) {
+      path_start(st);
+      if (j > 0) {  // mid-path: active, so started is not read
+        hist.load(j - 1, st);
+        st[kActive] = 1.0f;
+      }
+      w = step_vjp<kTris>(st, g, tape[(size_t)(it0 + j) * n + lane], it0 + j,
+                          E, ge, gs);
+    }
+    add_ent(w, ge);
+  }
+}
 
 RTIW_FN void add_row(float* row, const float* ge, int cols) {
   for (int k = 0; k < cols; ++k) {
@@ -854,12 +978,12 @@ RTIW_FN void add_row(float* row, const float* ge, int cols) {
   }
 }
 
-// Adds a winner row's cotangent into the (rows, kGradCols) table `base`:
-// shared-memory atomics on the card, plain sums on the host.
+// Adds a winner row's cotangent into the (rows, kGradCols) table `base`
+// (w < 0: no winner).
 struct EntityAdd {
   float* base;
   RTIW_FN void operator()(int w, const float* ge) const {
-    add_row(base + w * kGradCols, ge, kGradCols);
+    if (w >= 0) add_row(base + w * kGradCols, ge, kGradCols);
   }
 };
 
@@ -874,64 +998,56 @@ struct MeshEntityAdd {
   RTIW_FN void operator()(int w, const float* ge) const {
     if (w >= tri_base)
       add_row(tri + (size_t)(w - tri_base) * kTriGradCols, ge, kTriGradCols);
-    else
+    else if (w >= 0)
       add_row(base + w * kGradCols, ge, kGradCols);
   }
 };
 
-// Phase 1 sweeps the lane's tape forward, storing the state at every
-// block boundary into ckpt [block][var][lane]; phase 2 re-runs each block
-// into a local history and applies step_vjp in reverse.  The tape is idle
-// (-2) from the lane's last sample on and those iterations are identity
-// steps, so both phases stop at the first idle row.  The color and count
-// cotangents seed the state cotangent; gs accumulates the camera and sky
-// cotangents and add_ent receives each winner row's.
+#ifndef __CUDACC__
+// The kernels' schedule on the host, one thread at a time: the scan counts
+// the paths of each length, the grouping lays the lengths out longest
+// first, the scan again scatters each path to its place, and the paths'
+// backwards run in that order, each sum added in place (dscal: the camera
+// and sky cotangents, kScal).  `ent` is the entity table the tape indexes.
 template <bool kTris = false, class AddEnt>
-RTIW_FN void lane_backward(const float* tape, int n, int i, int iters,
-                           const LaneEnv& E, float cot_r, float cot_g,
-                           float cot_b, float cot_count, float* ckpt,
-                           float* gs, AddEnt add_ent) {
-  const int depth = (int)E.trace_depth;
-  float st[kStateVars];
-  for (int k = 0; k < kStateVars; ++k) st[k] = 0.0f;
-  st[kTHX] = st[kTHY] = st[kTHZ] = 1.0f;
-  int live = iters;
-  for (int it = 0; it < iters; ++it) {
-    if (it % depth == 0) {
-      float* dst = ckpt + (size_t)(it / depth) * kStateVars * n + i;
-      for (int k = 0; k < kStateVars; ++k) dst[(size_t)k * n] = st[k];
-    }
-    const float code = tape[(size_t)it * n + i];
-    if (code < -1.5f) {
-      live = it;
-      break;
-    }
-    step_forward<kTris>(st, code, it, E);
+inline void host_backward(const float* tape, const float* lane_count,
+                          const float* cam, const float* ent,
+                          const float* cot, int n, int samples,
+                          int trace_depth, int seed, int lane_base,
+                          float t_min, int has_diel, int sky_on, int jitter,
+                          float* dscal, AddEnt add_ent) {
+  const int iters = samples * trace_depth;
+  std::vector<long> offset(trace_depth, 0);
+  for (int i = 0; i < n; ++i)
+    scan_lane(tape, n, i, iters, lane_count[i], trace_depth,
+              [&](int, int len) { ++offset[len - 1]; });
+  long total = 0;
+  for (int l = trace_depth - 1; l >= 0; --l) {
+    const long c = offset[l];
+    offset[l] = total;
+    total += c;
   }
-
-  float g[kStateVars], ge[Layout<kTris>::grad];
-  for (int k = 0; k < kStateVars; ++k) g[k] = 0.0f;
-  g[kCSX] = cot_r;
-  g[kCSY] = cot_g;
-  g[kCSZ] = cot_b;
-  g[kCnt] = cot_count;
-  float hist[kMaxHistory * kStateVars];
-  for (int b0 = live > 0 ? ((live - 1) / depth) * depth : -1; b0 >= 0;
-       b0 -= depth) {
-    const float* src = ckpt + (size_t)(b0 / depth) * kStateVars * n + i;
-    for (int k = 0; k < kStateVars; ++k) st[k] = src[(size_t)k * n];
-    const int len = live - b0 < depth ? live - b0 : depth;
-    for (int j = 0; j < len; ++j) {
-      for (int k = 0; k < kStateVars; ++k) hist[j * kStateVars + k] = st[k];
-      step_forward<kTris>(st, tape[(size_t)(b0 + j) * n + i], b0 + j, E);
-    }
-    for (int j = len - 1; j >= 0; --j) {
-      const int w = step_vjp<kTris>(hist + j * kStateVars, g,
-                             tape[(size_t)(b0 + j) * n + i], b0 + j, E, ge,
-                             gs);
-      if (w >= 0) add_ent(w, ge);
-    }
+  std::vector<int> paths(2 * total);
+  for (int i = 0; i < n; ++i)
+    scan_lane(tape, n, i, iters, lane_count[i], trace_depth,
+              [&](int it0, int len) {
+                const long p = offset[len - 1]++;
+                paths[2 * p] = i;
+                paths[2 * p + 1] = path_code(it0, len);
+              });
+  std::vector<float> hist((size_t)kPathVars * trace_depth);
+  const ArrayHist h{hist.data()};
+  for (long p = 0; p < total; ++p) {
+    const int lane = paths[2 * p], code = paths[2 * p + 1];
+    const int len = code % kMaxDepth + 1;
+    const LaneEnv E = make_lane_env(cam, ent, lane, lane_count[lane], seed,
+                                    lane_base, trace_depth, t_min, has_diel,
+                                    sky_on, jitter);
+    path_backward<kTris>(tape, n, lane, code / kMaxDepth, len, len, E,
+                         cot[lane], cot[n + lane], cot[2 * n + lane],
+                         cot[3 * n + lane], h, dscal, add_ent);
   }
 }
+#endif
 
 }  // namespace rtiw

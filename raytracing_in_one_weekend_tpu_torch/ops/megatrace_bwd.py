@@ -4,13 +4,19 @@ of the JAX package's ops/megatrace_bwd.py, its sphere and triangle arms).
 * `replay_grad_reference` is the plain version: torch.autograd over
   `ops/megatrace_replay.replay`, the counterpart of the JAX package's
   XLA-replay VJP oracle.
-* `csrc/megatrace_bwd.cu` is the hand-written CUDA kernel for Hopper: one
-  thread per lane sweeps the tape forward (checkpointing the state every
-  trace_depth iterations), then walks the blocks in reverse with the
-  adjoint of `replay_iteration` derived by hand
-  (csrc/megatrace_replay_lane.cuh).
+* `csrc/megatrace_bwd.cu` holds the hand-written CUDA kernels for Hopper.
+  The adjoint is local to a path (a regen, then one iteration a bounce
+  until it ends), so the backward runs path by path: `tape_scan_kernel`
+  reads each lane's tape column and emits its paths, grouped by length
+  (longest first; `scan_paths`, plain version `scan_paths_reference`),
+  then `megatrace_paths_kernel` runs one thread a path: forward from the
+  regen state, then the adjoint of `replay_iteration` derived by hand
+  (csrc/megatrace_replay_lane.cuh) in reverse, winner-row cotangents
+  summed per warp before their atomics.
 * `replay_grad` is the wrapper: CPU tensors take the plain version; CUDA
-  tensors launch the kernel or raise.  It counts launches in `LAUNCHES`.
+  tensors launch the kernels or raise.  It counts the path kernel's
+  launches in `LAUNCHES` and the scan's (count, then scatter when there
+  are paths) in `SCAN_LAUNCHES`.
 
 The kernel returns the cotangent of the winner entity rows (the 13
 columns that carry gradients; in a mesh scene 28, megatrace_replay.
@@ -18,8 +24,8 @@ TRI_GRAD_COLS) and of the camera and sky constants; the entity-row
 cotangent goes back to centers, radii, records and the triangle tables
 through torch.autograd of `build_entity_rows`, as the JAX package does
 with jax.vjp.  Mesh scenes take the kernel's triangle instantiation:
-sphere rows sum in shared memory as before, triangle rows (up to TRI_MAX)
-in device memory.
+sphere rows sum in shared memory, triangle rows (up to TRI_MAX) in
+device memory.
 
 `replay_step_vjp` exposes the kernel's one-iteration VJP (and
 `replay_step_vjp_reference` its autograd counterpart) so that the hand
@@ -35,10 +41,11 @@ import torch
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace as mk
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay as mr
 
-MAX_DEPTH = 64  # deepest trace_depth the kernel's per-lane history holds
+MAX_DEPTH = 64  # deepest trace_depth the path table's codes hold
 N_SCAL = 30  # camera row (24) | sky bottom (3) | sky top (3)
 
-LAUNCHES = 0  # CUDA launches of the backward kernel made by replay_grad
+LAUNCHES = 0  # CUDA launches of the path kernel made by replay_grad
+SCAN_LAUNCHES = 0  # CUDA launches of the tape scan (count and scatter)
 
 _DIFF_ENV = ("co", "ll", "hh", "vv", "rr", "uu")
 
@@ -95,6 +102,48 @@ def replay_grad_reference(tape, lane_count, camera_row, centers, radii,
         )
     return tuple(torch.zeros_like(leaf) if g is None else g
                  for g, leaf in zip(grads, leaves))
+
+
+def scan_paths_reference(tape, lane_count, trace_depth: int):
+    """The paths of a tape, (P, 3) int64 rows (lane, first iteration,
+    length), longest first, then by lane and first iteration: the plain
+    replay's regen and termination rules (`replay_iteration`) on the codes
+    alone.  A path starts at a regen (an idle lane with started <
+    lane_count), ends at a miss (code < -0.5) or when its depth reaches
+    trace_depth, and a path cut by the tape's end is a path too."""
+    iters, n = tape.shape
+    dev = tape.device
+    per_pixel = lane_count.to(torch.float32)
+    active = torch.zeros(n, dtype=torch.bool, device=dev)
+    started = torch.zeros(n, dtype=torch.float32, device=dev)
+    depth = torch.zeros(n, dtype=torch.int64, device=dev)
+    it0 = torch.zeros(n, dtype=torch.int64, device=dev)
+    lanes = torch.arange(n, device=dev)
+    found = []
+    for it in range(iters):
+        regen = ~active & (started < per_pixel)
+        if not bool((active | regen).any()):
+            break
+        it0 = torch.where(regen, it, it0)
+        started = started + regen.to(torch.float32)
+        depth = torch.where(regen, 0, depth)
+        active = active | regen
+        depth = depth + active.to(torch.int64)
+        end = active & ((tape[it] < -0.5) | (depth >= trace_depth))
+        found.append(torch.stack([lanes[end], it0[end], it - it0[end] + 1], 1))
+        active = active & ~end
+    found.append(torch.stack([lanes[active], it0[active],
+                              iters - it0[active]], 1))
+    return canonical_paths(torch.cat(found))
+
+
+def canonical_paths(paths):
+    """(P, 3) path rows sorted longest first, then by lane and first
+    iteration (the kernel's order within a length is its scan's)."""
+    key = ((-paths[:, 2]) * (paths[:, 0].max() + 1 if len(paths) else 1)
+           + paths[:, 0]) * (paths[:, 1].max() + 1 if len(paths) else 1) \
+        + paths[:, 1]
+    return paths[torch.argsort(key)]
 
 
 def _lane_env(lane_count, cam_rows, sky_rows, seed, lane_base):
@@ -173,15 +222,21 @@ def load_kernel() -> ctypes.CDLL:
 
         lib, BUILD_LOG = cuda_build.build_library("megatrace_bwd.cu")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rtiw_megatrace_bwd.argtypes = [
-            p, p, p, p, p, p, p, p,  # tape lane_count consts ent cot ckpt
-            #                          dent dscal
-            p, i,  # dent_tri tri_base
-            i, i, i, i, i, i,  # n s seed lane_base samples trace_depth
+        lib.rtiw_bwd_scan.argtypes = [
+            p, p, p, p, p,  # tape lane_count counts offsets paths
+            i, i, i,  # n samples trace_depth
+            p,  # stream
+        ]
+        lib.rtiw_bwd_scan.restype = i
+        lib.rtiw_bwd_paths.argtypes = [
+            p, p, i, p,  # tape paths total next_warp
+            p, p, p, p, p, p, p,  # lane_count consts ent cot dent dscal
+            #                       dent_tri
+            i, i, i, i, i, i,  # tri_base n s seed lane_base trace_depth
             f, i, i, i,  # t_min has_diel sky_on jitter
             p,  # stream
         ]
-        lib.rtiw_megatrace_bwd.restype = i
+        lib.rtiw_bwd_paths.restype = i
         lib.rtiw_replay_step_vjp.argtypes = [
             p, p, p, p, p, p,  # state codes cot_out lane_count consts ent
             p, p, p,  # cot_in cot_ent cot_scal
@@ -212,26 +267,95 @@ def _check(name: str, tensors: dict, shapes: dict, dev) -> None:
                              f"want {shapes[key]}")
 
 
+def _scan_launch(tape, per_pixel, samples: int, trace_depth: int, *,
+                 counts=None, offsets=None, paths=None) -> None:
+    """One launch of the scan kernel: count mode fills `counts` (blocks,
+    trace_depth), each block's path count per length; scatter mode writes
+    each path to `paths` at `offsets` (the same shape) plus its rank in the
+    block."""
+    global SCAN_LAUNCHES
+    err = load_kernel().rtiw_bwd_scan(
+        tape.data_ptr(), per_pixel.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in (counts, offsets, paths)),
+        per_pixel.shape[0], samples, trace_depth,
+        torch.cuda.current_stream(tape.device).cuda_stream)
+    if err != 0:
+        mode = "count" if paths is None else "scatter"
+        raise RuntimeError(f"tape scan ({mode}) launch failed: cudaError {err}")
+    SCAN_LAUNCHES += 1
+
+
+def _scan_offsets(counts):
+    """Each block's offset per length in the path table, lengths longest
+    first, and the number of paths: the glue between the scan's two
+    launches."""
+    c = counts.to(torch.int64)
+    per_length = c.sum(0)
+    longer = per_length.flip(0).cumsum(0).flip(0) - per_length
+    offsets = (c.cumsum(0) - c + longer).to(torch.int32).contiguous()
+    return offsets, int(per_length.sum())
+
+
+def _scan_cuda(tape, per_pixel, samples: int, trace_depth: int):
+    """The scan kernel's path table: (P, 2) int32 rows (lane, first
+    iteration * MAX_DEPTH + length - 1), longest first.  Two launches: the
+    count per block and length, then (after the offsets) the scatter."""
+    n = per_pixel.shape[0]
+    dev = tape.device
+    _check("tape scan", dict(tape=tape, per_pixel=per_pixel),
+           dict(tape=(samples * trace_depth, n)), dev)
+    if (not 0 < trace_depth <= MAX_DEPTH
+            or samples * trace_depth * MAX_DEPTH >= 2**31):
+        raise ValueError(f"tape scan: trace_depth {trace_depth}, "
+                         f"{samples * trace_depth} iterations; the path "
+                         f"table's int32 codes hold depths up to {MAX_DEPTH} "
+                         f"and {2**31 // MAX_DEPTH} iterations")
+    counts = torch.empty((-(-n // 128), trace_depth), dtype=torch.int32,
+                         device=dev)
+    _scan_launch(tape, per_pixel, samples, trace_depth, counts=counts)
+    offsets, total = _scan_offsets(counts)
+    paths = torch.empty((total, 2), dtype=torch.int32, device=dev)
+    if total:
+        _scan_launch(tape, per_pixel, samples, trace_depth, offsets=offsets,
+                     paths=paths)
+    return paths
+
+
+def decode_paths(paths):
+    """The scan kernel's (P, 2) table as (P, 3) int64 rows (lane, first
+    iteration, length), in its order."""
+    code = paths[:, 1].to(torch.int64)
+    return torch.stack([paths[:, 0].to(torch.int64), code // MAX_DEPTH,
+                        code % MAX_DEPTH + 1], 1)
+
+
+def scan_paths(tape, lane_count, *, samples: int, trace_depth: int):
+    """The paths of a tape, (P, 3) int64 rows (lane, first iteration,
+    length), longest first.  CUDA tensors launch the scan kernel (its
+    order within a length is the scan's); CPU tensors run the plain
+    version."""
+    if tape.device.type == "cpu":
+        return scan_paths_reference(tape, lane_count, trace_depth)
+    if tape.device.type != "cuda":
+        raise ValueError(f"scan_paths: unsupported device {tape.device}")
+    return decode_paths(_scan_cuda(
+        tape.contiguous(), lane_count.to(torch.float32).contiguous(),
+        samples, trace_depth))
+
+
 def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                       sky_bottom, sky_top, seed, cot_color, cot_count,
                       lane_base, *, samples, trace_depth, t_min,
                       has_dielectrics, sky_on, jitter, tri_tables):
-    global LAUNCHES
     dev = centers.device
     n, s = lane_count.shape[0], centers.shape[0]
-    iters = samples * trace_depth
+    # the tape's shape, the lane counts and the depth: _scan_cuda's checks
     _check("replay_grad", dict(
         tape=tape, camera_row=camera_row, centers=centers, radii=radii,
         records=records, sky_bottom=sky_bottom, sky_top=sky_top,
         cot_color=cot_color, cot_count=cot_count,
-    ), dict(tape=(iters, n), camera_row=(24,), centers=(s, 3), radii=(s,),
-            sky_bottom=(3,), sky_top=(3,), cot_color=(n, 3),
-            cot_count=(n,)), dev)
-    if lane_count.device != dev:
-        raise ValueError(f"replay_grad: lane_count is on {lane_count.device}")
-    if not 0 < trace_depth <= MAX_DEPTH:
-        raise ValueError(f"replay_grad: trace_depth {trace_depth}; the "
-                         f"kernel's history holds at most {MAX_DEPTH}")
+    ), dict(camera_row=(24,), centers=(s, 3), radii=(s,), sky_bottom=(3,),
+            sky_top=(3,), cot_color=(n, 3), cot_count=(n,)), dev)
     if s > mk.SPH_CULL_MIN:
         raise ValueError(f"replay_grad: {s} spheres; the kernel's shared "
                          f"cotangent table holds at most {mk.SPH_CULL_MIN}")
@@ -245,44 +369,75 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
             raise ValueError(f"replay_grad: {t_pad} triangle rows; want a "
                              f"multiple of {mk.TRI_PAD} up to {mk.TRI_MAX}")
 
-    lib = load_kernel()
     with torch.enable_grad():
         leaves = tuple(t.detach().requires_grad_()
                        for t in (centers, radii, records, *tri))
         entity_rows = mr.build_entity_rows(*leaves[:3], leaves[3:] or None)
-    # sphere scenes: the real sphere rows; mesh scenes: the whole padded
-    # table, which the tape's triangle codes (s_pad + row) index
-    ent = entity_rows.detach()[:None if tri else s].contiguous()
-    consts = _consts(camera_row, sky_bottom, sky_top)
-    cot = torch.cat([cot_color.T, cot_count[None]]).contiguous()
-    ckpt = torch.empty(samples * len(mr.STATE_KEYS) * n, dtype=torch.float32,
-                       device=dev)
-    tape = tape.contiguous()
-    per_pixel = lane_count.to(torch.float32).contiguous()
-    f32 = dict(dtype=torch.float32, device=dev)
-    dent = torch.zeros((s, len(mr.GRAD_COLS)), **f32)
-    dscal = torch.zeros(N_SCAL, **f32)
+    args = kernel_args(tape, lane_count,
+                       _consts(camera_row, sky_bottom, sky_top), entity_rows,
+                       s, cot_color, cot_count, has_tris=bool(tri))
+    paths = _scan_cuda(args["tape"], args["per_pixel"], samples, trace_depth)
+    dent, dscal, dent_tri = _paths_cuda(
+        paths, args, seed, lane_base, trace_depth=trace_depth, t_min=t_min,
+        has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter)
     s_pad = mk.sphere_pad_count(s)
-    dent_tri = (torch.zeros((tri[0].shape[0], len(mr.TRI_GRAD_COLS)), **f32)
-                if tri else None)
-    err = lib.rtiw_megatrace_bwd(
-        tape.data_ptr(), per_pixel.data_ptr(), consts.data_ptr(),
-        ent.data_ptr(),
-        cot.data_ptr(), ckpt.data_ptr(), dent.data_ptr(), dscal.data_ptr(),
-        0 if dent_tri is None else dent_tri.data_ptr(), s_pad,
-        n, s, int(seed), int(lane_base), samples, trace_depth, float(t_min),
-        int(has_dielectrics), int(sky_on), int(jitter),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"megatrace_bwd launch failed: cudaError {err}")
-    LAUNCHES += 1
     dtable = torch.zeros_like(entity_rows)
     dtable[:s, list(mr.GRAD_COLS)] = dent
     if tri:
         dtable[s_pad:, list(mr.TRI_GRAD_COLS)] = dent_tri
     grads = torch.autograd.grad(entity_rows, leaves, dtable)
     return (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30], *grads[3:])
+
+
+def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
+                cot_count, *, has_tris: bool) -> dict:
+    """The path kernel's inputs: the contiguous tape, per-pixel counts as
+    floats, the entity table it indexes (sphere scenes: the s real sphere
+    rows; mesh scenes: the whole padded table, which the tape's triangle
+    codes s_pad + row index), the constants (camera row, sky, pad) and the
+    (4, N) color and count cotangents."""
+    return dict(
+        tape=tape.contiguous(),
+        per_pixel=lane_count.to(torch.float32).contiguous(),
+        ent=entity_rows.detach()[:None if has_tris else s].contiguous(),
+        consts=consts,
+        cot=torch.cat([cot_color.T, cot_count[None]]).contiguous(),
+        s=s, has_tris=has_tris)
+
+
+def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
+                t_min: float, has_dielectrics: bool, sky_on: bool,
+                jitter: bool):
+    """The path kernel over the scan's table: (dent (s, 13), dscal (30),
+    dent_tri (T_pad, 28) or None)."""
+    global LAUNCHES
+    lib = load_kernel()
+    dev = args["tape"].device
+    s, n = args["s"], args["per_pixel"].shape[0]
+    s_pad = mk.sphere_pad_count(s)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dent = torch.zeros((s, len(mr.GRAD_COLS)), **f32)
+    dscal = torch.zeros(N_SCAL, **f32)
+    next_warp = torch.zeros(1, dtype=torch.int32, device=dev)
+    dent_tri = (torch.zeros((args["ent"].shape[0] - s_pad,
+                             len(mr.TRI_GRAD_COLS)), **f32)
+                if args["has_tris"] else None)
+    if paths.shape[0]:
+        err = lib.rtiw_bwd_paths(
+            args["tape"].data_ptr(), paths.data_ptr(), paths.shape[0],
+            next_warp.data_ptr(), args["per_pixel"].data_ptr(),
+            args["consts"].data_ptr(), args["ent"].data_ptr(),
+            args["cot"].data_ptr(), dent.data_ptr(), dscal.data_ptr(),
+            0 if dent_tri is None else dent_tri.data_ptr(), s_pad, n, s,
+            int(seed), int(lane_base), trace_depth, float(t_min),
+            int(has_dielectrics), int(sky_on), int(jitter),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"megatrace_bwd path kernel launch failed: "
+                               f"cudaError {err}")
+        LAUNCHES += 1
+    return dent, dscal, dent_tri
 
 
 def replay_grad(tape, lane_count, camera_row, centers, radii, records,
@@ -297,8 +452,9 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
     (samples*trace_depth, N); `tri_tables` is pack_tri_tables' pair of a
     mesh scene.
 
-    The device of `centers` decides: CUDA tensors launch the kernel
-    (csrc/megatrace_bwd.cu) or raise; CPU tensors run the plain version."""
+    The device of `centers` decides: CUDA tensors launch the kernels
+    (csrc/megatrace_bwd.cu: the tape scan, then the path kernel) or raise;
+    CPU tensors run the plain version."""
     args = (tape, lane_count, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, cot_color, cot_count, lane_base)
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,

@@ -13,9 +13,10 @@ library here (the CUDA build needs the card).  Checks:
   cotangent tensor (megatrace_bwd.STEP_COTANGENTS) within 5e-4 of its max
   abs (measured <= 2.9e-5: float32 rounding in the cover's cancellations
   sets the level);
-* the whole backward (checkpoint sweep, block re-runs, shared cotangent
-  sums) against `replay_grad_reference`, each leaf within 5e-4, at depths
-  5 and 8 and at 35 and 64, whose blocks fill the per-lane history.
+* the whole backward (the scan, the grouping, each path's forward and
+  reverse sweep, the cotangent sums) against `replay_grad_reference`, each
+  leaf within 5e-4, at depths 5 and 8 and at 35 and 64, whose paths run
+  longer than any at depth 8.
 
 The mesh instantiation (triangle winners: Möller–Trumbore and the normal
 lerp, 38-column entity rows, 28-column cotangent rows summed apart from
@@ -103,21 +104,16 @@ void step_vjp_all(const float* state, const float* codes,
       it, seed, td, diel);
 }
 void backward_all(const float* tape, const float* lc, const float* consts,
-                  const float* ent, const float* cot, float* ckpt,
-                  float* dent, float* dscal, int n, int seed, int samples,
-                  int td, int diel, float* dent_tri, int tri_base) {
-  for (int i = 0; i < n; ++i) {
-    LaneEnv E = make_lane_env(consts, ent, i, lc[i], seed, 0, td, 0.0f,
-                              diel, 1, 1);
-    if (dent_tri == nullptr)
-      lane_backward(tape, n, i, samples * td, E, cot[i], cot[n + i],
-                    cot[2 * n + i], cot[3 * n + i], ckpt, dscal,
-                    EntityAdd{dent});
-    else
-      lane_backward<true>(tape, n, i, samples * td, E, cot[i], cot[n + i],
-                          cot[2 * n + i], cot[3 * n + i], ckpt, dscal,
-                          MeshEntityAdd{dent, dent_tri, tri_base});
-  }
+                  const float* ent, const float* cot, float* dent,
+                  float* dscal, int n, int seed, int samples, int td,
+                  int diel, float* dent_tri, int tri_base) {
+  if (dent_tri == nullptr)
+    host_backward(tape, lc, consts, ent, cot, n, samples, td, seed, 0, 0.0f,
+                  diel, 1, 1, dscal, EntityAdd{dent});
+  else
+    host_backward<true>(tape, lc, consts, ent, cot, n, samples, td, seed, 0,
+                        0.0f, diel, 1, 1, dscal,
+                        MeshEntityAdd{dent, dent_tri, tri_base});
 }
 }
 """
@@ -241,8 +237,8 @@ def test_step_and_its_adjoint_match_autograd(lane_lib, name):
     assert max(worst.values()) <= TOL, worst
 
 
-# depths 35 (the reference's default) and 64 (the history's capacity, the
-# kernel's MAX_DEPTH) run blocks longer than 16 iterations
+# depths 35 (the reference's default) and 64 (the kernel's MAX_DEPTH) run
+# paths longer than any at depth 8
 @pytest.mark.parametrize("name,size,spp,depth", [
     ("three_spheres", 16, 3, 5), ("cover", 24, 4, 8), ("cover", 12, 2, 35),
     ("three_spheres", 8, 2, 64), ("mesh_showcase", 16, 2, 8),
@@ -265,14 +261,13 @@ def test_lane_backward_matches_replay_grad_reference(lane_lib, name, size,
     s_pad = megatrace.sphere_pad_count(s)
     tri = tuple(kw.get("tri_tables", ()))
     cot = torch.cat([cot_color.T, cot_count[None]]).contiguous()
-    ckpt = torch.empty(spp * len(mr.STATE_KEYS) * n)
     dent = torch.zeros(s, len(mr.GRAD_COLS))
     dent_tri = (torch.zeros(tri[0].shape[0], len(mr.TRI_GRAD_COLS))
                 if tri else None)
     dscal = torch.zeros(mb.N_SCAL)
     lcf = lane_count.float().contiguous()  # bound while the call runs
     lane_lib.backward_all(_p(out["tape"]), _p(lcf), _p(consts), _p(ent),
-                          _p(cot), _p(ckpt), _p(dent), _p(dscal), n, seed,
+                          _p(cot), _p(dent), _p(dscal), n, seed,
                           spp, depth, int(kw["has_dielectrics"]),
                           None if dent_tri is None else _p(dent_tri), s_pad)
     with torch.enable_grad():

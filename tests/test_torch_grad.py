@@ -223,8 +223,7 @@ def test_cuda_backward_kernel_matches_plain_version():
     n = w * w
     scene, tables = port_tables("cover", w)
     tables = [t.to(dev) for t in tables]
-    # depth 35 runs blocks longer than 16 iterations through the kernel's
-    # per-lane history
+    # depth 35 runs paths longer than any at depth 8
     for spp, depth in ((4, 8), (2, 35)):
         lane_count = torch.full((n,), spp, dtype=torch.int32, device=dev)
         kw = dict(samples=spp, trace_depth=depth,
