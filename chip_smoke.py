@@ -11,12 +11,13 @@ bounce, pair compaction and restore).
     python3 chip_smoke.py --against DIR
 
 The second form compares this tree with another unpacked at DIR (say,
-the parent commit, by `git archive`): the SASS of megatrace_batch's
-sphere-only and triangle builds and of megatrace_wave, function by
-function, then `turn_readings` (the streamed arm, bounce_sync's bounce 1,
-the backward at 64 spp on the cover and 4 spp on mesh_showcase, forward
-and fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn a process
-of its own.  The first form needs one CUDA card.  Phases, each of
+the parent commit, by `git archive`): the SASS of every kernel of the
+seven sources, function by function (the kernels SASS_CHANGED names are
+reported as changed on purpose), then `turn_readings` (the sphere build
+and the streamed arm of the batch kernel, bounce_sync's bounce 1, the
+backward at 64 spp on the cover and 4 spp on mesh_showcase, forward and
+fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn a process of
+its own.  The first form needs one CUDA card.  Phases, each of
 which raises on failure:
   1. report the card (nvidia-smi name and power limit) and versions;
   2. build the seven kernel sources (csrc/megatrace_batch.cu,
@@ -39,6 +40,12 @@ which raises on failure:
      the depth-35, 128 spp forward;
   5. time the batch kernel and its plain version at 512x512, depth 8,
      4 spp, and compare their outputs (count, rays, floats) lane by lane;
+     then the sphere build's map of threads to lanes (8x4 pixel tiles),
+     read back from the card, against its plain twin on four shapes, and
+     the build's registers, local memory and blocks an SM (ptxas, the
+     occupancy API), its time at 64 spp and its lane-use share (the rays
+     of the lanes over 32 times the longest lane of each warp) at 4 and
+     64 spp, with lane order's beside it;
   6. per-iteration adjoint check: on the states the plain replay passes
      through (cover, 64x64, 4 spp, depth 8), every live iteration (printed
      in full: the first, the first later one with regen, dielectric and
@@ -250,6 +257,45 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """(least milliseconds on the card, "operations" or "bytes")."""
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lane_use_share(rays: torch.Tensor, order: torch.Tensor) -> float:
+    """The share of a batch's warp slots that run a lane's iteration: the
+    rays (iterations) of each lane, summed, over 32 times each warp's
+    longest lane summed, with warps of 32 threads and thread t running
+    lane order[t] (a partial last warp counts 32 slots)."""
+    r = rays.to(torch.float64)[order.to(rays.device)]
+    r = torch.cat([r, r.new_zeros((-r.numel()) % 32)]).reshape(-1, 32)
+    return float(r.sum() / (32 * r.max(dim=1).values.sum()))
+
+
+def ptxas_report(log: str, kernel: str) -> str:
+    """ptxas's stack/spill and register lines of `kernel` in a build log
+    ("" when the library was not compiled by this process)."""
+    found, mine = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mine = kernel in line
+        elif mine and ("spill" in line or "registers" in line):
+            found.append(line.split("ptxas info    :")[-1].strip())
+    return "; ".join(found)
+
+
+def tile_map_check(dev) -> None:
+    """The lane each thread of the batch kernel's sphere build runs, as the
+    kernel computes it (read back), against its plain twin, and a
+    permutation of range(n): 512x512, a ragged last row, a width that is
+    not a multiple of the tile, a few lanes."""
+    for n, width in ((512 * 512, 512), (512 * 512 - 45, 512),
+                     (45 * 37 - 7, 45), (5, 512)):
+        got = megatrace.kernel_tile_lanes(n, width, dev).cpu()
+        want = megatrace.tile_lane_order(n, width)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"tile_lane (n {n}, width {width}) is not "
+                               "its plain twin")
+        if not torch.equal(torch.sort(got).values, torch.arange(n)):
+            raise RuntimeError(f"tile_lane (n {n}, width {width}) is not a "
+                               "permutation")
 
 
 def path_stats(paths, trace_depth: int) -> dict:
@@ -2347,7 +2393,14 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
 # python3 chip_smoke.py --against DIR: this tree against another on the card
 # ---------------------------------------------------------------------------
 
-SASS_SOURCES = ("megatrace_batch", "megatrace_wave")
+SASS_SOURCES = ("megatrace_batch", "megatrace_wave", "megatrace_bwd",
+                "meshtrace_sync", "meshtrace_permute", "sphere_select",
+                "triangle_select")
+# kernels this tree changed on purpose, with the kernel that replaced each
+SASS_CHANGED = {
+    "megatrace_batch_kernelILb0EE": "the sphere build, now "
+                                    "megatrace_sphere_kernel",
+}
 
 TURN = """
 import importlib.util, json, sys
@@ -2381,7 +2434,9 @@ def replay_grad_ms(scene, cs, width: int, samples: int, repeats: int):
 def turn_readings() -> dict:
     """One turn of `--against`, on the package found first on sys.path, at
     512x512, depth 8: the batch kernel's streamed arm on mesh_large (4
-    spp, Morton lanes; CUDA events over 5 launches after a warm-up);
+    spp, Morton lanes; CUDA events over 5 launches after a warm-up); its
+    sphere build on the cover (4 spp, CUDA events over 10 calls of
+    sample_batch after a warm-up);
     bounce_sync at bounce 1 of the mesh_huge wave (median of 5 launches,
     each alone); the backward (`replay_grad_ms`) on the cover at 64 spp
     and on mesh_showcase at 4 spp; the forward MRays/s of render_batch (64
@@ -2391,8 +2446,9 @@ def turn_readings() -> dict:
     dev = torch.device("cuda", 0)
     for load in (megatrace.load_kernel, megatrace.load_wave_kernel,
                  megatrace_bwd.load_kernel, meshtrace.load_sync_kernel,
-                 meshtrace.load_permute_kernel):
-        load()
+                 meshtrace.load_permute_kernel, sphere_select.load_kernel,
+                 triangle_select.load_kernel):
+        load()  # every source, so that --against reads its SASS
     width = 512
     n = width * width
     out = {}
@@ -2408,6 +2464,15 @@ def turn_readings() -> dict:
         tri_stream_tables=megatrace.pack_tri_stream_tables(
             large, materials.pack_materials(large)),
         samples=4, trace_depth=8, pixel_index=order)
+    cover, cover_cs = book_scenes.cover_scene()
+    cover = cover.to(dev)
+    _, tables = batch_inputs(cover, cover_cs, width, width, dev)
+    out["cover_batch_4spp_ms"], _ = time_batch(
+        megatrace.sample_batch, torch.full((n,), 4, dtype=torch.int32,
+                                           device=dev),
+        torch.zeros(n, device=dev), *tables, 7, repeats=10,
+        has_dielectrics=cover.flags.has_dielectrics, sky_on=True,
+        samples=4, trace_depth=8)
     huge, huge_cs = meshes.mesh_huge()
     huge = huge.to(dev)
     bounces, _, _ = recorded_wave(huge, huge_cs, width, width, dev)
@@ -2500,11 +2565,18 @@ def against(other: str) -> int:
         for name, code in theirs.items():
             if "ELb1EE" in name:  # the streamed build, now a kernel of its own
                 continue
+            why = [v for k, v in SASS_CHANGED.items() if k in name]
+            if why:
+                print(f"SASS {src} {name}: {len(code)} instructions, changed "
+                      f"on purpose ({why[0]})")
+                continue
             equal = mine.get(name) == code
             same &= equal
             print(f"SASS {src} {name}: {len(code)} instructions, "
                   f"{'identical' if equal else 'DIFFERENT'}")
-    print(f"SASS of the sphere-only and triangle builds and megatrace_wave: "
+        for name in mine.keys() - theirs.keys():
+            print(f"SASS {src} {name}: {len(mine[name])} instructions, new")
+    print(f"SASS of every other kernel of the {len(SASS_SOURCES)} sources: "
           f"{'identical' if same else 'not identical'}")
     return 0
 
@@ -2668,6 +2740,28 @@ def main() -> int:
           f"({rays4 / plain_ms / 1e3:.3f} MRays/s), bound "
           f"{batch_bound[0]:.4f} ms by {batch_bound[1]}; {share:.6f} of "
           f"lanes agree, max abs err {err:.3g} [{card}]")
+    # the sphere build's occupancy and how much of its warps' time its
+    # lanes use, with the map its threads compute (8x4 pixel tiles) and
+    # with lane order (one thread a lane, the design before)
+    tile_map_check(dev)
+    lane_count64 = torch.full((n,), 64, dtype=torch.int32, device=dev)
+    ms64, out64 = time_batch(megatrace.sample_batch, lane_count64, count_in,
+                             *tables, 7, repeats=3, **dict(kw, samples=64))
+    order = megatrace.kernel_tile_lanes(n, width, dev)
+    sphere = dict(megatrace.sphere_kernel_info(s_count), ms_64spp=ms64,
+                  lane_use=lane_use_share(out["rays"], order),
+                  lane_use_64spp=lane_use_share(out64["rays"], order),
+                  lane_use_lane_order=lane_use_share(out["rays"],
+                                                     torch.arange(n)))
+    report = ptxas_report(megatrace.BUILD_LOG, "megatrace_sphere_kernel")
+    print(f"sphere build: ptxas {report or '(not built here)'}; "
+          f"{sphere['registers']} registers, {sphere['local_bytes']} B "
+          f"local a thread, {sphere['blocks']} blocks of 128 an SM "
+          f"(occupancy API); 4 spp {ms:.3f} ms against a bound of "
+          f"{batch_bound[0]:.4f} ms ({batch_bound[0] / ms:.1%}), 64 spp "
+          f"{ms64:.3f} ms; lane-use share {sphere['lane_use']:.4f} at 4 spp, "
+          f"{sphere['lane_use_64spp']:.4f} at 64 spp (lanes in lane order: "
+          f"{sphere['lane_use_lane_order']:.4f} at 4 spp) [{card}]")
 
     target = img.detach()  # bench.py's target: the forward image
     bwd = differentiable_phases(dev, card, scene, cs, camera, target)
@@ -2686,6 +2780,12 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": batch_bound[0],
         "bound_by": batch_bound[1],
+        "ms_64spp": sphere["ms_64spp"],
+        "registers": sphere["registers"],
+        "local_bytes": sphere["local_bytes"],
+        "blocks_per_sm": sphere["blocks"],
+        "lane_use": sphere["lane_use"],
+        "lane_use_64spp": sphere["lane_use_64spp"],
         "library_ms": None,
     }, {
         "name": "megatrace_bwd",

@@ -12,28 +12,46 @@
 // there): no --use_fast_math, -fmad=false, and the same explicit fmaf
 // calls; sqrt/rsqrt/sin/cos are correctly rounded.
 //
-// What bounds it on this card: ALU and divergence in the sphere sweep.
-// Every bounce of every path tests all S spheres (485 on the book cover,
-// ~20 flops each), while device memory sees ~30 bytes per pixel (two
-// floats in, 18 accumulators out) plus the optional tape.
+// What bounds it on this card: ALU work in the sphere sweep, and how much
+// of it a warp's lanes share.  Every bounce of every path tests all S
+// spheres (485 on the book cover, ~20 flops each), while device memory
+// sees ~30 bytes per pixel (two floats in, 18 accumulators out) plus the
+// optional tape.
 //
-// What this simple design does about it: one thread owns one lane and
-// keeps the whole path state and its pixel's accumulators in registers
-// for the whole batch, so nothing round-trips through device memory
-// between bounces.  Each block stages the sphere geometry (centre and
-// |c|^2 - r^2, 16 bytes per sphere) in shared memory; every thread of a
-// warp reads the same sphere at the same step, which is a broadcast.  The
-// winner's record (material, centre, 1/r: 64 bytes) is read once per
+// The sphere-only build (megatrace_sphere_kernel) runs one lane a thread
+// and keeps the path in registers for the whole batch, so nothing
+// round-trips through device memory between bounces.  Each block stages
+// the sphere geometry (centre and |c|^2 - r^2, 16 bytes per sphere) in
+// shared memory; every thread of a warp reads the same sphere at the same
+// step, which is a broadcast.  Three choices fit it to the card (each
+// measured against the others, PERF.md §6):
+// - a register budget of kSphereBlocks = 6 blocks of 128 threads an SM
+//   (80 registers, 24 warps an SM against 16 at the 124 registers of one
+//   thread a lane with everything in registers), with no spills: the
+//   camera row and sky, the same for every lane, and the lane's 18
+//   accumulators, touched when a sample ends (the ray count once a
+//   bounce), sit in shared memory;
+// - the sweep kSweepStep = 15 spheres a step (sphere_sweep_steps): the
+//   quadratics of a step are independent, so their loads and products
+//   interleave, and one test of the largest discriminant skips the roots
+//   when no lane needs them, instead of a branch a sphere;
+// - lanes dealt to threads in 8x4 pixel tiles (tile_lane): a warp's rays
+//   leave neighbouring pixels, so they meet the same spheres, take the
+//   same material branches and end their paths closer together (the warp
+//   runs until its longest lane ends).  A lane keeps everything that is
+//   its own: the hash key of lane i, pixel i, out[k * n + i] and
+//   tape[it * n + i]; only which thread runs it changes.
+// The winner record (material, centre, 1/r: 64 bytes) is read once per
 // bounce through the read-only cache.  A lane exits as soon as its last
-// sample ends: unlike the TPU tile, a thread need not wait for its
-// neighbours.  Pad rows of the JAX tables never hit and come last, so the
+// sample ends.  Pad rows of the JAX tables never hit and come last, so the
 // loop runs over real spheres only and winner indices are unchanged.  The
-// bounce itself lives in megatrace_bounce.cuh, shared with the per-ray
-// megatrace (megatrace_wave.cu).
+// shading lives in megatrace_bounce.cuh, shared with the per-ray megatrace
+// (megatrace_wave.cu).
 //
-// Triangles (a second instantiation, kTris; the sphere-only one compiles
-// none of it): up to 4096 triangles are 192 KB of geometry, too much for
-// shared memory beside the spheres, and a lane leaves the iteration loop
+// Triangles (megatrace_batch_kernel: one thread a lane in lane order,
+// the camera and accumulators in registers, the header's sphere_sweep and
+// the triangle arm): up to 4096 triangles are 192 KB of geometry, too
+// much for shared memory beside the spheres, and a lane leaves the loop
 // when its samples end, so no block-wide barrier can stage them.  Each
 // lane reads them from device memory through the read-only cache instead
 // (48 bytes a triangle, the whole table L1/L2-resident; the lanes of a
@@ -81,6 +99,107 @@ using namespace rtiw;
 constexpr int kOutRows = 18;
 constexpr int kThreads = 128;
 constexpr int kConsts = 30;  // camera row (24) | sky bottom | sky top
+constexpr int kSphereBlocks = 6;  // the sphere build's blocks an SM
+constexpr int kSweepStep = 15;  // spheres a step of its sweep: the
+                               // most that fit 80 registers unspilled
+constexpr int kTileW = 8, kTileH = 4;  // the sphere build's warp: a pixel
+                                       // tile of kTileW x kTileH lanes
+
+// The lane that thread t of the sphere build runs, of n lanes in rows of
+// `width` (lane i is pixel (i % width, i / width)).  The threads first
+// take the whole kTileW x kTileH tiles of the whole rows, a warp a tile,
+// tile rows top down; then, in lane order, the lanes left over: each
+// tiled row's last width % kTileW lanes, then the rows below the tiles.
+// So any n and width map one thread to one lane; the plain twin is
+// ops/megatrace.py::tile_lane_order.
+__device__ __forceinline__ int tile_lane(int t, int n, int width) {
+  const int tiles_x = width / kTileW;
+  const int rows = width > 0 ? n / width / kTileH * kTileH : 0;
+  const int tiled = tiles_x * rows * kTileW;
+  if (t < tiled) {
+    const int tile = t / (kTileW * kTileH), q = t % (kTileW * kTileH);
+    const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
+    return (ty * kTileH + q / kTileW) * width + tx * kTileW + q % kTileW;
+  }
+  const int r = t - tiled, strip = width - tiles_x * kTileW;
+  if (r < rows * strip) {
+    const int y = r / strip;
+    return y * width + tiles_x * kTileW + (r - y * strip);
+  }
+  return rows * width + (r - rows * strip);
+}
+
+// A thread's accumulators in the sphere build's shared array
+// [kOutRows][kThreads]: row k of this thread's column (no bank conflicts).
+struct SharedRow {
+  float* col;  // &acc[0][threadIdx.x]
+  __device__ __forceinline__ float& operator[](int k) const {
+    return col[k * kThreads];
+  }
+};
+
+// sphere_sweep (megatrace_bounce.cuh) kSweepStep spheres a step.  A step
+// keeps only the discriminants of its spheres, and one test of the
+// largest skips the roots when no lane needs them; a sphere whose
+// discriminant is > 0 reads its row again and recomputes b by the same
+// float arithmetic.  So each sphere's t is sphere_sweep's, the running
+// minimum takes them in row order with the same strict <, and the winner
+// is sphere_sweep's bit for bit.
+__device__ __forceinline__ void sphere_sweep_steps(const Path& p,
+                                                   const float4* sph, int s,
+                                                   float t_min,
+                                                   float& best_t, int& best) {
+  const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
+              oz = p.oz;
+  const float a = dot3(dx, dy, dz, dx, dy, dz);
+  const float o_dot_d = dot3(ox, oy, oz, dx, dy, dz);
+  const float o_sq = dot3(ox, oy, oz, ox, oy, oz);
+  const float inv_a = 1.0f / a;
+  best_t = kBig;
+  best = 0;
+  auto disc_of = [&](int row, float& b) {
+    const float4 g = sph[row];
+    b = o_dot_d - dot3(dx, dy, dz, g.x, g.y, g.z);
+    const float c = fmaf(-2.0f, dot3(ox, oy, oz, g.x, g.y, g.z), o_sq) + g.w;
+    return fmaf(b, b, -(a * c));
+  };
+  auto take = [&](float b, float disc, int row) {
+    const float sq = sqrtf(disc);
+    const float t_near = (-b - sq) * inv_a;
+    const float t_far = (-b + sq) * inv_a;
+    const float t = t_near > t_min ? t_near : (t_far > t_min ? t_far : kBig);
+    if (t < best_t) {  // strict: the first row wins a tie (argmin)
+      best_t = t;
+      best = row;
+    }
+  };
+  int k = 0;
+  for (; k + kSweepStep <= s; k += kSweepStep) {
+    float disc[kSweepStep];
+    float most = -kBig;
+#pragma unroll
+    for (int j = 0; j < kSweepStep; ++j) {
+      float b;
+      disc[j] = disc_of(k + j, b);
+      most = fmaxf(most, disc[j]);
+    }
+    if (most > 0.0f) {
+#pragma unroll
+      for (int j = 0; j < kSweepStep; ++j) {
+        if (disc[j] > 0.0f) {
+          float b;
+          disc_of(k + j, b);
+          take(b, disc[j], k + j);
+        }
+      }
+    }
+  }
+  for (; k < s; ++k) {
+    float b;
+    const float disc = disc_of(k, b);
+    if (disc > 0.0f) take(b, disc, k);
+  }
+}
 
 // Start the next sample of a lane at pixel (px_row, py_row): the thin-lens
 // camera ray (View.cs:38-48) of the camera row `cam` (origin, lower_left,
@@ -123,12 +242,14 @@ __device__ __forceinline__ void camera_ray(Path& p, const float* cam,
 // A lane's bookkeeping after the bounce at path depth `depth`: its ray,
 // the depth cut (depth exhaustion fails the sample,
 // SampleBatchJob.cs:380-381) and, when the sample ended, its deltas into
-// the accumulators `acc` and the fallback AOVs while the pixel has no
-// valid sample yet (SampleBatchJob.cs:146-151; captured valid or not).
-// Returns the path's new depth.
+// the accumulators `acc` (a register array, or the sphere build's
+// SharedRow) and the fallback AOVs while the pixel has no valid sample yet
+// (SampleBatchJob.cs:146-151; captured valid or not).  Returns the path's
+// new depth.
+template <typename Acc>
 __device__ __forceinline__ int close_bounce(Path& p, int depth,
                                             int trace_depth, float cin,
-                                            float* acc) {
+                                            Acc& acc) {
   depth += 1;
   acc[11] += 1.0f;  // rays
   if (p.active && depth >= trace_depth) p.active = false;
@@ -158,10 +279,79 @@ __device__ __forceinline__ int close_bounce(Path& p, int depth,
   return depth;
 }
 
-// The sphere-only (kTris false) and VMEM-triangle builds.  pixel_index
-// goes unused here (only streamed lanes follow a pixel order); it stays
-// in the parameter list, so these builds compile to the code they had
-// before the streamed kernel split off (chip_smoke.py --against).
+// The sphere-only build (see the top of this file): the batch of thread
+// t's lane tile_lane(t, n, width), the camera row, sky and accumulators in
+// shared memory, the sweep kSweepStep spheres a step, kSphereBlocks blocks
+// an SM.
+__global__ void __launch_bounds__(kThreads, kSphereBlocks)
+    megatrace_sphere_kernel(const float* __restrict__ lane_count,
+                            const float* __restrict__ count_in,
+                            const float* __restrict__ consts,
+                            const float4* __restrict__ sph_g,
+                            const float* __restrict__ rec,
+                            float* __restrict__ out, float* __restrict__ tape,
+                            int n, int s, int seed, int lane_base,
+                            int samples, int trace_depth, float t_min,
+                            int has_dielectrics, int sky_on, int jitter) {
+  extern __shared__ float4 sph[];
+  // camera row: origin, lower_left, horizontal, vertical, right, up,
+  // lens_radius, width, height | sky bottom | sky top
+  __shared__ float cam[kConsts];
+  __shared__ float acc_rows[kOutRows][kThreads];
+  for (int k = threadIdx.x; k < s; k += kThreads) sph[k] = sph_g[k];
+  if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
+  const SharedRow acc{&acc_rows[0][threadIdx.x]};
+#pragma unroll
+  for (int k = 0; k < kOutRows; ++k) acc[k] = 0.f;
+  __syncthreads();
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const float width = cam[19];
+  const int i = tile_lane(t, n, (int)width);
+
+  const float per_pixel = lane_count[i];
+  const float cin = count_in[i];
+  // global lane id through float32, as the JAX kernel keys its PRNG
+  const uint32_t lane = (uint32_t)(int)((float)i + (float)lane_base);
+  const uint32_t lane_key = (uint32_t)seed + lane * 9781u;
+  const float pixel = (float)i;
+  const float py_row = floorf(pixel / width);
+  const float px_row = pixel - py_row * width;
+
+  Path p{};  // idle until its first sample starts
+  float started = 0.f;
+  int depth = 0;
+
+  const int iters = samples * trace_depth;
+  int it = 0;
+  for (; it < iters; ++it) {
+    const uint32_t salt = (uint32_t)it * kSaltStep;
+    if (!p.active) {
+      if (started >= per_pixel) break;  // this lane's samples are done
+      camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
+      depth = 0;
+      started = started + 1.0f;
+    }
+    float best_t;
+    int best;
+    sphere_sweep_steps(p, sph, s, t_min, best_t, best);
+    const int winner = shade<false>(
+        p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+        sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+        TriScene{});
+    if (tape != nullptr) tape[(size_t)it * n + i] = (float)winner;
+    depth = close_bounce(p, depth, trace_depth, cin, acc);
+  }
+  if (tape != nullptr) {
+    for (; it < iters; ++it) tape[(size_t)it * n + i] = -2.0f;  // idle
+  }
+#pragma unroll
+  for (int k = 0; k < kOutRows; ++k) out[(size_t)k * n + i] = acc[k];
+}
+
+// The VMEM-triangle build (kTris true; its template parameter and the
+// unused pixel_index keep the code its builds had before the sphere and
+// streamed builds became kernels of their own, chip_smoke.py --against).
 template <bool kTris>
 __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
@@ -341,16 +531,53 @@ extern "C" int rtiw_megatrace_batch(
           reinterpret_cast<const float4*>(sph), rec, tri, out, n, s, seed,
           lane_base, samples, trace_depth, t_min, has_dielectrics, sky_on,
           jitter);
-    } else {
-      const int blocks = (n + kThreads - 1) / kThreads;
-      auto kernel = tri_rows > 0 ? megatrace_batch_kernel<true>
-                                 : megatrace_batch_kernel<false>;
-      kernel<<<blocks, kThreads, shmem, st>>>(
+    } else if (tri_rows > 0) {
+      megatrace_batch_kernel<true><<<(n + kThreads - 1) / kThreads,
+                                     kThreads, shmem, st>>>(
           lane_count, count_in, pixel_index, consts,
           reinterpret_cast<const float4*>(sph), rec, tri, out, tape, n, s,
           seed, lane_base, samples, trace_depth, t_min, has_dielectrics,
           sky_on, jitter);
+    } else {
+      megatrace_sphere_kernel<<<(n + kThreads - 1) / kThreads, kThreads,
+                                shmem, st>>>(
+          lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
+          rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
+          has_dielectrics, sky_on, jitter);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sphere build's occupancy with an s-sphere table, for the report:
+// blocks an SM (the occupancy API), registers a thread and local memory
+// (stack and spills) a thread (cudaFuncGetAttributes), into info[0..2].
+extern "C" int rtiw_megatrace_sphere_info(int s, int* info) {
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, megatrace_sphere_kernel, kThreads, (size_t)s * sizeof(float4));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, megatrace_sphere_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = blocks;
+  info[1] = attr.numRegs;
+  info[2] = (int)attr.localSizeBytes;
+  return 0;
+}
+
+namespace {
+__global__ void tile_lane_kernel(int n, int width, int* __restrict__ lanes) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n) lanes[t] = tile_lane(t, n, width);
+}
+}  // namespace
+
+// lanes[t] = the lane thread t of the sphere build runs (tile_lane), for
+// t < n: the map the kernel computes, read back.
+extern "C" int rtiw_tile_lanes(int n, int width, int* lanes, void* stream) {
+  if (n > 0)
+    tile_lane_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(n, width, lanes);
   return static_cast<int>(cudaGetLastError());
 }

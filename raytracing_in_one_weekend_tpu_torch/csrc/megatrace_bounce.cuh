@@ -4,8 +4,9 @@
 // package's kernels share pallas_megatrace.py::_bounce_step.  The kernels
 // of streamed tables (the sampler's bounce, the batch kernel's streamed
 // build) run group_sweep.cuh's cooperative triangle sweep between
-// `sphere_sweep` and `shade`; the others call `bounce`, which runs all
-// three.  The triangle arm is a compile-time flag: the batch kernel's mesh
+// `sphere_sweep` and `shade`; the batch kernel's sphere build runs its own
+// sweep, with sphere_sweep's winner, before `shade`; the others call
+// `bounce`, which runs all three.  The triangle arm is a compile-time flag: the batch kernel's mesh
 // build takes it, the sphere-only builds compile none of it.  Plain version:
 // ops/megatrace.py::_bounce, under the precision contract of
 // megatrace_common.cuh.

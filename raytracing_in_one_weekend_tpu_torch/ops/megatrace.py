@@ -20,9 +20,11 @@ streamed meshes) and the deltas stay in lane order.
   (spheres or triangles, lanes) sweep temporaries stay bounded.
 * `csrc/megatrace_batch.cu` holds the hand-written CUDA kernels for
   Hopper: one thread per lane, path state in registers, sphere geometry
-  staged in shared memory.  Sphere scenes and meshes of at most TRI_MAX
-  triangles take `megatrace_batch_kernel` (the triangle arm a compile-time
-  instantiation, triangles read through the read-only cache); streamed
+  staged in shared memory.  Sphere scenes take `megatrace_sphere_kernel`,
+  whose warps run 8x4 pixel tiles of lanes (`tile_lane_order` is the
+  map's plain twin); meshes of at most TRI_MAX triangles take
+  `megatrace_batch_kernel` (triangles read through the read-only cache,
+  one thread a lane in lane order); streamed
   tables take `megatrace_stream_kernel`, whose thread blocks of 128 lanes
   run the iterations in lockstep and sweep the triangles together
   (`csrc/group_sweep.cuh`, the bounce-synchronous sampler's traversal).
@@ -78,6 +80,8 @@ SLAB_TESTS = 0  # (lane, AABB) slab tests of the plain version's culls
 SALT_DEPTH = 26699  # per-bounce salt of the per-ray megatrace's draws
 WAVE_ROWS = 12  # radiance 0-2 | valid 3 | normal 4-6 | albedo 7-9 |
 #   events 10 | rays 11
+
+TILE_W, TILE_H = 8, 4  # a warp of the sphere kernel: a pixel tile
 
 TRI_PAD = 128
 TRI_BLOCK = 192  # triangle rows per culled block (the JAX kernel's chunk)
@@ -381,6 +385,30 @@ def morton_order(width: int, height: int):
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.numel())
     return order, rank
+
+
+def tile_lane_order(n: int, width: int) -> torch.Tensor:
+    """(n,) int64: the lane thread t of the sphere kernel runs, of n lanes
+    in rows of `width` (lane i is pixel (i % width, i // width)); the
+    plain twin of csrc/megatrace_batch.cu::tile_lane.  The threads first
+    take the whole TILE_W x TILE_H tiles of the whole rows, 32 threads (a
+    warp) a tile, tile rows top down; then, in lane order, the lanes left
+    over: each tiled row's last width % TILE_W lanes, then the rows below
+    the tiles.  A permutation of range(n) for any n and width."""
+    t = torch.arange(n, dtype=torch.int64)
+    tiles_x = width // TILE_W if width > 0 else 0
+    rows = n // width // TILE_H * TILE_H if width > 0 else 0
+    tiled = tiles_x * rows * TILE_W
+    tile, q = t // (TILE_W * TILE_H), t % (TILE_W * TILE_H)
+    ty, tx = tile // max(tiles_x, 1), tile % max(tiles_x, 1)
+    in_tile = (ty * TILE_H + q // TILE_W) * width + tx * TILE_W + q % TILE_W
+    r = t - tiled
+    strip = width - tiles_x * TILE_W
+    y = r // max(strip, 1)
+    in_strip = y * width + tiles_x * TILE_W + (r - y * strip)
+    below = rows * width + (r - rows * strip)
+    return torch.where(t < tiled, in_tile,
+                       torch.where(r < rows * strip, in_strip, below))
 
 
 def pack_camera_row(camera, width: int, height: int) -> torch.Tensor:
@@ -1165,8 +1193,36 @@ def load_kernel() -> ctypes.CDLL:
             p,  # stream
         ]
         lib.rtiw_megatrace_batch.restype = ctypes.c_int
+        lib.rtiw_megatrace_sphere_info.argtypes = [i, p]
+        lib.rtiw_megatrace_sphere_info.restype = ctypes.c_int
+        lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
+        lib.rtiw_tile_lanes.restype = ctypes.c_int
         _KERNEL = lib
     return _KERNEL
+
+
+def sphere_kernel_info(s: int) -> dict:
+    """The sphere kernel's occupancy with an s-sphere table on the
+    current card: blocks an SM (the occupancy API), registers a thread and
+    local memory (stack and spills) a thread in bytes."""
+    info = (ctypes.c_int * 3)()
+    err = load_kernel().rtiw_megatrace_sphere_info(int(s), info)
+    if err != 0:
+        raise RuntimeError(f"megatrace_sphere_kernel info: cudaError {err}")
+    return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
+
+
+def kernel_tile_lanes(n: int, width: int, device) -> torch.Tensor:
+    """(n,) int64: the lane of each thread as the sphere kernel's threads
+    compute it (csrc/megatrace_batch.cu::tile_lane), read back from the
+    card; `tile_lane_order` is its plain twin."""
+    lanes = torch.empty(n, dtype=torch.int32, device=device)
+    err = load_kernel().rtiw_tile_lanes(
+        int(n), int(width), lanes.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tile_lane_kernel launch failed: cudaError {err}")
+    return lanes.to(torch.int64)
 
 
 def kernel_tri_tables(tri_tables):
