@@ -3,9 +3,11 @@ differentiable render (forward with tape, backward kernel, trainer) and
 the wavefront integrator (per-ray megatrace, fused sphere selection, the
 AOV-gradient graft), on the book cover and on the `mesh_showcase` mesh
 scene (triangle selection, the triangle arms of the batch and backward
-kernels), and the streamed meshes `mesh_large` and `mesh_huge` (the batch
+kernels), the streamed meshes `mesh_large` and `mesh_huge` (the batch
 kernel's streamed arm with Morton lanes, the bounce-synchronous sampler's
-bounce, pair compaction and restore).
+bounce, pair compaction and restore), and the rect and box scenes
+`cornell` and `simple_light` (the aux builds of the batch and backward
+kernels).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
@@ -13,11 +15,12 @@ bounce, pair compaction and restore).
 The second form compares this tree with another unpacked at DIR (say,
 the parent commit, by `git archive`): the SASS of every kernel of the
 seven sources, function by function (the kernels SASS_CHANGED names are
-reported as changed on purpose), then `turn_readings` (the sphere build
-and the streamed arm of the batch kernel, bounce_sync's bounce 1, the
-backward at 64 spp on the cover and 4 spp on mesh_showcase, forward and
-fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn a process of
-its own.  The first form needs one CUDA card.  Phases, each of
+reported as changed on purpose; the sphere build, a template since its
+aux build, is compared as its <false> instance), then `turn_readings`
+(the sphere build and the streamed arm of the batch kernel, bounce_sync's
+bounce 1, the backward at 64 spp on the cover and 4 spp on mesh_showcase,
+forward and fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn
+a process of its own.  The first form needs one CUDA card.  Phases, each of
 which raises on failure:
   1. report the card (nvidia-smi name and power limit) and versions;
   2. build the seven kernel sources (csrc/megatrace_batch.cu,
@@ -179,7 +182,18 @@ which raises on failure:
      calling megatrace.sample_batch and meshtrace.sample_batch_sync
      directly; then sample_batch_sync with its kernels against it with
      its plain versions, mesh_huge 128x128, 8 spp, depth 8: count and
-     rays identical and floats within 1e-4 on >= 99% of pixels.
+     rays identical and floats within 1e-4 on >= 99% of pixels;
+ 22. rects and boxes (`aux_phases`): render_batch on cornell and
+     simple_light at 512x512, depth 8, 64 spp (1 warm-up + 5 timed
+     batches, every one through the batch kernel's aux build), the aux
+     build against its plain version on a main-path batch's inputs (tape,
+     count, rays identical, floats within 1e-4, >= 99% of lanes) and
+     alone by CUDA events at 4 and 64 spp; cornell's fwd+bwd step to its
+     albedos, rect and box positions and box extents (median MRays/s of 3
+     steps), the backward's aux build against the plain replay's autograd
+     on that step's inputs (each leaf, rect_geo, rect_rec, box_geo and
+     box_rec among them, within 5e-4 of its max abs) and alone at 4 and
+     64 spp; the CLI on --scene cornell and --scene simple_light.
 MRays/s counts every bounce of every sample as one ray, with the ray
 count the kernels themselves report.  Each kernel's bound is the larger of
 its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
@@ -209,7 +223,9 @@ from raytracing_in_one_weekend_tpu_torch.core import camera as camera_mod
 from raytracing_in_one_weekend_tpu_torch.core import materials, rng
 from raytracing_in_one_weekend_tpu_torch.diff import inverse
 from raytracing_in_one_weekend_tpu_torch.diff import params as params_mod
-from raytracing_in_one_weekend_tpu_torch.models import book_scenes, meshes
+from raytracing_in_one_weekend_tpu_torch.models import (
+    book_scenes, meshes, testbeds,
+)
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay
@@ -251,6 +267,23 @@ MT_FLOPS = 56  # per (ray, triangle) pair of Möller–Trumbore
 SLAB_FLOPS = 26  # per (ray, AABB) slab test (megatrace_bounce.cuh
 #   slab_may): 6 differences, 6 products, 10 min/max, the bound's min and
 #   max and the two comparisons
+FRAME_FLOPS = 63  # the ray into a rect's or box's frame
+#   (megatrace_common.cuh aux_frame): o - pos (3) and two quat_rotate (30
+#   each: three t components of a fmaf and a product, 3 each, then three
+#   of two fmaf, a product and a sum, 6 each)
+RECT_FLOPS = FRAME_FLOPS + 12  # per (ray, rect) pair of rect_test: the
+#   plane distance (1), the local hit point (two fmaf, 4), six comparisons
+#   and the running minimum (1)
+BOX_FLOPS = FRAME_FLOPS + 59  # per (ray, box) pair of box_test: the t_min
+#   offset (three fmaf, 6), the inside test (three |x| / max(e, 1e-30) and
+#   two max, 11, and a comparison), the three face distances (4 each), the
+#   three face tests (a comparison and two |fmaf| < e, 9 each), t + t_min
+#   and the running minimum (2)
+AUX_BWD_FLOPS = 2 * RECT_FLOPS + 200  # per live iteration of the backward
+#   at a rect or box winner, beyond BWD_FLOPS: its frame and distance twice
+#   forward (the path's sweep, step_vjp's recompute) and the adjoint of the
+#   frame's and the normal's rotations (three quat_rotate_vjp, ~60 flops
+#   each) and of the distance
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -314,17 +347,22 @@ def path_stats(paths, trace_depth: int) -> dict:
 
 
 def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
-                 repeats: int):
+                 repeats: int, rect=None, box=None):
     """The backward's kernels alone by CUDA events after a warm-up: (the
     tape scan's ms, its count and scatter launches alone; its wrapper's
     glue, the offsets and allocations between them; the path kernel's ms;
-    the scan's path table, decoded)."""
+    the scan's path table, decoded).  `tri` (pack_tri_tables' pair) takes
+    the mesh build, `rect` and `box` (pack_aux_tables' pairs) the aux
+    build."""
     s = tables[1].shape[0]
+    kind = (megatrace_bwd.MESH if tri is not None
+            else megatrace_bwd.AUX if rect is not None or box is not None
+            else megatrace_bwd.SPHERES)
     args = megatrace_bwd.kernel_args(
         tape, lane_count,
         megatrace_bwd._consts(tables[0], tables[4], tables[5]),
-        megatrace_replay.build_entity_rows(*tables[1:4], tri), s, *cots,
-        has_tris=tri is not None)
+        megatrace_replay.build_entity_rows(*tables[1:4], tri, rect, box),
+        s, *cots, kind=kind)
     scan = (args["tape"], args["per_pixel"], kw["samples"], kw["trace_depth"])
     wrapper_ms, paths = time_batch(megatrace_bwd._scan_cuda, *scan,
                                    repeats=repeats)
@@ -343,7 +381,8 @@ def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
     paths_ms, _ = time_batch(
         megatrace_bwd._paths_cuda, paths, args, seed, 0, repeats=repeats,
         trace_depth=kw["trace_depth"], t_min=0.0,
-        has_dielectrics=kw["has_dielectrics"], sky_on=True, jitter=True)
+        has_dielectrics=kw["has_dielectrics"], sky_on=kw.get("sky_on", True),
+        jitter=True)
     scan_ms = count_ms + scatter_ms
     return (scan_ms, wrapper_ms - scan_ms, paths_ms,
             megatrace_bwd.decode_paths(paths))
@@ -963,6 +1002,7 @@ def kernel_ms(fn, kernel: str, repeats: int) -> float:
 
 def reset_launches() -> None:
     megatrace.LAUNCHES = megatrace.WAVE_LAUNCHES = megatrace_bwd.LAUNCHES = 0
+    megatrace.AUX_LAUNCHES = 0
     megatrace_bwd.SCAN_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
@@ -2389,6 +2429,384 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     return {"kernels": kernels, "paths": out}
 
 
+def aux_errors(got, want, names) -> float:
+    """Max error over the leaves `names` relative to each leaf's max abs
+    (a leaf whose plain gradient is exactly zero must be zero too);
+    raises past GRAD_TOL."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        if w.numel() == 0:
+            continue
+        scale, err = float(w.abs().max()), float((g - w).abs().max())
+        if scale == 0.0:
+            if err != 0.0:
+                raise RuntimeError(f"aux backward vs plain: {name} error "
+                                   f"{err} where the plain gradient is 0")
+            continue
+        if not err <= GRAD_TOL * scale:
+            raise RuntimeError(f"aux backward vs plain: {name} error {err} "
+                               f"against max abs {scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+AUX_LEAVES = LEAVES + ("rect_geo", "rect_rec", "box_geo", "box_rec")
+
+
+def aux_launch_ms(tables, rect, box, samples: int, repeats: int,
+                  kw: dict) -> float:
+    """The aux build alone: CUDA events around `repeats` launches of its C
+    entry point on buffers made once (sample_batch's own packing, a few
+    small torch ops, would otherwise bound a short batch by the host)."""
+    camera_row, centers, radii, records, sky_bottom, sky_top = tables
+    dev, s = centers.device, centers.shape[0]
+    n = int(camera_row[19] * camera_row[20])
+    lib = megatrace.load_kernel()
+    sph, rec = megatrace.sweep_tables(centers, radii, records)
+    consts = torch.zeros(32, dtype=torch.float32, device=dev)
+    consts[:24], consts[24:27], consts[27:30] = camera_row, sky_bottom, \
+        sky_top
+    aux_geo, aux_rec, rect_rows, box_rows = megatrace.kernel_aux_tables(
+        rect, box)
+    rect_code, box_code = megatrace.aux_code_bases(s, rect)
+    per_pixel = torch.full((n,), float(samples), device=dev)
+    cin = torch.zeros(n, device=dev)
+    out = torch.empty((megatrace.OUT_ROWS, n), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = lib.rtiw_megatrace_aux(
+            per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), aux_geo.data_ptr(),
+            aux_rec.data_ptr(), out.data_ptr(), 0, n, s, rect_rows,
+            box_rows, rect_code, box_code, 7, 0, samples, kw["trace_depth"],
+            0.0, int(kw["has_dielectrics"]), int(kw["sky_on"]), 1, stream)
+        if err != 0:
+            raise RuntimeError(f"aux build launch: cudaError {err}")
+
+    launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(repeats):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
+    """Phase 22: rects and boxes, the aux builds of #1 and #2, on
+    `cornell` (6 rects, 2 boxes, no sphere, no sky) and `simple_light`
+    (3 spheres, an emissive rect, no sky), 512x512, depth 8:
+    (a) render_batch at 64 spp, 1 warm-up + 5 timed batches (median
+        MRays/s), every batch through the aux build (AUX_LAUNCHES, set to
+        0 just before and read just after), the image finite;
+    (b) the aux build against its plain version on the inputs of a
+        main-path batch: tape, count and rays identical and the floats
+        within 1e-4 on >= 99% of lanes;
+    (c) the aux build alone by CUDA events at 4 and 64 spp, its plain
+        version at 4 spp, registers and blocks an SM, and the bound;
+    (d) cornell's fwd+bwd step, render_image(differentiable=True),
+        mean((color - target)^2), .backward() to the texture colors (its
+        albedos and emission), the rect and box positions and the box
+        extents: 1 warm-up + 3 timed steps (median MRays/s, the forward
+        rays of each seed), the path kernel's aux build launched, the
+        gradients finite; then the backward against the plain replay's
+        autograd on the last step's inputs, each leaf (the rect_geo,
+        rect_rec, box_geo and box_rec cotangents among them) within 5e-4
+        of its max abs;
+    (e) #2's aux build alone at cornell 4 and 64 spp (the tape scan's
+        launches and the path kernel by CUDA events), replay_grad and its
+        plain version at 4 spp;
+    (f) the CLI on --scene cornell and --scene simple_light, 256x256, 16
+        spp, depth 8.
+    (`width` and `spp` shrink it for a rehearsal on the CPU.)"""
+    t_phase = time.perf_counter()
+    height = width
+    n = width * height
+    out, fwd_entry, bwd_entry = {}, {}, {}
+    kernel_report = ptxas_report(megatrace.BUILD_LOG,
+                                 "megatrace_sphere_kernelILb1EE")
+    path_report = ptxas_report(megatrace_bwd.BUILD_LOG,
+                               "megatrace_paths_kernelILb0ELb1EE")
+    print(f"aux builds: ptxas #1 {kernel_report or '(not built here)'}; "
+          f"#2 path kernel {path_report or '(not built here)'}")
+    max_err, shares = 0.0, []
+    for name, (scene, cs) in (("cornell", book_scenes.cornell_box()),
+                              ("simple_light", testbeds.simple_light())):
+        scene = scene.to(dev)
+        if (not megatrace.scene_eligible(scene, allow_triangles=True,
+                                         allow_rect_box=True)
+                or megatrace.scene_eligible(scene)):
+            raise RuntimeError(f"{name} left the batch kernel's scope, or "
+                               "entered the sphere-only per-ray megatrace's")
+        camera, tables = batch_inputs(scene, cs, width, height, dev)
+        rect, box = megatrace.pack_aux_tables(
+            scene, materials.pack_materials(scene))
+        s_count = scene.spheres.center.shape[0]
+        r_count, b_count = (scene.rects.rot.shape[0],
+                            scene.boxes.rot.shape[0])
+        aux_rows = sum(t[0].shape[0] for t in (rect, box) if t is not None)
+        kw = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+                  sky_on=scene.flags.sky == 1, rect_tables=rect,
+                  box_tables=box)
+
+        # ---- (a) the forward main path ------------------------------------
+        gen = torch.Generator().manual_seed(3)
+        acc = film.zero_accumulators(n, device=dev)
+
+        def forward():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = renderer.render_batch(scene, camera, acc, gen, width=width,
+                                         height=height, samples=spp,
+                                         trace_depth=8)
+            rays = float(m.total_rays)
+            torch.cuda.synchronize()
+            return rays, time.perf_counter() - t
+
+        reset_launches()
+        runs = [forward() for _ in range(6)]
+        launches = (megatrace.LAUNCHES, megatrace.AUX_LAUNCHES)
+        if launches != (6, 6):
+            raise RuntimeError(f"{name}: batch kernel launches {launches}, "
+                               "want 6 of the aux build")
+        rate = statistics.median(r / t / 1e6 for r, t in runs[1:])
+        img = film.combine(acc, width, height).color
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+            raise RuntimeError(f"bad {name} image: mean {float(img.mean())}")
+        print(f"aux main path: {name} {width}x{height} depth 8, {spp} "
+              f"spp/batch:"
+              f" median {rate:.3f} MRays/s over 5 batches ({runs[1][0]:.0f} "
+              f"rays/batch; launches batch kernel {launches[0]}, aux build "
+              f"{launches[1]}); image mean {float(img.mean()):.4f} [{card}]")
+        out[f"{name}_fwd_mrays"] = rate
+        fwd_entry[f"{name}_launches"] = launches[1]
+
+        # ---- (b) kernel vs plain on a main-path batch's inputs -------------
+        with recorded_calls(megatrace, "sample_batch") as calls:
+            renderer.render_batch(scene, camera, acc, gen, width=width,
+                                  height=height, samples=spp, trace_depth=8)
+        (args, kwargs, _), = calls
+        t = time.perf_counter()
+        share, err = check_parity(f"aux build, {name} {width}x{height} "
+                                  f"{spp} spp main-path batch", args, kwargs)
+        print(f"  (plain version {time.perf_counter() - t:.1f} s)")
+        shares.append(share)
+        max_err = max(max_err, err)
+        del calls, args, kwargs
+
+        # ---- (c) the aux build alone ---------------------------------------
+        zeros = torch.zeros(n, device=dev)
+        timed = {}
+        for few in (4, spp):
+            lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+            ms, res = time_batch(megatrace.sample_batch, lane_count, zeros,
+                                 *tables, 7, samples=few, repeats=5, **kw)
+            rays = float(res["rays"].sum())
+            bnd = bound(rays * (s_count * SWEEP_FLOPS + r_count * RECT_FLOPS
+                                + b_count * BOX_FLOPS + SHADE_FLOPS),
+                        n * 4 * (2 + megatrace.OUT_ROWS)
+                        + s_count * 4 * (4 + 16) + aux_rows * 4 * 32 + 4 * 32)
+            timed[few] = (ms, rays, bnd)
+            if few == 4:
+                plain_ms, plain = time_batch(
+                    megatrace.sample_batch_reference, lane_count, zeros,
+                    *tables, 7, samples=few, repeats=1, **kw)
+                share4, err4 = lane_agreement(res, plain)
+                if share4 < 0.99:
+                    raise RuntimeError(f"aux build/plain agreement {share4}")
+                max_err = max(max_err, err4)
+        info = megatrace.aux_kernel_info(s_count, aux_rows)
+        (wrap4, rays4, bnd4), (wrap64, rays64, bnd64) = timed[4], timed[spp]
+        ms4 = aux_launch_ms(tables, rect, box, 4, 20, kw)
+        ms64 = aux_launch_ms(tables, rect, box, spp, 5, kw)
+        print(f"aux build alone, {name} {width}x{height} depth 8 (CUDA "
+              f"events, launches alone): 4 spp {ms4:.3f} ms ({rays4:.0f} "
+              f"bounces, bound {bnd4[0]:.4f} ms by {bnd4[1]}, "
+              f"{bnd4[0] / ms4:.1%}), {spp} spp {ms64:.3f} ms (bound "
+              f"{bnd64[0]:.4f} ms, {bnd64[0] / ms64:.1%}); through "
+              f"sample_batch {wrap4:.3f} and {wrap64:.3f} ms; plain "
+              f"{plain_ms:.3f} ms at 4 spp ({share4:.6f} of lanes agree); "
+              f"{info['registers']} registers, {info['local_bytes']} B local "
+              f"a thread, {info['blocks']} blocks of 128 an SM [{card}]")
+        fwd_entry[name] = dict(ms=ms4, ms_64spp=ms64, wrapper_ms=wrap4,
+                               plain_ms=plain_ms, bound=bnd4,
+                               bound_ms_64spp=bnd64[0], **info)
+        if name != "cornell":
+            continue
+
+        # ---- (d) cornell's fwd+bwd step ------------------------------------
+        target = img.detach()
+        seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
+                 for _ in range(4)]
+        rays = []
+        for seed in seeds:  # the forward rays of each step's seed
+            _, m = renderer.render_batch(
+                scene, camera, film.zero_accumulators(n, device=dev),
+                width=width, height=height, samples=spp, trace_depth=8,
+                seed=seed, differentiable=False)
+            rays.append(float(m.total_rays))
+        names = ("texture_colors", "rect_positions", "box_positions",
+                 "box_extents")
+        reset_launches()
+        rates = []
+        with recorded_calls(megatrace_bwd, "replay_grad",
+                            copy=False) as calls:
+            for seed, r in zip(seeds, rays):
+                calls.clear()  # keep the last step's call only
+                params = {k: v.detach().clone().requires_grad_() for k, v in
+                          params_mod.extract_params(scene, names).items()}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step = renderer.render_image(
+                    params_mod.apply_params(scene, params), camera,
+                    width=width, height=height, samples_per_pixel=spp,
+                    trace_depth=8, seed=seed, differentiable=True)
+                torch.mean((step.color - target) ** 2).backward()
+                torch.cuda.synchronize()
+                rates.append(r / (time.perf_counter() - t) / 1e6)
+        launches = (megatrace.AUX_LAUNCHES, megatrace_bwd.SCAN_LAUNCHES,
+                    megatrace_bwd.LAUNCHES)
+        if min(launches) == 0 or megatrace.LAUNCHES != launches[0]:
+            raise RuntimeError(f"cornell fwd+bwd: launches {launches}")
+        grads = {k: v.grad for k, v in params.items()}
+        if (not all(bool(torch.isfinite(g).all()) for g in grads.values())
+                or float(grads["texture_colors"].abs().max()) == 0.0):
+            raise RuntimeError("cornell fwd+bwd: bad gradients")
+        rate = statistics.median(rates[1:])
+        out["cornell_fwd_bwd_mrays"] = rate
+        print(f"aux fwd+bwd: cornell {width}x{height} depth 8, {spp} spp: "
+              f"median {rate:.3f} MRays/s over 3 steps ({rays[-1]:.0f} "
+              f"forward rays/step; launches aux build {launches[0]}, tape "
+              f"scan {launches[1]}, path kernel {launches[2]}); max |grad| "
+              + ", ".join(f"{k} {float(g.abs().max()):.4g}"
+                          for k, g in grads.items()) + f" [{card}]")
+        bwd_entry["launches"], bwd_entry["scan_launches"] = launches[2], \
+            launches[1]
+        (args, kwargs, got), = calls
+        t = time.perf_counter()
+        want = megatrace_bwd.replay_grad_reference(*args, **kwargs)
+        torch.cuda.synchronize()
+        rel = aux_errors(got, want, AUX_LEAVES)
+        print(f"aux backward vs plain on a main-path step (cornell {width}x"
+              f"{height}, {spp} spp, depth 8): max error {rel:.3e} of the "
+              f"leaf's max abs over {', '.join(AUX_LEAVES)}; plain version "
+              f"{time.perf_counter() - t:.1f} s")
+        bwd_rel = rel
+        del calls, args, kwargs, got, want
+
+        # ---- (e) #2's aux build alone --------------------------------------
+        s_pad = megatrace.sphere_pad_count(s_count)
+        for few in (4, spp):
+            lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+            fkw = dict(kw, samples=few)
+            fwd = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                         want_tape=True, **fkw)
+            cots = probe_cotangents(fwd["color"], fwd["count"])
+            live = float(fwd["rays"].sum())
+            aux_live = float((fwd["tape"] >= s_pad).sum())
+            scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+                tables, None, lane_count, fwd["tape"], cots, 7, fkw,
+                5 if few == 4 else 3, rect=rect, box=box)
+            bnd = bwd_bound(live, table.shape[0], n, aux_rows * 4 * 23,
+                            aux_live * AUX_BWD_FLOPS)
+            stats = path_stats(table, 8)
+            print(f"aux backward alone, cornell {width}x{height} depth 8, "
+                  f"{few} spp (CUDA events): tape scan's two launches "
+                  f"{scan_ms:.3f} ms (glue {glue_ms:.3f} ms more), path "
+                  f"kernel {paths_ms:.3f} ms, {paths_ms * 1e6 / live:.3f} ns "
+                  f"a live iteration (bound {bnd[0]:.4f} ms by {bnd[1]}, "
+                  f"{live:.0f} live iterations, {aux_live:.0f} at rect and "
+                  f"box winners); {stats['paths']} paths, per length 1..8 "
+                  f"{stats['per_length']}, idle warp slots "
+                  f"{stats['idle_warp_slots']:.6f} [{card}]")
+            if few == spp:
+                bwd_entry.update(ms_64spp=paths_ms, scan_ms_64spp=scan_ms,
+                                 bound_ms_64spp=bnd[0])
+                break
+            bwd_entry.update(ms=paths_ms, scan_ms=scan_ms, bound=bnd)
+            args = (fwd["tape"], lane_count, *tables, 7, *cots)
+            ms, got = time_batch(megatrace_bwd.replay_grad, *args,
+                                 repeats=5, **fkw)
+            plain_ms, want = time_batch(megatrace_bwd.replay_grad_reference,
+                                        *args, repeats=1, **fkw)
+            bwd_rel = max(bwd_rel, aux_errors(got, want, AUX_LEAVES))
+            print(f"cornell {width}x{height} depth 8, 4 spp backward: "
+                  f"replay_grad "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms; max error "
+                  f"{bwd_rel:.3e} of the leaf's max abs [{card}]")
+            bwd_entry.update(replay_grad_ms=ms, plain_ms=plain_ms,
+                             max_rel_err=bwd_rel)
+            del fwd, got, want, args, table
+
+    # ---- (f) the CLI ---------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for name in ("cornell", "simple_light"):
+            png = os.path.join(tmp, f"{name}.png")
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["--scene", name, "--width", str(width // 2),
+                           "--height", str(width // 2), "--spp", "16",
+                           "--depth", "8", "--output", png, "--quiet",
+                           "--device", dev.type])
+            seconds = time.perf_counter() - t0
+            with open(png, "rb") as f:
+                header = f.read(8)
+            if (rc != 0 or header != b"\x89PNG\r\n\x1a\n"
+                    or megatrace.AUX_LAUNCHES == 0
+                    or megatrace.AUX_LAUNCHES != megatrace.LAUNCHES):
+                raise RuntimeError(f"the CLI did not render --scene {name} "
+                                   f"through the aux build (rc {rc}, "
+                                   f"launches {megatrace.LAUNCHES}, aux "
+                                   f"{megatrace.AUX_LAUNCHES})")
+            print(f"CLI: --scene {name} {width // 2}x{width // 2}, 16 spp, "
+                  f"depth 8 on {dev}: PNG written in {seconds:.2f} s, aux "
+                  f"build launches "
+                  f"{megatrace.AUX_LAUNCHES}")
+    out["aux_parity_share"] = min(shares)
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+    cornell, light = fwd_entry["cornell"], fwd_entry["simple_light"]
+    kernels = [{
+        "name": "megatrace_batch_aux", "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457",
+        "launches": fwd_entry["cornell_launches"]
+        + fwd_entry["simple_light_launches"],
+        "max_abs_err": max_err, "ms": cornell["ms"],
+        "plain_ms": cornell["plain_ms"], "bound_ms": cornell["bound"][0],
+        "bound_by": cornell["bound"][1], "library_ms": None,
+        "ms_64spp": cornell["ms_64spp"],
+        "wrapper_ms": cornell["wrapper_ms"],
+        "bound_ms_64spp": cornell["bound_ms_64spp"],
+        "simple_light_ms": light["ms"],
+        "simple_light_ms_64spp": light["ms_64spp"],
+        "simple_light_plain_ms": light["plain_ms"],
+        "simple_light_bound_ms": light["bound"][0],
+        "registers": cornell["registers"],
+        "local_bytes": cornell["local_bytes"],
+        "blocks_per_sm": cornell["blocks"],
+    }, {
+        "name": "megatrace_bwd_aux", "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_bwd.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
+        "launches": bwd_entry["launches"],
+        "scan_launches": bwd_entry["scan_launches"],
+        "max_abs_err": bwd_entry["max_rel_err"],
+        "ms": bwd_entry["ms"], "scan_ms": bwd_entry["scan_ms"],
+        "replay_grad_ms": bwd_entry["replay_grad_ms"],
+        "plain_ms": bwd_entry["plain_ms"],
+        "bound_ms": bwd_entry["bound"][0], "bound_by": bwd_entry["bound"][1],
+        "library_ms": None, "ms_64spp": bwd_entry["ms_64spp"],
+        "scan_ms_64spp": bwd_entry["scan_ms_64spp"],
+        "bound_ms_64spp": bwd_entry["bound_ms_64spp"],
+    }]
+    return {"kernels": kernels, "paths": out}
+
+
 # ---------------------------------------------------------------------------
 # python3 chip_smoke.py --against DIR: this tree against another on the card
 # ---------------------------------------------------------------------------
@@ -2397,10 +2815,8 @@ SASS_SOURCES = ("megatrace_batch", "megatrace_wave", "megatrace_bwd",
                 "meshtrace_sync", "meshtrace_permute", "sphere_select",
                 "triangle_select")
 # kernels this tree changed on purpose, with the kernel that replaced each
-SASS_CHANGED = {
-    "megatrace_batch_kernelILb0EE": "the sphere build, now "
-                                    "megatrace_sphere_kernel",
-}
+# (none: the aux builds are instantiations of their own)
+SASS_CHANGED: dict[str, str] = {}
 
 TURN = """
 import importlib.util, json, sys
@@ -2519,8 +2935,13 @@ def sass_functions(lib: str) -> dict:
             name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
                           name)
             name = re.sub(r"ILb(\d)ELb0EE", r"ILb\1EE", name)
+            # the sphere build, a template since its aux build: compare
+            # its <false> instance with the kernel it was (their parameter
+            # lists differ by the aux build's, which come last)
+            name = re.sub(r"(\d+megatrace_sphere_kernel)(?:ILb0EEEv|E)\S*",
+                          r"\1<false>", name)
             funcs[name] = []
-        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             funcs[name].append(" ".join(line.split()))
     return funcs
 
@@ -2753,7 +3174,8 @@ def main() -> int:
                   lane_use_64spp=lane_use_share(out64["rays"], order),
                   lane_use_lane_order=lane_use_share(out["rays"],
                                                      torch.arange(n)))
-    report = ptxas_report(megatrace.BUILD_LOG, "megatrace_sphere_kernel")
+    report = ptxas_report(megatrace.BUILD_LOG,
+                          "megatrace_sphere_kernelILb0EE")
     print(f"sphere build: ptxas {report or '(not built here)'}; "
           f"{sphere['registers']} registers, {sphere['local_bytes']} B "
           f"local a thread, {sphere['blocks']} blocks of 128 an SM "
@@ -2768,6 +3190,7 @@ def main() -> int:
     wave = wavefront_phases(dev, card, scene, cs, camera, target)
     mesh = mesh_phases(dev, card)
     streamed = streamed_phases(dev, card)
+    aux = aux_phases(dev, card)
 
     kernels = [{
         "name": "megatrace_batch",
@@ -2819,7 +3242,8 @@ def main() -> int:
         "bound_ms": bwd["scan"]["bound"][0],
         "bound_by": bwd["scan"]["bound"][1],
         "library_ms": None,
-    }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"]
+    }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"] \
+        + aux["kernels"]
     print(json.dumps({
         "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
@@ -2830,7 +3254,7 @@ def main() -> int:
         "albedo_fit_losses": bwd["albedo_fit_losses"],
         "bwd_paths": {k: bwd[k] for k in ("paths_4spp", "paths_64spp")},
         "wavefront": wave["paths"], "mesh": mesh["paths"],
-        "streamed": streamed["paths"]}))
+        "streamed": streamed["paths"], "aux": aux["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

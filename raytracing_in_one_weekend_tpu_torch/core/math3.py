@@ -54,6 +54,35 @@ def saturate(x: torch.Tensor) -> torch.Tensor:
                          torch.ones_like(x))
 
 
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by unit quaternions q (..., 4) = (x, y, z,
+    w) (Entity.cs rotate(transform, normal)), in the two-cross form t = 2
+    q_v x v, v' = v + w t + q_v x t with each cross product written out as
+    the JAX package's jnp.cross computes it (no fused multiply-add)."""
+
+    def cross3(a, b):
+        return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]],
+                           dim=-1)
+
+    qv, w = q[..., :3], q[..., 3:4]
+    t = 2.0 * cross3(qv, v)
+    return v + w * t + cross3(qv, t)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    """q / max(|q|, 1e-12): every rect and box consumer normalizes first,
+    so the surface does not depend on a quaternion's scale and the
+    gradient with respect to a raw quaternion has no component along it."""
+    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    return q / torch.clamp(norm, min=1e-12)
+
+
 def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """Mirror reflection of direction d about normal n."""
     return d - 2.0 * dot(d, n)[..., None] * n

@@ -1,11 +1,13 @@
 // Fused sample-batch path tracer for Hopper (sm_90a): one whole
-// SampleBatchJob per launch, sphere scenes and mesh scenes of at most
-// TRI_STREAM_MAX triangles, gradient or no sky.
+// SampleBatchJob per launch, sphere scenes, scenes with rects and boxes
+// (with or without spheres) and mesh scenes of at most TRI_STREAM_MAX
+// triangles, gradient or no sky.
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
-// sphere arm, its triangle (VMEM) arm and its streamed-triangle arm
-// (white-noise hash PRNG, dense sphere sweep, the Möller–Trumbore sweep
-// over AABB-culled 192-row triangle blocks, Standard Lambert/GGX-metal and
+// sphere arm, its rect/box arm, its triangle (VMEM) arm and its
+// streamed-triangle arm (white-noise hash PRNG, dense sphere sweep, the
+// one-sided rect and Majercik box tests, the Möller–Trumbore sweep over
+// AABB-culled 192-row triangle blocks, Standard Lambert/GGX-metal and
 // dielectric scatter, gradient sky, per-pixel fold).
 // Plain version: ops/megatrace.py::sample_batch_reference, which this
 // kernel matches bit for bit up to log/exp2 (see the precision contract
@@ -47,6 +49,19 @@
 // loop runs over real spheres only and winner indices are unchanged.  The
 // shading lives in megatrace_bounce.cuh, shared with the per-ray megatrace
 // (megatrace_wave.cu).
+//
+// Rects and boxes take the sphere build's aux instantiation
+// (megatrace_sphere_kernel<true>; the sphere-only one compiles none of it
+// and keeps its SASS).  A scene holds few of them (the Cornell box 6 rects
+// and 2 boxes), each row 48 bytes, so each block stages them all in shared
+// memory after the spheres and finds the last row that can hit (trailing
+// pad rows of the JAX tables never do, so they are not swept); each lane
+// tests them after its sphere sweep, ~75 flops a rect and ~120 a box (the
+// ray into the entity's frame by two quaternion rotations, then the plane
+// or face distances), a rect and then a box winning only on a strictly
+// smaller t, as in the JAX kernel.  JAX's 128 pad spheres are not swept in
+// a scene without spheres: only their tape-code offset stays.  Its own
+// launch bounds (kAuxBlocks) leave the tests registers.
 //
 // Triangles (megatrace_batch_kernel: one thread a lane in lane order,
 // the camera and accumulators in registers, the header's sphere_sweep and
@@ -90,6 +105,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "group_sweep.cuh"
 
 namespace {
@@ -100,6 +117,8 @@ constexpr int kOutRows = 18;
 constexpr int kThreads = 128;
 constexpr int kConsts = 30;  // camera row (24) | sky bottom | sky top
 constexpr int kSphereBlocks = 6;  // the sphere build's blocks an SM
+constexpr int kAuxBlocks = 4;  // its aux build's: the rect and box tests
+                               // need more registers than 80
 constexpr int kSweepStep = 15;  // spheres a step of its sweep: the
                                // most that fit 80 registers unspilled
 constexpr int kTileW = 8, kTileH = 4;  // the sphere build's warp: a pixel
@@ -279,11 +298,26 @@ __device__ __forceinline__ int close_bounce(Path& p, int depth,
   return depth;
 }
 
-// The sphere-only build (see the top of this file): the batch of thread
-// t's lane tile_lane(t, n, width), the camera row, sky and accumulators in
+// A row of pack_aux_tables' geometry (16 floats, four float4) that can
+// be hit: a rect whose from <= to on both axes, a box with two positive
+// extents (each face test needs |x| < extent on the other two axes).  Pad
+// rows (from (1, 1) > to (0, 0); extents 0) cannot.
+__device__ __forceinline__ bool aux_live(const float4* row, bool box) {
+  const float4 b = row[1], c = row[2];
+  if (!box) return b.w <= c.y && c.x <= c.z;
+  return (b.w > 0.0f) + (c.x > 0.0f) + (c.y > 0.0f) >= 2;
+}
+
+// The sphere build (see the top of this file): the batch of thread t's
+// lane tile_lane(t, n, width), the camera row, sky and accumulators in
 // shared memory, the sweep kSweepStep spheres a step, kSphereBlocks blocks
-// an SM.
-__global__ void __launch_bounds__(kThreads, kSphereBlocks)
+// an SM.  Its aux build (kAux; the sphere-only one compiles none of it)
+// stages the scene's rects and boxes after the spheres (aux_geo: rect_rows
+// rects, then box_rows boxes, pack_aux_tables' 16-float rows; aux_rec
+// their 16-column records), sweeps them after the spheres (aux_sweep) and
+// shades their winners, kAuxBlocks blocks an SM.
+template <bool kAux>
+__global__ void __launch_bounds__(kThreads, kAux ? kAuxBlocks : kSphereBlocks)
     megatrace_sphere_kernel(const float* __restrict__ lane_count,
                             const float* __restrict__ count_in,
                             const float* __restrict__ consts,
@@ -292,12 +326,42 @@ __global__ void __launch_bounds__(kThreads, kSphereBlocks)
                             float* __restrict__ out, float* __restrict__ tape,
                             int n, int s, int seed, int lane_base,
                             int samples, int trace_depth, float t_min,
-                            int has_dielectrics, int sky_on, int jitter) {
+                            int has_dielectrics, int sky_on, int jitter,
+                            const float4* __restrict__ aux_geo,
+                            const float* __restrict__ aux_rec, int rect_rows,
+                            int box_rows, int rect_code, int box_code) {
   extern __shared__ float4 sph[];
   // camera row: origin, lower_left, horizontal, vertical, right, up,
   // lens_radius, width, height | sky bottom | sky top
   __shared__ float cam[kConsts];
   __shared__ float acc_rows[kOutRows][kThreads];
+  // the sphere-only build declares nothing of the aux build's (its code,
+  // and so its SASS, stay what they were before the aux build)
+  [[maybe_unused]] std::conditional_t<kAux, AuxScene, char> aux{};
+  if constexpr (kAux) {
+    // the rows that can hit: the last live rect and box row + 1
+    __shared__ int live[2];
+    if (threadIdx.x < 2) live[threadIdx.x] = 0;
+    __syncthreads();
+    float4* staged = sph + s;
+    for (int k = threadIdx.x; k < rect_rows + box_rows; k += kThreads) {
+      const float4* row = aux_geo + 4 * k;
+      staged[3 * k] = row[0];
+      staged[3 * k + 1] = row[1];
+      staged[3 * k + 2] = row[2];
+      const bool box = k >= rect_rows;
+      if (aux_live(row, box))
+        atomicMax(&live[box], box ? k - rect_rows + 1 : k + 1);
+    }
+    __syncthreads();
+    aux.geo = staged;
+    aux.rec = aux_rec;
+    aux.rects = live[0];
+    aux.boxes = live[1];
+    aux.rect_rows = rect_rows;
+    aux.rect_code = rect_code;
+    aux.box_code = box_code;
+  }
   for (int k = threadIdx.x; k < s; k += kThreads) sph[k] = sph_g[k];
   if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
   const SharedRow acc{&acc_rows[0][threadIdx.x]};
@@ -335,10 +399,20 @@ __global__ void __launch_bounds__(kThreads, kSphereBlocks)
     float best_t;
     int best;
     sphere_sweep_steps(p, sph, s, t_min, best_t, best);
-    const int winner = shade<false>(
-        p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
-        sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
-        TriScene{});
+    int winner;
+    if constexpr (kAux) {
+      int aux_kind, aux_idx;
+      aux_sweep(p, aux, t_min, best_t, aux_kind, aux_idx);
+      winner = shade<false, true>(
+          p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+          sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+          TriScene{}, &aux, aux_kind, aux_idx);
+    } else {
+      winner = shade<false>(
+          p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+          sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+          TriScene{});
+    }
     if (tape != nullptr) tape[(size_t)it * n + i] = (float)winner;
     depth = close_bounce(p, depth, trace_depth, cin, acc);
   }
@@ -539,31 +613,85 @@ extern "C" int rtiw_megatrace_batch(
           seed, lane_base, samples, trace_depth, t_min, has_dielectrics,
           sky_on, jitter);
     } else {
-      megatrace_sphere_kernel<<<(n + kThreads - 1) / kThreads, kThreads,
-                                shmem, st>>>(
+      megatrace_sphere_kernel<false><<<(n + kThreads - 1) / kThreads,
+                                       kThreads, shmem, st>>>(
           lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
           rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
-          has_dielectrics, sky_on, jitter);
+          has_dielectrics, sky_on, jitter, nullptr, nullptr, 0, 0, 0, 0);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sphere build's occupancy with an s-sphere table, for the report:
-// blocks an SM (the occupancy API), registers a thread and local memory
-// (stack and spills) a thread (cudaFuncGetAttributes), into info[0..2].
-extern "C" int rtiw_megatrace_sphere_info(int s, int* info) {
+// The aux build's dynamic shared memory: the spheres, then three float4
+// a rect or box row.
+static size_t aux_shmem(int s, int aux_rows) {
+  return ((size_t)s + 3 * (size_t)aux_rows) * sizeof(float4);
+}
+
+// The sphere build (aux_rows < 0) or its aux build with an s-sphere table
+// and aux_rows rect and box rows, for the report: blocks an SM (the
+// occupancy API), registers a thread and local memory (stack and spills)
+// a thread (cudaFuncGetAttributes), into info[0..2].
+static int sphere_info(const void* kernel, size_t shmem, int* info) {
   int blocks = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, megatrace_sphere_kernel, kThreads, (size_t)s * sizeof(float4));
+      &blocks, kernel, kThreads, shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, megatrace_sphere_kernel);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = blocks;
   info[1] = attr.numRegs;
   info[2] = (int)attr.localSizeBytes;
   return 0;
+}
+
+extern "C" int rtiw_megatrace_sphere_info(int s, int* info) {
+  return sphere_info(reinterpret_cast<const void*>(
+                         megatrace_sphere_kernel<false>),
+                     (size_t)s * sizeof(float4), info);
+}
+
+extern "C" int rtiw_megatrace_aux_info(int s, int aux_rows, int* info) {
+  const size_t shmem = aux_shmem(s, aux_rows);
+  const cudaError_t err = cudaFuncSetAttribute(
+      megatrace_sphere_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sphere_info(reinterpret_cast<const void*>(
+                         megatrace_sphere_kernel<true>),
+                     shmem, info);
+}
+
+// The aux build (scenes with rects or boxes, spheres or none): the sphere
+// build's arguments, then aux_geo ((rect_rows + box_rows) x 16 floats:
+// pack_aux_tables' rect rows, then its box rows; 16-byte aligned), aux_rec
+// ((rect_rows + box_rows) x 16 floats) and the tape codes of rect row 0
+// and box row 0.  Returns cudaGetLastError() after the launch, or the
+// error of setting its shared memory.
+extern "C" int rtiw_megatrace_aux(
+    const float* lane_count, const float* count_in, const float* consts,
+    const float* sph, const float* rec, const float* aux_geo,
+    const float* aux_rec, float* out, float* tape, int n, int s,
+    int rect_rows, int box_rows, int rect_code, int box_code, int seed,
+    int lane_base, int samples, int trace_depth, float t_min,
+    int has_dielectrics, int sky_on, int jitter, void* stream) {
+  if (n > 0) {
+    const size_t shmem = aux_shmem(s, rect_rows + box_rows);
+    const cudaError_t err = cudaFuncSetAttribute(
+        megatrace_sphere_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    megatrace_sphere_kernel<true><<<(n + kThreads - 1) / kThreads, kThreads,
+                                    shmem, static_cast<cudaStream_t>(stream)>>>(
+        lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
+        rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
+        has_dielectrics, sky_on, jitter,
+        reinterpret_cast<const float4*>(aux_geo), aux_rec, rect_rows,
+        box_rows, rect_code, box_code);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 namespace {

@@ -40,6 +40,31 @@ struct TriScene {
   int rows = 0, blocks = 0, code_base = 0, supers = 0;
 };
 
+// A scene's rects and boxes (the batch kernel's aux build): their kernel
+// rows (aux_frame's 12 floats, three float4 a row: rects in rows
+// [0, rect_rows), boxes after them) staged in shared memory, and their
+// records in device memory (AUX_KERNEL_REC = 16 columns: material 0-10 |
+// id 11 | a rect's world normal 12-14), box b at row rect_rows + b.  The
+// sweep visits rects [0, rects) and boxes [0, boxes): the rows that can
+// hit (trailing pad rows never do).  A rect's tape code is rect_code plus
+// its row, a box's box_code plus its row (the JAX kernel's combined row
+// space: after the padded spheres, the boxes after the padded rects).
+struct AuxScene {
+  const float4* geo = nullptr;
+  const float* rec = nullptr;
+  int rects = 0, boxes = 0, rect_rows = 0, rect_code = 0, box_code = 0;
+};
+
+// Row k of the staged aux table as aux_frame's 12 floats.
+__device__ __forceinline__ void aux_row(const AuxScene& aux, int k,
+                                        float* g) {
+  const float4 a = aux.geo[3 * k], b = aux.geo[3 * k + 1],
+               c = aux.geo[3 * k + 2];
+  g[0] = a.x, g[1] = a.y, g[2] = a.z, g[3] = a.w;
+  g[4] = b.x, g[5] = b.y, g[6] = b.z, g[7] = b.w;
+  g[8] = c.x, g[9] = c.y, g[10] = c.z, g[11] = c.w;
+}
+
 // The state of one path (SampleBatchJob.cs:166-401).
 struct Path {
   float ox, oy, oz, dx, dy, dz;
@@ -81,20 +106,56 @@ __device__ __forceinline__ void sphere_sweep(const Path& p, const float4* sph,
   }
 }
 
+// The rect and box sweep after the spheres' (the aux build): each rect,
+// then each box, wins only with a strictly smaller t than the best so far,
+// so the first row wins a tie and a box beats a rect only when nearer (the
+// JAX kernel's order).  aux_kind: 0 the spheres' winner stands, 1 rect
+// aux_idx, 2 box aux_idx.
+__device__ __forceinline__ void aux_sweep(const Path& p, const AuxScene& aux,
+                                          float t_min, float& best_t,
+                                          int& aux_kind, int& aux_idx) {
+  const float o[3] = {p.ox, p.oy, p.oz}, d[3] = {p.dx, p.dy, p.dz};
+  aux_kind = 0;
+  aux_idx = 0;
+  float g[12];
+  for (int k = 0; k < aux.rects; ++k) {
+    aux_row(aux, k, g);
+    const float t = rect_test(o, d, g, t_min);
+    if (t < best_t) {
+      best_t = t;
+      aux_kind = 1;
+      aux_idx = k;
+    }
+  }
+  for (int k = 0; k < aux.boxes; ++k) {
+    aux_row(aux, aux.rect_rows + k, g);
+    const float t = box_test(o, d, g, t_min);
+    if (t < best_t) {
+      best_t = t;
+      aux_kind = 2;
+      aux_idx = k;
+    }
+  }
+}
+
 // The rest of a bounce once the sweeps have found the nearest hit at
 // best_t (kBig: a miss) on sphere row `best` or, when tri_wins, triangle
-// row tri_idx at barycentrics (tri_u, tri_v): the winner's record,
+// row tri_idx at barycentrics (tri_u, tri_v), or with kAux (the batch
+// kernel's aux build; the other builds compile none of it) rect or box
+// aux_idx of `aux` (aux_kind 1 or 2): the winner's record,
 // Lambert / GGX-metal / dielectric scatter with the uniforms of hash base
 // `bbase`, the gradient sky `sky` (bottom rgb, top rgb) or none, the fold,
 // AOV capture and events at path depth `depth`, and the advance.  Returns
 // the winner's tape code, -1 on a miss.
-template <bool kTris>
+template <bool kTris, bool kAux = false>
 __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      bool tri_wins, int tri_idx, float tri_u,
                                      float tri_v, const float* __restrict__ rec,
                                      bool has_dielectrics, bool sky_on,
                                      const float* sky, uint32_t bbase,
-                                     int depth, const TriScene& tri) {
+                                     int depth, const TriScene& tri,
+                                     const AuxScene* aux = nullptr,
+                                     int aux_kind = 0, int aux_idx = 0) {
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
   const bool hit = best_t < kBig;
@@ -130,16 +191,43 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
   const float pz = fmaf(best_t, dz, oz);
   const float* w;
   float nx, ny, nz;
-  if (kTris && tri_wins) {
-    w = tri.rec + (size_t)tri_idx * kTriRec;
-    tri_normal(w + 12, w + 15, w + 18, tri_u, tri_v, nx, ny, nz);
-    best = tri.code_base + tri_idx;
+  if constexpr (kAux) {
+    if (aux_kind == 1) {
+      w = aux->rec + (size_t)aux_idx * kRec;
+      nx = __ldg(w + 12);  // a rect's normal is constant: the packed one
+      ny = __ldg(w + 13);
+      nz = __ldg(w + 14);
+      best = aux->rect_code + aux_idx;
+    } else if (aux_kind == 2) {
+      const int row = aux->rect_rows + aux_idx;
+      w = aux->rec + (size_t)row * kRec;
+      float g[12], ln[3], n[3];
+      aux_row(*aux, row, g);
+      const float pt[3] = {px, py, pz};
+      box_normal(pt, g, ln, n);
+      nx = n[0];
+      ny = n[1];
+      nz = n[2];
+      best = aux->box_code + aux_idx;
+    } else {
+      w = rec + (size_t)best * kRec;
+      const float inv_r = __ldg(w + 15);
+      nx = (px - __ldg(w + 12)) * inv_r;
+      ny = (py - __ldg(w + 13)) * inv_r;
+      nz = (pz - __ldg(w + 14)) * inv_r;
+    }
   } else {
-    w = rec + (size_t)best * kRec;
-    const float inv_r = __ldg(w + 15);
-    nx = (px - __ldg(w + 12)) * inv_r;
-    ny = (py - __ldg(w + 13)) * inv_r;
-    nz = (pz - __ldg(w + 14)) * inv_r;
+    if (kTris && tri_wins) {
+      w = tri.rec + (size_t)tri_idx * kTriRec;
+      tri_normal(w + 12, w + 15, w + 18, tri_u, tri_v, nx, ny, nz);
+      best = tri.code_base + tri_idx;
+    } else {
+      w = rec + (size_t)best * kRec;
+      const float inv_r = __ldg(w + 15);
+      nx = (px - __ldg(w + 12)) * inv_r;
+      ny = (py - __ldg(w + 13)) * inv_r;
+      nz = (pz - __ldg(w + 14)) * inv_r;
+    }
   }
   const float mtype = __ldg(w + 0);
   const float alb_r = __ldg(w + 1), alb_g = __ldg(w + 2),

@@ -49,7 +49,14 @@
 // compiles none of it): the entity table is the whole padded row space
 // (38 columns), a triangle winner's adjoint runs Möller–Trumbore and the
 // normal lerp backwards (megatrace_replay_lane.cuh::tri_hit_vjp), and its
-// 28-column cotangent row goes to device memory.
+// 28-column cotangent row goes to device memory.  Scenes with rects or
+// boxes take a third (kAux): the whole padded row space (23 columns), a
+// rect or box winner's adjoint through its frame and plane or face
+// distance (aux_hit_vjp), and its 19-column cotangent row to device memory
+// by the same warp sums, one atomic a row and column: a scene of a few
+// rects and boxes (the Cornell box's 8) has every warp's paths hitting the
+// same rows, which the warp sum turns into at most one atomic a distinct
+// row of the warp and column.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,11 +121,11 @@ __device__ __forceinline__ int nth_bit(unsigned m, int k) {
 // a shuffle tree over their ranks among the peers, and the first of them
 // adds the sum (Add: EntityAdd or MeshEntityAdd, one atomic a nonzero
 // column).
-template <bool kTris, class Add>
+template <bool kTris, bool kAux, class Add>
 struct WarpEntityAdd {
   Add add;
   __device__ void operator()(int w, float* ge) const {
-    constexpr int cols = Layout<kTris>::grad;
+    constexpr int cols = Layout<kTris, kAux>::grad;
     const int lane = threadIdx.x & 31;
     const unsigned peers = __match_any_sync(kFull, w);
     const int cnt = __popc(peers);
@@ -155,7 +162,7 @@ __device__ void flush_scal(float* warp_rows, float* own_row, float* s_sum) {
 }
 
 // The plain row adder of each build.
-template <bool kTris>
+template <bool kTris, bool kAux>
 struct RowAdd {
   using type = EntityAdd;
   __device__ static EntityAdd make(float* base, float*, int) {
@@ -163,18 +170,27 @@ struct RowAdd {
   }
 };
 template <>
-struct RowAdd<true> {
+struct RowAdd<true, false> {
   using type = MeshEntityAdd;
   __device__ static MeshEntityAdd make(float* base, float* tri,
                                        int tri_base) {
     return MeshEntityAdd{base, tri, tri_base};
   }
 };
+template <>
+struct RowAdd<false, true> {
+  using type = AuxEntityAdd;
+  __device__ static AuxEntityAdd make(float* base, float* aux,
+                                      int aux_base) {
+    return AuxEntityAdd{base, aux, aux_base};
+  }
+};
 
 // Three blocks an SM (at most 168 registers, some spilled) measured
 // faster on an H100 than the compiler's 242 at 64 spp, and four slower
-// (PERF.md, kernel #2).
-template <bool kTris>
+// (PERF.md, kernel #2).  The kAux build passes its rect and box rows'
+// table as dent_tri and the padded sphere count as tri_base.
+template <bool kTris, bool kAux = false>
 __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     const float* __restrict__ tape, const int2* __restrict__ paths,
     int total, int* __restrict__ next_warp,
@@ -204,8 +220,8 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
   // [slot][var][thread] measured no faster on an H100 (PERF.md, kernel #2)
   float states[(kMaxDepth - 1) * kPathVars];
   const ArrayHist hist{states};
-  WarpEntityAdd<kTris, typename RowAdd<kTris>::type> add{
-      RowAdd<kTris>::make(s_dent, dent_tri, tri_base)};
+  WarpEntityAdd<kTris, kAux, typename RowAdd<kTris, kAux>::type> add{
+      RowAdd<kTris, kAux>::make(s_dent, dent_tri, tri_base)};
   for (;;) {
     int w0 = 0;
     if (lane == 0) w0 = atomicAdd(next_warp, 1) * 32;
@@ -223,8 +239,9 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     const LaneEnv E = make_lane_env(s_cam, ent, i, lane_count[i], seed,
                                     lane_base, trace_depth, t_min,
                                     has_dielectrics, sky_on, jitter);
-    path_backward<kTris>(tape, n, i, it0, len, steps, E, cot[i], cot[n + i],
-                         cot[2 * n + i], cot[3 * n + i], hist, gs, add);
+    path_backward<kTris, kAux>(tape, n, i, it0, len, steps, E, cot[i],
+                               cot[n + i], cot[2 * n + i], cot[3 * n + i],
+                               hist, gs, add);
     flush_scal(warp_gs, gs, s_sum);
   }
   __syncthreads();
@@ -238,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
 
 // One iteration's VJP on every lane: the hand derivation, exposed so that
 // it can be held against torch.autograd of the plain replay_iteration.
-template <bool kTris>
+template <bool kTris, bool kAux = false>
 __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
     const float* __restrict__ state, const float* __restrict__ codes,
     const float* __restrict__ cot_out, const float* __restrict__ lane_count,
@@ -252,14 +269,14 @@ __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
   const LaneEnv E = make_lane_env(consts, ent, i, lane_count[i], seed,
                                   lane_base, trace_depth, t_min,
                                   has_dielectrics, sky_on, jitter);
-  constexpr int cols = Layout<kTris>::grad;
+  constexpr int cols = Layout<kTris, kAux>::grad;
   float st[kStateVars], g[kStateVars], ge[cols], gs[kScal];
   for (int k = 0; k < kStateVars; ++k) {
     st[k] = state[(size_t)k * n + i];
     g[k] = cot_out[(size_t)k * n + i];
   }
   for (int k = 0; k < kScal; ++k) gs[k] = 0.0f;
-  step_vjp<kTris>(st, g, codes[i], it, E, ge, gs);
+  step_vjp<kTris, kAux>(st, g, codes[i], it, E, ge, gs);
   for (int k = 0; k < kStateVars; ++k) cot_in[(size_t)k * n + i] = g[k];
   for (int k = 0; k < cols; ++k) cot_ent[(size_t)k * n + i] = ge[k];
   for (int k = 0; k < kScal; ++k) cot_scal[(size_t)k * n + i] = gs[k];
@@ -290,23 +307,30 @@ extern "C" int rtiw_bwd_scan(const float* tape, const float* lane_count,
 
 // rtiw_bwd_paths: the backward of the `total` paths of the scan's table.
 // `dent` (s, 13), `dscal` (30) and `next_warp` (1 int) must be zeroed by
-// the caller.  A mesh scene passes a zeroed `dent_tri` (T_pad, 28),
-// `tri_base` = the padded sphere count (the first triangle's tape code) and
-// the whole (s_pad + T_pad, 38) entity table; a sphere scene passes
-// dent_tri = nullptr and its (s, 23) rows.
+// the caller.  A mesh scene (kind 1) passes a zeroed `dent_rows` (T_pad,
+// 28), `row_base` = the padded sphere count (the first triangle's tape
+// code) and the whole (s_pad + T_pad, 38) entity table; a scene with rects
+// or boxes (kind 2) a zeroed `dent_rows` (R_pad + B_pad, 19), row_base the
+// same and the whole (s_pad + R_pad + B_pad, 23) table; a sphere scene
+// (kind 0) dent_rows = nullptr and its (s, 23) rows.
 extern "C" int rtiw_bwd_paths(
     const float* tape, const int* paths, int total, int* next_warp,
     const float* lane_count, const float* consts, const float* ent,
-    const float* cot, float* dent, float* dscal, float* dent_tri,
-    int tri_base, int n, int s, int seed, int lane_base, int trace_depth,
-    float t_min, int has_dielectrics, int sky_on, int jitter, void* stream) {
+    const float* cot, float* dent, float* dscal, float* dent_rows,
+    int row_base, int n, int s, int seed, int lane_base, int trace_depth,
+    float t_min, int has_dielectrics, int sky_on, int jitter, int kind,
+    void* stream) {
   if (total <= 0) return 0;
   if (trace_depth < 1 || trace_depth > kMaxDepth)
     return (int)cudaErrorInvalidValue;
   const size_t shmem =
       ((size_t)s * kGradCols + kThreads * kGsStride) * sizeof(float);
-  auto kernel = dent_tri != nullptr ? megatrace_paths_kernel<true>
-                                    : megatrace_paths_kernel<false>;
+  if (kind < 0 || kind > 2 || (kind != 0) != (dent_rows != nullptr))
+    return (int)cudaErrorInvalidValue;
+  // the build: 0 sphere scenes, 1 mesh scenes, 2 rects or boxes
+  auto kernel = kind == 1   ? megatrace_paths_kernel<true, false>
+                : kind == 2 ? megatrace_paths_kernel<false, true>
+                            : megatrace_paths_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -324,7 +348,7 @@ extern "C" int rtiw_bwd_paths(
                                                        : (long)sms * per_sm);
   kernel<<<blocks, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
       tape, reinterpret_cast<const int2*>(paths), total, next_warp,
-      lane_count, consts, ent, cot, dent, dscal, dent_tri, tri_base, n, s,
+      lane_count, consts, ent, cot, dent, dscal, dent_rows, row_base, n, s,
       seed, lane_base, trace_depth, t_min, has_dielectrics, sky_on, jitter);
   return static_cast<int>(cudaGetLastError());
 }
@@ -334,11 +358,13 @@ extern "C" int rtiw_replay_step_vjp(
     const float* lane_count, const float* consts, const float* ent,
     float* cot_in, float* cot_ent, float* cot_scal, int n, int it, int seed,
     int lane_base, int trace_depth, float t_min, int has_dielectrics,
-    int sky_on, int jitter, int has_tris, void* stream) {
+    int sky_on, int jitter, int kind, void* stream) {
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
-    auto kernel = has_tris ? replay_step_vjp_kernel<true>
-                           : replay_step_vjp_kernel<false>;
+    auto kernel = kind == 1   ? replay_step_vjp_kernel<true, false>
+                  : kind == 2 ? replay_step_vjp_kernel<false, true>
+                              : replay_step_vjp_kernel<false, false>;
     kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         state, codes, cot_out, lane_count, consts, ent, cot_in, cot_ent,
         cot_scal, n, it, seed, lane_base, trace_depth, t_min,

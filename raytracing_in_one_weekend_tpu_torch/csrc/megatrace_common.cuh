@@ -144,6 +144,101 @@ RTIW_FN void tri_normal(const float* n0, const float* n1, const float* n2,
   nz = tz * inv;
 }
 
+// v rotated by the quaternion (qx, qy, qz, qw): t = 2 q_v x v, v + w t +
+// q_v x t, with the products the JAX kernel's CPU compile contracts fused
+// (a cross product's x*y - z*w is fmaf(x, y, -(z*w)), v + w t is
+// fmaf(w, t, v)); plain version: ops/megatrace.py::_quat_rotate.  The
+// frame of a rect or box is entered with the conjugate (-qx, -qy, -qz,
+// qw).
+RTIW_FN void quat_rotate(float qx, float qy, float qz, float qw, float vx,
+                         float vy, float vz, float* r) {
+  const float tx = 2.0f * fmaf(qy, vz, -(qz * vy));
+  const float ty = 2.0f * fmaf(qz, vx, -(qx * vz));
+  const float tz = 2.0f * fmaf(qx, vy, -(qy * vx));
+  r[0] = fmaf(qw, tx, vx) + fmaf(qy, tz, -(qz * ty));
+  r[1] = fmaf(qw, ty, vy) + fmaf(qz, tx, -(qx * tz));
+  r[2] = fmaf(qw, tz, vz) + fmaf(qx, ty, -(qy * tx));
+}
+
+// A rect's or box's kernel row, 12 floats (pack_aux_tables' geo columns
+// 0-11): quat xyzw | pos | rect: xy_from, xy_to; box: extents.
+// The ray (o, d) in the entity's frame: ol = q* (o - pos), dl = q* d.
+RTIW_FN void aux_frame(const float* o, const float* d, const float* g,
+                       float* ol, float* dl) {
+  quat_rotate(-g[0], -g[1], -g[2], g[3], o[0] - g[4], o[1] - g[5],
+              o[2] - g[6], ol);
+  quat_rotate(-g[0], -g[1], -g[2], g[3], d[0], d[1], d[2], dl);
+}
+
+// One-sided local-XY rect (HitTests.cs:62-78): t = -ol.z / dl.z (dl.z == 0
+// divides by 1), a hit only from the front (dl.z < 0), after t_min, with
+// the local hit point inside [from, to]; kBig otherwise.  Plain version:
+// ops/megatrace.py::rect_test.
+RTIW_FN float rect_test(const float* o, const float* d, const float* g,
+                        float t_min) {
+  float ol[3], dl[3];
+  aux_frame(o, d, g, ol, dl);
+  const float t = -ol[2] / (dl[2] == 0.0f ? 1.0f : dl[2]);
+  const float hx = fmaf(t, dl[0], ol[0]);
+  const float hy = fmaf(t, dl[1], ol[1]);
+  const bool ok = dl[2] < 0.0f && t > t_min && hx >= g[7] && hx <= g[9] &&
+                  hy >= g[8] && hy <= g[10];
+  return ok ? t : kBig;
+}
+
+RTIW_FN float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// The Majercik box test's terms (HitTests.cs:81-113) for the ray in the
+// box frame (bo = ol + dl t_min, dl): each face's plane distance dp (with
+// the inside/outside winding, -1 from inside) and the face whose hit lies
+// within the other two extents, the first of x, y, z (-1: none).  Plain
+// version: ops/megatrace.py::box_parts.
+RTIW_FN int box_face(const float* bo, const float* dl, const float* ext,
+                     float* dp, float& winding) {
+  const float rel = fmaxf(fabsf(bo[0]) / fmaxf(ext[0], 1e-30f),
+                          fmaxf(fabsf(bo[1]) / fmaxf(ext[1], 1e-30f),
+                                fabsf(bo[2]) / fmaxf(ext[2], 1e-30f)));
+  winding = rel < 1.0f ? -1.0f : 1.0f;
+  for (int k = 0; k < 3; ++k)
+    dp[k] = (ext[k] * winding * -sign_of(dl[k]) - bo[k]) /
+            (dl[k] == 0.0f ? 1e-30f : dl[k]);
+  for (int a = 0; a < 3; ++a) {
+    const int u = (a + 1) % 3, v = (a + 2) % 3;
+    if (dp[a] >= 0.0f && fabsf(fmaf(dl[u], dp[a], bo[u])) < ext[u] &&
+        fabsf(fmaf(dl[v], dp[a], bo[v])) < ext[v])
+      return a;
+  }
+  return -1;
+}
+
+// The box test: t of the ray (o, d) against the box row g, kBig on a miss.
+RTIW_FN float box_test(const float* o, const float* d, const float* g,
+                       float t_min) {
+  float bo[3], dl[3], dp[3], winding;
+  aux_frame(o, d, g, bo, dl);
+  for (int k = 0; k < 3; ++k) bo[k] = fmaf(dl[k], t_min, bo[k]);
+  const int a = box_face(bo, dl, g + 7, dp, winding);
+  return a < 0 ? kBig : dp[a] + t_min;
+}
+
+// The world normal of the box row g at its surface point p: the local face
+// of the dominant |p_local| / extent axis (extents floored at 1e-12, the
+// first axis on a tie, sign(0) = 0), rotated back (plain version:
+// ops/megatrace.py::box_normal).  Writes the local normal to ln.
+RTIW_FN void box_normal(const float* p, const float* g, float* ln,
+                        float* n) {
+  float pl[3], re[3];
+  quat_rotate(-g[0], -g[1], -g[2], g[3], p[0] - g[4], p[1] - g[5],
+              p[2] - g[6], pl);
+  for (int k = 0; k < 3; ++k) re[k] = fabsf(pl[k]) / fmaxf(g[7 + k], 1e-12f);
+  const int a = (re[0] >= re[1] && re[0] >= re[2]) ? 0 : re[1] >= re[2] ? 1
+                                                                         : 2;
+  for (int k = 0; k < 3; ++k) ln[k] = k == a ? sign_of(pl[k]) : 0.0f;
+  quat_rotate(g[0], g[1], g[2], g[3], ln[0], ln[1], ln[2], n);
+}
+
 RTIW_FN float smith_masking(float cos_theta, float roughness) {
   const float sq_cos = cos_theta * cos_theta;
   const float sq_sin = fmaxf(1.0f - sq_cos, 0.0f);

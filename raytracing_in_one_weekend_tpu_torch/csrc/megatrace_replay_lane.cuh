@@ -21,7 +21,19 @@
 // The adjoint keeps the primal's guards there too: det == 0 divides by 1
 // and passes no derivative, and the normal's 1e-24 floor passes one only
 // where torch.clamp does.
+//
+// Scenes with rects or boxes take the kAux instantiation (again none of it
+// in the others): a rect winner (kind 1) takes the ray in its frame and
+// its plane distance, a box winner (kind 2) the Majercik face distance,
+// and its cotangent row is kAuxGradCols wide (quaternion, material,
+// position, extents).  Their normals are constants of the hit point: a
+// rect's the packed rotated +Z (entity columns 7-9), a box's the rotated
+// dominant face; both pass a derivative to the quaternion only.  The
+// guards: dl.z == 0 divides by 1 and a box axis with dl == 0 by 1e-30,
+// each passing no derivative to dl, as the plain replay's torch.where.
 #pragma once
+
+#include <type_traits>
 
 #include "megatrace_common.cuh"
 
@@ -43,6 +55,10 @@ constexpr int kGradCols = 13;  // entity columns 0-3 and 11-19
 // 23-31 (its vertex normals); columns 0-2 hold a triangle's edge_a
 // (megatrace_replay.TRI_GRAD_COLS)
 constexpr int kTriGradCols = 28;
+// scenes with rects or boxes: kGradCols, then columns 4-9 (a position, a
+// box's extents); columns 0-3 hold a quaternion
+// (megatrace_replay.AUX_GRAD_COLS)
+constexpr int kAuxGradCols = 19;
 // camera row 0-23 (origin, lower-left, horizontal, vertical, right, up,
 // lens radius, width, height, pad) | sky bottom 24-26 | sky top 27-29
 constexpr int kScal = 30;
@@ -54,12 +70,13 @@ enum CamIdx {
 // 10 gloss, 11 metallic, 12 parameter
 enum GradIdx { kGC = 0, kGR = 3, kGAlb = 4, kGEm = 7, kGGloss = 10,
                kGMetal = 11, kGParam = 12, kGEb = 13, kGV0 = 16,
-               kGNrm = 19 };
+               kGNrm = 19, kGPos = 13, kGExt = 16 };
 
-template <bool kTris>
+template <bool kTris, bool kAux = false>
 struct Layout {
   static constexpr int ent = kTris ? kTriEntCols : kEntCols;
-  static constexpr int grad = kTris ? kTriGradCols : kGradCols;
+  static constexpr int grad = kTris ? kTriGradCols
+                              : kAux ? kAuxGradCols : kGradCols;
 };
 
 struct LaneEnv {
@@ -119,6 +136,16 @@ struct Iter {
   // scatter result, sky and fold
   float sd[3], sr[3], lp_inc, off_n, tsky, em2[3], rad_new[3];
 };
+
+// ... and of a rect or box winner (the kAux build).
+struct IterAux : Iter {
+  int kind;  // 0 sphere, 1 rect, 2 box
+  int face;  // a box's face axis
+  float ol[3], dl[3], sdiv, wsg, dp, ln[3];
+};
+
+template <bool kAux>
+using IterOf = typename std::conditional<kAux, IterAux, Iter>::type;
 
 RTIW_FN void norm3(const float* x, float* y) {
   const float inv = rsqrt_cr(fmaxf(dot3(x[0], x[1], x[2], x[0], x[1], x[2]),
@@ -193,9 +220,39 @@ RTIW_FN void tri_hit(Iter& I) {
   for (int k = 0; k < 3; ++k) I.n[k] = I.tn[k] * inv;
 }
 
+// A rect or box winner (entity row e: quat | position | a rect's packed
+// normal or a box's extents), the forward kernel's expressions
+// (megatrace_common.cuh::rect_test, box_test, box_normal): the hit
+// distance, point and normal.
+RTIW_FN void aux_hit(IterAux& A, const float* e, float t_min) {
+  const float* o = A.o;
+  const float* d = A.d;
+  aux_frame(o, d, e, A.ol, A.dl);
+  if (A.kind == 1) {
+    A.sdiv = A.dl[2] != 0.0f ? A.dl[2] : 1.0f;
+    A.t = -A.ol[2] / A.sdiv;
+    for (int k = 0; k < 3; ++k) {
+      A.p[k] = fmaf(A.t, d[k], o[k]);
+      A.n[k] = e[7 + k];
+    }
+    return;
+  }
+  float bo[3], dp[3], winding;
+  for (int k = 0; k < 3; ++k) bo[k] = fmaf(A.dl[k], t_min, A.ol[k]);
+  int a = box_face(bo, A.dl, e + 7, dp, winding);
+  if (a < 0) a = 2;  // the tape guarantees a face; the plain replay's z
+  A.face = a;
+  A.dp = dp[a];
+  A.sdiv = A.dl[a] == 0.0f ? 1e-30f : A.dl[a];
+  A.wsg = winding * -sign_of(A.dl[a]);
+  A.t = dp[a] + t_min;
+  for (int k = 0; k < 3; ++k) A.p[k] = fmaf(A.t, d[k], o[k]);
+  box_normal(A.p, e, A.ln, A.n);
+}
+
 // Regen, one bounce at the tape's winner, fold: everything but the state
 // update, which step_forward applies.
-template <bool kTris = false>
+template <bool kTris = false, bool kAux = false>
 RTIW_FN void iter_forward(const float* s, float code, int it,
                           const LaneEnv& E, Iter& I) {
   const float* cam = E.cam;
@@ -255,7 +312,7 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
   if (I.hit) {
     // ---- the winner: its hit point and normal ----------------------------
     I.w = (int)code;
-    const float* e = E.ent + (size_t)I.w * Layout<kTris>::ent;
+    const float* e = E.ent + (size_t)I.w * Layout<kTris, kAux>::ent;
     for (int k = 0; k < 3; ++k) {
       I.c[k] = e[k];
       I.alb[k] = e[11 + k];
@@ -267,6 +324,13 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
     I.metal = e[18];
     I.param = e[19];
     I.tri = kTris && e[21] > 2.5f;
+    bool aux = false;
+    if constexpr (kAux) {
+      IterAux& A = static_cast<IterAux&>(I);
+      A.kind = e[21] > 1.5f ? 2 : e[21] > 0.5f ? 1 : 0;
+      aux = A.kind != 0;
+      if (aux) aux_hit(A, e, E.t_min);
+    }
     if (kTris && I.tri) {
       for (int k = 0; k < 3; ++k) {
         I.eb[k] = e[4 + k];
@@ -274,7 +338,7 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
       }
       for (int k = 0; k < 9; ++k) I.nrm[k] = e[23 + k];
       tri_hit(I);
-    } else {
+    } else if (!aux) {
       sphere_hit(I, E.t_min);
     }
     const float* n = I.n;
@@ -371,10 +435,10 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
 }
 
 // One replay iteration, in place.
-template <bool kTris = false>
+template <bool kTris = false, bool kAux = false>
 RTIW_FN void step_forward(float* s, float code, int it, const LaneEnv& E) {
-  Iter I;
-  iter_forward<kTris>(s, code, it, E, I);
+  IterOf<kAux> I;
+  iter_forward<kTris, kAux>(s, code, it, E, I);
   if (!I.was_active) return;
   for (int k = 0; k < 3; ++k) {
     s[kOX + k] = I.hit ? fmaf(I.off_n, I.n[k], I.p[k]) : I.o[k];
@@ -588,6 +652,77 @@ RTIW_FN void tri_hit_vjp(const Iter& I, const float* gp, const float* gn,
   }
 }
 
+// r = q v q* (quat_rotate): cotangents of q (gq, 4) and v (gv, 3), added,
+// given r's (g).  t = 2 q_v x v, r = v + w t + q_v x t.
+RTIW_FN void quat_rotate_vjp(const float* q, const float* v, const float* g,
+                             float* gq, float* gv) {
+  const float t[3] = {2.0f * (q[1] * v[2] - q[2] * v[1]),
+                      2.0f * (q[2] * v[0] - q[0] * v[2]),
+                      2.0f * (q[0] * v[1] - q[1] * v[0])};
+  // gt = w g + g x q_v; gq_v += t x g; gw += g.t
+  const float gt[3] = {q[3] * g[0] + (g[1] * q[2] - g[2] * q[1]),
+                       q[3] * g[1] + (g[2] * q[0] - g[0] * q[2]),
+                       q[3] * g[2] + (g[0] * q[1] - g[1] * q[0])};
+  gq[0] += t[1] * g[2] - t[2] * g[1];
+  gq[1] += t[2] * g[0] - t[0] * g[2];
+  gq[2] += t[0] * g[1] - t[1] * g[0];
+  gq[3] += dotv(g, t);
+  // t = 2 q_v x v: gq_v += 2 v x gt, gv += 2 gt x q_v
+  gq[0] += 2.0f * (v[1] * gt[2] - v[2] * gt[1]);
+  gq[1] += 2.0f * (v[2] * gt[0] - v[0] * gt[2]);
+  gq[2] += 2.0f * (v[0] * gt[1] - v[1] * gt[0]);
+  gv[0] += g[0] + 2.0f * (gt[1] * q[2] - gt[2] * q[1]);
+  gv[1] += g[1] + 2.0f * (gt[2] * q[0] - gt[0] * q[2]);
+  gv[2] += g[2] + 2.0f * (gt[0] * q[1] - gt[1] * q[0]);
+}
+
+// Cotangents of a rect or box winner's hit point p and normal n (gp, gn)
+// into the ray (go, gd) and the winner row: quaternion, position and a
+// box's extents (ge, the kAuxGradCols layout).
+RTIW_FN void aux_hit_vjp(const IterAux& A, const float* e, float t_min,
+                         const float* gp, const float* gn, float* go,
+                         float* gd, float* ge) {
+  const float* d = A.d;
+  const float q[4] = {e[0], e[1], e[2], e[3]};
+  const float gt = dotv(gp, d);
+  for (int k = 0; k < 3; ++k) {
+    gd[k] += A.t * gp[k];
+    go[k] += gp[k];
+  }
+  float gol[3] = {0.0f, 0.0f, 0.0f}, gdl[3] = {0.0f, 0.0f, 0.0f};
+  float gq[4] = {0.0f, 0.0f, 0.0f, 0.0f}, gv[3] = {0.0f, 0.0f, 0.0f};
+  if (A.kind == 1) {
+    // t = -ol.z / dl.z; n = q (0, 0, 1) q*
+    gol[2] = -gt / A.sdiv;
+    if (A.dl[2] != 0.0f) gdl[2] = -gt * A.t / A.sdiv;
+    const float up[3] = {0.0f, 0.0f, 1.0f};
+    quat_rotate_vjp(q, up, gn, gq, gv);
+  } else {
+    // t = (ext_a wsg - bo_a) / dl_a + t_min, bo = ol + dl t_min;
+    // n = q ln q*
+    const int a = A.face;
+    ge[kGExt + a] += gt * A.wsg / A.sdiv;
+    const float gbo = -gt / A.sdiv;
+    if (A.dl[a] != 0.0f) gdl[a] -= gt * A.dp / A.sdiv;
+    gol[a] += gbo;
+    gdl[a] += gbo * t_min;
+    quat_rotate_vjp(q, A.ln, gn, gq, gv);
+  }
+  // ol = q* (o - pos) q, dl = q* d q
+  const float qc[4] = {-q[0], -q[1], -q[2], q[3]};
+  float gqc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float rel[3], gr[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < 3; ++k) rel[k] = A.o[k] - e[4 + k];
+  quat_rotate_vjp(qc, rel, gol, gqc, gr);
+  for (int k = 0; k < 3; ++k) {
+    go[k] += gr[k];
+    ge[kGPos + k] -= gr[k];
+  }
+  quat_rotate_vjp(qc, d, gdl, gqc, gd);
+  for (int k = 0; k < 3; ++k) ge[kGC + k] += gq[k] - gqc[k];
+  ge[kGR] += gq[3] + gqc[3];
+}
+
 // ---------------------------------------------------------------------------
 // The iteration's adjoint
 // ---------------------------------------------------------------------------
@@ -740,12 +875,12 @@ RTIW_FN void dielectric_vjp(const Iter& I, const float* gsd,
 // entry and of the input state on exit.  ge (Layout<kTris>::grad) receives
 // the winner row's cotangent and gs (kScal) accumulates the camera and sky
 // cotangents.  Returns the winner row, or -1 when ge is unused.
-template <bool kTris = false>
+template <bool kTris = false, bool kAux = false>
 RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
                      const LaneEnv& E, float* ge, float* gs) {
-  Iter I;
-  iter_forward<kTris>(s, code, it, E, I);
-  for (int k = 0; k < Layout<kTris>::grad; ++k) ge[k] = 0.0f;
+  IterOf<kAux> I;
+  iter_forward<kTris, kAux>(s, code, it, E, I);
+  for (int k = 0; k < Layout<kTris, kAux>::grad; ++k) ge[k] = 0.0f;
   g[kActive] = g[kValid] = g[kStarted] = g[kDepth] = 0.0f;
   if (!I.was_active) return -1;
   const float* cam = E.cam;
@@ -797,9 +932,16 @@ RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
       standard_vjp(I, gsd, gsr, glp_inc, gn, gd, ge);
 
     // ---- hit point and normal -------------------------------------------
+    bool aux = false;
+    if constexpr (kAux) {
+      aux = I.kind != 0;
+      if (aux)
+        aux_hit_vjp(I, E.ent + (size_t)I.w * Layout<kTris, kAux>::ent,
+                    E.t_min, gp, gn, go, gd, ge);
+    }
     if (kTris && I.tri)
       tri_hit_vjp(I, gp, gn, go, gd, ge);
-    else
+    else if (!aux)
       sphere_hit_vjp(I, gp, gn, go, gd, ge);
   }
 
@@ -934,7 +1076,7 @@ struct ArrayHist {
 // path idle (w = -1) at its top steps.  gs receives the camera and sky
 // cotangents; add_ent(w, ge) each step's winner row (w = -1: none).
 RTIW_EXEC_CHECK_OFF
-template <bool kTris = false, class Hist, class AddEnt>
+template <bool kTris = false, bool kAux = false, class Hist, class AddEnt>
 RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
                            int len, int steps, const LaneEnv& E,
                            float cot_r, float cot_g, float cot_b,
@@ -943,10 +1085,11 @@ RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
   float st[kStateVars];
   path_start(st);
   for (int j = 0; j + 1 < len; ++j) {
-    step_forward<kTris>(st, tape[(size_t)(it0 + j) * n + lane], it0 + j, E);
+    step_forward<kTris, kAux>(st, tape[(size_t)(it0 + j) * n + lane], it0 + j,
+                              E);
     hist.store(j, st);
   }
-  float g[kStateVars], ge[Layout<kTris>::grad];
+  float g[kStateVars], ge[Layout<kTris, kAux>::grad];
   for (int k = 0; k < kStateVars; ++k) g[k] = 0.0f;
   g[kCSX] = cot_r;
   g[kCSY] = cot_g;
@@ -960,8 +1103,8 @@ RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
         hist.load(j - 1, st);
         st[kActive] = 1.0f;
       }
-      w = step_vjp<kTris>(st, g, tape[(size_t)(it0 + j) * n + lane], it0 + j,
-                          E, ge, gs);
+      w = step_vjp<kTris, kAux>(st, g, tape[(size_t)(it0 + j) * n + lane],
+                                it0 + j, E, ge, gs);
     }
     add_ent(w, ge);
   }
@@ -1003,13 +1146,28 @@ struct MeshEntityAdd {
   }
 };
 
+// Scenes with rects or boxes: spheres as EntityAdd; a rect or box (code w
+// >= aux_base, the padded sphere count) into the (R_pad + B_pad,
+// kAuxGradCols) table `aux`.
+struct AuxEntityAdd {
+  float* base;
+  float* aux;
+  int aux_base;
+  RTIW_FN void operator()(int w, const float* ge) const {
+    if (w >= aux_base)
+      add_row(aux + (size_t)(w - aux_base) * kAuxGradCols, ge, kAuxGradCols);
+    else if (w >= 0)
+      add_row(base + w * kGradCols, ge, kGradCols);
+  }
+};
+
 #ifndef __CUDACC__
 // The kernels' schedule on the host, one thread at a time: the scan counts
 // the paths of each length, the grouping lays the lengths out longest
 // first, the scan again scatters each path to its place, and the paths'
 // backwards run in that order, each sum added in place (dscal: the camera
 // and sky cotangents, kScal).  `ent` is the entity table the tape indexes.
-template <bool kTris = false, class AddEnt>
+template <bool kTris = false, bool kAux = false, class AddEnt>
 inline void host_backward(const float* tape, const float* lane_count,
                           const float* cam, const float* ent,
                           const float* cot, int n, int samples,
@@ -1043,7 +1201,7 @@ inline void host_backward(const float* tape, const float* lane_count,
     const LaneEnv E = make_lane_env(cam, ent, lane, lane_count[lane], seed,
                                     lane_base, trace_depth, t_min, has_diel,
                                     sky_on, jitter);
-    path_backward<kTris>(tape, n, lane, code / kMaxDepth, len, len, E,
+    path_backward<kTris, kAux>(tape, n, lane, code / kMaxDepth, len, len, E,
                          cot[lane], cot[n + lane], cot[2 * n + lane],
                          cot[3 * n + lane], h, dscal, add_ent);
   }

@@ -5,9 +5,11 @@ Scenes are frozen dataclasses of tensors; these helpers splice optimizable
 parameter tensors (sphere centers and radii, texture colors, material
 IOR, ...) into a scene template with `dataclasses.replace`, so that
 autograd differentiates the render with respect to exactly the chosen
-parameters.  Setters for kinds the renderer cannot draw yet (rects, boxes,
-image atlases, cubemaps, motion) are plain setters too; the
-renderer's `check_scope` refuses such scenes.
+parameters.  The rect and box setters reach the renderer's pack of their
+tables (`ops/megatrace.pack_aux_tables`), so `diff/inverse.optimize` fits
+them like the spheres'.  Setters for kinds the renderer cannot draw yet
+(image atlases, cubemaps, motion) are plain setters too; the renderer's
+`check_scope` refuses such scenes.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Feature-matrix testbed scenes (counterpart of the JAX package's
 models/testbeds.py), holding the entries the port renders: the raw
-triangle test and the mesh scenes (the showcase, and `mesh_large` and
-`mesh_huge` beyond TRI_MAX triangles).  The other testbeds follow with
-their ROADMAP steps.
+triangle test, the mesh scenes (the showcase, and `mesh_large` and
+`mesh_huge` beyond TRI_MAX triangles) and `simple_light` (spheres and an
+emissive rect).  The other testbeds follow with their ROADMAP steps.
 
 Reference: the legacy scene assets (Assets/Scenes/Legacy/*.asset); each
 function covers the same feature axis with the scene builder, with the
@@ -14,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 
 from raytracing_in_one_weekend_tpu_torch.models import meshes
-from raytracing_in_one_weekend_tpu_torch.scene.scene import Scene, SceneBuilder
+from raytracing_in_one_weekend_tpu_torch.scene.scene import (
+    Scene, SceneBuilder, axis_angle_quat,
+)
 from raytracing_in_one_weekend_tpu_torch.utils.config import CameraSettings
 
 
@@ -38,9 +40,27 @@ def triangle_test() -> tuple[Scene, CameraSettings]:
     return b.build(), cam
 
 
+def simple_light() -> tuple[Scene, CameraSettings]:
+    """Simple Light (Book 2).asset: emissive rect + sphere, no sky."""
+    b = SceneBuilder()
+    grey = b.lambert((0.5, 0.5, 0.5))
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, grey)
+    b.add_sphere((0.0, 2.0, 0.0), 2.0, grey)
+    light = b.emissive((4.0, 4.0, 4.0))
+    b.add_rect((3.0, 2.0, -2.0), (2.0, 2.0), light,
+               rotation=axis_angle_quat((0, 1, 0), -90.0))
+    b.add_sphere((0.0, 7.0, 0.0), 2.0, light)
+    b.set_no_sky()
+    cam = CameraSettings(
+        origin=(26.0, 3.0, 6.0), look_at=(0.0, 2.0, 0.0), vertical_fov=20.0
+    )
+    return b.build(), cam
+
+
 SCENES = {
     "mesh_showcase": meshes.mesh_showcase,
     "mesh_large": meshes.mesh_large,
     "mesh_huge": meshes.mesh_huge,
     "triangle": triangle_test,
+    "simple_light": simple_light,
 }

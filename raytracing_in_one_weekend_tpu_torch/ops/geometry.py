@@ -1,14 +1,16 @@
-"""Batched ray-sphere and ray-triangle intersection (counterpart of the
-JAX package's ops/geometry.py, its sphere and triangle functions).
+"""Batched ray-sphere, ray-rect, ray-box and ray-triangle intersection
+(counterpart of the JAX package's ops/geometry.py, its sphere, rect, box
+and triangle functions).
 
-Reference: Runtime/HitTests.cs:23-60 (spheres) and :116-150
+Reference: Runtime/HitTests.cs:23-60 (spheres), :62-78 (one-sided
+local-XY rects), :81-113 (Majercik boxes) and :116-150
 (Möller–Trumbore).  Every function returns a large but finite "miss"
 distance (BIG) instead of a flag, so the nearest-hit reduction is a masked
 min and everything stays differentiable.  The square roots are
 adjoint-safe: lanes without a root never see sqrt(0), whose backward is
 inf and would poison the gradient through 0 * inf; a degenerate triangle
-(det == 0) divides by 1.  Rects and boxes wait for ROADMAP queue 1, step
-7.1.
+(det == 0) divides by 1.  Rects and boxes take their quaternions
+normalized (math3.quat_normalize), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -142,3 +144,140 @@ def triangle_hit_all(
     normal = torch.einsum("tij,ntj->nti", normals, bary)
     uv = torch.einsum("tij,ntj->nti", uvs, bary)
     return t, normal, uv
+
+
+# ---------------------------------------------------------------------------
+# Rects (HitTests.cs:62-78) and boxes (HitTests.cs:81-113)
+# ---------------------------------------------------------------------------
+
+
+def _rect_t(o_local, d_local, xy_from, xy_to, t_min):
+    dz = d_local[..., 2]
+    safe_dz = torch.where(dz == 0.0, 1.0, dz)
+    t = -o_local[..., 2] / safe_dz
+    xy = o_local[..., :2] + t[..., None] * d_local[..., :2]
+    inside = torch.all((xy >= xy_from) & (xy <= xy_to), dim=-1)
+    ok = (dz < 0.0) & (t > t_min) & inside
+    return torch.where(ok, t, BIG)
+
+
+def rect_hit_all(
+    origin: torch.Tensor,  # (N, 3)
+    direction: torch.Tensor,  # (N, 3)
+    rot: torch.Tensor,  # (R, 4) world-from-local quaternion
+    pos: torch.Tensor,  # (R, 3) world translation
+    xy_from: torch.Tensor,  # (R, 2)
+    xy_to: torch.Tensor,  # (R, 2)
+    t_min: float = T_MIN,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-sided rect in its local XY plane, all rays x all rects: the ray
+    goes to entity space (Entity.cs:91-97) and hits only when its local
+    direction faces the plane (dir.z < 0, HitTests.cs:69).  Returns (t (N,
+    R), world normals (N, R, 3)); the normal is the rotated local +Z."""
+    rot = math3.quat_normalize(rot)
+    inv_rot = math3.quat_conjugate(rot)
+    o_local = math3.quat_rotate(inv_rot[None], origin[:, None] - pos[None])
+    d_local = math3.quat_rotate(inv_rot[None], direction[:, None].expand(
+        -1, rot.shape[0], -1))
+    t = _rect_t(o_local, d_local, xy_from[None], xy_to[None], t_min)
+    up = torch.zeros_like(rot[:, :3])
+    up[:, 2] = 1.0
+    world_n = math3.quat_rotate(rot, up)
+    return t, world_n[None].expand(origin.shape[0], -1, -1)
+
+
+def _box_entry(o, d, extents, t_min):
+    """(t_entry, local face normal, t_exit) of the Majercik box test in
+    the box frame (o already offset by d t_min)."""
+    inside = torch.amax(torch.abs(o) / torch.clamp(extents, min=1e-30),
+                        dim=-1) < 1.0
+    winding = torch.where(inside, -1.0, 1.0)
+    sgn = -torch.sign(d)
+    safe_d = torch.where(d == 0.0, 1e-30, d)
+    dist_to_plane = (extents * winding[..., None] * sgn - o) / safe_d
+
+    def face_test(axis):
+        u, v = (axis + 1) % 3, (axis + 2) % 3
+        da = dist_to_plane[..., axis]
+        pu = o[..., u] + d[..., u] * da
+        pv = o[..., v] + d[..., v] * da
+        return ((da >= 0.0) & (torch.abs(pu) < extents[..., u])
+                & (torch.abs(pv) < extents[..., v]))
+
+    test_x, test_y, test_z = face_test(0), face_test(1), face_test(2)
+    t = torch.where(test_x, dist_to_plane[..., 0],
+                    torch.where(test_y, dist_to_plane[..., 1],
+                                dist_to_plane[..., 2]))
+    t = torch.where(test_x | test_y | test_z, t + t_min, BIG)
+    local_n = torch.stack([
+        torch.where(test_x, sgn[..., 0], 0.0),
+        torch.where(test_y & ~test_x, sgn[..., 1], 0.0),
+        torch.where(test_z & ~test_x & ~test_y, sgn[..., 2], 0.0),
+    ], dim=-1)
+    # the exit root of the plain slab test (the convex volume walk's);
+    # 1 / 0 is +inf (SampleBatchJob.cs:409-412)
+    inv_d = torch.where(d == 0.0, float("inf"),
+                        1.0 / torch.where(d == 0.0, 1.0, d))
+    t0 = (-extents - o) * inv_d
+    t1 = (extents - o) * inv_d
+    t_far = torch.amin(torch.maximum(t0, t1), dim=-1) + t_min
+    t_near = torch.amax(torch.minimum(t0, t1), dim=-1) + t_min
+    t_exit = torch.where((t_far > t_min) & (t_near < t_far), t_far, BIG)
+    return t, local_n, t_exit
+
+
+def box_hit_all(
+    origin: torch.Tensor,  # (N, 3)
+    direction: torch.Tensor,  # (N, 3)
+    rot: torch.Tensor,  # (B, 4)
+    pos: torch.Tensor,  # (B, 3)
+    extents: torch.Tensor,  # (B, 3) half-sizes
+    t_min: float = T_MIN,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Majercik et al. ray-box in entity space, all rays x all boxes:
+    (t_entry (N, B), world normal (N, B, 3), t_exit (N, B)).  The origin
+    is offset by t_min along the ray first (HitTests.cs:84)."""
+    rot = math3.quat_normalize(rot)
+    inv_rot = math3.quat_conjugate(rot)
+    o = math3.quat_rotate(inv_rot[None], origin[:, None] - pos[None])
+    d = math3.quat_rotate(inv_rot[None], direction[:, None].expand(
+        -1, rot.shape[0], -1))
+    o = o + d * t_min
+    t, local_n, t_exit = _box_entry(o, d, extents[None], t_min)
+    world_n = math3.quat_rotate(rot[None].expand(origin.shape[0], -1, -1),
+                                local_n)
+    return t, world_n, t_exit
+
+
+def rect_hit_single(
+    origin: torch.Tensor,  # (M, 3)
+    direction: torch.Tensor,  # (M, 3)
+    rot: torch.Tensor,  # (M, 4): one (gathered) rect per ray
+    pos: torch.Tensor,  # (M, 3)
+    xy_from: torch.Tensor,  # (M, 2)
+    xy_to: torch.Tensor,  # (M, 2)
+    t_min: float = T_MIN,
+) -> torch.Tensor:
+    """Per-ray single-rect test (HitTests.cs:62-78): t, BIG on a miss."""
+    inv_rot = math3.quat_conjugate(math3.quat_normalize(rot))
+    o_local = math3.quat_rotate(inv_rot, origin - pos)
+    d_local = math3.quat_rotate(inv_rot, direction)
+    return _rect_t(o_local, d_local, xy_from, xy_to, t_min)
+
+
+def box_hit_single(
+    origin: torch.Tensor,  # (M, 3)
+    direction: torch.Tensor,  # (M, 3)
+    rot: torch.Tensor,  # (M, 4): one (gathered) box per ray
+    pos: torch.Tensor,  # (M, 3)
+    extents: torch.Tensor,  # (M, 3)
+    t_min: float = T_MIN,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-ray single-box entry and exit (HitTests.cs:81-113; slab exit):
+    (t_entry, t_exit), BIG where there is none."""
+    inv_rot = math3.quat_conjugate(math3.quat_normalize(rot))
+    o = math3.quat_rotate(inv_rot, origin - pos)
+    d = math3.quat_rotate(inv_rot, direction)
+    o = o + d * t_min
+    t, _, t_exit = _box_entry(o, d, extents, t_min)
+    return t, t_exit

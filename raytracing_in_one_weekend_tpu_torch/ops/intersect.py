@@ -1,5 +1,5 @@
 """Scene-level nearest-hit query (counterpart of the JAX package's
-ops/intersect.py), for sphere and triangle scenes.
+ops/intersect.py), for scenes of spheres, rects, boxes and triangles.
 
 Reference: the per-ray candidate walk, brute-force test and distance sort
 of SampleBatchJob.cs:403-475, as a wavefront "intersect every entity,
@@ -8,9 +8,12 @@ detached (spheres: ops/sphere_select.py; triangles: ops/triangle_select.py
 up to its MAX_TRI_PAD, the brute force `geometry.triangle_hit_all` above,
 as in the JAX package); the winner is then evaluated again in plain
 PyTorch (ops/geometry.sphere_hit_single / triangle_hit_single), which
-carries the gradients to its geometry.  A triangle wins only with a
-strictly smaller t.  Rects, boxes, motion and the BVH raise
-NotImplementedError naming their ROADMAP steps.
+carries the gradients to its geometry.  Rects and boxes are plain PyTorch
+in the JAX package too (no Pallas kernel): all rays against every rect
+and box (`geometry.rect_hit_all`, `box_hit_all`), in the JAX order
+spheres, rects, boxes, triangles, each kind winning only with a strictly
+smaller t.  Motion, volumes and the BVH raise NotImplementedError naming
+their ROADMAP steps.
 """
 
 from __future__ import annotations
@@ -90,23 +93,56 @@ def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
         raise NotImplementedError(f"wavefront not ported for {missing}")
     sph = scene.spheres
     n = rays.origin.shape[0]
-    # detached selection kernel, then the differentiable (N,)-sized
-    # re-evaluation of the winner
-    _, idx, _ = sphere_select.sphere_select(
-        rays.origin.detach(), rays.direction.detach(), sph.center.detach(),
-        sph.radius.detach(), t_min=t_min,
-    )
-    win = idx.long()
-    t, t_exit = geometry.sphere_hit_single(
-        rays.origin, rays.direction, gather_rows(sph.center, win),
-        gather_rows(sph.radius, win), t_min,
-    )
-    closer = t < BIG
-    best_t = torch.where(closer, t, BIG)
-    best_kind = torch.where(closer, int(EntityKind.SPHERE), -1).to(
-        torch.int32)
-    best_index = torch.where(closer, idx, 0).to(torch.int32)
-    best_exit = torch.where(closer, t_exit, BIG)
+    dev = rays.origin.device
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_kind = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_index = torch.zeros(n, dtype=torch.int32, device=dev)
+    best_exit = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    if sph.center.shape[0] > 0:
+        # detached selection kernel, then the differentiable (N,)-sized
+        # re-evaluation of the winner
+        _, idx, _ = sphere_select.sphere_select(
+            rays.origin.detach(), rays.direction.detach(),
+            sph.center.detach(), sph.radius.detach(), t_min=t_min,
+        )
+        win = idx.long()
+        t, t_exit = geometry.sphere_hit_single(
+            rays.origin, rays.direction, gather_rows(sph.center, win),
+            gather_rows(sph.radius, win), t_min,
+        )
+        closer = t < BIG
+        best_t = torch.where(closer, t, BIG)
+        best_kind = torch.where(closer, int(EntityKind.SPHERE), -1).to(
+            torch.int32)
+        best_index = torch.where(closer, idx, 0).to(torch.int32)
+        best_exit = torch.where(closer, t_exit, BIG)
+
+    rct = scene.rects
+    if rct.rot.shape[0] > 0:
+        t_all, _ = geometry.rect_hit_all(
+            rays.origin, rays.direction, rct.rot, rct.pos, rct.xy_from,
+            rct.xy_to, t_min)
+        idx = torch.argmin(t_all, dim=1)
+        t = torch.gather(t_all, 1, idx[:, None])[:, 0]
+        closer = t < best_t
+        best_t = torch.where(closer, t, best_t)
+        best_kind = torch.where(closer, int(EntityKind.RECT), best_kind)
+        best_index = torch.where(closer, idx.to(torch.int32), best_index)
+        best_exit = torch.where(closer, BIG, best_exit)
+
+    box = scene.boxes
+    if box.rot.shape[0] > 0:
+        t_all, _, t_exit = geometry.box_hit_all(
+            rays.origin, rays.direction, box.rot, box.pos, box.extents,
+            t_min)
+        idx = torch.argmin(t_all, dim=1)
+        t = torch.gather(t_all, 1, idx[:, None])[:, 0]
+        closer = t < best_t
+        best_t = torch.where(closer, t, best_t)
+        best_kind = torch.where(closer, int(EntityKind.BOX), best_kind)
+        best_index = torch.where(closer, idx.to(torch.int32), best_index)
+        best_exit = torch.where(
+            closer, torch.gather(t_exit, 1, idx[:, None])[:, 0], best_exit)
 
     tri = scene.triangles
     if tri.vert0.shape[0] > 0:
@@ -128,21 +164,59 @@ def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
 
 
 def _shading_attributes(scene: Scene, rays: Rays, point, kind, index):
-    """Normal, uv and material of the winning entity only."""
+    """Normal, uv and material of the winning entity only (rects and
+    boxes keep uv = 0)."""
+    n = point.shape[0]
+    normal = torch.zeros_like(point)
+    uv = torch.zeros((n, 2), dtype=point.dtype, device=point.device)
+    material = torch.zeros(n, dtype=torch.int32, device=point.device)
     sph = scene.spheres
-    gi = torch.clamp(index, 0, sph.center.shape[0] - 1).long()
-    is_sph = kind == EntityKind.SPHERE
-    sn = geometry.sphere_normal_at(point, gather_rows(sph.center, gi),
-                                   gather_rows(sph.radius, gi))
-    normal = torch.where(is_sph[:, None], sn, torch.zeros_like(sn))
-    material = torch.where(is_sph, sph.material[gi].to(torch.int32), 0)
-    # Shirley Book-2 spherical texcoords from the outward normal:
-    # u = (atan2(-z, x) + pi) / 2pi, v = acos(-y) / pi (the reference
-    # zeroes them, HitTests.cs:123; the JAX package restores the book's)
-    sph_u = (torch.atan2(-sn[:, 2], sn[:, 0]) + math.pi) / (2.0 * math.pi)
-    sph_v = torch.arccos(torch.clamp(-sn[:, 1], -1.0, 1.0)) / math.pi
-    uv = torch.where(is_sph[:, None], torch.stack([sph_u, sph_v], dim=-1),
-                     0.0)
+    if sph.center.shape[0] > 0:
+        gi = torch.clamp(index, 0, sph.center.shape[0] - 1).long()
+        is_sph = kind == EntityKind.SPHERE
+        sn = geometry.sphere_normal_at(point, gather_rows(sph.center, gi),
+                                       gather_rows(sph.radius, gi))
+        normal = torch.where(is_sph[:, None], sn, normal)
+        material = torch.where(is_sph, sph.material[gi].to(torch.int32),
+                               material)
+        # Shirley Book-2 spherical texcoords from the outward normal:
+        # u = (atan2(-z, x) + pi) / 2pi, v = acos(-y) / pi (the reference
+        # zeroes them, HitTests.cs:123; the JAX package restores the book's)
+        sph_u = (torch.atan2(-sn[:, 2], sn[:, 0]) + math.pi) / (
+            2.0 * math.pi)
+        sph_v = torch.arccos(torch.clamp(-sn[:, 1], -1.0, 1.0)) / math.pi
+        uv = torch.where(is_sph[:, None],
+                         torch.stack([sph_u, sph_v], dim=-1), uv)
+
+    rct = scene.rects
+    if rct.rot.shape[0] > 0:
+        gi = torch.clamp(index, 0, rct.rot.shape[0] - 1).long()
+        up = torch.zeros_like(point)
+        up[:, 2] = 1.0
+        rn = math3.quat_rotate(gather_rows(rct.rot, gi), up)
+        is_rct = kind == EntityKind.RECT
+        normal = torch.where(is_rct[:, None], rn, normal)
+        material = torch.where(is_rct, rct.material[gi].to(torch.int32),
+                               material)
+
+    box = scene.boxes
+    if box.rot.shape[0] > 0:
+        gi = torch.clamp(index, 0, box.rot.shape[0] - 1).long()
+        rot = gather_rows(box.rot, gi)
+        local_p = math3.quat_rotate(math3.quat_conjugate(rot),
+                                    point - gather_rows(box.pos, gi))
+        # the face of the dominant |p| / extent axis (the first on a tie),
+        # sign(0) = 0
+        rel = torch.abs(local_p) / torch.clamp(gather_rows(box.extents, gi),
+                                               min=1e-12)
+        axis = torch.argmax(rel, dim=-1)
+        local_n = torch.sign(torch.gather(local_p, 1, axis[:, None])) \
+            * torch.eye(3, dtype=point.dtype, device=point.device)[axis]
+        bn = math3.quat_rotate(rot, local_n)
+        is_box = kind == EntityKind.BOX
+        normal = torch.where(is_box[:, None], bn, normal)
+        material = torch.where(is_box, box.material[gi].to(torch.int32),
+                               material)
 
     tri = scene.triangles
     if tri.vert0.shape[0] > 0:

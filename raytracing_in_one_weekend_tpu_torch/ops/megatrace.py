@@ -1,13 +1,16 @@
 """Fused sample-batch path tracer: the CUDA kernel and its plain version.
 
 Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm,
-the triangle (VMEM) arm and the streamed-triangle arm of its
-`_batch_kernel` (gradient or no sky, white noise), the forward path of the
-book cover and of mesh scenes of at most TRI_STREAM_MAX triangles.  One
+the rect and box arm, the triangle (VMEM) arm and the streamed-triangle
+arm of its `_batch_kernel` (gradient or no sky, white noise), the forward
+path of the book cover, of rect and box scenes (`cornell`,
+`simple_light`) and of mesh scenes of at most TRI_STREAM_MAX triangles.  One
 call runs a whole SampleBatchJob (reference: SampleBatchJob.cs:59-164,
 166-401) and returns per-lane accumulation deltas: thin-lens camera rays,
 persistent-lane path regeneration over `samples * trace_depth`
-iterations, the dense sphere sweep, the Möller–Trumbore sweep over
+iterations, the dense sphere sweep, the one-sided rect and Majercik box
+tests in each entity's frame (`rect_test`, `box_test`), the
+Möller–Trumbore sweep over
 TRI_BLOCK-row triangle blocks (each skipped by a lane whose ray misses the
 block's AABB; a streamed mesh adds a level above, one AABB per TRI_SUP
 blocks), Lambert / GGX-metal / dielectric scatter, the gradient sky, and
@@ -22,7 +25,9 @@ streamed meshes) and the deltas stay in lane order.
   Hopper: one thread per lane, path state in registers, sphere geometry
   staged in shared memory.  Sphere scenes take `megatrace_sphere_kernel`,
   whose warps run 8x4 pixel tiles of lanes (`tile_lane_order` is the
-  map's plain twin); meshes of at most TRI_MAX triangles take
+  map's plain twin); scenes with rects or boxes its aux build, which
+  stages them beside the spheres and sweeps them after (`AUX_LAUNCHES`
+  counts it); meshes of at most TRI_MAX triangles take
   `megatrace_batch_kernel` (triangles read through the read-only cache,
   one thread a lane in lane order); streamed
   tables take `megatrace_stream_kernel`, whose thread blocks of 128 lanes
@@ -53,6 +58,8 @@ from typing import NamedTuple
 
 import torch
 
+from raytracing_in_one_weekend_tpu_torch.core import math3
+
 BIG = 1e30
 SPHERE_PAD = 128
 SPH_CULL_MIN = 1024  # sphere count above which the JAX kernel switches to
@@ -73,6 +80,7 @@ SALT_BOUNCE = 7919  # extra salt of the bounce draws
 _MASK32 = 0xFFFFFFFF
 
 LAUNCHES = 0  # CUDA kernel launches made by sample_batch
+AUX_LAUNCHES = 0  # ... of them, launches of the aux build (rects, boxes)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
 TRI_PAIRS = 0  # (lane, triangle) pairs the plain version's sweep tested:
 #   the kernel tests the same ones (the operation count of its bound)
@@ -95,6 +103,13 @@ TRI_REC_ROWS = 32  # 0-10 material | 11 id | 12-20 vertex normals |
 TOO_MANY_TRIANGLES = (f"meshes of more than {TRI_STREAM_MAX} triangles "
                       "(the JAX package's cap; the BVH, ROADMAP queue 1, "
                       "step 9)")
+AUX_PAD = 8  # rect and box table rows are padded to a multiple of this
+AUX_REC_ROWS = 24
+AUX_MAX = 1024  # rects plus boxes the kernels stage in shared memory
+AUX_KERNEL_REC = 16  # record columns the kernel reads: 0-10 material |
+#   11 material id | 12-14 a rect's world normal
+RECTS_IN_MESHES = ("rects and boxes in mesh scenes (ROADMAP queue 1, "
+                   "step 7.1b)")
 
 
 # ---------------------------------------------------------------------------
@@ -105,11 +120,12 @@ TOO_MANY_TRIANGLES = (f"meshes of more than {TRI_STREAM_MAX} triangles "
 def unported_feature(scene) -> str | None:
     """The first scene feature no ported path draws, named with its
     ROADMAP item, or None (the scope of the wavefront integrator)."""
+    tris = scene.triangles.vert0.shape[0] > 0
     checks = (
-        (scene.spheres.center.shape[0] == 0,
-         "scenes without spheres (ROADMAP queue 1, step 7.1)"),
-        (scene.rects.rot.shape[0] > 0 or scene.boxes.rot.shape[0] > 0,
-         "rects and boxes (ROADMAP queue 1, step 7.1)"),
+        (tris and (scene.rects.rot.shape[0] > 0
+                   or scene.boxes.rot.shape[0] > 0), RECTS_IN_MESHES),
+        (tris and scene.spheres.center.shape[0] == 0,
+         "meshes without spheres (ROADMAP queue 1, step 7.1b)"),
         (scene.flags.has_volumes, "volumes (ROADMAP queue 1, step 7.2)"),
         (scene.flags.has_motion, "motion blur (ROADMAP queue 1, step 7.3)"),
         (scene.flags.has_procedural_textures,
@@ -123,29 +139,43 @@ def unported_feature(scene) -> str | None:
     return None
 
 
-def unsupported_feature(scene, allow_triangles: bool = False) -> str | None:
+def unsupported_feature(scene, allow_triangles: bool = False,
+                        allow_rect_box: bool = False) -> str | None:
     """The first feature of `scene` the fused kernels do not render, named
     with its ROADMAP item, or None when the scene is in scope: the ported
-    features, at most SPH_CULL_MIN spheres, and triangles only with
-    `allow_triangles` (the batch kernel; the per-ray megatrace is
-    sphere-only, as the JAX package's), at most TRI_STREAM_MAX of them
-    (the JAX package's `scene_eligible`)."""
-    if scene.spheres.center.shape[0] > SPH_CULL_MIN:
+    features, at least one entity, at most SPH_CULL_MIN spheres, triangles
+    only with `allow_triangles` and rects, boxes and sphere-free scenes
+    only with `allow_rect_box` (the batch kernel takes both; the per-ray
+    megatrace is sphere-only, as the JAX package's), at most
+    TRI_STREAM_MAX triangles and AUX_MAX rects and boxes (the JAX
+    package's `scene_eligible` flags)."""
+    spheres = scene.spheres.center.shape[0]
+    aux = scene.rects.rot.shape[0] + scene.boxes.rot.shape[0]
+    tri_count = scene.triangles.vert0.shape[0]
+    if spheres > SPH_CULL_MIN:
         return (f"more than {SPH_CULL_MIN} spheres: the blocked sweep "
                 "(ROADMAP queue 1, step 7)")
-    tri_count = scene.triangles.vert0.shape[0]
+    if spheres + aux + tri_count == 0:
+        return "scenes without entities (nothing for a kernel to sweep)"
     if tri_count > 0 and not allow_triangles:
         return "triangles (the per-ray megatrace is sphere-only)"
+    if (aux > 0 or spheres == 0) and not allow_rect_box:
+        return ("rects, boxes and sphere-free scenes (the per-ray "
+                "megatrace is sphere-only)")
     if tri_count > TRI_STREAM_MAX:
         return TOO_MANY_TRIANGLES
+    if aux > AUX_MAX:
+        return (f"more than {AUX_MAX} rects and boxes: the kernels stage "
+                "them in shared memory (ROADMAP queue 1, step 7)")
     return unported_feature(scene)
 
 
-def scene_eligible(scene, allow_triangles: bool = False) -> bool:
+def scene_eligible(scene, allow_triangles: bool = False,
+                   allow_rect_box: bool = False) -> bool:
     """Can this scene run in the ported fused kernels?  The batch kernel
-    asks with allow_triangles=True, the per-ray megatrace without (the
-    JAX package's `scene_eligible` flags)."""
-    return unsupported_feature(scene, allow_triangles) is None
+    asks with allow_triangles=True and allow_rect_box=True, the per-ray
+    megatrace without (the JAX package's `scene_eligible` flags)."""
+    return unsupported_feature(scene, allow_triangles, allow_rect_box) is None
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +247,67 @@ def pack_sphere_records(scene, packed_materials):
         ],
         dim=1,
     )
+
+
+def aux_pad_count(k: int) -> int:
+    """Padded rect/box-table rows (pack_aux_tables layout)."""
+    return max(AUX_PAD, -(-k // AUX_PAD) * AUX_PAD)
+
+
+def pack_aux_tables(scene, packed_materials):
+    """(rect_tables, box_tables) in the JAX kernel's layout (JAX
+    pack_aux_tables), each None where the scene has none of that kind.
+
+    rect geo (R_pad, 16): quat xyzw | pos | xy_from | xy_to; rec (24,
+    R_pad): material rows 0-10 | world normal 11-13 (the rotated local +Z,
+    Entity.cs:65) | material id 14.  box geo (B_pad, 16): quat | pos |
+    extents; rec (24, B_pad): material rows 0-10 | quat 11-14 | pos 15-17 |
+    extents 18-20 | material id 21.  The quaternions are normalized here
+    (the kernels and the replay assume unit ones, and a raw quaternion's
+    scale then gets no gradient).  Pad rows never hit (a rect from (1, 1)
+    to (0, 0); a box of zero extents).  Differentiable: gradients to the
+    rects' and boxes' rotations, positions, extents and materials flow
+    through this pack."""
+    f32 = dict(dtype=torch.float32, device=scene.rects.rot.device)
+    rect_tables = None
+    rct = scene.rects
+    r = rct.rot.shape[0]
+    if r > 0:
+        r_pad = aux_pad_count(r)
+        rrot = math3.quat_normalize(rct.rot.to(torch.float32))
+        geo = torch.zeros((r_pad, 16), **f32)
+        geo[:, 3] = 1.0  # identity quats on pad rows
+        geo[:, 7:9] = 1.0  # pad: from (1, 1) > to (0, 0) never hits
+        geo[:r, 0:4] = rrot
+        geo[:r, 4:7] = rct.pos
+        geo[:r, 7:9] = rct.xy_from
+        geo[:r, 9:11] = rct.xy_to
+        up = torch.tensor([0.0, 0.0, 1.0], **f32).expand(r, 3)
+        rec = torch.zeros((AUX_REC_ROWS, r_pad), **f32)
+        rec[:11, :r] = packed_materials[rct.material.long()][:, :11].T
+        rec[11:14, :r] = math3.quat_rotate(rrot, up).T
+        rec[14, :r] = rct.material.to(torch.float32)
+        rect_tables = (geo, rec)
+
+    box_tables = None
+    box = scene.boxes
+    b = box.rot.shape[0]
+    if b > 0:
+        b_pad = aux_pad_count(b)
+        brot = math3.quat_normalize(box.rot.to(torch.float32))
+        geo = torch.zeros((b_pad, 16), **f32)
+        geo[:, 3] = 1.0
+        geo[:b, 0:4] = brot
+        geo[:b, 4:7] = box.pos
+        geo[:b, 7:10] = box.extents  # pad rows keep extents 0
+        rec = torch.zeros((AUX_REC_ROWS, b_pad), **f32)
+        rec[:11, :b] = packed_materials[box.material.long()][:, :11].T
+        rec[11:15, :b] = brot.T
+        rec[15:18, :b] = box.pos.T
+        rec[18:21, :b] = box.extents.T
+        rec[21, :b] = box.material.to(torch.float32)
+        box_tables = (geo, rec)
+    return rect_tables, box_tables
 
 
 def tri_pad_count(t: int) -> int:
@@ -597,6 +688,9 @@ def _sweep(o, d, sph, t_min):
     argmin's first-index rule on ties, index 0 on a miss."""
     ox, oy, oz = o
     dx, dy, dz = d
+    if sph.shape[0] == 0:  # a sphere-free scene: every lane misses them
+        return (torch.full_like(ox, BIG),
+                torch.zeros_like(ox, dtype=torch.int64))
     cx, cy, cz, cmr2 = (sph[:, k:k + 1] for k in range(4))  # (S, 1)
     a = _dot3(dx, dy, dz, dx, dy, dz)
     o_dot_d = _dot3(ox, oy, oz, dx, dy, dz)
@@ -756,6 +850,115 @@ def _tri_stream_sweep(o, d, best_t, stream: TriStream, t_min):
     return tuple(hit)
 
 
+def _quat_rotate(qx, qy, qz, qw, vx, vy, vz):
+    """v rotated by the quaternion (qx, qy, qz, qw), the JAX kernel's
+    `_quat_rotate` (t = 2 q_v x v; v + w t + q_v x t) with the products its
+    CPU compile contracts fused: a cross product's x*y - z*w is fma(x, y,
+    -(z*w)), v + w t is fma(w, t, v).  Any broadcastable shapes."""
+    tx = 2.0 * _fma(qy, vz, -(qz * vy))
+    ty = 2.0 * _fma(qz, vx, -(qx * vz))
+    tz = 2.0 * _fma(qx, vy, -(qy * vx))
+    return (_fma(qw, tx, vx) + _fma(qy, tz, -(qz * ty)),
+            _fma(qw, ty, vy) + _fma(qz, tx, -(qx * tz)),
+            _fma(qw, tz, vz) + _fma(qx, ty, -(qy * tx)))
+
+
+def _sign(x):
+    return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, 0.0))
+
+
+def rect_parts(o, d, q, pos, mask=None):
+    """(t, ol, dl) of the one-sided local-XY rect test (HitTests.cs:62-78)
+    for rays o, d and rects of unit quaternion q and position pos (each a
+    tuple of broadcastable tensors): the ray in the rect's frame (rotated
+    by the conjugate quaternion) and the distance to its plane, -ol.z /
+    dl.z.  The division takes dl.z where dl.z != 0 (and `mask`, if given)
+    and 1 elsewhere.  The tape replay runs it with gradients."""
+    qx, qy, qz, qw = q
+    ol = _quat_rotate(-qx, -qy, -qz, qw, o[0] - pos[0], o[1] - pos[1],
+                      o[2] - pos[2])
+    dl = _quat_rotate(-qx, -qy, -qz, qw, *d)
+    divide = dl[2] != 0.0 if mask is None else mask & (dl[2] != 0.0)
+    t = -ol[2] / torch.where(divide, dl[2], 1.0)
+    return t, ol, dl
+
+
+def rect_test(o, d, geo, t_min):
+    """t of rays o, d (3-tuples of rows) against pack_aux_tables' rect geo
+    rows (columns: quat | pos | xy_from | xy_to), broadcast; BIG where the
+    ray misses, faces away from the front (+Z) side or hits at or before
+    t_min."""
+    col = [geo[:, k:k + 1] for k in range(11)]
+    t, ol, dl = rect_parts(o, d, col[0:4], col[4:7])
+    hx = _fma(t, dl[0], ol[0])
+    hy = _fma(t, dl[1], ol[1])
+    ok = ((dl[2] < 0.0) & (t > t_min) & (hx >= col[7]) & (hx <= col[9])
+          & (hy >= col[8]) & (hy <= col[10]))
+    return torch.where(ok, t, BIG)
+
+
+def box_parts(o, d, q, pos, ext, t_min, mask=None):
+    """(t, hit) of the Majercik box test (HitTests.cs:81-113) for rays o, d
+    and oriented boxes (unit quaternion q, position pos, half extents ext;
+    each a tuple of broadcastable tensors): the ray in the box frame,
+    offset by t_min along it, then the face planes' distances with the
+    inside/outside winding; t is the first face whose hit lies within the
+    other two extents, plus t_min.  A face distance divides by the
+    direction where it is not 0 and `mask` (if given) holds, by 1e-30 where
+    it is 0, and by 1 elsewhere.  The tape replay runs it with
+    gradients."""
+    qx, qy, qz, qw = q
+    bo = _quat_rotate(-qx, -qy, -qz, qw, o[0] - pos[0], o[1] - pos[1],
+                      o[2] - pos[2])
+    bd = _quat_rotate(-qx, -qy, -qz, qw, *d)
+    bo = tuple(_fma(bd[k], t_min, bo[k]) for k in range(3))
+    rel = [torch.abs(bo[k]) / torch.clamp(ext[k], min=1e-30)
+           for k in range(3)]
+    inside = torch.maximum(rel[0], torch.maximum(rel[1], rel[2])) < 1.0
+    winding = torch.where(inside, -1.0, 1.0)
+    dp = [(ext[k] * winding * -_sign(bd[k]) - bo[k])
+          / torch.where(bd[k] == 0.0, 1e-30,
+                        bd[k] if mask is None
+                        else torch.where(mask, bd[k], 1.0))
+          for k in range(3)]
+
+    def face(a):
+        u, v = (a + 1) % 3, (a + 2) % 3
+        return ((dp[a] >= 0.0)
+                & (torch.abs(_fma(bd[u], dp[a], bo[u])) < ext[u])
+                & (torch.abs(_fma(bd[v], dp[a], bo[v])) < ext[v]))
+
+    test_x, test_y, test_z = face(0), face(1), face(2)
+    t = torch.where(test_x, dp[0], torch.where(test_y, dp[1], dp[2])) + t_min
+    return t, test_x | test_y | test_z
+
+
+def box_test(o, d, geo, t_min):
+    """t of rays o, d against pack_aux_tables' box geo rows (quat | pos |
+    extents), broadcast; BIG where the ray misses."""
+    col = [geo[:, k:k + 1] for k in range(10)]
+    t, hit = box_parts(o, d, col[0:4], col[4:7], col[7:10], t_min)
+    return torch.where(hit, t, BIG)
+
+
+def box_normal(p, q, pos, ext):
+    """World normal of an oriented box at its surface point p (each a
+    tuple of tensors): the local face of the dominant |p_local| / extent
+    axis (extents floored at 1e-12; the first axis on a tie), sign(0) = 0,
+    rotated back to the world (intersect._shading_attributes)."""
+    qx, qy, qz, qw = q
+    pl = _quat_rotate(-qx, -qy, -qz, qw, p[0] - pos[0], p[1] - pos[1],
+                      p[2] - pos[2])
+    re = [torch.abs(pl[k]) / torch.clamp(ext[k], min=1e-12)
+          for k in range(3)]
+    is_x = (re[0] >= re[1]) & (re[0] >= re[2])
+    is_y = ~is_x & (re[1] >= re[2])
+    is_z = ~is_x & ~is_y
+    ln = [torch.where(sel, _sign(pl[k]), 0.0)
+          for k, sel in enumerate((is_x, is_y, is_z))]
+    return _quat_rotate(qx, qy, qz, qw, *ln)
+
+
 def tri_normal(n0, n1, n2, u, v):
     """Barycentric lerp of the three vertex normals (each a 3-tuple),
     normalised after the lerp (Entity.cs:65): correctly rounded rsqrt of
@@ -772,9 +975,11 @@ STATE_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
 
 
 def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
-            sky, tri=None):
+            sky, tri=None, aux=None):
     """One bounce of every active path in `p` (a dict of (C,) rows keyed
     by STATE_KEYS, updated in place): the dense sphere sweep, then with
+    `aux` (`_aux_arg`) the rect sweep and the box sweep (each wins only
+    with a strictly smaller t, the first row on a tie), then with
     `tri` = (sweep, records (T_pad, 32), code base) the triangle sweep
     (`_tri_arg`: a triangle wins only with a strictly smaller t),
     Lambert / GGX-metal / dielectric scatter, the gradient sky, the fold,
@@ -796,6 +1001,19 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     o_live = (ox[live], oy[live], oz[live])
     d_live = (dx[live], dy[live], dz[live])
     best_t[live], best_idx[live] = _sweep(o_live, d_live, sph, t_min)
+    aux_wins = []  # (lanes won, row per lane, kind) of the rects and boxes
+    if aux is not None:
+        for kind, (geo, krec, base) in enumerate(aux):
+            if geo is None:
+                continue
+            test = rect_test if kind == 0 else box_test
+            k_t = torch.full_like(ox, BIG)
+            k_idx = torch.zeros_like(ox, dtype=torch.int64)
+            k_t[live], k_idx[live] = torch.min(
+                test(o_live, d_live, geo, t_min), dim=0)
+            wins = k_t < best_t
+            best_t = torch.where(wins, k_t, best_t)
+            aux_wins.append((wins, k_idx, kind))
     if tri is not None:
         sweep, trec, code_base = tri
         tri_t, tri_idx, tri_u, tri_v = _no_tri_hit(ox)
@@ -816,6 +1034,23 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     nx = (px - w[:, 12]) * inv_r
     ny = (py - w[:, 13]) * inv_r
     nz = (pz - w[:, 14]) * inv_r
+    for wins, k_idx, kind in aux_wins:
+        geo, krec, base = aux[kind]
+        # the boxes come second: a box winner overwrites a rect's
+        kw = krec[k_idx]  # (C, 16) the kind's winner records
+        w = torch.where(wins[:, None], kw, w)
+        if kind == 0:  # a rect's normal is constant: the packed one
+            knx, kny, knz = kw[:, 12], kw[:, 13], kw[:, 14]
+        else:
+            g = geo[k_idx]
+            knx, kny, knz = box_normal(
+                (px, py, pz), tuple(g[:, k] for k in range(4)),
+                tuple(g[:, k] for k in range(4, 7)),
+                tuple(g[:, k] for k in range(7, 10)))
+        nx = torch.where(wins, knx, nx)
+        ny = torch.where(wins, kny, ny)
+        nz = torch.where(wins, knz, nz)
+        best_idx = torch.where(wins, base + k_idx, best_idx)
     if tri is not None:
         tw = trec[tri_idx]  # (C, 32) triangle winner records
         w = torch.where(tri_wins[:, None], tw[:, :16], w)
@@ -968,8 +1203,8 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
 
 
 def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
-                 tri, seed, *, samples, trace_depth, t_min, has_dielectrics,
-                 sky_on, jitter, tape):
+                 tri, aux, seed, *, samples, trace_depth, t_min,
+                 has_dielectrics, sky_on, jitter, tape):
     """Run one SampleBatchJob over a chunk of lanes; returns the (18, C)
     accumulators and fills `tape` ((samples*trace_depth, C) or None)."""
     dev = pixel.device
@@ -1031,7 +1266,7 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         u = uniforms_hash(seed, salt + SALT_BOUNCE, lanes, 6)
         hit, best_idx = _bounce(p, u, sph, rec, depth_ct, t_min=t_min,
                                 has_dielectrics=has_dielectrics,
-                                sky_on=sky_on, sky=sky, tri=tri)
+                                sky_on=sky_on, sky=sky, tri=tri, aux=aux)
 
         if tape is not None:
             tape[it] = torch.where(
@@ -1078,6 +1313,49 @@ def _tri_arg(tri_tables, tri_stream_tables, s: int):
             sphere_pad_count(s))
 
 
+def aux_kernel_records(rect_tables, box_tables):
+    """(rect rows (R_pad, 16), box rows (B_pad, 16)) of AUX_KERNEL_REC
+    columns from pack_aux_tables' records, each None where the scene has
+    none of that kind: material rows 0-10 | material id 11 | a rect's world
+    normal 12-14 (boxes: zero)."""
+    out = []
+    for tables, id_row in ((rect_tables, 14), (box_tables, 21)):
+        if tables is None:
+            out.append(None)
+            continue
+        rec = tables[1].detach().to(torch.float32)
+        rows = torch.zeros((rec.shape[1], AUX_KERNEL_REC),
+                           dtype=torch.float32, device=rec.device)
+        rows[:, :11] = rec[:11].T
+        rows[:, 11] = rec[id_row]
+        if id_row == 14:
+            rows[:, 12:15] = rec[11:14].T
+        out.append(rows)
+    return tuple(out)
+
+
+def aux_code_bases(s: int, rect_tables) -> tuple[int, int]:
+    """The tape codes of rect row 0 and box row 0 in the JAX kernel's
+    combined row space: spheres [0, s_pad), then the R_pad rects, then the
+    boxes (s_pad is at least SPHERE_PAD, even without spheres)."""
+    s_pad = sphere_pad_count(s)
+    r_pad = 0 if rect_tables is None else rect_tables[0].shape[0]
+    return s_pad, s_pad + r_pad
+
+
+def _aux_arg(rect_tables, box_tables, s: int):
+    """_bounce's `aux` argument: ((rect geo, records, code base), (box geo,
+    records, code base)), a kind without tables (None, None, base); None
+    without rects and boxes."""
+    if rect_tables is None and box_tables is None:
+        return None
+    rrows, brows = aux_kernel_records(rect_tables, box_tables)
+    bases = aux_code_bases(s, rect_tables)
+    geos = [None if t is None else t[0].detach().to(torch.float32)
+            for t in (rect_tables, box_tables)]
+    return tuple(zip(geos, (rrows, brows), bases))
+
+
 OUTPUT_KEYS = ("color", "count", "normal", "albedo", "weight", "rays",
                "fallback_normal", "fallback_albedo")
 
@@ -1120,12 +1398,16 @@ def sample_batch_reference(
     tri_tables: tuple | None = None,
     pixel_index: torch.Tensor | None = None,
     tri_stream_tables: TriStream | None = None,
+    rect_tables: tuple | None = None,
+    box_tables: tuple | None = None,
     chunk_lanes: int | None = None,
 ) -> dict:
     """Plain PyTorch version of the batch kernel (any device).
 
     `tri_tables` is pack_tri_tables' (geo, rec) pair, `tri_stream_tables`
-    pack_tri_stream_tables' tables, or neither.  `pixel_index` (N,) is the
+    pack_tri_stream_tables' tables, or neither; `rect_tables` and
+    `box_tables` are pack_aux_tables' pairs (their tape codes follow the
+    padded spheres: `aux_code_bases`).  `pixel_index` (N,) is the
     pixel each lane renders (default: lane i renders pixel i); the hash
     PRNG stays keyed by the lane.  Returns per-lane deltas, in lane order: color (N, 3), count (N,), normal (N, 3), albedo
     (N, 3), weight (N,), rays (N,) int32, fallback_normal (N, 3),
@@ -1137,7 +1419,10 @@ def sample_batch_reference(
     n = lane_count.shape[0]
     s = centers.shape[0]
     sph, rec = sweep_tables(centers, radii, records)
+    if s == 0:  # a sphere-free scene: one record row for the missed lanes
+        rec = torch.zeros((1, KERNEL_REC), dtype=torch.float32, device=dev)
     tri = _tri_arg(tri_tables, tri_stream_tables, s)
+    aux = _aux_arg(rect_tables, box_tables, s)
     cam = camera_row.to(torch.float32)
     sky = _pack_sky_row(sky_bottom, sky_top)[0]
     lanes_all = (
@@ -1154,13 +1439,15 @@ def sample_batch_reference(
     if chunk_lanes is None:
         budget = (1 << 25) if dev.type == "cuda" else (1 << 22)
         width = max(s, 1 if tri is None else TRI_BLOCK)
+        for t in (rect_tables, box_tables):
+            width = max(width, 0 if t is None else t[0].shape[0])
         chunk_lanes = max(1024, budget // width)
     acc = torch.empty((OUT_ROWS, n), dtype=torch.float32, device=dev)
     for c0 in range(0, n, chunk_lanes):
         c1 = min(n, c0 + chunk_lanes)
         acc[:, c0:c1] = _trace_chunk(
             lanes_all[c0:c1], pixel_all[c0:c1], per_pixel_all[c0:c1],
-            count_in_all[c0:c1], cam, sky, sph, rec, tri, int(seed),
+            count_in_all[c0:c1], cam, sky, sph, rec, tri, aux, int(seed),
             samples=samples, trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
             tape=None if tape is None else tape[:, c0:c1],
@@ -1195,6 +1482,17 @@ def load_kernel() -> ctypes.CDLL:
         lib.rtiw_megatrace_batch.restype = ctypes.c_int
         lib.rtiw_megatrace_sphere_info.argtypes = [i, p]
         lib.rtiw_megatrace_sphere_info.restype = ctypes.c_int
+        lib.rtiw_megatrace_aux.argtypes = [
+            p, p, p, p, p,  # lane_count count_in consts sph rec
+            p, p, p, p,  # aux_geo aux_rec out tape
+            i, i, i, i, i, i,  # n s rect_rows box_rows rect_code box_code
+            i, i, i, i,  # seed lane_base samples trace_depth
+            ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
+            p,  # stream
+        ]
+        lib.rtiw_megatrace_aux.restype = ctypes.c_int
+        lib.rtiw_megatrace_aux_info.argtypes = [i, i, p]
+        lib.rtiw_megatrace_aux_info.restype = ctypes.c_int
         lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
         lib.rtiw_tile_lanes.restype = ctypes.c_int
         _KERNEL = lib
@@ -1210,6 +1508,31 @@ def sphere_kernel_info(s: int) -> dict:
     if err != 0:
         raise RuntimeError(f"megatrace_sphere_kernel info: cudaError {err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
+
+
+def aux_kernel_info(s: int, aux_rows: int) -> dict:
+    """sphere_kernel_info of the aux build with an s-sphere table and
+    aux_rows rect and box rows."""
+    info = (ctypes.c_int * 3)()
+    err = load_kernel().rtiw_megatrace_aux_info(int(s), int(aux_rows), info)
+    if err != 0:
+        raise RuntimeError(f"megatrace_sphere_kernel<true> info: cudaError "
+                           f"{err}")
+    return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
+
+
+def kernel_aux_tables(rect_tables, box_tables):
+    """The aux build's tables from pack_aux_tables' pairs: the geometry
+    rows (R_pad + B_pad, 16), rects first, the records (R_pad + B_pad,
+    16) (`aux_kernel_records`), and R_pad, B_pad."""
+    geos = [t[0].detach().to(torch.float32) for t in (rect_tables, box_tables)
+            if t is not None]
+    recs = [r for r in aux_kernel_records(rect_tables, box_tables)
+            if r is not None]
+    rows = [0 if t is None else t[0].shape[0]
+            for t in (rect_tables, box_tables)]
+    return (torch.cat(geos).contiguous(), torch.cat(recs).contiguous(),
+            *rows)
 
 
 def kernel_tile_lanes(n: int, width: int, device) -> torch.Tensor:
@@ -1270,12 +1593,38 @@ def _kernel_stream_args(stream_tables, dev, s, name="sample_batch"):
              rec.data_ptr()), (rows, n_blk, n_sup, sphere_pad_count(s)))
 
 
+def _check_aux_tables(rect_tables, box_tables, dev) -> None:
+    for name, tables in (("rect_tables", rect_tables),
+                         ("box_tables", box_tables)):
+        if tables is None:
+            continue
+        geo, rec = tables
+        rows = geo.shape[0]
+        if (geo.device != dev or rec.device != dev
+                or tuple(geo.shape) != (rows, 16)
+                or tuple(rec.shape) != (AUX_REC_ROWS, rows)
+                or rows % AUX_PAD or geo.dtype != torch.float32
+                or rec.dtype != torch.float32):
+            raise ValueError(
+                f"sample_batch: {name} have shapes {tuple(geo.shape)}, "
+                f"{tuple(rec.shape)} ({geo.dtype}) on {geo.device}; want "
+                f"pack_aux_tables' float32 (K_pad, 16), ({AUX_REC_ROWS}, "
+                f"K_pad) on {dev}")
+    rows = sum(t[0].shape[0] for t in (rect_tables, box_tables)
+               if t is not None)
+    if rows > AUX_MAX + 2 * AUX_PAD:
+        raise ValueError(f"sample_batch: {rows} rect and box rows; the "
+                         f"kernel stages at most {AUX_MAX} (padded) in "
+                         "shared memory")
+
+
 def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        records, sky_bottom, sky_top, seed, lane_base, *,
                        samples, trace_depth, t_min, has_dielectrics, sky_on,
                        jitter, want_tape, tri_tables, pixel_index=None,
-                       tri_stream_tables=None):
-    global LAUNCHES
+                       tri_stream_tables=None, rect_tables=None,
+                       box_tables=None):
+    global LAUNCHES, AUX_LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
                    camera_row=camera_row, centers=centers, radii=radii,
@@ -1345,6 +1694,25 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
     tape = (torch.empty((samples * trace_depth, n), dtype=torch.float32,
                         device=dev) if want_tape else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if rect_tables is not None or box_tables is not None:
+        _check_aux_tables(rect_tables, box_tables, dev)
+        aux_geo, aux_rec, rect_rows, box_rows = kernel_aux_tables(
+            rect_tables, box_tables)
+        rect_code, box_code = aux_code_bases(s, rect_tables)
+        err = lib.rtiw_megatrace_aux(
+            per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), aux_geo.data_ptr(),
+            aux_rec.data_ptr(), out.data_ptr(),
+            0 if tape is None else tape.data_ptr(), n, s, rect_rows,
+            box_rows, rect_code, box_code, int(seed), int(lane_base),
+            samples, trace_depth, float(t_min), int(has_dielectrics),
+            int(sky_on), int(jitter), stream)
+        if err != 0:
+            raise RuntimeError(f"megatrace_batch aux build launch failed: "
+                               f"cudaError {err}")
+        LAUNCHES += 1
+        AUX_LAUNCHES += 1
+        return _outputs(out, tape)
     err = lib.rtiw_megatrace_batch(
         per_pixel.data_ptr(), cin.data_ptr(),
         0 if pixel is None else pixel.data_ptr(), consts.data_ptr(),
@@ -1382,12 +1750,15 @@ def sample_batch(
     tri_tables: tuple | None = None,
     pixel_index: torch.Tensor | None = None,
     tri_stream_tables: TriStream | None = None,
+    rect_tables: tuple | None = None,
+    box_tables: tuple | None = None,
 ) -> dict:
     """Fused SampleBatchJob: per-lane accumulation deltas for one batch
     (see `sample_batch_reference` for the outputs; `tri_tables` is
     pack_tri_tables' pair for a mesh scene of at most TRI_MAX triangles,
     `tri_stream_tables` pack_tri_stream_tables' tables for a bigger one,
-    `pixel_index` the pixel of each lane).
+    `pixel_index` the pixel of each lane, `rect_tables` and `box_tables`
+    pack_aux_tables' pairs).
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
@@ -1399,11 +1770,15 @@ def sample_batch(
     if tri_tables is not None and tri_stream_tables is not None:
         raise ValueError("sample_batch: tri_tables and tri_stream_tables "
                          "clash")
+    if ((rect_tables is not None or box_tables is not None)
+            and (tri_tables is not None or tri_stream_tables is not None)):
+        raise NotImplementedError(f"sample_batch: {RECTS_IN_MESHES}")
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, want_tape=want_tape, tri_tables=tri_tables,
                   pixel_index=pixel_index,
-                  tri_stream_tables=tri_stream_tables)
+                  tri_stream_tables=tri_stream_tables,
+                  rect_tables=rect_tables, box_tables=box_tables)
     args = (lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cuda":

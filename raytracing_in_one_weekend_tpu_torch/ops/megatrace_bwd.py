@@ -1,5 +1,6 @@
 """Backward of the fused batch kernel: the tape replay's VJP (counterpart
-of the JAX package's ops/megatrace_bwd.py, its sphere and triangle arms).
+of the JAX package's ops/megatrace_bwd.py, its sphere, rect/box and
+triangle arms).
 
 * `replay_grad_reference` is the plain version: torch.autograd over
   `ops/megatrace_replay.replay`, the counterpart of the JAX package's
@@ -23,9 +24,13 @@ columns that carry gradients; in a mesh scene 28, megatrace_replay.
 TRI_GRAD_COLS) and of the camera and sky constants; the entity-row
 cotangent goes back to centers, radii, records and the triangle tables
 through torch.autograd of `build_entity_rows`, as the JAX package does
-with jax.vjp.  Mesh scenes take the kernel's triangle instantiation:
-sphere rows sum in shared memory, triangle rows (up to TRI_MAX) in
-device memory.
+with jax.vjp.  Mesh scenes take the kernel's triangle instantiation
+(`MESH`): sphere rows sum in shared memory, triangle rows (up to TRI_MAX)
+in device memory.  Scenes with rects or boxes take its aux instantiation
+(`AUX`): their rows (19 columns, megatrace_replay.AUX_GRAD_COLS) in
+device memory, and the cotangents of pack_aux_tables' four tables come
+back through build_entity_rows (the JAX kernel's rect_geo, rect_rec,
+box_geo and box_rec cotangents).
 
 `replay_step_vjp` exposes the kernel's one-iteration VJP (and
 `replay_step_vjp_reference` its autograd counterpart) so that the hand
@@ -68,6 +73,31 @@ TRI_STEP_COTANGENTS = STEP_COTANGENTS + (
     ("edge_b", 1, slice(13, 16)), ("vert0", 1, slice(16, 19)),
     ("vertex_normals", 1, slice(19, 28)),
 )
+# ... in scenes with rects or boxes, where cot_entity follows
+# AUX_GRAD_COLS ("centers" and "radii" then also hold a quaternion)
+AUX_STEP_COTANGENTS = STEP_COTANGENTS + (
+    ("positions", 1, slice(13, 16)), ("extents", 1, slice(16, 19)),
+)
+
+
+def _flat_tables(tri_tables, rect_tables, box_tables) -> tuple:
+    """The tables of the kinds a scene has, flat: tri_geo, tri_rec,
+    rect_geo, rect_rec, box_geo, box_rec, each pair only where given."""
+    return tuple(t for pair in (tri_tables, rect_tables, box_tables)
+                 if pair is not None for t in pair)
+
+
+def _unflat_tables(flat, tri_tables, rect_tables, box_tables) -> tuple:
+    """_flat_tables' inverse: (tri_tables, rect_tables, box_tables) of the
+    tensors `flat`, in the kinds the given pairs have."""
+    out, k = [], 0
+    for pair in (tri_tables, rect_tables, box_tables):
+        if pair is None:
+            out.append(None)
+        else:
+            out.append(tuple(flat[k:k + 2]))
+            k += 2
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -81,19 +111,24 @@ def replay_grad_reference(tape, lane_count, camera_row, centers, radii,
                           trace_depth: int, t_min: float = 0.0,
                           has_dielectrics: bool = True, sky_on: bool = True,
                           jitter: bool = True,
-                          tri_tables: tuple | None = None) -> tuple:
+                          tri_tables: tuple | None = None,
+                          rect_tables: tuple | None = None,
+                          box_tables: tuple | None = None) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
-    sky_top[, tri_geo, tri_rec]) of the replay's (color_sum, count) given
-    theirs: autograd over the plain replay."""
+    sky_top[, tri_geo, tri_rec][, rect_geo, rect_rec][, box_geo,
+    box_rec]) of the replay's (color_sum, count) given theirs: autograd
+    over the plain replay."""
+    given = (tri_tables, rect_tables, box_tables)
     leaves = tuple(t.detach().to(torch.float32).requires_grad_()
                    for t in (camera_row, centers, radii, records,
-                             sky_bottom, sky_top, *(tri_tables or ())))
+                             sky_bottom, sky_top, *_flat_tables(*given)))
+    tri, rect, box = _unflat_tables(leaves[6:], *given)
     with torch.enable_grad():
         csum, cnt = mr.replay(
             tape, lane_count, *leaves[:6], seed, lane_base, samples=samples,
             trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
-            tri_tables=leaves[6:] or None,
+            tri_tables=tri, rect_tables=rect, box_tables=box,
         )
         grads = torch.autograd.grad(
             (csum, cnt), leaves,
@@ -165,16 +200,20 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
                               lane_base: int = 0, *, trace_depth: int,
                               t_min: float = 0.0, has_dielectrics: bool = True,
                               sky_on: bool = True, jitter: bool = True,
-                              tri_tables: tuple | None = None):
+                              tri_tables: tuple | None = None,
+                              rect_tables: tuple | None = None,
+                              box_tables: tuple | None = None):
     """Per-lane VJP of one `replay_iteration`: autograd with every lane's
     state, winner row, camera and sky as leaves of their own.
 
     state, cot_out: (21, n) in STATE_KEYS order.  Returns (cot_in (21, n),
     cot_entity (13, n) over GRAD_COLS, or (28, n) over TRI_GRAD_COLS with
-    `tri_tables`, cot_scal (30, n): camera row, sky bottom, sky top)."""
+    `tri_tables`, or (19, n) over AUX_GRAD_COLS with `rect_tables` or
+    `box_tables`, cot_scal (30, n): camera row, sky bottom, sky top)."""
     n = lane_count.shape[0]
-    table = mr.build_entity_rows(centers, radii, records,
-                                 tri_tables).detach()
+    has_aux = rect_tables is not None or box_tables is not None
+    table = mr.build_entity_rows(centers, radii, records, tri_tables,
+                                 rect_tables, box_tables).detach()
     winners = torch.clamp(tape_row, min=0.0).to(torch.int64)
     with torch.enable_grad():
         st = state.detach().clone().requires_grad_()
@@ -189,7 +228,7 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
             dict(zip(mr.STATE_KEYS, st)), wt, tape_row, it, env,
             jitter=jitter, has_dielectrics=has_dielectrics, sky_on=sky_on,
             trace_depth=trace_depth, t_min=t_min,
-            has_tris=tri_tables is not None,
+            has_tris=tri_tables is not None, has_aux=has_aux,
         )
         outs = [out[k] for k in mr.STATE_KEYS]
         keep = [j for j, o in enumerate(outs) if o.requires_grad]
@@ -201,9 +240,17 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
     def dense(g, like):
         return torch.zeros_like(like) if g is None else g
 
-    cols = mr.GRAD_COLS if tri_tables is None else mr.TRI_GRAD_COLS
+    cols = grad_cols(tri_tables is not None, has_aux)
     return (dense(g_st, st).detach(), dense(g_wt, wt).detach()[list(cols)],
             torch.cat([dense(g_cam, cam), dense(g_sky, sky)]).detach())
+
+
+def grad_cols(has_tris: bool, has_aux: bool) -> tuple:
+    """The entity columns of the kernel's cotangent rows."""
+    if has_tris and has_aux:
+        raise NotImplementedError(f"replay_grad: {mk.RECTS_IN_MESHES}")
+    return (mr.TRI_GRAD_COLS if has_tris
+            else mr.AUX_GRAD_COLS if has_aux else mr.GRAD_COLS)
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +278,9 @@ def load_kernel() -> ctypes.CDLL:
         lib.rtiw_bwd_paths.argtypes = [
             p, p, i, p,  # tape paths total next_warp
             p, p, p, p, p, p, p,  # lane_count consts ent cot dent dscal
-            #                       dent_tri
-            i, i, i, i, i, i,  # tri_base n s seed lane_base trace_depth
-            f, i, i, i,  # t_min has_diel sky_on jitter
+            #                       dent_rows
+            i, i, i, i, i, i,  # row_base n s seed lane_base trace_depth
+            f, i, i, i, i,  # t_min has_diel sky_on jitter kind
             p,  # stream
         ]
         lib.rtiw_bwd_paths.restype = i
@@ -241,7 +288,7 @@ def load_kernel() -> ctypes.CDLL:
             p, p, p, p, p, p,  # state codes cot_out lane_count consts ent
             p, p, p,  # cot_in cot_ent cot_scal
             i, i, i, i, i,  # n it seed lane_base trace_depth
-            f, i, i, i, i,  # t_min has_diel sky_on jitter has_tris
+            f, i, i, i, i,  # t_min has_diel sky_on jitter kind
             p,  # stream
         ]
         lib.rtiw_replay_step_vjp.restype = i
@@ -343,10 +390,16 @@ def scan_paths(tape, lane_count, *, samples: int, trace_depth: int):
         samples, trace_depth))
 
 
+# the kernels' builds: sphere scenes, mesh scenes, scenes with rects or
+# boxes (csrc/megatrace_bwd.cu's `kind` argument)
+SPHERES, MESH, AUX = 0, 1, 2
+
+
 def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                       sky_bottom, sky_top, seed, cot_color, cot_count,
                       lane_base, *, samples, trace_depth, t_min,
-                      has_dielectrics, sky_on, jitter, tri_tables):
+                      has_dielectrics, sky_on, jitter, tri_tables,
+                      rect_tables, box_tables):
     dev = centers.device
     n, s = lane_count.shape[0], centers.shape[0]
     # the tape's shape, the lane counts and the depth: _scan_cuda's checks
@@ -359,6 +412,9 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
     if s > mk.SPH_CULL_MIN:
         raise ValueError(f"replay_grad: {s} spheres; the kernel's shared "
                          f"cotangent table holds at most {mk.SPH_CULL_MIN}")
+    given = (tri_tables, rect_tables, box_tables)
+    has_aux = rect_tables is not None or box_tables is not None
+    cols = grad_cols(tri_tables is not None, has_aux)
     tri = tuple(tri_tables or ())
     if tri:
         t_pad = tri[0].shape[0]
@@ -368,76 +424,85 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
         if t_pad % mk.TRI_PAD or t_pad > mk.TRI_MAX:
             raise ValueError(f"replay_grad: {t_pad} triangle rows; want a "
                              f"multiple of {mk.TRI_PAD} up to {mk.TRI_MAX}")
+    if has_aux:
+        mk._check_aux_tables(rect_tables, box_tables, dev)
 
     with torch.enable_grad():
         leaves = tuple(t.detach().requires_grad_()
-                       for t in (centers, radii, records, *tri))
-        entity_rows = mr.build_entity_rows(*leaves[:3], leaves[3:] or None)
+                       for t in (centers, radii, records,
+                                 *_flat_tables(*given)))
+        entity_rows = mr.build_entity_rows(
+            *leaves[:3], *_unflat_tables(leaves[3:], *given))
+    kind = MESH if tri else AUX if has_aux else SPHERES
     args = kernel_args(tape, lane_count,
                        _consts(camera_row, sky_bottom, sky_top), entity_rows,
-                       s, cot_color, cot_count, has_tris=bool(tri))
+                       s, cot_color, cot_count, kind=kind)
     paths = _scan_cuda(args["tape"], args["per_pixel"], samples, trace_depth)
-    dent, dscal, dent_tri = _paths_cuda(
+    dent, dscal, dent_rows = _paths_cuda(
         paths, args, seed, lane_base, trace_depth=trace_depth, t_min=t_min,
         has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter)
     s_pad = mk.sphere_pad_count(s)
     dtable = torch.zeros_like(entity_rows)
     dtable[:s, list(mr.GRAD_COLS)] = dent
-    if tri:
-        dtable[s_pad:, list(mr.TRI_GRAD_COLS)] = dent_tri
+    if dent_rows is not None:
+        dtable[s_pad:, list(cols)] = dent_rows
     grads = torch.autograd.grad(entity_rows, leaves, dtable)
     return (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30], *grads[3:])
 
 
 def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
-                cot_count, *, has_tris: bool) -> dict:
+                cot_count, *, kind: int) -> dict:
     """The path kernel's inputs: the contiguous tape, per-pixel counts as
     floats, the entity table it indexes (sphere scenes: the s real sphere
-    rows; mesh scenes: the whole padded table, which the tape's triangle
-    codes s_pad + row index), the constants (camera row, sky, pad) and the
-    (4, N) color and count cotangents."""
+    rows; mesh scenes and scenes with rects or boxes: the whole padded
+    table, which their tape codes, s_pad + row, index), the constants
+    (camera row, sky, pad), the (4, N) color and count cotangents and the
+    build (`kind`: SPHERES, MESH or AUX)."""
     return dict(
         tape=tape.contiguous(),
         per_pixel=lane_count.to(torch.float32).contiguous(),
-        ent=entity_rows.detach()[:None if has_tris else s].contiguous(),
+        ent=entity_rows.detach()[:s if kind == SPHERES else None]
+        .contiguous(),
         consts=consts,
         cot=torch.cat([cot_color.T, cot_count[None]]).contiguous(),
-        s=s, has_tris=has_tris)
+        s=s, kind=kind)
 
 
 def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
                 t_min: float, has_dielectrics: bool, sky_on: bool,
                 jitter: bool):
     """The path kernel over the scan's table: (dent (s, 13), dscal (30),
-    dent_tri (T_pad, 28) or None)."""
+    dent_rows: the cotangents of the rows past the padded spheres, (T_pad,
+    28) in mesh scenes, (R_pad + B_pad, 19) with rects or boxes, else
+    None)."""
     global LAUNCHES
     lib = load_kernel()
     dev = args["tape"].device
-    s, n = args["s"], args["per_pixel"].shape[0]
+    s, n, kind = args["s"], args["per_pixel"].shape[0], args["kind"]
     s_pad = mk.sphere_pad_count(s)
     f32 = dict(dtype=torch.float32, device=dev)
     dent = torch.zeros((s, len(mr.GRAD_COLS)), **f32)
     dscal = torch.zeros(N_SCAL, **f32)
     next_warp = torch.zeros(1, dtype=torch.int32, device=dev)
-    dent_tri = (torch.zeros((args["ent"].shape[0] - s_pad,
-                             len(mr.TRI_GRAD_COLS)), **f32)
-                if args["has_tris"] else None)
+    dent_rows = (None if kind == SPHERES else torch.zeros(
+        (args["ent"].shape[0] - s_pad,
+         len(mr.TRI_GRAD_COLS if kind == MESH else mr.AUX_GRAD_COLS)), **f32))
     if paths.shape[0]:
         err = lib.rtiw_bwd_paths(
             args["tape"].data_ptr(), paths.data_ptr(), paths.shape[0],
             next_warp.data_ptr(), args["per_pixel"].data_ptr(),
             args["consts"].data_ptr(), args["ent"].data_ptr(),
             args["cot"].data_ptr(), dent.data_ptr(), dscal.data_ptr(),
-            0 if dent_tri is None else dent_tri.data_ptr(), s_pad, n, s,
+            0 if dent_rows is None else dent_rows.data_ptr(), s_pad, n, s,
             int(seed), int(lane_base), trace_depth, float(t_min),
-            int(has_dielectrics), int(sky_on), int(jitter),
+            int(has_dielectrics), int(sky_on), int(jitter), kind,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"megatrace_bwd path kernel launch failed: "
                                f"cudaError {err}")
         LAUNCHES += 1
-    return dent, dscal, dent_tri
+    return dent, dscal, dent_rows
 
 
 def replay_grad(tape, lane_count, camera_row, centers, radii, records,
@@ -445,12 +510,16 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
                 lane_base: int = 0, *, samples: int, trace_depth: int,
                 t_min: float = 0.0, has_dielectrics: bool = True,
                 sky_on: bool = True, jitter: bool = True,
-                tri_tables: tuple | None = None) -> tuple:
+                tri_tables: tuple | None = None,
+                rect_tables: tuple | None = None,
+                box_tables: tuple | None = None) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
-    sky_top[, tri_geo, tri_rec]) of one batch's (color_sum (N, 3), count
-    (N,)) given the color and count cotangents, replaying the tape
-    (samples*trace_depth, N); `tri_tables` is pack_tri_tables' pair of a
-    mesh scene.
+    sky_top[, tri_geo, tri_rec][, rect_geo, rect_rec][, box_geo,
+    box_rec]) of one batch's (color_sum (N, 3), count (N,)) given the
+    color and count cotangents, replaying the tape (samples*trace_depth,
+    N); `tri_tables` is pack_tri_tables' pair of a mesh scene,
+    `rect_tables` and `box_tables` pack_aux_tables' pairs (the JAX
+    kernel's rect_geo, rect_rec, box_geo and box_rec cotangents).
 
     The device of `centers` decides: CUDA tensors launch the kernels
     (csrc/megatrace_bwd.cu: the tape scan, then the path kernel) or raise;
@@ -459,7 +528,8 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, cot_color, cot_count, lane_base)
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
-                  jitter=jitter, tri_tables=tri_tables)
+                  jitter=jitter, tri_tables=tri_tables,
+                  rect_tables=rect_tables, box_tables=box_tables)
     if centers.device.type == "cuda":
         return _replay_grad_cuda(*args, **kwargs)
     if centers.device.type == "cpu":
@@ -472,14 +542,17 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
                     sky_top, seed, lane_base: int = 0, *, trace_depth: int,
                     t_min: float = 0.0, has_dielectrics: bool = True,
                     sky_on: bool = True, jitter: bool = True,
-                    tri_tables: tuple | None = None):
+                    tri_tables: tuple | None = None,
+                    rect_tables: tuple | None = None,
+                    box_tables: tuple | None = None):
     """The backward kernel's one-iteration VJP on every lane (see
     `replay_step_vjp_reference` for the arguments and outputs).  CUDA
-    tensors launch the kernel's step entry point; CPU tensors run the
-    plain version."""
+    tensors launch the kernel's step entry point; CPU tensors run the plain
+    version."""
     kwargs = dict(trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
-                  jitter=jitter, tri_tables=tri_tables)
+                  jitter=jitter, tri_tables=tri_tables,
+                  rect_tables=rect_tables, box_tables=box_tables)
     args = (state, tape_row, it, cot_out, lane_count, camera_row, centers,
             radii, records, sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cpu":
@@ -494,11 +567,12 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
            dict(state=(len(mr.STATE_KEYS), n), tape_row=(n,),
                 cot_out=(len(mr.STATE_KEYS), n)), dev)
     lib = load_kernel()
-    ent = mr.build_entity_rows(centers, radii, records,
-                               tri_tables).detach().contiguous()
+    ent = mr.build_entity_rows(centers, radii, records, tri_tables,
+                               rect_tables, box_tables).detach().contiguous()
     consts = _consts(camera_row, sky_bottom, sky_top)
     f32 = dict(dtype=torch.float32, device=dev)
-    cols = mr.GRAD_COLS if tri_tables is None else mr.TRI_GRAD_COLS
+    has_aux = rect_tables is not None or box_tables is not None
+    cols = grad_cols(tri_tables is not None, has_aux)
     cot_in = torch.empty((len(mr.STATE_KEYS), n), **f32)
     cot_ent = torch.empty((len(cols), n), **f32)
     cot_scal = torch.empty((N_SCAL, n), **f32)
@@ -512,7 +586,7 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
         cot_in.data_ptr(), cot_ent.data_ptr(), cot_scal.data_ptr(), n,
         int(it), int(seed), int(lane_base), trace_depth, float(t_min),
         int(has_dielectrics), int(sky_on), int(jitter),
-        int(tri_tables is not None),
+        MESH if tri_tables is not None else AUX if has_aux else SPHERES,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -1,13 +1,17 @@
 """Differentiable tape replay of the fused batch kernel (counterpart of the
-JAX package's ops/megatrace_replay.py, its sphere and triangle arms).
+JAX package's ops/megatrace_replay.py, its sphere, rect, box and triangle
+arms).
 
 The forward kernel (ops/megatrace.sample_batch, want_tape=True) records
 the winner of every iteration on every lane: the sphere row, the padded
-sphere count plus the triangle row, -1 for the sky, -2 for an idle lane.
+sphere count plus the rect row, that plus the padded rect count plus the
+box row, or the padded sphere count plus the triangle row (the JAX
+kernel's combined row space), -1 for the sky, -2 for an idle lane.
 Its hit attributes carry no gradient.  The replay re-runs the
 persistent-lane state machine along that tape in plain differentiable
 PyTorch: each iteration gathers only the winner's entity row (a sphere's
-quadratic, or a triangle's Möller–Trumbore and barycentric normal lerp),
+quadratic, a rect's plane or a box's face in the entity's frame, or a
+triangle's Möller–Trumbore and barycentric normal lerp),
 so there is no (lanes, entities) intersection work and no kernel in the
 autograd graph.  Discrete decisions (winner, root, lotteries) are
 constants of the tape: the detached-decision gradient estimator, plus the
@@ -31,9 +35,10 @@ the sphere discriminant and the refraction discriminant are floored at
   tensors, autograd over `replay` on CPU tensors.
 
 Scope: every scene the batch kernel accepts
-(`ops/megatrace.scene_eligible(scene, allow_triangles=True)`: spheres,
-meshes of at most TRI_MAX triangles, Lambert/GGX metal/dielectric,
-gradient or no sky, white noise).
+(`ops/megatrace.scene_eligible(scene, allow_triangles=True,
+allow_rect_box=True)`: spheres, rects and boxes, meshes of at most TRI_MAX
+triangles, Lambert/GGX metal/dielectric, gradient or no sky, white
+noise).
 """
 
 from __future__ import annotations
@@ -66,6 +71,9 @@ GRAD_COLS = (0, 1, 2, 3, 11, 12, 13, 14, 15, 16, 17, 18, 19)
 # three vertex normals (columns 0-2 hold a triangle's edge_a; uvs carry no
 # gradient without textures): the backward kernel's cotangent layout
 TRI_GRAD_COLS = (*GRAD_COLS, *range(4, 10), *range(23, 32))
+# ... in scenes with rects or boxes: GRAD_COLS (columns 0-3 hold their
+# quaternion), then a position (4-6) and a box's extents (7-9)
+AUX_GRAD_COLS = (*GRAD_COLS, *range(4, 10))
 STATE_KEYS = (
     "ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
     "radx", "rady", "radz", "active", "valid", "started", "depth_ct",
@@ -77,21 +85,28 @@ AOV_OUTPUTS = ("normal", "albedo", "weight", "fallback_normal",
 
 def replay_eligible(scene) -> bool:
     """Can this scene take the differentiable fused path?  The forward
-    batch kernel's scope, meshes of at most TRI_MAX triangles included
-    (JAX replay_eligible: the tape has no streamed-triangle arm)."""
-    return (mk.scene_eligible(scene, allow_triangles=True)
+    batch kernel's scope, rects, boxes and meshes of at most TRI_MAX
+    triangles included (JAX replay_eligible: the tape has no
+    streamed-triangle arm)."""
+    return (mk.scene_eligible(scene, allow_triangles=True,
+                              allow_rect_box=True)
             and scene.triangles.vert0.shape[0] <= mk.TRI_MAX)
 
 
-def build_entity_rows(centers, radii, records, tri_tables=None):
+def build_entity_rows(centers, radii, records, tri_tables=None,
+                      rect_tables=None, box_tables=None):
     """Entity table in the kernel's padded combined row space, the JAX
-    package's layout: spheres in rows [0, S_pad), then with `tri_tables`
-    (pack_tri_tables' pair) the T_pad triangle rows.  Columns: 0:3 center
-    | edge_a, 3 radius, 4:7 edge_b, 7:10 vert0, 10:21 material rows 0-10,
-    21 kind (0 sphere, 3 triangle), 22 material id, and in mesh scenes
-    23:32 the vertex normals (v0, v1, v2 xyz) and 32:38 the uvs (u0-u2,
-    v0-v2): ENTITY_COLS or TRI_ENTITY_COLS wide.  Differentiable with
-    respect to every input; pad rows are zero and never referenced."""
+    package's layout: spheres in rows [0, S_pad), then with `rect_tables`
+    and `box_tables` (pack_aux_tables' pairs) the R_pad rect and B_pad box
+    rows, then with `tri_tables` (pack_tri_tables' pair) the T_pad
+    triangle rows.  Columns: 0:3 center | quat xyz | edge_a, 3 radius |
+    quat w, 4:7 position | edge_b, 7:10 a rect's world normal (packed;
+    JAX leaves these zero and recomputes it) | a box's extents | vert0,
+    10:21 material rows 0-10, 21 kind (0 sphere, 1 rect, 2 box, 3
+    triangle), 22 material id, and in mesh scenes 23:32 the vertex normals
+    (v0, v1, v2 xyz) and 32:38 the uvs (u0-u2, v0-v2): ENTITY_COLS or
+    TRI_ENTITY_COLS wide.  Differentiable with respect to every input;
+    pad rows never hit."""
     s = centers.shape[0]
     s_pad = mk.sphere_pad_count(s)
     cols = ENTITY_COLS if tri_tables is None else TRI_ENTITY_COLS
@@ -108,6 +123,22 @@ def build_entity_rows(centers, radii, records, tri_tables=None):
         torch.zeros((s, cols - ENTITY_COLS), **f32),
     ], dim=1)
     blocks = [rows, torch.zeros((s_pad - s, cols), **f32)]
+    for tables, kind, geo_cols, id_row in ((rect_tables, 1.0, 7, 14),
+                                           (box_tables, 2.0, 10, 21)):
+        if tables is None:
+            continue
+        geo, rec = (t.to(torch.float32) for t in tables)
+        k_pad = geo.shape[0]
+        normal = (rec[11:14].T if kind == 1.0
+                  else torch.zeros((k_pad, 3), **f32))
+        blocks.append(torch.cat([
+            geo[:, :geo_cols],
+            normal[:, :10 - geo_cols],
+            rec[0:11].T,
+            torch.full((k_pad, 1), kind, **f32),
+            rec[id_row:id_row + 1].T,
+            torch.zeros((k_pad, cols - ENTITY_COLS), **f32),
+        ], dim=1))
     if tri_tables is not None:
         geo, trec = (t.to(torch.float32) for t in tri_tables)
         t_pad = geo.shape[0]
@@ -164,16 +195,19 @@ def _log_floor(x):
 def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
                      jitter: bool, has_dielectrics: bool, sky_on: bool,
                      trace_depth: int, t_min: float = 0.0,
-                     has_tris: bool = False) -> dict:
+                     has_tris: bool = False, has_aux: bool = False) -> dict:
     """One persistent-lane iteration along the tape: regen, one bounce at
     the tape's winner, fold and termination (JAX replay_iteration :260,
-    sphere and triangle arms).
+    sphere, rect, box and triangle arms).
 
     state: dict of (n,) float32 rows, STATE_KEYS.  wt: (cols, n) winner
     entity rows (row k = column k of build_entity_rows, per lane).
     tape_row: (n,) winner codes.  env: make_env's dict; its camera and sky
     entries may also be (n,) rows.  has_tris: the table has triangle rows
-    (kind 3), whose winners take Möller–Trumbore and the normal lerp."""
+    (kind 3), whose winners take Möller–Trumbore and the normal lerp.
+    has_aux: it has rect or box rows (kinds 1, 2), whose winners take the
+    ray in the entity's frame, the rect's plane distance or the box's face
+    distance, and their normals."""
     per_pixel, lanes, seed = env["per_pixel"], env["lanes"], env["seed"]
     co, ll, hh, vv = env["co"], env["ll"], env["hh"], env["vv"]
     rr, uu = env["rr"], env["uu"]
@@ -238,7 +272,7 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     # sphere expressions see only sphere winners (s_hit), the triangle
     # ones only triangle winners (t3_hit)
     t3_hit = hit & (wt[21] > 2.5) if has_tris else None
-    s_hit = hit & ~t3_hit if has_tris else hit
+    s_hit = hit & (wt[21] < 0.5) if has_tris or has_aux else hit
 
     # the kernel's sweep expressions at the winner; their derivatives are
     # taken through the same quantities in (o - c) form, which does not
@@ -272,6 +306,20 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
             (ox, oy, oz), (dx, dy, dz), (wt[0], wt[1], wt[2]),
             (wt[4], wt[5], wt[6]), (wt[7], wt[8], wt[9]), mask=t3_hit)
         t_hit = torch.where(t3_hit, t_mt, t_hit)
+    if has_aux:
+        # the rect and box winners' distances in the kernel's expressions
+        # (rows of other kinds hold other data in the quat, position and
+        # extent columns: the selects discard them, and the divisions are
+        # guarded on those lanes)
+        q = (wt[0], wt[1], wt[2], wt[3])
+        pos, ext = (wt[4], wt[5], wt[6]), (wt[7], wt[8], wt[9])
+        r_hit = hit & (wt[21] > 0.5) & (wt[21] < 1.5)
+        b_hit = hit & (wt[21] > 1.5) & (wt[21] < 2.5)
+        o, d = (ox, oy, oz), (dx, dy, dz)
+        t_hit = torch.where(r_hit, mk.rect_parts(o, d, q, pos, r_hit)[0],
+                            t_hit)
+        t_hit = torch.where(
+            b_hit, mk.box_parts(o, d, q, pos, ext, t_min, b_hit)[0], t_hit)
     px = _fma(t_hit, dx, ox)
     py = _fma(t_hit, dy, oy)
     pz = _fma(t_hit, dz, oz)
@@ -279,6 +327,23 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     nx = torch.where(s_hit, (px - cx) * inv_r, 0.0)
     ny = torch.where(s_hit, (py - cy) * inv_r, 0.0)
     nz = torch.where(s_hit, (pz - cz) * inv_r, 0.0)
+    if has_aux:
+        # a rect's normal: the packed one (the kernel reads it), with the
+        # derivative of the rotated local +Z
+        rn = mk._quat_rotate(*q, torch.zeros_like(dx), torch.zeros_like(dx),
+                             torch.ones_like(dx))
+        # a box's: the dominant face, rotated to the world
+        bn = mk.box_normal((px, py, pz), q, pos, ext)
+        for k, (n_k, packed) in enumerate(((nx, wt[7]), (ny, wt[8]),
+                                           (nz, wt[9]))):
+            n_k = torch.where(r_hit, _primal_of(packed, rn[k]), n_k)
+            n_k = torch.where(b_hit, bn[k], n_k)
+            if k == 0:
+                nx = n_k
+            elif k == 1:
+                ny = n_k
+            else:
+                nz = n_k
     if has_tris:
         # barycentric vertex-normal lerp, normalised after the lerp
         tnx, tny, tnz = mk.tri_normal(
@@ -454,23 +519,28 @@ def replay(
     sky_on: bool = True,
     jitter: bool = True,
     tri_tables: tuple | None = None,
+    rect_tables: tuple | None = None,
+    box_tables: tuple | None = None,
 ):
     """Differentiable (color_sum (N, 3), count (N,)) of one batch,
     replaying the kernel's persistent-lane loop along the recorded tape
     (`tri_tables`: pack_tri_tables' pair, differentiable, for a mesh
-    scene).
+    scene; `rect_tables`, `box_tables`: pack_aux_tables' pairs,
+    differentiable).
 
     One checkpointed block per `trace_depth` iterations (JAX :1167-1201):
     the winner rows of the block are gathered at once, and only the
     block-entry state is kept for the backward.  Blocks whose tape rows
     are all idle are identity steps and are skipped."""
     n = lane_count.shape[0]
-    entity_rows = build_entity_rows(centers, radii, records, tri_tables)
+    entity_rows = build_entity_rows(centers, radii, records, tri_tables,
+                                    rect_tables, box_tables)
     env = make_env(lane_count, camera_row, sky_bottom, sky_top, seed,
                    lane_base)
     statics = dict(jitter=jitter, has_dielectrics=has_dielectrics,
                    sky_on=sky_on, trace_depth=trace_depth, t_min=t_min,
-                   has_tris=tri_tables is not None)
+                   has_tris=tri_tables is not None,
+                   has_aux=rect_tables is not None or box_tables is not None)
     state = initial_state(n, lane_count.device)
     winners = torch.clamp(tape, min=0.0).to(torch.int64)
     block = trace_depth
@@ -499,24 +569,39 @@ def replay(
 # ---------------------------------------------------------------------------
 
 
+TABLE_INPUTS = ("tri_geo", "tri_rec", "rect_geo", "rect_rec", "box_geo",
+                "box_rec")
+
+
+def _pairs(tables: dict):
+    """(tri_tables, rect_tables, box_tables) from TABLE_INPUTS' tensors (a
+    pair is None where its geometry is)."""
+    return tuple(None if tables[f"{k}_geo"] is None
+                 else (tables[f"{k}_geo"], tables[f"{k}_rec"])
+                 for k in ("tri", "rect", "box"))
+
+
 class _SampleBatchDiff(torch.autograd.Function):
-    """Inputs: the six differentiable tables, the two triangle tables
-    (None in sphere scenes), then the non-differentiable lane rows, the
-    seed, the lane base and the static options."""
+    """Inputs: the six differentiable tables, the six tables of
+    TABLE_INPUTS (None where the scene has no such kind), then the
+    non-differentiable lane rows, the seed, the lane base and the static
+    options."""
 
     @staticmethod
     def forward(ctx, camera_row, centers, radii, records, sky_bottom,
-                sky_top, tri_geo, tri_rec, lane_count, count_in, seed,
-                lane_base, statics):
-        tri_tables = None if tri_geo is None else (tri_geo, tri_rec)
+                sky_top, tri_geo, tri_rec, rect_geo, rect_rec, box_geo,
+                box_rec, lane_count, count_in, seed, lane_base, statics):
+        tables = dict(zip(TABLE_INPUTS, (tri_geo, tri_rec, rect_geo,
+                                         rect_rec, box_geo, box_rec)))
+        tri, rect, box = _pairs(tables)
         out = mk.sample_batch(
             lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base, want_tape=True,
-            tri_tables=tri_tables, **statics,
+            tri_tables=tri, rect_tables=rect, box_tables=box, **statics,
         )
         ctx.save_for_backward(out["tape"], lane_count, camera_row, centers,
-                              radii, records, sky_bottom, sky_top, tri_geo,
-                              tri_rec)
+                              radii, records, sky_bottom, sky_top,
+                              *tables.values())
         ctx.seed, ctx.lane_base, ctx.statics = seed, lane_base, statics
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(out["rays"])
@@ -538,22 +623,26 @@ class _SampleBatchDiff(torch.autograd.Function):
         from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 
         (tape, lane_count, camera_row, centers, radii, records, sky_bottom,
-         sky_top, tri_geo, tri_rec) = ctx.saved_tensors
+         sky_top, *table_list) = ctx.saved_tensors
+        tables = dict(zip(TABLE_INPUTS, table_list))
+        tri, rect, box = _pairs(tables)
         n = lane_count.shape[0]
         zeros = torch.zeros(n, dtype=torch.float32, device=tape.device)
         cot_color = (cot["color"] if cot["color"] is not None
                      else zeros[:, None].expand(n, 3))
         cot_count = cot["count"] if cot["count"] is not None else zeros
-        grads = megatrace_bwd.replay_grad(
+        grads = list(megatrace_bwd.replay_grad(
             tape, lane_count, camera_row, centers, radii, records,
             sky_bottom, sky_top, ctx.seed, cot_color, cot_count,
-            ctx.lane_base,
-            tri_tables=None if tri_geo is None else (tri_geo, tri_rec),
-            **ctx.statics,
-        )
-        if tri_geo is None:
-            grads = (*grads, None, None)
-        return (*grads, None, None, None, None, None)
+            ctx.lane_base, tri_tables=tri, rect_tables=rect,
+            box_tables=box, **ctx.statics,
+        ))
+        table_grads = [None] * len(TABLE_INPUTS)
+        for j, pair in enumerate((tri, rect, box)):
+            if pair is not None:
+                table_grads[2 * j:2 * j + 2] = grads[6:8]
+                del grads[6:8]
+        return (*grads, *table_grads, None, None, None, None, None)
 
 
 def sample_batch_diff(
@@ -575,12 +664,16 @@ def sample_batch_diff(
     sky_on: bool = True,
     jitter: bool = True,
     tri_tables: tuple | None = None,
+    rect_tables: tuple | None = None,
+    box_tables: tuple | None = None,
 ) -> dict:
     """`megatrace.sample_batch` with gradients with respect to camera_row,
-    centers, radii, records, sky_bottom, sky_top and, in a mesh scene,
-    the two tables of `tri_tables` (pack_tri_tables' pair: the soup's
-    edges, vertices and normals and the triangle materials), through the
-    tape replay.  Outputs are the kernel's (no tape).  Only the `color` and
+    centers, radii, records, sky_bottom, sky_top and, where the scene has
+    them, the two tables of `tri_tables` (pack_tri_tables' pair: the
+    soup's edges, vertices and normals and the triangle materials) and of
+    `rect_tables` and `box_tables` (pack_aux_tables' pairs: quaternions,
+    positions, extents and materials; JAX `_aux_pairs`), through the tape
+    replay.  Outputs are the kernel's (no tape).  Only the `color` and
     `count` cotangents propagate; a loss that differentiates an AOV output
     raises NotImplementedError in backward (render_batch grafts the AOV
     gradients on from the wavefront).  When no input requires a
@@ -590,12 +683,16 @@ def sample_batch_diff(
                    has_dielectrics=has_dielectrics, sky_on=sky_on,
                    jitter=jitter)
     diff_inputs = (camera_row, centers, radii, records, sky_bottom, sky_top)
-    tri = (None, None) if tri_tables is None else tuple(tri_tables)
+    tables = tuple(t for pair in (tri_tables, rect_tables, box_tables)
+                   for t in ((None, None) if pair is None else tuple(pair)))
     if not (torch.is_grad_enabled()
             and any(t is not None and t.requires_grad
-                    for t in (*diff_inputs, *tri))):
+                    for t in (*diff_inputs, *tables))):
         return mk.sample_batch(lane_count, count_in, *diff_inputs, seed,
-                               lane_base, tri_tables=tri_tables, **statics)
-    outs = _SampleBatchDiff.apply(*diff_inputs, *tri, lane_count, count_in,
-                                  int(seed), int(lane_base), statics)
+                               lane_base, tri_tables=tri_tables,
+                               rect_tables=rect_tables,
+                               box_tables=box_tables, **statics)
+    outs = _SampleBatchDiff.apply(*diff_inputs, *tables, lane_count,
+                                  count_in, int(seed), int(lane_base),
+                                  statics)
     return dict(zip(mk.OUTPUT_KEYS, outs))

@@ -1,5 +1,5 @@
 """Wavefront path-tracing integrator (counterpart of the JAX package's
-render/integrator.py), for sphere and triangle scenes.
+render/integrator.py), for scenes of spheres, rects, boxes and triangles.
 
 Reference: the Sample() bounce loop of SampleBatchJob.cs:166-401 — nearest
 hit, material scatter, the emission/attenuation fold, AOV capture, sky
@@ -14,18 +14,19 @@ conditions:
   the scene in the per-ray megatrace kernel's scope
   (`ops.megatrace.scene_eligible`, sphere-only): the whole depth loop in
   one launch of `ops.megatrace.megatrace` (CUDA: csrc/megatrace_wave.cu).
-* `fast`: not differentiable otherwise, for scenes without triangles: per
+* `fast`: not differentiable otherwise, for scenes of spheres only: per
   bounce, the fused selection `ops.sphere_select.sphere_select_full`
   (csrc/sphere_select.cu) hands the winner's record to the scatter,
   which carries no geometry gradients.
-* the general arm, differentiable or a mesh scene: per bounce,
-  `ops.intersect.nearest_hit` (the detached selections `sphere_select`
-  and `triangle_select`, then the winners' tests with gradients).
+* the general arm, differentiable, or a scene with rects, boxes or
+  triangles: per bounce, `ops.intersect.nearest_hit` (the detached
+  selections `sphere_select` and `triangle_select`, the rect and box
+  tests in plain PyTorch, then the winners' tests with gradients).
 
 On CPU tensors each kernel runs its plain PyTorch version.  Volumes,
-motion, rects, boxes, procedural textures and cubemap skies raise
-NotImplementedError naming their ROADMAP steps, and so does a noise
-context (sampler flavors, step 11).
+motion, rects or boxes in mesh scenes, procedural textures and cubemap
+skies raise NotImplementedError naming their ROADMAP steps, and so does a
+noise context (sampler flavors, step 11).
 """
 
 from __future__ import annotations
@@ -155,7 +156,10 @@ def trace(
     )
     # the fast arm's per-sphere records: packed material row + material id
     sph_records = None
-    if not differentiable and scene.triangles.vert0.shape[0] == 0:
+    if (not differentiable and scene.spheres.center.shape[0] > 0
+            and scene.rects.rot.shape[0] == 0
+            and scene.boxes.rot.shape[0] == 0
+            and scene.triangles.vert0.shape[0] == 0):
         sph_records = torch.cat(
             [packed[mat][:, :11], mat[:, None].to(torch.float32)], dim=1)
 

@@ -9,16 +9,20 @@ arms on its conditions:
 
 * the fused arm, forward (`differentiable=False`, or nothing requiring
   grad): one `ops.megatrace.sample_batch` launch per batch, with the
-  triangle tables of a mesh scene (`pack_tri_tables`); a mesh of more
-  than TRI_MAX triangles takes the streamed tables
-  (`pack_tri_stream_tables`) with lanes in Morton order
+  triangle tables of a mesh scene (`pack_tri_tables`) or the rect and box
+  tables of a scene with rects or boxes (`pack_aux_tables`, the kernel's
+  aux build); a mesh of more than TRI_MAX triangles takes the streamed
+  tables (`pack_tri_stream_tables`) with lanes in Morton order
   (`megatrace.morton_order`, deltas un-permuted by its rank), and above
   `meshtrace.SYNC_TRI_MIN` triangles the bounce-synchronous sampler
-  (`ops.meshtrace.sample_batch_sync`, one launch per bounce);
+  (`ops.meshtrace.sample_batch_sync`, one launch per bounce) on the JAX
+  renderer's conditions (no rects, boxes, volumes, motion, procedural
+  textures or noise flavor);
 * the fused arm, differentiable: `ops.megatrace_replay.sample_batch_diff`
   (the same kernel with its winner tape as primal, the tape replay's
   backward kernel as gradient of the color sum and the valid count, to
-  the spheres, the triangle soup and the materials), plus the AOV graft:
+  the spheres, rects, boxes, the triangle soup and the materials), plus
+  the AOV graft:
   the normal, albedo, weight and fallback AOVs keep the kernel's values,
   and their gradients come from the differentiable wavefront on the batch
   key (`wavefront_pass`, which selects triangles with
@@ -385,7 +389,8 @@ def render_batch(
               if differentiable and torch.is_grad_enabled() else [])
     streamed = scene.triangles.vert0.shape[0] > megatrace.TRI_MAX
     if (noise_color != 0
-            or not megatrace.scene_eligible(scene, allow_triangles=True)
+            or not megatrace.scene_eligible(scene, allow_triangles=True,
+                                            allow_rect_box=True)
             or (streamed and inputs)):
         # ---- the wavefront arm: the batch kernel is refused ---------------
         integrator.check_scope(scene)
@@ -410,7 +415,12 @@ def render_batch(
     if streamed:
         # ---- a mesh beyond TRI_MAX: the streamed tables, forward only ------
         stream = megatrace.pack_tri_stream_tables(scene, packed)
-        if scene.triangles.vert0.shape[0] > meshtrace.SYNC_TRI_MIN:
+        # the JAX renderer's conditions for the sync route (its others,
+        # volumes, motion, procedural textures, noise flavors and cubemap
+        # skies, are refused above)
+        if (scene.triangles.vert0.shape[0] > meshtrace.SYNC_TRI_MIN
+                and scene.rects.rot.shape[0] == 0
+                and scene.boxes.rot.shape[0] == 0):
             d = meshtrace.sample_batch_sync(
                 lane_count, acc.sample_count, camera, key, *sphere_args,
                 stream, width=width, height=height, **statics)
@@ -428,6 +438,9 @@ def render_batch(
 
     batch = (megatrace_replay.sample_batch_diff if differentiable
              else megatrace.sample_batch)
+    # gradients to the rects' and boxes' rotations, positions, extents and
+    # materials flow through this pack
+    rect_tables, box_tables = megatrace.pack_aux_tables(scene, packed)
     d = batch(
         lane_count,
         acc.sample_count,
@@ -437,6 +450,7 @@ def render_batch(
         # gradients to the soup's vertices, normals and materials flow
         # through this pack
         tri_tables=megatrace.pack_tri_tables(scene, packed),
+        rect_tables=rect_tables, box_tables=box_tables,
         **statics,
     )
     if inputs:

@@ -230,12 +230,35 @@ def test_lane_base_keys_the_random_streams_like_jax():
     assert not torch.equal(base0["tape"], got["tape"])
 
 
+def _mesh_with_a_rect():
+    """A triangle and a rect: rects and boxes in mesh scenes are ROADMAP
+    step 7.1b."""
+    from raytracing_in_one_weekend_tpu_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.lambert((0.7, 0.7, 0.7))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, white)
+    b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), white)
+    b.add_rect((0, 0, -1), (1.0, 1.0), white)
+    return b.build()
+
+
 def test_scope_refusals_name_the_roadmap():
-    for name in ("cover_motion", "volume", "cornell"):
-        scene, _ = book_scenes.SCENES[name]()
-        assert not megatrace.scene_eligible(scene)
+    refused = [book_scenes.SCENES[name]()[0]
+               for name in ("cover_motion", "volume")]
+    for scene in refused + [_mesh_with_a_rect()]:
+        assert not megatrace.scene_eligible(scene, allow_triangles=True,
+                                            allow_rect_box=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             renderer.check_scope(scene)
+    # rects and boxes are ported (step 7.1): the batch kernel's aux build
+    # and the replay take cornell; the per-ray megatrace stays sphere-only
+    cornell, _ = book_scenes.cornell_box()
+    assert megatrace.scene_eligible(cornell, allow_triangles=True,
+                                    allow_rect_box=True)
+    assert megatrace_replay.replay_eligible(cornell)
+    assert not megatrace.scene_eligible(cornell)
+    renderer.check_scope(cornell)
     scene, _ = book_scenes.cover_scene()
     assert megatrace.scene_eligible(scene)
     # the differentiable path is ported: same scope as the forward one

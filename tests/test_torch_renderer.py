@@ -186,7 +186,16 @@ def test_driver_refuses_unported_features():
     focus = driver.autofocus(scene, dataclasses.replace(cs,
                                                         focus_distance=None))
     assert 0.0 < focus < 1e29
-    cornell, ccs = book_scenes.cornell_box()
+    volume, vcs = book_scenes.volume_test()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.ProgressiveRenderer(cornell, ccs, RenderSettings(),
+        driver.ProgressiveRenderer(volume, vcs, RenderSettings(),
                                    device="cpu")
+    # cornell (rects and boxes, ROADMAP step 7.1) renders now
+    cornell, ccs = book_scenes.cornell_box()
+    r = driver.ProgressiveRenderer(
+        cornell, ccs, RenderSettings(width=12, height=8,
+                                     samples_per_pixel=2, trace_depth=4),
+        device="cpu")
+    r.run()
+    color = r.combined().color
+    assert bool(torch.isfinite(color).all()) and float(color.mean()) > 0.0

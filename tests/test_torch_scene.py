@@ -153,8 +153,7 @@ def _textured_triangle(b):
 
 
 def _streamed_mesh(b):
-    """Meshes are ported up to TRI_MAX; above it the renderer refuses them
-    (streamed meshes, step 10)."""
+    """Meshes are ported, those without spheres not yet (step 7.1b)."""
     v, f, _, _ = meshes.icosphere(4)  # 5120 faces
     b.add_mesh(v, f, b.lambert((0.5, 0.5, 0.5)))
     renderer.check_scope(b.build())
