@@ -5,9 +5,10 @@ AOV-gradient graft), on the book cover and on the `mesh_showcase` mesh
 scene (triangle selection, the triangle arms of the batch and backward
 kernels), the streamed meshes `mesh_large` and `mesh_huge` (the batch
 kernel's streamed arm with Morton lanes, the bounce-synchronous sampler's
-bounce, pair compaction and restore), and the rect and box scenes
+bounce, pair compaction and restore), the rect and box scenes
 `cornell` and `simple_light` (the aux builds of the batch and backward
-kernels).
+kernels) and the convex-volume scenes `volume`, `probabilistic` and
+`cornell_volumes` (their volume builds).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
@@ -194,6 +195,19 @@ which raises on failure:
      on that step's inputs (each leaf, rect_geo, rect_rec, box_geo and
      box_rec among them, within 5e-4 of its max abs) and alone at 4 and
      64 spp; the CLI on --scene cornell and --scene simple_light.
+ 23. convex volumes (`volume_phases`): render_batch on volume,
+     probabilistic and cornell_volumes at 512x512, depth 8, 64 spp (1
+     warm-up + 5 timed batches, every one through a volume build of the
+     batch kernel), the volume build against its plain version on a
+     main-path batch's inputs and at 4 spp (tape, count, rays identical,
+     floats within 1e-4, >= 99% of lanes), alone by CUDA events at 4 and
+     64 spp; the fwd+bwd steps of cornell_volumes (to its material
+     parameters and albedos) and volume (to its material parameters and
+     sphere centres), the backward's volume builds against the plain
+     replay's autograd on each step's inputs (each leaf, vol0 and the
+     densities' records among them, within 5e-4 of its max abs) and alone
+     at 4 and 64 spp; a camera inside a fog sphere at 128x128, forward and
+     backward against their plain versions; the CLI on the three scenes.
 MRays/s counts every bounce of every sample as one ray, with the ray
 count the kernels themselves report.  Each kernel's bound is the larger of
 its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
@@ -279,6 +293,18 @@ BOX_FLOPS = FRAME_FLOPS + 59  # per (ray, box) pair of box_test: the t_min
 #   two max, 11, and a comparison), the three face distances (4 each), the
 #   three face tests (a comparison and two |fmaf| < e, 9 each), t + t_min
 #   and the running minimum (2)
+VOL_WALK_FLOPS = 35  # per bounce of the volume builds (megatrace_bounce.cuh
+#   shade, kVol): the entry test (a 3-dot, 5), the medium's eight selects
+#   (8), the free path (two max, the log, a negation and a division: 5,
+#   the log counted once), the segment (2), the decisions (~8 compares),
+#   the scatter's distance and point (1 and three fmaf, 7)
+SPHERE_EXIT_FLOPS = 25  # per bounce at a sphere winner (sphere_exit): three
+#   3-dots (15), b (1), c (3), the discriminant (3), sqrt, the root (3)
+BOX_EXIT_FLOPS = FRAME_FLOPS + 35  # per bounce at a box winner (box_exit):
+#   the frame, the t_min offsets (three fmaf, 6), three inverses, six slab
+#   distances (12), ten min and max, the exit's sum and tests (4)
+VOL_BWD_FLOPS = 3 * VOL_WALK_FLOPS  # per live iteration of the backward's
+#   volume builds, beyond BWD_FLOPS: the walk twice forward and its adjoint
 AUX_BWD_FLOPS = 2 * RECT_FLOPS + 200  # per live iteration of the backward
 #   at a rect or box winner, beyond BWD_FLOPS: its frame and distance twice
 #   forward (the path's sweep, step_vjp's recompute) and the adjoint of the
@@ -347,20 +373,20 @@ def path_stats(paths, trace_depth: int) -> dict:
 
 
 def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
-                 repeats: int, rect=None, box=None):
+                 repeats: int, rect=None, box=None, vol0=None):
     """The backward's kernels alone by CUDA events after a warm-up: (the
     tape scan's ms, its count and scatter launches alone; its wrapper's
     glue, the offsets and allocations between them; the path kernel's ms;
     the scan's path table, decoded).  `tri` (pack_tri_tables' pair) takes
     the mesh build, `rect` and `box` (pack_aux_tables' pairs) the aux
-    build."""
+    build, `vol0` (camera_containment_row) a volume build."""
     s = tables[1].shape[0]
-    kind = (megatrace_bwd.MESH if tri is not None
-            else megatrace_bwd.AUX if rect is not None or box is not None
-            else megatrace_bwd.SPHERES)
+    kind = megatrace_bwd.build_kind(tri is not None,
+                                    rect is not None or box is not None,
+                                    vol0 is not None)
     args = megatrace_bwd.kernel_args(
         tape, lane_count,
-        megatrace_bwd._consts(tables[0], tables[4], tables[5]),
+        megatrace_bwd._consts(tables[0], tables[4], tables[5], vol0),
         megatrace_replay.build_entity_rows(*tables[1:4], tri, rect, box),
         s, *cots, kind=kind)
     scan = (args["tape"], args["per_pixel"], kw["samples"], kw["trace_depth"])
@@ -1002,7 +1028,7 @@ def kernel_ms(fn, kernel: str, repeats: int) -> float:
 
 def reset_launches() -> None:
     megatrace.LAUNCHES = megatrace.WAVE_LAUNCHES = megatrace_bwd.LAUNCHES = 0
-    megatrace.AUX_LAUNCHES = 0
+    megatrace.AUX_LAUNCHES = megatrace.VOL_LAUNCHES = 0
     megatrace_bwd.SCAN_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
@@ -2454,35 +2480,41 @@ AUX_LEAVES = LEAVES + ("rect_geo", "rect_rec", "box_geo", "box_rec")
 
 
 def aux_launch_ms(tables, rect, box, samples: int, repeats: int,
-                  kw: dict) -> float:
-    """The aux build alone: CUDA events around `repeats` launches of its C
-    entry point on buffers made once (sample_batch's own packing, a few
-    small torch ops, would otherwise bound a short batch by the host)."""
+                  kw: dict, vol0=None) -> float:
+    """The aux build (with `vol0`, a volume build) alone: CUDA events
+    around `repeats` launches of its C entry point on buffers made once
+    (sample_batch's own packing, a few small torch ops, would otherwise
+    bound a short batch by the host)."""
     camera_row, centers, radii, records, sky_bottom, sky_top = tables
     dev, s = centers.device, centers.shape[0]
     n = int(camera_row[19] * camera_row[20])
     lib = megatrace.load_kernel()
     sph, rec = megatrace.sweep_tables(centers, radii, records)
-    consts = torch.zeros(32, dtype=torch.float32, device=dev)
-    consts[:24], consts[24:27], consts[27:30] = camera_row, sky_bottom, \
-        sky_top
-    aux_geo, aux_rec, rect_rows, box_rows = megatrace.kernel_aux_tables(
-        rect, box)
+    consts = megatrace.kernel_consts(camera_row, sky_bottom, sky_top, vol0)
+    aux_geo = aux_rec = None
+    rect_rows = box_rows = 0
+    if rect is not None or box is not None:
+        aux_geo, aux_rec, rect_rows, box_rows = megatrace.kernel_aux_tables(
+            rect, box)
     rect_code, box_code = megatrace.aux_code_bases(s, rect)
     per_pixel = torch.full((n,), float(samples), device=dev)
     cin = torch.zeros(n, device=dev)
     out = torch.empty((megatrace.OUT_ROWS, n), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    entry = (lib.rtiw_megatrace_aux if vol0 is None
+             else lib.rtiw_megatrace_volume)
 
     def launch():
-        err = lib.rtiw_megatrace_aux(
+        err = entry(
             per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
-            sph.data_ptr(), rec.data_ptr(), aux_geo.data_ptr(),
-            aux_rec.data_ptr(), out.data_ptr(), 0, n, s, rect_rows,
-            box_rows, rect_code, box_code, 7, 0, samples, kw["trace_depth"],
-            0.0, int(kw["has_dielectrics"]), int(kw["sky_on"]), 1, stream)
+            sph.data_ptr(), rec.data_ptr(),
+            0 if aux_geo is None else aux_geo.data_ptr(),
+            0 if aux_rec is None else aux_rec.data_ptr(), out.data_ptr(), 0,
+            n, s, rect_rows, box_rows, rect_code, box_code, 7, 0, samples,
+            kw["trace_depth"], 0.0, int(kw["has_dielectrics"]),
+            int(kw["sky_on"]), 1, stream)
         if err != 0:
-            raise RuntimeError(f"aux build launch: cudaError {err}")
+            raise RuntimeError(f"batch kernel build launch: cudaError {err}")
 
     launch()
     start = torch.cuda.Event(enable_timing=True)
@@ -2528,9 +2560,9 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     n = width * height
     out, fwd_entry, bwd_entry = {}, {}, {}
     kernel_report = ptxas_report(megatrace.BUILD_LOG,
-                                 "megatrace_sphere_kernelILb1EE")
+                                 "megatrace_sphere_kernelILb1ELb0EE")
     path_report = ptxas_report(megatrace_bwd.BUILD_LOG,
-                               "megatrace_paths_kernelILb0ELb1EE")
+                               "megatrace_paths_kernelILb0ELb1ELb0EE")
     print(f"aux builds: ptxas #1 {kernel_report or '(not built here)'}; "
           f"#2 path kernel {path_report or '(not built here)'}")
     max_err, shares = 0.0, []
@@ -2807,6 +2839,446 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     return {"kernels": kernels, "paths": out}
 
 
+def fog_inside_scene():
+    """A camera inside a fog sphere of density 0.8 with a red sphere in
+    it (the JAX package's camera-inside testbed, tests/test_megakernel.py
+    :255-288) and its camera settings."""
+    b = SceneBuilder()
+    fog = b.volume(0.8, (0.9, 0.9, 0.9))
+    b.add_sphere((0.0, 0.0, 0.0), 3.0, fog)
+    b.add_sphere((0.0, 0.0, -2.0), 0.5, b.lambert((0.8, 0.2, 0.2)))
+    b.set_gradient_sky()
+    return b.build(), CameraSettings(origin=(0.0, 0.0, 0.0),
+                                     look_at=(0.0, 0.0, -1.0),
+                                     vertical_fov=60.0, focus_distance=2.0)
+
+
+# the fog scenes (the registries' names: `--against` imports this file
+# beside an older package, which may not have them)
+VOL_SCENES = ("volume", "probabilistic", "cornell_volumes")
+NOISE = 1e-5  # of the largest leaf's max: a leaf below it is zero but for
+#   rounding (tests/test_torch_volume_grad.py)
+
+
+def volume_errors(got, want, names) -> float:
+    """aux_errors for the volume builds: each leaf within GRAD_TOL of its
+    max abs, a leaf whose plain gradient is below NOISE of the largest
+    leaf's held below that on both sides (a skip's derivative to its
+    boundary cancels on the next hit, tests/test_torch_volume_grad.py)."""
+    largest = max(float(w.abs().max()) for w in want if w.numel())
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        if w.numel() == 0:
+            continue
+        scale, err = float(w.abs().max()), float((g - w).abs().max())
+        if scale <= NOISE * largest:
+            if float(g.abs().max()) > NOISE * largest:
+                raise RuntimeError(f"volume backward vs plain: {name} "
+                                   f"{float(g.abs().max())} where the "
+                                   "plain gradient is below the noise")
+            continue
+        if not err <= GRAD_TOL * scale:
+            raise RuntimeError(f"volume backward vs plain: {name} error "
+                               f"{err} against max abs {scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def volume_inputs(scene, cs, width, dev):
+    """(camera, the six tables, rect_tables, box_tables, vol0) of a
+    width x width batch."""
+    camera, tables = batch_inputs(scene, cs, width, width, dev)
+    packed = materials.pack_materials(scene)
+    rect, box = megatrace.pack_aux_tables(scene, packed)
+    vol0 = megatrace.camera_containment_row(scene, packed, camera.origin)
+    return camera, tables, rect, box, vol0
+
+
+def winner_flops(tape, s_count: int, rect, r_count, b_count) -> float:
+    """The volume builds' operations on a tape's bounces: every bounce's
+    sweep, shading and walk, and the exit of its winner (a sphere's far
+    root or a box's slab exit)."""
+    rays = float((tape > -1.5).sum())
+    s_pad = megatrace.sphere_pad_count(s_count)
+    _, box_base = megatrace.aux_code_bases(s_count, rect)
+    spheres = float(((tape >= 0) & (tape < s_pad)).sum())
+    boxes = float((tape >= box_base).sum()) if b_count else 0.0
+    return (rays * (s_count * SWEEP_FLOPS + r_count * RECT_FLOPS
+                    + b_count * BOX_FLOPS + SHADE_FLOPS + VOL_WALK_FLOPS)
+            + spheres * SPHERE_EXIT_FLOPS + boxes * BOX_EXIT_FLOPS)
+
+
+def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
+    """Phase 23: convex volumes, the volume builds of #1 and #2, on
+    `volume` (a fog sphere of density 1.5 beside a solid one),
+    `probabilistic` (fog spheres of density 0.5, 2 and 8) and
+    `cornell_volumes` (the Cornell box with two volume boxes of density
+    8), 512x512, depth 8:
+    (a) render_batch at 64 spp, 1 warm-up + 5 timed batches (median
+        MRays/s), every batch through a volume build (VOL_LAUNCHES, set to
+        0 just before and read just after), the image finite;
+    (b) the volume build against its plain version on the inputs of a
+        main-path batch: tape, count and rays identical and the floats
+        within 1e-4 on >= 99% of lanes; again at 4 spp;
+    (c) the build alone by CUDA events at 4 and 64 spp, its plain version
+        at 4 spp, registers and blocks an SM, and the bound;
+    (d) the fwd+bwd step on cornell_volumes (to its material parameters,
+        the two densities among them, and its albedos) and on volume (to
+        the material parameters and the sphere centres):
+        render_image(differentiable=True), mean((color - target)^2),
+        .backward(), 1 warm-up + 3 timed steps (median MRays/s, the
+        forward rays of each seed), the path kernel's volume build
+        launched, the gradients finite and the densities' nonzero; the
+        backward against the plain replay's autograd on the last step's
+        inputs, each leaf (vol0 and the records, where the densities sit,
+        among them) within 5e-4 of its max abs;
+    (e) #2's volume builds alone at 4 and 64 spp (the tape scan's launches
+        and the path kernel by CUDA events, ns a live iteration),
+        replay_grad and its plain version at 4 spp;
+    (f) a camera inside a fog sphere, 128x128, 8 spp, depth 8: forward
+        and backward against their plain versions;
+    (g) the CLI on --scene cornell_volumes, volume and probabilistic,
+        256x256, 16 spp, depth 8.
+    (`width` and `spp` shrink it for a rehearsal on the CPU.)"""
+    t_phase = time.perf_counter()
+    n = width * width
+    out, fwd, bwd = {}, {}, {}
+    reports = [ptxas_report(megatrace.BUILD_LOG,
+                            f"megatrace_sphere_kernelILb{a}ELb1EE")
+               for a in (0, 1)]
+    reports += [ptxas_report(megatrace_bwd.BUILD_LOG,
+                             f"megatrace_paths_kernelILb0ELb{a}ELb1EE")
+                for a in (0, 1)]
+    print(f"volume builds: ptxas #1 beside spheres {reports[0] or '-'}; "
+          f"beside rects and boxes {reports[1] or '-'}; #2 path kernel "
+          f"{reports[2] or '-'}; {reports[3] or '-'}")
+    max_err, shares, launches_main = 0.0, [], 0
+    registry = {**book_scenes.SCENES, **testbeds.SCENES}
+    for name in VOL_SCENES:
+        scene, cs = registry[name]()
+        scene = scene.to(dev)
+        if (not megatrace.scene_eligible(scene, allow_triangles=True,
+                                         allow_rect_box=True,
+                                         allow_volumes=True)
+                or megatrace.scene_eligible(scene, allow_rect_box=True)):
+            raise RuntimeError(f"{name} left the batch kernel's scope, or "
+                               "entered the per-ray megatrace's")
+        camera, tables, rect, box, vol0 = volume_inputs(scene, cs, width,
+                                                        dev)
+        s_count = scene.spheres.center.shape[0]
+        r_count, b_count = (scene.rects.rot.shape[0],
+                            scene.boxes.rot.shape[0])
+        aux_rows = sum(t[0].shape[0] for t in (rect, box) if t is not None)
+        kw = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+                  sky_on=scene.flags.sky == 1, rect_tables=rect,
+                  box_tables=box, vol0=vol0)
+
+        # ---- (a) the forward main path ------------------------------------
+        gen = torch.Generator().manual_seed(5)
+        acc = film.zero_accumulators(n, device=dev)
+
+        def forward():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = renderer.render_batch(scene, camera, acc, gen, width=width,
+                                         height=width, samples=spp,
+                                         trace_depth=8)
+            rays = float(m.total_rays)
+            torch.cuda.synchronize()
+            return rays, time.perf_counter() - t
+
+        reset_launches()
+        runs = [forward() for _ in range(6)]
+        launches = (megatrace.LAUNCHES, megatrace.VOL_LAUNCHES)
+        if launches != (6, 6):
+            raise RuntimeError(f"{name}: batch kernel launches {launches}, "
+                               "want 6 of the volume build")
+        launches_main += launches[1]
+        rate = statistics.median(r / t / 1e6 for r, t in runs[1:])
+        img = film.combine(acc, width, width).color
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+            raise RuntimeError(f"bad {name} image: mean {float(img.mean())}")
+        print(f"volume main path: {name} {width}x{width} depth 8, {spp} "
+              f"spp/batch: median {rate:.3f} MRays/s over 5 batches "
+              f"({runs[1][0]:.0f} rays/batch; launches batch kernel "
+              f"{launches[0]}, volume build {launches[1]}); image mean "
+              f"{float(img.mean()):.4f} [{card}]")
+        out[f"{name}_fwd_mrays"] = rate
+
+        # ---- (b) kernel vs plain on a main-path batch's inputs -------------
+        with recorded_calls(megatrace, "sample_batch") as calls:
+            renderer.render_batch(scene, camera, acc, gen, width=width,
+                                  height=width, samples=spp, trace_depth=8)
+        (args, kwargs, _), = calls
+        if kwargs.get("vol0") is None:
+            raise RuntimeError(f"{name}: the main path passed no vol0")
+        t = time.perf_counter()
+        share, err = check_parity(f"volume build, {name} {width}x{width} "
+                                  f"{spp} spp main-path batch", args, kwargs)
+        print(f"  (plain version {time.perf_counter() - t:.1f} s)")
+        shares.append(share)
+        max_err = max(max_err, err)
+        del calls, args, kwargs
+
+        # ---- (c) the volume build alone ------------------------------------
+        zeros = torch.zeros(n, device=dev)
+        timed = {}
+        for few in (4, spp):
+            lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+            res = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                         samples=few, want_tape=True, **kw)
+            flops = winner_flops(res["tape"], s_count, rect, r_count,
+                                 b_count)
+            rays = float(res["rays"].sum())
+            bnd = bound(flops, n * 4 * (2 + megatrace.OUT_ROWS)
+                        + s_count * 4 * (4 + 16) + aux_rows * 4 * 32
+                        + 4 * 40)
+            ms = aux_launch_ms(tables, rect, box, few, 20 if few == 4 else 5,
+                               kw, vol0=vol0)
+            timed[few] = (ms, rays, bnd)
+            if few == 4:
+                plain_ms, plain = time_batch(
+                    megatrace.sample_batch_reference, lane_count, zeros,
+                    *tables, 7, samples=few, repeats=1, want_tape=True, **kw)
+                share4, err4 = lane_agreement(res, plain)
+                if share4 < 0.99:
+                    raise RuntimeError(f"{name} volume build/plain agreement "
+                                       f"{share4}")
+                shares.append(share4)
+                max_err = max(max_err, err4)
+                del plain
+            del res
+        info = megatrace.volume_kernel_info(s_count, aux_rows)
+        (ms4, rays4, bnd4), (ms64, rays64, bnd64) = timed[4], timed[spp]
+        print(f"volume build alone, {name} {width}x{width} depth 8 (CUDA "
+              f"events, launches alone): 4 spp {ms4:.3f} ms ({rays4:.0f} "
+              f"bounces, bound {bnd4[0]:.4f} ms by {bnd4[1]}, "
+              f"{bnd4[0] / ms4:.1%}), {spp} spp {ms64:.3f} ms ({rays64:.0f} "
+              f"bounces, bound {bnd64[0]:.4f} ms, {bnd64[0] / ms64:.1%}); "
+              f"plain {plain_ms:.3f} ms at 4 spp ({share4:.6f} of lanes "
+              f"agree); {info['registers']} registers, "
+              f"{info['local_bytes']} B local a thread, {info['blocks']} "
+              f"blocks of 128 an SM [{card}]")
+        fwd[name] = dict(ms=ms4, ms_64spp=ms64, plain_ms=plain_ms,
+                         bound=bnd4, bound_ms_64spp=bnd64[0], **info)
+        if name == "probabilistic":
+            continue
+
+        # ---- (d) the fwd+bwd step ------------------------------------------
+        target = img.detach()
+        seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
+                 for _ in range(4)]
+        rays = []
+        for seed in seeds:  # the forward rays of each step's seed
+            _, m = renderer.render_batch(
+                scene, camera, film.zero_accumulators(n, device=dev),
+                width=width, height=width, samples=spp, trace_depth=8,
+                seed=seed, differentiable=False)
+            rays.append(float(m.total_rays))
+        names = (("material_parameters", "texture_colors")
+                 if name == "cornell_volumes"
+                 else ("material_parameters", "sphere_centers"))
+        reset_launches()
+        rates = []
+        with recorded_calls(megatrace_bwd, "replay_grad",
+                            copy=False) as calls:
+            for seed, r in zip(seeds, rays):
+                calls.clear()  # keep the last step's call only
+                params = {k: v.detach().clone().requires_grad_() for k, v in
+                          params_mod.extract_params(scene, names).items()}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step = renderer.render_image(
+                    params_mod.apply_params(scene, params), camera,
+                    width=width, height=width, samples_per_pixel=spp,
+                    trace_depth=8, seed=seed, differentiable=True)
+                torch.cuda.synchronize()
+                torch.mean((step.color - target) ** 2).backward()
+                torch.cuda.synchronize()
+                rates.append(r / (time.perf_counter() - t) / 1e6)
+        launches = (megatrace.VOL_LAUNCHES, megatrace_bwd.SCAN_LAUNCHES,
+                    megatrace_bwd.LAUNCHES)
+        if min(launches) == 0 or megatrace.LAUNCHES != launches[0]:
+            raise RuntimeError(f"{name} fwd+bwd: launches {launches}")
+        grads = {k: v.grad for k, v in params.items()}
+        density = grads["material_parameters"][
+            (scene.materials.type == 2).nonzero()[:, 0]]
+        if (not all(bool(torch.isfinite(g).all()) for g in grads.values())
+                or float(density.abs().max()) == 0.0):
+            raise RuntimeError(f"{name} fwd+bwd: bad gradients")
+        rate = statistics.median(rates[1:])
+        out[f"{name}_fwd_bwd_mrays"] = rate
+        print(f"volume fwd+bwd: {name} {width}x{width} depth 8, {spp} spp: "
+              f"median {rate:.3f} MRays/s over 3 steps ({rays[-1]:.0f} "
+              f"forward rays/step; launches volume build {launches[0]}, "
+              f"tape scan {launches[1]}, path kernel {launches[2]}); max "
+              f"|grad| " + ", ".join(f"{k} {float(g.abs().max()):.4g}"
+                                     for k, g in grads.items())
+              + f", the densities' {density.tolist()} [{card}]")
+        bwd.setdefault("launches", 0)
+        bwd.setdefault("scan_launches", 0)
+        bwd["launches"] += launches[2]
+        bwd["scan_launches"] += launches[1]
+        (args, kwargs, got), = calls
+        t = time.perf_counter()
+        want = megatrace_bwd.replay_grad_reference(*args, **kwargs)
+        torch.cuda.synchronize()
+        leaves = LEAVES + (("rect_geo", "rect_rec", "box_geo", "box_rec")
+                           if rect is not None else ()) + ("vol0",)
+        rel = volume_errors(got, want, leaves)
+        print(f"volume backward vs plain on a main-path step ({name} "
+              f"{width}x{width}, {spp} spp, depth 8): max error {rel:.3e} "
+              f"of the leaf's max abs over {', '.join(leaves)}; plain "
+              f"version {time.perf_counter() - t:.1f} s")
+        bwd_rel = rel
+        del calls, args, kwargs, got, want
+
+        # ---- (e) #2's volume build alone -----------------------------------
+        for few in (4, spp):
+            lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+            fkw = dict(kw, samples=few)
+            res = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                         want_tape=True, **fkw)
+            cots = probe_cotangents(res["color"], res["count"])
+            live = float(res["rays"].sum())
+            s_pad = megatrace.sphere_pad_count(s_count)
+            aux_live = float((res["tape"] >= s_pad).sum())
+            scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+                tables, None, lane_count, res["tape"], cots, 7, fkw,
+                5 if few == 4 else 3, rect=rect, box=box, vol0=vol0)
+            bnd = bwd_bound(live, table.shape[0], n, aux_rows * 4 * 23
+                            + s_count * 4 * 23,
+                            aux_live * AUX_BWD_FLOPS + live * VOL_BWD_FLOPS)
+            stats = path_stats(table, 8)
+            print(f"volume backward alone, {name} {width}x{width} depth 8, "
+                  f"{few} spp (CUDA events): tape scan's two launches "
+                  f"{scan_ms:.3f} ms (glue {glue_ms:.3f} ms more), path "
+                  f"kernel {paths_ms:.3f} ms, {paths_ms * 1e6 / live:.3f} ns "
+                  f"a live iteration (bound {bnd[0]:.4f} ms by {bnd[1]}, "
+                  f"{bnd[0] / paths_ms:.1%}; {live:.0f} live iterations, "
+                  f"{live / max(stats['paths'], 1):.2f} a path); "
+                  f"{stats['paths']} paths, per length 1..8 "
+                  f"{stats['per_length']}, idle warp slots "
+                  f"{stats['idle_warp_slots']:.6f} [{card}]")
+            key = "" if few == 4 else "_64spp"
+            bwd[f"{name}_ms{key}"] = paths_ms
+            bwd[f"{name}_scan_ms{key}"] = scan_ms
+            bwd[f"{name}_bound{key}"] = bnd
+            bwd[f"{name}_ns_per_iteration{key}"] = paths_ms * 1e6 / live
+            if few == spp:
+                break
+            args = (res["tape"], lane_count, *tables, 7, *cots)
+            ms, got = time_batch(megatrace_bwd.replay_grad, *args,
+                                 repeats=5, **fkw)
+            plain_ms, want = time_batch(megatrace_bwd.replay_grad_reference,
+                                        *args, repeats=1, **fkw)
+            bwd_rel = max(bwd_rel, volume_errors(got, want, leaves))
+            print(f"{name} {width}x{width} depth 8, 4 spp backward: "
+                  f"replay_grad {ms:.3f} ms, plain {plain_ms:.3f} ms; max "
+                  f"error {bwd_rel:.3e} of the leaf's max abs [{card}]")
+            bwd[f"{name}_replay_grad_ms"] = ms
+            bwd[f"{name}_plain_ms"] = plain_ms
+            bwd["max_rel_err"] = max(bwd.get("max_rel_err", 0.0), bwd_rel)
+            del res, got, want, args, table
+
+    # ---- (f) a camera inside a fog sphere ----------------------------------
+    scene, cs = fog_inside_scene()
+    scene = scene.to(dev)
+    small = min(128, width)
+    camera, tables, rect, box, vol0 = volume_inputs(scene, cs, small, dev)
+    if float(vol0[0]) != 0.0:
+        raise RuntimeError(f"the camera is not inside the fog: {vol0}")
+    m = small * small
+    lane_count = torch.full((m,), 8, dtype=torch.int32, device=dev)
+    kw = dict(samples=8, trace_depth=8, has_dielectrics=False, sky_on=True,
+              vol0=vol0)
+    share, err = check_parity(f"volume build, camera inside a fog sphere "
+                              f"{small}x{small} 8 spp", (lane_count,
+                              torch.zeros(m, device=dev), *tables, 13), kw)
+    shares.append(share)
+    max_err = max(max_err, err)
+    res = megatrace.sample_batch(lane_count, torch.zeros(m, device=dev),
+                                 *tables, 13, want_tape=True, **kw)
+    cots = probe_cotangents(res["color"], res["count"])
+    args = (res["tape"], lane_count, *tables, 13, *cots)
+    got = megatrace_bwd.replay_grad(*args, **kw)
+    want = megatrace_bwd.replay_grad_reference(*args, **kw)
+    rel = volume_errors(got, want, LEAVES + ("vol0",))
+    if float(got[-1].abs().max()) == 0.0:
+        raise RuntimeError("camera inside the fog: vol0 has no gradient")
+    bwd["max_rel_err"] = max(bwd.get("max_rel_err", 0.0), rel)
+    print(f"camera inside a fog sphere, {small}x{small} 8 spp: backward vs "
+          f"plain max error {rel:.3e} of the leaf's max abs; vol0's "
+          f"cotangent {got[-1].tolist()} [{card}]")
+    del res, got, want, args
+
+    # ---- (g) the CLI ---------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for name in VOL_SCENES:
+            png = os.path.join(tmp, f"{name}.png")
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["--scene", name, "--width", str(width // 2),
+                           "--height", str(width // 2), "--spp", "16",
+                           "--depth", "8", "--output", png, "--quiet",
+                           "--device", dev.type])
+            seconds = time.perf_counter() - t0
+            with open(png, "rb") as f:
+                header = f.read(8)
+            if (rc != 0 or header != b"\x89PNG\r\n\x1a\n"
+                    or megatrace.VOL_LAUNCHES == 0
+                    or megatrace.VOL_LAUNCHES != megatrace.LAUNCHES):
+                raise RuntimeError(f"the CLI did not render --scene {name} "
+                                   f"through the volume build (rc {rc}, "
+                                   f"launches {megatrace.LAUNCHES}, volume "
+                                   f"{megatrace.VOL_LAUNCHES})")
+            print(f"CLI: --scene {name} {width // 2}x{width // 2}, 16 spp, "
+                  f"depth 8 on {dev}: PNG written in {seconds:.2f} s, volume "
+                  f"build launches {megatrace.VOL_LAUNCHES}")
+    out["volume_parity_share"] = min(shares)
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+
+    cv = fwd["cornell_volumes"]
+    kernels = [{
+        "name": "megatrace_batch_volume", "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457",
+        "launches": launches_main, "max_abs_err": max_err,
+        "ms": cv["ms"], "plain_ms": cv["plain_ms"],
+        "bound_ms": cv["bound"][0], "bound_by": cv["bound"][1],
+        "library_ms": None, "ms_64spp": cv["ms_64spp"],
+        "bound_ms_64spp": cv["bound_ms_64spp"],
+        "registers": cv["registers"], "local_bytes": cv["local_bytes"],
+        "blocks_per_sm": cv["blocks"],
+        **{f"{k}_{f}": fwd[k][f] for k in ("volume", "probabilistic")
+           for f in ("ms", "ms_64spp", "plain_ms", "registers", "blocks")},
+        **{f"{k}_bound_ms": fwd[k]["bound"][0]
+           for k in ("volume", "probabilistic")},
+    }, {
+        "name": "megatrace_bwd_volume", "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_bwd.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
+        "launches": bwd["launches"], "scan_launches": bwd["scan_launches"],
+        "max_abs_err": bwd["max_rel_err"],
+        "ms": bwd["cornell_volumes_ms"],
+        "scan_ms": bwd["cornell_volumes_scan_ms"],
+        "replay_grad_ms": bwd["cornell_volumes_replay_grad_ms"],
+        "plain_ms": bwd["cornell_volumes_plain_ms"],
+        "bound_ms": bwd["cornell_volumes_bound"][0],
+        "bound_by": bwd["cornell_volumes_bound"][1], "library_ms": None,
+        "ms_64spp": bwd["cornell_volumes_ms_64spp"],
+        "bound_ms_64spp": bwd["cornell_volumes_bound_64spp"][0],
+        "ns_per_iteration": bwd["cornell_volumes_ns_per_iteration"],
+        "ns_per_iteration_64spp":
+            bwd["cornell_volumes_ns_per_iteration_64spp"],
+        **{f"volume_{f}": bwd[f"volume_{f}"]
+           for f in ("ms", "ms_64spp", "replay_grad_ms", "plain_ms",
+                     "ns_per_iteration", "ns_per_iteration_64spp")},
+        "volume_bound_ms": bwd["volume_bound"][0],
+    }]
+    return {"kernels": kernels, "paths": out}
+
+
 # ---------------------------------------------------------------------------
 # python3 chip_smoke.py --against DIR: this tree against another on the card
 # ---------------------------------------------------------------------------
@@ -2919,9 +3391,11 @@ def turn_readings() -> dict:
 
 def sass_functions(lib: str) -> dict:
     """{kernel name: its SASS instructions} of a built library, by
-    cuobjdump; a template argument list <b, false> reads as <b> (the
-    batch kernel's streamed flag, which its builds before the streamed
-    kernel of its own carried)."""
+    cuobjdump; a template argument list <b, c, false> reads as <b, c> and
+    <b, false> as <b> (a flag added last with a default, false in every
+    instantiation that existed before it: the volume builds' kVol, the
+    batch kernel's streamed flag of the builds before the streamed kernel
+    of its own)."""
     from raytracing_in_one_weekend_tpu_torch.ops import cuda_build
 
     tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
@@ -2934,6 +3408,7 @@ def sass_functions(lib: str) -> dict:
             # the anonymous namespace's name hashes the file
             name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
                           name)
+            name = re.sub(r"ILb(\d)ELb(\d)ELb0EE", r"ILb\1ELb\2EE", name)
             name = re.sub(r"ILb(\d)ELb0EE", r"ILb\1EE", name)
             # the sphere build, a template since its aux build: compare
             # its <false> instance with the kernel it was (their parameter
@@ -2976,6 +3451,15 @@ def against(other: str) -> int:
         print(f"{key}: this tree {mine}, {other} {theirs}; means "
               f"{statistics.mean(mine):.3f} against "
               f"{statistics.mean(theirs):.3f} ({card})")
+    compare_sass(other)
+    return 0
+
+
+def compare_sass(other: str) -> bool:
+    """The SASS of every kernel of SASS_SOURCES as built in the tree at
+    `other` (its _build directory) against this tree's, function by
+    function; prints each and returns whether every kernel `other` has,
+    but those SASS_CHANGED names, is identical here."""
     same = True
     for src in SASS_SOURCES:
         libs = [sorted(glob.glob(os.path.join(
@@ -2984,8 +3468,8 @@ def against(other: str) -> int:
             for root in (other, ROOT)]
         theirs, mine = (sass_functions(lib) for lib in libs)
         for name, code in theirs.items():
-            if "ELb1EE" in name:  # the streamed build, now a kernel of its own
-                continue
+            if "megatrace_batch_kernelILb" in name and "ELb1EE" in name:
+                continue  # the streamed build, now a kernel of its own
             why = [v for k, v in SASS_CHANGED.items() if k in name]
             if why:
                 print(f"SASS {src} {name}: {len(code)} instructions, changed "
@@ -2999,7 +3483,7 @@ def against(other: str) -> int:
             print(f"SASS {src} {name}: {len(mine[name])} instructions, new")
     print(f"SASS of every other kernel of the {len(SASS_SOURCES)} sources: "
           f"{'identical' if same else 'not identical'}")
-    return 0
+    return same
 
 
 def main() -> int:
@@ -3175,7 +3659,7 @@ def main() -> int:
                   lane_use_lane_order=lane_use_share(out["rays"],
                                                      torch.arange(n)))
     report = ptxas_report(megatrace.BUILD_LOG,
-                          "megatrace_sphere_kernelILb0EE")
+                          "megatrace_sphere_kernelILb0ELb0EE")
     print(f"sphere build: ptxas {report or '(not built here)'}; "
           f"{sphere['registers']} registers, {sphere['local_bytes']} B "
           f"local a thread, {sphere['blocks']} blocks of 128 an SM "
@@ -3191,6 +3675,7 @@ def main() -> int:
     mesh = mesh_phases(dev, card)
     streamed = streamed_phases(dev, card)
     aux = aux_phases(dev, card)
+    vol = volume_phases(dev, card)
 
     kernels = [{
         "name": "megatrace_batch",
@@ -3243,7 +3728,7 @@ def main() -> int:
         "bound_by": bwd["scan"]["bound"][1],
         "library_ms": None,
     }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"] \
-        + aux["kernels"]
+        + aux["kernels"] + vol["kernels"]
     print(json.dumps({
         "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
@@ -3254,7 +3739,8 @@ def main() -> int:
         "albedo_fit_losses": bwd["albedo_fit_losses"],
         "bwd_paths": {k: bwd[k] for k in ("paths_4spp", "paths_64spp")},
         "wavefront": wave["paths"], "mesh": mesh["paths"],
-        "streamed": streamed["paths"], "aux": aux["paths"]}))
+        "streamed": streamed["paths"], "aux": aux["paths"],
+        "volume": vol["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

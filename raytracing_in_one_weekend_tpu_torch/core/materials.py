@@ -4,9 +4,9 @@ core/materials.py).
 Reference: Runtime/Material.cs:16-218.  `pack_materials` resolves the
 tables into the (M, 12) record the kernels read; `scatter` is the
 wavefront integrator's branchless scatter of every lane at once, for the
-Standard (Lambert / GGX metal / glossy) and Dielectric materials.  Volumes
-and procedural textures raise NotImplementedError naming their ROADMAP
-steps (7.2 and 7.5).
+Standard (Lambert / GGX metal / glossy), Dielectric and
+ProbabilisticVolume (isotropic) materials.  Procedural textures raise
+NotImplementedError naming their ROADMAP step (7.5).
 """
 
 from __future__ import annotations
@@ -116,11 +116,8 @@ def scatter(
 ) -> Scatter:
     """Scatter every lane at once (Material.cs:68-174): all branches are
     evaluated and blended by material type, the lotteries draw from the
-    SCATTER_A stream's six uniforms."""
-    if scene.flags.has_volumes:
-        raise NotImplementedError(
-            "volume scatter is not ported yet (ROADMAP queue 1, step 7.2)"
-        )
+    SCATTER_A stream's six uniforms (a volume's isotropic direction from
+    its third and fourth)."""
     if scene.flags.has_procedural_textures:
         raise NotImplementedError(
             "checker, Perlin and image textures are not ported yet "
@@ -239,6 +236,16 @@ def scatter(
         events = torch.where(is_diel, diel_events, events)
         logp = torch.where(is_diel, diel_logp, logp)
 
+    # ---- ProbabilisticVolume isotropic scatter (Material.cs:163-168) ------
+    if scene.flags.has_volumes:
+        is_vol = mtype == MaterialType.PROBABILISTIC_VOLUME
+        direction = torch.where(is_vol[:, None],
+                                sampling.unit_sphere(uc, ud), direction)
+        reflectance = torch.where(is_vol[:, None], albedo, reflectance)
+        events = torch.where(is_vol, 2.0, events)
+        # isotropic scatter has no parameter-dependent decision
+        logp = torch.where(is_vol, 0.0, logp)
+
     return Scatter(
         direction=direction,
         reflectance=reflectance,
@@ -247,3 +254,10 @@ def scatter(
         perfect_specular=perfect_specular,
         logp=logp,
     )
+
+
+def volume_free_path(density: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Beer-Lambert free path d = -1/max(density, 1e-8) * ln(max(u, 1e-12))
+    (Material.cs:49-65 ProbabilisticHit)."""
+    return -1.0 / torch.clamp(density, min=1e-8) * torch.log(
+        torch.clamp(u, min=1e-12))

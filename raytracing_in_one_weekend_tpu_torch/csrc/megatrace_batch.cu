@@ -1,14 +1,15 @@
 // Fused sample-batch path tracer for Hopper (sm_90a): one whole
 // SampleBatchJob per launch, sphere scenes, scenes with rects and boxes
-// (with or without spheres) and mesh scenes of at most TRI_STREAM_MAX
-// triangles, gradient or no sky.
+// (with or without spheres), convex volumes beside either, and mesh scenes
+// of at most TRI_STREAM_MAX triangles, gradient or no sky.
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
-// sphere arm, its rect/box arm, its triangle (VMEM) arm and its
-// streamed-triangle arm (white-noise hash PRNG, dense sphere sweep, the
-// one-sided rect and Majercik box tests, the Möller–Trumbore sweep over
-// AABB-culled 192-row triangle blocks, Standard Lambert/GGX-metal and
-// dielectric scatter, gradient sky, per-pixel fold).
+// sphere arm, its rect/box arm, its convex-volume arm, its triangle (VMEM)
+// arm and its streamed-triangle arm (white-noise hash PRNG, dense sphere
+// sweep, the one-sided rect and Majercik box tests, the Beer-Lambert
+// volume walk, the Möller–Trumbore sweep over AABB-culled 192-row triangle
+// blocks, Standard Lambert/GGX-metal, dielectric and isotropic scatter,
+// gradient sky, per-pixel fold).
 // Plain version: ops/megatrace.py::sample_batch_reference, which this
 // kernel matches bit for bit up to log/exp2 (see the precision contract
 // there): no --use_fast_math, -fmad=false, and the same explicit fmaf
@@ -62,6 +63,20 @@
 // smaller t, as in the JAX kernel.  JAX's 128 pad spheres are not swept in
 // a scene without spheres: only their tape-code offset stays.  Its own
 // launch bounds (kAuxBlocks) leave the tests registers.
+//
+// Convex volumes (spheres and boxes of a ProbabilisticVolume material) take
+// the volume builds of the same kernel (kVol: megatrace_sphere_kernel<false,
+// true> beside spheres, <true, true> beside rects and boxes; the builds
+// without kVol compile none of it and keep their SASS).  A lane carries its
+// medium (8 floats: id, density, albedo, emission), reset at each regen
+// from the camera's row `vol0`, which sits in shared memory after the
+// camera constants.  The sweep keeps only the winner, so its exit distance
+// is computed once after it: a sphere's far root by the sweep's own float
+// operations (sphere_exit), a box's slab exit (box_exit), none for a rect.
+// The walk then costs a correctly rounded log and a few compares a bounce
+// (shade); a pass through a volume or an exit from it takes an iteration
+// without a scatter, as in the JAX kernel.  Its launch bounds (kVolBlocks)
+// leave the medium registers.
 //
 // Triangles (megatrace_batch_kernel: one thread a lane in lane order,
 // the camera and accumulators in registers, the header's sphere_sweep and
@@ -119,6 +134,8 @@ constexpr int kConsts = 30;  // camera row (24) | sky bottom | sky top
 constexpr int kSphereBlocks = 6;  // the sphere build's blocks an SM
 constexpr int kAuxBlocks = 4;  // its aux build's: the rect and box tests
                                // need more registers than 80
+constexpr int kVolBlocks = 4;  // its volume builds': the medium's 8 floats
+constexpr int kVolConsts = 40;  // ... their constants: kConsts, 2 pad, vol0
 constexpr int kSweepStep = 15;  // spheres a step of its sweep: the
                                // most that fit 80 registers unspilled
 constexpr int kTileW = 8, kTileH = 4;  // the sphere build's warp: a pixel
@@ -220,6 +237,24 @@ __device__ __forceinline__ void sphere_sweep_steps(const Path& p,
   }
 }
 
+// The far root of sphere row `row` of `sph` for the path's ray: the exit
+// of a volume sphere it hit, by sphere_sweep_steps' float operations (so
+// bit-equal to the root the sweep would take; the JAX kernel's
+// t_exit_rows, :401-408), kBig at or before t_min.
+__device__ __forceinline__ float sphere_exit(const Path& p, const float4* sph,
+                                             int row, float t_min) {
+  const float a = dot3(p.dx, p.dy, p.dz, p.dx, p.dy, p.dz);
+  const float o_dot_d = dot3(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz);
+  const float o_sq = dot3(p.ox, p.oy, p.oz, p.ox, p.oy, p.oz);
+  const float4 g = sph[row];
+  const float b = o_dot_d - dot3(p.dx, p.dy, p.dz, g.x, g.y, g.z);
+  const float c = fmaf(-2.0f, dot3(p.ox, p.oy, p.oz, g.x, g.y, g.z), o_sq) +
+                  g.w;
+  const float disc = fmaf(b, b, -(a * c));
+  const float t_far = (-b + sqrtf(fmaxf(disc, 0.0f))) * (1.0f / a);
+  return t_far > t_min ? t_far : kBig;
+}
+
 // Start the next sample of a lane at pixel (px_row, py_row): the thin-lens
 // camera ray (View.cs:38-48) of the camera row `cam` (origin, lower_left,
 // horizontal, vertical, right, up, lens_radius, width, height) with the
@@ -315,9 +350,13 @@ __device__ __forceinline__ bool aux_live(const float4* row, bool box) {
 // stages the scene's rects and boxes after the spheres (aux_geo: rect_rows
 // rects, then box_rows boxes, pack_aux_tables' 16-float rows; aux_rec
 // their 16-column records), sweeps them after the spheres (aux_sweep) and
-// shades their winners, kAuxBlocks blocks an SM.
-template <bool kAux>
-__global__ void __launch_bounds__(kThreads, kAux ? kAuxBlocks : kSphereBlocks)
+// shades their winners, kAuxBlocks blocks an SM.  Its volume builds (kVol)
+// read the camera's medium from consts[32..39], carry each lane's, and walk
+// it (shade), kVolBlocks blocks an SM.
+template <bool kAux, bool kVol = false>
+__global__ void __launch_bounds__(kThreads, kVol   ? kVolBlocks
+                                            : kAux ? kAuxBlocks
+                                                   : kSphereBlocks)
     megatrace_sphere_kernel(const float* __restrict__ lane_count,
                             const float* __restrict__ count_in,
                             const float* __restrict__ consts,
@@ -332,8 +371,9 @@ __global__ void __launch_bounds__(kThreads, kAux ? kAuxBlocks : kSphereBlocks)
                             int box_rows, int rect_code, int box_code) {
   extern __shared__ float4 sph[];
   // camera row: origin, lower_left, horizontal, vertical, right, up,
-  // lens_radius, width, height | sky bottom | sky top
-  __shared__ float cam[kConsts];
+  // lens_radius, width, height | sky bottom | sky top (| pad | vol0)
+  constexpr int kCamFloats = kVol ? kVolConsts : kConsts;
+  __shared__ float cam[kCamFloats];
   __shared__ float acc_rows[kOutRows][kThreads];
   // the sphere-only build declares nothing of the aux build's (its code,
   // and so its SASS, stay what they were before the aux build)
@@ -363,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, kAux ? kAuxBlocks : kSphereBlocks)
     aux.box_code = box_code;
   }
   for (int k = threadIdx.x; k < s; k += kThreads) sph[k] = sph_g[k];
-  if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
+  if (threadIdx.x < kCamFloats) cam[threadIdx.x] = consts[threadIdx.x];
   const SharedRow acc{&acc_rows[0][threadIdx.x]};
 #pragma unroll
   for (int k = 0; k < kOutRows; ++k) acc[k] = 0.f;
@@ -383,6 +423,7 @@ __global__ void __launch_bounds__(kThreads, kAux ? kAuxBlocks : kSphereBlocks)
   const float px_row = pixel - py_row * width;
 
   Path p{};  // idle until its first sample starts
+  [[maybe_unused]] std::conditional_t<kVol, Medium, char> med{};
   float started = 0.f;
   int depth = 0;
 
@@ -393,6 +434,10 @@ __global__ void __launch_bounds__(kThreads, kAux ? kAuxBlocks : kSphereBlocks)
     if (!p.active) {
       if (started >= per_pixel) break;  // this lane's samples are done
       camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
+      if constexpr (kVol) {  // the camera's medium
+#pragma unroll
+        for (int k = 0; k < 8; ++k) med.v[k] = cam[32 + k];
+      }
       depth = 0;
       started = started + 1.0f;
     }
@@ -400,7 +445,31 @@ __global__ void __launch_bounds__(kThreads, kAux ? kAuxBlocks : kSphereBlocks)
     int best;
     sphere_sweep_steps(p, sph, s, t_min, best_t, best);
     int winner;
-    if constexpr (kAux) {
+    if constexpr (kVol) {
+      // the winner's exit: a sphere's far root, a box's slab exit, none
+      // for a rect (the JAX kernel's t_exit, :428-431, :570, :637-660)
+      float t_exit = best_t < kBig ? sphere_exit(p, sph, best, t_min) : kBig;
+      int aux_kind = 0, aux_idx = 0;
+      const AuxScene* auxp = nullptr;
+      if constexpr (kAux) {
+        auxp = &aux;
+        aux_sweep(p, aux, t_min, best_t, aux_kind, aux_idx);
+        if (aux_kind == 1) {
+          t_exit = kBig;
+        } else if (aux_kind == 2) {
+          const float o[3] = {p.ox, p.oy, p.oz}, d[3] = {p.dx, p.dy, p.dz};
+          float g[12], bo[3], dl[3], inv[3];
+          int axis;
+          bool hi;
+          aux_row(aux, aux.rect_rows + aux_idx, g);
+          t_exit = box_exit(o, d, g, t_min, true, bo, dl, inv, axis, hi);
+        }
+      }
+      winner = shade<false, kAux, true>(
+          p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+          sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+          TriScene{}, auxp, aux_kind, aux_idx, &med, t_exit);
+    } else if constexpr (kAux) {
       int aux_kind, aux_idx;
       aux_sweep(p, aux, t_min, best_t, aux_kind, aux_idx);
       winner = shade<false, true>(
@@ -692,6 +761,49 @@ extern "C" int rtiw_megatrace_aux(
         box_rows, rect_code, box_code);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The volume builds (scenes with convex volumes beside spheres, rects or
+// boxes): rtiw_megatrace_aux's arguments, with rect_rows + box_rows == 0
+// (aux_geo, aux_rec unused) taking megatrace_sphere_kernel<false, true>
+// and more taking <true, true>, and `consts` kVolConsts floats: the
+// camera row and sky, 2 pad, then the camera's medium (vol0).
+extern "C" int rtiw_megatrace_volume(
+    const float* lane_count, const float* count_in, const float* consts,
+    const float* sph, const float* rec, const float* aux_geo,
+    const float* aux_rec, float* out, float* tape, int n, int s,
+    int rect_rows, int box_rows, int rect_code, int box_code, int seed,
+    int lane_base, int samples, int trace_depth, float t_min,
+    int has_dielectrics, int sky_on, int jitter, void* stream) {
+  if (n > 0) {
+    const int aux_rows = rect_rows + box_rows;
+    auto kernel = aux_rows > 0 ? megatrace_sphere_kernel<true, true>
+                               : megatrace_sphere_kernel<false, true>;
+    const size_t shmem = aux_shmem(s, aux_rows);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<(n + kThreads - 1) / kThreads, kThreads, shmem,
+             static_cast<cudaStream_t>(stream)>>>(
+        lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
+        rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
+        has_dielectrics, sky_on, jitter,
+        reinterpret_cast<const float4*>(aux_geo), aux_rec, rect_rows,
+        box_rows, rect_code, box_code);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sphere_info of the volume build for an s-sphere table and aux_rows rect
+// and box rows (0: the build beside spheres only).
+extern "C" int rtiw_megatrace_volume_info(int s, int aux_rows, int* info) {
+  auto kernel = aux_rows > 0 ? megatrace_sphere_kernel<true, true>
+                             : megatrace_sphere_kernel<false, true>;
+  const size_t shmem = aux_shmem(s, aux_rows);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sphere_info(reinterpret_cast<const void*>(kernel), shmem, info);
 }
 
 namespace {

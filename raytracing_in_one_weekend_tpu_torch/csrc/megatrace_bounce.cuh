@@ -7,7 +7,9 @@
 // `sphere_sweep` and `shade`; the batch kernel's sphere build runs its own
 // sweep, with sphere_sweep's winner, before `shade`; the others call
 // `bounce`, which runs all three.  The triangle arm is a compile-time flag: the batch kernel's mesh
-// build takes it, the sphere-only builds compile none of it.  Plain version:
+// build takes it, the sphere-only builds compile none of it; so are the
+// rect and box arm (kAux) and the convex volume walk (kVol) of the batch
+// kernel's sphere builds.  Plain version:
 // ops/megatrace.py::_bounce, under the precision contract of
 // megatrace_common.cuh.
 #pragma once
@@ -72,6 +74,13 @@ struct Path {
   float anx, any, anz, aax, aay, aaz;
   float events;
   bool active, valid, got;
+};
+
+// The medium a path is in (the batch kernel's volume builds): the volume's
+// material id (-1: none), its density, albedo rgb and emission rgb, in
+// camera_containment_row's order (ops/megatrace.py VOL_KEYS).
+struct Medium {
+  float v[8];
 };
 
 // The dense sweep of the path `p` over the s spheres in shared memory
@@ -142,12 +151,14 @@ __device__ __forceinline__ void aux_sweep(const Path& p, const AuxScene& aux,
 // best_t (kBig: a miss) on sphere row `best` or, when tri_wins, triangle
 // row tri_idx at barycentrics (tri_u, tri_v), or with kAux (the batch
 // kernel's aux build; the other builds compile none of it) rect or box
-// aux_idx of `aux` (aux_kind 1 or 2): the winner's record,
-// Lambert / GGX-metal / dielectric scatter with the uniforms of hash base
-// `bbase`, the gradient sky `sky` (bottom rgb, top rgb) or none, the fold,
-// AOV capture and events at path depth `depth`, and the advance.  Returns
-// the winner's tape code, -1 on a miss.
-template <bool kTris, bool kAux = false>
+// aux_idx of `aux` (aux_kind 1 or 2): the winner's record, with kVol (the
+// volume builds) the convex volume walk in the medium `med` (t_exit: the
+// winner's exit distance), Lambert / GGX-metal / dielectric or isotropic
+// scatter with the uniforms of hash base `bbase`, the gradient sky `sky`
+// (bottom rgb, top rgb) or none, the fold, AOV capture and events at path
+// depth `depth`, and the advance.  Returns the winner's tape code, -1 on a
+// miss.
+template <bool kTris, bool kAux = false, bool kVol = false>
 __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      bool tri_wins, int tri_idx, float tri_u,
                                      float tri_v, const float* __restrict__ rec,
@@ -155,7 +166,9 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      const float* sky, uint32_t bbase,
                                      int depth, const TriScene& tri,
                                      const AuxScene* aux = nullptr,
-                                     int aux_kind = 0, int aux_idx = 0) {
+                                     int aux_kind = 0, int aux_idx = 0,
+                                     Medium* med = nullptr,
+                                     float t_exit = kBig) {
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
   const bool hit = best_t < kBig;
@@ -186,9 +199,9 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
     return -1;
   }
 
-  const float px = fmaf(best_t, dx, ox);
-  const float py = fmaf(best_t, dy, oy);
-  const float pz = fmaf(best_t, dz, oz);
+  float px = fmaf(best_t, dx, ox);
+  float py = fmaf(best_t, dy, oy);
+  float pz = fmaf(best_t, dz, oz);
   const float* w;
   float nx, ny, nz;
   if constexpr (kAux) {
@@ -232,10 +245,59 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
   const float mtype = __ldg(w + 0);
   const float alb_r = __ldg(w + 1), alb_g = __ldg(w + 2),
               alb_b = __ldg(w + 3);
-  const float em_r = __ldg(w + 4), em_g = __ldg(w + 5), em_b = __ldg(w + 6);
+  float em_r = __ldg(w + 4), em_g = __ldg(w + 5), em_b = __ldg(w + 6);
   const float gloss = __ldg(w + 7), metallic = __ldg(w + 8),
               parameter = __ldg(w + 9);
   float perfect = __ldg(w + 10);
+
+  // ---- probabilistic volume walk (kVol; SampleBatchJob.cs:212-303) -------
+  // Inside a medium the segment up to the hit, at a volume's entry the
+  // segment to its exit, ends in a Beer-Lambert scatter when the free path
+  // is shorter; an entry without one passes the volume and an exit from
+  // the own medium leaves it: both advance past the boundary, no scatter.
+  [[maybe_unused]] bool vol_candidate = false, vol_scatter = false;
+  [[maybe_unused]] float vm[8];
+  if constexpr (kVol) {
+    const bool in_vol = med->v[0] >= 0.0f;
+    const float own[8] = {__ldg(w + 11), parameter, alb_r, alb_g,
+                          alb_b, em_r, em_g, em_b};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) vm[k] = in_vol ? med->v[k] : own[k];
+    const bool hit_is_vol = mtype > 1.5f;  // PROBABILISTIC_VOLUME == 2
+    const bool entering = dot3(dx, dy, dz, nx, ny, nz) < 0.0f;
+    // free path d = -ln(u) / density (Material.cs:49-65)
+    const float free_path = -log_cr(fmaxf(uniform(bbase, 6), 1e-12f)) /
+                            fmaxf(vm[1], 1e-12f);
+    const float seg_len = in_vol ? best_t : t_exit - best_t;
+    vol_candidate = in_vol || (hit_is_vol && entering);
+    vol_scatter = vol_candidate && free_path < seg_len;
+    const bool pass_through =
+        !in_vol && hit_is_vol && entering && !vol_scatter;
+    const bool exits_own = in_vol && hit_is_vol && !entering &&
+                           !vol_scatter && fabsf(own[0] - med->v[0]) < 0.5f;
+    if (pass_through || exits_own) {
+      const float step = (pass_through ? t_exit : best_t) + kSelfEps;
+      p.ox = fmaf(step, dx, ox);
+      p.oy = fmaf(step, dy, oy);
+      p.oz = fmaf(step, dz, oz);
+      // a probabilistic hit costs one event (SampleBatchJob.cs:332)
+      p.events = p.events + 1.0f * exp2f(-(float)depth);
+      med->v[0] = -1.0f;
+      return best;
+    }
+    if (vol_scatter) {  // the in-medium scatter replaces the surface hit
+      const float vol_t = in_vol ? free_path : best_t + free_path;
+      px = fmaf(vol_t, dx, ox);
+      py = fmaf(vol_t, dy, oy);
+      pz = fmaf(vol_t, dz, oz);
+      nx = -dx;
+      ny = -dy;
+      nz = -dz;
+      em_r = vm[5];
+      em_g = vm[6];
+      em_b = vm[7];
+    }
+  }
 
   const float ua = uniform(bbase, 0), ub = uniform(bbase, 1);
   const float u_choice = uniform(bbase, 4);
@@ -320,6 +382,27 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
         ((metallic > 0.0f && metallic < 1.0f) ? 1.0f : 0.0f) +
         roughness * (refl_chance + (1.0f - refl_chance) * metallic) +
         (1.0f - refl_chance) * (1.0f - metallic);
+  }
+  if constexpr (kVol) {
+    if (vol_scatter) {
+      // isotropic in-medium scatter (Material.cs:163-168): the medium's
+      // albedo, 2 random events; the AOV capture's perfect flag is the
+      // dielectric branch's (the JAX kernel's order)
+      const float z = uniform(bbase, 2) * 2.0f - 1.0f;
+      const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+      const float th = uniform(bbase, 3) * kTwoPi;
+      sdx = cos_cr(th) * r;
+      sdy = sin_cr(th) * r;
+      sdz = z;
+      srr = vm[2];
+      srg = vm[3];
+      srb = vm[4];
+      step_events = 2.0f;
+      perfect = (has_dielectrics && mtype > 0.5f) ? 1.0f : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) med->v[k] = vm[k];  // enter the medium
+    }
+    if (vol_candidate) step_events = step_events + 1.0f;
   }
 
   // ---- fold, AOVs, events, advance --------------------------------------

@@ -1,10 +1,12 @@
 // Backward of the fused batch kernel for Hopper (sm_90a): the reverse
-// sweep of the tape replay, sphere scenes and mesh scenes of at most
-// TRI_MAX triangles, gradient or no sky.
+// sweep of the tape replay, sphere scenes, scenes with rects and boxes,
+// convex volumes beside either, and mesh scenes of at most TRI_MAX
+// triangles, gradient or no sky.
 //
 // Replaces: ops/megatrace_bwd.py::_bwd_kernel of the JAX package, its
-// sphere and triangle arms.  Plain version: ops/megatrace_bwd.py::replay_grad_reference
-// (torch.autograd over ops/megatrace_replay.replay).  The JAX kernel takes
+// sphere, rect/box, volume and triangle arms.  Plain version:
+// ops/megatrace_bwd.py::replay_grad_reference (torch.autograd over
+// ops/megatrace_replay.replay).  The JAX kernel takes
 // its adjoint from jax.vjp inside the kernel body; here it is derived by
 // hand (megatrace_replay_lane.cuh::step_vjp) and checked iteration by
 // iteration against torch.autograd of the plain replay_iteration through
@@ -57,6 +59,14 @@
 // rects and boxes (the Cornell box's 8) has every warp's paths hitting the
 // same rows, which the warp sum turns into at most one atomic a distinct
 // row of the warp and column.
+//
+// Scenes with convex volumes take the kVol builds (beside spheres, or with
+// kAux beside rects and boxes; the others compile none of it): a path's
+// state grows by the medium's 8 floats (23 floats an iteration in the
+// local history), the constants by the camera's medium row vol0, and the
+// scalar cotangents by its 8 (kScalVol, summed per warp with the camera's
+// and the sky's).  The tape and its scan are the same: a volume scatter or
+// a pass through a volume keeps its winner's code and takes one iteration.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,6 +154,9 @@ struct WarpEntityAdd {
   }
 };
 
+// The volume builds' scalar rows: kScalVol cotangents, an odd stride.
+constexpr int kGsStrideVol = kScalVol + 1;
+
 // Sums the camera and sky cotangents of a warp's 32 rows (row t at
 // s_gs + t * kGsStride) into s_sum and zeroes the rows; every thread of
 // the warp calls it.
@@ -158,6 +171,22 @@ __device__ void flush_scal(float* warp_rows, float* own_row, float* s_sum) {
   __syncwarp();
 #pragma unroll
   for (int k = 0; k < kScal; ++k) own_row[k] = 0.0f;
+  __syncwarp();
+}
+
+// flush_scal of the volume builds: kScalVol cotangents a row.
+__device__ void flush_scal_vol(float* warp_rows, float* own_row,
+                               float* s_sum) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  for (int c = lane; c < kScalVol; c += 32) {
+    float v = 0.0f;
+    for (int t = 0; t < 32; ++t) v += warp_rows[t * kGsStrideVol + c];
+    if (v != 0.0f) atomicAdd(s_sum + c, v);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < kScalVol; ++k) own_row[k] = 0.0f;
   __syncwarp();
 }
 
@@ -189,8 +218,9 @@ struct RowAdd<false, true> {
 // Three blocks an SM (at most 168 registers, some spilled) measured
 // faster on an H100 than the compiler's 242 at 64 spp, and four slower
 // (PERF.md, kernel #2).  The kAux build passes its rect and box rows'
-// table as dent_tri and the padded sphere count as tri_base.
-template <bool kTris, bool kAux = false>
+// table as dent_tri and the padded sphere count as tri_base.  The kVol
+// builds read kScalVol constants and write as many scalar cotangents.
+template <bool kTris, bool kAux = false, bool kVol = false>
 __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     const float* __restrict__ tape, const int2* __restrict__ paths,
     int total, int* __restrict__ next_warp,
@@ -200,26 +230,28 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     float* __restrict__ dent_tri, int tri_base, int n, int s, int seed,
     int lane_base, int trace_depth, float t_min, int has_dielectrics,
     int sky_on, int jitter) {
+  constexpr int kS = kVol ? kScalVol : kScal;
+  constexpr int kStride = kVol ? kGsStrideVol : kGsStride;
   extern __shared__ float smem[];
   float* s_dent = smem;                  // (s, kGradCols)
-  float* s_gs = s_dent + s * kGradCols;  // (kThreads, kGsStride)
-  __shared__ float s_cam[kScal], s_sum[kScal];
-  for (int k = threadIdx.x; k < s * kGradCols + kThreads * kGsStride;
+  float* s_gs = s_dent + s * kGradCols;  // (kThreads, kStride)
+  __shared__ float s_cam[kS], s_sum[kS];
+  for (int k = threadIdx.x; k < s * kGradCols + kThreads * kStride;
        k += blockDim.x)
     smem[k] = 0.0f;
-  if (threadIdx.x < kScal) {
+  if (threadIdx.x < kS) {
     s_cam[threadIdx.x] = consts[threadIdx.x];
     s_sum[threadIdx.x] = 0.0f;
   }
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  float* gs = s_gs + threadIdx.x * kGsStride;
-  float* warp_gs = s_gs + (threadIdx.x - lane) * kGsStride;
+  float* gs = s_gs + threadIdx.x * kStride;
+  float* warp_gs = s_gs + (threadIdx.x - lane) * kStride;
   // a path's states, in local memory (L1): shared-memory slots laid out
   // [slot][var][thread] measured no faster on an H100 (PERF.md, kernel #2)
-  float states[(kMaxDepth - 1) * kPathVars];
-  const ArrayHist hist{states};
+  float states[(kMaxDepth - 1) * (kVol ? kVolPathVars : kPathVars)];
+  const std::conditional_t<kVol, VolHist, ArrayHist> hist{states};
   WarpEntityAdd<kTris, kAux, typename RowAdd<kTris, kAux>::type> add{
       RowAdd<kTris, kAux>::make(s_dent, dent_tri, tri_base)};
   for (;;) {
@@ -239,23 +271,26 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     const LaneEnv E = make_lane_env(s_cam, ent, i, lane_count[i], seed,
                                     lane_base, trace_depth, t_min,
                                     has_dielectrics, sky_on, jitter);
-    path_backward<kTris, kAux>(tape, n, i, it0, len, steps, E, cot[i],
-                               cot[n + i], cot[2 * n + i], cot[3 * n + i],
-                               hist, gs, add);
-    flush_scal(warp_gs, gs, s_sum);
+    path_backward<kTris, kAux, kVol>(tape, n, i, it0, len, steps, E, cot[i],
+                                     cot[n + i], cot[2 * n + i],
+                                     cot[3 * n + i], hist, gs, add);
+    if constexpr (kVol)
+      flush_scal_vol(warp_gs, gs, s_sum);
+    else
+      flush_scal(warp_gs, gs, s_sum);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < s * kGradCols; k += blockDim.x) {
     const float v = s_dent[k];
     if (v != 0.0f) atomicAdd(dent + k, v);
   }
-  if (threadIdx.x < kScal && s_sum[threadIdx.x] != 0.0f)
+  if (threadIdx.x < kS && s_sum[threadIdx.x] != 0.0f)
     atomicAdd(dscal + threadIdx.x, s_sum[threadIdx.x]);
 }
 
 // One iteration's VJP on every lane: the hand derivation, exposed so that
 // it can be held against torch.autograd of the plain replay_iteration.
-template <bool kTris, bool kAux = false>
+template <bool kTris, bool kAux = false, bool kVol = false>
 __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
     const float* __restrict__ state, const float* __restrict__ codes,
     const float* __restrict__ cot_out, const float* __restrict__ lane_count,
@@ -270,16 +305,18 @@ __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
                                   lane_base, trace_depth, t_min,
                                   has_dielectrics, sky_on, jitter);
   constexpr int cols = Layout<kTris, kAux>::grad;
-  float st[kStateVars], g[kStateVars], ge[cols], gs[kScal];
-  for (int k = 0; k < kStateVars; ++k) {
+  constexpr int nv = kVol ? kVolStateVars : kStateVars;
+  constexpr int kS = kVol ? kScalVol : kScal;
+  float st[nv], g[nv], ge[cols], gs[kS];
+  for (int k = 0; k < nv; ++k) {
     st[k] = state[(size_t)k * n + i];
     g[k] = cot_out[(size_t)k * n + i];
   }
-  for (int k = 0; k < kScal; ++k) gs[k] = 0.0f;
-  step_vjp<kTris, kAux>(st, g, codes[i], it, E, ge, gs);
-  for (int k = 0; k < kStateVars; ++k) cot_in[(size_t)k * n + i] = g[k];
+  for (int k = 0; k < kS; ++k) gs[k] = 0.0f;
+  step_vjp<kTris, kAux, kVol>(st, g, codes[i], it, E, ge, gs);
+  for (int k = 0; k < nv; ++k) cot_in[(size_t)k * n + i] = g[k];
   for (int k = 0; k < cols; ++k) cot_ent[(size_t)k * n + i] = ge[k];
-  for (int k = 0; k < kScal; ++k) cot_scal[(size_t)k * n + i] = gs[k];
+  for (int k = 0; k < kS; ++k) cot_scal[(size_t)k * n + i] = gs[k];
 }
 
 }  // namespace
@@ -306,13 +343,15 @@ extern "C" int rtiw_bwd_scan(const float* tape, const float* lane_count,
 }
 
 // rtiw_bwd_paths: the backward of the `total` paths of the scan's table.
-// `dent` (s, 13), `dscal` (30) and `next_warp` (1 int) must be zeroed by
-// the caller.  A mesh scene (kind 1) passes a zeroed `dent_rows` (T_pad,
-// 28), `row_base` = the padded sphere count (the first triangle's tape
+// `dent` (s, 13), `dscal` (30; 38 in the volume builds) and `next_warp`
+// (1 int) must be zeroed by the caller.  A mesh scene (kind 1) passes a
+// zeroed `dent_rows` (T_pad, 28), `row_base` = the padded sphere count (the first triangle's tape
 // code) and the whole (s_pad + T_pad, 38) entity table; a scene with rects
 // or boxes (kind 2) a zeroed `dent_rows` (R_pad + B_pad, 19), row_base the
 // same and the whole (s_pad + R_pad + B_pad, 23) table; a sphere scene
-// (kind 0) dent_rows = nullptr and its (s, 23) rows.
+// (kind 0) dent_rows = nullptr and its (s, 23) rows.  Kinds 3 and 4 are
+// kinds 0 and 2 with convex volumes: `consts` holds kScalVol floats (vol0
+// after the sky) and dscal as many.
 extern "C" int rtiw_bwd_paths(
     const float* tape, const int* paths, int total, int* next_warp,
     const float* lane_count, const float* consts, const float* ent,
@@ -323,13 +362,19 @@ extern "C" int rtiw_bwd_paths(
   if (total <= 0) return 0;
   if (trace_depth < 1 || trace_depth > kMaxDepth)
     return (int)cudaErrorInvalidValue;
-  const size_t shmem =
-      ((size_t)s * kGradCols + kThreads * kGsStride) * sizeof(float);
-  if (kind < 0 || kind > 2 || (kind != 0) != (dent_rows != nullptr))
+  const bool vol = kind >= 3;
+  const size_t shmem = ((size_t)s * kGradCols +
+                        kThreads * (vol ? kGsStrideVol : kGsStride)) *
+                       sizeof(float);
+  if (kind < 0 || kind > 4 ||
+      (kind != 0 && kind != 3) != (dent_rows != nullptr))
     return (int)cudaErrorInvalidValue;
-  // the build: 0 sphere scenes, 1 mesh scenes, 2 rects or boxes
+  // the build: 0 sphere scenes, 1 mesh scenes, 2 rects or boxes, 3 and 4
+  // those of 0 and 2 with convex volumes
   auto kernel = kind == 1   ? megatrace_paths_kernel<true, false>
                 : kind == 2 ? megatrace_paths_kernel<false, true>
+                : kind == 3 ? megatrace_paths_kernel<false, false, true>
+                : kind == 4 ? megatrace_paths_kernel<false, true, true>
                             : megatrace_paths_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
@@ -359,11 +404,13 @@ extern "C" int rtiw_replay_step_vjp(
     float* cot_in, float* cot_ent, float* cot_scal, int n, int it, int seed,
     int lane_base, int trace_depth, float t_min, int has_dielectrics,
     int sky_on, int jitter, int kind, void* stream) {
-  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  if (kind < 0 || kind > 4) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     auto kernel = kind == 1   ? replay_step_vjp_kernel<true, false>
                   : kind == 2 ? replay_step_vjp_kernel<false, true>
+                  : kind == 3 ? replay_step_vjp_kernel<false, false, true>
+                  : kind == 4 ? replay_step_vjp_kernel<false, true, true>
                               : replay_step_vjp_kernel<false, false>;
     kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         state, codes, cot_out, lane_count, consts, ent, cot_in, cot_ent,

@@ -1,8 +1,9 @@
 // Per-lane math shared by the forward batch kernel (megatrace_batch.cu) and
 // the backward kernel (megatrace_bwd.cu), under one precision contract with
 // their plain PyTorch versions (ops/megatrace.py): no --use_fast_math,
-// -fmad=false, fmaf exactly where written; sqrtf is IEEE, and rsqrt, sin
-// and cos are taken in FP64 and rounded once (correctly rounded).
+// -fmad=false, fmaf exactly where written; sqrtf is IEEE, and rsqrt, sin,
+// cos and the volume walk's log are taken in FP64 and rounded once
+// (correctly rounded).
 //
 // The helpers are host-and-device functions: the same lane code also
 // compiles as plain C++ (RTIW_FN is `inline` there), which lets a host
@@ -35,6 +36,7 @@ RTIW_FN float rsqrt_cr(float x) {
 }
 RTIW_FN float sin_cr(float x) { return (float)sin((double)x); }
 RTIW_FN float cos_cr(float x) { return (float)cos((double)x); }
+RTIW_FN float log_cr(float x) { return (float)log((double)x); }
 
 RTIW_FN float dot3(float ax, float ay, float az, float bx, float by,
                   float bz) {
@@ -237,6 +239,48 @@ RTIW_FN void box_normal(const float* p, const float* g, float* ln,
                                                                          : 2;
   for (int k = 0; k < 3; ++k) ln[k] = k == a ? sign_of(pl[k]) : 0.0f;
   quat_rotate(g[0], g[1], g[2], g[3], ln[0], ln[1], ln[2], n);
+}
+
+// min and max that return NaN when either argument is NaN, as
+// torch.minimum and torch.maximum do (fminf and fmaxf return the other).
+RTIW_FN float min_nan(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+RTIW_FN float max_nan(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+// The slabs of the box row g for the ray (o, d): the JAX kernel's slab
+// exit (:637-660) for the volume walk.  In the box frame, offset by t_min
+// as in box_test (bo = ol + dl t_min), axis k's two slab distances are
+// (-+ext_k - bo_k) * inv_k, inv_k = 1 / dl_k; an axis the ray runs
+// parallel to takes inv = inf (parallel_inf, the forward kernel's) or
+// 1 / 1e-30 (the tape replay's, whose adjoint must stay finite).  Returns
+// the exit, the least far distance + t_min, or kBig when it is at or
+// before t_min or after the greatest near one; `axis` and `hi` name the
+// far distance taken (hi: the +ext side), and bo, dl, inv are kept for
+// the adjoint.  Plain version: ops/megatrace.py::box_exit.
+RTIW_FN float box_exit(const float* o, const float* d, const float* g,
+                       float t_min, bool parallel_inf, float* bo, float* dl,
+                       float* inv, int& axis, bool& hi) {
+  aux_frame(o, d, g, bo, dl);
+  float near = 0.0f, far = 0.0f;
+  for (int k = 2; k >= 0; --k) {
+    bo[k] = fmaf(dl[k], t_min, bo[k]);
+    inv[k] = 1.0f / (dl[k] == 0.0f ? 1e-30f : dl[k]);
+    if (parallel_inf && dl[k] == 0.0f) inv[k] = INFINITY;
+    const float t0 = (-g[7 + k] - bo[k]) * inv[k];
+    const float t1 = (g[7 + k] - bo[k]) * inv[k];
+    const float lo = min_nan(t0, t1), h = max_nan(t0, t1);
+    if (k == 2 || h < far) {
+      axis = k;
+      hi = !(t0 > t1);
+    }
+    near = k == 2 ? lo : max_nan(lo, near);
+    far = k == 2 ? h : min_nan(h, far);
+  }
+  const float b_far = far + t_min;
+  return (b_far > t_min && near + t_min < b_far) ? b_far : kBig;
 }
 
 RTIW_FN float smith_masking(float cos_theta, float roughness) {

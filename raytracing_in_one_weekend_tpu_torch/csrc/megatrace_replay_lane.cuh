@@ -31,6 +31,21 @@
 // dominant face; both pass a derivative to the quaternion only.  The
 // guards: dl.z == 0 divides by 1 and a box axis with dl == 0 by 1e-30,
 // each passing no derivative to dl, as the plain replay's torch.where.
+//
+// Scenes with convex volumes take the kVol instantiations, beside spheres
+// or (with kAux) rects and boxes.  The state grows by the medium, 8 floats
+// after kLp (kVolStateVars), reset at regen from the camera's row vol0
+// (consts after the sky, kScalVol constants).  Each iteration recomputes
+// the walk's decisions bit for bit from the uniforms and the winner (the
+// exit distance, the correctly rounded log of the free path, scatter,
+// pass-through, own exit); the free path is detached, so the density
+// moves only through the score terms lp: log(rho) - rho d on a scatter,
+// -rho L on a survived segment.  The adjoint (step_vjp_vol) follows the
+// branch taken: an in-medium scatter sends its point's cotangent to the
+// ray (and, entering, to the surface's t), its albedo's and emission's to
+// the medium; a skip sends the advance's to the exit's or the surface's t;
+// the medium's cotangents pass to the previous state, to the winner's
+// material or, at regen, to vol0's row of the scalar cotangents.
 #pragma once
 
 #include <type_traits>
@@ -46,8 +61,12 @@ namespace rtiw {
 constexpr int kStateVars = 21;
 enum StateIdx {
   kOX = 0, kOY, kOZ, kDX, kDY, kDZ, kTHX, kTHY, kTHZ, kRX, kRY, kRZ,
-  kActive, kValid, kStarted, kDepth, kCSX, kCSY, kCSZ, kCnt, kLp
+  kActive, kValid, kStarted, kDepth, kCSX, kCSY, kCSZ, kCnt, kLp,
+  // the volume builds' medium (megatrace_replay.VOL_STATE_KEYS): material
+  // id (-1: none), density, albedo rgb, emission rgb
+  kInId
 };
+constexpr int kVolStateVars = kStateVars + 8;
 constexpr int kEntCols = 23;  // build_entity_rows layout, sphere scenes
 constexpr int kTriEntCols = 38;  // ... mesh scenes (23-31 vertex normals)
 constexpr int kGradCols = 13;  // entity columns 0-3 and 11-19
@@ -62,9 +81,11 @@ constexpr int kAuxGradCols = 19;
 // camera row 0-23 (origin, lower-left, horizontal, vertical, right, up,
 // lens radius, width, height, pad) | sky bottom 24-26 | sky top 27-29
 constexpr int kScal = 30;
+// ... and in the volume builds | the camera's medium (vol0) 30-37
+constexpr int kScalVol = kScal + 8;
 enum CamIdx {
   kCO = 0, kLL = 3, kHH = 6, kVV = 9, kRR = 12, kUU = 15, kLens = 18,
-  kWidth = 19, kHeight = 20, kSkyB = 24, kSkyT = 27
+  kWidth = 19, kHeight = 20, kSkyB = 24, kSkyT = 27, kVol0 = 30
 };
 // gradient columns: 0-2 center, 3 radius, 4-6 albedo, 7-9 emission,
 // 10 gloss, 11 metallic, 12 parameter
@@ -144,8 +165,23 @@ struct IterAux : Iter {
   float ol[3], dl[3], sdiv, wsg, dp, ln[3];
 };
 
-template <bool kAux>
-using IterOf = typename std::conditional<kAux, IterAux, Iter>::type;
+// ... and of the volume walk (the kVol builds).
+template <class Base>
+struct IterVol : Base {
+  float med[8];  // the medium after regen
+  float vm[8];  // the walk's: the medium inside one, else the winner's
+  float pe[3], ne[3];  // an in-medium scatter's point and normal
+  float t_exit, free_path, seg_len, vol_t, skip_t, rho, d_obs, l_obs;
+  bool in_vol, vol_candidate, vol_scatter, pass_through, skip, survive;
+  float xbo[3], xdl[3], xinv[3];  // a box winner's slab exit (box_exit)
+  int xaxis;
+  bool xhi;
+};
+
+template <bool kAux, bool kVol = false>
+using IterOf = typename std::conditional<
+    kVol, IterVol<typename std::conditional<kAux, IterAux, Iter>::type>,
+    typename std::conditional<kAux, IterAux, Iter>::type>::type;
 
 RTIW_FN void norm3(const float* x, float* y) {
   const float inv = rsqrt_cr(fmaxf(dot3(x[0], x[1], x[2], x[0], x[1], x[2]),
@@ -250,9 +286,74 @@ RTIW_FN void aux_hit(IterAux& A, const float* e, float t_min) {
   box_normal(A.p, e, A.ln, A.n);
 }
 
+// The convex volume walk at a hit (the kVol builds), after the winner's
+// hit point and normal: its exit distance, the medium the walk is in, the
+// free path and the decisions, the score terms (added to I.lp) and, on an
+// in-medium scatter, its point, normal, emission and isotropic direction.
+// Returns whether the walk took the iteration (a scatter in the medium or
+// a skip), so that the material scatter does not run.
+template <bool kAux, class V>
+RTIW_FN bool volume_walk(V& I, const LaneEnv& E, const float* e, float mtype,
+                         float u_free) {
+  const float* d = I.d;
+  int kind = 0;
+  if constexpr (kAux) kind = I.kind;
+  I.t_exit = kBig;
+  if (kind == 0) {  // a sphere's far root
+    const float t_far = (-I.b + I.sq) * I.inv_a;
+    if (t_far > E.t_min) I.t_exit = t_far;
+  } else if (kind == 2) {
+    I.t_exit = box_exit(I.o, d, e, E.t_min, false, I.xbo, I.xdl, I.xinv,
+                        I.xaxis, I.xhi);
+  }
+  I.in_vol = I.med[0] >= 0.0f;
+  const bool hit_is_vol = mtype > 1.5f;
+  const bool entering = dotv(d, I.n) < 0.0f;
+  const float own[8] = {e[22], I.param, I.alb[0], I.alb[1],
+                        I.alb[2], I.em[0], I.em[1], I.em[2]};
+  for (int k = 0; k < 8; ++k) I.vm[k] = I.in_vol ? I.med[k] : own[k];
+  I.free_path = -log_cr(fmaxf(u_free, 1e-12f)) / fmaxf(I.vm[1], 1e-12f);
+  I.seg_len = I.in_vol ? I.t : I.t_exit - I.t;
+  I.vol_candidate = I.in_vol || (hit_is_vol && entering);
+  I.vol_scatter = I.vol_candidate && I.free_path < I.seg_len;
+  I.vol_t = I.in_vol ? I.free_path : I.t + I.free_path;
+  I.pass_through = !I.in_vol && hit_is_vol && entering && !I.vol_scatter;
+  const bool exits_own = I.in_vol && hit_is_vol && !entering &&
+                         !I.vol_scatter && fabsf(e[22] - I.med[0]) < 0.5f;
+  I.skip = I.pass_through || exits_own;
+  I.skip_t = I.skip ? (I.pass_through ? I.t_exit : I.t) : 0.0f;
+  I.survive = I.vol_candidate && !I.vol_scatter;
+  I.rho = fmaxf(I.vm[1], 1e-8f);
+  I.d_obs = I.vol_scatter ? I.free_path : 0.0f;
+  I.l_obs = I.survive ? fminf(I.seg_len, 1e6f) : 0.0f;
+  I.lp = (I.lp + (I.vol_scatter ? logf(I.rho) - I.rho * I.d_obs : 0.0f)) +
+         (I.survive ? -I.rho * I.l_obs : 0.0f);
+  if (I.vol_scatter) {
+    for (int k = 0; k < 3; ++k) {
+      I.pe[k] = fmaf(I.vol_t, d[k], I.o[k]);
+      I.ne[k] = -d[k];
+      I.em[k] = I.vm[5 + k];
+      I.sr[k] = I.vm[2 + k];
+    }
+    // isotropic direction (Material.cs:163-168), no lottery
+    const float z = I.uc * 2.0f - 1.0f;
+    const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+    const float th = I.ud * kTwoPi;
+    I.sd[0] = cos_cr(th) * r;
+    I.sd[1] = sin_cr(th) * r;
+    I.sd[2] = z;
+    I.lp_inc = 0.0f;
+    I.off_n = kSelfEps * (dotv(I.sd, I.ne) >= 0.0f ? 1.0f : -1.0f);
+  } else if (I.skip) {
+    for (int k = 0; k < 3; ++k) I.em[k] = 0.0f;  // no scatter, no emission
+  }
+  I.is_diel = false;
+  return I.vol_scatter || I.skip;
+}
+
 // Regen, one bounce at the tape's winner, fold: everything but the state
 // update, which step_forward applies.
-template <bool kTris = false, bool kAux = false>
+template <bool kTris = false, bool kAux = false, bool kVol = false>
 RTIW_FN void iter_forward(const float* s, float code, int it,
                           const LaneEnv& E, Iter& I) {
   const float* cam = E.cam;
@@ -295,6 +396,13 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
     I.lp = 0.0f;
     I.valid = 0.0f;
     I.depth = 0.0f;
+  }
+  if constexpr (kVol) {  // the medium: the camera's at regen; no walk yet
+    auto& V = static_cast<IterOf<kAux, true>&>(I);
+    for (int k = 0; k < 8; ++k)
+      V.med[k] = I.regen ? cam[kVol0 + k] : s[kInId + k];
+    V.in_vol = V.vol_candidate = V.vol_scatter = V.pass_through = V.skip =
+        V.survive = false;
   }
   I.was_active = I.regen || s[kActive] > 0.5f;
   I.hit = false;
@@ -342,82 +450,88 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
       sphere_hit(I, E.t_min);
     }
     const float* n = I.n;
-    I.is_diel = E.has_diel && mtype > 0.5f;
-    if (!I.is_diel) {
-      // ---- Standard: Lambert / GGX metal (Material.cs:75-119) ----------
-      I.roughness = (1.0f - I.gloss) * (1.0f - I.gloss);
-      I.rough = I.roughness > 0.0f;
-      cosine_hemisphere(I.ua, I.ub, n[0], n[1], n[2], I.cs[0], I.cs[1],
-                        I.cs[2]);
-      for (int k = 0; k < 3; ++k)
-        I.q[k] = fmaf(I.cs[k] - n[k], I.roughness, n[k]);
-      if (I.rough) {
-        norm3(I.q, I.rn);
-      } else {
-        for (int k = 0; k < 3; ++k) I.rn[k] = n[k];
-      }
-      I.spec_dot = dotv(d, I.rn);
-      I.std_ior = fmaf(kIorSpan, I.metal, kPlasticIor);
-      I.fresnel = schlick(-I.spec_dot, I.std_ior);
-      I.cos_dn = dotv(d, n);
-      I.masking = smith_masking(I.cos_dn, I.roughness);
-      I.x = I.fresnel * I.gloss * I.masking;
-      I.rc = fminf(fmaxf(I.x, 0.0f), 1.0f);
-      I.take_spec = I.rc > 0.0f && u_choice < I.rc;
-      I.take_metal = I.metal > 0.0f && u_choice2 < I.metal;
-      I.spec_like = I.take_spec || I.take_metal;
-      if (I.spec_like) {
+    bool walked = false;  // the volume walk took the iteration (kVol)
+    if constexpr (kVol)
+      walked = volume_walk<kAux>(static_cast<IterOf<kAux, true>&>(I), E, e,
+                                 mtype, uniform(bbase, 6));
+    if (!walked) {
+      I.is_diel = E.has_diel && mtype > 0.5f;
+      if (!I.is_diel) {
+        // ---- Standard: Lambert / GGX metal (Material.cs:75-119) ----------
+        I.roughness = (1.0f - I.gloss) * (1.0f - I.gloss);
+        I.rough = I.roughness > 0.0f;
+        cosine_hemisphere(I.ua, I.ub, n[0], n[1], n[2], I.cs[0], I.cs[1],
+                          I.cs[2]);
         for (int k = 0; k < 3; ++k)
-          I.sd[k] = fmaf(-(2.0f * I.spec_dot), I.rn[k], d[k]);
-      } else {
-        cosine_hemisphere(I.uc, I.ud, n[0], n[1], n[2], I.sd[0], I.sd[1],
-                          I.sd[2]);
-      }
-      for (int k = 0; k < 3; ++k) I.sr[k] = I.take_spec ? 1.0f : I.alb[k];
-      I.lp_inc = I.take_spec
-                     ? log_floor(I.rc)
-                     : log_floor(1.0f - I.rc) +
-                           (I.take_metal ? log_floor(I.metal)
-                                         : log_floor(1.0f - I.metal));
-    } else {
-      // ---- dielectric (Material.cs:121-161) ------------------------------
-      const float d_rough = 1.0f - I.gloss;
-      const float z = I.ua * 2.0f - 1.0f;
-      const float rz = sqrtf(fmaxf(1.0f - z * z, 0.0f));
-      const float th = I.ub * kTwoPi;
-      I.ss[0] = cos_cr(th) * rz;
-      I.ss[1] = sin_cr(th) * rz;
-      I.ss[2] = z;
-      for (int k = 0; k < 3; ++k) I.q2[k] = fmaf(d_rough, I.ss[k], n[k]);
-      norm3(I.q2, I.dr);
-      I.ddot = dotv(d, I.dr);
-      I.exiting = I.ddot > 0.0f;
-      for (int k = 0; k < 3; ++k) I.on[k] = I.exiting ? -I.dr[k] : I.dr[k];
-      I.ior = fmaxf(I.param, 1e-3f);
-      I.ni = I.exiting ? I.ior : 1.0f / I.ior;
-      I.cosine = I.exiting ? I.ior * I.ddot : -I.ddot;
-      I.dt = dotv(d, I.on);
-      I.m = fmaf(-I.dt, I.dt, 1.0f);
-      I.disc_r = fmaf(-(I.ni * I.ni), I.m, 1.0f);
-      I.can_refract = I.disc_r > 0.0f;
-      I.sq_r = sqrtf(I.can_refract ? fmaxf(I.disc_r, 1e-8f) : 1.0f);
-      for (int k = 0; k < 3; ++k) I.wv[k] = fmaf(-I.on[k], I.dt, d[k]);
-      I.rp = schlick(I.cosine, I.ior);
-      I.do_refract = I.can_refract && u_choice > I.rp;
-      for (int k = 0; k < 3; ++k) {
-        if (I.do_refract) {
-          I.sd[k] = fmaf(I.ni, I.wv[k], -(I.on[k] * I.sq_r));
-          I.sr[k] = I.alb[k];
+          I.q[k] = fmaf(I.cs[k] - n[k], I.roughness, n[k]);
+        if (I.rough) {
+          norm3(I.q, I.rn);
         } else {
-          I.sd[k] = fmaf(-(2.0f * I.ddot), I.dr[k], d[k]);
-          I.sr[k] = 1.0f;
+          for (int k = 0; k < 3; ++k) I.rn[k] = n[k];
         }
+        I.spec_dot = dotv(d, I.rn);
+        I.std_ior = fmaf(kIorSpan, I.metal, kPlasticIor);
+        I.fresnel = schlick(-I.spec_dot, I.std_ior);
+        I.cos_dn = dotv(d, n);
+        I.masking = smith_masking(I.cos_dn, I.roughness);
+        I.x = I.fresnel * I.gloss * I.masking;
+        I.rc = fminf(fmaxf(I.x, 0.0f), 1.0f);
+        I.take_spec = I.rc > 0.0f && u_choice < I.rc;
+        I.take_metal = I.metal > 0.0f && u_choice2 < I.metal;
+        I.spec_like = I.take_spec || I.take_metal;
+        if (I.spec_like) {
+          for (int k = 0; k < 3; ++k)
+            I.sd[k] = fmaf(-(2.0f * I.spec_dot), I.rn[k], d[k]);
+        } else {
+          cosine_hemisphere(I.uc, I.ud, n[0], n[1], n[2], I.sd[0], I.sd[1],
+                            I.sd[2]);
+        }
+        for (int k = 0; k < 3; ++k) I.sr[k] = I.take_spec ? 1.0f : I.alb[k];
+        I.lp_inc = I.take_spec
+                       ? log_floor(I.rc)
+                       : log_floor(1.0f - I.rc) +
+                             (I.take_metal ? log_floor(I.metal)
+                                           : log_floor(1.0f - I.metal));
+      } else {
+        // ---- dielectric (Material.cs:121-161) ------------------------------
+        const float d_rough = 1.0f - I.gloss;
+        const float z = I.ua * 2.0f - 1.0f;
+        const float rz = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+        const float th = I.ub * kTwoPi;
+        I.ss[0] = cos_cr(th) * rz;
+        I.ss[1] = sin_cr(th) * rz;
+        I.ss[2] = z;
+        for (int k = 0; k < 3; ++k) I.q2[k] = fmaf(d_rough, I.ss[k], n[k]);
+        norm3(I.q2, I.dr);
+        I.ddot = dotv(d, I.dr);
+        I.exiting = I.ddot > 0.0f;
+        for (int k = 0; k < 3; ++k) I.on[k] = I.exiting ? -I.dr[k] : I.dr[k];
+        I.ior = fmaxf(I.param, 1e-3f);
+        I.ni = I.exiting ? I.ior : 1.0f / I.ior;
+        I.cosine = I.exiting ? I.ior * I.ddot : -I.ddot;
+        I.dt = dotv(d, I.on);
+        I.m = fmaf(-I.dt, I.dt, 1.0f);
+        I.disc_r = fmaf(-(I.ni * I.ni), I.m, 1.0f);
+        I.can_refract = I.disc_r > 0.0f;
+        I.sq_r = sqrtf(I.can_refract ? fmaxf(I.disc_r, 1e-8f) : 1.0f);
+        for (int k = 0; k < 3; ++k) I.wv[k] = fmaf(-I.on[k], I.dt, d[k]);
+        I.rp = schlick(I.cosine, I.ior);
+        I.do_refract = I.can_refract && u_choice > I.rp;
+        for (int k = 0; k < 3; ++k) {
+          if (I.do_refract) {
+            I.sd[k] = fmaf(I.ni, I.wv[k], -(I.on[k] * I.sq_r));
+            I.sr[k] = I.alb[k];
+          } else {
+            I.sd[k] = fmaf(-(2.0f * I.ddot), I.dr[k], d[k]);
+            I.sr[k] = 1.0f;
+          }
+        }
+        I.lp_inc = !I.can_refract ? 0.0f
+                   : I.do_refract ? log_floor(1.0f - I.rp)
+                                  : log_floor(I.rp);
       }
-      I.lp_inc = !I.can_refract ? 0.0f
-                 : I.do_refract ? log_floor(1.0f - I.rp)
-                                : log_floor(I.rp);
+      I.off_n = kSelfEps * (dotv(I.sd, n) >= 0.0f ? 1.0f : -1.0f);
     }
-    I.off_n = kSelfEps * (dotv(I.sd, n) >= 0.0f ? 1.0f : -1.0f);
     for (int k = 0; k < 3; ++k) I.em2[k] = I.em[k];
   } else {
     // ---- gradient sky (SampleBatchJob.cs:352-354) ------------------------
@@ -434,9 +548,44 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
   I.ok = !active && (!I.hit || I.valid > 0.5f);
 }
 
+// One replay iteration of a volume build, in place (kVolStateVars).
+template <bool kAux>
+RTIW_FN void step_forward_vol(float* s, float code, int it,
+                              const LaneEnv& E) {
+  IterOf<kAux, true> I;
+  iter_forward<false, kAux, true>(s, code, it, E, I);
+  if (!I.was_active) return;
+  const bool scat = I.hit && !I.skip;
+  const float* pt = I.vol_scatter ? I.pe : I.p;
+  const float* nn = I.vol_scatter ? I.ne : I.n;
+  for (int k = 0; k < 3; ++k) {
+    s[kOX + k] = scat     ? fmaf(I.off_n, nn[k], pt[k])
+                 : I.skip ? fmaf(I.skip_t + kSelfEps, I.d[k], I.o[k])
+                          : I.o[k];
+    s[kDX + k] = scat ? I.sd[k] : I.d[k];
+    s[kTHX + k] = scat ? I.th[k] * I.sr[k] : I.th[k];
+    s[kRX + k] = I.rad_new[k];
+    if (I.ok) s[kCSX + k] = s[kCSX + k] + I.rad_new[k];
+  }
+  s[kLp] = scat ? I.lp + I.lp_inc : I.lp;
+  s[kStarted] = s[kStarted] + (I.regen ? 1.0f : 0.0f);
+  s[kDepth] = I.depth + 1.0f;
+  s[kValid] = I.hit ? I.valid : 1.0f;
+  s[kActive] = (I.hit && !(s[kDepth] > E.trace_depth - 0.5f)) ? 1.0f : 0.0f;
+  if (I.ok) s[kCnt] = s[kCnt] + 1.0f;
+  // the medium: entered on a scatter, left on a skip
+  for (int k = 0; k < 8; ++k)
+    s[kInId + k] = I.vol_scatter ? I.vm[k] : I.med[k];
+  if (I.skip) s[kInId] = -1.0f;
+}
+
 // One replay iteration, in place.
-template <bool kTris = false, bool kAux = false>
+template <bool kTris = false, bool kAux = false, bool kVol = false>
 RTIW_FN void step_forward(float* s, float code, int it, const LaneEnv& E) {
+  if constexpr (kVol) {
+    step_forward_vol<kAux>(s, code, it, E);
+    return;
+  }
   IterOf<kAux> I;
   iter_forward<kTris, kAux>(s, code, it, E, I);
   if (!I.was_active) return;
@@ -723,6 +872,133 @@ RTIW_FN void aux_hit_vjp(const IterAux& A, const float* e, float t_min,
   ge[kGR] += gq[3] + gqc[3];
 }
 
+// The volume builds' extra distances: a cotangent gt of a sphere winner's
+// root (near: the hit's, t_near; else the far one, the exit) into the ray
+// and the winner's centre and radius, as sphere_hit_vjp takes its t.
+RTIW_FN void sphere_root_vjp(const Iter& I, bool near, float gt, float* go,
+                             float* gd, float* ge) {
+  const float* o = I.o;
+  const float* d = I.d;
+  // t = (-b -+ sq) / a
+  float gb = -gt * I.inv_a;
+  const float gsq = near ? -gt * I.inv_a : gt * I.inv_a;
+  const float ginv_a = gt * (near ? (-I.b - I.sq) : (-I.b + I.sq));
+  float ga = -ginv_a * I.inv_a * I.inv_a;
+  const float gdisc = I.disc >= 1e-8f ? gsq * 0.5f / I.sq : 0.0f;
+  gb += 2.0f * I.b * gdisc;
+  ga -= I.cc * gdisc;
+  const float gcc = -I.a * gdisc;
+  for (int k = 0; k < 3; ++k) {
+    const float oc = o[k] - I.c[k];
+    const float gq = 2.0f * oc * gcc + d[k] * gb;
+    ge[kGC + k] -= gq;
+    go[k] += gq;
+    gd[k] += oc * gb + 2.0f * d[k] * ga;
+  }
+  ge[kGR] -= 2.0f * I.r * gcc;
+}
+
+// ol = q* (o - pos) q, dl = q* d q: the cotangents gol, gdl of a rect's or
+// box's frame into the ray (go, gd) and the row's quaternion and
+// position (ge, the kAuxGradCols layout).
+RTIW_FN void frame_vjp(const float* e, const float* o, const float* d,
+                       const float* gol, const float* gdl, float* go,
+                       float* gd, float* ge) {
+  const float qc[4] = {-e[0], -e[1], -e[2], e[3]};
+  float gqc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float rel[3], gr[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < 3; ++k) rel[k] = o[k] - e[4 + k];
+  quat_rotate_vjp(qc, rel, gol, gqc, gr);
+  for (int k = 0; k < 3; ++k) {
+    go[k] += gr[k];
+    ge[kGPos + k] -= gr[k];
+  }
+  quat_rotate_vjp(qc, d, gdl, gqc, gd);
+  for (int k = 0; k < 3; ++k) ge[kGC + k] -= gqc[k];
+  ge[kGR] += gqc[3];
+}
+
+// A cotangent gt of a rect's or box's hit distance (aux_hit's t) alone.
+RTIW_FN void aux_t_vjp(const IterAux& A, const float* e, float t_min,
+                       float gt, float* go, float* gd, float* ge) {
+  float gol[3] = {0.0f, 0.0f, 0.0f}, gdl[3] = {0.0f, 0.0f, 0.0f};
+  if (A.kind == 1) {
+    gol[2] = -gt / A.sdiv;
+    if (A.dl[2] != 0.0f) gdl[2] = -gt * A.t / A.sdiv;
+  } else {
+    const int a = A.face;
+    ge[kGExt + a] += gt * A.wsg / A.sdiv;
+    const float gbo = -gt / A.sdiv;
+    if (A.dl[a] != 0.0f) gdl[a] -= gt * A.dp / A.sdiv;
+    gol[a] += gbo;
+    gdl[a] += gbo * t_min;
+  }
+  frame_vjp(e, A.o, A.d, gol, gdl, go, gd, ge);
+}
+
+// A cotangent gt of a box winner's slab exit (box_exit with 1 / 1e-30 on
+// a parallel axis): t = (+-ext_a - bo_a) inv_a + t_min on its far axis a,
+// bo = ol + dl t_min, inv = 1 / dl (no derivative where dl == 0).
+template <class V>
+RTIW_FN void box_exit_vjp(const V& I, const float* e, float t_min, float gt,
+                          float* go, float* gd, float* ge) {
+  float gol[3] = {0.0f, 0.0f, 0.0f}, gdl[3] = {0.0f, 0.0f, 0.0f};
+  const int a = I.xaxis;
+  const float sgn = I.xhi ? 1.0f : -1.0f;
+  ge[kGExt + a] += gt * I.xinv[a] * sgn;
+  const float gbo = -gt * I.xinv[a];
+  if (I.xdl[a] != 0.0f)
+    gdl[a] -= gt * (sgn * e[7 + a] - I.xbo[a]) * I.xinv[a] * I.xinv[a];
+  gol[a] += gbo;
+  gdl[a] += gbo * t_min;
+  frame_vjp(e, I.o, I.d, gol, gdl, go, gd, ge);
+}
+
+// The gradient sky's adjoint on a miss: the fold's cotangents (grad) into
+// the sky colours (gs) and the direction's y (gd).  This and regen_vjp are
+// step_vjp's own code for the volume builds; step_vjp keeps it inline (as
+// functions they changed its builds' SASS).
+RTIW_FN void sky_vjp(const Iter& I, const LaneEnv& E, const float* grad,
+                     float* gd, float* gs) {
+  if (!E.sky_on) return;
+  const float* cam = E.cam;
+  float gtsky = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    const float gem = grad[k] * I.th[k];
+    gtsky += gem * (cam[kSkyT + k] - cam[kSkyB + k]);
+    gs[kSkyT + k] += gem * I.tsky;
+    gs[kSkyB + k] += gem * (1.0f - I.tsky);
+  }
+  gd[1] += 0.5f * gtsky;
+}
+
+// The camera ray's adjoint at regen: the cotangents of the new origin and
+// direction into the camera row (gs).
+RTIW_FN void regen_vjp(const Iter& I, const LaneEnv& E, const float* go,
+                       const float* gd, float* gs) {
+  const float* cam = E.cam;
+  float gq3[3], goff[3];
+  norm3_vjp(I.q3, gd, gq3);
+  float gun = 0.0f, gvn = 0.0f, grdx = 0.0f, grdy = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    gs[kCO + k] += go[k];
+    goff[k] = go[k] - gq3[k];
+    gs[kLL + k] += gq3[k];
+    gs[kHH + k] += I.un * gq3[k];
+    gun += cam[kHH + k] * gq3[k];
+    gs[kVV + k] += I.vn * gq3[k];
+    gvn += cam[kVV + k] * gq3[k];
+    gs[kRR + k] += I.rdx * goff[k];
+    gs[kUU + k] += I.rdy * goff[k];
+    grdx += cam[kRR + k] * goff[k];
+    grdy += cam[kUU + k] * goff[k];
+  }
+  gs[kLens] += (grdx * I.cth + grdy * I.sth) * I.sr3;
+  // un = (pixel - py_row width + jx) / width, py_row a constant
+  gs[kWidth] += gun * (-(E.py_row + I.un) / cam[kWidth]);
+  gs[kHeight] += gvn * (-I.vn / cam[kHeight]);
+}
+
 // ---------------------------------------------------------------------------
 // The iteration's adjoint
 // ---------------------------------------------------------------------------
@@ -871,13 +1147,136 @@ RTIW_FN void dielectric_vjp(const Iter& I, const float* gsd,
   ge[kGGloss] -= dotv(gq2, I.ss);
 }
 
+// Adjoint of step_forward_vol (kVolStateVars; gs kScalVol), as step_vjp.
+template <bool kAux>
+RTIW_FN int step_vjp_vol(const float* s, float* g, float code, int it,
+                         const LaneEnv& E, float* ge, float* gs) {
+  IterOf<kAux, true> I;
+  iter_forward<false, kAux, true>(s, code, it, E, I);
+  for (int k = 0; k < Layout<false, kAux>::grad; ++k) ge[k] = 0.0f;
+  g[kActive] = g[kValid] = g[kStarted] = g[kDepth] = g[kInId] = 0.0f;
+  if (!I.was_active) return -1;
+
+  // ---- accumulators with the score-function carrier --------------------
+  float grad[3], go[3] = {0.0f, 0.0f, 0.0f}, gd[3] = {0.0f, 0.0f, 0.0f};
+  float gth[3], gn[3] = {0.0f, 0.0f, 0.0f}, gp[3] = {0.0f, 0.0f, 0.0f};
+  float glp = g[kLp];
+  for (int k = 0; k < 3; ++k) grad[k] = g[kRX + k];
+  if (I.ok) {
+    for (int k = 0; k < 3; ++k) grad[k] += g[kCSX + k];
+    glp += g[kCSX] * I.rad_new[0] + g[kCSX + 1] * I.rad_new[1] +
+           g[kCSX + 2] * I.rad_new[2] + g[kCnt];
+  }
+  // ---- the medium out: the walk's on a scatter, else the one in ---------
+  float gvm[8] = {}, gmed[8] = {};
+  for (int k = 1; k < 8; ++k) (I.vol_scatter ? gvm : gmed)[k] = g[kInId + k];
+  // ---- advance and fold --------------------------------------------------
+  const bool scat = I.hit && !I.skip;
+  float gsd[3] = {0.0f, 0.0f, 0.0f}, gsr[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < 3; ++k) {
+    if (scat) {
+      gn[k] += I.off_n * g[kOX + k];
+      gp[k] += g[kOX + k];
+      gsd[k] = g[kDX + k];
+      gth[k] = g[kTHX + k] * I.sr[k];
+      gsr[k] = g[kTHX + k] * I.th[k];
+    } else {
+      go[k] = g[kOX + k];
+      gd[k] = g[kDX + k];
+      gth[k] = g[kTHX + k];
+    }
+    gth[k] += grad[k] * I.em2[k];  // rad_new = th em2 + rad
+  }
+  if (!I.hit) {
+    sky_vjp(I, E, grad, gd, gs);
+  } else {
+    const float* e = E.ent + (size_t)I.w * Layout<false, kAux>::ent;
+    float gt_surf = 0.0f, gt_exit = 0.0f;
+    bool surface = false;  // the surface's point and normal reach the out
+    if (I.skip) {
+      // o' = o + (skip_t + eps) d: to the exit's or the surface's t
+      const float gst = dotv(g + kOX, I.d);
+      for (int k = 0; k < 3; ++k) gd[k] += (I.skip_t + kSelfEps) * g[kOX + k];
+      (I.pass_through ? gt_exit : gt_surf) += gst;
+    } else if (I.vol_scatter) {
+      // the medium's emission and albedo; pe = o + vol_t d, ne = -d; the
+      // isotropic direction is a constant
+      for (int k = 0; k < 3; ++k) {
+        gvm[5 + k] += grad[k] * I.th[k];
+        gvm[2 + k] += gsr[k];
+        go[k] += gp[k];
+        gd[k] += I.vol_t * gp[k] - gn[k];
+      }
+      if (!I.in_vol) gt_surf += dotv(gp, I.d);  // vol_t = t + free path
+    } else {
+      surface = true;
+      for (int k = 0; k < 3; ++k) ge[kGEm + k] += grad[k] * I.th[k];
+      if (I.is_diel)
+        dielectric_vjp(I, gsd, gsr, glp, gn, gd, ge);
+      else
+        standard_vjp(I, gsd, gsr, glp, gn, gd, ge);
+    }
+    // ---- the score terms: d lp / d rho ----------------------------------
+    float grho = 0.0f;
+    if (I.vol_scatter) grho += glp * (1.0f / I.rho - I.d_obs);
+    if (I.survive) grho -= glp * I.l_obs;
+    if (I.vm[1] >= 1e-8f) gvm[1] += grho;
+    // ---- the walk's medium: the one in, or the winner's material ---------
+    for (int k = 1; k < 8; ++k) {
+      if (I.in_vol)
+        gmed[k] += gvm[k];
+      else
+        ge[k == 1 ? kGParam : k < 5 ? kGAlb + k - 2 : kGEm + k - 5] += gvm[k];
+    }
+    // ---- the winner's geometry: point, normal, distance, exit -----------
+    int kind = 0;
+    if constexpr (kAux) kind = I.kind;
+    if (kind != 0) {
+      if constexpr (kAux) {
+        if (surface) aux_hit_vjp(I, e, E.t_min, gp, gn, go, gd, ge);
+        if (gt_surf != 0.0f) aux_t_vjp(I, e, E.t_min, gt_surf, go, gd, ge);
+        if (gt_exit != 0.0f && kind == 2 && I.t_exit < kBig)
+          box_exit_vjp(I, e, E.t_min, gt_exit, go, gd, ge);
+      }
+    } else {
+      if (surface) sphere_hit_vjp(I, gp, gn, go, gd, ge);
+      if (gt_surf != 0.0f)
+        sphere_root_vjp(I, I.near_root, gt_surf, go, gd, ge);
+      if (gt_exit != 0.0f && I.t_exit < kBig)
+        sphere_root_vjp(I, false, gt_exit, go, gd, ge);
+    }
+  }
+
+  // ---- regen: the camera ray, the camera's medium ------------------------
+  if (I.regen) {
+    regen_vjp(I, E, go, gd, gs);
+    for (int k = 1; k < 8; ++k) gs[kVol0 + k] += gmed[k];
+    for (int k = 0; k < 3; ++k) {
+      g[kOX + k] = g[kDX + k] = g[kTHX + k] = g[kRX + k] = 0.0f;
+    }
+    g[kLp] = 0.0f;
+    for (int k = 1; k < 8; ++k) g[kInId + k] = 0.0f;
+  } else {
+    for (int k = 0; k < 3; ++k) {
+      g[kOX + k] = go[k];
+      g[kDX + k] = gd[k];
+      g[kTHX + k] = gth[k];
+      g[kRX + k] = grad[k];
+    }
+    g[kLp] = glp;
+    for (int k = 1; k < 8; ++k) g[kInId + k] = gmed[k];
+  }
+  return I.hit ? I.w : -1;
+}
+
 // Adjoint of step_forward.  g holds the cotangent of the output state on
 // entry and of the input state on exit.  ge (Layout<kTris>::grad) receives
 // the winner row's cotangent and gs (kScal) accumulates the camera and sky
 // cotangents.  Returns the winner row, or -1 when ge is unused.
-template <bool kTris = false, bool kAux = false>
+template <bool kTris = false, bool kAux = false, bool kVol = false>
 RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
                      const LaneEnv& E, float* ge, float* gs) {
+  if constexpr (kVol) return step_vjp_vol<kAux>(s, g, code, it, E, ge, gs);
   IterOf<kAux> I;
   iter_forward<kTris, kAux>(s, code, it, E, I);
   for (int k = 0; k < Layout<kTris, kAux>::grad; ++k) ge[k] = 0.0f;
@@ -1006,6 +1405,8 @@ RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
 constexpr int kMaxDepth = 64;  // deepest trace_depth the path codes hold
 // a path's states hold these: o, d, th, rad, lp, valid, depth
 constexpr int kPathVars = 15;
+// ... and in the volume builds the medium's 8
+constexpr int kVolPathVars = kPathVars + 8;
 
 RTIW_FN int path_var(int k) {
   return k < 12 ? k : k == 12 ? kLp : k == 13 ? kValid : kDepth;
@@ -1067,6 +1468,23 @@ struct ArrayHist {
   }
 };
 
+// ... of a volume build: the path variables, then the medium.
+struct VolHist {
+  float* a;
+  RTIW_FN void store(int slot, const float* st) const {
+#pragma unroll
+    for (int k = 0; k < kVolPathVars; ++k)
+      a[slot * kVolPathVars + k] =
+          st[k < kPathVars ? path_var(k) : kInId + k - kPathVars];
+  }
+  RTIW_FN void load(int slot, float* st) const {
+#pragma unroll
+    for (int k = 0; k < kVolPathVars; ++k)
+      st[k < kPathVars ? path_var(k) : kInId + k - kPathVars] =
+          a[slot * kVolPathVars + k];
+  }
+};
+
 // One path's backward: lane `lane`, iterations it0 .. it0+len-1.  Runs the
 // path forward once, keeping the input state of each iteration in `hist`,
 // then applies step_vjp in reverse from the lane's color and count
@@ -1076,21 +1494,25 @@ struct ArrayHist {
 // path idle (w = -1) at its top steps.  gs receives the camera and sky
 // cotangents; add_ent(w, ge) each step's winner row (w = -1: none).
 RTIW_EXEC_CHECK_OFF
-template <bool kTris = false, bool kAux = false, class Hist, class AddEnt>
+template <bool kTris = false, bool kAux = false, bool kVol = false,
+          class Hist, class AddEnt>
 RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
                            int len, int steps, const LaneEnv& E,
                            float cot_r, float cot_g, float cot_b,
                            float cot_count, const Hist& hist, float* gs,
                            AddEnt& add_ent) {
-  float st[kStateVars];
+  constexpr int nv = kVol ? kVolStateVars : kStateVars;
+  float st[nv];
   path_start(st);
+  if constexpr (kVol)
+    for (int k = kStateVars; k < nv; ++k) st[k] = 0.0f;
   for (int j = 0; j + 1 < len; ++j) {
-    step_forward<kTris, kAux>(st, tape[(size_t)(it0 + j) * n + lane], it0 + j,
-                              E);
+    step_forward<kTris, kAux, kVol>(st, tape[(size_t)(it0 + j) * n + lane],
+                                    it0 + j, E);
     hist.store(j, st);
   }
-  float g[kStateVars], ge[Layout<kTris, kAux>::grad];
-  for (int k = 0; k < kStateVars; ++k) g[k] = 0.0f;
+  float g[nv], ge[Layout<kTris, kAux>::grad];
+  for (int k = 0; k < nv; ++k) g[k] = 0.0f;
   g[kCSX] = cot_r;
   g[kCSY] = cot_g;
   g[kCSZ] = cot_b;
@@ -1103,8 +1525,8 @@ RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
         hist.load(j - 1, st);
         st[kActive] = 1.0f;
       }
-      w = step_vjp<kTris, kAux>(st, g, tape[(size_t)(it0 + j) * n + lane],
-                                it0 + j, E, ge, gs);
+      w = step_vjp<kTris, kAux, kVol>(
+          st, g, tape[(size_t)(it0 + j) * n + lane], it0 + j, E, ge, gs);
     }
     add_ent(w, ge);
   }
@@ -1166,8 +1588,10 @@ struct AuxEntityAdd {
 // the paths of each length, the grouping lays the lengths out longest
 // first, the scan again scatters each path to its place, and the paths'
 // backwards run in that order, each sum added in place (dscal: the camera
-// and sky cotangents, kScal).  `ent` is the entity table the tape indexes.
-template <bool kTris = false, bool kAux = false, class AddEnt>
+// and sky cotangents, kScal, and vol0's in the volume builds, kScalVol).
+// `ent` is the entity table the tape indexes.
+template <bool kTris = false, bool kAux = false, bool kVol = false,
+          class AddEnt>
 inline void host_backward(const float* tape, const float* lane_count,
                           const float* cam, const float* ent,
                           const float* cot, int n, int samples,
@@ -1193,17 +1617,19 @@ inline void host_backward(const float* tape, const float* lane_count,
                 paths[2 * p] = i;
                 paths[2 * p + 1] = path_code(it0, len);
               });
-  std::vector<float> hist((size_t)kPathVars * trace_depth);
-  const ArrayHist h{hist.data()};
+  std::vector<float> hist((size_t)(kVol ? kVolPathVars : kPathVars) *
+                          trace_depth);
+  const std::conditional_t<kVol, VolHist, ArrayHist> h{hist.data()};
   for (long p = 0; p < total; ++p) {
     const int lane = paths[2 * p], code = paths[2 * p + 1];
     const int len = code % kMaxDepth + 1;
     const LaneEnv E = make_lane_env(cam, ent, lane, lane_count[lane], seed,
                                     lane_base, trace_depth, t_min, has_diel,
                                     sky_on, jitter);
-    path_backward<kTris, kAux>(tape, n, lane, code / kMaxDepth, len, len, E,
-                         cot[lane], cot[n + lane], cot[2 * n + lane],
-                         cot[3 * n + lane], h, dscal, add_ent);
+    path_backward<kTris, kAux, kVol>(
+        tape, n, lane, code / kMaxDepth, len, len, E, cot[lane],
+        cot[n + lane], cot[2 * n + lane], cot[3 * n + lane], h, dscal,
+        add_ent);
   }
 }
 #endif

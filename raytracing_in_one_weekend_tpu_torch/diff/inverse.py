@@ -85,7 +85,9 @@ def optimize(
 ) -> tuple[dict[str, torch.Tensor], list[float]]:
     """Adam descent on the photometric loss, a fresh sample stream per
     step.  Returns the final parameters (detached) and the loss of every
-    step.
+    step.  `init_params` is keyed by diff/params' names
+    ("sphere_centers", "texture_colors", "material_parameters": the IOR
+    and volume density table, ...).
 
     grad_mask: optional dict matching init_params; gradients are
     multiplied elementwise (1 = optimize, 0 = freeze).

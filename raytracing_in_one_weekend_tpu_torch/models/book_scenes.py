@@ -2,9 +2,8 @@
 package's models/book_scenes.py).
 
 Same builders, same numpy seeds, so the arrays equal the JAX package's.
-`cover_motion`, `volume` and `cornell` build, but the forward slice
-refuses them at render time (motion, volumes, rects and boxes are
-ROADMAP queue 1, step 7).
+`cover_motion` builds, but the renderer refuses it (motion blur is
+ROADMAP queue 1, step 7.3).
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ carries the gradients to its geometry.  Rects and boxes are plain PyTorch
 in the JAX package too (no Pallas kernel): all rays against every rect
 and box (`geometry.rect_hit_all`, `box_hit_all`), in the JAX order
 spheres, rects, boxes, triangles, each kind winning only with a strictly
-smaller t.  Motion, volumes and the BVH raise NotImplementedError naming
-their ROADMAP steps.
+smaller t.  Each hit carries its entity's exit distance (`t_exit`, a
+sphere's far root or a box's slab exit) for the volume walk, and
+`point_inside_volume` finds the volume around a point.  Motion and the
+BVH raise NotImplementedError naming their ROADMAP steps.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from raytracing_in_one_weekend_tpu_torch.core.ray import Rays
 from raytracing_in_one_weekend_tpu_torch.ops import (
     geometry, megatrace, sphere_select, triangle_select,
 )
-from raytracing_in_one_weekend_tpu_torch.scene.scene import EntityKind, Scene
+from raytracing_in_one_weekend_tpu_torch.scene.scene import (
+    EntityKind, MaterialType, Scene,
+)
 from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
 
 BIG = geometry.BIG
@@ -236,3 +240,38 @@ def _shading_attributes(scene: Scene, rays: Rays, point, kind, index):
                                material)
     # world normals are normalized (Entity.cs:65)
     return math3.normalize_safe(normal), uv, material
+
+
+def point_inside_volume(scene: Scene, point: torch.Tensor) -> torch.Tensor:
+    """(N,) int32: the material of a probabilistic-volume sphere or box
+    containing each point (the first sphere, else the first box), or -1
+    (the JAX package's `point_inside_volume`: a direct point-in-hull test
+    for the convex entities volumes are restricted to, Entity.cs:24, in
+    place of the reference's backwards ray, SampleBatchJob.cs:477-508).
+    Box quaternions are normalized before their conjugate, as every other
+    consumer normalizes them."""
+    n = point.shape[0]
+    inside_mat = torch.full((n,), -1, dtype=torch.int32, device=point.device)
+    vol = int(MaterialType.PROBABILISTIC_VOLUME)
+    sph = scene.spheres
+    if sph.center.shape[0] > 0:
+        is_vol = scene.materials.type[sph.material.long()] == vol
+        d2 = torch.sum((point[:, None, :] - sph.center[None]) ** 2, dim=-1)
+        inside = (d2 < (sph.radius * sph.radius)[None]) & is_vol[None]
+        first = torch.argmax(inside.to(torch.int32), dim=1)
+        inside_mat = torch.where(inside.any(dim=1),
+                                 sph.material[first].to(torch.int32),
+                                 inside_mat)
+    box = scene.boxes
+    if box.rot.shape[0] > 0:
+        is_vol = scene.materials.type[box.material.long()] == vol
+        inv_rot = math3.quat_conjugate(math3.quat_normalize(box.rot))
+        local = math3.quat_rotate(inv_rot[None],
+                                  point[:, None, :] - box.pos[None])
+        inside = (torch.abs(local) < box.extents[None]).all(dim=-1) \
+            & is_vol[None]
+        first = torch.argmax(inside.to(torch.int32), dim=1)
+        inside_mat = torch.where(inside.any(dim=1) & (inside_mat < 0),
+                                 box.material[first].to(torch.int32),
+                                 inside_mat)
+    return inside_mat

@@ -1,10 +1,12 @@
 """Fused sample-batch path tracer: the CUDA kernel and its plain version.
 
 Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm,
-the rect and box arm, the triangle (VMEM) arm and the streamed-triangle
-arm of its `_batch_kernel` (gradient or no sky, white noise), the forward
-path of the book cover, of rect and box scenes (`cornell`,
-`simple_light`) and of mesh scenes of at most TRI_STREAM_MAX triangles.  One
+the rect and box arm, the convex-volume arm, the triangle (VMEM) arm and
+the streamed-triangle arm of its `_batch_kernel` (gradient or no sky,
+white noise), the forward path of the book cover, of rect and box scenes
+(`cornell`, `simple_light`), of scenes with fog spheres and boxes
+(`volume`, `probabilistic`, `cornell_volumes`) and of mesh scenes of at
+most TRI_STREAM_MAX triangles.  One
 call runs a whole SampleBatchJob (reference: SampleBatchJob.cs:59-164,
 166-401) and returns per-lane accumulation deltas: thin-lens camera rays,
 persistent-lane path regeneration over `samples * trace_depth`
@@ -13,8 +15,12 @@ tests in each entity's frame (`rect_test`, `box_test`), the
 Möller–Trumbore sweep over
 TRI_BLOCK-row triangle blocks (each skipped by a lane whose ray misses the
 block's AABB; a streamed mesh adds a level above, one AABB per TRI_SUP
-blocks), Lambert / GGX-metal / dielectric scatter, the gradient sky, and
-the per-pixel fold, AOVs, noise weight and ray count.  With `pixel_index`
+blocks), with `vol0` (`camera_containment_row`) the Beer-Lambert walk
+through convex volumes (each lane carries its medium; a free path
+shorter than the segment scatters isotropically in the medium, an entry
+or an exit without one passes the boundary in an iteration of its own),
+Lambert / GGX-metal / dielectric scatter, the gradient sky, and the
+per-pixel fold, AOVs, noise weight and ray count.  With `pixel_index`
 lane i renders that pixel (the renderer passes `morton_order` for
 streamed meshes) and the deltas stay in lane order.
 
@@ -27,7 +33,9 @@ streamed meshes) and the deltas stay in lane order.
   whose warps run 8x4 pixel tiles of lanes (`tile_lane_order` is the
   map's plain twin); scenes with rects or boxes its aux build, which
   stages them beside the spheres and sweeps them after (`AUX_LAUNCHES`
-  counts it); meshes of at most TRI_MAX triangles take
+  counts it); scenes with convex volumes its volume builds, beside
+  spheres or beside rects and boxes (`VOL_LAUNCHES`); meshes of at most
+  TRI_MAX triangles take
   `megatrace_batch_kernel` (triangles read through the read-only cache,
   one thread a lane in lane order); streamed
   tables take `megatrace_stream_kernel`, whose thread blocks of 128 lanes
@@ -81,6 +89,8 @@ _MASK32 = 0xFFFFFFFF
 
 LAUNCHES = 0  # CUDA kernel launches made by sample_batch
 AUX_LAUNCHES = 0  # ... of them, launches of the aux build (rects, boxes)
+VOL_LAUNCHES = 0  # ... of them, launches of the volume builds (volumes
+#   beside spheres, or beside rects and boxes)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
 TRI_PAIRS = 0  # (lane, triangle) pairs the plain version's sweep tested:
 #   the kernel tests the same ones (the operation count of its bound)
@@ -110,6 +120,9 @@ AUX_KERNEL_REC = 16  # record columns the kernel reads: 0-10 material |
 #   11 material id | 12-14 a rect's world normal
 RECTS_IN_MESHES = ("rects and boxes in mesh scenes (ROADMAP queue 1, "
                    "step 7.1b)")
+VOLUMES_IN_MESHES = ("volumes in mesh scenes (ROADMAP queue 1, step 7.2b)")
+VOL_ROWS = 8  # a medium: material id (-1: none) | density | albedo rgb |
+#   emission rgb (camera_containment_row, the kernels' medium state)
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +139,9 @@ def unported_feature(scene) -> str | None:
                    or scene.boxes.rot.shape[0] > 0), RECTS_IN_MESHES),
         (tris and scene.spheres.center.shape[0] == 0,
          "meshes without spheres (ROADMAP queue 1, step 7.1b)"),
-        (scene.flags.has_volumes, "volumes (ROADMAP queue 1, step 7.2)"),
+        (tris and scene.flags.has_volumes, VOLUMES_IN_MESHES),
+        (scene.flags.has_nonconvex_volumes,
+         "volumes on triangles (non-convex; ROADMAP queue 1, step 7.2b)"),
         (scene.flags.has_motion, "motion blur (ROADMAP queue 1, step 7.3)"),
         (scene.flags.has_procedural_textures,
          "checker, Perlin and image textures (ROADMAP queue 1, step 7.5)"),
@@ -140,15 +155,17 @@ def unported_feature(scene) -> str | None:
 
 
 def unsupported_feature(scene, allow_triangles: bool = False,
-                        allow_rect_box: bool = False) -> str | None:
+                        allow_rect_box: bool = False,
+                        allow_volumes: bool = False) -> str | None:
     """The first feature of `scene` the fused kernels do not render, named
     with its ROADMAP item, or None when the scene is in scope: the ported
     features, at least one entity, at most SPH_CULL_MIN spheres, triangles
-    only with `allow_triangles` and rects, boxes and sphere-free scenes
-    only with `allow_rect_box` (the batch kernel takes both; the per-ray
-    megatrace is sphere-only, as the JAX package's), at most
-    TRI_STREAM_MAX triangles and AUX_MAX rects and boxes (the JAX
-    package's `scene_eligible` flags)."""
+    only with `allow_triangles`, rects, boxes and sphere-free scenes
+    only with `allow_rect_box` and convex volumes only with
+    `allow_volumes` (the batch kernel takes all three; the per-ray
+    megatrace is sphere-only and has no volume walk, as the JAX
+    package's), at most TRI_STREAM_MAX triangles and AUX_MAX rects and
+    boxes (the JAX package's `scene_eligible` flags)."""
     spheres = scene.spheres.center.shape[0]
     aux = scene.rects.rot.shape[0] + scene.boxes.rot.shape[0]
     tri_count = scene.triangles.vert0.shape[0]
@@ -162,6 +179,8 @@ def unsupported_feature(scene, allow_triangles: bool = False,
     if (aux > 0 or spheres == 0) and not allow_rect_box:
         return ("rects, boxes and sphere-free scenes (the per-ray "
                 "megatrace is sphere-only)")
+    if scene.flags.has_volumes and not allow_volumes:
+        return "volumes (the per-ray megatrace has no volume walk)"
     if tri_count > TRI_STREAM_MAX:
         return TOO_MANY_TRIANGLES
     if aux > AUX_MAX:
@@ -171,11 +190,14 @@ def unsupported_feature(scene, allow_triangles: bool = False,
 
 
 def scene_eligible(scene, allow_triangles: bool = False,
-                   allow_rect_box: bool = False) -> bool:
+                   allow_rect_box: bool = False,
+                   allow_volumes: bool = False) -> bool:
     """Can this scene run in the ported fused kernels?  The batch kernel
-    asks with allow_triangles=True and allow_rect_box=True, the per-ray
-    megatrace without (the JAX package's `scene_eligible` flags)."""
-    return unsupported_feature(scene, allow_triangles, allow_rect_box) is None
+    asks with allow_triangles, allow_rect_box and allow_volumes True, the
+    per-ray megatrace without (the JAX package's `scene_eligible`
+    flags)."""
+    return unsupported_feature(scene, allow_triangles, allow_rect_box,
+                               allow_volumes) is None
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +330,27 @@ def pack_aux_tables(scene, packed_materials):
         rec[21, :b] = box.material.to(torch.float32)
         box_tables = (geo, rec)
     return rect_tables, box_tables
+
+
+def camera_containment_row(scene, packed_materials, origin) -> torch.Tensor:
+    """(VOL_ROWS,) row [volume material id or -1, density, albedo rgb,
+    emission rgb] of the medium around the camera origin: the batch
+    kernel's initial medium at every regen (the JAX package's
+    `camera_containment_row`, DetermineVolumeContainment,
+    SampleBatchJob.cs:477-508, taken once for the shared origin).  Zeros
+    but the id when the origin is in no volume.  Differentiable with
+    respect to the packed materials."""
+    from raytracing_in_one_weekend_tpu_torch.ops import intersect
+
+    mat = intersect.point_inside_volume(scene, origin.reshape(1, 3))[0]
+    row = packed_materials[torch.clamp(mat, min=0).long()]
+    inside = (mat >= 0).to(torch.float32)
+    return torch.stack([
+        torch.where(mat >= 0, mat.to(torch.float32), -1.0),
+        row[9] * inside,  # density
+        row[1] * inside, row[2] * inside, row[3] * inside,
+        row[4] * inside, row[5] * inside, row[6] * inside,
+    ]).to(torch.float32)
 
 
 def tri_pad_count(t: int) -> int:
@@ -565,9 +608,10 @@ def uniforms_hash(seed, salt, lanes: torch.Tensor, streams: int = 8):
 
 
 # Precision contract, shared with the CUDA kernel bit for bit:
-# * sqrt, rsqrt, sin and cos give correctly rounded float32 results, taken
-#   through float64 (torch's float32 CPU kernels are not correctly
-#   rounded; the kernel computes the same float64 expressions).
+# * sqrt, rsqrt, sin, cos and the volume walk's log give correctly
+#   rounded float32 results, taken through float64 (torch's float32 CPU
+#   kernels are not correctly rounded; the kernel computes the same
+#   float64 expressions).
 # * A multiply-add is fused (rounded once) exactly where it is written
 #   with `_fma`: the places where the JAX kernel's CPU compile contracts
 #   it.  Every other product and sum is rounded on its own, and the
@@ -594,6 +638,10 @@ def _sqrt(x):
 
 def _rsqrt(x):
     return (1.0 / torch.sqrt(x.double())).float()
+
+
+def _log(x):
+    return torch.log(x.double()).float()
 
 
 def _sin(x):
@@ -715,6 +763,26 @@ def _sweep(o, d, sph, t_min):
     t_entry = torch.full_like(disc, BIG)
     t_entry[s_idx, l_idx] = t_root
     return torch.min(t_entry, dim=0).values, torch.argmin(t_entry, dim=0)
+
+
+def sphere_exit(o, d, row, t_min):
+    """The far root of the sphere quadratic for rays o, d against sphere
+    rows `row` (centre, |c|^2 - r^2; each a 3-tuple or broadcastable): the
+    exit distance of a volume sphere the ray hit (the JAX kernel's
+    `t_exit_rows`, :401-408), BIG where it is at or before t_min.  The
+    same float operations as `_sweep`'s, so it is bit-equal to the root
+    the sweep would take there; only meaningful where the discriminant is
+    positive (a hit)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    cx, cy, cz, cmr2 = row
+    a = _dot3(dx, dy, dz, dx, dy, dz)
+    b = _dot3(ox, oy, oz, dx, dy, dz) - _dot3(dx, dy, dz, cx, cy, cz)
+    c = (_dot3(ox, oy, oz, ox, oy, oz)
+         - 2.0 * _dot3(ox, oy, oz, cx, cy, cz)) + cmr2
+    disc = _fma(b, b, -(a * c))
+    t_far = (-b + _sqrt(torch.clamp(disc, min=0.0))) * (1.0 / a)
+    return torch.where(t_far > t_min, t_far, BIG)
 
 
 def _cross_fma(a, b):
@@ -933,6 +1001,35 @@ def box_parts(o, d, q, pos, ext, t_min, mask=None):
     return t, test_x | test_y | test_z
 
 
+def box_exit(o, d, q, pos, ext, t_min, parallel_inf: bool = True):
+    """The slab exit of rays o, d from oriented boxes (unit quaternion q,
+    position pos, half extents ext): the JAX kernel's `b_far` (:637-660),
+    the least far slab distance in the box frame (offset by t_min as in
+    `box_parts`), BIG where the ray leaves the slabs at or before t_min or
+    misses them.  An axis the ray runs parallel to (dl == 0) has the
+    inverse inf (the kernel's), or without `parallel_inf` 1 / 1e-30 (the
+    tape replay's, as the JAX replay's, so that its backward stays
+    finite); either way the other axes decide."""
+    qx, qy, qz, qw = q
+    bo = _quat_rotate(-qx, -qy, -qz, qw, o[0] - pos[0], o[1] - pos[1],
+                      o[2] - pos[2])
+    bd = _quat_rotate(-qx, -qy, -qz, qw, *d)
+    bo = tuple(_fma(bd[k], t_min, bo[k]) for k in range(3))
+    near = far = None
+    for k in reversed(range(3)):
+        inv = 1.0 / torch.where(bd[k] == 0.0, 1e-30, bd[k])
+        if parallel_inf:
+            inv = torch.where(bd[k] == 0.0, float("inf"), inv)
+        t0 = (-ext[k] - bo[k]) * inv
+        t1 = (ext[k] - bo[k]) * inv
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = lo if near is None else torch.maximum(lo, near)
+        far = hi if far is None else torch.minimum(hi, far)
+    b_far = far + t_min
+    ok = (b_far > t_min) & ((near + t_min) < b_far)
+    return torch.where(ok, b_far, BIG)
+
+
 def box_test(o, d, geo, t_min):
     """t of rays o, d against pack_aux_tables' box geo rows (quat | pos |
     extents), broadcast; BIG where the ray misses."""
@@ -974,22 +1071,29 @@ STATE_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
               "events", "active", "valid", "got")
 
 
+VOL_KEYS = ("in_id", "in_den", "in_ar", "in_ag", "in_ab", "in_er", "in_eg",
+            "in_eb")  # the medium state, camera_containment_row's order
+
+
 def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
-            sky, tri=None, aux=None):
+            sky, tri=None, aux=None, med=None):
     """One bounce of every active path in `p` (a dict of (C,) rows keyed
     by STATE_KEYS, updated in place): the dense sphere sweep, then with
     `aux` (`_aux_arg`) the rect sweep and the box sweep (each wins only
     with a strictly smaller t, the first row on a tie), then with
     `tri` = (sweep, records (T_pad, 32), code base) the triangle sweep
     (`_tri_arg`: a triangle wins only with a strictly smaller t),
-    Lambert / GGX-metal / dielectric scatter, the gradient sky, the fold,
-    AOV capture, events and the advance.  `u` holds the bounce's six
-    uniform rows, `depth` the path's bounce count ((C,) float or a
-    number).  Returns (hit, winner code) for the winner tape: the sphere
-    row, or the code base plus the triangle row.  Shared by the batch
-    kernel's and the per-ray megatrace's plain versions, as the CUDA
-    kernels share csrc/megatrace_bounce.cuh."""
-    ua, ub, uc, ud, u_choice, u_choice2 = u
+    with `med` (the medium, a dict of (C,) rows keyed by VOL_KEYS, updated
+    in place) the convex volume walk, Lambert / GGX-metal / dielectric or
+    the volume's isotropic scatter, the gradient sky, the fold, AOV
+    capture, events and the advance.  `u` holds the bounce's six uniform
+    rows (seven with `med`: the free path's draw), `depth` the path's
+    bounce count ((C,) float or a number).  Returns (hit, winner code) for
+    the winner tape: the sphere row, or the code base plus the rect, box
+    or triangle row.  Shared by the batch kernel's and the per-ray
+    megatrace's plain versions, as the CUDA kernels share
+    csrc/megatrace_bounce.cuh."""
+    ua, ub, uc, ud, u_choice, u_choice2 = u[:6]
     ox, oy, oz, dx, dy, dz = (p[k] for k in ("ox", "oy", "oz", "dx", "dy",
                                               "dz"))
     pactive, got = p["active"], p["got"]
@@ -1034,6 +1138,15 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     nx = (px - w[:, 12]) * inv_r
     ny = (py - w[:, 13]) * inv_r
     nz = (pz - w[:, 14]) * inv_r
+    if med is not None:
+        # the winner's exit distance for the volume walk: a sphere's far
+        # root, a box's slab exit, BIG for a rect (no interior) and on a
+        # miss (the JAX kernel's t_exit, :428-431, :570, :637-660)
+        t_exit = torch.full_like(ox, BIG)
+        if sph.shape[0] > 0:
+            t_exit = torch.where(hit, sphere_exit(
+                (ox, oy, oz), (dx, dy, dz),
+                tuple(sph[best_idx, k] for k in range(4)), t_min), BIG)
     for wins, k_idx, kind in aux_wins:
         geo, krec, base = aux[kind]
         # the boxes come second: a box winner overwrites a rect's
@@ -1041,12 +1154,17 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
         w = torch.where(wins[:, None], kw, w)
         if kind == 0:  # a rect's normal is constant: the packed one
             knx, kny, knz = kw[:, 12], kw[:, 13], kw[:, 14]
+            if med is not None:
+                t_exit = torch.where(wins, BIG, t_exit)
         else:
             g = geo[k_idx]
-            knx, kny, knz = box_normal(
-                (px, py, pz), tuple(g[:, k] for k in range(4)),
-                tuple(g[:, k] for k in range(4, 7)),
-                tuple(g[:, k] for k in range(7, 10)))
+            q, pos, ext = (tuple(g[:, k] for k in range(4)),
+                           tuple(g[:, k] for k in range(4, 7)),
+                           tuple(g[:, k] for k in range(7, 10)))
+            knx, kny, knz = box_normal((px, py, pz), q, pos, ext)
+            if med is not None:
+                t_exit = torch.where(wins, box_exit(
+                    (ox, oy, oz), (dx, dy, dz), q, pos, ext, t_min), t_exit)
         nx = torch.where(wins, knx, nx)
         ny = torch.where(wins, kny, ny)
         nz = torch.where(wins, knz, nz)
@@ -1067,6 +1185,45 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     em_r, em_g, em_b = w[:, 4], w[:, 5], w[:, 6]
     gloss, metallic, parameter = w[:, 7], w[:, 8], w[:, 9]
     perfect_f = w[:, 10]
+
+    if med is not None:
+        # Probabilistic volume walk (SampleBatchJob.cs:212-303): inside a
+        # medium the segment up to the hit, at a volume's entry the segment
+        # to its exit, ends in a Beer-Lambert scatter when the free path is
+        # shorter; an entry without a scatter passes through the volume, an
+        # exit from the own medium leaves it (both skip: advance, no
+        # scatter)
+        in_vol = med["in_id"] >= 0.0
+        hit_is_vol = hit & (mtype > 1.5)  # PROBABILISTIC_VOLUME == 2
+        entering = _dot3(dx, dy, dz, nx, ny, nz) < 0.0
+        v = {k: torch.where(in_vol, med[k], own) for k, own in (
+            ("in_id", w[:, 11]), ("in_den", parameter), ("in_ar", alb_r),
+            ("in_ag", alb_g), ("in_ab", alb_b), ("in_er", em_r),
+            ("in_eg", em_g), ("in_eb", em_b))}
+        # free path d = -ln(u) / density (Material.cs:49-65)
+        free_path = -_log(torch.clamp(u[6], min=1e-12)) / torch.clamp(
+            v["in_den"], min=1e-12)
+        seg_len = torch.where(in_vol, best_t, t_exit - best_t)
+        vol_candidate = hit & (in_vol | (hit_is_vol & entering))
+        vol_scatter = vol_candidate & (free_path < seg_len)
+        vol_t = torch.where(in_vol, free_path, best_t + free_path)
+        pass_through = hit & ~in_vol & hit_is_vol & entering & ~vol_scatter
+        exits_own = (in_vol & hit & hit_is_vol & ~entering & ~vol_scatter
+                     & (torch.abs(w[:, 11] - med["in_id"]) < 0.5))
+        skip = pass_through | exits_own
+        skip_t = torch.where(pass_through, t_exit, best_t)
+        scatter_mask = scatter_mask & ~skip
+        # the in-medium scatter replaces the surface hit
+        px = torch.where(vol_scatter, _fma(vol_t, dx, ox), px)
+        py = torch.where(vol_scatter, _fma(vol_t, dy, oy), py)
+        pz = torch.where(vol_scatter, _fma(vol_t, dz, oz), pz)
+        nx = torch.where(vol_scatter, -dx, nx)
+        ny = torch.where(vol_scatter, -dy, ny)
+        nz = torch.where(vol_scatter, -dz, nz)
+        em_r = torch.where(vol_scatter, v["in_er"], em_r)
+        em_g = torch.where(vol_scatter, v["in_eg"], em_g)
+        em_b = torch.where(vol_scatter, v["in_eb"], em_b)
+        perfect_f = torch.where(vol_scatter, 0.0, perfect_f)
 
     # Standard scatter (Material.cs:75-119)
     roughness = (1.0 - gloss) * (1.0 - gloss)
@@ -1146,6 +1303,18 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
         std_events = torch.where(is_diel, 1.0 + d_roughness, std_events)
         perfect_f = torch.where(is_diel, 1.0, perfect_f)
 
+    if med is not None:
+        # isotropic in-medium scatter (Material.cs:163-168): the medium's
+        # albedo, 2 random events
+        vsx, vsy, vsz = _unit_sphere(uc, ud)
+        sdx = torch.where(vol_scatter, vsx, sdx)
+        sdy = torch.where(vol_scatter, vsy, sdy)
+        sdz = torch.where(vol_scatter, vsz, sdz)
+        srr = torch.where(vol_scatter, v["in_ar"], srr)
+        srg = torch.where(vol_scatter, v["in_ag"], srg)
+        srb = torch.where(vol_scatter, v["in_ab"], srb)
+        std_events = torch.where(vol_scatter, 2.0, std_events)
+
     # Gradient sky (SampleBatchJob.cs:352-354)
     if sky_on:
         tsky = 0.5 * (dy + 1.0)
@@ -1184,8 +1353,12 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     # Events (adaptive-sampling noise weight)
     depth_weight = (torch.exp2(-depth) if isinstance(depth, torch.Tensor)
                     else 2.0 ** -depth)
-    p["events"] = p["events"] + torch.where(scatter_mask, std_events, 0.0) \
-        * depth_weight
+    step_events = torch.where(scatter_mask, std_events, 0.0)
+    if med is not None:
+        # a probabilistic hit costs one event (SampleBatchJob.cs:332)
+        step_events = step_events + torch.where(pactive & vol_candidate,
+                                                1.0, 0.0)
+    p["events"] = p["events"] + step_events * depth_weight
 
     # Advance
     off = SELF_EPS * torch.where(
@@ -1197,16 +1370,29 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     p["dx"] = torch.where(scatter_mask, sdx, dx)
     p["dy"] = torch.where(scatter_mask, sdy, dy)
     p["dz"] = torch.where(scatter_mask, sdz, dz)
+    if med is not None:
+        # a skip advances past the boundary without scattering; the medium
+        # is entered on a scatter, left on a skip and kept on a scatter off
+        # a surface inside it
+        adv = pactive & skip
+        for k, o_k, d_k in (("ox", ox, dx), ("oy", oy, dy), ("oz", oz, dz)):
+            p[k] = torch.where(adv, _fma(skip_t + SELF_EPS, d_k, o_k), p[k])
+        take = pactive & vol_scatter
+        for k in VOL_KEYS:
+            med[k] = torch.where(take, v[k], med[k])
+        med["in_id"] = torch.where(adv, -1.0, med["in_id"])
     p["active"] = pactive & ~miss
     p["valid"] = p["valid"] | miss
     return hit, best_idx
 
 
 def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
-                 tri, aux, seed, *, samples, trace_depth, t_min,
+                 tri, aux, vol0, seed, *, samples, trace_depth, t_min,
                  has_dielectrics, sky_on, jitter, tape):
     """Run one SampleBatchJob over a chunk of lanes; returns the (18, C)
-    accumulators and fills `tape` ((samples*trace_depth, C) or None)."""
+    accumulators and fills `tape` ((samples*trace_depth, C) or None).
+    With `vol0` (camera_containment_row) each lane carries its medium,
+    reset from vol0 at every regen."""
     dev = pixel.device
     zero = torch.zeros_like(pixel)
     co, ll, hh, vv, rr, uu = (cam[3 * k:3 * k + 3] for k in range(6))
@@ -1222,6 +1408,10 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
     depth_ct = started = zero
     acc = torch.zeros((OUT_ROWS, pixel.shape[0]), dtype=torch.float32,
                       device=dev)
+    med = None
+    if vol0 is not None:
+        med = {k: zero for k in VOL_KEYS}
+        med["in_id"] = zero - 1.0
 
     for it in range(samples * trace_depth):
         started_all = started >= per_pixel
@@ -1261,12 +1451,17 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         p["active"] = p["active"] | regen
         started = started + torch.where(regen, 1.0, 0.0)
         was_active = p["active"]
+        if med is not None:  # the camera's medium
+            for k, value in zip(VOL_KEYS, vol0):
+                med[k] = torch.where(regen, value, med[k])
 
         # ---- one bounce ------------------------------------------------
-        u = uniforms_hash(seed, salt + SALT_BOUNCE, lanes, 6)
+        u = uniforms_hash(seed, salt + SALT_BOUNCE, lanes,
+                          6 if med is None else 7)
         hit, best_idx = _bounce(p, u, sph, rec, depth_ct, t_min=t_min,
                                 has_dielectrics=has_dielectrics,
-                                sky_on=sky_on, sky=sky, tri=tri, aux=aux)
+                                sky_on=sky_on, sky=sky, tri=tri, aux=aux,
+                                med=med)
 
         if tape is not None:
             tape[it] = torch.where(
@@ -1400,6 +1595,7 @@ def sample_batch_reference(
     tri_stream_tables: TriStream | None = None,
     rect_tables: tuple | None = None,
     box_tables: tuple | None = None,
+    vol0: torch.Tensor | None = None,
     chunk_lanes: int | None = None,
 ) -> dict:
     """Plain PyTorch version of the batch kernel (any device).
@@ -1407,7 +1603,8 @@ def sample_batch_reference(
     `tri_tables` is pack_tri_tables' (geo, rec) pair, `tri_stream_tables`
     pack_tri_stream_tables' tables, or neither; `rect_tables` and
     `box_tables` are pack_aux_tables' pairs (their tape codes follow the
-    padded spheres: `aux_code_bases`).  `pixel_index` (N,) is the
+    padded spheres: `aux_code_bases`); `vol0` (camera_containment_row)
+    turns on the convex volume walk.  `pixel_index` (N,) is the
     pixel each lane renders (default: lane i renders pixel i); the hash
     PRNG stays keyed by the lane.  Returns per-lane deltas, in lane order: color (N, 3), count (N,), normal (N, 3), albedo
     (N, 3), weight (N,), rays (N,) int32, fallback_normal (N, 3),
@@ -1447,7 +1644,9 @@ def sample_batch_reference(
         c1 = min(n, c0 + chunk_lanes)
         acc[:, c0:c1] = _trace_chunk(
             lanes_all[c0:c1], pixel_all[c0:c1], per_pixel_all[c0:c1],
-            count_in_all[c0:c1], cam, sky, sph, rec, tri, aux, int(seed),
+            count_in_all[c0:c1], cam, sky, sph, rec, tri, aux,
+            None if vol0 is None else vol0.detach().to(torch.float32),
+            int(seed),
             samples=samples, trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
             tape=None if tape is None else tape[:, c0:c1],
@@ -1493,6 +1692,10 @@ def load_kernel() -> ctypes.CDLL:
         lib.rtiw_megatrace_aux.restype = ctypes.c_int
         lib.rtiw_megatrace_aux_info.argtypes = [i, i, p]
         lib.rtiw_megatrace_aux_info.restype = ctypes.c_int
+        lib.rtiw_megatrace_volume.argtypes = lib.rtiw_megatrace_aux.argtypes
+        lib.rtiw_megatrace_volume.restype = ctypes.c_int
+        lib.rtiw_megatrace_volume_info.argtypes = [i, i, p]
+        lib.rtiw_megatrace_volume_info.restype = ctypes.c_int
         lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
         lib.rtiw_tile_lanes.restype = ctypes.c_int
         _KERNEL = lib
@@ -1519,6 +1722,32 @@ def aux_kernel_info(s: int, aux_rows: int) -> dict:
         raise RuntimeError(f"megatrace_sphere_kernel<true> info: cudaError "
                            f"{err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
+
+
+def volume_kernel_info(s: int, aux_rows: int) -> dict:
+    """sphere_kernel_info of the volume builds with an s-sphere table and
+    aux_rows rect and box rows (0: the sphere + volume build)."""
+    info = (ctypes.c_int * 3)()
+    err = load_kernel().rtiw_megatrace_volume_info(int(s), int(aux_rows),
+                                                   info)
+    if err != 0:
+        raise RuntimeError(f"megatrace_sphere_kernel volume build info: "
+                           f"cudaError {err}")
+    return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
+
+
+def kernel_consts(camera_row, sky_bottom, sky_top, vol0=None):
+    """The batch kernel's constant row: camera row 0-23 | sky bottom 24-26
+    | sky top 27-29 | pad, and with `vol0` the camera's medium in 32-39
+    (the volume builds)."""
+    consts = torch.zeros(32 if vol0 is None else 32 + VOL_ROWS,
+                         dtype=torch.float32, device=camera_row.device)
+    consts[:24] = camera_row
+    consts[24:27] = sky_bottom
+    consts[27:30] = sky_top
+    if vol0 is not None:
+        consts[32:] = vol0
+    return consts
 
 
 def kernel_aux_tables(rect_tables, box_tables):
@@ -1623,8 +1852,8 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        samples, trace_depth, t_min, has_dielectrics, sky_on,
                        jitter, want_tape, tri_tables, pixel_index=None,
                        tri_stream_tables=None, rect_tables=None,
-                       box_tables=None):
-    global LAUNCHES, AUX_LAUNCHES
+                       box_tables=None, vol0=None):
+    global LAUNCHES, AUX_LAUNCHES, VOL_LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
                    camera_row=camera_row, centers=centers, radii=radii,
@@ -1682,36 +1911,53 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                              f"{pixel_index.device}; want ({n},) on {dev}")
         pixel = pixel_index.to(torch.float32).contiguous()
 
+    if vol0 is not None and (tuple(vol0.shape) != (VOL_ROWS,)
+                             or vol0.device != dev
+                             or vol0.dtype != torch.float32):
+        raise ValueError(f"sample_batch: vol0 has shape {tuple(vol0.shape)} "
+                         f"({vol0.dtype}) on {vol0.device}; want "
+                         f"camera_containment_row's ({VOL_ROWS},) float32 "
+                         f"on {dev}")
+
     lib = load_kernel()
     sph, rec = sweep_tables(centers, radii, records)
-    consts = torch.zeros(32, dtype=torch.float32, device=dev)
-    consts[:24] = camera_row
-    consts[24:27] = sky_bottom
-    consts[27:30] = sky_top
+    consts = kernel_consts(camera_row, sky_bottom, sky_top,
+                           None if vol0 is None else vol0.detach())
     per_pixel = lane_count.to(torch.float32).contiguous()
     cin = count_in.to(torch.float32).contiguous()
     out = torch.empty((OUT_ROWS, n), dtype=torch.float32, device=dev)
     tape = (torch.empty((samples * trace_depth, n), dtype=torch.float32,
                         device=dev) if want_tape else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if rect_tables is not None or box_tables is not None:
-        _check_aux_tables(rect_tables, box_tables, dev)
-        aux_geo, aux_rec, rect_rows, box_rows = kernel_aux_tables(
-            rect_tables, box_tables)
+    has_aux = rect_tables is not None or box_tables is not None
+    if has_aux or vol0 is not None:
+        aux_geo = aux_rec = None
+        rect_rows = box_rows = 0
+        if has_aux:
+            _check_aux_tables(rect_tables, box_tables, dev)
+            aux_geo, aux_rec, rect_rows, box_rows = kernel_aux_tables(
+                rect_tables, box_tables)
         rect_code, box_code = aux_code_bases(s, rect_tables)
-        err = lib.rtiw_megatrace_aux(
+        launch = (lib.rtiw_megatrace_aux if vol0 is None
+                  else lib.rtiw_megatrace_volume)
+        err = launch(
             per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
-            sph.data_ptr(), rec.data_ptr(), aux_geo.data_ptr(),
-            aux_rec.data_ptr(), out.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(),
+            0 if aux_geo is None else aux_geo.data_ptr(),
+            0 if aux_rec is None else aux_rec.data_ptr(), out.data_ptr(),
             0 if tape is None else tape.data_ptr(), n, s, rect_rows,
             box_rows, rect_code, box_code, int(seed), int(lane_base),
             samples, trace_depth, float(t_min), int(has_dielectrics),
             int(sky_on), int(jitter), stream)
+        build = "aux" if vol0 is None else "volume"
         if err != 0:
-            raise RuntimeError(f"megatrace_batch aux build launch failed: "
-                               f"cudaError {err}")
+            raise RuntimeError(f"megatrace_batch {build} build launch "
+                               f"failed: cudaError {err}")
         LAUNCHES += 1
-        AUX_LAUNCHES += 1
+        if vol0 is None:
+            AUX_LAUNCHES += 1
+        else:
+            VOL_LAUNCHES += 1
         return _outputs(out, tape)
     err = lib.rtiw_megatrace_batch(
         per_pixel.data_ptr(), cin.data_ptr(),
@@ -1752,13 +1998,15 @@ def sample_batch(
     tri_stream_tables: TriStream | None = None,
     rect_tables: tuple | None = None,
     box_tables: tuple | None = None,
+    vol0: torch.Tensor | None = None,
 ) -> dict:
     """Fused SampleBatchJob: per-lane accumulation deltas for one batch
     (see `sample_batch_reference` for the outputs; `tri_tables` is
     pack_tri_tables' pair for a mesh scene of at most TRI_MAX triangles,
     `tri_stream_tables` pack_tri_stream_tables' tables for a bigger one,
     `pixel_index` the pixel of each lane, `rect_tables` and `box_tables`
-    pack_aux_tables' pairs).
+    pack_aux_tables' pairs, `vol0` camera_containment_row for a scene
+    with convex volumes: the volume builds, VOL_LAUNCHES).
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
@@ -1773,12 +2021,15 @@ def sample_batch(
     if ((rect_tables is not None or box_tables is not None)
             and (tri_tables is not None or tri_stream_tables is not None)):
         raise NotImplementedError(f"sample_batch: {RECTS_IN_MESHES}")
+    if vol0 is not None and (tri_tables is not None
+                             or tri_stream_tables is not None):
+        raise NotImplementedError(f"sample_batch: {VOLUMES_IN_MESHES}")
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, want_tape=want_tape, tri_tables=tri_tables,
                   pixel_index=pixel_index,
                   tri_stream_tables=tri_stream_tables,
-                  rect_tables=rect_tables, box_tables=box_tables)
+                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0)
     args = (lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cuda":

@@ -1,6 +1,6 @@
 """Backward of the fused batch kernel: the tape replay's VJP (counterpart
-of the JAX package's ops/megatrace_bwd.py, its sphere, rect/box and
-triangle arms).
+of the JAX package's ops/megatrace_bwd.py, its sphere, rect/box, triangle
+and convex-volume arms).
 
 * `replay_grad_reference` is the plain version: torch.autograd over
   `ops/megatrace_replay.replay`, the counterpart of the JAX package's
@@ -30,7 +30,11 @@ in device memory.  Scenes with rects or boxes take its aux instantiation
 (`AUX`): their rows (19 columns, megatrace_replay.AUX_GRAD_COLS) in
 device memory, and the cotangents of pack_aux_tables' four tables come
 back through build_entity_rows (the JAX kernel's rect_geo, rect_rec,
-box_geo and box_rec cotangents).
+box_geo and box_rec cotangents).  Scenes with convex volumes take its
+volume instantiations (`VOL` beside spheres, `AUX_VOL` beside rects and
+boxes): the medium rides eight more state floats, and the cotangent of
+the camera's medium row `vol0` comes back with the camera and sky ones
+(the JAX kernel's `aux_cot["vol0"]`), N_SCAL_VOL scalars in all.
 
 `replay_step_vjp` exposes the kernel's one-iteration VJP (and
 `replay_step_vjp_reference` its autograd counterpart) so that the hand
@@ -48,6 +52,7 @@ from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay as mr
 
 MAX_DEPTH = 64  # deepest trace_depth the path table's codes hold
 N_SCAL = 30  # camera row (24) | sky bottom (3) | sky top (3)
+N_SCAL_VOL = N_SCAL + mk.VOL_ROWS  # ... | vol0 (8): the volume builds
 
 LAUNCHES = 0  # CUDA launches of the path kernel made by replay_grad
 SCAN_LAUNCHES = 0  # CUDA launches of the tape scan (count and scatter)
@@ -78,6 +83,9 @@ TRI_STEP_COTANGENTS = STEP_COTANGENTS + (
 AUX_STEP_COTANGENTS = STEP_COTANGENTS + (
     ("positions", 1, slice(13, 16)), ("extents", 1, slice(16, 19)),
 )
+# ... with volumes: the medium's state floats and the camera's medium row
+VOL_COTANGENTS = (("medium", 0, slice(21, 29)),
+                  ("vol0", 2, slice(N_SCAL, N_SCAL_VOL)))
 
 
 def _flat_tables(tri_tables, rect_tables, box_tables) -> tuple:
@@ -113,22 +121,27 @@ def replay_grad_reference(tape, lane_count, camera_row, centers, radii,
                           jitter: bool = True,
                           tri_tables: tuple | None = None,
                           rect_tables: tuple | None = None,
-                          box_tables: tuple | None = None) -> tuple:
+                          box_tables: tuple | None = None,
+                          vol0: torch.Tensor | None = None) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
     sky_top[, tri_geo, tri_rec][, rect_geo, rect_rec][, box_geo,
-    box_rec]) of the replay's (color_sum, count) given theirs: autograd
-    over the plain replay."""
+    box_rec][, vol0]) of the replay's (color_sum, count) given theirs:
+    autograd over the plain replay."""
     given = (tri_tables, rect_tables, box_tables)
+    vol = () if vol0 is None else (vol0,)
     leaves = tuple(t.detach().to(torch.float32).requires_grad_()
                    for t in (camera_row, centers, radii, records,
-                             sky_bottom, sky_top, *_flat_tables(*given)))
-    tri, rect, box = _unflat_tables(leaves[6:], *given)
+                             sky_bottom, sky_top, *_flat_tables(*given),
+                             *vol))
+    tri, rect, box = _unflat_tables(leaves[6:len(leaves) - len(vol)],
+                                    *given)
     with torch.enable_grad():
         csum, cnt = mr.replay(
             tape, lane_count, *leaves[:6], seed, lane_base, samples=samples,
             trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
             tri_tables=tri, rect_tables=rect, box_tables=box,
+            vol0=leaves[-1] if vol else None,
         )
         grads = torch.autograd.grad(
             (csum, cnt), leaves,
@@ -181,10 +194,14 @@ def canonical_paths(paths):
     return paths[torch.argsort(key)]
 
 
-def _lane_env(lane_count, cam_rows, sky_rows, seed, lane_base):
-    """make_env with per-lane camera (24, n) and sky (6, n) rows."""
+def _lane_env(lane_count, cam_rows, sky_rows, seed, lane_base,
+              vol_rows=None):
+    """make_env with per-lane camera (24, n), sky (6, n) and camera-medium
+    (8, n) rows."""
     env = mr.make_env(lane_count, cam_rows[:, 0], sky_rows[0:3, 0],
                       sky_rows[3:6, 0], seed, lane_base)
+    if vol_rows is not None:
+        env["vol0"] = tuple(vol_rows)
     for j, k in enumerate(_DIFF_ENV):
         env[k] = tuple(cam_rows[3 * j + c] for c in range(3))
     env.update(lens_radius=cam_rows[18], width=cam_rows[19],
@@ -202,15 +219,20 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
                               sky_on: bool = True, jitter: bool = True,
                               tri_tables: tuple | None = None,
                               rect_tables: tuple | None = None,
-                              box_tables: tuple | None = None):
+                              box_tables: tuple | None = None,
+                              vol0: torch.Tensor | None = None):
     """Per-lane VJP of one `replay_iteration`: autograd with every lane's
-    state, winner row, camera and sky as leaves of their own.
+    state, winner row, camera, sky and camera medium as leaves of their
+    own.
 
-    state, cot_out: (21, n) in STATE_KEYS order.  Returns (cot_in (21, n),
-    cot_entity (13, n) over GRAD_COLS, or (28, n) over TRI_GRAD_COLS with
+    state, cot_out: (21, n) in STATE_KEYS order, (29, n) in VOL_STATE_KEYS
+    order with `vol0`.  Returns (cot_in of the state's shape, cot_entity
+    (13, n) over GRAD_COLS, or (28, n) over TRI_GRAD_COLS with
     `tri_tables`, or (19, n) over AUX_GRAD_COLS with `rect_tables` or
-    `box_tables`, cot_scal (30, n): camera row, sky bottom, sky top)."""
+    `box_tables`, cot_scal (30, n): camera row, sky bottom, sky top, and
+    with `vol0` (38, n): then vol0)."""
     n = lane_count.shape[0]
+    keys = mr.state_keys(vol0 is not None)
     has_aux = rect_tables is not None or box_tables is not None
     table = mr.build_entity_rows(centers, radii, records, tri_tables,
                                  rect_tables, box_tables).detach()
@@ -223,17 +245,24 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
         sky = torch.cat([sky_bottom, sky_top]).detach() \
             .to(torch.float32)[:, None].expand(6, n).contiguous() \
             .requires_grad_()
-        env = _lane_env(lane_count, cam, sky, seed, lane_base)
+        scal = [cam, sky]
+        if vol0 is not None:
+            scal.append(vol0.detach().to(torch.float32)[:, None]
+                        .expand(mk.VOL_ROWS, n).contiguous()
+                        .requires_grad_())
+        env = _lane_env(lane_count, cam, sky, seed, lane_base,
+                        scal[2] if vol0 is not None else None)
         out = mr.replay_iteration(
-            dict(zip(mr.STATE_KEYS, st)), wt, tape_row, it, env,
+            dict(zip(keys, st)), wt, tape_row, it, env,
             jitter=jitter, has_dielectrics=has_dielectrics, sky_on=sky_on,
             trace_depth=trace_depth, t_min=t_min,
             has_tris=tri_tables is not None, has_aux=has_aux,
+            has_volumes=vol0 is not None,
         )
-        outs = [out[k] for k in mr.STATE_KEYS]
+        outs = [out[k] for k in keys]
         keep = [j for j, o in enumerate(outs) if o.requires_grad]
-        g_st, g_wt, g_cam, g_sky = torch.autograd.grad(
-            [outs[j] for j in keep], (st, wt, cam, sky),
+        g_st, g_wt, *g_scal = torch.autograd.grad(
+            [outs[j] for j in keep], (st, wt, *scal),
             [cot_out[j] for j in keep], allow_unused=True,
         )
 
@@ -242,7 +271,8 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
 
     cols = grad_cols(tri_tables is not None, has_aux)
     return (dense(g_st, st).detach(), dense(g_wt, wt).detach()[list(cols)],
-            torch.cat([dense(g_cam, cam), dense(g_sky, sky)]).detach())
+            torch.cat([dense(g, leaf) for g, leaf in zip(g_scal, scal)])
+            .detach())
 
 
 def grad_cols(has_tris: bool, has_aux: bool) -> tuple:
@@ -296,11 +326,14 @@ def load_kernel() -> ctypes.CDLL:
     return _KERNEL
 
 
-def _consts(camera_row, sky_bottom, sky_top):
+def _consts(camera_row, sky_bottom, sky_top, vol0=None):
+    """The kernels' constants: camera row | sky bottom | sky top, then two
+    pad floats, or with `vol0` the camera's medium row."""
+    tail = (camera_row.new_zeros(2, dtype=torch.float32) if vol0 is None
+            else vol0.detach().to(torch.float32))
     return torch.cat([camera_row.to(torch.float32),
                       sky_bottom.to(torch.float32),
-                      sky_top.to(torch.float32),
-                      camera_row.new_zeros(2, dtype=torch.float32)])
+                      sky_top.to(torch.float32), tail])
 
 
 def _check(name: str, tensors: dict, shapes: dict, dev) -> None:
@@ -391,15 +424,24 @@ def scan_paths(tape, lane_count, *, samples: int, trace_depth: int):
 
 
 # the kernels' builds: sphere scenes, mesh scenes, scenes with rects or
-# boxes (csrc/megatrace_bwd.cu's `kind` argument)
-SPHERES, MESH, AUX = 0, 1, 2
+# boxes, and the last two with convex volumes (csrc/megatrace_bwd.cu's
+# `kind` argument)
+SPHERES, MESH, AUX, VOL, AUX_VOL = 0, 1, 2, 3, 4
+
+
+def build_kind(has_tris: bool, has_aux: bool, has_volumes: bool) -> int:
+    if has_tris and has_volumes:
+        raise NotImplementedError(f"replay_grad: {mk.VOLUMES_IN_MESHES}")
+    if has_volumes:
+        return AUX_VOL if has_aux else VOL
+    return MESH if has_tris else AUX if has_aux else SPHERES
 
 
 def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                       sky_bottom, sky_top, seed, cot_color, cot_count,
                       lane_base, *, samples, trace_depth, t_min,
                       has_dielectrics, sky_on, jitter, tri_tables,
-                      rect_tables, box_tables):
+                      rect_tables, box_tables, vol0):
     dev = centers.device
     n, s = lane_count.shape[0], centers.shape[0]
     # the tape's shape, the lane counts and the depth: _scan_cuda's checks
@@ -426,6 +468,9 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                              f"multiple of {mk.TRI_PAD} up to {mk.TRI_MAX}")
     if has_aux:
         mk._check_aux_tables(rect_tables, box_tables, dev)
+    if vol0 is not None:
+        _check("replay_grad", dict(vol0=vol0), dict(vol0=(mk.VOL_ROWS,)),
+               dev)
 
     with torch.enable_grad():
         leaves = tuple(t.detach().requires_grad_()
@@ -433,10 +478,10 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                                  *_flat_tables(*given)))
         entity_rows = mr.build_entity_rows(
             *leaves[:3], *_unflat_tables(leaves[3:], *given))
-    kind = MESH if tri else AUX if has_aux else SPHERES
+    kind = build_kind(bool(tri), has_aux, vol0 is not None)
     args = kernel_args(tape, lane_count,
-                       _consts(camera_row, sky_bottom, sky_top), entity_rows,
-                       s, cot_color, cot_count, kind=kind)
+                       _consts(camera_row, sky_bottom, sky_top, vol0),
+                       entity_rows, s, cot_color, cot_count, kind=kind)
     paths = _scan_cuda(args["tape"], args["per_pixel"], samples, trace_depth)
     dent, dscal, dent_rows = _paths_cuda(
         paths, args, seed, lane_base, trace_depth=trace_depth, t_min=t_min,
@@ -447,21 +492,24 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
     if dent_rows is not None:
         dtable[s_pad:, list(cols)] = dent_rows
     grads = torch.autograd.grad(entity_rows, leaves, dtable)
-    return (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30], *grads[3:])
+    vol = () if vol0 is None else (dscal[N_SCAL:],)
+    return (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30], *grads[3:],
+            *vol)
 
 
 def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
                 cot_count, *, kind: int) -> dict:
     """The path kernel's inputs: the contiguous tape, per-pixel counts as
-    floats, the entity table it indexes (sphere scenes: the s real sphere
-    rows; mesh scenes and scenes with rects or boxes: the whole padded
+    floats, the entity table it indexes (sphere scenes, volumes among
+    them: the s real sphere rows; mesh scenes and scenes with rects or
+    boxes: the whole padded
     table, which their tape codes, s_pad + row, index), the constants
-    (camera row, sky, pad), the (4, N) color and count cotangents and the
-    build (`kind`: SPHERES, MESH or AUX)."""
+    (_consts), the (4, N) color and count cotangents and the build
+    (`kind`: SPHERES, MESH, AUX, VOL or AUX_VOL)."""
     return dict(
         tape=tape.contiguous(),
         per_pixel=lane_count.to(torch.float32).contiguous(),
-        ent=entity_rows.detach()[:s if kind == SPHERES else None]
+        ent=entity_rows.detach()[:s if kind in (SPHERES, VOL) else None]
         .contiguous(),
         consts=consts,
         cot=torch.cat([cot_color.T, cot_count[None]]).contiguous(),
@@ -471,10 +519,10 @@ def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
 def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
                 t_min: float, has_dielectrics: bool, sky_on: bool,
                 jitter: bool):
-    """The path kernel over the scan's table: (dent (s, 13), dscal (30),
-    dent_rows: the cotangents of the rows past the padded spheres, (T_pad,
-    28) in mesh scenes, (R_pad + B_pad, 19) with rects or boxes, else
-    None)."""
+    """The path kernel over the scan's table: (dent (s, 13), dscal (30;
+    38 in the volume builds, vol0's last), dent_rows: the cotangents of the
+    rows past the padded spheres, (T_pad, 28) in mesh scenes, (R_pad +
+    B_pad, 19) with rects or boxes, else None)."""
     global LAUNCHES
     lib = load_kernel()
     dev = args["tape"].device
@@ -482,9 +530,10 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
     s_pad = mk.sphere_pad_count(s)
     f32 = dict(dtype=torch.float32, device=dev)
     dent = torch.zeros((s, len(mr.GRAD_COLS)), **f32)
-    dscal = torch.zeros(N_SCAL, **f32)
+    dscal = torch.zeros(N_SCAL_VOL if kind in (VOL, AUX_VOL) else N_SCAL,
+                        **f32)
     next_warp = torch.zeros(1, dtype=torch.int32, device=dev)
-    dent_rows = (None if kind == SPHERES else torch.zeros(
+    dent_rows = (None if kind in (SPHERES, VOL) else torch.zeros(
         (args["ent"].shape[0] - s_pad,
          len(mr.TRI_GRAD_COLS if kind == MESH else mr.AUX_GRAD_COLS)), **f32))
     if paths.shape[0]:
@@ -512,14 +561,17 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
                 sky_on: bool = True, jitter: bool = True,
                 tri_tables: tuple | None = None,
                 rect_tables: tuple | None = None,
-                box_tables: tuple | None = None) -> tuple:
+                box_tables: tuple | None = None,
+                vol0: torch.Tensor | None = None) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
     sky_top[, tri_geo, tri_rec][, rect_geo, rect_rec][, box_geo,
-    box_rec]) of one batch's (color_sum (N, 3), count (N,)) given the
-    color and count cotangents, replaying the tape (samples*trace_depth,
-    N); `tri_tables` is pack_tri_tables' pair of a mesh scene,
-    `rect_tables` and `box_tables` pack_aux_tables' pairs (the JAX
-    kernel's rect_geo, rect_rec, box_geo and box_rec cotangents).
+    box_rec][, vol0]) of one batch's (color_sum (N, 3), count (N,)) given
+    the color and count cotangents, replaying the tape
+    (samples*trace_depth, N); `tri_tables` is pack_tri_tables' pair of a
+    mesh scene, `rect_tables` and `box_tables` pack_aux_tables' pairs (the
+    JAX kernel's rect_geo, rect_rec, box_geo and box_rec cotangents),
+    `vol0` camera_containment_row of a scene with convex volumes (the JAX
+    kernel's aux_cot["vol0"]).
 
     The device of `centers` decides: CUDA tensors launch the kernels
     (csrc/megatrace_bwd.cu: the tape scan, then the path kernel) or raise;
@@ -529,7 +581,7 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, tri_tables=tri_tables,
-                  rect_tables=rect_tables, box_tables=box_tables)
+                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0)
     if centers.device.type == "cuda":
         return _replay_grad_cuda(*args, **kwargs)
     if centers.device.type == "cpu":
@@ -544,7 +596,8 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
                     sky_on: bool = True, jitter: bool = True,
                     tri_tables: tuple | None = None,
                     rect_tables: tuple | None = None,
-                    box_tables: tuple | None = None):
+                    box_tables: tuple | None = None,
+                    vol0: torch.Tensor | None = None):
     """The backward kernel's one-iteration VJP on every lane (see
     `replay_step_vjp_reference` for the arguments and outputs).  CUDA
     tensors launch the kernel's step entry point; CPU tensors run the plain
@@ -552,7 +605,7 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
     kwargs = dict(trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, tri_tables=tri_tables,
-                  rect_tables=rect_tables, box_tables=box_tables)
+                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0)
     args = (state, tape_row, it, cot_out, lane_count, camera_row, centers,
             radii, records, sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cpu":
@@ -562,20 +615,22 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
                          f"{centers.device}")
     dev = centers.device
     n = lane_count.shape[0]
+    keys = mr.state_keys(vol0 is not None)
     _check("replay_step_vjp", dict(state=state, tape_row=tape_row,
                                    cot_out=cot_out),
-           dict(state=(len(mr.STATE_KEYS), n), tape_row=(n,),
-                cot_out=(len(mr.STATE_KEYS), n)), dev)
+           dict(state=(len(keys), n), tape_row=(n,),
+                cot_out=(len(keys), n)), dev)
     lib = load_kernel()
     ent = mr.build_entity_rows(centers, radii, records, tri_tables,
                                rect_tables, box_tables).detach().contiguous()
-    consts = _consts(camera_row, sky_bottom, sky_top)
+    consts = _consts(camera_row, sky_bottom, sky_top, vol0)
     f32 = dict(dtype=torch.float32, device=dev)
     has_aux = rect_tables is not None or box_tables is not None
     cols = grad_cols(tri_tables is not None, has_aux)
-    cot_in = torch.empty((len(mr.STATE_KEYS), n), **f32)
+    cot_in = torch.empty((len(keys), n), **f32)
     cot_ent = torch.empty((len(cols), n), **f32)
-    cot_scal = torch.empty((N_SCAL, n), **f32)
+    cot_scal = torch.empty((N_SCAL if vol0 is None else N_SCAL_VOL, n),
+                           **f32)
     # keep every buffer the launch reads bound until it is enqueued
     state, tape_row, cot_out = (t.contiguous()
                                 for t in (state, tape_row, cot_out))
@@ -586,7 +641,7 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
         cot_in.data_ptr(), cot_ent.data_ptr(), cot_scal.data_ptr(), n,
         int(it), int(seed), int(lane_base), trace_depth, float(t_min),
         int(has_dielectrics), int(sky_on), int(jitter),
-        MESH if tri_tables is not None else AUX if has_aux else SPHERES,
+        build_kind(tri_tables is not None, has_aux, vol0 is not None),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

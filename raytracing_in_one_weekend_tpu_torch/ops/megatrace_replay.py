@@ -1,6 +1,6 @@
 """Differentiable tape replay of the fused batch kernel (counterpart of the
-JAX package's ops/megatrace_replay.py, its sphere, rect, box and triangle
-arms).
+JAX package's ops/megatrace_replay.py, its sphere, rect, box, triangle and
+convex-volume arms).
 
 The forward kernel (ops/megatrace.sample_batch, want_tape=True) records
 the winner of every iteration on every lane: the sphere row, the padded
@@ -13,9 +13,12 @@ PyTorch: each iteration gathers only the winner's entity row (a sphere's
 quadratic, a rect's plane or a box's face in the entity's frame, or a
 triangle's Möller–Trumbore and barycentric normal lerp),
 so there is no (lanes, entities) intersection work and no kernel in the
-autograd graph.  Discrete decisions (winner, root, lotteries) are
-constants of the tape: the detached-decision gradient estimator, plus the
-score-function `lp` terms that carry the lotteries' probability shift.
+autograd graph.  Discrete decisions (winner, root, lotteries, the volume
+walk's scatter or pass) are constants of the tape: the detached-decision
+gradient estimator, plus the score-function `lp` terms that carry the
+lotteries' probability shift and the Beer-Lambert free path's (a volume's
+density moves only through them).  With `vol0` each lane carries its
+medium (eight more state rows, VOL_KEYS), reset from vol0 at every regen.
 
 Replay-vs-kernel contract: the same hash PRNG, the same branch rules and
 the same precision helpers (`ops/megatrace._fma`, `_sqrt`, ...) where the
@@ -36,9 +39,9 @@ the sphere discriminant and the refraction discriminant are floored at
 
 Scope: every scene the batch kernel accepts
 (`ops/megatrace.scene_eligible(scene, allow_triangles=True,
-allow_rect_box=True)`: spheres, rects and boxes, meshes of at most TRI_MAX
-triangles, Lambert/GGX metal/dielectric, gradient or no sky, white
-noise).
+allow_rect_box=True, allow_volumes=True)`: spheres, rects and boxes, convex
+volumes beside them, meshes of at most TRI_MAX triangles, Lambert/GGX
+metal/dielectric, gradient or no sky, white noise).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from raytracing_in_one_weekend_tpu_torch.ops.megatrace import (
     _sin,
     _smith_masking,
     _sqrt,
+    _log,
     _unit_sphere,
     uniforms_hash,
 )
@@ -79,17 +83,22 @@ STATE_KEYS = (
     "radx", "rady", "radz", "active", "valid", "started", "depth_ct",
     "csx", "csy", "csz", "cnt", "lp",
 )
+VOL_STATE_KEYS = STATE_KEYS + mk.VOL_KEYS  # ... with the medium (volumes)
 AOV_OUTPUTS = ("normal", "albedo", "weight", "fallback_normal",
                "fallback_albedo")
 
 
+def state_keys(has_volumes: bool) -> tuple:
+    return VOL_STATE_KEYS if has_volumes else STATE_KEYS
+
+
 def replay_eligible(scene) -> bool:
     """Can this scene take the differentiable fused path?  The forward
-    batch kernel's scope, rects, boxes and meshes of at most TRI_MAX
-    triangles included (JAX replay_eligible: the tape has no
+    batch kernel's scope, rects, boxes, convex volumes and meshes of at
+    most TRI_MAX triangles included (JAX replay_eligible: the tape has no
     streamed-triangle arm)."""
     return (mk.scene_eligible(scene, allow_triangles=True,
-                              allow_rect_box=True)
+                              allow_rect_box=True, allow_volumes=True)
             and scene.triangles.vert0.shape[0] <= mk.TRI_MAX)
 
 
@@ -153,17 +162,20 @@ def build_entity_rows(centers, radii, records, tri_tables=None,
     return torch.cat(blocks)
 
 
-def initial_state(n: int, device) -> dict:
+def initial_state(n: int, device, has_volumes: bool = False) -> dict:
     zero = torch.zeros(n, dtype=torch.float32, device=device)
-    state = {k: zero for k in STATE_KEYS}
+    state = {k: zero for k in state_keys(has_volumes)}
     state.update(thx=zero + 1.0, thy=zero + 1.0, thz=zero + 1.0)
+    if has_volumes:
+        state["in_id"] = zero - 1.0  # no medium
     return state
 
 
 def make_env(lane_count, camera_row, sky_bottom, sky_top, seed,
-             lane_base: int = 0) -> dict:
+             lane_base: int = 0, vol0=None) -> dict:
     """Per-call constants of `replay_iteration`: per-lane rows and the
-    camera and sky pieces (0-d tensors, differentiable)."""
+    camera, sky and camera-medium (`vol0`) pieces (0-d tensors,
+    differentiable)."""
     n = lane_count.shape[0]
     dev = lane_count.device
     cam = camera_row.to(torch.float32)
@@ -179,6 +191,7 @@ def make_env(lane_count, camera_row, sky_bottom, sky_top, seed,
         rr=cam[12:15], uu=cam[15:18],
         lens_radius=cam[18], width=cam[19], height=cam[20],
         sky_b=sky_bottom.to(torch.float32), sky_t=sky_top.to(torch.float32),
+        vol0=None if vol0 is None else vol0.to(torch.float32),
     )
 
 
@@ -195,7 +208,8 @@ def _log_floor(x):
 def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
                      jitter: bool, has_dielectrics: bool, sky_on: bool,
                      trace_depth: int, t_min: float = 0.0,
-                     has_tris: bool = False, has_aux: bool = False) -> dict:
+                     has_tris: bool = False, has_aux: bool = False,
+                     has_volumes: bool = False) -> dict:
     """One persistent-lane iteration along the tape: regen, one bounce at
     the tape's winner, fold and termination (JAX replay_iteration :260,
     sphere, rect, box and triangle arms).
@@ -207,7 +221,9 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     (kind 3), whose winners take Möller–Trumbore and the normal lerp.
     has_aux: it has rect or box rows (kinds 1, 2), whose winners take the
     ray in the entity's frame, the rect's plane distance or the box's face
-    distance, and their normals."""
+    distance, and their normals.  has_volumes: the convex volume walk,
+    the medium in state keys VOL_KEYS and env["vol0"] (the JAX replay's
+    :682-760, :856-870, :957-975)."""
     per_pixel, lanes, seed = env["per_pixel"], env["lanes"], env["seed"]
     co, ll, hh, vv = env["co"], env["ll"], env["hh"], env["vv"]
     rr, uu = env["rr"], env["uu"]
@@ -260,11 +276,14 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     active = torch.where(regen, 1.0, active)
     was_active = active > 0.5
     lp = torch.where(regen, 0.0, state["lp"])
+    if has_volumes:  # the camera's medium
+        med = {k: torch.where(regen, env["vol0"][j], state[k])
+               for j, k in enumerate(mk.VOL_KEYS)}
 
     # ---- one bounce at the tape's winner ---------------------------------
-    ua, ub, uc, ud, u_choice, u_choice2 = uniforms_hash(
-        seed, salt + mk.SALT_BOUNCE, lanes, 6
-    )
+    u_bounce = uniforms_hash(seed, salt + mk.SALT_BOUNCE, lanes,
+                             7 if has_volumes else 6)
+    ua, ub, uc, ud, u_choice, u_choice2 = u_bounce[:6]
     hit = was_active & (tape_row >= -0.5)
     miss = was_active & ~hit
     cx, cy, cz, r = wt[0], wt[1], wt[2], wt[3]
@@ -358,6 +377,56 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     em_r, em_g, em_b = wt[14], wt[15], wt[16]
     gloss, metallic, parameter = wt[17], wt[18], wt[19]
 
+    scatter_mask = hit
+    if has_volumes:
+        # ---- probabilistic volume walk (the kernel's): the decisions
+        # recompute from the uniforms and the winner; the free path is
+        # detached, so the density moves through the lp terms only -------
+        t_exit = torch.where(s_hit & (t_far > t_min), t_far, mk.BIG)
+        if has_aux:
+            t_exit = torch.where(b_hit, mk.box_exit(
+                o, d, q, pos, ext, t_min, parallel_inf=False), t_exit)
+        in_vol = med["in_id"] >= 0.0
+        hit_is_vol = hit & (mtype > 1.5)
+        entering = _dot3(dx, dy, dz, nx, ny, nz) < 0.0
+        v = {k: torch.where(in_vol, med[k], own) for k, own in (
+            ("in_id", wt[22]), ("in_den", parameter), ("in_ar", alb_r),
+            ("in_ag", alb_g), ("in_ab", alb_b), ("in_er", em_r),
+            ("in_eg", em_g), ("in_eb", em_b))}
+        free_path = -_log(torch.clamp(u_bounce[6], min=1e-12)) / torch.clamp(
+            v["in_den"], min=1e-12).detach()
+        best_t = torch.where(hit, t_hit, mk.BIG)
+        seg_len = torch.where(in_vol, best_t, t_exit - best_t)
+        vol_candidate = hit & (in_vol | (hit_is_vol & entering))
+        vol_scatter = vol_candidate & (free_path < seg_len)
+        vol_t = torch.where(in_vol, free_path, best_t + free_path)
+        pass_through = hit & ~in_vol & hit_is_vol & entering & ~vol_scatter
+        exits_own = (in_vol & hit & hit_is_vol & ~entering & ~vol_scatter
+                     & (torch.abs(wt[22] - med["in_id"]) < 0.5))
+        skip = pass_through | exits_own
+        skip_t = torch.where(skip, torch.where(pass_through, t_exit, best_t),
+                             0.0)
+        scatter_mask = hit & ~skip
+        # score function of the walk's decisions: a scatter at d has pdf
+        # rho exp(-rho d), a survived segment L probability exp(-rho L)
+        survive = vol_candidate & ~vol_scatter
+        rho = torch.clamp(v["in_den"], min=1e-8)
+        d_obs = torch.where(vol_scatter, free_path, 0.0).detach()
+        l_obs = torch.where(survive, torch.clamp(seg_len, max=1e6),
+                            0.0).detach()
+        lp = lp + torch.where(vol_scatter, torch.log(rho) - rho * d_obs,
+                              0.0) + torch.where(survive, -rho * l_obs, 0.0)
+        # the in-medium scatter replaces the surface hit
+        px = torch.where(vol_scatter, _fma(vol_t, dx, ox), px)
+        py = torch.where(vol_scatter, _fma(vol_t, dy, oy), py)
+        pz = torch.where(vol_scatter, _fma(vol_t, dz, oz), pz)
+        nx = torch.where(vol_scatter, -dx, nx)
+        ny = torch.where(vol_scatter, -dy, ny)
+        nz = torch.where(vol_scatter, -dz, nz)
+        em_r = torch.where(vol_scatter, v["in_er"], em_r)
+        em_g = torch.where(vol_scatter, v["in_eg"], em_g)
+        em_b = torch.where(vol_scatter, v["in_eb"], em_b)
+
     # ---- Standard scatter (Material.cs:75-119) ---------------------------
     roughness = (1.0 - gloss) * (1.0 - gloss)
     csx, csy, csz = _cosine_hemisphere(ua, ub, nx, ny, nz)
@@ -445,6 +514,17 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
         srg = torch.where(is_diel, torch.where(do_refract, alb_g, 1.0), srg)
         srb = torch.where(is_diel, torch.where(do_refract, alb_b, 1.0), srb)
 
+    if has_volumes:
+        # isotropic in-medium scatter: no lottery, the medium's albedo
+        vsx, vsy, vsz = _unit_sphere(uc, ud)
+        sdx = torch.where(vol_scatter, vsx, sdx)
+        sdy = torch.where(vol_scatter, vsy, sdy)
+        sdz = torch.where(vol_scatter, vsz, sdz)
+        srr = torch.where(vol_scatter, v["in_ar"], srr)
+        srg = torch.where(vol_scatter, v["in_ag"], srg)
+        srb = torch.where(vol_scatter, v["in_ab"], srb)
+        lp_inc = torch.where(vol_scatter, 0.0, lp_inc)
+
     # ---- sky + fold (SampleBatchJob.cs:341-396) --------------------------
     if sky_on:
         tsky = 0.5 * (dy + 1.0)
@@ -453,27 +533,35 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
         skb = _fma(sky_t[2] - sky_b[2], tsky, sky_b[2])
     else:
         skr = skg = skb = torch.zeros_like(dx)
-    lp = lp + torch.where(hit, lp_inc, 0.0)
-    emr = torch.where(hit, em_r, torch.where(miss, skr, 0.0))
-    emg = torch.where(hit, em_g, torch.where(miss, skg, 0.0))
-    emb = torch.where(hit, em_b, torch.where(miss, skb, 0.0))
+    lp = lp + torch.where(scatter_mask, lp_inc, 0.0)
+    emr = torch.where(scatter_mask, em_r, torch.where(miss, skr, 0.0))
+    emg = torch.where(scatter_mask, em_g, torch.where(miss, skg, 0.0))
+    emb = torch.where(scatter_mask, em_b, torch.where(miss, skb, 0.0))
     radx = _fma(thx, emr, radx)
     rady = _fma(thy, emg, rady)
     radz = _fma(thz, emb, radz)
-    thx = torch.where(hit, thx * srr, thx)
-    thy = torch.where(hit, thy * srg, thy)
-    thz = torch.where(hit, thz * srb, thz)
+    thx = torch.where(scatter_mask, thx * srr, thx)
+    thy = torch.where(scatter_mask, thy * srg, thy)
+    thz = torch.where(scatter_mask, thz * srb, thz)
 
     # ---- advance + termination -------------------------------------------
     off = mk.SELF_EPS * torch.where(
         _dot3(sdx, sdy, sdz, nx, ny, nz) >= 0.0, 1.0, -1.0
     )
-    ox = torch.where(hit, _fma(off, nx, px), ox)
-    oy = torch.where(hit, _fma(off, ny, py), oy)
-    oz = torch.where(hit, _fma(off, nz, pz), oz)
-    dx = torch.where(hit, sdx, dx)
-    dy = torch.where(hit, sdy, dy)
-    dz = torch.where(hit, sdz, dz)
+    new_o = [torch.where(scatter_mask, _fma(off, n_k, p_k), o_k)
+             for n_k, p_k, o_k in ((nx, px, ox), (ny, py, oy), (nz, pz, oz))]
+    if has_volumes:
+        # a skip passes the boundary without scattering; the medium is
+        # entered on a scatter, left on a skip
+        new_o = [torch.where(skip, _fma(skip_t + mk.SELF_EPS, d_k, o_k), n_o)
+                 for n_o, o_k, d_k in zip(new_o, (ox, oy, oz), (dx, dy, dz))]
+        med = {k: torch.where(vol_scatter, v[k], med[k])
+               for k in mk.VOL_KEYS}
+        med["in_id"] = torch.where(skip, -1.0, med["in_id"])
+    ox, oy, oz = new_o
+    dx = torch.where(scatter_mask, sdx, dx)
+    dy = torch.where(scatter_mask, sdy, dy)
+    dz = torch.where(scatter_mask, sdz, dz)
     active = torch.where(miss, 0.0, active)
     valid = torch.where(miss, 1.0, valid)
     depth_ct = depth_ct + torch.where(was_active, 1.0, 0.0)
@@ -488,7 +576,7 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     rad_oky = torch.where(ok, rady, 0.0)
     rad_okz = torch.where(ok, radz, 0.0)
     ok_f = torch.where(ok, 1.0, 0.0)
-    return dict(
+    out = dict(
         ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
         thx=thx, thy=thy, thz=thz, radx=radx, rady=rady, radz=radz,
         active=active, valid=valid, started=started, depth_ct=depth_ct,
@@ -498,6 +586,9 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
         cnt=state["cnt"] + ok_f + ok_f * carrier,
         lp=lp,
     )
+    if has_volumes:
+        out.update(med)
+    return out
 
 
 def replay(
@@ -521,12 +612,14 @@ def replay(
     tri_tables: tuple | None = None,
     rect_tables: tuple | None = None,
     box_tables: tuple | None = None,
+    vol0: torch.Tensor | None = None,
 ):
     """Differentiable (color_sum (N, 3), count (N,)) of one batch,
     replaying the kernel's persistent-lane loop along the recorded tape
     (`tri_tables`: pack_tri_tables' pair, differentiable, for a mesh
     scene; `rect_tables`, `box_tables`: pack_aux_tables' pairs,
-    differentiable).
+    differentiable; `vol0`: camera_containment_row, differentiable, for a
+    scene with convex volumes).
 
     One checkpointed block per `trace_depth` iterations (JAX :1167-1201):
     the winner rows of the block are gathered at once, and only the
@@ -536,30 +629,33 @@ def replay(
     entity_rows = build_entity_rows(centers, radii, records, tri_tables,
                                     rect_tables, box_tables)
     env = make_env(lane_count, camera_row, sky_bottom, sky_top, seed,
-                   lane_base)
+                   lane_base, vol0)
+    has_volumes = vol0 is not None
+    keys = state_keys(has_volumes)
     statics = dict(jitter=jitter, has_dielectrics=has_dielectrics,
                    sky_on=sky_on, trace_depth=trace_depth, t_min=t_min,
                    has_tris=tri_tables is not None,
-                   has_aux=rect_tables is not None or box_tables is not None)
-    state = initial_state(n, lane_count.device)
+                   has_aux=rect_tables is not None or box_tables is not None,
+                   has_volumes=has_volumes)
+    state = initial_state(n, lane_count.device, has_volumes)
     winners = torch.clamp(tape, min=0.0).to(torch.int64)
     block = trace_depth
 
     def run_block(b0, *flat):
-        st = dict(zip(STATE_KEYS, flat))
+        st = dict(zip(keys, flat))
         for it in range(b0, b0 + block):
             wt = entity_rows[winners[it]].T  # (cols, n) winner rows
             st = replay_iteration(st, wt, tape[it], it, env, **statics)
-        return tuple(st[k] for k in STATE_KEYS)
+        return tuple(st[k] for k in keys)
 
     for b0 in range(0, samples * trace_depth, block):
         if not bool((tape[b0:b0 + block] > -1.5).any()):
             continue
         out = torch_checkpoint.checkpoint(
-            run_block, b0, *(state[k] for k in STATE_KEYS),
+            run_block, b0, *(state[k] for k in keys),
             use_reentrant=False,
         )
-        state = dict(zip(STATE_KEYS, out))
+        state = dict(zip(keys, out))
     return (torch.stack([state["csx"], state["csy"], state["csz"]], dim=-1),
             state["cnt"])
 
@@ -583,25 +679,27 @@ def _pairs(tables: dict):
 
 class _SampleBatchDiff(torch.autograd.Function):
     """Inputs: the six differentiable tables, the six tables of
-    TABLE_INPUTS (None where the scene has no such kind), then the
-    non-differentiable lane rows, the seed, the lane base and the static
-    options."""
+    TABLE_INPUTS (None where the scene has no such kind), vol0 (None
+    without volumes), then the non-differentiable lane rows, the seed, the
+    lane base and the static options."""
 
     @staticmethod
     def forward(ctx, camera_row, centers, radii, records, sky_bottom,
                 sky_top, tri_geo, tri_rec, rect_geo, rect_rec, box_geo,
-                box_rec, lane_count, count_in, seed, lane_base, statics):
+                box_rec, vol0, lane_count, count_in, seed, lane_base,
+                statics):
         tables = dict(zip(TABLE_INPUTS, (tri_geo, tri_rec, rect_geo,
                                          rect_rec, box_geo, box_rec)))
         tri, rect, box = _pairs(tables)
         out = mk.sample_batch(
             lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base, want_tape=True,
-            tri_tables=tri, rect_tables=rect, box_tables=box, **statics,
+            tri_tables=tri, rect_tables=rect, box_tables=box, vol0=vol0,
+            **statics,
         )
         ctx.save_for_backward(out["tape"], lane_count, camera_row, centers,
                               radii, records, sky_bottom, sky_top,
-                              *tables.values())
+                              *tables.values(), vol0)
         ctx.seed, ctx.lane_base, ctx.statics = seed, lane_base, statics
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(out["rays"])
@@ -623,7 +721,7 @@ class _SampleBatchDiff(torch.autograd.Function):
         from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 
         (tape, lane_count, camera_row, centers, radii, records, sky_bottom,
-         sky_top, *table_list) = ctx.saved_tensors
+         sky_top, *table_list, vol0) = ctx.saved_tensors
         tables = dict(zip(TABLE_INPUTS, table_list))
         tri, rect, box = _pairs(tables)
         n = lane_count.shape[0]
@@ -635,14 +733,16 @@ class _SampleBatchDiff(torch.autograd.Function):
             tape, lane_count, camera_row, centers, radii, records,
             sky_bottom, sky_top, ctx.seed, cot_color, cot_count,
             ctx.lane_base, tri_tables=tri, rect_tables=rect,
-            box_tables=box, **ctx.statics,
+            box_tables=box, vol0=vol0, **ctx.statics,
         ))
+        vol0_grad = grads.pop() if vol0 is not None else None
         table_grads = [None] * len(TABLE_INPUTS)
         for j, pair in enumerate((tri, rect, box)):
             if pair is not None:
                 table_grads[2 * j:2 * j + 2] = grads[6:8]
                 del grads[6:8]
-        return (*grads, *table_grads, None, None, None, None, None)
+        return (*grads, *table_grads, vol0_grad, None, None, None, None,
+                None)
 
 
 def sample_batch_diff(
@@ -666,19 +766,21 @@ def sample_batch_diff(
     tri_tables: tuple | None = None,
     rect_tables: tuple | None = None,
     box_tables: tuple | None = None,
+    vol0: torch.Tensor | None = None,
 ) -> dict:
     """`megatrace.sample_batch` with gradients with respect to camera_row,
     centers, radii, records, sky_bottom, sky_top and, where the scene has
     them, the two tables of `tri_tables` (pack_tri_tables' pair: the
-    soup's edges, vertices and normals and the triangle materials) and of
+    soup's edges, vertices and normals and the triangle materials), of
     `rect_tables` and `box_tables` (pack_aux_tables' pairs: quaternions,
-    positions, extents and materials; JAX `_aux_pairs`), through the tape
-    replay.  Outputs are the kernel's (no tape).  Only the `color` and
-    `count` cotangents propagate; a loss that differentiates an AOV output
-    raises NotImplementedError in backward (render_batch grafts the AOV
-    gradients on from the wavefront).  When no input requires a
-    gradient (or grad mode is off) this is the forward path, with no
-    tape."""
+    positions, extents and materials; JAX `_aux_pairs`) and `vol0`
+    (camera_containment_row: the camera medium's density, albedo and
+    emission), through the tape replay.  Outputs are the kernel's (no
+    tape).  Only the `color` and `count` cotangents propagate; a loss that
+    differentiates an AOV output raises NotImplementedError in backward
+    (render_batch grafts the AOV gradients on from the wavefront).  When
+    no input requires a gradient (or grad mode is off) this is the
+    forward path, with no tape."""
     statics = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                    has_dielectrics=has_dielectrics, sky_on=sky_on,
                    jitter=jitter)
@@ -687,12 +789,12 @@ def sample_batch_diff(
                    for t in ((None, None) if pair is None else tuple(pair)))
     if not (torch.is_grad_enabled()
             and any(t is not None and t.requires_grad
-                    for t in (*diff_inputs, *tables))):
+                    for t in (*diff_inputs, *tables, vol0))):
         return mk.sample_batch(lane_count, count_in, *diff_inputs, seed,
                                lane_base, tri_tables=tri_tables,
                                rect_tables=rect_tables,
-                               box_tables=box_tables, **statics)
-    outs = _SampleBatchDiff.apply(*diff_inputs, *tables, lane_count,
+                               box_tables=box_tables, vol0=vol0, **statics)
+    outs = _SampleBatchDiff.apply(*diff_inputs, *tables, vol0, lane_count,
                                   count_in, int(seed), int(lane_base),
                                   statics)
     return dict(zip(mk.OUTPUT_KEYS, outs))

@@ -23,10 +23,18 @@ conditions:
   selections `sphere_select` and `triangle_select`, the rect and box
   tests in plain PyTorch, then the winners' tests with gradients).
 
-On CPU tensors each kernel runs its plain PyTorch version.  Volumes,
-motion, rects or boxes in mesh scenes, procedural textures and cubemap
-skies raise NotImplementedError naming their ROADMAP steps, and so does a
-noise context (sampler flavors, step 11).
+Convex volumes (spheres and boxes of a ProbabilisticVolume material) take
+the general arm's probabilistic walk (SampleBatchJob.cs:212-303): each
+path carries the volume it is in (`inside_volume`, from
+`intersect.point_inside_volume` at the start), a Beer-Lambert free path
+decides between an in-medium scatter and the next surface, and an entry
+or an exit without a scatter passes the boundary; the density's gradient
+rides the score-function `logp`.
+
+On CPU tensors each kernel runs its plain PyTorch version.  Motion, rects,
+boxes or volumes in mesh scenes, procedural textures and cubemap skies
+raise NotImplementedError naming their ROADMAP steps, and so does a noise
+context (sampler flavors, step 11).
 """
 
 from __future__ import annotations
@@ -44,7 +52,9 @@ from raytracing_in_one_weekend_tpu_torch.core.ray import (
 from raytracing_in_one_weekend_tpu_torch.ops import (
     intersect, megatrace, sphere_select,
 )
-from raytracing_in_one_weekend_tpu_torch.scene.scene import EntityKind, Scene
+from raytracing_in_one_weekend_tpu_torch.scene.scene import (
+    EntityKind, MaterialType, Scene,
+)
 from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
 
 SEED_RANGE = 2**31 - 1  # kernel seeds are drawn from [0, SEED_RANGE)
@@ -139,6 +149,10 @@ def trace(
         )
 
     f32 = dict(dtype=torch.float32, device=dev)
+    if scene.flags.has_volumes:
+        inside0 = intersect.point_inside_volume(scene, rays.origin)
+    else:
+        inside0 = torch.full((n,), -1, dtype=torch.int32, device=dev)
     state = PathState(
         origin=rays.origin,
         direction=rays.direction,
@@ -147,7 +161,7 @@ def trace(
         radiance=torch.zeros((n, 3), **f32),
         active=active.to(torch.bool),
         valid=torch.zeros(n, dtype=torch.bool, device=dev),
-        inside_volume=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        inside_volume=inside0,
         aov_normal=torch.zeros((n, 3), **f32),
         aov_albedo=torch.zeros((n, 3), **f32),
         got_nonspecular=torch.zeros(n, dtype=torch.bool, device=dev),
@@ -157,6 +171,7 @@ def trace(
     # the fast arm's per-sphere records: packed material row + material id
     sph_records = None
     if (not differentiable and scene.spheres.center.shape[0] > 0
+            and not scene.flags.has_volumes
             and scene.rects.rot.shape[0] == 0
             and scene.boxes.rot.shape[0] == 0
             and scene.triangles.vert0.shape[0] == 0):
@@ -220,16 +235,77 @@ def _bounce_once(
     else:
         hit = intersect.nearest_hit(scene, rays)
 
-    scatter_mask = state.active & hit.hit
+    false_n = torch.zeros(n, dtype=torch.bool, device=hit.t.device)
+    vol_candidate = skip = false_n
+    skip_t = hit.t
+    logp = state.logp
+    eff_point, eff_normal, eff_material = hit.point, hit.normal, hit.material
+    eff_uv = hit.uv
+    new_inside = state.inside_volume
+    if scene.flags.has_volumes:
+        # ---- probabilistic volume walk (SampleBatchJob.cs:212-303) -------
+        hit_is_volume = hit.hit & (
+            scene.materials.type[hit.material.long()]
+            == MaterialType.PROBABILISTIC_VOLUME)
+        entering = math3.dot(hit.normal, state.direction) < 0.0
+        in_vol = state.inside_volume >= 0
+        vol_mat = torch.where(in_vol, state.inside_volume, hit.material)
+        density = scene.materials.parameter[torch.clamp(vol_mat, min=0)
+                                            .long()]
+        u_free = rng.uniform(
+            rng.purpose_key(key, rng.Purpose.VOLUME_FREE_PATH), (n,),
+            device=hit.t.device)
+        # the free-path draw is a sampling decision: its density dependence
+        # is detached and carried by the score-function logp below
+        free_path = materials.volume_free_path(density.detach(), u_free)
+        # inside a volume the whole segment [0, t) is in the medium; at an
+        # entry boundary, [t, t_exit) of the hit convex entity
+        seg_len = torch.where(in_vol, hit.t, hit.t_exit - hit.t)
+        vol_candidate = hit.hit & (in_vol | (hit_is_volume & entering))
+        vol_scatter = vol_candidate & (free_path < seg_len)
+        vol_t = torch.where(in_vol, free_path, hit.t + free_path)
+        pass_through = (hit.hit & ~in_vol & hit_is_volume & entering
+                        & ~vol_scatter)
+        exits_own = (in_vol & hit.hit & hit_is_volume & ~entering
+                     & ~vol_scatter & (hit.material == state.inside_volume))
+        skip = pass_through | exits_own
+        skip_t = torch.where(pass_through, hit.t_exit, hit.t)
+        # score function of the observed decisions as a function of the
+        # density: a scatter at d has pdf rho exp(-rho d), surviving a
+        # segment L probability exp(-rho L) (observations detached)
+        survive = vol_candidate & ~vol_scatter
+        rho = torch.clamp(density, min=1e-8)
+        logp_inc = (torch.where(vol_scatter,
+                                torch.log(rho) - rho * free_path.detach(),
+                                0.0)
+                    + torch.where(survive, -rho * seg_len.detach(), 0.0))
+        logp = logp + torch.where(state.active, logp_inc, 0.0)
+        # the in-medium scatter replaces the surface hit
+        eff_point = torch.where(
+            vol_scatter[:, None],
+            state.origin + vol_t[:, None] * state.direction, hit.point)
+        eff_normal = torch.where(vol_scatter[:, None], -state.direction,
+                                 hit.normal)
+        eff_material = torch.where(vol_scatter, vol_mat, hit.material)
+        eff_uv = torch.where(vol_scatter[:, None], 0.0, hit.uv)
+        # the medium: entered on a scatter, left on a skip, kept on a
+        # scatter off a surface inside it
+        new_inside = torch.where(
+            state.active,
+            torch.where(vol_scatter, vol_mat,
+                        torch.where(skip, -1, state.inside_volume)),
+            state.inside_volume).to(torch.int32)
+
+    scatter_mask = state.active & hit.hit & ~skip
     tsd_on = first_bounce_tsd is not None and bounce_index == 0
     sc = materials.scatter(
-        scene, state.direction, hit.normal, hit.point, hit.uv, hit.material,
+        scene, state.direction, eff_normal, eff_point, eff_uv, eff_material,
         key, packed=packed, row=row, lambert_tsd=first_bounce_tsd,
         lambert_tsd_on=tsd_on,
     )
     # material-lottery decisions join the path's score accumulator; zero
     # along deterministic branches
-    logp = state.logp + torch.where(scatter_mask, sc.logp, 0.0)
+    logp = logp + torch.where(scatter_mask, sc.logp, 0.0)
 
     # ---- sky termination (SampleBatchJob.cs:341-374) ------------------------
     miss = state.active & ~hit.hit
@@ -246,10 +322,10 @@ def _bounce_once(
     # ---- AOV capture (SampleBatchJob.cs:313-330,366-372) ---------------------
     got = state.got_nonspecular
     aov_normal = torch.where(
-        (scatter_mask & (bounce_index == 0) & ~got)[:, None], hit.normal,
+        (scatter_mask & (bounce_index == 0) & ~got)[:, None], eff_normal,
         state.aov_normal)
     first_nonspec = scatter_mask & ~got & ~sc.perfect_specular
-    aov_normal = torch.where(first_nonspec[:, None], hit.normal, aov_normal)
+    aov_normal = torch.where(first_nonspec[:, None], eff_normal, aov_normal)
     aov_albedo = torch.where(first_nonspec[:, None],
                              sc.emission + sc.reflectance, state.aov_albedo)
     sky_first = miss & ~got
@@ -259,17 +335,23 @@ def _bounce_once(
     got_nonspecular = got | first_nonspec | sky_first
 
     # ---- RandomEvents accumulation (SampleBatchJob.cs:332,363) ---------------
-    step_events = torch.where(scatter_mask, sc.random_events, 0.0)
+    step_events = (torch.where(scatter_mask, sc.random_events, 0.0)
+                   # a probabilistic hit costs one event (:332)
+                   + torch.where(state.active & vol_candidate, 1.0, 0.0))
     events = state.events + step_events * 2.0 ** -bounce_index
 
     # ---- advance -------------------------------------------------------------
-    offset_sign = torch.where(math3.dot(sc.direction, hit.normal) >= 0.0,
+    offset_sign = torch.where(math3.dot(sc.direction, eff_normal) >= 0.0,
                               1.0, -1.0)
     new_origin = torch.where(
         scatter_mask[:, None],
-        hit.point + SELF_INTERSECTION_OFFSET * offset_sign[:, None]
-        * hit.normal,
-        state.origin,
+        eff_point + SELF_INTERSECTION_OFFSET * offset_sign[:, None]
+        * eff_normal,
+        torch.where(
+            (state.active & skip)[:, None],
+            state.origin + (skip_t + SELF_INTERSECTION_OFFSET)[:, None]
+            * state.direction,
+            state.origin),
     )
     new_direction = torch.where(scatter_mask[:, None], sc.direction,
                                 state.direction)
@@ -282,7 +364,7 @@ def _bounce_once(
         radiance=torch.where(was[:, None], radiance, state.radiance),
         active=was & ~miss,
         valid=state.valid | miss,
-        inside_volume=state.inside_volume,
+        inside_volume=new_inside,
         aov_normal=torch.where(was[:, None], aov_normal, state.aov_normal),
         aov_albedo=torch.where(was[:, None], aov_albedo, state.aov_albedo),
         got_nonspecular=torch.where(was, got_nonspecular, got),

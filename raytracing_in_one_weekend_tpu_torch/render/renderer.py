@@ -11,7 +11,9 @@ arms on its conditions:
   grad): one `ops.megatrace.sample_batch` launch per batch, with the
   triangle tables of a mesh scene (`pack_tri_tables`) or the rect and box
   tables of a scene with rects or boxes (`pack_aux_tables`, the kernel's
-  aux build); a mesh of more than TRI_MAX triangles takes the streamed
+  aux build), and with convex volumes the camera's medium
+  (`camera_containment_row`, the kernel's volume builds); a mesh of more
+  than TRI_MAX triangles takes the streamed
   tables (`pack_tri_stream_tables`) with lanes in Morton order
   (`megatrace.morton_order`, deltas un-permuted by its rank), and above
   `meshtrace.SYNC_TRI_MIN` triangles the bounce-synchronous sampler
@@ -21,7 +23,8 @@ arms on its conditions:
 * the fused arm, differentiable: `ops.megatrace_replay.sample_batch_diff`
   (the same kernel with its winner tape as primal, the tape replay's
   backward kernel as gradient of the color sum and the valid count, to
-  the spheres, rects, boxes, the triangle soup and the materials), plus
+  the spheres, rects, boxes, the triangle soup and the materials, a
+  volume's density among them), plus
   the AOV graft:
   the normal, albedo, weight and fallback AOVs keep the kernel's values,
   and their gradients come from the differentiable wavefront on the batch
@@ -390,7 +393,8 @@ def render_batch(
     streamed = scene.triangles.vert0.shape[0] > megatrace.TRI_MAX
     if (noise_color != 0
             or not megatrace.scene_eligible(scene, allow_triangles=True,
-                                            allow_rect_box=True)
+                                            allow_rect_box=True,
+                                            allow_volumes=True)
             or (streamed and inputs)):
         # ---- the wavefront arm: the batch kernel is refused ---------------
         integrator.check_scope(scene)
@@ -419,6 +423,7 @@ def render_batch(
         # volumes, motion, procedural textures, noise flavors and cubemap
         # skies, are refused above)
         if (scene.triangles.vert0.shape[0] > meshtrace.SYNC_TRI_MIN
+                and not scene.flags.has_volumes
                 and scene.rects.rot.shape[0] == 0
                 and scene.boxes.rot.shape[0] == 0):
             d = meshtrace.sample_batch_sync(
@@ -441,6 +446,10 @@ def render_batch(
     # gradients to the rects' and boxes' rotations, positions, extents and
     # materials flow through this pack
     rect_tables, box_tables = megatrace.pack_aux_tables(scene, packed)
+    # the camera's medium: gradients to its density, albedo and emission
+    # flow through this row
+    vol0 = (megatrace.camera_containment_row(scene, packed, camera.origin)
+            if scene.flags.has_volumes else None)
     d = batch(
         lane_count,
         acc.sample_count,
@@ -450,7 +459,7 @@ def render_batch(
         # gradients to the soup's vertices, normals and materials flow
         # through this pack
         tri_tables=megatrace.pack_tri_tables(scene, packed),
-        rect_tables=rect_tables, box_tables=box_tables,
+        rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
         **statics,
     )
     if inputs:

@@ -243,14 +243,38 @@ def _mesh_with_a_rect():
     return b.build()
 
 
+def _mesh_with_a_fog_sphere():
+    """A triangle beside a volume sphere: volumes in mesh scenes are ROADMAP
+    step 7.2b."""
+    from raytracing_in_one_weekend_tpu_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.lambert((0.7, 0.7, 0.7))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, white)
+    b.add_sphere((0.0, 0.0, -1.0), 0.5, b.volume(1.0, (0.9, 0.9, 0.9)))
+    b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), white)
+    return b.build()
+
+
 def test_scope_refusals_name_the_roadmap():
-    refused = [book_scenes.SCENES[name]()[0]
-               for name in ("cover_motion", "volume")]
+    refused = [book_scenes.SCENES["cover_motion"]()[0],
+               _mesh_with_a_fog_sphere()]
     for scene in refused + [_mesh_with_a_rect()]:
         assert not megatrace.scene_eligible(scene, allow_triangles=True,
-                                            allow_rect_box=True)
+                                            allow_rect_box=True,
+                                            allow_volumes=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             renderer.check_scope(scene)
+    with pytest.raises(NotImplementedError, match="step 7.2b"):
+        renderer.check_scope(_mesh_with_a_fog_sphere())
+    # convex volumes are ported (step 7.2): the batch kernel's volume
+    # builds and the replay take them; the per-ray megatrace has no walk
+    volume, _ = book_scenes.volume_test()
+    assert megatrace.scene_eligible(volume, allow_triangles=True,
+                                    allow_rect_box=True, allow_volumes=True)
+    assert megatrace_replay.replay_eligible(volume)
+    assert not megatrace.scene_eligible(volume)
+    renderer.check_scope(volume)
     # rects and boxes are ported (step 7.1): the batch kernel's aux build
     # and the replay take cornell; the per-ray megatrace stays sphere-only
     cornell, _ = book_scenes.cornell_box()

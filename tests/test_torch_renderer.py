@@ -186,10 +186,18 @@ def test_driver_refuses_unported_features():
     focus = driver.autofocus(scene, dataclasses.replace(cs,
                                                         focus_distance=None))
     assert 0.0 < focus < 1e29
-    volume, vcs = book_scenes.volume_test()
+    motion, mcs = book_scenes.SCENES["cover_motion"]()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.ProgressiveRenderer(volume, vcs, RenderSettings(),
+        driver.ProgressiveRenderer(motion, mcs, RenderSettings(),
                                    device="cpu")
+    # volume (convex volumes, ROADMAP step 7.2) renders now
+    volume, vcs = book_scenes.volume_test()
+    r = driver.ProgressiveRenderer(
+        volume, vcs, RenderSettings(width=12, height=8,
+                                    samples_per_pixel=2, trace_depth=4),
+        device="cpu")
+    r.run()
+    assert bool(torch.isfinite(r.combined().color).all())
     # cornell (rects and boxes, ROADMAP step 7.1) renders now
     cornell, ccs = book_scenes.cornell_box()
     r = driver.ProgressiveRenderer(
