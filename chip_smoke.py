@@ -208,6 +208,25 @@ which raises on failure:
      densities' records among them, within 5e-4 of its max abs) and alone
      at 4 and 64 spp; a camera inside a fog sphere at 128x128, forward and
      backward against their plain versions; the CLI on the three scenes.
+ 24. unit-shutter motion (`motion_phases`): render_batch on cover_motion
+     at 512x512, depth 8, 64 spp (1 warm-up + 3 timed batches, every one
+     through the batch kernel's motion build), the build against its
+     plain version on the 64 rows at a main-path batch's centre and on
+     a whole 4 spp batch, alone by CUDA events at 4 and 64 spp; the
+     fwd+bwd step to the sphere centres and move offsets
+     (median of 2 steps), the backward's motion build against the plain
+     replay's autograd at 128x128, 4 spp, and alone at 4 and 64 spp; the
+     CLI on cover_motion.
+ 25. checker, Perlin and image textures (`texture_phases`): render_batch
+     on checkered, perlin, textured_sphere and final_book2 at 512x512,
+     depth 8, 64 spp (1 warm-up + 2 timed batches, every one through a
+     texture build), each build against its plain version as in 24 and
+     alone at 4 and 64 spp; the fwd+bwd steps of checkered and
+     textured_sphere to the texture colours (and the atlas) through the
+     backward's texture build, held to the plain replay's autograd at
+     128x128, 4 spp, and alone at 4 and 64 spp on checkered; one
+     differentiable wavefront step on perlin and final_book2 at 128x128
+     (no batch kernel: the replay has no marble); the CLI on the four.
 MRays/s counts every bounce of every sample as one ray, with the ray
 count the kernels themselves report.  Each kernel's bound is the larger of
 its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
@@ -303,6 +322,29 @@ SPHERE_EXIT_FLOPS = 25  # per bounce at a sphere winner (sphere_exit): three
 BOX_EXIT_FLOPS = FRAME_FLOPS + 35  # per bounce at a box winner (box_exit):
 #   the frame, the t_min offsets (three fmaf, 6), three inverses, six slab
 #   distances (12), ten min and max, the exit's sum and tests (4)
+MOTION_SWEEP_FLOPS = SWEEP_FLOPS + 12  # per (ray, sphere) pair of the
+#   motion builds' sweep: the centre at the path's time (three fmaf, 6),
+#   |c(t)|^2 (a 3-dot, 5) and its sum (1)
+# The texture work, float arithmetic only (abs, min and max count 1, a
+# sine, atan2 or acos once; compares, selects, the hash and the loads 0):
+CHECKER_FLOPS = 15  # per textured winner of the texture builds' checker
+#   (megatrace_bounce.cuh tex_albedo): three |n| (3), two divisions (2),
+#   two fmaf (4), the frequency (1), two products and two sines (4) and
+#   their product (1)
+MARBLE_FLOPS = 7 * (3 * 15 + 8 * 9 + 2 + 6) + 2 + 9  # per winner of the
+#   Perlin marble (perlin_noise, perlin_turbulence, tex_albedo): 7 octaves,
+#   each three axes (the floor and two fractions, 3; two falloffs, each
+#   |t|, two products, a difference and an fmaf, 12), eight corners (the
+#   falloff product, 2; the gradient dot, 5; the fmaf into the sum, 2),
+#   the clip (2) and the octave's sum, weight and point scalings (6); then
+#   the turbulence's clip (2), and the marble's argument (3), sine, sum
+#   and half (3) and the three products (3)
+TEXEL_FLOPS = 12  # per winner of an image texture: the uv (atan2, its sum
+#   and product; the clip, acos and product: 8), the texel's index (2
+#   products) and the three products
+MOTION_BWD_FLOPS = 2 * 12 + 6  # per live iteration of the backward's
+#   motion build at a sphere winner, beyond BWD_FLOPS: the centre at t and
+#   |c(t)|^2 twice forward, the move offset's cotangent (3 products)
 VOL_BWD_FLOPS = 3 * VOL_WALK_FLOPS  # per live iteration of the backward's
 #   volume builds, beyond BWD_FLOPS: the walk twice forward and its adjoint
 AUX_BWD_FLOPS = 2 * RECT_FLOPS + 200  # per live iteration of the backward
@@ -373,22 +415,33 @@ def path_stats(paths, trace_depth: int) -> dict:
 
 
 def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
-                 repeats: int, rect=None, box=None, vol0=None):
+                 repeats: int, rect=None, box=None, vol0=None, move=None,
+                 tex=None):
     """The backward's kernels alone by CUDA events after a warm-up: (the
     tape scan's ms, its count and scatter launches alone; its wrapper's
     glue, the offsets and allocations between them; the path kernel's ms;
     the scan's path table, decoded).  `tri` (pack_tri_tables' pair) takes
     the mesh build, `rect` and `box` (pack_aux_tables' pairs) the aux
-    build, `vol0` (camera_containment_row) a volume build."""
+    build, `vol0` (camera_containment_row) a volume build, `move` (the
+    spheres' move offsets) the motion build, `tex` (pack_texture_tables)
+    the texture build."""
     s = tables[1].shape[0]
     kind = megatrace_bwd.build_kind(tri is not None,
                                     rect is not None or box is not None,
-                                    vol0 is not None)
+                                    vol0 is not None, move is not None,
+                                    tex is not None)
+    if move is None and tex is None:
+        rows = megatrace_replay.build_entity_rows(*tables[1:4], tri, rect,
+                                                  box)
+    else:
+        rows = megatrace_replay.build_entity_rows(
+            *tables[1:4], tri, rect, box, move,
+            None if tex is None else tex.rec)
     args = megatrace_bwd.kernel_args(
         tape, lane_count,
         megatrace_bwd._consts(tables[0], tables[4], tables[5], vol0),
-        megatrace_replay.build_entity_rows(*tables[1:4], tri, rect, box),
-        s, *cots, kind=kind)
+        rows, s, *cots, kind=kind,
+        **({} if tex is None else dict(atlas=tex.atlas, dims=tex.dims)))
     scan = (args["tape"], args["per_pixel"], kw["samples"], kw["trace_depth"])
     wrapper_ms, paths = time_batch(megatrace_bwd._scan_cuda, *scan,
                                    repeats=repeats)
@@ -482,6 +535,40 @@ def check_parity(label: str, args: tuple, kwargs: dict,
     print(f"parity {label}: {share:.6f} of lanes identical "
           f"({'tape, ' if tape else ''}count, rays; floats within 1e-4), "
           f"max abs err {err:.3g}")
+    if share < 0.99:
+        raise RuntimeError(f"kernel/plain agreement {share} < 0.99 ({label})")
+    return share, err
+
+
+def parity_rows(label: str, args: tuple, kwargs: dict, rows: int,
+                width: int) -> tuple[float, float]:
+    """check_parity on a main-path batch with the plain version run on the
+    `rows` image rows at the frame's centre, where each scene's subject
+    sits (a 512x512, 64 spp batch takes the plain version about a minute
+    whole, and its time goes with its calls' iterations more than with
+    their lanes: eight 8-row bands cost eight times one 64-row band): the
+    kernel runs the whole batch, the plain version those lanes with their
+    own lane ids and pixels, so each computes what it computes in the
+    whole batch.  Raise unless >= 99% of them agree."""
+    kwargs = dict(kwargs, want_tape=True)
+    before = megatrace.LAUNCHES
+    got = megatrace.sample_batch(*args, **kwargs)
+    torch.cuda.synchronize()
+    if megatrace.LAUNCHES != before + 1:
+        raise RuntimeError("sample_batch did not launch the kernel")
+    height = args[0].shape[0] // width
+    base = args[9] if len(args) > 9 else kwargs.pop("lane_base", 0)
+    r0 = (height - rows) // 2
+    lo, hi = r0 * width, (r0 + rows) * width
+    want = megatrace.sample_batch_reference(
+        args[0][lo:hi], args[1][lo:hi], *args[2:9], base + lo,
+        pixel_index=torch.arange(lo, hi, device=args[0].device), **kwargs)
+    share, err = lane_agreement(
+        {k: v[:, lo:hi] if k == "tape" else v[lo:hi] for k, v in got.items()},
+        want)
+    print(f"parity {label} (plain version on rows {r0}-{r0 + rows - 1}, "
+          f"{hi - lo} lanes): {share:.6f} of them identical (tape, count, "
+          f"rays; floats within 1e-4), max abs err {err:.3g}")
     if share < 0.99:
         raise RuntimeError(f"kernel/plain agreement {share} < 0.99 ({label})")
     return share, err
@@ -1029,6 +1116,7 @@ def kernel_ms(fn, kernel: str, repeats: int) -> float:
 def reset_launches() -> None:
     megatrace.LAUNCHES = megatrace.WAVE_LAUNCHES = megatrace_bwd.LAUNCHES = 0
     megatrace.AUX_LAUNCHES = megatrace.VOL_LAUNCHES = 0
+    megatrace.MOTION_LAUNCHES = megatrace.TEX_LAUNCHES = 0
     megatrace_bwd.SCAN_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
@@ -2480,8 +2568,10 @@ AUX_LEAVES = LEAVES + ("rect_geo", "rect_rec", "box_geo", "box_rec")
 
 
 def aux_launch_ms(tables, rect, box, samples: int, repeats: int,
-                  kw: dict, vol0=None) -> float:
-    """The aux build (with `vol0`, a volume build) alone: CUDA events
+                  kw: dict, vol0=None, move=None, tex=None) -> float:
+    """The aux build (with `vol0`, a volume build; with `move`, the
+    spheres' move offsets, a motion build; with `tex`,
+    pack_texture_tables' tables, a texture build) alone: CUDA events
     around `repeats` launches of its C entry point on buffers made once
     (sample_batch's own packing, a few small torch ops, would otherwise
     bound a short batch by the host)."""
@@ -2489,7 +2579,7 @@ def aux_launch_ms(tables, rect, box, samples: int, repeats: int,
     dev, s = centers.device, centers.shape[0]
     n = int(camera_row[19] * camera_row[20])
     lib = megatrace.load_kernel()
-    sph, rec = megatrace.sweep_tables(centers, radii, records)
+    sph, rec = megatrace.sweep_tables(centers, radii, records, move)
     consts = megatrace.kernel_consts(camera_row, sky_bottom, sky_top, vol0)
     aux_geo = aux_rec = None
     rect_rows = box_rows = 0
@@ -2501,18 +2591,23 @@ def aux_launch_ms(tables, rect, box, samples: int, repeats: int,
     cin = torch.zeros(n, device=dev)
     out = torch.empty((megatrace.OUT_ROWS, n), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    entry = (lib.rtiw_megatrace_aux if vol0 is None
-             else lib.rtiw_megatrace_volume)
+    table = None if move is None else megatrace.move_table(move)
+    trec, perlin, atlas, (img_w, img_h) = (
+        (None, None, None, (0, 0)) if tex is None
+        else megatrace.kernel_tex_tables(tex, dev))
+    extra = (int(vol0 is not None),
+             *(0 if t is None else t.data_ptr()
+               for t in (table, trec, perlin, atlas)), img_w, img_h)
 
     def launch():
-        err = entry(
+        err = lib.rtiw_megatrace_ext(
             per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
             sph.data_ptr(), rec.data_ptr(),
             0 if aux_geo is None else aux_geo.data_ptr(),
             0 if aux_rec is None else aux_rec.data_ptr(), out.data_ptr(), 0,
             n, s, rect_rows, box_rows, rect_code, box_code, 7, 0, samples,
             kw["trace_depth"], 0.0, int(kw["has_dielectrics"]),
-            int(kw["sky_on"]), 1, stream)
+            int(kw["sky_on"]), 1, *extra, stream)
         if err != 0:
             raise RuntimeError(f"batch kernel build launch: cudaError {err}")
 
@@ -2560,9 +2655,9 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     n = width * height
     out, fwd_entry, bwd_entry = {}, {}, {}
     kernel_report = ptxas_report(megatrace.BUILD_LOG,
-                                 "megatrace_sphere_kernelILb1ELb0EE")
+                                 "megatrace_sphere_kernelILb1ELb0ELb0ELb0EE")
     path_report = ptxas_report(megatrace_bwd.BUILD_LOG,
-                               "megatrace_paths_kernelILb0ELb1ELb0EE")
+                               "megatrace_paths_kernelILb0ELb1ELb0ELb0ELb0EE")
     print(f"aux builds: ptxas #1 {kernel_report or '(not built here)'}; "
           f"#2 path kernel {path_report or '(not built here)'}")
     max_err, shares = 0.0, []
@@ -2651,7 +2746,7 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
                 if share4 < 0.99:
                     raise RuntimeError(f"aux build/plain agreement {share4}")
                 max_err = max(max_err, err4)
-        info = megatrace.aux_kernel_info(s_count, aux_rows)
+        info = megatrace.sphere_kernel_info(s_count, aux_rows)
         (wrap4, rays4, bnd4), (wrap64, rays64, bnd64) = timed[4], timed[spp]
         ms4 = aux_launch_ms(tables, rect, box, 4, 20, kw)
         ms64 = aux_launch_ms(tables, rect, box, spp, 5, kw)
@@ -2944,10 +3039,10 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     n = width * width
     out, fwd, bwd = {}, {}, {}
     reports = [ptxas_report(megatrace.BUILD_LOG,
-                            f"megatrace_sphere_kernelILb{a}ELb1EE")
+                            f"megatrace_sphere_kernelILb{a}ELb1ELb0ELb0EE")
                for a in (0, 1)]
     reports += [ptxas_report(megatrace_bwd.BUILD_LOG,
-                             f"megatrace_paths_kernelILb0ELb{a}ELb1EE")
+                             f"megatrace_paths_kernelILb0ELb{a}ELb1ELb0ELb0EE")
                 for a in (0, 1)]
     print(f"volume builds: ptxas #1 beside spheres {reports[0] or '-'}; "
           f"beside rects and boxes {reports[1] or '-'}; #2 path kernel "
@@ -3048,7 +3143,8 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
                 max_err = max(max_err, err4)
                 del plain
             del res
-        info = megatrace.volume_kernel_info(s_count, aux_rows)
+        info = megatrace.sphere_kernel_info(s_count, aux_rows,
+                                            has_vol=True)
         (ms4, rays4, bnd4), (ms64, rays64, bnd64) = timed[4], timed[spp]
         print(f"volume build alone, {name} {width}x{width} depth 8 (CUDA "
               f"events, launches alone): 4 spp {ms4:.3f} ms ({rays4:.0f} "
@@ -3283,6 +3379,689 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
 # python3 chip_smoke.py --against DIR: this tree against another on the card
 # ---------------------------------------------------------------------------
 
+def motion_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
+    """Phase 24: unit-shutter motion, the motion builds of #1 and #2, on
+    `cover_motion` (the cover's 485 spheres, its small diffuse ones moving
+    up over the shutter), 512x512, depth 8:
+    (a) render_batch at 64 spp, 1 warm-up + 3 timed batches (median
+        MRays/s), every batch through the motion build (MOTION_LAUNCHES,
+        set to 0 just before and read just after), the image finite;
+    (b) the motion build against its plain version on the inputs of a
+        main-path batch (the plain version on its 64 centre rows,
+        `parity_rows`) and on a whole 4 spp batch: tape, count and rays
+        identical and the floats within 1e-4 on >= 99% of lanes;
+    (c) the build alone by CUDA events at 4 and 64 spp, its plain version
+        at 4 spp, registers and blocks an SM, and the bound;
+    (d) the fwd+bwd step to the sphere centres and move offsets:
+        render_image(differentiable=True), mean((color - target)^2),
+        .backward(), 1 warm-up + 2 timed steps (median MRays/s), the path
+        kernel's motion build launched, the move offsets' gradient finite
+        and nonzero; the backward against the plain replay's autograd on a
+        128x128 batch's tape, each leaf within 5e-4 of its max abs;
+    (e) #2's motion build alone at 4 and 64 spp (the tape scan's launches
+        and the path kernel by CUDA events), replay_grad and its plain
+        version at 4 spp on a 128x128 batch;
+    (f) the CLI on --scene cover_motion, 256x256, 16 spp, depth 8.
+    (`width` and `spp` shrink it for a rehearsal on the CPU.)"""
+    t_phase = time.perf_counter()
+    n = width * width
+    out = {}
+    reports = [ptxas_report(megatrace.BUILD_LOG,
+                            f"megatrace_sphere_kernelILb{a}ELb{v}ELb1ELb0EE")
+               for a, v in ((0, 0), (1, 0), (0, 1), (1, 1))]
+    reports.append(ptxas_report(megatrace_bwd.BUILD_LOG,
+                                "megatrace_paths_kernelILb0ELb0ELb0ELb1ELb0EE"))
+    labels = ("beside spheres", "beside rects and boxes", "with volumes",
+              "with rects, boxes and volumes")
+    print("motion builds: ptxas #1 " + "; ".join(
+        f"{label} {r or '-'}" for label, r in zip(labels, reports))
+        + f"; #2 path kernel {reports[4] or '-'}")
+    scene, cs = book_scenes.SCENES["cover_motion"]()
+    scene = scene.to(dev)
+    move = scene.spheres.move_offset
+    if (not megatrace.scene_eligible(scene, allow_triangles=True,
+                                     allow_rect_box=True, allow_volumes=True,
+                                     allow_motion=True)
+            or megatrace.scene_eligible(scene, allow_rect_box=True)):
+        raise RuntimeError("cover_motion left the batch kernel's scope, or "
+                           "entered the per-ray megatrace's")
+    camera, tables = batch_inputs(scene, cs, width, width, dev)
+    s_count = scene.spheres.center.shape[0]
+    kw = dict(trace_depth=8, has_dielectrics=True, sky_on=True,
+              move_offsets=move)
+
+    # ---- (a) the forward main path ------------------------------------------
+    gen = torch.Generator().manual_seed(5)
+    acc = film.zero_accumulators(n, device=dev)
+
+    def forward():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = renderer.render_batch(scene, camera, acc, gen, width=width,
+                                     height=width, samples=spp,
+                                     trace_depth=8)
+        rays = float(m.total_rays)
+        torch.cuda.synchronize()
+        return rays, time.perf_counter() - t
+
+    reset_launches()
+    runs = [forward() for _ in range(4)]
+    launches = (megatrace.LAUNCHES, megatrace.MOTION_LAUNCHES)
+    if launches != (4, 4):
+        raise RuntimeError(f"cover_motion: batch kernel launches {launches}, "
+                           "want 4 of the motion build")
+    rate = statistics.median(r / t / 1e6 for r, t in runs[1:])
+    img = film.combine(acc, width, width).color
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.2:
+        raise RuntimeError(f"bad cover_motion image: mean {float(img.mean())}")
+    print(f"motion main path: cover_motion {width}x{width} depth 8, {spp} "
+          f"spp/batch: median {rate:.3f} MRays/s over 3 batches "
+          f"({runs[1][0]:.0f} rays/batch; launches batch kernel "
+          f"{launches[0]}, motion build {launches[1]}); image mean "
+          f"{float(img.mean()):.4f} [{card}]")
+    out["cover_motion_fwd_mrays"] = rate
+
+    # ---- (b) kernel vs plain on a main-path batch's inputs ------------------
+    with recorded_calls(megatrace, "sample_batch") as calls:
+        renderer.render_batch(scene, camera, acc, gen, width=width,
+                              height=width, samples=spp, trace_depth=8)
+    (args, kwargs, _), = calls
+    if kwargs.get("move_offsets") is None:
+        raise RuntimeError("cover_motion: the main path passed no move "
+                           "offsets")
+    t = time.perf_counter()
+    share, max_err = parity_rows(f"motion build, cover_motion {width}x{width}"
+                                 f" {spp} spp main-path batch", args, kwargs,
+                                 64, width)
+    print(f"  (plain version {time.perf_counter() - t:.1f} s)")
+    shares = [share]
+    del calls, args, kwargs
+
+    # ---- (c) the motion build alone -------------------------------------------
+    zeros = torch.zeros(n, device=dev)
+    timed = {}
+    for few in (4, spp):
+        lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+        res = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                     samples=few, want_tape=True, **kw)
+        rays = float(res["rays"].sum())
+        bnd = bound(rays * (s_count * MOTION_SWEEP_FLOPS + SHADE_FLOPS),
+                    n * 4 * (2 + megatrace.OUT_ROWS)
+                    + s_count * 4 * (4 + 4 + 16) + 4 * 32)
+        ms = aux_launch_ms(tables, None, None, few, 20 if few == 4 else 5,
+                           kw, move=move)
+        timed[few] = (ms, rays, bnd)
+        if few == 4:
+            plain_ms, plain = time_batch(
+                megatrace.sample_batch_reference, lane_count, zeros,
+                *tables, 7, samples=few, repeats=1, want_tape=True, **kw)
+            share4, err4 = lane_agreement(res, plain)
+            if share4 < 0.99:
+                raise RuntimeError(f"cover_motion motion build/plain "
+                                   f"agreement {share4}")
+            shares.append(share4)
+            max_err = max(max_err, err4)
+            del plain
+        del res
+    info = megatrace.sphere_kernel_info(s_count, has_motion=True)
+    (ms4, rays4, bnd4), (ms64, rays64, bnd64) = timed[4], timed[spp]
+    print(f"motion build alone, cover_motion {width}x{width} depth 8 (CUDA "
+          f"events, launches alone): 4 spp {ms4:.3f} ms ({rays4:.0f} "
+          f"bounces, bound {bnd4[0]:.4f} ms by {bnd4[1]}, "
+          f"{bnd4[0] / ms4:.1%}), {spp} spp {ms64:.3f} ms ({rays64:.0f} "
+          f"bounces, bound {bnd64[0]:.4f} ms, {bnd64[0] / ms64:.1%}); "
+          f"plain {plain_ms:.3f} ms at 4 spp ({share4:.6f} of lanes "
+          f"agree); {info['registers']} registers, {info['local_bytes']} B "
+          f"local a thread, {info['blocks']} blocks of 128 an SM [{card}]")
+    fwd = dict(ms=ms4, ms_64spp=ms64, plain_ms=plain_ms, bound=bnd4,
+               bound_ms_64spp=bnd64[0], **info)
+
+    # ---- (d) the fwd+bwd step -------------------------------------------------
+    target = img.detach()
+    seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
+             for _ in range(3)]
+    rays = []
+    for seed in seeds:  # the forward rays of each step's seed
+        _, m = renderer.render_batch(
+            scene, camera, film.zero_accumulators(n, device=dev),
+            width=width, height=width, samples=spp, trace_depth=8, seed=seed,
+            differentiable=False)
+        rays.append(float(m.total_rays))
+    names = ("sphere_centers", "sphere_move_offsets")
+    reset_launches()
+    rates = []
+    for seed, r in zip(seeds, rays):
+        params = {k: v.detach().clone().requires_grad_() for k, v in
+                  params_mod.extract_params(scene, names).items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step = renderer.render_image(
+            params_mod.apply_params(scene, params), camera, width=width,
+            height=width, samples_per_pixel=spp, trace_depth=8, seed=seed,
+            differentiable=True)
+        torch.cuda.synchronize()
+        torch.mean((step.color - target) ** 2).backward()
+        torch.cuda.synchronize()
+        rates.append(r / (time.perf_counter() - t) / 1e6)
+    launches = (megatrace.MOTION_LAUNCHES, megatrace_bwd.SCAN_LAUNCHES,
+                megatrace_bwd.LAUNCHES)
+    if min(launches) == 0 or megatrace.LAUNCHES != launches[0]:
+        raise RuntimeError(f"cover_motion fwd+bwd: launches {launches}")
+    grads = {k: v.grad for k, v in params.items()}
+    if (not all(bool(torch.isfinite(g).all()) for g in grads.values())
+            or float(grads["sphere_move_offsets"].abs().max()) == 0.0):
+        raise RuntimeError("cover_motion fwd+bwd: bad gradients")
+    rate = statistics.median(rates[1:])
+    out["cover_motion_fwd_bwd_mrays"] = rate
+    print(f"motion fwd+bwd: cover_motion {width}x{width} depth 8, {spp} spp: "
+          f"median {rate:.3f} MRays/s over 2 steps ({rays[-1]:.0f} forward "
+          f"rays/step; launches motion build {launches[0]}, tape scan "
+          f"{launches[1]}, path kernel {launches[2]}); max |grad| "
+          + ", ".join(f"{k} {float(g.abs().max()):.4g}"
+                      for k, g in grads.items()) + f" [{card}]")
+    bwd = dict(launches=launches[2], scan_launches=launches[1])
+
+    # ---- (e) #2's motion build alone, and against its plain version -----------
+    small = min(128, width)
+    camera_s, tables_s = batch_inputs(scene, cs, small, small, dev)
+    leaves = LEAVES + ("move_offsets",)
+    worst = 0.0
+    for few in (4, spp):
+        for w_, tabs in ((width, tables), (small, tables_s)):
+            m_ = w_ * w_
+            if few == spp and w_ == small:
+                continue
+            lane_count = torch.full((m_,), few, dtype=torch.int32,
+                                    device=dev)
+            fkw = dict(kw, samples=few)
+            res = megatrace.sample_batch(lane_count, torch.zeros(m_,
+                                                                 device=dev),
+                                         *tabs, 7, want_tape=True, **fkw)
+            cots = probe_cotangents(res["color"], res["count"])
+            if w_ == small:  # the kernel against its plain version
+                args = (res["tape"], lane_count, *tabs, 7, *cots)
+                ms, got = time_batch(megatrace_bwd.replay_grad, *args,
+                                     repeats=5, **fkw)
+                plain_ms_b, want = time_batch(
+                    megatrace_bwd.replay_grad_reference, *args, repeats=1,
+                    **fkw)
+                worst = max(worst, aux_errors(got, want, leaves))
+                print(f"cover_motion {small}x{small} depth 8, {few} spp "
+                      f"backward: replay_grad {ms:.3f} ms, plain "
+                      f"{plain_ms_b:.3f} ms; max error {worst:.3e} of the "
+                      f"leaf's max abs over {', '.join(leaves)} [{card}]")
+                bwd.update(replay_grad_ms=ms, plain_ms=plain_ms_b)
+                del got, want, args
+                continue
+            live = float(res["rays"].sum())
+            scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+                tabs, None, lane_count, res["tape"], cots, 7, fkw,
+                5 if few == 4 else 3, move=move)
+            bnd = bwd_bound(live, table.shape[0], n, s_count * 4 * 26,
+                            live * MOTION_BWD_FLOPS)
+            stats = path_stats(table, 8)
+            print(f"motion backward alone, cover_motion {width}x{width} "
+                  f"depth 8, {few} spp (CUDA events): tape scan's two "
+                  f"launches {scan_ms:.3f} ms (glue {glue_ms:.3f} ms more), "
+                  f"path kernel {paths_ms:.3f} ms, "
+                  f"{paths_ms * 1e6 / live:.3f} ns a live iteration (bound "
+                  f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / paths_ms:.1%}; "
+                  f"{live:.0f} live iterations); {stats['paths']} paths "
+                  f"[{card}]")
+            key = "" if few == 4 else "_64spp"
+            bwd[f"ms{key}"] = paths_ms
+            bwd[f"scan_ms{key}"] = scan_ms
+            bwd[f"bound{key}"] = bnd
+            bwd[f"ns_per_iteration{key}"] = paths_ms * 1e6 / live
+            del res, table
+    bwd["max_rel_err"] = worst
+
+    # ---- (f) the CLI -------------------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        png = os.path.join(tmp, "cover_motion.png")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["--scene", "cover_motion", "--width", str(width // 2),
+                       "--height", str(width // 2), "--spp", "16", "--depth",
+                       "8", "--output", png, "--quiet", "--device", dev.type])
+        seconds = time.perf_counter() - t0
+        with open(png, "rb") as f:
+            header = f.read(8)
+        if (rc != 0 or header != b"\x89PNG\r\n\x1a\n"
+                or megatrace.MOTION_LAUNCHES == 0
+                or megatrace.MOTION_LAUNCHES != megatrace.LAUNCHES):
+            raise RuntimeError(f"the CLI did not render --scene cover_motion "
+                               f"through the motion build (rc {rc}, "
+                               f"launches {megatrace.LAUNCHES}, motion "
+                               f"{megatrace.MOTION_LAUNCHES})")
+        print(f"CLI: --scene cover_motion {width // 2}x{width // 2}, 16 spp, "
+              f"depth 8 on {dev}: PNG written in {seconds:.2f} s, motion "
+              f"build launches {megatrace.MOTION_LAUNCHES}")
+    out["motion_parity_share"] = min(shares)
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+
+    kernels = [{
+        "name": "megatrace_batch_motion", "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457",
+        "launches": 4, "max_abs_err": max_err,
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
+        "library_ms": None, "ms_64spp": fwd["ms_64spp"],
+        "bound_ms_64spp": fwd["bound_ms_64spp"],
+        "registers": fwd["registers"], "local_bytes": fwd["local_bytes"],
+        "blocks_per_sm": fwd["blocks"],
+    }, {
+        "name": "megatrace_bwd_motion", "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_bwd.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
+        "launches": bwd["launches"], "scan_launches": bwd["scan_launches"],
+        "max_abs_err": bwd["max_rel_err"], "ms": bwd["ms"],
+        "scan_ms": bwd["scan_ms"], "replay_grad_ms": bwd["replay_grad_ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound"][0],
+        "bound_by": bwd["bound"][1], "library_ms": None,
+        "ms_64spp": bwd["ms_64spp"], "bound_ms_64spp": bwd["bound_64spp"][0],
+        "ns_per_iteration": bwd["ns_per_iteration"],
+        "ns_per_iteration_64spp": bwd["ns_per_iteration_64spp"],
+    }]
+    return {"kernels": kernels, "paths": out}
+
+
+TEX_SCENES = ("checkered", "perlin", "textured_sphere", "final_book2")
+
+
+def texture_flops(tape, scene, tex, s_count: int, rect, r_count: int,
+                  b_count: int) -> float:
+    """The texture builds' operations on a tape's bounces: the sweep and
+    shading of every bounce (with rects, boxes and volumes, winner_flops';
+    with motion, MOTION_SWEEP_FLOPS a sphere) and each textured winner's
+    texture (a sphere's material's record type)."""
+    rays = float((tape > -1.5).sum())
+    if r_count or b_count or scene.flags.has_volumes:
+        flops = winner_flops(tape, s_count, rect, r_count, b_count)
+    else:
+        flops = rays * (s_count * SWEEP_FLOPS + SHADE_FLOPS)
+    if scene.flags.has_motion:
+        flops += rays * s_count * (MOTION_SWEEP_FLOPS - SWEEP_FLOPS)
+    codes = tape[(tape >= 0) & (tape < s_count)].long()
+    ttype = tex.rec[scene.spheres.material.long()[codes], 0]
+    return (flops + float((ttype == 2).sum()) * CHECKER_FLOPS
+            + float((ttype == 3).sum()) * MARBLE_FLOPS
+            + float((ttype == 4).sum()) * TEXEL_FLOPS)
+
+
+def texture_inputs(scene, cs, width, dev):
+    """(camera, the six tables, the batch kernel's keyword tables) of a
+    width x width batch of a textured scene."""
+    camera, tables = batch_inputs(scene, cs, width, width, dev)
+    packed = materials.pack_materials(scene)
+    rect, box = megatrace.pack_aux_tables(scene, packed)
+    vol0 = (megatrace.camera_containment_row(scene, packed, camera.origin)
+            if scene.flags.has_volumes else None)
+    return camera, tables, dict(
+        rect_tables=rect, box_tables=box, vol0=vol0,
+        move_offsets=scene.spheres.move_offset,
+        tex_tables=megatrace.pack_texture_tables(scene))
+
+
+def texture_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
+    """Phase 25: checker, Perlin and image textures, the texture builds of
+    #1 and #2, on `checkered` (two checkered spheres), `perlin` (two
+    Perlin-marble spheres), `textured_sphere` (a 64x128 image on a sphere)
+    and `final_book2` (Book 2's composite: 64 boxes, a rect light, 71
+    spheres, one moving, a fog sphere in a glass shell, an image and a
+    Perlin texture), 512x512, depth 8:
+    (a) render_batch at 64 spp, 1 warm-up + 2 timed batches (median
+        MRays/s), every batch through a texture build (TEX_LAUNCHES, set to
+        0 just before and read just after), the image finite;
+    (b) the texture build against its plain version on the inputs of a
+        main-path batch (the plain version on its 64 centre rows,
+        `parity_rows`) and on a whole 4 spp batch: tape, count and rays identical and the floats
+        within 1e-4 on >= 99% of lanes;
+    (c) the build alone by CUDA events at 4 and 64 spp, its plain version
+        at 4 spp, registers and blocks an SM, and the bound;
+    (d) on checkered and textured_sphere the fwd+bwd step to the texture
+        colours (and the atlas): render_image(differentiable=True),
+        mean((color - target)^2), .backward(), 1 warm-up + 2 timed steps,
+        the path kernel's texture build launched, the gradients finite and
+        nonzero; the backward against the plain replay's autograd on a
+        128x128, 4 spp batch, each leaf within 5e-4 of its max abs; #2's
+        texture build alone at 4 and 64 spp on checkered;
+    (e) on perlin and final_book2 one differentiable step through the
+        wavefront at 128x128 (the replay has no marble): no batch kernel
+        launched, the gradients finite and nonzero;
+    (f) the CLI on each scene, 256x256, 16 spp, depth 8.
+    (`width` and `spp` shrink it for a rehearsal on the CPU.)"""
+    t_phase = time.perf_counter()
+    n = width * width
+    out, fwd, bwd = {}, {}, dict(launches=0, scan_launches=0,
+                                 max_rel_err=0.0)
+    labels = ("beside spheres", "beside rects and boxes", "with volumes",
+              "with rects, boxes and volumes", "with motion",
+              "with everything")
+    reports = [ptxas_report(megatrace.BUILD_LOG,
+                            f"megatrace_sphere_kernelILb{a}ELb{v}ELb{m}ELb1EE")
+               for a, v, m in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
+                               (0, 0, 1), (1, 1, 1))]
+    print("texture builds: ptxas #1 " + "; ".join(
+        f"{label} {r or '-'}" for label, r in zip(labels, reports))
+        + "; #2 path kernel " + (ptxas_report(
+            megatrace_bwd.BUILD_LOG,
+            "megatrace_paths_kernelILb0ELb0ELb0ELb0ELb1EE") or "-"))
+    shares, max_err, launches_main = [], 0.0, 0
+    registry = {**book_scenes.SCENES, **testbeds.SCENES}
+    zeros = torch.zeros(n, device=dev)
+    for name in TEX_SCENES:
+        scene, cs = registry[name]()
+        scene = scene.to(dev)
+        if (not megatrace.scene_eligible(
+                scene, allow_triangles=True, allow_rect_box=True,
+                allow_volumes=True, allow_motion=True, allow_textures=True)
+                or megatrace.scene_eligible(scene, allow_rect_box=True,
+                                            allow_volumes=True,
+                                            allow_motion=True)):
+            raise RuntimeError(f"{name} left the batch kernel's scope, or "
+                               "entered the per-ray megatrace's")
+        camera, tables, tkw = texture_inputs(scene, cs, width, dev)
+        s_count = scene.spheres.center.shape[0]
+        r_count, b_count = scene.rects.rot.shape[0], scene.boxes.rot.shape[0]
+        aux_rows = sum(t[0].shape[0] for t in (tkw["rect_tables"],
+                                               tkw["box_tables"])
+                       if t is not None)
+        kw = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+                  sky_on=scene.flags.sky == 1, **tkw)
+
+        # ---- (a) the forward main path ------------------------------------
+        gen = torch.Generator().manual_seed(5)
+        acc = film.zero_accumulators(n, device=dev)
+
+        def forward():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = renderer.render_batch(scene, camera, acc, gen, width=width,
+                                         height=width, samples=spp,
+                                         trace_depth=8)
+            rays = float(m.total_rays)
+            torch.cuda.synchronize()
+            return rays, time.perf_counter() - t
+
+        reset_launches()
+        runs = [forward() for _ in range(3)]
+        launches = (megatrace.LAUNCHES, megatrace.TEX_LAUNCHES)
+        if launches != (3, 3):
+            raise RuntimeError(f"{name}: batch kernel launches {launches}, "
+                               "want 3 of the texture build")
+        launches_main += launches[1]
+        rate = statistics.median(r / t / 1e6 for r, t in runs[1:])
+        img = film.combine(acc, width, width).color
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+            raise RuntimeError(f"bad {name} image: mean {float(img.mean())}")
+        print(f"texture main path: {name} {width}x{width} depth 8, {spp} "
+              f"spp/batch: median {rate:.3f} MRays/s over 2 batches "
+              f"({runs[1][0]:.0f} rays/batch; launches batch kernel "
+              f"{launches[0]}, texture build {launches[1]}); image mean "
+              f"{float(img.mean()):.4f} [{card}]")
+        out[f"{name}_fwd_mrays"] = rate
+
+        # ---- (b) kernel vs plain on a main-path batch's inputs -------------
+        with recorded_calls(megatrace, "sample_batch") as calls:
+            renderer.render_batch(scene, camera, acc, gen, width=width,
+                                  height=width, samples=spp, trace_depth=8)
+        (args, kwargs, _), = calls
+        if kwargs.get("tex_tables") is None:
+            raise RuntimeError(f"{name}: the main path passed no texture "
+                               "tables")
+        t = time.perf_counter()
+        share, err = parity_rows(f"texture build, {name} {width}x{width} "
+                                 f"{spp} spp main-path batch", args, kwargs,
+                                 64, width)
+        print(f"  (plain version {time.perf_counter() - t:.1f} s)")
+        shares.append(share)
+        max_err = max(max_err, err)
+        del calls, args, kwargs
+
+        # ---- (c) the texture build alone -----------------------------------
+        timed = {}
+        tex = tkw["tex_tables"]
+        table_bytes = (s_count * 4 * (4 + 4 + 16) + aux_rows * 4 * 32
+                       + tex.rec.numel() * 4
+                       + (0 if tex.perlin is None else 4 * 8 * 256)
+                       + (0 if tex.atlas is None else 4 * tex.atlas.numel()))
+        for few in (4, spp):
+            lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+            res = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                         samples=few, want_tape=True, **kw)
+            rays = float(res["rays"].sum())
+            bnd = bound(texture_flops(res["tape"], scene, tex, s_count,
+                                      tkw["rect_tables"], r_count, b_count),
+                        n * 4 * (2 + megatrace.OUT_ROWS) + table_bytes)
+            ms = aux_launch_ms(tables, tkw["rect_tables"], tkw["box_tables"],
+                               few, 10 if few == 4 else 3, kw,
+                               vol0=tkw["vol0"], move=tkw["move_offsets"],
+                               tex=tex)
+            timed[few] = (ms, rays, bnd)
+            if few == 4:
+                plain_ms, plain = time_batch(
+                    megatrace.sample_batch_reference, lane_count, zeros,
+                    *tables, 7, samples=few, repeats=1, want_tape=True, **kw)
+                share4, err4 = lane_agreement(res, plain)
+                if share4 < 0.99:
+                    raise RuntimeError(f"{name} texture build/plain "
+                                       f"agreement {share4}")
+                shares.append(share4)
+                max_err = max(max_err, err4)
+                del plain
+            del res
+        info = megatrace.sphere_kernel_info(
+            s_count, aux_rows, has_vol=tkw["vol0"] is not None,
+            has_motion=tkw["move_offsets"] is not None, has_tex=True)
+        (ms4, rays4, bnd4), (ms64, rays64, bnd64) = timed[4], timed[spp]
+        print(f"texture build alone, {name} {width}x{width} depth 8 (CUDA "
+              f"events, launches alone): 4 spp {ms4:.3f} ms ({rays4:.0f} "
+              f"bounces, bound {bnd4[0]:.4f} ms by {bnd4[1]}, "
+              f"{bnd4[0] / ms4:.1%}), {spp} spp {ms64:.3f} ms ({rays64:.0f} "
+              f"bounces, bound {bnd64[0]:.4f} ms, {bnd64[0] / ms64:.1%}); "
+              f"plain {plain_ms:.3f} ms at 4 spp ({share4:.6f} of lanes "
+              f"agree); {info['registers']} registers, "
+              f"{info['local_bytes']} B local a thread, {info['blocks']} "
+              f"blocks of 128 an SM [{card}]")
+        fwd[name] = dict(ms=ms4, ms_64spp=ms64, plain_ms=plain_ms,
+                         bound=bnd4, bound_ms_64spp=bnd64[0], **info)
+
+        if name in ("perlin", "final_book2"):
+            # ---- (e) one wavefront training step (no marble replay) -------
+            small = min(128, width)
+            cam_s, _ = batch_inputs(scene, cs, small, small, dev)
+            names = (("texture_colors",) if name == "perlin"
+                     else ("sphere_centers", "sphere_move_offsets"))
+            params = {k: v.detach().clone().requires_grad_() for k, v in
+                      params_mod.extract_params(scene, names).items()}
+            reset_launches()
+            t = time.perf_counter()
+            step = renderer.render_image(
+                params_mod.apply_params(scene, params), cam_s, width=small,
+                height=small, samples_per_pixel=4, trace_depth=8, seed=3)
+            torch.mean((step.color - 0.5) ** 2).backward()
+            torch.cuda.synchronize()
+            grads = {k: v.grad for k, v in params.items()}
+            if (megatrace.LAUNCHES != 0
+                    or not all(bool(torch.isfinite(g).all())
+                               for g in grads.values())
+                    or not any(float(g.abs().max()) > 0.0
+                               for g in grads.values())):
+                raise RuntimeError(f"{name} wavefront step: batch kernel "
+                                   f"launches {megatrace.LAUNCHES}, bad "
+                                   "gradients")
+            print(f"{name} wavefront training step {small}x{small}, 4 spp, "
+                  f"depth 8: {time.perf_counter() - t:.2f} s, max |grad| "
+                  + ", ".join(f"{k} {float(g.abs().max()):.4g}"
+                              for k, g in grads.items()) + f" [{card}]")
+            continue
+
+        # ---- (d) the fwd+bwd step through #2's texture build ---------------
+        target = img.detach()
+        seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
+                 for _ in range(3)]
+        names = (("texture_colors",) if tex.atlas is None
+                 else ("texture_colors", "texture_atlas"))
+        rays = []
+        for seed in seeds:  # the forward rays of each step's seed
+            _, m = renderer.render_batch(
+                scene, camera, film.zero_accumulators(n, device=dev),
+                width=width, height=width, samples=spp, trace_depth=8,
+                seed=seed, differentiable=False)
+            rays.append(float(m.total_rays))
+        reset_launches()
+        rates = []
+        for seed, r in zip(seeds, rays):
+            params = {k: v.detach().clone().requires_grad_() for k, v in
+                      params_mod.extract_params(scene, names).items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step = renderer.render_image(
+                params_mod.apply_params(scene, params), camera, width=width,
+                height=width, samples_per_pixel=spp, trace_depth=8,
+                seed=seed, differentiable=True)
+            torch.cuda.synchronize()
+            torch.mean((step.color - target) ** 2).backward()
+            torch.cuda.synchronize()
+            rates.append(r / (time.perf_counter() - t) / 1e6)
+        launches = (megatrace.TEX_LAUNCHES, megatrace_bwd.SCAN_LAUNCHES,
+                    megatrace_bwd.LAUNCHES)
+        if min(launches) == 0 or megatrace.LAUNCHES != launches[0]:
+            raise RuntimeError(f"{name} fwd+bwd: launches {launches}")
+        grads = {k: v.grad for k, v in params.items()}
+        if (not all(bool(torch.isfinite(g).all()) for g in grads.values())
+                or not all(float(g.abs().max()) > 0.0
+                           for g in grads.values())):
+            raise RuntimeError(f"{name} fwd+bwd: bad gradients")
+        rate = statistics.median(rates[1:])
+        out[f"{name}_fwd_bwd_mrays"] = rate
+        print(f"texture fwd+bwd: {name} {width}x{width} depth 8, {spp} spp: "
+              f"median {rate:.3f} MRays/s over 2 steps (launches texture "
+              f"build {launches[0]}, tape scan {launches[1]}, path kernel "
+              f"{launches[2]}); max |grad| " + ", ".join(
+                  f"{k} {float(g.abs().max()):.4g}" for k, g in grads.items())
+              + f" [{card}]")
+        bwd["launches"] += launches[2]
+        bwd["scan_launches"] += launches[1]
+        small = min(128, width)
+        _, tables_s, tkw_s = texture_inputs(scene, cs, small, dev)
+        m_ = small * small
+        fkw = dict(samples=4, trace_depth=8, sky_on=True,
+                   has_dielectrics=scene.flags.has_dielectrics,
+                   tex_tables=tkw_s["tex_tables"])
+        lane_count = torch.full((m_,), 4, dtype=torch.int32, device=dev)
+        res = megatrace.sample_batch(lane_count, torch.zeros(m_, device=dev),
+                                     *tables_s, 7, want_tape=True, **fkw)
+        cots = probe_cotangents(res["color"], res["count"])
+        args = (res["tape"], lane_count, *tables_s, 7, *cots)
+        ms, got = time_batch(megatrace_bwd.replay_grad, *args, repeats=5,
+                             **fkw)
+        plain_ms_b, want = time_batch(megatrace_bwd.replay_grad_reference,
+                                      *args, repeats=1, **fkw)
+        leaves = LEAVES + ("tex_rec",) + (("atlas",) if tex.atlas is not None
+                                          else ())
+        rel = aux_errors(got, want, leaves)
+        bwd["max_rel_err"] = max(bwd["max_rel_err"], rel)
+        print(f"{name} {small}x{small} depth 8, 4 spp backward: replay_grad "
+              f"{ms:.3f} ms, plain {plain_ms_b:.3f} ms; max error {rel:.3e} "
+              f"of the leaf's max abs over {', '.join(leaves)} [{card}]")
+        bwd[f"{name}_replay_grad_ms"] = ms
+        bwd[f"{name}_plain_ms"] = plain_ms_b
+        del res, got, want, args
+        if name != "checkered":
+            continue
+        for few in (4, spp):
+            lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+            res = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                         want_tape=True,
+                                         **dict(kw, samples=few))
+            cots = probe_cotangents(res["color"], res["count"])
+            live = float(res["rays"].sum())
+            scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+                tables, None, lane_count, res["tape"], cots, 7,
+                dict(kw, samples=few), 5 if few == 4 else 3, tex=tex)
+            bnd = bwd_bound(live, table.shape[0], n, s_count * 4 * 39,
+                            float((res["tape"] >= 0).sum()) * CHECKER_FLOPS)
+            print(f"texture backward alone, checkered {width}x{width} depth "
+                  f"8, {few} spp (CUDA events): tape scan's two launches "
+                  f"{scan_ms:.3f} ms (glue {glue_ms:.3f} ms more), path "
+                  f"kernel {paths_ms:.3f} ms, {paths_ms * 1e6 / live:.3f} ns "
+                  f"a live iteration (bound {bnd[0]:.4f} ms by {bnd[1]}, "
+                  f"{bnd[0] / paths_ms:.1%}; {live:.0f} live iterations) "
+                  f"[{card}]")
+            key = "" if few == 4 else "_64spp"
+            bwd[f"ms{key}"] = paths_ms
+            bwd[f"scan_ms{key}"] = scan_ms
+            bwd[f"bound{key}"] = bnd
+            bwd[f"ns_per_iteration{key}"] = paths_ms * 1e6 / live
+            del res, table
+
+    # ---- (f) the CLI ---------------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for name in TEX_SCENES:
+            png = os.path.join(tmp, f"{name}.png")
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["--scene", name, "--width", str(width // 2),
+                           "--height", str(width // 2), "--spp", "16",
+                           "--depth", "8", "--output", png, "--quiet",
+                           "--device", dev.type])
+            seconds = time.perf_counter() - t0
+            with open(png, "rb") as f:
+                header = f.read(8)
+            if (rc != 0 or header != b"\x89PNG\r\n\x1a\n"
+                    or megatrace.TEX_LAUNCHES == 0
+                    or megatrace.TEX_LAUNCHES != megatrace.LAUNCHES):
+                raise RuntimeError(f"the CLI did not render --scene {name} "
+                                   f"through the texture build (rc {rc}, "
+                                   f"launches {megatrace.LAUNCHES}, texture "
+                                   f"{megatrace.TEX_LAUNCHES})")
+            print(f"CLI: --scene {name} {width // 2}x{width // 2}, 16 spp, "
+                  f"depth 8 on {dev}: PNG written in {seconds:.2f} s, "
+                  f"texture build launches {megatrace.TEX_LAUNCHES}")
+    out["texture_parity_share"] = min(shares)
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+
+    ch = fwd["checkered"]
+    kernels = [{
+        "name": "megatrace_batch_texture", "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457",
+        "launches": launches_main, "max_abs_err": max_err,
+        "ms": ch["ms"], "plain_ms": ch["plain_ms"],
+        "bound_ms": ch["bound"][0], "bound_by": ch["bound"][1],
+        "library_ms": None, "ms_64spp": ch["ms_64spp"],
+        "bound_ms_64spp": ch["bound_ms_64spp"],
+        "registers": ch["registers"], "local_bytes": ch["local_bytes"],
+        "blocks_per_sm": ch["blocks"],
+        **{f"{k}_{f}": fwd[k][f] for k in TEX_SCENES[1:]
+           for f in ("ms", "ms_64spp", "plain_ms", "registers", "blocks")},
+        **{f"{k}_bound_ms": fwd[k]["bound"][0] for k in TEX_SCENES[1:]},
+        **{f"{k}_bound_ms_64spp": fwd[k]["bound_ms_64spp"]
+           for k in TEX_SCENES[1:]},
+    }, {
+        "name": "megatrace_bwd_texture", "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_bwd.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
+        "launches": bwd["launches"], "scan_launches": bwd["scan_launches"],
+        "max_abs_err": bwd["max_rel_err"], "ms": bwd["ms"],
+        "scan_ms": bwd["scan_ms"],
+        "replay_grad_ms": bwd["checkered_replay_grad_ms"],
+        "plain_ms": bwd["checkered_plain_ms"],
+        "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
+        "library_ms": None, "ms_64spp": bwd["ms_64spp"],
+        "bound_ms_64spp": bwd["bound_64spp"][0],
+        "ns_per_iteration": bwd["ns_per_iteration"],
+        "ns_per_iteration_64spp": bwd["ns_per_iteration_64spp"],
+        "textured_sphere_replay_grad_ms":
+            bwd["textured_sphere_replay_grad_ms"],
+        "textured_sphere_plain_ms": bwd["textured_sphere_plain_ms"],
+    }]
+    return {"kernels": kernels, "paths": out}
+
+
 SASS_SOURCES = ("megatrace_batch", "megatrace_wave", "megatrace_bwd",
                 "meshtrace_sync", "meshtrace_permute", "sphere_select",
                 "triangle_select")
@@ -3391,9 +4170,10 @@ def turn_readings() -> dict:
 
 def sass_functions(lib: str) -> dict:
     """{kernel name: its SASS instructions} of a built library, by
-    cuobjdump; a template argument list <b, c, false> reads as <b, c> and
-    <b, false> as <b> (a flag added last with a default, false in every
-    instantiation that existed before it: the volume builds' kVol, the
+    cuobjdump; a template argument list's trailing false flags drop:
+    <b, c, false, false> reads as <b, c> and <b, false> as <b> (a flag
+    added last with a default, false in every instantiation that existed
+    before it: the volume builds' kVol, the motion builds' kMotion, the
     batch kernel's streamed flag of the builds before the streamed kernel
     of its own)."""
     from raytracing_in_one_weekend_tpu_torch.ops import cuda_build
@@ -3408,13 +4188,15 @@ def sass_functions(lib: str) -> dict:
             # the anonymous namespace's name hashes the file
             name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
                           name)
-            name = re.sub(r"ILb(\d)ELb(\d)ELb0EE", r"ILb\1ELb\2EE", name)
-            name = re.sub(r"ILb(\d)ELb0EE", r"ILb\1EE", name)
+            name = re.sub(r"(ILb\d(?:ELb\d)*?)(?:ELb0)+EE", r"\1EE", name)
             # the sphere build, a template since its aux build: compare
             # its <false> instance with the kernel it was (their parameter
             # lists differ by the aux build's, which come last)
             name = re.sub(r"(\d+megatrace_sphere_kernel)(?:ILb0EEEv|E)\S*",
                           r"\1<false>", name)
+            # every other template kernel by its template arguments (the
+            # motion and texture builds added parameters last)
+            name = re.sub(r"(I(?:Lb\dE)+E)Ev\S*", r"\1", name)
             funcs[name] = []
         elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             funcs[name].append(" ".join(line.split()))
@@ -3659,7 +4441,7 @@ def main() -> int:
                   lane_use_lane_order=lane_use_share(out["rays"],
                                                      torch.arange(n)))
     report = ptxas_report(megatrace.BUILD_LOG,
-                          "megatrace_sphere_kernelILb0ELb0EE")
+                          "megatrace_sphere_kernelILb0ELb0ELb0ELb0EE")
     print(f"sphere build: ptxas {report or '(not built here)'}; "
           f"{sphere['registers']} registers, {sphere['local_bytes']} B "
           f"local a thread, {sphere['blocks']} blocks of 128 an SM "
@@ -3676,6 +4458,8 @@ def main() -> int:
     streamed = streamed_phases(dev, card)
     aux = aux_phases(dev, card)
     vol = volume_phases(dev, card)
+    motion = motion_phases(dev, card)
+    texture = texture_phases(dev, card)
 
     kernels = [{
         "name": "megatrace_batch",
@@ -3728,7 +4512,8 @@ def main() -> int:
         "bound_by": bwd["scan"]["bound"][1],
         "library_ms": None,
     }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"] \
-        + aux["kernels"] + vol["kernels"]
+        + aux["kernels"] + vol["kernels"] + motion["kernels"] \
+        + texture["kernels"]
     print(json.dumps({
         "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
@@ -3740,7 +4525,8 @@ def main() -> int:
         "bwd_paths": {k: bwd[k] for k in ("paths_4spp", "paths_64spp")},
         "wavefront": wave["paths"], "mesh": mesh["paths"],
         "streamed": streamed["paths"], "aux": aux["paths"],
-        "volume": vol["paths"]}))
+        "volume": vol["paths"], "motion": motion["paths"],
+        "texture": texture["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

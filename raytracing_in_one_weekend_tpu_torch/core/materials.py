@@ -5,8 +5,10 @@ Reference: Runtime/Material.cs:16-218.  `pack_materials` resolves the
 tables into the (M, 12) record the kernels read; `scatter` is the
 wavefront integrator's branchless scatter of every lane at once, for the
 Standard (Lambert / GGX metal / glossy), Dielectric and
-ProbabilisticVolume (isotropic) materials.  Procedural textures raise
-NotImplementedError naming their ROADMAP step (7.5).
+ProbabilisticVolume (isotropic) materials.  Procedural textures
+(checker, Perlin marble, image) are sampled per lane at the hit
+(core/textures.py), overriding the packed constants, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import dataclasses
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.core import (
-    math3, microfacet, rng, sampling,
+    math3, microfacet, rng, sampling, textures,
 )
 from raytracing_in_one_weekend_tpu_torch.core.textures import TextureType
 from raytracing_in_one_weekend_tpu_torch.scene.scene import (
@@ -118,11 +120,6 @@ def scatter(
     evaluated and blended by material type, the lotteries draw from the
     SCATTER_A stream's six uniforms (a volume's isotropic direction from
     its third and fourth)."""
-    if scene.flags.has_procedural_textures:
-        raise NotImplementedError(
-            "checker, Perlin and image textures are not ported yet "
-            "(ROADMAP queue 1, step 7.5)"
-        )
     if row is None:
         if packed is None:
             packed = pack_materials(scene)
@@ -133,6 +130,19 @@ def scatter(
     emission = row[:, 4:7]
     glossiness = row[:, 7]
     metallic = row[:, 8]
+    if scene.flags.has_procedural_textures:
+        # the texture path (checker / Perlin / image) overrides the packed
+        # constants
+        mats, tex = scene.materials, scene.textures
+        mat = material.long()
+        albedo = textures.sample_color(tex, mats.albedo_tex[mat], uv, point,
+                                       normal)
+        emission = textures.sample_color(tex, mats.emission_tex[mat], uv,
+                                         point, normal)
+        glossiness = textures.sample_scalar(tex, mats.glossiness_tex[mat],
+                                            uv, point, normal)
+        metallic = textures.sample_scalar(tex, mats.metallic_tex[mat], uv,
+                                          point, normal)
     parameter = row[:, 9]
     perfect_specular = row[:, 10] > 0.5
 

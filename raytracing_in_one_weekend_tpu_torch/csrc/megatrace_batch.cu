@@ -1,11 +1,13 @@
 // Fused sample-batch path tracer for Hopper (sm_90a): one whole
 // SampleBatchJob per launch, sphere scenes, scenes with rects and boxes
-// (with or without spheres), convex volumes beside either, and mesh scenes
-// of at most TRI_STREAM_MAX triangles, gradient or no sky.
+// (with or without spheres), convex volumes, moving spheres and textured
+// albedos beside either, and mesh scenes of at most TRI_STREAM_MAX
+// triangles, gradient or no sky.
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
-// sphere arm, its rect/box arm, its convex-volume arm, its triangle (VMEM)
-// arm and its streamed-triangle arm (white-noise hash PRNG, dense sphere
+// sphere arm, its rect/box arm, its convex-volume arm, its motion and
+// texture arms, its triangle (VMEM) arm and its streamed-triangle arm
+// (white-noise hash PRNG, dense sphere
 // sweep, the one-sided rect and Majercik box tests, the Beer-Lambert
 // volume walk, the Möller–Trumbore sweep over AABB-culled 192-row triangle
 // blocks, Standard Lambert/GGX-metal, dielectric and isotropic scatter,
@@ -136,6 +138,7 @@ constexpr int kAuxBlocks = 4;  // its aux build's: the rect and box tests
                                // need more registers than 80
 constexpr int kVolBlocks = 4;  // its volume builds': the medium's 8 floats
 constexpr int kVolConsts = 40;  // ... their constants: kConsts, 2 pad, vol0
+constexpr int kMotionBlocks = 4;  // the motion builds': the moved centres
 constexpr int kSweepStep = 15;  // spheres a step of its sweep: the
                                // most that fit 80 registers unspilled
 constexpr int kTileW = 8, kTileH = 4;  // the sphere build's warp: a pixel
@@ -180,11 +183,20 @@ struct SharedRow {
 // discriminant is > 0 reads its row again and recomputes b by the same
 // float arithmetic.  So each sphere's t is sphere_sweep's, the running
 // minimum takes them in row order with the same strict <, and the winner
-// is sphere_sweep's bit for bit.
+// is sphere_sweep's bit for bit.  With kMotion (the motion builds) each
+// sphere moves: its centre at the path's time is c(t) = fmaf(m, ptime, c),
+// m its row of `move`, and the quadratic's c term ((|o|^2 - 2 o.c(t)) +
+// |c(t)|^2) + (-r^2) (sph's fourth column holds -r^2), the JAX kernel's
+// operations (:379-390); ops/megatrace.py::_quadratic_bc is the plain
+// version.
+template <bool kMotion = false>
 __device__ __forceinline__ void sphere_sweep_steps(const Path& p,
                                                    const float4* sph, int s,
                                                    float t_min,
-                                                   float& best_t, int& best) {
+                                                   float& best_t, int& best,
+                                                   const float4* move =
+                                                       nullptr,
+                                                   float ptime = 0.f) {
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
   const float a = dot3(dx, dy, dz, dx, dy, dz);
@@ -195,9 +207,21 @@ __device__ __forceinline__ void sphere_sweep_steps(const Path& p,
   best = 0;
   auto disc_of = [&](int row, float& b) {
     const float4 g = sph[row];
-    b = o_dot_d - dot3(dx, dy, dz, g.x, g.y, g.z);
-    const float c = fmaf(-2.0f, dot3(ox, oy, oz, g.x, g.y, g.z), o_sq) + g.w;
-    return fmaf(b, b, -(a * c));
+    if constexpr (kMotion) {
+      const float4 m = move[row];
+      const float cx = fmaf(m.x, ptime, g.x), cy = fmaf(m.y, ptime, g.y),
+                  cz = fmaf(m.z, ptime, g.z);
+      b = o_dot_d - dot3(dx, dy, dz, cx, cy, cz);
+      const float c = (fmaf(-2.0f, dot3(ox, oy, oz, cx, cy, cz), o_sq) +
+                       dot3(cx, cy, cz, cx, cy, cz)) +
+                      g.w;
+      return fmaf(b, b, -(a * c));
+    } else {
+      b = o_dot_d - dot3(dx, dy, dz, g.x, g.y, g.z);
+      const float c =
+          fmaf(-2.0f, dot3(ox, oy, oz, g.x, g.y, g.z), o_sq) + g.w;
+      return fmaf(b, b, -(a * c));
+    }
   };
   auto take = [&](float b, float disc, int row) {
     const float sq = sqrtf(disc);
@@ -240,16 +264,29 @@ __device__ __forceinline__ void sphere_sweep_steps(const Path& p,
 // The far root of sphere row `row` of `sph` for the path's ray: the exit
 // of a volume sphere it hit, by sphere_sweep_steps' float operations (so
 // bit-equal to the root the sweep would take; the JAX kernel's
-// t_exit_rows, :401-408), kBig at or before t_min.
+// t_exit_rows, :401-408), kBig at or before t_min; with kMotion at the
+// centre c(t) of sphere_sweep_steps.
+template <bool kMotion = false>
 __device__ __forceinline__ float sphere_exit(const Path& p, const float4* sph,
-                                             int row, float t_min) {
+                                             int row, float t_min,
+                                             const float4* move = nullptr,
+                                             float ptime = 0.f) {
   const float a = dot3(p.dx, p.dy, p.dz, p.dx, p.dy, p.dz);
   const float o_dot_d = dot3(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz);
   const float o_sq = dot3(p.ox, p.oy, p.oz, p.ox, p.oy, p.oz);
-  const float4 g = sph[row];
+  float4 g = sph[row];
+  float ct_sq = 0.0f;
+  if constexpr (kMotion) {
+    const float4 m = move[row];
+    g.x = fmaf(m.x, ptime, g.x);
+    g.y = fmaf(m.y, ptime, g.y);
+    g.z = fmaf(m.z, ptime, g.z);
+    ct_sq = dot3(g.x, g.y, g.z, g.x, g.y, g.z);
+  }
   const float b = o_dot_d - dot3(p.dx, p.dy, p.dz, g.x, g.y, g.z);
-  const float c = fmaf(-2.0f, dot3(p.ox, p.oy, p.oz, g.x, g.y, g.z), o_sq) +
-                  g.w;
+  float c = fmaf(-2.0f, dot3(p.ox, p.oy, p.oz, g.x, g.y, g.z), o_sq);
+  if constexpr (kMotion) c = c + ct_sq;
+  c = c + g.w;
   const float disc = fmaf(b, b, -(a * c));
   const float t_far = (-b + sqrtf(fmaxf(disc, 0.0f))) * (1.0f / a);
   return t_far > t_min ? t_far : kBig;
@@ -352,11 +389,23 @@ __device__ __forceinline__ bool aux_live(const float4* row, bool box) {
 // their 16-column records), sweeps them after the spheres (aux_sweep) and
 // shades their winners, kAuxBlocks blocks an SM.  Its volume builds (kVol)
 // read the camera's medium from consts[32..39], carry each lane's, and walk
-// it (shade), kVolBlocks blocks an SM.
-template <bool kAux, bool kVol = false>
-__global__ void __launch_bounds__(kThreads, kVol   ? kVolBlocks
-                                            : kAux ? kAuxBlocks
-                                                   : kSphereBlocks)
+// it (shade), kVolBlocks blocks an SM.  Its motion builds (kMotion) stage
+// the spheres' move offsets (move_g, x y z 0 a row) after the spheres and
+// the rects and boxes, draw each path's shutter time at its regen (stream
+// 7 of the camera draws, the JAX kernel's :2745-2760) and sweep and shade
+// the spheres at that time, kMotionBlocks blocks an SM (kVolBlocks with
+// kVol).  Its texture builds (kTex) texture each winner's albedo
+// (tex_albedo): the records `tex_rec` per material, a Perlin texture's
+// tables (`perlin`, JAX's 8 x 256 rows, or null) staged in shared memory,
+// the image atlas (`atlas`, img_w x img_h texels an image, or null) read
+// through the read-only cache; kMotionBlocks blocks an SM.
+template <bool kAux, bool kVol = false, bool kMotion = false,
+          bool kTex = false>
+__global__ void __launch_bounds__(kThreads, kVol      ? kVolBlocks
+                                            : kAux    ? kAuxBlocks
+                                            : kMotion ? kMotionBlocks
+                                            : kTex    ? kMotionBlocks
+                                                      : kSphereBlocks)
     megatrace_sphere_kernel(const float* __restrict__ lane_count,
                             const float* __restrict__ count_in,
                             const float* __restrict__ consts,
@@ -368,7 +417,12 @@ __global__ void __launch_bounds__(kThreads, kVol   ? kVolBlocks
                             int has_dielectrics, int sky_on, int jitter,
                             const float4* __restrict__ aux_geo,
                             const float* __restrict__ aux_rec, int rect_rows,
-                            int box_rows, int rect_code, int box_code) {
+                            int box_rows, int rect_code, int box_code,
+                            const float4* __restrict__ move_g = nullptr,
+                            const float* __restrict__ tex_rec = nullptr,
+                            const float* __restrict__ perlin = nullptr,
+                            const float* __restrict__ atlas = nullptr,
+                            int img_w = 0, int img_h = 0) {
   extern __shared__ float4 sph[];
   // camera row: origin, lower_left, horizontal, vertical, right, up,
   // lens_radius, width, height | sky bottom | sky top (| pad | vol0)
@@ -403,6 +457,32 @@ __global__ void __launch_bounds__(kThreads, kVol   ? kVolBlocks
     aux.box_code = box_code;
   }
   for (int k = threadIdx.x; k < s; k += kThreads) sph[k] = sph_g[k];
+  [[maybe_unused]] const float4* move = nullptr;
+  if constexpr (kMotion) {
+    float4* staged = sph + s + (kAux ? 3 * (rect_rows + box_rows) : 0);
+    for (int k = threadIdx.x; k < s; k += kThreads) staged[k] = move_g[k];
+    move = staged;
+  }
+  [[maybe_unused]] std::conditional_t<kTex, TexScene, char> tex{};
+  if constexpr (kTex) {
+    __shared__ int perm[3 * 256];
+    __shared__ float4 vec[256];
+    if (perlin != nullptr) {
+      for (int k = threadIdx.x; k < 256; k += kThreads) {
+        perm[k] = (int)perlin[k];
+        perm[256 + k] = (int)perlin[256 + k];
+        perm[512 + k] = (int)perlin[512 + k];
+        vec[k] = make_float4(perlin[768 + k], perlin[1024 + k],
+                             perlin[1280 + k], 0.0f);
+      }
+      tex.perm = perm;
+      tex.vec = vec;
+    }
+    tex.rec = tex_rec;
+    tex.atlas = atlas;
+    tex.img_w = img_w;
+    tex.img_h = img_h;
+  }
   if (threadIdx.x < kCamFloats) cam[threadIdx.x] = consts[threadIdx.x];
   const SharedRow acc{&acc_rows[0][threadIdx.x]};
 #pragma unroll
@@ -424,6 +504,7 @@ __global__ void __launch_bounds__(kThreads, kVol   ? kVolBlocks
 
   Path p{};  // idle until its first sample starts
   [[maybe_unused]] std::conditional_t<kVol, Medium, char> med{};
+  [[maybe_unused]] float ptime = 0.f;  // the path's shutter time (kMotion)
   float started = 0.f;
   int depth = 0;
 
@@ -438,17 +519,22 @@ __global__ void __launch_bounds__(kThreads, kVol   ? kVolBlocks
 #pragma unroll
         for (int k = 0; k < 8; ++k) med.v[k] = cam[32 + k];
       }
+      if constexpr (kMotion) ptime = uniform(lane_key + salt, 7);
       depth = 0;
       started = started + 1.0f;
     }
     float best_t;
     int best;
-    sphere_sweep_steps(p, sph, s, t_min, best_t, best);
+    sphere_sweep_steps<kMotion>(p, sph, s, t_min, best_t, best, move, ptime);
     int winner;
+    [[maybe_unused]] const TexScene* texp = nullptr;
+    if constexpr (kTex) texp = &tex;
     if constexpr (kVol) {
       // the winner's exit: a sphere's far root, a box's slab exit, none
       // for a rect (the JAX kernel's t_exit, :428-431, :570, :637-660)
-      float t_exit = best_t < kBig ? sphere_exit(p, sph, best, t_min) : kBig;
+      float t_exit = best_t < kBig ? sphere_exit<kMotion>(p, sph, best, t_min,
+                                                          move, ptime)
+                                   : kBig;
       int aux_kind = 0, aux_idx = 0;
       const AuxScene* auxp = nullptr;
       if constexpr (kAux) {
@@ -465,17 +551,24 @@ __global__ void __launch_bounds__(kThreads, kVol   ? kVolBlocks
           t_exit = box_exit(o, d, g, t_min, true, bo, dl, inv, axis, hi);
         }
       }
-      winner = shade<false, kAux, true>(
+      winner = shade<false, kAux, true, kMotion, kTex>(
           p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
           sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
-          TriScene{}, auxp, aux_kind, aux_idx, &med, t_exit);
+          TriScene{}, auxp, aux_kind, aux_idx, &med, t_exit, move, ptime,
+          texp);
     } else if constexpr (kAux) {
       int aux_kind, aux_idx;
       aux_sweep(p, aux, t_min, best_t, aux_kind, aux_idx);
-      winner = shade<false, true>(
+      winner = shade<false, true, false, kMotion, kTex>(
           p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
           sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
-          TriScene{}, &aux, aux_kind, aux_idx);
+          TriScene{}, &aux, aux_kind, aux_idx, nullptr, kBig, move, ptime,
+          texp);
+    } else if constexpr (kMotion || kTex) {
+      winner = shade<false, false, false, kMotion, kTex>(
+          p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+          sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+          TriScene{}, nullptr, 0, 0, nullptr, kBig, move, ptime, texp);
     } else {
       winner = shade<false>(
           p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
@@ -686,22 +779,16 @@ extern "C" int rtiw_megatrace_batch(
                                        kThreads, shmem, st>>>(
           lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
           rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
-          has_dielectrics, sky_on, jitter, nullptr, nullptr, 0, 0, 0, 0);
+          has_dielectrics, sky_on, jitter, nullptr, nullptr, 0, 0, 0, 0,
+          nullptr, nullptr, nullptr, nullptr, 0, 0);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The aux build's dynamic shared memory: the spheres, then three float4
-// a rect or box row.
-static size_t aux_shmem(int s, int aux_rows) {
-  return ((size_t)s + 3 * (size_t)aux_rows) * sizeof(float4);
-}
-
-// The sphere build (aux_rows < 0) or its aux build with an s-sphere table
-// and aux_rows rect and box rows, for the report: blocks an SM (the
-// occupancy API), registers a thread and local memory (stack and spills)
-// a thread (cudaFuncGetAttributes), into info[0..2].
+// A build's occupancy for the report: blocks an SM (the occupancy API),
+// registers a thread and local memory (stack and spills) a thread
+// (cudaFuncGetAttributes), into info[0..2].
 static int sphere_info(const void* kernel, size_t shmem, int* info) {
   int blocks = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -716,70 +803,64 @@ static int sphere_info(const void* kernel, size_t shmem, int* info) {
   return 0;
 }
 
-extern "C" int rtiw_megatrace_sphere_info(int s, int* info) {
-  return sphere_info(reinterpret_cast<const void*>(
-                         megatrace_sphere_kernel<false>),
-                     (size_t)s * sizeof(float4), info);
+// The sphere kernel's builds beyond rtiw_megatrace_batch's sphere build:
+// megatrace_sphere_kernel<kAux = aux_rows > 0, kVol = has_vol, kMotion =
+// move != null, kTex = tex_rec != null>.
+using SphereKernel = decltype(&megatrace_sphere_kernel<false>);
+
+template <bool kAux, bool kVol>
+static SphereKernel ext_kernel_of(bool motion, bool tex) {
+  if (motion)
+    return tex ? megatrace_sphere_kernel<kAux, kVol, true, true>
+               : megatrace_sphere_kernel<kAux, kVol, true, false>;
+  return tex ? megatrace_sphere_kernel<kAux, kVol, false, true>
+             : megatrace_sphere_kernel<kAux, kVol, false, false>;
 }
 
-extern "C" int rtiw_megatrace_aux_info(int s, int aux_rows, int* info) {
-  const size_t shmem = aux_shmem(s, aux_rows);
-  const cudaError_t err = cudaFuncSetAttribute(
-      megatrace_sphere_kernel<true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return sphere_info(reinterpret_cast<const void*>(
-                         megatrace_sphere_kernel<true>),
-                     shmem, info);
+static SphereKernel ext_kernel(int aux_rows, int has_vol, bool motion,
+                               bool tex) {
+  if (has_vol)
+    return aux_rows > 0 ? ext_kernel_of<true, true>(motion, tex)
+                        : ext_kernel_of<false, true>(motion, tex);
+  return aux_rows > 0 ? ext_kernel_of<true, false>(motion, tex)
+                      : ext_kernel_of<false, false>(motion, tex);
 }
 
-// The aux build (scenes with rects or boxes, spheres or none): the sphere
-// build's arguments, then aux_geo ((rect_rows + box_rows) x 16 floats:
-// pack_aux_tables' rect rows, then its box rows; 16-byte aligned), aux_rec
-// ((rect_rows + box_rows) x 16 floats) and the tape codes of rect row 0
-// and box row 0.  Returns cudaGetLastError() after the launch, or the
-// error of setting its shared memory.
-extern "C" int rtiw_megatrace_aux(
+// The dynamic shared memory: the spheres, three float4 a rect or box row,
+// then with motion a move offset a sphere.
+static size_t ext_shmem(int s, int aux_rows, bool motion) {
+  return ((size_t)s + 3 * (size_t)aux_rows + (motion ? (size_t)s : 0)) *
+         sizeof(float4);
+}
+
+// The aux, volume, motion and texture builds (scenes with rects or boxes,
+// spheres or none, convex volumes, moving spheres, checker, Perlin and
+// image albedos, in any mix): the sphere build's arguments, then aux_geo
+// ((rect_rows + box_rows) x 16 floats: pack_aux_tables' rect rows, then
+// its box rows; 16-byte aligned) and aux_rec ((rect_rows + box_rows) x 16
+// floats), both unused with no rows, the tape codes of rect row 0 and box
+// row 0; `consts` kConsts floats, or with has_vol kVolConsts: the camera
+// row and sky, 2 pad, then the camera's medium (vol0); `move` (s x 4
+// floats: each sphere's move offset x y z, 0; 16-byte aligned) or null;
+// `tex_rec` (a kTexCols-float texture record per material) or null,
+// `perlin` (JAX's 8 x 256 table rows) or null, `atlas` ((A * img_h) x
+// img_w x 3 floats) or null.  Returns cudaGetLastError() after the launch,
+// or the error of setting its shared memory.
+extern "C" int rtiw_megatrace_ext(
     const float* lane_count, const float* count_in, const float* consts,
     const float* sph, const float* rec, const float* aux_geo,
     const float* aux_rec, float* out, float* tape, int n, int s,
     int rect_rows, int box_rows, int rect_code, int box_code, int seed,
     int lane_base, int samples, int trace_depth, float t_min,
-    int has_dielectrics, int sky_on, int jitter, void* stream) {
-  if (n > 0) {
-    const size_t shmem = aux_shmem(s, rect_rows + box_rows);
-    const cudaError_t err = cudaFuncSetAttribute(
-        megatrace_sphere_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    megatrace_sphere_kernel<true><<<(n + kThreads - 1) / kThreads, kThreads,
-                                    shmem, static_cast<cudaStream_t>(stream)>>>(
-        lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
-        rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
-        has_dielectrics, sky_on, jitter,
-        reinterpret_cast<const float4*>(aux_geo), aux_rec, rect_rows,
-        box_rows, rect_code, box_code);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The volume builds (scenes with convex volumes beside spheres, rects or
-// boxes): rtiw_megatrace_aux's arguments, with rect_rows + box_rows == 0
-// (aux_geo, aux_rec unused) taking megatrace_sphere_kernel<false, true>
-// and more taking <true, true>, and `consts` kVolConsts floats: the
-// camera row and sky, 2 pad, then the camera's medium (vol0).
-extern "C" int rtiw_megatrace_volume(
-    const float* lane_count, const float* count_in, const float* consts,
-    const float* sph, const float* rec, const float* aux_geo,
-    const float* aux_rec, float* out, float* tape, int n, int s,
-    int rect_rows, int box_rows, int rect_code, int box_code, int seed,
-    int lane_base, int samples, int trace_depth, float t_min,
-    int has_dielectrics, int sky_on, int jitter, void* stream) {
+    int has_dielectrics, int sky_on, int jitter, int has_vol,
+    const float* move, const float* tex_rec, const float* perlin,
+    const float* atlas, int img_w, int img_h, void* stream) {
   if (n > 0) {
     const int aux_rows = rect_rows + box_rows;
-    auto kernel = aux_rows > 0 ? megatrace_sphere_kernel<true, true>
-                               : megatrace_sphere_kernel<false, true>;
-    const size_t shmem = aux_shmem(s, aux_rows);
+    const bool motion = move != nullptr;
+    const SphereKernel kernel =
+        ext_kernel(aux_rows, has_vol, motion, tex_rec != nullptr);
+    const size_t shmem = ext_shmem(s, aux_rows, motion);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -789,17 +870,20 @@ extern "C" int rtiw_megatrace_volume(
         rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
         has_dielectrics, sky_on, jitter,
         reinterpret_cast<const float4*>(aux_geo), aux_rec, rect_rows,
-        box_rows, rect_code, box_code);
+        box_rows, rect_code, box_code, reinterpret_cast<const float4*>(move),
+        tex_rec, perlin, atlas, img_w, img_h);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// sphere_info of the volume build for an s-sphere table and aux_rows rect
-// and box rows (0: the build beside spheres only).
-extern "C" int rtiw_megatrace_volume_info(int s, int aux_rows, int* info) {
-  auto kernel = aux_rows > 0 ? megatrace_sphere_kernel<true, true>
-                             : megatrace_sphere_kernel<false, true>;
-  const size_t shmem = aux_shmem(s, aux_rows);
+// sphere_info of a build for an s-sphere table, aux_rows rect and box rows
+// and the flags (all 0: the sphere build).
+extern "C" int rtiw_megatrace_ext_info(int s, int aux_rows, int has_vol,
+                                       int has_motion, int has_tex,
+                                       int* info) {
+  const SphereKernel kernel =
+      ext_kernel(aux_rows, has_vol, has_motion != 0, has_tex != 0);
+  const size_t shmem = ext_shmem(s, aux_rows, has_motion != 0);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -8,8 +8,9 @@
 // sweep, with sphere_sweep's winner, before `shade`; the others call
 // `bounce`, which runs all three.  The triangle arm is a compile-time flag: the batch kernel's mesh
 // build takes it, the sphere-only builds compile none of it; so are the
-// rect and box arm (kAux) and the convex volume walk (kVol) of the batch
-// kernel's sphere builds.  Plain version:
+// rect and box arm (kAux), the convex volume walk (kVol), unit-shutter
+// motion (kMotion) and albedo textures (kTex) of the batch kernel's sphere
+// builds.  Plain version:
 // ops/megatrace.py::_bounce, under the precision contract of
 // megatrace_common.cuh.
 #pragma once
@@ -65,6 +66,133 @@ __device__ __forceinline__ void aux_row(const AuxScene& aux, int k,
   g[0] = a.x, g[1] = a.y, g[2] = a.z, g[3] = a.w;
   g[4] = b.x, g[5] = b.y, g[6] = b.z, g[7] = b.w;
   g[8] = c.x, g[9] = c.y, g[10] = c.z, g[11] = c.w;
+}
+
+constexpr int kTexCols = 16;  // texture record columns: 0 TextureType |
+                              // 1-3 main | 4-6 secondary | 7 parameter |
+                              // 8 atlas row base (image index * H)
+
+// A scene's albedo textures (the batch kernel's texture builds): a record
+// per material in device memory, read through the read-only cache; with a
+// Perlin texture its permutations and gradient vectors staged in shared
+// memory (`perm`: perm_x, perm_y, perm_z, 256 each; `vec`: 256 unit
+// vectors x y z 0), else null; with an image atlas its texels, (A * H) x W
+// x 3 floats in device memory, else null.
+struct TexScene {
+  const float* rec = nullptr;
+  const int* perm = nullptr;
+  const float4* vec = nullptr;
+  const float* atlas = nullptr;
+  int img_w = 0, img_h = 0;
+};
+
+// Surflet falloff 1 - (3 - 2|t|) t^2, 0 from |t| = 1 on (PerlinNoise.cs:
+// 24-28; ops/megatrace.py::_falloff).
+__device__ __forceinline__ float perlin_falloff(float t) {
+  t = fabsf(t);
+  return t >= 1.0f ? 0.0f : fmaf(-((3.0f - 2.0f * t) * t), t, 1.0f);
+}
+
+// Surflet gradient noise at p, clipped to [0, 1] (PerlinNoise.cs:36-52;
+// ops/megatrace.py::perlin_rows).
+__device__ __forceinline__ float perlin_noise(const TexScene& T, float px,
+                                              float py, float pz) {
+  const float p[3] = {px, py, pz};
+  int pv[3][2];
+  float fr[3][2], fa[3][2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float cf = floorf(p[a]);
+    const int ci = (int)cf;
+    pv[a][0] = T.perm[a * 256 + (ci & 255)];
+    pv[a][1] = T.perm[a * 256 + ((ci + 1) & 255)];
+    fr[a][0] = p[a] - cf;
+    fr[a][1] = fr[a][0] - 1.0f;
+    fa[a][0] = perlin_falloff(fr[a][0]);
+    fa[a][1] = perlin_falloff(fr[a][1]);
+  }
+  float result = 0.0f;
+#pragma unroll
+  for (int dk = 0; dk < 2; ++dk)
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj)
+#pragma unroll
+      for (int di = 0; di < 2; ++di) {
+        const float4 g = T.vec[pv[0][di] ^ pv[1][dj] ^ pv[2][dk]];
+        const float dot =
+            dot3(fr[0][di], fr[1][dj], fr[2][dk], g.x, g.y, g.z);
+        result = fmaf(fa[0][di] * fa[1][dj] * fa[2][dk], dot, result);
+      }
+  return fminf(fmaxf(result, 0.0f), 1.0f);
+}
+
+// 7-octave fBm of perlin_noise, clipped to [0, 1] (PerlinNoise.cs:54-68),
+// kept out of line so that the builds' other code keeps its registers.
+__device__ __noinline__ float perlin_turbulence(const TexScene& T, float px,
+                                                float py, float pz) {
+  float acc = 0.0f, weight = 1.0f;
+  for (int k = 0; k < 7; ++k) {
+    acc = acc + weight * perlin_noise(T, px, py, pz);
+    weight *= 0.5f;
+    px = px * 2.0f;
+    py = py * 2.0f;
+    pz = pz * 2.0f;
+  }
+  return fminf(fmaxf(acc, 0.0f), 1.0f);
+}
+
+// The albedo (ar, ag, ab) of a winner of material `mat_id` after its
+// texture (the JAX kernel's _bounce_textures, :2207-2295;
+// ops/megatrace.py::bounce_textures): a checker by the dominant normal
+// axis's projection, the Perlin marble, or the nearest atlas texel at the
+// sphere uv (`sphere`: a sphere winner; rects and boxes read uv 0); other
+// types keep the packed albedo.
+__device__ __forceinline__ void tex_albedo(const TexScene& T, float mat_id,
+                                           float nx, float ny, float nz,
+                                           float px, float py, float pz,
+                                           bool sphere, float& ar, float& ag,
+                                           float& ab) {
+  const float* tx = T.rec + (size_t)(int)mat_id * kTexCols;
+  const float ttype = __ldg(tx);
+  if (ttype > 1.5f && ttype < 2.5f) {
+    // checker (textures._checker_uv: the dominant normal axis)
+    const float ax = fabsf(nx), ay = fabsf(ny), az = fabsf(nz);
+    const bool use_x = ax > ay && ax > az;
+    const bool use_y = !use_x && ay > ax && ay > az;
+    const float v0 = use_x ? nx : use_y ? ny : nz;
+    const float v1 = use_x ? ny : use_y ? nz : nx;
+    const float v2 = use_x ? nz : use_y ? nx : ny;
+    const float safe0 = v0 == 0.0f ? 1.0f : v0;
+    const float cu = fmaf(0.5f, v1 / safe0, 0.5f);
+    const float cv = fmaf(0.5f, v2 / safe0, 0.5f);
+    const float pif = kPiF * __ldg(tx + 7);
+    const int k = sin_cr(pif * cu) * sin_cr(pif * cv) < 0.0f ? 1 : 4;
+    ar = __ldg(tx + k);
+    ag = __ldg(tx + k + 1);
+    ab = __ldg(tx + k + 2);
+  } else if (ttype > 2.5f && ttype < 3.5f && T.vec != nullptr) {
+    // marble 0.5 (1 + sin(f z + 10 turbulence(p))) main
+    const float turb = perlin_turbulence(T, px, py, pz);
+    const float marble =
+        0.5f * (1.0f + sin_cr(fmaf(__ldg(tx + 7), pz, 10.0f * turb)));
+    ar = marble * __ldg(tx + 1);
+    ag = marble * __ldg(tx + 2);
+    ab = marble * __ldg(tx + 3);
+  } else if (ttype > 3.5f && ttype < 4.5f && T.atlas != nullptr) {
+    // the nearest texel at the sphere uv (Texture.cs:82-90)
+    float u = 0.0f, v = 0.0f;
+    if (sphere) {
+      u = (atan2_cr(-nz, nx) + kPiF) * kHalfInvPiF;
+      v = acos_cr(fminf(fmaxf(-ny, -1.0f), 1.0f)) * kInvPiF;
+    }
+    const int cx = min(max((int)(u * (float)T.img_w), 0), T.img_w - 1);
+    const int cy = min(max((int)(v * (float)T.img_h), 0), T.img_h - 1);
+    const float* texel =
+        T.atlas + ((size_t)((int)__ldg(tx + 8) + cy) * T.img_w + cx) * 3;
+    ar = __ldg(texel) * __ldg(tx + 1);
+    ag = __ldg(texel + 1) * __ldg(tx + 2);
+    ab = __ldg(texel + 2) * __ldg(tx + 3);
+  }
 }
 
 // The state of one path (SampleBatchJob.cs:166-401).
@@ -157,8 +285,12 @@ __device__ __forceinline__ void aux_sweep(const Path& p, const AuxScene& aux,
 // scatter with the uniforms of hash base `bbase`, the gradient sky `sky`
 // (bottom rgb, top rgb) or none, the fold, AOV capture and events at path
 // depth `depth`, and the advance.  Returns the winner's tape code, -1 on a
-// miss.
-template <bool kTris, bool kAux = false, bool kVol = false>
+// miss.  With kMotion (the motion builds) a sphere winner's centre is
+// taken at the path's shutter time `ptime`: fmaf(move[best], ptime,
+// centre), its move offset a row of `move` (x, y, z, 0).  With kTex (the
+// texture builds) the winner's albedo is textured (tex_albedo).
+template <bool kTris, bool kAux = false, bool kVol = false,
+          bool kMotion = false, bool kTex = false>
 __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      bool tri_wins, int tri_idx, float tri_u,
                                      float tri_v, const float* __restrict__ rec,
@@ -168,7 +300,10 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      const AuxScene* aux = nullptr,
                                      int aux_kind = 0, int aux_idx = 0,
                                      Medium* med = nullptr,
-                                     float t_exit = kBig) {
+                                     float t_exit = kBig,
+                                     const float4* move = nullptr,
+                                     float ptime = 0.f,
+                                     const TexScene* tex = nullptr) {
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
   const bool hit = best_t < kBig;
@@ -225,9 +360,16 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
     } else {
       w = rec + (size_t)best * kRec;
       const float inv_r = __ldg(w + 15);
-      nx = (px - __ldg(w + 12)) * inv_r;
-      ny = (py - __ldg(w + 13)) * inv_r;
-      nz = (pz - __ldg(w + 14)) * inv_r;
+      if constexpr (kMotion) {
+        const float4 m = move[best];
+        nx = (px - fmaf(m.x, ptime, __ldg(w + 12))) * inv_r;
+        ny = (py - fmaf(m.y, ptime, __ldg(w + 13))) * inv_r;
+        nz = (pz - fmaf(m.z, ptime, __ldg(w + 14))) * inv_r;
+      } else {
+        nx = (px - __ldg(w + 12)) * inv_r;
+        ny = (py - __ldg(w + 13)) * inv_r;
+        nz = (pz - __ldg(w + 14)) * inv_r;
+      }
     }
   } else {
     if (kTris && tri_wins) {
@@ -237,14 +379,26 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
     } else {
       w = rec + (size_t)best * kRec;
       const float inv_r = __ldg(w + 15);
-      nx = (px - __ldg(w + 12)) * inv_r;
-      ny = (py - __ldg(w + 13)) * inv_r;
-      nz = (pz - __ldg(w + 14)) * inv_r;
+      if constexpr (kMotion) {
+        const float4 m = move[best];
+        nx = (px - fmaf(m.x, ptime, __ldg(w + 12))) * inv_r;
+        ny = (py - fmaf(m.y, ptime, __ldg(w + 13))) * inv_r;
+        nz = (pz - fmaf(m.z, ptime, __ldg(w + 14))) * inv_r;
+      } else {
+        nx = (px - __ldg(w + 12)) * inv_r;
+        ny = (py - __ldg(w + 13)) * inv_r;
+        nz = (pz - __ldg(w + 14)) * inv_r;
+      }
     }
   }
   const float mtype = __ldg(w + 0);
-  const float alb_r = __ldg(w + 1), alb_g = __ldg(w + 2),
-              alb_b = __ldg(w + 3);
+  float alb_r = __ldg(w + 1), alb_g = __ldg(w + 2), alb_b = __ldg(w + 3);
+  if constexpr (kTex) {
+    bool sphere = true;
+    if constexpr (kAux) sphere = aux_kind == 0;
+    tex_albedo(*tex, __ldg(w + 11), nx, ny, nz, px, py, pz, sphere, alb_r,
+               alb_g, alb_b);
+  }
   float em_r = __ldg(w + 4), em_g = __ldg(w + 5), em_b = __ldg(w + 6);
   const float gloss = __ldg(w + 7), metallic = __ldg(w + 8),
               parameter = __ldg(w + 9);

@@ -67,6 +67,18 @@
 // scalar cotangents by its 8 (kScalVol, summed per warp with the camera's
 // and the sky's).  The tape and its scan are the same: a volume scatter or
 // a pass through a volume keeps its winner's code and takes one iteration.
+//
+// Scenes with moving spheres take the kMotion build (spheres only): a
+// path's state grows by its shutter time, and a sphere's cotangent row by
+// its move offset's three columns (kMotionGradCols, summed per warp and in
+// shared memory as the others).
+//
+// Sphere scenes with checker or image albedos take the kTex build: a
+// sphere's cotangent row grows by its texture record's main and secondary
+// colours (kTexGradCols, summed as the others), and each fetched texel's
+// cotangent goes into the texel plane `datlas` (the atlas's shape) by a
+// global atomic, the lanes of a warp that fetched one texel summing theirs
+// first (a 64 x 128 image takes many hits a texel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,11 +143,11 @@ __device__ __forceinline__ int nth_bit(unsigned m, int k) {
 // a shuffle tree over their ranks among the peers, and the first of them
 // adds the sum (Add: EntityAdd or MeshEntityAdd, one atomic a nonzero
 // column).
-template <bool kTris, bool kAux, class Add>
+template <bool kTris, bool kAux, class Add, bool kMotion = false>
 struct WarpEntityAdd {
   Add add;
   __device__ void operator()(int w, float* ge) const {
-    constexpr int cols = Layout<kTris, kAux>::grad;
+    constexpr int cols = Layout<kTris, kAux, kMotion>::grad;
     const int lane = threadIdx.x & 31;
     const unsigned peers = __match_any_sync(kFull, w);
     const int cnt = __popc(peers);
@@ -151,6 +163,42 @@ struct WarpEntityAdd {
       }
     }
     if (rank == 0) add(w, ge);
+  }
+};
+
+// The texture build's rows: the peers of each sphere row summed as
+// WarpEntityAdd does, added into the shared (s, kTexGradCols) table; then
+// the peers of each fetched texel (the row's slot kTexGradCols, -1: none;
+// none on a thread without a row this step) summed the same way, the
+// first adding the sum into the texel plane.
+struct WarpTexAdd {
+  float* base;
+  float* texels;
+  template <int kCols>
+  __device__ static bool peer_sum(int key, float* v) {
+    const int lane = threadIdx.x & 31;
+    const unsigned peers = __match_any_sync(kFull, key);
+    const int cnt = __popc(peers);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    const unsigned most = __reduce_max_sync(kFull, key >= 0 ? cnt : 1);
+    for (int s = 1; s < (int)most; s <<= 1) {
+      const bool take = (rank & (2 * s - 1)) == 0 && rank + s < cnt;
+      const int src = take ? nth_bit(peers, rank + s) : lane;
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const float x = __shfl_sync(kFull, v[k], src);
+        if (take) v[k] += x;
+      }
+    }
+    return rank == 0 && key >= 0;
+  }
+  __device__ void operator()(int w, float* ge) const {
+    if (peer_sum<kTexGradCols>(w, ge))
+      add_row(base + w * kTexGradCols, ge, kTexGradCols);
+    // a thread past its path's end (w < 0) holds an earlier step's row
+    const int texel = w >= 0 ? (int)ge[kTexGradCols] : -1;
+    if (peer_sum<3>(texel, ge + kTexGradCols + 1))
+      add_row(texels + (size_t)texel * 3, ge + kTexGradCols + 1, 3);
   }
 };
 
@@ -191,11 +239,18 @@ __device__ void flush_scal_vol(float* warp_rows, float* own_row,
 }
 
 // The plain row adder of each build.
-template <bool kTris, bool kAux>
+template <bool kTris, bool kAux, bool kMotion = false>
 struct RowAdd {
   using type = EntityAdd;
   __device__ static EntityAdd make(float* base, float*, int) {
     return EntityAdd{base};
+  }
+};
+template <>
+struct RowAdd<false, false, true> {
+  using type = MotionEntityAdd;
+  __device__ static MotionEntityAdd make(float* base, float*, int) {
+    return MotionEntityAdd{base};
   }
 };
 template <>
@@ -220,7 +275,11 @@ struct RowAdd<false, true> {
 // (PERF.md, kernel #2).  The kAux build passes its rect and box rows'
 // table as dent_tri and the padded sphere count as tri_base.  The kVol
 // builds read kScalVol constants and write as many scalar cotangents.
-template <bool kTris, bool kAux = false, bool kVol = false>
+// The kMotion build's sphere rows are kMotionGradCols wide, the kTex
+// build's kTexGradCols; the kTex build reads the atlas `atlas` (img_w x
+// img_h texels an image, or null) and writes the texel plane `datlas`.
+template <bool kTris, bool kAux = false, bool kVol = false,
+          bool kMotion = false, bool kTex = false>
 __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     const float* __restrict__ tape, const int2* __restrict__ paths,
     int total, int* __restrict__ next_warp,
@@ -229,14 +288,18 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     float* __restrict__ dent, float* __restrict__ dscal,
     float* __restrict__ dent_tri, int tri_base, int n, int s, int seed,
     int lane_base, int trace_depth, float t_min, int has_dielectrics,
-    int sky_on, int jitter) {
+    int sky_on, int jitter, const float* __restrict__ atlas = nullptr,
+    float* __restrict__ datlas = nullptr, int img_w = 0, int img_h = 0) {
   constexpr int kS = kVol ? kScalVol : kScal;
   constexpr int kStride = kVol ? kGsStrideVol : kGsStride;
+  constexpr int kRow = kMotion ? kMotionGradCols
+                       : kTex  ? kTexGradCols
+                               : kGradCols;
   extern __shared__ float smem[];
-  float* s_dent = smem;                  // (s, kGradCols)
-  float* s_gs = s_dent + s * kGradCols;  // (kThreads, kStride)
+  float* s_dent = smem;            // (s, kRow)
+  float* s_gs = s_dent + s * kRow;  // (kThreads, kStride)
   __shared__ float s_cam[kS], s_sum[kS];
-  for (int k = threadIdx.x; k < s * kGradCols + kThreads * kStride;
+  for (int k = threadIdx.x; k < s * kRow + kThreads * kStride;
        k += blockDim.x)
     smem[k] = 0.0f;
   if (threadIdx.x < kS) {
@@ -252,8 +315,15 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
   // [slot][var][thread] measured no faster on an H100 (PERF.md, kernel #2)
   float states[(kMaxDepth - 1) * (kVol ? kVolPathVars : kPathVars)];
   const std::conditional_t<kVol, VolHist, ArrayHist> hist{states};
-  WarpEntityAdd<kTris, kAux, typename RowAdd<kTris, kAux>::type> add{
-      RowAdd<kTris, kAux>::make(s_dent, dent_tri, tri_base)};
+  auto add = [&] {
+    if constexpr (kTex)
+      return WarpTexAdd{s_dent, datlas};
+    else
+      return WarpEntityAdd<kTris, kAux,
+                           typename RowAdd<kTris, kAux, kMotion>::type,
+                           kMotion>{
+          RowAdd<kTris, kAux, kMotion>::make(s_dent, dent_tri, tri_base)};
+  }();
   for (;;) {
     int w0 = 0;
     if (lane == 0) w0 = atomicAdd(next_warp, 1) * 32;
@@ -268,19 +338,25 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
       len = q.y % kMaxDepth + 1;
     }
     const int steps = (int)__reduce_max_sync(kFull, (unsigned)len);
-    const LaneEnv E = make_lane_env(s_cam, ent, i, lane_count[i], seed,
-                                    lane_base, trace_depth, t_min,
-                                    has_dielectrics, sky_on, jitter);
-    path_backward<kTris, kAux, kVol>(tape, n, i, it0, len, steps, E, cot[i],
-                                     cot[n + i], cot[2 * n + i],
-                                     cot[3 * n + i], hist, gs, add);
+    std::conditional_t<kTex, LaneEnvTex, LaneEnv> E;
+    static_cast<LaneEnv&>(E) =
+        make_lane_env(s_cam, ent, i, lane_count[i], seed, lane_base,
+                      trace_depth, t_min, has_dielectrics, sky_on, jitter);
+    if constexpr (kTex) {
+      E.atlas = atlas;
+      E.img_w = img_w;
+      E.img_h = img_h;
+    }
+    path_backward<kTris, kAux, kVol, kMotion, kTex>(
+        tape, n, i, it0, len, steps, E, cot[i], cot[n + i], cot[2 * n + i],
+        cot[3 * n + i], hist, gs, add);
     if constexpr (kVol)
       flush_scal_vol(warp_gs, gs, s_sum);
     else
       flush_scal(warp_gs, gs, s_sum);
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < s * kGradCols; k += blockDim.x) {
+  for (int k = threadIdx.x; k < s * kRow; k += blockDim.x) {
     const float v = s_dent[k];
     if (v != 0.0f) atomicAdd(dent + k, v);
   }
@@ -290,7 +366,8 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
 
 // One iteration's VJP on every lane: the hand derivation, exposed so that
 // it can be held against torch.autograd of the plain replay_iteration.
-template <bool kTris, bool kAux = false, bool kVol = false>
+template <bool kTris, bool kAux = false, bool kVol = false,
+          bool kMotion = false, bool kTex = false>
 __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
     const float* __restrict__ state, const float* __restrict__ codes,
     const float* __restrict__ cot_out, const float* __restrict__ lane_count,
@@ -298,22 +375,31 @@ __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
     float* __restrict__ cot_in, float* __restrict__ cot_ent,
     float* __restrict__ cot_scal, int n, int it, int seed, int lane_base,
     int trace_depth, float t_min, int has_dielectrics, int sky_on,
-    int jitter) {
+    int jitter, const float* __restrict__ atlas = nullptr, int img_w = 0,
+    int img_h = 0) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const LaneEnv E = make_lane_env(consts, ent, i, lane_count[i], seed,
-                                  lane_base, trace_depth, t_min,
-                                  has_dielectrics, sky_on, jitter);
-  constexpr int cols = Layout<kTris, kAux>::grad;
-  constexpr int nv = kVol ? kVolStateVars : kStateVars;
+  std::conditional_t<kTex, LaneEnvTex, LaneEnv> E;
+  static_cast<LaneEnv&>(E) =
+      make_lane_env(consts, ent, i, lane_count[i], seed, lane_base,
+                    trace_depth, t_min, has_dielectrics, sky_on, jitter);
+  if constexpr (kTex) {
+    E.atlas = atlas;
+    E.img_w = img_w;
+    E.img_h = img_h;
+  }
+  constexpr int cols = Layout<kTris, kAux, kMotion, kTex>::grad;
+  constexpr int nv = kVol      ? kVolStateVars
+                     : kMotion ? kMotionStateVars
+                               : kStateVars;
   constexpr int kS = kVol ? kScalVol : kScal;
-  float st[nv], g[nv], ge[cols], gs[kS];
+  float st[nv], g[nv], ge[Layout<kTris, kAux, kMotion, kTex>::row], gs[kS];
   for (int k = 0; k < nv; ++k) {
     st[k] = state[(size_t)k * n + i];
     g[k] = cot_out[(size_t)k * n + i];
   }
   for (int k = 0; k < kS; ++k) gs[k] = 0.0f;
-  step_vjp<kTris, kAux, kVol>(st, g, codes[i], it, E, ge, gs);
+  step_vjp<kTris, kAux, kVol, kMotion, kTex>(st, g, codes[i], it, E, ge, gs);
   for (int k = 0; k < nv; ++k) cot_in[(size_t)k * n + i] = g[k];
   for (int k = 0; k < cols; ++k) cot_ent[(size_t)k * n + i] = ge[k];
   for (int k = 0; k < kS; ++k) cot_scal[(size_t)k * n + i] = gs[k];
@@ -351,31 +437,43 @@ extern "C" int rtiw_bwd_scan(const float* tape, const float* lane_count,
 // same and the whole (s_pad + R_pad + B_pad, 23) table; a sphere scene
 // (kind 0) dent_rows = nullptr and its (s, 23) rows.  Kinds 3 and 4 are
 // kinds 0 and 2 with convex volumes: `consts` holds kScalVol floats (vol0
-// after the sky) and dscal as many.
+// after the sky) and dscal as many.  Kind 5 is kind 0 with moving spheres:
+// its (s, 26) rows hold the move offsets in columns 23-25 and `dent` is
+// (s, 16).  Kind 6 is kind 0 with checker or image albedos: its (s, 39)
+// rows hold the texture records in columns 23-38, `dent` is (s, 19), and
+// with an image `atlas` and a zeroed `datlas` ((A * img_h) x img_w x 3
+// floats each) take the atlas and its texel plane.
 extern "C" int rtiw_bwd_paths(
     const float* tape, const int* paths, int total, int* next_warp,
     const float* lane_count, const float* consts, const float* ent,
     const float* cot, float* dent, float* dscal, float* dent_rows,
     int row_base, int n, int s, int seed, int lane_base, int trace_depth,
     float t_min, int has_dielectrics, int sky_on, int jitter, int kind,
-    void* stream) {
+    const float* atlas, float* datlas, int img_w, int img_h, void* stream) {
   if (total <= 0) return 0;
   if (trace_depth < 1 || trace_depth > kMaxDepth)
     return (int)cudaErrorInvalidValue;
-  const bool vol = kind >= 3;
-  const size_t shmem = ((size_t)s * kGradCols +
-                        kThreads * (vol ? kGsStrideVol : kGsStride)) *
-                       sizeof(float);
-  if (kind < 0 || kind > 4 ||
-      (kind != 0 && kind != 3) != (dent_rows != nullptr))
+  const bool vol = kind == 3 || kind == 4;
+  const int row = kind == 5   ? kMotionGradCols
+                  : kind == 6 ? kTexGradCols
+                              : kGradCols;
+  const size_t shmem =
+      ((size_t)s * row + kThreads * (vol ? kGsStrideVol : kGsStride)) *
+      sizeof(float);
+  if (kind < 0 || kind > 6 ||
+      (kind == 1 || kind == 2 || kind == 4) != (dent_rows != nullptr) ||
+      (atlas != nullptr) != (datlas != nullptr))
     return (int)cudaErrorInvalidValue;
   // the build: 0 sphere scenes, 1 mesh scenes, 2 rects or boxes, 3 and 4
-  // those of 0 and 2 with convex volumes
+  // those of 0 and 2 with convex volumes, 5 moving spheres
   auto kernel = kind == 1   ? megatrace_paths_kernel<true, false>
                 : kind == 2 ? megatrace_paths_kernel<false, true>
                 : kind == 3 ? megatrace_paths_kernel<false, false, true>
                 : kind == 4 ? megatrace_paths_kernel<false, true, true>
-                            : megatrace_paths_kernel<false, false>;
+                : kind == 5 ? megatrace_paths_kernel<false, false, false, true>
+                : kind == 6
+                    ? megatrace_paths_kernel<false, false, false, false, true>
+                    : megatrace_paths_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -394,7 +492,8 @@ extern "C" int rtiw_bwd_paths(
   kernel<<<blocks, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
       tape, reinterpret_cast<const int2*>(paths), total, next_warp,
       lane_count, consts, ent, cot, dent, dscal, dent_rows, row_base, n, s,
-      seed, lane_base, trace_depth, t_min, has_dielectrics, sky_on, jitter);
+      seed, lane_base, trace_depth, t_min, has_dielectrics, sky_on, jitter,
+      atlas, datlas, img_w, img_h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,19 +502,24 @@ extern "C" int rtiw_replay_step_vjp(
     const float* lane_count, const float* consts, const float* ent,
     float* cot_in, float* cot_ent, float* cot_scal, int n, int it, int seed,
     int lane_base, int trace_depth, float t_min, int has_dielectrics,
-    int sky_on, int jitter, int kind, void* stream) {
-  if (kind < 0 || kind > 4) return (int)cudaErrorInvalidValue;
+    int sky_on, int jitter, int kind, const float* atlas, int img_w,
+    int img_h, void* stream) {
+  if (kind < 0 || kind > 6) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
-    auto kernel = kind == 1   ? replay_step_vjp_kernel<true, false>
-                  : kind == 2 ? replay_step_vjp_kernel<false, true>
-                  : kind == 3 ? replay_step_vjp_kernel<false, false, true>
-                  : kind == 4 ? replay_step_vjp_kernel<false, true, true>
-                              : replay_step_vjp_kernel<false, false>;
+    auto kernel =
+        kind == 1   ? replay_step_vjp_kernel<true, false>
+        : kind == 2 ? replay_step_vjp_kernel<false, true>
+        : kind == 3 ? replay_step_vjp_kernel<false, false, true>
+        : kind == 4 ? replay_step_vjp_kernel<false, true, true>
+        : kind == 5 ? replay_step_vjp_kernel<false, false, false, true>
+        : kind == 6
+            ? replay_step_vjp_kernel<false, false, false, false, true>
+            : replay_step_vjp_kernel<false, false>;
     kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         state, codes, cot_out, lane_count, consts, ent, cot_in, cot_ent,
         cot_scal, n, it, seed, lane_base, trace_depth, t_min,
-        has_dielectrics, sky_on, jitter);
+        has_dielectrics, sky_on, jitter, atlas, img_w, img_h);
   }
   return static_cast<int>(cudaGetLastError());
 }

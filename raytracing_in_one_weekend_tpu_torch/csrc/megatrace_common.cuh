@@ -25,6 +25,9 @@ namespace rtiw {
 constexpr float kBig = 1e30f;
 constexpr float kSelfEps = 1e-3f;  // Ray.OffsetTowards epsilon (Ray.cs:19)
 constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kPiF = 3.141592653589793f;
+constexpr float kHalfInvPiF = (float)(0.5 / 3.141592653589793);
+constexpr float kInvPiF = (float)(1.0 / 3.141592653589793);
 constexpr float kInv2_24 = 1.0f / 16777216.0f;
 constexpr float kPlasticIor = 1.5f;
 constexpr float kIorSpan = (float)(1.1 - 1.5);  // METAL_IOR - PLASTIC_IOR
@@ -37,6 +40,10 @@ RTIW_FN float rsqrt_cr(float x) {
 RTIW_FN float sin_cr(float x) { return (float)sin((double)x); }
 RTIW_FN float cos_cr(float x) { return (float)cos((double)x); }
 RTIW_FN float log_cr(float x) { return (float)log((double)x); }
+RTIW_FN float atan2_cr(float y, float x) {
+  return (float)atan2((double)y, (double)x);
+}
+RTIW_FN float acos_cr(float x) { return (float)acos((double)x); }
 
 RTIW_FN float dot3(float ax, float ay, float az, float bx, float by,
                   float bz) {

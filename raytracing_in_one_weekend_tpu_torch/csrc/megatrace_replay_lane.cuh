@@ -46,6 +46,28 @@
 // the medium; a skip sends the advance's to the exit's or the surface's t;
 // the medium's cotangents pass to the previous state, to the winner's
 // material or, at regen, to vol0's row of the scalar cotangents.
+//
+// Scenes with moving spheres take the kMotion instantiation (spheres only:
+// no rects, boxes, volumes or triangles beside them).  The state grows by
+// the path's shutter time (kPTime, after kLp), drawn at regen from the
+// camera draws' stream 7 as the forward kernel draws it; a sphere winner's
+// centre is c(t) = fmaf(m, t, c), m its move offset (entity columns
+// 23-25), and the quadratic's c term the forward kernel's motion order
+// ((|o|^2 - 2 o.c(t)) + |c(t)|^2) + (-r^2).  The adjoint is the static
+// sphere's at c(t), and the move offset's cotangent the centre's times t
+// (cotangent columns 13-15).
+//
+// Sphere scenes with checker or image albedos take the kTex instantiation
+// (no Perlin marble, which the replay does not mirror; spheres only).  The
+// entity rows carry the material's texture record after the 23 columns
+// (kTexCols), and the environment the image atlas (LaneEnvTex).  The
+// forward textures the winner's albedo as the forward kernel does
+// (tex_forward); the adjoint sends the albedo's cotangent to the record's
+// main or secondary colour (a checker; cotangent columns 13-15, 16-18) or,
+// for an image, the texel times it to the main colour and the main colour
+// times it to the fetched texel, whose index and cotangent ride four more
+// floats after the row (kTexelSlots), summed into the texel plane by the
+// caller.
 #pragma once
 
 #include <type_traits>
@@ -67,6 +89,8 @@ enum StateIdx {
   kInId
 };
 constexpr int kVolStateVars = kStateVars + 8;
+constexpr int kPTime = kStateVars;  // the motion build's shutter time
+constexpr int kMotionStateVars = kStateVars + 1;
 constexpr int kEntCols = 23;  // build_entity_rows layout, sphere scenes
 constexpr int kTriEntCols = 38;  // ... mesh scenes (23-31 vertex normals)
 constexpr int kGradCols = 13;  // entity columns 0-3 and 11-19
@@ -78,6 +102,18 @@ constexpr int kTriGradCols = 28;
 // box's extents); columns 0-3 hold a quaternion
 // (megatrace_replay.AUX_GRAD_COLS)
 constexpr int kAuxGradCols = 19;
+// moving spheres: entity columns 23-25 hold the move offsets; their
+// cotangents follow kGradCols' (megatrace_replay.MOVE_COLS)
+constexpr int kMotionEntCols = kEntCols + 3;
+constexpr int kMotionGradCols = kGradCols + 3;
+// checker and image albedos: entity columns 23-38 hold the texture record
+// (TEX_COLS); the cotangents of its main and secondary colours follow
+// kGradCols' (megatrace_replay.TEX_GRAD), then the fetched texel's index
+// (-1: none) and its three cotangents
+constexpr int kTexRecCols = 16;
+constexpr int kTexEntCols = kEntCols + kTexRecCols;
+constexpr int kTexGradCols = kGradCols + 6;
+constexpr int kTexelSlots = 4;
 // camera row 0-23 (origin, lower-left, horizontal, vertical, right, up,
 // lens radius, width, height, pad) | sky bottom 24-26 | sky top 27-29
 constexpr int kScal = 30;
@@ -91,13 +127,23 @@ enum CamIdx {
 // 10 gloss, 11 metallic, 12 parameter
 enum GradIdx { kGC = 0, kGR = 3, kGAlb = 4, kGEm = 7, kGGloss = 10,
                kGMetal = 11, kGParam = 12, kGEb = 13, kGV0 = 16,
-               kGNrm = 19, kGPos = 13, kGExt = 16 };
+               kGNrm = 19, kGPos = 13, kGExt = 16, kGMove = 13, kGTex = 13 };
 
-template <bool kTris, bool kAux = false>
+template <bool kTris, bool kAux = false, bool kMotion = false,
+          bool kTex = false>
 struct Layout {
-  static constexpr int ent = kTris ? kTriEntCols : kEntCols;
-  static constexpr int grad = kTris ? kTriGradCols
-                              : kAux ? kAuxGradCols : kGradCols;
+  static constexpr int ent = kTris      ? kTriEntCols
+                             : kMotion ? kMotionEntCols
+                             : kTex    ? kTexEntCols
+                                       : kEntCols;
+  static constexpr int grad = kTris      ? kTriGradCols
+                              : kAux    ? kAuxGradCols
+                              : kMotion ? kMotionGradCols
+                              : kTex    ? kTexGradCols
+                                        : kGradCols;
+  // the cotangent row's floats: its columns, and in the texture build the
+  // texel's index and cotangent
+  static constexpr int row = grad + (kTex ? kTexelSlots : 0);
 };
 
 struct LaneEnv {
@@ -107,6 +153,13 @@ struct LaneEnv {
   uint32_t key;  // seed + global lane * 9781
   float trace_depth, t_min;
   bool has_diel, sky_on, jitter;
+};
+
+// ... of the texture build: the image atlas ((A * img_h) x img_w x 3
+// floats) or null.
+struct LaneEnvTex : LaneEnv {
+  const float* atlas;
+  int img_w, img_h;
 };
 
 RTIW_FN LaneEnv make_lane_env(const float* cam, const float* ent, int i,
@@ -178,10 +231,31 @@ struct IterVol : Base {
   bool xhi;
 };
 
-template <bool kAux, bool kVol = false>
+// ... and of a moving sphere (the kMotion build): the path's shutter time
+// and the winner's move offset.
+struct IterMotion : Iter {
+  float ptime, m[3];
+};
+
+// ... and of a textured winner (the kTex build): which colour the albedo
+// took (0 the packed one, 1 the checker's main, 2 its secondary, 3 an
+// image texel times main), the texel's index and value and the main colour.
+struct IterTex : Iter {
+  int tex_kind, texel;
+  float texv[3], tmain[3];
+};
+
+template <bool kAux, bool kVol = false, bool kMotion = false,
+          bool kTex = false>
 using IterOf = typename std::conditional<
-    kVol, IterVol<typename std::conditional<kAux, IterAux, Iter>::type>,
-    typename std::conditional<kAux, IterAux, Iter>::type>::type;
+    kTex, IterTex,
+    typename std::conditional<
+        kMotion, IterMotion,
+        typename std::conditional<
+            kVol,
+            IterVol<typename std::conditional<kAux, IterAux, Iter>::type>,
+            typename std::conditional<kAux, IterAux, Iter>::type>::type>::
+        type>::type;
 
 RTIW_FN void norm3(const float* x, float* y) {
   const float inv = rsqrt_cr(fmaxf(dot3(x[0], x[1], x[2], x[0], x[1], x[2]),
@@ -218,6 +292,69 @@ RTIW_FN void sphere_hit(Iter& I, float t_min) {
   for (int k = 0; k < 3; ++k) {
     I.p[k] = fmaf(I.t, d[k], o[k]);
     I.n[k] = (I.p[k] - c[k]) * I.inv_r;
+  }
+}
+
+// sphere_hit of a moving sphere (the kMotion build; c holds the centre at
+// the path's time): the forward kernel's motion quadratic.
+RTIW_FN void sphere_hit_moving(Iter& I, float t_min) {
+  const float* o = I.o;
+  const float* d = I.d;
+  const float* c = I.c;
+  I.a = dotv(d, d);
+  I.b = dotv(o, d) - dotv(d, c);
+  I.cc = ((dotv(o, o) - 2.0f * dotv(o, c)) + dotv(c, c)) + -(I.r * I.r);
+  I.disc = fmaf(I.b, I.b, -(I.a * I.cc));
+  I.sq = sqrtf(fmaxf(I.disc, 1e-8f));
+  I.inv_a = 1.0f / I.a;
+  const float t_near = (-I.b - I.sq) * I.inv_a;
+  const float t_far = (-I.b + I.sq) * I.inv_a;
+  I.near_root = t_near > t_min;
+  I.t = I.near_root ? t_near : t_far;
+  I.inv_r = 1.0f / (I.r != 0.0f ? I.r : 1.0f);
+  for (int k = 0; k < 3; ++k) {
+    I.p[k] = fmaf(I.t, d[k], o[k]);
+    I.n[k] = (I.p[k] - c[k]) * I.inv_r;
+  }
+}
+
+// The winner's albedo after its texture record `tx` (the texture build;
+// ops/megatrace.py::bounce_textures, the forward kernel's tex_albedo): a
+// checker by the dominant normal axis's projection, or the nearest atlas
+// texel at the sphere uv times the main colour; other types (the Perlin
+// marble is not replayed) keep the packed albedo.
+RTIW_FN void tex_forward(IterTex& I, const LaneEnvTex& E, const float* tx) {
+  I.tex_kind = 0;
+  I.texel = -1;
+  const float ttype = tx[0];
+  const float* n = I.n;
+  if (ttype > 1.5f && ttype < 2.5f) {
+    const float ax = fabsf(n[0]), ay = fabsf(n[1]), az = fabsf(n[2]);
+    const bool use_x = ax > ay && ax > az;
+    const bool use_y = !use_x && ay > ax && ay > az;
+    const float v0 = use_x ? n[0] : use_y ? n[1] : n[2];
+    const float v1 = use_x ? n[1] : use_y ? n[2] : n[0];
+    const float v2 = use_x ? n[2] : use_y ? n[0] : n[1];
+    const float safe0 = v0 == 0.0f ? 1.0f : v0;
+    const float cu = fmaf(0.5f, v1 / safe0, 0.5f);
+    const float cv = fmaf(0.5f, v2 / safe0, 0.5f);
+    const float pif = kPiF * tx[7];
+    I.tex_kind = sin_cr(pif * cu) * sin_cr(pif * cv) < 0.0f ? 1 : 2;
+    const int k0 = I.tex_kind == 1 ? 1 : 4;
+    for (int k = 0; k < 3; ++k) I.alb[k] = tx[k0 + k];
+  } else if (ttype > 3.5f && ttype < 4.5f && E.atlas != nullptr) {
+    const float u = (atan2_cr(-n[2], n[0]) + kPiF) * kHalfInvPiF;
+    const float v = acos_cr(fminf(fmaxf(-n[1], -1.0f), 1.0f)) * kInvPiF;
+    int cx = (int)(u * (float)E.img_w), cy = (int)(v * (float)E.img_h);
+    cx = cx < 0 ? 0 : cx > E.img_w - 1 ? E.img_w - 1 : cx;
+    cy = cy < 0 ? 0 : cy > E.img_h - 1 ? E.img_h - 1 : cy;
+    I.tex_kind = 3;
+    I.texel = ((int)tx[8] + cy) * E.img_w + cx;
+    for (int k = 0; k < 3; ++k) {
+      I.texv[k] = E.atlas[(size_t)I.texel * 3 + k];
+      I.tmain[k] = tx[1 + k];
+      I.alb[k] = I.texv[k] * I.tmain[k];
+    }
   }
 }
 
@@ -353,7 +490,8 @@ RTIW_FN bool volume_walk(V& I, const LaneEnv& E, const float* e, float mtype,
 
 // Regen, one bounce at the tape's winner, fold: everything but the state
 // update, which step_forward applies.
-template <bool kTris = false, bool kAux = false, bool kVol = false>
+template <bool kTris = false, bool kAux = false, bool kVol = false,
+          bool kMotion = false, bool kTex = false>
 RTIW_FN void iter_forward(const float* s, float code, int it,
                           const LaneEnv& E, Iter& I) {
   const float* cam = E.cam;
@@ -404,6 +542,10 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
     V.in_vol = V.vol_candidate = V.vol_scatter = V.pass_through = V.skip =
         V.survive = false;
   }
+  if constexpr (kMotion) {  // the path's shutter time: drawn at regen
+    static_cast<IterMotion&>(I).ptime =
+        I.regen ? uniform(E.key + salt, 7) : s[kPTime];
+  }
   I.was_active = I.regen || s[kActive] > 0.5f;
   I.hit = false;
   I.ok = false;
@@ -420,11 +562,19 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
   if (I.hit) {
     // ---- the winner: its hit point and normal ----------------------------
     I.w = (int)code;
-    const float* e = E.ent + (size_t)I.w * Layout<kTris, kAux>::ent;
+    const float* e =
+        E.ent + (size_t)I.w * Layout<kTris, kAux, kMotion, kTex>::ent;
     for (int k = 0; k < 3; ++k) {
       I.c[k] = e[k];
       I.alb[k] = e[11 + k];
       I.em[k] = e[14 + k];
+    }
+    if constexpr (kMotion) {  // the centre at the path's time
+      IterMotion& M = static_cast<IterMotion&>(I);
+      for (int k = 0; k < 3; ++k) {
+        M.m[k] = e[kEntCols + k];
+        I.c[k] = fmaf(M.m[k], M.ptime, e[k]);
+      }
     }
     I.r = e[3];
     const float mtype = e[10];
@@ -446,9 +596,14 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
       }
       for (int k = 0; k < 9; ++k) I.nrm[k] = e[23 + k];
       tri_hit(I);
+    } else if (kMotion) {
+      sphere_hit_moving(I, E.t_min);
     } else if (!aux) {
       sphere_hit(I, E.t_min);
     }
+    if constexpr (kTex)
+      tex_forward(static_cast<IterTex&>(I),
+                  static_cast<const LaneEnvTex&>(E), e + kEntCols);
     const float* n = I.n;
     bool walked = false;  // the volume walk took the iteration (kVol)
     if constexpr (kVol)
@@ -580,15 +735,17 @@ RTIW_FN void step_forward_vol(float* s, float code, int it,
 }
 
 // One replay iteration, in place.
-template <bool kTris = false, bool kAux = false, bool kVol = false>
+template <bool kTris = false, bool kAux = false, bool kVol = false,
+          bool kMotion = false, bool kTex = false>
 RTIW_FN void step_forward(float* s, float code, int it, const LaneEnv& E) {
   if constexpr (kVol) {
     step_forward_vol<kAux>(s, code, it, E);
     return;
   }
-  IterOf<kAux> I;
-  iter_forward<kTris, kAux>(s, code, it, E, I);
+  IterOf<kAux, false, kMotion, kTex> I;
+  iter_forward<kTris, kAux, false, kMotion, kTex>(s, code, it, E, I);
   if (!I.was_active) return;
+  if constexpr (kMotion) s[kPTime] = I.ptime;
   for (int k = 0; k < 3; ++k) {
     s[kOX + k] = I.hit ? fmaf(I.off_n, I.n[k], I.p[k]) : I.o[k];
     s[kDX + k] = I.hit ? I.sd[k] : I.d[k];
@@ -1273,13 +1430,19 @@ RTIW_FN int step_vjp_vol(const float* s, float* g, float code, int it,
 // entry and of the input state on exit.  ge (Layout<kTris>::grad) receives
 // the winner row's cotangent and gs (kScal) accumulates the camera and sky
 // cotangents.  Returns the winner row, or -1 when ge is unused.
-template <bool kTris = false, bool kAux = false, bool kVol = false>
+template <bool kTris = false, bool kAux = false, bool kVol = false,
+          bool kMotion = false, bool kTex = false>
 RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
                      const LaneEnv& E, float* ge, float* gs) {
   if constexpr (kVol) return step_vjp_vol<kAux>(s, g, code, it, E, ge, gs);
-  IterOf<kAux> I;
-  iter_forward<kTris, kAux>(s, code, it, E, I);
-  for (int k = 0; k < Layout<kTris, kAux>::grad; ++k) ge[k] = 0.0f;
+  IterOf<kAux, false, kMotion, kTex> I;
+  iter_forward<kTris, kAux, false, kMotion, kTex>(s, code, it, E, I);
+  for (int k = 0; k < Layout<kTris, kAux, kMotion, kTex>::grad; ++k)
+    ge[k] = 0.0f;
+  if constexpr (kTex) {
+    ge[kTexGradCols] = -1.0f;  // no texel
+    for (int k = 1; k < kTexelSlots; ++k) ge[kTexGradCols + k] = 0.0f;
+  }
   g[kActive] = g[kValid] = g[kStarted] = g[kDepth] = 0.0f;
   if (!I.was_active) return -1;
   const float* cam = E.cam;
@@ -1342,6 +1505,28 @@ RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
       tri_hit_vjp(I, gp, gn, go, gd, ge);
     else if (!aux)
       sphere_hit_vjp(I, gp, gn, go, gd, ge);
+    if constexpr (kMotion) {  // c(t) = m t + c: the centre's times t
+      for (int k = 0; k < 3; ++k) ge[kGMove + k] = ge[kGC + k] * I.ptime;
+    }
+    if constexpr (kTex) {
+      // the albedo the scatter used came from the texture: its cotangent
+      // goes to the checker's colour, or to the image's main colour and
+      // texel, not to the packed albedo
+      if (I.tex_kind == 1 || I.tex_kind == 2) {
+        const int c0 = kGTex + (I.tex_kind == 1 ? 0 : 3);
+        for (int k = 0; k < 3; ++k) {
+          ge[c0 + k] = ge[kGAlb + k];
+          ge[kGAlb + k] = 0.0f;
+        }
+      } else if (I.tex_kind == 3) {
+        ge[kTexGradCols] = (float)I.texel;
+        for (int k = 0; k < 3; ++k) {
+          ge[kGTex + k] = ge[kGAlb + k] * I.texv[k];
+          ge[kTexGradCols + 1 + k] = ge[kGAlb + k] * I.tmain[k];
+          ge[kGAlb + k] = 0.0f;
+        }
+      }
+    }
   }
 
   // ---- regen -------------------------------------------------------------
@@ -1493,25 +1678,29 @@ struct VolHist {
 // reaches add_ent (a warp collective on the card) together, a shorter
 // path idle (w = -1) at its top steps.  gs receives the camera and sky
 // cotangents; add_ent(w, ge) each step's winner row (w = -1: none).
+// The motion build's shutter time is the path's from its regen on: the
+// forward sets it in st[kPTime], and nothing after it resets that slot.
 RTIW_EXEC_CHECK_OFF
 template <bool kTris = false, bool kAux = false, bool kVol = false,
-          class Hist, class AddEnt>
+          bool kMotion = false, bool kTex = false, class Hist, class AddEnt>
 RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
                            int len, int steps, const LaneEnv& E,
                            float cot_r, float cot_g, float cot_b,
                            float cot_count, const Hist& hist, float* gs,
                            AddEnt& add_ent) {
-  constexpr int nv = kVol ? kVolStateVars : kStateVars;
+  constexpr int nv = kVol      ? kVolStateVars
+                     : kMotion ? kMotionStateVars
+                               : kStateVars;
   float st[nv];
   path_start(st);
-  if constexpr (kVol)
+  if constexpr (kVol || kMotion)
     for (int k = kStateVars; k < nv; ++k) st[k] = 0.0f;
   for (int j = 0; j + 1 < len; ++j) {
-    step_forward<kTris, kAux, kVol>(st, tape[(size_t)(it0 + j) * n + lane],
-                                    it0 + j, E);
+    step_forward<kTris, kAux, kVol, kMotion, kTex>(
+        st, tape[(size_t)(it0 + j) * n + lane], it0 + j, E);
     hist.store(j, st);
   }
-  float g[nv], ge[Layout<kTris, kAux>::grad];
+  float g[nv], ge[Layout<kTris, kAux, kMotion, kTex>::row];
   for (int k = 0; k < nv; ++k) g[k] = 0.0f;
   g[kCSX] = cot_r;
   g[kCSY] = cot_g;
@@ -1525,7 +1714,7 @@ RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
         hist.load(j - 1, st);
         st[kActive] = 1.0f;
       }
-      w = step_vjp<kTris, kAux, kVol>(
+      w = step_vjp<kTris, kAux, kVol, kMotion, kTex>(
           st, g, tape[(size_t)(it0 + j) * n + lane], it0 + j, E, ge, gs);
     }
     add_ent(w, ge);
@@ -1549,6 +1738,28 @@ struct EntityAdd {
   float* base;
   RTIW_FN void operator()(int w, const float* ge) const {
     if (w >= 0) add_row(base + w * kGradCols, ge, kGradCols);
+  }
+};
+
+// The motion build: (rows, kMotionGradCols) rows, the move offsets' last.
+struct MotionEntityAdd {
+  float* base;
+  RTIW_FN void operator()(int w, const float* ge) const {
+    if (w >= 0) add_row(base + w * kMotionGradCols, ge, kMotionGradCols);
+  }
+};
+
+// The texture build: (rows, kTexGradCols) rows, the texture colours'
+// last, and the texel's cotangent into the (A * H * W, 3) plane `texels`.
+struct TexEntityAdd {
+  float* base;
+  float* texels;
+  RTIW_FN void operator()(int w, const float* ge) const {
+    if (w < 0) return;
+    add_row(base + w * kTexGradCols, ge, kTexGradCols);
+    if (ge[kTexGradCols] >= 0.0f)
+      add_row(texels + (size_t)ge[kTexGradCols] * 3, ge + kTexGradCols + 1,
+              3);
   }
 };
 
@@ -1590,14 +1801,17 @@ struct AuxEntityAdd {
 // backwards run in that order, each sum added in place (dscal: the camera
 // and sky cotangents, kScal, and vol0's in the volume builds, kScalVol).
 // `ent` is the entity table the tape indexes.
+// `atlas` (img_w, img_h) is the texture build's image atlas.
 template <bool kTris = false, bool kAux = false, bool kVol = false,
-          class AddEnt>
+          bool kMotion = false, bool kTex = false, class AddEnt>
 inline void host_backward(const float* tape, const float* lane_count,
                           const float* cam, const float* ent,
                           const float* cot, int n, int samples,
                           int trace_depth, int seed, int lane_base,
                           float t_min, int has_diel, int sky_on, int jitter,
-                          float* dscal, AddEnt add_ent) {
+                          float* dscal, AddEnt add_ent,
+                          const float* atlas = nullptr, int img_w = 0,
+                          int img_h = 0) {
   const int iters = samples * trace_depth;
   std::vector<long> offset(trace_depth, 0);
   for (int i = 0; i < n; ++i)
@@ -1623,10 +1837,14 @@ inline void host_backward(const float* tape, const float* lane_count,
   for (long p = 0; p < total; ++p) {
     const int lane = paths[2 * p], code = paths[2 * p + 1];
     const int len = code % kMaxDepth + 1;
-    const LaneEnv E = make_lane_env(cam, ent, lane, lane_count[lane], seed,
-                                    lane_base, trace_depth, t_min, has_diel,
-                                    sky_on, jitter);
-    path_backward<kTris, kAux, kVol>(
+    LaneEnvTex E;
+    static_cast<LaneEnv&>(E) =
+        make_lane_env(cam, ent, lane, lane_count[lane], seed, lane_base,
+                      trace_depth, t_min, has_diel, sky_on, jitter);
+    E.atlas = atlas;
+    E.img_w = img_w;
+    E.img_h = img_h;
+    path_backward<kTris, kAux, kVol, kMotion, kTex>(
         tape, n, lane, code / kMaxDepth, len, len, E, cot[lane],
         cot[n + lane], cot[2 * n + lane], cot[3 * n + lane], h, dscal,
         add_ent);

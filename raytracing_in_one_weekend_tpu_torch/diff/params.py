@@ -7,9 +7,10 @@ IOR, ...) into a scene template with `dataclasses.replace`, so that
 autograd differentiates the render with respect to exactly the chosen
 parameters.  The rect and box setters reach the renderer's pack of their
 tables (`ops/megatrace.pack_aux_tables`), so `diff/inverse.optimize` fits
-them like the spheres'.  Setters for kinds the renderer cannot draw yet
-(image atlases, cubemaps, motion) are plain setters too; the renderer's
-`check_scope` refuses such scenes.
+them like the spheres'; so do the move offsets, the texture colours and
+the image atlas (`pack_texture_tables`, the motion and texture builds).
+The cubemap setter is a plain setter too; the renderer's `check_scope`
+refuses cubemap scenes (ROADMAP step 7.6).
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 package's models/book_scenes.py).
 
 Same builders, same numpy seeds, so the arrays equal the JAX package's.
-`cover_motion` builds, but the renderer refuses it (motion blur is
-ROADMAP queue 1, step 7.3).
+`cover_motion` is the cover with its small diffuse spheres moving over
+the unit shutter (motion blur).
 """
 
 from __future__ import annotations

@@ -2,9 +2,13 @@
 models/testbeds.py), holding the entries the port renders: the raw
 triangle test, the mesh scenes (the showcase, and `mesh_large` and
 `mesh_huge` beyond TRI_MAX triangles), `simple_light` (spheres and an
-emissive rect), `probabilistic` (fog spheres of three densities) and
-`cornell_volumes` (Book 2's Cornell smoke: volume boxes).  The other
-testbeds follow with their ROADMAP steps.
+emissive rect), `probabilistic` (fog spheres of three densities),
+`cornell_volumes` (Book 2's Cornell smoke: volume boxes), the textured
+spheres `checkered`, `perlin` and `textured_sphere` (the JAX package's
+procedural earth stand-in: the reference's earthmap.jpg and its image
+reader are ROADMAP step 7.6), and `final_book2`, Book 2's composite (boxes,
+a rect light, a moving sphere, glass, fog in a glass shell, an image and a
+Perlin texture).  The other testbeds follow with their ROADMAP steps.
 
 Reference: the legacy scene assets (Assets/Scenes/Legacy/*.asset); each
 function covers the same feature axis with the scene builder, with the
@@ -17,7 +21,7 @@ import numpy as np
 
 from raytracing_in_one_weekend_tpu_torch.models import book_scenes, meshes
 from raytracing_in_one_weekend_tpu_torch.scene.scene import (
-    Scene, SceneBuilder, axis_angle_quat,
+    Scene, SceneBuilder, axis_angle_quat, checker, perlin,
 )
 from raytracing_in_one_weekend_tpu_torch.utils.config import CameraSettings
 
@@ -115,6 +119,93 @@ def cornell_with_volumes() -> tuple[Scene, CameraSettings]:
     return b.build(), cam
 
 
+def perlin_spheres() -> tuple[Scene, CameraSettings]:
+    """Perlin Noise (Book 2).asset: turbulence-marble textured spheres."""
+    b = SceneBuilder()
+    noisy = b.lambert(perlin((1.0, 1.0, 1.0), frequency=4.0))
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, noisy)
+    b.add_sphere((0.0, 2.0, 0.0), 2.0, noisy)
+    b.set_gradient_sky()
+    cam = CameraSettings(origin=(13.0, 2.0, 3.0), look_at=(0.0, 0.0, 0.0),
+                         vertical_fov=20.0)
+    return b.build(), cam
+
+
+def checkered_spheres() -> tuple[Scene, CameraSettings]:
+    """Two Checkered Spheres (Book 2).asset."""
+    b = SceneBuilder()
+    check = b.lambert(checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
+    b.add_sphere((0.0, -10.0, 0.0), 10.0, check)
+    b.add_sphere((0.0, 10.0, 0.0), 10.0, check)
+    b.set_gradient_sky()
+    cam = CameraSettings(origin=(13.0, 2.0, 3.0), look_at=(0.0, 0.0, 0.0),
+                         vertical_fov=20.0)
+    return b.build(), cam
+
+
+def textured_sphere() -> tuple[Scene, CameraSettings]:
+    """Textured Sphere (Book 2).asset: an image-textured albedo, the JAX
+    package's procedural earth-like stand-in (64x128 texels)."""
+    h, w = 64, 128
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    land = (np.sin(xx * 0.21) * np.cos(yy * 0.17) + np.sin(xx * 0.05)) > 0.4
+    img = np.where(land[..., None], np.array([0.25, 0.5, 0.15], np.float32),
+                   np.array([0.1, 0.2, 0.6], np.float32)).astype(np.float32)
+    b = SceneBuilder()
+    tex = b.add_image("earth", img)
+    b.add_sphere((0.0, 0.0, 0.0), 2.0, b.lambert(tex))
+    b.set_gradient_sky()
+    cam = CameraSettings(origin=(13.0, 2.0, 3.0), look_at=(0.0, 0.0, 0.0),
+                         vertical_fov=20.0)
+    return b.build(), cam
+
+
+def final_scene_book2(seed: int = 9) -> tuple[Scene, CameraSettings]:
+    """Final Scene (Book 2).asset analog: a box-grid ground, a rect light,
+    a motion-blurred sphere, glass and metal spheres, a glass shell around
+    a fog sphere, an image-textured earth, a Perlin sphere and a cube of
+    small spheres: every entity kind but triangles, motion, volumes and
+    every texture type in one scene."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    ground = b.lambert((0.48, 0.83, 0.53))
+    n = 8
+    for i in range(n):
+        for j in range(n):
+            w = 100.0 / n
+            x0 = -50.0 + i * w
+            z0 = -50.0 + j * w
+            y1 = float(rng.uniform(1.0, 8.0))
+            b.add_box((x0 + w / 2, y1 / 2, z0 + w / 2), (w, y1, w), ground)
+    light = b.emissive((7.0, 7.0, 7.0))
+    b.add_rect((273.0 / 100, 5.54, 2.795), (3.0, 2.65), light,
+               rotation=axis_angle_quat((1, 0, 0), 90.0))
+    moving = b.lambert((0.7, 0.3, 0.1))
+    b.add_sphere((4.0, 4.0, 2.0), 0.5, moving, move_offset=(0.3, 0.0, 0.0))
+    b.add_sphere((2.6, 1.5, 0.45), 0.5, b.dielectric(1.5))
+    b.add_sphere((0.0, 1.5, 1.45), 0.5, b.metal((0.8, 0.8, 0.9), 0.0))
+    # a subsurface blue sphere: a glass shell around a fog sphere
+    b.add_sphere((3.6, 1.5, 1.45), 0.7, b.dielectric(1.5))
+    b.add_sphere((3.6, 1.5, 1.45), 0.69, b.volume(2.0, (0.2, 0.4, 0.9)))
+    # an earth and a Perlin sphere
+    h, w2 = 32, 64
+    yy, xx = np.mgrid[0:h, 0:w2].astype(np.float32)
+    land = (np.sin(xx * 0.3) * np.cos(yy * 0.25)) > 0.2
+    img = np.where(land[..., None], np.array([0.2, 0.5, 0.2], np.float32),
+                   np.array([0.1, 0.2, 0.55], np.float32)).astype(np.float32)
+    b.add_sphere((4.0, 2.0, 4.0), 1.0, b.lambert(b.add_image("earth2", img)))
+    b.add_sphere((2.2, 2.8, 3.0), 0.8, b.lambert(perlin((1, 1, 1), 2.0)))
+    # a cube of small diffuse spheres
+    white = b.lambert((0.73, 0.73, 0.73))
+    for _ in range(64):
+        p = rng.uniform(0.0, 1.65, 3) + np.array([-1.0, 2.7, 2.95])
+        b.add_sphere(tuple(p), 0.1, white)
+    b.set_no_sky()
+    cam = CameraSettings(origin=(4.78, 2.78, -6.0), look_at=(2.78, 2.78, 0.0),
+                         vertical_fov=40.0)
+    return b.build(), cam
+
+
 SCENES = {
     "mesh_showcase": meshes.mesh_showcase,
     "mesh_large": meshes.mesh_large,
@@ -123,4 +214,8 @@ SCENES = {
     "simple_light": simple_light,
     "probabilistic": probabilistic_test,
     "cornell_volumes": cornell_with_volumes,
+    "checkered": checkered_spheres,
+    "perlin": perlin_spheres,
+    "textured_sphere": textured_sphere,
+    "final_book2": final_scene_book2,
 }

@@ -40,23 +40,44 @@ def _roots(b, a, c_term, t_min):
     return t_entry, t_exit
 
 
+def motion_weight(time, time_ranges):
+    """The motion weight clamp((time - t0) / (t1 - t0), 0, 1) of rays at
+    `time` against spheres with shutter ranges `time_ranges` (..., 2)
+    (Entity.cs:124-127 TransformAtTime; t1 == t0 divides by 1)."""
+    t0, t1 = time_ranges[..., 0], time_ranges[..., 1]
+    denom = torch.where(t1 == t0, 1.0, t1 - t0)
+    return torch.clamp((time - t0) / denom, 0.0, 1.0)
+
+
 def sphere_hit_all(
     origin: torch.Tensor,  # (N, 3)
     direction: torch.Tensor,  # (N, 3)
     centers: torch.Tensor,  # (S, 3)
     radii: torch.Tensor,  # (S,)
     t_min: float = T_MIN,
+    time: torch.Tensor | None = None,  # (N,) ray times (with motion)
+    move_offsets: torch.Tensor | None = None,  # (S, 3) motion-blur offsets
+    time_ranges: torch.Tensor | None = None,  # (S, 2)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quadratic sphere test, all rays x all spheres, with the dot
     products expanded as the JAX package's (b = o.d - d.c, |o - c|^2 =
-    |o|^2 - 2 o.c + |c|^2).  Returns (t_entry (N, S), t_exit (N, S)), BIG
-    where there is no hit."""
+    |o|^2 - 2 o.c + |c|^2), the centres moved to each ray's time with
+    `move_offsets` (the weight clamp(unlerp(t0, t1, time), 0, 1),
+    Entity.cs:124-127, expanded as the JAX package's).  Returns (t_entry
+    (N, S), t_exit (N, S)), BIG where there is no hit."""
     o_dot_d = math3.dot(origin, direction)[:, None]
     a = math3.length_sq(direction)[:, None]
     o_sq = math3.length_sq(origin)[:, None]
     d_dot_c = direction @ centers.T
     o_dot_c = origin @ centers.T
     c_sq = math3.length_sq(centers)[None, :]
+    if move_offsets is not None:
+        w = motion_weight(time[:, None], time_ranges[None])  # (N, S)
+        d_dot_c = d_dot_c + (direction @ move_offsets.T) * w
+        o_dot_c = o_dot_c + (origin @ move_offsets.T) * w
+        c_sq = (c_sq
+                + 2.0 * math3.dot(centers, move_offsets)[None, :] * w
+                + math3.length_sq(move_offsets)[None, :] * w * w)
     b = o_dot_d - d_dot_c
     c_term = o_sq - 2.0 * o_dot_c + c_sq - (radii * radii)[None, :]
     return _roots(b, a, c_term, t_min)

@@ -14,8 +14,11 @@ and box (`geometry.rect_hit_all`, `box_hit_all`), in the JAX order
 spheres, rects, boxes, triangles, each kind winning only with a strictly
 smaller t.  Each hit carries its entity's exit distance (`t_exit`, a
 sphere's far root or a box's slab exit) for the volume walk, and
-`point_inside_volume` finds the volume around a point.  Motion and the
-BVH raise NotImplementedError naming their ROADMAP steps.
+`point_inside_volume` finds the volume around a point.  Moving spheres
+take the brute force with the centres at each ray's time
+(`geometry.sphere_hit_all`, chunked over rays), as the JAX package's
+wavefront does with motion.  The BVH raises NotImplementedError naming
+its ROADMAP step.
 """
 
 from __future__ import annotations
@@ -89,6 +92,24 @@ def _nearest_triangle(tri, rays: Rays, t_min: float):
     return torch.cat(ts), torch.cat(idxs)
 
 
+def _nearest_moving_sphere(sph, rays: Rays, t_min: float):
+    """(t, t_exit, index) of each ray's nearest moving sphere, chunked over
+    rays (the brute force, differentiable)."""
+    n = rays.origin.shape[0]
+    chunk = max(1, (1 << 22) // sph.center.shape[0])
+    ts, exits, idxs = [], [], []
+    for c0 in range(0, n, chunk):
+        t_all, exit_all = geometry.sphere_hit_all(
+            rays.origin[c0:c0 + chunk], rays.direction[c0:c0 + chunk],
+            sph.center, sph.radius, t_min, time=rays.time[c0:c0 + chunk],
+            move_offsets=sph.move_offset, time_ranges=sph.time_range)
+        idx = torch.argmin(t_all, dim=1)
+        ts.append(torch.gather(t_all, 1, idx[:, None])[:, 0])
+        exits.append(torch.gather(exit_all, 1, idx[:, None])[:, 0])
+        idxs.append(idx)
+    return torch.cat(ts), torch.cat(exits), torch.cat(idxs)
+
+
 def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
     """All rays against every sphere and triangle; the nearest surface hit
     per ray."""
@@ -102,7 +123,16 @@ def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
     best_kind = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_index = torch.zeros(n, dtype=torch.int32, device=dev)
     best_exit = torch.full((n,), BIG, dtype=torch.float32, device=dev)
-    if sph.center.shape[0] > 0:
+    if sph.center.shape[0] > 0 and sph.move_offset is not None:
+        # moving spheres: all rays against all of them at each ray's time
+        t, t_exit, idx = _nearest_moving_sphere(sph, rays, t_min)
+        closer = t < BIG
+        best_t = torch.where(closer, t, BIG)
+        best_kind = torch.where(closer, int(EntityKind.SPHERE), -1).to(
+            torch.int32)
+        best_index = torch.where(closer, idx, 0).to(torch.int32)
+        best_exit = torch.where(closer, t_exit, BIG)
+    elif sph.center.shape[0] > 0:
         # detached selection kernel, then the differentiable (N,)-sized
         # re-evaluation of the winner
         _, idx, _ = sphere_select.sphere_select(
@@ -178,7 +208,11 @@ def _shading_attributes(scene: Scene, rays: Rays, point, kind, index):
     if sph.center.shape[0] > 0:
         gi = torch.clamp(index, 0, sph.center.shape[0] - 1).long()
         is_sph = kind == EntityKind.SPHERE
-        sn = geometry.sphere_normal_at(point, gather_rows(sph.center, gi),
+        centers = gather_rows(sph.center, gi)
+        if sph.move_offset is not None:  # the centre at the ray's time
+            w = geometry.motion_weight(rays.time, sph.time_range[gi])
+            centers = centers + gather_rows(sph.move_offset, gi) * w[:, None]
+        sn = geometry.sphere_normal_at(point, centers,
                                        gather_rows(sph.radius, gi))
         normal = torch.where(is_sph[:, None], sn, normal)
         material = torch.where(is_sph, sph.material[gi].to(torch.int32),

@@ -1,12 +1,15 @@
 """Fused sample-batch path tracer: the CUDA kernel and its plain version.
 
 Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm,
-the rect and box arm, the convex-volume arm, the triangle (VMEM) arm and
-the streamed-triangle arm of its `_batch_kernel` (gradient or no sky,
-white noise), the forward path of the book cover, of rect and box scenes
-(`cornell`, `simple_light`), of scenes with fog spheres and boxes
-(`volume`, `probabilistic`, `cornell_volumes`) and of mesh scenes of at
-most TRI_STREAM_MAX triangles.  One
+the rect and box arm, the convex-volume arm, the unit-shutter motion and
+albedo-texture arms, the triangle (VMEM) arm and the streamed-triangle
+arm of its `_batch_kernel` (gradient or no sky, white noise), the
+forward path of the book cover, of rect and box scenes (`cornell`,
+`simple_light`), of scenes with fog spheres and boxes (`volume`,
+`probabilistic`, `cornell_volumes`), of moving and textured spheres
+(`cover_motion`, `checkered`, `perlin`, `textured_sphere`,
+`final_book2`) and of mesh scenes of at most TRI_STREAM_MAX triangles.
+One
 call runs a whole SampleBatchJob (reference: SampleBatchJob.cs:59-164,
 166-401) and returns per-lane accumulation deltas: thin-lens camera rays,
 persistent-lane path regeneration over `samples * trace_depth`
@@ -19,6 +22,9 @@ blocks), with `vol0` (`camera_containment_row`) the Beer-Lambert walk
 through convex volumes (each lane carries its medium; a free path
 shorter than the segment scatters isotropically in the medium, an entry
 or an exit without one passes the boundary in an iteration of its own),
+with `move_offsets` the spheres moved to each path's shutter time, with
+`tex_tables` (`pack_texture_tables`) the winner's albedo textured
+(checker, Perlin marble, nearest atlas texel),
 Lambert / GGX-metal / dielectric scatter, the gradient sky, and the
 per-pixel fold, AOVs, noise weight and ray count.  With `pixel_index`
 lane i renders that pixel (the renderer passes `morton_order` for
@@ -34,7 +40,10 @@ streamed meshes) and the deltas stay in lane order.
   map's plain twin); scenes with rects or boxes its aux build, which
   stages them beside the spheres and sweeps them after (`AUX_LAUNCHES`
   counts it); scenes with convex volumes its volume builds, beside
-  spheres or beside rects and boxes (`VOL_LAUNCHES`); meshes of at most
+  spheres or beside rects and boxes (`VOL_LAUNCHES`); scenes with moving
+  spheres or textured albedos its motion and texture builds, every
+  combination with the others (`MOTION_LAUNCHES`, `TEX_LAUNCHES`);
+  meshes of at most
   TRI_MAX triangles take
   `megatrace_batch_kernel` (triangles read through the read-only cache,
   one thread a lane in lane order); streamed
@@ -62,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -89,6 +99,11 @@ _MASK32 = 0xFFFFFFFF
 
 LAUNCHES = 0  # CUDA kernel launches made by sample_batch
 AUX_LAUNCHES = 0  # ... of them, launches of the aux build (rects, boxes)
+MOTION_LAUNCHES = 0  # ... of them, launches of the motion builds (moving
+#   spheres, beside rects, boxes or volumes or none; untextured)
+TEX_LAUNCHES = 0  # ... of them, launches of the texture builds (checker,
+#   Perlin and image albedos, with or without motion, rects, boxes and
+#   volumes)
 VOL_LAUNCHES = 0  # ... of them, launches of the volume builds (volumes
 #   beside spheres, or beside rects and boxes)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
@@ -121,6 +136,14 @@ AUX_KERNEL_REC = 16  # record columns the kernel reads: 0-10 material |
 RECTS_IN_MESHES = ("rects and boxes in mesh scenes (ROADMAP queue 1, "
                    "step 7.1b)")
 VOLUMES_IN_MESHES = ("volumes in mesh scenes (ROADMAP queue 1, step 7.2b)")
+MOTION_IN_MESHES = ("motion blur in mesh scenes (ROADMAP queue 1, "
+                    "step 7.3b)")
+TEXTURES_IN_MESHES = ("checker, Perlin and image textures in mesh scenes "
+                      "(ROADMAP queue 1, step 7.5b)")
+TEX_COLS = 16  # texture record columns (pack_texture_tables): 0 albedo
+#   TextureType | 1-3 main colour | 4-6 secondary | 7 parameter | 8 atlas
+#   row base (image index * H)
+PERLIN_ROWS = 8  # Perlin table rows: perm_x, perm_y, perm_z, vectors xyz
 VOL_ROWS = 8  # a medium: material id (-1: none) | density | albedo rgb |
 #   emission rgb (camera_containment_row, the kernels' medium state)
 
@@ -142,9 +165,8 @@ def unported_feature(scene) -> str | None:
         (tris and scene.flags.has_volumes, VOLUMES_IN_MESHES),
         (scene.flags.has_nonconvex_volumes,
          "volumes on triangles (non-convex; ROADMAP queue 1, step 7.2b)"),
-        (scene.flags.has_motion, "motion blur (ROADMAP queue 1, step 7.3)"),
-        (scene.flags.has_procedural_textures,
-         "checker, Perlin and image textures (ROADMAP queue 1, step 7.5)"),
+        (tris and scene.flags.has_motion, MOTION_IN_MESHES),
+        (tris and scene.flags.has_procedural_textures, TEXTURES_IN_MESHES),
         (scene.flags.sky not in (0, 1),
          "cubemap skies (ROADMAP queue 1, step 7.6)"),
     )
@@ -156,16 +178,22 @@ def unported_feature(scene) -> str | None:
 
 def unsupported_feature(scene, allow_triangles: bool = False,
                         allow_rect_box: bool = False,
-                        allow_volumes: bool = False) -> str | None:
+                        allow_volumes: bool = False,
+                        allow_motion: bool = False,
+                        allow_textures: bool = False) -> str | None:
     """The first feature of `scene` the fused kernels do not render, named
     with its ROADMAP item, or None when the scene is in scope: the ported
     features, at least one entity, at most SPH_CULL_MIN spheres, triangles
     only with `allow_triangles`, rects, boxes and sphere-free scenes
-    only with `allow_rect_box` and convex volumes only with
-    `allow_volumes` (the batch kernel takes all three; the per-ray
-    megatrace is sphere-only and has no volume walk, as the JAX
-    package's), at most TRI_STREAM_MAX triangles and AUX_MAX rects and
-    boxes (the JAX package's `scene_eligible` flags)."""
+    only with `allow_rect_box`, convex volumes only with `allow_volumes`
+    moving spheres only with `allow_motion` and the unit shutter
+    (SceneFlags.motion_unit_time), and checker, Perlin and image textures
+    only with `allow_textures` and on albedos alone
+    (SceneFlags.procedural_albedo_only; the batch kernel takes all five;
+    the per-ray megatrace is sphere-only, static, untextured and has no
+    volume walk, as the JAX package's), at most TRI_STREAM_MAX triangles
+    and AUX_MAX rects and boxes (the JAX package's `scene_eligible`
+    flags)."""
     spheres = scene.spheres.center.shape[0]
     aux = scene.rects.rot.shape[0] + scene.boxes.rot.shape[0]
     tri_count = scene.triangles.vert0.shape[0]
@@ -181,6 +209,19 @@ def unsupported_feature(scene, allow_triangles: bool = False,
                 "megatrace is sphere-only)")
     if scene.flags.has_volumes and not allow_volumes:
         return "volumes (the per-ray megatrace has no volume walk)"
+    if scene.flags.has_motion and not allow_motion:
+        return "motion blur (the per-ray megatrace is static)"
+    if scene.flags.has_motion and not scene.flags.motion_unit_time:
+        return ("motion beyond the unit shutter (the kernels take the "
+                "shutter time as the motion weight; the wavefront takes "
+                "any time range)")
+    if scene.flags.has_procedural_textures and not allow_textures:
+        return ("checker, Perlin and image textures (the per-ray megatrace "
+                "reads constant albedos)")
+    if (scene.flags.has_procedural_textures
+            and not scene.flags.procedural_albedo_only):
+        return ("procedural textures beyond albedos (the kernels texture "
+                "albedos; the wavefront samples every slot)")
     if tri_count > TRI_STREAM_MAX:
         return TOO_MANY_TRIANGLES
     if aux > AUX_MAX:
@@ -191,13 +232,15 @@ def unsupported_feature(scene, allow_triangles: bool = False,
 
 def scene_eligible(scene, allow_triangles: bool = False,
                    allow_rect_box: bool = False,
-                   allow_volumes: bool = False) -> bool:
+                   allow_volumes: bool = False,
+                   allow_motion: bool = False,
+                   allow_textures: bool = False) -> bool:
     """Can this scene run in the ported fused kernels?  The batch kernel
-    asks with allow_triangles, allow_rect_box and allow_volumes True, the
-    per-ray megatrace without (the JAX package's `scene_eligible`
-    flags)."""
+    asks with every flag True, the per-ray megatrace without (the JAX
+    package's `scene_eligible` flags)."""
     return unsupported_feature(scene, allow_triangles, allow_rect_box,
-                               allow_volumes) is None
+                               allow_volumes, allow_motion,
+                               allow_textures) is None
 
 
 # ---------------------------------------------------------------------------
@@ -217,20 +260,27 @@ def center_sq_minus_r2(cx, cy, cz, r):
     return (cx * cx + cy * cy) + cz * cz - r * r
 
 
-def _pack_scene_tables(centers, radii, records):
+def _pack_scene_tables(centers, radii, records, move_offsets=None):
     """Sphere and record tables in the JAX kernel's layout.
 
-    sph (S_pad, 8): cols 0-2 center, col 3 |c|^2 - r^2; pad rows sit at
-    PAD_CENTER with col 3 = inf and can never hit.  rec (24, S_pad): rows
-    0-11 the record, 12-14 the center, 15 1/r."""
+    sph (S_pad, 8): cols 0-2 center, col 3 |c|^2 - r^2, or with
+    `move_offsets` (unit-shutter motion) -r^2 (|c(t)|^2 depends on the
+    ray's time) and cols 4-6 the move offset; pad rows sit at PAD_CENTER
+    with col 3 = inf and can never hit.  rec (24, S_pad): rows 0-11 the
+    record, 12-14 the center, 15 1/r, 16-18 the move offset."""
     s = centers.shape[0]
     s_pad = sphere_pad_count(s)
     f32 = dict(dtype=torch.float32, device=centers.device)
 
     sph = torch.full((s_pad, 8), PAD_CENTER, **f32)
     sph[:s, 0:3] = centers
-    sph[:s, 3] = center_sq_minus_r2(centers[:, 0], centers[:, 1],
-                                    centers[:, 2], radii)
+    if move_offsets is None:
+        sph[:s, 3] = center_sq_minus_r2(centers[:, 0], centers[:, 1],
+                                        centers[:, 2], radii)
+    else:
+        sph[:s, 3] = -radii * radii
+        sph[:, 4:7] = 0.0
+        sph[:s, 4:7] = move_offsets
     sph[s:, 3] = float("inf")
 
     safe_r = torch.where(radii == 0.0, 1.0, radii)
@@ -238,19 +288,28 @@ def _pack_scene_tables(centers, radii, records):
     rec_t[: records.shape[1], :s] = records.T
     rec_t[12:15, :s] = centers.T
     rec_t[15, :s] = 1.0 / safe_r
+    if move_offsets is not None:
+        rec_t[16:19, :s] = move_offsets.T
     return sph, rec_t, s_pad
 
 
-def sweep_tables(centers, radii, records=None):
+def sweep_tables(centers, radii, records=None, move_offsets=None):
     """The kernels' tables without the TPU padding: (S, 4) sphere rows
-    (centre, |c|^2 - r^2) and (S, 16) winner records (`records` in columns
-    0-11, centre, 1/r).  Pad rows never hit and come last, so sweeping the
-    real rows keeps every winner index."""
+    (centre, |c|^2 - r^2, or -r^2 with `move_offsets`) and (S, 16) winner
+    records (`records` in columns 0-11, centre, 1/r).  Pad rows never hit
+    and come last, so sweeping the real rows keeps every winner index."""
     s = centers.shape[0]
     if records is None:
         records = centers[:, :0]
-    sph, rec_t, _ = _pack_scene_tables(centers, radii, records)
+    sph, rec_t, _ = _pack_scene_tables(centers, radii, records, move_offsets)
     return sph[:s, :4].contiguous(), rec_t[:KERNEL_REC, :s].T.contiguous()
+
+
+def move_table(move_offsets) -> torch.Tensor:
+    """(S, 4) float32 rows of the motion builds: a sphere's move offset
+    over the unit shutter (x, y, z, 0)."""
+    m = move_offsets.detach().to(torch.float32)
+    return torch.cat([m, torch.zeros_like(m[:, :1])], dim=1).contiguous()
 
 
 def _pack_sky_row(sky_bottom, sky_top):
@@ -330,6 +389,59 @@ def pack_aux_tables(scene, packed_materials):
         rec[21, :b] = box.material.to(torch.float32)
         box_tables = (geo, rec)
     return rect_tables, box_tables
+
+
+class TexTables(NamedTuple):
+    """The batch kernel's albedo-texture tables (pack_texture_tables)."""
+
+    rec: torch.Tensor  # (M, TEX_COLS) a texture record per material
+    perlin: torch.Tensor | None  # (PERLIN_ROWS, 256): the JAX layout
+    atlas: torch.Tensor | None  # (A * H, W, 3) the image atlas, rows
+    #   image-major
+    dims: tuple  # (W, H) of the atlas's images, (0, 0) without one
+
+
+def pack_texture_tables(scene) -> TexTables | None:
+    """Per-material albedo-texture tables of a scene with procedural
+    textures (None without), the JAX package's `pack_texture_tables`
+    transposed to a row a material: record columns 0 TextureType, 1-3
+    main colour, 4-6 secondary, 7 parameter (checker or noise frequency),
+    8 the atlas row of the image's first texel row (image index * H);
+    the Perlin tables as JAX's (8, 256) rows (perm_x, perm_y, perm_z,
+    vectors x, y, z; small ints and unit components, exact in float32);
+    the atlas (A, H, W, 3) as (A * H, W, 3) rows.  Differentiable with
+    respect to the texture colours and the atlas."""
+    if not scene.flags.has_procedural_textures:
+        return None
+    tex = scene.textures
+    mats = scene.materials
+    tid = mats.albedo_tex.long()
+    m = tid.shape[0]
+    h = tex.atlas.shape[1] if tex.atlas is not None else 0
+    f32 = dict(dtype=torch.float32, device=tex.main_color.device)
+    rec = torch.cat([
+        tex.type[tid].to(torch.float32)[:, None],
+        tex.main_color[tid].to(torch.float32),
+        tex.secondary_color[tid].to(torch.float32),
+        tex.parameter[tid].to(torch.float32)[:, None],
+        (torch.clamp(tex.image_index[tid], min=0) * h)
+        .to(torch.float32)[:, None],
+        torch.zeros((m, TEX_COLS - 9), **f32),
+    ], dim=1)
+    perlin = None
+    if tex.perlin is not None:
+        p = tex.perlin
+        perlin = torch.cat([
+            torch.stack([p.perm_x, p.perm_y, p.perm_z]).to(torch.float32),
+            p.random_vectors.T.to(torch.float32),
+            torch.zeros((PERLIN_ROWS - 6, 256), **f32),
+        ])
+    atlas, dims = None, (0, 0)
+    if tex.atlas is not None:
+        a, ih, iw = tex.atlas.shape[:3]
+        atlas = tex.atlas.to(torch.float32).reshape(a * ih, iw, 3)
+        dims = (iw, ih)
+    return TexTables(rec, perlin, atlas, dims)
 
 
 def camera_containment_row(scene, packed_materials, origin) -> torch.Tensor:
@@ -608,10 +720,11 @@ def uniforms_hash(seed, salt, lanes: torch.Tensor, streams: int = 8):
 
 
 # Precision contract, shared with the CUDA kernel bit for bit:
-# * sqrt, rsqrt, sin, cos and the volume walk's log give correctly
-#   rounded float32 results, taken through float64 (torch's float32 CPU
-#   kernels are not correctly rounded; the kernel computes the same
-#   float64 expressions).
+# * sqrt, rsqrt, sin, cos, the volume walk's log and the sphere uv's atan2
+#   and acos give correctly rounded float32 results, taken through float64
+#   (torch's float32 CPU kernels are not correctly rounded; the kernel
+#   computes the same float64 expressions).  The JAX kernel's uv uses a
+#   polynomial atan2 (a TPU workaround, ~1e-6 rad): the port does not.
 # * A multiply-add is fused (rounded once) exactly where it is written
 #   with `_fma`: the places where the JAX kernel's CPU compile contracts
 #   it.  Every other product and sum is rounded on its own, and the
@@ -650,6 +763,14 @@ def _sin(x):
 
 def _cos(x):
     return torch.cos(x.double()).float()
+
+
+def _atan2(y, x):
+    return torch.atan2(y.double(), x.double()).float()
+
+
+def _acos(x):
+    return torch.acos(x.double()).float()
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -731,22 +852,48 @@ def _smith_masking(cos_theta, roughness):
 # ---------------------------------------------------------------------------
 
 
-def _sweep(o, d, sph, t_min):
+def moved_center(c, m, ptime):
+    """A moving sphere's centre at shutter time `ptime` (the unit shutter:
+    the time is the motion weight), c + m t rounded once, as the JAX
+    kernel's CPU compile contracts it (Entity.cs:124-127)."""
+    return _fma(m, ptime, c)
+
+
+def _quadratic_bc(o, d, c, cw, m=None, ptime=None):
+    """The sweep's b and c terms of the sphere quadratic for rays o, d
+    against centres c (a 3-tuple) with column-3 values cw: b = o.d - d.c,
+    c = (|o|^2 - 2 o.c) + cw; with move offsets m at times ptime the
+    centre is c(t) = moved_center(c, m, t) and c = ((|o|^2 - 2 o.c(t)) +
+    |c(t)|^2) + cw, cw = -r^2 (the JAX kernel's order, :379-390).
+    fma(-2, o.c, |o|^2) is the first sum's one rounding: the product by 2
+    is exact."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    if m is not None:
+        c = tuple(moved_center(ck, mk_, ptime) for ck, mk_ in zip(c, m))
+    cx, cy, cz = c
+    b = _dot3(ox, oy, oz, dx, dy, dz) - _dot3(dx, dy, dz, cx, cy, cz)
+    cc = _dot3(ox, oy, oz, ox, oy, oz) - 2.0 * _dot3(ox, oy, oz, cx, cy, cz)
+    if m is not None:
+        cc = cc + _dot3(cx, cy, cz, cx, cy, cz)
+    return b, cc + cw
+
+
+def _sweep(o, d, sph, t_min, move=None, ptime=None):
     """Dense sphere sweep over the real rows: (best_t, best_idx) per lane,
-    argmin's first-index rule on ties, index 0 on a miss."""
+    argmin's first-index rule on ties, index 0 on a miss.  With `move`
+    ((S, 3) move offsets) and `ptime` ((C,) shutter times) the centres
+    move (sph column 3 then holds -r^2)."""
     ox, oy, oz = o
     dx, dy, dz = d
     if sph.shape[0] == 0:  # a sphere-free scene: every lane misses them
         return (torch.full_like(ox, BIG),
                 torch.zeros_like(ox, dtype=torch.int64))
     cx, cy, cz, cmr2 = (sph[:, k:k + 1] for k in range(4))  # (S, 1)
+    m = None if move is None else tuple(move[:, k:k + 1] for k in range(3))
     a = _dot3(dx, dy, dz, dx, dy, dz)
-    o_dot_d = _dot3(ox, oy, oz, dx, dy, dz)
-    o_sq = _dot3(ox, oy, oz, ox, oy, oz)
     inv_a = 1.0 / a
-    b = o_dot_d - _dot3(dx, dy, dz, cx, cy, cz)  # (S, C)
-    # fma(-2, o.c, |o|^2) is this one rounding: the product by 2 is exact
-    c = (o_sq - 2.0 * _dot3(ox, oy, oz, cx, cy, cz)) + cmr2
+    b, c = _quadratic_bc(o, d, (cx, cy, cz), cmr2, m, ptime)  # (S, C)
     disc = _fma(b, b, -(a * c))
     del c
     # roots only where the discriminant is positive (few (sphere, lane)
@@ -765,21 +912,18 @@ def _sweep(o, d, sph, t_min):
     return torch.min(t_entry, dim=0).values, torch.argmin(t_entry, dim=0)
 
 
-def sphere_exit(o, d, row, t_min):
+def sphere_exit(o, d, row, t_min, m=None, ptime=None):
     """The far root of the sphere quadratic for rays o, d against sphere
-    rows `row` (centre, |c|^2 - r^2; each a 3-tuple or broadcastable): the
-    exit distance of a volume sphere the ray hit (the JAX kernel's
-    `t_exit_rows`, :401-408), BIG where it is at or before t_min.  The
-    same float operations as `_sweep`'s, so it is bit-equal to the root
-    the sweep would take there; only meaningful where the discriminant is
-    positive (a hit)."""
-    ox, oy, oz = o
+    rows `row` (centre, |c|^2 - r^2; each a 3-tuple or broadcastable;
+    with move offsets `m` at times `ptime`, -r^2): the exit distance of a
+    volume sphere the ray hit (the JAX kernel's `t_exit_rows`, :401-408),
+    BIG where it is at or before t_min.  The same float operations as
+    `_sweep`'s, so it is bit-equal to the root the sweep would take there;
+    only meaningful where the discriminant is positive (a hit)."""
     dx, dy, dz = d
     cx, cy, cz, cmr2 = row
     a = _dot3(dx, dy, dz, dx, dy, dz)
-    b = _dot3(ox, oy, oz, dx, dy, dz) - _dot3(dx, dy, dz, cx, cy, cz)
-    c = (_dot3(ox, oy, oz, ox, oy, oz)
-         - 2.0 * _dot3(ox, oy, oz, cx, cy, cz)) + cmr2
+    b, c = _quadratic_bc(o, d, (cx, cy, cz), cmr2, m, ptime)
     disc = _fma(b, b, -(a * c))
     t_far = (-b + _sqrt(torch.clamp(disc, min=0.0))) * (1.0 / a)
     return torch.where(t_far > t_min, t_far, BIG)
@@ -1066,6 +1210,113 @@ def tri_normal(n0, n1, n2, u, v):
     return tn[0] * inv, tn[1] * inv, tn[2] * inv
 
 
+PI_F32 = torch.tensor(math.pi, dtype=torch.float32)
+
+
+def sphere_uv(nx, ny, nz):
+    """The Shirley Book-2 spherical uv of a sphere hit from its unit
+    outward normal: u = (atan2(-z, x) + pi) / 2pi, v = acos(-y) / pi (the
+    JAX kernel's :1157-1175 in its float32 order, with the correctly
+    rounded atan2 and acos)."""
+    su = (_atan2(-nz, nx) + PI_F32) * (0.5 / math.pi)
+    sv = _acos(torch.clamp(-ny, -1.0, 1.0)) * (1.0 / math.pi)
+    return su, sv
+
+
+def _falloff(t):
+    """Surflet falloff 1 - (3 - 2|t|) t^2, 0 from |t| = 1 on
+    (PerlinNoise.cs:24-28), the last product fused into the difference as
+    the JAX kernel's CPU compile fuses it."""
+    t = torch.abs(t)
+    return torch.where(t >= 1.0, 0.0, _fma(-((3.0 - 2.0 * t) * t), t, 1.0))
+
+
+def perlin_rows(perlin, px, py, pz):
+    """Surflet gradient noise at points (px, py, pz) (the JAX kernel's
+    `_perlin_rows`, PerlinNoise.cs:36-52): per axis the permutation at the
+    cell and the next, the corner hash their XOR, its gradient from the
+    vector rows, summed over the 8 corners and clipped to [0, 1]."""
+    perm, frac, fall = [], [], []
+    for row, p in enumerate((px, py, pz)):
+        cf = torch.floor(p)
+        ci = cf.to(torch.int64)
+        pv = [perlin[row][(c & 255)].to(torch.int64) for c in (ci, ci + 1)]
+        f0 = p - cf
+        f1 = f0 - 1.0
+        perm.append(pv)
+        frac.append((f0, f1))
+        fall.append((_falloff(f0), _falloff(f1)))
+    result = torch.zeros_like(px)
+    for dk in (0, 1):
+        for dj in (0, 1):
+            for di in (0, 1):
+                h = perm[0][di] ^ perm[1][dj] ^ perm[2][dk]
+                dot = _dot3(frac[0][di], frac[1][dj], frac[2][dk],
+                            perlin[3][h], perlin[4][h], perlin[5][h])
+                result = _fma(fall[0][di] * fall[1][dj] * fall[2][dk], dot,
+                              result)
+    return torch.clamp(result, 0.0, 1.0)
+
+
+def turbulence_rows(perlin, px, py, pz, depth: int = 7):
+    """`depth`-octave fBm of perlin_rows (PerlinNoise.cs:54-68)."""
+    acc = torch.zeros_like(px)
+    weight = 1.0
+    for _ in range(depth):
+        acc = acc + weight * perlin_rows(perlin, px, py, pz)
+        weight *= 0.5
+        px, py, pz = px * 2.0, py * 2.0, pz * 2.0
+    return torch.clamp(acc, 0.0, 1.0)
+
+
+def bounce_textures(tex: TexTables, tx, alb, n, p, uv):
+    """The winner's albedo after its material's texture (the JAX kernel's
+    `_bounce_textures`, :2207-2295): the checker by the dominant normal
+    axis's projection, the Perlin marble 0.5 (1 + sin(f z + 10
+    turbulence(p))) main, the nearest atlas texel at `uv` times main;
+    other types keep the packed albedo `alb`.  `tx` holds each lane's
+    texture record (C, TEX_COLS), `tex` the Perlin rows, the atlas and its
+    dims (its records are not read).  Differentiable with respect to the
+    records' colours and the atlas (the texel index is a decision)."""
+    ttype, freq = tx[:, 0], tx[:, 7]
+    main = (tx[:, 1], tx[:, 2], tx[:, 3])
+    nx, ny, nz = n
+    ax, ay, az = torch.abs(nx), torch.abs(ny), torch.abs(nz)
+    use_x = (ax > ay) & (ax > az)
+    use_y = ~use_x & (ay > ax) & (ay > az)
+    v0 = torch.where(use_x, nx, torch.where(use_y, ny, nz))
+    v1 = torch.where(use_x, ny, torch.where(use_y, nz, nx))
+    v2 = torch.where(use_x, nz, torch.where(use_y, nx, ny))
+    safe0 = torch.where(v0 == 0.0, 1.0, v0)
+    cu = _fma(0.5, v1 / safe0, 0.5)
+    cv = _fma(0.5, v2 / safe0, 0.5)
+    pif = PI_F32 * freq
+    chk_main = _sin(pif * cu) * _sin(pif * cv) < 0.0
+    is_chk = (ttype > 1.5) & (ttype < 2.5)
+    out = [torch.where(is_chk & chk_main, main[c],
+                       torch.where(is_chk & ~chk_main, tx[:, 4 + c], alb[c]))
+           for c in range(3)]
+    if tex.perlin is not None:
+        is_per = (ttype > 2.5) & (ttype < 3.5)
+        sel = torch.nonzero(is_per, as_tuple=True)[0]
+        if sel.numel():
+            turb = turbulence_rows(tex.perlin, p[0][sel], p[1][sel],
+                                   p[2][sel])
+            marble = 0.5 * (1.0 + _sin(_fma(freq[sel], p[2][sel],
+                                            10.0 * turb)))
+            for c in range(3):
+                out[c] = out[c].index_put((sel,), marble * main[c][sel])
+    if tex.atlas is not None:
+        w, h = tex.dims
+        is_img = (ttype > 3.5) & (ttype < 4.5)
+        cx = torch.clamp((uv[0] * w).to(torch.int64), 0, w - 1)
+        cy = torch.clamp((uv[1] * h).to(torch.int64), 0, h - 1)
+        texel = tex.atlas[tx[:, 8].to(torch.int64) + cy, cx]
+        out = [torch.where(is_img, texel[:, c] * main[c], out[c])
+               for c in range(3)]
+    return tuple(out)
+
+
 STATE_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
               "rx", "ry", "rz", "anx", "any", "anz", "aax", "aay", "aaz",
               "events", "active", "valid", "got")
@@ -1076,7 +1327,8 @@ VOL_KEYS = ("in_id", "in_den", "in_ar", "in_ag", "in_ab", "in_er", "in_eg",
 
 
 def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
-            sky, tri=None, aux=None, med=None):
+            sky, tri=None, aux=None, med=None, move=None, ptime=None,
+            tex=None):
     """One bounce of every active path in `p` (a dict of (C,) rows keyed
     by STATE_KEYS, updated in place): the dense sphere sweep, then with
     `aux` (`_aux_arg`) the rect sweep and the box sweep (each wins only
@@ -1084,7 +1336,10 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     `tri` = (sweep, records (T_pad, 32), code base) the triangle sweep
     (`_tri_arg`: a triangle wins only with a strictly smaller t),
     with `med` (the medium, a dict of (C,) rows keyed by VOL_KEYS, updated
-    in place) the convex volume walk, Lambert / GGX-metal / dielectric or
+    in place) the convex volume walk, with `move` ((S, 3) move offsets)
+    and `ptime` ((C,) shutter times) the spheres moved to each lane's
+    time, with `tex` (TexTables) the winner's albedo textured,
+    Lambert / GGX-metal / dielectric or
     the volume's isotropic scatter, the gradient sky, the fold, AOV
     capture, events and the advance.  `u` holds the bounce's six uniform
     rows (seven with `med`: the free path's draw), `depth` the path's
@@ -1104,7 +1359,9 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     best_idx = torch.zeros_like(ox, dtype=torch.int64)
     o_live = (ox[live], oy[live], oz[live])
     d_live = (dx[live], dy[live], dz[live])
-    best_t[live], best_idx[live] = _sweep(o_live, d_live, sph, t_min)
+    pt_live = None if move is None else ptime[live]
+    best_t[live], best_idx[live] = _sweep(o_live, d_live, sph, t_min, move,
+                                          pt_live)
     aux_wins = []  # (lanes won, row per lane, kind) of the rects and boxes
     if aux is not None:
         for kind, (geo, krec, base) in enumerate(aux):
@@ -1135,9 +1392,16 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     py = _fma(t_hit, dy, oy)
     pz = _fma(t_hit, dz, oz)
     inv_r = w[:, 15]
-    nx = (px - w[:, 12]) * inv_r
-    ny = (py - w[:, 13]) * inv_r
-    nz = (pz - w[:, 14]) * inv_r
+    wc = (w[:, 12], w[:, 13], w[:, 14])
+    wm = None
+    if move is not None and sph.shape[0] > 0:
+        # the winner's centre at the lane's time (the JAX kernel's
+        # :1103-1106)
+        wm = tuple(move[best_idx, k] for k in range(3))
+        wc = tuple(moved_center(c, m, ptime) for c, m in zip(wc, wm))
+    nx = (px - wc[0]) * inv_r
+    ny = (py - wc[1]) * inv_r
+    nz = (pz - wc[2]) * inv_r
     if med is not None:
         # the winner's exit distance for the volume walk: a sphere's far
         # root, a box's slab exit, BIG for a rect (no interior) and on a
@@ -1146,7 +1410,8 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
         if sph.shape[0] > 0:
             t_exit = torch.where(hit, sphere_exit(
                 (ox, oy, oz), (dx, dy, dz),
-                tuple(sph[best_idx, k] for k in range(4)), t_min), BIG)
+                tuple(sph[best_idx, k] for k in range(4)), t_min, wm,
+                ptime), BIG)
     for wins, k_idx, kind in aux_wins:
         geo, krec, base = aux[kind]
         # the boxes come second: a box winner overwrites a rect's
@@ -1182,6 +1447,20 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
         best_idx = torch.where(tri_wins, code_base + tri_idx, best_idx)
     mtype = w[:, 0]
     alb_r, alb_g, alb_b = w[:, 1], w[:, 2], w[:, 3]
+    if tex is not None:
+        # spheres take the spherical uv, rects and boxes 0 (the JAX
+        # kernel's :1157-1175)
+        uv = (torch.zeros_like(ox), torch.zeros_like(ox))
+        if tex.atlas is not None:
+            sph_wins = hit
+            for wins, _, _ in aux_wins:
+                sph_wins = sph_wins & ~wins
+            su, sv = sphere_uv(nx, ny, nz)
+            uv = (torch.where(sph_wins, su, 0.0),
+                  torch.where(sph_wins, sv, 0.0))
+        alb_r, alb_g, alb_b = bounce_textures(
+            tex, tex.rec[w[:, 11].long()], (alb_r, alb_g, alb_b),
+            (nx, ny, nz), (px, py, pz), uv)
     em_r, em_g, em_b = w[:, 4], w[:, 5], w[:, 6]
     gloss, metallic, parameter = w[:, 7], w[:, 8], w[:, 9]
     perfect_f = w[:, 10]
@@ -1388,11 +1667,14 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
 
 def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
                  tri, aux, vol0, seed, *, samples, trace_depth, t_min,
-                 has_dielectrics, sky_on, jitter, tape):
+                 has_dielectrics, sky_on, jitter, tape, move=None,
+                 tex=None):
     """Run one SampleBatchJob over a chunk of lanes; returns the (18, C)
     accumulators and fills `tape` ((samples*trace_depth, C) or None).
     With `vol0` (camera_containment_row) each lane carries its medium,
-    reset from vol0 at every regen."""
+    reset from vol0 at every regen; with `move` ((S, 3) move offsets) its
+    shutter time, drawn at every regen from the camera draws' stream 7
+    (the JAX kernel's :2745-2760)."""
     dev = pixel.device
     zero = torch.zeros_like(pixel)
     co, ll, hh, vv, rr, uu = (cam[3 * k:3 * k + 3] for k in range(6))
@@ -1412,6 +1694,7 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
     if vol0 is not None:
         med = {k: zero for k in VOL_KEYS}
         med["in_id"] = zero - 1.0
+    ptime = None if move is None else zero
 
     for it in range(samples * trace_depth):
         started_all = started >= per_pixel
@@ -1421,7 +1704,7 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         # ---- regenerate: start the next sample on idle lanes ----------
         regen = ~p["active"] & ~started_all
         salt = it * SALT_STEP
-        u = uniforms_hash(seed, salt, lanes, 4)
+        u = uniforms_hash(seed, salt, lanes, 4 if move is None else 8)
         jx, jy = (u[0], u[1]) if jitter else (0.5, 0.5)
         un = (px_row + jx) / width
         vn = (py_row + jy) / height
@@ -1454,6 +1737,8 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         if med is not None:  # the camera's medium
             for k, value in zip(VOL_KEYS, vol0):
                 med[k] = torch.where(regen, value, med[k])
+        if move is not None:  # the path's shutter time
+            ptime = torch.where(regen, u[7], ptime)
 
         # ---- one bounce ------------------------------------------------
         u = uniforms_hash(seed, salt + SALT_BOUNCE, lanes,
@@ -1461,7 +1746,7 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         hit, best_idx = _bounce(p, u, sph, rec, depth_ct, t_min=t_min,
                                 has_dielectrics=has_dielectrics,
                                 sky_on=sky_on, sky=sky, tri=tri, aux=aux,
-                                med=med)
+                                med=med, move=move, ptime=ptime, tex=tex)
 
         if tape is not None:
             tape[it] = torch.where(
@@ -1596,6 +1881,8 @@ def sample_batch_reference(
     rect_tables: tuple | None = None,
     box_tables: tuple | None = None,
     vol0: torch.Tensor | None = None,
+    move_offsets: torch.Tensor | None = None,
+    tex_tables: TexTables | None = None,
     chunk_lanes: int | None = None,
 ) -> dict:
     """Plain PyTorch version of the batch kernel (any device).
@@ -1604,7 +1891,10 @@ def sample_batch_reference(
     pack_tri_stream_tables' tables, or neither; `rect_tables` and
     `box_tables` are pack_aux_tables' pairs (their tape codes follow the
     padded spheres: `aux_code_bases`); `vol0` (camera_containment_row)
-    turns on the convex volume walk.  `pixel_index` (N,) is the
+    turns on the convex volume walk, `move_offsets` (S, 3) unit-shutter
+    sphere motion (each path's time drawn at its regen), `tex_tables`
+    (pack_texture_tables) albedo textures.  `pixel_index`
+    (N,) is the
     pixel each lane renders (default: lane i renders pixel i); the hash
     PRNG stays keyed by the lane.  Returns per-lane deltas, in lane order: color (N, 3), count (N,), normal (N, 3), albedo
     (N, 3), weight (N,), rays (N,) int32, fallback_normal (N, 3),
@@ -1615,7 +1905,9 @@ def sample_batch_reference(
     dev = centers.device
     n = lane_count.shape[0]
     s = centers.shape[0]
-    sph, rec = sweep_tables(centers, radii, records)
+    move = (None if move_offsets is None
+            else move_offsets.detach().to(torch.float32))
+    sph, rec = sweep_tables(centers, radii, records, move)
     if s == 0:  # a sphere-free scene: one record row for the missed lanes
         rec = torch.zeros((1, KERNEL_REC), dtype=torch.float32, device=dev)
     tri = _tri_arg(tri_tables, tri_stream_tables, s)
@@ -1649,7 +1941,10 @@ def sample_batch_reference(
             int(seed),
             samples=samples, trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
-            tape=None if tape is None else tape[:, c0:c1],
+            tape=None if tape is None else tape[:, c0:c1], move=move,
+            tex=None if tex_tables is None else TexTables(
+                *(None if t is None else t.detach().to(torch.float32)
+                  for t in tex_tables[:3]), tuple(tex_tables[3])),
         )
     return _outputs(acc, tape)
 
@@ -1679,61 +1974,65 @@ def load_kernel() -> ctypes.CDLL:
             p,  # stream
         ]
         lib.rtiw_megatrace_batch.restype = ctypes.c_int
-        lib.rtiw_megatrace_sphere_info.argtypes = [i, p]
-        lib.rtiw_megatrace_sphere_info.restype = ctypes.c_int
-        lib.rtiw_megatrace_aux.argtypes = [
+        lib.rtiw_megatrace_ext.argtypes = [
             p, p, p, p, p,  # lane_count count_in consts sph rec
             p, p, p, p,  # aux_geo aux_rec out tape
             i, i, i, i, i, i,  # n s rect_rows box_rows rect_code box_code
             i, i, i, i,  # seed lane_base samples trace_depth
             ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
-            p,  # stream
+            i, p, p, p, p,  # has_vol move tex_rec perlin atlas
+            i, i, p,  # img_w img_h stream
         ]
-        lib.rtiw_megatrace_aux.restype = ctypes.c_int
-        lib.rtiw_megatrace_aux_info.argtypes = [i, i, p]
-        lib.rtiw_megatrace_aux_info.restype = ctypes.c_int
-        lib.rtiw_megatrace_volume.argtypes = lib.rtiw_megatrace_aux.argtypes
-        lib.rtiw_megatrace_volume.restype = ctypes.c_int
-        lib.rtiw_megatrace_volume_info.argtypes = [i, i, p]
-        lib.rtiw_megatrace_volume_info.restype = ctypes.c_int
+        lib.rtiw_megatrace_ext.restype = ctypes.c_int
+        lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, p]
+        lib.rtiw_megatrace_ext_info.restype = ctypes.c_int
         lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
         lib.rtiw_tile_lanes.restype = ctypes.c_int
         _KERNEL = lib
     return _KERNEL
 
 
-def sphere_kernel_info(s: int) -> dict:
+def sphere_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
+                       has_motion: bool = False,
+                       has_tex: bool = False) -> dict:
     """The sphere kernel's occupancy with an s-sphere table on the
     current card: blocks an SM (the occupancy API), registers a thread and
-    local memory (stack and spills) a thread in bytes."""
+    local memory (stack and spills) a thread in bytes; of its build for
+    aux_rows rect and box rows (0: none) and the flags (all unset: the
+    sphere build)."""
     info = (ctypes.c_int * 3)()
-    err = load_kernel().rtiw_megatrace_sphere_info(int(s), info)
+    err = load_kernel().rtiw_megatrace_ext_info(
+        int(s), int(aux_rows), int(has_vol), int(has_motion), int(has_tex),
+        info)
     if err != 0:
         raise RuntimeError(f"megatrace_sphere_kernel info: cudaError {err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
 
 
-def aux_kernel_info(s: int, aux_rows: int) -> dict:
-    """sphere_kernel_info of the aux build with an s-sphere table and
-    aux_rows rect and box rows."""
-    info = (ctypes.c_int * 3)()
-    err = load_kernel().rtiw_megatrace_aux_info(int(s), int(aux_rows), info)
-    if err != 0:
-        raise RuntimeError(f"megatrace_sphere_kernel<true> info: cudaError "
-                           f"{err}")
-    return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
-
-
-def volume_kernel_info(s: int, aux_rows: int) -> dict:
-    """sphere_kernel_info of the volume builds with an s-sphere table and
-    aux_rows rect and box rows (0: the sphere + volume build)."""
-    info = (ctypes.c_int * 3)()
-    err = load_kernel().rtiw_megatrace_volume_info(int(s), int(aux_rows),
-                                                   info)
-    if err != 0:
-        raise RuntimeError(f"megatrace_sphere_kernel volume build info: "
-                           f"cudaError {err}")
-    return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
+def kernel_tex_tables(tex_tables: TexTables, dev):
+    """The texture builds' tables after checking them: the records (M,
+    TEX_COLS), the Perlin rows (PERLIN_ROWS, 256) or None and the atlas
+    ((A * H), W, 3) or None, float32 and contiguous on `dev`, and (W,
+    H)."""
+    rec, perlin, atlas, dims = tex_tables
+    want = dict(rec=(rec.shape[0], TEX_COLS), perlin=(PERLIN_ROWS, 256))
+    if atlas is not None:
+        want["atlas"] = (atlas.shape[0], dims[0], 3)
+        if atlas.shape[0] % max(dims[1], 1):
+            raise ValueError(f"sample_batch: the atlas has {atlas.shape[0]} "
+                             f"rows, not a multiple of the image height "
+                             f"{dims[1]}")
+    out = []
+    for name, t in (("rec", rec), ("perlin", perlin), ("atlas", atlas)):
+        if t is None:
+            out.append(None)
+            continue
+        if tuple(t.shape) != want[name] or t.device != dev:
+            raise ValueError(f"sample_batch: tex_tables.{name} has shape "
+                             f"{tuple(t.shape)} on {t.device}; want "
+                             f"pack_texture_tables' {want[name]} on {dev}")
+        out.append(t.detach().to(torch.float32).contiguous())
+    return (*out, tuple(int(d) for d in dims))
 
 
 def kernel_consts(camera_row, sky_bottom, sky_top, vol0=None):
@@ -1852,8 +2151,10 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        samples, trace_depth, t_min, has_dielectrics, sky_on,
                        jitter, want_tape, tri_tables, pixel_index=None,
                        tri_stream_tables=None, rect_tables=None,
-                       box_tables=None, vol0=None):
-    global LAUNCHES, AUX_LAUNCHES, VOL_LAUNCHES
+                       box_tables=None, vol0=None, move_offsets=None,
+                       tex_tables=None):
+    global LAUNCHES, AUX_LAUNCHES, VOL_LAUNCHES, MOTION_LAUNCHES
+    global TEX_LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
                    camera_row=camera_row, centers=centers, radii=radii,
@@ -1919,8 +2220,18 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                          f"camera_containment_row's ({VOL_ROWS},) float32 "
                          f"on {dev}")
 
+    if move_offsets is not None and (
+            tuple(move_offsets.shape) != (s, 3) or move_offsets.device != dev
+            or move_offsets.dtype != torch.float32):
+        raise ValueError(f"sample_batch: move_offsets has shape "
+                         f"{tuple(move_offsets.shape)} "
+                         f"({move_offsets.dtype}) on {move_offsets.device}; "
+                         f"want ({s}, 3) float32 on {dev}")
+
     lib = load_kernel()
-    sph, rec = sweep_tables(centers, radii, records)
+    sph, rec = sweep_tables(
+        centers, radii, records,
+        None if move_offsets is None else move_offsets.detach())
     consts = kernel_consts(camera_row, sky_bottom, sky_top,
                            None if vol0 is None else vol0.detach())
     per_pixel = lane_count.to(torch.float32).contiguous()
@@ -1930,7 +2241,8 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                         device=dev) if want_tape else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     has_aux = rect_tables is not None or box_tables is not None
-    if has_aux or vol0 is not None:
+    if (has_aux or vol0 is not None or move_offsets is not None
+            or tex_tables is not None):
         aux_geo = aux_rec = None
         rect_rows = box_rows = 0
         if has_aux:
@@ -1938,23 +2250,34 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
             aux_geo, aux_rec, rect_rows, box_rows = kernel_aux_tables(
                 rect_tables, box_tables)
         rect_code, box_code = aux_code_bases(s, rect_tables)
-        launch = (lib.rtiw_megatrace_aux if vol0 is None
-                  else lib.rtiw_megatrace_volume)
-        err = launch(
-            per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
-            sph.data_ptr(), rec.data_ptr(),
-            0 if aux_geo is None else aux_geo.data_ptr(),
-            0 if aux_rec is None else aux_rec.data_ptr(), out.data_ptr(),
-            0 if tape is None else tape.data_ptr(), n, s, rect_rows,
-            box_rows, rect_code, box_code, int(seed), int(lane_base),
-            samples, trace_depth, float(t_min), int(has_dielectrics),
-            int(sky_on), int(jitter), stream)
-        build = "aux" if vol0 is None else "volume"
+        args = (per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+                sph.data_ptr(), rec.data_ptr(),
+                0 if aux_geo is None else aux_geo.data_ptr(),
+                0 if aux_rec is None else aux_rec.data_ptr(), out.data_ptr(),
+                0 if tape is None else tape.data_ptr(), n, s, rect_rows,
+                box_rows, rect_code, box_code, int(seed), int(lane_base),
+                samples, trace_depth, float(t_min), int(has_dielectrics),
+                int(sky_on), int(jitter))
+        move = None if move_offsets is None else move_table(move_offsets)
+        trec, perlin, atlas, (img_w, img_h) = (
+            (None, None, None, (0, 0)) if tex_tables is None
+            else kernel_tex_tables(tex_tables, dev))
+        build = ("texture" if tex_tables is not None
+                 else "motion" if move_offsets is not None
+                 else "aux" if vol0 is None else "volume")
+        err = lib.rtiw_megatrace_ext(
+            *args, int(vol0 is not None),
+            *(0 if t is None else t.data_ptr()
+              for t in (move, trec, perlin, atlas)), img_w, img_h, stream)
         if err != 0:
             raise RuntimeError(f"megatrace_batch {build} build launch "
                                f"failed: cudaError {err}")
         LAUNCHES += 1
-        if vol0 is None:
+        if tex_tables is not None:
+            TEX_LAUNCHES += 1
+        elif move_offsets is not None:
+            MOTION_LAUNCHES += 1
+        elif vol0 is None:
             AUX_LAUNCHES += 1
         else:
             VOL_LAUNCHES += 1
@@ -1999,6 +2322,8 @@ def sample_batch(
     rect_tables: tuple | None = None,
     box_tables: tuple | None = None,
     vol0: torch.Tensor | None = None,
+    move_offsets: torch.Tensor | None = None,
+    tex_tables: TexTables | None = None,
 ) -> dict:
     """Fused SampleBatchJob: per-lane accumulation deltas for one batch
     (see `sample_batch_reference` for the outputs; `tri_tables` is
@@ -2006,7 +2331,10 @@ def sample_batch(
     `tri_stream_tables` pack_tri_stream_tables' tables for a bigger one,
     `pixel_index` the pixel of each lane, `rect_tables` and `box_tables`
     pack_aux_tables' pairs, `vol0` camera_containment_row for a scene
-    with convex volumes: the volume builds, VOL_LAUNCHES).
+    with convex volumes: the volume builds, VOL_LAUNCHES; `move_offsets`
+    (S, 3) the spheres' unit-shutter motion: the motion builds,
+    MOTION_LAUNCHES; `tex_tables` pack_texture_tables' albedo textures:
+    the texture builds, TEX_LAUNCHES).
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
@@ -2024,12 +2352,19 @@ def sample_batch(
     if vol0 is not None and (tri_tables is not None
                              or tri_stream_tables is not None):
         raise NotImplementedError(f"sample_batch: {VOLUMES_IN_MESHES}")
+    if move_offsets is not None and (tri_tables is not None
+                                     or tri_stream_tables is not None):
+        raise NotImplementedError(f"sample_batch: {MOTION_IN_MESHES}")
+    if tex_tables is not None and (tri_tables is not None
+                                   or tri_stream_tables is not None):
+        raise NotImplementedError(f"sample_batch: {TEXTURES_IN_MESHES}")
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, want_tape=want_tape, tri_tables=tri_tables,
                   pixel_index=pixel_index,
                   tri_stream_tables=tri_stream_tables,
-                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0)
+                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
+                  move_offsets=move_offsets, tex_tables=tex_tables)
     args = (lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cuda":

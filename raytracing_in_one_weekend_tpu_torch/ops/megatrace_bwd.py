@@ -34,7 +34,18 @@ box_geo and box_rec cotangents).  Scenes with convex volumes take its
 volume instantiations (`VOL` beside spheres, `AUX_VOL` beside rects and
 boxes): the medium rides eight more state floats, and the cotangent of
 the camera's medium row `vol0` comes back with the camera and sky ones
-(the JAX kernel's `aux_cot["vol0"]`), N_SCAL_VOL scalars in all.
+(the JAX kernel's `aux_cot["vol0"]`), N_SCAL_VOL scalars in all.  Scenes
+with moving spheres (and neither rects, boxes nor volumes) take its
+motion instantiation (`MOTION`): a path carries its shutter time, and a
+sphere row's cotangent grows by its move offset's (the centre's times the
+time; 16 columns, GRAD_COLS then MOVE_COLS), which comes back through
+build_entity_rows (the JAX kernel's `aux_cot["move"]`).  Sphere scenes
+with checker or image albedos (no Perlin marble, which the replay does
+not mirror) take its texture instantiation (`TEX`): a sphere row's
+cotangent grows by its texture record's main and secondary colours (19
+columns, GRAD_COLS then those), which go back to pack_texture_tables'
+records, and the fetched atlas texels take theirs in a texel plane the
+atlas's shape (the JAX kernel's texel-plane cotangent).
 
 `replay_step_vjp` exposes the kernel's one-iteration VJP (and
 `replay_step_vjp_reference` its autograd counterpart) so that the hand
@@ -86,6 +97,34 @@ AUX_STEP_COTANGENTS = STEP_COTANGENTS + (
 # ... with volumes: the medium's state floats and the camera's medium row
 VOL_COTANGENTS = (("medium", 0, slice(21, 29)),
                   ("vol0", 2, slice(N_SCAL, N_SCAL_VOL)))
+# ... with moving spheres (after STEP_COTANGENTS' columns)
+MOTION_COTANGENTS = (("move", 1, slice(13, 16)),)
+# ... with checker or image albedos (after STEP_COTANGENTS' columns)
+TEX_COTANGENTS = (("texture_colors", 1, slice(13, 19)),)
+
+
+def _tail_leaves(vol0, move_offsets, tex_tables) -> list:
+    """The optional leaves after the tables, in the order replay_grad
+    returns their cotangents: vol0, the move offsets, the texture records,
+    the atlas (each only where given)."""
+    tex = (() if tex_tables is None else (tex_tables[0],) + (
+        () if tex_tables[2] is None else (tex_tables[2],)))
+    return [t for t in (vol0, move_offsets) if t is not None] + list(tex)
+
+
+def _tail_args(tail, vol0, move_offsets, tex_tables) -> dict:
+    """_tail_leaves' inverse: replay's vol0, move_offsets and tex_tables
+    keyword arguments with the tensors `tail`."""
+    it = iter(tail)
+    out = dict(vol0=None if vol0 is None else next(it),
+               move_offsets=None if move_offsets is None else next(it),
+               tex_tables=None)
+    if tex_tables is not None:
+        rec = next(it)
+        atlas = None if tex_tables[2] is None else next(it)
+        out["tex_tables"] = mk.TexTables(rec, None, atlas,
+                                         tuple(tex_tables[3]))
+    return out
 
 
 def _flat_tables(tri_tables, rect_tables, box_tables) -> tuple:
@@ -122,26 +161,28 @@ def replay_grad_reference(tape, lane_count, camera_row, centers, radii,
                           tri_tables: tuple | None = None,
                           rect_tables: tuple | None = None,
                           box_tables: tuple | None = None,
-                          vol0: torch.Tensor | None = None) -> tuple:
+                          vol0: torch.Tensor | None = None,
+                          move_offsets: torch.Tensor | None = None,
+                          tex_tables: tuple | None = None) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
     sky_top[, tri_geo, tri_rec][, rect_geo, rect_rec][, box_geo,
-    box_rec][, vol0]) of the replay's (color_sum, count) given theirs:
-    autograd over the plain replay."""
+    box_rec][, vol0][, move_offsets][, tex_rec[, atlas]]) of the replay's
+    (color_sum, count) given theirs: autograd over the plain replay."""
     given = (tri_tables, rect_tables, box_tables)
-    vol = () if vol0 is None else (vol0,)
+    tail = _tail_leaves(vol0, move_offsets, tex_tables)
     leaves = tuple(t.detach().to(torch.float32).requires_grad_()
                    for t in (camera_row, centers, radii, records,
                              sky_bottom, sky_top, *_flat_tables(*given),
-                             *vol))
-    tri, rect, box = _unflat_tables(leaves[6:len(leaves) - len(vol)],
-                                    *given)
+                             *tail))
+    n_tab = len(leaves) - 6 - len(tail)
+    tri, rect, box = _unflat_tables(leaves[6:6 + n_tab], *given)
     with torch.enable_grad():
         csum, cnt = mr.replay(
             tape, lane_count, *leaves[:6], seed, lane_base, samples=samples,
             trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
             tri_tables=tri, rect_tables=rect, box_tables=box,
-            vol0=leaves[-1] if vol else None,
+            **_tail_args(leaves[6 + n_tab:], vol0, move_offsets, tex_tables),
         )
         grads = torch.autograd.grad(
             (csum, cnt), leaves,
@@ -220,10 +261,14 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
                               tri_tables: tuple | None = None,
                               rect_tables: tuple | None = None,
                               box_tables: tuple | None = None,
-                              vol0: torch.Tensor | None = None):
+                              vol0: torch.Tensor | None = None,
+                              move_offsets: torch.Tensor | None = None,
+                              tex_tables: tuple | None = None):
     """Per-lane VJP of one `replay_iteration`: autograd with every lane's
     state, winner row, camera, sky and camera medium as leaves of their
-    own.
+    own (with `move_offsets`, the state ends with the shutter time and
+    cot_entity with the move columns; with `tex_tables`, cot_entity ends
+    with the texture colours' columns; the atlas is not a leaf here).
 
     state, cot_out: (21, n) in STATE_KEYS order, (29, n) in VOL_STATE_KEYS
     order with `vol0`.  Returns (cot_in of the state's shape, cot_entity
@@ -232,10 +277,12 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
     `box_tables`, cot_scal (30, n): camera row, sky bottom, sky top, and
     with `vol0` (38, n): then vol0)."""
     n = lane_count.shape[0]
-    keys = mr.state_keys(vol0 is not None)
+    has_motion = move_offsets is not None
+    keys = mr.state_keys(vol0 is not None, has_motion)
     has_aux = rect_tables is not None or box_tables is not None
-    table = mr.build_entity_rows(centers, radii, records, tri_tables,
-                                 rect_tables, box_tables).detach()
+    table = mr.build_entity_rows(
+        centers, radii, records, tri_tables, rect_tables, box_tables,
+        move_offsets, None if tex_tables is None else tex_tables[0]).detach()
     winners = torch.clamp(tape_row, min=0.0).to(torch.int64)
     with torch.enable_grad():
         st = state.detach().clone().requires_grad_()
@@ -257,7 +304,11 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
             jitter=jitter, has_dielectrics=has_dielectrics, sky_on=sky_on,
             trace_depth=trace_depth, t_min=t_min,
             has_tris=tri_tables is not None, has_aux=has_aux,
-            has_volumes=vol0 is not None,
+            has_volumes=vol0 is not None, has_motion=has_motion,
+            tex=None if tex_tables is None else (
+                None if tex_tables[2] is None
+                else tex_tables[2].detach().to(torch.float32),
+                tuple(tex_tables[3])),
         )
         outs = [out[k] for k in keys]
         keep = [j for j, o in enumerate(outs) if o.requires_grad]
@@ -269,18 +320,12 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
     def dense(g, like):
         return torch.zeros_like(like) if g is None else g
 
-    cols = grad_cols(tri_tables is not None, has_aux)
+    cols = mr.grad_cols(tri_tables is not None, has_aux, has_motion,
+                     tex_tables is not None)
     return (dense(g_st, st).detach(), dense(g_wt, wt).detach()[list(cols)],
             torch.cat([dense(g, leaf) for g, leaf in zip(g_scal, scal)])
             .detach())
 
-
-def grad_cols(has_tris: bool, has_aux: bool) -> tuple:
-    """The entity columns of the kernel's cotangent rows."""
-    if has_tris and has_aux:
-        raise NotImplementedError(f"replay_grad: {mk.RECTS_IN_MESHES}")
-    return (mr.TRI_GRAD_COLS if has_tris
-            else mr.AUX_GRAD_COLS if has_aux else mr.GRAD_COLS)
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +356,7 @@ def load_kernel() -> ctypes.CDLL:
             #                       dent_rows
             i, i, i, i, i, i,  # row_base n s seed lane_base trace_depth
             f, i, i, i, i,  # t_min has_diel sky_on jitter kind
+            p, p, i, i,  # atlas datlas img_w img_h
             p,  # stream
         ]
         lib.rtiw_bwd_paths.restype = i
@@ -319,6 +365,7 @@ def load_kernel() -> ctypes.CDLL:
             p, p, p,  # cot_in cot_ent cot_scal
             i, i, i, i, i,  # n it seed lane_base trace_depth
             f, i, i, i, i,  # t_min has_diel sky_on jitter kind
+            p, i, i,  # atlas img_w img_h
             p,  # stream
         ]
         lib.rtiw_replay_step_vjp.restype = i
@@ -424,14 +471,26 @@ def scan_paths(tape, lane_count, *, samples: int, trace_depth: int):
 
 
 # the kernels' builds: sphere scenes, mesh scenes, scenes with rects or
-# boxes, and the last two with convex volumes (csrc/megatrace_bwd.cu's
-# `kind` argument)
-SPHERES, MESH, AUX, VOL, AUX_VOL = 0, 1, 2, 3, 4
+# boxes, the first and third with convex volumes, and sphere scenes with
+# moving spheres (csrc/megatrace_bwd.cu's `kind` argument)
+SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX = 0, 1, 2, 3, 4, 5, 6
+MOTION_BESIDE = ("the backward kernel's motion and texture adjoints beside "
+                 "rects, boxes, volumes or each other (ROADMAP queue 1, step "
+                 "7.3c)")
 
 
-def build_kind(has_tris: bool, has_aux: bool, has_volumes: bool) -> int:
+def build_kind(has_tris: bool, has_aux: bool, has_volumes: bool,
+               has_motion: bool = False, has_tex: bool = False) -> int:
     if has_tris and has_volumes:
         raise NotImplementedError(f"replay_grad: {mk.VOLUMES_IN_MESHES}")
+    if has_tris and has_motion:
+        raise NotImplementedError(f"replay_grad: {mk.MOTION_IN_MESHES}")
+    if has_tris and has_tex:
+        raise NotImplementedError(f"replay_grad: {mk.TEXTURES_IN_MESHES}")
+    if has_motion or has_tex:
+        if has_aux or has_volumes or (has_motion and has_tex):
+            raise NotImplementedError(f"replay_grad: {MOTION_BESIDE}")
+        return MOTION if has_motion else TEX
     if has_volumes:
         return AUX_VOL if has_aux else VOL
     return MESH if has_tris else AUX if has_aux else SPHERES
@@ -441,7 +500,8 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                       sky_bottom, sky_top, seed, cot_color, cot_count,
                       lane_base, *, samples, trace_depth, t_min,
                       has_dielectrics, sky_on, jitter, tri_tables,
-                      rect_tables, box_tables, vol0):
+                      rect_tables, box_tables, vol0, move_offsets=None,
+                      tex_tables=None):
     dev = centers.device
     n, s = lane_count.shape[0], centers.shape[0]
     # the tape's shape, the lane counts and the depth: _scan_cuda's checks
@@ -456,7 +516,10 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                          f"cotangent table holds at most {mk.SPH_CULL_MIN}")
     given = (tri_tables, rect_tables, box_tables)
     has_aux = rect_tables is not None or box_tables is not None
-    cols = grad_cols(tri_tables is not None, has_aux)
+    has_motion, has_tex = move_offsets is not None, tex_tables is not None
+    kind = build_kind(tri_tables is not None, has_aux, vol0 is not None,
+                      has_motion, has_tex)
+    cols = mr.grad_cols(tri_tables is not None, has_aux, has_motion, has_tex)
     tri = tuple(tri_tables or ())
     if tri:
         t_pad = tri[0].shape[0]
@@ -471,69 +534,94 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
     if vol0 is not None:
         _check("replay_grad", dict(vol0=vol0), dict(vol0=(mk.VOL_ROWS,)),
                dev)
-
+    if has_motion:
+        _check("replay_grad", dict(move_offsets=move_offsets),
+               dict(move_offsets=(s, 3)), dev)
+    atlas, dims = None, (0, 0)
+    if has_tex:
+        _, perlin, atlas, dims = mk.kernel_tex_tables(tex_tables, dev)
+        if perlin is not None:
+            raise ValueError("replay_grad: the tape replay has no Perlin "
+                             "marble (replay_eligible)")
+    # the leaves build_entity_rows takes: spheres, tables, move offsets and
+    # texture records
+    extra = ([move_offsets] if has_motion else []) + (
+        [tex_tables[0]] if has_tex else [])
     with torch.enable_grad():
         leaves = tuple(t.detach().requires_grad_()
                        for t in (centers, radii, records,
-                                 *_flat_tables(*given)))
+                                 *_flat_tables(*given), *extra))
+        rest = iter(leaves[len(leaves) - len(extra):])
         entity_rows = mr.build_entity_rows(
-            *leaves[:3], *_unflat_tables(leaves[3:], *given))
-    kind = build_kind(bool(tri), has_aux, vol0 is not None)
+            *leaves[:3],
+            *_unflat_tables(leaves[3:len(leaves) - len(extra)], *given),
+            next(rest) if has_motion else None,
+            next(rest) if has_tex else None)
     args = kernel_args(tape, lane_count,
                        _consts(camera_row, sky_bottom, sky_top, vol0),
-                       entity_rows, s, cot_color, cot_count, kind=kind)
+                       entity_rows, s, cot_color, cot_count, kind=kind,
+                       atlas=atlas, dims=dims)
     paths = _scan_cuda(args["tape"], args["per_pixel"], samples, trace_depth)
-    dent, dscal, dent_rows = _paths_cuda(
+    dent, dscal, dent_rows, datlas = _paths_cuda(
         paths, args, seed, lane_base, trace_depth=trace_depth, t_min=t_min,
         has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter)
     s_pad = mk.sphere_pad_count(s)
     dtable = torch.zeros_like(entity_rows)
-    dtable[:s, list(mr.GRAD_COLS)] = dent
+    dtable[:s, list(mr.grad_cols(False, False, has_motion, has_tex))] = dent
     if dent_rows is not None:
         dtable[s_pad:, list(cols)] = dent_rows
     grads = torch.autograd.grad(entity_rows, leaves, dtable)
+    n_tab = len(grads) - 3 - len(extra)
     vol = () if vol0 is None else (dscal[N_SCAL:],)
-    return (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30], *grads[3:],
-            *vol)
+    return (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30],
+            *grads[3:3 + n_tab], *vol, *grads[3 + n_tab:],
+            *(() if datlas is None else (datlas,)))
 
 
 def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
-                cot_count, *, kind: int) -> dict:
+                cot_count, *, kind: int, atlas=None, dims=(0, 0)) -> dict:
     """The path kernel's inputs: the contiguous tape, per-pixel counts as
-    floats, the entity table it indexes (sphere scenes, volumes among
-    them: the s real sphere rows; mesh scenes and scenes with rects or
-    boxes: the whole padded
-    table, which their tape codes, s_pad + row, index), the constants
-    (_consts), the (4, N) color and count cotangents and the build
-    (`kind`: SPHERES, MESH, AUX, VOL or AUX_VOL)."""
+    floats, the entity table it indexes (sphere scenes, volumes, motion
+    and textures among them: the s real sphere rows; mesh scenes and
+    scenes with rects or boxes: the whole padded table, which their tape
+    codes, s_pad + row, index), the constants (_consts), the (4, N) color
+    and count cotangents, the build (`kind`: SPHERES, MESH, AUX, VOL,
+    AUX_VOL, MOTION or TEX) and the texture build's atlas ((A * H, W, 3)
+    or None) and its (W, H)."""
     return dict(
         tape=tape.contiguous(),
         per_pixel=lane_count.to(torch.float32).contiguous(),
-        ent=entity_rows.detach()[:s if kind in (SPHERES, VOL) else None]
-        .contiguous(),
+        ent=entity_rows.detach()[:s if kind in (SPHERES, VOL, MOTION, TEX)
+                                 else None].contiguous(),
         consts=consts,
         cot=torch.cat([cot_color.T, cot_count[None]]).contiguous(),
-        s=s, kind=kind)
+        s=s, kind=kind, atlas=atlas, dims=tuple(dims))
 
 
 def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
                 t_min: float, has_dielectrics: bool, sky_on: bool,
                 jitter: bool):
-    """The path kernel over the scan's table: (dent (s, 13), dscal (30;
-    38 in the volume builds, vol0's last), dent_rows: the cotangents of the
-    rows past the padded spheres, (T_pad, 28) in mesh scenes, (R_pad +
-    B_pad, 19) with rects or boxes, else None)."""
+    """The path kernel over the scan's table: (dent (s, 13; 16 in the
+    motion build, the move offsets' last; 19 in the texture build, the
+    texture colours' last), dscal (30; 38 in the volume builds, vol0's
+    last), dent_rows: the cotangents of the rows past the padded spheres,
+    (T_pad, 28) in mesh scenes, (R_pad + B_pad, 19) with rects or boxes,
+    else None; the texel plane's, the atlas's shape, in the texture build
+    with an atlas, else None)."""
     global LAUNCHES
     lib = load_kernel()
     dev = args["tape"].device
     s, n, kind = args["s"], args["per_pixel"].shape[0], args["kind"]
     s_pad = mk.sphere_pad_count(s)
     f32 = dict(dtype=torch.float32, device=dev)
-    dent = torch.zeros((s, len(mr.GRAD_COLS)), **f32)
+    dent = torch.zeros((s, len(mr.grad_cols(False, False, kind == MOTION,
+                                             kind == TEX))), **f32)
+    atlas = args["atlas"]
+    datlas = None if atlas is None else torch.zeros_like(atlas)
     dscal = torch.zeros(N_SCAL_VOL if kind in (VOL, AUX_VOL) else N_SCAL,
                         **f32)
     next_warp = torch.zeros(1, dtype=torch.int32, device=dev)
-    dent_rows = (None if kind in (SPHERES, VOL) else torch.zeros(
+    dent_rows = (None if kind in (SPHERES, VOL, MOTION, TEX) else torch.zeros(
         (args["ent"].shape[0] - s_pad,
          len(mr.TRI_GRAD_COLS if kind == MESH else mr.AUX_GRAD_COLS)), **f32))
     if paths.shape[0]:
@@ -545,13 +633,15 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
             0 if dent_rows is None else dent_rows.data_ptr(), s_pad, n, s,
             int(seed), int(lane_base), trace_depth, float(t_min),
             int(has_dielectrics), int(sky_on), int(jitter), kind,
+            0 if atlas is None else atlas.data_ptr(),
+            0 if datlas is None else datlas.data_ptr(), *args["dims"],
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"megatrace_bwd path kernel launch failed: "
                                f"cudaError {err}")
         LAUNCHES += 1
-    return dent, dscal, dent_rows
+    return dent, dscal, dent_rows, datlas
 
 
 def replay_grad(tape, lane_count, camera_row, centers, radii, records,
@@ -562,16 +652,22 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
                 tri_tables: tuple | None = None,
                 rect_tables: tuple | None = None,
                 box_tables: tuple | None = None,
-                vol0: torch.Tensor | None = None) -> tuple:
+                vol0: torch.Tensor | None = None,
+                move_offsets: torch.Tensor | None = None,
+                tex_tables: tuple | None = None) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
     sky_top[, tri_geo, tri_rec][, rect_geo, rect_rec][, box_geo,
-    box_rec][, vol0]) of one batch's (color_sum (N, 3), count (N,)) given
+    box_rec][, vol0][, move_offsets][, tex_rec[, atlas]]) of one batch's
+    (color_sum (N, 3), count (N,)) given
     the color and count cotangents, replaying the tape
     (samples*trace_depth, N); `tri_tables` is pack_tri_tables' pair of a
     mesh scene, `rect_tables` and `box_tables` pack_aux_tables' pairs (the
     JAX kernel's rect_geo, rect_rec, box_geo and box_rec cotangents),
     `vol0` camera_containment_row of a scene with convex volumes (the JAX
-    kernel's aux_cot["vol0"]).
+    kernel's aux_cot["vol0"]), `move_offsets` the spheres' unit-shutter
+    motion (its aux_cot["move"]), `tex_tables` pack_texture_tables'
+    tables of checker and image albedos (the texture records' and the
+    texel plane's cotangents).
 
     The device of `centers` decides: CUDA tensors launch the kernels
     (csrc/megatrace_bwd.cu: the tape scan, then the path kernel) or raise;
@@ -581,7 +677,8 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, tri_tables=tri_tables,
-                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0)
+                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
+                  move_offsets=move_offsets, tex_tables=tex_tables)
     if centers.device.type == "cuda":
         return _replay_grad_cuda(*args, **kwargs)
     if centers.device.type == "cpu":
@@ -597,7 +694,9 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
                     tri_tables: tuple | None = None,
                     rect_tables: tuple | None = None,
                     box_tables: tuple | None = None,
-                    vol0: torch.Tensor | None = None):
+                    vol0: torch.Tensor | None = None,
+                    move_offsets: torch.Tensor | None = None,
+                    tex_tables: tuple | None = None):
     """The backward kernel's one-iteration VJP on every lane (see
     `replay_step_vjp_reference` for the arguments and outputs).  CUDA
     tensors launch the kernel's step entry point; CPU tensors run the plain
@@ -605,7 +704,8 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
     kwargs = dict(trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, tri_tables=tri_tables,
-                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0)
+                  rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
+                  move_offsets=move_offsets, tex_tables=tex_tables)
     args = (state, tape_row, it, cot_out, lane_count, camera_row, centers,
             radii, records, sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cpu":
@@ -615,18 +715,25 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
                          f"{centers.device}")
     dev = centers.device
     n = lane_count.shape[0]
-    keys = mr.state_keys(vol0 is not None)
+    has_motion = move_offsets is not None
+    keys = mr.state_keys(vol0 is not None, has_motion)
     _check("replay_step_vjp", dict(state=state, tape_row=tape_row,
                                    cot_out=cot_out),
            dict(state=(len(keys), n), tape_row=(n,),
                 cot_out=(len(keys), n)), dev)
     lib = load_kernel()
-    ent = mr.build_entity_rows(centers, radii, records, tri_tables,
-                               rect_tables, box_tables).detach().contiguous()
+    has_tex = tex_tables is not None
+    ent = mr.build_entity_rows(
+        centers, radii, records, tri_tables, rect_tables, box_tables,
+        move_offsets, tex_tables[0] if has_tex else None
+    ).detach().contiguous()
+    atlas, dims = None, (0, 0)
+    if has_tex:
+        _, _, atlas, dims = mk.kernel_tex_tables(tex_tables, dev)
     consts = _consts(camera_row, sky_bottom, sky_top, vol0)
     f32 = dict(dtype=torch.float32, device=dev)
     has_aux = rect_tables is not None or box_tables is not None
-    cols = grad_cols(tri_tables is not None, has_aux)
+    cols = mr.grad_cols(tri_tables is not None, has_aux, has_motion, has_tex)
     cot_in = torch.empty((len(keys), n), **f32)
     cot_ent = torch.empty((len(cols), n), **f32)
     cot_scal = torch.empty((N_SCAL if vol0 is None else N_SCAL_VOL, n),
@@ -641,7 +748,9 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
         cot_in.data_ptr(), cot_ent.data_ptr(), cot_scal.data_ptr(), n,
         int(it), int(seed), int(lane_base), trace_depth, float(t_min),
         int(has_dielectrics), int(sky_on), int(jitter),
-        build_kind(tri_tables is not None, has_aux, vol0 is not None),
+        build_kind(tri_tables is not None, has_aux, vol0 is not None,
+                   has_motion, has_tex),
+        0 if atlas is None else atlas.data_ptr(), *dims,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -18,7 +18,10 @@ walk's scatter or pass) are constants of the tape: the detached-decision
 gradient estimator, plus the score-function `lp` terms that carry the
 lotteries' probability shift and the Beer-Lambert free path's (a volume's
 density moves only through them).  With `vol0` each lane carries its
-medium (eight more state rows, VOL_KEYS), reset from vol0 at every regen.
+medium (eight more state rows, VOL_KEYS), reset from vol0 at every regen;
+with `move_offsets` (unit-shutter sphere motion) its shutter time
+(`ptime`, drawn at every regen as the kernel draws it), and a sphere
+winner's centre is taken at that time: the move offsets are leaves too.
 
 Replay-vs-kernel contract: the same hash PRNG, the same branch rules and
 the same precision helpers (`ops/megatrace._fma`, `_sqrt`, ...) where the
@@ -37,11 +40,11 @@ the sphere discriminant and the refraction discriminant are floored at
   `ops/megatrace_bwd.replay_grad`: the CUDA backward kernel on CUDA
   tensors, autograd over `replay` on CPU tensors.
 
-Scope: every scene the batch kernel accepts
-(`ops/megatrace.scene_eligible(scene, allow_triangles=True,
-allow_rect_box=True, allow_volumes=True)`: spheres, rects and boxes, convex
-volumes beside them, meshes of at most TRI_MAX triangles, Lambert/GGX
-metal/dielectric, gradient or no sky, white noise).
+Scope: `replay_eligible`, the batch kernel's scope but Perlin textures
+and streamed meshes (the JAX package's): spheres, rects and boxes, convex
+volumes, unit-shutter motion and checker and image albedos beside them,
+meshes of at most TRI_MAX triangles, Lambert/GGX metal/dielectric,
+gradient or no sky, white noise.
 """
 
 from __future__ import annotations
@@ -78,32 +81,69 @@ TRI_GRAD_COLS = (*GRAD_COLS, *range(4, 10), *range(23, 32))
 # ... in scenes with rects or boxes: GRAD_COLS (columns 0-3 hold their
 # quaternion), then a position (4-6) and a box's extents (7-9)
 AUX_GRAD_COLS = (*GRAD_COLS, *range(4, 10))
+# ... in scenes with moving spheres: the three move-offset columns after the
+# others (ENTITY_COLS, ENTITY_COLS + 3), which follow GRAD_COLS or
+# AUX_GRAD_COLS in the cotangent rows
+MOVE_COLS = tuple(range(ENTITY_COLS, ENTITY_COLS + 3))
+# ... in scenes with checker or image albedos: mk.TEX_COLS texture-record
+# columns after the others (`tex_base`), of which the main and secondary
+# colours (record columns 1-6) carry gradients; they follow the others in
+# the cotangent rows
+TEX_GRAD = tuple(range(1, 7))
+
+
+def tex_base(has_motion: bool) -> int:
+    """The first texture-record column of a textured scene's entity rows
+    (not beside triangles)."""
+    return ENTITY_COLS + (3 if has_motion else 0)
 STATE_KEYS = (
     "ox", "oy", "oz", "dx", "dy", "dz", "thx", "thy", "thz",
     "radx", "rady", "radz", "active", "valid", "started", "depth_ct",
     "csx", "csy", "csz", "cnt", "lp",
 )
 VOL_STATE_KEYS = STATE_KEYS + mk.VOL_KEYS  # ... with the medium (volumes)
+MOTION_KEYS = ("ptime",)  # ... then the shutter time (moving spheres)
 AOV_OUTPUTS = ("normal", "albedo", "weight", "fallback_normal",
                "fallback_albedo")
 
 
-def state_keys(has_volumes: bool) -> tuple:
-    return VOL_STATE_KEYS if has_volumes else STATE_KEYS
+def state_keys(has_volumes: bool, has_motion: bool = False) -> tuple:
+    return ((VOL_STATE_KEYS if has_volumes else STATE_KEYS)
+            + (MOTION_KEYS if has_motion else ()))
+
+
+def grad_cols(has_tris: bool, has_aux: bool, has_motion: bool = False,
+              has_tex: bool = False) -> tuple:
+    """The entity columns of the backward kernel's cotangent rows."""
+    if has_tris and has_aux:
+        raise NotImplementedError(f"replay_grad: {mk.RECTS_IN_MESHES}")
+    if has_tris and has_motion:
+        raise NotImplementedError(f"replay_grad: {mk.MOTION_IN_MESHES}")
+    if has_tris and has_tex:
+        raise NotImplementedError(f"replay_grad: {mk.TEXTURES_IN_MESHES}")
+    cols = (TRI_GRAD_COLS if has_tris
+            else AUX_GRAD_COLS if has_aux else GRAD_COLS)
+    base = tex_base(has_motion)
+    return (cols + (MOVE_COLS if has_motion else ())
+            + (tuple(base + k for k in TEX_GRAD) if has_tex else ()))
 
 
 def replay_eligible(scene) -> bool:
     """Can this scene take the differentiable fused path?  The forward
-    batch kernel's scope, rects, boxes, convex volumes and meshes of at
-    most TRI_MAX triangles included (JAX replay_eligible: the tape has no
-    streamed-triangle arm)."""
+    batch kernel's scope, rects, boxes, convex volumes, unit-shutter
+    motion, checker and image albedos and meshes of at most TRI_MAX
+    triangles included (JAX replay_eligible: the tape has no
+    streamed-triangle arm, and the replay no Perlin marble)."""
     return (mk.scene_eligible(scene, allow_triangles=True,
-                              allow_rect_box=True, allow_volumes=True)
-            and scene.triangles.vert0.shape[0] <= mk.TRI_MAX)
+                              allow_rect_box=True, allow_volumes=True,
+                              allow_motion=True, allow_textures=True)
+            and scene.triangles.vert0.shape[0] <= mk.TRI_MAX
+            and scene.textures.perlin is None)
 
 
 def build_entity_rows(centers, radii, records, tri_tables=None,
-                      rect_tables=None, box_tables=None):
+                      rect_tables=None, box_tables=None, move_offsets=None,
+                      tex_rec=None):
     """Entity table in the kernel's padded combined row space, the JAX
     package's layout: spheres in rows [0, S_pad), then with `rect_tables`
     and `box_tables` (pack_aux_tables' pairs) the R_pad rect and B_pad box
@@ -114,8 +154,13 @@ def build_entity_rows(centers, radii, records, tri_tables=None,
     10:21 material rows 0-10, 21 kind (0 sphere, 1 rect, 2 box, 3
     triangle), 22 material id, and in mesh scenes 23:32 the vertex normals
     (v0, v1, v2 xyz) and 32:38 the uvs (u0-u2, v0-v2): ENTITY_COLS or
-    TRI_ENTITY_COLS wide.  Differentiable with respect to every input;
-    pad rows never hit."""
+    TRI_ENTITY_COLS wide; with `move_offsets` ((S, 3), not beside
+    triangles) three more columns, MOVE_COLS, the spheres' move offsets
+    (zero on the other kinds' rows), the JAX layout's `mvbase`; with
+    `tex_rec` (pack_texture_tables' records) its row of the entity's
+    material, mk.TEX_COLS columns from `tex_base` (the JAX layout's
+    `txbase`).  Differentiable with respect to every input; pad rows never
+    hit."""
     s = centers.shape[0]
     s_pad = mk.sphere_pad_count(s)
     cols = ENTITY_COLS if tri_tables is None else TRI_ENTITY_COLS
@@ -159,12 +204,27 @@ def build_entity_rows(centers, radii, records, tri_tables=None,
             torch.full((t_pad, 1), 3.0, **f32),
             trec[11:27].T,
         ], dim=1))
-    return torch.cat(blocks)
+    table = torch.cat(blocks)
+    if move_offsets is not None:
+        if tri_tables is not None:
+            raise NotImplementedError(
+                f"build_entity_rows: {mk.MOTION_IN_MESHES}")
+        move = torch.cat([move_offsets.to(torch.float32),
+                          torch.zeros((table.shape[0] - s, 3), **f32)])
+        table = torch.cat([table, move], dim=1)
+    if tex_rec is not None:
+        if tri_tables is not None:
+            raise NotImplementedError(
+                f"build_entity_rows: {mk.TEXTURES_IN_MESHES}")
+        ids = table[:, 22].detach().to(torch.int64)
+        table = torch.cat([table, tex_rec.to(torch.float32)[ids]], dim=1)
+    return table
 
 
-def initial_state(n: int, device, has_volumes: bool = False) -> dict:
+def initial_state(n: int, device, has_volumes: bool = False,
+                  has_motion: bool = False) -> dict:
     zero = torch.zeros(n, dtype=torch.float32, device=device)
-    state = {k: zero for k in state_keys(has_volumes)}
+    state = {k: zero for k in state_keys(has_volumes, has_motion)}
     state.update(thx=zero + 1.0, thy=zero + 1.0, thz=zero + 1.0)
     if has_volumes:
         state["in_id"] = zero - 1.0  # no medium
@@ -209,7 +269,9 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
                      jitter: bool, has_dielectrics: bool, sky_on: bool,
                      trace_depth: int, t_min: float = 0.0,
                      has_tris: bool = False, has_aux: bool = False,
-                     has_volumes: bool = False) -> dict:
+                     has_volumes: bool = False,
+                     has_motion: bool = False,
+                     tex: tuple | None = None) -> dict:
     """One persistent-lane iteration along the tape: regen, one bounce at
     the tape's winner, fold and termination (JAX replay_iteration :260,
     sphere, rect, box and triangle arms).
@@ -223,7 +285,15 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     ray in the entity's frame, the rect's plane distance or the box's face
     distance, and their normals.  has_volumes: the convex volume walk,
     the medium in state keys VOL_KEYS and env["vol0"] (the JAX replay's
-    :682-760, :856-870, :957-975)."""
+    :682-760, :856-870, :957-975).  has_motion: the path's shutter time in
+    state key "ptime" (drawn at regen: the camera draws' stream 7) and a
+    sphere winner's centre at that time, c + m t with the move offsets m
+    in entity columns MOVE_COLS (the JAX replay's :353-354, :383-390).
+    tex: (the atlas or None, its (W, H)) of a scene with checker or image
+    albedos, the texture records in entity columns from tex_base: the
+    winner's albedo textured as the kernel does (the JAX replay's
+    :580-680; the checker's colours from the record, the atlas texel at a
+    detached index)."""
     per_pixel, lanes, seed = env["per_pixel"], env["lanes"], env["seed"]
     co, ll, hh, vv = env["co"], env["ll"], env["hh"], env["vv"]
     rr, uu = env["rr"], env["uu"]
@@ -243,7 +313,7 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     # ---- regen: thin-lens camera ray (View.cs:38-48) --------------------
     regen = (active < 0.5) & (started < per_pixel)
     salt = it * mk.SALT_STEP
-    u = uniforms_hash(seed, salt, lanes, 4)
+    u = uniforms_hash(seed, salt, lanes, 8 if has_motion else 4)
     jx, jy = (u[0], u[1]) if jitter else (0.5, 0.5)
     un = (px_row + jx) / width
     vn = (py_row + jy) / height
@@ -279,6 +349,8 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     if has_volumes:  # the camera's medium
         med = {k: torch.where(regen, env["vol0"][j], state[k])
                for j, k in enumerate(mk.VOL_KEYS)}
+    if has_motion:  # the path's shutter time
+        ptime = torch.where(regen, u[7], state["ptime"])
 
     # ---- one bounce at the tape's winner ---------------------------------
     u_bounce = uniforms_hash(seed, salt + mk.SALT_BOUNCE, lanes,
@@ -299,14 +371,21 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     a = _dot3(dx, dy, dz, dx, dy, dz)
     o_dot_d = _dot3(ox, oy, oz, dx, dy, dz)
     o_sq = _dot3(ox, oy, oz, ox, oy, oz)
+    if has_motion:
+        # the centre at the path's time (move columns are zero on the
+        # other kinds' rows), and the kernel's motion quadratic
+        cx, cy, cz = (mk.moved_center(c_k, wt[MOVE_COLS[k]], ptime)
+                      for k, c_k in enumerate((cx, cy, cz)))
+        c_primal = ((o_sq - 2.0 * _dot3(ox, oy, oz, cx, cy, cz))
+                    + _dot3(cx, cy, cz, cx, cy, cz)) + -(r * r)
+    else:
+        c_primal = ((o_sq - 2.0 * _dot3(ox, oy, oz, cx, cy, cz))
+                    + mk.center_sq_minus_r2(cx, cy, cz, r))
     ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
     b = _primal_of(o_dot_d - _dot3(dx, dy, dz, cx, cy, cz),
                    _dot3(dx, dy, dz, ocx, ocy, ocz))
-    c_term = _primal_of(
-        (o_sq - 2.0 * _dot3(ox, oy, oz, cx, cy, cz))
-        + mk.center_sq_minus_r2(cx, cy, cz, r),
-        _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r,
-    )
+    c_term = _primal_of(c_primal,
+                        _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r)
     disc = _fma(b, b, -(a * c_term))
     # idle and sky lanes hold unrelated rows: sanitise every sqrt and
     # division argument so that the unselected branch stays finite; the
@@ -374,6 +453,16 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
 
     mtype = wt[10]
     alb_r, alb_g, alb_b = wt[11], wt[12], wt[13]
+    if tex is not None:
+        atlas, dims = tex
+        tb = tex_base(has_motion)
+        uv = (torch.zeros_like(dx), torch.zeros_like(dx))
+        if atlas is not None:  # sphere winners take the spherical uv
+            su, sv = mk.sphere_uv(nx.detach(), ny.detach(), nz.detach())
+            uv = (torch.where(s_hit, su, 0.0), torch.where(s_hit, sv, 0.0))
+        alb_r, alb_g, alb_b = mk.bounce_textures(
+            mk.TexTables(None, None, atlas, dims), wt[tb:tb + mk.TEX_COLS].T,
+            (alb_r, alb_g, alb_b), (nx, ny, nz), (px, py, pz), uv)
     em_r, em_g, em_b = wt[14], wt[15], wt[16]
     gloss, metallic, parameter = wt[17], wt[18], wt[19]
 
@@ -588,6 +677,8 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     )
     if has_volumes:
         out.update(med)
+    if has_motion:
+        out["ptime"] = ptime
     return out
 
 
@@ -613,31 +704,45 @@ def replay(
     rect_tables: tuple | None = None,
     box_tables: tuple | None = None,
     vol0: torch.Tensor | None = None,
+    move_offsets: torch.Tensor | None = None,
+    tex_tables: tuple | None = None,
 ):
     """Differentiable (color_sum (N, 3), count (N,)) of one batch,
     replaying the kernel's persistent-lane loop along the recorded tape
     (`tri_tables`: pack_tri_tables' pair, differentiable, for a mesh
     scene; `rect_tables`, `box_tables`: pack_aux_tables' pairs,
     differentiable; `vol0`: camera_containment_row, differentiable, for a
-    scene with convex volumes).
+    scene with convex volumes; `move_offsets`: the spheres' (S, 3)
+    unit-shutter motion, differentiable; `tex_tables`:
+    pack_texture_tables' tables without Perlin ones, the records and the
+    atlas differentiable).
 
     One checkpointed block per `trace_depth` iterations (JAX :1167-1201):
     the winner rows of the block are gathered at once, and only the
     block-entry state is kept for the backward.  Blocks whose tape rows
     are all idle are identity steps and are skipped."""
     n = lane_count.shape[0]
-    entity_rows = build_entity_rows(centers, radii, records, tri_tables,
-                                    rect_tables, box_tables)
+    if tex_tables is not None and tex_tables[1] is not None:
+        raise ValueError("replay: the tape replay has no Perlin marble "
+                         "(replay_eligible)")
+    entity_rows = build_entity_rows(
+        centers, radii, records, tri_tables, rect_tables, box_tables,
+        move_offsets, None if tex_tables is None else tex_tables[0])
     env = make_env(lane_count, camera_row, sky_bottom, sky_top, seed,
                    lane_base, vol0)
     has_volumes = vol0 is not None
-    keys = state_keys(has_volumes)
+    has_motion = move_offsets is not None
+    keys = state_keys(has_volumes, has_motion)
     statics = dict(jitter=jitter, has_dielectrics=has_dielectrics,
                    sky_on=sky_on, trace_depth=trace_depth, t_min=t_min,
                    has_tris=tri_tables is not None,
                    has_aux=rect_tables is not None or box_tables is not None,
-                   has_volumes=has_volumes)
-    state = initial_state(n, lane_count.device, has_volumes)
+                   has_volumes=has_volumes, has_motion=has_motion,
+                   tex=None if tex_tables is None else (
+                       None if tex_tables[2] is None
+                       else tex_tables[2].to(torch.float32),
+                       tuple(tex_tables[3])))
+    state = initial_state(n, lane_count.device, has_volumes, has_motion)
     winners = torch.clamp(tape, min=0.0).to(torch.int64)
     block = trace_depth
 
@@ -680,27 +785,43 @@ def _pairs(tables: dict):
 class _SampleBatchDiff(torch.autograd.Function):
     """Inputs: the six differentiable tables, the six tables of
     TABLE_INPUTS (None where the scene has no such kind), vol0 (None
-    without volumes), then the non-differentiable lane rows, the seed, the
-    lane base and the static options."""
+    without volumes), the move offsets (None without motion), the texture
+    records and atlas (None without checker or image albedos; the atlas
+    None without an image), then the non-differentiable atlas dims, lane
+    rows, the seed, the lane base and the static options."""
 
     @staticmethod
     def forward(ctx, camera_row, centers, radii, records, sky_bottom,
                 sky_top, tri_geo, tri_rec, rect_geo, rect_rec, box_geo,
-                box_rec, vol0, lane_count, count_in, seed, lane_base,
-                statics):
+                box_rec, vol0, move_offsets, tex_rec, atlas, tex_dims,
+                lane_count, count_in, seed, lane_base, statics):
         tables = dict(zip(TABLE_INPUTS, (tri_geo, tri_rec, rect_geo,
                                          rect_rec, box_geo, box_rec)))
         tri, rect, box = _pairs(tables)
+        tex = (None if tex_rec is None
+               else mk.TexTables(tex_rec, None, atlas, tex_dims))
+        if centers.device.type == "cuda":
+            from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
+
+            # the backward kernel has this build (or raise before the
+            # forward runs)
+            megatrace_bwd.build_kind(tri is not None,
+                                     rect is not None or box is not None,
+                                     vol0 is not None,
+                                     move_offsets is not None,
+                                     tex is not None)
         out = mk.sample_batch(
             lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base, want_tape=True,
             tri_tables=tri, rect_tables=rect, box_tables=box, vol0=vol0,
-            **statics,
+            move_offsets=move_offsets, tex_tables=tex, **statics,
         )
         ctx.save_for_backward(out["tape"], lane_count, camera_row, centers,
                               radii, records, sky_bottom, sky_top,
-                              *tables.values(), vol0)
+                              *tables.values(), vol0, move_offsets, tex_rec,
+                              atlas)
         ctx.seed, ctx.lane_base, ctx.statics = seed, lane_base, statics
+        ctx.tex_dims = tex_dims
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(out["rays"])
         # separate contiguous tensors, not views of one accumulator buffer
@@ -721,7 +842,10 @@ class _SampleBatchDiff(torch.autograd.Function):
         from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 
         (tape, lane_count, camera_row, centers, radii, records, sky_bottom,
-         sky_top, *table_list, vol0) = ctx.saved_tensors
+         sky_top, *table_list, vol0, move_offsets, tex_rec,
+         atlas) = ctx.saved_tensors
+        tex = (None if tex_rec is None
+               else mk.TexTables(tex_rec, None, atlas, ctx.tex_dims))
         tables = dict(zip(TABLE_INPUTS, table_list))
         tri, rect, box = _pairs(tables)
         n = lane_count.shape[0]
@@ -733,16 +857,20 @@ class _SampleBatchDiff(torch.autograd.Function):
             tape, lane_count, camera_row, centers, radii, records,
             sky_bottom, sky_top, ctx.seed, cot_color, cot_count,
             ctx.lane_base, tri_tables=tri, rect_tables=rect,
-            box_tables=box, vol0=vol0, **ctx.statics,
+            box_tables=box, vol0=vol0, move_offsets=move_offsets,
+            tex_tables=tex, **ctx.statics,
         ))
+        atlas_grad = grads.pop() if atlas is not None else None
+        tex_grad = grads.pop() if tex_rec is not None else None
+        move_grad = grads.pop() if move_offsets is not None else None
         vol0_grad = grads.pop() if vol0 is not None else None
         table_grads = [None] * len(TABLE_INPUTS)
         for j, pair in enumerate((tri, rect, box)):
             if pair is not None:
                 table_grads[2 * j:2 * j + 2] = grads[6:8]
                 del grads[6:8]
-        return (*grads, *table_grads, vol0_grad, None, None, None, None,
-                None)
+        return (*grads, *table_grads, vol0_grad, move_grad, tex_grad,
+                atlas_grad, None, None, None, None, None, None)
 
 
 def sample_batch_diff(
@@ -767,15 +895,20 @@ def sample_batch_diff(
     rect_tables: tuple | None = None,
     box_tables: tuple | None = None,
     vol0: torch.Tensor | None = None,
+    move_offsets: torch.Tensor | None = None,
+    tex_tables: tuple | None = None,
 ) -> dict:
     """`megatrace.sample_batch` with gradients with respect to camera_row,
     centers, radii, records, sky_bottom, sky_top and, where the scene has
     them, the two tables of `tri_tables` (pack_tri_tables' pair: the
     soup's edges, vertices and normals and the triangle materials), of
     `rect_tables` and `box_tables` (pack_aux_tables' pairs: quaternions,
-    positions, extents and materials; JAX `_aux_pairs`) and `vol0`
+    positions, extents and materials; JAX `_aux_pairs`), `vol0`
     (camera_containment_row: the camera medium's density, albedo and
-    emission), through the tape replay.  Outputs are the kernel's (no
+    emission), `move_offsets` (the spheres' unit-shutter motion; JAX
+    `aux_cot["move"]`) and `tex_tables`' records and atlas
+    (pack_texture_tables, without Perlin tables: the texture colours and
+    the texel plane), through the tape replay.  Outputs are the kernel's (no
     tape).  Only the `color` and `count` cotangents propagate; a loss that
     differentiates an AOV output raises NotImplementedError in backward
     (render_batch grafts the AOV gradients on from the wavefront).  When
@@ -787,14 +920,22 @@ def sample_batch_diff(
     diff_inputs = (camera_row, centers, radii, records, sky_bottom, sky_top)
     tables = tuple(t for pair in (tri_tables, rect_tables, box_tables)
                    for t in ((None, None) if pair is None else tuple(pair)))
+    tex = ((None, None, (0, 0)) if tex_tables is None
+           else (tex_tables[0], tex_tables[2], tuple(tex_tables[3])))
     if not (torch.is_grad_enabled()
             and any(t is not None and t.requires_grad
-                    for t in (*diff_inputs, *tables, vol0))):
+                    for t in (*diff_inputs, *tables, vol0, move_offsets,
+                              *tex[:2]))):
         return mk.sample_batch(lane_count, count_in, *diff_inputs, seed,
                                lane_base, tri_tables=tri_tables,
                                rect_tables=rect_tables,
-                               box_tables=box_tables, vol0=vol0, **statics)
-    outs = _SampleBatchDiff.apply(*diff_inputs, *tables, vol0, lane_count,
-                                  count_in, int(seed), int(lane_base),
-                                  statics)
+                               box_tables=box_tables, vol0=vol0,
+                               move_offsets=move_offsets,
+                               tex_tables=tex_tables, **statics)
+    if tex_tables is not None and tex_tables[1] is not None:
+        raise ValueError("sample_batch_diff: the tape replay has no Perlin "
+                         "marble (replay_eligible)")
+    outs = _SampleBatchDiff.apply(*diff_inputs, *tables, vol0, move_offsets,
+                                  *tex, lane_count, count_in, int(seed),
+                                  int(lane_base), statics)
     return dict(zip(mk.OUTPUT_KEYS, outs))

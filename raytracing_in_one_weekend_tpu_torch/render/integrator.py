@@ -18,10 +18,11 @@ conditions:
   bounce, the fused selection `ops.sphere_select.sphere_select_full`
   (csrc/sphere_select.cu) hands the winner's record to the scatter,
   which carries no geometry gradients.
-* the general arm, differentiable, or a scene with rects, boxes or
-  triangles: per bounce, `ops.intersect.nearest_hit` (the detached
-  selections `sphere_select` and `triangle_select`, the rect and box
-  tests in plain PyTorch, then the winners' tests with gradients).
+* the general arm, differentiable, or a scene with rects, boxes,
+  triangles or moving spheres: per bounce, `ops.intersect.nearest_hit`
+  (the detached selections `sphere_select` and `triangle_select`, the
+  rect and box tests and the moving spheres at each ray's time in plain
+  PyTorch, then the winners' tests with gradients).
 
 Convex volumes (spheres and boxes of a ProbabilisticVolume material) take
 the general arm's probabilistic walk (SampleBatchJob.cs:212-303): each
@@ -172,6 +173,8 @@ def trace(
     sph_records = None
     if (not differentiable and scene.spheres.center.shape[0] > 0
             and not scene.flags.has_volumes
+            and not scene.flags.has_motion
+            and not scene.flags.has_procedural_textures
             and scene.rects.rot.shape[0] == 0
             and scene.boxes.rot.shape[0] == 0
             and scene.triangles.vert0.shape[0] == 0):

@@ -11,8 +11,11 @@ arms on its conditions:
   grad): one `ops.megatrace.sample_batch` launch per batch, with the
   triangle tables of a mesh scene (`pack_tri_tables`) or the rect and box
   tables of a scene with rects or boxes (`pack_aux_tables`, the kernel's
-  aux build), and with convex volumes the camera's medium
-  (`camera_containment_row`, the kernel's volume builds); a mesh of more
+  aux build), with convex volumes the camera's medium
+  (`camera_containment_row`, the kernel's volume builds), with moving
+  spheres their move offsets (the kernel's motion builds) and with checker,
+  Perlin or image albedos the texture tables (`pack_texture_tables`, the
+  kernel's texture builds); a mesh of more
   than TRI_MAX triangles takes the streamed
   tables (`pack_tri_stream_tables`) with lanes in Morton order
   (`megatrace.morton_order`, deltas un-permuted by its rank), and above
@@ -23,8 +26,9 @@ arms on its conditions:
 * the fused arm, differentiable: `ops.megatrace_replay.sample_batch_diff`
   (the same kernel with its winner tape as primal, the tape replay's
   backward kernel as gradient of the color sum and the valid count, to
-  the spheres, rects, boxes, the triangle soup and the materials, a
-  volume's density among them), plus
+  the spheres, their move offsets, rects, boxes, the triangle soup, the
+  materials, a volume's density among them, the texture colours and the
+  image atlas), plus
   the AOV graft:
   the normal, albedo, weight and fallback AOVs keep the kernel's values,
   and their gradients come from the differentiable wavefront on the batch
@@ -36,9 +40,11 @@ arms on its conditions:
 * the wavefront arm (`wavefront_pass`, render/integrator.py) where the
   batch kernel is refused: a scene outside its scope, a sampler flavor
   asked for without a noise state (which the port does not have yet), or
-  a mesh of more than TRI_MAX triangles with something requiring grad
-  (not replay-eligible, as in the JAX package: the brute-force nearest
-  hit, which fits small images only until the BVH of ROADMAP step 9).
+  something requiring grad in a scene that is not replay-eligible
+  (`megatrace_replay.replay_eligible`, as in the JAX package: a Perlin
+  texture, which the replay does not mirror, or a mesh of more than
+  TRI_MAX triangles, whose brute-force nearest hit fits small images only
+  until the BVH of ROADMAP step 9).
 
 Scenes outside the wavefront's scope raise NotImplementedError naming
 their ROADMAP item; `check_scope` also refuses meshes of more than
@@ -394,8 +400,10 @@ def render_batch(
     if (noise_color != 0
             or not megatrace.scene_eligible(scene, allow_triangles=True,
                                             allow_rect_box=True,
-                                            allow_volumes=True)
-            or (streamed and inputs)):
+                                            allow_volumes=True,
+                                            allow_motion=True,
+                                            allow_textures=True)
+            or (inputs and not megatrace_replay.replay_eligible(scene))):
         # ---- the wavefront arm: the batch kernel is refused ---------------
         integrator.check_scope(scene)
         new, pixel_rays = wavefront_pass(
@@ -421,7 +429,8 @@ def render_batch(
         stream = megatrace.pack_tri_stream_tables(scene, packed)
         # the JAX renderer's conditions for the sync route (its others,
         # volumes, motion, procedural textures, noise flavors and cubemap
-        # skies, are refused above)
+        # skies, are refused above or by the scope: motion in a mesh scene
+        # is ROADMAP step 7.3b)
         if (scene.triangles.vert0.shape[0] > meshtrace.SYNC_TRI_MIN
                 and not scene.flags.has_volumes
                 and scene.rects.rot.shape[0] == 0
@@ -460,6 +469,12 @@ def render_batch(
         # through this pack
         tri_tables=megatrace.pack_tri_tables(scene, packed),
         rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
+        # gradients to the move offsets flow through this leaf
+        move_offsets=(scene.spheres.move_offset if scene.flags.has_motion
+                      else None),
+        # gradients to the texture colours and the atlas flow through this
+        # pack
+        tex_tables=megatrace.pack_texture_tables(scene),
         **statics,
     )
     if inputs:

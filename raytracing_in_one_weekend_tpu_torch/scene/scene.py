@@ -10,9 +10,10 @@ the JAX package across as numpy arrays.
 
 Triangles (`add_triangle`, `add_mesh`) are baked to world space in the
 reference's edge form and Morton-sorted by centroid at build, as the JAX
-builder does.  Builder calls whose later stages are not ported yet raise
-NotImplementedError naming the ROADMAP item: image textures, Perlin
-tables and cubemap skies.
+builder does.  Image textures (`add_image`) are padded into one (A, H, W,
+3) atlas and Perlin tables made from `perlin_seed` (core/noise.py), as the
+JAX builder does.  Cubemap skies raise NotImplementedError naming their
+ROADMAP item (step 7.6).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from raytracing_in_one_weekend_tpu_torch.core import noise as noise_mod
 from raytracing_in_one_weekend_tpu_torch.core.textures import (
     TextureTable,
     TextureType,
@@ -164,18 +166,20 @@ def scene_from_arrays(
     `arrays` is keyed "<group>.<field>" ("spheres.center",
     "materials.type", ...), with the JAX package's group and field names;
     optional leaves (motion offsets, image atlas, cubemap) may be absent.
-    `flags` holds the SceneFlags fields.  Values are copied."""
-    if "textures.perlin" in arrays:
-        raise NotImplementedError(
-            "Perlin texture tables are not ported yet "
-            "(ROADMAP queue 1, step 7.5)"
-        )
+    `flags` holds the SceneFlags fields; Perlin tables come as
+    "textures.perlin.<field>" (the PerlinTables fields).  Values are
+    copied."""
     groups = {}
     for name, cls in _GROUPS.items():
         leaves = {}
         for f in dataclasses.fields(cls):
             key = f"{name}.{f.name}"
-            if key in arrays:
+            if key == "textures.perlin" and f"{key}.perm_x" in arrays:
+                leaves["perlin"] = noise_mod.PerlinTables(**{
+                    p.name: torch.tensor(np.array(arrays[f"{key}.{p.name}"]),
+                                         device=device)
+                    for p in dataclasses.fields(noise_mod.PerlinTables)})
+            elif key in arrays:
                 leaves[f.name] = torch.tensor(
                     np.array(arrays[key]), device=device
                 )
@@ -324,14 +328,20 @@ class SceneBuilder:
         self._rects: list[tuple] = []
         self._boxes: list[tuple] = []
         self._triangles: list[tuple] = []
+        self._images: list[np.ndarray] = []
+        self._image_keys: dict[str, int] = {}
         self._sky = (SkyType.GRADIENT, (1.0, 1.0, 1.0), (0.5, 0.7, 1.0))
 
     # -- textures / images --------------------------------------------------
 
     def add_image(self, name: str, data: np.ndarray) -> TextureSpec:
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP queue 1, step 7.5)"
-        )
+        """Register an image texture (H, W, 3+) in linear color; every
+        image is padded into one atlas at build."""
+        if name not in self._image_keys:
+            self._image_keys[name] = len(self._images)
+            self._images.append(np.asarray(data, np.float32))
+        return TextureSpec(TextureType.IMAGE, (1.0, 1.0, 1.0),
+                           image=(name, self._image_keys[name]))
 
     def _intern_texture(self, spec: TextureSpec) -> int:
         for i, existing in enumerate(self._textures):
@@ -560,11 +570,6 @@ class SceneBuilder:
             return torch.zeros(shape, dtype=dtype, device=device)
 
         f32, i32 = torch.float32, torch.int32
-        if any(s.type == TextureType.PERLIN for s in self._textures):
-            raise NotImplementedError(
-                "Perlin texture tables are not ported yet "
-                "(ROADMAP queue 1, step 7.5)"
-            )
         mats = self._materials or [
             dict(type=0, albedo=0, emission=0, glossiness=0, metallic=0,
                  parameter=PLASTIC_IOR, perfect_specular=False)
@@ -581,6 +586,15 @@ class SceneBuilder:
                                torch.bool),
         )
         tex = self._textures
+        atlas = None
+        if self._images:
+            max_h = max(im.shape[0] for im in self._images)
+            max_w = max(im.shape[1] for im in self._images)
+            atlas = np.zeros((len(self._images), max_h, max_w, 3),
+                             np.float32)
+            for i, im in enumerate(self._images):
+                atlas[i, :im.shape[0], :im.shape[1]] = im[..., :3]
+        needs_perlin = any(s.type == TextureType.PERLIN for s in tex)
         textures = TextureTable(
             type=t([int(s.type) for s in tex], i32),
             main_color=t(np.asarray([s.main_color for s in tex],
@@ -592,6 +606,9 @@ class SceneBuilder:
             scalar_channel=t([s.scalar_channel for s in tex], i32),
             image_index=t([(s.image[1] if s.image else -1) for s in tex],
                           i32),
+            atlas=None if atlas is None else t(atlas, f32),
+            perlin=(noise_mod.make_perlin_tables(perlin_seed, device)
+                    if needs_perlin else None),
         )
 
         has_motion = any(s[3] is not None for s in self._spheres)

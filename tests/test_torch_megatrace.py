@@ -256,17 +256,47 @@ def _mesh_with_a_fog_sphere():
     return b.build()
 
 
+def _mesh_with_a_moving_sphere():
+    """A triangle beside a moving sphere: motion in mesh scenes is ROADMAP
+    step 7.3b."""
+    from raytracing_in_one_weekend_tpu_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.lambert((0.7, 0.7, 0.7))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, white)
+    b.add_sphere((0.0, 0.0, -1.0), 0.5, white, move_offset=(0.0, 0.3, 0.0))
+    b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), white)
+    return b.build()
+
+
 def test_scope_refusals_name_the_roadmap():
-    refused = [book_scenes.SCENES["cover_motion"]()[0],
-               _mesh_with_a_fog_sphere()]
+    refused = [_mesh_with_a_moving_sphere(), _mesh_with_a_fog_sphere()]
     for scene in refused + [_mesh_with_a_rect()]:
         assert not megatrace.scene_eligible(scene, allow_triangles=True,
                                             allow_rect_box=True,
-                                            allow_volumes=True)
+                                            allow_volumes=True,
+                                            allow_motion=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             renderer.check_scope(scene)
     with pytest.raises(NotImplementedError, match="step 7.2b"):
         renderer.check_scope(_mesh_with_a_fog_sphere())
+    with pytest.raises(NotImplementedError, match="step 7.3b"):
+        renderer.check_scope(_mesh_with_a_moving_sphere())
+    # cubemap skies: ROADMAP step 7.6 (the builder refuses them)
+    from raytracing_in_one_weekend_tpu_torch.scene.scene import SceneBuilder
+
+    with pytest.raises(NotImplementedError, match="step 7.6"):
+        SceneBuilder().set_cubemap_sky(np.zeros((6, 4, 4, 3), np.float32))
+    # unit-shutter motion is ported (step 7.3): the batch kernel's motion
+    # builds and the replay take cover_motion; the per-ray megatrace is
+    # static
+    motion, _ = book_scenes.SCENES["cover_motion"]()
+    assert megatrace.scene_eligible(motion, allow_triangles=True,
+                                    allow_rect_box=True, allow_volumes=True,
+                                    allow_motion=True)
+    assert megatrace_replay.replay_eligible(motion)
+    assert not megatrace.scene_eligible(motion)
+    renderer.check_scope(motion)
     # convex volumes are ported (step 7.2): the batch kernel's volume
     # builds and the replay take them; the per-ray megatrace has no walk
     volume, _ = book_scenes.volume_test()

@@ -186,10 +186,12 @@ def test_driver_refuses_unported_features():
     focus = driver.autofocus(scene, dataclasses.replace(cs,
                                                         focus_distance=None))
     assert 0.0 < focus < 1e29
-    motion, mcs = book_scenes.SCENES["cover_motion"]()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.ProgressiveRenderer(motion, mcs, RenderSettings(),
-                                   device="cpu")
+    # motion beside triangles: ROADMAP step 7.3b
+    from test_torch_megatrace import _mesh_with_a_moving_sphere
+
+    with pytest.raises(NotImplementedError, match="step 7.3b"):
+        driver.ProgressiveRenderer(_mesh_with_a_moving_sphere(), cs,
+                                   RenderSettings(), device="cpu")
     # volume (convex volumes, ROADMAP step 7.2) renders now
     volume, vcs = book_scenes.volume_test()
     r = driver.ProgressiveRenderer(

@@ -144,11 +144,12 @@ def test_scene_to_device_keeps_values():
     assert_same_leaves(port_leaves(moved), port_leaves(ts))
 
 
-def _textured_triangle(b):
-    """Triangles are ported; a checker-textured one is refused by the
-    renderer (procedural textures, step 7.5)."""
-    b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
-                   b.lambert(scene_mod.checker((1, 1, 1), (0, 0, 0))))
+def _textured_triangle(b, texture=None):
+    """Triangles and textures are ported; a textured triangle is refused by
+    the renderer (textures in mesh scenes, step 7.5b)."""
+    if texture is None:
+        texture = scene_mod.checker((1, 1, 1), (0, 0, 0))
+    b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), b.lambert(texture))
     renderer.check_scope(b.build())
 
 
@@ -160,12 +161,12 @@ def _streamed_mesh(b):
 
 
 @pytest.mark.parametrize("call", [
-    lambda b: b.add_image("img", np.zeros((2, 2, 3), np.float32)),
+    lambda b: _textured_triangle(
+        b, b.add_image("img", np.zeros((2, 2, 3), np.float32))),
     lambda b: b.set_cubemap_sky(np.zeros((6, 2, 2, 3), np.float32)),
     _textured_triangle,
     _streamed_mesh,
-    lambda b: (b.lambert(scene_mod.perlin((1, 1, 1))),
-               b.add_sphere((0, 0, 0), 1.0, 0), b.build()),
+    lambda b: _textured_triangle(b, scene_mod.perlin((1, 1, 1))),
 ], ids=["image", "cubemap", "triangle", "mesh", "perlin"])
 def test_unported_builder_calls_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
