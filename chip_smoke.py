@@ -8,7 +8,9 @@ kernel's streamed arm with Morton lanes, the bounce-synchronous sampler's
 bounce, pair compaction and restore), the rect and box scenes
 `cornell` and `simple_light` (the aux builds of the batch and backward
 kernels) and the convex-volume scenes `volume`, `probabilistic` and
-`cornell_volumes` (their volume builds).
+`cornell_volumes` (their volume builds), the moving and textured scenes
+(their motion and texture builds), and `sphere_field` (4,099 spheres: the
+blocked builds of #1, #2's BIG build and #9's big build).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
@@ -227,6 +229,17 @@ which raises on failure:
      128x128, 4 spp, and alone at 4 and 64 spp on checkered; one
      differentiable wavefront step on perlin and final_book2 at 128x128
      (no batch kernel: the replay has no marble); the CLI on the four.
+ 26. sphere scenes past SPH_CULL_MIN = 1024 spheres (`sphere_field_phases`):
+     render_batch on sphere_field (4,099 spheres) at 512x512, depth 8, 64
+     spp through #1's blocked build; the build against its plain version
+     on a 4 spp batch (whose plain run counts the pairs and block tests of
+     its bound), alone by CUDA events at 4 and 64 spp; a
+     fwd+bwd step through #2's BIG build, held to the plain replay's
+     autograd at 128x128, 4 spp, and alone at 4 and 64 spp; #9's big
+     build through integrator.trace and against its plain version; the
+     blocked motion build on the moving sphere field; cover_scene(grid=64)
+     (16,384 spheres) at 128x128; cover_scene(grid=15) (the dense build)
+     and grid=16 (the blocked build) at 512x512, 64 spp.
 MRays/s counts every bounce of every sample as one ray, with the ray
 count the kernels themselves report.  Each kernel's bound is the larger of
 its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
@@ -298,8 +311,9 @@ MT_FLOPS = 56  # per (ray, triangle) pair of Möller–Trumbore
 #   their scalings (18), det and its guarded division (5), the edge vector
 #   (3), the hit test (7), the select (1) and the running minimum (1)
 SLAB_FLOPS = 26  # per (ray, AABB) slab test (megatrace_bounce.cuh
-#   slab_may): 6 differences, 6 products, 10 min/max, the bound's min and
-#   max and the two comparisons
+#   slab_may; the blocked sphere sweep's, megatrace_batch.cu
+#   sphere_sweep_blocked): 6 differences, 6 products, 10 min/max, the
+#   bound's min and max and the two comparisons
 FRAME_FLOPS = 63  # the ray into a rect's or box's frame
 #   (megatrace_common.cuh aux_frame): o - pos (3) and two quat_rotate (30
 #   each: three t components of a fmaf and a product, 3 each, then three
@@ -429,7 +443,8 @@ def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
     kind = megatrace_bwd.build_kind(tri is not None,
                                     rect is not None or box is not None,
                                     vol0 is not None, move is not None,
-                                    tex is not None)
+                                    tex is not None,
+                                    s > megatrace.SPH_CULL_MIN)
     if move is None and tex is None:
         rows = megatrace_replay.build_entity_rows(*tables[1:4], tri, rect,
                                                   box)
@@ -763,6 +778,7 @@ def fwd_bwd_steps(scene, camera, target, width, height, samples, depth,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     megatrace.LAUNCHES = megatrace_bwd.LAUNCHES = 0
+    megatrace_bwd.BIG_LAUNCHES = 0
     rates = []
     with recorded_calls(megatrace_bwd, "replay_grad", copy=False) as calls:
         for seed, r in zip(seeds, rays):
@@ -1117,7 +1133,8 @@ def reset_launches() -> None:
     megatrace.LAUNCHES = megatrace.WAVE_LAUNCHES = megatrace_bwd.LAUNCHES = 0
     megatrace.AUX_LAUNCHES = megatrace.VOL_LAUNCHES = 0
     megatrace.MOTION_LAUNCHES = megatrace.TEX_LAUNCHES = 0
-    megatrace_bwd.SCAN_LAUNCHES = 0
+    megatrace.BLOCKED_LAUNCHES = megatrace.WAVE_BIG_LAUNCHES = 0
+    megatrace_bwd.SCAN_LAUNCHES = megatrace_bwd.BIG_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
     meshtrace.RESTORE_LAUNCHES = 0
@@ -2655,9 +2672,9 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     n = width * height
     out, fwd_entry, bwd_entry = {}, {}, {}
     kernel_report = ptxas_report(megatrace.BUILD_LOG,
-                                 "megatrace_sphere_kernelILb1ELb0ELb0ELb0EE")
+                                 "megatrace_sphere_kernelILb1ELb0ELb0ELb0ELb0EE")
     path_report = ptxas_report(megatrace_bwd.BUILD_LOG,
-                               "megatrace_paths_kernelILb0ELb1ELb0ELb0ELb0EE")
+                               "megatrace_paths_kernelILb0ELb1ELb0ELb0ELb0ELb0EE")
     print(f"aux builds: ptxas #1 {kernel_report or '(not built here)'}; "
           f"#2 path kernel {path_report or '(not built here)'}")
     max_err, shares = 0.0, []
@@ -3039,10 +3056,10 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     n = width * width
     out, fwd, bwd = {}, {}, {}
     reports = [ptxas_report(megatrace.BUILD_LOG,
-                            f"megatrace_sphere_kernelILb{a}ELb1ELb0ELb0EE")
+                            f"megatrace_sphere_kernelILb{a}ELb1ELb0ELb0ELb0EE")
                for a in (0, 1)]
     reports += [ptxas_report(megatrace_bwd.BUILD_LOG,
-                             f"megatrace_paths_kernelILb0ELb{a}ELb1ELb0ELb0EE")
+                             f"megatrace_paths_kernelILb0ELb{a}ELb1ELb0ELb0ELb0EE")
                 for a in (0, 1)]
     print(f"volume builds: ptxas #1 beside spheres {reports[0] or '-'}; "
           f"beside rects and boxes {reports[1] or '-'}; #2 path kernel "
@@ -3407,10 +3424,10 @@ def motion_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     n = width * width
     out = {}
     reports = [ptxas_report(megatrace.BUILD_LOG,
-                            f"megatrace_sphere_kernelILb{a}ELb{v}ELb1ELb0EE")
+                            f"megatrace_sphere_kernelILb{a}ELb{v}ELb1ELb0ELb0EE")
                for a, v in ((0, 0), (1, 0), (0, 1), (1, 1))]
     reports.append(ptxas_report(megatrace_bwd.BUILD_LOG,
-                                "megatrace_paths_kernelILb0ELb0ELb0ELb1ELb0EE"))
+                                "megatrace_paths_kernelILb0ELb0ELb0ELb1ELb0ELb0EE"))
     labels = ("beside spheres", "beside rects and boxes", "with volumes",
               "with rects, boxes and volumes")
     print("motion builds: ptxas #1 " + "; ".join(
@@ -3740,14 +3757,14 @@ def texture_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
               "with rects, boxes and volumes", "with motion",
               "with everything")
     reports = [ptxas_report(megatrace.BUILD_LOG,
-                            f"megatrace_sphere_kernelILb{a}ELb{v}ELb{m}ELb1EE")
+                            f"megatrace_sphere_kernelILb{a}ELb{v}ELb{m}ELb1ELb0EE")
                for a, v, m in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
                                (0, 0, 1), (1, 1, 1))]
     print("texture builds: ptxas #1 " + "; ".join(
         f"{label} {r or '-'}" for label, r in zip(labels, reports))
         + "; #2 path kernel " + (ptxas_report(
             megatrace_bwd.BUILD_LOG,
-            "megatrace_paths_kernelILb0ELb0ELb0ELb0ELb1EE") or "-"))
+            "megatrace_paths_kernelILb0ELb0ELb0ELb0ELb1ELb0EE") or "-"))
     shares, max_err, launches_main = [], 0.0, 0
     registry = {**book_scenes.SCENES, **testbeds.SCENES}
     zeros = torch.zeros(n, device=dev)
@@ -4062,6 +4079,479 @@ def texture_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     return {"kernels": kernels, "paths": out}
 
 
+def blocked_bound(rays: float, pairs: float, tests: float, n: int,
+                  s_count: int, blocks: int, motion: bool = False):
+    """The blocked builds' bound: SHADE_FLOPS a bounce, the sweep's
+    operations on the (lane, sphere) pairs and (lane, block) slab tests
+    the cull leaves (megatrace.SPH_PAIRS and SPH_BLOCK_TESTS of the plain
+    version on the same inputs), against the bytes (the lane counts and
+    accumulators, each sphere row and record, with motion its offset, the
+    block boxes and the constants)."""
+    pair_flops = MOTION_SWEEP_FLOPS if motion else SWEEP_FLOPS
+    return bound(rays * SHADE_FLOPS + pairs * pair_flops
+                 + tests * SLAB_FLOPS,
+                 n * 4 * (2 + megatrace.OUT_ROWS)
+                 + s_count * 4 * (4 + 16 + (4 if motion else 0))
+                 + blocks * 32 + 4 * 32)
+
+
+def blocked_launch_ms(tables, samples: int, repeats: int, kw: dict,
+                      move=None) -> float:
+    """The blocked build alone (with `move`, the moving one): CUDA events
+    around `repeats` launches of its C entry point on buffers made once."""
+    camera_row, centers, radii, records, sky_bottom, sky_top = tables
+    dev, s = centers.device, centers.shape[0]
+    block = megatrace.SPH_BLOCK
+    n = int(camera_row[19] * camera_row[20])
+    lib = megatrace.load_kernel()
+    sph, rec = megatrace.sweep_tables(centers, radii, records, move)
+    consts = megatrace.kernel_consts(camera_row, sky_bottom, sky_top)
+    boxes = megatrace.pack_sphere_blocks(centers, radii, move, block)
+    table = None if move is None else megatrace.move_table(move)
+    per_pixel = torch.full((n,), float(samples), device=dev)
+    cin = torch.zeros(n, device=dev)
+    out = torch.empty((megatrace.OUT_ROWS, n), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = lib.rtiw_megatrace_blocked(
+            per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), boxes.data_ptr(),
+            0 if table is None else table.data_ptr(), out.data_ptr(), 0, n,
+            s, -(-s // block), block, 7, 0, samples, kw["trace_depth"], 0.0,
+            int(kw["has_dielectrics"]), int(kw["sky_on"]), 1, stream)
+        if err != 0:
+            raise RuntimeError(f"blocked build launch: cudaError {err}")
+
+    launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(repeats):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def wave_launch_ms(wargs, wk: dict, repeats: int) -> float:
+    """The per-ray megatrace (#9) alone, at the build its sphere count
+    selects: CUDA events around `repeats` launches of its C entry point on
+    buffers made once, as `megatrace._megatrace_cuda` fills them."""
+    o, d, active, centers, radii, records, sky_bottom, sky_top, seed = wargs
+    n, s = o.shape[0], centers.shape[0]
+    lib = megatrace.load_wave_kernel()
+    sph, rec = megatrace.sweep_tables(centers, radii, records)
+    sky = megatrace._pack_sky_row(sky_bottom, sky_top)[0].contiguous()
+    act = active.to(torch.uint8).contiguous()
+    o, d = o.contiguous(), d.contiguous()
+    out = torch.empty((megatrace.WAVE_ROWS, n), device=centers.device)
+    stream = torch.cuda.current_stream(centers.device).cuda_stream
+
+    def launch():
+        err = lib.rtiw_megatrace_wave(
+            o.data_ptr(), d.data_ptr(), act.data_ptr(), sky.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), out.data_ptr(), n, s, int(seed),
+            wk["trace_depth"], 0.0, int(wk["has_dielectrics"]),
+            int(wk["sky_on"]), int(s > megatrace.SPH_CULL_MIN), stream)
+        if err != 0:
+            raise RuntimeError(f"#9 launch: cudaError {err}")
+
+    launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(repeats):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def plain_counts(fn, *args, **kwargs):
+    """(fn's result, milliseconds, the SPH_PAIRS and SPH_BLOCK_TESTS its
+    plain blocked sweep added), one call after a synchronise."""
+    pairs, tests = megatrace.SPH_PAIRS, megatrace.SPH_BLOCK_TESTS
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return (res, ms, megatrace.SPH_PAIRS - pairs,
+            megatrace.SPH_BLOCK_TESTS - tests)
+
+
+def sphere_field_phases(dev, card, width: int = 512, spp: int = 64,
+                        small: int = 128, big_grid: int = 64) -> dict:
+    """Phase 26: sphere scenes past SPH_CULL_MIN = 1024 spheres, on
+    `sphere_field` (cover_scene(grid=32), 4,099 Morton-sorted spheres) at
+    512x512, depth 8: #1's blocked builds, #2's BIG build and #9's build
+    for big scenes.
+    (a) render_batch at 64 spp, 1 warm-up + 3 timed batches (median
+        MRays/s), every batch through the blocked build (BLOCKED_LAUNCHES,
+        set to 0 just before and read just after), the image finite;
+    (b) the blocked build against its plain version (tape, count, rays
+        identical, floats within 1e-4, >= 99% of lanes) on a whole 4 spp
+        batch at 512x512, whose plain run counts the (lane, sphere) pairs
+        and (lane, block) slab tests of the bound;
+    (c) the build alone by CUDA events at 4 and 64 spp, its registers and
+        blocks an SM, against the bound and the dense sweep's operations;
+    (d) one fwd+bwd step to the sphere centres (1 warm-up + 1 timed, the
+        forward rays of its seed over its time): the path kernel's BIG
+        build launched, the gradient finite and nonzero; #2's BIG build
+        against the plain replay's autograd at 128x128, 4 spp, each leaf
+        within 5e-4 of its max abs; the build alone at 4 and 64 spp;
+    (e) the per-ray megatrace (#9) past 1024 spheres: integrator.trace on
+        512x512 camera rays, depth 8, takes the `mega` arm
+        (WAVE_BIG_LAUNCHES), against its plain version (valid and ray
+        count identical, floats within 1e-4 on >= 99% of lanes), timed;
+    (f) the moving sphere field (cover_scene(grid=32, motion_blur=True)):
+        one 4 spp render_batch through the blocked motion build, the build
+        against its plain version at 4 spp on a 128x128 batch and alone by
+        CUDA events at 4 and 64 spp at 512x512;
+    (g) capacity: cover_scene(grid=64) (16,384 spheres) at 128x128, 4 spp,
+        forward through the blocked build, the image finite;
+    (h) the threshold: cover_scene(grid=15) (902 spheres, the dense sphere
+        build) and grid=16 (1,025, the blocked build), render_batch at
+        512x512, 64 spp, 1 warm-up + 2 timed batches each.
+    (`width`, `spp`, `small` and `big_grid` shrink it for a rehearsal on
+    the CPU.)"""
+    t_phase = time.perf_counter()
+    n = width * width
+    out = {}
+    reports = [ptxas_report(megatrace.BUILD_LOG,
+                            f"megatrace_sphere_kernelILb0ELb0ELb{m}ELb0ELb1EE")
+               for m in (0, 1)]
+    reports.append(ptxas_report(
+        megatrace_bwd.BUILD_LOG,
+        "megatrace_paths_kernelILb0ELb0ELb0ELb0ELb0ELb1EE"))
+    reports.append(ptxas_report(megatrace.WAVE_BUILD_LOG,
+                                "megatrace_wave_kernelILb1EE"))
+    print(f"big-scene builds: ptxas #1 blocked {reports[0] or '-'}; "
+          f"blocked motion {reports[1] or '-'}; #2 BIG {reports[2] or '-'}; "
+          f"#9 big {reports[3] or '-'}")
+    scene, cs = testbeds.SCENES["sphere_field"]()
+    scene = scene.to(dev)
+    s_count = scene.spheres.center.shape[0]
+    blocks = -(-s_count // megatrace.SPH_BLOCK)
+    if (s_count <= megatrace.SPH_CULL_MIN
+            or not megatrace.scene_eligible(scene)
+            or not megatrace_replay.replay_eligible(scene)):
+        raise RuntimeError("sphere_field left the scope of the blocked build, "
+                           "the tape or the per-ray megatrace")
+    camera, tables = batch_inputs(scene, cs, width, width, dev)
+    kw = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+              sky_on=True)
+
+    # ---- (a) the forward main path ------------------------------------------
+    gen = torch.Generator().manual_seed(6)
+    acc = film.zero_accumulators(n, device=dev)
+
+    def forward(scn, cam, samples, accum, w=width):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = renderer.render_batch(scn, cam, accum, gen, width=w,
+                                     height=w, samples=samples,
+                                     trace_depth=8)
+        rays = float(m.total_rays)
+        torch.cuda.synchronize()
+        return rays, time.perf_counter() - t
+
+    reset_launches()
+    runs = [forward(scene, camera, spp, acc) for _ in range(4)]
+    fwd_launches = megatrace.BLOCKED_LAUNCHES
+    if (megatrace.LAUNCHES, fwd_launches) != (4, 4):
+        raise RuntimeError(f"sphere_field: batch kernel launches "
+                           f"{megatrace.LAUNCHES}, blocked {fwd_launches}; "
+                           "want 4 of the blocked build")
+    rate = statistics.median(r / t / 1e6 for r, t in runs[1:])
+    img = film.combine(acc, width, width).color
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.1:
+        raise RuntimeError(f"bad sphere_field image: mean {float(img.mean())}")
+    print(f"sphere_field main path: {s_count} spheres, {width}x{width} depth "
+          f"8, {spp} spp/batch: median {rate:.3f} MRays/s over 3 batches "
+          f"({runs[1][0]:.0f} rays/batch; launches batch kernel "
+          f"{megatrace.LAUNCHES}, blocked build {fwd_launches}); image mean "
+          f"{float(img.mean()):.4f} [{card}]")
+    out["sphere_field_fwd_mrays"] = rate
+
+    # ---- (b) kernel vs plain --------------------------------------------------
+    _, tables_s = batch_inputs(scene, cs, small, small, dev)
+    m_ = small * small
+    zeros = torch.zeros(n, device=dev)
+    lane_count = torch.full((n,), 4, dtype=torch.int32, device=dev)
+    got = megatrace.sample_batch(lane_count, zeros, *tables, 7, samples=4,
+                                 want_tape=True, **kw)
+    plain, plain_ms, pairs, tests = plain_counts(
+        megatrace.sample_batch_reference, lane_count, zeros, *tables, 7,
+        samples=4, want_tape=True, **kw)
+    share4, err4 = lane_agreement(got, plain)
+    print(f"parity blocked build, sphere_field {width}x{width} 4 spp: "
+          f"{share4:.6f} of lanes identical (tape, count, rays; floats within "
+          f"1e-4), max abs err {err4:.3g}; plain version {plain_ms:.1f} ms, "
+          f"{pairs} (lane, sphere) pairs and {tests} (lane, block) tests")
+    if share4 < 0.99:
+        raise RuntimeError(f"blocked build/plain agreement {share4}")
+    shares, max_err = [share4], err4
+    rays4 = float(got["rays"].sum())
+    del got, plain
+
+    # ---- (c) the blocked build alone -------------------------------------------
+    ms4 = blocked_launch_ms(tables, 4, 20, kw)
+    ms64 = blocked_launch_ms(tables, spp, 5, kw)
+    bnd = blocked_bound(rays4, pairs, tests, n, s_count, blocks)
+    dense = bound(rays4 * (s_count * SWEEP_FLOPS + SHADE_FLOPS), 0)[0]
+    info = megatrace.sphere_kernel_info(s_count, n_blk=blocks)
+    print(f"blocked build alone, sphere_field {width}x{width} depth 8 (CUDA "
+          f"events, launches alone): 4 spp {ms4:.3f} ms ({rays4:.0f} bounces, "
+          f"bound {bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms4:.1%}; the dense "
+          f"sweep's operations {dense:.4f} ms; {pairs / rays4:.1f} spheres "
+          f"and {tests / rays4:.1f} block tests a bounce), {spp} spp "
+          f"{ms64:.3f} ms; plain {plain_ms:.3f} ms at 4 spp; "
+          f"{info['registers']} registers, {info['local_bytes']} B local a "
+          f"thread, {info['blocks']} blocks of 128 an SM; SPH_BLOCK "
+          f"{megatrace.SPH_BLOCK} [{card}]")
+    fwd = dict(ms=ms4, ms_64spp=ms64, plain_ms=plain_ms, bound=bnd,
+               pairs_per_bounce=pairs / rays4, tests_per_bounce=tests / rays4,
+               **info)
+
+    # ---- (d) the fwd+bwd step and #2's BIG build ---------------------------------
+    target = img.detach()
+    rate_b, _, _, peak, _ = fwd_bwd_steps(scene, camera, target, width, width,
+                                          spp, 8, [21, 22])
+    bwd_launches = (megatrace_bwd.BIG_LAUNCHES, megatrace_bwd.LAUNCHES)
+    if bwd_launches[0] == 0 or bwd_launches[0] != bwd_launches[1]:
+        raise RuntimeError(f"sphere_field fwd+bwd: path kernel launches "
+                           f"{bwd_launches}, want all of the BIG build")
+    out["sphere_field_fwd_bwd_mrays"] = rate_b
+    print(f"sphere_field fwd+bwd: {width}x{width} depth 8, {spp} spp: "
+          f"{rate_b:.3f} MRays/s (1 step after a warm-up; BIG build "
+          f"launches {bwd_launches[0]}), peak {peak:.2f} GB [{card}]")
+    lane_count = torch.full((m_,), 4, dtype=torch.int32, device=dev)
+    res = megatrace.sample_batch(lane_count, torch.zeros(m_, device=dev),
+                                 *tables_s, 7, samples=4, want_tape=True,
+                                 **kw)
+    args = (res["tape"], lane_count, *tables_s, 7,
+            *probe_cotangents(res["color"], res["count"]))
+    rg_ms, got = time_batch(megatrace_bwd.replay_grad, *args, repeats=3,
+                            samples=4, **kw)
+    bwd_plain_ms, want = time_batch(megatrace_bwd.replay_grad_reference,
+                                    *args, repeats=1, samples=4, **kw)
+    bwd_abs, bwd_rel = leaf_errors(got, want)
+    print(f"sphere_field {small}x{small} depth 8, 4 spp backward: BIG build "
+          f"replay_grad {rg_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms; max "
+          f"error {bwd_rel:.3e} of the leaf's max abs ({bwd_abs:.3e}) "
+          f"[{card}]")
+    bwd = dict(launches=bwd_launches[0], max_rel_err=bwd_rel,
+               replay_grad_ms=rg_ms, plain_ms=bwd_plain_ms)
+    del res, args, got, want
+    for few in (4, spp):
+        lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+        fkw = dict(kw, samples=few)
+        res = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                     want_tape=True, **fkw)
+        cots = probe_cotangents(res["color"], res["count"])
+        live = float(res["rays"].sum())
+        scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+            tables, None, lane_count, res["tape"], cots, 7, fkw,
+            5 if few == 4 else 3)
+        bnd_b = bwd_bound(live, table.shape[0], n, s_count * 4 * 26)
+        print(f"BIG backward alone, sphere_field {width}x{width} depth 8, "
+              f"{few} spp (CUDA events): tape scan's two launches "
+              f"{scan_ms:.3f} ms (glue {glue_ms:.3f} ms more), path kernel "
+              f"{paths_ms:.3f} ms, {paths_ms * 1e6 / live:.3f} ns a live "
+              f"iteration (bound {bnd_b[0]:.4f} ms by {bnd_b[1]}, "
+              f"{bnd_b[0] / paths_ms:.1%}); {table.shape[0]} paths [{card}]")
+        key = "" if few == 4 else "_64spp"
+        bwd[f"ms{key}"] = paths_ms
+        bwd[f"scan_ms{key}"] = scan_ms
+        bwd[f"bound{key}"] = bnd_b
+        del res, table
+
+    # ---- (e) #9 past 1024 spheres -------------------------------------------------
+    cam_rays = camera_rays(camera, width, width, 3, dev)
+    o, d = cam_rays.origin, cam_rays.direction
+    integrator.trace(scene, cam_rays, rng.PRNGKey(4), 8,
+                     differentiable=False)  # warm-up
+    reset_launches()
+    t = time.perf_counter()
+    res = integrator.trace(scene, cam_rays, rng.PRNGKey(4), 8,
+                           differentiable=False)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t
+    wave_launches = megatrace.WAVE_BIG_LAUNCHES
+    if wave_launches == 0 or wave_launches != megatrace.WAVE_LAUNCHES:
+        raise RuntimeError(f"integrator.trace on sphere_field: per-ray "
+                           f"megatrace launches {megatrace.WAVE_LAUNCHES}, "
+                           f"big build {wave_launches}")
+    if not bool(torch.isfinite(res.radiance).all()):
+        raise RuntimeError("integrator.trace on sphere_field: not finite")
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    wargs = (o, d, active, *tables[1:4], tables[4], tables[5], 5)
+    wk = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+              sky_on=True)
+    gw = megatrace.megatrace(*wargs, **wk)
+    torch.cuda.synchronize()
+    wave_plain_ms, ww = time_batch(megatrace.megatrace_reference, *wargs,
+                                   repeats=1, **wk)
+    wshare, werr = wave_agreement(gw, ww)
+    if wshare < 0.99:
+        raise RuntimeError(f"#9 big build/plain agreement {wshare}")
+    wave_ms = wave_launch_ms(wargs, wk, 5)
+    wrays = float(gw["pixel_rays"].sum())
+    wbnd = bound(wrays * (s_count * SWEEP_FLOPS + SHADE_FLOPS),
+                 n * (28 + 48) + s_count * 4 * (4 + 16) + 32)
+    print(f"#9 big build, sphere_field {width}x{width} camera rays, depth 8: "
+          f"integrator.trace took the mega arm in {trace_s:.3f} s (launches "
+          f"{wave_launches}); {wshare:.6f} of lanes agree with the plain "
+          f"version, max abs err {werr:.3g}; kernel {wave_ms:.3f} ms "
+          f"(CUDA events), plain {wave_plain_ms:.3f} ms, bound "
+          f"{wbnd[0]:.4f} ms by {wbnd[1]} ({wbnd[0] / wave_ms:.1%}; "
+          f"{wrays:.0f} bounces) [{card}]")
+    wave = dict(launches=wave_launches, max_abs_err=werr, ms=wave_ms,
+                plain_ms=wave_plain_ms, bound=wbnd)
+    del gw, ww, res
+
+    # ---- (f) the moving sphere field ------------------------------------------------
+    mscene, mcs = book_scenes.cover_scene(grid=32, motion_blur=True)
+    mscene = mscene.to(dev)
+    move = mscene.spheres.move_offset
+    mcamera, mtables = batch_inputs(mscene, mcs, width, width, dev)
+    reset_launches()
+    rays_m, secs_m = forward(mscene, mcamera, 4,
+                             film.zero_accumulators(n, device=dev))
+    motion_launches = megatrace.BLOCKED_LAUNCHES
+    if motion_launches != 1 or megatrace.MOTION_LAUNCHES != 0:
+        raise RuntimeError(f"moving sphere field: blocked launches "
+                           f"{motion_launches}, motion "
+                           f"{megatrace.MOTION_LAUNCHES}")
+    mkw = dict(kw, move_offsets=move)
+    _, mtables_s = batch_inputs(mscene, mcs, small, small, dev)
+    lane_count = torch.full((m_,), 4, dtype=torch.int32, device=dev)
+    mgot = megatrace.sample_batch(lane_count, torch.zeros(m_, device=dev),
+                                  *mtables_s, 7, samples=4, want_tape=True,
+                                  **mkw)
+    mplain, mplain_ms, mpairs, mtests = plain_counts(
+        megatrace.sample_batch_reference, lane_count,
+        torch.zeros(m_, device=dev), *mtables_s, 7, samples=4,
+        want_tape=True, **mkw)
+    mshare, merr = lane_agreement(mgot, mplain)
+    if mshare < 0.99:
+        raise RuntimeError(f"blocked motion build/plain agreement {mshare}")
+    mrays_s = float(mgot["rays"].sum())
+    mms_s = blocked_launch_ms(mtables_s, 4, 20, kw, move=move)
+    mbnd = blocked_bound(mrays_s, mpairs, mtests, m_, s_count, blocks, True)
+    mms4 = blocked_launch_ms(mtables, 4, 10, kw, move=move)
+    mms64 = blocked_launch_ms(mtables, spp, 3, kw, move=move)
+    minfo = megatrace.sphere_kernel_info(s_count, has_motion=True,
+                                         n_blk=blocks)
+    print(f"blocked motion build, moving sphere field: render_batch "
+          f"{width}x{width} 4 spp {rays_m / secs_m / 1e6:.3f} MRays/s "
+          f"(launches {motion_launches}); {small}x{small} 4 spp: "
+          f"{mshare:.6f} of lanes agree with the plain version (tape, "
+          f"count, rays; floats within 1e-4), max abs err {merr:.3g}, "
+          f"kernel {mms_s:.3f} ms (bound {mbnd[0]:.4f} ms by {mbnd[1]}, "
+          f"{mbnd[0] / mms_s:.1%}), plain {mplain_ms:.3f} ms; alone at "
+          f"{width}x{width}: 4 spp {mms4:.3f} ms, {spp} spp {mms64:.3f} ms; "
+          f"{minfo['registers']} registers, {minfo['local_bytes']} B local "
+          f"a thread, {minfo['blocks']} blocks of 128 an SM [{card}]")
+    motion = dict(launches=motion_launches, max_abs_err=merr, ms=mms_s,
+                  plain_ms=mplain_ms, bound=mbnd, ms_4spp_512=mms4,
+                  ms_64spp_512=mms64, **minfo)
+    shares.append(mshare)
+    del mgot, mplain, mscene
+
+    # ---- (g) capacity ---------------------------------------------------------------
+    cscene, ccs = book_scenes.cover_scene(grid=big_grid)
+    cscene = cscene.to(dev)
+    ccam, _ = batch_inputs(cscene, ccs, small, small, dev)
+    cacc = film.zero_accumulators(m_, device=dev)
+    reset_launches()
+    crays, csecs = forward(cscene, ccam, 4, cacc, small)
+    cimg = film.combine(cacc, small, small).color
+    if megatrace.BLOCKED_LAUNCHES != 1 or not bool(
+            torch.isfinite(cimg).all()):
+        raise RuntimeError(f"cover_scene(grid={big_grid}) did not render "
+                           "through the blocked build")
+    print(f"capacity: cover_scene(grid={big_grid}), "
+          f"{cscene.spheres.center.shape[0]} spheres "
+          f"({-(-cscene.spheres.center.shape[0] // megatrace.SPH_BLOCK)} "
+          f"blocks), {small}x{small} 4 spp through the blocked build: "
+          f"{crays / csecs / 1e6:.3f} MRays/s, image mean "
+          f"{float(cimg.mean()):.4f} [{card}]")
+    del cscene, cacc
+
+    # ---- (h) the threshold --------------------------------------------------------
+    for grid in (15, 16):
+        tscene, tcs = book_scenes.cover_scene(grid=grid)
+        tscene = tscene.to(dev)
+        tcam, _ = batch_inputs(tscene, tcs, width, width, dev)
+        tacc = film.zero_accumulators(n, device=dev)
+        forward(tscene, tcam, spp, tacc)  # warm-up
+        reset_launches()
+        truns = [forward(tscene, tcam, spp, tacc) for _ in range(2)]
+        count = tscene.spheres.center.shape[0]
+        want = 2 if count > megatrace.SPH_CULL_MIN else 0
+        if megatrace.LAUNCHES != 2 or megatrace.BLOCKED_LAUNCHES != want:
+            raise RuntimeError(f"cover_scene(grid={grid}): launches "
+                               f"{megatrace.LAUNCHES}, blocked "
+                               f"{megatrace.BLOCKED_LAUNCHES}")
+        trate = statistics.median(r / t / 1e6 for r, t in truns)
+        out[f"grid{grid}_fwd_mrays"] = trate
+        print(f"threshold: cover_scene(grid={grid}), {count} spheres, the "
+              f"{'blocked' if want else 'dense'} sphere build: "
+              f"{width}x{width} depth 8, {spp} spp/batch, median "
+              f"{trate:.3f} MRays/s over 2 batches [{card}]")
+    out["sphere_field_parity_share"] = min(shares)
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+
+    src = "raytracing_in_one_weekend_tpu_torch/csrc/"
+    kernels = [{
+        "name": "megatrace_batch_blocked", "route": "cuda",
+        "source": src + "megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:433",
+        "launches": fwd_launches, "max_abs_err": max_err,
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
+        "library_ms": None, "ms_64spp": fwd["ms_64spp"],
+        "pairs_per_bounce": fwd["pairs_per_bounce"],
+        "tests_per_bounce": fwd["tests_per_bounce"],
+        "registers": fwd["registers"], "local_bytes": fwd["local_bytes"],
+        "blocks_per_sm": fwd["blocks"],
+    }, {
+        "name": "megatrace_batch_blocked_motion", "route": "cuda",
+        "source": src + "megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:433",
+        "launches": motion["launches"], "max_abs_err": motion["max_abs_err"],
+        "ms": motion["ms"], "plain_ms": motion["plain_ms"],
+        "bound_ms": motion["bound"][0], "bound_by": motion["bound"][1],
+        "library_ms": None, "ms_4spp_512": motion["ms_4spp_512"],
+        "ms_64spp_512": motion["ms_64spp_512"],
+        "registers": motion["registers"], "blocks_per_sm": motion["blocks"],
+    }, {
+        "name": "megatrace_bwd_big", "route": "cuda",
+        "source": src + "megatrace_bwd.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
+        "launches": bwd["launches"], "max_abs_err": bwd["max_rel_err"],
+        "ms": bwd["ms"], "scan_ms": bwd["scan_ms"],
+        "replay_grad_ms": bwd["replay_grad_ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
+        "library_ms": None, "ms_64spp": bwd["ms_64spp"],
+        "bound_ms_64spp": bwd["bound_64spp"][0],
+    }, {
+        "name": "megatrace_wave_big", "route": "cuda",
+        "source": src + "megatrace_wave.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:1585",
+        "launches": wave["launches"], "max_abs_err": wave["max_abs_err"],
+        "ms": wave["ms"], "plain_ms": wave["plain_ms"],
+        "bound_ms": wave["bound"][0], "bound_by": wave["bound"][1],
+        "library_ms": None,
+    }]
+    return {"kernels": kernels, "paths": out}
+
+
 SASS_SOURCES = ("megatrace_batch", "megatrace_wave", "megatrace_bwd",
                 "meshtrace_sync", "meshtrace_permute", "sphere_select",
                 "triangle_select")
@@ -4189,11 +4679,13 @@ def sass_functions(lib: str) -> dict:
             name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
                           name)
             name = re.sub(r"(ILb\d(?:ELb\d)*?)(?:ELb0)+EE", r"\1EE", name)
-            # the sphere build, a template since its aux build: compare
-            # its <false> instance with the kernel it was (their parameter
-            # lists differ by the aux build's, which come last)
-            name = re.sub(r"(\d+megatrace_sphere_kernel)(?:ILb0EEEv|E)\S*",
-                          r"\1<false>", name)
+            # the sphere build, a template since its aux build, and the
+            # per-ray megatrace, one since its build for big scenes:
+            # compare each <false> instance with the kernel it was (their
+            # parameter lists differ by the later builds', which come last)
+            name = re.sub(
+                r"(\d+megatrace_(?:sphere|wave)_kernel)(?:ILb0EEEv|E)\S*",
+                r"\1<false>", name)
             # every other template kernel by its template arguments (the
             # motion and texture builds added parameters last)
             name = re.sub(r"(I(?:Lb\dE)+E)Ev\S*", r"\1", name)
@@ -4441,7 +4933,7 @@ def main() -> int:
                   lane_use_lane_order=lane_use_share(out["rays"],
                                                      torch.arange(n)))
     report = ptxas_report(megatrace.BUILD_LOG,
-                          "megatrace_sphere_kernelILb0ELb0ELb0ELb0EE")
+                          "megatrace_sphere_kernelILb0ELb0ELb0ELb0ELb0EE")
     print(f"sphere build: ptxas {report or '(not built here)'}; "
           f"{sphere['registers']} registers, {sphere['local_bytes']} B "
           f"local a thread, {sphere['blocks']} blocks of 128 an SM "
@@ -4460,6 +4952,7 @@ def main() -> int:
     vol = volume_phases(dev, card)
     motion = motion_phases(dev, card)
     texture = texture_phases(dev, card)
+    field = sphere_field_phases(dev, card)
 
     kernels = [{
         "name": "megatrace_batch",
@@ -4513,7 +5006,7 @@ def main() -> int:
         "library_ms": None,
     }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"] \
         + aux["kernels"] + vol["kernels"] + motion["kernels"] \
-        + texture["kernels"]
+        + texture["kernels"] + field["kernels"]
     print(json.dumps({
         "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
@@ -4526,7 +5019,7 @@ def main() -> int:
         "wavefront": wave["paths"], "mesh": mesh["paths"],
         "streamed": streamed["paths"], "aux": aux["paths"],
         "volume": vol["paths"], "motion": motion["paths"],
-        "texture": texture["paths"]}))
+        "texture": texture["paths"], "sphere_field": field["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 // Fused sample-batch path tracer for Hopper (sm_90a): one whole
-// SampleBatchJob per launch, sphere scenes, scenes with rects and boxes
+// SampleBatchJob per launch, sphere scenes of any sphere count, scenes with
+// rects and boxes
 // (with or without spheres), convex volumes, moving spheres and textured
 // albedos beside either, and mesh scenes of at most TRI_STREAM_MAX
 // triangles, gradient or no sky.
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
-// sphere arm, its rect/box arm, its convex-volume arm, its motion and
+// sphere arm (the dense and the blocked sweep), its rect/box arm, its convex-volume arm, its motion and
 // texture arms, its triangle (VMEM) arm and its streamed-triangle arm
 // (white-noise hash PRNG, dense sphere
 // sweep, the one-sided rect and Majercik box tests, the Beer-Lambert
@@ -80,6 +81,21 @@
 // without a scatter, as in the JAX kernel.  Its launch bounds (kVolBlocks)
 // leave the medium registers.
 //
+// Sphere scenes of more than SPH_CULL_MIN = 1024 spheres take the blocked
+// builds (kBlocked, static or with kMotion; the JAX kernel's blocked
+// sweep, :433-527).  sphere_field's 4,099 spheres are 65.6 KB of
+// geometry, which shared memory holds only at one to three blocks an SM,
+// and a scene of 16k spheres not at all; the table stays in L2 (50 MB).
+// So each block stages only the AABBs of the Morton-sorted table's blocks
+// of blk_rows rows (pack_sphere_blocks: 32 bytes a block), and a lane
+// sweeps a block's rows (sphere_sweep_steps' run, read through the
+// read-only cache) only when its ray meets the block's box before its
+// best hit so far.  The 8x4 pixel tiles of a warp give the cull the
+// coherence JAX buys with Morton lanes.  Measured on sphere_field
+// (PERF.md §6, the blocked sweep): 64 rows a block against 32, 128 and
+// 256; the per-lane test against a warp vote; __ldg against staging a
+// kept block per warp in shared memory; 6 blocks an SM against 5.
+//
 // Triangles (megatrace_batch_kernel: one thread a lane in lane order,
 // the camera and accumulators in registers, the header's sphere_sweep and
 // the triangle arm): up to 4096 triangles are 192 KB of geometry, too
@@ -139,6 +155,7 @@ constexpr int kAuxBlocks = 4;  // its aux build's: the rect and box tests
 constexpr int kVolBlocks = 4;  // its volume builds': the medium's 8 floats
 constexpr int kVolConsts = 40;  // ... their constants: kConsts, 2 pad, vol0
 constexpr int kMotionBlocks = 4;  // the motion builds': the moved centres
+constexpr int kBlockedBlocks = 6;  // the static blocked build's
 constexpr int kSweepStep = 15;  // spheres a step of its sweep: the
                                // most that fit 80 registers unspilled
 constexpr int kTileW = 8, kTileH = 4;  // the sphere build's warp: a pixel
@@ -177,6 +194,16 @@ struct SharedRow {
   }
 };
 
+// Row k of a table: through the read-only cache (kLdg: device memory), or
+// a plain load (shared memory).
+template <bool kLdg>
+__device__ __forceinline__ float4 table_row(const float4* table, int k) {
+  if constexpr (kLdg)
+    return __ldg(table + k);
+  else
+    return table[k];
+}
+
 // sphere_sweep (megatrace_bounce.cuh) kSweepStep spheres a step.  A step
 // keeps only the discriminants of its spheres, and one test of the
 // largest skips the roots when no lane needs them; a sphere whose
@@ -188,27 +215,33 @@ struct SharedRow {
 // m its row of `move`, and the quadratic's c term ((|o|^2 - 2 o.c(t)) +
 // |c(t)|^2) + (-r^2) (sph's fourth column holds -r^2), the JAX kernel's
 // operations (:379-390); ops/megatrace.py::_quadratic_bc is the plain
-// version.
-template <bool kMotion = false>
+// version.  With kRun (the blocked builds' run of a block) it sweeps rows
+// [k0, s) of `sph` and `move`, both in device memory and read through the
+// read-only cache, into the best hit so far (best_t, best), which it
+// does not reset.
+template <bool kMotion = false, bool kRun = false>
 __device__ __forceinline__ void sphere_sweep_steps(const Path& p,
                                                    const float4* sph, int s,
                                                    float t_min,
                                                    float& best_t, int& best,
                                                    const float4* move =
                                                        nullptr,
-                                                   float ptime = 0.f) {
+                                                   float ptime = 0.f,
+                                                   int k0 = 0) {
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
   const float a = dot3(dx, dy, dz, dx, dy, dz);
   const float o_dot_d = dot3(ox, oy, oz, dx, dy, dz);
   const float o_sq = dot3(ox, oy, oz, ox, oy, oz);
   const float inv_a = 1.0f / a;
-  best_t = kBig;
-  best = 0;
+  if constexpr (!kRun) {
+    best_t = kBig;
+    best = 0;
+  }
   auto disc_of = [&](int row, float& b) {
-    const float4 g = sph[row];
+    const float4 g = table_row<kRun>(sph, row);
     if constexpr (kMotion) {
-      const float4 m = move[row];
+      const float4 m = table_row<kRun>(move, row);
       const float cx = fmaf(m.x, ptime, g.x), cy = fmaf(m.y, ptime, g.y),
                   cz = fmaf(m.z, ptime, g.z);
       b = o_dot_d - dot3(dx, dy, dz, cx, cy, cz);
@@ -233,7 +266,7 @@ __device__ __forceinline__ void sphere_sweep_steps(const Path& p,
       best = row;
     }
   };
-  int k = 0;
+  int k = k0;
   for (; k + kSweepStep <= s; k += kSweepStep) {
     float disc[kSweepStep];
     float most = -kBig;
@@ -258,6 +291,39 @@ __device__ __forceinline__ void sphere_sweep_steps(const Path& p,
     float b;
     const float disc = disc_of(k, b);
     if (disc > 0.0f) take(b, disc, k);
+  }
+}
+
+// The blocked builds' sweep (more than SPH_CULL_MIN spheres): the nearest
+// hit over the s rows of `sph`, in blocks of `rows` rows each bounded by a
+// box of `boxes` (8 floats a block: min xyz, max xyz, 2 pad; shared
+// memory), the rows and `move` in device memory.  A lane sweeps block b
+// (sphere_sweep_steps' run) only when its ray meets the box at or after
+// t_min and before its best hit so far, in block order; a block it skips
+// holds no nearer hit, and a block's rows win only with a strictly
+// smaller t, so the winner is the dense sweep's, the first row on a tie
+// (the JAX kernel's blocked sweep, :433-527, with its predicate per lane;
+// ops/megatrace.py::_blocked_sweep is the plain version).
+template <bool kMotion>
+__device__ __forceinline__ void sphere_sweep_blocked(
+    const Path& p, const float4* sph, const float* boxes, int blocks,
+    int rows, int s, float t_min, float& best_t, int& best,
+    const float4* move, float ptime) {
+  const float ivx = inv_dir(p.dx), ivy = inv_dir(p.dy), ivz = inv_dir(p.dz);
+  best_t = kBig;
+  best = 0;
+  for (int b = 0; b < blocks; ++b) {
+    const float* box = boxes + 8 * b;
+    const float bx0 = (box[0] - p.ox) * ivx, bx1 = (box[3] - p.ox) * ivx;
+    const float by0 = (box[1] - p.oy) * ivy, by1 = (box[4] - p.oy) * ivy;
+    const float bz0 = (box[2] - p.oz) * ivz, bz1 = (box[5] - p.oz) * ivz;
+    const float b_near = fmaxf(fminf(bx0, bx1),
+                               fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
+    const float b_far = fminf(fmaxf(bx0, bx1),
+                              fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
+    if (!(b_far >= fmaxf(b_near, t_min) && b_near < best_t)) continue;
+    sphere_sweep_steps<kMotion, true>(p, sph, min((b + 1) * rows, s), t_min,
+                                      best_t, best, move, ptime, b * rows);
   }
 }
 
@@ -398,14 +464,22 @@ __device__ __forceinline__ bool aux_live(const float4* row, bool box) {
 // (tex_albedo): the records `tex_rec` per material, a Perlin texture's
 // tables (`perlin`, JAX's 8 x 256 rows, or null) staged in shared memory,
 // the image atlas (`atlas`, img_w x img_h texels an image, or null) read
-// through the read-only cache; kMotionBlocks blocks an SM.
+// through the read-only cache; kMotionBlocks blocks an SM.  Its blocked
+// builds (kBlocked: more than SPH_CULL_MIN spheres, static or with
+// kMotion; sphere scenes only) stage the scene's block AABBs (blk_g,
+// `blocks` blocks of blk_rows rows, pack_sphere_blocks' 8 floats a block)
+// in shared memory instead of the spheres, and sweep them with
+// sphere_sweep_blocked, the spheres and move offsets read from device
+// memory through the read-only cache; kBlockedBlocks blocks an SM
+// (kMotionBlocks with kMotion).
 template <bool kAux, bool kVol = false, bool kMotion = false,
-          bool kTex = false>
-__global__ void __launch_bounds__(kThreads, kVol      ? kVolBlocks
-                                            : kAux    ? kAuxBlocks
-                                            : kMotion ? kMotionBlocks
-                                            : kTex    ? kMotionBlocks
-                                                      : kSphereBlocks)
+          bool kTex = false, bool kBlocked = false>
+__global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
+                                            : kAux     ? kAuxBlocks
+                                            : kMotion  ? kMotionBlocks
+                                            : kTex     ? kMotionBlocks
+                                            : kBlocked ? kBlockedBlocks
+                                                       : kSphereBlocks)
     megatrace_sphere_kernel(const float* __restrict__ lane_count,
                             const float* __restrict__ count_in,
                             const float* __restrict__ consts,
@@ -422,7 +496,9 @@ __global__ void __launch_bounds__(kThreads, kVol      ? kVolBlocks
                             const float* __restrict__ tex_rec = nullptr,
                             const float* __restrict__ perlin = nullptr,
                             const float* __restrict__ atlas = nullptr,
-                            int img_w = 0, int img_h = 0) {
+                            int img_w = 0, int img_h = 0,
+                            const float* __restrict__ blk_g = nullptr,
+                            int blocks = 0, int blk_rows = 0) {
   extern __shared__ float4 sph[];
   // camera row: origin, lower_left, horizontal, vertical, right, up,
   // lens_radius, width, height | sky bottom | sky top (| pad | vol0)
@@ -456,9 +532,17 @@ __global__ void __launch_bounds__(kThreads, kVol      ? kVolBlocks
     aux.rect_code = rect_code;
     aux.box_code = box_code;
   }
-  for (int k = threadIdx.x; k < s; k += kThreads) sph[k] = sph_g[k];
+  if constexpr (kBlocked) {
+    float* boxes = reinterpret_cast<float*>(sph);
+    for (int k = threadIdx.x; k < 8 * blocks; k += kThreads)
+      boxes[k] = blk_g[k];
+  } else {
+    for (int k = threadIdx.x; k < s; k += kThreads) sph[k] = sph_g[k];
+  }
   [[maybe_unused]] const float4* move = nullptr;
-  if constexpr (kMotion) {
+  if constexpr (kMotion && kBlocked) {
+    move = move_g;
+  } else if constexpr (kMotion) {
     float4* staged = sph + s + (kAux ? 3 * (rect_rows + box_rows) : 0);
     for (int k = threadIdx.x; k < s; k += kThreads) staged[k] = move_g[k];
     move = staged;
@@ -525,7 +609,13 @@ __global__ void __launch_bounds__(kThreads, kVol      ? kVolBlocks
     }
     float best_t;
     int best;
-    sphere_sweep_steps<kMotion>(p, sph, s, t_min, best_t, best, move, ptime);
+    if constexpr (kBlocked)
+      sphere_sweep_blocked<kMotion>(p, sph_g, reinterpret_cast<float*>(sph),
+                                    blocks, blk_rows, s, t_min, best_t, best,
+                                    move, ptime);
+    else
+      sphere_sweep_steps<kMotion>(p, sph, s, t_min, best_t, best, move,
+                                  ptime);
     int winner;
     [[maybe_unused]] const TexScene* texp = nullptr;
     if constexpr (kTex) texp = &tex;
@@ -724,7 +814,8 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
 // Plain C entry point (loaded with ctypes).  Launches on `stream` and
 // returns cudaGetLastError() right after the launch (or the error of
 // setting the streamed kernel's shared memory, or cudaErrorInvalidValue
-// for a request the streamed kernel does not take).  tri_rows == 0 takes
+// for a request the streamed kernel does not take, or the error of
+// setting the sphere build's shared memory).  tri_rows == 0 takes
 // the sphere-only build; otherwise tri_geo holds (tri_rows, 12) floats,
 // tri_aabb (tri_blocks, 8) and tri_rec (tri_rows, 32), and a triangle's
 // tape code is tri_code_base + its row.  tri_supers > 0 takes the
@@ -775,6 +866,12 @@ extern "C" int rtiw_megatrace_batch(
           seed, lane_base, samples, trace_depth, t_min, has_dielectrics,
           sky_on, jitter);
     } else {
+      // the table's size: rtiw_megatrace_ext_info may have set the
+      // attribute to a smaller table's (the launch is refused above it)
+      const cudaError_t err = cudaFuncSetAttribute(
+          megatrace_sphere_kernel<false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
       megatrace_sphere_kernel<false><<<(n + kThreads - 1) / kThreads,
                                        kThreads, shmem, st>>>(
           lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
@@ -871,19 +968,59 @@ extern "C" int rtiw_megatrace_ext(
         has_dielectrics, sky_on, jitter,
         reinterpret_cast<const float4*>(aux_geo), aux_rec, rect_rows,
         box_rows, rect_code, box_code, reinterpret_cast<const float4*>(move),
-        tex_rec, perlin, atlas, img_w, img_h);
+        tex_rec, perlin, atlas, img_w, img_h, nullptr, 0, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The blocked builds (more than SPH_CULL_MIN spheres, sphere scenes,
+// static or with move != null moving): the sphere build's arguments, then
+// `boxes` (`blocks` x 8 floats: pack_sphere_blocks' rows, the first
+// ceil(s / rows) of them) and `move` (s x 4 floats, or null).  Returns
+// cudaGetLastError() after the launch, or the error of setting its shared
+// memory.
+static SphereKernel blocked_kernel(bool motion) {
+  return motion ? megatrace_sphere_kernel<false, false, true, false, true>
+                : megatrace_sphere_kernel<false, false, false, false, true>;
+}
+
+extern "C" int rtiw_megatrace_blocked(
+    const float* lane_count, const float* count_in, const float* consts,
+    const float* sph, const float* rec, const float* boxes,
+    const float* move, float* out, float* tape, int n, int s, int blocks,
+    int rows, int seed, int lane_base, int samples, int trace_depth,
+    float t_min, int has_dielectrics, int sky_on, int jitter,
+    void* stream) {
+  if (n > 0) {
+    const SphereKernel kernel = blocked_kernel(move != nullptr);
+    const size_t shmem = (size_t)blocks * 8 * sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<(n + kThreads - 1) / kThreads, kThreads, shmem,
+             static_cast<cudaStream_t>(stream)>>>(
+        lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
+        rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
+        has_dielectrics, sky_on, jitter, nullptr, nullptr, 0, 0, 0, 0,
+        reinterpret_cast<const float4*>(move), nullptr, nullptr, nullptr, 0,
+        0, boxes, blocks, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+
 // sphere_info of a build for an s-sphere table, aux_rows rect and box rows
-// and the flags (all 0: the sphere build).
+// and the flags (all 0: the sphere build); blocks > 0 takes the blocked
+// build (static or with has_motion) for a table of that many blocks.
 extern "C" int rtiw_megatrace_ext_info(int s, int aux_rows, int has_vol,
                                        int has_motion, int has_tex,
-                                       int* info) {
+                                       int blocks, int* info) {
   const SphereKernel kernel =
-      ext_kernel(aux_rows, has_vol, has_motion != 0, has_tex != 0);
-  const size_t shmem = ext_shmem(s, aux_rows, has_motion != 0);
+      blocks > 0 ? blocked_kernel(has_motion != 0)
+                 : ext_kernel(aux_rows, has_vol, has_motion != 0,
+                              has_tex != 0);
+  const size_t shmem = blocks > 0 ? (size_t)blocks * 8 * sizeof(float)
+                                  : ext_shmem(s, aux_rows, has_motion != 0);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);

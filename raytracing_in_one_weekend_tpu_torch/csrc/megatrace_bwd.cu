@@ -79,6 +79,14 @@
 // cotangent goes into the texel plane `datlas` (the atlas's shape) by a
 // global atomic, the lanes of a warp that fetched one texel summing theirs
 // first (a 64 x 128 image takes many hits a texel).
+//
+// Sphere scenes of more than SPH_CULL_MIN = 1024 spheres take the
+// kDeviceRows build (`kind` 7, static spheres only): sphere_field's
+// 4,099 rows of 13 floats are 213 KB, which with the scalar rows exceed
+// the 227 KB a block can have, and would leave one block an SM.  Its
+// sphere rows go to device memory instead, by the same warp sums and one
+// atomic a row and column (WarpEntityAdd with EntityAdd over `dent`, as
+// the triangle rows of the mesh build); there is no flush at the end.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -278,8 +286,9 @@ struct RowAdd<false, true> {
 // The kMotion build's sphere rows are kMotionGradCols wide, the kTex
 // build's kTexGradCols; the kTex build reads the atlas `atlas` (img_w x
 // img_h texels an image, or null) and writes the texel plane `datlas`.
+// The kDeviceRows build adds its sphere rows into `dent` in device memory.
 template <bool kTris, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false>
+          bool kMotion = false, bool kTex = false, bool kDeviceRows = false>
 __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     const float* __restrict__ tape, const int2* __restrict__ paths,
     int total, int* __restrict__ next_warp,
@@ -296,10 +305,12 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
                        : kTex  ? kTexGradCols
                                : kGradCols;
   extern __shared__ float smem[];
-  float* s_dent = smem;            // (s, kRow)
-  float* s_gs = s_dent + s * kRow;  // (kThreads, kStride)
+  // (s, kRow) sphere rows: in shared memory, or with kDeviceRows `dent`
+  constexpr int kShared = kDeviceRows ? 0 : 1;
+  float* s_dent = kDeviceRows ? dent : smem;
+  float* s_gs = smem + kShared * s * kRow;  // (kThreads, kStride)
   __shared__ float s_cam[kS], s_sum[kS];
-  for (int k = threadIdx.x; k < s * kRow + kThreads * kStride;
+  for (int k = threadIdx.x; k < kShared * s * kRow + kThreads * kStride;
        k += blockDim.x)
     smem[k] = 0.0f;
   if (threadIdx.x < kS) {
@@ -356,7 +367,7 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
       flush_scal(warp_gs, gs, s_sum);
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < s * kRow; k += blockDim.x) {
+  for (int k = threadIdx.x; k < kShared * s * kRow; k += blockDim.x) {
     const float v = s_dent[k];
     if (v != 0.0f) atomicAdd(dent + k, v);
   }
@@ -442,7 +453,8 @@ extern "C" int rtiw_bwd_scan(const float* tape, const float* lane_count,
 // (s, 16).  Kind 6 is kind 0 with checker or image albedos: its (s, 39)
 // rows hold the texture records in columns 23-38, `dent` is (s, 19), and
 // with an image `atlas` and a zeroed `datlas` ((A * img_h) x img_w x 3
-// floats each) take the atlas and its texel plane.
+// floats each) take the atlas and its texel plane.  Kind 7 is kind 0 past
+// SPH_CULL_MIN spheres: `dent` gathers the rows directly.
 extern "C" int rtiw_bwd_paths(
     const float* tape, const int* paths, int total, int* next_warp,
     const float* lane_count, const float* consts, const float* ent,
@@ -456,24 +468,28 @@ extern "C" int rtiw_bwd_paths(
   const bool vol = kind == 3 || kind == 4;
   const int row = kind == 5   ? kMotionGradCols
                   : kind == 6 ? kTexGradCols
+                  : kind == 7 ? 0
                               : kGradCols;
   const size_t shmem =
       ((size_t)s * row + kThreads * (vol ? kGsStrideVol : kGsStride)) *
       sizeof(float);
-  if (kind < 0 || kind > 6 ||
+  if (kind < 0 || kind > 7 ||
       (kind == 1 || kind == 2 || kind == 4) != (dent_rows != nullptr) ||
       (atlas != nullptr) != (datlas != nullptr))
     return (int)cudaErrorInvalidValue;
   // the build: 0 sphere scenes, 1 mesh scenes, 2 rects or boxes, 3 and 4
-  // those of 0 and 2 with convex volumes, 5 moving spheres
-  auto kernel = kind == 1   ? megatrace_paths_kernel<true, false>
-                : kind == 2 ? megatrace_paths_kernel<false, true>
-                : kind == 3 ? megatrace_paths_kernel<false, false, true>
-                : kind == 4 ? megatrace_paths_kernel<false, true, true>
-                : kind == 5 ? megatrace_paths_kernel<false, false, false, true>
-                : kind == 6
-                    ? megatrace_paths_kernel<false, false, false, false, true>
-                    : megatrace_paths_kernel<false, false>;
+  // those of 0 and 2 with convex volumes, 5 moving spheres, 6 textured
+  // albedos, 7 more than SPH_CULL_MIN spheres
+  auto kernel =
+      kind == 1   ? megatrace_paths_kernel<true, false>
+      : kind == 2 ? megatrace_paths_kernel<false, true>
+      : kind == 3 ? megatrace_paths_kernel<false, false, true>
+      : kind == 4 ? megatrace_paths_kernel<false, true, true>
+      : kind == 5 ? megatrace_paths_kernel<false, false, false, true>
+      : kind == 6 ? megatrace_paths_kernel<false, false, false, false, true>
+      : kind == 7
+          ? megatrace_paths_kernel<false, false, false, false, false, true>
+          : megatrace_paths_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);

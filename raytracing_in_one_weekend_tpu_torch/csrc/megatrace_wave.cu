@@ -20,7 +20,12 @@
 // its whole path in registers through every bounce; each block stages the
 // sphere geometry (16 bytes a sphere) in shared memory, read as a
 // broadcast; the winner's 64-byte record is read through the read-only
-// cache.  A ray that leaves to the sky stops at once (the TPU kernel waits
+// cache.  Past SPH_CULL_MIN = 1024 spheres (kBig: 16 KB a block would cut
+// the blocks an SM, and a scene of 16k spheres would not fit at all) the
+// build of its own reads the geometry through the read-only cache
+// instead: the table (65.6 KB for sphere_field's 4,099 spheres) stays in
+// L1 and L2, and the lanes of a warp read the same row at the same step.
+// It sweeps every sphere, as JAX's per-ray kernel does.  A ray that leaves to the sky stops at once (the TPU kernel waits
 // for its whole tile).  The bounce is megatrace_bounce.cuh, the same code
 // as the batch kernel's.
 
@@ -38,15 +43,20 @@ constexpr int kOutRows = 12;  // radiance 0-2 | valid 3 | normal 4-6 |
 constexpr int kThreads = 128;
 constexpr uint32_t kSaltDepth = 26699u;
 
+template <bool kBig>
 __global__ void __launch_bounds__(kThreads) megatrace_wave_kernel(
     const float* __restrict__ origin, const float* __restrict__ direction,
     const uint8_t* __restrict__ active, const float* __restrict__ sky_g,
     const float4* __restrict__ sph_g, const float* __restrict__ rec,
     float* __restrict__ out, int n, int s, int seed, int trace_depth,
     float t_min, int has_dielectrics, int sky_on) {
-  extern __shared__ float4 sph[];
-  for (int k = threadIdx.x; k < s; k += blockDim.x) sph[k] = sph_g[k];
-  __syncthreads();
+  extern __shared__ float4 staged[];
+  const float4* sph = sph_g;
+  if constexpr (!kBig) {
+    for (int k = threadIdx.x; k < s; k += blockDim.x) staged[k] = sph_g[k];
+    __syncthreads();
+    sph = staged;
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -83,17 +93,20 @@ __global__ void __launch_bounds__(kThreads) megatrace_wave_kernel(
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Launches on `stream` and
-// returns cudaGetLastError() right after the launch.
+// returns cudaGetLastError() right after the launch.  big != 0 takes the
+// build that reads the spheres through the read-only cache (the wrapper
+// passes it past SPH_CULL_MIN spheres).
 extern "C" int rtiw_megatrace_wave(
     const float* origin, const float* direction, const uint8_t* active,
     const float* sky, const float* sph, const float* rec, float* out, int n,
     int s, int seed, int trace_depth, float t_min, int has_dielectrics,
-    int sky_on, void* stream) {
+    int sky_on, int big, void* stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
-    const size_t shmem = (size_t)s * sizeof(float4);
-    megatrace_wave_kernel<<<blocks, kThreads, shmem,
-                            static_cast<cudaStream_t>(stream)>>>(
+    const size_t shmem = big ? 0 : (size_t)s * sizeof(float4);
+    auto kernel = big ? megatrace_wave_kernel<true>
+                      : megatrace_wave_kernel<false>;
+    kernel<<<blocks, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
         origin, direction, active, sky, reinterpret_cast<const float4*>(sph),
         rec, out, n, s, seed, trace_depth, t_min, has_dielectrics, sky_on);
   }

@@ -8,7 +8,9 @@ spheres `checkered`, `perlin` and `textured_sphere` (the JAX package's
 procedural earth stand-in: the reference's earthmap.jpg and its image
 reader are ROADMAP step 7.6), and `final_book2`, Book 2's composite (boxes,
 a rect light, a moving sphere, glass, fog in a glass shell, an image and a
-Perlin texture).  The other testbeds follow with their ROADMAP steps.
+Perlin texture), and `sphere_field`, the cover's generator at grid 32
+(4,099 spheres, past SPH_CULL_MIN: the blocked sphere sweep).  The other
+testbeds follow with their ROADMAP steps.
 
 Reference: the legacy scene assets (Assets/Scenes/Legacy/*.asset); each
 function covers the same feature axis with the scene builder, with the
@@ -206,7 +208,16 @@ def final_scene_book2(seed: int = 9) -> tuple[Scene, CameraSettings]:
     return b.build(), cam
 
 
+def sphere_field() -> tuple[Scene, CameraSettings]:
+    """~4k-sphere stress scene, the cover generator at grid=32 (4,099
+    spheres, Morton-sorted at build): the scene of the blocked sphere
+    sweep past SPH_CULL_MIN (the reference's maxBvhDepth=32 scenes,
+    Raytracer.cs:85)."""
+    return book_scenes.cover_scene(grid=32)
+
+
 SCENES = {
+    "sphere_field": sphere_field,
     "mesh_showcase": meshes.mesh_showcase,
     "mesh_large": meshes.mesh_large,
     "mesh_huge": meshes.mesh_huge,

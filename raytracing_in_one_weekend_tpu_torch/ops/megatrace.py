@@ -1,7 +1,8 @@
 """Fused sample-batch path tracer: the CUDA kernel and its plain version.
 
-Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm,
-the rect and box arm, the convex-volume arm, the unit-shutter motion and
+Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm
+(its dense sweep, and past SPH_CULL_MIN spheres its blocked sweep), the
+rect and box arm, the convex-volume arm, the unit-shutter motion and
 albedo-texture arms, the triangle (VMEM) arm and the streamed-triangle
 arm of its `_batch_kernel` (gradient or no sky, white noise), the
 forward path of the book cover, of rect and box scenes (`cornell`,
@@ -13,7 +14,10 @@ One
 call runs a whole SampleBatchJob (reference: SampleBatchJob.cs:59-164,
 166-401) and returns per-lane accumulation deltas: thin-lens camera rays,
 persistent-lane path regeneration over `samples * trace_depth`
-iterations, the dense sphere sweep, the one-sided rect and Majercik box
+iterations, the dense sphere sweep (past SPH_CULL_MIN spheres the
+blocked one: a lane sweeps an SPH_BLOCK-row block of the Morton-sorted
+table only when its ray meets the block's AABB, `pack_sphere_blocks`,
+before its best hit), the one-sided rect and Majercik box
 tests in each entity's frame (`rect_test`, `box_test`), the
 Möller–Trumbore sweep over
 TRI_BLOCK-row triangle blocks (each skipped by a lane whose ray misses the
@@ -43,7 +47,9 @@ streamed meshes) and the deltas stay in lane order.
   spheres or beside rects and boxes (`VOL_LAUNCHES`); scenes with moving
   spheres or textured albedos its motion and texture builds, every
   combination with the others (`MOTION_LAUNCHES`, `TEX_LAUNCHES`);
-  meshes of at most
+  sphere scenes past SPH_CULL_MIN spheres, static or moving, its blocked
+  builds, which stage the block AABBs and read the spheres through the
+  read-only cache (`BLOCKED_LAUNCHES`); meshes of at most
   TRI_MAX triangles take
   `megatrace_batch_kernel` (triangles read through the read-only cache,
   one thread a lane in lane order); streamed
@@ -55,7 +61,8 @@ streamed meshes) and the deltas stay in lane order.
 
 The module also holds the per-ray fused trace `megatrace` (the JAX
 package's `_kernel`, the wavefront integrator's `mega` arm, sphere-only
-as in the JAX package): given rays traced to the end of `trace_depth`
+and of any sphere count as in the JAX package): given rays traced to the
+end of `trace_depth`
 bounces, with the same bounce code (`_bounce`; on the card
 `csrc/megatrace_bounce.cuh`), its plain version `megatrace_reference` and
 its kernel `csrc/megatrace_wave.cu`, launches counted in `WAVE_LAUNCHES`.
@@ -80,9 +87,15 @@ from raytracing_in_one_weekend_tpu_torch.core import math3
 
 BIG = 1e30
 SPHERE_PAD = 128
-SPH_CULL_MIN = 1024  # sphere count above which the JAX kernel switches to
-# its blocked sweep (and the renderer to Morton lanes); this slice ports
-# the dense sweep only and refuses bigger scenes
+SPH_CULL_MIN = 1024  # sphere count above which the sphere builds take the
+# blocked sweep (JAX's gate): at or below it each block stages every
+# sphere in shared memory and sweeps them all; above it each lane culls
+# SPH_BLOCK-row blocks of the Morton-sorted table by their AABBs
+# (pack_sphere_blocks) and reads the rows of the blocks it keeps through
+# the read-only cache
+SPH_BLOCK = 64  # sphere rows under one AABB of the blocked sweep (JAX's 256
+# is a TPU tile; the card's, measured against 32, 128 and 256 on
+# sphere_field, PERF.md §6)
 PAD_CENTER = 1e17
 REC_COLS = 24  # 0-10 material | 11 material id | 12-14 center | 15 1/r
 KERNEL_REC = 16  # record columns the kernel reads (0-15)
@@ -106,7 +119,14 @@ TEX_LAUNCHES = 0  # ... of them, launches of the texture builds (checker,
 #   volumes)
 VOL_LAUNCHES = 0  # ... of them, launches of the volume builds (volumes
 #   beside spheres, or beside rects and boxes)
+BLOCKED_LAUNCHES = 0  # ... of them, launches of the blocked builds (more
+#   than SPH_CULL_MIN spheres, static or moving)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
+WAVE_BIG_LAUNCHES = 0  # ... of them, launches of its build for more than
+#   SPH_CULL_MIN spheres (the spheres read through the read-only cache)
+SPH_PAIRS = 0  # (lane, sphere) pairs the plain version's blocked sweep
+#   tested: the blocked builds test the same ones (their bound's count)
+SPH_BLOCK_TESTS = 0  # (lane, block) slab tests of that sweep
 TRI_PAIRS = 0  # (lane, triangle) pairs the plain version's sweep tested:
 #   the kernel tests the same ones (the operation count of its bound)
 SLAB_TESTS = 0  # (lane, AABB) slab tests of the plain version's culls
@@ -140,6 +160,9 @@ MOTION_IN_MESHES = ("motion blur in mesh scenes (ROADMAP queue 1, "
                     "step 7.3b)")
 TEXTURES_IN_MESHES = ("checker, Perlin and image textures in mesh scenes "
                       "(ROADMAP queue 1, step 7.5b)")
+BIG_SPHERES_BESIDE = (f"more than {SPH_CULL_MIN} spheres beside rects, "
+                      "boxes, volumes, textures or triangles (ROADMAP queue "
+                      "1, step 7.7b)")
 TEX_COLS = 16  # texture record columns (pack_texture_tables): 0 albedo
 #   TextureType | 1-3 main colour | 4-6 secondary | 7 parameter | 8 atlas
 #   row base (image index * H)
@@ -183,7 +206,9 @@ def unsupported_feature(scene, allow_triangles: bool = False,
                         allow_textures: bool = False) -> str | None:
     """The first feature of `scene` the fused kernels do not render, named
     with its ROADMAP item, or None when the scene is in scope: the ported
-    features, at least one entity, at most SPH_CULL_MIN spheres, triangles
+    features, at least one entity, more than SPH_CULL_MIN spheres only in
+    sphere scenes (static or moving; beside anything else ROADMAP step
+    7.7b), triangles
     only with `allow_triangles`, rects, boxes and sphere-free scenes
     only with `allow_rect_box`, convex volumes only with `allow_volumes`
     moving spheres only with `allow_motion` and the unit shutter
@@ -197,9 +222,6 @@ def unsupported_feature(scene, allow_triangles: bool = False,
     spheres = scene.spheres.center.shape[0]
     aux = scene.rects.rot.shape[0] + scene.boxes.rot.shape[0]
     tri_count = scene.triangles.vert0.shape[0]
-    if spheres > SPH_CULL_MIN:
-        return (f"more than {SPH_CULL_MIN} spheres: the blocked sweep "
-                "(ROADMAP queue 1, step 7)")
     if spheres + aux + tri_count == 0:
         return "scenes without entities (nothing for a kernel to sweep)"
     if tri_count > 0 and not allow_triangles:
@@ -222,6 +244,10 @@ def unsupported_feature(scene, allow_triangles: bool = False,
             and not scene.flags.procedural_albedo_only):
         return ("procedural textures beyond albedos (the kernels texture "
                 "albedos; the wavefront samples every slot)")
+    if spheres > SPH_CULL_MIN and (aux + tri_count > 0
+                                   or scene.flags.has_volumes
+                                   or scene.flags.has_procedural_textures):
+        return BIG_SPHERES_BESIDE
     if tri_count > TRI_STREAM_MAX:
         return TOO_MANY_TRIANGLES
     if aux > AUX_MAX:
@@ -310,6 +336,41 @@ def move_table(move_offsets) -> torch.Tensor:
     over the unit shutter (x, y, z, 0)."""
     m = move_offsets.detach().to(torch.float32)
     return torch.cat([m, torch.zeros_like(m[:, :1])], dim=1).contiguous()
+
+
+def pack_sphere_blocks(centers, radii, move_offsets=None,
+                       block: int | None = None) -> torch.Tensor:
+    """(n_blk, 8) float32 AABBs of `block`-row blocks (default SPH_BLOCK)
+    of the padded sphere rows (the JAX package's `pack_sphere_blocks` with
+    the block size a parameter; its (1, n_blk * 8) row is this table
+    flattened): columns
+    0-2 min xyz, 3-5 max xyz, 6-7 zero, each box padded by 1e-4, a block
+    of pad rows only at the far point 1e30.  With `move_offsets` a moving
+    sphere's box covers centre .. centre + offset (the unit shutter).
+    The spheres should come Morton-sorted (SceneBuilder.build does so past
+    SPH_CULL_MIN), or the boxes sprawl and the cull never fires."""
+    block = SPH_BLOCK if block is None else block
+    s = centers.shape[0]
+    n_blk = -(-sphere_pad_count(s) // block)
+    c = centers.detach().to(torch.float32)
+    r = radii.detach().to(torch.float32)[:, None]
+    lo, hi = c - r, c + r
+    if move_offsets is not None:
+        m = move_offsets.detach().to(torch.float32)
+        lo = torch.minimum(lo, lo + m)
+        hi = torch.maximum(hi, hi + m)
+    rows = n_blk * block
+    f32 = dict(dtype=torch.float32, device=c.device)
+    pad_lo = torch.full((rows, 3), float("inf"), **f32)
+    pad_hi = torch.full((rows, 3), float("-inf"), **f32)
+    pad_lo[:s], pad_hi[:s] = lo, hi
+    blk_lo = pad_lo.reshape(n_blk, block, 3).amin(dim=1) - 1e-4
+    blk_hi = pad_hi.reshape(n_blk, block, 3).amax(dim=1) + 1e-4
+    real = (torch.arange(n_blk, device=c.device) * block < s)[:, None]
+    blk_lo = torch.where(real, blk_lo, 1e30)
+    blk_hi = torch.where(real, blk_hi, 1e30)
+    return torch.cat([blk_lo, blk_hi, torch.zeros((n_blk, 2), **f32)],
+                     dim=1).contiguous()
 
 
 def _pack_sky_row(sky_bottom, sky_top):
@@ -879,16 +940,28 @@ def _quadratic_bc(o, d, c, cw, m=None, ptime=None):
     return b, cc + cw
 
 
-def _sweep(o, d, sph, t_min, move=None, ptime=None):
+def _sweep(o, d, sph, t_min, move=None, ptime=None, blocks=None):
     """Dense sphere sweep over the real rows: (best_t, best_idx) per lane,
     argmin's first-index rule on ties, index 0 on a miss.  With `move`
     ((S, 3) move offsets) and `ptime` ((C,) shutter times) the centres
-    move (sph column 3 then holds -r^2)."""
-    ox, oy, oz = o
-    dx, dy, dz = d
+    move (sph column 3 then holds -r^2).  With `blocks` ((table, rows):
+    pack_sphere_blocks' table and its block size) the blocked sweep, whose
+    result is the dense one's bit for bit (`_blocked_sweep`)."""
+    ox = o[0]
     if sph.shape[0] == 0:  # a sphere-free scene: every lane misses them
         return (torch.full_like(ox, BIG),
                 torch.zeros_like(ox, dtype=torch.int64))
+    if blocks is not None:
+        return _blocked_sweep(o, d, sph, t_min, move, ptime, blocks)
+    t_entry = _entry_roots(o, d, sph, t_min, move, ptime)
+    return torch.min(t_entry, dim=0).values, torch.argmin(t_entry, dim=0)
+
+
+def _entry_roots(o, d, sph, t_min, move=None, ptime=None):
+    """(S, C) nearest roots after t_min of rays o, d against sphere rows
+    `sph` (moving by `move` at times `ptime`), BIG where a ray misses."""
+    ox, oy, oz = o
+    dx, dy, dz = d
     cx, cy, cz, cmr2 = (sph[:, k:k + 1] for k in range(4))  # (S, 1)
     m = None if move is None else tuple(move[:, k:k + 1] for k in range(3))
     a = _dot3(dx, dy, dz, dx, dy, dz)
@@ -909,7 +982,42 @@ def _sweep(o, d, sph, t_min, move=None, ptime=None):
     )
     t_entry = torch.full_like(disc, BIG)
     t_entry[s_idx, l_idx] = t_root
-    return torch.min(t_entry, dim=0).values, torch.argmin(t_entry, dim=0)
+    return t_entry
+
+
+def _blocked_sweep(o, d, sph, t_min, move, ptime, blocks):
+    """The blocked sphere sweep (the JAX kernel's, :433-527, with its
+    predicate per lane): block b of `rows` rows is swept by the lanes whose
+    ray meets its AABB at or after t_min and before their best hit so far,
+    in block order, a block's winner replacing the best only with a
+    strictly smaller t.  A block a lane skips holds no hit nearer than its
+    best, so the winner is the dense sweep's bit for bit, the lowest row
+    on a tie.  Adds the (lane, block) slab tests to SPH_BLOCK_TESTS and
+    the (lane, sphere) pairs swept to SPH_PAIRS."""
+    global SPH_PAIRS, SPH_BLOCK_TESTS
+    table, rows = blocks
+    s, c = sph.shape[0], o[0].shape[0]
+    inv = [_inv_d(x) for x in d]
+    best_t = torch.full_like(o[0], BIG)
+    best_idx = torch.zeros(c, dtype=torch.int64, device=o[0].device)
+    every = torch.arange(c, device=o[0].device)
+    for b, st in enumerate(range(0, s, rows)):
+        SPH_BLOCK_TESTS += c
+        box = table[b]
+        lanes = every[_slab(box[0:3], box[3:6], o, inv, t_min, best_t)]
+        if lanes.numel() == 0:
+            continue
+        en = min(st + rows, s)
+        SPH_PAIRS += lanes.numel() * (en - st)
+        t_entry = _entry_roots(
+            tuple(x[lanes] for x in o), tuple(x[lanes] for x in d),
+            sph[st:en], t_min, None if move is None else move[st:en],
+            None if ptime is None else ptime[lanes])
+        blk_t, blk_i = torch.min(t_entry, dim=0)
+        wins = blk_t < best_t[lanes]
+        best_t[lanes[wins]] = blk_t[wins]
+        best_idx[lanes[wins]] = st + blk_i[wins]
+    return best_t, best_idx
 
 
 def sphere_exit(o, d, row, t_min, m=None, ptime=None):
@@ -978,6 +1086,11 @@ def _slab_may(lo, hi, o, inv, t_min, bound):
     Adds the lanes it tests to SLAB_TESTS."""
     global SLAB_TESTS
     SLAB_TESTS += o[0].numel()
+    return _slab(lo, hi, o, inv, t_min, bound)
+
+
+def _slab(lo, hi, o, inv, t_min, bound):
+    """`_slab_may` without the count."""
     slab = [((lo[k] - o[k]) * inv[k], (hi[k] - o[k]) * inv[k])
             for k in range(3)]
     b_near = torch.maximum(
@@ -1328,9 +1441,10 @@ VOL_KEYS = ("in_id", "in_den", "in_ar", "in_ag", "in_ab", "in_er", "in_eg",
 
 def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
             sky, tri=None, aux=None, med=None, move=None, ptime=None,
-            tex=None):
+            tex=None, blocks=None):
     """One bounce of every active path in `p` (a dict of (C,) rows keyed
-    by STATE_KEYS, updated in place): the dense sphere sweep, then with
+    by STATE_KEYS, updated in place): the dense sphere sweep (with
+    `blocks`, pack_sphere_blocks' (table, rows), the blocked one), then with
     `aux` (`_aux_arg`) the rect sweep and the box sweep (each wins only
     with a strictly smaller t, the first row on a tie), then with
     `tri` = (sweep, records (T_pad, 32), code base) the triangle sweep
@@ -1361,7 +1475,7 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     d_live = (dx[live], dy[live], dz[live])
     pt_live = None if move is None else ptime[live]
     best_t[live], best_idx[live] = _sweep(o_live, d_live, sph, t_min, move,
-                                          pt_live)
+                                          pt_live, blocks)
     aux_wins = []  # (lanes won, row per lane, kind) of the rects and boxes
     if aux is not None:
         for kind, (geo, krec, base) in enumerate(aux):
@@ -1668,13 +1782,14 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
 def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
                  tri, aux, vol0, seed, *, samples, trace_depth, t_min,
                  has_dielectrics, sky_on, jitter, tape, move=None,
-                 tex=None):
+                 tex=None, blocks=None):
     """Run one SampleBatchJob over a chunk of lanes; returns the (18, C)
     accumulators and fills `tape` ((samples*trace_depth, C) or None).
     With `vol0` (camera_containment_row) each lane carries its medium,
     reset from vol0 at every regen; with `move` ((S, 3) move offsets) its
     shutter time, drawn at every regen from the camera draws' stream 7
-    (the JAX kernel's :2745-2760)."""
+    (the JAX kernel's :2745-2760); with `blocks` (pack_sphere_blocks'
+    (table, rows)) the blocked sphere sweep."""
     dev = pixel.device
     zero = torch.zeros_like(pixel)
     co, ll, hh, vv, rr, uu = (cam[3 * k:3 * k + 3] for k in range(6))
@@ -1746,7 +1861,8 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         hit, best_idx = _bounce(p, u, sph, rec, depth_ct, t_min=t_min,
                                 has_dielectrics=has_dielectrics,
                                 sky_on=sky_on, sky=sky, tri=tri, aux=aux,
-                                med=med, move=move, ptime=ptime, tex=tex)
+                                med=med, move=move, ptime=ptime, tex=tex,
+                                blocks=blocks)
 
         if tape is not None:
             tape[it] = torch.where(
@@ -1893,7 +2009,9 @@ def sample_batch_reference(
     padded spheres: `aux_code_bases`); `vol0` (camera_containment_row)
     turns on the convex volume walk, `move_offsets` (S, 3) unit-shutter
     sphere motion (each path's time drawn at its regen), `tex_tables`
-    (pack_texture_tables) albedo textures.  `pixel_index`
+    (pack_texture_tables) albedo textures; more than SPH_CULL_MIN
+    spheres take the blocked sweep (SPH_BLOCK rows a block, the same
+    winners as the dense one).  `pixel_index`
     (N,) is the
     pixel each lane renders (default: lane i renders pixel i); the hash
     PRNG stays keyed by the lane.  Returns per-lane deltas, in lane order: color (N, 3), count (N,), normal (N, 3), albedo
@@ -1912,6 +2030,8 @@ def sample_batch_reference(
         rec = torch.zeros((1, KERNEL_REC), dtype=torch.float32, device=dev)
     tri = _tri_arg(tri_tables, tri_stream_tables, s)
     aux = _aux_arg(rect_tables, box_tables, s)
+    blocks = (None if s <= SPH_CULL_MIN else
+              (pack_sphere_blocks(centers, radii, move), SPH_BLOCK))
     cam = camera_row.to(torch.float32)
     sky = _pack_sky_row(sky_bottom, sky_top)[0]
     lanes_all = (
@@ -1927,7 +2047,9 @@ def sample_batch_reference(
             if want_tape else None)
     if chunk_lanes is None:
         budget = (1 << 25) if dev.type == "cuda" else (1 << 22)
-        width = max(s, 1 if tri is None else TRI_BLOCK)
+        # the sweep's temporaries: (spheres or a block's rows, lanes)
+        width = max(s if blocks is None else SPH_BLOCK,
+                    1 if tri is None else TRI_BLOCK)
         for t in (rect_tables, box_tables):
             width = max(width, 0 if t is None else t[0].shape[0])
         chunk_lanes = max(1024, budget // width)
@@ -1945,6 +2067,7 @@ def sample_batch_reference(
             tex=None if tex_tables is None else TexTables(
                 *(None if t is None else t.detach().to(torch.float32)
                   for t in tex_tables[:3]), tuple(tex_tables[3])),
+            blocks=blocks,
         )
     return _outputs(acc, tape)
 
@@ -1984,7 +2107,16 @@ def load_kernel() -> ctypes.CDLL:
             i, i, p,  # img_w img_h stream
         ]
         lib.rtiw_megatrace_ext.restype = ctypes.c_int
-        lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, p]
+        lib.rtiw_megatrace_blocked.argtypes = [
+            p, p, p, p, p, p,  # lane_count count_in consts sph rec blocks
+            p, p, p,  # move out tape
+            i, i, i, i,  # n s blocks rows
+            i, i, i, i,  # seed lane_base samples trace_depth
+            ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
+            p,  # stream
+        ]
+        lib.rtiw_megatrace_blocked.restype = ctypes.c_int
+        lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, i, p]
         lib.rtiw_megatrace_ext_info.restype = ctypes.c_int
         lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
         lib.rtiw_tile_lanes.restype = ctypes.c_int
@@ -1993,17 +2125,18 @@ def load_kernel() -> ctypes.CDLL:
 
 
 def sphere_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
-                       has_motion: bool = False,
-                       has_tex: bool = False) -> dict:
+                       has_motion: bool = False, has_tex: bool = False,
+                       n_blk: int = 0) -> dict:
     """The sphere kernel's occupancy with an s-sphere table on the
     current card: blocks an SM (the occupancy API), registers a thread and
     local memory (stack and spills) a thread in bytes; of its build for
     aux_rows rect and box rows (0: none) and the flags (all unset: the
-    sphere build)."""
+    sphere build), or with n_blk > 0 of its blocked build (static, or
+    with has_motion moving) for a table of n_blk sphere blocks."""
     info = (ctypes.c_int * 3)()
     err = load_kernel().rtiw_megatrace_ext_info(
         int(s), int(aux_rows), int(has_vol), int(has_motion), int(has_tex),
-        info)
+        int(n_blk), info)
     if err != 0:
         raise RuntimeError(f"megatrace_sphere_kernel info: cudaError {err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
@@ -2154,7 +2287,7 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        box_tables=None, vol0=None, move_offsets=None,
                        tex_tables=None):
     global LAUNCHES, AUX_LAUNCHES, VOL_LAUNCHES, MOTION_LAUNCHES
-    global TEX_LAUNCHES
+    global TEX_LAUNCHES, BLOCKED_LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
                    camera_row=camera_row, centers=centers, radii=radii,
@@ -2173,9 +2306,6 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
     if records.dim() != 2 or records.shape[0] != s or records.shape[1] < 11:
         raise ValueError(f"sample_batch: records has shape "
                          f"{tuple(records.shape)}, want ({s}, 11 or 12)")
-    if s > SPH_CULL_MIN:
-        raise ValueError(f"sample_batch: {s} spheres; the kernel stages at "
-                         f"most {SPH_CULL_MIN} in shared memory")
     for name in ("centers", "radii", "records", "sky_bottom", "sky_top",
                  "camera_row"):
         if tensors[name].dtype != torch.float32:
@@ -2240,6 +2370,23 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
     tape = (torch.empty((samples * trace_depth, n), dtype=torch.float32,
                         device=dev) if want_tape else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if s > SPH_CULL_MIN:  # sample_batch refused every other table
+        move = None if move_offsets is None else move_table(move_offsets)
+        table = pack_sphere_blocks(centers, radii, move_offsets)
+        err = lib.rtiw_megatrace_blocked(
+            per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), table.data_ptr(),
+            0 if move is None else move.data_ptr(), out.data_ptr(),
+            0 if tape is None else tape.data_ptr(), n, s,
+            -(-s // SPH_BLOCK), SPH_BLOCK, int(seed), int(lane_base),
+            samples, trace_depth, float(t_min), int(has_dielectrics),
+            int(sky_on), int(jitter), stream)
+        if err != 0:
+            raise RuntimeError(f"megatrace_batch blocked build launch "
+                               f"failed: cudaError {err}")
+        LAUNCHES += 1
+        BLOCKED_LAUNCHES += 1
+        return _outputs(out, tape)
     has_aux = rect_tables is not None or box_tables is not None
     if (has_aux or vol0 is not None or move_offsets is not None
             or tex_tables is not None):
@@ -2334,7 +2481,10 @@ def sample_batch(
     with convex volumes: the volume builds, VOL_LAUNCHES; `move_offsets`
     (S, 3) the spheres' unit-shutter motion: the motion builds,
     MOTION_LAUNCHES; `tex_tables` pack_texture_tables' albedo textures:
-    the texture builds, TEX_LAUNCHES).
+    the texture builds, TEX_LAUNCHES).  More than SPH_CULL_MIN spheres
+    take the blocked builds (BLOCKED_LAUNCHES), static or moving; beside
+    any of the other tables they raise NotImplementedError (ROADMAP step
+    7.7b).
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
@@ -2358,6 +2508,11 @@ def sample_batch(
     if tex_tables is not None and (tri_tables is not None
                                    or tri_stream_tables is not None):
         raise NotImplementedError(f"sample_batch: {TEXTURES_IN_MESHES}")
+    if centers.shape[0] > SPH_CULL_MIN and any(
+            t is not None for t in (tri_tables, tri_stream_tables,
+                                    rect_tables, box_tables, vol0,
+                                    tex_tables)):
+        raise NotImplementedError(f"sample_batch: {BIG_SPHERES_BESIDE}")
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, want_tape=want_tape, tri_tables=tri_tables,
@@ -2475,7 +2630,7 @@ def load_wave_kernel() -> ctypes.CDLL:
             p, p, p, p, p, p, p,  # origin direction active sky sph rec out
             i, i, i, i,  # n s seed trace_depth
             ctypes.c_float, i, i,  # t_min has_diel sky_on
-            p,  # stream
+            i, p,  # big stream
         ]
         lib.rtiw_megatrace_wave.restype = ctypes.c_int
         _WAVE_KERNEL = lib
@@ -2485,7 +2640,7 @@ def load_wave_kernel() -> ctypes.CDLL:
 def _megatrace_cuda(origin, direction, active, centers, radii, records,
                     sky_bottom, sky_top, seed, *, trace_depth, t_min,
                     has_dielectrics, sky_on):
-    global WAVE_LAUNCHES
+    global WAVE_LAUNCHES, WAVE_BIG_LAUNCHES
     dev = centers.device
     n, s = origin.shape[0], centers.shape[0]
     tensors = dict(origin=(origin, (n, 3)), direction=(direction, (n, 3)),
@@ -2504,9 +2659,6 @@ def _megatrace_cuda(origin, direction, active, centers, radii, records,
     if records.shape[0] != s or records.shape[1] < 11 or records.device != dev:
         raise ValueError(f"megatrace: records has shape "
                          f"{tuple(records.shape)}, want ({s}, 11 or 12)")
-    if s > SPH_CULL_MIN:
-        raise ValueError(f"megatrace: {s} spheres; the kernel stages at "
-                         f"most {SPH_CULL_MIN} in shared memory")
     lib = load_wave_kernel()
     sph, rec = sweep_tables(centers, radii, records)
     sky = _pack_sky_row(sky_bottom, sky_top)[0].contiguous()
@@ -2517,11 +2669,12 @@ def _megatrace_cuda(origin, direction, active, centers, radii, records,
         active.to(torch.uint8).contiguous().data_ptr(), sky.data_ptr(),
         sph.data_ptr(), rec.data_ptr(), out.data_ptr(), n, s, int(seed),
         trace_depth, float(t_min), int(has_dielectrics), int(sky_on),
-        stream,
+        int(s > SPH_CULL_MIN), stream,
     )
     if err != 0:
         raise RuntimeError(f"megatrace_wave launch failed: cudaError {err}")
     WAVE_LAUNCHES += 1
+    WAVE_BIG_LAUNCHES += int(s > SPH_CULL_MIN)
     return _wave_outputs(out)
 
 
@@ -2543,8 +2696,9 @@ def megatrace(
 ) -> dict:
     """Per-ray fused trace of a wavefront of rays (see
     `megatrace_reference` for the outputs).  CUDA tensors launch the
-    kernel (csrc/megatrace_wave.cu) or raise; CPU tensors run the plain
-    version."""
+    kernel (csrc/megatrace_wave.cu; past SPH_CULL_MIN spheres its build
+    that reads them through the read-only cache, WAVE_BIG_LAUNCHES) or
+    raise; CPU tensors run the plain version."""
     kwargs = dict(trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on)
     args = (origin, direction, active, centers, radii, records, sky_bottom,

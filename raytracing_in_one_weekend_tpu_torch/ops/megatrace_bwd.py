@@ -45,7 +45,11 @@ not mirror) take its texture instantiation (`TEX`): a sphere row's
 cotangent grows by its texture record's main and secondary colours (19
 columns, GRAD_COLS then those), which go back to pack_texture_tables'
 records, and the fetched atlas texels take theirs in a texel plane the
-atlas's shape (the JAX kernel's texel-plane cotangent).
+atlas's shape (the JAX kernel's texel-plane cotangent).  Sphere scenes
+of more than SPH_CULL_MIN static spheres take its `BIG` instantiation:
+the sphere rows sum in device memory (BIG_LAUNCHES), since sphere_field's
+4,099 rows do not fit a block's shared memory; its other builds raise
+there (ROADMAP step 7.7b).
 
 `replay_step_vjp` exposes the kernel's one-iteration VJP (and
 `replay_step_vjp_reference` its autograd counterpart) so that the hand
@@ -67,6 +71,8 @@ N_SCAL_VOL = N_SCAL + mk.VOL_ROWS  # ... | vol0 (8): the volume builds
 
 LAUNCHES = 0  # CUDA launches of the path kernel made by replay_grad
 SCAN_LAUNCHES = 0  # CUDA launches of the tape scan (count and scatter)
+BIG_LAUNCHES = 0  # ... of the path kernel, launches of its build for more
+#   than SPH_CULL_MIN spheres (BIG: the sphere rows in device memory)
 
 _DIFF_ENV = ("co", "ll", "hh", "vv", "rr", "uu")
 
@@ -471,16 +477,33 @@ def scan_paths(tape, lane_count, *, samples: int, trace_depth: int):
 
 
 # the kernels' builds: sphere scenes, mesh scenes, scenes with rects or
-# boxes, the first and third with convex volumes, and sphere scenes with
-# moving spheres (csrc/megatrace_bwd.cu's `kind` argument)
-SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX = 0, 1, 2, 3, 4, 5, 6
+# boxes, the first and third with convex volumes, sphere scenes with
+# moving spheres, with textured albedos, and with more than SPH_CULL_MIN
+# static spheres (csrc/megatrace_bwd.cu's `kind` argument)
+SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX, BIG = 0, 1, 2, 3, 4, 5, 6, 7
 MOTION_BESIDE = ("the backward kernel's motion and texture adjoints beside "
                  "rects, boxes, volumes or each other (ROADMAP queue 1, step "
                  "7.3c)")
 
 
+SPHERE_ROWS_ONLY = (SPHERES, VOL, MOTION, TEX, BIG)  # builds whose entity
+#   table is the s real sphere rows
+
+
 def build_kind(has_tris: bool, has_aux: bool, has_volumes: bool,
-               has_motion: bool = False, has_tex: bool = False) -> int:
+               has_motion: bool = False, has_tex: bool = False,
+               big: bool = False) -> int:
+    """The path kernel's build for a scene of these features; `big`: more
+    than SPH_CULL_MIN spheres, which only static sphere scenes take (BIG,
+    the sphere rows in device memory; beside anything else ROADMAP step
+    7.7b)."""
+    if big:
+        if has_tris or has_aux or has_volumes or has_motion or has_tex:
+            raise NotImplementedError(
+                f"replay_grad: the backward kernel's builds other than "
+                f"static spheres past {mk.SPH_CULL_MIN} spheres (ROADMAP "
+                f"queue 1, step 7.7b)")
+        return BIG
     if has_tris and has_volumes:
         raise NotImplementedError(f"replay_grad: {mk.VOLUMES_IN_MESHES}")
     if has_tris and has_motion:
@@ -511,14 +534,11 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
         cot_color=cot_color, cot_count=cot_count,
     ), dict(camera_row=(24,), centers=(s, 3), radii=(s,), sky_bottom=(3,),
             sky_top=(3,), cot_color=(n, 3), cot_count=(n,)), dev)
-    if s > mk.SPH_CULL_MIN:
-        raise ValueError(f"replay_grad: {s} spheres; the kernel's shared "
-                         f"cotangent table holds at most {mk.SPH_CULL_MIN}")
     given = (tri_tables, rect_tables, box_tables)
     has_aux = rect_tables is not None or box_tables is not None
     has_motion, has_tex = move_offsets is not None, tex_tables is not None
     kind = build_kind(tri_tables is not None, has_aux, vol0 is not None,
-                      has_motion, has_tex)
+                      has_motion, has_tex, s > mk.SPH_CULL_MIN)
     cols = mr.grad_cols(tri_tables is not None, has_aux, has_motion, has_tex)
     tri = tuple(tri_tables or ())
     if tri:
@@ -586,12 +606,12 @@ def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
     scenes with rects or boxes: the whole padded table, which their tape
     codes, s_pad + row, index), the constants (_consts), the (4, N) color
     and count cotangents, the build (`kind`: SPHERES, MESH, AUX, VOL,
-    AUX_VOL, MOTION or TEX) and the texture build's atlas ((A * H, W, 3)
-    or None) and its (W, H)."""
+    AUX_VOL, MOTION, TEX or BIG) and the texture build's atlas ((A * H,
+    W, 3) or None) and its (W, H)."""
     return dict(
         tape=tape.contiguous(),
         per_pixel=lane_count.to(torch.float32).contiguous(),
-        ent=entity_rows.detach()[:s if kind in (SPHERES, VOL, MOTION, TEX)
+        ent=entity_rows.detach()[:s if kind in SPHERE_ROWS_ONLY
                                  else None].contiguous(),
         consts=consts,
         cot=torch.cat([cot_color.T, cot_count[None]]).contiguous(),
@@ -608,7 +628,7 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
     (T_pad, 28) in mesh scenes, (R_pad + B_pad, 19) with rects or boxes,
     else None; the texel plane's, the atlas's shape, in the texture build
     with an atlas, else None)."""
-    global LAUNCHES
+    global LAUNCHES, BIG_LAUNCHES
     lib = load_kernel()
     dev = args["tape"].device
     s, n, kind = args["s"], args["per_pixel"].shape[0], args["kind"]
@@ -621,7 +641,7 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
     dscal = torch.zeros(N_SCAL_VOL if kind in (VOL, AUX_VOL) else N_SCAL,
                         **f32)
     next_warp = torch.zeros(1, dtype=torch.int32, device=dev)
-    dent_rows = (None if kind in (SPHERES, VOL, MOTION, TEX) else torch.zeros(
+    dent_rows = (None if kind in SPHERE_ROWS_ONLY else torch.zeros(
         (args["ent"].shape[0] - s_pad,
          len(mr.TRI_GRAD_COLS if kind == MESH else mr.AUX_GRAD_COLS)), **f32))
     if paths.shape[0]:
@@ -641,6 +661,7 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
             raise RuntimeError(f"megatrace_bwd path kernel launch failed: "
                                f"cudaError {err}")
         LAUNCHES += 1
+        BIG_LAUNCHES += int(kind == BIG)
     return dent, dscal, dent_rows, datlas
 
 

@@ -133,12 +133,17 @@ def replay_eligible(scene) -> bool:
     batch kernel's scope, rects, boxes, convex volumes, unit-shutter
     motion, checker and image albedos and meshes of at most TRI_MAX
     triangles included (JAX replay_eligible: the tape has no
-    streamed-triangle arm, and the replay no Perlin marble)."""
+    streamed-triangle arm, and the replay no Perlin marble); past
+    SPH_CULL_MIN spheres only static sphere scenes (the backward kernel's
+    BIG build; moving ones train through the wavefront until ROADMAP step
+    7.7b)."""
     return (mk.scene_eligible(scene, allow_triangles=True,
                               allow_rect_box=True, allow_volumes=True,
                               allow_motion=True, allow_textures=True)
             and scene.triangles.vert0.shape[0] <= mk.TRI_MAX
-            and scene.textures.perlin is None)
+            and scene.textures.perlin is None
+            and not (scene.spheres.center.shape[0] > mk.SPH_CULL_MIN
+                     and scene.flags.has_motion))
 
 
 def build_entity_rows(centers, radii, records, tri_tables=None,

@@ -380,8 +380,10 @@ def _bounce_sync_cuda(state, seed, salt, bounce, tables, stream, *, t_min,
         raise ValueError("bounce_sync: tables are not scene_tables' (S, 4), "
                          f"(S, 16), (8,) on {dev}")
     if s > mk.SPH_CULL_MIN:
-        raise ValueError(f"bounce_sync: {s} spheres; the kernel stages at "
-                         f"most {mk.SPH_CULL_MIN} in shared memory")
+        raise NotImplementedError(
+            f"bounce_sync: {s} spheres; the kernel stages at most "
+            f"{mk.SPH_CULL_MIN} in shared memory (ROADMAP queue 1, step "
+            f"7.7b)")
     tri_args, tri_dims = mk._kernel_stream_args(stream, dev, s, "bounce_sync")
     lib = load_sync_kernel()
     err = lib.rtiw_meshtrace_sync(

@@ -323,6 +323,7 @@ class SceneBuilder:
 
     def __init__(self):
         self._textures: list[TextureSpec] = [TextureSpec()]  # id 0 = NONE
+        self._texture_ids: dict[TextureSpec, int] = {TextureSpec(): 0}
         self._materials: list[dict] = []
         self._spheres: list[tuple] = []
         self._rects: list[tuple] = []
@@ -344,11 +345,13 @@ class SceneBuilder:
                            image=(name, self._image_keys[name]))
 
     def _intern_texture(self, spec: TextureSpec) -> int:
-        for i, existing in enumerate(self._textures):
-            if existing == spec:
-                return i
-        self._textures.append(spec)
-        return len(self._textures) - 1
+        """The id of the first texture equal to `spec`, added if new (a
+        dict, so that scenes of thousands of materials build in
+        linear time)."""
+        if spec not in self._texture_ids:
+            self._texture_ids[spec] = len(self._textures)
+            self._textures.append(spec)
+        return self._texture_ids[spec]
 
     # -- materials -----------------------------------------------------------
 
