@@ -9,8 +9,10 @@ bounce, pair compaction and restore), the rect and box scenes
 `cornell` and `simple_light` (the aux builds of the batch and backward
 kernels) and the convex-volume scenes `volume`, `probabilistic` and
 `cornell_volumes` (their volume builds), the moving and textured scenes
-(their motion and texture builds), and `sphere_field` (4,099 spheres: the
-blocked builds of #1, #2's BIG build and #9's big build).
+(their motion and texture builds), `sphere_field` (4,099 spheres: the
+blocked builds of #1, #2's BIG build and #9's big build) and `cubemap` (the
+HDR cubemap sky: #1's cube builds, #2's cube build, the wavefront's
+lookup).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
@@ -29,9 +31,9 @@ which raises on failure:
   2. build the seven kernel sources (csrc/megatrace_batch.cu,
      csrc/megatrace_bwd.cu, csrc/sphere_select.cu, csrc/megatrace_wave.cu,
      csrc/triangle_select.cu, csrc/meshtrace_sync.cu,
-     csrc/meshtrace_permute.cu), one nvcc each, all at once; print
-     ptxas's register and spill lines (the backward's tape scan and path
-     kernel among them);
+     csrc/meshtrace_permute.cu), one nvcc each, all at once, with each
+     library's seconds; print ptxas's register and spill lines (the
+     backward's tape scan and path kernel among them);
   3. compare the batch kernel with its plain PyTorch version on the card
      (cover, 128x128, 8 spp, depth 8, two seeds): lanes whose winner tape,
      sample count and ray count are identical and whose float channels
@@ -191,25 +193,27 @@ which raises on failure:
      batches, every one through the batch kernel's aux build), the aux
      build against its plain version on a main-path batch's inputs (tape,
      count, rays identical, floats within 1e-4, >= 99% of lanes) and
-     alone by CUDA events at 4 and 64 spp; cornell's fwd+bwd step to its
-     albedos, rect and box positions and box extents (median MRays/s of 3
-     steps), the backward's aux build against the plain replay's autograd
-     on that step's inputs (each leaf, rect_geo, rect_rec, box_geo and
-     box_rec among them, within 5e-4 of its max abs) and alone at 4 and
-     64 spp; the CLI on --scene cornell and --scene simple_light.
+     alone by CUDA events at 4 and 64 spp; cornell's fwd+bwd step at depth
+     4 (STEP_DEPTH) to its albedos, rect and box positions and box extents
+     (median MRays/s of 3 steps), the backward's aux build against the
+     plain replay's autograd on that step's inputs (each leaf, rect_geo,
+     rect_rec, box_geo and box_rec among them, within 5e-4 of its max abs)
+     and alone at 4 and 64 spp; the CLI on --scene cornell and --scene
+     simple_light.
  23. convex volumes (`volume_phases`): render_batch on volume,
      probabilistic and cornell_volumes at 512x512, depth 8, 64 spp (1
      warm-up + 5 timed batches, every one through a volume build of the
      batch kernel), the volume build against its plain version on a
      main-path batch's inputs and at 4 spp (tape, count, rays identical,
      floats within 1e-4, >= 99% of lanes), alone by CUDA events at 4 and
-     64 spp; the fwd+bwd steps of cornell_volumes (to its material
-     parameters and albedos) and volume (to its material parameters and
-     sphere centres), the backward's volume builds against the plain
-     replay's autograd on each step's inputs (each leaf, vol0 and the
-     densities' records among them, within 5e-4 of its max abs) and alone
-     at 4 and 64 spp; a camera inside a fog sphere at 128x128, forward and
-     backward against their plain versions; the CLI on the three scenes.
+     64 spp; the fwd+bwd steps at depth 4 (STEP_DEPTH) of cornell_volumes
+     (to its material parameters and albedos) and volume (to its material
+     parameters and sphere centres), the backward's volume builds against
+     the plain replay's autograd on each step's inputs (each leaf, vol0
+     and the densities' records among them, within 5e-4 of its max abs)
+     and alone at 4 and 64 spp; a camera inside a fog sphere at 128x128,
+     forward and backward against their plain versions; the CLI on the
+     three scenes.
  24. unit-shutter motion (`motion_phases`): render_batch on cover_motion
      at 512x512, depth 8, 64 spp (1 warm-up + 3 timed batches, every one
      through the batch kernel's motion build), the build against its
@@ -240,6 +244,22 @@ which raises on failure:
      blocked motion build on the moving sphere field; cover_scene(grid=64)
      (16,384 spheres) at 128x128; cover_scene(grid=15) (the dense build)
      and grid=16 (the blocked build) at 512x512, 64 spp.
+ 27. the cubemap sky (`cube_phases`): render_batch on `cubemap` at
+     512x512, depth 8, 64 spp through #1's static cube build, the build
+     against its plain version on the last timed batch (`parity_rows`)
+     and at 4 spp, and alone at 4 and 64 spp; each of the five
+     cube builds (beside spheres alone, rects and boxes, volumes, motion,
+     textures: `cubemap`, and `simple_light`, `volume`, `cover_motion`,
+     `checkered` under `cubemap`'s faces) against its plain version at
+     128x128, 4 spp, and alone; a fwd+bwd step to the faces and albedos
+     through #2's cube build, held to the plain replay's autograd on the
+     last timed step and at 128x128, 4 spp, and its
+     one-iteration VJP on every live iteration, and alone at 4 and 64
+     spp; 8 Adam steps fitting the sky from half of it; integrator.trace's
+     `fast` arm and a wavefront training step whose gradient reaches the
+     sun's texels; a training step of simple_light under the cubemap on
+     the wavefront (#2 has no such build: ROADMAP step 7.6b); a 6 x 512 x
+     512 cubemap forward and fwd+bwd at 128x128.
 MRays/s counts every bounce of every sample as one ray, with the ray
 count the kernels themselves report.  Each kernel's bound is the larger of
 its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
@@ -250,6 +270,7 @@ run's inputs (see `bound`).  The last line is the JSON status.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import json
 import os
@@ -430,7 +451,7 @@ def path_stats(paths, trace_depth: int) -> dict:
 
 def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
                  repeats: int, rect=None, box=None, vol0=None, move=None,
-                 tex=None):
+                 tex=None, cube=None, cube_dims=(0, 0)):
     """The backward's kernels alone by CUDA events after a warm-up: (the
     tape scan's ms, its count and scatter launches alone; its wrapper's
     glue, the offsets and allocations between them; the path kernel's ms;
@@ -438,13 +459,15 @@ def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
     the mesh build, `rect` and `box` (pack_aux_tables' pairs) the aux
     build, `vol0` (camera_containment_row) a volume build, `move` (the
     spheres' move offsets) the motion build, `tex` (pack_texture_tables)
-    the texture build."""
+    the texture build, `cube` and `cube_dims` (pack_cubemap_table) the
+    cube build."""
     s = tables[1].shape[0]
     kind = megatrace_bwd.build_kind(tri is not None,
                                     rect is not None or box is not None,
                                     vol0 is not None, move is not None,
                                     tex is not None,
-                                    s > megatrace.SPH_CULL_MIN)
+                                    s > megatrace.SPH_CULL_MIN,
+                                    cube is not None)
     if move is None and tex is None:
         rows = megatrace_replay.build_entity_rows(*tables[1:4], tri, rect,
                                                   box)
@@ -456,7 +479,8 @@ def bwd_parts_ms(tables, tri, lane_count, tape, cots, seed, kw,
         tape, lane_count,
         megatrace_bwd._consts(tables[0], tables[4], tables[5], vol0),
         rows, s, *cots, kind=kind,
-        **({} if tex is None else dict(atlas=tex.atlas, dims=tex.dims)))
+        **({} if tex is None else dict(atlas=tex.atlas, dims=tex.dims)),
+        **({} if cube is None else dict(cube=cube, cube_dims=cube_dims)))
     scan = (args["tape"], args["per_pixel"], kw["samples"], kw["trace_depth"])
     wrapper_ms, paths = time_batch(megatrace_bwd._scan_cuda, *scan,
                                    repeats=repeats)
@@ -613,8 +637,10 @@ def recorded_calls(module, name: str, copy: bool = True):
 
 def time_batch(fn, *args, repeats: int, **kwargs) -> tuple[float, dict]:
     """(milliseconds per call from CUDA events after one warm-up call,
-    the last call's outputs)."""
-    fn(*args, **kwargs)
+    the last call's outputs); with repeats=1, as the plain versions are
+    timed (a second or more a call, host-bound), no warm-up."""
+    if repeats > 1:
+        fn(*args, **kwargs)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -660,22 +686,27 @@ def tri_tables_of(scene):
 
 
 def step_vjp_check(dev, scene, cs, label: str = "cover") -> float:
-    """Phase 6 (17b on a mesh scene): the kernel's one-iteration VJP
-    against autograd of the plain replay_iteration on every lane, at every
-    live iteration (three of them printed in full: the first, the first
-    later one with regen, sky lanes and the scene's other winner kind,
-    dielectric on the cover, triangle on a mesh, and the last)."""
+    """Phase 6 (17b on a mesh scene, 27c under a cubemap sky): the
+    kernel's one-iteration VJP against autograd of the plain
+    replay_iteration on every lane, at every live iteration (three of them
+    printed in full: the first, the first later one with regen, sky lanes
+    and the scene's other winner kind, dielectric on the cover, triangle
+    on a mesh, metal under the cubemap, and the last)."""
     w, spp, depth, seed = 64, 4, 8, 21
     n = w * w
     _, tables = batch_inputs(scene, cs, w, w, dev)
     tri = tri_tables_of(scene)
+    cube, cube_dims = (megatrace.pack_cubemap_table(scene)
+                       if scene.flags.sky == 2 else (None, (0, 0)))
     s_pad = megatrace.sphere_pad_count(tables[1].shape[0])
     lane_count = torch.full((n,), spp, dtype=torch.int32, device=dev)
     kw = dict(samples=spp, trace_depth=depth,
-              has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
+              has_dielectrics=scene.flags.has_dielectrics,
+              sky_on=scene.flags.sky == 1)
     tape = megatrace.sample_batch(lane_count, torch.zeros(n, device=dev),
                                   *tables, seed, want_tape=True,
-                                  tri_tables=tri, **kw)["tape"]
+                                  tri_tables=tri, cube=cube,
+                                  cube_dims=cube_dims, **kw)["tape"]
     ent = megatrace_replay.build_entity_rows(*tables[1:4], tri).detach()
     env = megatrace_replay.make_env(lane_count, tables[0], tables[4],
                                     tables[5], seed)
@@ -688,7 +719,11 @@ def step_vjp_check(dev, scene, cs, label: str = "cover") -> float:
             states.append(torch.stack([state[k] for k in keys]))
             regen = (state["active"] < 0.5) & (state["started"] < lane_count)
             winner = ent[torch.clamp(codes, min=0).long()]
+            # the other winner kind: triangles, metal under a cubemap
+            # (winner column 18), else dielectrics
             other = ((codes >= s_pad) if tri is not None
+                     else (codes >= 0) & (winner[:, 18] > 0.5)
+                     if cube is not None
                      else (codes >= 0) & (winner[:, 10] > 0.5))
             if (mixed is None and it > 0 and bool(regen.any())
                     and bool(other.any()) and bool((codes == -1).any())):
@@ -697,12 +732,15 @@ def step_vjp_check(dev, scene, cs, label: str = "cover") -> float:
                 last = it
             state = megatrace_replay.replay_iteration(
                 state, winner.T, codes, it, env, jitter=True,
-                has_dielectrics=kw["has_dielectrics"], sky_on=True,
-                trace_depth=depth, has_tris=tri is not None)
+                has_dielectrics=kw["has_dielectrics"],
+                sky_on=kw["sky_on"], trace_depth=depth,
+                has_tris=tri is not None,
+                cube=None if cube is None else (cube, cube_dims))
     if mixed is None:
+        other = ("triangle" if tri is not None
+                 else "metal" if cube is not None else "dielectric")
         raise RuntimeError(f"{label}: no iteration with regen, sky lanes and "
-                           f"{'triangle' if tri is not None else 'dielectric'}"
-                           f" winners")
+                           f"{other} winners")
     rng = np.random.default_rng(0)
     worst, worst_it = 0.0, 0
     for it in range(last + 1):
@@ -712,7 +750,8 @@ def step_vjp_check(dev, scene, cs, label: str = "cover") -> float:
         args = (states[it], tape[it].contiguous(), it, cot, lane_count,
                 *tables, seed)
         vkw = dict(trace_depth=depth, tri_tables=tri,
-                   has_dielectrics=kw["has_dielectrics"])
+                   has_dielectrics=kw["has_dielectrics"],
+                   sky_on=kw["sky_on"], cube=cube, cube_dims=cube_dims)
         got = megatrace_bwd.replay_step_vjp(*args, **vkw)
         torch.cuda.synchronize()
         want = megatrace_bwd.replay_step_vjp_reference(*args, **vkw)
@@ -1134,6 +1173,7 @@ def reset_launches() -> None:
     megatrace.AUX_LAUNCHES = megatrace.VOL_LAUNCHES = 0
     megatrace.MOTION_LAUNCHES = megatrace.TEX_LAUNCHES = 0
     megatrace.BLOCKED_LAUNCHES = megatrace.WAVE_BIG_LAUNCHES = 0
+    megatrace.CUBE_LAUNCHES = megatrace_bwd.CUBE_LAUNCHES = 0
     megatrace_bwd.SCAN_LAUNCHES = megatrace_bwd.BIG_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
@@ -2560,6 +2600,13 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     return {"kernels": kernels, "paths": out}
 
 
+STEP_DEPTH = 4  # trace depth of phases 22's and 23's fwd+bwd steps (the
+#   main path's 8 elsewhere): the plain replay that checks each timed
+#   step's backward takes time with its iterations, samples x depth, and
+#   the script's time limit holds one minute a scene at 64 spp, depth 8,
+#   for phases 8 and 27 alone
+
+
 def aux_errors(got, want, names) -> float:
     """Max error over the leaves `names` relative to each leaf's max abs
     (a leaf whose plain gradient is exactly zero must be zero too);
@@ -2585,10 +2632,13 @@ AUX_LEAVES = LEAVES + ("rect_geo", "rect_rec", "box_geo", "box_rec")
 
 
 def aux_launch_ms(tables, rect, box, samples: int, repeats: int,
-                  kw: dict, vol0=None, move=None, tex=None) -> float:
+                  kw: dict, vol0=None, move=None, tex=None, cube=None,
+                  cube_dims=(0, 0)) -> float:
     """The aux build (with `vol0`, a volume build; with `move`, the
     spheres' move offsets, a motion build; with `tex`,
-    pack_texture_tables' tables, a texture build) alone: CUDA events
+    pack_texture_tables' tables, a texture build; with `cube` and
+    `cube_dims`, pack_cubemap_table's sky, a cube build, of those or of
+    the spheres alone) alone: CUDA events
     around `repeats` launches of its C entry point on buffers made once
     (sample_batch's own packing, a few small torch ops, would otherwise
     bound a short batch by the host)."""
@@ -2612,9 +2662,13 @@ def aux_launch_ms(tables, rect, box, samples: int, repeats: int,
     trec, perlin, atlas, (img_w, img_h) = (
         (None, None, None, (0, 0)) if tex is None
         else megatrace.kernel_tex_tables(tex, dev))
+    faces = None if cube is None else megatrace.kernel_cube(cube, cube_dims,
+                                                            dev)
     extra = (int(vol0 is not None),
              *(0 if t is None else t.data_ptr()
-               for t in (table, trec, perlin, atlas)), img_w, img_h)
+               for t in (table, trec, perlin, atlas)), img_w, img_h,
+             0 if faces is None else faces.data_ptr(),
+             *(cube_dims if cube is not None else (0, 0)))
 
     def launch():
         err = lib.rtiw_megatrace_ext(
@@ -2652,13 +2706,14 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         within 1e-4 on >= 99% of lanes;
     (c) the aux build alone by CUDA events at 4 and 64 spp, its plain
         version at 4 spp, registers and blocks an SM, and the bound;
-    (d) cornell's fwd+bwd step, render_image(differentiable=True),
-        mean((color - target)^2), .backward() to the texture colors (its
-        albedos and emission), the rect and box positions and the box
-        extents: 1 warm-up + 3 timed steps (median MRays/s, the forward
-        rays of each seed), the path kernel's aux build launched, the
-        gradients finite; then the backward against the plain replay's
-        autograd on the last step's inputs, each leaf (the rect_geo,
+    (d) cornell's fwd+bwd step at depth STEP_DEPTH,
+        render_image(differentiable=True), mean((color - target)^2),
+        .backward() to the texture colors (its albedos and emission), the
+        rect and box positions and the box extents: 1 warm-up + 3 timed
+        steps (median MRays/s, the forward rays of each seed), the path
+        kernel's aux build launched, the gradients finite; then the
+        backward against the plain replay's autograd on the last step's
+        inputs, each leaf (the rect_geo,
         rect_rec, box_geo and box_rec cotangents among them) within 5e-4
         of its max abs;
     (e) #2's aux build alone at cornell 4 and 64 spp (the tape scan's
@@ -2790,8 +2845,8 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         for seed in seeds:  # the forward rays of each step's seed
             _, m = renderer.render_batch(
                 scene, camera, film.zero_accumulators(n, device=dev),
-                width=width, height=height, samples=spp, trace_depth=8,
-                seed=seed, differentiable=False)
+                width=width, height=height, samples=spp,
+                trace_depth=STEP_DEPTH, seed=seed, differentiable=False)
             rays.append(float(m.total_rays))
         names = ("texture_colors", "rect_positions", "box_positions",
                  "box_extents")
@@ -2808,7 +2863,7 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
                 step = renderer.render_image(
                     params_mod.apply_params(scene, params), camera,
                     width=width, height=height, samples_per_pixel=spp,
-                    trace_depth=8, seed=seed, differentiable=True)
+                    trace_depth=STEP_DEPTH, seed=seed, differentiable=True)
                 torch.mean((step.color - target) ** 2).backward()
                 torch.cuda.synchronize()
                 rates.append(r / (time.perf_counter() - t) / 1e6)
@@ -2822,9 +2877,10 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
             raise RuntimeError("cornell fwd+bwd: bad gradients")
         rate = statistics.median(rates[1:])
         out["cornell_fwd_bwd_mrays"] = rate
-        print(f"aux fwd+bwd: cornell {width}x{height} depth 8, {spp} spp: "
-              f"median {rate:.3f} MRays/s over 3 steps ({rays[-1]:.0f} "
-              f"forward rays/step; launches aux build {launches[0]}, tape "
+        print(f"aux fwd+bwd: cornell {width}x{height} depth {STEP_DEPTH}, "
+              f"{spp} spp: median {rate:.3f} MRays/s over 3 steps "
+              f"({rays[-1]:.0f} forward rays/step; launches aux build "
+              f"{launches[0]}, tape "
               f"scan {launches[1]}, path kernel {launches[2]}); max |grad| "
               + ", ".join(f"{k} {float(g.abs().max()):.4g}"
                           for k, g in grads.items()) + f" [{card}]")
@@ -2836,9 +2892,9 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         torch.cuda.synchronize()
         rel = aux_errors(got, want, AUX_LEAVES)
         print(f"aux backward vs plain on a main-path step (cornell {width}x"
-              f"{height}, {spp} spp, depth 8): max error {rel:.3e} of the "
-              f"leaf's max abs over {', '.join(AUX_LEAVES)}; plain version "
-              f"{time.perf_counter() - t:.1f} s")
+              f"{height}, {spp} spp, depth {STEP_DEPTH}): max error "
+              f"{rel:.3e} of the leaf's max abs over {', '.join(AUX_LEAVES)}; "
+              f"plain version {time.perf_counter() - t:.1f} s")
         bwd_rel = rel
         del calls, args, kwargs, got, want
 
@@ -3034,9 +3090,10 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         within 1e-4 on >= 99% of lanes; again at 4 spp;
     (c) the build alone by CUDA events at 4 and 64 spp, its plain version
         at 4 spp, registers and blocks an SM, and the bound;
-    (d) the fwd+bwd step on cornell_volumes (to its material parameters,
-        the two densities among them, and its albedos) and on volume (to
-        the material parameters and the sphere centres):
+    (d) the fwd+bwd step at depth STEP_DEPTH on cornell_volumes (to its
+        material parameters, the two densities among them, and its
+        albedos) and on volume (to the material parameters and the sphere
+        centres):
         render_image(differentiable=True), mean((color - target)^2),
         .backward(), 1 warm-up + 3 timed steps (median MRays/s, the
         forward rays of each seed), the path kernel's volume build
@@ -3185,8 +3242,8 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         for seed in seeds:  # the forward rays of each step's seed
             _, m = renderer.render_batch(
                 scene, camera, film.zero_accumulators(n, device=dev),
-                width=width, height=width, samples=spp, trace_depth=8,
-                seed=seed, differentiable=False)
+                width=width, height=width, samples=spp,
+                trace_depth=STEP_DEPTH, seed=seed, differentiable=False)
             rays.append(float(m.total_rays))
         names = (("material_parameters", "texture_colors")
                  if name == "cornell_volumes"
@@ -3204,7 +3261,7 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
                 step = renderer.render_image(
                     params_mod.apply_params(scene, params), camera,
                     width=width, height=width, samples_per_pixel=spp,
-                    trace_depth=8, seed=seed, differentiable=True)
+                    trace_depth=STEP_DEPTH, seed=seed, differentiable=True)
                 torch.cuda.synchronize()
                 torch.mean((step.color - target) ** 2).backward()
                 torch.cuda.synchronize()
@@ -3221,9 +3278,10 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
             raise RuntimeError(f"{name} fwd+bwd: bad gradients")
         rate = statistics.median(rates[1:])
         out[f"{name}_fwd_bwd_mrays"] = rate
-        print(f"volume fwd+bwd: {name} {width}x{width} depth 8, {spp} spp: "
-              f"median {rate:.3f} MRays/s over 3 steps ({rays[-1]:.0f} "
-              f"forward rays/step; launches volume build {launches[0]}, "
+        print(f"volume fwd+bwd: {name} {width}x{width} depth {STEP_DEPTH}, "
+              f"{spp} spp: median {rate:.3f} MRays/s over 3 steps "
+              f"({rays[-1]:.0f} forward rays/step; launches volume build "
+              f"{launches[0]}, "
               f"tape scan {launches[1]}, path kernel {launches[2]}); max "
               f"|grad| " + ", ".join(f"{k} {float(g.abs().max()):.4g}"
                                      for k, g in grads.items())
@@ -3240,9 +3298,9 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
                            if rect is not None else ()) + ("vol0",)
         rel = volume_errors(got, want, leaves)
         print(f"volume backward vs plain on a main-path step ({name} "
-              f"{width}x{width}, {spp} spp, depth 8): max error {rel:.3e} "
-              f"of the leaf's max abs over {', '.join(leaves)}; plain "
-              f"version {time.perf_counter() - t:.1f} s")
+              f"{width}x{width}, {spp} spp, depth {STEP_DEPTH}): max error "
+              f"{rel:.3e} of the leaf's max abs over {', '.join(leaves)}; "
+              f"plain version {time.perf_counter() - t:.1f} s")
         bwd_rel = rel
         del calls, args, kwargs, got, want
 
@@ -4552,6 +4610,556 @@ def sphere_field_phases(dev, card, width: int = 512, spp: int = 64,
     return {"kernels": kernels, "paths": out}
 
 
+CUBE_FLOPS = 25  # per miss under a cubemap (megatrace_common.cuh::
+#   cube_texel): 3 abs, 5 compares, 2 negations, a max, 2 divides, 2 adds,
+#   2 multiplies, 2 conversions, 4 clamps, 2 index products and sums
+CUBE_ARMS = (("spheres", "cubemap"), ("rects and boxes", "simple_light"),
+             ("volumes", "volume"), ("motion", "cover_motion"),
+             ("textures", "checkered"))  # the cube builds: the arm beside
+#   the cubemap, and the scene that takes `cubemap`'s faces as its sky
+
+
+def with_cube_sky(scene, faces):
+    """`scene` under the cubemap `faces` (6, H, W, 3) instead of its sky."""
+    env = scene.environment
+    return dataclasses.replace(
+        scene, environment=dataclasses.replace(
+            env, sky_type=torch.full_like(env.sky_type, 2), cubemap=faces),
+        flags=dataclasses.replace(scene.flags, sky=2))
+
+
+def cube_inputs(scene, cs, width, dev):
+    """(camera, the six tables, the batch kernel's keyword tables) of a
+    width x width batch of a scene under a cubemap sky, with whichever arm
+    beside it the scene has."""
+    camera, tables = batch_inputs(scene, cs, width, width, dev)
+    packed = materials.pack_materials(scene)
+    rect, box = megatrace.pack_aux_tables(scene, packed)
+    cube, dims = megatrace.pack_cubemap_table(scene)
+    return camera, tables, dict(
+        rect_tables=rect, box_tables=box,
+        vol0=(megatrace.camera_containment_row(scene, packed, camera.origin)
+              if scene.flags.has_volumes else None),
+        move_offsets=scene.spheres.move_offset,
+        tex_tables=megatrace.pack_texture_tables(scene), cube=cube,
+        cube_dims=dims)
+
+
+def cube_flops(tape, s_count: int, rect=None, r_count: int = 0,
+               b_count: int = 0, volumes: bool = False,
+               motion: bool = False) -> float:
+    """The cube builds' operations on a tape's bounces: the sweep and
+    shading of every bounce (with rects, boxes or volumes winner_flops';
+    with motion MOTION_SWEEP_FLOPS a sphere) and CUBE_FLOPS a miss."""
+    rays = float((tape > -1.5).sum())
+    if r_count or b_count or volumes:
+        flops = winner_flops(tape, s_count, rect, r_count, b_count)
+    else:
+        flops = rays * (s_count * (MOTION_SWEEP_FLOPS if motion
+                                   else SWEEP_FLOPS) + SHADE_FLOPS)
+    return flops + float((tape == -1).sum()) * CUBE_FLOPS
+
+
+def cube_phases(dev, card, width: int = 512, spp: int = 64,
+                small: int = 128, big: int = 512) -> dict:
+    """Phase 27: the cubemap sky (#1's cube builds, #2's cube build, the
+    wavefront's lookup) on `cubemap` (3 spheres under a procedural 6 x 32
+    x 32 HDR cubemap with a sun disk), 512x512, depth 8:
+    (a) render_batch at 64 spp, 1 warm-up + 3 timed batches (median
+        MRays/s), every batch through the static cube build (CUBE_LAUNCHES,
+        set to 0 just before and read just after), the image finite; the
+        build against its plain version on the last timed batch's inputs
+        (the plain version on its 64 centre rows, `parity_rows`) and on a
+        whole 4 spp batch; the build alone by CUDA events at 4 and 64 spp,
+        its plain version at 4 spp, registers and blocks an SM, and the
+        bound;
+    (b) each cube build against its plain version on a whole `small` x
+        `small`, 4 spp batch (tape, count, rays identical, floats within
+        1e-4, >= 99% of lanes): the static build on `cubemap`, and beside
+        rects and boxes, volumes, motion and textures on `simple_light`,
+        `volume`, `cover_motion` and `checkered` under `cubemap`'s faces;
+        each alone by CUDA events at 4 spp;
+    (c) one fwd+bwd step to the faces and the sphere albedos (the texture
+        colours) through #2's cube build, 1 warm-up + 2 timed (median
+        MRays/s), the gradients finite and nonzero; #2 against the plain
+        replay's autograd on the last timed step's inputs and at `small` x
+        `small`, 4 spp, each leaf (the cube plane among them) within 5e-4
+        of its max abs; the one-iteration
+        VJP on every live iteration of a 64x64 batch within 5e-4; #2 alone
+        at 4 and 64 spp;
+    (d) a fit: 8 Adam steps of diff.inverse.optimize on
+        `environment_cubemap` from a sky at half the true one, towards a
+        render of the true one (96x96, 16 spp, depth 6): the mean of the
+        last three losses below that of the first three;
+    (e) the wavefront: integrator.trace on `cubemap` takes the `fast` arm
+        (sphere_select_full, no per-ray megatrace), as the JAX package's;
+        one differentiable wavefront step at `small` x `small` (the batch
+        kernel refused as bench_matrix.py --wavefront refuses it) gives
+        the faces a finite gradient, nonzero on the sun's texels; a
+        training step of `simple_light` under `cubemap`'s faces at 64x64
+        takes the wavefront on its own (#2 has no cube build beside rects:
+        ROADMAP step 7.6b), its gradient to the faces finite and nonzero;
+    (f) capacity: a 6 x `big` x `big` cubemap (18.9 MB at 512) at `small`
+        x `small`: a 4 spp forward batch and one fwd+bwd step through the
+        cube builds, finite.
+    (`width`, `spp`, `small` and `big` shrink it for a rehearsal on the
+    CPU.)"""
+    t_phase = time.perf_counter()
+    n = width * width
+    out = {}
+    names = [f"megatrace_sphere_kernelILb{a}ELb{v}ELb{m}ELb{t}ELb0ELb1EE"
+             for a, v, m, t in ((0, 0, 0, 0), (1, 0, 0, 0), (0, 1, 0, 0),
+                                (0, 0, 1, 0), (0, 0, 0, 1))]
+    print("cube builds: ptxas #1 " + "; ".join(
+        f"{arm} {ptxas_report(megatrace.BUILD_LOG, k) or '-'}"
+        for (arm, _), k in zip(CUBE_ARMS, names)) + "; #2 path kernel "
+        + (ptxas_report(megatrace_bwd.BUILD_LOG, "megatrace_paths_kernel"
+                        "ILb0ELb0ELb0ELb0ELb0ELb0ELb1EE") or "-"))
+    scene, cs = testbeds.SCENES["cubemap"]()
+    scene = scene.to(dev)
+    if (not megatrace.scene_eligible(scene, allow_cubemap=True)
+            or megatrace.scene_eligible(scene)
+            or not megatrace_replay.replay_eligible(scene)):
+        raise RuntimeError("cubemap left the cube builds' or the replay's "
+                           "scope, or entered the per-ray megatrace's")
+    camera, tables, ckw = cube_inputs(scene, cs, width, dev)
+    s_count = scene.spheres.center.shape[0]
+    kw = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+              sky_on=False)
+    cube, dims = ckw["cube"], ckw["cube_dims"]
+
+    # ---- (a) the forward main path ------------------------------------------
+    gen = torch.Generator().manual_seed(7)
+    acc = film.zero_accumulators(n, device=dev)
+
+    def forward(scn, cam, samples, accum, w=width):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = renderer.render_batch(scn, cam, accum, gen, width=w,
+                                     height=w, samples=samples,
+                                     trace_depth=8)
+        rays = float(m.total_rays)
+        torch.cuda.synchronize()
+        return rays, time.perf_counter() - t
+
+    reset_launches()
+    runs = []
+    with recorded_calls(megatrace, "sample_batch") as calls:
+        for _ in range(4):
+            calls.clear()  # keep the last batch's call only
+            runs.append(forward(scene, camera, spp, acc))
+    fwd_launches = megatrace.CUBE_LAUNCHES
+    if (megatrace.LAUNCHES, fwd_launches) != (4, 4):
+        raise RuntimeError(f"cubemap: batch kernel launches "
+                           f"{megatrace.LAUNCHES}, cube {fwd_launches}; "
+                           "want 4 of the cube build")
+    rate = statistics.median(r / t / 1e6 for r, t in runs[1:])
+    img = film.combine(acc, width, width).color
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.1:
+        raise RuntimeError(f"bad cubemap image: mean {float(img.mean())}")
+    print(f"cubemap main path: {width}x{width} depth 8, {spp} spp/batch: "
+          f"median {rate:.3f} MRays/s over 3 batches ({runs[1][0]:.0f} "
+          f"rays/batch; launches batch kernel {megatrace.LAUNCHES}, cube "
+          f"build {fwd_launches}); image mean {float(img.mean()):.4f} "
+          f"[{card}]")
+    out["cubemap_fwd_mrays"] = rate
+    # the build against its plain version on the inputs the main path gave
+    # it (the last timed batch), the plain version on a band of its rows
+    (args, kwargs, _), = calls
+    share64, err64 = parity_rows(f"cube build, cubemap {width}x{width} "
+                                 f"{spp} spp main-path batch", args, kwargs,
+                                 min(64, width), width)
+    del calls, args, kwargs
+    zeros = torch.zeros(n, device=dev)
+    timed = {}
+    table_bytes = s_count * 4 * (4 + 16) + cube.numel() * 4
+    for few in (4, spp):
+        lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+        res = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                     samples=few, want_tape=True,
+                                     cube=cube, cube_dims=dims, **kw)
+        bnd = bound(cube_flops(res["tape"], s_count),
+                    n * 4 * (2 + megatrace.OUT_ROWS) + table_bytes)
+        ms = aux_launch_ms(tables, None, None, few, 10 if few == 4 else 3,
+                           kw, cube=cube, cube_dims=dims)
+        timed[few] = (ms, float(res["rays"].sum()),
+                      float((res["tape"] == -1).sum()), bnd)
+        if few == 4:
+            plain_ms, plain = time_batch(
+                megatrace.sample_batch_reference, lane_count, zeros,
+                *tables, 7, samples=few, repeats=1, want_tape=True,
+                cube=cube, cube_dims=dims, **kw)
+            share4, err4 = lane_agreement(res, plain)
+            if share4 < 0.99:
+                raise RuntimeError(f"cube build/plain agreement {share4}")
+            del plain
+        del res
+    info = megatrace.sphere_kernel_info(s_count, has_cube=True)
+    (ms4, rays4, miss4, bnd4), (ms64, rays64, _, bnd64) = (timed[4],
+                                                          timed[spp])
+    print(f"cube build alone, cubemap {width}x{width} depth 8 (CUDA events, "
+          f"launches alone): 4 spp {ms4:.3f} ms ({rays4:.0f} bounces, "
+          f"{miss4:.0f} misses; bound {bnd4[0]:.4f} ms by {bnd4[1]}, "
+          f"{bnd4[0] / ms4:.1%}), {spp} spp {ms64:.3f} ms ({rays64:.0f} "
+          f"bounces; bound {bnd64[0]:.4f} ms, {bnd64[0] / ms64:.1%}); plain "
+          f"{plain_ms:.3f} ms at 4 spp ({share4:.6f} of lanes agree, max "
+          f"abs err {err4:.3g}); {info['registers']} registers, "
+          f"{info['local_bytes']} B local a thread, {info['blocks']} blocks "
+          f"of 128 an SM [{card}]")
+    fwd = dict(ms=ms4, ms_64spp=ms64, plain_ms=plain_ms, bound=bnd4,
+               bound_ms_64spp=bnd64[0], **info)
+
+    # ---- (b) every cube build against its plain version ---------------------
+    m_ = small * small
+    registry = {**book_scenes.SCENES, **testbeds.SCENES}
+    shares, max_err, builds = [share4, share64], max(err4, err64), {}
+    lane_count = torch.full((m_,), 4, dtype=torch.int32, device=dev)
+    for arm, name in CUBE_ARMS:
+        bscene, bcs = registry[name]()
+        bscene = with_cube_sky(bscene.to(dev), scene.environment.cubemap)
+        if not megatrace.scene_eligible(
+                bscene, allow_triangles=True, allow_rect_box=True,
+                allow_volumes=True, allow_motion=True, allow_textures=True,
+                allow_cubemap=True):
+            raise RuntimeError(f"{name} under a cubemap left the cube "
+                               "builds' scope")
+        _, btables, bkw = cube_inputs(bscene, bcs, small, dev)
+        skw = dict(trace_depth=8, samples=4, want_tape=True,
+                   has_dielectrics=bscene.flags.has_dielectrics,
+                   sky_on=False, **bkw)
+        before = megatrace.CUBE_LAUNCHES
+        got = megatrace.sample_batch(lane_count, torch.zeros(m_, device=dev),
+                                     *btables, 11, **skw)
+        torch.cuda.synchronize()
+        if megatrace.CUBE_LAUNCHES != before + 1:
+            raise RuntimeError(f"{name}: no cube build launched")
+        b_plain_ms, want = time_batch(
+            megatrace.sample_batch_reference, lane_count,
+            torch.zeros(m_, device=dev), *btables, 11, repeats=1, **skw)
+        share, err = lane_agreement(got, want)
+        if share < 0.99:
+            raise RuntimeError(f"cube build beside {arm}/plain agreement "
+                               f"{share}")
+        shares.append(share)
+        max_err = max(max_err, err)
+        b_ms = aux_launch_ms(
+            btables, bkw["rect_tables"], bkw["box_tables"], 4, 10,
+            dict(skw, sky_on=False), vol0=bkw["vol0"],
+            move=bkw["move_offsets"], tex=bkw["tex_tables"],
+            cube=bkw["cube"], cube_dims=bkw["cube_dims"])
+        r_count = bscene.rects.rot.shape[0]
+        b_count = bscene.boxes.rot.shape[0]
+        bnd = bound(cube_flops(got["tape"], bscene.spheres.center.shape[0],
+                               bkw["rect_tables"], r_count, b_count,
+                               bscene.flags.has_volumes,
+                               bscene.flags.has_motion),
+                    m_ * 4 * (2 + megatrace.OUT_ROWS))
+        binfo = megatrace.sphere_kernel_info(
+            bscene.spheres.center.shape[0],
+            sum(t[0].shape[0] for t in (bkw["rect_tables"],
+                                        bkw["box_tables"]) if t is not None),
+            has_vol=bkw["vol0"] is not None,
+            has_motion=bkw["move_offsets"] is not None,
+            has_tex=bkw["tex_tables"] is not None, has_cube=True)
+        builds[arm] = dict(ms=b_ms, plain_ms=b_plain_ms, bound=bnd,
+                           share=share, **binfo)
+        print(f"parity cube build beside {arm} ({name} under cubemap's "
+              f"faces, {small}x{small} 4 spp): {share:.6f} of lanes "
+              f"identical (tape, count, rays; floats within 1e-4), max abs "
+              f"err {err:.3g}; kernel {b_ms:.3f} ms (CUDA events; bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]}), plain {b_plain_ms:.3f} ms; "
+              f"{binfo['registers']} registers, {binfo['local_bytes']} B "
+              f"local, {binfo['blocks']} blocks an SM [{card}]")
+        del got, want, bscene
+
+    # ---- (c) gradients: #2's cube build -------------------------------------
+    target = img.detach()
+    seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
+             for _ in range(3)]
+    leaf_names = ("environment_cubemap", "texture_colors")
+    rays = []
+    for seed in seeds:  # the forward rays of each step's seed
+        _, m = renderer.render_batch(
+            scene, camera, film.zero_accumulators(n, device=dev),
+            width=width, height=width, samples=spp, trace_depth=8, seed=seed,
+            differentiable=False)
+        rays.append(float(m.total_rays))
+    reset_launches()
+    rates = []
+    with recorded_calls(megatrace_bwd, "replay_grad", copy=False) as calls:
+        for seed, r in zip(seeds, rays):
+            calls.clear()  # keep the last step's call only
+            params = {k: v.detach().clone().requires_grad_() for k, v in
+                      params_mod.extract_params(scene, leaf_names).items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step = renderer.render_image(
+                params_mod.apply_params(scene, params), camera, width=width,
+                height=width, samples_per_pixel=spp, trace_depth=8,
+                seed=seed, differentiable=True)
+            torch.mean((step.color - target) ** 2).backward()
+            torch.cuda.synchronize()
+            rates.append(r / (time.perf_counter() - t) / 1e6)
+    launches = (megatrace.CUBE_LAUNCHES, megatrace_bwd.SCAN_LAUNCHES,
+                megatrace_bwd.CUBE_LAUNCHES)
+    if (min(launches) == 0 or megatrace.LAUNCHES != launches[0]
+            or megatrace_bwd.LAUNCHES != launches[2]):
+        raise RuntimeError(f"cubemap fwd+bwd: launches {launches}")
+    grads = {k: v.grad for k, v in params.items()}
+    if (not all(bool(torch.isfinite(g).all()) for g in grads.values())
+            or not all(float(g.abs().max()) > 0.0 for g in grads.values())):
+        raise RuntimeError("cubemap fwd+bwd: bad gradients")
+    rate_b = statistics.median(rates[1:])
+    out["cubemap_fwd_bwd_mrays"] = rate_b
+    print(f"cubemap fwd+bwd: {width}x{width} depth 8, {spp} spp: median "
+          f"{rate_b:.3f} MRays/s over 2 steps (launches cube build "
+          f"{launches[0]}, tape scan {launches[1]}, path kernel cube build "
+          f"{launches[2]}); max |grad| " + ", ".join(
+              f"{k} {float(g.abs().max()):.4g}" for k, g in grads.items())
+          + f" [{card}]")
+    # #2 against the plain replay's autograd on the inputs the main path
+    # gave it (the last timed step); the sky colours are unused under a
+    # cubemap: zero on both sides
+    keep = [0, 1, 2, 3, 6]
+    held = tuple(LEAVES[k] for k in keep[:4]) + ("cube",)
+
+    def cube_errors(got, want, label):
+        for k in (4, 5):
+            if float(got[k].abs().max()) != 0.0 or float(
+                    want[k].abs().max()) != 0.0:
+                raise RuntimeError(f"cube build ({label}): a gradient to the "
+                                   "unused sky colours")
+        return leaf_errors([got[k] for k in keep], [want[k] for k in keep],
+                           held)
+
+    (args, kwargs, got), = calls
+    t = time.perf_counter()
+    want = megatrace_bwd.replay_grad_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    step_abs, step_rel = cube_errors(got, want, "main-path step")
+    print(f"cube backward vs plain on a main-path step (cubemap {width}x"
+          f"{width}, {spp} spp, depth 8): max error {step_rel:.3e} of the "
+          f"leaf's max abs ({step_abs:.3e}) over {', '.join(held)}; plain "
+          f"version {time.perf_counter() - t:.1f} s [{card}]")
+    del calls, args, kwargs, got, want
+    _, tables_s, ckw_s = cube_inputs(scene, cs, small, dev)
+    fkw = dict(kw, samples=4, cube=ckw_s["cube"], cube_dims=dims)
+    lane_count = torch.full((m_,), 4, dtype=torch.int32, device=dev)
+    res = megatrace.sample_batch(lane_count, torch.zeros(m_, device=dev),
+                                 *tables_s, 7, want_tape=True, **fkw)
+    args = (res["tape"], lane_count, *tables_s, 7,
+            *probe_cotangents(res["color"], res["count"]))
+    rg_ms, got = time_batch(megatrace_bwd.replay_grad, *args, repeats=3,
+                            **fkw)
+    bwd_plain_ms, want = time_batch(megatrace_bwd.replay_grad_reference,
+                                    *args, repeats=1, **fkw)
+    bwd_abs, bwd_rel = cube_errors(got, want, f"{small}x{small}")
+    print(f"cubemap {small}x{small} depth 8, 4 spp backward: cube build "
+          f"replay_grad {rg_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms; max "
+          f"error {bwd_rel:.3e} of the leaf's max abs ({bwd_abs:.3e}) over "
+          f"camera_row, centers, radii, records and the cube plane "
+          f"[{card}]")
+    del res, args, got, want
+    step_err = step_vjp_check(dev, scene, cs, "cubemap")
+    bwd = dict(launches=launches[2], scan_launches=launches[1],
+               max_rel_err=max(bwd_rel, step_rel), replay_grad_ms=rg_ms,
+               plain_ms=bwd_plain_ms, step_vjp_rel_err=step_err)
+    for few in (4, spp):
+        lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+        fkw = dict(kw, samples=few)
+        res = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                     want_tape=True, cube=cube,
+                                     cube_dims=dims, **fkw)
+        cots = probe_cotangents(res["color"], res["count"])
+        live = float(res["rays"].sum())
+        scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+            tables, None, lane_count, res["tape"], cots, 7, fkw,
+            5 if few == 4 else 3, cube=megatrace.kernel_cube(cube, dims, dev),
+            cube_dims=dims)
+        misses = float((res["tape"] == -1).sum())
+        bnd_b = bwd_bound(live, table.shape[0], n,
+                          s_count * 4 * 23 + 2 * cube.numel() * 4,
+                          misses * 3 * CUBE_FLOPS)
+        print(f"cube backward alone, cubemap {width}x{width} depth 8, {few} "
+              f"spp (CUDA events): tape scan's two launches {scan_ms:.3f} ms "
+              f"(glue {glue_ms:.3f} ms more), path kernel {paths_ms:.3f} ms, "
+              f"{paths_ms * 1e6 / live:.3f} ns a live iteration (bound "
+              f"{bnd_b[0]:.4f} ms by {bnd_b[1]}, {bnd_b[0] / paths_ms:.1%}; "
+              f"{live:.0f} live iterations, {misses:.0f} misses) [{card}]")
+        key = "" if few == 4 else "_64spp"
+        bwd[f"ms{key}"] = paths_ms
+        bwd[f"scan_ms{key}"] = scan_ms
+        bwd[f"bound{key}"] = bnd_b
+        bwd[f"ns_per_iteration{key}"] = paths_ms * 1e6 / live
+        del res, table
+
+    # ---- (d) a fit of the sky -----------------------------------------------
+    fit_w = min(96, width)
+    fit_cam, _ = batch_inputs(scene, cs, fit_w, fit_w, dev)
+    fit_target = renderer.render_image(
+        scene, fit_cam, width=fit_w, height=fit_w, samples_per_pixel=64,
+        trace_depth=6, seed=1, differentiable=False).color
+    reset_launches()
+    t = time.perf_counter()
+    fitted, losses = inverse.optimize(
+        scene, fit_cam, fit_target,
+        {"environment_cubemap": 0.5 * scene.environment.cubemap},
+        inverse.InverseRenderConfig(width=fit_w, height=fit_w,
+                                    samples_per_pixel=16, trace_depth=6,
+                                    learning_rate=0.05, steps=8), seed=2)
+    fit_s = time.perf_counter() - t
+    truth = scene.environment.cubemap
+    err0 = float((0.5 * truth - truth).abs().mean())
+    err1 = float((fitted["environment_cubemap"] - truth).abs().mean())
+    if (not all(np.isfinite(losses))
+            or not np.mean(losses[-3:]) < np.mean(losses[:3])
+            or megatrace_bwd.CUBE_LAUNCHES == 0):
+        raise RuntimeError(f"cubemap fit: losses {losses}, path kernel cube "
+                           f"launches {megatrace_bwd.CUBE_LAUNCHES}")
+    print(f"cubemap fit: 8 Adam steps on environment_cubemap from half the "
+          f"sky, {fit_w}x{fit_w}, 16 spp, depth 6, in {fit_s:.2f} s: losses "
+          + ", ".join(f"{x:.4g}" for x in losses) + f"; mean texel error "
+          f"{err0:.4f} -> {err1:.4f} (cube build launches "
+          f"{megatrace_bwd.CUBE_LAUNCHES}) [{card}]")
+    out["fit_losses"] = losses
+
+    # ---- (e) the wavefront --------------------------------------------------
+    cam_rays = camera_rays(camera, width, width, 3, dev)
+    reset_launches()
+    t = time.perf_counter()
+    res = integrator.trace(scene, cam_rays, rng.PRNGKey(4), 8,
+                           differentiable=False)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t
+    fast = sphere_select.LAUNCHES["sphere_select_full"]
+    if fast == 0 or megatrace.WAVE_LAUNCHES != 0 or not bool(
+            torch.isfinite(res.radiance).all()):
+        raise RuntimeError(f"integrator.trace on cubemap: fast-arm launches "
+                           f"{fast}, per-ray megatrace "
+                           f"{megatrace.WAVE_LAUNCHES}")
+    cam_s, _ = batch_inputs(scene, cs, small, small, dev)
+    faces = scene.environment.cubemap.clone().requires_grad_()
+    eligible = megatrace.scene_eligible
+    megatrace.scene_eligible = lambda *a, **k: False
+    try:
+        reset_launches()
+        t = time.perf_counter()
+        step = renderer.render_image(
+            dataclasses.replace(scene, environment=dataclasses.replace(
+                scene.environment, cubemap=faces)), cam_s, width=small,
+            height=small, samples_per_pixel=4, trace_depth=8, seed=3)
+        torch.mean((step.color - 0.5) ** 2).backward()
+        torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t
+    finally:
+        megatrace.scene_eligible = eligible
+    sun = scene.environment.cubemap.sum(-1) > 15.0  # the sun disk's texels
+    g_sun = float(faces.grad[sun].abs().max())
+    if (megatrace.LAUNCHES != 0 or not bool(torch.isfinite(faces.grad).all())
+            or g_sun == 0.0):
+        raise RuntimeError(f"cubemap wavefront step: batch kernel launches "
+                           f"{megatrace.LAUNCHES}, sun gradient {g_sun}")
+    print(f"cubemap wavefront: integrator.trace took the fast arm "
+          f"({fast} sphere_select_full launches, no per-ray megatrace) in "
+          f"{trace_s:.3f} s at {width}x{width}, depth 8; a training step "
+          f"{small}x{small}, 4 spp, depth 8: {wave_s:.2f} s, max |grad| of "
+          f"the faces {float(faces.grad.abs().max()):.4g}, of the sun's "
+          f"{int(sun.sum())} texels {g_sun:.4g} [{card}]")
+    # a cubemap beside rects: the renderer sends a training step to the
+    # wavefront, #2 having no such build
+    lscene, lcs = registry["simple_light"]()
+    lscene = with_cube_sky(lscene.to(dev), scene.environment.cubemap)
+    lcam, _ = batch_inputs(lscene, lcs, 64, 64, dev)
+    lfaces = lscene.environment.cubemap.clone().requires_grad_()
+    reset_launches()
+    lstep = renderer.render_image(
+        dataclasses.replace(lscene, environment=dataclasses.replace(
+            lscene.environment, cubemap=lfaces)), lcam, width=64, height=64,
+        samples_per_pixel=2, trace_depth=8, seed=6, differentiable=True)
+    torch.mean(lstep.color ** 2).backward()
+    torch.cuda.synchronize()
+    g_max = float(lfaces.grad.abs().max())
+    if (megatrace.LAUNCHES != 0 or megatrace_bwd.LAUNCHES != 0
+            or not bool(torch.isfinite(lfaces.grad).all()) or g_max == 0.0):
+        raise RuntimeError(f"simple_light under a cubemap: batch kernel "
+                           f"launches {megatrace.LAUNCHES}, backward "
+                           f"{megatrace_bwd.LAUNCHES}, max |grad| {g_max}")
+    print(f"simple_light under the cubemap, a training step at 64x64, 2 "
+          f"spp, depth 8: the wavefront (no batch or backward kernel "
+          f"launch), max |grad| of the faces {g_max:.4g} [{card}]")
+    del lscene, lfaces, lstep
+
+    # ---- (f) capacity -------------------------------------------------------
+    bscene, bcs = testbeds.cubemap_testbed(size=big)
+    bscene = bscene.to(dev)
+    bcam, btables, bkw = cube_inputs(bscene, bcs, small, dev)
+    # the static cube build alone at small x small on both maps
+    cap_ms = [aux_launch_ms(t, None, None, 4, 10, kw, cube=k["cube"],
+                            cube_dims=k["cube_dims"])
+              for t, k in ((tables_s, ckw_s), (btables, bkw))]
+    reset_launches()
+    bacc = film.zero_accumulators(m_, device=dev)
+    brays, bsecs = forward(bscene, bcam, 4, bacc, small)
+    bimg = film.combine(bacc, small, small).color
+    bfaces = bscene.environment.cubemap.clone().requires_grad_()
+    bstep = renderer.render_image(
+        dataclasses.replace(bscene, environment=dataclasses.replace(
+            bscene.environment, cubemap=bfaces)), bcam, width=small,
+        height=small, samples_per_pixel=4, trace_depth=8, seed=5)
+    torch.mean((bstep.color - bimg) ** 2).backward()
+    torch.cuda.synchronize()
+    if (megatrace.CUBE_LAUNCHES != 2 or megatrace_bwd.CUBE_LAUNCHES != 1
+            or not bool(torch.isfinite(bimg).all())
+            or not bool(torch.isfinite(bfaces.grad).all())):
+        raise RuntimeError(f"6 x {big} x {big} cubemap: cube launches "
+                           f"{megatrace.CUBE_LAUNCHES}, "
+                           f"{megatrace_bwd.CUBE_LAUNCHES}")
+    print(f"capacity: a 6 x {big} x {big} cubemap "
+          f"({bfaces.numel() * 4 / 1e6:.1f} MB) at {small}x{small}, 4 spp: "
+          f"the cube build alone {cap_ms[1]:.3f} ms (the 6 x 32 x 32 map's "
+          f"{cap_ms[0]:.3f} ms), forward (render_batch, its first call) "
+          f"{brays / bsecs / 1e6:.3f} MRays/s, image mean "
+          f"{float(bimg.mean()):.4f}; a fwd+bwd step through the cube "
+          f"builds, max |grad| {float(bfaces.grad.abs().max()):.4g} "
+          f"[{card}]")
+    del bscene, bfaces, bstep
+    out["capacity_ms"] = cap_ms
+    out["cube_parity_share"] = min(shares)
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+
+    src = "raytracing_in_one_weekend_tpu_torch/csrc/"
+    kernels = [{
+        "name": "megatrace_batch_cube", "route": "cuda",
+        "source": src + "megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:1372",
+        "launches": fwd_launches, "max_abs_err": max_err,
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1],
+        "library_ms": None, "ms_64spp": fwd["ms_64spp"],
+        "bound_ms_64spp": fwd["bound_ms_64spp"],
+        "registers": fwd["registers"], "local_bytes": fwd["local_bytes"],
+        "blocks_per_sm": fwd["blocks"],
+        **{f"beside_{arm.split()[0]}_{f}": (b["bound"][0] if f == "bound_ms"
+                                           else b[f])
+           for arm, b in builds.items()
+           for f in ("ms", "plain_ms", "bound_ms", "registers", "blocks")},
+    }, {
+        "name": "megatrace_bwd_cube", "route": "cuda",
+        "source": src + "megatrace_bwd.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
+        "launches": bwd["launches"], "scan_launches": bwd["scan_launches"],
+        "max_abs_err": bwd["max_rel_err"], "ms": bwd["ms"],
+        "scan_ms": bwd["scan_ms"], "replay_grad_ms": bwd["replay_grad_ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound"][0],
+        "bound_by": bwd["bound"][1], "library_ms": None,
+        "ms_64spp": bwd["ms_64spp"], "bound_ms_64spp": bwd["bound_64spp"][0],
+        "ns_per_iteration": bwd["ns_per_iteration"],
+        "ns_per_iteration_64spp": bwd["ns_per_iteration_64spp"],
+        "step_vjp_rel_err": bwd["step_vjp_rel_err"],
+    }]
+    return {"kernels": kernels, "paths": out}
+
+
 SASS_SOURCES = ("megatrace_batch", "megatrace_wave", "megatrace_bwd",
                 "meshtrace_sync", "meshtrace_permute", "sphere_select",
                 "triangle_select")
@@ -4695,6 +5303,29 @@ def sass_functions(lib: str) -> dict:
     return funcs
 
 
+def build_libraries() -> dict:
+    """Build (where not built yet) and load the seven kernel sources, one
+    nvcc each, all started together: {source: seconds until its library
+    loaded}."""
+    loaders = dict(
+        megatrace_batch=megatrace.load_kernel,
+        megatrace_bwd=megatrace_bwd.load_kernel,
+        sphere_select=sphere_select.load_kernel,
+        megatrace_wave=megatrace.load_wave_kernel,
+        triangle_select=triangle_select.load_kernel,
+        meshtrace_sync=meshtrace.load_sync_kernel,
+        meshtrace_permute=meshtrace.load_permute_kernel)
+    t0 = time.perf_counter()
+
+    def timed(load):
+        load()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
+        futures = {k: pool.submit(timed, load) for k, load in loaders.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def against(other: str) -> int:
     """The tree unpacked at `other` (say, the parent commit) against this
     one on the card: the SASS of megatrace_batch's sphere-only and
@@ -4774,17 +5405,10 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    loaders = (megatrace.load_kernel, megatrace_bwd.load_kernel,
-               sphere_select.load_kernel, megatrace.load_wave_kernel,
-               triangle_select.load_kernel, meshtrace.load_sync_kernel,
-               meshtrace.load_permute_kernel)
-    with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
-        for build in [pool.submit(load) for load in loaders]:
-            build.result()
-    print(f"build: megatrace_batch.cu, megatrace_bwd.cu, sphere_select.cu, "
-          f"megatrace_wave.cu, triangle_select.cu, meshtrace_sync.cu and "
-          f"meshtrace_permute.cu in {time.perf_counter() - t0:.1f} s")
+    seconds = build_libraries()
+    print(f"build: the seven sources in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k}.cu {v:.1f} s" for k, v in seconds.items())
+          + ", one nvcc each, all started together)")
     for name, log in (("megatrace_batch", megatrace.BUILD_LOG),
                       ("megatrace_bwd", megatrace_bwd.BUILD_LOG),
                       ("sphere_select", sphere_select.BUILD_LOG),
@@ -4953,6 +5577,7 @@ def main() -> int:
     motion = motion_phases(dev, card)
     texture = texture_phases(dev, card)
     field = sphere_field_phases(dev, card)
+    cube = cube_phases(dev, card)
 
     kernels = [{
         "name": "megatrace_batch",
@@ -5006,7 +5631,7 @@ def main() -> int:
         "library_ms": None,
     }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"] \
         + aux["kernels"] + vol["kernels"] + motion["kernels"] \
-        + texture["kernels"] + field["kernels"]
+        + texture["kernels"] + field["kernels"] + cube["kernels"]
     print(json.dumps({
         "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
@@ -5019,7 +5644,8 @@ def main() -> int:
         "wavefront": wave["paths"], "mesh": mesh["paths"],
         "streamed": streamed["paths"], "aux": aux["paths"],
         "volume": vol["paths"], "motion": motion["paths"],
-        "texture": texture["paths"], "sphere_field": field["paths"]}))
+        "texture": texture["paths"], "sphere_field": field["paths"],
+        "cube": cube["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

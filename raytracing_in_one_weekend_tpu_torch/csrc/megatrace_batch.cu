@@ -3,12 +3,13 @@
 // rects and boxes
 // (with or without spheres), convex volumes, moving spheres and textured
 // albedos beside either, and mesh scenes of at most TRI_STREAM_MAX
-// triangles, gradient or no sky.
+// triangles, gradient or no sky; a cubemap sky beside spheres alone or
+// beside one of rects and boxes, volumes, motion and textures.
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
 // sphere arm (the dense and the blocked sweep), its rect/box arm, its convex-volume arm, its motion and
-// texture arms, its triangle (VMEM) arm and its streamed-triangle arm
-// (white-noise hash PRNG, dense sphere
+// texture arms, its cubemap branch (:1372-1416), its triangle (VMEM) arm
+// and its streamed-triangle arm (white-noise hash PRNG, dense sphere
 // sweep, the one-sided rect and Majercik box tests, the Beer-Lambert
 // volume walk, the Möller–Trumbore sweep over AABB-culled 192-row triangle
 // blocks, Standard Lambert/GGX-metal, dielectric and isotropic scatter,
@@ -95,6 +96,18 @@
 // (PERF.md §6, the blocked sweep): 64 rows a block against 32, 128 and
 // 256; the per-lane test against a warp vote; __ldg against staging a
 // kept block per warp in shared memory; 6 blocks an SM against 5.
+//
+// A cubemap sky takes the cube builds (kCube, the last flag: the sphere
+// build's, and the aux, volume, motion and texture builds' each with it;
+// the builds without it compile none of it and keep their SASS).  A miss
+// picks its texel by the plain version's float32 operations
+// (megatrace_common.cuh::cube_texel: ~25 operations, once a path) and reads
+// it from device memory through the read-only cache, as the atlas texel
+// is read: the faces are not staged (a 6 x 512 x 512 HDR map is 18.9 MB,
+// which L2 holds and shared memory never does), and no hardware cubemap
+// texture fetches them (its face select and coordinates are not IEEE
+// float32, so an edge direction would take another texel than the plain
+// version and the JAX package).
 //
 // Triangles (megatrace_batch_kernel: one thread a lane in lane order,
 // the camera and accumulators in registers, the header's sphere_sweep and
@@ -471,9 +484,13 @@ __device__ __forceinline__ bool aux_live(const float4* row, bool box) {
 // in shared memory instead of the spheres, and sweep them with
 // sphere_sweep_blocked, the spheres and move offsets read from device
 // memory through the read-only cache; kBlockedBlocks blocks an SM
-// (kMotionBlocks with kMotion).
+// (kMotionBlocks with kMotion).  Its cube builds (kCube; beside at most one
+// of kAux, kVol, kMotion and kTex, not kBlocked) take a miss's radiance
+// from the cubemap `cube` (cube_h rows of cube_w texels a face, six faces)
+// instead of the gradient sky, with the launch bounds of the build they
+// extend.
 template <bool kAux, bool kVol = false, bool kMotion = false,
-          bool kTex = false, bool kBlocked = false>
+          bool kTex = false, bool kBlocked = false, bool kCube = false>
 __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
                                             : kAux     ? kAuxBlocks
                                             : kMotion  ? kMotionBlocks
@@ -498,7 +515,9 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
                             const float* __restrict__ atlas = nullptr,
                             int img_w = 0, int img_h = 0,
                             const float* __restrict__ blk_g = nullptr,
-                            int blocks = 0, int blk_rows = 0) {
+                            int blocks = 0, int blk_rows = 0,
+                            const float* __restrict__ cube = nullptr,
+                            int cube_w = 0, int cube_h = 0) {
   extern __shared__ float4 sph[];
   // camera row: origin, lower_left, horizontal, vertical, right, up,
   // lens_radius, width, height | sky bottom | sky top (| pad | vol0)
@@ -567,6 +586,12 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
     tex.img_w = img_w;
     tex.img_h = img_h;
   }
+  [[maybe_unused]] std::conditional_t<kCube, CubeScene, char> sky_cube{};
+  if constexpr (kCube) {
+    sky_cube.texels = cube;
+    sky_cube.w = cube_w;
+    sky_cube.h = cube_h;
+  }
   if (threadIdx.x < kCamFloats) cam[threadIdx.x] = consts[threadIdx.x];
   const SharedRow acc{&acc_rows[0][threadIdx.x]};
 #pragma unroll
@@ -619,6 +644,8 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
     int winner;
     [[maybe_unused]] const TexScene* texp = nullptr;
     if constexpr (kTex) texp = &tex;
+    [[maybe_unused]] const CubeScene* cubep = nullptr;
+    if constexpr (kCube) cubep = &sky_cube;
     if constexpr (kVol) {
       // the winner's exit: a sphere's far root, a box's slab exit, none
       // for a rect (the JAX kernel's t_exit, :428-431, :570, :637-660)
@@ -641,24 +668,31 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
           t_exit = box_exit(o, d, g, t_min, true, bo, dl, inv, axis, hi);
         }
       }
-      winner = shade<false, kAux, true, kMotion, kTex>(
+      winner = shade<false, kAux, true, kMotion, kTex, kCube>(
           p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
           sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
           TriScene{}, auxp, aux_kind, aux_idx, &med, t_exit, move, ptime,
-          texp);
+          texp, cubep);
     } else if constexpr (kAux) {
       int aux_kind, aux_idx;
       aux_sweep(p, aux, t_min, best_t, aux_kind, aux_idx);
-      winner = shade<false, true, false, kMotion, kTex>(
+      winner = shade<false, true, false, kMotion, kTex, kCube>(
           p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
           sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
           TriScene{}, &aux, aux_kind, aux_idx, nullptr, kBig, move, ptime,
-          texp);
+          texp, cubep);
     } else if constexpr (kMotion || kTex) {
-      winner = shade<false, false, false, kMotion, kTex>(
+      winner = shade<false, false, false, kMotion, kTex, kCube>(
           p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
           sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
-          TriScene{}, nullptr, 0, 0, nullptr, kBig, move, ptime, texp);
+          TriScene{}, nullptr, 0, 0, nullptr, kBig, move, ptime, texp,
+          cubep);
+    } else if constexpr (kCube) {
+      winner = shade<false, false, false, false, false, true>(
+          p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+          sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+          TriScene{}, nullptr, 0, 0, nullptr, kBig, nullptr, 0.f, nullptr,
+          cubep);
     } else {
       winner = shade<false>(
           p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
@@ -902,8 +936,24 @@ static int sphere_info(const void* kernel, size_t shmem, int* info) {
 
 // The sphere kernel's builds beyond rtiw_megatrace_batch's sphere build:
 // megatrace_sphere_kernel<kAux = aux_rows > 0, kVol = has_vol, kMotion =
-// move != null, kTex = tex_rec != null>.
+// move != null, kTex = tex_rec != null>, or with a cubemap the cube build
+// of at most one of those (cube_kernel; null for two or more).
 using SphereKernel = decltype(&megatrace_sphere_kernel<false>);
+
+static SphereKernel cube_kernel(int aux_rows, int has_vol, bool motion,
+                                bool tex) {
+  if ((aux_rows > 0) + (has_vol != 0) + motion + tex > 1) return nullptr;
+  return aux_rows > 0
+             ? megatrace_sphere_kernel<true, false, false, false, false, true>
+         : has_vol
+             ? megatrace_sphere_kernel<false, true, false, false, false, true>
+         : motion
+             ? megatrace_sphere_kernel<false, false, true, false, false, true>
+         : tex
+             ? megatrace_sphere_kernel<false, false, false, true, false, true>
+             : megatrace_sphere_kernel<false, false, false, false, false,
+                                       true>;
+}
 
 template <bool kAux, bool kVol>
 static SphereKernel ext_kernel_of(bool motion, bool tex) {
@@ -941,8 +991,10 @@ static size_t ext_shmem(int s, int aux_rows, bool motion) {
 // floats: each sphere's move offset x y z, 0; 16-byte aligned) or null;
 // `tex_rec` (a kTexCols-float texture record per material) or null,
 // `perlin` (JAX's 8 x 256 table rows) or null, `atlas` ((A * img_h) x
-// img_w x 3 floats) or null.  Returns cudaGetLastError() after the launch,
-// or the error of setting its shared memory.
+// img_w x 3 floats) or null; `cube` ((6 * cube_h) x cube_w x 3 floats, the
+// faces) or null: with a cube, at most one of the aux, volume, motion and
+// texture tables (else cudaErrorInvalidValue).  Returns cudaGetLastError()
+// after the launch, or the error of setting its shared memory.
 extern "C" int rtiw_megatrace_ext(
     const float* lane_count, const float* count_in, const float* consts,
     const float* sph, const float* rec, const float* aux_geo,
@@ -951,12 +1003,16 @@ extern "C" int rtiw_megatrace_ext(
     int lane_base, int samples, int trace_depth, float t_min,
     int has_dielectrics, int sky_on, int jitter, int has_vol,
     const float* move, const float* tex_rec, const float* perlin,
-    const float* atlas, int img_w, int img_h, void* stream) {
+    const float* atlas, int img_w, int img_h, const float* cube, int cube_w,
+    int cube_h, void* stream) {
   if (n > 0) {
     const int aux_rows = rect_rows + box_rows;
     const bool motion = move != nullptr;
     const SphereKernel kernel =
-        ext_kernel(aux_rows, has_vol, motion, tex_rec != nullptr);
+        cube != nullptr
+            ? cube_kernel(aux_rows, has_vol, motion, tex_rec != nullptr)
+            : ext_kernel(aux_rows, has_vol, motion, tex_rec != nullptr);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const size_t shmem = ext_shmem(s, aux_rows, motion);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
@@ -968,7 +1024,8 @@ extern "C" int rtiw_megatrace_ext(
         has_dielectrics, sky_on, jitter,
         reinterpret_cast<const float4*>(aux_geo), aux_rec, rect_rows,
         box_rows, rect_code, box_code, reinterpret_cast<const float4*>(move),
-        tex_rec, perlin, atlas, img_w, img_h, nullptr, 0, 0);
+        tex_rec, perlin, atlas, img_w, img_h, nullptr, 0, 0, cube, cube_w,
+        cube_h);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1003,22 +1060,26 @@ extern "C" int rtiw_megatrace_blocked(
         rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
         has_dielectrics, sky_on, jitter, nullptr, nullptr, 0, 0, 0, 0,
         reinterpret_cast<const float4*>(move), nullptr, nullptr, nullptr, 0,
-        0, boxes, blocks, rows);
+        0, boxes, blocks, rows, nullptr, 0, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 
 // sphere_info of a build for an s-sphere table, aux_rows rect and box rows
-// and the flags (all 0: the sphere build); blocks > 0 takes the blocked
-// build (static or with has_motion) for a table of that many blocks.
+// and the flags (all 0: the sphere build; has_cube: a cube build);
+// blocks > 0 takes the blocked build (static or with has_motion) for a
+// table of that many blocks.
 extern "C" int rtiw_megatrace_ext_info(int s, int aux_rows, int has_vol,
                                        int has_motion, int has_tex,
-                                       int blocks, int* info) {
+                                       int blocks, int has_cube, int* info) {
   const SphereKernel kernel =
       blocks > 0 ? blocked_kernel(has_motion != 0)
+      : has_cube ? cube_kernel(aux_rows, has_vol, has_motion != 0,
+                               has_tex != 0)
                  : ext_kernel(aux_rows, has_vol, has_motion != 0,
                               has_tex != 0);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t shmem = blocks > 0 ? (size_t)blocks * 8 * sizeof(float)
                                   : ext_shmem(s, aux_rows, has_motion != 0);
   const cudaError_t err = cudaFuncSetAttribute(

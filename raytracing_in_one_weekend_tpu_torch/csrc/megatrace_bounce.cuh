@@ -9,8 +9,8 @@
 // `bounce`, which runs all three.  The triangle arm is a compile-time flag: the batch kernel's mesh
 // build takes it, the sphere-only builds compile none of it; so are the
 // rect and box arm (kAux), the convex volume walk (kVol), unit-shutter
-// motion (kMotion) and albedo textures (kTex) of the batch kernel's sphere
-// builds.  Plain version:
+// motion (kMotion), albedo textures (kTex) and the cubemap sky (kCube) of
+// the batch kernel's sphere builds.  Plain version:
 // ops/megatrace.py::_bounce, under the precision contract of
 // megatrace_common.cuh.
 #pragma once
@@ -195,6 +195,15 @@ __device__ __forceinline__ void tex_albedo(const TexScene& T, float mat_id,
   }
 }
 
+// A scene's cubemap sky (the batch kernel's cube builds): the faces as
+// (6 * h) x w x 3 floats in device memory (pack_cubemap_table), read
+// through the read-only cache.  A 6 x 512 x 512 HDR map is 18.9 MB: L2
+// holds it, shared memory never would.
+struct CubeScene {
+  const float* texels = nullptr;
+  int w = 0, h = 0;
+};
+
 // The state of one path (SampleBatchJob.cs:166-401).
 struct Path {
   float ox, oy, oz, dx, dy, dz;
@@ -288,9 +297,11 @@ __device__ __forceinline__ void aux_sweep(const Path& p, const AuxScene& aux,
 // miss.  With kMotion (the motion builds) a sphere winner's centre is
 // taken at the path's shutter time `ptime`: fmaf(move[best], ptime,
 // centre), its move offset a row of `move` (x, y, z, 0).  With kTex (the
-// texture builds) the winner's albedo is textured (tex_albedo).
+// texture builds) the winner's albedo is textured (tex_albedo).  With
+// kCube (the cube builds) a miss takes the nearest texel of `cube` along
+// its direction (cube_texel) in place of the gradient sky.
 template <bool kTris, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false>
+          bool kMotion = false, bool kTex = false, bool kCube = false>
 __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      bool tri_wins, int tri_idx, float tri_u,
                                      float tri_v, const float* __restrict__ rec,
@@ -303,15 +314,24 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      float t_exit = kBig,
                                      const float4* move = nullptr,
                                      float ptime = 0.f,
-                                     const TexScene* tex = nullptr) {
+                                     const TexScene* tex = nullptr,
+                                     const CubeScene* cube = nullptr) {
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
   const bool hit = best_t < kBig;
 
   if (!hit) {
-    // gradient sky (SampleBatchJob.cs:352-354)
+    // cubemap (the JAX kernel's :1376-1416) or gradient sky
+    // (SampleBatchJob.cs:352-354)
     float skr = 0.f, skg = 0.f, skb = 0.f;
-    if (sky_on) {
+    if constexpr (kCube) {
+      const float* texel =
+          cube->texels +
+          (size_t)cube_texel(dx, dy, dz, cube->w, cube->h) * 3;
+      skr = __ldg(texel);
+      skg = __ldg(texel + 1);
+      skb = __ldg(texel + 2);
+    } else if (sky_on) {
       const float tsky = 0.5f * (dy + 1.0f);
       skr = fmaf(sky[3] - sky[0], tsky, sky[0]);
       skg = fmaf(sky[4] - sky[1], tsky, sky[1]);

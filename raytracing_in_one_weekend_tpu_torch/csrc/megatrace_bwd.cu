@@ -1,10 +1,11 @@
 // Backward of the fused batch kernel for Hopper (sm_90a): the reverse
 // sweep of the tape replay, sphere scenes, scenes with rects and boxes,
 // convex volumes beside either, and mesh scenes of at most TRI_MAX
-// triangles, gradient or no sky.
+// triangles, gradient or no sky; sphere scenes under a cubemap sky.
 //
 // Replaces: ops/megatrace_bwd.py::_bwd_kernel of the JAX package, its
-// sphere, rect/box, volume and triangle arms.  Plain version:
+// sphere, rect/box, volume and triangle arms and its cube texel plane
+// (:196-216, :473-476, :548-549).  Plain version:
 // ops/megatrace_bwd.py::replay_grad_reference (torch.autograd over
 // ops/megatrace_replay.replay).  The JAX kernel takes
 // its adjoint from jax.vjp inside the kernel body; here it is derived by
@@ -79,6 +80,13 @@
 // cotangent goes into the texel plane `datlas` (the atlas's shape) by a
 // global atomic, the lanes of a warp that fetched one texel summing theirs
 // first (a 64 x 128 image takes many hits a texel).
+//
+// Sphere scenes under a cubemap sky take the kCube build (`kind` 8, sphere
+// rows only; the faces beside rects, boxes, volumes, motion, textures,
+// triangles or past 1024 spheres are ROADMAP step 7.6b): a miss's sky
+// cotangent goes to its texel of the plane `dcube` (the cube table's
+// shape) by a global atomic, the lanes of a warp whose misses met one
+// texel summing theirs first (a sun disk is a few texels).
 //
 // Sphere scenes of more than SPH_CULL_MIN = 1024 spheres take the
 // kDeviceRows build (`kind` 7, static spheres only): sphere_field's
@@ -210,6 +218,23 @@ struct WarpTexAdd {
   }
 };
 
+// The cube build's rows: the peers of each sphere row summed as
+// WarpEntityAdd does, added into the shared (s, kGradCols) table; then
+// the peers of each miss's texel (slot kGradCols, -1: none) summed the
+// same way, the first adding the sum into the texel plane.  A miss has no
+// row (w < 0) but its texel; a thread past its path's end holds -1 there.
+struct WarpCubeAdd {
+  float* base;
+  float* texels;
+  __device__ void operator()(int w, float* ge) const {
+    if (WarpTexAdd::peer_sum<kGradCols>(w, ge))
+      add_row(base + w * kGradCols, ge, kGradCols);
+    const int texel = (int)ge[kGradCols];
+    if (WarpTexAdd::peer_sum<3>(texel, ge + kGradCols + 1))
+      add_row(texels + (size_t)texel * 3, ge + kGradCols + 1, 3);
+  }
+};
+
 // The volume builds' scalar rows: kScalVol cotangents, an odd stride.
 constexpr int kGsStrideVol = kScalVol + 1;
 
@@ -287,8 +312,11 @@ struct RowAdd<false, true> {
 // build's kTexGradCols; the kTex build reads the atlas `atlas` (img_w x
 // img_h texels an image, or null) and writes the texel plane `datlas`.
 // The kDeviceRows build adds its sphere rows into `dent` in device memory.
+// The kCube build reads the cubemap `cube` (cube_h rows of cube_w texels a
+// face) and writes its texel plane `dcube`.
 template <bool kTris, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false, bool kDeviceRows = false>
+          bool kMotion = false, bool kTex = false, bool kDeviceRows = false,
+          bool kCube = false>
 __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     const float* __restrict__ tape, const int2* __restrict__ paths,
     int total, int* __restrict__ next_warp,
@@ -298,7 +326,9 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
     float* __restrict__ dent_tri, int tri_base, int n, int s, int seed,
     int lane_base, int trace_depth, float t_min, int has_dielectrics,
     int sky_on, int jitter, const float* __restrict__ atlas = nullptr,
-    float* __restrict__ datlas = nullptr, int img_w = 0, int img_h = 0) {
+    float* __restrict__ datlas = nullptr, int img_w = 0, int img_h = 0,
+    const float* __restrict__ cube = nullptr,
+    float* __restrict__ dcube = nullptr, int cube_w = 0, int cube_h = 0) {
   constexpr int kS = kVol ? kScalVol : kScal;
   constexpr int kStride = kVol ? kGsStrideVol : kGsStride;
   constexpr int kRow = kMotion ? kMotionGradCols
@@ -329,6 +359,8 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
   auto add = [&] {
     if constexpr (kTex)
       return WarpTexAdd{s_dent, datlas};
+    else if constexpr (kCube)
+      return WarpCubeAdd{s_dent, dcube};
     else
       return WarpEntityAdd<kTris, kAux,
                            typename RowAdd<kTris, kAux, kMotion>::type,
@@ -349,7 +381,9 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
       len = q.y % kMaxDepth + 1;
     }
     const int steps = (int)__reduce_max_sync(kFull, (unsigned)len);
-    std::conditional_t<kTex, LaneEnvTex, LaneEnv> E;
+    std::conditional_t<kTex, LaneEnvTex,
+                       std::conditional_t<kCube, LaneEnvCube, LaneEnv>>
+        E;
     static_cast<LaneEnv&>(E) =
         make_lane_env(s_cam, ent, i, lane_count[i], seed, lane_base,
                       trace_depth, t_min, has_dielectrics, sky_on, jitter);
@@ -358,7 +392,12 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
       E.img_w = img_w;
       E.img_h = img_h;
     }
-    path_backward<kTris, kAux, kVol, kMotion, kTex>(
+    if constexpr (kCube) {
+      E.cube = cube;
+      E.cube_w = cube_w;
+      E.cube_h = cube_h;
+    }
+    path_backward<kTris, kAux, kVol, kMotion, kTex, kCube>(
         tape, n, i, it0, len, steps, E, cot[i], cot[n + i], cot[2 * n + i],
         cot[3 * n + i], hist, gs, add);
     if constexpr (kVol)
@@ -378,7 +417,7 @@ __global__ void __launch_bounds__(kThreads, 3) megatrace_paths_kernel(
 // One iteration's VJP on every lane: the hand derivation, exposed so that
 // it can be held against torch.autograd of the plain replay_iteration.
 template <bool kTris, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false>
+          bool kMotion = false, bool kTex = false, bool kCube = false>
 __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
     const float* __restrict__ state, const float* __restrict__ codes,
     const float* __restrict__ cot_out, const float* __restrict__ lane_count,
@@ -387,10 +426,13 @@ __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
     float* __restrict__ cot_scal, int n, int it, int seed, int lane_base,
     int trace_depth, float t_min, int has_dielectrics, int sky_on,
     int jitter, const float* __restrict__ atlas = nullptr, int img_w = 0,
-    int img_h = 0) {
+    int img_h = 0, const float* __restrict__ cube = nullptr, int cube_w = 0,
+    int cube_h = 0) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  std::conditional_t<kTex, LaneEnvTex, LaneEnv> E;
+  std::conditional_t<kTex, LaneEnvTex,
+                     std::conditional_t<kCube, LaneEnvCube, LaneEnv>>
+      E;
   static_cast<LaneEnv&>(E) =
       make_lane_env(consts, ent, i, lane_count[i], seed, lane_base,
                     trace_depth, t_min, has_dielectrics, sky_on, jitter);
@@ -399,18 +441,25 @@ __global__ void __launch_bounds__(kThreads) replay_step_vjp_kernel(
     E.img_w = img_w;
     E.img_h = img_h;
   }
+  if constexpr (kCube) {
+    E.cube = cube;
+    E.cube_w = cube_w;
+    E.cube_h = cube_h;
+  }
   constexpr int cols = Layout<kTris, kAux, kMotion, kTex>::grad;
   constexpr int nv = kVol      ? kVolStateVars
                      : kMotion ? kMotionStateVars
                                : kStateVars;
   constexpr int kS = kVol ? kScalVol : kScal;
-  float st[nv], g[nv], ge[Layout<kTris, kAux, kMotion, kTex>::row], gs[kS];
+  float st[nv], g[nv], ge[Layout<kTris, kAux, kMotion, kTex, kCube>::row],
+      gs[kS];
   for (int k = 0; k < nv; ++k) {
     st[k] = state[(size_t)k * n + i];
     g[k] = cot_out[(size_t)k * n + i];
   }
   for (int k = 0; k < kS; ++k) gs[k] = 0.0f;
-  step_vjp<kTris, kAux, kVol, kMotion, kTex>(st, g, codes[i], it, E, ge, gs);
+  step_vjp<kTris, kAux, kVol, kMotion, kTex, kCube>(st, g, codes[i], it, E,
+                                                    ge, gs);
   for (int k = 0; k < nv; ++k) cot_in[(size_t)k * n + i] = g[k];
   for (int k = 0; k < cols; ++k) cot_ent[(size_t)k * n + i] = ge[k];
   for (int k = 0; k < kS; ++k) cot_scal[(size_t)k * n + i] = gs[k];
@@ -454,14 +503,17 @@ extern "C" int rtiw_bwd_scan(const float* tape, const float* lane_count,
 // rows hold the texture records in columns 23-38, `dent` is (s, 19), and
 // with an image `atlas` and a zeroed `datlas` ((A * img_h) x img_w x 3
 // floats each) take the atlas and its texel plane.  Kind 7 is kind 0 past
-// SPH_CULL_MIN spheres: `dent` gathers the rows directly.
+// SPH_CULL_MIN spheres: `dent` gathers the rows directly.  Kind 8 is kind 0
+// under a cubemap sky: `cube` and a zeroed `dcube` ((6 * cube_h) x cube_w x
+// 3 floats each) take the faces and their texel plane.
 extern "C" int rtiw_bwd_paths(
     const float* tape, const int* paths, int total, int* next_warp,
     const float* lane_count, const float* consts, const float* ent,
     const float* cot, float* dent, float* dscal, float* dent_rows,
     int row_base, int n, int s, int seed, int lane_base, int trace_depth,
     float t_min, int has_dielectrics, int sky_on, int jitter, int kind,
-    const float* atlas, float* datlas, int img_w, int img_h, void* stream) {
+    const float* atlas, float* datlas, int img_w, int img_h,
+    const float* cube, float* dcube, int cube_w, int cube_h, void* stream) {
   if (total <= 0) return 0;
   if (trace_depth < 1 || trace_depth > kMaxDepth)
     return (int)cudaErrorInvalidValue;
@@ -469,17 +521,18 @@ extern "C" int rtiw_bwd_paths(
   const int row = kind == 5   ? kMotionGradCols
                   : kind == 6 ? kTexGradCols
                   : kind == 7 ? 0
-                              : kGradCols;
+                              : kGradCols;  // kind 8 too
   const size_t shmem =
       ((size_t)s * row + kThreads * (vol ? kGsStrideVol : kGsStride)) *
       sizeof(float);
-  if (kind < 0 || kind > 7 ||
+  if (kind < 0 || kind > 8 ||
       (kind == 1 || kind == 2 || kind == 4) != (dent_rows != nullptr) ||
-      (atlas != nullptr) != (datlas != nullptr))
+      (atlas != nullptr) != (datlas != nullptr) ||
+      (kind == 8) != (cube != nullptr) || (cube != nullptr) != (dcube != nullptr))
     return (int)cudaErrorInvalidValue;
   // the build: 0 sphere scenes, 1 mesh scenes, 2 rects or boxes, 3 and 4
   // those of 0 and 2 with convex volumes, 5 moving spheres, 6 textured
-  // albedos, 7 more than SPH_CULL_MIN spheres
+  // albedos, 7 more than SPH_CULL_MIN spheres, 8 a cubemap sky
   auto kernel =
       kind == 1   ? megatrace_paths_kernel<true, false>
       : kind == 2 ? megatrace_paths_kernel<false, true>
@@ -489,7 +542,9 @@ extern "C" int rtiw_bwd_paths(
       : kind == 6 ? megatrace_paths_kernel<false, false, false, false, true>
       : kind == 7
           ? megatrace_paths_kernel<false, false, false, false, false, true>
-          : megatrace_paths_kernel<false, false>;
+      : kind == 8 ? megatrace_paths_kernel<false, false, false, false, false,
+                                           false, true>
+                  : megatrace_paths_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -509,7 +564,7 @@ extern "C" int rtiw_bwd_paths(
       tape, reinterpret_cast<const int2*>(paths), total, next_warp,
       lane_count, consts, ent, cot, dent, dscal, dent_rows, row_base, n, s,
       seed, lane_base, trace_depth, t_min, has_dielectrics, sky_on, jitter,
-      atlas, datlas, img_w, img_h);
+      atlas, datlas, img_w, img_h, cube, dcube, cube_w, cube_h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -519,8 +574,11 @@ extern "C" int rtiw_replay_step_vjp(
     float* cot_in, float* cot_ent, float* cot_scal, int n, int it, int seed,
     int lane_base, int trace_depth, float t_min, int has_dielectrics,
     int sky_on, int jitter, int kind, const float* atlas, int img_w,
-    int img_h, void* stream) {
-  if (kind < 0 || kind > 6) return (int)cudaErrorInvalidValue;
+    int img_h, const float* cube, int cube_w, int cube_h, void* stream) {
+  // no step build of kind 7 (the big scenes' rows differ only in where
+  // they are summed)
+  if (kind < 0 || kind > 8 || kind == 7 || (kind == 8) != (cube != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     auto kernel =
@@ -531,11 +589,14 @@ extern "C" int rtiw_replay_step_vjp(
         : kind == 5 ? replay_step_vjp_kernel<false, false, false, true>
         : kind == 6
             ? replay_step_vjp_kernel<false, false, false, false, true>
+        : kind == 8
+            ? replay_step_vjp_kernel<false, false, false, false, false, true>
             : replay_step_vjp_kernel<false, false>;
     kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         state, codes, cot_out, lane_count, consts, ent, cot_in, cot_ent,
         cot_scal, n, it, seed, lane_base, trace_depth, t_min,
-        has_dielectrics, sky_on, jitter, atlas, img_w, img_h);
+        has_dielectrics, sky_on, jitter, atlas, img_w, img_h, cube, cube_w,
+        cube_h);
   }
   return static_cast<int>(cudaGetLastError());
 }

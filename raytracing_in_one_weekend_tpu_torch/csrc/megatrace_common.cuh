@@ -302,4 +302,31 @@ RTIW_FN float smith_masking(float cos_theta, float roughness) {
   return 1.0f / (1.0f + lam);
 }
 
+// The nearest texel of a cubemap of w x h faces (+x, -x, +y, -y, +z, -z,
+// each h rows of w texels) along the direction (dx, dy, dz): its index
+// (face * h + y) * w + x (ops/megatrace.py::cube_texels, through
+// core/environment.py::cubemap_index, the JAX package's _sample_cubemap,
+// Texture.cs:172-210): the major axis (ties to x, then y), the face's
+// numerators, one IEEE division by the major component, then
+// min(int((uv + 1) * (size / 2)), size - 1).  No hardware cubemap fetch:
+// its face select and coordinates are not these float32 operations, and a
+// direction on a face or texel edge would pick another texel.
+RTIW_FN int cube_texel(float dx, float dy, float dz, int w, int h) {
+  const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
+  const bool use_x = ax >= ay && ax >= az;
+  const bool use_y = ay > ax && ay >= az;
+  const bool pos = use_x ? dx >= 0.0f : use_y ? dy >= 0.0f : dz >= 0.0f;
+  const float u_num = use_x   ? (dx >= 0.0f ? -dz : dz)
+                      : use_y ? dx
+                              : (dz >= 0.0f ? dx : -dx);
+  const float v_num = use_x ? -dy : use_y ? (dy >= 0.0f ? dz : -dz) : -dy;
+  const float major = fmaxf(use_x ? ax : use_y ? ay : az, 1e-12f);
+  int cx = (int)((u_num / major + 1.0f) * ((float)w * 0.5f));
+  int cy = (int)((v_num / major + 1.0f) * ((float)h * 0.5f));
+  cx = cx < 0 ? 0 : cx > w - 1 ? w - 1 : cx;
+  cy = cy < 0 ? 0 : cy > h - 1 ? h - 1 : cy;
+  const int face = (use_x ? 0 : use_y ? 2 : 4) + (pos ? 0 : 1);
+  return (face * h + cy) * w + cx;
+}
+
 }  // namespace rtiw

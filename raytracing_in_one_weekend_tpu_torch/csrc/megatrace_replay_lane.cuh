@@ -68,6 +68,13 @@
 // times it to the fetched texel, whose index and cotangent ride four more
 // floats after the row (kTexelSlots), summed into the texel plane by the
 // caller.
+//
+// Sphere scenes with a cubemap sky take the kCube instantiation (spheres
+// only).  The environment carries the faces (LaneEnvCube); a miss takes
+// the texel cube_texel picks along its direction (a decision: the
+// direction gets no cotangent from it), and the adjoint sends the fold's
+// cotangent times the throughput to that texel, whose index and
+// cotangent ride kTexelSlots floats after the row, as an image texel's.
 #pragma once
 
 #include <type_traits>
@@ -130,7 +137,7 @@ enum GradIdx { kGC = 0, kGR = 3, kGAlb = 4, kGEm = 7, kGGloss = 10,
                kGNrm = 19, kGPos = 13, kGExt = 16, kGMove = 13, kGTex = 13 };
 
 template <bool kTris, bool kAux = false, bool kMotion = false,
-          bool kTex = false>
+          bool kTex = false, bool kCube = false>
 struct Layout {
   static constexpr int ent = kTris      ? kTriEntCols
                              : kMotion ? kMotionEntCols
@@ -141,9 +148,9 @@ struct Layout {
                               : kMotion ? kMotionGradCols
                               : kTex    ? kTexGradCols
                                         : kGradCols;
-  // the cotangent row's floats: its columns, and in the texture build the
-  // texel's index and cotangent
-  static constexpr int row = grad + (kTex ? kTexelSlots : 0);
+  // the cotangent row's floats: its columns, and in the texture and cube
+  // builds the texel's index and cotangent
+  static constexpr int row = grad + (kTex || kCube ? kTexelSlots : 0);
 };
 
 struct LaneEnv {
@@ -160,6 +167,13 @@ struct LaneEnv {
 struct LaneEnvTex : LaneEnv {
   const float* atlas;
   int img_w, img_h;
+};
+
+// ... of the cube build: the cubemap's faces ((6 * cube_h) x cube_w x 3
+// floats).
+struct LaneEnvCube : LaneEnv {
+  const float* cube;
+  int cube_w, cube_h;
 };
 
 RTIW_FN LaneEnv make_lane_env(const float* cam, const float* ent, int i,
@@ -245,9 +259,15 @@ struct IterTex : Iter {
   float texv[3], tmain[3];
 };
 
+// ... and of a miss under a cubemap sky (the kCube build): its texel.
+struct IterCube : Iter {
+  int sky_texel;
+};
+
 template <bool kAux, bool kVol = false, bool kMotion = false,
-          bool kTex = false>
+          bool kTex = false, bool kCube = false>
 using IterOf = typename std::conditional<
+    kCube, IterCube, typename std::conditional<
     kTex, IterTex,
     typename std::conditional<
         kMotion, IterMotion,
@@ -255,7 +275,7 @@ using IterOf = typename std::conditional<
             kVol,
             IterVol<typename std::conditional<kAux, IterAux, Iter>::type>,
             typename std::conditional<kAux, IterAux, Iter>::type>::type>::
-        type>::type;
+        type>::type>::type;
 
 RTIW_FN void norm3(const float* x, float* y) {
   const float inv = rsqrt_cr(fmaxf(dot3(x[0], x[1], x[2], x[0], x[1], x[2]),
@@ -491,7 +511,7 @@ RTIW_FN bool volume_walk(V& I, const LaneEnv& E, const float* e, float mtype,
 // Regen, one bounce at the tape's winner, fold: everything but the state
 // update, which step_forward applies.
 template <bool kTris = false, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false>
+          bool kMotion = false, bool kTex = false, bool kCube = false>
 RTIW_FN void iter_forward(const float* s, float code, int it,
                           const LaneEnv& E, Iter& I) {
   const float* cam = E.cam;
@@ -688,6 +708,12 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
       I.off_n = kSelfEps * (dotv(I.sd, n) >= 0.0f ? 1.0f : -1.0f);
     }
     for (int k = 0; k < 3; ++k) I.em2[k] = I.em[k];
+  } else if constexpr (kCube) {
+    // ---- the cubemap's texel (the forward kernel's cube_texel) -----------
+    const LaneEnvCube& C = static_cast<const LaneEnvCube&>(E);
+    IterCube& IC = static_cast<IterCube&>(I);
+    IC.sky_texel = cube_texel(d[0], d[1], d[2], C.cube_w, C.cube_h);
+    for (int k = 0; k < 3; ++k) I.em2[k] = C.cube[(size_t)IC.sky_texel * 3 + k];
   } else {
     // ---- gradient sky (SampleBatchJob.cs:352-354) ------------------------
     I.tsky = 0.5f * (d[1] + 1.0f);
@@ -736,14 +762,14 @@ RTIW_FN void step_forward_vol(float* s, float code, int it,
 
 // One replay iteration, in place.
 template <bool kTris = false, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false>
+          bool kMotion = false, bool kTex = false, bool kCube = false>
 RTIW_FN void step_forward(float* s, float code, int it, const LaneEnv& E) {
   if constexpr (kVol) {
     step_forward_vol<kAux>(s, code, it, E);
     return;
   }
-  IterOf<kAux, false, kMotion, kTex> I;
-  iter_forward<kTris, kAux, false, kMotion, kTex>(s, code, it, E, I);
+  IterOf<kAux, false, kMotion, kTex, kCube> I;
+  iter_forward<kTris, kAux, false, kMotion, kTex, kCube>(s, code, it, E, I);
   if (!I.was_active) return;
   if constexpr (kMotion) s[kPTime] = I.ptime;
   for (int k = 0; k < 3; ++k) {
@@ -1429,19 +1455,24 @@ RTIW_FN int step_vjp_vol(const float* s, float* g, float code, int it,
 // Adjoint of step_forward.  g holds the cotangent of the output state on
 // entry and of the input state on exit.  ge (Layout<kTris>::grad) receives
 // the winner row's cotangent and gs (kScal) accumulates the camera and sky
-// cotangents.  Returns the winner row, or -1 when ge is unused.
+// cotangents.  Returns the winner row, or -1 when ge is unused (in the
+// cube build a miss's texel slots are used all the same).
 template <bool kTris = false, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false>
+          bool kMotion = false, bool kTex = false, bool kCube = false>
 RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
                      const LaneEnv& E, float* ge, float* gs) {
   if constexpr (kVol) return step_vjp_vol<kAux>(s, g, code, it, E, ge, gs);
-  IterOf<kAux, false, kMotion, kTex> I;
-  iter_forward<kTris, kAux, false, kMotion, kTex>(s, code, it, E, I);
+  IterOf<kAux, false, kMotion, kTex, kCube> I;
+  iter_forward<kTris, kAux, false, kMotion, kTex, kCube>(s, code, it, E, I);
   for (int k = 0; k < Layout<kTris, kAux, kMotion, kTex>::grad; ++k)
     ge[k] = 0.0f;
   if constexpr (kTex) {
     ge[kTexGradCols] = -1.0f;  // no texel
     for (int k = 1; k < kTexelSlots; ++k) ge[kTexGradCols + k] = 0.0f;
+  }
+  if constexpr (kCube) {
+    ge[kGradCols] = -1.0f;  // no sky texel
+    for (int k = 1; k < kTexelSlots; ++k) ge[kGradCols + k] = 0.0f;
   }
   g[kActive] = g[kValid] = g[kStarted] = g[kDepth] = 0.0f;
   if (!I.was_active) return -1;
@@ -1476,7 +1507,11 @@ RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
     gth[k] += grad[k] * I.em2[k];  // rad_new = th em2 + rad
   }
   if (!I.hit) {
-    if (E.sky_on) {
+    if constexpr (kCube) {
+      // rad_new = th em2 + rad, em2 the texel: its cotangent grad th
+      ge[kGradCols] = (float)static_cast<const IterCube&>(I).sky_texel;
+      for (int k = 0; k < 3; ++k) ge[kGradCols + 1 + k] = grad[k] * I.th[k];
+    } else if (E.sky_on) {
       float gtsky = 0.0f;
       for (int k = 0; k < 3; ++k) {
         const float gem = grad[k] * I.th[k];
@@ -1677,12 +1712,14 @@ struct VolHist {
 // the reverse loop runs that many times so that every thread of a warp
 // reaches add_ent (a warp collective on the card) together, a shorter
 // path idle (w = -1) at its top steps.  gs receives the camera and sky
-// cotangents; add_ent(w, ge) each step's winner row (w = -1: none).
+// cotangents; add_ent(w, ge) each step's winner row (w = -1: none; in the
+// cube build an idle step's texel slot holds -1).
 // The motion build's shutter time is the path's from its regen on: the
 // forward sets it in st[kPTime], and nothing after it resets that slot.
 RTIW_EXEC_CHECK_OFF
 template <bool kTris = false, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false, class Hist, class AddEnt>
+          bool kMotion = false, bool kTex = false, bool kCube = false,
+          class Hist, class AddEnt>
 RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
                            int len, int steps, const LaneEnv& E,
                            float cot_r, float cot_g, float cot_b,
@@ -1696,11 +1733,11 @@ RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
   if constexpr (kVol || kMotion)
     for (int k = kStateVars; k < nv; ++k) st[k] = 0.0f;
   for (int j = 0; j + 1 < len; ++j) {
-    step_forward<kTris, kAux, kVol, kMotion, kTex>(
+    step_forward<kTris, kAux, kVol, kMotion, kTex, kCube>(
         st, tape[(size_t)(it0 + j) * n + lane], it0 + j, E);
     hist.store(j, st);
   }
-  float g[nv], ge[Layout<kTris, kAux, kMotion, kTex>::row];
+  float g[nv], ge[Layout<kTris, kAux, kMotion, kTex, kCube>::row];
   for (int k = 0; k < nv; ++k) g[k] = 0.0f;
   g[kCSX] = cot_r;
   g[kCSY] = cot_g;
@@ -1714,8 +1751,10 @@ RTIW_FN void path_backward(const float* tape, int n, int lane, int it0,
         hist.load(j - 1, st);
         st[kActive] = 1.0f;
       }
-      w = step_vjp<kTris, kAux, kVol, kMotion, kTex>(
+      w = step_vjp<kTris, kAux, kVol, kMotion, kTex, kCube>(
           st, g, tape[(size_t)(it0 + j) * n + lane], it0 + j, E, ge, gs);
+    } else if constexpr (kCube) {
+      ge[kGradCols] = -1.0f;
     }
     add_ent(w, ge);
   }
@@ -1763,6 +1802,19 @@ struct TexEntityAdd {
   }
 };
 
+// The cube build: sphere rows as EntityAdd, and a miss's texel cotangent
+// (slot kGradCols >= 0, with or without a row) into the (6 * H * W, 3)
+// plane `texels`.
+struct CubeEntityAdd {
+  float* base;
+  float* texels;
+  RTIW_FN void operator()(int w, const float* ge) const {
+    if (w >= 0) add_row(base + w * kGradCols, ge, kGradCols);
+    if (ge[kGradCols] >= 0.0f)
+      add_row(texels + (size_t)ge[kGradCols] * 3, ge + kGradCols + 1, 3);
+  }
+};
+
 // Mesh scenes: spheres as EntityAdd; a triangle (code w >= tri_base, the
 // padded sphere count) into the (T_pad, kTriGradCols) table `tri`, in
 // device memory on the card (4096 rows of 28 floats do not fit in shared
@@ -1801,9 +1853,11 @@ struct AuxEntityAdd {
 // backwards run in that order, each sum added in place (dscal: the camera
 // and sky cotangents, kScal, and vol0's in the volume builds, kScalVol).
 // `ent` is the entity table the tape indexes.
-// `atlas` (img_w, img_h) is the texture build's image atlas.
+// `atlas` (img_w, img_h) is the texture build's image atlas, `cube`
+// (cube_w, cube_h) the cube build's faces.
 template <bool kTris = false, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false, class AddEnt>
+          bool kMotion = false, bool kTex = false, bool kCube = false,
+          class AddEnt>
 inline void host_backward(const float* tape, const float* lane_count,
                           const float* cam, const float* ent,
                           const float* cot, int n, int samples,
@@ -1811,7 +1865,8 @@ inline void host_backward(const float* tape, const float* lane_count,
                           float t_min, int has_diel, int sky_on, int jitter,
                           float* dscal, AddEnt add_ent,
                           const float* atlas = nullptr, int img_w = 0,
-                          int img_h = 0) {
+                          int img_h = 0, const float* cube = nullptr,
+                          int cube_w = 0, int cube_h = 0) {
   const int iters = samples * trace_depth;
   std::vector<long> offset(trace_depth, 0);
   for (int i = 0; i < n; ++i)
@@ -1837,14 +1892,20 @@ inline void host_backward(const float* tape, const float* lane_count,
   for (long p = 0; p < total; ++p) {
     const int lane = paths[2 * p], code = paths[2 * p + 1];
     const int len = code % kMaxDepth + 1;
-    LaneEnvTex E;
+    std::conditional_t<kCube, LaneEnvCube, LaneEnvTex> E;
     static_cast<LaneEnv&>(E) =
         make_lane_env(cam, ent, lane, lane_count[lane], seed, lane_base,
                       trace_depth, t_min, has_diel, sky_on, jitter);
-    E.atlas = atlas;
-    E.img_w = img_w;
-    E.img_h = img_h;
-    path_backward<kTris, kAux, kVol, kMotion, kTex>(
+    if constexpr (kCube) {
+      E.cube = cube;
+      E.cube_w = cube_w;
+      E.cube_h = cube_h;
+    } else {
+      E.atlas = atlas;
+      E.img_w = img_w;
+      E.img_h = img_h;
+    }
+    path_backward<kTris, kAux, kVol, kMotion, kTex, kCube>(
         tape, n, lane, code / kMaxDepth, len, len, E, cot[lane],
         cot[n + lane], cot[2 * n + lane], cot[3 * n + lane], h, dscal,
         add_ent);

@@ -8,9 +8,8 @@ autograd differentiates the render with respect to exactly the chosen
 parameters.  The rect and box setters reach the renderer's pack of their
 tables (`ops/megatrace.pack_aux_tables`), so `diff/inverse.optimize` fits
 them like the spheres'; so do the move offsets, the texture colours and
-the image atlas (`pack_texture_tables`, the motion and texture builds).
-The cubemap setter is a plain setter too; the renderer's `check_scope`
-refuses cubemap scenes (ROADMAP step 7.6).
+the image atlas (`pack_texture_tables`, the motion and texture builds)
+and the cubemap's faces (`pack_cubemap_table`, the cube builds).
 """
 
 from __future__ import annotations

@@ -1,12 +1,15 @@
 """Feature-matrix testbed scenes (counterpart of the JAX package's
-models/testbeds.py), holding the entries the port renders: the raw
+models/testbeds.py), holding the entries the port renders: the material
+sweeps `diffuse_testbed`, `metal_roughness`, `refraction`,
+`dielectric_roughness` and `grid` (`material_grid`, the GridGenerator
+analog), the HDR sky `cubemap` (a procedural 6 x 32 x 32 cubemap), the raw
 triangle test, the mesh scenes (the showcase, and `mesh_large` and
 `mesh_huge` beyond TRI_MAX triangles), `simple_light` (spheres and an
 emissive rect), `probabilistic` (fog spheres of three densities),
 `cornell_volumes` (Book 2's Cornell smoke: volume boxes), the textured
 spheres `checkered`, `perlin` and `textured_sphere` (the JAX package's
 procedural earth stand-in: the reference's earthmap.jpg and its image
-reader are ROADMAP step 7.6), and `final_book2`, Book 2's composite (boxes,
+reader are ROADMAP step 14), and `final_book2`, Book 2's composite (boxes,
 a rect light, a moving sphere, glass, fog in a glass shell, an image and a
 Perlin texture), and `sphere_field`, the cover's generator at grid 32
 (4,099 spheres, past SPH_CULL_MIN: the blocked sphere sweep).  The other
@@ -35,6 +38,150 @@ def _front_camera(distance: float = 4.0, fov: float = 40.0) -> CameraSettings:
         vertical_fov=fov,
         focus_distance=distance,
     )
+
+
+def material_grid(rows: int, cols: int, corner_materials,
+                  radius: float = 0.45, spacing: float = 1.0):
+    """GridGenerator analog (Unity/GridGenerator.cs:12-170): a builder of
+    an N x M grid of spheres over a ground sphere whose material
+    parameters bilinearly interpolate between the four corner parameter
+    dicts (bottom-left, bottom-right, top-left, top-right; keyword
+    arguments of SceneBuilder.standard, scalar or RGB-tuple values)."""
+    b = SceneBuilder()
+    ground = b.lambert((0.5, 0.5, 0.5))
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, ground)
+    bl, br, tl, tr = corner_materials
+
+    def lerp(a, c, t):
+        a, c = np.asarray(a, np.float64), np.asarray(c, np.float64)
+        v = a + (c - a) * t
+        return tuple(v) if v.ndim else float(v)
+
+    keys = set(bl) | set(br) | set(tl) | set(tr)
+    for r in range(rows):
+        ty = r / max(rows - 1, 1)
+        for c in range(cols):
+            tx = c / max(cols - 1, 1)
+            params = {}
+            for k in keys:
+                bottom = lerp(bl[k], br[k], tx)
+                top = lerp(tl[k], tr[k], tx)
+                params[k] = lerp(bottom, top, ty)
+            mat = b.standard(**params)
+            x = (c - (cols - 1) / 2.0) * spacing
+            y = radius + r * spacing
+            b.add_sphere((x, y, 0.0), radius, mat)
+    b.set_gradient_sky()
+    return b
+
+
+def diffuse_testbed() -> tuple[Scene, CameraSettings]:
+    """Diffuse Testbed.asset: rows of lambert spheres over a ground sphere."""
+    b = SceneBuilder()
+    grey = b.lambert((0.5, 0.5, 0.5))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, grey)
+    for z in range(-2, 1):
+        for x in range(-1, 2):
+            b.add_sphere((float(x), 0.0, float(z)), 0.5, grey)
+    b.set_gradient_sky()
+    cam = CameraSettings(
+        origin=(0.87, 2.72, 1.70),
+        look_at=(0.68, 1.97, 1.06),
+        vertical_fov=40.8,
+    )
+    return b.build(), cam
+
+
+def metal_roughness_testbed() -> tuple[Scene, CameraSettings]:
+    """Metal Roughness Testbed.asset: glossiness sweep on metal spheres."""
+    b = SceneBuilder()
+    ground = b.lambert((0.5, 0.5, 0.5))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, ground)
+    n = 7
+    for i in range(n):
+        gloss = i / (n - 1)
+        mat = b.metal((0.8, 0.7, 0.6), glossiness=gloss)
+        b.add_sphere((1.1 * (i - (n - 1) / 2.0), 0.0, 0.0), 0.5, mat)
+    b.set_gradient_sky()
+    return b.build(), _front_camera(distance=6.0)
+
+
+def refraction_testbed() -> tuple[Scene, CameraSettings]:
+    """Refraction Testbed.asset: IOR sweep on dielectric spheres."""
+    b = SceneBuilder()
+    ground = b.lambert((0.6, 0.6, 0.6))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, ground)
+    backdrop = b.lambert((0.8, 0.3, 0.3))
+    b.add_sphere((0.0, 0.2, -3.0), 1.2, backdrop)
+    for i, ior in enumerate((1.1, 1.33, 1.5, 1.8, 2.4)):
+        mat = b.dielectric(ior)
+        b.add_sphere((1.1 * (i - 2), 0.0, 0.0), 0.5, mat)
+    b.set_gradient_sky()
+    return b.build(), _front_camera(distance=6.0)
+
+
+def dielectric_roughness_testbed() -> tuple[Scene, CameraSettings]:
+    """Dielectric Roughness Testbed.asset: frosted-glass glossiness sweep."""
+    b = SceneBuilder()
+    ground = b.lambert((0.6, 0.6, 0.6))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, ground)
+    n = 5
+    for i in range(n):
+        gloss = i / (n - 1)
+        mat = b.dielectric(1.5, glossiness=gloss)
+        b.add_sphere((1.1 * (i - (n - 1) / 2.0), 0.0, 0.0), 0.5, mat)
+    b.set_gradient_sky()
+    return b.build(), _front_camera(distance=6.0)
+
+
+def grid_testbed() -> tuple[Scene, CameraSettings]:
+    """Standard Material Test scene analog: GridGenerator sweep of
+    metallic x glossiness (Assets/Scenes/Standard Material Test.unity)."""
+    b = material_grid(
+        4, 6,
+        (
+            dict(albedo=(0.8, 0.6, 0.4), metallic=0.0, glossiness=0.0),
+            dict(albedo=(0.8, 0.6, 0.4), metallic=0.0, glossiness=1.0),
+            dict(albedo=(0.8, 0.6, 0.4), metallic=1.0, glossiness=0.0),
+            dict(albedo=(0.8, 0.6, 0.4), metallic=1.0, glossiness=1.0),
+        ),
+    )
+    cam = CameraSettings(
+        origin=(0.0, 2.0, 9.0), look_at=(0.0, 2.0, 0.0), vertical_fov=35.0,
+        focus_distance=9.0,
+    )
+    return b.build(), cam
+
+
+def cubemap_faces(size: int = 32) -> np.ndarray:
+    """(6, size, size, 3) float32 HDR faces (+X, -X, +Y, -Y, +Z, -Z): a sky
+    gradient on every face and a sun disk of radiance ~20 on +X (the JAX
+    package's cubemap_testbed map, with its size a parameter)."""
+    faces = np.zeros((6, size, size, 3), np.float32)
+    v = np.linspace(1.0, 0.0, size, dtype=np.float32)[:, None]
+    for f in range(6):
+        faces[f] = np.stack(
+            [0.3 + 0.4 * v, 0.45 + 0.35 * v, 0.8 + 0.2 * v], axis=-1
+        ) * np.ones((size, size, 3), np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    sun = np.exp(-(((xx - size / 2) ** 2 + (yy - size / 3) ** 2) / 18.0))
+    faces[0] += 20.0 * sun[..., None] * np.array([1.0, 0.9, 0.7], np.float32)
+    return faces
+
+
+def cubemap_testbed(size: int = 32) -> tuple[Scene, CameraSettings]:
+    """Cubemap Testbed.asset: HDR sky via a cubemap environment.
+
+    A procedural 6-face HDR cubemap (sun disk + horizon gradient) stands in
+    for the reference's imported HDRI (Environment.cs SkyType.CubeMap,
+    Texture.cs:141-211); `size` other than the JAX package's 32 scales it
+    up (a 6 x 512 x 512 map is a real HDRI's size)."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, b.lambert((0.5, 0.5, 0.5)))
+    b.add_sphere((0.0, 0.0, 0.0), 0.5, b.metal((0.9, 0.9, 0.9)))
+    b.add_sphere((1.2, 0.0, 0.0), 0.5, b.lambert((0.7, 0.7, 0.7)))
+    b.set_cubemap_sky(cubemap_faces(size))
+    return b.build(), _front_camera(distance=3.0, fov=60.0)
 
 
 def probabilistic_test() -> tuple[Scene, CameraSettings]:
@@ -217,6 +364,12 @@ def sphere_field() -> tuple[Scene, CameraSettings]:
 
 
 SCENES = {
+    "diffuse_testbed": diffuse_testbed,
+    "metal_roughness": metal_roughness_testbed,
+    "refraction": refraction_testbed,
+    "dielectric_roughness": dielectric_roughness_testbed,
+    "grid": grid_testbed,
+    "cubemap": cubemap_testbed,
     "sphere_field": sphere_field,
     "mesh_showcase": meshes.mesh_showcase,
     "mesh_large": meshes.mesh_large,

@@ -4,12 +4,13 @@ Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm
 (its dense sweep, and past SPH_CULL_MIN spheres its blocked sweep), the
 rect and box arm, the convex-volume arm, the unit-shutter motion and
 albedo-texture arms, the triangle (VMEM) arm and the streamed-triangle
-arm of its `_batch_kernel` (gradient or no sky, white noise), the
-forward path of the book cover, of rect and box scenes (`cornell`,
+arm of its `_batch_kernel` (gradient, cubemap or no sky, white noise),
+the forward path of the book cover, of rect and box scenes (`cornell`,
 `simple_light`), of scenes with fog spheres and boxes (`volume`,
 `probabilistic`, `cornell_volumes`), of moving and textured spheres
 (`cover_motion`, `checkered`, `perlin`, `textured_sphere`,
-`final_book2`) and of mesh scenes of at most TRI_STREAM_MAX triangles.
+`final_book2`), of the HDR cubemap sky (`cubemap`) and of mesh scenes of
+at most TRI_STREAM_MAX triangles.
 One
 call runs a whole SampleBatchJob (reference: SampleBatchJob.cs:59-164,
 166-401) and returns per-lane accumulation deltas: thin-lens camera rays,
@@ -29,8 +30,9 @@ or an exit without one passes the boundary in an iteration of its own),
 with `move_offsets` the spheres moved to each path's shutter time, with
 `tex_tables` (`pack_texture_tables`) the winner's albedo textured
 (checker, Perlin marble, nearest atlas texel),
-Lambert / GGX-metal / dielectric scatter, the gradient sky, and the
-per-pixel fold, AOVs, noise weight and ray count.  With `pixel_index`
+Lambert / GGX-metal / dielectric scatter, the gradient sky or with `cube`
+(`pack_cubemap_table`) the cubemap's nearest texel, and the per-pixel
+fold, AOVs, noise weight and ray count.  With `pixel_index`
 lane i renders that pixel (the renderer passes `morton_order` for
 streamed meshes) and the deltas stay in lane order.
 
@@ -49,7 +51,10 @@ streamed meshes) and the deltas stay in lane order.
   combination with the others (`MOTION_LAUNCHES`, `TEX_LAUNCHES`);
   sphere scenes past SPH_CULL_MIN spheres, static or moving, its blocked
   builds, which stage the block AABBs and read the spheres through the
-  read-only cache (`BLOCKED_LAUNCHES`); meshes of at most
+  read-only cache (`BLOCKED_LAUNCHES`); cubemap skies its cube builds,
+  beside spheres alone or beside one of rects and boxes, volumes, motion
+  and textures, the faces read through the read-only cache
+  (`CUBE_LAUNCHES`); meshes of at most
   TRI_MAX triangles take
   `megatrace_batch_kernel` (triangles read through the read-only cache,
   one thread a lane in lane order); streamed
@@ -83,7 +88,7 @@ from typing import NamedTuple
 
 import torch
 
-from raytracing_in_one_weekend_tpu_torch.core import math3
+from raytracing_in_one_weekend_tpu_torch.core import environment, math3
 
 BIG = 1e30
 SPHERE_PAD = 128
@@ -121,6 +126,9 @@ VOL_LAUNCHES = 0  # ... of them, launches of the volume builds (volumes
 #   beside spheres, or beside rects and boxes)
 BLOCKED_LAUNCHES = 0  # ... of them, launches of the blocked builds (more
 #   than SPH_CULL_MIN spheres, static or moving)
+CUBE_LAUNCHES = 0  # ... of them, launches of the cube builds (a cubemap sky
+#   beside spheres alone, or beside one of rects and boxes, volumes, motion
+#   and textures)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
 WAVE_BIG_LAUNCHES = 0  # ... of them, launches of its build for more than
 #   SPH_CULL_MIN spheres (the spheres read through the read-only cache)
@@ -161,8 +169,11 @@ MOTION_IN_MESHES = ("motion blur in mesh scenes (ROADMAP queue 1, "
 TEXTURES_IN_MESHES = ("checker, Perlin and image textures in mesh scenes "
                       "(ROADMAP queue 1, step 7.5b)")
 BIG_SPHERES_BESIDE = (f"more than {SPH_CULL_MIN} spheres beside rects, "
-                      "boxes, volumes, textures or triangles (ROADMAP queue "
-                      "1, step 7.7b)")
+                      "boxes, volumes, textures, triangles or a cubemap sky "
+                      "(ROADMAP queue 1, step 7.7b)")
+CUBE_BESIDE = ("a cubemap sky in mesh scenes or beside two or more of rects "
+               "and boxes, volumes, motion and textures (ROADMAP queue 1, "
+               "step 7.6b)")
 TEX_COLS = 16  # texture record columns (pack_texture_tables): 0 albedo
 #   TextureType | 1-3 main colour | 4-6 secondary | 7 parameter | 8 atlas
 #   row base (image index * H)
@@ -190,8 +201,8 @@ def unported_feature(scene) -> str | None:
          "volumes on triangles (non-convex; ROADMAP queue 1, step 7.2b)"),
         (tris and scene.flags.has_motion, MOTION_IN_MESHES),
         (tris and scene.flags.has_procedural_textures, TEXTURES_IN_MESHES),
-        (scene.flags.sky not in (0, 1),
-         "cubemap skies (ROADMAP queue 1, step 7.6)"),
+        (scene.flags.sky == 2 and scene.environment.cubemap is None,
+         "a cubemap sky without its faces"),
     )
     for refused, what in checks:
         if refused:
@@ -203,7 +214,8 @@ def unsupported_feature(scene, allow_triangles: bool = False,
                         allow_rect_box: bool = False,
                         allow_volumes: bool = False,
                         allow_motion: bool = False,
-                        allow_textures: bool = False) -> str | None:
+                        allow_textures: bool = False,
+                        allow_cubemap: bool = False) -> str | None:
     """The first feature of `scene` the fused kernels do not render, named
     with its ROADMAP item, or None when the scene is in scope: the ported
     features, at least one entity, more than SPH_CULL_MIN spheres only in
@@ -214,11 +226,14 @@ def unsupported_feature(scene, allow_triangles: bool = False,
     moving spheres only with `allow_motion` and the unit shutter
     (SceneFlags.motion_unit_time), and checker, Perlin and image textures
     only with `allow_textures` and on albedos alone
-    (SceneFlags.procedural_albedo_only; the batch kernel takes all five;
-    the per-ray megatrace is sphere-only, static, untextured and has no
-    volume walk, as the JAX package's), at most TRI_STREAM_MAX triangles
-    and AUX_MAX rects and boxes (the JAX package's `scene_eligible`
-    flags)."""
+    (SceneFlags.procedural_albedo_only), a cubemap sky only with
+    `allow_cubemap`, beside spheres alone or beside one of rects and
+    boxes, volumes, motion and textures (the cube builds; elsewhere
+    ROADMAP step 7.6b) (the batch kernel takes all six; the per-ray
+    megatrace is sphere-only, static, untextured, reads the gradient sky
+    and has no volume walk, as the JAX package's), at most TRI_STREAM_MAX
+    triangles and AUX_MAX rects and boxes (the JAX package's
+    `scene_eligible` flags)."""
     spheres = scene.spheres.center.shape[0]
     aux = scene.rects.rot.shape[0] + scene.boxes.rot.shape[0]
     tri_count = scene.triangles.vert0.shape[0]
@@ -244,10 +259,19 @@ def unsupported_feature(scene, allow_triangles: bool = False,
             and not scene.flags.procedural_albedo_only):
         return ("procedural textures beyond albedos (the kernels texture "
                 "albedos; the wavefront samples every slot)")
+    cube = scene.flags.sky == 2
+    if cube and not allow_cubemap:
+        return "cubemap skies (the per-ray megatrace reads the gradient sky)"
     if spheres > SPH_CULL_MIN and (aux + tri_count > 0
                                    or scene.flags.has_volumes
-                                   or scene.flags.has_procedural_textures):
+                                   or scene.flags.has_procedural_textures
+                                   or cube):
         return BIG_SPHERES_BESIDE
+    if cube and (tri_count > 0
+                 or (aux > 0) + scene.flags.has_volumes
+                 + scene.flags.has_motion
+                 + scene.flags.has_procedural_textures > 1):
+        return CUBE_BESIDE
     if tri_count > TRI_STREAM_MAX:
         return TOO_MANY_TRIANGLES
     if aux > AUX_MAX:
@@ -260,13 +284,14 @@ def scene_eligible(scene, allow_triangles: bool = False,
                    allow_rect_box: bool = False,
                    allow_volumes: bool = False,
                    allow_motion: bool = False,
-                   allow_textures: bool = False) -> bool:
+                   allow_textures: bool = False,
+                   allow_cubemap: bool = False) -> bool:
     """Can this scene run in the ported fused kernels?  The batch kernel
     asks with every flag True, the per-ray megatrace without (the JAX
     package's `scene_eligible` flags)."""
     return unsupported_feature(scene, allow_triangles, allow_rect_box,
-                               allow_volumes, allow_motion,
-                               allow_textures) is None
+                               allow_volumes, allow_motion, allow_textures,
+                               allow_cubemap) is None
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +528,32 @@ def pack_texture_tables(scene) -> TexTables | None:
         atlas = tex.atlas.to(torch.float32).reshape(a * ih, iw, 3)
         dims = (iw, ih)
     return TexTables(rec, perlin, atlas, dims)
+
+
+def pack_cubemap_table(scene):
+    """(cube, (w, h)) of a scene's cubemap sky, or None without one: the
+    faces (6, h, w, 3) as one (6 * h, w, 3) float32 table, texel (face, y,
+    x) at row face * h + y (face order +x, -x, +y, -y, +z, -z), the
+    layout of pack_texture_tables' atlas; the batch kernels read it from
+    device memory, so any face size renders (the JAX package's
+    `pack_cubemap_table` transposes it into planes for the TPU's one-hot
+    fetch and caps the size at its VMEM).  Differentiable with respect
+    to the faces."""
+    cm = scene.environment.cubemap
+    if cm is None:
+        return None
+    f, h, w = cm.shape[:3]
+    return cm.to(torch.float32).reshape(f * h, w, 3), (w, h)
+
+
+def cube_texels(cube, cube_dims, dx, dy, dz) -> torch.Tensor:
+    """(C, 3) texels of pack_cubemap_table's `cube` along the directions
+    (dx, dy, dz) (environment.cubemap_index; the index carries no
+    gradient, the texel values do)."""
+    w, h = cube_dims
+    face, cy, cx = environment.cubemap_index(dx.detach(), dy.detach(),
+                                             dz.detach(), w, h)
+    return cube[face * h + cy, cx]
 
 
 def camera_containment_row(scene, packed_materials, origin) -> torch.Tensor:
@@ -1441,7 +1492,7 @@ VOL_KEYS = ("in_id", "in_den", "in_ar", "in_ag", "in_ab", "in_er", "in_eg",
 
 def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
             sky, tri=None, aux=None, med=None, move=None, ptime=None,
-            tex=None, blocks=None):
+            tex=None, blocks=None, cube=None):
     """One bounce of every active path in `p` (a dict of (C,) rows keyed
     by STATE_KEYS, updated in place): the dense sphere sweep (with
     `blocks`, pack_sphere_blocks' (table, rows), the blocked one), then with
@@ -1454,7 +1505,8 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     and `ptime` ((C,) shutter times) the spheres moved to each lane's
     time, with `tex` (TexTables) the winner's albedo textured,
     Lambert / GGX-metal / dielectric or
-    the volume's isotropic scatter, the gradient sky, the fold, AOV
+    the volume's isotropic scatter, the gradient sky (with `cube`,
+    (pack_cubemap_table's table, (w, h)), the cubemap's texel), the fold, AOV
     capture, events and the advance.  `u` holds the bounce's six uniform
     rows (seven with `med`: the free path's draw), `depth` the path's
     bounce count ((C,) float or a number).  Returns (hit, winner code) for
@@ -1708,8 +1760,11 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
         srb = torch.where(vol_scatter, v["in_ab"], srb)
         std_events = torch.where(vol_scatter, 2.0, std_events)
 
-    # Gradient sky (SampleBatchJob.cs:352-354)
-    if sky_on:
+    # Cubemap (the JAX kernel's :1376-1416) or gradient sky
+    # (SampleBatchJob.cs:352-354)
+    if cube is not None:
+        skr, skg, skb = cube_texels(*cube, dx, dy, dz).unbind(1)
+    elif sky_on:
         tsky = 0.5 * (dy + 1.0)
         skr = _fma(sky_t[0] - sky_b[0], tsky, sky_b[0])
         skg = _fma(sky_t[1] - sky_b[1], tsky, sky_b[1])
@@ -1782,14 +1837,15 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
 def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
                  tri, aux, vol0, seed, *, samples, trace_depth, t_min,
                  has_dielectrics, sky_on, jitter, tape, move=None,
-                 tex=None, blocks=None):
+                 tex=None, blocks=None, cube=None):
     """Run one SampleBatchJob over a chunk of lanes; returns the (18, C)
     accumulators and fills `tape` ((samples*trace_depth, C) or None).
     With `vol0` (camera_containment_row) each lane carries its medium,
     reset from vol0 at every regen; with `move` ((S, 3) move offsets) its
     shutter time, drawn at every regen from the camera draws' stream 7
     (the JAX kernel's :2745-2760); with `blocks` (pack_sphere_blocks'
-    (table, rows)) the blocked sphere sweep."""
+    (table, rows)) the blocked sphere sweep; with `cube` (pack_cubemap_table's
+    table and (w, h)) the cubemap sky."""
     dev = pixel.device
     zero = torch.zeros_like(pixel)
     co, ll, hh, vv, rr, uu = (cam[3 * k:3 * k + 3] for k in range(6))
@@ -1862,7 +1918,7 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
                                 has_dielectrics=has_dielectrics,
                                 sky_on=sky_on, sky=sky, tri=tri, aux=aux,
                                 med=med, move=move, ptime=ptime, tex=tex,
-                                blocks=blocks)
+                                blocks=blocks, cube=cube)
 
         if tape is not None:
             tape[it] = torch.where(
@@ -1999,6 +2055,8 @@ def sample_batch_reference(
     vol0: torch.Tensor | None = None,
     move_offsets: torch.Tensor | None = None,
     tex_tables: TexTables | None = None,
+    cube: torch.Tensor | None = None,
+    cube_dims: tuple = (0, 0),
     chunk_lanes: int | None = None,
 ) -> dict:
     """Plain PyTorch version of the batch kernel (any device).
@@ -2009,9 +2067,10 @@ def sample_batch_reference(
     padded spheres: `aux_code_bases`); `vol0` (camera_containment_row)
     turns on the convex volume walk, `move_offsets` (S, 3) unit-shutter
     sphere motion (each path's time drawn at its regen), `tex_tables`
-    (pack_texture_tables) albedo textures; more than SPH_CULL_MIN
-    spheres take the blocked sweep (SPH_BLOCK rows a block, the same
-    winners as the dense one).  `pixel_index`
+    (pack_texture_tables) albedo textures, `cube` and `cube_dims`
+    (pack_cubemap_table) the cubemap sky in place of the gradient; more
+    than SPH_CULL_MIN spheres take the blocked sweep (SPH_BLOCK rows a
+    block, the same winners as the dense one).  `pixel_index`
     (N,) is the
     pixel each lane renders (default: lane i renders pixel i); the hash
     PRNG stays keyed by the lane.  Returns per-lane deltas, in lane order: color (N, 3), count (N,), normal (N, 3), albedo
@@ -2068,6 +2127,8 @@ def sample_batch_reference(
                 *(None if t is None else t.detach().to(torch.float32)
                   for t in tex_tables[:3]), tuple(tex_tables[3])),
             blocks=blocks,
+            cube=None if cube is None else (
+                cube.detach().to(torch.float32), tuple(cube_dims)),
         )
     return _outputs(acc, tape)
 
@@ -2104,7 +2165,8 @@ def load_kernel() -> ctypes.CDLL:
             i, i, i, i,  # seed lane_base samples trace_depth
             ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
             i, p, p, p, p,  # has_vol move tex_rec perlin atlas
-            i, i, p,  # img_w img_h stream
+            i, i, p, i, i,  # img_w img_h cube cube_w cube_h
+            p,  # stream
         ]
         lib.rtiw_megatrace_ext.restype = ctypes.c_int
         lib.rtiw_megatrace_blocked.argtypes = [
@@ -2116,7 +2178,7 @@ def load_kernel() -> ctypes.CDLL:
             p,  # stream
         ]
         lib.rtiw_megatrace_blocked.restype = ctypes.c_int
-        lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, i, p]
+        lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, i, i, p]
         lib.rtiw_megatrace_ext_info.restype = ctypes.c_int
         lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
         lib.rtiw_tile_lanes.restype = ctypes.c_int
@@ -2126,17 +2188,18 @@ def load_kernel() -> ctypes.CDLL:
 
 def sphere_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
                        has_motion: bool = False, has_tex: bool = False,
-                       n_blk: int = 0) -> dict:
+                       n_blk: int = 0, has_cube: bool = False) -> dict:
     """The sphere kernel's occupancy with an s-sphere table on the
     current card: blocks an SM (the occupancy API), registers a thread and
     local memory (stack and spills) a thread in bytes; of its build for
     aux_rows rect and box rows (0: none) and the flags (all unset: the
-    sphere build), or with n_blk > 0 of its blocked build (static, or
-    with has_motion moving) for a table of n_blk sphere blocks."""
+    sphere build; with has_cube a cube build, beside at most one of the
+    others), or with n_blk > 0 of its blocked build (static, or with
+    has_motion moving) for a table of n_blk sphere blocks."""
     info = (ctypes.c_int * 3)()
     err = load_kernel().rtiw_megatrace_ext_info(
         int(s), int(aux_rows), int(has_vol), int(has_motion), int(has_tex),
-        int(n_blk), info)
+        int(n_blk), int(has_cube), info)
     if err != 0:
         raise RuntimeError(f"megatrace_sphere_kernel info: cudaError {err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
@@ -2166,6 +2229,17 @@ def kernel_tex_tables(tex_tables: TexTables, dev):
                              f"pack_texture_tables' {want[name]} on {dev}")
         out.append(t.detach().to(torch.float32).contiguous())
     return (*out, tuple(int(d) for d in dims))
+
+
+def kernel_cube(cube, cube_dims, dev, name: str = "sample_batch"):
+    """The cube builds' table after checking it against
+    pack_cubemap_table's layout: float32 and contiguous on `dev`."""
+    w, h = (int(v) for v in cube_dims)
+    if tuple(cube.shape) != (6 * h, w, 3) or cube.device != dev or w < 1:
+        raise ValueError(f"{name}: cube has shape {tuple(cube.shape)} on "
+                         f"{cube.device}; want pack_cubemap_table's (6 * "
+                         f"{h}, {w}, 3) on {dev}")
+    return cube.detach().to(torch.float32).contiguous()
 
 
 def kernel_consts(camera_row, sky_bottom, sky_top, vol0=None):
@@ -2285,9 +2359,9 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        jitter, want_tape, tri_tables, pixel_index=None,
                        tri_stream_tables=None, rect_tables=None,
                        box_tables=None, vol0=None, move_offsets=None,
-                       tex_tables=None):
+                       tex_tables=None, cube=None, cube_dims=(0, 0)):
     global LAUNCHES, AUX_LAUNCHES, VOL_LAUNCHES, MOTION_LAUNCHES
-    global TEX_LAUNCHES, BLOCKED_LAUNCHES
+    global TEX_LAUNCHES, BLOCKED_LAUNCHES, CUBE_LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
                    camera_row=camera_row, centers=centers, radii=radii,
@@ -2389,7 +2463,7 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
         return _outputs(out, tape)
     has_aux = rect_tables is not None or box_tables is not None
     if (has_aux or vol0 is not None or move_offsets is not None
-            or tex_tables is not None):
+            or tex_tables is not None or cube is not None):
         aux_geo = aux_rec = None
         rect_rows = box_rows = 0
         if has_aux:
@@ -2409,18 +2483,25 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
         trec, perlin, atlas, (img_w, img_h) = (
             (None, None, None, (0, 0)) if tex_tables is None
             else kernel_tex_tables(tex_tables, dev))
-        build = ("texture" if tex_tables is not None
+        cube_t = None if cube is None else kernel_cube(cube, cube_dims, dev)
+        build = ("cube" if cube is not None
+                 else "texture" if tex_tables is not None
                  else "motion" if move_offsets is not None
                  else "aux" if vol0 is None else "volume")
         err = lib.rtiw_megatrace_ext(
             *args, int(vol0 is not None),
             *(0 if t is None else t.data_ptr()
-              for t in (move, trec, perlin, atlas)), img_w, img_h, stream)
+              for t in (move, trec, perlin, atlas)), img_w, img_h,
+            0 if cube_t is None else cube_t.data_ptr(),
+            *(int(v) for v in (cube_dims if cube is not None else (0, 0))),
+            stream)
         if err != 0:
             raise RuntimeError(f"megatrace_batch {build} build launch "
                                f"failed: cudaError {err}")
         LAUNCHES += 1
-        if tex_tables is not None:
+        if cube is not None:
+            CUBE_LAUNCHES += 1
+        elif tex_tables is not None:
             TEX_LAUNCHES += 1
         elif move_offsets is not None:
             MOTION_LAUNCHES += 1
@@ -2471,6 +2552,8 @@ def sample_batch(
     vol0: torch.Tensor | None = None,
     move_offsets: torch.Tensor | None = None,
     tex_tables: TexTables | None = None,
+    cube: torch.Tensor | None = None,
+    cube_dims: tuple = (0, 0),
 ) -> dict:
     """Fused SampleBatchJob: per-lane accumulation deltas for one batch
     (see `sample_batch_reference` for the outputs; `tri_tables` is
@@ -2481,10 +2564,13 @@ def sample_batch(
     with convex volumes: the volume builds, VOL_LAUNCHES; `move_offsets`
     (S, 3) the spheres' unit-shutter motion: the motion builds,
     MOTION_LAUNCHES; `tex_tables` pack_texture_tables' albedo textures:
-    the texture builds, TEX_LAUNCHES).  More than SPH_CULL_MIN spheres
-    take the blocked builds (BLOCKED_LAUNCHES), static or moving; beside
-    any of the other tables they raise NotImplementedError (ROADMAP step
-    7.7b).
+    the texture builds, TEX_LAUNCHES; `cube` and `cube_dims`
+    pack_cubemap_table's sky: the cube builds, CUBE_LAUNCHES, beside at
+    most one of the rect and box, volume, motion and texture tables and no
+    triangles, or NotImplementedError naming ROADMAP step 7.6b).  More
+    than SPH_CULL_MIN spheres take the blocked builds (BLOCKED_LAUNCHES),
+    static or moving; beside any of the other tables they raise
+    NotImplementedError (ROADMAP step 7.7b).
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
@@ -2511,15 +2597,22 @@ def sample_batch(
     if centers.shape[0] > SPH_CULL_MIN and any(
             t is not None for t in (tri_tables, tri_stream_tables,
                                     rect_tables, box_tables, vol0,
-                                    tex_tables)):
+                                    tex_tables, cube)):
         raise NotImplementedError(f"sample_batch: {BIG_SPHERES_BESIDE}")
+    if cube is not None and (
+            tri_tables is not None or tri_stream_tables is not None
+            or (rect_tables is not None or box_tables is not None)
+            + (vol0 is not None) + (move_offsets is not None)
+            + (tex_tables is not None) > 1):
+        raise NotImplementedError(f"sample_batch: {CUBE_BESIDE}")
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, want_tape=want_tape, tri_tables=tri_tables,
                   pixel_index=pixel_index,
                   tri_stream_tables=tri_stream_tables,
                   rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
-                  move_offsets=move_offsets, tex_tables=tex_tables)
+                  move_offsets=move_offsets, tex_tables=tex_tables,
+                  cube=cube, cube_dims=cube_dims)
     args = (lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cuda":

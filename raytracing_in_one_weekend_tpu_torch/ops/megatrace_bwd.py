@@ -1,6 +1,6 @@
 """Backward of the fused batch kernel: the tape replay's VJP (counterpart
 of the JAX package's ops/megatrace_bwd.py, its sphere, rect/box, triangle
-and convex-volume arms).
+and convex-volume arms and its cube texel plane).
 
 * `replay_grad_reference` is the plain version: torch.autograd over
   `ops/megatrace_replay.replay`, the counterpart of the JAX package's
@@ -49,7 +49,11 @@ atlas's shape (the JAX kernel's texel-plane cotangent).  Sphere scenes
 of more than SPH_CULL_MIN static spheres take its `BIG` instantiation:
 the sphere rows sum in device memory (BIG_LAUNCHES), since sphere_field's
 4,099 rows do not fit a block's shared memory; its other builds raise
-there (ROADMAP step 7.7b).
+there (ROADMAP step 7.7b).  Sphere scenes under a cubemap sky take its
+`CUBE` instantiation: a miss's sky cotangent goes to its texel of a plane
+in the cube table's shape (the JAX kernel's dcube), summed per warp before
+global atomics; a cubemap beside rects, boxes, volumes, motion, textures
+or triangles raises there (ROADMAP step 7.6b; the plain replay takes them).
 
 `replay_step_vjp` exposes the kernel's one-iteration VJP (and
 `replay_step_vjp_reference` its autograd counterpart) so that the hand
@@ -73,6 +77,8 @@ LAUNCHES = 0  # CUDA launches of the path kernel made by replay_grad
 SCAN_LAUNCHES = 0  # CUDA launches of the tape scan (count and scatter)
 BIG_LAUNCHES = 0  # ... of the path kernel, launches of its build for more
 #   than SPH_CULL_MIN spheres (BIG: the sphere rows in device memory)
+CUBE_LAUNCHES = 0  # ... of the path kernel, launches of its cube build (a
+#   cubemap sky: the cube texel plane)
 
 _DIFF_ENV = ("co", "ll", "hh", "vv", "rr", "uu")
 
@@ -109,18 +115,19 @@ MOTION_COTANGENTS = (("move", 1, slice(13, 16)),)
 TEX_COTANGENTS = (("texture_colors", 1, slice(13, 19)),)
 
 
-def _tail_leaves(vol0, move_offsets, tex_tables) -> list:
+def _tail_leaves(vol0, move_offsets, tex_tables, cube=None) -> list:
     """The optional leaves after the tables, in the order replay_grad
     returns their cotangents: vol0, the move offsets, the texture records,
-    the atlas (each only where given)."""
+    the atlas, the cubemap table (each only where given)."""
     tex = (() if tex_tables is None else (tex_tables[0],) + (
         () if tex_tables[2] is None else (tex_tables[2],)))
-    return [t for t in (vol0, move_offsets) if t is not None] + list(tex)
+    return ([t for t in (vol0, move_offsets) if t is not None] + list(tex)
+            + ([] if cube is None else [cube]))
 
 
-def _tail_args(tail, vol0, move_offsets, tex_tables) -> dict:
-    """_tail_leaves' inverse: replay's vol0, move_offsets and tex_tables
-    keyword arguments with the tensors `tail`."""
+def _tail_args(tail, vol0, move_offsets, tex_tables, cube=None) -> dict:
+    """_tail_leaves' inverse: replay's vol0, move_offsets, tex_tables and
+    cube keyword arguments with the tensors `tail`."""
     it = iter(tail)
     out = dict(vol0=None if vol0 is None else next(it),
                move_offsets=None if move_offsets is None else next(it),
@@ -130,6 +137,7 @@ def _tail_args(tail, vol0, move_offsets, tex_tables) -> dict:
         atlas = None if tex_tables[2] is None else next(it)
         out["tex_tables"] = mk.TexTables(rec, None, atlas,
                                          tuple(tex_tables[3]))
+    out["cube"] = None if cube is None else next(it)
     return out
 
 
@@ -169,13 +177,16 @@ def replay_grad_reference(tape, lane_count, camera_row, centers, radii,
                           box_tables: tuple | None = None,
                           vol0: torch.Tensor | None = None,
                           move_offsets: torch.Tensor | None = None,
-                          tex_tables: tuple | None = None) -> tuple:
+                          tex_tables: tuple | None = None,
+                          cube: torch.Tensor | None = None,
+                          cube_dims: tuple = (0, 0)) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
     sky_top[, tri_geo, tri_rec][, rect_geo, rect_rec][, box_geo,
-    box_rec][, vol0][, move_offsets][, tex_rec[, atlas]]) of the replay's
-    (color_sum, count) given theirs: autograd over the plain replay."""
+    box_rec][, vol0][, move_offsets][, tex_rec[, atlas]][, cube]) of the
+    replay's (color_sum, count) given theirs: autograd over the plain
+    replay."""
     given = (tri_tables, rect_tables, box_tables)
-    tail = _tail_leaves(vol0, move_offsets, tex_tables)
+    tail = _tail_leaves(vol0, move_offsets, tex_tables, cube)
     leaves = tuple(t.detach().to(torch.float32).requires_grad_()
                    for t in (camera_row, centers, radii, records,
                              sky_bottom, sky_top, *_flat_tables(*given),
@@ -188,7 +199,9 @@ def replay_grad_reference(tape, lane_count, camera_row, centers, radii,
             trace_depth=trace_depth, t_min=t_min,
             has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter,
             tri_tables=tri, rect_tables=rect, box_tables=box,
-            **_tail_args(leaves[6 + n_tab:], vol0, move_offsets, tex_tables),
+            cube_dims=cube_dims,
+            **_tail_args(leaves[6 + n_tab:], vol0, move_offsets, tex_tables,
+                         cube),
         )
         grads = torch.autograd.grad(
             (csum, cnt), leaves,
@@ -269,12 +282,15 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
                               box_tables: tuple | None = None,
                               vol0: torch.Tensor | None = None,
                               move_offsets: torch.Tensor | None = None,
-                              tex_tables: tuple | None = None):
+                              tex_tables: tuple | None = None,
+                              cube: torch.Tensor | None = None,
+                              cube_dims: tuple = (0, 0)):
     """Per-lane VJP of one `replay_iteration`: autograd with every lane's
     state, winner row, camera, sky and camera medium as leaves of their
     own (with `move_offsets`, the state ends with the shutter time and
     cot_entity with the move columns; with `tex_tables`, cot_entity ends
-    with the texture colours' columns; the atlas is not a leaf here).
+    with the texture colours' columns; the atlas and the cubemap are not
+    leaves here).
 
     state, cot_out: (21, n) in STATE_KEYS order, (29, n) in VOL_STATE_KEYS
     order with `vol0`.  Returns (cot_in of the state's shape, cot_entity
@@ -315,6 +331,8 @@ def replay_step_vjp_reference(state, tape_row, it: int, cot_out,
                 None if tex_tables[2] is None
                 else tex_tables[2].detach().to(torch.float32),
                 tuple(tex_tables[3])),
+            cube=None if cube is None else (
+                cube.detach().to(torch.float32), tuple(cube_dims)),
         )
         outs = [out[k] for k in keys]
         keep = [j for j, o in enumerate(outs) if o.requires_grad]
@@ -363,6 +381,7 @@ def load_kernel() -> ctypes.CDLL:
             i, i, i, i, i, i,  # row_base n s seed lane_base trace_depth
             f, i, i, i, i,  # t_min has_diel sky_on jitter kind
             p, p, i, i,  # atlas datlas img_w img_h
+            p, p, i, i,  # cube dcube cube_w cube_h
             p,  # stream
         ]
         lib.rtiw_bwd_paths.restype = i
@@ -372,6 +391,7 @@ def load_kernel() -> ctypes.CDLL:
             i, i, i, i, i,  # n it seed lane_base trace_depth
             f, i, i, i, i,  # t_min has_diel sky_on jitter kind
             p, i, i,  # atlas img_w img_h
+            p, i, i,  # cube cube_w cube_h
             p,  # stream
         ]
         lib.rtiw_replay_step_vjp.restype = i
@@ -478,32 +498,44 @@ def scan_paths(tape, lane_count, *, samples: int, trace_depth: int):
 
 # the kernels' builds: sphere scenes, mesh scenes, scenes with rects or
 # boxes, the first and third with convex volumes, sphere scenes with
-# moving spheres, with textured albedos, and with more than SPH_CULL_MIN
-# static spheres (csrc/megatrace_bwd.cu's `kind` argument)
-SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX, BIG = 0, 1, 2, 3, 4, 5, 6, 7
+# moving spheres, with textured albedos, with more than SPH_CULL_MIN
+# static spheres, and under a cubemap sky (csrc/megatrace_bwd.cu's `kind`
+# argument)
+SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX, BIG, CUBE = range(9)
 MOTION_BESIDE = ("the backward kernel's motion and texture adjoints beside "
                  "rects, boxes, volumes or each other (ROADMAP queue 1, step "
                  "7.3c)")
+CUBE_BESIDE = ("the backward kernel's cube texel plane beside rects, boxes, "
+               "volumes, motion, textures or triangles (ROADMAP queue 1, "
+               "step 7.6b)")
+CUBE_TEXELS_MAX = 1 << 24  # texels of a cube table the kernel indexes (an
+#   index rides a float slot of the cotangent row)
 
 
-SPHERE_ROWS_ONLY = (SPHERES, VOL, MOTION, TEX, BIG)  # builds whose entity
-#   table is the s real sphere rows
+SPHERE_ROWS_ONLY = (SPHERES, VOL, MOTION, TEX, BIG, CUBE)  # builds whose
+#   entity table is the s real sphere rows
 
 
 def build_kind(has_tris: bool, has_aux: bool, has_volumes: bool,
                has_motion: bool = False, has_tex: bool = False,
-               big: bool = False) -> int:
+               big: bool = False, has_cube: bool = False) -> int:
     """The path kernel's build for a scene of these features; `big`: more
     than SPH_CULL_MIN spheres, which only static sphere scenes take (BIG,
     the sphere rows in device memory; beside anything else ROADMAP step
-    7.7b)."""
+    7.7b); `has_cube`: a cubemap sky, which only sphere scenes take (CUBE;
+    beside anything else ROADMAP step 7.6b)."""
     if big:
-        if has_tris or has_aux or has_volumes or has_motion or has_tex:
+        if (has_tris or has_aux or has_volumes or has_motion or has_tex
+                or has_cube):
             raise NotImplementedError(
                 f"replay_grad: the backward kernel's builds other than "
                 f"static spheres past {mk.SPH_CULL_MIN} spheres (ROADMAP "
                 f"queue 1, step 7.7b)")
         return BIG
+    if has_cube:
+        if has_tris or has_aux or has_volumes or has_motion or has_tex:
+            raise NotImplementedError(f"replay_grad: {CUBE_BESIDE}")
+        return CUBE
     if has_tris and has_volumes:
         raise NotImplementedError(f"replay_grad: {mk.VOLUMES_IN_MESHES}")
     if has_tris and has_motion:
@@ -524,7 +556,7 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
                       lane_base, *, samples, trace_depth, t_min,
                       has_dielectrics, sky_on, jitter, tri_tables,
                       rect_tables, box_tables, vol0, move_offsets=None,
-                      tex_tables=None):
+                      tex_tables=None, cube=None, cube_dims=(0, 0)):
     dev = centers.device
     n, s = lane_count.shape[0], centers.shape[0]
     # the tape's shape, the lane counts and the depth: _scan_cuda's checks
@@ -538,7 +570,8 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
     has_aux = rect_tables is not None or box_tables is not None
     has_motion, has_tex = move_offsets is not None, tex_tables is not None
     kind = build_kind(tri_tables is not None, has_aux, vol0 is not None,
-                      has_motion, has_tex, s > mk.SPH_CULL_MIN)
+                      has_motion, has_tex, s > mk.SPH_CULL_MIN,
+                      cube is not None)
     cols = mr.grad_cols(tri_tables is not None, has_aux, has_motion, has_tex)
     tri = tuple(tri_tables or ())
     if tri:
@@ -563,6 +596,7 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
         if perlin is not None:
             raise ValueError("replay_grad: the tape replay has no Perlin "
                              "marble (replay_eligible)")
+    cube_t = None if cube is None else _kernel_cube(cube, cube_dims, dev)
     # the leaves build_entity_rows takes: spheres, tables, move offsets and
     # texture records
     extra = ([move_offsets] if has_motion else []) + (
@@ -580,9 +614,10 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
     args = kernel_args(tape, lane_count,
                        _consts(camera_row, sky_bottom, sky_top, vol0),
                        entity_rows, s, cot_color, cot_count, kind=kind,
-                       atlas=atlas, dims=dims)
+                       atlas=atlas, dims=dims, cube=cube_t,
+                       cube_dims=cube_dims)
     paths = _scan_cuda(args["tape"], args["per_pixel"], samples, trace_depth)
-    dent, dscal, dent_rows, datlas = _paths_cuda(
+    dent, dscal, dent_rows, datlas, dcube = _paths_cuda(
         paths, args, seed, lane_base, trace_depth=trace_depth, t_min=t_min,
         has_dielectrics=has_dielectrics, sky_on=sky_on, jitter=jitter)
     s_pad = mk.sphere_pad_count(s)
@@ -595,19 +630,33 @@ def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
     vol = () if vol0 is None else (dscal[N_SCAL:],)
     return (dscal[:24], *grads[:3], dscal[24:27], dscal[27:30],
             *grads[3:3 + n_tab], *vol, *grads[3 + n_tab:],
-            *(() if datlas is None else (datlas,)))
+            *(() if datlas is None else (datlas,)),
+            *(() if dcube is None else (dcube,)))
+
+
+def _kernel_cube(cube, cube_dims, dev):
+    """The cube build's table (megatrace.kernel_cube's checks) and its
+    texel count within CUBE_TEXELS_MAX."""
+    table = mk.kernel_cube(cube, cube_dims, dev, "replay_grad")
+    if table.shape[0] * table.shape[1] > CUBE_TEXELS_MAX:
+        raise ValueError(f"replay_grad: a cubemap of {table.shape[0]} x "
+                         f"{table.shape[1]} texels; the backward kernel "
+                         f"indexes at most {CUBE_TEXELS_MAX}")
+    return table
 
 
 def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
-                cot_count, *, kind: int, atlas=None, dims=(0, 0)) -> dict:
+                cot_count, *, kind: int, atlas=None, dims=(0, 0), cube=None,
+                cube_dims=(0, 0)) -> dict:
     """The path kernel's inputs: the contiguous tape, per-pixel counts as
     floats, the entity table it indexes (sphere scenes, volumes, motion
     and textures among them: the s real sphere rows; mesh scenes and
     scenes with rects or boxes: the whole padded table, which their tape
     codes, s_pad + row, index), the constants (_consts), the (4, N) color
     and count cotangents, the build (`kind`: SPHERES, MESH, AUX, VOL,
-    AUX_VOL, MOTION, TEX or BIG) and the texture build's atlas ((A * H,
-    W, 3) or None) and its (W, H)."""
+    AUX_VOL, MOTION, TEX, BIG or CUBE), the texture build's atlas ((A * H,
+    W, 3) or None) and its (W, H), and the cube build's faces
+    (pack_cubemap_table's (6 * h, w, 3) or None) and its (w, h)."""
     return dict(
         tape=tape.contiguous(),
         per_pixel=lane_count.to(torch.float32).contiguous(),
@@ -615,7 +664,8 @@ def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
                                  else None].contiguous(),
         consts=consts,
         cot=torch.cat([cot_color.T, cot_count[None]]).contiguous(),
-        s=s, kind=kind, atlas=atlas, dims=tuple(dims))
+        s=s, kind=kind, atlas=atlas, dims=tuple(dims), cube=cube,
+        cube_dims=tuple(int(v) for v in cube_dims))
 
 
 def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
@@ -627,8 +677,9 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
     last), dent_rows: the cotangents of the rows past the padded spheres,
     (T_pad, 28) in mesh scenes, (R_pad + B_pad, 19) with rects or boxes,
     else None; the texel plane's, the atlas's shape, in the texture build
-    with an atlas, else None)."""
-    global LAUNCHES, BIG_LAUNCHES
+    with an atlas, else None; the cube texel plane's, the cube table's
+    shape, in the cube build, else None)."""
+    global LAUNCHES, BIG_LAUNCHES, CUBE_LAUNCHES
     lib = load_kernel()
     dev = args["tape"].device
     s, n, kind = args["s"], args["per_pixel"].shape[0], args["kind"]
@@ -638,6 +689,8 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
                                              kind == TEX))), **f32)
     atlas = args["atlas"]
     datlas = None if atlas is None else torch.zeros_like(atlas)
+    cube = args["cube"]
+    dcube = None if cube is None else torch.zeros_like(cube)
     dscal = torch.zeros(N_SCAL_VOL if kind in (VOL, AUX_VOL) else N_SCAL,
                         **f32)
     next_warp = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -655,6 +708,8 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
             int(has_dielectrics), int(sky_on), int(jitter), kind,
             0 if atlas is None else atlas.data_ptr(),
             0 if datlas is None else datlas.data_ptr(), *args["dims"],
+            0 if cube is None else cube.data_ptr(),
+            0 if dcube is None else dcube.data_ptr(), *args["cube_dims"],
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
@@ -662,7 +717,8 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
                                f"cudaError {err}")
         LAUNCHES += 1
         BIG_LAUNCHES += int(kind == BIG)
-    return dent, dscal, dent_rows, datlas
+        CUBE_LAUNCHES += int(kind == CUBE)
+    return dent, dscal, dent_rows, datlas, dcube
 
 
 def replay_grad(tape, lane_count, camera_row, centers, radii, records,
@@ -675,10 +731,13 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
                 box_tables: tuple | None = None,
                 vol0: torch.Tensor | None = None,
                 move_offsets: torch.Tensor | None = None,
-                tex_tables: tuple | None = None) -> tuple:
+                tex_tables: tuple | None = None,
+                cube: torch.Tensor | None = None,
+                cube_dims: tuple = (0, 0)) -> tuple:
     """Cotangents (camera_row, centers, radii, records, sky_bottom,
     sky_top[, tri_geo, tri_rec][, rect_geo, rect_rec][, box_geo,
-    box_rec][, vol0][, move_offsets][, tex_rec[, atlas]]) of one batch's
+    box_rec][, vol0][, move_offsets][, tex_rec[, atlas]][, cube]) of one
+    batch's
     (color_sum (N, 3), count (N,)) given
     the color and count cotangents, replaying the tape
     (samples*trace_depth, N); `tri_tables` is pack_tri_tables' pair of a
@@ -688,7 +747,8 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
     kernel's aux_cot["vol0"]), `move_offsets` the spheres' unit-shutter
     motion (its aux_cot["move"]), `tex_tables` pack_texture_tables'
     tables of checker and image albedos (the texture records' and the
-    texel plane's cotangents).
+    texel plane's cotangents), `cube` and `cube_dims` pack_cubemap_table's
+    sky (the cube texel plane's cotangent, its aux_cot["cube"]).
 
     The device of `centers` decides: CUDA tensors launch the kernels
     (csrc/megatrace_bwd.cu: the tape scan, then the path kernel) or raise;
@@ -699,7 +759,8 @@ def replay_grad(tape, lane_count, camera_row, centers, radii, records,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, tri_tables=tri_tables,
                   rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
-                  move_offsets=move_offsets, tex_tables=tex_tables)
+                  move_offsets=move_offsets, tex_tables=tex_tables,
+                  cube=cube, cube_dims=cube_dims)
     if centers.device.type == "cuda":
         return _replay_grad_cuda(*args, **kwargs)
     if centers.device.type == "cpu":
@@ -717,7 +778,9 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
                     box_tables: tuple | None = None,
                     vol0: torch.Tensor | None = None,
                     move_offsets: torch.Tensor | None = None,
-                    tex_tables: tuple | None = None):
+                    tex_tables: tuple | None = None,
+                    cube: torch.Tensor | None = None,
+                    cube_dims: tuple = (0, 0)):
     """The backward kernel's one-iteration VJP on every lane (see
     `replay_step_vjp_reference` for the arguments and outputs).  CUDA
     tensors launch the kernel's step entry point; CPU tensors run the plain
@@ -726,7 +789,8 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, tri_tables=tri_tables,
                   rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
-                  move_offsets=move_offsets, tex_tables=tex_tables)
+                  move_offsets=move_offsets, tex_tables=tex_tables,
+                  cube=cube, cube_dims=cube_dims)
     args = (state, tape_row, it, cot_out, lane_count, camera_row, centers,
             radii, records, sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cpu":
@@ -751,6 +815,7 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
     atlas, dims = None, (0, 0)
     if has_tex:
         _, _, atlas, dims = mk.kernel_tex_tables(tex_tables, dev)
+    cube_t = None if cube is None else _kernel_cube(cube, cube_dims, dev)
     consts = _consts(camera_row, sky_bottom, sky_top, vol0)
     f32 = dict(dtype=torch.float32, device=dev)
     has_aux = rect_tables is not None or box_tables is not None
@@ -770,8 +835,10 @@ def replay_step_vjp(state, tape_row, it: int, cot_out, lane_count,
         int(it), int(seed), int(lane_base), trace_depth, float(t_min),
         int(has_dielectrics), int(sky_on), int(jitter),
         build_kind(tri_tables is not None, has_aux, vol0 is not None,
-                   has_motion, has_tex),
+                   has_motion, has_tex, has_cube=cube is not None),
         0 if atlas is None else atlas.data_ptr(), *dims,
+        0 if cube_t is None else cube_t.data_ptr(),
+        *(int(v) for v in (cube_dims if cube is not None else (0, 0))),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -1,6 +1,6 @@
 """Differentiable tape replay of the fused batch kernel (counterpart of the
 JAX package's ops/megatrace_replay.py, its sphere, rect, box, triangle and
-convex-volume arms).
+convex-volume arms and its cubemap fetch).
 
 The forward kernel (ops/megatrace.sample_batch, want_tape=True) records
 the winner of every iteration on every lane: the sphere row, the padded
@@ -22,6 +22,9 @@ medium (eight more state rows, VOL_KEYS), reset from vol0 at every regen;
 with `move_offsets` (unit-shutter sphere motion) its shutter time
 (`ptime`, drawn at every regen as the kernel draws it), and a sphere
 winner's centre is taken at that time: the move offsets are leaves too.
+With `cube` (a cubemap sky) a miss takes the texel of the detached
+direction, whose value is a leaf: the sky is fitted from the rays that
+missed into each texel.
 
 Replay-vs-kernel contract: the same hash PRNG, the same branch rules and
 the same precision helpers (`ops/megatrace._fma`, `_sqrt`, ...) where the
@@ -44,7 +47,7 @@ Scope: `replay_eligible`, the batch kernel's scope but Perlin textures
 and streamed meshes (the JAX package's): spheres, rects and boxes, convex
 volumes, unit-shutter motion and checker and image albedos beside them,
 meshes of at most TRI_MAX triangles, Lambert/GGX metal/dielectric,
-gradient or no sky, white noise.
+gradient, cubemap or no sky, white noise.
 """
 
 from __future__ import annotations
@@ -132,18 +135,39 @@ def replay_eligible(scene) -> bool:
     """Can this scene take the differentiable fused path?  The forward
     batch kernel's scope, rects, boxes, convex volumes, unit-shutter
     motion, checker and image albedos and meshes of at most TRI_MAX
-    triangles included (JAX replay_eligible: the tape has no
-    streamed-triangle arm, and the replay no Perlin marble); past
+    triangles included, and cubemap skies (JAX replay_eligible: the tape
+    has no streamed-triangle arm, and the replay no Perlin marble); past
     SPH_CULL_MIN spheres only static sphere scenes (the backward kernel's
     BIG build; moving ones train through the wavefront until ROADMAP step
     7.7b)."""
     return (mk.scene_eligible(scene, allow_triangles=True,
                               allow_rect_box=True, allow_volumes=True,
-                              allow_motion=True, allow_textures=True)
+                              allow_motion=True, allow_textures=True,
+                              allow_cubemap=True)
             and scene.triangles.vert0.shape[0] <= mk.TRI_MAX
             and scene.textures.perlin is None
             and not (scene.spheres.center.shape[0] > mk.SPH_CULL_MIN
                      and scene.flags.has_motion))
+
+
+def kernel_backward_built(scene) -> bool:
+    """Has the backward kernel a build for this scene's features?  Where
+    it has none (ROADMAP steps 7.3c, 7.6b, 7.7b), a scene that trains on
+    the card takes the wavefront; the plain replay on the CPU takes every
+    replay_eligible scene."""
+    from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
+
+    try:
+        megatrace_bwd.build_kind(
+            scene.triangles.vert0.shape[0] > 0,
+            scene.rects.rot.shape[0] + scene.boxes.rot.shape[0] > 0,
+            scene.flags.has_volumes, scene.flags.has_motion,
+            scene.flags.has_procedural_textures,
+            scene.spheres.center.shape[0] > mk.SPH_CULL_MIN,
+            scene.flags.sky == 2)
+    except NotImplementedError:
+        return False
+    return True
 
 
 def build_entity_rows(centers, radii, records, tri_tables=None,
@@ -276,7 +300,8 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
                      has_tris: bool = False, has_aux: bool = False,
                      has_volumes: bool = False,
                      has_motion: bool = False,
-                     tex: tuple | None = None) -> dict:
+                     tex: tuple | None = None,
+                     cube: tuple | None = None) -> dict:
     """One persistent-lane iteration along the tape: regen, one bounce at
     the tape's winner, fold and termination (JAX replay_iteration :260,
     sphere, rect, box and triangle arms).
@@ -298,7 +323,9 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
     albedos, the texture records in entity columns from tex_base: the
     winner's albedo textured as the kernel does (the JAX replay's
     :580-680; the checker's colours from the record, the atlas texel at a
-    detached index)."""
+    detached index).  cube: (pack_cubemap_table's table, (w, h)) of a
+    cubemap sky: a miss takes the texel of the detached direction, its
+    value differentiable (the JAX replay's :872-905)."""
     per_pixel, lanes, seed = env["per_pixel"], env["lanes"], env["seed"]
     co, ll, hh, vv = env["co"], env["ll"], env["hh"], env["vv"]
     rr, uu = env["rr"], env["uu"]
@@ -620,7 +647,9 @@ def replay_iteration(state: dict, wt, tape_row, it: int, env: dict, *,
         lp_inc = torch.where(vol_scatter, 0.0, lp_inc)
 
     # ---- sky + fold (SampleBatchJob.cs:341-396) --------------------------
-    if sky_on:
+    if cube is not None:
+        skr, skg, skb = mk.cube_texels(*cube, dx, dy, dz).unbind(1)
+    elif sky_on:
         tsky = 0.5 * (dy + 1.0)
         skr = _fma(sky_t[0] - sky_b[0], tsky, sky_b[0])
         skg = _fma(sky_t[1] - sky_b[1], tsky, sky_b[1])
@@ -711,6 +740,8 @@ def replay(
     vol0: torch.Tensor | None = None,
     move_offsets: torch.Tensor | None = None,
     tex_tables: tuple | None = None,
+    cube: torch.Tensor | None = None,
+    cube_dims: tuple = (0, 0),
 ):
     """Differentiable (color_sum (N, 3), count (N,)) of one batch,
     replaying the kernel's persistent-lane loop along the recorded tape
@@ -720,7 +751,8 @@ def replay(
     scene with convex volumes; `move_offsets`: the spheres' (S, 3)
     unit-shutter motion, differentiable; `tex_tables`:
     pack_texture_tables' tables without Perlin ones, the records and the
-    atlas differentiable).
+    atlas differentiable; `cube`, `cube_dims`: pack_cubemap_table's sky,
+    the faces differentiable).
 
     One checkpointed block per `trace_depth` iterations (JAX :1167-1201):
     the winner rows of the block are gathered at once, and only the
@@ -746,7 +778,9 @@ def replay(
                    tex=None if tex_tables is None else (
                        None if tex_tables[2] is None
                        else tex_tables[2].to(torch.float32),
-                       tuple(tex_tables[3])))
+                       tuple(tex_tables[3])),
+                   cube=None if cube is None else (cube.to(torch.float32),
+                                                   tuple(cube_dims)))
     state = initial_state(n, lane_count.device, has_volumes, has_motion)
     winners = torch.clamp(tape, min=0.0).to(torch.int64)
     block = trace_depth
@@ -792,14 +826,15 @@ class _SampleBatchDiff(torch.autograd.Function):
     TABLE_INPUTS (None where the scene has no such kind), vol0 (None
     without volumes), the move offsets (None without motion), the texture
     records and atlas (None without checker or image albedos; the atlas
-    None without an image), then the non-differentiable atlas dims, lane
-    rows, the seed, the lane base and the static options."""
+    None without an image), the cubemap table (None without a cubemap
+    sky), then the non-differentiable atlas and cubemap dims, lane rows,
+    the seed, the lane base and the static options."""
 
     @staticmethod
     def forward(ctx, camera_row, centers, radii, records, sky_bottom,
                 sky_top, tri_geo, tri_rec, rect_geo, rect_rec, box_geo,
-                box_rec, vol0, move_offsets, tex_rec, atlas, tex_dims,
-                lane_count, count_in, seed, lane_base, statics):
+                box_rec, vol0, move_offsets, tex_rec, atlas, cube, tex_dims,
+                cube_dims, lane_count, count_in, seed, lane_base, statics):
         tables = dict(zip(TABLE_INPUTS, (tri_geo, tri_rec, rect_geo,
                                          rect_rec, box_geo, box_rec)))
         tri, rect, box = _pairs(tables)
@@ -814,19 +849,21 @@ class _SampleBatchDiff(torch.autograd.Function):
                                      rect is not None or box is not None,
                                      vol0 is not None,
                                      move_offsets is not None,
-                                     tex is not None)
+                                     tex is not None,
+                                     has_cube=cube is not None)
         out = mk.sample_batch(
             lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base, want_tape=True,
             tri_tables=tri, rect_tables=rect, box_tables=box, vol0=vol0,
-            move_offsets=move_offsets, tex_tables=tex, **statics,
+            move_offsets=move_offsets, tex_tables=tex, cube=cube,
+            cube_dims=cube_dims, **statics,
         )
         ctx.save_for_backward(out["tape"], lane_count, camera_row, centers,
                               radii, records, sky_bottom, sky_top,
                               *tables.values(), vol0, move_offsets, tex_rec,
-                              atlas)
+                              atlas, cube)
         ctx.seed, ctx.lane_base, ctx.statics = seed, lane_base, statics
-        ctx.tex_dims = tex_dims
+        ctx.tex_dims, ctx.cube_dims = tex_dims, cube_dims
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(out["rays"])
         # separate contiguous tensors, not views of one accumulator buffer
@@ -847,8 +884,8 @@ class _SampleBatchDiff(torch.autograd.Function):
         from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 
         (tape, lane_count, camera_row, centers, radii, records, sky_bottom,
-         sky_top, *table_list, vol0, move_offsets, tex_rec,
-         atlas) = ctx.saved_tensors
+         sky_top, *table_list, vol0, move_offsets, tex_rec, atlas,
+         cube) = ctx.saved_tensors
         tex = (None if tex_rec is None
                else mk.TexTables(tex_rec, None, atlas, ctx.tex_dims))
         tables = dict(zip(TABLE_INPUTS, table_list))
@@ -863,8 +900,10 @@ class _SampleBatchDiff(torch.autograd.Function):
             sky_bottom, sky_top, ctx.seed, cot_color, cot_count,
             ctx.lane_base, tri_tables=tri, rect_tables=rect,
             box_tables=box, vol0=vol0, move_offsets=move_offsets,
-            tex_tables=tex, **ctx.statics,
+            tex_tables=tex, cube=cube, cube_dims=ctx.cube_dims,
+            **ctx.statics,
         ))
+        cube_grad = grads.pop() if cube is not None else None
         atlas_grad = grads.pop() if atlas is not None else None
         tex_grad = grads.pop() if tex_rec is not None else None
         move_grad = grads.pop() if move_offsets is not None else None
@@ -875,7 +914,8 @@ class _SampleBatchDiff(torch.autograd.Function):
                 table_grads[2 * j:2 * j + 2] = grads[6:8]
                 del grads[6:8]
         return (*grads, *table_grads, vol0_grad, move_grad, tex_grad,
-                atlas_grad, None, None, None, None, None, None)
+                atlas_grad, cube_grad, None, None, None, None, None, None,
+                None)
 
 
 def sample_batch_diff(
@@ -902,6 +942,8 @@ def sample_batch_diff(
     vol0: torch.Tensor | None = None,
     move_offsets: torch.Tensor | None = None,
     tex_tables: tuple | None = None,
+    cube: torch.Tensor | None = None,
+    cube_dims: tuple = (0, 0),
 ) -> dict:
     """`megatrace.sample_batch` with gradients with respect to camera_row,
     centers, radii, records, sky_bottom, sky_top and, where the scene has
@@ -913,7 +955,8 @@ def sample_batch_diff(
     emission), `move_offsets` (the spheres' unit-shutter motion; JAX
     `aux_cot["move"]`) and `tex_tables`' records and atlas
     (pack_texture_tables, without Perlin tables: the texture colours and
-    the texel plane), through the tape replay.  Outputs are the kernel's (no
+    the texel plane) and `cube` (pack_cubemap_table's faces: the cube texel
+    plane; the JAX kernel's aux_cot["cube"]), through the tape replay.  Outputs are the kernel's (no
     tape).  Only the `color` and `count` cotangents propagate; a loss that
     differentiates an AOV output raises NotImplementedError in backward
     (render_batch grafts the AOV gradients on from the wavefront).  When
@@ -930,17 +973,19 @@ def sample_batch_diff(
     if not (torch.is_grad_enabled()
             and any(t is not None and t.requires_grad
                     for t in (*diff_inputs, *tables, vol0, move_offsets,
-                              *tex[:2]))):
+                              *tex[:2], cube))):
         return mk.sample_batch(lane_count, count_in, *diff_inputs, seed,
                                lane_base, tri_tables=tri_tables,
                                rect_tables=rect_tables,
                                box_tables=box_tables, vol0=vol0,
                                move_offsets=move_offsets,
-                               tex_tables=tex_tables, **statics)
+                               tex_tables=tex_tables, cube=cube,
+                               cube_dims=cube_dims, **statics)
     if tex_tables is not None and tex_tables[1] is not None:
         raise ValueError("sample_batch_diff: the tape replay has no Perlin "
                          "marble (replay_eligible)")
     outs = _SampleBatchDiff.apply(*diff_inputs, *tables, vol0, move_offsets,
-                                  *tex, lane_count, count_in, int(seed),
+                                  *tex[:2], cube, tex[2], tuple(cube_dims),
+                                  lane_count, count_in, int(seed),
                                   int(lane_base), statics)
     return dict(zip(mk.OUTPUT_KEYS, outs))

@@ -32,10 +32,14 @@ decides between an in-medium scatter and the next surface, and an entry
 or an exit without a scatter passes the boundary; the density's gradient
 rides the score-function `logp`.
 
+A cubemap sky takes every arm but `mega` (the per-ray megatrace reads the
+gradient sky, as the JAX package's): a miss samples the faces'
+nearest texel (`core.environment.sample_sky`), differentiable in the
+texel values.
+
 On CPU tensors each kernel runs its plain PyTorch version.  Motion, rects,
-boxes or volumes in mesh scenes, procedural textures and cubemap skies
-raise NotImplementedError naming their ROADMAP steps, and so does a noise
-context (sampler flavors, step 11).
+boxes or volumes in mesh scenes raise NotImplementedError naming their
+ROADMAP steps, and so does a noise context (sampler flavors, step 11).
 """
 
 from __future__ import annotations

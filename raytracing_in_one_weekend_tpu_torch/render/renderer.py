@@ -13,9 +13,10 @@ arms on its conditions:
   tables of a scene with rects or boxes (`pack_aux_tables`, the kernel's
   aux build), with convex volumes the camera's medium
   (`camera_containment_row`, the kernel's volume builds), with moving
-  spheres their move offsets (the kernel's motion builds) and with checker,
+  spheres their move offsets (the kernel's motion builds), with checker,
   Perlin or image albedos the texture tables (`pack_texture_tables`, the
-  kernel's texture builds); a mesh of more
+  kernel's texture builds) and with a cubemap sky its faces
+  (`pack_cubemap_table`, the kernel's cube builds); a mesh of more
   than TRI_MAX triangles takes the streamed
   tables (`pack_tri_stream_tables`) with lanes in Morton order
   (`megatrace.morton_order`, deltas un-permuted by its rank), and above
@@ -27,8 +28,8 @@ arms on its conditions:
   (the same kernel with its winner tape as primal, the tape replay's
   backward kernel as gradient of the color sum and the valid count, to
   the spheres, their move offsets, rects, boxes, the triangle soup, the
-  materials, a volume's density among them, the texture colours and the
-  image atlas), plus
+  materials, a volume's density among them, the texture colours, the
+  image atlas and the cubemap's faces), plus
   the AOV graft:
   the normal, albedo, weight and fallback AOVs keep the kernel's values,
   and their gradients come from the differentiable wavefront on the batch
@@ -402,8 +403,13 @@ def render_batch(
                                             allow_rect_box=True,
                                             allow_volumes=True,
                                             allow_motion=True,
-                                            allow_textures=True)
-            or (inputs and not megatrace_replay.replay_eligible(scene))):
+                                            allow_textures=True,
+                                            allow_cubemap=True)
+            or (inputs and not megatrace_replay.replay_eligible(scene))
+            # on the card, a scene whose backward kernel has no build
+            # (a cubemap beside rects, for one) trains on the wavefront
+            or (inputs and dev.type == "cuda"
+                and not megatrace_replay.kernel_backward_built(scene))):
         # ---- the wavefront arm: the batch kernel is refused ---------------
         integrator.check_scope(scene)
         new, pixel_rays = wavefront_pass(
@@ -430,7 +436,7 @@ def render_batch(
         # the JAX renderer's conditions for the sync route (its others,
         # volumes, motion, procedural textures, noise flavors and cubemap
         # skies, are refused above or by the scope: motion in a mesh scene
-        # is ROADMAP step 7.3b)
+        # is ROADMAP step 7.3b, a cubemap there 7.6b)
         if (scene.triangles.vert0.shape[0] > meshtrace.SYNC_TRI_MIN
                 and not scene.flags.has_volumes
                 and scene.rects.rot.shape[0] == 0
@@ -459,6 +465,9 @@ def render_batch(
     # flow through this row
     vol0 = (megatrace.camera_containment_row(scene, packed, camera.origin)
             if scene.flags.has_volumes else None)
+    # the environment map: gradients to the faces flow through this pack
+    cube, cube_dims = (megatrace.pack_cubemap_table(scene)
+                       if scene.flags.sky == 2 else (None, (0, 0)))
     d = batch(
         lane_count,
         acc.sample_count,
@@ -475,6 +484,7 @@ def render_batch(
         # gradients to the texture colours and the atlas flow through this
         # pack
         tex_tables=megatrace.pack_texture_tables(scene),
+        cube=cube, cube_dims=cube_dims,
         **statics,
     )
     if inputs:

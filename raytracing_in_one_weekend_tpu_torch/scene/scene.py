@@ -12,8 +12,7 @@ Triangles (`add_triangle`, `add_mesh`) are baked to world space in the
 reference's edge form and Morton-sorted by centroid at build, as the JAX
 builder does.  Image textures (`add_image`) are padded into one (A, H, W,
 3) atlas and Perlin tables made from `perlin_seed` (core/noise.py), as the
-JAX builder does.  Cubemap skies raise NotImplementedError naming their
-ROADMAP item (step 7.6).
+JAX builder does.
 """
 
 from __future__ import annotations
@@ -113,7 +112,8 @@ class Environment(TensorGroup):
     sky_type: torch.Tensor  # () int32
     sky_bottom: torch.Tensor  # (3,)
     sky_top: torch.Tensor  # (3,)
-    cubemap: Optional[torch.Tensor] = None  # (6, H, W, 3); not ported yet
+    cubemap: Optional[torch.Tensor] = None  # (6, H, W, 3) float32 faces
+    #   +x, -x, +y, -y, +z, -z (set_cubemap_sky), or None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,6 +332,7 @@ class SceneBuilder:
         self._images: list[np.ndarray] = []
         self._image_keys: dict[str, int] = {}
         self._sky = (SkyType.GRADIENT, (1.0, 1.0, 1.0), (0.5, 0.7, 1.0))
+        self._cubemap: Optional[np.ndarray] = None
 
     # -- textures / images --------------------------------------------------
 
@@ -547,9 +548,10 @@ class SceneBuilder:
         self._sky = (SkyType.NONE, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
 
     def set_cubemap_sky(self, faces: np.ndarray):
-        raise NotImplementedError(
-            "cubemap skies are not ported yet (ROADMAP queue 1, step 7.6)"
-        )
+        """faces: (6, H, W, 3) in +x, -x, +y, -y, +z, -z order
+        (reference: Texture.cs:141-211 Cubemap)."""
+        self._sky = (SkyType.CUBEMAP, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+        self._cubemap = np.asarray(faces, np.float32)
 
     # -- build -----------------------------------------------------------------
 
@@ -698,6 +700,7 @@ class SceneBuilder:
             sky_type=torch.tensor(int(sky_type), dtype=i32, device=device),
             sky_bottom=t(np.asarray(bottom, np.float32), f32),
             sky_top=t(np.asarray(top, np.float32), f32),
+            cubemap=None if self._cubemap is None else t(self._cubemap, f32),
         )
 
         mat_types = [m["type"] for m in mats]

@@ -282,11 +282,21 @@ def test_scope_refusals_name_the_roadmap():
         renderer.check_scope(_mesh_with_a_fog_sphere())
     with pytest.raises(NotImplementedError, match="step 7.3b"):
         renderer.check_scope(_mesh_with_a_moving_sphere())
-    # cubemap skies: ROADMAP step 7.6 (the builder refuses them)
+    # cubemap skies are ported (step 7.6): the builder takes them and the
+    # batch kernel's cube builds render them; the per-ray megatrace reads
+    # the gradient sky, as JAX's
     from raytracing_in_one_weekend_tpu_torch.scene.scene import SceneBuilder
 
-    with pytest.raises(NotImplementedError, match="step 7.6"):
-        SceneBuilder().set_cubemap_sky(np.zeros((6, 4, 4, 3), np.float32))
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, -1.0), 0.5, b.lambert((0.5, 0.5, 0.5)))
+    b.set_cubemap_sky(np.zeros((6, 4, 4, 3), np.float32))
+    cube = b.build()
+    assert not megatrace.scene_eligible(cube)
+    assert megatrace.scene_eligible(cube, allow_triangles=True,
+                                    allow_rect_box=True, allow_volumes=True,
+                                    allow_motion=True, allow_textures=True,
+                                    allow_cubemap=True)
+    renderer.check_scope(cube)
     # unit-shutter motion is ported (step 7.3): the batch kernel's motion
     # builds and the replay take cover_motion; the per-ray megatrace is
     # static

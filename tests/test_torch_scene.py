@@ -163,11 +163,10 @@ def _streamed_mesh(b):
 @pytest.mark.parametrize("call", [
     lambda b: _textured_triangle(
         b, b.add_image("img", np.zeros((2, 2, 3), np.float32))),
-    lambda b: b.set_cubemap_sky(np.zeros((6, 2, 2, 3), np.float32)),
     _textured_triangle,
     _streamed_mesh,
     lambda b: _textured_triangle(b, scene_mod.perlin((1, 1, 1))),
-], ids=["image", "cubemap", "triangle", "mesh", "perlin"])
+], ids=["image", "triangle", "mesh", "perlin"])
 def test_unported_builder_calls_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(scene_mod.SceneBuilder())
