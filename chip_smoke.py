@@ -22,7 +22,7 @@ the parent commit, by `git archive`): the SASS of every kernel of the
 seven sources, function by function (the kernels SASS_CHANGED names are
 reported as changed on purpose; the sphere build, a template since its
 aux build, is compared as its <false> instance), then `turn_readings`
-(the sphere build and the streamed arm of the batch kernel, bounce_sync's
+(the sphere, triangle and streamed builds of the batch kernel, bounce_sync's
 bounce 1, the backward at 64 spp on the cover and 4 spp on mesh_showcase,
 forward and fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn
 a process of its own.  The first form needs one CUDA card.  Phases, each of
@@ -122,13 +122,20 @@ which raises on failure:
      (with inactive 256-ray tiles, up to TRI_MAX triangles) and 512x512
      mesh_showcase camera rays and one bounce of them (t and row identical
      on >= 99% of lanes), timed on the camera rays (`kernel_ms`);
- 14. the batch kernel's triangle arm against its plain version, by phase
-     3's criterion: mesh_showcase at 128x128, 8 spp, depth 8, two seeds,
-     and a two-block mesh (icosphere(2) and a cube, 332 triangles); then
-     both timed at 512x512, depth 8, 4 spp;
+ 14. the batch kernel's triangle build against its plain version, by
+     phase 3's criterion: mesh_showcase at 128x128, 8 spp, depth 8, two
+     seeds, and a two-block mesh (icosphere(2) and a cube, 332
+     triangles); then both timed at 512x512, depth 8, 4 spp, the timed
+     batch held to the plain version, again with the tape; the build alone
+     by CUDA events at 4 and 64 spp (`tri_launch_ms`), its registers,
+     local memory and blocks an SM (ptxas, the occupancy API), and the
+     lane-use share of its dealt tests and of one thread a lane walking
+     the blocks (lane order, 8x4 tiles), from the plain model of each loop
+     over plain 4 and 64 spp batches (`tri_loop_shares`);
  15. the forward mesh path: render_batch on mesh_showcase at 512x512,
      depth 8, 64 spp per batch, 1 warm-up and 5 timed batches (median
-     MRays/s), the image finite and the batch kernel launched;
+     MRays/s), the image finite and every batch through the batch
+     kernel's triangle build (`TRI_LAUNCHES`);
  16. the wavefront mesh path: the batch kernel refused as in phase 12b,
      512x512, depth 8, 16 spp per batch, median of 3 after a warm-up;
      triangle_select and sphere_select must launch;
@@ -260,6 +267,13 @@ which raises on failure:
      sun's texels; a training step of simple_light under the cubemap on
      the wavefront (#2 has no such build: ROADMAP step 7.6b); a 6 x 512 x
      512 cubemap forward and fwd+bwd at 128x128.
+The plain versions held against a kernel's result (`plain_check`: the
+parity checks, the backward against the plain replay's autograd, the
+AOV gradient on the CPU) run in the check stage, after the last timed
+reading: PLAIN_WORKERS processes on the card at once, nothing else
+running there; each check's line, and its raise, come there, in the
+order the checks were made, and the script prints its own time.  The
+plain versions timed for `plain_ms` run where they are.
 MRays/s counts every bounce of every sample as one ray, with the ray
 count the kernels themselves report.  Each kernel's bound is the larger of
 its operations over the FP32 peak (67 TFLOP/s) and its bytes (each input
@@ -272,7 +286,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import glob
+import importlib
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -558,29 +574,201 @@ def lane_agreement(a: dict, b: dict) -> tuple[float, float]:
     return float(same.float().mean()), err
 
 
-def check_parity(label: str, args: tuple, kwargs: dict,
-                 tape: bool = True) -> tuple[float, float]:
-    """Run the kernel and the plain version on the same inputs, with the
-    winner tape unless `tape` is False; raise unless >= 99% of lanes
-    agree."""
+# ---- the check stage -----------------------------------------------------
+# The plain versions are host-bound (their Python loop steps through every
+# iteration of a batch: seconds to a minute a call) and took most of the
+# script's time, one after another.  main() opens a check stage: a plain
+# version held against a kernel's result through `plain_check` then runs
+# after the last timed reading, in PLAIN_WORKERS processes on the card at
+# once (nothing else runs on the card then), and its comparison, its line
+# and its raise come there; its numbers reach the JSON line through `late`
+# (entries, by kernel name) or the dicts the phases return.  Outside
+# main's stage (a phase called alone, as in a rehearsal on the CPU) a check
+# runs where it is made.
+
+PLAIN_WORKERS = 4
+_PENDING = None  # the open stage's checks; None: checks run where made
+LATE = []  # (kernel name, field, value, merge) for the JSON line's entries
+
+
+class HostArray:
+    """A tensor on its way to or from a check process, by value (numpy
+    arrays pickle their bytes: no shared-memory files are needed)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.array = t.detach().cpu().numpy()
+
+
+def to_host(x):
+    """`x` with every tensor in it (tuples, named tuples, lists, dicts:
+    the plain versions' arguments and results) replaced by a HostArray."""
+    if torch.is_tensor(x):
+        return HostArray(x)
+    if isinstance(x, tuple):
+        items = [to_host(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    if isinstance(x, list):
+        return [to_host(v) for v in x]
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    return x
+
+
+def from_host(x, dev):
+    """to_host's inverse, the tensors on `dev` (None: the CPU)."""
+    if isinstance(x, HostArray):
+        t = torch.from_numpy(x.array)
+        return t if dev is None else t.to(dev)
+    if isinstance(x, tuple):
+        items = [from_host(v, dev) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    if isinstance(x, list):
+        return [from_host(v, dev) for v in x]
+    if isinstance(x, dict):
+        return {k: from_host(v, dev) for k, v in x.items()}
+    return x
+
+
+def tensor_device(x):
+    """The device of the first tensor in `x`, None without one."""
+    if torch.is_tensor(x):
+        return x.device
+    items = x.values() if isinstance(x, dict) else (
+        x if isinstance(x, (tuple, list)) else ())
+    for v in items:
+        dev = tensor_device(v)
+        if dev is not None:
+            return dev
+    return None
+
+
+def run_plain(fn, args: tuple, kwargs: dict):
+    """(fn(*args, **kwargs), its seconds), the card waited for."""
+    dev = tensor_device((args, kwargs))
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t
+
+
+def plain_job(fn: str, args, kwargs, dev: str | None, threads: int):
+    """A check process's job: the plain version `fn` ("module:function")
+    on `dev` (None: the CPU); (its result, seconds), by value."""
+    torch.set_num_threads(threads)
+    module, name = fn.split(":")
+    plain = getattr(importlib.import_module(module), name)
+    dev = None if dev is None else torch.device(dev)
+    out, seconds = run_plain(plain, from_host(args, dev),
+                             from_host(kwargs, dev))
+    return to_host(out), seconds
+
+
+def plain_check(fn, args: tuple, kwargs: dict, finish,
+                threads: int = 1) -> None:
+    """finish(fn(*args, **kwargs), seconds) for a plain version `fn`: now,
+    or in main's check stage, fn then run in a check process (with
+    `threads` CPU threads) on copies of the inputs taken now, its result
+    back on the inputs' device."""
+    if _PENDING is None:
+        finish(*run_plain(fn, args, kwargs))
+        return
+    dev = tensor_device((args, kwargs))
+    cost = (kwargs.get("samples", 1) * kwargs.get("trace_depth", 1)
+            * (3 if "grad" in fn.__name__ else 1))
+    _PENDING.append(dict(
+        job=(f"{fn.__module__}:{fn.__name__}", to_host(args),
+             to_host(kwargs), None if dev is None else str(dev), threads),
+        dev=dev, finish=finish, cost=cost if dev is not None else 1e9))
+
+
+def late(kernel: str, field: str, value: float, merge=max) -> None:
+    """merge(value) into the JSON line's entry `kernel` at `field`, once
+    main's check stage is over (`apply_late`)."""
+    LATE.append((kernel, field, value, merge))
+
+
+def apply_late(kernels: list) -> None:
+    by_name = {k["name"]: k for k in kernels}
+    for name, field, value, merge in LATE:
+        old = by_name[name].get(field)
+        by_name[name][field] = value if old is None else merge(old, value)
+
+
+def run_check_stage() -> None:
+    """Run the open stage's checks, costliest first (samples x depth, a
+    backward three times a forward, a CPU job before any), PLAIN_WORKERS at
+    a time in processes of their own on the card, then finish each in the
+    order it was made, which prints its line and may raise.  Closes the
+    stage; the processes end with it."""
+    global _PENDING
+    pending, _PENDING = _PENDING, None
+    t = time.perf_counter()
+    torch.cuda.empty_cache()  # the card's memory to the check processes
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(PLAIN_WORKERS) as pool:
+        results = {}
+        for i in sorted(range(len(pending)),
+                        key=lambda i: -pending[i]["cost"]):
+            results[i] = pool.apply_async(plain_job, pending[i]["job"])
+        for i, check in enumerate(pending):
+            out, seconds = results[i].get()
+            check["finish"](from_host(out, check["dev"]), seconds)
+    print(f"check stage: {len(pending)} plain versions, {PLAIN_WORKERS} "
+          f"processes at once, {time.perf_counter() - t:.1f} s")
+
+
+def into(kernel: str, paths: dict | None = None, key: str = "",
+         share_field: str | None = None):
+    """A record(share, err) for check_parity and parity_rows: err's max
+    into the entry `kernel`'s max_abs_err, share's min into paths[key] and
+    into the entry's `share_field`, where given."""
+    def record(share: float, err: float) -> None:
+        late(kernel, "max_abs_err", err)
+        if share_field is not None:
+            late(kernel, share_field, share, min)
+        if paths is not None:
+            paths[key] = min(paths.get(key, share), share)
+    return record
+
+
+def check_parity(label: str, args: tuple, kwargs: dict, *, record,
+                 tape: bool = True, plain=None, more=None) -> None:
+    """Run the kernel now and the plain version (`plain_check`, its lanes
+    in one chunk on the card) on the same inputs, with the winner tape
+    unless `tape` is False; raise unless >= 99% of lanes agree, else
+    record(share, max abs err).  `plain` (sample_batch_reference by
+    default) may return (its outputs, more), `more` then called with the
+    second."""
     kwargs = dict(kwargs, want_tape=tape)
     before = megatrace.LAUNCHES
     got = megatrace.sample_batch(*args, **kwargs)
     torch.cuda.synchronize()
     if megatrace.LAUNCHES != before + 1:
         raise RuntimeError("sample_batch did not launch the kernel")
-    want = megatrace.sample_batch_reference(*args, **kwargs)
-    share, err = lane_agreement(got, want)
-    print(f"parity {label}: {share:.6f} of lanes identical "
-          f"({'tape, ' if tape else ''}count, rays; floats within 1e-4), "
-          f"max abs err {err:.3g}")
-    if share < 0.99:
-        raise RuntimeError(f"kernel/plain agreement {share} < 0.99 ({label})")
-    return share, err
+
+    def finish(want, seconds):
+        if more is not None:
+            want, extra = want
+        share, err = lane_agreement(got, want)
+        print(f"parity {label}: {share:.6f} of lanes identical "
+              f"({'tape, ' if tape else ''}count, rays; floats within "
+              f"1e-4), max abs err {err:.3g} (plain version {seconds:.1f} s)")
+        if share < 0.99:
+            raise RuntimeError(f"kernel/plain agreement {share} < 0.99 "
+                               f"({label})")
+        record(share, err)
+        if more is not None:
+            more(extra)
+
+    one_chunk = args[0].device.type == "cuda"
+    plain_check(plain or megatrace.sample_batch_reference, args,
+                dict(kwargs, chunk_lanes=args[0].shape[0] if one_chunk
+                     else None), finish)
 
 
 def parity_rows(label: str, args: tuple, kwargs: dict, rows: int,
-                width: int) -> tuple[float, float]:
+                width: int, *, record) -> None:
     """check_parity on a main-path batch with the plain version run on the
     `rows` image rows at the frame's centre, where each scene's subject
     sits (a 512x512, 64 spp batch takes the plain version about a minute
@@ -588,7 +776,8 @@ def parity_rows(label: str, args: tuple, kwargs: dict, rows: int,
     their lanes: eight 8-row bands cost eight times one 64-row band): the
     kernel runs the whole batch, the plain version those lanes with their
     own lane ids and pixels, so each computes what it computes in the
-    whole batch.  Raise unless >= 99% of them agree."""
+    whole batch.  Raise unless >= 99% of them agree, else record(share,
+    max abs err)."""
     kwargs = dict(kwargs, want_tape=True)
     before = megatrace.LAUNCHES
     got = megatrace.sample_batch(*args, **kwargs)
@@ -599,18 +788,25 @@ def parity_rows(label: str, args: tuple, kwargs: dict, rows: int,
     base = args[9] if len(args) > 9 else kwargs.pop("lane_base", 0)
     r0 = (height - rows) // 2
     lo, hi = r0 * width, (r0 + rows) * width
-    want = megatrace.sample_batch_reference(
-        args[0][lo:hi], args[1][lo:hi], *args[2:9], base + lo,
-        pixel_index=torch.arange(lo, hi, device=args[0].device), **kwargs)
-    share, err = lane_agreement(
-        {k: v[:, lo:hi] if k == "tape" else v[lo:hi] for k, v in got.items()},
-        want)
-    print(f"parity {label} (plain version on rows {r0}-{r0 + rows - 1}, "
-          f"{hi - lo} lanes): {share:.6f} of them identical (tape, count, "
-          f"rays; floats within 1e-4), max abs err {err:.3g}")
-    if share < 0.99:
-        raise RuntimeError(f"kernel/plain agreement {share} < 0.99 ({label})")
-    return share, err
+    got = {k: (v[:, lo:hi] if k == "tape" else v[lo:hi]).clone()
+           for k, v in got.items()}  # the band alone kept for the stage
+
+    def finish(want, seconds):
+        share, err = lane_agreement(got, want)
+        print(f"parity {label} (plain version on rows {r0}-{r0 + rows - 1}, "
+              f"{hi - lo} lanes, {seconds:.1f} s): {share:.6f} of them "
+              f"identical (tape, count, rays; floats within 1e-4), max abs "
+              f"err {err:.3g}")
+        if share < 0.99:
+            raise RuntimeError(f"kernel/plain agreement {share} < 0.99 "
+                               f"({label})")
+        record(share, err)
+
+    plain_check(megatrace.sample_batch_reference,
+                (args[0][lo:hi], args[1][lo:hi], *args[2:9], base + lo),
+                dict(kwargs, pixel_index=torch.arange(lo, hi,
+                                                      device=args[0].device)),
+                finish)
 
 
 @contextlib.contextmanager
@@ -680,9 +876,81 @@ def leaf_errors(got, want, names=LEAVES) -> tuple[float, float]:
     return max_abs, max_rel
 
 
+def leaf_check(label: str, got, names=LEAVES, entry="megatrace_bwd"):
+    """A plain_check finish for a backward against the plain replay's
+    autograd (`leaf_errors` over `names`): prints the line, merges the
+    errors (max_abs_err, max_rel_err) into `entry`, the JSON line's entry
+    of that name (`late`) or a dict."""
+    def finish(want, seconds: float) -> None:
+        a, r = leaf_errors(got, want, names)
+        for field, value in (("max_abs_err", a), ("max_rel_err", r)):
+            if isinstance(entry, dict):
+                entry[field] = max(entry.get(field, value), value)
+            else:
+                late(entry, field, value)
+        print(f"backward kernel vs plain, {label}: max error {r:.3e} of "
+              f"the leaf's max abs ({a:.3g} abs); plain version "
+              f"{seconds:.1f} s")
+    return finish
+
+
 def tri_tables_of(scene):
     """pack_tri_tables' pair of a mesh scene, None without triangles."""
     return megatrace.pack_tri_tables(scene, materials.pack_materials(scene))
+
+
+def tri_launch_ms(tables, tri, samples: int, repeats: int, kw: dict) -> float:
+    """The batch kernel's triangle build alone: CUDA events around
+    `repeats` launches of its C entry point (rtiw_megatrace_batch, the same
+    in older trees) on buffers made once, after a warm-up (`time_batch`),
+    seed 7, depth kw["trace_depth"], every lane `samples` samples."""
+    camera_row, centers, radii, records, sky_bottom, sky_top = tables
+    dev, s = centers.device, centers.shape[0]
+    n = int(camera_row[19] * camera_row[20])
+    lib = megatrace.load_kernel()
+    sph, rec = megatrace.sweep_tables(centers, radii, records)
+    consts = megatrace.kernel_consts(camera_row, sky_bottom, sky_top)
+    geo, aabb, trec = megatrace.kernel_tri_tables(tri)
+    per_pixel = torch.full((n,), float(samples), device=dev)
+    cin = torch.zeros(n, device=dev)
+    out = torch.empty((megatrace.OUT_ROWS, n), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = lib.rtiw_megatrace_batch(
+            per_pixel.data_ptr(), cin.data_ptr(), 0, consts.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), geo.data_ptr(), aabb.data_ptr(),
+            0, trec.data_ptr(), out.data_ptr(), 0, n, s, geo.shape[0],
+            aabb.shape[0], 0, megatrace.sphere_pad_count(s), 7, 0, samples,
+            kw["trace_depth"], 0.0, int(kw["has_dielectrics"]),
+            int(kw["sky_on"]), 1, stream)
+        if err != 0:
+            raise RuntimeError(f"triangle build launch: cudaError {err}")
+
+    return time_batch(launch, repeats=repeats)[0]
+
+
+def tri_loop_shares(tables, tri, samples: int, kw: dict) -> dict:
+    """The plain model of the triangle loop (megatrace.tri_loop_slots) over
+    one plain batch of `samples` samples a lane (seed 7, one chunk): the
+    tests, and the lane-use share of one thread a lane walking the blocks
+    in lane order (the build before) and in 8x4 tiles, and of the tests
+    dealt to the warp (this build, tiles)."""
+    camera_row = tables[0]
+    width = int(camera_row[19])
+    n = width * int(camera_row[20])
+    dev = camera_row.device
+    orders = dict(lanes=torch.arange(n, device=dev),
+                  tiles=megatrace.tile_lane_order(n, width).to(dev))
+    with recorded_tri_loops(tri[0].shape[0], orders) as tot:
+        out = megatrace.sample_batch_reference(
+            torch.full((n,), samples, dtype=torch.int32, device=dev),
+            torch.zeros(n, device=dev), *tables, 7, samples=samples,
+            tri_tables=tri, chunk_lanes=n, **kw)
+    return dict(tests=tot["tiles"]["tests"], bounces=float(out["rays"].sum()),
+                lane_order=tot["lanes"]["tests"] / tot["lanes"]["lane_slots"],
+                tiles=tot["tiles"]["tests"] / tot["tiles"]["lane_slots"],
+                dealt=tot["tiles"]["tests"] / tot["tiles"]["dealt_slots"])
 
 
 def step_vjp_check(dev, scene, cs, label: str = "cover") -> float:
@@ -866,23 +1134,20 @@ def differentiable_phases(dev, card, scene, cs, camera, target) -> dict:
         scan_err = max(scan_err, check_scan(
             fwd["tape"], lane_count, spp, depth,
             f"cover {w}x{h} {spp} spp depth {depth}"))
-        got = megatrace_bwd.replay_grad(fwd["tape"], lane_count, *tables,
-                                        seed, *cots, **kw)
+        args = (fwd["tape"], lane_count, *tables, seed, *cots)
+        got = megatrace_bwd.replay_grad(*args, **kw)
         torch.cuda.synchronize()
-        want = megatrace_bwd.replay_grad_reference(
-            fwd["tape"], lane_count, *tables, seed, *cots, **kw)
-        a, r = leaf_errors(got, want)
-        max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+        label = f"cover {w}x{h} {spp} spp depth {depth} seed {seed}"
+        plain_check(megatrace_bwd.replay_grad_reference, args, kw,
+                    leaf_check(label, got))
         with torch.no_grad():
             csum, cnt = megatrace_replay.replay(fwd["tape"], lane_count,
                                                 *tables, seed, **kw)
         same = (torch.isclose(csum, fwd["color"], **TOL).all(1)
                 & (cnt == fwd["count"]))
         shares.append(float(same.float().mean()))
-        print(f"backward kernel vs plain, cover {w}x{h} {spp} spp depth "
-              f"{depth} seed {seed}: max error {r:.3e} of the leaf's max "
-              f"abs ({a:.3g} abs); replay primal = kernel on "
-              f"{shares[-1]:.6f} of lanes")
+        print(f"replay primal, {label}: = kernel on {shares[-1]:.6f} of "
+              f"lanes")
         if shares[-1] < 0.99:
             raise RuntimeError(f"replay primal share {shares[-1]} < 0.99")
     out["replay_primal_share"] = min(shares)
@@ -915,16 +1180,10 @@ def differentiable_phases(dev, card, scene, cs, camera, target) -> dict:
             # the plain version on the inputs the main path gave the
             # backward kernel (the last timed step)
             args, kwargs, got = call
-            t = time.perf_counter()
-            want = megatrace_bwd.replay_grad_reference(*args, **kwargs)
-            torch.cuda.synchronize()
-            a, r = leaf_errors(got, want)
-            max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-            print(f"backward kernel vs plain on a main-path step ({width}x"
-                  f"{height}, {samples} spp, depth {d}): max error {r:.3e} "
-                  f"of the leaf's max abs ({a:.3g} abs); plain version "
-                  f"{time.perf_counter() - t:.1f} s")
-            del call, args, got, want  # free the step's tape
+            plain_check(megatrace_bwd.replay_grad_reference, args, kwargs,
+                        leaf_check(f"on a main-path step ({width}x{height}, "
+                                   f"{samples} spp, depth {d})", got))
+            del call, args, got  # free the step's tape
     out.update(rates)
     out["peak_gb"] = {str(d): p for d, p in peaks.items()}
 
@@ -1113,6 +1372,14 @@ def aov_gradient(scene, cs, dev, width, samples, key_seed):
     return [g.cpu() for g in torch.autograd.grad(loss, [centers, colors])]
 
 
+def cover_aov_gradient(width, samples, key_seed):
+    """aov_gradient of the book cover on the CPU: phase 12c's plain side,
+    a job for a check process."""
+    scene, cs = book_scenes.cover_scene()
+    return aov_gradient(scene, cs, torch.device("cpu"), width, samples,
+                        key_seed)
+
+
 def device_busy_share(fn, refuse_batch_kernel: bool = False) -> float:
     """Device time over wall time of one call of `fn` under torch.profiler
     (kernel self time summed; the rest of the window the card idles).  The
@@ -1174,6 +1441,7 @@ def reset_launches() -> None:
     megatrace.MOTION_LAUNCHES = megatrace.TEX_LAUNCHES = 0
     megatrace.BLOCKED_LAUNCHES = megatrace.WAVE_BIG_LAUNCHES = 0
     megatrace.CUBE_LAUNCHES = megatrace_bwd.CUBE_LAUNCHES = 0
+    megatrace.TRI_LAUNCHES = 0
     megatrace_bwd.SCAN_LAUNCHES = megatrace_bwd.BIG_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
@@ -1413,23 +1681,25 @@ def wavefront_phases(dev, card, scene, cs, camera, target,
     paths.update(aov_step_s=aov_s, aov_peak_gb=aov_peak,
                  photometric_step_s=photo_s)
 
-    t = time.perf_counter()
-    got = aov_gradient(scene, cs, dev, 128, 8, 4)
-    want = aov_gradient(scene, cs, torch.device("cpu"), 128, 8, 4)
-    rel = 0.0
-    for name, g, w in zip(("centers", "texture colors"), got, want):
-        scale = float(w.abs().max())
-        err = float((g - w).abs().max())
-        if not (err <= GRAD_TOL * scale) or scale == 0.0:
-            raise RuntimeError(f"AOV gradient, card vs plain: {name} error "
-                               f"{err} against max abs {scale}")
-        rel = max(rel, err / scale)
     print(f"    device busy {paths['aov_device_busy']:.3f} of a 1-sample AOV "
           f"step")
-    print(f"    AOV gradient, cover 128x128, 8 spp: card vs plain versions "
-          f"on the CPU within {rel:.3e} of each leaf's max abs "
-          f"({time.perf_counter() - t:.1f} s)")
-    paths["aov_grad_rel_err"] = rel
+    got = aov_gradient(scene, cs, dev, 128, 8, 4)
+
+    def aov_finish(want, seconds, got=got):
+        rel = 0.0
+        for name, g, w in zip(("centers", "texture colors"), got, want):
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max())
+            if not (err <= GRAD_TOL * scale) or scale == 0.0:
+                raise RuntimeError(f"AOV gradient, card vs plain: {name} "
+                                   f"error {err} against max abs {scale}")
+            rel = max(rel, err / scale)
+        print(f"    AOV gradient, cover 128x128, 8 spp: card vs plain "
+              f"versions on the CPU within {rel:.3e} of each leaf's max abs "
+              f"(the CPU's {seconds:.1f} s)")
+        paths["aov_grad_rel_err"] = rel
+
+    plain_check(cover_aov_gradient, (128, 8, 4), {}, aov_finish, threads=4)
 
     kernels = [{
         "name": "megatrace_wave",
@@ -1646,26 +1916,23 @@ def mesh_phases(dev, card) -> dict:
     zeros = torch.zeros(w * h, device=dev)
     _, tables = batch_inputs(scene, cs, w, h, dev)
     lanes8 = torch.full((w * h,), 8, dtype=torch.int32, device=dev)
-    max_err = 0.0
+    tri_record = into("megatrace_batch_tri", share_field="parity_share")
     for seed in (11, 12):
-        share, err = check_parity(
-            f"mesh_showcase {w}x{h} 8 spp depth 8 seed {seed}",
-            (lanes8, zeros, *tables, seed),
-            dict(kw, samples=8, trace_depth=8, tri_tables=tri))
-        shares.append(share)
-        max_err = max(max_err, err)
+        check_parity(f"mesh_showcase {w}x{h} 8 spp depth 8 seed {seed}",
+                     (lanes8, zeros, *tables, seed),
+                     dict(kw, samples=8, trace_depth=8, tri_tables=tri),
+                     record=tri_record)
     scene2, cs2 = two_block_mesh(dev)
     tri2 = tri_tables_of(scene2)
     if tri2[0].shape[0] != 384:
         raise RuntimeError("the two-block mesh does not pad to 384 rows")
     _, tables2 = batch_inputs(scene2, cs2, w, h, dev)
-    share, err = check_parity(
+    check_parity(
         f"two-block mesh (332 triangles) {w}x{h} 4 spp depth 6",
         (torch.full((w * h,), 4, dtype=torch.int32, device=dev), zeros,
          *tables2, 13),
-        dict(kw, samples=4, trace_depth=6, tri_tables=tri2))
-    shares.append(share)
-    max_err = max(max_err, err)
+        dict(kw, samples=4, trace_depth=6, tri_tables=tri2),
+        record=tri_record)
     _, tables = batch_inputs(scene, cs, width, height, dev)
     args4 = (torch.full((n,), 4, dtype=torch.int32, device=dev),
              torch.zeros(n, device=dev), *tables, 7)
@@ -1674,26 +1941,61 @@ def mesh_phases(dev, card) -> dict:
                                **kw4)
     megatrace.TRI_PAIRS = 0
     batch_plain_ms, want = time_batch(megatrace.sample_batch_reference,
-                                      *args4, repeats=1, **kw4)
-    pairs = megatrace.TRI_PAIRS / 2  # time_batch made two calls
+                                      *args4, repeats=1, want_tape=True,
+                                      **kw4)
+    pairs = megatrace.TRI_PAIRS  # one call (no warm-up at repeats=1)
+    taped = megatrace.sample_batch(*args4, want_tape=True, **kw4)
     share, err = lane_agreement(got, want)
-    if share < 0.99:
-        raise RuntimeError(f"triangle arm agreement {share} < 0.99 in the "
-                           "timed 4 spp batch")
-    max_err = max(max_err, err)
+    share_tape, err_tape = lane_agreement(taped, want)
+    tri_share, tri_err = min(share, share_tape), max(err, err_tape)
+    if min(share, share_tape) < 0.99:
+        raise RuntimeError(f"triangle build agreement {share}, with the "
+                           f"tape {share_tape}, < 0.99 in the timed 4 spp "
+                           "batch")
     bounces = float(got["rays"].sum())
     blocks = -(-t_pad // megatrace.TRI_BLOCK)
-    batch_bound = bound(
-        bounces * (s_count * SWEEP_FLOPS + SHADE_FLOPS) + pairs * MT_FLOPS,
-        n * 4 * (2 + megatrace.OUT_ROWS) + s_count * 4 * 20 + 4 * 32
-        + t_pad * 4 * (12 + megatrace.TRI_REC_ROWS) + blocks * 32)
-    print(f"batch kernel, triangle arm, mesh_showcase 512x512 depth 8, 4 spp "
-          f"({bounces:.0f} bounces, {pairs / bounces:.1f} triangles tested "
-          f"per bounce of {t_count}): kernel {batch_ms:.3f} ms "
+
+    def tri_build_bound(bounces_, pairs_):
+        return bound(
+            bounces_ * (s_count * SWEEP_FLOPS + SHADE_FLOPS)
+            + pairs_ * MT_FLOPS,
+            n * 4 * (2 + megatrace.OUT_ROWS) + s_count * 4 * 20 + 4 * 32
+            + t_pad * 4 * (12 + megatrace.TRI_REC_ROWS) + blocks * 32)
+
+    batch_bound = tri_build_bound(bounces, pairs)
+    print(f"batch kernel, triangle build, mesh_showcase 512x512 depth 8, 4 "
+          f"spp ({bounces:.0f} bounces, {pairs / bounces:.1f} triangles "
+          f"tested per bounce of {t_count}): sample_batch {batch_ms:.3f} ms "
           f"({bounces / batch_ms / 1e3:.3f} MRays/s), plain "
           f"{batch_plain_ms:.3f} ms, bound {batch_bound[0]:.4f} ms by "
-          f"{batch_bound[1]}; {share:.6f} of lanes agree, max abs err "
-          f"{err:.3g} [{card}]")
+          f"{batch_bound[1]}; {share:.6f} of lanes agree ({share_tape:.6f} "
+          f"with the tape), max abs err {max(err, err_tape):.3g} [{card}]")
+    # the build alone, its occupancy, and the share of its warps' lane
+    # slots its tests use, from the plain model of its loop and of the
+    # loop before (one thread a lane walking the blocks)
+    kw_loop = dict(trace_depth=8, has_dielectrics=kw["has_dielectrics"],
+                   sky_on=True)
+    tri_ms = tri_launch_ms(tables, tri, 4, 10, kw_loop)
+    tri_ms64 = tri_launch_ms(tables, tri, 64, 3, kw_loop)
+    info = megatrace.tri_kernel_info(s_count)
+    loops = {spp: tri_loop_shares(tables, tri, spp, kw_loop)
+             for spp in (4, 64)}
+    bound64 = tri_build_bound(loops[64]["bounces"], loops[64]["tests"])
+    report = ptxas_report(megatrace.BUILD_LOG, "megatrace_tri_kernel")
+    print(f"triangle build: ptxas {report or '(not built here)'}; "
+          f"{info['registers']} registers, {info['local_bytes']} B local a "
+          f"thread, {info['blocks']} blocks of 128 an SM (occupancy API); "
+          f"launches alone 4 spp {tri_ms:.3f} ms against a bound of "
+          f"{batch_bound[0]:.4f} ms ({batch_bound[0] / tri_ms:.1%}), 64 spp "
+          f"{tri_ms64:.3f} ms against {bound64[0]:.4f} ms "
+          f"({bound64[0] / tri_ms64:.1%}; {loops[64]['tests']:.0f} tests, "
+          f"{loops[64]['bounces']:.0f} bounces); lane-use share of its dealt "
+          f"tests {loops[4]['dealt']:.4f} at 4 spp, {loops[64]['dealt']:.4f} "
+          f"at 64 spp; of one thread a lane walking the blocks (the build "
+          f"before) {loops[4]['lane_order']:.4f} / "
+          f"{loops[64]['lane_order']:.4f} in lane order, "
+          f"{loops[4]['tiles']:.4f} / {loops[64]['tiles']:.4f} in 8x4 tiles "
+          f"[{card}]")
 
     # ---- 15. the forward mesh path ---------------------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -1715,6 +2017,10 @@ def mesh_phases(dev, card) -> dict:
     if fwd_launches == 0 or megatrace_bwd.LAUNCHES or triangle_select.LAUNCHES:
         raise RuntimeError("the forward mesh path did not take the batch "
                            "kernel alone")
+    if megatrace.TRI_LAUNCHES != fwd_launches:
+        raise RuntimeError(f"the forward mesh path launched the triangle "
+                           f"build {megatrace.TRI_LAUNCHES} times of "
+                           f"{fwd_launches} launches")
     img = film.combine(acc, width, height).color
     if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.1:
         raise RuntimeError(f"bad mesh image: mean {float(img.mean())}")
@@ -1795,6 +2101,7 @@ def mesh_phases(dev, card) -> dict:
     names = LEAVES + ("tri_geo", "tri_rec")
     _, tables = batch_inputs(scene, cs, w, h, dev)
     bwd_abs = bwd_rel = 0.0
+    tri_bwd = {}  # out["bwd_triangle_arm"], the checks' errors merged in
     for spp, depth, seed in ((8, 8, 11), (4, 35, 13)):
         lane_count = torch.full((w * h,), spp, dtype=torch.int32, device=dev)
         bkw = dict(kw, samples=spp, trace_depth=depth)
@@ -1803,17 +2110,14 @@ def mesh_phases(dev, card) -> dict:
         cots = probe_cotangents(fwd["color"], fwd["count"])
         check_scan(fwd["tape"], lane_count, spp, depth,
                    f"mesh_showcase {w}x{h} {spp} spp depth {depth}")
-        got = megatrace_bwd.replay_grad(fwd["tape"], lane_count, *tables,
-                                        seed, *cots, tri_tables=tri, **bkw)
+        args = (fwd["tape"], lane_count, *tables, seed, *cots)
+        got = megatrace_bwd.replay_grad(*args, tri_tables=tri, **bkw)
         torch.cuda.synchronize()
-        want = megatrace_bwd.replay_grad_reference(
-            fwd["tape"], lane_count, *tables, seed, *cots, tri_tables=tri,
-            **bkw)
-        a, r = leaf_errors(got, want, names)
-        bwd_abs, bwd_rel = max(bwd_abs, a), max(bwd_rel, r)
-        print(f"backward kernel vs plain, mesh_showcase {w}x{h} {spp} spp "
-              f"depth {depth}: max error {r:.3e} of the leaf's max abs "
-              f"({a:.3g} abs), triangle leaves included")
+        plain_check(megatrace_bwd.replay_grad_reference, args,
+                    dict(bkw, tri_tables=tri),
+                    leaf_check(f"mesh_showcase {w}x{h} {spp} spp depth "
+                               f"{depth}, triangle leaves included", got,
+                               names, tri_bwd))
 
     # ---- 17d. the AOV step -----------------------------------------------------
     reset_launches()
@@ -1961,16 +2265,41 @@ def mesh_phases(dev, card) -> dict:
         "bound_by": sel_bound[1],
         "library_ms": None,
     }
-    out["batch_triangle_arm"] = dict(
-        launches=fwd_launches, max_abs_err=max_err, ms=batch_ms,
-        plain_ms=batch_plain_ms, bound_ms=batch_bound[0],
-        bound_by=batch_bound[1], parity_share=min(shares[-4:]))
-    out["bwd_triangle_arm"] = dict(
+    tri_kernel = {
+        "name": "megatrace_batch_tri",
+        "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:684",
+        "launches": fwd_launches,
+        "max_abs_err": tri_err,
+        "ms": tri_ms,
+        "plain_ms": batch_plain_ms,
+        "bound_ms": batch_bound[0],
+        "bound_by": batch_bound[1],
+        "library_ms": None,
+        "sample_batch_ms": batch_ms,
+        "ms_64spp": tri_ms64,
+        "bound_ms_64spp": bound64[0],
+        "registers": info["registers"],
+        "local_bytes": info["local_bytes"],
+        "blocks_per_sm": info["blocks"],
+        "lane_use": loops[4]["dealt"],
+        "lane_use_64spp": loops[64]["dealt"],
+        "lane_use_one_lane_a_thread": loops[4]["lane_order"],
+        "lane_use_one_lane_a_thread_64spp": loops[64]["lane_order"],
+        "lane_use_one_lane_a_thread_tiles": loops[4]["tiles"],
+        "lane_use_one_lane_a_thread_tiles_64spp": loops[64]["tiles"],
+        "parity_share": tri_share,
+    }
+    tri_bwd.update(
         launches=fb_launches[1], scan_launches=fb_launches[2],
-        max_abs_err=bwd_abs, max_rel_err=bwd_rel, ms=paths_ms,
-        scan_ms=scan_ms, scan_glue_ms=glue_ms, replay_grad_ms=bwd_ms, plain_ms=bwd_plain_ms,
-        bound_ms=tri_bound[0], bound_by=tri_bound[1], paths=stats)
-    return {"kernel": kernel, "paths": out}
+        max_abs_err=max(tri_bwd.get("max_abs_err", 0.0), bwd_abs),
+        max_rel_err=max(tri_bwd.get("max_rel_err", 0.0), bwd_rel),
+        ms=paths_ms, scan_ms=scan_ms, scan_glue_ms=glue_ms,
+        replay_grad_ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=tri_bound[0],
+        bound_by=tri_bound[1], paths=stats)
+    out["bwd_triangle_arm"] = tri_bwd
+    return {"kernels": [kernel, tri_kernel], "paths": out}
 
 
 # ---------------------------------------------------------------------------
@@ -2188,6 +2517,45 @@ def recorded_sweeps():
         megatrace._bounce, megatrace._tri_stream_sweep = bounce, sweep
 
 
+@contextlib.contextmanager
+def recorded_tri_loops(t_rows: int, orders: dict):
+    """Sum, over every bounce of the plain batch runs made inside the block
+    (megatrace.sample_batch_reference with tri_tables, in one chunk:
+    chunk_lanes = N), megatrace.tri_loop_slots of the index-order sweep's
+    masks for each thread order of `orders` ({name: (N,) the lane of each
+    thread}).  Yields {name: {"tests", "lane_slots", "dealt_slots"}}."""
+    totals = {k: dict(tests=0.0, lane_slots=0.0, dealt_slots=0.0)
+              for k in orders}
+    bounce, sweep = megatrace._bounce, megatrace._tri_sweep
+    live = []
+
+    def recording_bounce(p, *args, **kwargs):
+        live.append(p["active"])
+        return bounce(p, *args, **kwargs)
+
+    def recording_sweep(o, d, best_t, geo, t_min):
+        tested = []
+        hit = sweep(o, d, best_t, geo, t_min, tested)
+        mask = live[-1]
+        full = torch.zeros((len(tested), mask.shape[0]), dtype=torch.bool,
+                           device=mask.device)
+        full[:, torch.nonzero(mask, as_tuple=True)[0]] = torch.stack(tested)
+        for name, order in orders.items():
+            if order.shape[0] != mask.shape[0]:
+                raise ValueError("recorded_tri_loops: the plain run is not "
+                                 "one chunk of the orders' lanes")
+            for k, v in megatrace.tri_loop_slots(full, t_rows,
+                                                 order).items():
+                totals[name][k] += v
+        return hit
+
+    megatrace._bounce, megatrace._tri_sweep = recording_bounce, recording_sweep
+    try:
+        yield totals
+    finally:
+        megatrace._bounce, megatrace._tri_sweep = bounce, sweep
+
+
 def group_traversal(call: dict, stream) -> tuple:
     """The streamed batch kernel's triangle sweep on one recorded bounce
     (`recorded_sweeps`), from its plain model: the live lanes' rays in
@@ -2210,6 +2578,17 @@ def group_traversal(call: dict, stream) -> tuple:
         tuple(state[0:3]), tuple(state[3:6]), best_t, live, stream, group,
         order, dist)
     return tuple(h[idx] for h in hit), counts
+
+
+def streamed_model_run(*args, **kwargs):
+    """The plain streamed batch (sample_batch_reference with
+    tri_stream_tables) and its traversal model: (its outputs, (the
+    model's counts summed over its bounces, `batch_traversal_counts`, the
+    bounces, the iterations)); a job for a check process."""
+    with recorded_sweeps() as calls:
+        out = megatrace.sample_batch_reference(*args, **kwargs)
+    model = batch_traversal_counts(calls, kwargs["tri_stream_tables"])
+    return out, (model, sum(int(c["live"].sum()) for c in calls), len(calls))
 
 
 def batch_traversal_counts(calls: list, stream) -> dict:
@@ -2401,32 +2780,34 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     lanes8 = torch.full((w * h,), 8, dtype=torch.int32, device=dev)
     zeros = torch.zeros(w * h, device=dev)
     kw8 = dict(kw, samples=8, trace_depth=8, pixel_index=order)
-    arm_shares, arm_err = [], 0.0
-    for seed in (11, 12):
-        with recorded_sweeps() as calls:
-            share, err = check_parity(
-                f"streamed arm, mesh_large {w}x{h} 8 spp depth 8 seed {seed}, "
-                "Morton lanes", (lanes8, zeros, *tables, seed), kw8,
-                tape=False)
-        arm_shares.append(share)
-        arm_err = max(arm_err, err)
-    # the traversal model on the last batch: the divergence dealing removes
-    model = batch_traversal_counts(calls, large_stream)
-    bounces = sum(int(c["live"].sum()) for c in calls)
-    per_group = len(calls) * w * h / meshtrace.SYNC_GROUP
-    print(f"streamed arm's traversal model, mesh_large {w}x{h} 8 spp depth 8 "
-          f"seed 12 ({bounces} bounces in {len(calls)} iterations, groups of "
-          f"{meshtrace.SYNC_GROUP} lanes; winners equal to the index-order "
-          f"sweep's on every live lane), triangle tests per bounce: the "
-          f"lanes' own (lane_pairs) {model['lane_pairs'] / bounces:.1f}, "
-          f"their warps' with one thread a lane (warp_pairs) "
-          f"{model['warp_pairs'] / bounces:.1f}, every live lane of a group "
-          f"against every staged block (group_pairs) "
-          f"{model['group_pairs'] / bounces:.1f}; AABB tests "
-          f"{model['lane_slabs'] / bounces:.1f}; staged {model['staged']} "
-          f"blocks ({model['staged'] / per_group:.2f} per group and "
-          f"iteration, "
-          f"{model['staged'] * megatrace.TRI_BLOCK * 48 / 1e6:.1f} MB)")
+    arm_record = into("megatrace_batch_streamed_arm", out,
+                      "streamed_arm_share")
+    check_parity(f"streamed arm, mesh_large {w}x{h} 8 spp depth 8 seed 11, "
+                 "Morton lanes", (lanes8, zeros, *tables, 11), kw8,
+                 record=arm_record, tape=False)
+
+    def model_line(extra, w=w, h=h):
+        # the traversal model on that batch: the divergence dealing removes
+        model, bounces, iterations = extra
+        per_group = iterations * w * h / meshtrace.SYNC_GROUP
+        print(f"streamed arm's traversal model, mesh_large {w}x{h} 8 spp "
+              f"depth 8 seed 12 ({bounces} bounces in {iterations} "
+              f"iterations, groups of {meshtrace.SYNC_GROUP} lanes; winners "
+              f"equal to the index-order sweep's on every live lane), "
+              f"triangle tests per bounce: the lanes' own (lane_pairs) "
+              f"{model['lane_pairs'] / bounces:.1f}, their warps' with one "
+              f"thread a lane (warp_pairs) {model['warp_pairs'] / bounces:.1f}"
+              f", every live lane of a group against every staged block "
+              f"(group_pairs) {model['group_pairs'] / bounces:.1f}; AABB "
+              f"tests {model['lane_slabs'] / bounces:.1f}; staged "
+              f"{model['staged']} blocks ({model['staged'] / per_group:.2f} "
+              f"per group and iteration, "
+              f"{model['staged'] * megatrace.TRI_BLOCK * 48 / 1e6:.1f} MB)")
+
+    check_parity(f"streamed arm, mesh_large {w}x{h} 8 spp depth 8 seed 12, "
+                 "Morton lanes", (lanes8, zeros, *tables, 12), kw8,
+                 record=arm_record, tape=False, plain=streamed_model_run,
+                 more=model_line)
     # uneven lane counts (0 to 8 samples; one group with a single live
     # lane, one with none) and a partial last block
     m = w * h - 45
@@ -2436,13 +2817,11 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     uneven[2 * group:3 * group] = 0
     uneven[2 * group + 77] = 8
     uneven[5 * group:6 * group] = 0  # a group with no live lane
-    share, err = check_parity(
+    check_parity(
         f"streamed arm, mesh_large {m} lanes of {w}x{h}, 0-8 spp, depth 8, "
         "a group with one live lane and one with none, Morton lanes",
         (uneven.to(dev), zeros[:m], *tables, 13),
-        dict(kw8, pixel_index=order[:m]), tape=False)
-    arm_shares.append(share)
-    arm_err = max(arm_err, err)
+        dict(kw8, pixel_index=order[:m]), record=arm_record, tape=False)
 
     camera, tables = batch_inputs(large, large_cs, width, height, dev)
     order, _ = (t.to(dev) for t in megatrace.morton_order(width, height))
@@ -2462,8 +2841,7 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     if share < 0.99:
         raise RuntimeError(f"streamed arm agreement {share} < 0.99 in the "
                            "timed 4 spp batch")
-    arm_shares.append(share)
-    arm_err = max(arm_err, err)
+    arm_share, arm_err = share, err
     bounces = float(got["rays"].sum())
     s_count = large.spheres.center.shape[0]
 
@@ -2570,7 +2948,8 @@ def streamed_phases(dev, card, width: int = 512, small: int = 128,
     if share < 0.99:
         raise RuntimeError(f"sync sampler agreement {share} < 0.99")
     out["sync_pixel_share"] = share
-    out["streamed_arm_share"] = min(arm_shares)
+    out["streamed_arm_share"] = min(out.get("streamed_arm_share", 1.0),
+                                    arm_share)
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
 
     def entry(name, source, replaces, launches_, err_, ms, plain_ms, bnd,
@@ -2732,7 +3111,7 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
                                "megatrace_paths_kernelILb0ELb1ELb0ELb0ELb0ELb0EE")
     print(f"aux builds: ptxas #1 {kernel_report or '(not built here)'}; "
           f"#2 path kernel {path_report or '(not built here)'}")
-    max_err, shares = 0.0, []
+    max_err = 0.0
     for name, (scene, cs) in (("cornell", book_scenes.cornell_box()),
                               ("simple_light", testbeds.simple_light())):
         scene = scene.to(dev)
@@ -2789,12 +3168,10 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
             renderer.render_batch(scene, camera, acc, gen, width=width,
                                   height=height, samples=spp, trace_depth=8)
         (args, kwargs, _), = calls
-        t = time.perf_counter()
-        share, err = check_parity(f"aux build, {name} {width}x{height} "
-                                  f"{spp} spp main-path batch", args, kwargs)
-        print(f"  (plain version {time.perf_counter() - t:.1f} s)")
-        shares.append(share)
-        max_err = max(max_err, err)
+        check_parity(f"aux build, {name} {width}x{height} {spp} spp "
+                     "main-path batch", args, kwargs,
+                     record=into("megatrace_batch_aux", out,
+                                 "aux_parity_share"))
         del calls, args, kwargs
 
         # ---- (c) the aux build alone ---------------------------------------
@@ -2887,16 +3264,19 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         bwd_entry["launches"], bwd_entry["scan_launches"] = launches[2], \
             launches[1]
         (args, kwargs, got), = calls
-        t = time.perf_counter()
-        want = megatrace_bwd.replay_grad_reference(*args, **kwargs)
-        torch.cuda.synchronize()
-        rel = aux_errors(got, want, AUX_LEAVES)
-        print(f"aux backward vs plain on a main-path step (cornell {width}x"
-              f"{height}, {spp} spp, depth {STEP_DEPTH}): max error "
-              f"{rel:.3e} of the leaf's max abs over {', '.join(AUX_LEAVES)}; "
-              f"plain version {time.perf_counter() - t:.1f} s")
-        bwd_rel = rel
-        del calls, args, kwargs, got, want
+
+        def aux_finish(want, seconds, got=got):
+            rel = aux_errors(got, want, AUX_LEAVES)
+            print(f"aux backward vs plain on a main-path step (cornell "
+                  f"{width}x{height}, {spp} spp, depth {STEP_DEPTH}): max "
+                  f"error {rel:.3e} of the leaf's max abs over "
+                  f"{', '.join(AUX_LEAVES)}; plain version {seconds:.1f} s")
+            late("megatrace_bwd_aux", "max_abs_err", rel)
+
+        plain_check(megatrace_bwd.replay_grad_reference, args, kwargs,
+                    aux_finish)
+        bwd_rel = 0.0  # the main-path step's error comes by `late`
+        del calls, args, kwargs, got
 
         # ---- (e) #2's aux build alone --------------------------------------
         s_pad = megatrace.sphere_pad_count(s_count)
@@ -2966,7 +3346,6 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
                   f"depth 8 on {dev}: PNG written in {seconds:.2f} s, aux "
                   f"build launches "
                   f"{megatrace.AUX_LAUNCHES}")
-    out["aux_parity_share"] = min(shares)
     print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
 
     cornell, light = fwd_entry["cornell"], fwd_entry["simple_light"]
@@ -3122,6 +3501,7 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
           f"beside rects and boxes {reports[1] or '-'}; #2 path kernel "
           f"{reports[2] or '-'}; {reports[3] or '-'}")
     max_err, shares, launches_main = 0.0, [], 0
+    vol_record = into("megatrace_batch_volume", out, "volume_parity_share")
     registry = {**book_scenes.SCENES, **testbeds.SCENES}
     for name in VOL_SCENES:
         scene, cs = registry[name]()
@@ -3181,12 +3561,8 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         (args, kwargs, _), = calls
         if kwargs.get("vol0") is None:
             raise RuntimeError(f"{name}: the main path passed no vol0")
-        t = time.perf_counter()
-        share, err = check_parity(f"volume build, {name} {width}x{width} "
-                                  f"{spp} spp main-path batch", args, kwargs)
-        print(f"  (plain version {time.perf_counter() - t:.1f} s)")
-        shares.append(share)
-        max_err = max(max_err, err)
+        check_parity(f"volume build, {name} {width}x{width} {spp} spp "
+                     "main-path batch", args, kwargs, record=vol_record)
         del calls, args, kwargs
 
         # ---- (c) the volume build alone ------------------------------------
@@ -3291,18 +3667,21 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         bwd["launches"] += launches[2]
         bwd["scan_launches"] += launches[1]
         (args, kwargs, got), = calls
-        t = time.perf_counter()
-        want = megatrace_bwd.replay_grad_reference(*args, **kwargs)
-        torch.cuda.synchronize()
         leaves = LEAVES + (("rect_geo", "rect_rec", "box_geo", "box_rec")
                            if rect is not None else ()) + ("vol0",)
-        rel = volume_errors(got, want, leaves)
-        print(f"volume backward vs plain on a main-path step ({name} "
-              f"{width}x{width}, {spp} spp, depth {STEP_DEPTH}): max error "
-              f"{rel:.3e} of the leaf's max abs over {', '.join(leaves)}; "
-              f"plain version {time.perf_counter() - t:.1f} s")
-        bwd_rel = rel
-        del calls, args, kwargs, got, want
+
+        def vol_finish(want, seconds, got=got, leaves=leaves, name=name):
+            rel = volume_errors(got, want, leaves)
+            print(f"volume backward vs plain on a main-path step ({name} "
+                  f"{width}x{width}, {spp} spp, depth {STEP_DEPTH}): max "
+                  f"error {rel:.3e} of the leaf's max abs over "
+                  f"{', '.join(leaves)}; plain version {seconds:.1f} s")
+            late("megatrace_bwd_volume", "max_abs_err", rel)
+
+        plain_check(megatrace_bwd.replay_grad_reference, args, kwargs,
+                    vol_finish)
+        bwd_rel = 0.0  # the main-path step's error comes by `late`
+        del calls, args, kwargs, got
 
         # ---- (e) #2's volume build alone -----------------------------------
         for few in (4, spp):
@@ -3363,25 +3742,27 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     lane_count = torch.full((m,), 8, dtype=torch.int32, device=dev)
     kw = dict(samples=8, trace_depth=8, has_dielectrics=False, sky_on=True,
               vol0=vol0)
-    share, err = check_parity(f"volume build, camera inside a fog sphere "
-                              f"{small}x{small} 8 spp", (lane_count,
-                              torch.zeros(m, device=dev), *tables, 13), kw)
-    shares.append(share)
-    max_err = max(max_err, err)
+    check_parity(f"volume build, camera inside a fog sphere {small}x{small} "
+                 "8 spp", (lane_count, torch.zeros(m, device=dev), *tables,
+                           13), kw, record=vol_record)
     res = megatrace.sample_batch(lane_count, torch.zeros(m, device=dev),
                                  *tables, 13, want_tape=True, **kw)
     cots = probe_cotangents(res["color"], res["count"])
     args = (res["tape"], lane_count, *tables, 13, *cots)
     got = megatrace_bwd.replay_grad(*args, **kw)
-    want = megatrace_bwd.replay_grad_reference(*args, **kw)
-    rel = volume_errors(got, want, LEAVES + ("vol0",))
     if float(got[-1].abs().max()) == 0.0:
         raise RuntimeError("camera inside the fog: vol0 has no gradient")
-    bwd["max_rel_err"] = max(bwd.get("max_rel_err", 0.0), rel)
-    print(f"camera inside a fog sphere, {small}x{small} 8 spp: backward vs "
-          f"plain max error {rel:.3e} of the leaf's max abs; vol0's "
-          f"cotangent {got[-1].tolist()} [{card}]")
-    del res, got, want, args
+
+    def fog_finish(want, seconds, got=got):
+        rel = volume_errors(got, want, LEAVES + ("vol0",))
+        late("megatrace_bwd_volume", "max_abs_err", rel)
+        print(f"camera inside a fog sphere, {small}x{small} 8 spp: backward "
+              f"vs plain max error {rel:.3e} of the leaf's max abs (plain "
+              f"version {seconds:.1f} s); vol0's cotangent "
+              f"{got[-1].tolist()} [{card}]")
+
+    plain_check(megatrace_bwd.replay_grad_reference, args, kw, fog_finish)
+    del res, args
 
     # ---- (g) the CLI ---------------------------------------------------
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
@@ -3406,7 +3787,8 @@ def volume_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
             print(f"CLI: --scene {name} {width // 2}x{width // 2}, 16 spp, "
                   f"depth 8 on {dev}: PNG written in {seconds:.2f} s, volume "
                   f"build launches {megatrace.VOL_LAUNCHES}")
-    out["volume_parity_share"] = min(shares)
+    out["volume_parity_share"] = min(out.get("volume_parity_share", 1.0),
+                                     *shares)
     print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
 
     cv = fwd["cornell_volumes"]
@@ -3544,12 +3926,11 @@ def motion_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
     if kwargs.get("move_offsets") is None:
         raise RuntimeError("cover_motion: the main path passed no move "
                            "offsets")
-    t = time.perf_counter()
-    share, max_err = parity_rows(f"motion build, cover_motion {width}x{width}"
-                                 f" {spp} spp main-path batch", args, kwargs,
-                                 64, width)
-    print(f"  (plain version {time.perf_counter() - t:.1f} s)")
-    shares = [share]
+    parity_rows(f"motion build, cover_motion {width}x{width} {spp} spp "
+                "main-path batch", args, kwargs, 64, width,
+                record=into("megatrace_batch_motion", out,
+                            "motion_parity_share"))
+    shares, max_err = [], 0.0
     del calls, args, kwargs
 
     # ---- (c) the motion build alone -------------------------------------------
@@ -3712,7 +4093,8 @@ def motion_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         print(f"CLI: --scene cover_motion {width // 2}x{width // 2}, 16 spp, "
               f"depth 8 on {dev}: PNG written in {seconds:.2f} s, motion "
               f"build launches {megatrace.MOTION_LAUNCHES}")
-    out["motion_parity_share"] = min(shares)
+    out["motion_parity_share"] = min(out.get("motion_parity_share", 1.0),
+                                     *shares)
     print(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [{
@@ -3886,13 +4268,10 @@ def texture_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         if kwargs.get("tex_tables") is None:
             raise RuntimeError(f"{name}: the main path passed no texture "
                                "tables")
-        t = time.perf_counter()
-        share, err = parity_rows(f"texture build, {name} {width}x{width} "
-                                 f"{spp} spp main-path batch", args, kwargs,
-                                 64, width)
-        print(f"  (plain version {time.perf_counter() - t:.1f} s)")
-        shares.append(share)
-        max_err = max(max_err, err)
+        parity_rows(f"texture build, {name} {width}x{width} {spp} spp "
+                    "main-path batch", args, kwargs, 64, width,
+                    record=into("megatrace_batch_texture", out,
+                                "texture_parity_share"))
         del calls, args, kwargs
 
         # ---- (c) the texture build alone -----------------------------------
@@ -4096,7 +4475,8 @@ def texture_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
             print(f"CLI: --scene {name} {width // 2}x{width // 2}, 16 spp, "
                   f"depth 8 on {dev}: PNG written in {seconds:.2f} s, "
                   f"texture build launches {megatrace.TEX_LAUNCHES}")
-    out["texture_parity_share"] = min(shares)
+    out["texture_parity_share"] = min(out.get("texture_parity_share", 1.0),
+                                      *shares)
     print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
 
     ch = fwd["checkered"]
@@ -4766,9 +5146,9 @@ def cube_phases(dev, card, width: int = 512, spp: int = 64,
     # the build against its plain version on the inputs the main path gave
     # it (the last timed batch), the plain version on a band of its rows
     (args, kwargs, _), = calls
-    share64, err64 = parity_rows(f"cube build, cubemap {width}x{width} "
-                                 f"{spp} spp main-path batch", args, kwargs,
-                                 min(64, width), width)
+    parity_rows(f"cube build, cubemap {width}x{width} {spp} spp main-path "
+                "batch", args, kwargs, min(64, width), width,
+                record=into("megatrace_batch_cube", out, "cube_parity_share"))
     del calls, args, kwargs
     zeros = torch.zeros(n, device=dev)
     timed = {}
@@ -4812,7 +5192,7 @@ def cube_phases(dev, card, width: int = 512, spp: int = 64,
     # ---- (b) every cube build against its plain version ---------------------
     m_ = small * small
     registry = {**book_scenes.SCENES, **testbeds.SCENES}
-    shares, max_err, builds = [share4, share64], max(err4, err64), {}
+    shares, max_err, builds = [share4], err4, {}
     lane_count = torch.full((m_,), 4, dtype=torch.int32, device=dev)
     for arm, name in CUBE_ARMS:
         bscene, bcs = registry[name]()
@@ -4933,15 +5313,18 @@ def cube_phases(dev, card, width: int = 512, spp: int = 64,
                            held)
 
     (args, kwargs, got), = calls
-    t = time.perf_counter()
-    want = megatrace_bwd.replay_grad_reference(*args, **kwargs)
-    torch.cuda.synchronize()
-    step_abs, step_rel = cube_errors(got, want, "main-path step")
-    print(f"cube backward vs plain on a main-path step (cubemap {width}x"
-          f"{width}, {spp} spp, depth 8): max error {step_rel:.3e} of the "
-          f"leaf's max abs ({step_abs:.3e}) over {', '.join(held)}; plain "
-          f"version {time.perf_counter() - t:.1f} s [{card}]")
-    del calls, args, kwargs, got, want
+
+    def step_finish(want, seconds, got=got):
+        step_abs, step_rel = cube_errors(got, want, "main-path step")
+        late("megatrace_bwd_cube", "max_abs_err", step_rel)
+        print(f"cube backward vs plain on a main-path step (cubemap "
+              f"{width}x{width}, {spp} spp, depth 8): max error "
+              f"{step_rel:.3e} of the leaf's max abs ({step_abs:.3e}) over "
+              f"{', '.join(held)}; plain version {seconds:.1f} s [{card}]")
+
+    plain_check(megatrace_bwd.replay_grad_reference, args, kwargs,
+                step_finish)
+    del calls, args, kwargs
     _, tables_s, ckw_s = cube_inputs(scene, cs, small, dev)
     fkw = dict(kw, samples=4, cube=ckw_s["cube"], cube_dims=dims)
     lane_count = torch.full((m_,), 4, dtype=torch.int32, device=dev)
@@ -4962,7 +5345,7 @@ def cube_phases(dev, card, width: int = 512, spp: int = 64,
     del res, args, got, want
     step_err = step_vjp_check(dev, scene, cs, "cubemap")
     bwd = dict(launches=launches[2], scan_launches=launches[1],
-               max_rel_err=max(bwd_rel, step_rel), replay_grad_ms=rg_ms,
+               max_rel_err=bwd_rel, replay_grad_ms=rg_ms,
                plain_ms=bwd_plain_ms, step_vjp_rel_err=step_err)
     for few in (4, spp):
         lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
@@ -5124,7 +5507,8 @@ def cube_phases(dev, card, width: int = 512, spp: int = 64,
           f"[{card}]")
     del bscene, bfaces, bstep
     out["capacity_ms"] = cap_ms
-    out["cube_parity_share"] = min(shares)
+    out["cube_parity_share"] = min(out.get("cube_parity_share", 1.0),
+                                   *shares)
     print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
     src = "raytracing_in_one_weekend_tpu_torch/csrc/"
@@ -5164,8 +5548,10 @@ SASS_SOURCES = ("megatrace_batch", "megatrace_wave", "megatrace_bwd",
                 "meshtrace_sync", "meshtrace_permute", "sphere_select",
                 "triangle_select")
 # kernels this tree changed on purpose, with the kernel that replaced each
-# (none: the aux builds are instantiations of their own)
-SASS_CHANGED: dict[str, str] = {}
+SASS_CHANGED: dict[str, str] = {
+    "megatrace_batch_kernel": "the triangle build, replaced by "
+                              "megatrace_tri_kernel",
+}
 
 TURN = """
 import importlib.util, json, sys
@@ -5201,7 +5587,9 @@ def turn_readings() -> dict:
     512x512, depth 8: the batch kernel's streamed arm on mesh_large (4
     spp, Morton lanes; CUDA events over 5 launches after a warm-up); its
     sphere build on the cover (4 spp, CUDA events over 10 calls of
-    sample_batch after a warm-up);
+    sample_batch after a warm-up); its triangle build on mesh_showcase (4
+    spp, CUDA events over 10 launches alone after a warm-up,
+    `tri_launch_ms`);
     bounce_sync at bounce 1 of the mesh_huge wave (median of 5 launches,
     each alone); the backward (`replay_grad_ms`) on the cover at 64 spp
     and on mesh_showcase at 4 spp; the forward MRays/s of render_batch (64
@@ -5238,6 +5626,13 @@ def turn_readings() -> dict:
         torch.zeros(n, device=dev), *tables, 7, repeats=10,
         has_dielectrics=cover.flags.has_dielectrics, sky_on=True,
         samples=4, trace_depth=8)
+    showcase, showcase_cs = meshes.mesh_showcase()
+    showcase = showcase.to(dev)
+    _, tables = batch_inputs(showcase, showcase_cs, width, width, dev)
+    out["mesh_showcase_tri_4spp_ms"] = tri_launch_ms(
+        tables, tri_tables_of(showcase), 4, 10,
+        dict(trace_depth=8, has_dielectrics=showcase.flags.has_dielectrics,
+             sky_on=True))
     huge, huge_cs = meshes.mesh_huge()
     huge = huge.to(dev)
     bounces, _, _ = recorded_wave(huge, huge_cs, width, width, dev)
@@ -5392,11 +5787,14 @@ def compare_sass(other: str) -> bool:
 
 
 def main() -> int:
+    global _PENDING
     # ---- 1. the card ---------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+    _PENDING = []  # the check stage is open until run_check_stage
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card)
@@ -5426,6 +5824,7 @@ def main() -> int:
         raise RuntimeError("the cover scene left the ported slice")
 
     # ---- 3. kernel vs plain version --------------------------------------
+    t_phase = time.perf_counter()
     w = h = 128
     spp, depth = 8, 8
     _, tables = batch_inputs(scene, cs, w, h, dev)
@@ -5433,14 +5832,11 @@ def main() -> int:
     count_in = torch.zeros(w * h, device=dev)
     kw = dict(samples=spp, trace_depth=depth,
               has_dielectrics=scene.flags.has_dielectrics, sky_on=True)
-    shares, max_err = [], 0.0
+    checks = {}  # the parity checks' least share (`into`)
     for seed in (11, 12):
-        share, err = check_parity(
-            f"{w}x{h} {spp} spp seed {seed}",
-            (lane_count, count_in, *tables, seed), kw,
-        )
-        shares.append(share)
-        max_err = max(max_err, err)
+        check_parity(f"{w}x{h} {spp} spp seed {seed}",
+                     (lane_count, count_in, *tables, seed), kw,
+                     record=into("megatrace_batch", checks, "parity_share"))
 
     # ---- 4. main path ---------------------------------------------------
     width = height = 512
@@ -5502,9 +5898,8 @@ def main() -> int:
         (f"{width}x{height} adaptive {int(lanes2.min())}..{int(lanes2.max())}"
          f" spp, count_in > 0", args2, kw2),
     ):
-        share, err = check_parity(label, args, kwargs)
-        shares.append(share)
-        max_err = max(max_err, err)
+        check_parity(label, args, kwargs,
+                     record=into("megatrace_batch", checks, "parity_share"))
 
     acc35 = film.zero_accumulators(width * height, device=dev)
     forward(128, 35, acc35)  # warm-up
@@ -5533,7 +5928,6 @@ def main() -> int:
     if share < 0.99:
         raise RuntimeError(f"kernel/plain agreement {share} < 0.99 in the "
                            "timed 4 spp batch")
-    max_err = max(max_err, err)
     s_count = scene.spheres.center.shape[0]
     batch_bound = bound(
         rays4 * (s_count * SWEEP_FLOPS + SHADE_FLOPS),
@@ -5567,10 +5961,17 @@ def main() -> int:
           f"{sphere['lane_use_64spp']:.4f} at 64 spp (lanes in lane order: "
           f"{sphere['lane_use_lane_order']:.4f} at 4 spp) [{card}]")
 
+    print(f"phases 3-5: {time.perf_counter() - t_phase:.1f} s")
     target = img.detach()  # bench.py's target: the forward image
+    t_phase = time.perf_counter()
     bwd = differentiable_phases(dev, card, scene, cs, camera, target)
+    print(f"phases 6-10: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     wave = wavefront_phases(dev, card, scene, cs, camera, target)
+    print(f"phases 11-12: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     mesh = mesh_phases(dev, card)
+    print(f"phases 13-18: {time.perf_counter() - t_phase:.1f} s")
     streamed = streamed_phases(dev, card)
     aux = aux_phases(dev, card)
     vol = volume_phases(dev, card)
@@ -5578,6 +5979,7 @@ def main() -> int:
     texture = texture_phases(dev, card)
     field = sphere_field_phases(dev, card)
     cube = cube_phases(dev, card)
+    run_check_stage()
 
     kernels = [{
         "name": "megatrace_batch",
@@ -5585,7 +5987,7 @@ def main() -> int:
         "source": "raytracing_in_one_weekend_tpu_torch/csrc/megatrace_batch.cu",
         "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457",
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": batch_bound[0],
@@ -5629,11 +6031,15 @@ def main() -> int:
         "bound_ms": bwd["scan"]["bound"][0],
         "bound_by": bwd["scan"]["bound"][1],
         "library_ms": None,
-    }] + wave["kernels"] + [mesh["kernel"]] + streamed["kernels"] \
+    }] + wave["kernels"] + mesh["kernels"] + streamed["kernels"] \
         + aux["kernels"] + vol["kernels"] + motion["kernels"] \
         + texture["kernels"] + field["kernels"] + cube["kernels"]
+    apply_late(kernels)
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the "
+          "card's check to here")
     print(json.dumps({
-        "kernels": kernels, "parity_share": min(shares), "fwd_mrays": fwd,
+        "kernels": kernels,
+        "parity_share": min(share, checks["parity_share"]), "fwd_mrays": fwd,
         "depth35_fwd_mrays": fwd35, "fwd_bwd_mrays": bwd["fwd_bwd_mrays"],
         "depth35_fwd_bwd_mrays": bwd["depth35_fwd_bwd_mrays"],
         "step_vjp_rel_err": bwd["step_vjp_rel_err"],

@@ -109,20 +109,33 @@
 // float32, so an edge direction would take another texel than the plain
 // version and the JAX package).
 //
-// Triangles (megatrace_batch_kernel: one thread a lane in lane order,
-// the camera and accumulators in registers, the header's sphere_sweep and
-// the triangle arm): up to 4096 triangles are 192 KB of geometry, too
-// much for shared memory beside the spheres, and a lane leaves the loop
-// when its samples end, so no block-wide barrier can stage them.  Each
-// lane reads them from device memory through the read-only cache instead
-// (48 bytes a triangle, the whole table L1/L2-resident; the lanes of a
-// warp that sweep a block read the same row at the same step).  The JAX
-// kernel skips a 192-row block for a whole tile when no active lane's ray
-// meets its AABB before the lane's best hit; here each lane makes that
-// test for itself, which cannot change its winner (the AABB bounds every
-// hit in the block) and skips more.  The Möller–Trumbore sweep costs ~56
-// flops a triangle, three times a sphere's, so mesh scenes are ALU-bound
-// in the blocks a ray cannot skip.
+// Meshes of at most TRI_MAX triangles (beside spheres) take the triangle
+// build, megatrace_tri_kernel.  What bounds it is ALU work in the
+// Möller–Trumbore tests (~56 flops each, three times a sphere's; a bounce
+// on mesh_showcase tests 243.6 of its 908 triangles in the blocks its ray
+// cannot skip), and how much of it a warp's lanes share.  With one thread
+// a lane walking the 192-row blocks, a warp ran a block's rows whenever
+// any one of its lanes needed them: 0.34-0.40 of its lane slots tested a
+// triangle (PERF.md §6).  Here the lanes still decide block by block, in
+// index order, whether their ray meets the block's AABB before their best
+// hit (the JAX kernel's per-tile skip, made per lane, as before), but
+// their tests are dealt to the warp's 32 threads (tri_sweep_dealt): at
+// each step a thread loads kTriRows rows and tests them against the ray of
+// every lane that sweeps the block, so every slot runs a test of the
+// index-order sweep.  A lane's best hit is one (t, row) key in shared
+// memory lowered by atomicMin, so the winner is the index-order sweep's
+// whatever order the tests run in (a strictly smaller t, the earlier row
+// on a tie).  The warp leaves the loop when its last lane's samples end;
+// until then a lane without a sample only joins the sweeps.  The rows are
+// read through the read-only cache: a table of TRI_MAX rows is 196.6 KB,
+// which shared memory holds at one block an SM, and the copy a block would
+// make measured slower than L1 on mesh_showcase (PERF.md §6).  The
+// kTriRows tests of a ray are independent chains that hide each other's
+// latency.  As in the sphere build, the camera row, sky and accumulators
+// sit in shared memory under a register budget (kTriBlocks blocks an SM,
+// no spills).  Thread i runs lane i: the dealt tests cost the same
+// whichever lanes share a warp, and the sphere build's 8x4 tiles measured
+// slower here (PERF.md §6).
 //
 // Streamed meshes (TRI_MAX < T <= TRI_STREAM_MAX) take a kernel of their
 // own, megatrace_stream_kernel.  The JAX kernel keeps such tables in HBM
@@ -169,6 +182,12 @@ constexpr int kVolBlocks = 4;  // its volume builds': the medium's 8 floats
 constexpr int kVolConsts = 40;  // ... their constants: kConsts, 2 pad, vol0
 constexpr int kMotionBlocks = 4;  // the motion builds': the moved centres
 constexpr int kBlockedBlocks = 6;  // the static blocked build's
+constexpr int kTriBlocks = 5;  // the triangle build's (its kTriRows tests
+                               // a ray need more registers than 80)
+constexpr int kTriRows = 3;  // rows a thread loads at each step of its
+                             // dealt sweep (192 = 2 x 32 x 3): three
+                             // independent tests a ray (the plain model's
+                             // megatrace.TRI_DEALT_ROWS)
 constexpr int kSweepStep = 15;  // spheres a step of its sweep: the
                                // most that fit 80 registers unspilled
 constexpr int kTileW = 8, kTileH = 4;  // the sphere build's warp: a pixel
@@ -709,36 +728,155 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
   for (int k = 0; k < kOutRows; ++k) out[(size_t)k * n + i] = acc[k];
 }
 
-// The VMEM-triangle build (kTris true; its template parameter and the
-// unused pixel_index keep the code its builds had before the sphere and
-// streamed builds became kernels of their own, chip_smoke.py --against).
-template <bool kTris>
-__global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
+// A lane's best triangle hit as one 64-bit key ordered as (t, row): t's
+// bits made monotone (a positive t's sign bit set, a negative t's bits
+// flipped), then the row.  Of any set of hits the least key is the nearer
+// one, the earlier row on a tie of t: the one an index-order sweep keeps
+// with its strict <.
+__device__ __forceinline__ unsigned long long tri_key(float t, int row) {
+  const uint32_t b = __float_as_uint(t);
+  const uint32_t m = b ^ ((b >> 31) != 0u ? 0xffffffffu : 0x80000000u);
+  return ((unsigned long long)m << 32) | (uint32_t)row;
+}
+
+__device__ __forceinline__ float tri_key_t(unsigned long long key) {
+  const uint32_t m = (uint32_t)(key >> 32);
+  return __uint_as_float(m ^ ((m >> 31) != 0u ? 0x80000000u : 0xffffffffu));
+}
+
+// The triangle build's sweep, called by every thread of a warp on each
+// iteration (`live`: the thread's lane has a ray this iteration): the
+// nearest triangle of each live lane's ray after the spheres' best_t.  The
+// blocks go in index order, and each live lane decides for itself whether
+// it sweeps a block: its ray meets the block's AABB at or after t_min and
+// before its best hit so far (the JAX kernel's per-tile skip, per lane;
+// ops/megatrace.py::_tri_sweep).  The tests of the lanes that sweep a
+// block are dealt to the warp's 32 threads: at each step of 32 kTriRows
+// rows thread k loads rows r0 + k, r0 + k + 32, ... once and tests them
+// against the ray of every such lane (the rays in the warp's shared slots
+// `ray_o`, `ray_d`: a broadcast read; the kTriRows tests of a ray are
+// independent, so their chains overlap), lowering that lane's key
+// (tri_key, in `key`) by atomicMin on a hit.  So each (lane, triangle)
+// test of the index-order sweep is made once, by the same moller_trumbore
+// on the same floats, and the least key is its winner; the lane
+// recomputes the winner's barycentrics once.
+// Returns the lane's (t, row, u, v): kBig, 0, 0, 0 without a hit.
+__device__ __forceinline__ void tri_sweep_dealt(
+    const Path& p, bool live, const TriScene& tri, float t_min,
+    float best_t, float4* ray_o, float2* ray_d, unsigned long long* key,
+    int lane, float& tri_t, int& tri_idx, float& tri_u, float& tri_v) {
+  __syncwarp();  // the warp's reads of the last iteration's slots are done
+  ray_o[lane] = make_float4(p.ox, p.oy, p.oz, p.dx);
+  ray_d[lane] = make_float2(p.dy, p.dz);
+  key[lane] = tri_key(kBig, 0);
+  const float ivx = inv_dir(p.dx), ivy = inv_dir(p.dy), ivz = inv_dir(p.dz);
+  __syncwarp();
+  for (int blk = 0; blk < tri.blocks; ++blk) {
+    bool sweeps = false;
+    if (live) {
+      const float4 lo = __ldg(tri.aabb + 2 * blk);
+      const float4 hi = __ldg(tri.aabb + 2 * blk + 1);
+      const float bx0 = (lo.x - p.ox) * ivx, bx1 = (hi.x - p.ox) * ivx;
+      const float by0 = (lo.y - p.oy) * ivy, by1 = (hi.y - p.oy) * ivy;
+      const float bz0 = (lo.z - p.oz) * ivz, bz1 = (hi.z - p.oz) * ivz;
+      const float b_near = fmaxf(fminf(bx0, bx1),
+                                 fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
+      const float b_far = fminf(fmaxf(bx0, bx1),
+                                fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
+      sweeps = b_far >= fmaxf(b_near, t_min) &&
+               b_near < fminf(tri_key_t(key[lane]), best_t);
+    }
+    const unsigned lanes = __ballot_sync(0xffffffffu, sweeps);
+    if (lanes == 0u) continue;
+    const int end = min((blk + 1) * kTriBlock, tri.rows);
+    for (int r0 = blk * kTriBlock + lane; r0 - lane < end;
+         r0 += 32 * kTriRows) {
+      // a row past the block's end loads the block's last row instead;
+      // its tests go unused
+      float4 g[kTriRows][3];
+      bool in_block[kTriRows];
+#pragma unroll
+      for (int j = 0; j < kTriRows; ++j) {
+        in_block[j] = r0 + 32 * j < end;
+        const int r = in_block[j] ? r0 + 32 * j : end - 1;
+        g[j][0] = __ldg(tri.geo + 3 * r);
+        g[j][1] = __ldg(tri.geo + 3 * r + 1);
+        g[j][2] = __ldg(tri.geo + 3 * r + 2);
+      }
+      for (unsigned m = lanes; m != 0u; m &= m - 1u) {
+        const int src = __ffs(m) - 1;
+        const float4 a = ray_o[src];
+        const float2 b = ray_d[src];
+        float t[kTriRows];
+#pragma unroll
+        for (int j = 0; j < kTriRows; ++j) {
+          float u, v;
+          t[j] = moller_trumbore(a.x, a.y, a.z, a.w, b.x, b.y, g[j][0].x,
+                                 g[j][0].y, g[j][0].z, g[j][0].w, g[j][1].x,
+                                 g[j][1].y, g[j][1].z, g[j][1].w, g[j][2].x,
+                                 t_min, u, v);
+        }
+#pragma unroll
+        for (int j = 0; j < kTriRows; ++j) {
+          if (in_block[j] && t[j] < kBig)
+            atomicMin(key + src, tri_key(t[j], r0 + 32 * j));
+        }
+      }
+    }
+    __syncwarp();
+  }
+  const unsigned long long best = key[lane];
+  tri_t = tri_key_t(best);
+  tri_idx = (int)(uint32_t)best;
+  tri_u = tri_v = 0.f;
+  if (tri_t < kBig) {
+    const float4 g0 = __ldg(tri.geo + 3 * tri_idx);
+    const float4 g1 = __ldg(tri.geo + 3 * tri_idx + 1);
+    const float4 g2 = __ldg(tri.geo + 3 * tri_idx + 2);
+    moller_trumbore(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, g0.x, g0.y, g0.z,
+                    g0.w, g1.x, g1.y, g1.z, g1.w, g2.x, t_min, tri_u, tri_v);
+  }
+}
+
+// The triangle build (meshes of at most TRI_MAX triangles beside spheres;
+// see the top of this file): thread i runs lane i, the camera row, sky
+// and accumulators in shared memory, kTriBlocks blocks an SM; the warp
+// stays in the loop until its last lane's samples end, since every thread
+// takes part in tri_sweep_dealt.
+__global__ void __launch_bounds__(kThreads, kTriBlocks) megatrace_tri_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
-    const float* __restrict__ pixel_index, const float* __restrict__ consts,
-    const float4* __restrict__ sph_g,
+    const float* __restrict__ consts, const float4* __restrict__ sph_g,
     const float* __restrict__ rec, TriScene tri, float* __restrict__ out,
     float* __restrict__ tape, int n, int s, int seed, int lane_base,
     int samples, int trace_depth, float t_min, int has_dielectrics,
     int sky_on, int jitter) {
   extern __shared__ float4 sph[];
-  for (int k = threadIdx.x; k < s; k += blockDim.x) sph[k] = sph_g[k];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-
   // camera row: origin, lower_left, horizontal, vertical, right, up,
   // lens_radius, width, height | sky bottom | sky top
-  float cam[kConsts];
+  __shared__ float cam[kConsts];
+  __shared__ float acc_rows[kOutRows][kThreads];
+  // each thread's ray and best triangle key, for its warp's sweep
+  __shared__ float4 ray_o[kThreads];  // ox oy oz dx
+  __shared__ float2 ray_d[kThreads];  // dy dz
+  __shared__ unsigned long long key[kThreads];
+  for (int k = threadIdx.x; k < s; k += kThreads) sph[k] = sph_g[k];
+  if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
+  const SharedRow acc{&acc_rows[0][threadIdx.x]};
 #pragma unroll
-  for (int k = 0; k < kConsts; ++k) cam[k] = __ldg(consts + k);
+  for (int k = 0; k < kOutRows; ++k) acc[k] = 0.f;
+  __syncthreads();
+  // thread i runs lane i; a thread past n has no lane and only joins its
+  // warp's sweeps
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool has_lane = i < n;
   const float width = cam[19];
+  const int warp = threadIdx.x & ~31, lane = threadIdx.x & 31;
 
-  const float per_pixel = lane_count[i];
-  const float cin = count_in[i];
+  const float per_pixel = has_lane ? lane_count[i] : 0.f;
+  const float cin = has_lane ? count_in[i] : 0.f;
   // global lane id through float32, as the JAX kernel keys its PRNG
-  const uint32_t lane = (uint32_t)(int)((float)i + (float)lane_base);
-  const uint32_t lane_key = (uint32_t)seed + lane * 9781u;
+  const uint32_t lane_id = (uint32_t)(int)((float)i + (float)lane_base);
+  const uint32_t lane_key = (uint32_t)seed + lane_id * 9781u;
   const float pixel = (float)i;
   const float py_row = floorf(pixel / width);
   const float px_row = pixel - py_row * width;
@@ -746,26 +884,42 @@ __global__ void __launch_bounds__(kThreads) megatrace_batch_kernel(
   Path p{};  // idle until its first sample starts
   float started = 0.f;
   int depth = 0;
-  float acc[kOutRows];
-#pragma unroll
-  for (int k = 0; k < kOutRows; ++k) acc[k] = 0.f;
 
   const int iters = samples * trace_depth;
   int it = 0;
   for (; it < iters; ++it) {
+    // live: this lane bounces in iteration `it` (a sample in flight, or
+    // one more to start); the warp leaves when none of its lanes is
+    const bool live = p.active || started < per_pixel;
+    if (!__any_sync(0xffffffffu, live)) break;
     const uint32_t salt = (uint32_t)it * kSaltStep;
-    if (!p.active) {
-      if (started >= per_pixel) break;  // this lane's samples are done
-      camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
-      depth = 0;
-      started = started + 1.0f;
+    float best_t = kBig;
+    int best = 0;
+    if (live) {
+      if (!p.active) {
+        camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
+        depth = 0;
+        started = started + 1.0f;
+      }
+      sphere_sweep_steps(p, sph, s, t_min, best_t, best);
     }
-    const int winner = bounce<kTris>(
-        p, sph, s, rec, t_min, has_dielectrics != 0, sky_on != 0, cam + 24,
-        lane_key + salt + kSaltBounce, depth, tri);
-    if (tape != nullptr) tape[(size_t)it * n + i] = (float)winner;
-    depth = close_bounce(p, depth, trace_depth, cin, acc);
+    float tri_t, tri_u, tri_v;
+    int tri_idx;
+    tri_sweep_dealt(p, live, tri, t_min, best_t, ray_o + warp, ray_d + warp,
+                    key + warp, lane, tri_t, tri_idx, tri_u, tri_v);
+    if (live) {
+      const bool tri_wins = tri_t < best_t;
+      const int winner = shade<true>(
+          p, tri_wins ? tri_t : best_t, best, tri_wins, tri_idx, tri_u,
+          tri_v, rec, has_dielectrics != 0, sky_on != 0, cam + 24,
+          lane_key + salt + kSaltBounce, depth, tri);
+      if (tape != nullptr) tape[(size_t)it * n + i] = (float)winner;
+      depth = close_bounce(p, depth, trace_depth, cin, acc);
+    } else if (tape != nullptr && has_lane) {
+      tape[(size_t)it * n + i] = -2.0f;  // idle
+    }
   }
+  if (!has_lane) return;
   if (tape != nullptr) {
     for (; it < iters; ++it) tape[(size_t)it * n + i] = -2.0f;  // idle
   }
@@ -850,7 +1004,8 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
 // setting the streamed kernel's shared memory, or cudaErrorInvalidValue
 // for a request the streamed kernel does not take, or the error of
 // setting the sphere build's shared memory).  tri_rows == 0 takes
-// the sphere-only build; otherwise tri_geo holds (tri_rows, 12) floats,
+// the sphere-only build; otherwise (the triangle build, or with tri_supers
+// > 0 the streamed kernel) tri_geo holds (tri_rows, 12) floats,
 // tri_aabb (tri_blocks, 8) and tri_rec (tri_rows, 32), and a triangle's
 // tape code is tri_code_base + its row.  tri_supers > 0 takes the
 // streamed kernel: tri_sup holds (tri_supers <= kMaxSupers, 8) floats,
@@ -893,12 +1048,11 @@ extern "C" int rtiw_megatrace_batch(
           lane_base, samples, trace_depth, t_min, has_dielectrics, sky_on,
           jitter);
     } else if (tri_rows > 0) {
-      megatrace_batch_kernel<true><<<(n + kThreads - 1) / kThreads,
-                                     kThreads, shmem, st>>>(
-          lane_count, count_in, pixel_index, consts,
-          reinterpret_cast<const float4*>(sph), rec, tri, out, tape, n, s,
-          seed, lane_base, samples, trace_depth, t_min, has_dielectrics,
-          sky_on, jitter);
+      megatrace_tri_kernel<<<(n + kThreads - 1) / kThreads, kThreads, shmem,
+                             st>>>(
+          lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
+          rec, tri, out, tape, n, s, seed, lane_base, samples, trace_depth,
+          t_min, has_dielectrics, sky_on, jitter);
     } else {
       // the table's size: rtiw_megatrace_ext_info may have set the
       // attribute to a smaller table's (the launch is refused above it)
@@ -1086,6 +1240,13 @@ extern "C" int rtiw_megatrace_ext_info(int s, int aux_rows, int has_vol,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return sphere_info(reinterpret_cast<const void*>(kernel), shmem, info);
+}
+
+// sphere_info of the triangle build (megatrace_tri_kernel) beside an
+// s-sphere table.
+extern "C" int rtiw_megatrace_tri_info(int s, int* info) {
+  return sphere_info(reinterpret_cast<const void*>(megatrace_tri_kernel),
+                     (size_t)s * sizeof(float4), info);
 }
 
 namespace {

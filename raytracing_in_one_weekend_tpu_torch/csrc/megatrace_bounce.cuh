@@ -5,9 +5,11 @@
 // of streamed tables (the sampler's bounce, the batch kernel's streamed
 // build) run group_sweep.cuh's cooperative triangle sweep between
 // `sphere_sweep` and `shade`; the batch kernel's sphere build runs its own
-// sweep, with sphere_sweep's winner, before `shade`; the others call
-// `bounce`, which runs all three.  The triangle arm is a compile-time flag: the batch kernel's mesh
-// build takes it, the sphere-only builds compile none of it; so are the
+// sweep, with sphere_sweep's winner, before `shade`, and its triangle
+// build its own triangle sweep too; the per-ray megatrace calls `bounce`,
+// which runs `sphere_sweep` and `shade`.  The triangle arm of `shade` is a
+// compile-time flag: the batch kernel's triangle build and the streamed
+// kernels take it, the sphere-only builds compile none of it; so are the
 // rect and box arm (kAux), the convex volume walk (kVol), unit-shutter
 // motion (kMotion), albedo textures (kTex) and the cubemap sky (kCube) of
 // the batch kernel's sphere builds.  Plain version:
@@ -610,64 +612,19 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
   return best;
 }
 
-// Bounce the active path `p` once: `sphere_sweep`, with kTris the sweep
-// over the triangles of `tri` (a block is skipped when the ray misses its
-// AABB or meets it beyond the best hit so far; a triangle wins only with a
-// strictly smaller t, the earlier row on a tie), then `shade`.  Returns
-// the winner's tape code (sphere row, or tri.code_base + triangle row), -1
-// on a miss.
-template <bool kTris = false>
+// Bounce the active path `p` once (the per-ray megatrace's bounce):
+// `sphere_sweep`, then `shade`.  Returns the winner's tape code (sphere
+// row), -1 on a miss.
 __device__ __forceinline__ int bounce(
     Path& p, const float4* sph, int s, const float* __restrict__ rec,
     float t_min, bool has_dielectrics, bool sky_on, const float* sky,
-    uint32_t bbase, int depth, const TriScene& tri = TriScene{}) {
-  const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
-              oz = p.oz;
+    uint32_t bbase, int depth) {
   float best_t;
   int best;
   sphere_sweep(p, sph, s, t_min, best_t, best);
-  // ---- triangle sweep (kTris) -------------------------------------------
-  bool tri_wins = false;
-  int tri_idx = 0;
-  float tri_u = 0.f, tri_v = 0.f;
-  if (kTris) {
-    const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
-    float tri_t = kBig;
-    for (int blk = 0; blk < tri.blocks; ++blk) {
-      const float4 lo = __ldg(tri.aabb + 2 * blk);
-      const float4 hi = __ldg(tri.aabb + 2 * blk + 1);
-      const float bx0 = (lo.x - ox) * ivx, bx1 = (hi.x - ox) * ivx;
-      const float by0 = (lo.y - oy) * ivy, by1 = (hi.y - oy) * ivy;
-      const float bz0 = (lo.z - oz) * ivz, bz1 = (hi.z - oz) * ivz;
-      const float b_near = fmaxf(fminf(bx0, bx1),
-                                 fmaxf(fminf(by0, by1), fminf(bz0, bz1)));
-      const float b_far = fminf(fmaxf(bx0, bx1),
-                                fminf(fmaxf(by0, by1), fmaxf(bz0, bz1)));
-      if (!(b_far >= fmaxf(b_near, t_min) &&
-            b_near < fminf(tri_t, best_t)))
-        continue;
-      const int end = min((blk + 1) * kTriBlock, tri.rows);
-      for (int k = blk * kTriBlock; k < end; ++k) {
-        const float4 g0 = __ldg(tri.geo + 3 * k);
-        const float4 g1 = __ldg(tri.geo + 3 * k + 1);
-        const float4 g2 = __ldg(tri.geo + 3 * k + 2);
-        float u, v;
-        const float t =
-            moller_trumbore(ox, oy, oz, dx, dy, dz, g0.x, g0.y, g0.z, g0.w,
-                            g1.x, g1.y, g1.z, g1.w, g2.x, t_min, u, v);
-        if (t < tri_t) {  // strict: the first row wins a tie
-          tri_t = t;
-          tri_idx = k;
-          tri_u = u;
-          tri_v = v;
-        }
-      }
-    }
-    tri_wins = tri_t < best_t;
-    if (tri_wins) best_t = tri_t;
-  }
-  return shade<kTris>(p, best_t, best, tri_wins, tri_idx, tri_u, tri_v, rec,
-                      has_dielectrics, sky_on, sky, bbase, depth, tri);
+  return shade<false>(p, best_t, best, false, 0, 0.f, 0.f, rec,
+                      has_dielectrics, sky_on, sky, bbase, depth,
+                      TriScene{});
 }
 
 }  // namespace rtiw

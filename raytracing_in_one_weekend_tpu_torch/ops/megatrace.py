@@ -55,9 +55,10 @@ streamed meshes) and the deltas stay in lane order.
   beside spheres alone or beside one of rects and boxes, volumes, motion
   and textures, the faces read through the read-only cache
   (`CUBE_LAUNCHES`); meshes of at most
-  TRI_MAX triangles take
-  `megatrace_batch_kernel` (triangles read through the read-only cache,
-  one thread a lane in lane order); streamed
+  TRI_MAX triangles take `megatrace_tri_kernel` (`TRI_LAUNCHES`), whose
+  warps deal the tests of the lanes that sweep a triangle block to all 32
+  threads (`tri_loop_slots` is the plain model of that loop and of the
+  one-lane-a-thread loop before it); streamed
   tables take `megatrace_stream_kernel`, whose thread blocks of 128 lanes
   run the iterations in lockstep and sweep the triangles together
   (`csrc/group_sweep.cuh`, the bounce-synchronous sampler's traversal).
@@ -129,6 +130,8 @@ BLOCKED_LAUNCHES = 0  # ... of them, launches of the blocked builds (more
 CUBE_LAUNCHES = 0  # ... of them, launches of the cube builds (a cubemap sky
 #   beside spheres alone, or beside one of rects and boxes, volumes, motion
 #   and textures)
+TRI_LAUNCHES = 0  # ... of them, launches of the triangle build (meshes of
+#   at most TRI_MAX triangles)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
 WAVE_BIG_LAUNCHES = 0  # ... of them, launches of its build for more than
 #   SPH_CULL_MIN spheres (the spheres read through the read-only cache)
@@ -146,6 +149,8 @@ TILE_W, TILE_H = 8, 4  # a warp of the sphere kernel: a pixel tile
 
 TRI_PAD = 128
 TRI_BLOCK = 192  # triangle rows per culled block (the JAX kernel's chunk)
+TRI_DEALT_ROWS = 3  # rows a thread of the triangle build tests against
+# each ray at a step of its dealt sweep (csrc/megatrace_batch.cu kTriRows)
 TRI_MAX = 4096  # triangles of pack_tri_tables (the JAX kernel's VMEM
 # residence); beyond it pack_tri_stream_tables' streamed arm takes them
 TRI_STREAM_MAX = 262144  # triangles the streamed arm takes (JAX's cap)
@@ -1153,19 +1158,25 @@ def _slab(lo, hi, o, inv, t_min, bound):
     return (b_far >= torch.clamp(b_near, min=t_min)) & (b_near < bound)
 
 
-def _tri_block(o, d, inv, lanes, best_t, lo, hi, rows, st, hit, t_min):
+def _tri_block(o, d, inv, lanes, best_t, lo, hi, rows, st, hit, t_min,
+               tested=None):
     """Sweep triangle rows st.. (geometry `rows`, edge_a | edge_b | vert0
     in columns 0-8) for those of `lanes` whose ray meets the block's AABB
     before their best hit so far (spheres' `best_t`, then earlier blocks),
     updating hit = [t, row, u, v] in place.  A row wins only with a
     strictly smaller t, so the first row wins a tie.  Adds the (lane,
-    triangle) pairs it tests to TRI_PAIRS."""
+    triangle) pairs it tests to TRI_PAIRS; with `tested` (a list) appends
+    the (L,) mask of the lanes that swept the block's rows."""
     global TRI_PAIRS
     tri_t, tri_idx, tri_u, tri_v = hit
     ol, il = [c[lanes] for c in o], [c[lanes] for c in inv]
     may = _slab_may(lo, hi, ol, il, t_min,
                     torch.minimum(tri_t[lanes], best_t[lanes]))
     lanes = lanes[may]
+    if tested is not None:
+        mask = torch.zeros_like(tri_t, dtype=torch.bool)
+        mask[lanes] = True
+        tested.append(mask)
     if lanes.numel() == 0:
         return
     TRI_PAIRS += lanes.numel() * rows.shape[0]
@@ -1190,18 +1201,50 @@ def _no_tri_hit(ox):
             torch.zeros_like(ox), torch.zeros_like(ox)]
 
 
-def _tri_sweep(o, d, best_t, geo, t_min):
+def _tri_sweep(o, d, best_t, geo, t_min, tested=None):
     """Nearest triangle per lane, TRI_BLOCK rows of pack_tri_tables' geo
     at a time (each block's AABB in columns 9-15 of its first row), the
     per-lane form of the JAX kernel's per-tile skip.  Returns (t, row, u,
-    v); BIG, 0, 0, 0 where no triangle is hit."""
+    v); BIG, 0, 0, 0 where no triangle is hit.  With `tested` (a list) it
+    appends, block by block, the (L,) mask of the lanes that swept the
+    block's rows (`tri_loop_slots` reads them)."""
     inv = [_inv_d(c) for c in d]
     hit = _no_tri_hit(o[0])
     lanes = torch.arange(o[0].shape[0], device=o[0].device)
     for st in range(0, geo.shape[0], TRI_BLOCK):
         _tri_block(o, d, inv, lanes, best_t, geo[st, 9:12], geo[st, 12:15],
-                   geo[st:st + TRI_BLOCK], st, hit, t_min)
+                   geo[st:st + TRI_BLOCK], st, hit, t_min, tested)
     return tuple(hit)
+
+
+def tri_loop_slots(tested: torch.Tensor, t_rows: int,
+                   order: torch.Tensor) -> dict:
+    """The plain model of a warp's triangle loop on one bounce: `tested`
+    (B, N) bool, lane i swept block b's rows (`_tri_sweep`'s masks, in
+    lane order over the batch's N lanes; idle lanes none), `t_rows` the
+    table's padded rows (block b has min(TRI_BLOCK, t_rows - b *
+    TRI_BLOCK)), `order` (N,) the lane each thread runs, 32 threads a
+    warp (a partial last warp runs idle threads).  Returns the (lane,
+    triangle) tests, and the lane slots two loops execute for them:
+    `lane_slots`, one thread a lane walking the blocks (a warp runs a
+    block's rows when any of its lanes needs them: 32 slots a row), and
+    `dealt_slots`, each (lane, block) pair's rows dealt to the warp's 32
+    threads, TRI_DEALT_ROWS rows a thread a step (ceil(rows / step) steps
+    of step = 32 TRI_DEALT_ROWS slots a pair).  tests / slots is the
+    loop's lane-use share."""
+    blocks = tested.shape[0]
+    rows = torch.clamp(t_rows - TRI_BLOCK * torch.arange(
+        blocks, device=tested.device), max=TRI_BLOCK).to(torch.float64)
+    t = tested[:, order.to(tested.device)]
+    t = torch.nn.functional.pad(t, (0, (-t.shape[1]) % 32))
+    t = t.reshape(blocks, -1, 32)
+    pairs = t.sum(dim=(1, 2)).to(torch.float64)
+    step = 32 * TRI_DEALT_ROWS
+    union = t.any(dim=2).sum(dim=1).to(torch.float64)
+    return dict(tests=float((pairs * rows).sum()),
+                lane_slots=float((union * rows * 32).sum()),
+                dealt_slots=float((pairs * torch.ceil(rows / step) * step)
+                                  .sum()))
 
 
 def _tri_stream_sweep(o, d, best_t, stream: TriStream, t_min):
@@ -2180,6 +2223,8 @@ def load_kernel() -> ctypes.CDLL:
         lib.rtiw_megatrace_blocked.restype = ctypes.c_int
         lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, i, i, p]
         lib.rtiw_megatrace_ext_info.restype = ctypes.c_int
+        lib.rtiw_megatrace_tri_info.argtypes = [i, p]
+        lib.rtiw_megatrace_tri_info.restype = ctypes.c_int
         lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
         lib.rtiw_tile_lanes.restype = ctypes.c_int
         _KERNEL = lib
@@ -2202,6 +2247,17 @@ def sphere_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
         int(n_blk), int(has_cube), info)
     if err != 0:
         raise RuntimeError(f"megatrace_sphere_kernel info: cudaError {err}")
+    return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
+
+
+def tri_kernel_info(s: int) -> dict:
+    """The triangle build's occupancy beside an s-sphere table on the
+    current card: blocks an SM (the occupancy API), registers a thread and
+    local memory (stack and spills) a thread in bytes."""
+    info = (ctypes.c_int * 3)()
+    err = load_kernel().rtiw_megatrace_tri_info(int(s), info)
+    if err != 0:
+        raise RuntimeError(f"megatrace_tri_kernel info: cudaError {err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
 
 
@@ -2361,7 +2417,7 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        box_tables=None, vol0=None, move_offsets=None,
                        tex_tables=None, cube=None, cube_dims=(0, 0)):
     global LAUNCHES, AUX_LAUNCHES, VOL_LAUNCHES, MOTION_LAUNCHES
-    global TEX_LAUNCHES, BLOCKED_LAUNCHES, CUBE_LAUNCHES
+    global TEX_LAUNCHES, BLOCKED_LAUNCHES, CUBE_LAUNCHES, TRI_LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
                    camera_row=camera_row, centers=centers, radii=radii,
@@ -2522,6 +2578,7 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
     if err != 0:
         raise RuntimeError(f"megatrace_batch launch failed: cudaError {err}")
     LAUNCHES += 1
+    TRI_LAUNCHES += int(tri_tables is not None)
     return _outputs(out, tape)
 
 

@@ -151,12 +151,18 @@ def replay_eligible(scene) -> bool:
 
 
 def kernel_backward_built(scene) -> bool:
-    """Has the backward kernel a build for this scene's features?  Where
-    it has none (ROADMAP steps 7.3c, 7.6b, 7.7b), a scene that trains on
-    the card takes the wavefront; the plain replay on the CPU takes every
-    replay_eligible scene."""
+    """Has the backward kernel a build for this scene's features and
+    tables?  Where it has none (ROADMAP steps 7.3c, 7.6b, 7.7b, and a
+    cubemap of more than megatrace_bwd.CUBE_TEXELS_MAX texels, which its
+    cube build cannot index), a scene that trains on the card takes the
+    wavefront; the plain replay on the CPU takes every replay_eligible
+    scene."""
     from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
 
+    cube = scene.environment.cubemap  # (6, H, W, 3) or None
+    if (scene.flags.sky == 2 and cube is not None
+            and cube.numel() // 3 > megatrace_bwd.CUBE_TEXELS_MAX):
+        return False
     try:
         megatrace_bwd.build_kind(
             scene.triangles.vert0.shape[0] > 0,

@@ -17,7 +17,9 @@ gradient against JAX's.
   within 5e-4 of each leaf's max of `replay_grad_reference`, the cube
   plane among them, at depths 5 and 35.
 * `kernel_backward_built`: the backward kernel's cube build beside spheres
-  alone; beside another arm (ROADMAP step 7.6b) none.
+  alone, up to CUBE_TEXELS_MAX texels (the cap stubbed to the testbed's
+  6 x 32 x 32); beside another arm (ROADMAP step 7.6b) or past the cap
+  none.
 * The wavefront (`integrator.trace`, differentiable) to the faces against
   jax.vjp of JAX's: within 1e-3 of the max abs, the sun's texels among
   those that moved.
@@ -361,6 +363,19 @@ def test_kernel_backward_built(name, cube, built):
             scene, testbeds.SCENES["cubemap"]()[0].environment.cubemap)
     assert mr.replay_eligible(scene)
     assert mr.kernel_backward_built(scene) is built
+
+
+@pytest.mark.parametrize("over", [0, 1])
+def test_kernel_backward_built_caps_the_texels(monkeypatch, over):
+    # a cubemap of more texels than the backward kernel's cube build
+    # indexes trains on the wavefront (the renderer asks before any kernel
+    # runs); at the cap it takes the kernel
+    from raytracing_in_one_weekend_tpu_torch.ops import megatrace_bwd
+
+    scene, _ = testbeds.SCENES["cubemap"]()
+    texels = scene.environment.cubemap[..., 0].numel()
+    monkeypatch.setattr(megatrace_bwd, "CUBE_TEXELS_MAX", texels - over)
+    assert mr.kernel_backward_built(scene) is (over == 0)
 
 
 def test_wavefront_gradient_matches_jax():
