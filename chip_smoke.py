@@ -12,7 +12,8 @@ kernels) and the convex-volume scenes `volume`, `probabilistic` and
 (their motion and texture builds), `sphere_field` (4,099 spheres: the
 blocked builds of #1, #2's BIG build and #9's big build) and `cubemap` (the
 HDR cubemap sky: #1's cube builds, #2's cube build, the wavefront's
-lookup).
+lookup), and the sampler flavors (#1's noise builds on the cover and
+`volume`, the pre-drawn route, the flavored wavefront).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
@@ -96,7 +97,8 @@ which raises on failure:
      expected 1.0), timed there; the per-ray megatrace on 512x512 cover
      camera rays at depth 8 and 35 (valid and ray count identical, floats
      within 1e-4, >= 99% of lanes), timed at depth 8.  Their kernel times
-     are the kernels' own device time under torch.profiler (`kernel_ms`);
+     are CUDA events around launches of their C entry points alone
+     (`select_launch_ms`, `wave_launch_ms`: torch.profiler lost launches);
      a wrapper call, timed by CUDA events, also pays its host's packing;
  12. the wavefront's full-width paths, each with its launch counts set to
      0 just before and read just after (each must be > 0), finite outputs
@@ -121,7 +123,7 @@ which raises on failure:
  13. triangle_select against its plain version on the card: random cases
      (with inactive 256-ray tiles, up to TRI_MAX triangles) and 512x512
      mesh_showcase camera rays and one bounce of them (t and row identical
-     on >= 99% of lanes), timed on the camera rays (`kernel_ms`);
+     on >= 99% of lanes), timed on the camera rays (`triangle_launch_ms`);
  14. the batch kernel's triangle build against its plain version, by
      phase 3's criterion: mesh_showcase at 128x128, 8 spp, depth 8, two
      seeds, and a two-block mesh (icosphere(2) and a cube, 332
@@ -267,6 +269,19 @@ which raises on failure:
      sun's texels; a training step of simple_light under the cubemap on
      the wavefront (#2 has no such build: ROADMAP step 7.6b); a 6 x 512 x
      512 cubemap forward and fwd+bwd at 128x128.
+ 28. the sampler flavors (`noise_phases`, ROADMAP step 11): render_batch
+     on the cover at 512x512, depth 8, 64 spp with white, BLUE and STBN in
+     turns (the flavors through #1's sphere noise build on the in-kernel
+     tables), the last BLUE and STBN batches against the plain version on
+     their 64 centre rows, and the CLI with `--noise blue` and `--noise
+     stbn`; the sphere build alone at 4 and 64 spp, white, BLUE and STBN
+     in turns, whole 4 spp batches against the plain version, registers,
+     spills and blocks of both noise builds; `volume` at 128x128, 16 spp
+     with a state of all four sets through the volume noise build, held
+     whole, and alone against the white volume build; the pre-drawn route
+     on the cover at 500x500; a flavored wavefront training step at
+     128x128, 16 spp (#4, no batch kernel) and `sphere_field` forward with
+     BLUE on the wavefront's `fast` arm (#3).
 The plain versions held against a kernel's result (`plain_check`: the
 parity checks, the backward against the plain replay's autograd, the
 AOV gradient on the CPU) run in the check stage, after the last timed
@@ -1409,30 +1424,78 @@ def device_busy_share(fn, refuse_batch_kernel: bool = False) -> float:
     return busy_us / wall_us
 
 
-def kernel_ms(fn, kernel: str, repeats: int) -> float:
-    """Device milliseconds per launch of the kernel whose name contains
-    `kernel`, over `repeats` calls of `fn` under torch.profiler: the
-    kernel alone, without the gaps a host-bound wrapper leaves between
-    launches (CUDA events around the calls would count those).  A
-    profiler run after earlier ones in the process may lose an event of
-    its first launches, so the mean is over the launches the profiler
-    saw, at least half of `repeats`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm-up
+def event_ms(launch, repeats: int) -> float:
+    """Device milliseconds a call of `launch` (one kernel launch on buffers
+    made once), by CUDA events around `repeats` calls after a warm-up.
+    torch.profiler lost launches here in earlier PRs (ROADMAP §3), so
+    every kernel is timed this way."""
+    launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel in e.key]
-    launches = sum(e.count for e in events)
-    if not repeats / 2 <= launches <= repeats:
-        raise RuntimeError(f"profiled {launches} launches of {kernel}, "
-                           f"expected {repeats}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / launches
+    start.record()
+    for _ in range(repeats):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def select_launch_ms(o, d, centers, radii, repeats: int, records=None,
+                     active=None) -> float:
+    """#4 (`sphere_select`), or with `records` #3 (`sphere_select_full`),
+    alone: launches of its C entry point on buffers made once, as the
+    wrapper fills them (event_ms)."""
+    n, s, dev = o.shape[0], centers.shape[0], centers.device
+    lib = sphere_select.load_kernel()
+    sph, rec_tab = sphere_select.sweep_tables(
+        centers, radii, None if records is None else records.float())
+    o, d = o.float().contiguous(), d.float().contiguous()
+    t = torch.empty(n, device=dev)
+    exit_t = torch.empty(n, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if records is None:
+        idx = torch.empty(n, dtype=torch.int32, device=dev)
+        call = (lambda: lib.rtiw_sphere_select(  # noqa: E731
+            o.data_ptr(), d.data_ptr(), sph.data_ptr(), t.data_ptr(),
+            idx.data_ptr(), exit_t.data_ptr(), n, s, 0.0, stream))
+    else:
+        act = (torch.ones(n, dtype=torch.uint8, device=dev) if active is None
+               else active.to(torch.uint8).contiguous())
+        rec = torch.empty((n, sphere_select.REC_COLS), device=dev)
+        call = (lambda: lib.rtiw_sphere_select_full(  # noqa: E731
+            o.data_ptr(), d.data_ptr(), act.data_ptr(), sph.data_ptr(),
+            rec_tab.data_ptr(), t.data_ptr(), exit_t.data_ptr(),
+            rec.data_ptr(), n, s, 0.0, 1, stream))
+
+    def launch():
+        err = call()
+        if err != 0:
+            raise RuntimeError(f"sphere selection launch: cudaError {err}")
+
+    return event_ms(launch, repeats)
+
+
+def triangle_launch_ms(o, d, edge_a, edge_b, vert0, repeats: int) -> float:
+    """#5 (`triangle_select`) alone: launches of its C entry point on
+    buffers made once, as the wrapper fills them (event_ms)."""
+    n, t_rows, dev = o.shape[0], edge_a.shape[0], edge_a.device
+    lib = triangle_select.load_kernel()
+    tri = torch.cat([edge_a, edge_b, vert0], dim=1).contiguous()
+    o, d = o.contiguous(), d.contiguous()
+    act = torch.ones(n, dtype=torch.uint8, device=dev)
+    t = torch.empty(n, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        err = lib.rtiw_triangle_select(
+            o.data_ptr(), d.data_ptr(), act.data_ptr(), tri.data_ptr(),
+            t.data_ptr(), idx.data_ptr(), n, t_rows, 0.0, stream)
+        if err != 0:
+            raise RuntimeError(f"#5 launch: cudaError {err}")
+
+    return event_ms(launch, repeats)
 
 
 def reset_launches() -> None:
@@ -1484,15 +1547,13 @@ def wavefront_phases(dev, card, scene, cs, camera, target,
                                active)
     shares.append(share)
     errs.append(err)
-    sel_ms = kernel_ms(lambda: sphere_select.sphere_select(o, d, c, r),
-                       "sphere_select_kernel", repeats=20)
+    sel_ms = select_launch_ms(o, d, c, r, repeats=20)
     sel_call_ms, _ = time_batch(sphere_select.sphere_select, o, d, c, r,
                                 repeats=20)
     sel_plain_ms, _ = time_batch(sphere_select.sphere_select_reference, o, d,
                                  c, r, repeats=1)
-    full_ms = kernel_ms(lambda: sphere_select.sphere_select_full(
-        o, d, c, r, rec, active=active), "sphere_select_full_kernel",
-        repeats=20)
+    full_ms = select_launch_ms(o, d, c, r, repeats=20, records=rec,
+                               active=active)
     full_call_ms, _ = time_batch(sphere_select.sphere_select_full, o, d, c,
                                  r, rec, active=active, repeats=20)
     full_plain_ms, _ = time_batch(sphere_select.sphere_select_full_reference,
@@ -1529,9 +1590,9 @@ def wavefront_phases(dev, card, scene, cs, camera, target,
                                f"< 0.99 (depth {depth})")
         wshares.append(share)
         werrs.append(err)
-    wave_ms = kernel_ms(lambda: megatrace.megatrace(*wave_args,
-                                                    trace_depth=8),
-                        "megatrace_wave_kernel", repeats=5)
+    wave_ms = wave_launch_ms(wave_args, dict(
+        trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+        sky_on=True), repeats=5)
     wave_call_ms, wout = time_batch(megatrace.megatrace, *wave_args,
                                     trace_depth=8, repeats=5)
     wave_plain_ms, _ = time_batch(megatrace.megatrace_reference, *wave_args,
@@ -1899,8 +1960,7 @@ def mesh_phases(dev, card) -> dict:
     share, err = triangle_parity("one bounce of them", o2, d2, *geo, hit)
     shares.append(share)
     errs.append(err)
-    sel_ms = kernel_ms(lambda: triangle_select.triangle_select(o, d, *geo),
-                       "triangle_select_kernel", repeats=20)
+    sel_ms = triangle_launch_ms(o, d, *geo, repeats=20)
     sel_plain_ms, _ = time_batch(triangle_select.triangle_select_reference,
                                  o, d, *geo, repeats=1)
     sel_bound = bound(n * t_count * MT_FLOPS, n * (24 + 8) + t_count * 36)
@@ -3384,6 +3444,34 @@ def aux_phases(dev, card, width: int = 512, spp: int = 64) -> dict:
         "bound_ms_64spp": bwd_entry["bound_ms_64spp"],
     }]
     return {"kernels": kernels, "paths": out}
+
+
+def four_set_state(seed: int = 5, size: int = 64, slices: int = 4,
+                   device="cpu"):
+    """A sampler state holding all four sets, as the baked STBN assets do
+    (the synthesized states carry no cosine or unitvec3 set), made from a
+    seed: uniform camera tiles (slices, size, size, 4) and scalars,
+    tangent-space (y up) cosine-weighted directions and unit directions
+    (slices, size, size, 3).  Returns (the port's NoiseState, its numpy
+    arrays tiles, cosine, scalar, unitvec3)."""
+    from raytracing_in_one_weekend_tpu_torch.core import randomsource
+
+    r = np.random.default_rng(seed)
+    shape = (slices, size, size)
+    tiles = r.random(shape + (4,), dtype=np.float32)
+    scalar = r.random(shape, dtype=np.float32)
+    u, v = r.random((2,) + shape)
+    radius, theta = np.sqrt(u), 2.0 * np.pi * v
+    cosine = np.stack([radius * np.cos(theta), np.sqrt(1.0 - u),
+                       radius * np.sin(theta)], -1).astype(np.float32)
+    z, phi = r.uniform(-1.0, 1.0, shape), r.uniform(0.0, 2.0 * np.pi, shape)
+    ring = np.sqrt(1.0 - z * z)
+    unitvec3 = np.stack([ring * np.cos(phi), ring * np.sin(phi), z],
+                        -1).astype(np.float32)
+    arrays = (tiles, cosine, scalar, unitvec3)
+    state = randomsource.NoiseState(
+        *(torch.tensor(a, device=device) for a in arrays))
+    return state, arrays
 
 
 def fog_inside_scene():
@@ -5544,6 +5632,519 @@ def cube_phases(dev, card, width: int = 512, spp: int = 64,
     return {"kernels": kernels, "paths": out}
 
 
+
+NOISE_DRAW_FLOPS = 15  # per flavored draw of the noise builds
+#   (megatrace_bounce.cuh noise_texel, noise_rotate): seqf (2), the two R2
+#   offsets (a product, a fract of two, a scaling and a floor: 5 each), the
+#   rotation's fmaf (2), fract and sum (3); the address is integer work
+
+
+def noise_launch_ms(tables, samples: int, repeats: int, kw: dict,
+                    noise=None, vol0=None) -> float:
+    """#1's sphere build (noise None; with `vol0` its volume build beside
+    spheres), or with `noise` (pack_noise_tables' (tbl, meta)) the noise
+    build of the same, alone: event_ms around launches of the C entry
+    point on buffers made once."""
+    if noise is None and vol0 is not None:
+        return aux_launch_ms(tables, None, None, samples, repeats, kw,
+                             vol0=vol0)
+    camera_row, centers, radii, records, sky_bottom, sky_top = tables
+    dev, s = centers.device, centers.shape[0]
+    n = int(camera_row[19] * camera_row[20])
+    lib = megatrace.load_kernel()
+    sph, rec = megatrace.sweep_tables(centers, radii, records)
+    consts = megatrace.kernel_consts(camera_row, sky_bottom, sky_top, vol0)
+    per_pixel = torch.full((n,), float(samples), device=dev)
+    cin = torch.zeros(n, device=dev)
+    out = torch.empty((megatrace.OUT_ROWS, n), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flags = (0.0, int(kw["has_dielectrics"]), int(kw["sky_on"]), 1)
+    if noise is None:
+        def call():
+            return lib.rtiw_megatrace_batch(
+                per_pixel.data_ptr(), cin.data_ptr(), 0, consts.data_ptr(),
+                sph.data_ptr(), rec.data_ptr(), 0, 0, 0, 0, out.data_ptr(),
+                0, n, s, 0, 0, 0, 0, 7, 0, samples, kw["trace_depth"],
+                *flags, stream)
+    else:
+        tbl = noise[0].contiguous()
+        meta = [int(noise[1][k]) for k in megatrace.NOISE_META_KEYS]
+
+        def call():
+            return lib.rtiw_megatrace_noise(
+                per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+                sph.data_ptr(), rec.data_ptr(), out.data_ptr(), n, s, 7, 0,
+                samples, kw["trace_depth"], *flags, int(vol0 is not None),
+                tbl.data_ptr(), *meta, 3, 0, 0, stream)
+
+    def launch():
+        err = call()
+        if err != 0:
+            raise RuntimeError(f"#1 sphere build launch: cudaError {err}")
+
+    return event_ms(launch, repeats)
+
+
+def noise_parity(label: str, args: tuple, kwargs: dict, width: int, *,
+                 record, rows: int | None = None) -> None:
+    """The noise builds' check on a sample_batch call's inputs (`args`,
+    `kwargs`, a flavor's): the kernel on the whole batch, its plain version
+    (through plain_check) on every lane or, with `rows`, on that many image
+    rows at the frame's centre (parity_rows' band; the lanes keep their ids
+    and pixels, the pre-drawn rows their columns).  No tape: the replay has
+    no flavor.  Raise unless >= 99% of the lanes agree (count and rays
+    identical, floats within 1e-4), else record(share, max abs err)."""
+    before = megatrace.NOISE_LAUNCHES
+    got = megatrace.sample_batch(*args, **kwargs)
+    torch.cuda.synchronize()
+    if megatrace.NOISE_LAUNCHES != before + 1:
+        raise RuntimeError("sample_batch did not launch a noise build")
+    n = args[0].shape[0]
+    lo, hi = 0, n
+    if rows is not None:
+        r0 = (n // width - rows) // 2
+        lo, hi = r0 * width, (r0 + rows) * width
+    got = {k: v[lo:hi].clone() for k, v in got.items()}
+    kw = dict(kwargs)
+    for key in ("noise_uniforms", "noise_cosine"):
+        if kw.get(key) is not None:
+            kw[key] = kw[key][:, lo:hi].contiguous()
+    base = args[9] if len(args) > 9 else kw.pop("lane_base", 0)
+    if rows is not None:
+        kw["pixel_index"] = torch.arange(lo, hi, device=args[0].device)
+
+    def finish(want, seconds):
+        share, err = lane_agreement(got, want)
+        where = "every lane" if rows is None else f"rows {r0}-{r0 + rows - 1}"
+        print(f"parity {label} (plain version on {where}, {hi - lo} lanes, "
+              f"{seconds:.1f} s): {share:.6f} of them identical (count, "
+              f"rays; floats within 1e-4), max abs err {err:.3g}")
+        if share < 0.99:
+            raise RuntimeError(f"kernel/plain agreement {share} < 0.99 "
+                               f"({label})")
+        record(share, err)
+
+    plain_check(megatrace.sample_batch_reference,
+                (args[0][lo:hi], args[1][lo:hi], *args[2:9], base + lo), kw,
+                finish)
+
+
+def noise_bound(rays: float, regens: float, s_count: int, n: int,
+                tbl=None, scalars: bool = False) -> tuple[float, str]:
+    """The bound of a noise build's batch: the sphere build's work (rays
+    bounces x (the sweep + the shading)), NOISE_DRAW_FLOPS for each regen's
+    four camera draws and, with the scalar set, three scalar draws a bounce
+    (ua, ub and the lottery's, which every hit takes: the least this data
+    needs); bytes: lane counts and accumulators, the sphere tables and the
+    noise table once (or the pre-drawn rows, `tbl` a tensor of them)."""
+    flops = (rays * (s_count * SWEEP_FLOPS + SHADE_FLOPS)
+             + regens * 4 * NOISE_DRAW_FLOPS
+             + (rays * 3 * NOISE_DRAW_FLOPS if scalars else 0))
+    nbytes = (n * 4 * (2 + megatrace.OUT_ROWS) + s_count * 4 * (4 + 16)
+              + (0 if tbl is None else tbl.numel() * 4))
+    return bound(flops, nbytes)
+
+
+def noise_phases(dev, card, width: int = 512, spp: int = 64,
+                 small: int = 128, odd: int = 500, odd_spp: int = 16) -> dict:
+    """Phase 28: the sampler flavors (ROADMAP step 11): #1's noise builds.
+    (a) the forward main path on the cover at `width`x`width`, depth 8,
+        `spp` spp: render_batch with the driver's draw bases, white, BLUE
+        and STBN in turns (1 warm-up + 3 timed batches each, then 3 more
+        in the reverse order; median MRays/s), every flavored batch
+        through the sphere noise build on the in-kernel tables
+        (NOISE_LAUNCHES and LAUNCHES set to 0 just before and read just
+        after), the images finite; the last timed BLUE and STBN batches
+        against the plain version on their 64 centre rows (`noise_parity`);
+        then the CLI (`--noise blue`, `--noise stbn`) at 512x512 through
+        the noise build;
+    (b) the sphere build alone by CUDA events at 4 and `spp` spp, white,
+        BLUE and STBN in turns (white, BLUE, STBN, STBN, BLUE, white), a
+        whole 4 spp batch of each flavor against its plain version, the
+        plain version timed at 4 spp, registers, spills and blocks an SM
+        of both noise builds, and the bound (`noise_bound`);
+    (c) `volume` at `small`x`small`, 16 spp, with a state holding all
+        four sets (`four_set_state`: every bounce's scalars and cosine, the
+        isotropic direction from the unitvec3 set): render_batch, 1
+        warm-up + 3 timed batches through the volume noise build, the last
+        against the plain version on every lane; the build alone at 4 spp
+        against the white volume build in turns, its plain version at 4
+        spp;
+    (d) the pre-drawn route on the cover at `odd`x`odd` (the tile side
+        does not divide the width), BLUE, `odd_spp` spp (the plain
+        version's time goes with the iterations: 16 spp keeps its check a
+        quarter of a 64-spp one's): 1 warm-up + 2 timed batches through
+        the sphere noise build with pre-drawn rows, the last against the
+        plain version on its 64 centre rows;
+    (e) the flavored wavefront: a training step (render_image,
+        differentiable, BLUE, the sphere centres requiring grad) on the
+        cover at `small`x`small`, 16 spp, depth 8 (no batch kernel;
+        #4 sphere_select in the differentiable arm), gradients finite and
+        nonzero; and `sphere_field` forward at `small`x`small`, 4 spp with
+        BLUE (no noise arm beside 4,099 spheres: the wavefront's `fast`
+        arm, #3 sphere_select_full on every bounce, no batch kernel).
+    (`width`, `spp`, `small` and `odd` shrink it for a rehearsal on the
+    CPU.)"""
+    from raytracing_in_one_weekend_tpu_torch.core import randomsource
+    from raytracing_in_one_weekend_tpu_torch.utils.config import NoiseColor
+
+    t_phase = time.perf_counter()
+    out = {}
+    scene, cs = book_scenes.cover_scene()
+    scene = scene.to(dev)
+    n = width * width
+    camera, tables = batch_inputs(scene, cs, width, width, dev)
+    s_count = scene.spheres.center.shape[0]
+    kw = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+              sky_on=True)
+    colors = {"white": 0, "blue": int(NoiseColor.BLUE),
+              "stbn": int(NoiseColor.SPATIO_TEMPORAL_BLUE)}
+    states = {name: randomsource.make_noise_state(NoiseColor(c), seed=7,
+                                                  device=dev)
+              for name, c in colors.items()}
+    gen = torch.Generator().manual_seed(28)
+
+    def forward(scn, cam, w, samples, accum, flavor, batch, state=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = renderer.render_batch(
+            scn, cam, accum, gen, width=w, height=w, samples=samples,
+            trace_depth=8, noise_color=colors[flavor],
+            noise_state=state if state is not None else states[flavor],
+            draw_base=batch * samples)
+        rays = float(m.total_rays)
+        torch.cuda.synchronize()
+        return rays, time.perf_counter() - t
+
+    # ---- (a) the forward main path ------------------------------------------
+    rates = {k: [] for k in colors}
+    accs = {k: film.zero_accumulators(n, device=dev) for k in colors}
+    calls_kept, fwd_launches = {}, 0
+    for turn, order in enumerate((("white", "blue", "stbn"),
+                                  ("stbn", "blue", "white"))):
+        for flavor in order:
+            reset_launches()
+            megatrace.NOISE_LAUNCHES = 0
+            batches = range(4) if turn == 0 else range(4, 7)
+            runs = []
+            with recorded_calls(megatrace, "sample_batch") as calls:
+                for b in batches:
+                    calls.clear()  # keep the last batch's call only
+                    runs.append(forward(scene, camera, width, spp,
+                                        accs[flavor], flavor, b))
+            want = len(batches) if flavor != "white" else 0
+            if (megatrace.NOISE_LAUNCHES != want
+                    or megatrace.LAUNCHES != len(batches)):
+                raise RuntimeError(
+                    f"cover with {flavor}: batch kernel launches "
+                    f"{megatrace.LAUNCHES}, noise build "
+                    f"{megatrace.NOISE_LAUNCHES}; want {len(batches)} of "
+                    f"{'the noise build' if want else 'the sphere build'}")
+            if flavor != "white" and turn == 0:
+                fwd_launches += megatrace.NOISE_LAUNCHES
+                (args, kwargs, _), = calls
+                if kwargs.get("noise_tbl") is None:
+                    raise RuntimeError(f"{flavor} at {width}: not the "
+                                       "in-kernel tables")
+                calls_kept[flavor] = (args, kwargs)
+            rates[flavor].append(statistics.median(
+                r / t / 1e6 for r, t in (runs[1:] if turn == 0 else runs)))
+    for flavor, acc in accs.items():
+        img = film.combine(acc, width, width).color
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.2:
+            raise RuntimeError(f"bad {flavor} image: mean "
+                               f"{float(img.mean())}")
+        out[f"{flavor}_image_mean"] = float(img.mean())
+    print(f"noise main path: cover {width}x{width} depth 8, {spp} spp/batch, "
+          "median MRays/s of 3 batches in turns: " + ", ".join(
+              f"{k} {v[0]:.3f} then {v[1]:.3f}" for k, v in rates.items())
+          + f"; image means " + ", ".join(
+              f"{k} {out[f'{k}_image_mean']:.4f}" for k in colors)
+          + f"; {fwd_launches} noise-build launches [{card}]")
+    for flavor in ("blue", "stbn"):
+        out[f"{flavor}_fwd_mrays"] = rates[flavor]
+    out["white_fwd_mrays"] = rates["white"]
+    for flavor, (args, kwargs) in calls_kept.items():
+        noise_parity(f"noise build, {flavor}, cover {width}x{width} {spp} "
+                     "spp main-path batch", args, kwargs, width,
+                     record=into("megatrace_batch_noise", out,
+                                 "noise_parity_share"),
+                     rows=min(64, width))
+    del calls_kept, accs
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for flavor in ("blue", "stbn"):
+            png = os.path.join(tmp, f"cover_{flavor}.png")
+            reset_launches()
+            megatrace.NOISE_LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["--scene", "cover", "--width", str(width),
+                           "--height", str(width), "--spp", "16", "--depth",
+                           "8", "--noise", flavor, "--output", png,
+                           "--quiet"])
+            seconds = time.perf_counter() - t0
+            with open(png, "rb") as f:
+                header = f.read(8)
+            if (rc != 0 or header != b"\x89PNG\r\n\x1a\n"
+                    or megatrace.NOISE_LAUNCHES == 0
+                    or megatrace.NOISE_LAUNCHES != megatrace.LAUNCHES):
+                raise RuntimeError(
+                    f"the CLI did not render --noise {flavor} through the "
+                    f"noise build (rc {rc}, launches {megatrace.LAUNCHES}, "
+                    f"noise {megatrace.NOISE_LAUNCHES})")
+            print(f"CLI: --scene cover --noise {flavor} {width}x{width}, 16 "
+                  f"spp, depth 8 on the card: PNG written in {seconds:.2f} "
+                  f"s, {megatrace.NOISE_LAUNCHES} noise-build launches")
+
+    # ---- (b) the sphere build alone, white and flavored ---------------------
+    packs = {k: megatrace.pack_noise_tables(states[k]) for k in ("blue",
+                                                                 "stbn")}
+    zeros = torch.zeros(n, device=dev)
+    timed = {(k, few): [] for k in colors for few in (4, spp)}
+    for flavor in ("white", "blue", "stbn", "stbn", "blue", "white"):
+        for few in (4, spp):
+            timed[(flavor, few)].append(noise_launch_ms(
+                tables, few, 10 if few == 4 else 3, kw,
+                noise=packs.get(flavor)))
+    builds = {}
+    lane_count = torch.full((n,), 4, dtype=torch.int32, device=dev)
+    for flavor in ("blue", "stbn"):
+        tbl, meta = packs[flavor]
+        nkw = dict(kw, samples=4, noise_tbl=tbl, noise_meta=meta,
+                   noise_draw_base=renderer.noise_draw_base(0, 4, 8))
+        res = megatrace.sample_batch(lane_count, zeros, *tables, 7, **nkw)
+        rays4 = float(res["rays"].sum())
+        noise_parity(f"noise build, {flavor}, cover {width}x{width} 4 spp",
+                     (lane_count, zeros, *tables, 7), nkw, width,
+                     record=into("megatrace_batch_noise"))
+        plain_ms = None
+        if flavor == "blue":
+            plain_ms, _ = time_batch(megatrace.sample_batch_reference,
+                                     lane_count, zeros, *tables, 7,
+                                     repeats=1, **nkw)
+        bnd = noise_bound(rays4, n * 4, s_count, n, tbl,
+                          scalars=meta["scal"] >= 0)
+        ms4 = statistics.mean(timed[(flavor, 4)])
+        builds[flavor] = dict(ms=ms4, ms_64spp=statistics.mean(
+            timed[(flavor, spp)]), bound=bnd, rays=rays4, plain_ms=plain_ms)
+        del res
+    info = megatrace.noise_kernel_info(s_count)
+    vinfo = megatrace.noise_kernel_info(
+        book_scenes.SCENES["volume"]()[0].spheres.center.shape[0],
+        has_vol=True)
+    report = ptxas_report(megatrace.BUILD_LOG, "megatrace_sphere_kernelILb0"
+                          "ELb0ELb0ELb0ELb0ELb0ELb1EE")
+    vreport = ptxas_report(megatrace.BUILD_LOG, "megatrace_sphere_kernelILb0"
+                           "ELb1ELb0ELb0ELb0ELb0ELb1EE")
+    print(f"noise builds: sphere ptxas {report or '(not built here)'}; "
+          f"{info['registers']} registers, {info['local_bytes']} B local a "
+          f"thread, {info['blocks']} blocks of 128 an SM; volume ptxas "
+          f"{vreport or '(not built here)'}; {vinfo['registers']} "
+          f"registers, {vinfo['local_bytes']} B local, {vinfo['blocks']} "
+          f"blocks an SM (occupancy API)")
+    for flavor in ("white", "blue", "stbn"):
+        line = (f"sphere build alone, {flavor}, cover {width}x{width} depth "
+                f"8 (CUDA events, launches alone, in turns): 4 spp "
+                f"{timed[(flavor, 4)]} ms, {spp} spp {timed[(flavor, spp)]} "
+                "ms")
+        if flavor in builds:
+            b = builds[flavor]
+            line += (f"; {b['rays']:.0f} bounces at 4 spp, bound "
+                     f"{b['bound'][0]:.4f} ms by {b['bound'][1]} "
+                     f"({b['bound'][0] / b['ms']:.1%})")
+            if b["plain_ms"] is not None:
+                line += f"; plain {b['plain_ms']:.3f} ms at 4 spp"
+        print(line + f" [{card}]")
+    out["sphere_ms"] = {k: {few: timed[(k, few)] for few in (4, spp)}
+                        for k in colors}
+
+    # ---- (c) volume with all four sets --------------------------------------
+    vscene, vcs = book_scenes.SCENES["volume"]()
+    vscene = vscene.to(dev)
+    four, _ = four_set_state(device=dev)
+    vcam, vtables = batch_inputs(vscene, vcs, small, small, dev)
+    vacc = film.zero_accumulators(small * small, device=dev)
+    reset_launches()
+    megatrace.NOISE_LAUNCHES = 0
+    vruns = []
+    with recorded_calls(megatrace, "sample_batch") as calls:
+        for b in range(4):
+            calls.clear()
+            vruns.append(forward(vscene, vcam, small, 16, vacc, "stbn", b,
+                                 state=four))
+    vol_launches = megatrace.NOISE_LAUNCHES
+    if (megatrace.LAUNCHES, vol_launches) != (4, 4):
+        raise RuntimeError(f"volume with four sets: launches "
+                           f"{megatrace.LAUNCHES}, noise {vol_launches}")
+    vimg = film.combine(vacc, small, small).color
+    if not bool(torch.isfinite(vimg).all()) or float(vimg.mean()) <= 0.0:
+        raise RuntimeError(f"bad volume image: mean {float(vimg.mean())}")
+    (args, kwargs, _), = calls
+    noise_parity(f"volume noise build, four sets, {small}x{small} 16 spp "
+                 "main-path batch", args, kwargs, small,
+                 record=into("megatrace_batch_noise_volume", out,
+                             "volume_parity_share"))
+    del calls, args, kwargs
+    vrate = statistics.median(r / t / 1e6 for r, t in vruns[1:])
+    vol0 = megatrace.camera_containment_row(
+        vscene, materials.pack_materials(vscene), vcam.origin)
+    vkw = dict(trace_depth=8, has_dielectrics=vscene.flags.has_dielectrics,
+               sky_on=True)
+    vpack = megatrace.pack_noise_tables(four)
+    vtimed = {"white": [], "four": []}
+    for flavor in ("white", "four", "four", "white"):
+        vtimed[flavor].append(noise_launch_ms(
+            vtables, 4, 10, vkw, noise=vpack if flavor == "four" else None,
+            vol0=vol0))
+    m_ = small * small
+    lane4 = torch.full((m_,), 4, dtype=torch.int32, device=dev)
+    vnkw = dict(vkw, samples=4, vol0=vol0, noise_tbl=vpack[0],
+                noise_meta=vpack[1], noise_draw_base=0)
+    vres = megatrace.sample_batch(lane4, torch.zeros(m_, device=dev),
+                                  *vtables, 5, **vnkw)
+    vplain_ms, vplain = time_batch(megatrace.sample_batch_reference, lane4,
+                                   torch.zeros(m_, device=dev), *vtables, 5,
+                                   repeats=1, **vnkw)
+    vshare, verr = lane_agreement(vres, vplain)
+    if vshare < 0.99:
+        raise RuntimeError(f"volume noise build/plain agreement {vshare}")
+    into("megatrace_batch_noise_volume")(vshare, verr)
+    vbnd = noise_bound(float(vres["rays"].sum()), m_ * 4,
+                       vscene.spheres.center.shape[0], m_, vpack[0],
+                       scalars=True)
+    vms = statistics.mean(vtimed["four"])
+    print(f"volume noise build, four sets, {small}x{small} depth 8: main "
+          f"path 16 spp/batch median {vrate:.3f} MRays/s ({vol_launches} "
+          f"launches), image mean {float(vimg.mean()):.4f}; alone at 4 spp "
+          f"in turns {vtimed['four']} ms against the white volume build's "
+          f"{vtimed['white']} ms; bound {vbnd[0]:.4f} ms by {vbnd[1]} "
+          f"({vbnd[0] / vms:.1%}); plain {vplain_ms:.3f} ms at 4 spp "
+          f"({vshare:.6f} of lanes agree, max abs err {verr:.3g}) [{card}]")
+    out["volume_fwd_mrays"] = vrate
+    del vres, vplain
+
+    # ---- (d) the pre-drawn route --------------------------------------------
+    ocam, _ = batch_inputs(scene, cs, odd, odd, dev)
+    oacc = film.zero_accumulators(odd * odd, device=dev)
+    reset_launches()
+    megatrace.NOISE_LAUNCHES = 0
+    oruns = []
+    with recorded_calls(megatrace, "sample_batch") as calls:
+        for b in range(3):
+            calls.clear()
+            oruns.append(forward(scene, ocam, odd, odd_spp, oacc, "blue",
+                                 b))
+    pre_launches = megatrace.NOISE_LAUNCHES
+    (args, kwargs, _), = calls
+    if ((megatrace.LAUNCHES, pre_launches) != (3, 3)
+            or kwargs.get("noise_uniforms") is None):
+        raise RuntimeError(f"cover {odd}x{odd} with blue: launches "
+                           f"{megatrace.LAUNCHES}, noise {pre_launches}, "
+                           "pre-drawn rows "
+                           f"{kwargs.get('noise_uniforms') is not None}")
+    oimg = film.combine(oacc, odd, odd).color
+    if not bool(torch.isfinite(oimg).all()) or float(oimg.mean()) <= 0.2:
+        raise RuntimeError(f"bad {odd}x{odd} image: mean "
+                           f"{float(oimg.mean())}")
+    noise_parity(f"noise build, pre-drawn rows, blue, cover {odd}x{odd} "
+                 f"{odd_spp} spp main-path batch", args, kwargs, odd,
+                 record=into("megatrace_batch_noise", out,
+                             "pre_drawn_parity_share"), rows=min(64, odd))
+    rows_mb = kwargs["noise_uniforms"].numel() * 4 / 1e6
+    del calls, args, kwargs
+    orate = statistics.median(r / t / 1e6 for r, t in oruns[1:])
+    print(f"pre-drawn route: cover {odd}x{odd} depth 8, {odd_spp} "
+          "spp/batch, "
+          f"blue: median {orate:.3f} MRays/s over 2 batches ({pre_launches} "
+          f"noise-build launches, {rows_mb:.1f} MB of pre-drawn rows a "
+          f"batch), image mean {float(oimg.mean()):.4f} [{card}]")
+    out["pre_drawn_fwd_mrays"] = orate
+
+    # ---- (e) the flavored wavefront ----------------------------------------
+    scam, _ = batch_inputs(scene, cs, small, small, dev)
+    tacc = film.zero_accumulators(small * small, device=dev)
+    forward(scene, scam, small, 16, tacc, "blue", 0)
+    target = film.combine(tacc, small, small).color.detach()
+    centers = (scene.spheres.center.detach().clone()
+               + 0.01).requires_grad_()
+    stepped = params_mod.apply_params(scene, {"sphere_centers": centers})
+    reset_launches()
+    sel_before = dict(sphere_select.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = renderer.render_image(stepped, scam, width=small, height=small,
+                                samples_per_pixel=16, trace_depth=8, seed=3,
+                                noise_color=colors["blue"],
+                                noise_state=states["blue"])
+    loss = torch.mean((img.color - target) ** 2)
+    loss.backward()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    sel = sphere_select.LAUNCHES["sphere_select"] - sel_before[
+        "sphere_select"]
+    grad = centers.grad
+    if (megatrace.LAUNCHES != 0 or sel == 0
+            or not bool(torch.isfinite(grad).all())
+            or float(grad.abs().max()) == 0.0):
+        raise RuntimeError(f"flavored training step: batch kernel "
+                           f"{megatrace.LAUNCHES}, sphere_select {sel}, "
+                           f"grad finite {bool(torch.isfinite(grad).all())}")
+    print(f"flavored wavefront training step: cover {small}x{small}, 16 "
+          f"spp, depth 8, blue, to the sphere centres: {step_s:.2f} s, "
+          f"loss {float(loss.detach()):.5f}, max |grad| "
+          f"{float(grad.abs().max()):.4g}"
+          f", {sel} sphere_select launches, no batch kernel [{card}]")
+    out["flavored_step_s"] = step_s
+    fscene, fcs = testbeds.SCENES["sphere_field"]()
+    fscene = fscene.to(dev)
+    fcam, _ = batch_inputs(fscene, fcs, small, small, dev)
+    facc = film.zero_accumulators(small * small, device=dev)
+    reset_launches()
+    full_before = sphere_select.LAUNCHES["sphere_select_full"]
+    frays, fsecs = forward(fscene, fcam, small, 4, facc, "blue", 0)
+    full = sphere_select.LAUNCHES["sphere_select_full"] - full_before
+    fimg = film.combine(facc, small, small).color
+    if (megatrace.LAUNCHES != 0 or megatrace.WAVE_LAUNCHES != 0 or full == 0
+            or not bool(torch.isfinite(fimg).all())):
+        raise RuntimeError(f"sphere_field with blue: batch kernel "
+                           f"{megatrace.LAUNCHES}, #9 "
+                           f"{megatrace.WAVE_LAUNCHES}, #3 {full}")
+    print(f"flavored wavefront forward: sphere_field {small}x{small}, 4 spp, "
+          f"blue: {frays / fsecs / 1e6:.3f} MRays/s, {full} "
+          f"sphere_select_full launches (#3, the `fast` arm), no batch "
+          f"kernel [{card}]")
+    print(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
+
+    src = "raytracing_in_one_weekend_tpu_torch/csrc/"
+    blue = builds["blue"]
+    kernels = [{
+        "name": "megatrace_batch_noise", "route": "cuda",
+        "source": src + "megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457",
+        "launches": fwd_launches, "max_abs_err": 0.0,
+        "ms": blue["ms"], "plain_ms": blue["plain_ms"],
+        "bound_ms": blue["bound"][0], "bound_by": blue["bound"][1],
+        "library_ms": None, "ms_64spp": blue["ms_64spp"],
+        "stbn_ms": builds["stbn"]["ms"],
+        "stbn_ms_64spp": builds["stbn"]["ms_64spp"],
+        "stbn_bound_ms": builds["stbn"]["bound"][0],
+        "white_ms": statistics.mean(timed[("white", 4)]),
+        "white_ms_64spp": statistics.mean(timed[("white", spp)]),
+        "registers": info["registers"], "local_bytes": info["local_bytes"],
+        "blocks_per_sm": info["blocks"],
+    }, {
+        "name": "megatrace_batch_noise_volume", "route": "cuda",
+        "source": src + "megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457",
+        "launches": vol_launches, "max_abs_err": 0.0, "ms": vms,
+        "plain_ms": vplain_ms, "bound_ms": vbnd[0], "bound_by": vbnd[1],
+        "library_ms": None,
+        "white_ms": statistics.mean(vtimed["white"]),
+        "registers": vinfo["registers"], "local_bytes": vinfo["local_bytes"],
+        "blocks_per_sm": vinfo["blocks"],
+    }]
+    return {"kernels": kernels, "paths": out}
+
+
 SASS_SOURCES = ("megatrace_batch", "megatrace_wave", "megatrace_bwd",
                 "meshtrace_sync", "meshtrace_permute", "sphere_select",
                 "triangle_select")
@@ -5979,6 +6580,7 @@ def main() -> int:
     texture = texture_phases(dev, card)
     field = sphere_field_phases(dev, card)
     cube = cube_phases(dev, card)
+    noise = noise_phases(dev, card)
     run_check_stage()
 
     kernels = [{
@@ -6033,7 +6635,8 @@ def main() -> int:
         "library_ms": None,
     }] + wave["kernels"] + mesh["kernels"] + streamed["kernels"] \
         + aux["kernels"] + vol["kernels"] + motion["kernels"] \
-        + texture["kernels"] + field["kernels"] + cube["kernels"]
+        + texture["kernels"] + field["kernels"] + cube["kernels"] \
+        + noise["kernels"]
     apply_late(kernels)
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the "
           "card's check to here")
@@ -6051,7 +6654,7 @@ def main() -> int:
         "streamed": streamed["paths"], "aux": aux["paths"],
         "volume": vol["paths"], "motion": motion["paths"],
         "texture": texture["paths"], "sphere_field": field["paths"],
-        "cube": cube["paths"]}))
+        "cube": cube["paths"], "noise": noise["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-adaptive", action="store_true")
     p.add_argument("--interlacing", type=int, default=1)
     p.add_argument("--tonemap", choices=("gamma", "aces"), default="gamma")
+    p.add_argument("--noise", choices=("white", "blue", "stbn"),
+                   default="white",
+                   help="sampler flavor of the pixel-correlated draws "
+                        "(RandomSource NoiseColor: blue noise, "
+                        "spatio-temporal blue noise)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-duration", type=float, default=None,
                    help="stop after this many seconds")
@@ -55,7 +60,9 @@ def main(argv: list[str] | None = None) -> int:
     )
     from raytracing_in_one_weekend_tpu_torch.render import driver as driver_mod
     from raytracing_in_one_weekend_tpu_torch.utils import image as image_util
-    from raytracing_in_one_weekend_tpu_torch.utils.config import RenderSettings
+    from raytracing_in_one_weekend_tpu_torch.utils.config import (
+        NoiseColor, RenderSettings,
+    )
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -76,6 +83,11 @@ def main(argv: list[str] | None = None) -> int:
         samples_per_batch_range=tuple(args.batch_range),
         adaptive_sampling=not args.no_adaptive,
         interlacing=args.interlacing,
+        noise_color={
+            "white": NoiseColor.WHITE,
+            "blue": NoiseColor.BLUE,
+            "stbn": NoiseColor.SPATIO_TEMPORAL_BLUE,
+        }[args.noise],
     )
     r = driver_mod.ProgressiveRenderer(
         scene, camera_settings, settings, seed=args.seed, device=device

@@ -82,15 +82,20 @@ def generate_rays(
     camera: Camera,
     normalized_coords: torch.Tensor,
     key: torch.Tensor,
+    lens_uv: torch.Tensor | None = None,
 ) -> Rays:
     """Primary rays for normalized pixel coords (N, 2) in [0,1)^2
     (View.cs:38-48 GetRay): a lens-disk defocus offset on the camera's
-    right/up axes from the LENS stream, a shutter time from the TIME
-    stream."""
+    right/up axes from the LENS stream (or from `lens_uv`, (N, 2) disk
+    uniforms of a sampler flavor, RandomSource.cs InUnitDisk), a shutter
+    time from the TIME stream."""
     n = normalized_coords.shape[0]
     dev = normalized_coords.device
-    u1, u2 = rng.uniform(rng.purpose_key(key, rng.Purpose.LENS), (2, n),
-                         device=dev)
+    if lens_uv is not None:
+        u1, u2 = lens_uv[:, 0], lens_uv[:, 1]
+    else:
+        u1, u2 = rng.uniform(rng.purpose_key(key, rng.Purpose.LENS), (2, n),
+                             device=dev)
     disk = sampling.in_unit_disk(u1, u2)
     rd = camera.lens_radius * disk
     offset = rd[:, 0:1] * camera.right + rd[:, 1:2] * camera.up
@@ -115,15 +120,19 @@ def pixel_coords(
     key: torch.Tensor | None,
     sub_pixel_jitter: bool,
     device: torch.device | str = "cpu",
+    jitter_uv: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Normalized sample coordinates of the full pixel grid, row-major
     (N, 2) with N = width * height: (coords + jitter, or 0.5) / size
-    (SampleBatchJob.cs:134), jitter from the PIXEL_JITTER stream."""
+    (SampleBatchJob.cs:134), jitter from `jitter_uv` ((N, 2) uniforms of a
+    sampler flavor) or the PIXEL_JITTER stream."""
     xs = torch.arange(width, dtype=torch.float32, device=device)
     ys = torch.arange(height, dtype=torch.float32, device=device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # (H, W)
     coords = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
-    if sub_pixel_jitter and key is not None:
+    if sub_pixel_jitter and jitter_uv is not None:
+        jitter = jitter_uv
+    elif sub_pixel_jitter and key is not None:
         jitter = rng.uniform(
             rng.purpose_key(key, rng.Purpose.PIXEL_JITTER), coords.shape,
             device=device,

@@ -115,11 +115,17 @@ def scatter(
     lambert_tsd: torch.Tensor | None = None,  # (N, 3) pre-drawn
     #   tangent-space cosine directions replacing the Lambert draw
     lambert_tsd_on: bool = False,
+    u_override: torch.Tensor | None = None,  # (6, N) flavored uniforms
+    #   replacing the SCATTER_A draws (randomsource.pixel_scalar)
+    vol_dir_override: torch.Tensor | None = None,  # (N, 3) flavored
+    #   ~unit directions replacing the isotropic volume draw
+    #   (randomsource.pixel_unitvec3, RandomSource.cs:113-128)
 ) -> Scatter:
     """Scatter every lane at once (Material.cs:68-174): all branches are
     evaluated and blended by material type, the lotteries draw from the
-    SCATTER_A stream's six uniforms (a volume's isotropic direction from
-    its third and fourth)."""
+    SCATTER_A stream's six uniforms, or `u_override` (a volume's isotropic
+    direction from their third and fourth, or `vol_dir_override`
+    normalized)."""
     if row is None:
         if packed is None:
             packed = pack_materials(scene)
@@ -147,10 +153,13 @@ def scatter(
     perfect_specular = row[:, 10] > 0.5
 
     n = ray_direction.shape[0]
-    ua, ub, uc, ud, u_choice, u_choice2 = rng.uniform(
-        rng.purpose_key(key, rng.Purpose.SCATTER_A), (6, n),
-        device=ray_direction.device,
-    )
+    if u_override is not None:
+        ua, ub, uc, ud, u_choice, u_choice2 = u_override
+    else:
+        ua, ub, uc, ud, u_choice, u_choice2 = rng.uniform(
+            rng.purpose_key(key, rng.Purpose.SCATTER_A), (6, n),
+            device=ray_direction.device,
+        )
 
     # ---- Standard (Material.cs:75-119) -----------------------------------
     roughness = torch.square(1.0 - glossiness)
@@ -249,8 +258,10 @@ def scatter(
     # ---- ProbabilisticVolume isotropic scatter (Material.cs:163-168) ------
     if scene.flags.has_volumes:
         is_vol = mtype == MaterialType.PROBABILISTIC_VOLUME
-        direction = torch.where(is_vol[:, None],
-                                sampling.unit_sphere(uc, ud), direction)
+        vol_dir = (sampling.unit_sphere(uc, ud) if vol_dir_override is None
+                   # byte quantization leaves |v| at 1 +- 0.02
+                   else math3.normalize_safe(vol_dir_override))
+        direction = torch.where(is_vol[:, None], vol_dir, direction)
         reflectance = torch.where(is_vol[:, None], albedo, reflectance)
         events = torch.where(is_vol, 2.0, events)
         # isotropic scatter has no parameter-dependent decision

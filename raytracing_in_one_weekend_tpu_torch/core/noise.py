@@ -1,13 +1,20 @@
-"""Perlin noise (counterpart of the JAX package's core/noise.py, its
-Perlin part).
+"""Noise stack: Perlin gradient noise, the R2 low-discrepancy sequence
+and a synthesized blue-noise tile (counterpart of the JAX package's
+core/noise.py).
 
-Reference: Runtime/PerlinNoise.cs:8-69 — surflet gradient noise and
-7-octave turbulence over three 256-entry permutation tables and 256 random
-unit vectors (generated Fisher-Yates style in
-Unity/PerlinNoiseData.cs:22-63).  The tables come from numpy's
-`default_rng(seed)`, so they equal the JAX package's bit for bit.  The R2
-sequence and the blue-noise tiles of that module belong to the sampler
-flavors (ROADMAP queue 1, step 11).
+Reference components:
+  * Runtime/PerlinNoise.cs:8-69 — surflet gradient noise and 7-octave
+    turbulence over three 256-entry permutation tables and 256 random unit
+    vectors (generated Fisher-Yates style in Unity/PerlinNoiseData.cs:
+    22-63).  The tables come from numpy's `default_rng(seed)`, so they
+    equal the JAX package's bit for bit.
+  * Runtime/R2.cs:6-17 — the R2 quasirandom sequence (plastic constant).
+  * Runtime/BlueNoise.cs + Unity/BlueNoiseData.cs — the reference loads
+    64x64 baked blue-noise textures; without them a tile is synthesized on
+    the host by iterated high-pass re-ranking (numpy, the JAX package's
+    bytes for the same seed).
+  * Runtime/PerPixelNoise.cs:7-45 — per-pixel progressive offsets into the
+    tile, driven by the R2 sequence.
 """
 
 from __future__ import annotations
@@ -18,6 +25,25 @@ import numpy as np
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.utils.tensors import TensorGroup
+
+# --- R2 sequence (Runtime/R2.cs:6-17) ---------------------------------------
+
+_PLASTIC = 1.32471795724474602596  # g: the plastic constant
+R2_ALPHA = np.array([1.0 / _PLASTIC, 1.0 / (_PLASTIC * _PLASTIC)], np.float32)
+
+
+def r2_sequence(n) -> torch.Tensor:
+    """n-th element(s) of the R2 sequence in [0, 1)^2: (..., 2) float32
+    frac(0.5 + n * alpha), each operation rounded on its own."""
+    n = torch.as_tensor(n, dtype=torch.float32)
+    alpha = torch.from_numpy(R2_ALPHA).to(n.device)
+    return torch.remainder(0.5 + n[..., None] * alpha, 1.0)
+
+
+def per_pixel_noise_offset(draw_index, tile_size: int) -> torch.Tensor:
+    """R2-driven per-draw offset of pixel coordinates into the noise tile
+    (Runtime/PerPixelNoise.cs:24-44): (..., 2) int32."""
+    return (r2_sequence(draw_index) * tile_size).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +109,34 @@ def turbulence(tables: PerlinTables, position: torch.Tensor,
         weight *= 0.5
         p = p * 2.0
     return torch.clamp(acc, 0.0, 1.0)
+
+
+# --- Blue-noise tile (Runtime/BlueNoise.cs + BlueNoiseData.cs) --------------
+
+
+def make_blue_noise_tile(size: int = 64, channels: int = 4,
+                         seed: int = 7) -> np.ndarray:
+    """A tileable blue-noise-like tile by iterated high-pass re-ranking
+    (a void-and-cluster stand-in for the reference's baked 64x64 HDR
+    textures): (size, size, channels) float32 in [0, 1), the JAX package's
+    bytes for the same seed (the same numpy operations in the same
+    order)."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((size, size, channels), np.float32)
+    # toroidal Gaussian blur in Fourier space, sharpness 1.0, 64 rounds
+    fy = np.fft.fftfreq(size)[:, None]
+    fx = np.fft.fftfreq(size)[None, :]
+    gauss = np.exp(-((fx**2 + fy**2) * (2.0 * np.pi * 1.0) ** 2) / 2.0)
+    for c in range(channels):
+        vals = rng.random((size, size)).astype(np.float32)
+        for _ in range(64):
+            blurred = np.real(np.fft.ifft2(np.fft.fft2(vals) * gauss))
+            highpass = vals - blurred
+            order = np.argsort(highpass.ravel())
+            ranks = np.empty_like(order)
+            ranks[order] = np.arange(size * size)
+            vals = (ranks.reshape(size, size) + 0.5).astype(np.float32) / (
+                size * size
+            )
+        out[..., c] = vals
+    return out

@@ -1,5 +1,6 @@
 // Fused sample-batch path tracer for Hopper (sm_90a): one whole
-// SampleBatchJob per launch, sphere scenes of any sphere count, scenes with
+// SampleBatchJob per launch, sphere scenes of any sphere count (white
+// noise, or a sampler flavor's tables), scenes with
 // rects and boxes
 // (with or without spheres), convex volumes, moving spheres and textured
 // albedos beside either, and mesh scenes of at most TRI_STREAM_MAX
@@ -8,7 +9,9 @@
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
 // sphere arm (the dense and the blocked sweep), its rect/box arm, its convex-volume arm, its motion and
-// texture arms, its cubemap branch (:1372-1416), its triangle (VMEM) arm
+// texture arms, its cubemap branch (:1372-1416), its noise-table arm
+// (pack_noise_tables :2126, _stbn_rows :2366, _cp_rotate :2444, their uses
+// :2625-2822) and pre-drawn rows, its triangle (VMEM) arm
 // and its streamed-triangle arm (white-noise hash PRNG, dense sphere
 // sweep, the one-sided rect and Majercik box tests, the Beer-Lambert
 // volume walk, the Möller–Trumbore sweep over AABB-culled 192-row triangle
@@ -96,6 +99,21 @@
 // (PERF.md §6, the blocked sweep): 64 rows a block against 32, 128 and
 // 256; the per-lane test against a warp vote; __ldg against staging a
 // kept block per warp in shared memory; 6 blocks an SM against 5.
+//
+// A sampler flavor (blue or spatio-temporal blue noise, ROADMAP step 11)
+// takes the noise builds (kNoise, the last flag: the sphere build's, and
+// the volume build's beside spheres; the other builds compile none of it
+// and keep their SASS).  The JAX kernel fetches a tile row a pixel row and
+// rotates it by a one-hot matmul; here each lane reads its own texel,
+// tile[t, (py + offy) % S, (px + offx) % S], through the read-only cache:
+// the table is 128 KB (blue) or 512 KB (eight STBN slices), which L2
+// holds, and the lanes of a warp's 8x4 pixel tile read neighbouring
+// texels.  A regen's four camera draws, and with a scalar set the
+// bounce's seven scatter draws, cost a texel load and ~15 flops each
+// against the ~8,700 flops of a cover bounce's sweep.  The pre-drawn
+// route (widths the tile side does not divide) reads each lane's row of
+// the (4 * samples) x n camera draws and (3 * samples) x n first-bounce
+// cosines instead.
 //
 // A cubemap sky takes the cube builds (kCube, the last flag: the sphere
 // build's, and the aux, volume, motion and texture builds' each with it;
@@ -428,6 +446,59 @@ __device__ __forceinline__ void camera_ray(Path& p, const float* cam,
   p.active = true;
 }
 
+// camera_ray with the four camera draws given (the noise builds: from a
+// sampler flavor's table or pre-drawn rows): jitter (jx, jy), the lens
+// disk's angle and radius uniforms (ut, ur).
+__device__ __forceinline__ void camera_ray_u(Path& p, const float* cam,
+                                             float jx, float jy, float ut,
+                                             float ur, float px_row,
+                                             float py_row) {
+  const float lens_radius = cam[18], width = cam[19], height = cam[20];
+  const float un = (px_row + jx) / width;
+  const float vn = (py_row + jy) / height;
+  const float theta = ut * kTwoPi;
+  const float radius = sqrtf(ur) * lens_radius;
+  const float rdx = radius * cos_cr(theta);
+  const float rdy = radius * sin_cr(theta);
+  const float offx = fmaf(rdx, cam[12], rdy * cam[15]);
+  const float offy = fmaf(rdx, cam[13], rdy * cam[16]);
+  const float offz = fmaf(rdx, cam[14], rdy * cam[17]);
+  float cdx = fmaf(vn, cam[9], fmaf(un, cam[6], cam[3] - offx));
+  float cdy = fmaf(vn, cam[10], fmaf(un, cam[7], cam[4] - offy));
+  float cdz = fmaf(vn, cam[11], fmaf(un, cam[8], cam[5] - offz));
+  normalize3(cdx, cdy, cdz);
+  p.ox = cam[0] + offx;
+  p.oy = cam[1] + offy;
+  p.oz = cam[2] + offz;
+  p.dx = cdx;
+  p.dy = cdy;
+  p.dz = cdz;
+  p.thx = p.thy = p.thz = 1.f;
+  p.rx = p.ry = p.rz = 0.f;
+  p.anx = p.any = p.anz = p.aax = p.aay = p.aaz = 0.f;
+  p.got = false;
+  p.events = 0.f;
+  p.valid = false;
+  p.active = true;
+}
+
+// The noise builds' camera draws of a regen at the lane's NoiseLane: the
+// flavor's camera set (purpose kSaltCam, each channel rotated), or the
+// pre-drawn row of the sample the regen starts (the JAX kernel's
+// :2625-2690).
+__device__ __forceinline__ void noise_camera(const NoiseLane& nl,
+                                             float* u) {
+  const NoiseScene& ns = nl.ns;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    u[c] = ns.tbl != nullptr
+               ? noise_rotate(nl, noise_texel(nl, ns.cam, ns.t, c, kSaltCam),
+                              kSaltCam, c)
+               : __ldg(ns.uni + ((size_t)c * ns.samples + nl.k) * ns.n +
+                       nl.lane);
+  }
+}
+
 // A lane's bookkeeping after the bounce at path depth `depth`: its ray,
 // the depth cut (depth exhaustion fails the sample,
 // SampleBatchJob.cs:380-381) and, when the sample ended, its deltas into
@@ -507,9 +578,15 @@ __device__ __forceinline__ bool aux_live(const float4* row, bool box) {
 // of kAux, kVol, kMotion and kTex, not kBlocked) take a miss's radiance
 // from the cubemap `cube` (cube_h rows of cube_w texels a face, six faces)
 // instead of the gradient sky, with the launch bounds of the build they
-// extend.
+// extend.  Its noise builds (kNoise: beside spheres alone, or with kVol
+// beside convex volumes) take a sampler flavor's draws (`noise`, a
+// NoiseScene: the camera's four at each regen, noise_camera; the
+// scatter's seven, the Lambert and the isotropic directions in shade),
+// each lane computing its own texel address from its pixel, with the
+// launch bounds of the build they extend.
 template <bool kAux, bool kVol = false, bool kMotion = false,
-          bool kTex = false, bool kBlocked = false, bool kCube = false>
+          bool kTex = false, bool kBlocked = false, bool kCube = false,
+          bool kNoise = false>
 __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
                                             : kAux     ? kAuxBlocks
                                             : kMotion  ? kMotionBlocks
@@ -536,7 +613,8 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
                             const float* __restrict__ blk_g = nullptr,
                             int blocks = 0, int blk_rows = 0,
                             const float* __restrict__ cube = nullptr,
-                            int cube_w = 0, int cube_h = 0) {
+                            int cube_w = 0, int cube_h = 0,
+                            const NoiseScene noise = NoiseScene{}) {
   extern __shared__ float4 sph[];
   // camera row: origin, lower_left, horizontal, vertical, right, up,
   // lens_radius, width, height | sky bottom | sky top (| pad | vol0)
@@ -631,6 +709,13 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
   const float px_row = pixel - py_row * width;
 
   Path p{};  // idle until its first sample starts
+  [[maybe_unused]] std::conditional_t<kNoise, NoiseLane, char> nl{};
+  if constexpr (kNoise) {
+    nl.ns = noise;
+    nl.px = (int)px_row;
+    nl.py = (int)py_row;
+    nl.lane = i;
+  }
   [[maybe_unused]] std::conditional_t<kVol, Medium, char> med{};
   [[maybe_unused]] float ptime = 0.f;  // the path's shutter time (kMotion)
   float started = 0.f;
@@ -640,9 +725,19 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
   int it = 0;
   for (; it < iters; ++it) {
     const uint32_t salt = (uint32_t)it * kSaltStep;
+    if constexpr (kNoise) nl.seq = (noise.draw_base + it) % kNoiseWrap;
     if (!p.active) {
       if (started >= per_pixel) break;  // this lane's samples are done
-      camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
+      if constexpr (kNoise) {
+        // the sample this regen starts (the plain version's clamp)
+        nl.k = min((int)started, samples - 1);
+        float u[4];
+        noise_camera(nl, u);
+        camera_ray_u(p, cam, jitter ? u[0] : 0.5f, jitter ? u[1] : 0.5f,
+                     u[2], u[3], px_row, py_row);
+      } else {
+        camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
+      }
       if constexpr (kVol) {  // the camera's medium
 #pragma unroll
         for (int k = 0; k < 8; ++k) med.v[k] = cam[32 + k];
@@ -687,11 +782,19 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
           t_exit = box_exit(o, d, g, t_min, true, bo, dl, inv, axis, hi);
         }
       }
-      winner = shade<false, kAux, true, kMotion, kTex, kCube>(
-          p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
-          sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
-          TriScene{}, auxp, aux_kind, aux_idx, &med, t_exit, move, ptime,
-          texp, cubep);
+      if constexpr (kNoise) {
+        winner = shade<false, kAux, true, kMotion, kTex, kCube, true>(
+            p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+            sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+            TriScene{}, auxp, aux_kind, aux_idx, &med, t_exit, move, ptime,
+            texp, cubep, &nl);
+      } else {
+        winner = shade<false, kAux, true, kMotion, kTex, kCube>(
+            p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+            sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+            TriScene{}, auxp, aux_kind, aux_idx, &med, t_exit, move, ptime,
+            texp, cubep);
+      }
     } else if constexpr (kAux) {
       int aux_kind, aux_idx;
       aux_sweep(p, aux, t_min, best_t, aux_kind, aux_idx);
@@ -712,6 +815,12 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
           sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
           TriScene{}, nullptr, 0, 0, nullptr, kBig, nullptr, 0.f, nullptr,
           cubep);
+    } else if constexpr (kNoise) {
+      winner = shade<false, false, false, false, false, false, true>(
+          p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
+          sky_on != 0, cam + 24, lane_key + salt + kSaltBounce, depth,
+          TriScene{}, nullptr, 0, 0, nullptr, kBig, nullptr, 0.f, nullptr,
+          nullptr, &nl);
     } else {
       winner = shade<false>(
           p, best_t, best, false, 0, 0.f, 0.f, rec, has_dielectrics != 0,
@@ -1179,7 +1288,7 @@ extern "C" int rtiw_megatrace_ext(
         reinterpret_cast<const float4*>(aux_geo), aux_rec, rect_rows,
         box_rows, rect_code, box_code, reinterpret_cast<const float4*>(move),
         tex_rec, perlin, atlas, img_w, img_h, nullptr, 0, 0, cube, cube_w,
-        cube_h);
+        cube_h, NoiseScene{});
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1214,11 +1323,81 @@ extern "C" int rtiw_megatrace_blocked(
         rec, out, tape, n, s, seed, lane_base, samples, trace_depth, t_min,
         has_dielectrics, sky_on, jitter, nullptr, nullptr, 0, 0, 0, 0,
         reinterpret_cast<const float4*>(move), nullptr, nullptr, nullptr, 0,
-        0, boxes, blocks, rows, nullptr, 0, 0);
+        0, boxes, blocks, rows, nullptr, 0, 0, NoiseScene{});
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// The noise builds (a sampler flavor, ops/megatrace.py::sample_batch's
+// noise_* arguments): megatrace_sphere_kernel<false, has_vol, ..., kNoise>
+// beside spheres alone, or with has_vol beside convex volumes (consts as
+// rtiw_megatrace_ext's); `tbl` the in-kernel tables (size x size tiles, t
+// slices a set, the sets' base rows cam, cos, scal and uv3, -1 for none,
+// scal_t the scalar set's slices; draw_base the batch's draw counter
+// base), or null with `uni` ((4 * samples) x n floats) and `cosr` ((3 *
+// samples) x n, or null) the pre-drawn rows.  Lane i renders pixel i; no
+// tape.  Returns cudaGetLastError() after the launch, or the error of
+// setting its shared memory.
+static SphereKernel noise_kernel(int has_vol) {
+  return has_vol ? megatrace_sphere_kernel<false, true, false, false, false,
+                                           false, true>
+                 : megatrace_sphere_kernel<false, false, false, false, false,
+                                           false, true>;
+}
+
+extern "C" int rtiw_megatrace_noise(
+    const float* lane_count, const float* count_in, const float* consts,
+    const float* sph, const float* rec, float* out, int n, int s, int seed,
+    int lane_base, int samples, int trace_depth, float t_min,
+    int has_dielectrics, int sky_on, int jitter, int has_vol,
+    const float* tbl, int size, int t, int cam, int cos, int scal,
+    int scal_t, int uv3, int draw_base, const float* uni, const float* cosr,
+    void* stream) {
+  if (n > 0) {
+    if ((tbl == nullptr && uni == nullptr) ||
+        (tbl != nullptr && (size < 1 || t < 1 || scal_t < 1)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    NoiseScene noise;
+    noise.tbl = tbl;
+    noise.size = size;
+    noise.t = t;
+    noise.cam = cam;
+    noise.cos = cos;
+    noise.scal = scal;
+    noise.scal_t = scal_t;
+    noise.uv3 = uv3;
+    noise.draw_base = draw_base;
+    noise.samples = samples;
+    noise.n = n;
+    noise.uni = uni;
+    noise.cosr = cosr;
+    const SphereKernel kernel = noise_kernel(has_vol);
+    const size_t shmem = (size_t)s * sizeof(float4);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<(n + kThreads - 1) / kThreads, kThreads, shmem,
+             static_cast<cudaStream_t>(stream)>>>(
+        lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
+        rec, out, nullptr, n, s, seed, lane_base, samples, trace_depth,
+        t_min, has_dielectrics, sky_on, jitter, nullptr, nullptr, 0, 0, 0, 0,
+        nullptr, nullptr, nullptr, nullptr, 0, 0, nullptr, 0, 0, nullptr, 0,
+        0, noise);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sphere_info of the noise build for an s-sphere table (has_vol: the
+// volume build's).
+extern "C" int rtiw_megatrace_noise_info(int s, int has_vol, int* info) {
+  const SphereKernel kernel = noise_kernel(has_vol);
+  const size_t shmem = (size_t)s * sizeof(float4);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sphere_info(reinterpret_cast<const void*>(kernel), shmem, info);
+}
 
 // sphere_info of a build for an s-sphere table, aux_rows rect and box rows
 // and the flags (all 0: the sphere build; has_cube: a cube build);

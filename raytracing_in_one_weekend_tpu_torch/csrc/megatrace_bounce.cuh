@@ -11,10 +11,10 @@
 // compile-time flag: the batch kernel's triangle build and the streamed
 // kernels take it, the sphere-only builds compile none of it; so are the
 // rect and box arm (kAux), the convex volume walk (kVol), unit-shutter
-// motion (kMotion), albedo textures (kTex) and the cubemap sky (kCube) of
-// the batch kernel's sphere builds.  Plain version:
-// ops/megatrace.py::_bounce, under the precision contract of
-// megatrace_common.cuh.
+// motion (kMotion), albedo textures (kTex), the cubemap sky (kCube) and a
+// sampler flavor's draws (kNoise) of the batch kernel's sphere builds.
+// Plain version: ops/megatrace.py::_bounce, under the precision contract
+// of megatrace_common.cuh.
 #pragma once
 
 #include <stdint.h>
@@ -206,6 +206,89 @@ struct CubeScene {
   int w = 0, h = 0;
 };
 
+// A sampler flavor's inputs (the batch kernel's noise builds, kNoise):
+// either the in-kernel tables of ops/megatrace.py::pack_noise_tables
+// (`tbl`: (rows, size) floats in device memory, read through the read-only
+// cache; the sets' base rows, -1 for a set the flavor lacks; T slices a
+// set, scal_t the scalar set's; draw_base the batch's draw counter base),
+// or the pre-drawn rows of pack_noise_uniforms (`uni`, (4 * samples) x n)
+// and pack_noise_cosine (`cosr`, (3 * samples) x n, or null).
+struct NoiseScene {
+  const float* tbl = nullptr;
+  int size = 0, t = 0, cam = 0, cos = -1, scal = -1, scal_t = 0, uv3 = -1;
+  int draw_base = 0, samples = 0, n = 0;
+  const float* uni = nullptr;
+  const float* cosr = nullptr;
+};
+
+constexpr int kNoiseWrap = 8192;  // the draw counter wraps mod 2^13
+constexpr float kNoiseR2X = 0.7548776662466927f;  // R2 alphas (R2.cs)
+constexpr float kNoiseR2Y = 0.5698402909980532f;
+constexpr int kSaltCam = 0, kSaltCos = 1, kSaltScal = 2, kSaltUv3 = 13;
+
+// A lane's view of the flavor at one iteration: the draw counter `seq`
+// ((draw_base + it) mod kNoiseWrap), its pixel, the sample its path is
+// (the pre-drawn rows' row) and its column.
+struct NoiseLane {
+  NoiseScene ns;
+  int seq, px, py, k, lane;
+};
+
+__device__ __forceinline__ float frac1(float x) { return x - floorf(x); }
+
+// seq + 101 salt + 0.5, exact in float32 (seq < 2^13, salt <= 13).
+__device__ __forceinline__ float noise_seqf(const NoiseLane& nl, int salt) {
+  return (float)nl.seq + (float)(salt * 101) + 0.5f;
+}
+
+// Channel c of the set at base row `base` (t_set slices) for purpose
+// `salt`: tile[(seq + salt) % t_set, (py + offy) % S, (px + offx) % S],
+// the offsets floor(frac(seqf * alpha) * S) (PerPixelNoise.cs:24-44; the
+// JAX kernel's _stbn_rows, one texel a lane instead of its rotation
+// matmul).  Neighbouring lanes read neighbouring texels.
+__device__ __forceinline__ float noise_texel(const NoiseLane& nl, int base,
+                                             int t_set, int c, int salt) {
+  const NoiseScene& ns = nl.ns;
+  const float seqf = noise_seqf(nl, salt);
+  const float s = (float)ns.size;
+  const int offx = (int)floorf(frac1(seqf * kNoiseR2X) * s);
+  const int offy = (int)floorf(frac1(seqf * kNoiseR2Y) * s);
+  const int t_idx = (nl.seq + salt) % t_set;
+  const int x = (nl.px + offx) % ns.size, y = (nl.py + offy) % ns.size;
+  return __ldg(ns.tbl + ((size_t)base + (size_t)(c * t_set + t_idx) *
+                                             ns.size + y) * ns.size + x);
+}
+
+// The Cranley-Patterson rotation of channel c's value r:
+// frac(r + frac(fmaf(seqf, alpha_x, c * 0.3819660113))) (the JAX kernel's
+// _cp_rotate, whose multiply-add XLA's CPU compile contracts).
+__device__ __forceinline__ float noise_rotate(const NoiseLane& nl, float r,
+                                              int salt, int c) {
+  const float shift = (float)(c * 0.3819660113);
+  return frac1(r + frac1(fmaf(noise_seqf(nl, salt), kNoiseR2X, shift)));
+}
+
+// The flavored scalar draw k (0-6) of the scatter: the scalar set at
+// purpose kSaltScal + k, rotated.
+__device__ __forceinline__ float noise_scalar(const NoiseLane& nl, int k) {
+  const NoiseScene& ns = nl.ns;
+  return noise_rotate(
+      nl, noise_texel(nl, ns.scal, ns.scal_t, 0, kSaltScal + k),
+      kSaltScal + k, 0);
+}
+
+// Draw k of the bounce's scatter: the flavor's scalar set where it has
+// one (kNoise), else the hash stream k of `bbase`.
+template <bool kNoise>
+__device__ __forceinline__ float scatter_u(uint32_t bbase, int k,
+                                           const NoiseLane* nl) {
+  if constexpr (kNoise) {
+    if (nl->ns.tbl != nullptr && nl->ns.scal >= 0)
+      return noise_scalar(*nl, k);
+  }
+  return uniform(bbase, k);
+}
+
 // The state of one path (SampleBatchJob.cs:166-401).
 struct Path {
   float ox, oy, oz, dx, dy, dz;
@@ -301,9 +384,14 @@ __device__ __forceinline__ void aux_sweep(const Path& p, const AuxScene& aux,
 // centre), its move offset a row of `move` (x, y, z, 0).  With kTex (the
 // texture builds) the winner's albedo is textured (tex_albedo).  With
 // kCube (the cube builds) a miss takes the nearest texel of `cube` along
-// its direction (cube_texel) in place of the gradient sky.
+// its direction (cube_texel) in place of the gradient sky.  With kNoise
+// (the noise builds) the scatter's seven draws come from the flavor's
+// scalar set where it has one (scatter_u), the Lambert direction from its
+// cosine set and the isotropic one from its unitvec3 set (`nl`, the
+// lane's NoiseLane; the JAX kernel's :2763-2822).
 template <bool kTris, bool kAux = false, bool kVol = false,
-          bool kMotion = false, bool kTex = false, bool kCube = false>
+          bool kMotion = false, bool kTex = false, bool kCube = false,
+          bool kNoise = false>
 __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      bool tri_wins, int tri_idx, float tri_u,
                                      float tri_v, const float* __restrict__ rec,
@@ -317,7 +405,8 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
                                      const float4* move = nullptr,
                                      float ptime = 0.f,
                                      const TexScene* tex = nullptr,
-                                     const CubeScene* cube = nullptr) {
+                                     const CubeScene* cube = nullptr,
+                                     const NoiseLane* nl = nullptr) {
   const float dx = p.dx, dy = p.dy, dz = p.dz, ox = p.ox, oy = p.oy,
               oz = p.oz;
   const bool hit = best_t < kBig;
@@ -442,8 +531,9 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
     const bool hit_is_vol = mtype > 1.5f;  // PROBABILISTIC_VOLUME == 2
     const bool entering = dot3(dx, dy, dz, nx, ny, nz) < 0.0f;
     // free path d = -ln(u) / density (Material.cs:49-65)
-    const float free_path = -log_cr(fmaxf(uniform(bbase, 6), 1e-12f)) /
-                            fmaxf(vm[1], 1e-12f);
+    const float free_path =
+        -log_cr(fmaxf(scatter_u<kNoise>(bbase, 6, nl), 1e-12f)) /
+        fmaxf(vm[1], 1e-12f);
     const float seg_len = in_vol ? best_t : t_exit - best_t;
     vol_candidate = in_vol || (hit_is_vol && entering);
     vol_scatter = vol_candidate && free_path < seg_len;
@@ -475,8 +565,9 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
     }
   }
 
-  const float ua = uniform(bbase, 0), ub = uniform(bbase, 1);
-  const float u_choice = uniform(bbase, 4);
+  const float ua = scatter_u<kNoise>(bbase, 0, nl),
+              ub = scatter_u<kNoise>(bbase, 1, nl);
+  const float u_choice = scatter_u<kNoise>(bbase, 4, nl);
   float sdx, sdy, sdz, srr, srg, srb, step_events;
   if (has_dielectrics && mtype > 0.5f) {
     // ---- dielectric (Material.cs:121-161) ------------------------------
@@ -541,14 +632,50 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
         fminf(fmaxf(fresnel * gloss * masking, 0.0f), 1.0f);
     const bool take_spec = (refl_chance > 0.0f) && (u_choice < refl_chance);
     const bool take_metal =
-        (metallic > 0.0f) && (uniform(bbase, 5) < metallic);
+        (metallic > 0.0f) && (scatter_u<kNoise>(bbase, 5, nl) < metallic);
     if (take_spec || take_metal) {
       sdx = fmaf(-(2.0f * spec_dot), rnx, dx);
       sdy = fmaf(-(2.0f * spec_dot), rny, dy);
       sdz = fmaf(-(2.0f * spec_dot), rnz, dz);
     } else {
-      cosine_hemisphere(uniform(bbase, 2), uniform(bbase, 3), nx, ny, nz,
-                        sdx, sdy, sdz);
+      bool flavored = false;
+      if constexpr (kNoise) {
+        // a flavor's cosine direction (tangent space, y up), tangent ->
+        // world about the normal (Tools.cs:30-46), then normalized: from
+        // the table at every depth with the scalar set (else the first),
+        // or the pre-drawn row at depth 0
+        const NoiseScene& ns = nl->ns;
+        float ts[3];
+        if (ns.tbl != nullptr && ns.cos >= 0 &&
+            (ns.scal >= 0 || depth == 0)) {
+          flavored = true;
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            ts[c] = noise_texel(*nl, ns.cos, ns.t, c, kSaltCos);
+        } else if (ns.tbl == nullptr && ns.cosr != nullptr && depth == 0) {
+          flavored = true;
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            ts[c] = __ldg(ns.cosr + ((size_t)c * ns.samples + nl->k) * ns.n +
+                          nl->lane);
+        }
+        if (flavored) {
+          const float sign = nz >= 0.0f ? 1.0f : -1.0f;
+          const float a = -1.0f / (sign + nz);
+          const float b = nx * ny * a;
+          const float tx = fmaf(sign * nx * nx, a, 1.0f), ty = sign * b,
+                      tz = -sign * nx;
+          const float bx = b, by = fmaf(ny * ny, a, sign), bz = -ny;
+          sdx = dot3(ts[0], ts[1], ts[2], tx, nx, bx);
+          sdy = dot3(ts[0], ts[1], ts[2], ty, ny, by);
+          sdz = dot3(ts[0], ts[1], ts[2], tz, nz, bz);
+          normalize3(sdx, sdy, sdz);
+        }
+      }
+      if (!flavored)
+        cosine_hemisphere(scatter_u<kNoise>(bbase, 2, nl),
+                          scatter_u<kNoise>(bbase, 3, nl), nx, ny, nz, sdx,
+                          sdy, sdz);
     }
     srr = take_spec ? 1.0f : alb_r;
     srg = take_spec ? 1.0f : alb_g;
@@ -564,12 +691,26 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
       // isotropic in-medium scatter (Material.cs:163-168): the medium's
       // albedo, 2 random events; the AOV capture's perfect flag is the
       // dielectric branch's (the JAX kernel's order)
-      const float z = uniform(bbase, 2) * 2.0f - 1.0f;
-      const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
-      const float th = uniform(bbase, 3) * kTwoPi;
-      sdx = cos_cr(th) * r;
-      sdy = sin_cr(th) * r;
-      sdz = z;
+      bool flavored = false;
+      if constexpr (kNoise) {
+        // a flavor's unitvec3 direction (with its scalar set), normalized
+        const NoiseScene& ns = nl->ns;
+        if (ns.tbl != nullptr && ns.uv3 >= 0 && ns.scal >= 0) {
+          flavored = true;
+          sdx = noise_texel(*nl, ns.uv3, ns.t, 0, kSaltUv3);
+          sdy = noise_texel(*nl, ns.uv3, ns.t, 1, kSaltUv3);
+          sdz = noise_texel(*nl, ns.uv3, ns.t, 2, kSaltUv3);
+          normalize3(sdx, sdy, sdz);
+        }
+      }
+      if (!flavored) {
+        const float z = scatter_u<kNoise>(bbase, 2, nl) * 2.0f - 1.0f;
+        const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+        const float th = scatter_u<kNoise>(bbase, 3, nl) * kTwoPi;
+        sdx = cos_cr(th) * r;
+        sdy = sin_cr(th) * r;
+        sdz = z;
+      }
       srr = vm[2];
       srg = vm[3];
       srb = vm[4];

@@ -4,7 +4,8 @@ Counterpart of the JAX package's `ops/pallas_megatrace.py`: the sphere arm
 (its dense sweep, and past SPH_CULL_MIN spheres its blocked sweep), the
 rect and box arm, the convex-volume arm, the unit-shutter motion and
 albedo-texture arms, the triangle (VMEM) arm and the streamed-triangle
-arm of its `_batch_kernel` (gradient, cubemap or no sky, white noise),
+arm of its `_batch_kernel` (gradient, cubemap or no sky; white noise, or
+in the sphere and volume builds its noise-table arm and pre-drawn rows),
 the forward path of the book cover, of rect and box scenes (`cornell`,
 `simple_light`), of scenes with fog spheres and boxes (`volume`,
 `probabilistic`, `cornell_volumes`), of moving and textured spheres
@@ -54,7 +55,10 @@ streamed meshes) and the deltas stay in lane order.
   read-only cache (`BLOCKED_LAUNCHES`); cubemap skies its cube builds,
   beside spheres alone or beside one of rects and boxes, volumes, motion
   and textures, the faces read through the read-only cache
-  (`CUBE_LAUNCHES`); meshes of at most
+  (`CUBE_LAUNCHES`); a sampler flavor, in sphere scenes of at most
+  SPH_CULL_MIN spheres and beside convex volumes, its noise builds, which
+  draw from the flavor's tables (`pack_noise_tables`) or pre-drawn rows
+  (`NOISE_LAUNCHES`); meshes of at most
   TRI_MAX triangles take `megatrace_tri_kernel` (`TRI_LAUNCHES`), whose
   warps deal the tests of the lanes that sweep a triangle block to all 32
   threads (`tri_loop_slots` is the plain model of that loop and of the
@@ -87,6 +91,7 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.core import environment, math3
@@ -130,6 +135,8 @@ BLOCKED_LAUNCHES = 0  # ... of them, launches of the blocked builds (more
 CUBE_LAUNCHES = 0  # ... of them, launches of the cube builds (a cubemap sky
 #   beside spheres alone, or beside one of rects and boxes, volumes, motion
 #   and textures)
+NOISE_LAUNCHES = 0  # ... of them, launches of the noise builds (a sampler
+#   flavor: spheres alone, volumes beside spheres)
 TRI_LAUNCHES = 0  # ... of them, launches of the triangle build (meshes of
 #   at most TRI_MAX triangles)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
@@ -185,6 +192,20 @@ TEX_COLS = 16  # texture record columns (pack_texture_tables): 0 albedo
 PERLIN_ROWS = 8  # Perlin table rows: perm_x, perm_y, perm_z, vectors xyz
 VOL_ROWS = 8  # a medium: material id (-1: none) | density | albedo rgb |
 #   emission rgb (camera_containment_row, the kernels' medium state)
+NOISE_WRAP = 8192  # the in-kernel flavored draw counter wraps mod 2^13:
+#   frac(seq * alpha) in float32 keeps its fraction only for small seq
+NOISE_SALT_STEP = 101.0  # per-purpose salt step of the R2 offsets
+NOISE_R2 = (0.7548776662466927, 0.5698402909980532)  # R2 alphas (R2.cs)
+NOISE_CP_STEP = 0.3819660113  # Cranley-Patterson shift between channels
+NOISE_SALTS = dict(cam=0, cos=1, scal=2, uv3=13)  # purposes: the camera
+#   draws, the Lambert cosine, the seven scatter scalars (2-8), the
+#   isotropic volume direction (the shutter time's, 9, waits for the
+#   motion builds' noise arm, step 11b)
+NOISE_BESIDE = ("sampler flavors in the batch kernel's builds beside rects, "
+                "boxes, motion, textures, a cubemap, triangles or more than "
+                f"{SPH_CULL_MIN} spheres (the noise arm is in the sphere "
+                "build and the volume build beside spheres; ROADMAP queue 1, "
+                "step 11b)")
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +304,21 @@ def unsupported_feature(scene, allow_triangles: bool = False,
         return (f"more than {AUX_MAX} rects and boxes: the kernels stage "
                 "them in shared memory (ROADMAP queue 1, step 7)")
     return unported_feature(scene)
+
+
+def noise_beside(scene) -> str | None:
+    """NOISE_BESIDE when the batch kernel's build for `scene` has no noise
+    arm (rects or boxes, motion, textures, a cubemap, triangles, more than
+    SPH_CULL_MIN spheres: the renderer then traces a flavor on the
+    wavefront), else None (spheres alone, or convex volumes beside
+    them)."""
+    if (scene.triangles.vert0.shape[0] > 0
+            or scene.rects.rot.shape[0] + scene.boxes.rot.shape[0] > 0
+            or scene.flags.has_motion or scene.flags.has_procedural_textures
+            or scene.flags.sky == 2
+            or scene.spheres.center.shape[0] > SPH_CULL_MIN):
+        return NOISE_BESIDE
+    return None
 
 
 def scene_eligible(scene, allow_triangles: bool = False,
@@ -549,6 +585,149 @@ def pack_cubemap_table(scene):
         return None
     f, h, w = cm.shape[:3]
     return cm.to(torch.float32).reshape(f * h, w, 3), (w, h)
+
+
+def pack_noise_tables(noise_state, temporal: int = 8):
+    """(tbl, meta) of a sampler flavor's tables for the in-kernel fetch,
+    or None without a state (or past 256-texel tiles, the JAX package's
+    cap).  tbl is (rows, S) float32: the sets one after another, each
+    channel-major, channel c slice t row y at base + (c * T + t) * S + y
+    (the JAX kernel's layout without its 128-column padding and split
+    halves); meta holds JAX's keys: `size` S, `T` the slices kept (capped
+    at `temporal`, at 2 for 256-texel tiles), `cam` the camera set's base
+    row, `cos`, `scal` and `uv3` the cosine, scalar and unitvec3 sets'
+    (-1: none), `scalT` the scalar set's slices (4 T for the stack made of
+    a tile's channels, else T)."""
+    if noise_state is None:
+        return None
+    tiles = noise_state.tiles
+    t0, size = tiles.shape[0], tiles.shape[1]
+    if size > 256:
+        return None
+    t = min(t0, temporal if size <= 128 else 2)
+    blocks = [tiles[:t, :, :, c].reshape(t * size, size) for c in range(4)]
+    meta = {"size": size, "T": t, "cam": 0, "cos": -1, "scal": -1,
+            "scalT": t, "uv3": -1}
+    rows = 4 * t * size
+    for name, key, chans in (("cosine", "cos", 3), ("scalar", "scal", 1),
+                             ("unitvec3", "uv3", 3)):
+        table = getattr(noise_state, name)
+        if table is None:
+            continue
+        if table.shape[1] != size:
+            raise ValueError(f"pack_noise_tables: the {name} set's tiles are "
+                             f"{table.shape[1]} texels, the camera set's "
+                             f"{size}")
+        meta[key] = rows
+        if key == "scal":
+            # a stack made of a tile's channels keeps 4 slices a tile
+            ts = 4 * t if table.shape[0] == 4 * t0 else t
+            meta["scalT"] = ts
+            blocks.append(table[:ts].reshape(ts * size, size))
+            rows += ts * size
+            continue
+        if min(table.shape[0], temporal) != t:
+            raise ValueError(f"pack_noise_tables: the {name} set has "
+                             f"{table.shape[0]} slices, the camera set {t0}")
+        blocks += [table[:t, :, :, c].reshape(t * size, size)
+                   for c in range(chans)]
+        rows += chans * t * size
+    return torch.cat(blocks).to(torch.float32).contiguous(), meta
+
+
+def _pre_drawn(draw, noise_state, count_in, width, height, samples):
+    """(C * samples, N) rows of `draw`'s (N, C) per-pixel values for draw
+    indices count_in + 0..samples-1, channel-major: row c * samples + k."""
+    stacked = torch.stack([
+        draw(noise_state, count_in.to(torch.int32) + k, width, height)
+        for k in range(samples)
+    ])  # (samples, N, C)
+    return stacked.permute(2, 0, 1).reshape(-1, stacked.shape[1])
+
+
+def pack_noise_uniforms(noise_state, count_in, width, height, samples):
+    """The batch's camera uniforms pre-drawn for pixel-order lanes
+    (randomsource.pixel_uniforms with each pixel's progressive counter
+    count_in + k): (4 * samples, N), row c * samples + k; None without a
+    state."""
+    if noise_state is None:
+        return None
+    from raytracing_in_one_weekend_tpu_torch.core import randomsource
+
+    return _pre_drawn(randomsource.pixel_uniforms, noise_state, count_in,
+                      width, height, samples)
+
+
+def pack_noise_cosine(noise_state, count_in, width, height, samples):
+    """The batch's first-bounce cosine directions pre-drawn
+    (randomsource.pixel_cosine): (3 * samples, N), row c * samples + k;
+    None without a cosine set."""
+    if noise_state is None or noise_state.cosine is None:
+        return None
+    from raytracing_in_one_weekend_tpu_torch.core import randomsource
+
+    return _pre_drawn(randomsource.pixel_cosine, noise_state, count_in,
+                      width, height, samples)
+
+
+class NoiseArgs(NamedTuple):
+    """A chunk's sampler-flavor inputs for the plain version: the
+    in-kernel tables (pack_noise_tables' tbl and meta, the batch's draw
+    base) or the pre-drawn rows (the chunk's columns)."""
+
+    tbl: torch.Tensor | None
+    meta: dict | None
+    draw_base: int
+    uniforms: torch.Tensor | None  # (4 * samples, C)
+    cosine: torch.Tensor | None  # (3 * samples, C)
+
+
+def noise_offsets(seq: int, salt: int, size: int) -> tuple:
+    """(offx, offy, seqf) of draw counter `seq` (already wrapped) and a
+    purpose's salt: the R2 offsets of the tile, by the kernel's float32
+    operations (seqf = seq + 101 salt + 0.5 is exact)."""
+    f32 = np.float32
+    seqf = f32(seq) + f32(salt * NOISE_SALT_STEP) + f32(0.5)
+    offs = []
+    for alpha in NOISE_R2:
+        x = seqf * f32(alpha)
+        offs.append(int(np.floor((x - np.floor(x)) * f32(size))))
+    return offs[0], offs[1], seqf
+
+
+def noise_rotation(seqf: np.float32, channel: int) -> np.float32:
+    """The Cranley-Patterson shift of a scalar channel:
+    frac(seqf * alpha_x + channel * 0.3819660113), rounded once at the
+    multiply-add as XLA's CPU compile contracts it (the JAX kernel's
+    _cp_rotate)."""
+    f32, f64 = np.float32, np.float64
+    # the float64 product of two float32 values is exact: one rounding
+    shift = f64(f32(channel * NOISE_CP_STEP))
+    x = f32(f64(seqf) * f64(f32(NOISE_R2[0])) + shift)
+    return f32(x - np.floor(x))
+
+
+def noise_rows(tbl, meta, base: str, chans: int, seq: int, salt: int,
+               px, py, t_set: int | None = None, rotate: bool = False):
+    """The in-kernel fetch's plain version: for each lane (pixels px, py,
+    int64) and channel c, tile[t, (py + offy) % S, (px + offx) % S] of the
+    set at meta[base], t = (seq + salt) % T; with `rotate` each channel's
+    Cranley-Patterson rotation frac(value + shift).  Returns a list of
+    `chans` (C,) rows."""
+    size = meta["size"]
+    t_set = meta["T"] if t_set is None else t_set
+    offx, offy, seqf = noise_offsets(seq, salt, size)
+    t_idx = (seq + salt) % t_set
+    x = torch.remainder(px + offx, size)
+    y = torch.remainder(py + offy, size)
+    rows = []
+    for c in range(chans):
+        row0 = meta[base] + (c * t_set + t_idx) * size
+        r = tbl[row0 + y, x]
+        if rotate:
+            r = torch.remainder(r + float(noise_rotation(seqf, c)), 1.0)
+        rows.append(r)
+    return rows
 
 
 def cube_texels(cube, cube_dims, dx, dy, dz) -> torch.Tensor:
@@ -1535,7 +1714,8 @@ VOL_KEYS = ("in_id", "in_den", "in_ar", "in_ag", "in_ab", "in_er", "in_eg",
 
 def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
             sky, tri=None, aux=None, med=None, move=None, ptime=None,
-            tex=None, blocks=None, cube=None):
+            tex=None, blocks=None, cube=None, cos_tsd=None, cos_all=False,
+            vol_dir=None):
     """One bounce of every active path in `p` (a dict of (C,) rows keyed
     by STATE_KEYS, updated in place): the dense sphere sweep (with
     `blocks`, pack_sphere_blocks' (table, rows), the blocked one), then with
@@ -1552,7 +1732,11 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     (pack_cubemap_table's table, (w, h)), the cubemap's texel), the fold, AOV
     capture, events and the advance.  `u` holds the bounce's six uniform
     rows (seven with `med`: the free path's draw), `depth` the path's
-    bounce count ((C,) float or a number).  Returns (hit, winner code) for
+    bounce count ((C,) float or a number).  A sampler flavor's draws:
+    `cos_tsd` (three (C,) rows of tangent-space cosine directions) takes
+    the Lambert direction's place at depth 0, or at every depth with
+    `cos_all`; `vol_dir` (three rows, normalized here) the isotropic
+    direction's.  Returns (hit, winner code) for
     the winner tape: the sphere row, or the code base plus the rect, box
     or triangle row.  Shared by the batch kernel's and the per-ray
     megatrace's plain versions, as the CUDA kernels share
@@ -1736,6 +1920,18 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     spy = _fma(-(2.0 * spec_dot), rny, dy)
     spz = _fma(-(2.0 * spec_dot), rnz, dz)
     lmx, lmy, lmz = _cosine_hemisphere(uc, ud, nx, ny, nz)
+    if cos_tsd is not None:
+        # tangent -> world about the hit normal (Tools.cs:30-46), then
+        # normalized (the baked sets' bytes leave |v| at 1 +- 0.02)
+        tsx, tsy, tsz = cos_tsd
+        (btx, bty, btz), (bbx, bby, bbz) = _basis(nx, ny, nz)
+        wx, wy, wz = _normalize3(_dot3(tsx, tsy, tsz, btx, nx, bbx),
+                                 _dot3(tsx, tsy, tsz, bty, ny, bby),
+                                 _dot3(tsx, tsy, tsz, btz, nz, bbz))
+        fb = torch.as_tensor(depth > -1.0 if cos_all else depth < 0.5)
+        lmx = torch.where(fb, wx, lmx)
+        lmy = torch.where(fb, wy, lmy)
+        lmz = torch.where(fb, wz, lmz)
     take_spec = (refl_chance > 0.0) & (u_choice < refl_chance)
     take_metal = (metallic > 0.0) & (u_choice2 < metallic)
     spec_like = take_spec | take_metal
@@ -1794,7 +1990,8 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
     if med is not None:
         # isotropic in-medium scatter (Material.cs:163-168): the medium's
         # albedo, 2 random events
-        vsx, vsy, vsz = _unit_sphere(uc, ud)
+        vsx, vsy, vsz = (_unit_sphere(uc, ud) if vol_dir is None
+                         else _normalize3(*vol_dir))
         sdx = torch.where(vol_scatter, vsx, sdx)
         sdy = torch.where(vol_scatter, vsy, sdy)
         sdz = torch.where(vol_scatter, vsz, sdz)
@@ -1880,7 +2077,7 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
 def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
                  tri, aux, vol0, seed, *, samples, trace_depth, t_min,
                  has_dielectrics, sky_on, jitter, tape, move=None,
-                 tex=None, blocks=None, cube=None):
+                 tex=None, blocks=None, cube=None, noise=None):
     """Run one SampleBatchJob over a chunk of lanes; returns the (18, C)
     accumulators and fills `tape` ((samples*trace_depth, C) or None).
     With `vol0` (camera_containment_row) each lane carries its medium,
@@ -1888,7 +2085,14 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
     shutter time, drawn at every regen from the camera draws' stream 7
     (the JAX kernel's :2745-2760); with `blocks` (pack_sphere_blocks'
     (table, rows)) the blocked sphere sweep; with `cube` (pack_cubemap_table's
-    table and (w, h)) the cubemap sky."""
+    table and (w, h)) the cubemap sky; with `noise` (NoiseArgs) a sampler
+    flavor's draws: from the tables, keyed by the draw counter (draw_base +
+    it) mod NOISE_WRAP, the camera's four (rotated, purpose 0) and, with
+    the scalar set, the bounce's seven scalars (purposes 2-8, rotated), the
+    Lambert cosine (purpose 1, every bounce with the scalar set, else the
+    first) and the volume direction (purpose 13, with the scalar set); or
+    from the pre-drawn rows, the camera's and the first bounce's cosine,
+    row `started` of each lane (the JAX kernel's :2625-2822)."""
     dev = pixel.device
     zero = torch.zeros_like(pixel)
     co, ll, hh, vv, rr, uu = (cam[3 * k:3 * k + 3] for k in range(6))
@@ -1910,6 +2114,14 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         med["in_id"] = zero - 1.0
     ptime = None if move is None else zero
 
+    if noise is not None:
+        px_i, py_i = px_row.to(torch.int64), py_row.to(torch.int64)
+        tbl, meta = noise.tbl, noise.meta
+
+        def pre_drawn(rows, chans, k):
+            return [rows.reshape(chans, samples, -1)[c].gather(0, k[None])[0]
+                    for c in range(chans)]
+
     for it in range(samples * trace_depth):
         started_all = started >= per_pixel
         if not bool(torch.any(p["active"] | ~started_all)):
@@ -1919,11 +2131,22 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         regen = ~p["active"] & ~started_all
         salt = it * SALT_STEP
         u = uniforms_hash(seed, salt, lanes, 4 if move is None else 8)
-        jx, jy = (u[0], u[1]) if jitter else (0.5, 0.5)
+        cam_u = u[:4]
+        if noise is not None:
+            seq = (noise.draw_base + it) % NOISE_WRAP
+            # the row of the sample a regen starts (pre-drawn rows)
+            k_row = torch.clamp(started, max=samples - 1).to(torch.int64)
+            if tbl is not None:
+                cam_u = noise_rows(tbl, meta, "cam", 4, seq,
+                                   NOISE_SALTS["cam"], px_i, py_i,
+                                   rotate=True)
+            elif noise.uniforms is not None:
+                cam_u = pre_drawn(noise.uniforms, 4, k_row)
+        jx, jy = (cam_u[0], cam_u[1]) if jitter else (0.5, 0.5)
         un = (px_row + jx) / width
         vn = (py_row + jy) / height
-        theta = u[2] * TWO_PI
-        radius = _sqrt(u[3]) * lens_radius
+        theta = cam_u[2] * TWO_PI
+        radius = _sqrt(cam_u[3]) * lens_radius
         rdx = radius * _cos(theta)
         rdy = radius * _sin(theta)
         offx = _fma(rdx, rr[0], rdy * uu[0])
@@ -1957,11 +2180,30 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
         # ---- one bounce ------------------------------------------------
         u = uniforms_hash(seed, salt + SALT_BOUNCE, lanes,
                           6 if med is None else 7)
+        cos_tsd = vol_dir = None
+        cos_all = False
+        if noise is not None and tbl is not None:
+            if meta["scal"] >= 0:
+                u = torch.stack([
+                    noise_rows(tbl, meta, "scal", 1, seq,
+                               NOISE_SALTS["scal"] + k, px_i, py_i,
+                               t_set=meta["scalT"], rotate=True)[0]
+                    for k in range(u.shape[0])])
+            if meta["cos"] >= 0:
+                cos_tsd = noise_rows(tbl, meta, "cos", 3, seq,
+                                     NOISE_SALTS["cos"], px_i, py_i)
+                cos_all = meta["scal"] >= 0
+            if med is not None and meta["uv3"] >= 0 and meta["scal"] >= 0:
+                vol_dir = noise_rows(tbl, meta, "uv3", 3, seq,
+                                     NOISE_SALTS["uv3"], px_i, py_i)
+        elif noise is not None and noise.cosine is not None:
+            cos_tsd = pre_drawn(noise.cosine, 3, k_row)
         hit, best_idx = _bounce(p, u, sph, rec, depth_ct, t_min=t_min,
                                 has_dielectrics=has_dielectrics,
                                 sky_on=sky_on, sky=sky, tri=tri, aux=aux,
                                 med=med, move=move, ptime=ptime, tex=tex,
-                                blocks=blocks, cube=cube)
+                                blocks=blocks, cube=cube, cos_tsd=cos_tsd,
+                                cos_all=cos_all, vol_dir=vol_dir)
 
         if tape is not None:
             tape[it] = torch.where(
@@ -2100,6 +2342,11 @@ def sample_batch_reference(
     tex_tables: TexTables | None = None,
     cube: torch.Tensor | None = None,
     cube_dims: tuple = (0, 0),
+    noise_tbl: torch.Tensor | None = None,
+    noise_meta: dict | None = None,
+    noise_draw_base: int = 0,
+    noise_uniforms: torch.Tensor | None = None,
+    noise_cosine: torch.Tensor | None = None,
     chunk_lanes: int | None = None,
 ) -> dict:
     """Plain PyTorch version of the batch kernel (any device).
@@ -2116,12 +2363,18 @@ def sample_batch_reference(
     block, the same winners as the dense one).  `pixel_index`
     (N,) is the
     pixel each lane renders (default: lane i renders pixel i); the hash
-    PRNG stays keyed by the lane.  Returns per-lane deltas, in lane order: color (N, 3), count (N,), normal (N, 3), albedo
-    (N, 3), weight (N,), rays (N,) int32, fallback_normal (N, 3),
-    fallback_albedo (N, 3), and with `want_tape` the (samples *
-    trace_depth, N) winner tape: -2 idle, -1 sky, else the sphere row, or
-    sphere_pad_count(S) plus the triangle row (the JAX kernel's combined
-    row space)."""
+    PRNG stays keyed by the lane.  A sampler flavor: `noise_tbl` and
+    `noise_meta` (pack_noise_tables) with `noise_draw_base` (the batch's
+    draw counter base, taken through float32 as the JAX kernel takes it
+    from its pix row 4) fetch the flavored draws in the kernel's way
+    (`_trace_chunk`); or `noise_uniforms` ((4 * samples, N),
+    pack_noise_uniforms) and `noise_cosine` ((3 * samples, N) or None,
+    pack_noise_cosine) are the pre-drawn rows.  Returns per-lane deltas,
+    in lane order: color (N, 3), count (N,), normal (N, 3), albedo (N, 3),
+    weight (N,), rays (N,) int32, fallback_normal (N, 3), fallback_albedo
+    (N, 3), and with `want_tape` the (samples * trace_depth, N) winner
+    tape: -2 idle, -1 sky, else the sphere row, or sphere_pad_count(S) plus
+    the triangle row (the JAX kernel's combined row space)."""
     dev = centers.device
     n = lane_count.shape[0]
     s = centers.shape[0]
@@ -2155,9 +2408,19 @@ def sample_batch_reference(
         for t in (rect_tables, box_tables):
             width = max(width, 0 if t is None else t[0].shape[0])
         chunk_lanes = max(1024, budget // width)
+    noise_base = int(np.float32(noise_draw_base))
     acc = torch.empty((OUT_ROWS, n), dtype=torch.float32, device=dev)
     for c0 in range(0, n, chunk_lanes):
         c1 = min(n, c0 + chunk_lanes)
+        noise = None
+        if any(t is not None for t in (noise_tbl, noise_uniforms,
+                                       noise_cosine)):
+            noise = NoiseArgs(
+                None if noise_tbl is None
+                else noise_tbl.detach().to(torch.float32), noise_meta,
+                noise_base,
+                *(None if t is None else t.detach().to(torch.float32)[:, c0:c1]
+                  for t in (noise_uniforms, noise_cosine)))
         acc[:, c0:c1] = _trace_chunk(
             lanes_all[c0:c1], pixel_all[c0:c1], per_pixel_all[c0:c1],
             count_in_all[c0:c1], cam, sky, sph, rec, tri, aux,
@@ -2172,6 +2435,7 @@ def sample_batch_reference(
             blocks=blocks,
             cube=None if cube is None else (
                 cube.detach().to(torch.float32), tuple(cube_dims)),
+            noise=noise,
         )
     return _outputs(acc, tape)
 
@@ -2221,6 +2485,18 @@ def load_kernel() -> ctypes.CDLL:
             p,  # stream
         ]
         lib.rtiw_megatrace_blocked.restype = ctypes.c_int
+        lib.rtiw_megatrace_noise.argtypes = [
+            p, p, p, p, p, p,  # lane_count count_in consts sph rec out
+            i, i, i, i, i, i,  # n s seed lane_base samples trace_depth
+            ctypes.c_float, i, i, i, i,  # t_min has_diel sky_on jitter vol
+            p, i, i, i, i, i, i, i, i,  # tbl size T cam cos scal scalT uv3
+            #   draw_base
+            p, p,  # pre-drawn uniforms, cosine
+            p,  # stream
+        ]
+        lib.rtiw_megatrace_noise.restype = ctypes.c_int
+        lib.rtiw_megatrace_noise_info.argtypes = [i, i, p]
+        lib.rtiw_megatrace_noise_info.restype = ctypes.c_int
         lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, i, i, p]
         lib.rtiw_megatrace_ext_info.restype = ctypes.c_int
         lib.rtiw_megatrace_tri_info.argtypes = [i, p]
@@ -2247,6 +2523,19 @@ def sphere_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
         int(n_blk), int(has_cube), info)
     if err != 0:
         raise RuntimeError(f"megatrace_sphere_kernel info: cudaError {err}")
+    return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
+
+
+def noise_kernel_info(s: int, has_vol: bool = False) -> dict:
+    """The noise build's occupancy with an s-sphere table on the current
+    card (beside spheres alone, or with has_vol the volume build's):
+    blocks an SM (the occupancy API), registers a thread and local memory
+    (stack and spills) a thread in bytes."""
+    info = (ctypes.c_int * 3)()
+    err = load_kernel().rtiw_megatrace_noise_info(int(s), int(has_vol), info)
+    if err != 0:
+        raise RuntimeError(f"megatrace_sphere_kernel noise info: cudaError "
+                           f"{err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
 
 
@@ -2409,15 +2698,52 @@ def _check_aux_tables(rect_tables, box_tables, dev) -> None:
                          "shared memory")
 
 
+NOISE_META_KEYS = ("size", "T", "cam", "cos", "scal", "scalT", "uv3")
+
+
+def _check_noise(n, samples, want_tape, noise_tbl, noise_meta,
+                 noise_uniforms, noise_cosine) -> None:
+    """sample_batch's checks of a sampler flavor's inputs."""
+    if want_tape:
+        raise ValueError("sample_batch: no winner tape with a sampler "
+                         "flavor (the replay has no flavored draws)")
+    if noise_tbl is not None:
+        if noise_uniforms is not None or noise_cosine is not None:
+            raise ValueError("sample_batch: noise_tbl and the pre-drawn "
+                             "rows clash")
+        if noise_meta is None or any(k not in noise_meta
+                                     for k in NOISE_META_KEYS):
+            raise ValueError(f"sample_batch: noise_tbl needs "
+                             f"pack_noise_tables' meta {NOISE_META_KEYS}")
+        if (noise_tbl.dim() != 2
+                or noise_tbl.shape[1] != noise_meta["size"]):
+            raise ValueError(f"sample_batch: noise_tbl has shape "
+                             f"{tuple(noise_tbl.shape)}; want "
+                             f"pack_noise_tables' (rows, "
+                             f"{noise_meta['size']})")
+        return
+    for name, t, chans in (("noise_uniforms", noise_uniforms, 4),
+                           ("noise_cosine", noise_cosine, 3)):
+        if t is not None and tuple(t.shape) != (chans * samples, n):
+            raise ValueError(f"sample_batch: {name} has shape "
+                             f"{tuple(t.shape)}; want ({chans * samples}, "
+                             f"{n})")
+    if noise_uniforms is None:
+        raise ValueError("sample_batch: noise_cosine needs noise_uniforms")
+
+
 def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        records, sky_bottom, sky_top, seed, lane_base, *,
                        samples, trace_depth, t_min, has_dielectrics, sky_on,
                        jitter, want_tape, tri_tables, pixel_index=None,
                        tri_stream_tables=None, rect_tables=None,
                        box_tables=None, vol0=None, move_offsets=None,
-                       tex_tables=None, cube=None, cube_dims=(0, 0)):
+                       tex_tables=None, cube=None, cube_dims=(0, 0),
+                       noise_tbl=None, noise_meta=None, noise_draw_base=0,
+                       noise_uniforms=None, noise_cosine=None):
     global LAUNCHES, AUX_LAUNCHES, VOL_LAUNCHES, MOTION_LAUNCHES
     global TEX_LAUNCHES, BLOCKED_LAUNCHES, CUBE_LAUNCHES, TRI_LAUNCHES
+    global NOISE_LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
                    camera_row=camera_row, centers=centers, radii=radii,
@@ -2500,6 +2826,30 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
     tape = (torch.empty((samples * trace_depth, n), dtype=torch.float32,
                         device=dev) if want_tape else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if any(t is not None for t in (noise_tbl, noise_uniforms, noise_cosine)):
+        # sample_batch refused every other table and the tape
+        rows = [None if t is None
+                else t.detach().to(device=dev, dtype=torch.float32)
+                .contiguous()
+                for t in (noise_tbl, noise_uniforms, noise_cosine)]
+        meta = ([int(noise_meta[k]) for k in NOISE_META_KEYS]
+                if noise_tbl is not None else [0, 0, 0, -1, -1, 0, -1])
+        err = lib.rtiw_megatrace_noise(
+            per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), out.data_ptr(), n, s, int(seed),
+            int(lane_base), samples, trace_depth, float(t_min),
+            int(has_dielectrics), int(sky_on), int(jitter),
+            int(vol0 is not None),
+            0 if rows[0] is None else rows[0].data_ptr(), *meta,
+            # the draw base through float32, as the JAX kernel's pix row 4
+            int(np.float32(noise_draw_base)),
+            *(0 if t is None else t.data_ptr() for t in rows[1:]), stream)
+        if err != 0:
+            raise RuntimeError(f"megatrace_batch noise build launch failed: "
+                               f"cudaError {err}")
+        LAUNCHES += 1
+        NOISE_LAUNCHES += 1
+        return _outputs(out, tape)
     if s > SPH_CULL_MIN:  # sample_batch refused every other table
         move = None if move_offsets is None else move_table(move_offsets)
         table = pack_sphere_blocks(centers, radii, move_offsets)
@@ -2611,6 +2961,11 @@ def sample_batch(
     tex_tables: TexTables | None = None,
     cube: torch.Tensor | None = None,
     cube_dims: tuple = (0, 0),
+    noise_tbl: torch.Tensor | None = None,
+    noise_meta: dict | None = None,
+    noise_draw_base: int = 0,
+    noise_uniforms: torch.Tensor | None = None,
+    noise_cosine: torch.Tensor | None = None,
 ) -> dict:
     """Fused SampleBatchJob: per-lane accumulation deltas for one batch
     (see `sample_batch_reference` for the outputs; `tri_tables` is
@@ -2627,7 +2982,13 @@ def sample_batch(
     triangles, or NotImplementedError naming ROADMAP step 7.6b).  More
     than SPH_CULL_MIN spheres take the blocked builds (BLOCKED_LAUNCHES),
     static or moving; beside any of the other tables they raise
-    NotImplementedError (ROADMAP step 7.7b).
+    NotImplementedError (ROADMAP step 7.7b).  A sampler flavor
+    (`noise_tbl`, `noise_meta` and `noise_draw_base` from
+    pack_noise_tables, or the pre-drawn `noise_uniforms` and
+    `noise_cosine`; see `sample_batch_reference`) takes the noise builds,
+    NOISE_LAUNCHES: spheres alone or convex volumes beside spheres, lane i
+    rendering pixel i, no tape (the replay has no flavor, as in JAX);
+    beside anything else NotImplementedError (NOISE_BESIDE, step 11b).
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
@@ -2662,6 +3023,15 @@ def sample_batch(
             + (vol0 is not None) + (move_offsets is not None)
             + (tex_tables is not None) > 1):
         raise NotImplementedError(f"sample_batch: {CUBE_BESIDE}")
+    if any(t is not None for t in (noise_tbl, noise_uniforms,
+                                   noise_cosine)):
+        _check_noise(lane_count.shape[0], samples, want_tape, noise_tbl,
+                     noise_meta, noise_uniforms, noise_cosine)
+        if (centers.shape[0] > SPH_CULL_MIN or pixel_index is not None
+                or any(t is not None for t in (
+                    tri_tables, tri_stream_tables, rect_tables, box_tables,
+                    move_offsets, tex_tables, cube))):
+            raise NotImplementedError(f"sample_batch: {NOISE_BESIDE}")
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, want_tape=want_tape, tri_tables=tri_tables,
@@ -2669,7 +3039,9 @@ def sample_batch(
                   tri_stream_tables=tri_stream_tables,
                   rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
                   move_offsets=move_offsets, tex_tables=tex_tables,
-                  cube=cube, cube_dims=cube_dims)
+                  cube=cube, cube_dims=cube_dims, noise_tbl=noise_tbl,
+                  noise_meta=noise_meta, noise_draw_base=noise_draw_base,
+                  noise_uniforms=noise_uniforms, noise_cosine=noise_cosine)
     args = (lane_count, count_in, camera_row, centers, radii, records,
             sky_bottom, sky_top, seed, lane_base)
     if centers.device.type == "cuda":

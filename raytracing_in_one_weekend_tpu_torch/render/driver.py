@@ -7,9 +7,11 @@ schedules the next SampleBatchJob, cycling the interlace offset and
 feeding the previous batch's noise-weight extrema to the adaptive sampler.
 
 Ported: reset, step, run, completion, MRays/s, combined (no denoise),
-images and save, and autofocus (the given distance or a nearest-hit
-raycast), on every scene `renderer.check_scope` takes (meshes up to
-TRI_STREAM_MAX triangles).  Checkpoints, diagnostics, denoisers and the
+images and save, autofocus (the given distance or a nearest-hit raycast)
+and the sampler flavors (`settings.noise_color`: the noise state made
+with seed + 7, each batch's draws keyed by batch_index * max_lanes), on
+every scene `renderer.check_scope` takes (meshes up to TRI_STREAM_MAX
+triangles).  Checkpoints, diagnostics, denoisers and the
 BVH wait for ROADMAP queue 1, steps 9, 13 and 14.
 """
 
@@ -22,7 +24,7 @@ from typing import Callable
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.core import camera as camera_mod
-from raytracing_in_one_weekend_tpu_torch.core import math3
+from raytracing_in_one_weekend_tpu_torch.core import math3, randomsource
 from raytracing_in_one_weekend_tpu_torch.core.ray import Rays
 from raytracing_in_one_weekend_tpu_torch.ops import intersect
 from raytracing_in_one_weekend_tpu_torch.render import film, renderer
@@ -82,7 +84,7 @@ class ProgressiveRenderer:
             raise NotImplementedError(
                 "denoisers are not ported yet (ROADMAP queue 1, step 13)"
             )
-        renderer.check_scope(scene, noise_color=int(settings.noise_color))
+        renderer.check_scope(scene)
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
         self.settings = settings
@@ -101,6 +103,10 @@ class ProgressiveRenderer:
         )
         self._interlace_order = ordering.space_filling_series(
             settings.interlacing
+        )
+        # the sampler flavor's tables (RandomSource NoiseColor; None: white)
+        self.noise_state = randomsource.make_noise_state(
+            settings.noise_color, seed=seed + 7, device=self.device
         )
         self.reset()
 
@@ -181,6 +187,8 @@ class ProgressiveRenderer:
             sample_range=sample_range,
             weight_extrema=extrema,
             noise_color=int(s.noise_color),
+            noise_state=self.noise_state,
+            draw_base=self.batch_index * max_lanes,
         )
         rays = int(metrics.total_rays)
         duration = time.perf_counter() - t0

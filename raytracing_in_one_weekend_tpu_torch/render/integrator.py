@@ -37,9 +37,16 @@ gradient sky, as the JAX package's): a miss samples the faces'
 nearest texel (`core.environment.sample_sky`), differentiable in the
 texel values.
 
+A noise context (`noise_ctx`: a sampler flavor's NoiseState, the draw
+index, width and height) turns `mega` off, as in the JAX package; when the
+state carries the scalar set every bounce's scatter draws, the free path,
+the Lambert direction (the cosine set) and the isotropic volume direction
+(the unitvec3 set) come from its tables (`core.randomsource`, salts per
+purpose), the reference's RandomSource routing.
+
 On CPU tensors each kernel runs its plain PyTorch version.  Motion, rects,
 boxes or volumes in mesh scenes raise NotImplementedError naming their
-ROADMAP steps, and so does a noise context (sampler flavors, step 11).
+ROADMAP steps.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ import dataclasses
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.core import (
-    environment, materials, math3, rng,
+    environment, materials, math3, randomsource, rng,
 )
 from raytracing_in_one_weekend_tpu_torch.core.ray import (
     SELF_INTERSECTION_OFFSET, Rays,
@@ -112,7 +119,8 @@ def trace(
     active: torch.Tensor | None = None,
     first_bounce_tsd: torch.Tensor | None = None,  # (N, 3) pre-drawn
     #   tangent-space cosine directions for the first bounce's Lambert draw
-    noise_ctx: tuple | None = None,
+    noise_ctx: tuple | None = None,  # (NoiseState, draw index, width,
+    #   height): the flavored routing of every bounce's draws
 ) -> TraceResult:
     """Trace a wavefront of rays to completion, one path per ray.
 
@@ -120,11 +128,9 @@ def trace(
     carry no gradients with respect to the scene geometry; keep True under
     autograd.  `active` masks lanes off from the start: they cast no
     counted rays and never become valid."""
-    if noise_ctx is not None:
-        raise NotImplementedError(
-            "flavored-sampler routing (noise_ctx) is not ported yet "
-            "(ROADMAP queue 1, step 11)"
-        )
+    if noise_ctx is not None and len(noise_ctx) != 4:
+        raise ValueError("noise_ctx is (NoiseState, draw index, width, "
+                         f"height), not {len(noise_ctx)} values")
     check_scope(scene)
     n = rays.origin.shape[0]
     dev = rays.origin.device
@@ -134,7 +140,7 @@ def trace(
     mat = scene.spheres.material.long()
 
     if (not differentiable and first_bounce_tsd is None
-            and megatrace.scene_eligible(scene)):
+            and noise_ctx is None and megatrace.scene_eligible(scene)):
         seed = int(rng.randint(rng.purpose_key(key, rng.Purpose.SCATTER_A),
                                (), 0, SEED_RANGE))
         out = megatrace.megatrace(
@@ -193,6 +199,7 @@ def trace(
         state = _bounce_once(
             scene, state, rng.bounce_key(key, bounce_index), bounce_index,
             packed, sph_records, first_bounce_tsd,
+            flavored=_flavored_draws(noise_ctx, bounce_index),
         )
 
     valid = state.valid
@@ -208,6 +215,30 @@ def trace(
     )
 
 
+def _flavored_draws(noise_ctx, bounce_index: int):
+    """The bounce's flavored draws (u6 (6, N), the free path (N,), the
+    Lambert cosine (N, 3) or None, the volume direction (N, 3) or None)
+    when the noise context's state carries the scalar set, else None:
+    one draw slot per (sample, bounce), purposes 0-6 for the scalars."""
+    if noise_ctx is None:
+        return None
+    nstate, dbase, width, height = noise_ctx
+    if nstate is None or nstate.scalar is None:
+        return None
+    u6 = torch.stack([
+        randomsource.pixel_scalar(nstate, dbase, bounce_index, pu, width,
+                                  height)
+        for pu in range(6)
+    ])
+    u_free = randomsource.pixel_scalar(nstate, dbase, bounce_index, 6,
+                                       width, height)
+    tsd = randomsource.pixel_cosine_at(nstate, dbase, bounce_index, width,
+                                       height)
+    uv3 = randomsource.pixel_unitvec3(nstate, dbase, bounce_index, width,
+                                      height)
+    return u6, u_free, tsd, uv3
+
+
 def _bounce_once(
     scene: Scene,
     state: PathState,
@@ -216,6 +247,7 @@ def _bounce_once(
     packed: torch.Tensor,
     sph_records: torch.Tensor | None = None,
     first_bounce_tsd: torch.Tensor | None = None,
+    flavored: tuple | None = None,  # _flavored_draws
 ) -> PathState:
     rays = Rays(state.origin, state.direction, state.time)
     n = state.origin.shape[0]
@@ -259,9 +291,12 @@ def _bounce_once(
         vol_mat = torch.where(in_vol, state.inside_volume, hit.material)
         density = scene.materials.parameter[torch.clamp(vol_mat, min=0)
                                             .long()]
-        u_free = rng.uniform(
-            rng.purpose_key(key, rng.Purpose.VOLUME_FREE_PATH), (n,),
-            device=hit.t.device)
+        if flavored is not None:
+            u_free = flavored[1]
+        else:
+            u_free = rng.uniform(
+                rng.purpose_key(key, rng.Purpose.VOLUME_FREE_PATH), (n,),
+                device=hit.t.device)
         # the free-path draw is a sampling decision: its density dependence
         # is detached and carried by the score-function logp below
         free_path = materials.volume_free_path(density.detach(), u_free)
@@ -304,11 +339,17 @@ def _bounce_once(
             state.inside_volume).to(torch.int32)
 
     scatter_mask = state.active & hit.hit & ~skip
-    tsd_on = first_bounce_tsd is not None and bounce_index == 0
+    if flavored is not None and flavored[2] is not None:
+        # the flavored routing: every bounce's Lambert draw rides the set
+        tsd, tsd_on = flavored[2], True
+    else:
+        tsd = first_bounce_tsd
+        tsd_on = first_bounce_tsd is not None and bounce_index == 0
     sc = materials.scatter(
         scene, state.direction, eff_normal, eff_point, eff_uv, eff_material,
-        key, packed=packed, row=row, lambert_tsd=first_bounce_tsd,
-        lambert_tsd_on=tsd_on,
+        key, packed=packed, row=row, lambert_tsd=tsd, lambert_tsd_on=tsd_on,
+        u_override=None if flavored is None else flavored[0],
+        vol_dir_override=None if flavored is None else flavored[3],
     )
     # material-lottery decisions join the path's score accumulator; zero
     # along deterministic branches

@@ -38,9 +38,20 @@ arms on its conditions:
   channel a nonzero cotangent, one sample at a time in backward, so a
   photometric loss pays nothing for it (torch removes no dead code,
   unlike XLA);
+* with a sampler flavor (`noise_color` and its `noise_state`,
+  core/randomsource.py), forward, the JAX renderer's dispatch: the
+  in-kernel tables (`pack_noise_tables`, the batch's draw counter base
+  `noise_draw_base`) when the tile side divides the width, else the
+  pre-drawn rows (`pack_noise_uniforms`, `pack_noise_cosine`), both
+  through the kernel's noise builds (spheres alone, volumes beside
+  spheres); a scene whose build has no noise arm, the Morton-lane classes
+  among them (more than SPH_CULL_MIN spheres, streamed meshes), takes the
+  wavefront with the flavor instead (`noise_route`; ROADMAP step 11b);
 * the wavefront arm (`wavefront_pass`, render/integrator.py) where the
   batch kernel is refused: a scene outside its scope, a sampler flavor
-  asked for without a noise state (which the port does not have yet), or
+  asked for without a noise state, a flavored scene the noise builds do
+  not take, a flavor with something requiring grad (the replay has no
+  flavored draws, as in JAX), or
   something requiring grad in a scene that is not replay-eligible
   (`megatrace_replay.replay_eligible`, as in the JAX package: a Perlin
   texture, which the replay does not mirror, or a mesh of more than
@@ -59,7 +70,9 @@ import dataclasses
 import torch
 
 from raytracing_in_one_weekend_tpu_torch.core import camera as camera_mod
-from raytracing_in_one_weekend_tpu_torch.core import materials, rng
+from raytracing_in_one_weekend_tpu_torch.core import (
+    materials, randomsource, rng,
+)
 from raytracing_in_one_weekend_tpu_torch.core.camera import Camera
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace_replay
@@ -121,35 +134,74 @@ AOV_KEYS = megatrace_replay.AOV_OUTPUTS
 AOV_GRAFT_RUNS = 0  # backward passes that ran the wavefront for AOV grads
 
 
-def check_scope(scene: Scene, noise_color: int = 0) -> None:
+def check_scope(scene: Scene) -> None:
     """Raise NotImplementedError for anything outside the ported slice:
-    scenes the wavefront cannot trace, meshes beyond TRI_STREAM_MAX, and
-    sampler flavors (their noise state is not ported)."""
+    scenes the wavefront cannot trace and meshes beyond TRI_STREAM_MAX."""
     if scene.triangles.vert0.shape[0] > megatrace.TRI_STREAM_MAX:
         raise NotImplementedError(megatrace.TOO_MANY_TRIANGLES)
-    if noise_color != 0:
-        raise NotImplementedError(
-            "blue-noise sampler flavors are not ported yet "
-            "(ROADMAP queue 1, step 11)"
-        )
     integrator.check_scope(scene)
+
+
+def noise_draw_base(draw_base: int, samples: int, trace_depth: int) -> int:
+    """The batch's base of the kernel's iteration-keyed flavored draw
+    counter.  `draw_base` is in sample units (the driver's batch_index *
+    max_lanes); a batch takes at most samples * trace_depth iteration
+    draws, and the counter wraps mod NOISE_WRAP = 2^13, so the stride
+    between batches is at least samples * trace_depth and odd, coprime to
+    the wrap: every residue comes before any repeats (JAX renderer
+    :39-56)."""
+    stride = samples * trace_depth + (1 - (samples * trace_depth) % 2)
+    return (int(draw_base) // samples) * stride
+
+
+def noise_route(scene: Scene, noise_state, width: int) -> str:
+    """How a forward batch of `scene` takes a sampler flavor's state:
+    "white" (no state), "wavefront" (the kernel builds have no noise arm
+    for the scene: megatrace.noise_beside), "tables" (the in-kernel fetch:
+    the tile side divides the width) or "pre_drawn" (the pre-drawn rows)."""
+    if noise_state is None:
+        return "white"
+    if megatrace.noise_beside(scene) is not None:
+        return "wavefront"
+    size = noise_state.tiles.shape[1]
+    if size <= 256 and width % size == 0:
+        return "tables"
+    return "pre_drawn"
 
 
 def _sample_step(scene, camera, acc, key, sample_index, row_active,
                  per_pixel, *, width, height, trace_depth, sub_pixel_jitter,
-                 differentiable):
+                 differentiable, noise_state=None, draw_base=0):
     """One wavefront sample for every pixel: (new accumulators, pixel
-    rays, trace result, valid as float)."""
+    rays, trace result, valid as float).  With a sampler flavor's
+    `noise_state`, the jitter and lens draws, the first bounce's cosine
+    and (with a scalar set) every bounce's draws come from its tables at
+    draw index draw_base + sample_index (the JAX renderer's :143-182)."""
     dev = row_active.device
     skey = rng.sample_key(key, sample_index)
-    coords = camera_mod.pixel_coords(
-        width, height, skey if sub_pixel_jitter else None, sub_pixel_jitter,
-        device=dev)
-    rays = camera_mod.generate_rays(camera, coords, skey)
+    first_bounce_tsd = noise_ctx = None
+    if noise_state is not None:
+        draw = draw_base + sample_index
+        u4 = randomsource.pixel_uniforms(noise_state, draw, width, height)
+        coords = camera_mod.pixel_coords(width, height, None,
+                                         sub_pixel_jitter, device=dev,
+                                         jitter_uv=u4[:, 0:2])
+        rays = camera_mod.generate_rays(camera, coords, skey,
+                                        lens_uv=u4[:, 2:4])
+        first_bounce_tsd = randomsource.pixel_cosine(noise_state, draw,
+                                                     width, height)
+        noise_ctx = (noise_state, draw, width, height)
+    else:
+        coords = camera_mod.pixel_coords(
+            width, height, skey if sub_pixel_jitter else None,
+            sub_pixel_jitter, device=dev)
+        rays = camera_mod.generate_rays(camera, coords, skey)
     lane_active = row_active & (sample_index < per_pixel)
     result = integrator.trace(scene, rays, skey, trace_depth,
                               differentiable=differentiable,
-                              active=lane_active)
+                              active=lane_active,
+                              first_bounce_tsd=first_bounce_tsd,
+                              noise_ctx=noise_ctx)
     fvalid = (result.valid & row_active).to(torch.float32)
     first = ((acc.sample_count == 0.0) & lane_active)[:, None]
     color_add = result.radiance * fvalid[:, None]
@@ -190,10 +242,13 @@ def wavefront_pass(
     differentiable: bool = True,
     row_active: torch.Tensor | None = None,
     per_pixel: torch.Tensor | None = None,
+    noise_state=None,
+    draw_base: int = 0,
 ) -> tuple[film.Accumulators, torch.Tensor]:
     """The wavefront integrator over `samples` samples per pixel (the JAX
     renderer's `_wavefront_pass`): sample s traces camera rays keyed by
-    `rng.sample_key(key, s)` through `integrator.trace`.  Lanes of rows
+    `rng.sample_key(key, s)` through `integrator.trace` (with a sampler
+    flavor's `noise_state`, its draws at index draw_base + s).  Lanes of rows
     outside `row_active`, or past their pixel's `per_pixel` count, take no
     sample.  Returns (new accumulators, rays cast per pixel); `acc` is not
     modified.  With `differentiable`, the results carry gradients to the
@@ -212,7 +267,8 @@ def wavefront_pass(
             scene, camera, acc, key, sample_index, row_active, per_pixel,
             width=width, height=height, trace_depth=trace_depth,
             sub_pixel_jitter=sub_pixel_jitter,
-            differentiable=differentiable)
+            differentiable=differentiable, noise_state=noise_state,
+            draw_base=draw_base)
         pixel_rays = pixel_rays + rays
     return acc, pixel_rays
 
@@ -340,6 +396,8 @@ def render_batch(
     noise_color: int = 0,
     seed: int | None = None,
     key: torch.Tensor | None = None,
+    noise_state: randomsource.NoiseState | None = None,
+    draw_base: int = 0,
 ) -> tuple[film.Accumulators, BatchMetrics]:
     """Accumulate up to `samples` new samples per pixel into `acc` (in
     place; `acc` is also returned).
@@ -362,9 +420,14 @@ def render_batch(
     carry gradients to whichever scene or camera tensors require grad
     (color and count through the tape replay's backward kernel, the AOV
     channels through the wavefront graft).  When none does, or grad mode
-    is off, the batch is the forward path unchanged.  A `noise_color`
-    other than 0 takes the wavefront with white noise, as the JAX renderer
-    does without a noise state.
+    is off, the batch is the forward path unchanged.
+
+    Sampler flavors: a `noise_color` other than 0 with its `noise_state`
+    (randomsource.make_noise_state) takes the flavored draws, `draw_base`
+    (in samples: the driver's batch_index * max_lanes) keying the batch's
+    draws; the route is `noise_route`'s, and a batch with something
+    requiring grad takes the differentiable wavefront.  Without a state
+    the wavefront runs with white noise, as the JAX renderer does.
     """
     if key is not None:
         seed = int(rng.randint(key, (), 0, SEED_RANGE))
@@ -398,7 +461,11 @@ def render_batch(
     inputs = (_grad_tensors(scene, camera)
               if differentiable and torch.is_grad_enabled() else [])
     streamed = scene.triangles.vert0.shape[0] > megatrace.TRI_MAX
-    if (noise_color != 0
+    if noise_color == 0:
+        noise_state = None
+    route = noise_route(scene, noise_state, width)
+    if ((noise_color != 0 and route in ("white", "wavefront"))
+            or (route != "white" and inputs)
             or not megatrace.scene_eligible(scene, allow_triangles=True,
                                             allow_rect_box=True,
                                             allow_volumes=True,
@@ -415,8 +482,13 @@ def render_batch(
         new, pixel_rays = wavefront_pass(
             scene, camera, acc, key, width=width, height=height,
             samples=samples, trace_depth=trace_depth,
-            sub_pixel_jitter=sub_pixel_jitter, differentiable=differentiable,
+            sub_pixel_jitter=sub_pixel_jitter,
+            # a flavored batch with nothing requiring grad is the forward
+            # path (the `fast` arm), as the JAX driver's forward batches
+            differentiable=differentiable and (bool(inputs)
+                                               or noise_color == 0),
             row_active=row_active, per_pixel=per_pixel,
+            noise_state=noise_state, draw_base=draw_base,
         )
         for f in dataclasses.fields(film.Accumulators):
             getattr(acc, f.name).copy_(getattr(new, f.name))
@@ -456,8 +528,21 @@ def render_batch(
         d = {k: v[rank] for k, v in d.items()}
         return acc, _apply_deltas(acc, d, lane_count)
 
-    batch = (megatrace_replay.sample_batch_diff if differentiable
-             else megatrace.sample_batch)
+    noise_kw = {}
+    if route == "tables":
+        tbl, meta = megatrace.pack_noise_tables(noise_state)
+        noise_kw = dict(noise_tbl=tbl, noise_meta=meta,
+                        noise_draw_base=noise_draw_base(
+                            draw_base, samples, trace_depth))
+    elif route == "pre_drawn":
+        noise_kw = dict(
+            noise_uniforms=megatrace.pack_noise_uniforms(
+                noise_state, acc.sample_count, width, height, samples),
+            noise_cosine=megatrace.pack_noise_cosine(
+                noise_state, acc.sample_count, width, height, samples))
+    # (a flavored batch requires no grad here: the wavefront took it)
+    batch = (megatrace_replay.sample_batch_diff
+             if differentiable and not noise_kw else megatrace.sample_batch)
     # gradients to the rects' and boxes' rotations, positions, extents and
     # materials flow through this pack
     rect_tables, box_tables = megatrace.pack_aux_tables(scene, packed)
@@ -485,7 +570,7 @@ def render_batch(
         # pack
         tex_tables=megatrace.pack_texture_tables(scene),
         cube=cube, cube_dims=cube_dims,
-        **statics,
+        **statics, **noise_kw,
     )
     if inputs:
         # the AOV graft: the kernel's AOV values, the wavefront's gradients
@@ -511,10 +596,13 @@ def render_image(
     differentiable: bool = True,
     seed: int | None = None,
     key: torch.Tensor | None = None,
+    noise_color: int = 0,
+    noise_state: randomsource.NoiseState | None = None,
 ) -> film.CombinedImage:
     """One-shot render: one batch of `samples_per_pixel` samples.  With
     `differentiable` (the default, as in the JAX package) the outputs
-    carry gradients to whatever scene or camera tensors require grad."""
+    carry gradients to whatever scene or camera tensors require grad (with
+    a sampler flavor, through the differentiable wavefront)."""
     acc = film.zero_accumulators(
         width * height, device=scene.spheres.center.device
     )
@@ -523,5 +611,6 @@ def render_image(
         width=width, height=height, samples=samples_per_pixel,
         trace_depth=trace_depth, sub_pixel_jitter=sub_pixel_jitter,
         differentiable=differentiable, seed=seed, key=key,
+        noise_color=noise_color, noise_state=noise_state,
     )
     return film.combine(acc, width, height)

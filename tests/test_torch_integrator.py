@@ -181,9 +181,12 @@ def test_mega_arm_matches_jax_kernel(name):
 
 
 def test_noise_context_is_refused():
+    """A malformed noise context is refused (sampler flavors are ported
+    since step 11: tests/test_torch_noise_wavefront.py holds a well-formed
+    one to JAX)."""
     scene, _ = book_scenes.three_spheres()
     rays = Rays(torch.zeros((4, 3)), torch.ones((4, 3)), torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="step 11"):
+    with pytest.raises(ValueError, match="noise_ctx"):
         integrator.trace(scene, rays, rng.PRNGKey(0), 2, noise_ctx=(0,))
 
 

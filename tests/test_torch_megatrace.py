@@ -328,8 +328,11 @@ def test_scope_refusals_name_the_roadmap():
     # the differentiable path is ported: same scope as the forward one
     assert megatrace_replay.replay_eligible(scene)
     renderer.check_scope(scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        renderer.check_scope(scene, noise_color=1)
+    # sampler flavors are in scope (step 11); the builds without a noise
+    # arm name step 11b, and the renderer traces a flavor there on the
+    # wavefront
+    assert megatrace.noise_beside(scene) is None
+    assert "ROADMAP queue 1, step 11b" in megatrace.noise_beside(cornell)
 
 
 def test_other_devices_are_refused():
