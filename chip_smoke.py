@@ -20,18 +20,20 @@ lookup), and the sampler flavors (#1's noise builds on the cover and
 
 The second form compares this tree with another unpacked at DIR (say,
 the parent commit, by `git archive`): the SASS of every kernel of the
-seven sources, function by function (the kernels SASS_CHANGED names are
-reported as changed on purpose; the sphere build, a template since its
-aux build, is compared as its <false> instance), then `turn_readings`
+eight sources, function by function, wherever each kernel is built (the
+kernels SASS_CHANGED names are reported as changed on purpose; the sphere
+build, a template since its aux build, and the triangle and streamed
+kernels, templates since their noise builds, are compared as their
+<false> instances), then `turn_readings`
 (the sphere, triangle and streamed builds of the batch kernel, bounce_sync's
 bounce 1, the backward at 64 spp on the cover and 4 spp on mesh_showcase,
 forward and fwd+bwd MRays/s) in turns, DIR, this, this, DIR, each turn
 a process of its own.  The first form needs one CUDA card.  Phases, each of
 which raises on failure:
   1. report the card (nvidia-smi name and power limit) and versions;
-  2. build the seven kernel sources (csrc/megatrace_batch.cu,
-     csrc/megatrace_bwd.cu, csrc/sphere_select.cu, csrc/megatrace_wave.cu,
-     csrc/triangle_select.cu, csrc/meshtrace_sync.cu,
+  2. build the eight kernel sources (csrc/megatrace_batch.cu,
+     csrc/megatrace_noise.cu, csrc/megatrace_bwd.cu, csrc/sphere_select.cu,
+     csrc/megatrace_wave.cu, csrc/triangle_select.cu, csrc/meshtrace_sync.cu,
      csrc/meshtrace_permute.cu), one nvcc each, all at once, with each
      library's seconds; print ptxas's register and spill lines (the
      backward's tape scan and path kernel among them);
@@ -280,8 +282,20 @@ which raises on failure:
      with a state of all four sets through the volume noise build, held
      whole, and alone against the white volume build; the pre-drawn route
      on the cover at 500x500; a flavored wavefront training step at
-     128x128, 16 spp (#4, no batch kernel) and `sphere_field` forward with
-     BLUE on the wavefront's `fast` arm (#3).
+     128x128, 16 spp (#4, no batch kernel) and `wavefront_pass` forward on
+     `sphere_field` with BLUE through the wavefront's `fast` arm (#3).
+ 29. the noise arm beside the other arms (`noise_beside_phases`, ROADMAP
+     step 11b): render_batch at 512x512, depth 8, white then BLUE (and
+     STBN on cornell, cover_motion and mesh_showcase) on each registered
+     scene the step routes to a new noise build (NOISE_BESIDE_SCENES:
+     rects and boxes, volumes beside them, motion, textures, everything
+     in final_book2, a cubemap, the blocked sweep and the triangle and
+     streamed kernels, the last two on the pre-drawn rows with Morton
+     lanes), 16 spp (4 for the streamed meshes), the counters showing
+     the scene's noise build and no wavefront launch; the last flavored
+     batch against the plain version bit for bit on a 16-row band; each
+     build alone at 4 spp against its white twin in turns, with its
+     registers, spills, blocks an SM and bound.
 The plain versions held against a kernel's result (`plain_check`: the
 parity checks, the backward against the plain replay's autograd, the
 AOV gradient on the CPU) run in the check stage, after the last timed
@@ -299,6 +313,7 @@ run's inputs (see `bound`).  The last line is the JSON status.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import glob
 import importlib
@@ -738,7 +753,7 @@ def into(kernel: str, paths: dict | None = None, key: str = "",
     """A record(share, err) for check_parity and parity_rows: err's max
     into the entry `kernel`'s max_abs_err, share's min into paths[key] and
     into the entry's `share_field`, where given."""
-    def record(share: float, err: float) -> None:
+    def record(share: float, err: float, seconds: float = 0.0) -> None:
         late(kernel, "max_abs_err", err)
         if share_field is not None:
             late(kernel, share_field, share, min)
@@ -5669,13 +5684,17 @@ def noise_launch_ms(tables, samples: int, repeats: int, kw: dict,
     else:
         tbl = noise[0].contiguous()
         meta = [int(noise[1][k]) for k in megatrace.NOISE_META_KEYS]
+        scene_c = megatrace.NoiseSceneC(tbl.data_ptr(), *meta, 3, samples, n,
+                                        0, 0)
+        nlib = megatrace.load_noise_kernel()
 
         def call():
-            return lib.rtiw_megatrace_noise(
+            return nlib.rtiw_megatrace_ext_noise(
                 per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
-                sph.data_ptr(), rec.data_ptr(), out.data_ptr(), n, s, 7, 0,
-                samples, kw["trace_depth"], *flags, int(vol0 is not None),
-                tbl.data_ptr(), *meta, 3, 0, 0, stream)
+                sph.data_ptr(), rec.data_ptr(), 0, 0, out.data_ptr(), n, s,
+                0, 0, 0, 0, 7, 0, samples, kw["trace_depth"], *flags,
+                int(vol0 is not None), *(0,) * 9, ctypes.byref(scene_c),
+                stream)
 
     def launch():
         err = call()
@@ -5686,14 +5705,17 @@ def noise_launch_ms(tables, samples: int, repeats: int, kw: dict,
 
 
 def noise_parity(label: str, args: tuple, kwargs: dict, width: int, *,
-                 record, rows: int | None = None) -> None:
+                 record, rows: int | None = None,
+                 bitwise: bool = False) -> None:
     """The noise builds' check on a sample_batch call's inputs (`args`,
     `kwargs`, a flavor's): the kernel on the whole batch, its plain version
-    (through plain_check) on every lane or, with `rows`, on that many image
-    rows at the frame's centre (parity_rows' band; the lanes keep their ids
-    and pixels, the pre-drawn rows their columns).  No tape: the replay has
-    no flavor.  Raise unless >= 99% of the lanes agree (count and rays
-    identical, floats within 1e-4), else record(share, max abs err)."""
+    (through plain_check) on every lane or, with `rows`, on that many
+    image rows' worth of lanes at the batch's centre (parity_rows' band;
+    the lanes keep their ids and pixels, Morton lanes theirs, the
+    pre-drawn rows their columns).  No tape: the replay has no flavor.
+    Raise unless >= 99% of the lanes agree (count and rays identical,
+    floats within 1e-4; with `bitwise` every lane, max abs err 0), else
+    record(share, max abs err)."""
     before = megatrace.NOISE_LAUNCHES
     got = megatrace.sample_batch(*args, **kwargs)
     torch.cuda.synchronize()
@@ -5711,7 +5733,9 @@ def noise_parity(label: str, args: tuple, kwargs: dict, width: int, *,
             kw[key] = kw[key][:, lo:hi].contiguous()
     base = args[9] if len(args) > 9 else kw.pop("lane_base", 0)
     if rows is not None:
-        kw["pixel_index"] = torch.arange(lo, hi, device=args[0].device)
+        pix = kw.get("pixel_index")
+        kw["pixel_index"] = (torch.arange(lo, hi, device=args[0].device)
+                             if pix is None else pix[lo:hi].contiguous())
 
     def finish(want, seconds):
         share, err = lane_agreement(got, want)
@@ -5719,10 +5743,10 @@ def noise_parity(label: str, args: tuple, kwargs: dict, width: int, *,
         print(f"parity {label} (plain version on {where}, {hi - lo} lanes, "
               f"{seconds:.1f} s): {share:.6f} of them identical (count, "
               f"rays; floats within 1e-4), max abs err {err:.3g}")
-        if share < 0.99:
-            raise RuntimeError(f"kernel/plain agreement {share} < 0.99 "
-                               f"({label})")
-        record(share, err)
+        if share < 0.99 or (bitwise and (share < 1.0 or err > 0.0)):
+            raise RuntimeError(f"kernel/plain agreement {share}, max abs "
+                               f"err {err} ({label})")
+        record(share, err, seconds)
 
     plain_check(megatrace.sample_batch_reference,
                 (args[0][lo:hi], args[1][lo:hi], *args[2:9], base + lo), kw,
@@ -5780,9 +5804,10 @@ def noise_phases(dev, card, width: int = 512, spp: int = 64,
         differentiable, BLUE, the sphere centres requiring grad) on the
         cover at `small`x`small`, 16 spp, depth 8 (no batch kernel;
         #4 sphere_select in the differentiable arm), gradients finite and
-        nonzero; and `sphere_field` forward at `small`x`small`, 4 spp with
-        BLUE (no noise arm beside 4,099 spheres: the wavefront's `fast`
-        arm, #3 sphere_select_full on every bounce, no batch kernel).
+        nonzero; and `wavefront_pass` forward on `sphere_field` at
+        `small`x`small`, 4 spp with BLUE (the wavefront's flavored `fast`
+        arm, #3 sphere_select_full on every bounce, no batch kernel;
+        render_batch takes the blocked noise build there, phase 29).
     (`width`, `spp`, `small` and `odd` shrink it for a rehearsal on the
     CPU.)"""
     from raytracing_in_one_weekend_tpu_torch.core import randomsource
@@ -5931,10 +5956,12 @@ def noise_phases(dev, card, width: int = 512, spp: int = 64,
     vinfo = megatrace.noise_kernel_info(
         book_scenes.SCENES["volume"]()[0].spheres.center.shape[0],
         has_vol=True)
-    report = ptxas_report(megatrace.BUILD_LOG, "megatrace_sphere_kernelILb0"
-                          "ELb0ELb0ELb0ELb0ELb0ELb1EE")
-    vreport = ptxas_report(megatrace.BUILD_LOG, "megatrace_sphere_kernelILb0"
-                           "ELb1ELb0ELb0ELb0ELb0ELb1EE")
+    report = ptxas_report(megatrace.NOISE_BUILD_LOG,
+                          "megatrace_sphere_kernelILb0ELb0ELb0ELb0ELb0ELb0"
+                          "ELb1EE")
+    vreport = ptxas_report(megatrace.NOISE_BUILD_LOG,
+                           "megatrace_sphere_kernelILb0ELb1ELb0ELb0ELb0ELb0"
+                           "ELb1EE")
     print(f"noise builds: sphere ptxas {report or '(not built here)'}; "
           f"{info['registers']} registers, {info['local_bytes']} B local a "
           f"thread, {info['blocks']} blocks of 128 an SM; volume ptxas "
@@ -6100,7 +6127,17 @@ def noise_phases(dev, card, width: int = 512, spp: int = 64,
     facc = film.zero_accumulators(small * small, device=dev)
     reset_launches()
     full_before = sphere_select.LAUNCHES["sphere_select_full"]
-    frays, fsecs = forward(fscene, fcam, small, 4, facc, "blue", 0)
+    # the flavored `fast` arm driven directly (render_batch takes the
+    # blocked noise build since step 11b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    facc, frays_px = renderer.wavefront_pass(
+        fscene, fcam, facc, rng.PRNGKey(28), width=small, height=small,
+        samples=4, trace_depth=8, differentiable=False,
+        noise_state=states["blue"], draw_base=0)
+    frays = float(frays_px.sum())
+    torch.cuda.synchronize()
+    fsecs = time.perf_counter() - t0
     full = sphere_select.LAUNCHES["sphere_select_full"] - full_before
     fimg = film.combine(facc, small, small).color
     if (megatrace.LAUNCHES != 0 or megatrace.WAVE_LAUNCHES != 0 or full == 0
@@ -6145,9 +6182,297 @@ def noise_phases(dev, card, width: int = 512, spp: int = 64,
     return {"kernels": kernels, "paths": out}
 
 
-SASS_SOURCES = ("megatrace_batch", "megatrace_wave", "megatrace_bwd",
-                "meshtrace_sync", "meshtrace_permute", "sphere_select",
-                "triangle_select")
+NOISE_BESIDE_SCENES = (
+    # (registered scene, the noise build its flavored forward batch takes
+    # at 512x512 (megatrace.noise_build's names; ROADMAP step 11b's route
+    # table), the spp of its batches: 16, whose plain checks cost a quarter
+    # of a 64-spp batch's (they go with the iterations), and 4 for the
+    # streamed meshes, whose plain version sweeps the triangles block by
+    # block in Python)
+    ("cornell", "aux", 16), ("simple_light", "aux", 16),
+    ("cornell_volumes", "aux+volume", 16), ("cover_motion", "motion", 16),
+    ("checkered", "texture", 16), ("perlin", "texture", 16),
+    ("textured_sphere", "texture", 16),
+    ("final_book2", "aux+volume+motion+texture", 16),
+    ("cubemap", "cube", 16), ("sphere_field", "blocked", 16),
+    ("triangle", "tri", 16), ("mesh_showcase", "tri", 16),
+    ("mesh_large", "stream", 4), ("mesh_huge", "stream", 4))
+NOISE_BESIDE_STBN = ("cornell", "cover_motion", "mesh_showcase")
+NOISE_KEYS = ("noise_tbl", "noise_meta", "noise_draw_base",
+              "noise_uniforms", "noise_cosine")
+
+
+def noise_kernel_name(build: str) -> str:
+    """The JSON line's name of the noise build `build`."""
+    return "megatrace_batch_noise_" + build.replace("+", "_")
+
+
+def noise_build_info(build: str, args: tuple, kw: dict) -> dict:
+    """The occupancy (megatrace.noise_kernel_info) and ptxas's lines of the
+    noise build `build` for a sample_batch call's tables, with its white
+    twin's occupancy where the module reports it."""
+    s = args[3].shape[0]
+    flags = set(build.split("+"))
+    if flags & {"tri", "stream"}:
+        tri = 1 if "tri" in flags else 2
+        name = ("megatrace_tri_kernelILb1EE" if tri == 1
+                else "megatrace_stream_kernelILb1EE")
+        info = megatrace.noise_kernel_info(s, tri=tri)
+        white = megatrace.tri_kernel_info(s) if tri == 1 else None
+    else:
+        aux_rows = sum(t[0].shape[0] for t in (kw.get("rect_tables"),
+                                               kw.get("box_tables"))
+                       if t is not None)
+        n_blk = -(-s // megatrace.SPH_BLOCK) if "blocked" in flags else 0
+        args_info = dict(aux_rows=aux_rows, has_vol="volume" in flags,
+                         has_motion="motion" in flags,
+                         has_tex="texture" in flags, n_blk=n_blk,
+                         has_cube="cube" in flags)
+        bits = [int(f in flags) for f in ("aux", "volume", "motion",
+                                          "texture", "blocked", "cube")]
+        name = ("megatrace_sphere_kernel" + "I" + "E".join(
+            f"Lb{b}" for b in bits + [1]) + "EE")
+        info = megatrace.noise_kernel_info(s, **args_info)
+        white = megatrace.sphere_kernel_info(s, **args_info)
+    return dict(info, ptxas=ptxas_report(megatrace.NOISE_BUILD_LOG, name),
+                white=white)
+
+
+def noise_beside_bound(args: tuple, kw: dict, rays: float, regens: float,
+                       scene) -> tuple[float, str]:
+    """The least time of a flavored batch on these inputs: per bounce the
+    sphere sweep (with motion its moved centres; past SPH_CULL_MIN a slab
+    test a block, the rows it sweeps not counted), the rect and box tests,
+    the volume walk, a slab test a triangle block (the triangle build's
+    lanes each test every block; the triangles tested and the streamed
+    kernel's traversal not counted: a lower bound) and the shading; per
+    regen four camera draws (and the shutter time's), and with the
+    tables' scalar set three scatter draws a bounce (noise_bound's); bytes:
+    lane counts and accumulators, the sphere, rect, box and triangle
+    tables, the noise table or the pre-drawn rows."""
+    s = args[3].shape[0]
+    n = args[0].shape[0]
+    if s > megatrace.SPH_CULL_MIN:
+        per_ray = -(-s // megatrace.SPH_BLOCK) * SLAB_FLOPS
+    else:
+        per_ray = s * (MOTION_SWEEP_FLOPS if kw.get("move_offsets")
+                       is not None else SWEEP_FLOPS)
+    per_ray += (scene.rects.rot.shape[0] * RECT_FLOPS
+                + scene.boxes.rot.shape[0] * BOX_FLOPS + SHADE_FLOPS
+                + (VOL_WALK_FLOPS if kw.get("vol0") is not None else 0))
+    if kw.get("tri_tables") is not None:
+        per_ray += -(-kw["tri_tables"][0].shape[0]
+                     // megatrace.TRI_BLOCK) * SLAB_FLOPS
+    tbl = kw.get("noise_tbl")
+    scalars = tbl is not None and kw["noise_meta"]["scal"] >= 0
+    draws = regens * (4 + (kw.get("move_offsets") is not None)) + (
+        rays * 3 if scalars else 0)
+    tables = [tbl, kw.get("noise_uniforms"), kw.get("noise_cosine"),
+              *(t for pair in (kw.get("rect_tables"), kw.get("box_tables"),
+                               kw.get("tri_tables")) if pair is not None
+                for t in pair)]
+    stream = kw.get("tri_stream_tables")
+    if stream is not None:
+        tables += list(stream)
+    nbytes = (n * 4 * (2 + megatrace.OUT_ROWS) + s * 4 * (4 + 16)
+              + sum(t.numel() * 4 for t in tables if t is not None))
+    return bound(rays * per_ray + draws * NOISE_DRAW_FLOPS, nbytes)
+
+
+def noise_beside_phases(dev, card, width: int = 512, rows: int = 16,
+                        scenes=NOISE_BESIDE_SCENES) -> dict:
+    """Phase 29: the noise arm beside the batch kernel's other arms (ROADMAP
+    step 11b).  For each scene of `scenes` at `width`x`width`, depth 8:
+    (a) render_batch, white then BLUE (and STBN on NOISE_BESIDE_STBN's
+        scenes), 1 warm-up + 2 timed batches each at the scene's spp with
+        the driver's draw bases (median MRays/s), the launch counters set
+        to 0 just before and read just after each flavor's batches: every
+        flavored batch through the scene's noise build (NOISE_BUILDS), no
+        other launch of the batch kernel and none of the wavefront's (#3,
+        #4, #9, triangle_select, the sync sampler); the images finite;
+    (b) the last timed flavored batch against the plain version on `rows`
+        rows' worth of lanes at the batch's centre (noise_parity, bit for
+        bit: every lane, max abs err 0);
+    (c) the noise build alone by CUDA events over sample_batch calls on a
+        4-spp and a 64-spp batch's inputs (the render_batch call of the
+        flavor, recorded) against its white twin (the same call without
+        the flavor), in turns (white, BLUE, BLUE, white; 5 and 2 calls
+        each after a warm-up);
+        its registers, spills and blocks an SM beside the white twin's,
+        and its bound (noise_beside_bound)."""
+    from raytracing_in_one_weekend_tpu_torch.core import randomsource
+    from raytracing_in_one_weekend_tpu_torch.utils.config import NoiseColor
+
+    t_phase = time.perf_counter()
+    registry = {**book_scenes.SCENES, **testbeds.SCENES}
+    colors = {"white": 0, "blue": int(NoiseColor.BLUE),
+              "stbn": int(NoiseColor.SPATIO_TEMPORAL_BLUE)}
+    states = {k: randomsource.make_noise_state(NoiseColor(c), seed=7,
+                                               device=dev)
+              for k, c in colors.items()}
+    gen = torch.Generator().manual_seed(29)
+    n = width * width
+    out, builds = {}, {}
+
+    def forward(scene, cam, samples, acc, flavor, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = renderer.render_batch(
+            scene, cam, acc, gen, width=width, height=width,
+            samples=samples, trace_depth=8, noise_color=colors[flavor],
+            noise_state=states[flavor], draw_base=batch * samples)
+        rays = float(m.total_rays)
+        torch.cuda.synchronize()
+        return rays, time.perf_counter() - t
+
+    def wavefront_launches() -> int:
+        return (sum(sphere_select.LAUNCHES.values())
+                + triangle_select.LAUNCHES + megatrace.WAVE_LAUNCHES
+                + meshtrace.SYNC_LAUNCHES)
+
+    for name, build, spp in scenes:
+        scene, cs = registry[name]()
+        scene = scene.to(dev)
+        camera, _ = batch_inputs(scene, cs, width, width, dev)
+        rates = {}
+        flavors = ("white", "blue") + (("stbn",) if name in NOISE_BESIDE_STBN
+                                       else ())
+        for flavor in flavors:
+            acc = film.zero_accumulators(n, device=dev)
+            reset_launches()
+            megatrace.NOISE_LAUNCHES = 0
+            megatrace.NOISE_BUILDS.clear()
+            with recorded_calls(megatrace, "sample_batch") as calls:
+                runs = []
+                for b in range(3):
+                    calls.clear()  # keep the last batch's call only
+                    runs.append(forward(scene, camera, spp, acc, flavor, b))
+            rates[flavor] = statistics.median(r / t / 1e6
+                                              for r, t in runs[1:])
+            img = film.combine(acc, width, width).color
+            if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0:
+                raise RuntimeError(f"bad {name} {flavor} image: mean "
+                                   f"{float(img.mean())}")
+            if flavor == "white":
+                continue
+            if (megatrace.NOISE_BUILDS != {build: 3}
+                    or megatrace.LAUNCHES != 3 or wavefront_launches()):
+                raise RuntimeError(
+                    f"{name} with {flavor}: noise builds "
+                    f"{megatrace.NOISE_BUILDS}, batch kernel launches "
+                    f"{megatrace.LAUNCHES}, wavefront launches "
+                    f"{wavefront_launches()}; want 3 of {build}")
+            b = builds.setdefault(build, dict(launches=0, scenes={}))
+            b["launches"] += megatrace.NOISE_BUILDS[build]
+            (args, kwargs, _), = calls
+            route = "tables" if kwargs.get("noise_tbl") is not None \
+                else "pre_drawn"
+
+            def record(share, err, seconds=0.0,
+                       kname=noise_kernel_name(build),
+                       key=f"{name}_{flavor}_parity_share"):
+                late(kname, "max_abs_err", err)
+                late(kname, "plain_ms", seconds * 1e3)  # the longest band
+                out[key] = share
+
+            noise_parity(f"noise build {build}, {flavor} ({route}), {name} "
+                         f"{width}x{width} {spp} spp main-path batch", args,
+                         kwargs, width, record=record,
+                         rows=min(rows, width), bitwise=True)
+            if route == "pre_drawn" and flavor == "blue":
+                # the pre-drawn rows' share of a batch: their packing (and
+                # permuting) on the card, against the batch's wall time
+                order = kwargs.get("pixel_index")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    packed = renderer.noise_args(
+                        route, states[flavor], acc, width, width, spp, 8, 0,
+                        order)
+                torch.cuda.synchronize()
+                pre_s = (time.perf_counter() - t0) / 3
+                mb = sum(v.numel() * 4 for v in packed.values()
+                         if torch.is_tensor(v)) / 1e6
+                batch_s = statistics.median(t for _, t in runs[1:])
+                out[f"{name}_pre_drawn_share"] = pre_s / batch_s
+                print(f"pre-drawn rows: {name} {width}x{width} {spp} spp, "
+                      f"{mb:.1f} MB a batch, packed in {pre_s * 1e3:.3f} "
+                      f"ms of a {batch_s * 1e3:.3f} ms batch "
+                      f"({pre_s / batch_s:.1%}) [{card}]")
+                del packed
+            del calls, args, kwargs
+        line = ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
+        print(f"noise beside: {name} {width}x{width} depth 8, {spp} "
+              f"spp/batch through {build}: median MRays/s of 2 batches "
+              f"{line} [{card}]")
+        out[f"{name}_fwd_mrays"] = rates
+        b = builds[build]
+        b["scenes"][name] = rates
+        if "ms" in b:
+            continue  # the build alone: on its first scene
+        # ---- (c) the build alone at 4 and 64 spp -------------------------
+        for few, reps in ((4, 5), (64, 2)):
+            with recorded_calls(megatrace, "sample_batch") as calls:
+                forward(scene, camera, few,
+                        film.zero_accumulators(n, device=dev), "blue", 0)
+            (args, kwargs, res), = calls
+            white_kw = {k: v for k, v in kwargs.items()
+                        if k not in NOISE_KEYS}
+            timed = {"white": [], "blue": []}
+            for flavor in ("white", "blue", "blue", "white"):
+                timed[flavor].append(time_batch(
+                    megatrace.sample_batch, *args, repeats=reps,
+                    **(kwargs if flavor == "blue" else white_kw))[0])
+            rays = float(res["rays"].sum())
+            bnd = noise_beside_bound(args, kwargs, rays,
+                                     float(args[0].sum()), scene)
+            if few == 4:
+                b.update(ms=statistics.mean(timed["blue"]),
+                         white_ms=statistics.mean(timed["white"]), bound=bnd,
+                         **noise_build_info(build, args, kwargs))
+            else:
+                b.update(ms_64spp=statistics.mean(timed["blue"]),
+                         white_ms_64spp=statistics.mean(timed["white"]),
+                         bound_ms_64spp=bnd[0])
+            ms = statistics.mean(timed["blue"])
+            print(f"noise build {build} alone, {name} {width}x{width} {few} "
+                  f"spp, depth 8 (CUDA events over sample_batch calls, in "
+                  f"turns): blue {timed['blue']} ms against its white "
+                  f"twin's {timed['white']} ms "
+                  f"({ms / statistics.mean(timed['white']) - 1:+.1%}); "
+                  f"{rays:.0f} bounces, bound {bnd[0]:.4f} ms by {bnd[1]} "
+                  f"({bnd[0] / ms:.1%}) [{card}]")
+            del calls, args, kwargs, res
+        print(f"noise build {build}: {b['registers']} registers, "
+              f"{b['local_bytes']} B local, {b['blocks']} blocks an SM "
+              f"(white twin: {b['white'] or 'not reported'}); ptxas "
+              f"{b['ptxas'] or '(not built here)'} [{card}]")
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
+
+    kernels = [{
+        "name": noise_kernel_name(build), "route": "cuda",
+        "source": "raytracing_in_one_weekend_tpu_torch/csrc/"
+                  "megatrace_batch.cu",
+        "replaces": "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py"
+                    ":2457",
+        "launches": b["launches"], "max_abs_err": None, "ms": b["ms"],
+        # the plain version on its checks' bands (set after the check
+        # stage: the longest)
+        "plain_ms": None,
+        "plain_lanes": min(rows, width) * width,
+        "bound_ms": b["bound"][0], "bound_by": b["bound"][1],
+        "library_ms": None, "white_ms": b["white_ms"],
+        "ms_64spp": b["ms_64spp"], "white_ms_64spp": b["white_ms_64spp"],
+        "bound_ms_64spp": b["bound_ms_64spp"],
+        "registers": b["registers"], "local_bytes": b["local_bytes"],
+        "blocks_per_sm": b["blocks"], "fwd_mrays": b["scenes"],
+    } for build, b in builds.items()]
+    return {"kernels": kernels, "paths": out}
+
+
+SASS_SOURCES = ("megatrace_batch", "megatrace_noise", "megatrace_wave",
+                "megatrace_bwd", "meshtrace_sync", "meshtrace_permute",
+                "sphere_select", "triangle_select")
 # kernels this tree changed on purpose, with the kernel that replaced each
 SASS_CHANGED: dict[str, str] = {
     "megatrace_batch_kernel": "the triangle build, replaced by "
@@ -6201,7 +6526,10 @@ def turn_readings() -> dict:
     for load in (megatrace.load_kernel, megatrace.load_wave_kernel,
                  megatrace_bwd.load_kernel, meshtrace.load_sync_kernel,
                  meshtrace.load_permute_kernel, sphere_select.load_kernel,
-                 triangle_select.load_kernel):
+                 triangle_select.load_kernel,
+                 # a tree before the noise builds had a source of their own
+                 # has none
+                 getattr(megatrace, "load_noise_kernel", lambda: None)):
         load()  # every source, so that --against reads its SASS
     width = 512
     n = width * width
@@ -6283,13 +6611,15 @@ def sass_functions(lib: str) -> dict:
             name = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
                           name)
             name = re.sub(r"(ILb\d(?:ELb\d)*?)(?:ELb0)+EE", r"\1EE", name)
-            # the sphere build, a template since its aux build, and the
-            # per-ray megatrace, one since its build for big scenes:
-            # compare each <false> instance with the kernel it was (their
-            # parameter lists differ by the later builds', which come last)
+            # the sphere build, a template since its aux build, the
+            # per-ray megatrace, one since its build for big scenes, and
+            # the triangle build and the streamed kernel, since their
+            # noise builds: compare each <false> instance with the kernel
+            # it was (their parameter lists differ by the later builds',
+            # which come last)
             name = re.sub(
-                r"(\d+megatrace_(?:sphere|wave)_kernel)(?:ILb0EEEv|E)\S*",
-                r"\1<false>", name)
+                r"(\d+megatrace_(?:sphere|wave|tri|stream)_kernel)"
+                r"(?:ILb0EEEv|E)\S*", r"\1<false>", name)
             # every other template kernel by its template arguments (the
             # motion and texture builds added parameters last)
             name = re.sub(r"(I(?:Lb\dE)+E)Ev\S*", r"\1", name)
@@ -6300,11 +6630,12 @@ def sass_functions(lib: str) -> dict:
 
 
 def build_libraries() -> dict:
-    """Build (where not built yet) and load the seven kernel sources, one
+    """Build (where not built yet) and load the eight kernel sources, one
     nvcc each, all started together: {source: seconds until its library
     loaded}."""
     loaders = dict(
         megatrace_batch=megatrace.load_kernel,
+        megatrace_noise=megatrace.load_noise_kernel,
         megatrace_bwd=megatrace_bwd.load_kernel,
         sphere_select=sphere_select.load_kernel,
         megatrace_wave=megatrace.load_wave_kernel,
@@ -6362,26 +6693,30 @@ def compare_sass(other: str) -> bool:
     function; prints each and returns whether every kernel `other` has,
     but those SASS_CHANGED names, is identical here."""
     same = True
+    # by kernel across the sources: a kernel may move to another source (the
+    # noise builds of step 11 to megatrace_noise.cu)
+    theirs, mine = ({}, {})
     for src in SASS_SOURCES:
-        libs = [sorted(glob.glob(os.path.join(
-            root, "raytracing_in_one_weekend_tpu_torch", "_build",
-            f"lib{src}_*.so")), key=os.path.getmtime)[-1]
-            for root in (other, ROOT)]
-        theirs, mine = (sass_functions(lib) for lib in libs)
-        for name, code in theirs.items():
-            if "megatrace_batch_kernelILb" in name and "ELb1EE" in name:
-                continue  # the streamed build, now a kernel of its own
-            why = [v for k, v in SASS_CHANGED.items() if k in name]
-            if why:
-                print(f"SASS {src} {name}: {len(code)} instructions, changed "
-                      f"on purpose ({why[0]})")
-                continue
-            equal = mine.get(name) == code
-            same &= equal
-            print(f"SASS {src} {name}: {len(code)} instructions, "
-                  f"{'identical' if equal else 'DIFFERENT'}")
-        for name in mine.keys() - theirs.keys():
-            print(f"SASS {src} {name}: {len(mine[name])} instructions, new")
+        for root, funcs in ((other, theirs), (ROOT, mine)):
+            libs = sorted(glob.glob(os.path.join(
+                root, "raytracing_in_one_weekend_tpu_torch", "_build",
+                f"lib{src}_*.so")), key=os.path.getmtime)
+            if libs:  # a source the tree does not have has no library
+                funcs.update(sass_functions(libs[-1]))
+    for name, code in theirs.items():
+        if "megatrace_batch_kernelILb" in name and "ELb1EE" in name:
+            continue  # the streamed build, now a kernel of its own
+        why = [v for k, v in SASS_CHANGED.items() if k in name]
+        if why:
+            print(f"SASS {name}: {len(code)} instructions, changed on "
+                  f"purpose ({why[0]})")
+            continue
+        equal = mine.get(name) == code
+        same &= equal
+        print(f"SASS {name}: {len(code)} instructions, "
+              f"{'identical' if equal else 'DIFFERENT'}")
+    for name in mine.keys() - theirs.keys():
+        print(f"SASS {name}: {len(mine[name])} instructions, new")
     print(f"SASS of every other kernel of the {len(SASS_SOURCES)} sources: "
           f"{'identical' if same else 'not identical'}")
     return same
@@ -6405,10 +6740,11 @@ def main() -> int:
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     seconds = build_libraries()
-    print(f"build: the seven sources in {time.perf_counter() - t0:.1f} s ("
+    print(f"build: the eight sources in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{k}.cu {v:.1f} s" for k, v in seconds.items())
           + ", one nvcc each, all started together)")
     for name, log in (("megatrace_batch", megatrace.BUILD_LOG),
+                      ("megatrace_noise", megatrace.NOISE_BUILD_LOG),
                       ("megatrace_bwd", megatrace_bwd.BUILD_LOG),
                       ("sphere_select", sphere_select.BUILD_LOG),
                       ("megatrace_wave", megatrace.WAVE_BUILD_LOG),
@@ -6581,6 +6917,7 @@ def main() -> int:
     field = sphere_field_phases(dev, card)
     cube = cube_phases(dev, card)
     noise = noise_phases(dev, card)
+    beside = noise_beside_phases(dev, card)
     run_check_stage()
 
     kernels = [{
@@ -6636,7 +6973,7 @@ def main() -> int:
     }] + wave["kernels"] + mesh["kernels"] + streamed["kernels"] \
         + aux["kernels"] + vol["kernels"] + motion["kernels"] \
         + texture["kernels"] + field["kernels"] + cube["kernels"] \
-        + noise["kernels"]
+        + noise["kernels"] + beside["kernels"]
     apply_late(kernels)
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the "
           "card's check to here")
@@ -6654,7 +6991,8 @@ def main() -> int:
         "streamed": streamed["paths"], "aux": aux["paths"],
         "volume": vol["paths"], "motion": motion["paths"],
         "texture": texture["paths"], "sphere_field": field["paths"],
-        "cube": cube["paths"], "noise": noise["paths"]}))
+        "cube": cube["paths"], "noise": noise["paths"],
+        "noise_beside": beside["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

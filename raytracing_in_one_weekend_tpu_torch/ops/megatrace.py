@@ -41,8 +41,10 @@ streamed meshes) and the deltas stay in lane order.
   lanes, a Python loop over iterations, lanes processed in chunks so the
   (spheres or triangles, lanes) sweep temporaries stay bounded.
 * `csrc/megatrace_batch.cu` holds the hand-written CUDA kernels for
-  Hopper: one thread per lane, path state in registers, sphere geometry
-  staged in shared memory.  Sphere scenes take `megatrace_sphere_kernel`,
+  Hopper (their code in `csrc/megatrace_batch.cuh`, the noise builds'
+  entry points in `csrc/megatrace_noise.cu`, `load_noise_kernel`): one
+  thread per lane, path state in registers, sphere geometry staged in
+  shared memory.  Sphere scenes take `megatrace_sphere_kernel`,
   whose warps run 8x4 pixel tiles of lanes (`tile_lane_order` is the
   map's plain twin); scenes with rects or boxes its aux build, which
   stages them beside the spheres and sweeps them after (`AUX_LAUNCHES`
@@ -55,10 +57,10 @@ streamed meshes) and the deltas stay in lane order.
   read-only cache (`BLOCKED_LAUNCHES`); cubemap skies its cube builds,
   beside spheres alone or beside one of rects and boxes, volumes, motion
   and textures, the faces read through the read-only cache
-  (`CUBE_LAUNCHES`); a sampler flavor, in sphere scenes of at most
-  SPH_CULL_MIN spheres and beside convex volumes, its noise builds, which
-  draw from the flavor's tables (`pack_noise_tables`) or pre-drawn rows
-  (`NOISE_LAUNCHES`); meshes of at most
+  (`CUBE_LAUNCHES`); a sampler flavor the noise build of each (and of
+  the triangle build and the streamed kernel), which draws from the
+  flavor's tables (`pack_noise_tables`) or pre-drawn rows
+  (`NOISE_LAUNCHES`, `NOISE_BUILDS`); meshes of at most
   TRI_MAX triangles take `megatrace_tri_kernel` (`TRI_LAUNCHES`), whose
   warps deal the tests of the lanes that sweep a triangle block to all 32
   threads (`tri_loop_slots` is the plain model of that loop and of the
@@ -136,7 +138,8 @@ CUBE_LAUNCHES = 0  # ... of them, launches of the cube builds (a cubemap sky
 #   beside spheres alone, or beside one of rects and boxes, volumes, motion
 #   and textures)
 NOISE_LAUNCHES = 0  # ... of them, launches of the noise builds (a sampler
-#   flavor: spheres alone, volumes beside spheres)
+#   flavor; counted in no other family's counter)
+NOISE_BUILDS: dict[str, int] = {}  # ... of those, by build (noise_build)
 TRI_LAUNCHES = 0  # ... of them, launches of the triangle build (meshes of
 #   at most TRI_MAX triangles)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
@@ -197,15 +200,9 @@ NOISE_WRAP = 8192  # the in-kernel flavored draw counter wraps mod 2^13:
 NOISE_SALT_STEP = 101.0  # per-purpose salt step of the R2 offsets
 NOISE_R2 = (0.7548776662466927, 0.5698402909980532)  # R2 alphas (R2.cs)
 NOISE_CP_STEP = 0.3819660113  # Cranley-Patterson shift between channels
-NOISE_SALTS = dict(cam=0, cos=1, scal=2, uv3=13)  # purposes: the camera
-#   draws, the Lambert cosine, the seven scatter scalars (2-8), the
-#   isotropic volume direction (the shutter time's, 9, waits for the
-#   motion builds' noise arm, step 11b)
-NOISE_BESIDE = ("sampler flavors in the batch kernel's builds beside rects, "
-                "boxes, motion, textures, a cubemap, triangles or more than "
-                f"{SPH_CULL_MIN} spheres (the noise arm is in the sphere "
-                "build and the volume build beside spheres; ROADMAP queue 1, "
-                "step 11b)")
+NOISE_SALTS = dict(cam=0, cos=1, scal=2, time=9, uv3=13)  # purposes: the
+#   camera draws, the Lambert cosine, the seven scatter scalars (2-8), the
+#   shutter time, the isotropic volume direction
 
 
 # ---------------------------------------------------------------------------
@@ -304,21 +301,6 @@ def unsupported_feature(scene, allow_triangles: bool = False,
         return (f"more than {AUX_MAX} rects and boxes: the kernels stage "
                 "them in shared memory (ROADMAP queue 1, step 7)")
     return unported_feature(scene)
-
-
-def noise_beside(scene) -> str | None:
-    """NOISE_BESIDE when the batch kernel's build for `scene` has no noise
-    arm (rects or boxes, motion, textures, a cubemap, triangles, more than
-    SPH_CULL_MIN spheres: the renderer then traces a flavor on the
-    wavefront), else None (spheres alone, or convex volumes beside
-    them)."""
-    if (scene.triangles.vert0.shape[0] > 0
-            or scene.rects.rot.shape[0] + scene.boxes.rot.shape[0] > 0
-            or scene.flags.has_motion or scene.flags.has_procedural_textures
-            or scene.flags.sky == 2
-            or scene.spheres.center.shape[0] > SPH_CULL_MIN):
-        return NOISE_BESIDE
-    return None
 
 
 def scene_eligible(scene, allow_triangles: bool = False,
@@ -2082,8 +2064,9 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
     accumulators and fills `tape` ((samples*trace_depth, C) or None).
     With `vol0` (camera_containment_row) each lane carries its medium,
     reset from vol0 at every regen; with `move` ((S, 3) move offsets) its
-    shutter time, drawn at every regen from the camera draws' stream 7
-    (the JAX kernel's :2745-2760); with `blocks` (pack_sphere_blocks'
+    shutter time, drawn at every regen from the camera draws' stream 7,
+    or with a flavor's tables and scalar set from that set (purpose 9,
+    rotated; the JAX kernel's :2745-2760); with `blocks` (pack_sphere_blocks'
     (table, rows)) the blocked sphere sweep; with `cube` (pack_cubemap_table's
     table and (w, h)) the cubemap sky; with `noise` (NoiseArgs) a sampler
     flavor's draws: from the tables, keyed by the draw counter (draw_base +
@@ -2175,7 +2158,12 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
             for k, value in zip(VOL_KEYS, vol0):
                 med[k] = torch.where(regen, value, med[k])
         if move is not None:  # the path's shutter time
-            ptime = torch.where(regen, u[7], ptime)
+            t_draw = u[7]
+            if noise is not None and tbl is not None and meta["scal"] >= 0:
+                t_draw = noise_rows(tbl, meta, "scal", 1, seq,
+                                    NOISE_SALTS["time"], px_i, py_i,
+                                    t_set=meta["scalT"], rotate=True)[0]
+            ptime = torch.where(regen, t_draw, ptime)
 
         # ---- one bounce ------------------------------------------------
         u = uniforms_hash(seed, salt + SALT_BOUNCE, lanes,
@@ -2446,6 +2434,42 @@ def sample_batch_reference(
 
 _KERNEL = None  # the loaded library, built at first use
 BUILD_LOG = ""  # nvcc's output of the build this process made, if any
+_NOISE_KERNEL = None  # ... of the noise builds (megatrace_noise.cu)
+NOISE_BUILD_LOG = ""
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the entry points' argument types, and where each has its `out` (the
+# noise builds' entries take them without the tape after `out`, then a
+# NoiseSceneC by pointer before the stream)
+_ENTRY_ARGS = dict(
+    batch=([
+        _P, _P, _P, _P, _P, _P,  # lane_count count_in pixel consts sph rec
+        _P, _P, _P, _P, _P, _P,  # tri_geo tri_aabb tri_sup tri_rec out tape
+        _I, _I, _I, _I, _I, _I,  # n s tri_rows tri_blocks tri_supers code_base
+        _I, _I, _I, _I,  # seed lane_base samples trace_depth
+        ctypes.c_float, _I, _I, _I,  # t_min has_diel sky_on jitter
+        _P,  # stream
+    ], 10),
+    ext=([
+        _P, _P, _P, _P, _P,  # lane_count count_in consts sph rec
+        _P, _P, _P, _P,  # aux_geo aux_rec out tape
+        _I, _I, _I, _I, _I, _I,  # n s rect_rows box_rows rect_code box_code
+        _I, _I, _I, _I,  # seed lane_base samples trace_depth
+        ctypes.c_float, _I, _I, _I,  # t_min has_diel sky_on jitter
+        _I, _P, _P, _P, _P,  # has_vol move tex_rec perlin atlas
+        _I, _I, _P, _I, _I,  # img_w img_h cube cube_w cube_h
+        _P,  # stream
+    ], 7),
+    blocked=([
+        _P, _P, _P, _P, _P, _P,  # lane_count count_in consts sph rec blocks
+        _P, _P, _P,  # move out tape
+        _I, _I, _I, _I,  # n s blocks rows
+        _I, _I, _I, _I,  # seed lane_base samples trace_depth
+        ctypes.c_float, _I, _I, _I,  # t_min has_diel sky_on jitter
+        _P,  # stream
+    ], 7),
+)
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -2455,48 +2479,11 @@ def load_kernel() -> ctypes.CDLL:
         from raytracing_in_one_weekend_tpu_torch.ops import cuda_build
 
         lib, BUILD_LOG = cuda_build.build_library("megatrace_batch.cu")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rtiw_megatrace_batch.argtypes = [
-            p, p, p, p, p, p,  # lane_count count_in pixel consts sph rec
-            p, p, p, p, p, p,  # tri_geo tri_aabb tri_sup tri_rec out tape
-            i, i, i, i, i, i,  # n s tri_rows tri_blocks tri_supers code_base
-            i, i, i, i,  # seed lane_base samples trace_depth
-            ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
-            p,  # stream
-        ]
-        lib.rtiw_megatrace_batch.restype = ctypes.c_int
-        lib.rtiw_megatrace_ext.argtypes = [
-            p, p, p, p, p,  # lane_count count_in consts sph rec
-            p, p, p, p,  # aux_geo aux_rec out tape
-            i, i, i, i, i, i,  # n s rect_rows box_rows rect_code box_code
-            i, i, i, i,  # seed lane_base samples trace_depth
-            ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
-            i, p, p, p, p,  # has_vol move tex_rec perlin atlas
-            i, i, p, i, i,  # img_w img_h cube cube_w cube_h
-            p,  # stream
-        ]
-        lib.rtiw_megatrace_ext.restype = ctypes.c_int
-        lib.rtiw_megatrace_blocked.argtypes = [
-            p, p, p, p, p, p,  # lane_count count_in consts sph rec blocks
-            p, p, p,  # move out tape
-            i, i, i, i,  # n s blocks rows
-            i, i, i, i,  # seed lane_base samples trace_depth
-            ctypes.c_float, i, i, i,  # t_min has_diel sky_on jitter
-            p,  # stream
-        ]
-        lib.rtiw_megatrace_blocked.restype = ctypes.c_int
-        lib.rtiw_megatrace_noise.argtypes = [
-            p, p, p, p, p, p,  # lane_count count_in consts sph rec out
-            i, i, i, i, i, i,  # n s seed lane_base samples trace_depth
-            ctypes.c_float, i, i, i, i,  # t_min has_diel sky_on jitter vol
-            p, i, i, i, i, i, i, i, i,  # tbl size T cam cos scal scalT uv3
-            #   draw_base
-            p, p,  # pre-drawn uniforms, cosine
-            p,  # stream
-        ]
-        lib.rtiw_megatrace_noise.restype = ctypes.c_int
-        lib.rtiw_megatrace_noise_info.argtypes = [i, i, p]
-        lib.rtiw_megatrace_noise_info.restype = ctypes.c_int
+        p, i = _P, _I
+        for fn, (types, _) in _ENTRY_ARGS.items():
+            entry = getattr(lib, f"rtiw_megatrace_{fn}")
+            entry.argtypes = types
+            entry.restype = ctypes.c_int
         lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, i, i, p]
         lib.rtiw_megatrace_ext_info.restype = ctypes.c_int
         lib.rtiw_megatrace_tri_info.argtypes = [i, p]
@@ -2505,6 +2492,31 @@ def load_kernel() -> ctypes.CDLL:
         lib.rtiw_tile_lanes.restype = ctypes.c_int
         _KERNEL = lib
     return _KERNEL
+
+
+def load_noise_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load csrc/megatrace_noise.cu, the noise
+    builds' entry points: each white entry point's arguments but the tape,
+    then a NoiseSceneC by pointer."""
+    global _NOISE_KERNEL, NOISE_BUILD_LOG
+    if _NOISE_KERNEL is None:
+        from raytracing_in_one_weekend_tpu_torch.ops import cuda_build
+
+        lib, NOISE_BUILD_LOG = cuda_build.build_library("megatrace_noise.cu")
+        p, i = _P, _I
+        for fn, (types, out) in _ENTRY_ARGS.items():
+            entry = getattr(lib, f"rtiw_megatrace_{fn}_noise")
+            entry.argtypes = types[:out + 1] + types[out + 2:-1] + [p, p]
+            entry.restype = ctypes.c_int
+        lib.rtiw_megatrace_noise_info.argtypes = [i] * 8 + [p]
+        lib.rtiw_megatrace_noise_info.restype = ctypes.c_int
+        lib.rtiw_noise_scene_bytes.restype = ctypes.c_int
+        if lib.rtiw_noise_scene_bytes() != ctypes.sizeof(NoiseSceneC):
+            raise RuntimeError("megatrace_noise.cu's NoiseScene is "
+                               f"{lib.rtiw_noise_scene_bytes()} bytes, "
+                               f"NoiseSceneC {ctypes.sizeof(NoiseSceneC)}")
+        _NOISE_KERNEL = lib
+    return _NOISE_KERNEL
 
 
 def sphere_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
@@ -2526,13 +2538,19 @@ def sphere_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
 
 
-def noise_kernel_info(s: int, has_vol: bool = False) -> dict:
-    """The noise build's occupancy with an s-sphere table on the current
-    card (beside spheres alone, or with has_vol the volume build's):
-    blocks an SM (the occupancy API), registers a thread and local memory
-    (stack and spills) a thread in bytes."""
+def noise_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
+                      has_motion: bool = False, has_tex: bool = False,
+                      n_blk: int = 0, has_cube: bool = False,
+                      tri: int = 0) -> dict:
+    """The occupancy of the noise build of sphere_kernel_info's build (the
+    same arguments; or with tri 1 the triangle build's, tri 2 the streamed
+    kernel's) with an s-sphere table on the current card: blocks an SM
+    (the occupancy API), registers a thread and local memory (stack and
+    spills) a thread in bytes."""
     info = (ctypes.c_int * 3)()
-    err = load_kernel().rtiw_megatrace_noise_info(int(s), int(has_vol), info)
+    err = load_noise_kernel().rtiw_megatrace_noise_info(
+        int(s), int(aux_rows), int(has_vol), int(has_motion), int(has_tex),
+        int(n_blk), int(has_cube), int(tri), info)
     if err != 0:
         raise RuntimeError(f"megatrace_sphere_kernel noise info: cudaError "
                            f"{err}")
@@ -2701,6 +2719,39 @@ def _check_aux_tables(rect_tables, box_tables, dev) -> None:
 NOISE_META_KEYS = ("size", "T", "cam", "cos", "scal", "scalT", "uv3")
 
 
+class NoiseSceneC(ctypes.Structure):
+    """csrc/megatrace_bounce.cuh's NoiseScene, which the kernel's *_noise
+    entry points take by pointer (they fill in samples and n)."""
+
+    _fields_ = ([("tbl", ctypes.c_void_p)]
+                + [(k, ctypes.c_int) for k in ("size", "t", "cam", "cos",
+                                               "scal", "scal_t", "uv3",
+                                               "draw_base", "samples", "n")]
+                + [("uni", ctypes.c_void_p), ("cosr", ctypes.c_void_p)])
+
+
+def noise_build(s: int, *, rect_tables=None, box_tables=None, vol0=None,
+                move_offsets=None, tex_tables=None, cube=None,
+                tri_tables=None, tri_stream_tables=None, **_) -> str:
+    """The noise build a flavored sample_batch call with these tables
+    takes, as NOISE_BUILDS counts it: "stream", "tri", "blocked" (or
+    "blocked+motion") past SPH_CULL_MIN spheres, else the sphere kernel's
+    flags joined by "+" ("aux", "volume", "motion", "texture", "cube";
+    "sphere" without any)."""
+    if tri_stream_tables is not None:
+        return "stream"
+    if tri_tables is not None:
+        return "tri"
+    if s > SPH_CULL_MIN:
+        return "blocked+motion" if move_offsets is not None else "blocked"
+    flags = [name for name, on in (
+        ("aux", rect_tables is not None or box_tables is not None),
+        ("volume", vol0 is not None), ("motion", move_offsets is not None),
+        ("texture", tex_tables is not None), ("cube", cube is not None))
+        if on]
+    return "+".join(flags) or "sphere"
+
+
 def _check_noise(n, samples, want_tape, noise_tbl, noise_meta,
                  noise_uniforms, noise_cosine) -> None:
     """sample_batch's checks of a sampler flavor's inputs."""
@@ -2741,9 +2792,6 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                        tex_tables=None, cube=None, cube_dims=(0, 0),
                        noise_tbl=None, noise_meta=None, noise_draw_base=0,
                        noise_uniforms=None, noise_cosine=None):
-    global LAUNCHES, AUX_LAUNCHES, VOL_LAUNCHES, MOTION_LAUNCHES
-    global TEX_LAUNCHES, BLOCKED_LAUNCHES, CUBE_LAUNCHES, TRI_LAUNCHES
-    global NOISE_LAUNCHES
     dev = centers.device
     tensors = dict(lane_count=lane_count, count_in=count_in,
                    camera_row=camera_row, centers=centers, radii=radii,
@@ -2826,50 +2874,65 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
     tape = (torch.empty((samples * trace_depth, n), dtype=torch.float32,
                         device=dev) if want_tape else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    noise = None
     if any(t is not None for t in (noise_tbl, noise_uniforms, noise_cosine)):
-        # sample_batch refused every other table and the tape
-        rows = [None if t is None
-                else t.detach().to(device=dev, dtype=torch.float32)
-                .contiguous()
-                for t in (noise_tbl, noise_uniforms, noise_cosine)]
+        # a flavor: the noise build of the build the tables pick (no tape:
+        # sample_batch refused it)
+        noise_rows = [None if t is None
+                      else t.detach().to(device=dev, dtype=torch.float32)
+                      .contiguous()
+                      for t in (noise_tbl, noise_uniforms, noise_cosine)]
         meta = ([int(noise_meta[k]) for k in NOISE_META_KEYS]
                 if noise_tbl is not None else [0, 0, 0, -1, -1, 0, -1])
-        err = lib.rtiw_megatrace_noise(
-            per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
-            sph.data_ptr(), rec.data_ptr(), out.data_ptr(), n, s, int(seed),
-            int(lane_base), samples, trace_depth, float(t_min),
-            int(has_dielectrics), int(sky_on), int(jitter),
-            int(vol0 is not None),
-            0 if rows[0] is None else rows[0].data_ptr(), *meta,
+        tbl, uni, cosr = (0 if t is None else t.data_ptr()
+                          for t in noise_rows)
+        noise = ctypes.byref(NoiseSceneC(
             # the draw base through float32, as the JAX kernel's pix row 4
-            int(np.float32(noise_draw_base)),
-            *(0 if t is None else t.data_ptr() for t in rows[1:]), stream)
-        if err != 0:
-            raise RuntimeError(f"megatrace_batch noise build launch failed: "
-                               f"cudaError {err}")
+            tbl, *meta, int(np.float32(noise_draw_base)), samples, n, uni,
+            cosr))
+
+    def counted(family: str | None) -> dict:
+        """Count the launch in LAUNCHES and in its build's counter: the
+        module global `family` (or none), or the noise builds'."""
+        global LAUNCHES, NOISE_LAUNCHES
         LAUNCHES += 1
-        NOISE_LAUNCHES += 1
+        if noise is None:
+            if family is not None:
+                globals()[family] += 1
+        else:
+            NOISE_LAUNCHES += 1
+            key = noise_build(s, rect_tables=rect_tables,
+                              box_tables=box_tables, vol0=vol0,
+                              move_offsets=move_offsets,
+                              tex_tables=tex_tables, cube=cube,
+                              tri_tables=tri_tables,
+                              tri_stream_tables=tri_stream_tables)
+            NOISE_BUILDS[key] = NOISE_BUILDS.get(key, 0) + 1
         return _outputs(out, tape)
+
     if s > SPH_CULL_MIN:  # sample_batch refused every other table
         move = None if move_offsets is None else move_table(move_offsets)
         table = pack_sphere_blocks(centers, radii, move_offsets)
-        err = lib.rtiw_megatrace_blocked(
-            per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
-            sph.data_ptr(), rec.data_ptr(), table.data_ptr(),
-            0 if move is None else move.data_ptr(), out.data_ptr(),
-            0 if tape is None else tape.data_ptr(), n, s,
-            -(-s // SPH_BLOCK), SPH_BLOCK, int(seed), int(lane_base),
-            samples, trace_depth, float(t_min), int(has_dielectrics),
-            int(sky_on), int(jitter), stream)
+        head = (per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+                sph.data_ptr(), rec.data_ptr(), table.data_ptr(),
+                0 if move is None else move.data_ptr(), out.data_ptr())
+        tail = (n, s, -(-s // SPH_BLOCK), SPH_BLOCK, int(seed),
+                int(lane_base), samples, trace_depth, float(t_min),
+                int(has_dielectrics), int(sky_on), int(jitter))
+        err = (lib.rtiw_megatrace_blocked(
+            *head, 0 if tape is None else tape.data_ptr(), *tail, stream)
+            if noise is None else
+            load_noise_kernel().rtiw_megatrace_blocked_noise(
+                *head, *tail, noise, stream))
         if err != 0:
             raise RuntimeError(f"megatrace_batch blocked build launch "
                                f"failed: cudaError {err}")
-        LAUNCHES += 1
-        BLOCKED_LAUNCHES += 1
-        return _outputs(out, tape)
+        return counted("BLOCKED_LAUNCHES")
     has_aux = rect_tables is not None or box_tables is not None
     if (has_aux or vol0 is not None or move_offsets is not None
-            or tex_tables is not None or cube is not None):
+            or tex_tables is not None or cube is not None
+            or (noise is not None and tri_tables is None
+                and tri_stream_tables is None)):
         aux_geo = aux_rec = None
         rect_rows = box_rows = 0
         if has_aux:
@@ -2877,59 +2940,55 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
             aux_geo, aux_rec, rect_rows, box_rows = kernel_aux_tables(
                 rect_tables, box_tables)
         rect_code, box_code = aux_code_bases(s, rect_tables)
-        args = (per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
+        head = (per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
                 sph.data_ptr(), rec.data_ptr(),
                 0 if aux_geo is None else aux_geo.data_ptr(),
-                0 if aux_rec is None else aux_rec.data_ptr(), out.data_ptr(),
-                0 if tape is None else tape.data_ptr(), n, s, rect_rows,
-                box_rows, rect_code, box_code, int(seed), int(lane_base),
-                samples, trace_depth, float(t_min), int(has_dielectrics),
-                int(sky_on), int(jitter))
+                0 if aux_rec is None else aux_rec.data_ptr(), out.data_ptr())
         move = None if move_offsets is None else move_table(move_offsets)
         trec, perlin, atlas, (img_w, img_h) = (
             (None, None, None, (0, 0)) if tex_tables is None
             else kernel_tex_tables(tex_tables, dev))
         cube_t = None if cube is None else kernel_cube(cube, cube_dims, dev)
+        tail = (n, s, rect_rows, box_rows, rect_code, box_code, int(seed),
+                int(lane_base), samples, trace_depth, float(t_min),
+                int(has_dielectrics), int(sky_on), int(jitter),
+                int(vol0 is not None),
+                *(0 if t is None else t.data_ptr()
+                  for t in (move, trec, perlin, atlas)), img_w, img_h,
+                0 if cube_t is None else cube_t.data_ptr(),
+                *(int(v) for v in (cube_dims if cube is not None
+                                   else (0, 0))))
         build = ("cube" if cube is not None
                  else "texture" if tex_tables is not None
                  else "motion" if move_offsets is not None
-                 else "aux" if vol0 is None else "volume")
-        err = lib.rtiw_megatrace_ext(
-            *args, int(vol0 is not None),
-            *(0 if t is None else t.data_ptr()
-              for t in (move, trec, perlin, atlas)), img_w, img_h,
-            0 if cube_t is None else cube_t.data_ptr(),
-            *(int(v) for v in (cube_dims if cube is not None else (0, 0))),
-            stream)
+                 else "volume" if vol0 is not None
+                 else "aux" if has_aux else "sphere")
+        err = (lib.rtiw_megatrace_ext(
+            *head, 0 if tape is None else tape.data_ptr(), *tail, stream)
+            if noise is None else
+            load_noise_kernel().rtiw_megatrace_ext_noise(
+                *head, *tail, noise, stream))
         if err != 0:
             raise RuntimeError(f"megatrace_batch {build} build launch "
                                f"failed: cudaError {err}")
-        LAUNCHES += 1
-        if cube is not None:
-            CUBE_LAUNCHES += 1
-        elif tex_tables is not None:
-            TEX_LAUNCHES += 1
-        elif move_offsets is not None:
-            MOTION_LAUNCHES += 1
-        elif vol0 is None:
-            AUX_LAUNCHES += 1
-        else:
-            VOL_LAUNCHES += 1
-        return _outputs(out, tape)
-    err = lib.rtiw_megatrace_batch(
-        per_pixel.data_ptr(), cin.data_ptr(),
-        0 if pixel is None else pixel.data_ptr(), consts.data_ptr(),
-        sph.data_ptr(), rec.data_ptr(), *tri_args, out.data_ptr(),
-        0 if tape is None else tape.data_ptr(),
-        n, s, *tri_dims, int(seed), int(lane_base), samples, trace_depth,
-        float(t_min), int(has_dielectrics), int(sky_on), int(jitter),
-        stream,
-    )
+        return counted(dict(cube="CUBE_LAUNCHES", texture="TEX_LAUNCHES",
+                            motion="MOTION_LAUNCHES", volume="VOL_LAUNCHES",
+                            aux="AUX_LAUNCHES").get(build))
+    head = (per_pixel.data_ptr(), cin.data_ptr(),
+            0 if pixel is None else pixel.data_ptr(), consts.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), *tri_args, out.data_ptr())
+    tail = (n, s, *tri_dims, int(seed), int(lane_base), samples,
+            trace_depth, float(t_min), int(has_dielectrics), int(sky_on),
+            int(jitter))
+    err = (lib.rtiw_megatrace_batch(
+        *head, 0 if tape is None else tape.data_ptr(), *tail, stream)
+        if noise is None else
+        load_noise_kernel().rtiw_megatrace_batch_noise(
+            *head, *tail, noise, stream))
     if err != 0:
         raise RuntimeError(f"megatrace_batch launch failed: cudaError {err}")
-    LAUNCHES += 1
-    TRI_LAUNCHES += int(tri_tables is not None)
-    return _outputs(out, tape)
+    # the sphere build and the streamed kernel count in LAUNCHES alone
+    return counted("TRI_LAUNCHES" if tri_tables is not None else None)
 
 
 def sample_batch(
@@ -2985,10 +3044,12 @@ def sample_batch(
     NotImplementedError (ROADMAP step 7.7b).  A sampler flavor
     (`noise_tbl`, `noise_meta` and `noise_draw_base` from
     pack_noise_tables, or the pre-drawn `noise_uniforms` and
-    `noise_cosine`; see `sample_batch_reference`) takes the noise builds,
-    NOISE_LAUNCHES: spheres alone or convex volumes beside spheres, lane i
-    rendering pixel i, no tape (the replay has no flavor, as in JAX);
-    beside anything else NotImplementedError (NOISE_BESIDE, step 11b).
+    `noise_cosine`; see `sample_batch_reference`) takes the noise build of
+    the build the other tables pick, NOISE_LAUNCHES (and NOISE_BUILDS by
+    `noise_build`), no tape (the replay has no flavor, as in JAX); the
+    tables take lanes in pixel order (no `pixel_index`, as the JAX kernel
+    asserts) and the streamed kernel the pre-drawn rows only, whose
+    columns are the lanes'.
 
     The device of `centers` decides: CUDA tensors launch the kernel
     (csrc/megatrace_batch.cu) or raise; CPU tensors run the plain
@@ -3027,11 +3088,12 @@ def sample_batch(
                                    noise_cosine)):
         _check_noise(lane_count.shape[0], samples, want_tape, noise_tbl,
                      noise_meta, noise_uniforms, noise_cosine)
-        if (centers.shape[0] > SPH_CULL_MIN or pixel_index is not None
-                or any(t is not None for t in (
-                    tri_tables, tri_stream_tables, rect_tables, box_tables,
-                    move_offsets, tex_tables, cube))):
-            raise NotImplementedError(f"sample_batch: {NOISE_BESIDE}")
+        if noise_tbl is not None and (pixel_index is not None
+                                      or tri_stream_tables is not None):
+            raise ValueError("sample_batch: the in-kernel noise tables take "
+                             "lanes in pixel order, without pixel_index or "
+                             "streamed tables (the Morton-lane classes take "
+                             "the pre-drawn rows)")
     kwargs = dict(samples=samples, trace_depth=trace_depth, t_min=t_min,
                   has_dielectrics=has_dielectrics, sky_on=sky_on,
                   jitter=jitter, want_tape=want_tape, tri_tables=tri_tables,

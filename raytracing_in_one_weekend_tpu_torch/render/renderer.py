@@ -23,7 +23,7 @@ arms on its conditions:
   `meshtrace.SYNC_TRI_MIN` triangles the bounce-synchronous sampler
   (`ops.meshtrace.sample_batch_sync`, one launch per bounce) on the JAX
   renderer's conditions (no rects, boxes, volumes, motion, procedural
-  textures or noise flavor);
+  textures or noise flavor: a flavored batch keeps the streamed kernel);
 * the fused arm, differentiable: `ops.megatrace_replay.sample_batch_diff`
   (the same kernel with its winner tape as primal, the tape replay's
   backward kernel as gradient of the color sum and the valid count, to
@@ -42,16 +42,14 @@ arms on its conditions:
   core/randomsource.py), forward, the JAX renderer's dispatch: the
   in-kernel tables (`pack_noise_tables`, the batch's draw counter base
   `noise_draw_base`) when the tile side divides the width, else the
-  pre-drawn rows (`pack_noise_uniforms`, `pack_noise_cosine`), both
-  through the kernel's noise builds (spheres alone, volumes beside
-  spheres); a scene whose build has no noise arm, the Morton-lane classes
-  among them (more than SPH_CULL_MIN spheres, streamed meshes), takes the
-  wavefront with the flavor instead (`noise_route`; ROADMAP step 11b);
+  pre-drawn rows (`pack_noise_uniforms`, `pack_noise_cosine`), always
+  for the Morton-lane classes (more than SPH_CULL_MIN spheres, streamed
+  meshes, whose pre-drawn columns are permuted with the lanes), all
+  through the noise build of the scene's build (`noise_route`);
 * the wavefront arm (`wavefront_pass`, render/integrator.py) where the
   batch kernel is refused: a scene outside its scope, a sampler flavor
-  asked for without a noise state, a flavored scene the noise builds do
-  not take, a flavor with something requiring grad (the replay has no
-  flavored draws, as in JAX), or
+  asked for without a noise state, a flavor with something requiring
+  grad (the replay has no flavored draws, as in JAX), or
   something requiring grad in a scene that is not replay-eligible
   (`megatrace_replay.replay_eligible`, as in the JAX package: a Perlin
   texture, which the replay does not mirror, or a mesh of more than
@@ -155,18 +153,41 @@ def noise_draw_base(draw_base: int, samples: int, trace_depth: int) -> int:
 
 
 def noise_route(scene: Scene, noise_state, width: int) -> str:
-    """How a forward batch of `scene` takes a sampler flavor's state:
-    "white" (no state), "wavefront" (the kernel builds have no noise arm
-    for the scene: megatrace.noise_beside), "tables" (the in-kernel fetch:
-    the tile side divides the width) or "pre_drawn" (the pre-drawn rows)."""
+    """How a forward batch of `scene` takes a sampler flavor's state in
+    the batch kernel, as the JAX renderer routes it (:427-497): "white"
+    (no state), "tables" (the in-kernel fetch: the tile side divides the
+    width and lanes are in pixel order) or "pre_drawn" (the pre-drawn
+    rows: other widths, and the Morton-lane classes, more than
+    SPH_CULL_MIN spheres and streamed meshes)."""
     if noise_state is None:
         return "white"
-    if megatrace.noise_beside(scene) is not None:
-        return "wavefront"
     size = noise_state.tiles.shape[1]
-    if size <= 256 and width % size == 0:
+    morton = (scene.spheres.center.shape[0] > megatrace.SPH_CULL_MIN
+              or scene.triangles.vert0.shape[0] > megatrace.TRI_MAX)
+    if size <= 256 and width % size == 0 and not morton:
         return "tables"
     return "pre_drawn"
+
+
+def noise_args(route, noise_state, acc, width, height, samples,
+                trace_depth, draw_base, order=None) -> dict:
+    """sample_batch's noise arguments on `route`: the in-kernel tables
+    with the batch's draw counter base, or the pre-drawn rows of each
+    pixel's progressive counter, their columns permuted by `order` (the
+    lanes' pixels) where lanes are not in pixel order (JAX :487-497)."""
+    if route == "tables":
+        tbl, meta = megatrace.pack_noise_tables(noise_state)
+        return dict(noise_tbl=tbl, noise_meta=meta,
+                    noise_draw_base=noise_draw_base(draw_base, samples,
+                                                    trace_depth))
+    if route != "pre_drawn":
+        return {}
+    rows = [fn(noise_state, acc.sample_count, width, height, samples)
+            for fn in (megatrace.pack_noise_uniforms,
+                       megatrace.pack_noise_cosine)]
+    if order is not None:
+        rows = [None if r is None else r[:, order] for r in rows]
+    return dict(noise_uniforms=rows[0], noise_cosine=rows[1])
 
 
 def _sample_step(scene, camera, acc, key, sample_index, row_active,
@@ -464,7 +485,7 @@ def render_batch(
     if noise_color == 0:
         noise_state = None
     route = noise_route(scene, noise_state, width)
-    if ((noise_color != 0 and route in ("white", "wavefront"))
+    if ((noise_color != 0 and route == "white")
             or (route != "white" and inputs)
             or not megatrace.scene_eligible(scene, allow_triangles=True,
                                             allow_rect_box=True,
@@ -506,10 +527,12 @@ def render_batch(
         # ---- a mesh beyond TRI_MAX: the streamed tables, forward only ------
         stream = megatrace.pack_tri_stream_tables(scene, packed)
         # the JAX renderer's conditions for the sync route (its others,
-        # volumes, motion, procedural textures, noise flavors and cubemap
-        # skies, are refused above or by the scope: motion in a mesh scene
-        # is ROADMAP step 7.3b, a cubemap there 7.6b)
+        # volumes, motion, procedural textures and cubemap skies, are
+        # refused above or by the scope: motion in a mesh scene is ROADMAP
+        # step 7.3b, a cubemap there 7.6b); a flavored batch keeps the
+        # streamed kernel, as JAX's (:390)
         if (scene.triangles.vert0.shape[0] > meshtrace.SYNC_TRI_MIN
+                and route == "white"
                 and not scene.flags.has_volumes
                 and scene.rects.rot.shape[0] == 0
                 and scene.boxes.rot.shape[0] == 0):
@@ -518,28 +541,21 @@ def render_batch(
                 stream, width=width, height=height, **statics)
             return acc, _apply_deltas(acc, d, lane_count)
         # Morton lanes: a warp's rays start from neighbouring pixels, so
-        # their AABB culls agree; pixel p is rendered by lane rank[p]
+        # their AABB culls agree; pixel p is rendered by lane rank[p], and
+        # a flavor's pre-drawn columns follow the lanes
         order, rank = (t.to(dev) for t in megatrace.morton_order(width,
                                                                   height))
         d = megatrace.sample_batch(
             lane_count[order], acc.sample_count[order],
             megatrace.pack_camera_row(camera, width, height), *sphere_args,
-            seed, pixel_index=order, tri_stream_tables=stream, **statics)
+            seed, pixel_index=order, tri_stream_tables=stream, **statics,
+            **noise_args(route, noise_state, acc, width, height, samples,
+                          trace_depth, draw_base, order))
         d = {k: v[rank] for k, v in d.items()}
         return acc, _apply_deltas(acc, d, lane_count)
 
-    noise_kw = {}
-    if route == "tables":
-        tbl, meta = megatrace.pack_noise_tables(noise_state)
-        noise_kw = dict(noise_tbl=tbl, noise_meta=meta,
-                        noise_draw_base=noise_draw_base(
-                            draw_base, samples, trace_depth))
-    elif route == "pre_drawn":
-        noise_kw = dict(
-            noise_uniforms=megatrace.pack_noise_uniforms(
-                noise_state, acc.sample_count, width, height, samples),
-            noise_cosine=megatrace.pack_noise_cosine(
-                noise_state, acc.sample_count, width, height, samples))
+    noise_kw = noise_args(route, noise_state, acc, width, height, samples,
+                           trace_depth, draw_base)
     # (a flavored batch requires no grad here: the wavefront took it)
     batch = (megatrace_replay.sample_batch_diff
              if differentiable and not noise_kw else megatrace.sample_batch)

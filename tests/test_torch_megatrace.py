@@ -40,9 +40,11 @@ from raytracing_in_one_weekend_tpu.core import materials as jax_materials
 from raytracing_in_one_weekend_tpu.models import book_scenes as jax_scenes
 from raytracing_in_one_weekend_tpu.ops import pallas_megatrace
 from raytracing_in_one_weekend_tpu_torch.core import camera, materials
+from raytracing_in_one_weekend_tpu_torch.core import randomsource
 from raytracing_in_one_weekend_tpu_torch.models import book_scenes
 from raytracing_in_one_weekend_tpu_torch.ops import megatrace, megatrace_replay
 from raytracing_in_one_weekend_tpu_torch.render import renderer
+from raytracing_in_one_weekend_tpu_torch.utils.config import NoiseColor
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 FLOAT_CHANNELS = ("color", "normal", "albedo", "weight", "fallback_normal",
@@ -328,11 +330,12 @@ def test_scope_refusals_name_the_roadmap():
     # the differentiable path is ported: same scope as the forward one
     assert megatrace_replay.replay_eligible(scene)
     renderer.check_scope(scene)
-    # sampler flavors are in scope (step 11); the builds without a noise
-    # arm name step 11b, and the renderer traces a flavor there on the
-    # wavefront
-    assert megatrace.noise_beside(scene) is None
-    assert "ROADMAP queue 1, step 11b" in megatrace.noise_beside(cornell)
+    # sampler flavors are in scope (steps 11 and 11b): every build of the
+    # batch kernel has a noise build, so a flavored forward batch of
+    # either scene takes the batch kernel
+    state = randomsource.make_noise_state(NoiseColor.BLUE, seed=7)
+    assert renderer.noise_route(scene, state, 512) == "tables"
+    assert renderer.noise_route(cornell, state, 512) == "tables"
 
 
 def test_other_devices_are_refused():

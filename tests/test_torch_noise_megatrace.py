@@ -214,8 +214,11 @@ def test_noise_refusals():
             scene.spheres.radius, megatrace.pack_sphere_records(scene, packed),
             scene.environment.sky_bottom, scene.environment.sky_top, 1)
     kw = dict(samples=1, trace_depth=2, noise_tbl=tbl, noise_meta=meta)
-    with pytest.raises(NotImplementedError, match="step 11b"):
-        megatrace.sample_batch(*args, rect_tables=rect, box_tables=box, **kw)
+    # the tables take lanes in pixel order: a Morton launch takes the
+    # pre-drawn rows (JAX's sample_batch asserts pixel_index is None)
+    with pytest.raises(ValueError, match="pixel order"):
+        megatrace.sample_batch(*args, rect_tables=rect, box_tables=box,
+                               pixel_index=torch.arange(64), **kw)
     cover, _ = book_scenes.three_spheres()
     cargs = (args[0], args[1], args[2], cover.spheres.center,
              cover.spheres.radius, megatrace.pack_sphere_records(

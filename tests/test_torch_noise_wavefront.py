@@ -20,10 +20,13 @@ driver, against the JAX package.
   colour loss to the sphere centres are finite and within 1e-3 of their
   max abs of jax.grad through JAX's render_batch.
 * Routes: every registered scene with a flavor takes the route of
-  `renderer.noise_route` (the in-kernel tables where the tile side divides
-  the width, the pre-drawn rows elsewhere, the wavefront for the builds
-  without a noise arm), and render_batch follows it: the kernel's noise
-  arguments, or the wavefront with the state before any kernel runs.
+  `renderer.noise_route`, the JAX renderer's (the in-kernel tables where
+  the tile side divides the width, the pre-drawn rows elsewhere and for
+  the Morton-lane classes: more than SPH_CULL_MIN spheres, streamed
+  meshes; never the wavefront), and render_batch follows it: the
+  kernel's noise arguments (a streamed mesh's pre-drawn columns permuted
+  with its Morton lanes, and no sync sampler), or the wavefront with the
+  state when something requires grad.
 * `ProgressiveRenderer` with NoiseColor.BLUE on the CPU.
 """
 
@@ -59,13 +62,10 @@ LANE_SHARE = 0.99
 GRAD_TOL = 1e-3  # of each gradient's max abs
 KEYS = ("radiance", "valid", "aov_normal", "aov_albedo", "events",
         "pixel_rays")
-# the registered scenes whose batch-kernel build has no noise arm
-# (ROADMAP step 11b): rects and boxes, motion, textures, a cubemap,
-# triangles, more than 1024 spheres
-WAVEFRONT = {"cornell", "simple_light", "cornell_volumes", "cover_motion",
-             "checkered", "perlin", "textured_sphere", "final_book2",
-             "cubemap", "sphere_field", "triangle", "mesh_showcase",
-             "mesh_large", "mesh_huge"}
+# the registered scenes with Morton lanes in JAX's renderer (more than
+# 1024 spheres, more than TRI_MAX triangles): the pre-drawn rows at any
+# width
+MORTON = {"sphere_field", "mesh_large", "mesh_huge"}
 
 
 def states(name):
@@ -190,16 +190,17 @@ def test_flavored_training_step_matches_jax():
 def test_noise_route_of_every_registered_scene():
     state, _ = states("blue")
     registry = {**book_scenes.SCENES, **testbeds.SCENES}
-    assert WAVEFRONT <= set(registry)
+    assert MORTON <= set(registry)
     for name, make in registry.items():
         scene, _ = make()
-        want = "wavefront" if name in WAVEFRONT else "tables"
+        assert megatrace.scene_eligible(
+            scene, allow_triangles=True, allow_rect_box=True,
+            allow_volumes=True, allow_motion=True, allow_textures=True,
+            allow_cubemap=True), name
+        want = "pre_drawn" if name in MORTON else "tables"
         assert renderer.noise_route(scene, state, 512) == want, name
-        assert renderer.noise_route(scene, state, 500) == (
-            "wavefront" if name in WAVEFRONT else "pre_drawn"), name
+        assert renderer.noise_route(scene, state, 500) == "pre_drawn", name
         assert renderer.noise_route(scene, None, 512) == "white"
-        assert (megatrace.noise_beside(scene) is None) == (
-            name not in WAVEFRONT), name
 
 
 class _Stop(Exception):
@@ -208,7 +209,8 @@ class _Stop(Exception):
 
 @pytest.mark.parametrize("name,width,route", [
     ("three_spheres", 64, "tables"), ("volume", 24, "pre_drawn"),
-    ("cornell", 64, "wavefront"), ("sphere_field", 64, "wavefront"),
+    ("cornell", 64, "tables"), ("sphere_field", 64, "pre_drawn"),
+    ("mesh_large", 64, "pre_drawn"),
 ])
 def test_render_batch_follows_the_route(monkeypatch, name, width, route):
     state, _ = states("blue")
@@ -224,6 +226,7 @@ def test_render_batch_follows_the_route(monkeypatch, name, width, route):
 
     monkeypatch.setattr(megatrace, "sample_batch", batch)
     monkeypatch.setattr(renderer, "wavefront_pass", wave)
+    monkeypatch.setattr(renderer.meshtrace, "sample_batch_sync", wave)
     scene, cs = (book_scenes.SCENES.get(name) or testbeds.SCENES[name])()
     cam = camera.make_camera(cs.origin, cs.look_at, cs.up, cs.vertical_fov,
                              width / 8, aperture=cs.aperture,
@@ -234,11 +237,6 @@ def test_render_batch_follows_the_route(monkeypatch, name, width, route):
                               height=8, samples=2, trace_depth=3,
                               noise_color=1, noise_state=state,
                               draw_base=96)
-    if route == "wavefront":
-        assert set(seen) == {"wave"}
-        assert seen["wave"]["noise_state"] is state
-        assert seen["wave"]["draw_base"] == 96
-        return
     kw = seen["batch"]
     assert set(seen) == {"batch"}
     if route == "tables":
@@ -248,6 +246,15 @@ def test_render_batch_follows_the_route(monkeypatch, name, width, route):
     else:
         assert kw["noise_uniforms"].shape == (4 * 2, width * 8)
         assert "noise_tbl" not in kw
+        # Morton lanes (streamed meshes): the columns follow the lanes
+        order = (megatrace.morton_order(width, 8)[0]
+                 if kw.get("pixel_index") is not None
+                 else torch.arange(width * 8))
+        if kw.get("pixel_index") is not None:
+            assert torch.equal(kw["pixel_index"], order)
+        want = megatrace.pack_noise_uniforms(state, acc.sample_count, width,
+                                             8, 2)
+        assert torch.equal(kw["noise_uniforms"], want[:, order])
     # something requiring grad: the flavored wavefront
     seen.clear()
     centers = scene.spheres.center.detach().clone().requires_grad_()
