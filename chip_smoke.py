@@ -12,8 +12,10 @@ kernels) and the convex-volume scenes `volume`, `probabilistic` and
 (their motion and texture builds), `sphere_field` (4,099 spheres: the
 blocked builds of #1, #2's BIG build and #9's big build) and `cubemap` (the
 HDR cubemap sky: #1's cube builds, #2's cube build, the wavefront's
-lookup), and the sampler flavors (#1's noise builds on the cover and
-`volume`, the pre-drawn route, the flavored wavefront).
+lookup), the sampler flavors (#1's noise builds on the cover and
+`volume`, the pre-drawn route, the flavored wavefront), and a Cornell box
+with a mesh in it and meshes without spheres (#1's and #2's builds with
+rects and boxes beside triangles, the sync sampler with no sphere).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
@@ -296,6 +298,22 @@ which raises on failure:
      batch against the plain version bit for bit on a 16-row band; each
      build alone at 4 spp against its white twin in turns, with its
      registers, spills, blocks an SM and bound.
+ 30. rects and boxes beside triangles and meshes without spheres
+     (`mesh_aux_phases`, ROADMAP step 7.1b) on `mesh_aux_scene`'s
+     cornell_mesh (the Cornell box around mesh_showcase's meshes),
+     cornell_mesh_large (around mesh_large's) and mesh_huge_bare
+     (mesh_huge's meshes, no sphere), 512x512, depth 8: cornell_mesh's
+     forward through the triangle build's aux build at 64 spp, that build
+     alone at 4 and 64 spp in turns with mesh_showcase's white triangle
+     build, its registers; a training step through it and #2's MESH_AUX
+     build, the backward held to the plain replay on a row band, MESH_AUX
+     alone at 4 and 64 spp, and a step whose AOV term runs the graft;
+     cornell_mesh_large's forward through the streamed kernel's aux
+     build; mesh_huge_bare on the sync route and on the batch route; BLUE
+     through both aux builds' noise builds.  Each new build of #1 is held
+     bit for bit to its plain version on a 16-row band (rows 248-263; on
+     Morton lanes those lanes of the Morton order) and on a whole 4-spp
+     batch, bounce_sync with s = 0 on a band of its state's columns.
 The plain versions held against a kernel's result (`plain_check`: the
 parity checks, the backward against the plain replay's autograd, the
 AOV gradient on the CPU) run in the check stage, after the last timed
@@ -617,6 +635,10 @@ def lane_agreement(a: dict, b: dict) -> tuple[float, float]:
 # runs where it is made.
 
 PLAIN_WORKERS = 4
+# A plain streamed sweep steps through every block of every iteration: a
+# check on mesh_large's 20,736 rows took 7-9 times one of the same
+# iterations on the VMEM triangle build (plain_check's cost estimate)
+STREAM_COST_ROWS = 2560
 _PENDING = None  # the open stage's checks; None: checks run where made
 LATE = []  # (kernel name, field, value, merge) for the JSON line's entries
 
@@ -704,8 +726,11 @@ def plain_check(fn, args: tuple, kwargs: dict, finish,
         finish(*run_plain(fn, args, kwargs))
         return
     dev = tensor_device((args, kwargs))
+    stream = kwargs.get("tri_stream_tables")
     cost = (kwargs.get("samples", 1) * kwargs.get("trace_depth", 1)
-            * (3 if "grad" in fn.__name__ else 1))
+            * (3 if "grad" in fn.__name__ else 1)
+            * (1 if stream is None else 1 + stream[0].shape[0]
+               / STREAM_COST_ROWS))
     _PENDING.append(dict(
         job=(f"{fn.__module__}:{fn.__name__}", to_host(args),
              to_host(kwargs), None if dev is None else str(dev), threads),
@@ -727,7 +752,8 @@ def apply_late(kernels: list) -> None:
 
 def run_check_stage() -> None:
     """Run the open stage's checks, costliest first (samples x depth, a
-    backward three times a forward, a CPU job before any), PLAIN_WORKERS at
+    backward three times a forward, a streamed sweep by its rows over
+    STREAM_COST_ROWS more, a CPU job before any), PLAIN_WORKERS at
     a time in processes of their own on the card, then finish each in the
     order it was made, which prints its line and may raise.  Closes the
     stage; the processes end with it."""
@@ -750,9 +776,9 @@ def run_check_stage() -> None:
 
 def into(kernel: str, paths: dict | None = None, key: str = "",
          share_field: str | None = None):
-    """A record(share, err) for check_parity and parity_rows: err's max
-    into the entry `kernel`'s max_abs_err, share's min into paths[key] and
-    into the entry's `share_field`, where given."""
+    """A record(share, err, seconds) for check_parity and parity_rows:
+    err's max into the entry `kernel`'s max_abs_err, share's min into
+    paths[key] and into the entry's `share_field`, where given."""
     def record(share: float, err: float, seconds: float = 0.0) -> None:
         late(kernel, "max_abs_err", err)
         if share_field is not None:
@@ -763,11 +789,13 @@ def into(kernel: str, paths: dict | None = None, key: str = "",
 
 
 def check_parity(label: str, args: tuple, kwargs: dict, *, record,
-                 tape: bool = True, plain=None, more=None) -> None:
+                 tape: bool = True, plain=None, more=None,
+                 bitwise: bool = False) -> None:
     """Run the kernel now and the plain version (`plain_check`, its lanes
     in one chunk on the card) on the same inputs, with the winner tape
-    unless `tape` is False; raise unless >= 99% of lanes agree, else
-    record(share, max abs err).  `plain` (sample_batch_reference by
+    unless `tape` is False; raise unless >= 99% of lanes agree (with
+    `bitwise` every lane, max abs err 0), else record(share, max abs err,
+    the plain version's seconds).  `plain` (sample_batch_reference by
     default) may return (its outputs, more), `more` then called with the
     second."""
     kwargs = dict(kwargs, want_tape=tape)
@@ -784,10 +812,10 @@ def check_parity(label: str, args: tuple, kwargs: dict, *, record,
         print(f"parity {label}: {share:.6f} of lanes identical "
               f"({'tape, ' if tape else ''}count, rays; floats within "
               f"1e-4), max abs err {err:.3g} (plain version {seconds:.1f} s)")
-        if share < 0.99:
-            raise RuntimeError(f"kernel/plain agreement {share} < 0.99 "
-                               f"({label})")
-        record(share, err)
+        if share < 0.99 or (bitwise and (share < 1.0 or err > 0.0)):
+            raise RuntimeError(f"kernel/plain agreement {share}, max abs "
+                               f"err {err} ({label})")
+        record(share, err, seconds)
         if more is not None:
             more(extra)
 
@@ -798,17 +826,20 @@ def check_parity(label: str, args: tuple, kwargs: dict, *, record,
 
 
 def parity_rows(label: str, args: tuple, kwargs: dict, rows: int,
-                width: int, *, record) -> None:
+                width: int, *, record, tape: bool = True,
+                bitwise: bool = False) -> None:
     """check_parity on a main-path batch with the plain version run on the
-    `rows` image rows at the frame's centre, where each scene's subject
-    sits (a 512x512, 64 spp batch takes the plain version about a minute
-    whole, and its time goes with its calls' iterations more than with
-    their lanes: eight 8-row bands cost eight times one 64-row band): the
-    kernel runs the whole batch, the plain version those lanes with their
-    own lane ids and pixels, so each computes what it computes in the
-    whole batch.  Raise unless >= 99% of them agree, else record(share,
-    max abs err)."""
-    kwargs = dict(kwargs, want_tape=True)
+    `rows` image rows' worth of lanes at the batch's centre, where each
+    scene's subject sits (a 512x512, 64 spp batch takes the plain version
+    about a minute whole, and its time goes with its calls' iterations
+    more than with their lanes: eight 8-row bands cost eight times one
+    64-row band): the kernel runs the whole batch, the plain version those
+    lanes with their own lane ids and pixels (Morton lanes their
+    pixel_index), so each computes what it computes in the whole batch;
+    with the winner tape unless `tape` is False.  Raise unless >= 99% of
+    them agree (with `bitwise` every lane, max abs err 0), else
+    record(share, max abs err, the plain version's seconds)."""
+    kwargs = dict(kwargs, want_tape=tape)
     before = megatrace.LAUNCHES
     got = megatrace.sample_batch(*args, **kwargs)
     torch.cuda.synchronize()
@@ -820,23 +851,24 @@ def parity_rows(label: str, args: tuple, kwargs: dict, rows: int,
     lo, hi = r0 * width, (r0 + rows) * width
     got = {k: (v[:, lo:hi] if k == "tape" else v[lo:hi]).clone()
            for k, v in got.items()}  # the band alone kept for the stage
+    pix = kwargs.get("pixel_index")
+    kwargs["pixel_index"] = (torch.arange(lo, hi, device=args[0].device)
+                             if pix is None else pix[lo:hi].contiguous())
 
     def finish(want, seconds):
         share, err = lane_agreement(got, want)
-        print(f"parity {label} (plain version on rows {r0}-{r0 + rows - 1}, "
-              f"{hi - lo} lanes, {seconds:.1f} s): {share:.6f} of them "
-              f"identical (tape, count, rays; floats within 1e-4), max abs "
-              f"err {err:.3g}")
-        if share < 0.99:
-            raise RuntimeError(f"kernel/plain agreement {share} < 0.99 "
-                               f"({label})")
-        record(share, err)
+        print(f"parity {label} (plain version on lanes {lo}-{hi - 1}, rows "
+              f"{r0}-{r0 + rows - 1}'s worth, {seconds:.1f} s): "
+              f"{share:.6f} of them identical ({'tape, ' if tape else ''}"
+              f"count, rays; floats within 1e-4), max abs err {err:.3g}")
+        if share < 0.99 or (bitwise and (share < 1.0 or err > 0.0)):
+            raise RuntimeError(f"kernel/plain agreement {share}, max abs "
+                               f"err {err} ({label})")
+        record(share, err, seconds)
 
     plain_check(megatrace.sample_batch_reference,
                 (args[0][lo:hi], args[1][lo:hi], *args[2:9], base + lo),
-                dict(kwargs, pixel_index=torch.arange(lo, hi,
-                                                      device=args[0].device)),
-                finish)
+                kwargs, finish)
 
 
 @contextlib.contextmanager
@@ -933,31 +965,55 @@ def tri_launch_ms(tables, tri, samples: int, repeats: int, kw: dict) -> float:
     """The batch kernel's triangle build alone: CUDA events around
     `repeats` launches of its C entry point (rtiw_megatrace_batch, the same
     in older trees) on buffers made once, after a warm-up (`time_batch`),
-    seed 7, depth kw["trace_depth"], every lane `samples` samples."""
+    seed 7, depth kw["trace_depth"], every lane `samples` samples.  With
+    `tri` None, the streamed kernel on kw's tri_stream_tables and
+    pixel_index; with kw's rect_tables or box_tables, the build's aux
+    build (rtiw_megatrace_tri_aux)."""
     camera_row, centers, radii, records, sky_bottom, sky_top = tables
     dev, s = centers.device, centers.shape[0]
     n = int(camera_row[19] * camera_row[20])
     lib = megatrace.load_kernel()
     sph, rec = megatrace.sweep_tables(centers, radii, records)
     consts = megatrace.kernel_consts(camera_row, sky_bottom, sky_top)
-    geo, aabb, trec = megatrace.kernel_tri_tables(tri)
+    keep, pixel = [], 0  # every buffer the launches read stays bound
+    if tri is None:
+        ptrs, dims = megatrace._kernel_stream_args(kw["tri_stream_tables"],
+                                                   dev)
+        keep.append(kw["pixel_index"].to(torch.float32).contiguous())
+        pixel = keep[-1].data_ptr()
+    else:
+        geo, aabb, trec = megatrace.kernel_tri_tables(tri)
+        keep += [geo, aabb, trec]
+        ptrs = (geo.data_ptr(), aabb.data_ptr(), 0, trec.data_ptr())
+        dims = (geo.shape[0], aabb.shape[0], 0)
+    entry, aux = lib.rtiw_megatrace_batch, ()
+    code = megatrace.sphere_pad_count(s)
+    rect, box = kw.get("rect_tables"), kw.get("box_tables")
+    if rect is not None or box is not None:
+        aux_geo, aux_rec, rect_rows, box_rows = megatrace.kernel_aux_tables(
+            rect, box)
+        keep += [aux_geo, aux_rec]
+        entry = lib.rtiw_megatrace_tri_aux
+        code = megatrace.tri_code_base(s, rect, box)
+        aux = (aux_geo.data_ptr(), aux_rec.data_ptr(), rect_rows, box_rows,
+               *megatrace.aux_code_bases(s, rect))
     per_pixel = torch.full((n,), float(samples), device=dev)
     cin = torch.zeros(n, device=dev)
     out = torch.empty((megatrace.OUT_ROWS, n), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        err = lib.rtiw_megatrace_batch(
-            per_pixel.data_ptr(), cin.data_ptr(), 0, consts.data_ptr(),
-            sph.data_ptr(), rec.data_ptr(), geo.data_ptr(), aabb.data_ptr(),
-            0, trec.data_ptr(), out.data_ptr(), 0, n, s, geo.shape[0],
-            aabb.shape[0], 0, megatrace.sphere_pad_count(s), 7, 0, samples,
-            kw["trace_depth"], 0.0, int(kw["has_dielectrics"]),
-            int(kw["sky_on"]), 1, stream)
+        err = entry(
+            per_pixel.data_ptr(), cin.data_ptr(), pixel, consts.data_ptr(),
+            sph.data_ptr(), rec.data_ptr(), *ptrs, out.data_ptr(), 0, n, s,
+            *dims, code, 7, 0, samples, kw["trace_depth"], 0.0,
+            int(kw["has_dielectrics"]), int(kw["sky_on"]), 1, *aux, stream)
         if err != 0:
             raise RuntimeError(f"triangle build launch: cudaError {err}")
 
-    return time_batch(launch, repeats=repeats)[0]
+    ms = time_batch(launch, repeats=repeats)[0]
+    del keep
+    return ms
 
 
 def tri_loop_shares(tables, tri, samples: int, kw: dict) -> dict:
@@ -1520,6 +1576,8 @@ def reset_launches() -> None:
     megatrace.BLOCKED_LAUNCHES = megatrace.WAVE_BIG_LAUNCHES = 0
     megatrace.CUBE_LAUNCHES = megatrace_bwd.CUBE_LAUNCHES = 0
     megatrace.TRI_LAUNCHES = 0
+    megatrace.TRI_AUX_LAUNCHES = megatrace.STREAM_AUX_LAUNCHES = 0
+    megatrace_bwd.MESH_AUX_LAUNCHES = 0
     megatrace_bwd.SCAN_LAUNCHES = megatrace_bwd.BIG_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
@@ -2056,7 +2114,8 @@ def mesh_phases(dev, card) -> dict:
     loops = {spp: tri_loop_shares(tables, tri, spp, kw_loop)
              for spp in (4, 64)}
     bound64 = tri_build_bound(loops[64]["bounces"], loops[64]["tests"])
-    report = ptxas_report(megatrace.BUILD_LOG, "megatrace_tri_kernel")
+    report = ptxas_report(megatrace.BUILD_LOG,
+                          "megatrace_tri_kernelILb0ELb0EE")
     print(f"triangle build: ptxas {report or '(not built here)'}; "
           f"{info['registers']} registers, {info['local_bytes']} B local a "
           f"thread, {info['blocks']} blocks of 128 an SM (occupancy API); "
@@ -6215,8 +6274,8 @@ def noise_build_info(build: str, args: tuple, kw: dict) -> dict:
     flags = set(build.split("+"))
     if flags & {"tri", "stream"}:
         tri = 1 if "tri" in flags else 2
-        name = ("megatrace_tri_kernelILb1EE" if tri == 1
-                else "megatrace_stream_kernelILb1EE")
+        name = ("megatrace_tri_kernelILb1ELb0EE" if tri == 1
+                else "megatrace_stream_kernelILb1ELb0EE")
         info = megatrace.noise_kernel_info(s, tri=tri)
         white = megatrace.tri_kernel_info(s) if tri == 1 else None
     else:
@@ -6467,6 +6526,721 @@ def noise_beside_phases(dev, card, width: int = 512, rows: int = 16,
         "registers": b["registers"], "local_bytes": b["local_bytes"],
         "blocks_per_sm": b["blocks"], "fwd_mrays": b["scenes"],
     } for build, b in builds.items()]
+    return {"kernels": kernels, "paths": out}
+
+
+# ---------------------------------------------------------------------------
+# Phase 30: rects and boxes beside triangles, meshes without spheres
+# ---------------------------------------------------------------------------
+
+MESH_AUX_SCENES = ("cornell_mesh", "cornell_mesh_large", "mesh_huge_bare")
+
+
+def mesh_aux_scene(name: str, scene_mod=None, sphere: bool = False):
+    """(scene, CameraSettings) of phase 30's scenes (ROADMAP step 7.1b),
+    built with `scene_mod`'s SceneBuilder (default: the port's; the tests
+    build them with the JAX package's too) and the port's generators:
+    cornell_mesh, book_scenes.add_cornell_box's 6 rects and 2 boxes (no
+    sphere) around mesh_showcase's three meshes (icosphere(2) metal, a
+    torus and a cube Lambert: 908 triangles), scaled into the box: the
+    icosphere on the tall box, the torus on the short one, the cube on the
+    floor; cornell_mesh_large, the same box around mesh_large's meshes
+    (icosphere(5), torus(16, 8), cube: 20,748 triangles); mesh_huge_bare,
+    meshes.add_mesh_huge_meshes alone (102,656 triangles, no sphere)
+    under mesh_huge's camera.  `sphere` adds a glass sphere in the box
+    (the tests' case with a sphere row)."""
+    mod = scene_mod or importlib.import_module(
+        "raytracing_in_one_weekend_tpu_torch.scene.scene")
+    b = mod.SceneBuilder()
+    if name == "mesh_huge_bare":
+        cam = meshes.add_mesh_huge_meshes(b)
+        return b.build(), cam
+    cam = book_scenes.add_cornell_box(b, mod.axis_angle_quat)
+    if sphere:
+        b.add_sphere((0.3, 0.3, 0.35), 0.2, b.dielectric(1.5))
+    large = name == "cornell_mesh_large"
+    v, f, n, _ = meshes.icosphere(5 if large else 2)
+    b.add_mesh(v, f, b.metal((0.8, 0.7, 0.5), glossiness=0.9), normals=n,
+               translation=(-0.35, 0.15, -0.3), scale=0.25)
+    v, f, n, _ = (meshes.torus(nu=16, nv=8) if large else meshes.torus())
+    b.add_mesh(v, f, b.lambert((0.2, 0.4, 0.8)), normals=n,
+               translation=(0.4, -0.42, 0.25), scale=0.22)
+    v, f, _, _ = meshes.cube()
+    b.add_mesh(v, f, b.lambert((0.8, 0.3, 0.2)),
+               translation=(-0.45, -0.849, 0.55), scale=0.3,
+               face_normals=True)
+    return b.build(), cam
+
+
+def plain_with_counts(*args, **kwargs):
+    """sample_batch_reference and the tests its sweeps made: (its outputs,
+    (TRI_PAIRS, SLAB_TESTS) its index-order sweeps added, with
+    tri_stream_tables the streamed kernel's traversal model's counts
+    summed over its bounces (`batch_traversal_counts`), else None, and
+    its own seconds, the model's not counted)); a job for a check process
+    (phase 30's bounds)."""
+    pairs, slabs = megatrace.TRI_PAIRS, megatrace.SLAB_TESTS
+    stream = kwargs.get("tri_stream_tables")
+    with (contextlib.nullcontext() if stream is None
+          else recorded_sweeps()) as calls:
+        out, seconds = run_plain(megatrace.sample_batch_reference, args,
+                                 kwargs)
+    # read before the model runs: its traversal counts in SLAB_TESTS too
+    pairs, slabs = megatrace.TRI_PAIRS - pairs, megatrace.SLAB_TESTS - slabs
+    model = None if stream is None else batch_traversal_counts(calls, stream)
+    return out, (pairs, slabs, model, seconds)
+
+
+def mesh_aux_bound(bounces: float, pairs: float, slabs: float, n: int,
+                   scene, kw: dict) -> tuple[float, str]:
+    """The least time of a batch of the aux builds of the triangle build or
+    the streamed kernel on these inputs: per bounce the sphere sweep, the
+    rect and box tests and the shading, and `pairs` triangle and `slabs`
+    AABB tests counted on this batch (the plain version's index-order
+    sweep's, or the streamed kernel's near-to-far traversal's from its
+    model, whichever is lower); bytes: lane counts and accumulators (and
+    the pixel rows), the sphere, rect, box and triangle tables."""
+    s = scene.spheres.center.shape[0]
+    per_ray = (s * SWEEP_FLOPS + scene.rects.rot.shape[0] * RECT_FLOPS
+               + scene.boxes.rot.shape[0] * BOX_FLOPS + SHADE_FLOPS)
+    tables = [t for k in ("rect_tables", "box_tables", "tri_tables")
+              if kw.get(k) is not None for t in kw[k]]
+    if kw.get("tri_stream_tables") is not None:
+        tables += list(kw["tri_stream_tables"])
+    nbytes = (n * 4 * (2 + megatrace.OUT_ROWS
+                       + (kw.get("pixel_index") is not None))
+              + s * 4 * 20 + 4 * 32 + sum(t.numel() * 4 for t in tables))
+    return bound(bounces * per_ray + pairs * MT_FLOPS + slabs * SLAB_FLOPS,
+                 nbytes)
+
+
+MESH_AUX_LEAVES = LEAVES + ("tri_geo", "tri_rec", "rect_geo", "rect_rec",
+                            "box_geo", "box_rec")
+
+
+def mesh_aux_phases(dev, card, width: int = 512, spp: int = 64,
+                    rows: int = 16, noise_spp: int = 16) -> dict:
+    """Phase 30: rects and boxes beside triangles and meshes without
+    spheres (ROADMAP step 7.1b), at `width`x`width`, depth 8, on
+    mesh_aux_scene's cornell_mesh (6 rects, 2 boxes, 908 triangles, no
+    sphere), cornell_mesh_large (the box around 20,748 triangles) and
+    mesh_huge_bare (102,656 triangles, no sphere).  Each path's launch
+    counts are set to 0 just before it runs and read just after:
+    (a) cornell_mesh forward: render_batch at `spp` spp, 1 warm-up + 5
+        timed batches (median MRays/s), every batch through the triangle
+        build's aux build (TRI_AUX_LAUNCHES), no wavefront launch, the
+        image finite; the last batch held to its plain version bit for bit
+        (tape, count, rays, floats) on `rows` rows at the centre;
+    (b) that build alone by CUDA events at 4 and `spp` spp, in turns with
+        mesh_showcase's white triangle build (showcase, box, box,
+        showcase), its registers, spills and blocks an SM; the whole 4-spp
+        batch against its plain version bit for bit, whose sweeps' tests
+        give the bound;
+    (c) cornell_mesh training at `spp` spp, depth 8: render_image(
+        differentiable=True), mean((color - target)^2), .backward() to the
+        texture colours, the soup's vertices and the rect and box
+        positions, 1 warm-up + 2 timed steps (median fwd+bwd MRays/s),
+        the forward through the triangle build's aux build and the
+        backward through #2's MESH_AUX build (MESH_AUX_LAUNCHES), the
+        gradients finite and nonzero; the last step's replay_grad call
+        held to the plain replay on its first `rows` rows (each leaf
+        within 5e-4 of its max abs; the band's winners by kind printed,
+        and the plain gradient nonzero on a triangle, a rect and a box
+        leaf there, or it raises); MESH_AUX alone by CUDA events at 4
+        and `spp` spp (bwd_parts_ms); then one step with an AOV term
+        (mean(normal^2) added) at 16 spp: the graft runs once
+        (AOV_GRAFT_RUNS), its wavefront through triangle_select;
+    (d) cornell_mesh_large forward: render_batch at `spp` spp, 1 warm-up +
+        2 timed batches, every one through the streamed kernel's aux build
+        (STREAM_AUX_LAUNCHES), Morton lanes; the last batch bit for bit on
+        the band's lanes of the Morton order; the build alone at 4 and
+        `spp` spp by CUDA events and the whole 4-spp batch against its
+        plain version, whose bound takes the lower of the traversal
+        model's tests and the index-order sweep's (as phase 20's);
+    (e) mesh_huge_bare: render_batch on the sync route (SYNC_LAUNCHES) at
+        `spp` spp, 1 warm-up + 3 timed, and sample_batch on the batch route
+        (the streamed kernel, s = 0, Morton lanes), 1 warm-up + 2 timed;
+        bounce_sync's bounce 1 of an 8-spp wave and a 4-spp batch route
+        batch against their plain versions bit for bit on a centre band;
+    (f) BLUE: cornell_mesh on the tables route (the triangle build's aux
+        build's noise build, NOISE_BUILDS["tri+aux"]) at `noise_spp` spp
+        and cornell_mesh_large on the pre-drawn rows ("stream+aux") at 4,
+        as phase 29 runs its scenes, 1 warm-up + 2 timed batches each, the
+        last held bit for bit on the band; each noise build alone at 4 and `spp` spp (CUDA
+        events over sample_batch calls, in turns with its white twin), its
+        registers.
+    Returns the JSON line's kernel entries and the readings."""
+    from raytracing_in_one_weekend_tpu_torch.core import randomsource
+    from raytracing_in_one_weekend_tpu_torch.utils.config import NoiseColor
+
+    t_phase = time.perf_counter()
+    n = width * width
+    out, entries = {}, {}
+    zeros = torch.zeros(n, device=dev)
+    scenes = {name: mesh_aux_scene(name) for name in MESH_AUX_SCENES}
+    scenes = {k: (s.to(dev), cs) for k, (s, cs) in scenes.items()}
+
+    def wavefront_launches() -> int:
+        return (sum(sphere_select.LAUNCHES.values())
+                + triangle_select.LAUNCHES + megatrace.WAVE_LAUNCHES)
+
+    def batches(scene, camera, count, samples, acc, gen, **kw):
+        """`count` render_batch calls after a warm-up, the counts reset
+        between: (median MRays/s, the calls' sample_batch inputs, kept
+        for the last call only)."""
+        def one():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = renderer.render_batch(scene, camera, acc, gen,
+                                         width=width, height=width,
+                                         samples=samples, trace_depth=8,
+                                         **kw)
+            rays = float(m.total_rays)
+            torch.cuda.synchronize()
+            return rays, time.perf_counter() - t
+
+        one()
+        reset_launches()
+        megatrace.NOISE_LAUNCHES = 0
+        megatrace.NOISE_BUILDS.clear()
+        with recorded_calls(megatrace, "sample_batch") as calls:
+            runs = []
+            for _ in range(count):
+                calls.clear()
+                runs.append(one())
+        return statistics.median(r / t / 1e6 for r, t in runs), calls
+
+    def finite_image(name, acc):
+        img = film.combine(acc, width, width).color
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+            raise RuntimeError(f"bad {name} image: mean {float(img.mean())}")
+        return img
+
+    def with_plain_ms(entry: str):
+        """A record for a check whose plain version's seconds are the
+        entry's plain_ms (the whole 4-spp batch, or a flavor's band)."""
+        def record(share, err, seconds=0.0):
+            late(entry, "max_abs_err", err)
+            late(entry, "plain_ms", seconds * 1e3)
+        return record
+
+    # ---- (a) cornell_mesh forward ------------------------------------------
+    scene, cs = scenes["cornell_mesh"]
+    camera, tables = batch_inputs(scene, cs, width, width, dev)
+    packed = materials.pack_materials(scene)
+    rect, box = megatrace.pack_aux_tables(scene, packed)
+    tri = megatrace.pack_tri_tables(scene, packed)
+    aux_rows = rect[0].shape[0] + box[0].shape[0]
+    kw = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+              sky_on=False, rect_tables=rect, box_tables=box, tri_tables=tri)
+    gen = torch.Generator().manual_seed(30)
+    acc = film.zero_accumulators(n, device=dev)
+    rate, calls = batches(scene, camera, 5, spp, acc, gen)
+    launches = (megatrace.LAUNCHES, megatrace.TRI_AUX_LAUNCHES,
+                megatrace.TRI_LAUNCHES, wavefront_launches())
+    if launches != (5, 5, 0, 0):
+        raise RuntimeError(f"cornell_mesh forward: launches (batch kernel, "
+                           f"tri+aux, tri, wavefront) {launches}; want 5 of "
+                           "the triangle build's aux build alone")
+    img = finite_image("cornell_mesh", acc)
+    (args, kwargs, res), = calls
+    rays64 = float(res["rays"].sum())
+    print(f"mesh+aux forward: cornell_mesh {width}x{width} depth 8, {spp} "
+          f"spp/batch: median {rate:.3f} MRays/s over 5 batches "
+          f"({rays64:.0f} rays/batch; launches batch kernel {launches[0]}, "
+          f"tri+aux build {launches[1]}); image mean "
+          f"{float(img.mean()):.4f} [{card}]")
+    out["cornell_mesh_fwd_mrays"] = rate
+    entries["tri_aux"] = dict(launches=launches[1])
+    parity_rows(f"tri+aux build, cornell_mesh {width}x{width} {spp} spp "
+                "main-path batch", args, kwargs, rows, width, bitwise=True,
+                record=into("megatrace_batch_tri_aux"))
+    del calls, args, kwargs, res
+
+    # ---- (b) the tri+aux build alone, in turns with mesh_showcase's -----
+    showcase, showcase_cs = meshes.mesh_showcase()
+    showcase = showcase.to(dev)
+    _, sc_tables = batch_inputs(showcase, showcase_cs, width, width, dev)
+    sc_tri = tri_tables_of(showcase)
+    sc_kw = dict(trace_depth=8, has_dielectrics=showcase.flags
+                 .has_dielectrics, sky_on=True)
+    alone = {}
+    for few, reps in ((4, 10), (spp, 3)):
+        times = {"showcase": [], "box": []}
+        for which in ("showcase", "box", "box", "showcase"):
+            times[which].append(
+                tri_launch_ms(sc_tables, sc_tri, few, reps, sc_kw)
+                if which == "showcase"
+                else tri_launch_ms(tables, tri, few, reps, kw))
+        alone[few] = {k: statistics.mean(v) for k, v in times.items()}
+        print(f"tri+aux build alone, cornell_mesh {width}x{width} {few} spp, "
+              f"depth 8 (CUDA events over {reps} launches, in turns): "
+              f"{times['box']} ms; mesh_showcase's white triangle build "
+              f"{times['showcase']} ms [{card}]")
+    info = megatrace.tri_kernel_info(0, aux_rows)
+    report = ptxas_report(megatrace.BUILD_LOG,
+                          "megatrace_tri_kernelILb0ELb1EE")
+    print(f"tri+aux build: ptxas {report or '(not built here)'}; "
+          f"{info['registers']} registers, {info['local_bytes']} B local a "
+          f"thread, {info['blocks']} blocks of 128 an SM (occupancy API; the "
+          f"white triangle build "
+          f"{megatrace.tri_kernel_info(0)['registers']} registers) [{card}]")
+    args4 = (torch.full((n,), 4, dtype=torch.int32, device=dev), zeros,
+             *tables, 7)
+    kw4 = dict(kw, samples=4)
+    res4 = megatrace.sample_batch(*args4, **kw4)
+    bounces4 = float(res4["rays"].sum())
+    entries["tri_aux"].update(
+        ms=alone[4]["box"], ms_64spp=alone[spp]["box"],
+        showcase_tri_ms=alone[4]["showcase"],
+        showcase_tri_ms_64spp=alone[spp]["showcase"], bounces=bounces4,
+        registers=info["registers"], local_bytes=info["local_bytes"],
+        blocks_per_sm=info["blocks"], fwd_mrays=rate)
+
+    def tri_aux_counts(counts, bounces=bounces4, scene=scene, kw=kw4,
+                       rays64=rays64):
+        pairs, slabs, _, _ = counts
+        bnd = mesh_aux_bound(bounces, pairs, slabs, n, scene, kw)
+        # 64 spp: the 4-spp batch's tests a bounce, times its bounces
+        bnd64 = mesh_aux_bound(rays64, pairs / bounces * rays64,
+                               slabs / bounces * rays64, n, scene, kw)
+        for field, v in (("bound_ms", bnd[0]), ("bound_by", bnd[1]),
+                         ("bound_ms_64spp", bnd64[0]),
+                         ("tri_pairs_per_bounce", pairs / bounces)):
+            late("megatrace_batch_tri_aux", field, v)
+        print(f"tri+aux build bound, cornell_mesh {width}x{width} 4 spp: "
+              f"{bounces:.0f} bounces, {pairs / bounces:.1f} triangles and "
+              f"{slabs / bounces:.1f} AABBs tested a bounce by the plain "
+              f"sweep: {bnd[0]:.4f} ms by {bnd[1]}; 64 spp (scaled by its "
+              f"{rays64:.0f} bounces) {bnd64[0]:.4f} ms [{card}]")
+
+    check_parity(f"tri+aux build, cornell_mesh {width}x{width} 4 spp (whole "
+                 "batch)", args4, kw4,
+                 record=with_plain_ms("megatrace_batch_tri_aux"),
+                 plain=plain_with_counts, more=tri_aux_counts, bitwise=True)
+    del res4
+
+    # ---- (c) cornell_mesh training ------------------------------------------
+    target = img.detach()
+    seeds = [int(torch.randint(0, renderer.SEED_RANGE, (), generator=gen))
+             for _ in range(3)]
+    fwd_rays = []
+    for seed in seeds:
+        _, m = renderer.render_batch(
+            scene, camera, film.zero_accumulators(n, device=dev),
+            width=width, height=width, samples=spp, trace_depth=8,
+            seed=seed, differentiable=False)
+        fwd_rays.append(float(m.total_rays))
+    names = ("texture_colors", "triangle_vertices", "rect_positions",
+             "box_positions")
+    reset_launches()
+    graft_runs = renderer.AOV_GRAFT_RUNS
+    rates = []
+    with recorded_calls(megatrace_bwd, "replay_grad", copy=False) as calls:
+        for seed, r in zip(seeds, fwd_rays):
+            calls.clear()
+            params = {k: v.detach().clone().requires_grad_() for k, v in
+                      params_mod.extract_params(scene, names).items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step = renderer.render_image(
+                params_mod.apply_params(scene, params), camera, width=width,
+                height=width, samples_per_pixel=spp, trace_depth=8,
+                seed=seed, differentiable=True)
+            torch.mean((step.color - target) ** 2).backward()
+            torch.cuda.synchronize()
+            rates.append(r / (time.perf_counter() - t) / 1e6)
+    launches = (megatrace.TRI_AUX_LAUNCHES, megatrace_bwd.SCAN_LAUNCHES,
+                megatrace_bwd.LAUNCHES, megatrace_bwd.MESH_AUX_LAUNCHES)
+    if (launches[0] != 3 or launches[2] != 3 or launches[3] != 3
+            or megatrace.LAUNCHES != 3 or launches[1] == 0
+            or wavefront_launches()
+            or renderer.AOV_GRAFT_RUNS != graft_runs):
+        raise RuntimeError(f"cornell_mesh fwd+bwd: launches (tri+aux, scan, "
+                           f"path kernel, MESH_AUX) {launches}, wavefront "
+                           f"{wavefront_launches()}; want 3 steps through "
+                           "the aux builds and no graft")
+    grads = {k: v.grad for k, v in params.items()}
+    if not all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
+               for g in grads.values()):
+        raise RuntimeError("cornell_mesh fwd+bwd: gradients not finite or "
+                           "zero: " + ", ".join(
+                               f"{k} {float(g.abs().max())}"
+                               for k, g in grads.items()))
+    bwd_rate = statistics.median(rates[1:])
+    out["cornell_mesh_fwd_bwd_mrays"] = bwd_rate
+    print(f"mesh+aux fwd+bwd: cornell_mesh {width}x{width} depth 8, {spp} "
+          f"spp: median {bwd_rate:.3f} MRays/s over 2 steps after a warm-up "
+          f"({fwd_rays[-1]:.0f} forward rays/step; launches tri+aux "
+          f"{launches[0]}, tape scan {launches[1]}, path kernel "
+          f"{launches[2]}, of them MESH_AUX {launches[3]}); max |grad| "
+          + ", ".join(f"{k} {float(g.abs().max()):.4g}"
+                      for k, g in grads.items()) + f" [{card}]")
+    entries["bwd"] = dict(launches=launches[3], scan_launches=launches[1],
+                          fwd_bwd_mrays=bwd_rate)
+    (bargs, bkwargs, bgot), = calls
+    m = rows * width  # the first rows: lane i renders pixel i there too
+    band_args = (bargs[0][:, :m].contiguous(), bargs[1][:m], *bargs[2:9],
+                 bargs[9][:m].contiguous(), bargs[10][:m].contiguous())
+    band_got = megatrace_bwd.replay_grad(*band_args, **bkwargs)
+    # the band's winners by kind over every iteration of its tape, and the
+    # leaves of each kind: each kind's plain gradient must be nonzero there,
+    # or its leaves' comparison proves nothing
+    brect, bbox = bkwargs["rect_tables"], bkwargs["box_tables"]
+    rect_code, box_code = megatrace.aux_code_bases(0, brect)
+    tri_code = megatrace.tri_code_base(0, brect, bbox)
+    band_tape = band_args[0]
+    winners = dict(
+        rects=int(((band_tape >= rect_code) & (band_tape < box_code)).sum()),
+        boxes=int(((band_tape >= box_code) & (band_tape < tri_code)).sum()),
+        triangles=int((band_tape >= tri_code).sum()))
+    kinds = dict(triangles=("tri_geo", "tri_rec"),
+                 rects=("rect_geo", "rect_rec"), boxes=("box_geo", "box_rec"))
+
+    def mesh_aux_finish(want, seconds, got=band_got, winners=winners):
+        plain = dict(zip(MESH_AUX_LEAVES, want))
+        dead = [k for k, leaves in kinds.items()
+                if not any(float(plain[x].abs().max()) > 0.0 for x in leaves)]
+        print(f"MESH_AUX band, rows 0-{rows - 1}: winners over its tape "
+              + ", ".join(f"{k} {v}" for k, v in winners.items())
+              + "; the plain gradient's max abs "
+              + ", ".join(f"{x} {float(plain[x].abs().max()):.4g}"
+                          for leaves in kinds.values() for x in leaves))
+        if dead:
+            raise RuntimeError(f"MESH_AUX band: the plain gradient of every "
+                               f"{', '.join(dead)} leaf is 0 there")
+        rel = aux_errors(got, want, MESH_AUX_LEAVES)
+        print(f"MESH_AUX backward vs plain on the last step's replay_grad "
+              f"call, rows 0-{rows - 1} ({m} lanes, {spp} spp, depth 8): "
+              f"max error {rel:.3e} of the leaf's max abs over "
+              f"{', '.join(MESH_AUX_LEAVES)}; plain version {seconds:.1f} s")
+        late("megatrace_bwd_mesh_aux", "max_abs_err", rel)
+        late("megatrace_bwd_mesh_aux", "plain_ms", seconds * 1e3)
+
+    plain_check(megatrace_bwd.replay_grad_reference, band_args, bkwargs,
+                mesh_aux_finish)
+    del calls, bargs, bkwargs, bgot
+    for few in (4, spp):
+        lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+        fkw = dict(kw, samples=few)
+        fwd = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                     want_tape=True, **fkw)
+        cots = probe_cotangents(fwd["color"], fwd["count"])
+        live = float(fwd["rays"].sum())
+        base = megatrace.tri_code_base(0, rect, box)
+        tri_live = float((fwd["tape"] >= base).sum())
+        aux_live = float((fwd["tape"] >= 0).sum()) - tri_live
+        scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+            tables, tri, lane_count, fwd["tape"], cots, 7, fkw,
+            5 if few == 4 else 3, rect=rect, box=box)
+        ent_rows = megatrace.sphere_pad_count(0) + aux_rows + tri[0].shape[0]
+        bnd = bwd_bound(live, table.shape[0], n, ent_rows * 4 * 38,
+                        aux_live * AUX_BWD_FLOPS + tri_live * 3 * MT_FLOPS)
+        stats = path_stats(table, 8)
+        print(f"MESH_AUX alone, cornell_mesh {width}x{width} depth 8, {few} "
+              f"spp (CUDA events): tape scan's two launches {scan_ms:.3f} ms "
+              f"(glue {glue_ms:.3f} ms more), path kernel {paths_ms:.3f} ms "
+              f"(bound {bnd[0]:.4f} ms by {bnd[1]}, {live:.0f} live "
+              f"iterations, {tri_live:.0f} at triangles, {aux_live:.0f} at "
+              f"rects and boxes); {stats['paths']} paths, idle warp slots "
+              f"{stats['idle_warp_slots']:.6f} [{card}]")
+        key = "" if few == 4 else "_64spp"
+        entries["bwd"].update({f"ms{key}": paths_ms,
+                               f"scan_ms{key}": scan_ms,
+                               f"bound_ms{key}": bnd[0]})
+        if few == 4:
+            entries["bwd"]["bound_by"] = bnd[1]
+        del fwd, table, cots
+    path_report = ptxas_report(megatrace_bwd.BUILD_LOG,
+                               "megatrace_paths_kernelILb1ELb1E")
+    print(f"MESH_AUX path kernel: ptxas {path_report or '(not built here)'}")
+    # one step with an AOV term: the graft's wavefront sweeps the rects and
+    # boxes and, through triangle_select, the soup
+    reset_launches()
+    graft_runs = renderer.AOV_GRAFT_RUNS
+    params = {k: v.detach().clone().requires_grad_() for k, v in
+              params_mod.extract_params(scene, names).items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step = renderer.render_image(
+        params_mod.apply_params(scene, params), camera, width=width,
+        height=width, samples_per_pixel=16, trace_depth=8, seed=seeds[0],
+        differentiable=True)
+    (torch.mean((step.color - target) ** 2)
+     + torch.mean(step.normal ** 2)).backward()
+    torch.cuda.synchronize()
+    aov_s = time.perf_counter() - t
+    runs = renderer.AOV_GRAFT_RUNS - graft_runs
+    if (runs != 1 or triangle_select.LAUNCHES == 0
+            or megatrace_bwd.MESH_AUX_LAUNCHES != 1
+            or not all(bool(torch.isfinite(v.grad).all())
+                       for v in params.values())):
+        raise RuntimeError(f"cornell_mesh AOV step: graft runs {runs}, "
+                           f"triangle_select {triangle_select.LAUNCHES}, "
+                           f"MESH_AUX {megatrace_bwd.MESH_AUX_LAUNCHES}")
+    out["cornell_mesh_aov_step_s"] = aov_s
+    print(f"mesh+aux AOV step: cornell_mesh {width}x{width}, 16 spp, depth "
+          f"8: {aov_s:.3f} s, graft runs {runs}, triangle_select launches "
+          f"{triangle_select.LAUNCHES} [{card}]")
+
+    # ---- (d) cornell_mesh_large forward: the streamed kernel's aux build --
+    large, large_cs = scenes["cornell_mesh_large"]
+    lcam, ltables = batch_inputs(large, large_cs, width, width, dev)
+    lpacked = materials.pack_materials(large)
+    lrect, lbox = megatrace.pack_aux_tables(large, lpacked)
+    lstream = megatrace.pack_tri_stream_tables(large, lpacked)
+    order, _ = (t.to(dev) for t in megatrace.morton_order(width, width))
+    acc = film.zero_accumulators(n, device=dev)
+    lrate, calls = batches(large, lcam, 2, spp, acc, gen)
+    launches = (megatrace.LAUNCHES, megatrace.STREAM_AUX_LAUNCHES,
+                meshtrace.SYNC_LAUNCHES, wavefront_launches())
+    if launches != (2, 2, 0, 0):
+        raise RuntimeError(f"cornell_mesh_large forward: launches (batch "
+                           f"kernel, stream+aux, sync, wavefront) "
+                           f"{launches}; want 2 of the streamed aux build")
+    img = finite_image("cornell_mesh_large", acc)
+    (args, kwargs, res), = calls
+    lrays64 = float(res["rays"].sum())
+    print(f"mesh+aux forward: cornell_mesh_large {width}x{width} depth 8, "
+          f"{spp} spp/batch: median {lrate:.3f} MRays/s over 2 batches "
+          f"({lrays64:.0f} rays/batch; stream+aux launches {launches[1]}); "
+          f"image mean {float(img.mean()):.4f} [{card}]")
+    out["cornell_mesh_large_fwd_mrays"] = lrate
+    entries["stream_aux"] = dict(launches=launches[1], fwd_mrays=lrate)
+    parity_rows(f"stream+aux build, cornell_mesh_large {width}x{width} {spp} "
+                "spp main-path batch, Morton lanes", args, kwargs, rows,
+                width, tape=False, bitwise=True,
+                record=into("megatrace_batch_stream_aux"))
+    del calls, args, kwargs, res
+    lkw = dict(trace_depth=8, has_dielectrics=large.flags.has_dielectrics,
+               sky_on=False, rect_tables=lrect, box_tables=lbox,
+               tri_stream_tables=lstream, pixel_index=order)
+    lms = {few: tri_launch_ms(ltables, None, few, reps, lkw)
+           for few, reps in ((4, 5), (spp, 2))}
+    sinfo = megatrace.tri_kernel_info(0, aux_rows, stream=True)
+    sreport = ptxas_report(megatrace.BUILD_LOG,
+                           "megatrace_stream_kernelILb0ELb1EE")
+    print(f"stream+aux build alone, cornell_mesh_large {width}x{width} depth "
+          f"8 (CUDA events): 4 spp {lms[4]:.3f} ms, {spp} spp "
+          f"{lms[spp]:.3f} ms; ptxas {sreport or '(not built here)'}; "
+          f"{sinfo['registers']} registers, {sinfo['local_bytes']} B local, "
+          f"{sinfo['blocks']} blocks an SM [{card}]")
+    largs4 = (torch.full((n,), 4, dtype=torch.int32, device=dev), zeros,
+              *ltables, 7)
+    lkw4 = dict(lkw, samples=4)
+    lres4 = megatrace.sample_batch(*largs4, **lkw4)
+    lbounces4 = float(lres4["rays"].sum())
+    entries["stream_aux"].update(
+        ms=lms[4], ms_64spp=lms[spp], bounces=lbounces4,
+        registers=sinfo["registers"], local_bytes=sinfo["local_bytes"],
+        blocks_per_sm=sinfo["blocks"])
+
+    def stream_aux_counts(counts, bounces=lbounces4, scene=large, kw=lkw4,
+                          rays64=lrays64):
+        # the least work, as phase 20's: the lanes' own tests in the
+        # kernel's near-to-far order (the traversal model's) or in the
+        # plain version's index order, whichever is lower
+        index_pairs, index_slabs, model, seconds = counts
+        late("megatrace_batch_stream_aux", "plain_ms", seconds * 1e3)
+        index_ms = mesh_aux_bound(bounces, index_pairs, index_slabs, n,
+                                  scene, kw)[0]
+        pairs, slabs = min(
+            (model["lane_pairs"], model["lane_slabs"]),
+            (index_pairs, index_slabs),
+            key=lambda c: mesh_aux_bound(bounces, *c, n, scene, kw)[0])
+        bnd = mesh_aux_bound(bounces, pairs, slabs, n, scene, kw)
+        bnd64 = mesh_aux_bound(rays64, pairs / bounces * rays64,
+                               slabs / bounces * rays64, n, scene, kw)
+        for field, v in (("bound_ms", bnd[0]), ("bound_by", bnd[1]),
+                         ("bound_ms_64spp", bnd64[0]),
+                         ("tri_pairs_per_bounce", pairs / bounces)):
+            late("megatrace_batch_stream_aux", field, v)
+        print(f"stream+aux build bound, cornell_mesh_large {width}x{width} "
+              f"4 spp: per bounce the kernel's traversal (the model's, "
+              f"winners equal to the index-order sweep's on every live "
+              f"lane) tests {model['lane_pairs'] / bounces:.1f} triangles "
+              f"and {model['lane_slabs'] / bounces:.1f} AABBs, the plain "
+              f"version's index order {index_pairs / bounces:.1f} and "
+              f"{index_slabs / bounces:.1f}: {bnd[0]:.4f} ms by {bnd[1]} "
+              f"(the lower; by the index order's {index_ms:.4f} ms); "
+              f"64 spp (scaled) {bnd64[0]:.4f} ms; the plain version "
+              f"{seconds:.1f} s of its job's [{card}]")
+
+    check_parity(f"stream+aux build, cornell_mesh_large {width}x{width} 4 "
+                 "spp (whole batch)", largs4, lkw4,
+                 record=into("megatrace_batch_stream_aux"), tape=False,
+                 plain=plain_with_counts, more=stream_aux_counts,
+                 bitwise=True)
+    del lres4
+
+    # ---- (e) mesh_huge_bare on both routes ---------------------------------
+    huge, huge_cs = scenes["mesh_huge_bare"]
+    hcam, htables = batch_inputs(huge, huge_cs, width, width, dev)
+    acc = film.zero_accumulators(n, device=dev)
+    hrate, _ = batches(huge, hcam, 3, spp, acc, gen)
+    launches = (meshtrace.SYNC_LAUNCHES, meshtrace.COMPACT_LAUNCHES,
+                meshtrace.RESTORE_LAUNCHES, megatrace.LAUNCHES,
+                wavefront_launches())
+    if min(launches[:3]) == 0 or launches[3] or launches[4]:
+        raise RuntimeError(f"mesh_huge_bare forward: launches (sync, "
+                           f"compact, restore, batch kernel, wavefront) "
+                           f"{launches}; want the sync sampler alone")
+    finite_image("mesh_huge_bare", acc)
+    hstream = megatrace.pack_tri_stream_tables(huge,
+                                               materials.pack_materials(huge))
+    hkw = dict(samples=spp, trace_depth=8,
+               has_dielectrics=huge.flags.has_dielectrics, sky_on=True,
+               tri_stream_tables=hstream, pixel_index=order)
+    hargs = (torch.full((n,), spp, dtype=torch.int32, device=dev), zeros,
+             *htables, 7)
+    megatrace.sample_batch(*hargs, **hkw)  # warm-up
+    reset_launches()
+    hruns = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hres = megatrace.sample_batch(*hargs, **hkw)
+        rays = float(hres["rays"].sum())
+        torch.cuda.synchronize()
+        hruns.append(rays / (time.perf_counter() - t) / 1e6)
+    if megatrace.LAUNCHES != 2 or megatrace.STREAM_AUX_LAUNCHES:
+        raise RuntimeError("mesh_huge_bare batch route: launches "
+                           f"{megatrace.LAUNCHES}")
+    print(f"mesh_huge_bare (102,656 triangles, no sphere) {width}x{width} "
+          f"depth 8, {spp} spp/batch: sync route (render_batch) median "
+          f"{hrate:.3f} MRays/s over 3 batches (sync launches "
+          f"{launches[0]}, compactions {launches[1]}, restores "
+          f"{launches[2]}); batch route (the streamed kernel, s = 0, Morton "
+          f"lanes) median {statistics.median(hruns):.3f} MRays/s over 2 "
+          f"[{card}]")
+    out["mesh_huge_bare_sync_mrays"] = hrate
+    out["mesh_huge_bare_stream_mrays"] = statistics.median(hruns)
+    del hres
+    # the s = 0 check on a 4-spp batch of the same lanes: the plain
+    # streamed sweep steps through every block of every iteration, and a
+    # 64-spp batch's band took it 271.2 s (beside an NVIDIA H100 80GB HBM3
+    # at 700.00 W, in the check stage)
+    parity_rows(f"streamed kernel, s = 0, mesh_huge_bare {width}x{width} 4 "
+                "spp, Morton lanes", (torch.full((n,), 4, dtype=torch.int32,
+                                                 device=dev), *hargs[1:]),
+                dict(hkw, samples=4), rows, width, tape=False, bitwise=True,
+                record=lambda *a: None)
+    bounces_h, _, _ = recorded_wave(huge, huge_cs, width, width, dev)
+    wargs, wkw, _ = bounces_h[1]
+    state = wargs[0]
+    cols = state.shape[1]
+    lo, hi = cols // 2 - rows * width * 4, cols // 2 + rows * width * 4
+    kernel_state = meshtrace.bounce_sync(state.clone(), *wargs[1:], **wkw)
+    band_state = kernel_state[:, lo:hi].clone()
+
+    def sync_finish(want, seconds, got=band_state):
+        if not same_bits(got, want):
+            raise RuntimeError("bounce_sync, s = 0: kernel and plain differ "
+                               "on the band")
+        print(f"parity bounce_sync, s = 0, mesh_huge_bare bounce 1 of an "
+              f"8-spp wave, columns {lo}-{hi - 1}: every bit identical "
+              f"(plain version {seconds:.1f} s)")
+
+    plain_check(meshtrace.bounce_sync_reference,
+                (state[:, lo:hi].clone(), *wargs[1:]), wkw, sync_finish)
+    del bounces_h, wargs, state, kernel_state
+
+    # ---- (f) BLUE on both aux builds ---------------------------------------
+    blue = randomsource.make_noise_state(NoiseColor.BLUE, seed=7, device=dev)
+    noise_kw = dict(noise_color=int(NoiseColor.BLUE), noise_state=blue)
+    for name, build, sc, cam, nspp in (
+            ("cornell_mesh", "tri+aux", scene, camera, noise_spp),
+            # 4 spp for the streamed mesh, as phase 29's: its plain check
+            # steps through every block of every iteration
+            ("cornell_mesh_large", "stream+aux", large, lcam, 4)):
+        acc = film.zero_accumulators(n, device=dev)
+        nrate, calls = batches(sc, cam, 2, nspp, acc, gen, **noise_kw)
+        if (megatrace.NOISE_BUILDS != {build: 2} or megatrace.LAUNCHES != 2
+                or wavefront_launches() or meshtrace.SYNC_LAUNCHES):
+            raise RuntimeError(f"{name} with BLUE: noise builds "
+                               f"{megatrace.NOISE_BUILDS}, batch kernel "
+                               f"launches {megatrace.LAUNCHES}; want 2 of "
+                               f"{build}")
+        finite_image(f"{name} BLUE", acc)
+        (args, kwargs, _), = calls
+        route = ("tables" if kwargs.get("noise_tbl") is not None
+                 else "pre_drawn")
+        if route != ("tables" if build == "tri+aux" else "pre_drawn"):
+            raise RuntimeError(f"{name} with BLUE took the {route} route")
+        noise_parity(f"noise build {build}, BLUE ({route}), {name} "
+                     f"{width}x{width} {nspp} spp main-path batch",
+                     args, kwargs, width,
+                     record=with_plain_ms(noise_kernel_name(build)),
+                     rows=rows, bitwise=True)
+        del calls, args, kwargs
+        e = entries[f"noise_{build}"] = dict(launches=2, fwd_mrays=nrate)
+        for few, reps in ((4, 5), (spp, 2)):
+            with recorded_calls(megatrace, "sample_batch") as calls:
+                renderer.render_batch(
+                    sc, cam, film.zero_accumulators(n, device=dev), gen,
+                    width=width, height=width, samples=few, trace_depth=8,
+                    **noise_kw)
+            (args, kwargs, res), = calls
+            white_kw = {k: v for k, v in kwargs.items()
+                        if k not in NOISE_KEYS}
+            timed = {"white": [], "blue": []}
+            for flavor in ("white", "blue", "blue", "white"):
+                timed[flavor].append(time_batch(
+                    megatrace.sample_batch, *args, repeats=reps,
+                    **(kwargs if flavor == "blue" else white_kw))[0])
+            rays = float(res["rays"].sum())
+            bnd = noise_beside_bound(args, kwargs, rays,
+                                     float(args[0].sum()), sc)
+            key = "" if few == 4 else "_64spp"
+            e.update({f"ms{key}": statistics.mean(timed["blue"]),
+                      f"white_ms{key}": statistics.mean(timed["white"]),
+                      f"bound_ms{key}": bnd[0]})
+            if few == 4:
+                e["bound_by"] = bnd[1]
+            print(f"noise build {build} alone, {name} {width}x{width} {few} "
+                  f"spp, depth 8 (CUDA events over sample_batch calls, in "
+                  f"turns): blue {timed['blue']} ms against its white twin's "
+                  f"{timed['white']} ms; bound {bnd[0]:.4f} ms by {bnd[1]} "
+                  f"[{card}]")
+            del calls, args, kwargs, res
+        ninfo = megatrace.noise_kernel_info(
+            0, aux_rows=aux_rows, tri=1 if build == "tri+aux" else 2)
+        e.update(registers=ninfo["registers"],
+                 local_bytes=ninfo["local_bytes"],
+                 blocks_per_sm=ninfo["blocks"])
+        print(f"noise build {build}: {ninfo['registers']} registers, "
+              f"{ninfo['local_bytes']} B local, {ninfo['blocks']} blocks an "
+              f"SM; median MRays/s of 2 BLUE batches {nrate:.3f} [{card}]")
+        out[f"{name}_blue_fwd_mrays"] = nrate
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s")
+
+    src = "raytracing_in_one_weekend_tpu_torch/csrc/"
+    fwd_replaces = "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457"
+    kernels = []
+    for name, key, source in (
+            ("megatrace_batch_tri_aux", "tri_aux", "megatrace_batch.cu"),
+            ("megatrace_batch_stream_aux", "stream_aux",
+             "megatrace_batch.cu"),
+            (noise_kernel_name("tri+aux"), "noise_tri+aux",
+             "megatrace_noise.cu"),
+            (noise_kernel_name("stream+aux"), "noise_stream+aux",
+             "megatrace_noise.cu")):
+        e = entries[key]
+        kernels.append(dict(
+            {"name": name, "route": "cuda", "source": src + source,
+             "replaces": fwd_replaces, "launches": e.pop("launches"),
+             "max_abs_err": None, "ms": e.pop("ms"), "plain_ms": None,
+             "bound_ms": e.pop("bound_ms", None),
+             "bound_by": e.pop("bound_by", None), "library_ms": None},
+            **e))
+    e = entries["bwd"]
+    kernels.append(dict(
+        {"name": "megatrace_bwd_mesh_aux", "route": "cuda",
+         "source": src + "megatrace_bwd.cu",
+         "replaces": "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132",
+         "launches": e.pop("launches"), "max_abs_err": None,
+         "ms": e.pop("ms"), "plain_ms": None, "bound_ms": e.pop("bound_ms"),
+         "bound_by": e.pop("bound_by"), "library_ms": None}, **e))
     return {"kernels": kernels, "paths": out}
 
 
@@ -6918,6 +7692,7 @@ def main() -> int:
     cube = cube_phases(dev, card)
     noise = noise_phases(dev, card)
     beside = noise_beside_phases(dev, card)
+    mesh_aux = mesh_aux_phases(dev, card)
     run_check_stage()
 
     kernels = [{
@@ -6973,7 +7748,7 @@ def main() -> int:
     }] + wave["kernels"] + mesh["kernels"] + streamed["kernels"] \
         + aux["kernels"] + vol["kernels"] + motion["kernels"] \
         + texture["kernels"] + field["kernels"] + cube["kernels"] \
-        + noise["kernels"] + beside["kernels"]
+        + noise["kernels"] + beside["kernels"] + mesh_aux["kernels"]
     apply_late(kernels)
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the "
           "card's check to here")
@@ -6992,7 +7767,7 @@ def main() -> int:
         "volume": vol["paths"], "motion": motion["paths"],
         "texture": texture["paths"], "sphere_field": field["paths"],
         "cube": cube["paths"], "noise": noise["paths"],
-        "noise_beside": beside["paths"]}))
+        "noise_beside": beside["paths"], "mesh_aux": mesh_aux["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

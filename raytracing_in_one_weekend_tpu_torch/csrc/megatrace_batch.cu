@@ -4,8 +4,9 @@
 // rects and boxes
 // (with or without spheres), convex volumes, moving spheres and textured
 // albedos beside either, and mesh scenes of at most TRI_STREAM_MAX
-// triangles, gradient or no sky; a cubemap sky beside spheres alone or
-// beside one of rects and boxes, volumes, motion and textures.
+// triangles (with or without spheres, rects and boxes), gradient or no
+// sky; a cubemap sky beside spheres alone or beside one of rects and
+// boxes, volumes, motion and textures.
 //
 // Replaces: ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
 // sphere arm (the dense and the blocked sweep), its rect/box arm, its convex-volume arm, its motion and
@@ -184,6 +185,21 @@
 // is a 16x8 tile of pixels); the hash PRNG stays keyed by the lane, as in
 // JAX.
 
+// Rects and boxes beside a mesh (ROADMAP step 7.1b; a Cornell box with a
+// mesh in it) take the aux builds of the triangle build and the streamed
+// kernel (kAux, their last flag; the builds without it compile none of it
+// and keep their SASS).  Each block stages the rect and box rows after
+// the spheres, as the sphere kernel's aux build does (stage_aux), and a
+// lane sweeps them (aux_sweep, ~75 flops a rect, ~120 a box) after its
+// spheres and before its triangles: the triangle sweep's culls then test
+// each block's AABB against the nearest of the spheres, rects and boxes,
+// and a triangle wins only with a strictly smaller t, in the JAX kernel's
+// order (spheres, rects, boxes, triangles).  Its tape codes follow the
+// padded spheres, rects and boxes (tri_code_base).  A mesh without
+// spheres sweeps no sphere row: JAX's 128 pad spheres leave only their
+// code offset.  The triangle build's aux build runs kTriAuxBlocks = 4
+// blocks an SM, as the sphere kernel's aux build does.
+//
 // The kernels and the launch templates are megatrace_batch.cuh's; this
 // source holds the white builds' entry points, megatrace_noise.cu the
 // noise builds', so that the two compile in parallel.
@@ -215,6 +231,34 @@ extern "C" int rtiw_megatrace_batch(
       tri_sup, tri_rec, out, tape, n, s, tri_rows, tri_blocks, tri_supers,
       tri_code_base, seed, lane_base, samples, trace_depth, t_min,
       has_dielectrics, sky_on, jitter, NoiseScene{}, stream);
+}
+
+// The aux builds of the triangle build and the streamed kernel (rects and
+// boxes beside a mesh, with spheres or without): rtiw_megatrace_batch's
+// arguments with tri_rows > 0, then aux_geo ((rect_rows + box_rows) x 16
+// floats: pack_aux_tables' rect rows, then its box rows; 16-byte aligned)
+// and aux_rec (as many 16-column records), the tape codes of rect row 0
+// and box row 0, and at least one rect or box row; tri_code_base then
+// follows the padded rects and boxes.  cudaErrorInvalidValue for a request
+// without triangles or rows.
+extern "C" int rtiw_megatrace_tri_aux(
+    const float* lane_count, const float* count_in, const float* pixel_index,
+    const float* consts, const float* sph, const float* rec,
+    const float* tri_geo, const float* tri_aabb, const float* tri_sup,
+    const float* tri_rec, float* out, float* tape, int n, int s,
+    int tri_rows, int tri_blocks, int tri_supers, int tri_code_base,
+    int seed, int lane_base, int samples, int trace_depth, float t_min,
+    int has_dielectrics, int sky_on, int jitter, const float* aux_geo,
+    const float* aux_rec, int rect_rows, int box_rows, int rect_code,
+    int box_code, void* stream) {
+  if (rect_rows + box_rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return batch_launch<false>(
+      lane_count, count_in, pixel_index, consts, sph, rec, tri_geo, tri_aabb,
+      tri_sup, tri_rec, out, tape, n, s, tri_rows, tri_blocks, tri_supers,
+      tri_code_base, seed, lane_base, samples, trace_depth, t_min,
+      has_dielectrics, sky_on, jitter, NoiseScene{}, stream,
+      AuxRows{aux_geo, aux_rec, rect_rows, box_rows, rect_code, box_code});
 }
 
 // The aux, volume, motion and texture builds (scenes with rects or boxes,
@@ -273,10 +317,12 @@ extern "C" int rtiw_megatrace_ext_info(int s, int aux_rows, int has_vol,
                            has_cube, 0, info);
 }
 
-// sphere_info of the triangle build (megatrace_tri_kernel) beside an
-// s-sphere table.
-extern "C" int rtiw_megatrace_tri_info(int s, int* info) {
-  return build_info<false>(s, 0, 0, 0, 0, 0, 0, 1, info);
+// sphere_info of the triangle build (megatrace_tri_kernel), or with
+// `stream` the streamed kernel, beside an s-sphere table; with aux_rows >
+// 0 its aux build's for that many rect and box rows.
+extern "C" int rtiw_megatrace_tri_info(int s, int aux_rows, int stream,
+                                       int* info) {
+  return build_info<false>(s, aux_rows, 0, 0, 0, 0, 0, stream ? 2 : 1, info);
 }
 
 namespace {

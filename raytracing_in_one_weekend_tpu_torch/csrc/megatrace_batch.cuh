@@ -32,6 +32,8 @@ constexpr int kMotionBlocks = 4;  // the motion builds': the moved centres
 constexpr int kBlockedBlocks = 6;  // the static blocked build's
 constexpr int kTriBlocks = 5;  // the triangle build's (its kTriRows tests
                                // a ray need more registers than 80)
+constexpr int kTriAuxBlocks = 4;  // its aux build's: the rect and box tests
+                                  // beside the dealt sweep's registers
 constexpr int kTriRows = 3;  // rows a thread loads at each step of its
                              // dealt sweep (192 = 2 x 32 x 3): three
                              // independent tests a ray (the plain model's
@@ -379,6 +381,42 @@ __device__ __forceinline__ bool aux_live(const float4* row, bool box) {
   return (b.w > 0.0f) + (c.x > 0.0f) + (c.y > 0.0f) >= 2;
 }
 
+// Stage the scene's rects and boxes (aux_geo: rect_rows rects, then
+// box_rows boxes, pack_aux_tables' 16-float rows) in shared memory at
+// `staged`, three float4 a row, with the block's kStride threads, and find
+// the rows that can hit (`live`, two shared ints: the last live rect and
+// box row + 1); returns their AuxScene (aux_rec: their 16-column records
+// in device memory).  Every thread of the block calls it: it holds two
+// barriers.  The aux builds of the triangle build and the streamed kernel
+// stage them so, as the sphere kernel's aux build does in its own code.
+template <int kStride>
+__device__ __forceinline__ AuxScene stage_aux(
+    float4* staged, int* live, const float4* __restrict__ aux_geo,
+    const float* __restrict__ aux_rec, int rect_rows, int box_rows,
+    int rect_code, int box_code) {
+  if (threadIdx.x < 2) live[threadIdx.x] = 0;
+  __syncthreads();
+  for (int k = threadIdx.x; k < rect_rows + box_rows; k += kStride) {
+    const float4* row = aux_geo + 4 * k;
+    staged[3 * k] = row[0];
+    staged[3 * k + 1] = row[1];
+    staged[3 * k + 2] = row[2];
+    const bool box = k >= rect_rows;
+    if (aux_live(row, box))
+      atomicMax(&live[box], box ? k - rect_rows + 1 : k + 1);
+  }
+  __syncthreads();
+  AuxScene aux;
+  aux.geo = staged;
+  aux.rec = aux_rec;
+  aux.rects = live[0];
+  aux.boxes = live[1];
+  aux.rect_rows = rect_rows;
+  aux.rect_code = rect_code;
+  aux.box_code = box_code;
+  return aux;
+}
+
 // The sphere build (see the top of this file): the batch of thread t's
 // lane tile_lane(t, n, width), the camera row, sky and accumulators in
 // shared memory, the sweep kSweepStep spheres a step, kSphereBlocks blocks
@@ -455,7 +493,8 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
   // and so its SASS, stay what they were before the aux build)
   [[maybe_unused]] std::conditional_t<kAux, AuxScene, char> aux{};
   if constexpr (kAux) {
-    // the rows that can hit: the last live rect and box row + 1
+    // the rows that can hit: the last live rect and box row + 1 (its own
+    // loop, not stage_aux: sharing it changed two noise builds' SASS)
     __shared__ int live[2];
     if (threadIdx.x < 2) live[threadIdx.x] = 0;
     __syncthreads();
@@ -776,21 +815,30 @@ __device__ __forceinline__ void tri_sweep_dealt(
   }
 }
 
-// The triangle build (meshes of at most TRI_MAX triangles beside spheres;
-// see the top of this file): thread i runs lane i, the camera row, sky
-// and accumulators in shared memory, kTriBlocks blocks an SM; the warp
-// stays in the loop until its last lane's samples end, since every thread
-// takes part in tri_sweep_dealt.  Its noise build (kNoise) takes a
+// The triangle build (meshes of at most TRI_MAX triangles, with spheres
+// or without; see the top of this file): thread i runs lane i, the camera
+// row, sky and accumulators in shared memory, kTriBlocks blocks an SM; the
+// warp stays in the loop until its last lane's samples end, since every
+// thread takes part in tri_sweep_dealt.  Its noise build (kNoise) takes a
 // sampler flavor's draws (`noise`) as the sphere kernel's noise builds
-// do, at lane i's pixel.
-template <bool kNoise = false>
-__global__ void __launch_bounds__(kThreads, kTriBlocks) megatrace_tri_kernel(
+// do, at lane i's pixel.  Its aux build (kAux; the others compile none of
+// it) stages the scene's rects and boxes after the spheres (stage_aux) and
+// sweeps them after the spheres and before the triangles (aux_sweep), so
+// that the dealt sweep's culls take the nearest of the three, and shades a
+// rect or box winner; kTriAuxBlocks blocks an SM.
+template <bool kNoise = false, bool kAux = false>
+__global__ void __launch_bounds__(kThreads,
+                                  kAux ? kTriAuxBlocks : kTriBlocks)
+    megatrace_tri_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
     const float* __restrict__ consts, const float4* __restrict__ sph_g,
     const float* __restrict__ rec, TriScene tri, float* __restrict__ out,
     float* __restrict__ tape, int n, int s, int seed, int lane_base,
     int samples, int trace_depth, float t_min, int has_dielectrics,
-    int sky_on, int jitter, const NoiseScene noise = NoiseScene{}) {
+    int sky_on, int jitter, const NoiseScene noise = NoiseScene{},
+    const float4* __restrict__ aux_geo = nullptr,
+    const float* __restrict__ aux_rec = nullptr, int rect_rows = 0,
+    int box_rows = 0, int rect_code = 0, int box_code = 0) {
   extern __shared__ float4 sph[];
   // camera row: origin, lower_left, horizontal, vertical, right, up,
   // lens_radius, width, height | sky bottom | sky top
@@ -801,6 +849,12 @@ __global__ void __launch_bounds__(kThreads, kTriBlocks) megatrace_tri_kernel(
   __shared__ float2 ray_d[kThreads];  // dy dz
   __shared__ unsigned long long key[kThreads];
   for (int k = threadIdx.x; k < s; k += kThreads) sph[k] = sph_g[k];
+  [[maybe_unused]] std::conditional_t<kAux, AuxScene, char> aux{};
+  if constexpr (kAux) {
+    __shared__ int live_rows[2];
+    aux = stage_aux<kThreads>(sph + s, live_rows, aux_geo, aux_rec,
+                              rect_rows, box_rows, rect_code, box_code);
+  }
   if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
   const SharedRow acc{&acc_rows[0][threadIdx.x]};
 #pragma unroll
@@ -846,6 +900,7 @@ __global__ void __launch_bounds__(kThreads, kTriBlocks) megatrace_tri_kernel(
     if constexpr (kNoise) nl.seq = (noise.draw_base + it) % kNoiseWrap;
     float best_t = kBig;
     int best = 0;
+    [[maybe_unused]] int aux_kind = 0, aux_idx = 0;
     if (live) {
       if (!p.active) {
         if constexpr (kNoise) {
@@ -861,6 +916,7 @@ __global__ void __launch_bounds__(kThreads, kTriBlocks) megatrace_tri_kernel(
         started = started + 1.0f;
       }
       sphere_sweep_steps(p, sph, s, t_min, best_t, best);
+      if constexpr (kAux) aux_sweep(p, aux, t_min, best_t, aux_kind, aux_idx);
     }
     float tri_t, tri_u, tri_v;
     int tri_idx;
@@ -868,12 +924,19 @@ __global__ void __launch_bounds__(kThreads, kTriBlocks) megatrace_tri_kernel(
                     key + warp, lane, tri_t, tri_idx, tri_u, tri_v);
     if (live) {
       const bool tri_wins = tri_t < best_t;
-      const int winner =
-          shade<true, false, false, false, false, false, kNoise>(
-              p, tri_wins ? tri_t : best_t, best, tri_wins, tri_idx, tri_u,
-              tri_v, rec, has_dielectrics != 0, sky_on != 0, cam + 24,
-              lane_key + salt + kSaltBounce, depth, tri, nullptr, 0, 0,
-              nullptr, kBig, nullptr, 0.f, nullptr, nullptr, nlp);
+      int winner;
+      if constexpr (kAux)
+        winner = shade<true, true, false, false, false, false, kNoise>(
+            p, tri_wins ? tri_t : best_t, best, tri_wins, tri_idx, tri_u,
+            tri_v, rec, has_dielectrics != 0, sky_on != 0, cam + 24,
+            lane_key + salt + kSaltBounce, depth, tri, &aux, aux_kind,
+            aux_idx, nullptr, kBig, nullptr, 0.f, nullptr, nullptr, nlp);
+      else
+        winner = shade<true, false, false, false, false, false, kNoise>(
+            p, tri_wins ? tri_t : best_t, best, tri_wins, tri_idx, tri_u,
+            tri_v, rec, has_dielectrics != 0, sky_on != 0, cam + 24,
+            lane_key + salt + kSaltBounce, depth, tri, nullptr, 0, 0,
+            nullptr, kBig, nullptr, 0.f, nullptr, nullptr, nlp);
       if (tape != nullptr) tape[(size_t)it * n + i] = (float)winner;
       depth = close_bounce(p, depth, trace_depth, cin, acc);
     } else if (tape != nullptr && has_lane) {
@@ -890,8 +953,12 @@ __global__ void __launch_bounds__(kThreads, kTriBlocks) megatrace_tri_kernel(
 
 // The streamed build: kGroup lanes a block in lockstep (see the top of
 // this file); no tape.  Its noise build (kNoise) takes a sampler
-// flavor's pre-drawn rows (`noise`, without tables), lane i's column.
-template <bool kNoise = false>
+// flavor's pre-drawn rows (`noise`, without tables), lane i's column.  Its
+// aux build (kAux; the others compile none of it) stages the scene's rects
+// and boxes after the spheres (stage_aux) and sweeps them after the
+// spheres and before the group traversal (aux_sweep), whose culls then
+// take the nearest of the three, and shades a rect or box winner.
+template <bool kNoise = false, bool kAux = false>
 __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
     const float* __restrict__ pixel_index, const float* __restrict__ consts,
@@ -899,11 +966,20 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
     TriScene tri, float* __restrict__ out, int n, int s, int seed,
     int lane_base, int samples, int trace_depth, float t_min,
     int has_dielectrics, int sky_on, int jitter,
-    const NoiseScene noise = NoiseScene{}) {
+    const NoiseScene noise = NoiseScene{},
+    const float4* __restrict__ aux_geo = nullptr,
+    const float* __restrict__ aux_rec = nullptr, int rect_rows = 0,
+    int box_rows = 0, int rect_code = 0, int box_code = 0) {
   extern __shared__ float4 sph[];
   __shared__ __align__(128) GroupShared g;
   __shared__ float cam[kConsts];
   for (int k = threadIdx.x; k < s; k += kGroup) sph[k] = sph_g[k];
+  [[maybe_unused]] std::conditional_t<kAux, AuxScene, char> aux{};
+  if constexpr (kAux) {
+    __shared__ int live_rows[2];
+    aux = stage_aux<kGroup>(sph + s, live_rows, aux_geo, aux_rec, rect_rows,
+                            box_rows, rect_code, box_code);
+  }
   if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
   group_init(g);
   __syncthreads();
@@ -959,18 +1035,29 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
     }
     float best_t = 0.f;
     int best = 0;
-    if (live) sphere_sweep(p, sph, s, t_min, best_t, best);
+    [[maybe_unused]] int aux_kind = 0, aux_idx = 0;
+    if (live) {
+      sphere_sweep(p, sph, s, t_min, best_t, best);
+      if constexpr (kAux) aux_sweep(p, aux, t_min, best_t, aux_kind, aux_idx);
+    }
     bool tri_wins;
     int tri_idx;
     float tri_u, tri_v;
     group_hit(g, cursor, p, live, live, tri, t_min, best_t, tri_wins,
               tri_idx, tri_u, tri_v);
     if (live) {
-      shade<true, false, false, false, false, false, kNoise>(
-          p, best_t, best, tri_wins, tri_idx, tri_u, tri_v, rec,
-          has_dielectrics != 0, sky_on != 0, cam + 24,
-          lane_key + salt + kSaltBounce, depth, tri, nullptr, 0, 0, nullptr,
-          kBig, nullptr, 0.f, nullptr, nullptr, nlp);
+      if constexpr (kAux)
+        shade<true, true, false, false, false, false, kNoise>(
+            p, best_t, best, tri_wins, tri_idx, tri_u, tri_v, rec,
+            has_dielectrics != 0, sky_on != 0, cam + 24,
+            lane_key + salt + kSaltBounce, depth, tri, &aux, aux_kind,
+            aux_idx, nullptr, kBig, nullptr, 0.f, nullptr, nullptr, nlp);
+      else
+        shade<true, false, false, false, false, false, kNoise>(
+            p, best_t, best, tri_wins, tri_idx, tri_u, tri_v, rec,
+            has_dielectrics != 0, sky_on != 0, cam + 24,
+            lane_key + salt + kSaltBounce, depth, tri, nullptr, 0, 0,
+            nullptr, kBig, nullptr, 0.f, nullptr, nullptr, nlp);
       depth = close_bounce(p, depth, trace_depth, cin, acc);
     }
   }
@@ -1000,10 +1087,53 @@ static NoiseScene noise_of(const NoiseScene* noise, int samples, int n) {
   return ns;
 }
 
+// The rect and box rows an aux build of the triangle build or the
+// streamed kernel takes (rtiw_megatrace_tri_aux): aux_geo (rect_rows +
+// box_rows) x 16 floats, 16-byte aligned, aux_rec as many 16-column
+// records, and the tape codes of rect row 0 and box row 0.  No rows: the
+// builds without kAux.
+struct AuxRows {
+  const float* geo = nullptr;
+  const float* rec = nullptr;
+  int rect_rows = 0, box_rows = 0, rect_code = 0, box_code = 0;
+};
+
+// The dynamic shared memory of the triangle build and the streamed kernel:
+// the spheres, then three float4 a rect or box row.
+static size_t tri_shmem(int s, int aux_rows) {
+  return ((size_t)s + 3 * (size_t)aux_rows) * sizeof(float4);
+}
+
+template <bool kNoise, bool kAux>
+static int stream_launch(
+    const float* lane_count, const float* count_in, const float* pixel_index,
+    const float* consts, const float* sph, const float* rec,
+    const TriScene& tri, float* out, int n, int s, int seed, int lane_base,
+    int samples, int trace_depth, float t_min, int has_dielectrics,
+    int sky_on, int jitter, const NoiseScene& ns, const AuxRows& a,
+    cudaStream_t st) {
+  const size_t shmem = tri_shmem(s, a.rect_rows + a.box_rows);
+  // the tables beside ~34 KB of static shared memory
+  const cudaError_t err = cudaFuncSetAttribute(
+      megatrace_stream_kernel<kNoise, kAux>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  megatrace_stream_kernel<kNoise, kAux>
+      <<<(n + kGroup - 1) / kGroup, kGroup, shmem, st>>>(
+          lane_count, count_in, pixel_index, consts,
+          reinterpret_cast<const float4*>(sph), rec, tri, out, n, s, seed,
+          lane_base, samples, trace_depth, t_min, has_dielectrics, sky_on,
+          jitter, ns, reinterpret_cast<const float4*>(a.geo), a.rec,
+          a.rect_rows, a.box_rows, a.rect_code, a.box_code);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // rtiw_megatrace_batch's launches, white (kNoise false) or a flavor's
 // (the triangle build and the streamed kernel; the streamed one takes
 // the pre-drawn rows only, and the sphere-only build's noise twin is
-// rtiw_megatrace_ext_noise's).
+// rtiw_megatrace_ext_noise's), and with rect and box rows in `aux` the
+// aux builds of the triangle build and the streamed kernel
+// (rtiw_megatrace_tri_aux's; never the sphere-only build).
 template <bool kNoise>
 static int batch_launch(
     const float* lane_count, const float* count_in, const float* pixel_index,
@@ -1013,7 +1143,12 @@ static int batch_launch(
     int tri_rows, int tri_blocks, int tri_supers, int tri_code_base,
     int seed, int lane_base, int samples, int trace_depth, float t_min,
     int has_dielectrics, int sky_on, int jitter, const NoiseScene& ns,
-    void* stream) {
+    void* stream, const AuxRows& aux = AuxRows{}) {
+  const bool has_aux = aux.rect_rows + aux.box_rows > 0;
+  if (has_aux && (tri_rows <= 0 || aux.geo == nullptr ||
+                  aux.rec == nullptr ||
+                  reinterpret_cast<uintptr_t>(aux.geo) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const size_t shmem = (size_t)s * sizeof(float4);
     TriScene tri;
@@ -1031,17 +1166,30 @@ static int batch_launch(
           reinterpret_cast<uintptr_t>(tri_geo) % 16 != 0 ||
           (kNoise && ns.tbl != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
-      // the sphere table beside ~34 KB of static shared memory
+      return has_aux
+                 ? stream_launch<kNoise, true>(
+                       lane_count, count_in, pixel_index, consts, sph, rec,
+                       tri, out, n, s, seed, lane_base, samples, trace_depth,
+                       t_min, has_dielectrics, sky_on, jitter, ns, aux, st)
+                 : stream_launch<kNoise, false>(
+                       lane_count, count_in, pixel_index, consts, sph, rec,
+                       tri, out, n, s, seed, lane_base, samples, trace_depth,
+                       t_min, has_dielectrics, sky_on, jitter, ns, aux, st);
+    } else if (tri_rows > 0 && has_aux) {
+      // the spheres, then the rect and box rows (up to AUX_MAX: 48 KB)
+      const size_t aux_shmem = tri_shmem(s, aux.rect_rows + aux.box_rows);
       const cudaError_t err = cudaFuncSetAttribute(
-          megatrace_stream_kernel<kNoise>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+          megatrace_tri_kernel<kNoise, true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)aux_shmem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      megatrace_stream_kernel<kNoise>
-          <<<(n + kGroup - 1) / kGroup, kGroup, shmem, st>>>(
-              lane_count, count_in, pixel_index, consts,
-              reinterpret_cast<const float4*>(sph), rec, tri, out, n, s,
-              seed, lane_base, samples, trace_depth, t_min, has_dielectrics,
-              sky_on, jitter, ns);
+      megatrace_tri_kernel<kNoise, true>
+          <<<(n + kThreads - 1) / kThreads, kThreads, aux_shmem, st>>>(
+              lane_count, count_in, consts,
+              reinterpret_cast<const float4*>(sph), rec, tri, out, tape, n,
+              s, seed, lane_base, samples, trace_depth, t_min,
+              has_dielectrics, sky_on, jitter, ns,
+              reinterpret_cast<const float4*>(aux.geo), aux.rec,
+              aux.rect_rows, aux.box_rows, aux.rect_code, aux.box_code);
     } else if (tri_rows > 0) {
       megatrace_tri_kernel<kNoise>
           <<<(n + kThreads - 1) / kThreads, kThreads, shmem, st>>>(
@@ -1216,28 +1364,40 @@ static int blocked_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// sphere_info of the triangle build (kStream false) or the streamed
+// kernel, each with kAux its aux build, for tables of `bytes` bytes.
+template <bool kNoise, bool kAux, bool kStream>
+static int tri_info(size_t bytes, int* info) {
+  const void* kernel =
+      kStream ? reinterpret_cast<const void*>(
+                    megatrace_stream_kernel<kNoise, kAux>)
+              : reinterpret_cast<const void*>(
+                    megatrace_tri_kernel<kNoise, kAux>);
+  if (kStream || kAux) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return sphere_info(kernel, bytes, info);
+}
+
 // sphere_info of a build for an s-sphere table, aux_rows rect and box rows
 // and the flags (all 0: the sphere build; has_cube: a cube build);
 // blocks > 0 takes the blocked build (static or with has_motion) for a
-// table of that many blocks; with `noise` the build's noise build, and
-// then tri 1 the triangle build's and tri 2 the streamed kernel's.
+// table of that many blocks; tri 1 takes the triangle build and tri 2 the
+// streamed kernel, each with aux_rows > 0 its aux build; with `noise` the
+// build's noise build.
 template <bool kNoise>
 static int build_info(int s, int aux_rows, int has_vol, int has_motion,
                       int has_tex, int blocks, int has_cube, int tri,
                       int* info) {
-  const size_t sph_bytes = (size_t)s * sizeof(float4);
-  if (tri == 1)
-    return sphere_info(
-        reinterpret_cast<const void*>(megatrace_tri_kernel<kNoise>),
-        sph_bytes, info);
-  if (tri == 2) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        megatrace_stream_kernel<kNoise>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sph_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return sphere_info(
-        reinterpret_cast<const void*>(megatrace_stream_kernel<kNoise>),
-        sph_bytes, info);
+  if (tri == 1 || tri == 2) {
+    const size_t bytes = tri_shmem(s, aux_rows);
+    if (tri == 1)
+      return aux_rows > 0 ? tri_info<kNoise, true, false>(bytes, info)
+                          : tri_info<kNoise, false, false>(bytes, info);
+    return aux_rows > 0 ? tri_info<kNoise, true, true>(bytes, info)
+                        : tri_info<kNoise, false, true>(bytes, info);
   }
   const SphereKernel kernel =
       blocks > 0 ? blocked_kernel<kNoise>(has_motion != 0)

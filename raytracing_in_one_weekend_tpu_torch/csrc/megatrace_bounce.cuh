@@ -10,9 +10,12 @@
 // which runs `sphere_sweep` and `shade`.  The triangle arm of `shade` is a
 // compile-time flag: the batch kernel's triangle build and the streamed
 // kernels take it, the sphere-only builds compile none of it; so are the
-// rect and box arm (kAux), the convex volume walk (kVol), unit-shutter
-// motion (kMotion), albedo textures (kTex), the cubemap sky (kCube) and a
-// sampler flavor's draws (kNoise) of the batch kernel's sphere builds.
+// rect and box arm (kAux: the sphere kernel's aux builds and the aux
+// builds of the triangle build and the streamed kernel, `aux_sweep` after
+// the spheres' sweep and before the triangles'), the convex volume walk
+// (kVol), unit-shutter motion (kMotion), albedo textures (kTex), the
+// cubemap sky (kCube) and a sampler flavor's draws (kNoise) of the batch
+// kernel's sphere builds.
 // Plain version: ops/megatrace.py::_bounce, under the precision contract
 // of megatrace_common.cuh.
 #pragma once
@@ -35,8 +38,9 @@ constexpr int kTriSup = 16;  // blocks under one super-block AABB
 // row), one AABB per kTriBlock rows (lo | hi, two float4; a pad-only
 // block holds a point at 1e30) and the records.  A streamed mesh adds one
 // AABB per kTriSup blocks (`sup`, `supers`; its blocks are a multiple of
-// kTriSup).  A triangle's tape code is code_base (the padded sphere rows)
-// plus its row.
+// kTriSup).  A triangle's tape code is code_base (the padded sphere rows,
+// then the padded rect and box rows where the scene has them) plus its
+// row.
 struct TriScene {
   const float4* geo = nullptr;
   const float4* aabb = nullptr;
@@ -372,8 +376,9 @@ __device__ __forceinline__ void aux_sweep(const Path& p, const AuxScene& aux,
 // The rest of a bounce once the sweeps have found the nearest hit at
 // best_t (kBig: a miss) on sphere row `best` or, when tri_wins, triangle
 // row tri_idx at barycentrics (tri_u, tri_v), or with kAux (the batch
-// kernel's aux build; the other builds compile none of it) rect or box
-// aux_idx of `aux` (aux_kind 1 or 2): the winner's record, with kVol (the
+// kernel's aux builds; the other builds compile none of it) rect or box
+// aux_idx of `aux` (aux_kind 1 or 2; with kTris too a triangle winner
+// beats them, its t strictly smaller): the winner's record, with kVol (the
 // volume builds) the convex volume walk in the medium `med` (t_exit: the
 // winner's exit distance), Lambert / GGX-metal / dielectric or isotropic
 // scatter with the uniforms of hash base `bbase`, the gradient sky `sky`
@@ -451,7 +456,11 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
   const float* w;
   float nx, ny, nz;
   if constexpr (kAux) {
-    if (aux_kind == 1) {
+    if (kTris && tri_wins) {  // nearer than the spheres, rects and boxes
+      w = tri.rec + (size_t)tri_idx * kTriRec;
+      tri_normal(w + 12, w + 15, w + 18, tri_u, tri_v, nx, ny, nz);
+      best = tri.code_base + tri_idx;
+    } else if (aux_kind == 1) {
       w = aux->rec + (size_t)aux_idx * kRec;
       nx = __ldg(w + 12);  // a rect's normal is constant: the packed one
       ny = __ldg(w + 13);
@@ -506,7 +515,7 @@ __device__ __forceinline__ int shade(Path& p, float best_t, int best,
   float alb_r = __ldg(w + 1), alb_g = __ldg(w + 2), alb_b = __ldg(w + 3);
   if constexpr (kTex) {
     bool sphere = true;
-    if constexpr (kAux) sphere = aux_kind == 0;
+    if constexpr (kAux) sphere = aux_kind == 0 && !(kTris && tri_wins);
     tex_albedo(*tex, __ldg(w + 11), nx, ny, nz, px, py, pz, sphere, alb_r,
                alb_g, alb_b);
   }

@@ -1,7 +1,8 @@
 // Backward of the fused batch kernel for Hopper (sm_90a): the reverse
 // sweep of the tape replay, sphere scenes, scenes with rects and boxes,
 // convex volumes beside either, and mesh scenes of at most TRI_MAX
-// triangles, gradient or no sky; sphere scenes under a cubemap sky.
+// triangles (beside spheres, rects and boxes, or alone), gradient or no
+// sky; sphere scenes under a cubemap sky.
 //
 // Replaces: ops/megatrace_bwd.py::_bwd_kernel of the JAX package, its
 // sphere, rect/box, volume and triangle arms and its cube texel plane
@@ -47,6 +48,12 @@
 // kernel needed and this one drops: the (8, 128) lane packing, the one-hot
 // MXU winner fetch and scatter, the VMEM history budget, and the fixed
 // checkpoint blocks that its lockstep lane tiles forced.
+//
+// Rects and boxes beside triangles (kind 9) take the instantiation with
+// kTris and kAux: one entity table of spheres, rects, boxes and triangles
+// (38 columns), each winner's adjoint by its row's kind, and every row
+// past the padded spheres summed into one 28-column table in device
+// memory, the rects' and boxes' first.
 //
 // Mesh scenes take a second instantiation (kTris; the sphere-only one
 // compiles none of it): the entity table is the whole padded row space
@@ -294,6 +301,10 @@ struct RowAdd<true, false> {
     return MeshEntityAdd{base, tri, tri_base};
   }
 };
+// rects and boxes beside triangles: every row past the padded spheres in
+// the one device table, kTriGradCols wide
+template <>
+struct RowAdd<true, true> : RowAdd<true, false> {};
 template <>
 struct RowAdd<false, true> {
   using type = AuxEntityAdd;
@@ -505,7 +516,10 @@ extern "C" int rtiw_bwd_scan(const float* tape, const float* lane_count,
 // floats each) take the atlas and its texel plane.  Kind 7 is kind 0 past
 // SPH_CULL_MIN spheres: `dent` gathers the rows directly.  Kind 8 is kind 0
 // under a cubemap sky: `cube` and a zeroed `dcube` ((6 * cube_h) x cube_w x
-// 3 floats each) take the faces and their texel plane.
+// 3 floats each) take the faces and their texel plane.  Kind 9 is kind 1
+// with rects or boxes beside the triangles: the whole (s_pad + R_pad +
+// B_pad + T_pad, 38) table and a zeroed `dent_rows` (R_pad + B_pad +
+// T_pad, 28), row_base the padded sphere count.
 extern "C" int rtiw_bwd_paths(
     const float* tape, const int* paths, int total, int* next_warp,
     const float* lane_count, const float* consts, const float* ent,
@@ -525,16 +539,19 @@ extern "C" int rtiw_bwd_paths(
   const size_t shmem =
       ((size_t)s * row + kThreads * (vol ? kGsStrideVol : kGsStride)) *
       sizeof(float);
-  if (kind < 0 || kind > 8 ||
-      (kind == 1 || kind == 2 || kind == 4) != (dent_rows != nullptr) ||
+  if (kind < 0 || kind > 9 ||
+      (kind == 1 || kind == 2 || kind == 4 || kind == 9) !=
+          (dent_rows != nullptr) ||
       (atlas != nullptr) != (datlas != nullptr) ||
       (kind == 8) != (cube != nullptr) || (cube != nullptr) != (dcube != nullptr))
     return (int)cudaErrorInvalidValue;
   // the build: 0 sphere scenes, 1 mesh scenes, 2 rects or boxes, 3 and 4
   // those of 0 and 2 with convex volumes, 5 moving spheres, 6 textured
-  // albedos, 7 more than SPH_CULL_MIN spheres, 8 a cubemap sky
+  // albedos, 7 more than SPH_CULL_MIN spheres, 8 a cubemap sky, 9 rects
+  // or boxes beside triangles
   auto kernel =
-      kind == 1   ? megatrace_paths_kernel<true, false>
+      kind == 9   ? megatrace_paths_kernel<true, true>
+      : kind == 1 ? megatrace_paths_kernel<true, false>
       : kind == 2 ? megatrace_paths_kernel<false, true>
       : kind == 3 ? megatrace_paths_kernel<false, false, true>
       : kind == 4 ? megatrace_paths_kernel<false, true, true>
@@ -577,12 +594,13 @@ extern "C" int rtiw_replay_step_vjp(
     int img_h, const float* cube, int cube_w, int cube_h, void* stream) {
   // no step build of kind 7 (the big scenes' rows differ only in where
   // they are summed)
-  if (kind < 0 || kind > 8 || kind == 7 || (kind == 8) != (cube != nullptr))
+  if (kind < 0 || kind > 9 || kind == 7 || (kind == 8) != (cube != nullptr))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     auto kernel =
-        kind == 1   ? replay_step_vjp_kernel<true, false>
+        kind == 9   ? replay_step_vjp_kernel<true, true>
+        : kind == 1 ? replay_step_vjp_kernel<true, false>
         : kind == 2 ? replay_step_vjp_kernel<false, true>
         : kind == 3 ? replay_step_vjp_kernel<false, false, true>
         : kind == 4 ? replay_step_vjp_kernel<false, true, true>

@@ -26,7 +26,11 @@
 // in the others): a rect winner (kind 1) takes the ray in its frame and
 // its plane distance, a box winner (kind 2) the Majercik face distance,
 // and its cotangent row is kAuxGradCols wide (quaternion, material,
-// position, extents).  Their normals are constants of the hit point: a
+// position, extents).  Rects and boxes beside triangles take the one with
+// both flags: the kTriEntCols table holds spheres, rects, boxes and
+// triangles, each row's kind picks its arm, and every cotangent row is
+// kTriGradCols wide (a rect's or box's position and extents in the
+// columns of a triangle's edge_b and vert0, its normal columns zero).  Their normals are constants of the hit point: a
 // rect's the packed rotated +Z (entity columns 7-9), a box's the rotated
 // dominant face; both pass a derivative to the quaternion only.  The
 // guards: dl.z == 0 divides by 1 and a box axis with dl == 0 by 1e-30,
@@ -605,7 +609,11 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
     bool aux = false;
     if constexpr (kAux) {
       IterAux& A = static_cast<IterAux&>(I);
-      A.kind = e[21] > 1.5f ? 2 : e[21] > 0.5f ? 1 : 0;
+      // a triangle (kind 3, with kTris) takes kind 0 here and its own arm
+      A.kind = (kTris && e[21] > 2.5f) ? 0
+               : e[21] > 1.5f          ? 2
+               : e[21] > 0.5f          ? 1
+                                       : 0;
       aux = A.kind != 0;
       if (aux) aux_hit(A, e, E.t_min);
     }
@@ -1818,7 +1826,10 @@ struct CubeEntityAdd {
 // Mesh scenes: spheres as EntityAdd; a triangle (code w >= tri_base, the
 // padded sphere count) into the (T_pad, kTriGradCols) table `tri`, in
 // device memory on the card (4096 rows of 28 floats do not fit in shared
-// memory).
+// memory).  Beside rects and boxes (the build with kTris and kAux) `tri`
+// is the (R_pad + B_pad + T_pad, kTriGradCols) table of every row past
+// the padded spheres: a rect's or box's row at its own code less
+// tri_base, the triangles' after the padded boxes.
 struct MeshEntityAdd {
   float* base;
   float* tri;

@@ -132,9 +132,10 @@ def volume_test() -> tuple[Scene, CameraSettings]:
     return b.build(), cam
 
 
-def cornell_box() -> tuple[Scene, CameraSettings]:
-    """Rect/box showcase: an emissive-lit Cornell-style box."""
-    b = SceneBuilder()
+def add_cornell_box(b, quat=axis_angle_quat) -> CameraSettings:
+    """The Cornell box into the SceneBuilder `b`: 6 rects (one an emitter)
+    and 2 boxes, no sky (`quat`: the builder's axis_angle_quat).  Returns
+    the box's camera."""
     red = b.lambert((0.65, 0.05, 0.05))
     green = b.lambert((0.12, 0.45, 0.15))
     white = b.lambert((0.73, 0.73, 0.73))
@@ -143,27 +144,33 @@ def cornell_box() -> tuple[Scene, CameraSettings]:
     s = 1.0  # half-size of the box interior
     b.add_rect((0, 0, -s), (2 * s, 2 * s), white)
     b.add_rect((-s, 0, 0), (2 * s, 2 * s), red,
-               rotation=axis_angle_quat((0, 1, 0), 90.0))
+               rotation=quat((0, 1, 0), 90.0))
     b.add_rect((s, 0, 0), (2 * s, 2 * s), green,
-               rotation=axis_angle_quat((0, 1, 0), -90.0))
+               rotation=quat((0, 1, 0), -90.0))
     b.add_rect((0, -s, 0), (2 * s, 2 * s), white,
-               rotation=axis_angle_quat((1, 0, 0), -90.0))
+               rotation=quat((1, 0, 0), -90.0))
     b.add_rect((0, s, 0), (2 * s, 2 * s), white,
-               rotation=axis_angle_quat((1, 0, 0), 90.0))
+               rotation=quat((1, 0, 0), 90.0))
     b.add_rect((0, s - 1e-3, 0), (0.7 * s, 0.7 * s), light,
-               rotation=axis_angle_quat((1, 0, 0), 90.0))
+               rotation=quat((1, 0, 0), 90.0))
 
     b.add_box((-0.35, -0.55, -0.3), (0.55, 0.9, 0.55), white,
-              rotation=axis_angle_quat((0, 1, 0), 18.0))
+              rotation=quat((0, 1, 0), 18.0))
     b.add_box((0.4, -0.75, 0.25), (0.5, 0.5, 0.5), white,
-              rotation=axis_angle_quat((0, 1, 0), -15.0))
+              rotation=quat((0, 1, 0), -15.0))
     b.set_no_sky()
-    cam = CameraSettings(
+    return CameraSettings(
         origin=(0.0, 0.0, 3.2),
         look_at=(0.0, 0.0, 0.0),
         vertical_fov=40.0,
         focus_distance=3.2,
     )
+
+
+def cornell_box() -> tuple[Scene, CameraSettings]:
+    """Rect/box showcase: an emissive-lit Cornell-style box."""
+    b = SceneBuilder()
+    cam = add_cornell_box(b)
     return b.build(), cam
 
 

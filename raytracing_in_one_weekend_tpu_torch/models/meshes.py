@@ -203,11 +203,10 @@ def mesh_large():
     return b.build(), _mesh_camera(0.8)
 
 
-def mesh_huge():
-    """Mesh testbed beyond 65536 triangles (~103k): icosphere(6),
-    icosphere(5) and a torus over a ground sphere."""
-    b = SceneBuilder()
-    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambert((0.5, 0.5, 0.5)))
+def add_mesh_huge_meshes(b) -> CameraSettings:
+    """mesh_huge's meshes (icosphere(6), icosphere(5) and a torus: 102,656
+    triangles) and its gradient sky into the SceneBuilder `b`.  Returns
+    its camera."""
     v, f, n, _ = icosphere(6)  # 81920 faces
     b.add_mesh(v, f, b.metal((0.8, 0.7, 0.5), glossiness=0.9),
                normals=n, translation=(0.0, 1.0, 0.0))
@@ -218,7 +217,16 @@ def mesh_huge():
     b.add_mesh(v, f, b.lambert((0.2, 0.4, 0.8)),
                normals=n, translation=(2.4, 0.4, 0.4), scale=0.9)
     b.set_gradient_sky()
-    return b.build(), _mesh_camera(0.8)
+    return _mesh_camera(0.8)
+
+
+def mesh_huge():
+    """Mesh testbed beyond 65536 triangles (~103k): icosphere(6),
+    icosphere(5) and a torus over a ground sphere."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambert((0.5, 0.5, 0.5)))
+    cam = add_mesh_huge_meshes(b)
+    return b.build(), cam
 
 
 def mesh_showcase():

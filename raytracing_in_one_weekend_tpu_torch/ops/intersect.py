@@ -111,8 +111,9 @@ def _nearest_moving_sphere(sph, rays: Rays, t_min: float):
 
 
 def nearest_hit(scene: Scene, rays: Rays, t_min: float = 0.0) -> Hit:
-    """All rays against every sphere and triangle; the nearest surface hit
-    per ray."""
+    """All rays against every sphere, rect, box and triangle, in the JAX
+    package's order (a later kind wins only with a strictly smaller t);
+    the nearest surface hit per ray."""
     missing = megatrace.unported_feature(scene)
     if missing is not None:
         raise NotImplementedError(f"wavefront not ported for {missing}")

@@ -67,7 +67,10 @@ streamed meshes) and the deltas stay in lane order.
   one-lane-a-thread loop before it); streamed
   tables take `megatrace_stream_kernel`, whose thread blocks of 128 lanes
   run the iterations in lockstep and sweep the triangles together
-  (`csrc/group_sweep.cuh`, the bounce-synchronous sampler's traversal).
+  (`csrc/group_sweep.cuh`, the bounce-synchronous sampler's traversal);
+  rects and boxes beside triangles take the aux build of either
+  (`TRI_AUX_LAUNCHES`, `STREAM_AUX_LAUNCHES`), which stages them beside
+  the spheres and sweeps them after the spheres and before the triangles.
 * `sample_batch` is the wrapper: CPU tensors take the plain version; CUDA
   tensors launch the kernel or raise.  It counts launches in `LAUNCHES`.
 
@@ -142,6 +145,10 @@ NOISE_LAUNCHES = 0  # ... of them, launches of the noise builds (a sampler
 NOISE_BUILDS: dict[str, int] = {}  # ... of those, by build (noise_build)
 TRI_LAUNCHES = 0  # ... of them, launches of the triangle build (meshes of
 #   at most TRI_MAX triangles)
+TRI_AUX_LAUNCHES = 0  # ... of them, launches of its aux build (rects and
+#   boxes beside the triangles)
+STREAM_AUX_LAUNCHES = 0  # ... of them, launches of the streamed kernel's aux
+#   build (rects and boxes beside a streamed mesh)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
 WAVE_BIG_LAUNCHES = 0  # ... of them, launches of its build for more than
 #   SPH_CULL_MIN spheres (the spheres read through the read-only cache)
@@ -176,8 +183,6 @@ AUX_REC_ROWS = 24
 AUX_MAX = 1024  # rects plus boxes the kernels stage in shared memory
 AUX_KERNEL_REC = 16  # record columns the kernel reads: 0-10 material |
 #   11 material id | 12-14 a rect's world normal
-RECTS_IN_MESHES = ("rects and boxes in mesh scenes (ROADMAP queue 1, "
-                   "step 7.1b)")
 VOLUMES_IN_MESHES = ("volumes in mesh scenes (ROADMAP queue 1, step 7.2b)")
 MOTION_IN_MESHES = ("motion blur in mesh scenes (ROADMAP queue 1, "
                     "step 7.3b)")
@@ -215,10 +220,6 @@ def unported_feature(scene) -> str | None:
     ROADMAP item, or None (the scope of the wavefront integrator)."""
     tris = scene.triangles.vert0.shape[0] > 0
     checks = (
-        (tris and (scene.rects.rot.shape[0] > 0
-                   or scene.boxes.rot.shape[0] > 0), RECTS_IN_MESHES),
-        (tris and scene.spheres.center.shape[0] == 0,
-         "meshes without spheres (ROADMAP queue 1, step 7.1b)"),
         (tris and scene.flags.has_volumes, VOLUMES_IN_MESHES),
         (scene.flags.has_nonconvex_volumes,
          "volumes on triangles (non-convex; ROADMAP queue 1, step 7.2b)"),
@@ -256,7 +257,8 @@ def unsupported_feature(scene, allow_triangles: bool = False,
     megatrace is sphere-only, static, untextured, reads the gradient sky
     and has no volume walk, as the JAX package's), at most TRI_STREAM_MAX
     triangles and AUX_MAX rects and boxes (the JAX package's
-    `scene_eligible` flags)."""
+    `scene_eligible` flags); rects and boxes beside triangles and meshes
+    without spheres are in scope (ROADMAP step 7.1b)."""
     spheres = scene.spheres.center.shape[0]
     aux = scene.rects.rot.shape[0] + scene.boxes.rot.shape[0]
     tri_count = scene.triangles.vert0.shape[0]
@@ -2222,20 +2224,20 @@ def _trace_chunk(lanes, pixel, per_pixel, count_in, cam, sky, sph, rec,
     return acc
 
 
-def _tri_arg(tri_tables, tri_stream_tables, s: int):
+def _tri_arg(tri_tables, tri_stream_tables, s: int, rect_tables=None,
+             box_tables=None):
     """_bounce's `tri` argument from pack_tri_tables' pair or
     pack_tri_stream_tables' tables: the sweep, the records as rows, and
-    the tape code of triangle row 0 (after the padded sphere rows, the JAX
-    kernel's combined row space)."""
+    the tape code of triangle row 0 (`tri_code_base`)."""
+    base = tri_code_base(s, rect_tables, box_tables)
     if tri_stream_tables is not None:
         stream = TriStream(*(t.to(torch.float32) for t in tri_stream_tables))
         return (functools.partial(_tri_stream_sweep, stream=stream),
-                stream.rec, sphere_pad_count(s))
+                stream.rec, base)
     if tri_tables is None:
         return None
     geo, rec = (t.to(torch.float32) for t in tri_tables)
-    return (functools.partial(_tri_sweep, geo=geo), rec.T.contiguous(),
-            sphere_pad_count(s))
+    return (functools.partial(_tri_sweep, geo=geo), rec.T.contiguous(), base)
 
 
 def aux_kernel_records(rect_tables, box_tables):
@@ -2266,6 +2268,14 @@ def aux_code_bases(s: int, rect_tables) -> tuple[int, int]:
     s_pad = sphere_pad_count(s)
     r_pad = 0 if rect_tables is None else rect_tables[0].shape[0]
     return s_pad, s_pad + r_pad
+
+
+def tri_code_base(s: int, rect_tables=None, box_tables=None) -> int:
+    """The tape code of triangle row 0 in the JAX kernel's combined row
+    space: after the padded spheres, then the R_pad rects and the B_pad
+    boxes where the scene has them (the JAX kernel's :1530-1538)."""
+    return sphere_pad_count(s) + sum(
+        0 if t is None else t[0].shape[0] for t in (rect_tables, box_tables))
 
 
 def _aux_arg(rect_tables, box_tables, s: int):
@@ -2361,8 +2371,12 @@ def sample_batch_reference(
     in lane order: color (N, 3), count (N,), normal (N, 3), albedo (N, 3),
     weight (N,), rays (N,) int32, fallback_normal (N, 3), fallback_albedo
     (N, 3), and with `want_tape` the (samples * trace_depth, N) winner
-    tape: -2 idle, -1 sky, else the sphere row, or sphere_pad_count(S) plus
-    the triangle row (the JAX kernel's combined row space)."""
+    tape: -2 idle, -1 sky, else the sphere row, or a rect's, a box's or a
+    triangle's code base (`aux_code_bases`, `tri_code_base`) plus its row
+    (the JAX kernel's combined row space).  Rects and boxes beside
+    triangles sweep after the spheres and before the triangles, each kind
+    winning only with a strictly smaller t; a sphere-free scene reads no
+    sphere record."""
     dev = centers.device
     n = lane_count.shape[0]
     s = centers.shape[0]
@@ -2371,7 +2385,7 @@ def sample_batch_reference(
     sph, rec = sweep_tables(centers, radii, records, move)
     if s == 0:  # a sphere-free scene: one record row for the missed lanes
         rec = torch.zeros((1, KERNEL_REC), dtype=torch.float32, device=dev)
-    tri = _tri_arg(tri_tables, tri_stream_tables, s)
+    tri = _tri_arg(tri_tables, tri_stream_tables, s, rect_tables, box_tables)
     aux = _aux_arg(rect_tables, box_tables, s)
     blocks = (None if s <= SPH_CULL_MIN else
               (pack_sphere_blocks(centers, radii, move), SPH_BLOCK))
@@ -2461,6 +2475,16 @@ _ENTRY_ARGS = dict(
         _I, _I, _P, _I, _I,  # img_w img_h cube cube_w cube_h
         _P,  # stream
     ], 7),
+    tri_aux=([
+        _P, _P, _P, _P, _P, _P,  # lane_count count_in pixel consts sph rec
+        _P, _P, _P, _P, _P, _P,  # tri_geo tri_aabb tri_sup tri_rec out tape
+        _I, _I, _I, _I, _I, _I,  # n s tri_rows tri_blocks tri_supers code_base
+        _I, _I, _I, _I,  # seed lane_base samples trace_depth
+        ctypes.c_float, _I, _I, _I,  # t_min has_diel sky_on jitter
+        _P, _P, _I, _I, _I, _I,  # aux_geo aux_rec rect_rows box_rows
+        #                          rect_code box_code
+        _P,  # stream
+    ], 10),
     blocked=([
         _P, _P, _P, _P, _P, _P,  # lane_count count_in consts sph rec blocks
         _P, _P, _P,  # move out tape
@@ -2486,7 +2510,7 @@ def load_kernel() -> ctypes.CDLL:
             entry.restype = ctypes.c_int
         lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, i, i, p]
         lib.rtiw_megatrace_ext_info.restype = ctypes.c_int
-        lib.rtiw_megatrace_tri_info.argtypes = [i, p]
+        lib.rtiw_megatrace_tri_info.argtypes = [i, i, i, p]
         lib.rtiw_megatrace_tri_info.restype = ctypes.c_int
         lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
         lib.rtiw_tile_lanes.restype = ctypes.c_int
@@ -2544,9 +2568,9 @@ def noise_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
                       tri: int = 0) -> dict:
     """The occupancy of the noise build of sphere_kernel_info's build (the
     same arguments; or with tri 1 the triangle build's, tri 2 the streamed
-    kernel's) with an s-sphere table on the current card: blocks an SM
-    (the occupancy API), registers a thread and local memory (stack and
-    spills) a thread in bytes."""
+    kernel's, each with aux_rows > 0 its aux build's) with an s-sphere
+    table on the current card: blocks an SM (the occupancy API), registers
+    a thread and local memory (stack and spills) a thread in bytes."""
     info = (ctypes.c_int * 3)()
     err = load_noise_kernel().rtiw_megatrace_noise_info(
         int(s), int(aux_rows), int(has_vol), int(has_motion), int(has_tex),
@@ -2557,12 +2581,15 @@ def noise_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
 
 
-def tri_kernel_info(s: int) -> dict:
+def tri_kernel_info(s: int, aux_rows: int = 0, stream: bool = False) -> dict:
     """The triangle build's occupancy beside an s-sphere table on the
-    current card: blocks an SM (the occupancy API), registers a thread and
-    local memory (stack and spills) a thread in bytes."""
+    current card (with aux_rows > 0 its aux build's, for that many rect and
+    box rows; with `stream` the streamed kernel's, or its aux build's):
+    blocks an SM (the occupancy API), registers a thread and local memory
+    (stack and spills) a thread in bytes."""
     info = (ctypes.c_int * 3)()
-    err = load_kernel().rtiw_megatrace_tri_info(int(s), info)
+    err = load_kernel().rtiw_megatrace_tri_info(int(s), int(aux_rows),
+                                                int(stream), info)
     if err != 0:
         raise RuntimeError(f"megatrace_tri_kernel info: cudaError {err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
@@ -2662,8 +2689,9 @@ def kernel_tri_tables(tri_tables):
     return tri_geo, aabb, rec.T.contiguous()
 
 
-def _kernel_stream_args(stream_tables, dev, s, name="sample_batch"):
-    """The streamed kernels' table pointers and dimensions, after checking
+def _kernel_stream_args(stream_tables, dev, name="sample_batch"):
+    """The streamed kernels' table pointers and dimensions (rows, blocks,
+    supers), after checking
     pack_tri_stream_tables' shapes, the count of supers and the 16-byte
     alignment of the rows (the kernels copy them with TMA)."""
     geo, rec, aabb, sup = stream_tables
@@ -2688,7 +2716,7 @@ def _kernel_stream_args(stream_tables, dev, s, name="sample_batch"):
         raise ValueError(f"{name}: the triangle rows are not 16-byte "
                          "aligned (the kernels copy them with TMA)")
     return ((geo.data_ptr(), aabb.data_ptr(), sup.data_ptr(),
-             rec.data_ptr()), (rows, n_blk, n_sup, sphere_pad_count(s)))
+             rec.data_ptr()), (rows, n_blk, n_sup))
 
 
 def _check_aux_tables(rect_tables, box_tables, dev) -> None:
@@ -2734,14 +2762,16 @@ def noise_build(s: int, *, rect_tables=None, box_tables=None, vol0=None,
                 move_offsets=None, tex_tables=None, cube=None,
                 tri_tables=None, tri_stream_tables=None, **_) -> str:
     """The noise build a flavored sample_batch call with these tables
-    takes, as NOISE_BUILDS counts it: "stream", "tri", "blocked" (or
+    takes, as NOISE_BUILDS counts it: "stream", "tri" (each with "+aux"
+    beside rects or boxes), "blocked" (or
     "blocked+motion") past SPH_CULL_MIN spheres, else the sphere kernel's
     flags joined by "+" ("aux", "volume", "motion", "texture", "cube";
     "sphere" without any)."""
+    aux = "+aux" if rect_tables is not None or box_tables is not None else ""
     if tri_stream_tables is not None:
-        return "stream"
+        return "stream" + aux
     if tri_tables is not None:
-        return "tri"
+        return "tri" + aux
     if s > SPH_CULL_MIN:
         return "blocked+motion" if move_offsets is not None else "blocked"
     flags = [name for name, on in (
@@ -2830,11 +2860,11 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
         tri_geo, tri_aabb, tri_rec = kernel_tri_tables(tri_tables)
         tri_args = (tri_geo.data_ptr(), tri_aabb.data_ptr(), 0,
                     tri_rec.data_ptr())
-        tri_dims = (rows, tri_aabb.shape[0], 0, sphere_pad_count(s))
+        tri_dims = (rows, tri_aabb.shape[0], 0)
     elif tri_stream_tables is not None:
-        tri_args, tri_dims = _kernel_stream_args(tri_stream_tables, dev, s)
+        tri_args, tri_dims = _kernel_stream_args(tri_stream_tables, dev)
     else:
-        tri_args, tri_dims = (0, 0, 0, 0), (0, 0, 0, 0)
+        tri_args, tri_dims = (0, 0, 0, 0), (0, 0, 0)
     pixel = None
     if pixel_index is not None:
         if tri_stream_tables is None:
@@ -2929,17 +2959,18 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                                f"failed: cudaError {err}")
         return counted("BLOCKED_LAUNCHES")
     has_aux = rect_tables is not None or box_tables is not None
-    if (has_aux or vol0 is not None or move_offsets is not None
-            or tex_tables is not None or cube is not None
-            or (noise is not None and tri_tables is None
-                and tri_stream_tables is None)):
-        aux_geo = aux_rec = None
-        rect_rows = box_rows = 0
-        if has_aux:
-            _check_aux_tables(rect_tables, box_tables, dev)
-            aux_geo, aux_rec, rect_rows, box_rows = kernel_aux_tables(
-                rect_tables, box_tables)
-        rect_code, box_code = aux_code_bases(s, rect_tables)
+    aux_geo = aux_rec = None
+    rect_rows = box_rows = 0
+    if has_aux:
+        _check_aux_tables(rect_tables, box_tables, dev)
+        aux_geo, aux_rec, rect_rows, box_rows = kernel_aux_tables(
+            rect_tables, box_tables)
+    rect_code, box_code = aux_code_bases(s, rect_tables)
+    has_tris = tri_tables is not None or tri_stream_tables is not None
+    if not has_tris and (has_aux or vol0 is not None
+                         or move_offsets is not None
+                         or tex_tables is not None or cube is not None
+                         or noise is not None):
         head = (per_pixel.data_ptr(), cin.data_ptr(), consts.data_ptr(),
                 sph.data_ptr(), rec.data_ptr(),
                 0 if aux_geo is None else aux_geo.data_ptr(),
@@ -2974,21 +3005,30 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
         return counted(dict(cube="CUBE_LAUNCHES", texture="TEX_LAUNCHES",
                             motion="MOTION_LAUNCHES", volume="VOL_LAUNCHES",
                             aux="AUX_LAUNCHES").get(build))
+    # the triangle build or the streamed kernel, with the rect and box
+    # sweep (their aux builds, rtiw_megatrace_tri_aux) beside rects or boxes
     head = (per_pixel.data_ptr(), cin.data_ptr(),
             0 if pixel is None else pixel.data_ptr(), consts.data_ptr(),
             sph.data_ptr(), rec.data_ptr(), *tri_args, out.data_ptr())
-    tail = (n, s, *tri_dims, int(seed), int(lane_base), samples,
-            trace_depth, float(t_min), int(has_dielectrics), int(sky_on),
-            int(jitter))
-    err = (lib.rtiw_megatrace_batch(
+    tail = (n, s, *tri_dims,
+            tri_code_base(s, rect_tables, box_tables) if has_tris else 0,
+            int(seed), int(lane_base), samples, trace_depth, float(t_min),
+            int(has_dielectrics), int(sky_on), int(jitter))
+    if has_aux:
+        tail += (aux_geo.data_ptr(), aux_rec.data_ptr(), rect_rows, box_rows,
+                 rect_code, box_code)
+    entry = "tri_aux" if has_aux else "batch"
+    err = (getattr(lib, f"rtiw_megatrace_{entry}")(
         *head, 0 if tape is None else tape.data_ptr(), *tail, stream)
         if noise is None else
-        load_noise_kernel().rtiw_megatrace_batch_noise(
+        getattr(load_noise_kernel(), f"rtiw_megatrace_{entry}_noise")(
             *head, *tail, noise, stream))
     if err != 0:
         raise RuntimeError(f"megatrace_batch launch failed: cudaError {err}")
     # the sphere build and the streamed kernel count in LAUNCHES alone
-    return counted("TRI_LAUNCHES" if tri_tables is not None else None)
+    return counted(("STREAM_AUX_LAUNCHES" if tri_stream_tables is not None
+                    else "TRI_AUX_LAUNCHES") if has_aux
+                   else "TRI_LAUNCHES" if tri_tables is not None else None)
 
 
 def sample_batch(
@@ -3038,7 +3078,11 @@ def sample_batch(
     the texture builds, TEX_LAUNCHES; `cube` and `cube_dims`
     pack_cubemap_table's sky: the cube builds, CUBE_LAUNCHES, beside at
     most one of the rect and box, volume, motion and texture tables and no
-    triangles, or NotImplementedError naming ROADMAP step 7.6b).  More
+    triangles, or NotImplementedError naming ROADMAP step 7.6b).  Rect and
+    box tables beside triangle tables take the aux build of the triangle
+    build (TRI_AUX_LAUNCHES) or of the streamed kernel
+    (STREAM_AUX_LAUNCHES); the triangles' tape codes follow the padded
+    rects and boxes (`tri_code_base`).  More
     than SPH_CULL_MIN spheres take the blocked builds (BLOCKED_LAUNCHES),
     static or moving; beside any of the other tables they raise
     NotImplementedError (ROADMAP step 7.7b).  A sampler flavor
@@ -3061,9 +3105,6 @@ def sample_batch(
     if tri_tables is not None and tri_stream_tables is not None:
         raise ValueError("sample_batch: tri_tables and tri_stream_tables "
                          "clash")
-    if ((rect_tables is not None or box_tables is not None)
-            and (tri_tables is not None or tri_stream_tables is not None)):
-        raise NotImplementedError(f"sample_batch: {RECTS_IN_MESHES}")
     if vol0 is not None and (tri_tables is not None
                              or tri_stream_tables is not None):
         raise NotImplementedError(f"sample_batch: {VOLUMES_IN_MESHES}")

@@ -30,7 +30,10 @@ in device memory.  Scenes with rects or boxes take its aux instantiation
 (`AUX`): their rows (19 columns, megatrace_replay.AUX_GRAD_COLS) in
 device memory, and the cotangents of pack_aux_tables' four tables come
 back through build_entity_rows (the JAX kernel's rect_geo, rect_rec,
-box_geo and box_rec cotangents).  Scenes with convex volumes take its
+box_geo and box_rec cotangents).  Mesh scenes with rects or boxes (a
+Cornell box with a mesh in it) take the instantiation with both
+(`MESH_AUX`): every row past the padded spheres, rects and boxes first,
+in one device table of TRI_GRAD_COLS.  Scenes with convex volumes take its
 volume instantiations (`VOL` beside spheres, `AUX_VOL` beside rects and
 boxes): the medium rides eight more state floats, and the cotangent of
 the camera's medium row `vol0` comes back with the camera and sky ones
@@ -79,6 +82,8 @@ BIG_LAUNCHES = 0  # ... of the path kernel, launches of its build for more
 #   than SPH_CULL_MIN spheres (BIG: the sphere rows in device memory)
 CUBE_LAUNCHES = 0  # ... of the path kernel, launches of its cube build (a
 #   cubemap sky: the cube texel plane)
+MESH_AUX_LAUNCHES = 0  # ... of the path kernel, launches of its build for
+#   rects and boxes beside triangles (MESH_AUX)
 
 _DIFF_ENV = ("co", "ll", "hh", "vv", "rr", "uu")
 
@@ -499,9 +504,9 @@ def scan_paths(tape, lane_count, *, samples: int, trace_depth: int):
 # the kernels' builds: sphere scenes, mesh scenes, scenes with rects or
 # boxes, the first and third with convex volumes, sphere scenes with
 # moving spheres, with textured albedos, with more than SPH_CULL_MIN
-# static spheres, and under a cubemap sky (csrc/megatrace_bwd.cu's `kind`
-# argument)
-SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX, BIG, CUBE = range(9)
+# static spheres, under a cubemap sky, and mesh scenes with rects or boxes
+# (csrc/megatrace_bwd.cu's `kind` argument)
+SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX, BIG, CUBE, MESH_AUX = range(10)
 MOTION_BESIDE = ("the backward kernel's motion and texture adjoints beside "
                  "rects, boxes, volumes or each other (ROADMAP queue 1, step "
                  "7.3c)")
@@ -548,7 +553,9 @@ def build_kind(has_tris: bool, has_aux: bool, has_volumes: bool,
         return MOTION if has_motion else TEX
     if has_volumes:
         return AUX_VOL if has_aux else VOL
-    return MESH if has_tris else AUX if has_aux else SPHERES
+    if has_tris:
+        return MESH_AUX if has_aux else MESH
+    return AUX if has_aux else SPHERES
 
 
 def _replay_grad_cuda(tape, lane_count, camera_row, centers, radii, records,
@@ -654,8 +661,8 @@ def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
     scenes with rects or boxes: the whole padded table, which their tape
     codes, s_pad + row, index), the constants (_consts), the (4, N) color
     and count cotangents, the build (`kind`: SPHERES, MESH, AUX, VOL,
-    AUX_VOL, MOTION, TEX, BIG or CUBE), the texture build's atlas ((A * H,
-    W, 3) or None) and its (W, H), and the cube build's faces
+    AUX_VOL, MOTION, TEX, BIG, CUBE or MESH_AUX), the texture build's
+    atlas ((A * H, W, 3) or None) and its (W, H), and the cube build's faces
     (pack_cubemap_table's (6 * h, w, 3) or None) and its (w, h)."""
     return dict(
         tape=tape.contiguous(),
@@ -676,10 +683,11 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
     texture colours' last), dscal (30; 38 in the volume builds, vol0's
     last), dent_rows: the cotangents of the rows past the padded spheres,
     (T_pad, 28) in mesh scenes, (R_pad + B_pad, 19) with rects or boxes,
-    else None; the texel plane's, the atlas's shape, in the texture build
-    with an atlas, else None; the cube texel plane's, the cube table's
-    shape, in the cube build, else None)."""
-    global LAUNCHES, BIG_LAUNCHES, CUBE_LAUNCHES
+    (R_pad + B_pad + T_pad, 28) with both, else None; the texel plane's,
+    the atlas's shape, in the texture build with an atlas, else None; the
+    cube texel plane's, the cube table's shape, in the cube build, else
+    None)."""
+    global LAUNCHES, BIG_LAUNCHES, CUBE_LAUNCHES, MESH_AUX_LAUNCHES
     lib = load_kernel()
     dev = args["tape"].device
     s, n, kind = args["s"], args["per_pixel"].shape[0], args["kind"]
@@ -696,7 +704,8 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
     next_warp = torch.zeros(1, dtype=torch.int32, device=dev)
     dent_rows = (None if kind in SPHERE_ROWS_ONLY else torch.zeros(
         (args["ent"].shape[0] - s_pad,
-         len(mr.TRI_GRAD_COLS if kind == MESH else mr.AUX_GRAD_COLS)), **f32))
+         len(mr.TRI_GRAD_COLS if kind in (MESH, MESH_AUX)
+             else mr.AUX_GRAD_COLS)), **f32))
     if paths.shape[0]:
         err = lib.rtiw_bwd_paths(
             args["tape"].data_ptr(), paths.data_ptr(), paths.shape[0],
@@ -718,6 +727,7 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
         LAUNCHES += 1
         BIG_LAUNCHES += int(kind == BIG)
         CUBE_LAUNCHES += int(kind == CUBE)
+        MESH_AUX_LAUNCHES += int(kind == MESH_AUX)
     return dent, dscal, dent_rows, datlas, dcube
 
 

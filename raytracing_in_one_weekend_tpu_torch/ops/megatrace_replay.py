@@ -79,7 +79,9 @@ TRI_ENTITY_COLS = 38  # ... and mesh scenes (vertex normals and uvs added)
 GRAD_COLS = (0, 1, 2, 3, 11, 12, 13, 14, 15, 16, 17, 18, 19)
 # ... in mesh scenes: those, then a triangle row's edge_b and vert0 and its
 # three vertex normals (columns 0-2 hold a triangle's edge_a; uvs carry no
-# gradient without textures): the backward kernel's cotangent layout
+# gradient without textures): the backward kernel's cotangent layout, which
+# beside rects and boxes gives their rows these columns too (AUX_GRAD_COLS
+# first)
 TRI_GRAD_COLS = (*GRAD_COLS, *range(4, 10), *range(23, 32))
 # ... in scenes with rects or boxes: GRAD_COLS (columns 0-3 hold their
 # quaternion), then a position (4-6) and a box's extents (7-9)
@@ -117,9 +119,8 @@ def state_keys(has_volumes: bool, has_motion: bool = False) -> tuple:
 
 def grad_cols(has_tris: bool, has_aux: bool, has_motion: bool = False,
               has_tex: bool = False) -> tuple:
-    """The entity columns of the backward kernel's cotangent rows."""
-    if has_tris and has_aux:
-        raise NotImplementedError(f"replay_grad: {mk.RECTS_IN_MESHES}")
+    """The entity columns of the backward kernel's cotangent rows (mesh
+    scenes with rects or boxes: TRI_GRAD_COLS for every row)."""
     if has_tris and has_motion:
         raise NotImplementedError(f"replay_grad: {mk.MOTION_IN_MESHES}")
     if has_tris and has_tex:

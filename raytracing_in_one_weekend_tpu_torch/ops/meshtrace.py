@@ -102,6 +102,8 @@ def bounce_sync_reference(state, seed, salt, bounce, tables, stream, *,
     live = torch.nonzero(state[12] > 0.0, as_tuple=True)[0]
     if live.numel() == 0:
         return state
+    if rec.shape[0] == 0:  # no spheres: a record row the winners never read
+        rec = rec.new_zeros((1, mk.KERNEL_REC))
     rows = state[:, live]
     p = {k: rows[i] for i, k in enumerate(ROW_KEYS)}
     for k in _FLAGS:
@@ -384,11 +386,11 @@ def _bounce_sync_cuda(state, seed, salt, bounce, tables, stream, *, t_min,
             f"bounce_sync: {s} spheres; the kernel stages at most "
             f"{mk.SPH_CULL_MIN} in shared memory (ROADMAP queue 1, step "
             f"7.7b)")
-    tri_args, tri_dims = mk._kernel_stream_args(stream, dev, s, "bounce_sync")
+    tri_args, tri_dims = mk._kernel_stream_args(stream, dev, "bounce_sync")
     lib = load_sync_kernel()
     err = lib.rtiw_meshtrace_sync(
         state.data_ptr(), state.shape[1], sph.data_ptr(), s, rec.data_ptr(),
-        sky.data_ptr(), *tri_args, *tri_dims[:3], int(seed) & _MASK32,
+        sky.data_ptr(), *tri_args, *tri_dims, int(seed) & _MASK32,
         int(salt) & _MASK32, int(bounce), float(t_min), int(has_dielectrics),
         int(sky_on), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

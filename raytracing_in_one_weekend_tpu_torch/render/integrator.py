@@ -44,8 +44,10 @@ the Lambert direction (the cosine set) and the isotropic volume direction
 (the unitvec3 set) come from its tables (`core.randomsource`, salts per
 purpose), the reference's RandomSource routing.
 
-On CPU tensors each kernel runs its plain PyTorch version.  Motion, rects,
-boxes or volumes in mesh scenes raise NotImplementedError naming their
+On CPU tensors each kernel runs its plain PyTorch version.  Rects and
+boxes beside triangles take the general arm (`intersect.nearest_hit`
+sweeps spheres, rects, boxes and triangles in the JAX package's order);
+motion or volumes in mesh scenes raise NotImplementedError naming their
 ROADMAP steps.
 """
 

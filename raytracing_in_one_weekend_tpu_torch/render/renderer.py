@@ -545,10 +545,13 @@ def render_batch(
         # a flavor's pre-drawn columns follow the lanes
         order, rank = (t.to(dev) for t in megatrace.morton_order(width,
                                                                   height))
+        # rects and boxes beside the mesh: the streamed kernel's aux build
+        rect_tables, box_tables = megatrace.pack_aux_tables(scene, packed)
         d = megatrace.sample_batch(
             lane_count[order], acc.sample_count[order],
             megatrace.pack_camera_row(camera, width, height), *sphere_args,
-            seed, pixel_index=order, tri_stream_tables=stream, **statics,
+            seed, pixel_index=order, tri_stream_tables=stream,
+            rect_tables=rect_tables, box_tables=box_tables, **statics,
             **noise_args(route, noise_state, acc, width, height, samples,
                           trace_depth, draw_base, order))
         d = {k: v[rank] for k, v in d.items()}

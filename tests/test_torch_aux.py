@@ -280,28 +280,36 @@ def test_scope():
     renderer.check_scope(cornell)
     light, _ = testbeds.simple_light()
     assert megatrace_replay.replay_eligible(light)
-    # rects or boxes beside triangles: ROADMAP step 7.1b
+    # rects or boxes beside triangles (ROADMAP step 7.1b): in the batch
+    # kernel's scope and the wavefront's; the triangles' tape codes follow
+    # the padded rects
     b = scene_mod.SceneBuilder()
     white = b.lambert((0.7, 0.7, 0.7))
     b.add_sphere((0.0, -100.5, 0.0), 100.0, white)
     b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), white)
-    b.add_rect((0, 0, -1), (1.0, 1.0), white)
+    b.add_rect((0, 0, -1), (3.0, 3.0), white)
     mesh_rect = b.build()
-    assert not megatrace.scene_eligible(mesh_rect, allow_triangles=True,
-                                        allow_rect_box=True)
-    with pytest.raises(NotImplementedError, match="step 7.1b"):
-        renderer.check_scope(mesh_rect)
+    assert megatrace.scene_eligible(mesh_rect, allow_triangles=True,
+                                    allow_rect_box=True)
+    assert megatrace_replay.replay_eligible(mesh_rect)
+    renderer.check_scope(mesh_rect)
     packed = materials.pack_materials(mesh_rect)
     rect, _ = megatrace.pack_aux_tables(mesh_rect, packed)
-    with pytest.raises(NotImplementedError, match="step 7.1b"):
-        megatrace.sample_batch(
-            torch.ones(4, dtype=torch.int32), torch.zeros(4),
-            torch.zeros(24), mesh_rect.spheres.center,
-            mesh_rect.spheres.radius,
-            megatrace.pack_sphere_records(mesh_rect, packed),
-            torch.zeros(3), torch.zeros(3), 1, samples=1, trace_depth=1,
-            rect_tables=rect,
-            tri_tables=megatrace.pack_tri_tables(mesh_rect, packed))
+    assert megatrace.tri_code_base(1, rect) == 128 + rect[0].shape[0]
+    cam = camera.make_camera((0.3, 0.3, 3.0), (0.3, 0.3, 0.0), (0, 1, 0),
+                             30.0, 1.0)
+    out = megatrace.sample_batch(
+        torch.ones(16, dtype=torch.int32), torch.zeros(16),
+        megatrace.pack_camera_row(cam, 4, 4), mesh_rect.spheres.center,
+        mesh_rect.spheres.radius,
+        megatrace.pack_sphere_records(mesh_rect, packed),
+        torch.zeros(3), torch.zeros(3), 1, samples=1, trace_depth=1,
+        rect_tables=rect, want_tape=True, jitter=False,
+        tri_tables=megatrace.pack_tri_tables(mesh_rect, packed))
+    # the camera sees the triangle and, around it, the rect behind it
+    first = set(out["tape"][0].tolist())
+    assert {128.0, 128.0 + rect[0].shape[0]} <= first, first
+    assert torch.isfinite(out["color"]).all()
 
 
 @pytest.mark.parametrize("differentiable", [True, False])

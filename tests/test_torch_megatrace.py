@@ -233,8 +233,8 @@ def test_lane_base_keys_the_random_streams_like_jax():
 
 
 def _mesh_with_a_rect():
-    """A triangle and a rect: rects and boxes in mesh scenes are ROADMAP
-    step 7.1b."""
+    """A triangle and a rect: rects and boxes in mesh scenes are ported
+    (ROADMAP step 7.1b)."""
     from raytracing_in_one_weekend_tpu_torch.scene.scene import SceneBuilder
 
     b = SceneBuilder()
@@ -273,13 +273,21 @@ def _mesh_with_a_moving_sphere():
 
 def test_scope_refusals_name_the_roadmap():
     refused = [_mesh_with_a_moving_sphere(), _mesh_with_a_fog_sphere()]
-    for scene in refused + [_mesh_with_a_rect()]:
+    for scene in refused:
         assert not megatrace.scene_eligible(scene, allow_triangles=True,
                                             allow_rect_box=True,
                                             allow_volumes=True,
                                             allow_motion=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             renderer.check_scope(scene)
+    # rects and boxes beside triangles are ported (step 7.1b): the batch
+    # kernel's aux builds of the triangle build and the streamed kernel
+    mesh_rect = _mesh_with_a_rect()
+    assert megatrace.scene_eligible(mesh_rect, allow_triangles=True,
+                                    allow_rect_box=True, allow_volumes=True,
+                                    allow_motion=True)
+    assert megatrace.unported_feature(mesh_rect) is None
+    renderer.check_scope(mesh_rect)
     with pytest.raises(NotImplementedError, match="step 7.2b"):
         renderer.check_scope(_mesh_with_a_fog_sphere())
     with pytest.raises(NotImplementedError, match="step 7.3b"):

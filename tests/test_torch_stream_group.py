@@ -127,15 +127,15 @@ def test_kernel_arguments_refuse_what_the_kernels_cannot_take(recorded):
     not 16-byte aligned and more supers, before any launch."""
     _, stream = recorded
     dev = stream.geo.device
-    megatrace._kernel_stream_args(stream, dev, 1)  # the packer's tables
+    megatrace._kernel_stream_args(stream, dev)  # the packer's tables
     shifted = torch.empty(stream.geo.numel() + 1)[1:].view_as(stream.geo)
     shifted.copy_(stream.geo)
     with pytest.raises(ValueError, match="16-byte"):
-        megatrace._kernel_stream_args(stream._replace(geo=shifted), dev, 1)
+        megatrace._kernel_stream_args(stream._replace(geo=shifted), dev)
     n_sup = megatrace.MAX_SUPERS + 1
     rows = n_sup * megatrace.TRI_SUP * megatrace.TRI_BLOCK
     big = megatrace.TriStream(
         torch.zeros((rows, 12)), torch.zeros((rows, megatrace.TRI_REC_ROWS)),
         torch.zeros((n_sup * megatrace.TRI_SUP, 8)), torch.zeros((n_sup, 8)))
     with pytest.raises(ValueError, match="supers"):
-        megatrace._kernel_stream_args(big, dev, 1)
+        megatrace._kernel_stream_args(big, dev)
