@@ -314,6 +314,22 @@ which raises on failure:
      bit for bit to its plain version on a 16-row band (rows 248-263; on
      Morton lanes those lanes of the Morton order) and on a whole 4-spp
      batch, bounce_sync with s = 0 on a band of its state's columns.
+ 31. convex volumes beside triangles (`mesh_volume_phases`, ROADMAP step
+     7.2b) on `mesh_volume_scene`'s cornell_mesh_volumes (cornell_volumes'
+     room around the three meshes, the cube in the fog box),
+     cornell_mesh_large_volumes (around mesh_large's), mesh_fog
+     (mesh_showcase with a fog sphere around its torus) and mesh_large_fog,
+     512x512, depth 8: each forward at 64 spp through its volume build
+     (tri+aux+vol, tri+vol, stream+aux+vol, stream+vol), each build alone
+     at 4 and 64 spp in turns with its twin without the walk, its
+     registers; training steps on cornell_mesh_volumes and mesh_fog
+     through #2's MESH_AUX_VOL and MESH_VOL, the backward held to the plain
+     replay on a row band whose triangle, rect or box and density leaves
+     must move, each alone at 4 and 64 spp; BLUE through the four noise
+     builds in turns with their white twins; a camera in the fog at
+     128x128; the volume-material torus through the wavefront.  Each new
+     build of #1 is held bit for bit to its plain version on a 16-row band
+     and on a whole 4-spp batch.
 The plain versions held against a kernel's result (`plain_check`: the
 parity checks, the backward against the plain replay's autograd, the
 AOV gradient on the CPU) run in the check stage, after the last timed
@@ -635,10 +651,19 @@ def lane_agreement(a: dict, b: dict) -> tuple[float, float]:
 # runs where it is made.
 
 PLAIN_WORKERS = 4
-# A plain streamed sweep steps through every block of every iteration: a
+# A plain streamed sweep steps through every super of every iteration: a
 # check on mesh_large's 20,736 rows took 7-9 times one of the same
-# iterations on the VMEM triangle build (plain_check's cost estimate)
-STREAM_COST_ROWS = 2560
+# iterations on the VMEM triangle build while it stepped block by block,
+# and a super's blocks in one pass take it 4-5 times less time (`--against`
+# reads `plain_stream_band` in turns with an older tree; PERF.md §6), so
+# about twice such a job (plain_check's cost estimate)
+STREAM_COST_ROWS = 20736
+# The traversal model that plain_with_counts and streamed_model_run run
+# beside a plain streamed batch takes about 16 times the batch's own
+# seconds (40 s beside 2.5 s on cornell_mesh_large's 4-spp batch on an
+# H100, PERF.md §6), so a job with it costs that much more (plain_check's
+# cost estimate)
+MODEL_COST = 16
 _PENDING = None  # the open stage's checks; None: checks run where made
 LATE = []  # (kernel name, field, value, merge) for the JSON line's entries
 
@@ -729,8 +754,10 @@ def plain_check(fn, args: tuple, kwargs: dict, finish,
     stream = kwargs.get("tri_stream_tables")
     cost = (kwargs.get("samples", 1) * kwargs.get("trace_depth", 1)
             * (3 if "grad" in fn.__name__ else 1)
-            * (1 if stream is None else 1 + stream[0].shape[0]
-               / STREAM_COST_ROWS))
+            * (1 if stream is None else (1 + stream[0].shape[0]
+                                         / STREAM_COST_ROWS)
+               * (MODEL_COST if fn in (plain_with_counts,
+                                       streamed_model_run) else 1)))
     _PENDING.append(dict(
         job=(f"{fn.__module__}:{fn.__name__}", to_host(args),
              to_host(kwargs), None if dev is None else str(dev), threads),
@@ -753,7 +780,8 @@ def apply_late(kernels: list) -> None:
 def run_check_stage() -> None:
     """Run the open stage's checks, costliest first (samples x depth, a
     backward three times a forward, a streamed sweep by its rows over
-    STREAM_COST_ROWS more, a CPU job before any), PLAIN_WORKERS at
+    STREAM_COST_ROWS more, MODEL_COST times that with the traversal
+    model, a CPU job before any), PLAIN_WORKERS at
     a time in processes of their own on the card, then finish each in the
     order it was made, which prints its line and may raise.  Closes the
     stage; the processes end with it."""
@@ -762,6 +790,7 @@ def run_check_stage() -> None:
     t = time.perf_counter()
     torch.cuda.empty_cache()  # the card's memory to the check processes
     ctx = multiprocessing.get_context("spawn")
+    summed = 0.0
     with ctx.Pool(PLAIN_WORKERS) as pool:
         results = {}
         for i in sorted(range(len(pending)),
@@ -769,9 +798,11 @@ def run_check_stage() -> None:
             results[i] = pool.apply_async(plain_job, pending[i]["job"])
         for i, check in enumerate(pending):
             out, seconds = results[i].get()
+            summed += seconds
             check["finish"](from_host(out, check["dev"]), seconds)
     print(f"check stage: {len(pending)} plain versions, {PLAIN_WORKERS} "
-          f"processes at once, {time.perf_counter() - t:.1f} s")
+          f"processes at once, {time.perf_counter() - t:.1f} s (the jobs' "
+          f"own seconds summed: {summed:.1f} s)")
 
 
 def into(kernel: str, paths: dict | None = None, key: str = "",
@@ -968,13 +999,15 @@ def tri_launch_ms(tables, tri, samples: int, repeats: int, kw: dict) -> float:
     seed 7, depth kw["trace_depth"], every lane `samples` samples.  With
     `tri` None, the streamed kernel on kw's tri_stream_tables and
     pixel_index; with kw's rect_tables or box_tables, the build's aux
-    build (rtiw_megatrace_tri_aux)."""
+    build (rtiw_megatrace_tri_aux); with kw's vol0, its volume build
+    (rtiw_megatrace_tri_vol), with or without those."""
     camera_row, centers, radii, records, sky_bottom, sky_top = tables
     dev, s = centers.device, centers.shape[0]
     n = int(camera_row[19] * camera_row[20])
     lib = megatrace.load_kernel()
     sph, rec = megatrace.sweep_tables(centers, radii, records)
-    consts = megatrace.kernel_consts(camera_row, sky_bottom, sky_top)
+    vol0 = kw.get("vol0")
+    consts = megatrace.kernel_consts(camera_row, sky_bottom, sky_top, vol0)
     keep, pixel = [], 0  # every buffer the launches read stays bound
     if tri is None:
         ptrs, dims = megatrace._kernel_stream_args(kw["tri_stream_tables"],
@@ -997,6 +1030,10 @@ def tri_launch_ms(tables, tri, samples: int, repeats: int, kw: dict) -> float:
         code = megatrace.tri_code_base(s, rect, box)
         aux = (aux_geo.data_ptr(), aux_rec.data_ptr(), rect_rows, box_rows,
                *megatrace.aux_code_bases(s, rect))
+    if vol0 is not None:
+        entry = lib.rtiw_megatrace_tri_vol
+        code = megatrace.tri_code_base(s, rect, box)
+        aux = aux or (0, 0, 0, 0, *megatrace.aux_code_bases(s, None))
     per_pixel = torch.full((n,), float(samples), device=dev)
     cin = torch.zeros(n, device=dev)
     out = torch.empty((megatrace.OUT_ROWS, n), device=dev)
@@ -1578,6 +1615,8 @@ def reset_launches() -> None:
     megatrace.TRI_LAUNCHES = 0
     megatrace.TRI_AUX_LAUNCHES = megatrace.STREAM_AUX_LAUNCHES = 0
     megatrace_bwd.MESH_AUX_LAUNCHES = 0
+    megatrace.TRI_VOL_LAUNCHES = megatrace.STREAM_VOL_LAUNCHES = 0
+    megatrace_bwd.MESH_VOL_LAUNCHES = megatrace_bwd.MESH_AUX_VOL_LAUNCHES = 0
     megatrace_bwd.SCAN_LAUNCHES = megatrace_bwd.BIG_LAUNCHES = 0
     triangle_select.LAUNCHES = 0
     meshtrace.SYNC_LAUNCHES = meshtrace.COMPACT_LAUNCHES = 0
@@ -6558,7 +6597,17 @@ def mesh_aux_scene(name: str, scene_mod=None, sphere: bool = False):
     cam = book_scenes.add_cornell_box(b, mod.axis_angle_quat)
     if sphere:
         b.add_sphere((0.3, 0.3, 0.35), 0.2, b.dielectric(1.5))
-    large = name == "cornell_mesh_large"
+    add_cornell_meshes(b, name == "cornell_mesh_large")
+    return b.build(), cam
+
+
+def add_cornell_meshes(b, large: bool = False,
+                       cube_at=((-0.45, -0.849, 0.55), 0.3)) -> None:
+    """mesh_aux_scene's three meshes into the SceneBuilder `b`, scaled into
+    the Cornell box: mesh_showcase's (icosphere(2) metal on the tall box, a
+    torus on the short one, a cube; 908 triangles) or with `large`
+    mesh_large's (icosphere(5), torus(16, 8), cube: 20,748 triangles); the
+    cube at `cube_at` (translation, scale: on the floor by default)."""
     v, f, n, _ = meshes.icosphere(5 if large else 2)
     b.add_mesh(v, f, b.metal((0.8, 0.7, 0.5), glossiness=0.9), normals=n,
                translation=(-0.35, 0.15, -0.3), scale=0.25)
@@ -6566,40 +6615,59 @@ def mesh_aux_scene(name: str, scene_mod=None, sphere: bool = False):
     b.add_mesh(v, f, b.lambert((0.2, 0.4, 0.8)), normals=n,
                translation=(0.4, -0.42, 0.25), scale=0.22)
     v, f, _, _ = meshes.cube()
-    b.add_mesh(v, f, b.lambert((0.8, 0.3, 0.2)),
-               translation=(-0.45, -0.849, 0.55), scale=0.3,
-               face_normals=True)
-    return b.build(), cam
+    b.add_mesh(v, f, b.lambert((0.8, 0.3, 0.2)), translation=cube_at[0],
+               scale=cube_at[1], face_normals=True)
+
+
+def tape_winners(tape, s: int, rect, box) -> dict:
+    """The winners by kind in a winner tape (codes: the spheres below `s`,
+    then the rects and boxes at megatrace.aux_code_bases, the triangles
+    from megatrace.tri_code_base; misses are negative)."""
+    rect_code, box_code = megatrace.aux_code_bases(s, rect)
+    tri_code = megatrace.tri_code_base(s, rect, box)
+    return dict(
+        spheres=int(((tape >= 0) & (tape < s)).sum()),
+        rects=int(((tape >= rect_code) & (tape < box_code)).sum()),
+        boxes=int(((tape >= box_code) & (tape < tri_code)).sum()),
+        triangles=int((tape >= tri_code).sum()))
 
 
 def plain_with_counts(*args, **kwargs):
-    """sample_batch_reference and the tests its sweeps made: (its outputs,
+    """sample_batch_reference with the winner tape asked of it (of a
+    streamed batch too, which the kernel runs without one; kept only where
+    the call asked for it) and the tests its sweeps made: (its outputs,
     (TRI_PAIRS, SLAB_TESTS) its index-order sweeps added, with
     tri_stream_tables the streamed kernel's traversal model's counts
-    summed over its bounces (`batch_traversal_counts`), else None, and
-    its own seconds, the model's not counted)); a job for a check process
-    (phase 30's bounds)."""
+    summed over its bounces (`batch_traversal_counts`), else None, its own
+    seconds, the model's not counted, and its winners by kind,
+    `tape_winners`)); a job for a check process (the bounds of phases 30
+    and 31)."""
     pairs, slabs = megatrace.TRI_PAIRS, megatrace.SLAB_TESTS
     stream = kwargs.get("tri_stream_tables")
     with (contextlib.nullcontext() if stream is None
           else recorded_sweeps()) as calls:
         out, seconds = run_plain(megatrace.sample_batch_reference, args,
-                                 kwargs)
+                                 dict(kwargs, want_tape=True))
     # read before the model runs: its traversal counts in SLAB_TESTS too
     pairs, slabs = megatrace.TRI_PAIRS - pairs, megatrace.SLAB_TESTS - slabs
     model = None if stream is None else batch_traversal_counts(calls, stream)
-    return out, (pairs, slabs, model, seconds)
+    tape = out["tape"] if kwargs.get("want_tape") else out.pop("tape")
+    winners = tape_winners(tape, args[3].shape[0], kwargs.get("rect_tables"),
+                           kwargs.get("box_tables"))
+    return out, (pairs, slabs, model, seconds, winners)
 
 
 def mesh_aux_bound(bounces: float, pairs: float, slabs: float, n: int,
-                   scene, kw: dict) -> tuple[float, str]:
+                   scene, kw: dict,
+                   extra_flops: float = 0.0) -> tuple[float, str]:
     """The least time of a batch of the aux builds of the triangle build or
     the streamed kernel on these inputs: per bounce the sphere sweep, the
     rect and box tests and the shading, and `pairs` triangle and `slabs`
     AABB tests counted on this batch (the plain version's index-order
     sweep's, or the streamed kernel's near-to-far traversal's from its
-    model, whichever is lower); bytes: lane counts and accumulators (and
-    the pixel rows), the sphere, rect, box and triangle tables."""
+    model, whichever is lower), and `extra_flops` (phase 31's volume walk
+    and exits); bytes: lane counts and accumulators (and the pixel rows),
+    the sphere, rect, box and triangle tables."""
     s = scene.spheres.center.shape[0]
     per_ray = (s * SWEEP_FLOPS + scene.rects.rot.shape[0] * RECT_FLOPS
                + scene.boxes.rot.shape[0] * BOX_FLOPS + SHADE_FLOPS)
@@ -6610,8 +6678,8 @@ def mesh_aux_bound(bounces: float, pairs: float, slabs: float, n: int,
     nbytes = (n * 4 * (2 + megatrace.OUT_ROWS
                        + (kw.get("pixel_index") is not None))
               + s * 4 * 20 + 4 * 32 + sum(t.numel() * 4 for t in tables))
-    return bound(bounces * per_ray + pairs * MT_FLOPS + slabs * SLAB_FLOPS,
-                 nbytes)
+    return bound(bounces * per_ray + pairs * MT_FLOPS + slabs * SLAB_FLOPS
+                 + extra_flops, nbytes)
 
 
 MESH_AUX_LEAVES = LEAVES + ("tri_geo", "tri_rec", "rect_geo", "rect_rec",
@@ -6799,7 +6867,7 @@ def mesh_aux_phases(dev, card, width: int = 512, spp: int = 64,
 
     def tri_aux_counts(counts, bounces=bounces4, scene=scene, kw=kw4,
                        rays64=rays64):
-        pairs, slabs, _, _ = counts
+        pairs, slabs, _, _, _ = counts
         bnd = mesh_aux_bound(bounces, pairs, slabs, n, scene, kw)
         # 64 spp: the 4-spp batch's tests a bounce, times its bounces
         bnd64 = mesh_aux_bound(rays64, pairs / bounces * rays64,
@@ -6886,14 +6954,8 @@ def mesh_aux_phases(dev, card, width: int = 512, spp: int = 64,
     # the band's winners by kind over every iteration of its tape, and the
     # leaves of each kind: each kind's plain gradient must be nonzero there,
     # or its leaves' comparison proves nothing
-    brect, bbox = bkwargs["rect_tables"], bkwargs["box_tables"]
-    rect_code, box_code = megatrace.aux_code_bases(0, brect)
-    tri_code = megatrace.tri_code_base(0, brect, bbox)
-    band_tape = band_args[0]
-    winners = dict(
-        rects=int(((band_tape >= rect_code) & (band_tape < box_code)).sum()),
-        boxes=int(((band_tape >= box_code) & (band_tape < tri_code)).sum()),
-        triangles=int((band_tape >= tri_code).sum()))
+    winners = tape_winners(band_args[0], 0, bkwargs["rect_tables"],
+                           bkwargs["box_tables"])
     kinds = dict(triangles=("tri_geo", "tri_rec"),
                  rects=("rect_geo", "rect_rec"), boxes=("box_geo", "box_rec"))
 
@@ -7040,7 +7102,7 @@ def mesh_aux_phases(dev, card, width: int = 512, spp: int = 64,
         # the least work, as phase 20's: the lanes' own tests in the
         # kernel's near-to-far order (the traversal model's) or in the
         # plain version's index order, whichever is lower
-        index_pairs, index_slabs, model, seconds = counts
+        index_pairs, index_slabs, model, seconds, _ = counts
         late("megatrace_batch_stream_aux", "plain_ms", seconds * 1e3)
         index_ms = mesh_aux_bound(bounces, index_pairs, index_slabs, n,
                                   scene, kw)[0]
@@ -7244,6 +7306,681 @@ def mesh_aux_phases(dev, card, width: int = 512, spp: int = 64,
     return {"kernels": kernels, "paths": out}
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: convex volumes beside triangles
+# ---------------------------------------------------------------------------
+
+MESH_VOL_SCENES = ("cornell_mesh_volumes", "mesh_fog",
+                   "cornell_mesh_large_volumes", "mesh_large_fog")
+FOG_INSIDE_CAMERA = CameraSettings(origin=(0.0, 1.2, 0.5),
+                                   look_at=(0.0, 0.3, -1.0),
+                                   vertical_fov=60.0, focus_distance=1.5)
+
+
+@contextlib.contextmanager
+def medium_ends(tri_base: int):
+    """Count, over the plain runs made inside the block, the segments in a
+    medium that end at a triangle: the bounces whose ray starts inside a
+    volume and whose winner is a triangle (tape code >= tri_base), in the
+    batch kernel's plain version (`megatrace._bounce`: "forward") and in
+    the tape replay (`megatrace_replay.replay_iteration`: "replay").
+    Yields {"forward": n, "replay": n}."""
+    counts = {"forward": 0, "replay": 0}
+    bounce, iteration = megatrace._bounce, megatrace_replay.replay_iteration
+
+    def counting_bounce(p, *args, **kwargs):
+        med = kwargs.get("med")
+        inside = (None if med is None
+                  else (med["in_id"] >= 0.0) & p["active"])
+        hit, code = bounce(p, *args, **kwargs)
+        if inside is not None:
+            counts["forward"] += int((inside & hit & (code >= tri_base))
+                                     .sum())
+        return hit, code
+
+    def counting_iteration(state, wt, tape_row, it, env, **kwargs):
+        if "in_id" in state:
+            regen = ((state["active"] < 0.5)
+                     & (state["started"] < env["per_pixel"]))
+            inside = torch.where(regen, env["vol0"][0] >= 0.0,
+                                 state["in_id"] >= 0.0)
+            counts["replay"] += int((inside & (tape_row >= tri_base)).sum())
+        return iteration(state, wt, tape_row, it, env, **kwargs)
+
+    megatrace._bounce = counting_bounce
+    megatrace_replay.replay_iteration = counting_iteration
+    try:
+        yield counts
+    finally:
+        megatrace._bounce = bounce
+        megatrace_replay.replay_iteration = iteration
+
+
+def mesh_volume_scene(name: str, scene_mod=None):
+    """(scene, CameraSettings) of phase 31's scenes (ROADMAP step 7.2b),
+    unregistered as in JAX, built with `scene_mod`'s SceneBuilder (default:
+    the port's; the tests build them with the JAX package's too) and the
+    port's generators: cornell_mesh_volumes, testbeds.add_cornell_volumes'
+    room, light, smoke box and fog box (density 8) around
+    add_cornell_meshes' three meshes (908 triangles, no sphere), the cube
+    inside the fog box, so that segments in the medium end at triangles;
+    cornell_mesh_large_volumes, the same room around mesh_large's meshes
+    (20,748 triangles); mesh_fog, mesh_showcase (908 triangles, its ground
+    sphere) with a fog sphere of volume_test's material (density 1.5,
+    albedo 0.9) of radius 1.45 centred on the torus at (0, 0.5, 0), which
+    it holds whole; mesh_fog_inside, mesh_fog under FOG_INSIDE_CAMERA,
+    inside the fog (vol0 nonzero); mesh_large_fog, mesh_large with a fog
+    sphere of radius 1.3 around its torus at (-2.4, 0.4, 0.6); torus_volume,
+    a torus of the fog's material over a ground sphere (a non-convex
+    volume: the wavefront's alone)."""
+    mod = scene_mod or importlib.import_module(
+        "raytracing_in_one_weekend_tpu_torch.scene.scene")
+    b = mod.SceneBuilder()
+    if name in ("cornell_mesh_volumes", "cornell_mesh_large_volumes"):
+        cam = testbeds.add_cornell_volumes(b, mod.axis_angle_quat)
+        add_cornell_meshes(b, name == "cornell_mesh_large_volumes",
+                           cube_at=((0.4, -0.75, 0.25), 0.2))
+        return b.build(), cam
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambert((0.5, 0.5, 0.5)))
+    fog = b.volume(1.5, (0.9, 0.9, 0.9))
+    if name == "torus_volume":
+        v, f, n, _ = meshes.torus()
+        b.add_mesh(v, f, fog, normals=n, translation=(0.0, 0.5, 0.0))
+        b.set_gradient_sky()
+        return b.build(), meshes._mesh_camera(0.5)
+    if name == "mesh_large_fog":
+        cam = meshes.add_mesh_large_meshes(b)
+        b.add_sphere((-2.4, 0.4, 0.6), 1.3, fog)
+        return b.build(), cam
+    cam = meshes.add_mesh_showcase_meshes(b)
+    b.add_sphere((0.0, 0.5, 0.0), 1.45, fog)
+    return b.build(), (FOG_INSIDE_CAMERA if name == "mesh_fog_inside"
+                       else cam)
+
+
+def walk_flops(bounces: float, kinds: dict) -> float:
+    """The volume builds' work beyond their aux or white twins': the walk
+    every bounce, a sphere winner's far root and a box winner's slab exit
+    (a rect or a triangle has none)."""
+    return (bounces * VOL_WALK_FLOPS + kinds["spheres"] * SPHERE_EXIT_FLOPS
+            + kinds["boxes"] * BOX_EXIT_FLOPS)
+
+
+def replay_grad_band(*args, tri_base: int, **kwargs):
+    """replay_grad_reference and the segments in a medium that end at a
+    triangle its replay takes (medium_ends' "replay"): a job for a check
+    process (phase 31's band)."""
+    with medium_ends(tri_base) as ends:
+        grads = megatrace_bwd.replay_grad_reference(*args, **kwargs)
+    return grads, ends["replay"]
+
+
+def volume_leaf_names(kw: dict) -> tuple:
+    """replay_grad's cotangents, by name, for these tables (vol0 last)."""
+    return LEAVES + tuple(
+        f"{k}_{part}" for k in ("tri", "rect", "box")
+        if kw.get(f"{k}_tables") is not None for part in ("geo", "rec")
+    ) + ("vol0",)
+
+
+def density_grads(plain: dict, scene) -> float:
+    """The largest |cotangent| of a volume's density in `plain` (by leaf
+    name): record column 9 of the volume spheres, record row 9 of the
+    volume boxes."""
+    vol = int(materials.MaterialType.PROBABILISTIC_VOLUME)
+    types = scene.materials.type
+    worst = 0.0
+    if scene.spheres.center.shape[0]:
+        rows = (types[scene.spheres.material.long()] == vol).nonzero()[:, 0]
+        if rows.numel():
+            worst = max(worst, float(plain["records"][rows, 9].abs().max()))
+    if scene.boxes.rot.shape[0] and "box_rec" in plain:
+        cols = (types[scene.boxes.material.long()] == vol).nonzero()[:, 0]
+        if cols.numel():
+            worst = max(worst, float(plain["box_rec"][9, cols].abs().max()))
+    return worst
+
+
+# phase 31's builds: (the JSON line's name, its scene, streamed)
+MESH_VOL_BUILDS = (
+    ("megatrace_batch_tri_aux_vol", "cornell_mesh_volumes", False),
+    ("megatrace_batch_tri_vol", "mesh_fog", False),
+    ("megatrace_batch_stream_aux_vol", "cornell_mesh_large_volumes", True),
+    ("megatrace_batch_stream_vol", "mesh_large_fog", True),
+)
+
+
+def mesh_volume_phases(dev, card, width: int = 512, spp: int = 64,
+                       rows: int = 16, noise_spp: int = 16) -> dict:
+    """Phase 31: convex volumes beside triangles (ROADMAP step 7.2b), at
+    `width`x`width`, depth 8, on mesh_volume_scene's four scenes:
+    cornell_mesh_volumes (the triangle build's volume build beside rects
+    and boxes, tri+aux+vol), mesh_fog (tri+vol), cornell_mesh_large_volumes
+    (the streamed kernel's, stream+aux+vol) and mesh_large_fog
+    (stream+vol).  Each path's launch counts are set to 0 just before it
+    runs and read just after:
+    (a) forward on each: render_batch at `spp` spp, 1 warm-up + 5 timed
+        batches (2 on the streamed meshes; median MRays/s), every batch
+        through its build (TRI_VOL_LAUNCHES or STREAM_VOL_LAUNCHES), no
+        wavefront or sync launch, the image finite; the last batch held
+        to its plain version bit for bit on `rows` rows at the centre;
+    (b) each build alone by CUDA events at 4 and `spp` spp, in turns
+        with its twin without the walk (the same tables without vol0: the
+        triangle build's aux or white build, the streamed kernel's; the
+        volumes then shade as surfaces, so its paths differ), its
+        registers, spills and blocks an SM; the whole 4-spp batch against
+        its plain version bit for bit, whose winners by kind and tests
+        give the bound (the walk 35 flops a bounce, a sphere exit 25, a
+        box exit 98; the triangle and AABB tests of the index-order
+        sweep, on the streamed builds those of the traversal model where
+        they bound lower, as phases 20 and 30 take them);
+    (c) training on cornell_mesh_volumes and mesh_fog at `spp` spp, depth
+        8: render_image(differentiable=True), mean((color - target)^2),
+        .backward() to the albedos, the soup's vertices, the rect, box or
+        sphere positions and the material parameters (the densities), 1
+        warm-up + 2 timed steps (median fwd+bwd MRays/s), the forward
+        through the volume build and the backward through #2's
+        MESH_AUX_VOL or MESH_VOL build, the gradients finite; the last
+        step's replay_grad call held to the plain replay on its first
+        `rows` rows (each leaf within 5e-4 of its max abs, a leaf below
+        1e-5 of the largest leaf's max held below that on both sides:
+        phase 23's volume_errors), the band's winners by
+        kind and its segments in a medium that end at a triangle printed,
+        and the plain gradient nonzero on a triangle leaf, a rect or box
+        leaf (where the scene has them) and a volume's density or vol0
+        there, or it raises; each backward build alone by CUDA events at 4
+        and `spp` spp (bwd_parts_ms);
+    (d) BLUE against white: the four noise builds, the triangle builds on
+        the tables route at `noise_spp` spp and the streamed ones on the
+        pre-drawn rows at 4, as phase 30's (f), the last batch bit for bit
+        on the band, each alone at 4 and `spp` spp in turns with its white
+        twin;
+    (e) mesh_fog_inside at 128x128, 8 spp: the camera in the fog (vol0's
+        id >= 0), through tri+vol, the whole batch bit for bit; the
+        volume-material torus (torus_volume) at 128x128 through the
+        wavefront (the batch kernel refused: non-convex), triangle_select
+        launched, the image finite.
+    Returns the JSON line's kernel entries and the readings."""
+    from raytracing_in_one_weekend_tpu_torch.core import randomsource
+    from raytracing_in_one_weekend_tpu_torch.utils.config import NoiseColor
+
+    t_phase = time.perf_counter()
+    n = width * width
+    out, entries = {}, {}
+    zeros = torch.zeros(n, device=dev)
+    gen = torch.Generator().manual_seed(31)
+
+    def wavefront_launches() -> int:
+        return (sum(sphere_select.LAUNCHES.values())
+                + triangle_select.LAUNCHES + megatrace.WAVE_LAUNCHES)
+
+    def batches(scene, camera, count, samples, acc, **kw):
+        """`count` render_batch calls after a warm-up, the counts reset
+        between: (median MRays/s, the calls' sample_batch inputs, kept
+        for the last call only)."""
+        def one():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = renderer.render_batch(scene, camera, acc, gen,
+                                         width=width, height=width,
+                                         samples=samples, trace_depth=8,
+                                         **kw)
+            rays = float(m.total_rays)
+            torch.cuda.synchronize()
+            return rays, time.perf_counter() - t
+
+        one()
+        reset_launches()
+        megatrace.NOISE_LAUNCHES = 0
+        megatrace.NOISE_BUILDS.clear()
+        with recorded_calls(megatrace, "sample_batch") as calls:
+            runs = []
+            for _ in range(count):
+                calls.clear()
+                runs.append(one())
+        return statistics.median(r / t / 1e6 for r, t in runs), calls
+
+    def finite_image(name, acc, w=width):
+        img = film.combine(acc, w, w).color
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+            raise RuntimeError(f"bad {name} image: mean {float(img.mean())}")
+        return img
+
+    def with_plain_ms(entry: str):
+        def record(share, err, seconds=0.0):
+            late(entry, "max_abs_err", err)
+            late(entry, "plain_ms", seconds * 1e3)
+        return record
+
+    scenes, targets = {}, {}
+    for entry, name, streamed in MESH_VOL_BUILDS:
+        scene, cs = mesh_volume_scene(name)
+        scene = scene.to(dev)
+        camera, tables = batch_inputs(scene, cs, width, width, dev)
+        packed = materials.pack_materials(scene)
+        rect, box = megatrace.pack_aux_tables(scene, packed)
+        kw = dict(trace_depth=8, has_dielectrics=scene.flags.has_dielectrics,
+                  sky_on=scene.flags.sky == 1, rect_tables=rect,
+                  box_tables=box,
+                  vol0=megatrace.camera_containment_row(scene, packed,
+                                                        camera.origin))
+        tri = None
+        if streamed:
+            kw["tri_stream_tables"] = megatrace.pack_tri_stream_tables(
+                scene, packed)
+            kw["pixel_index"] = megatrace.morton_order(width,
+                                                       width)[0].to(dev)
+        else:
+            tri = kw["tri_tables"] = megatrace.pack_tri_tables(scene, packed)
+        scenes[name] = (scene, camera, tables, kw, tri)
+        counter = "STREAM_VOL_LAUNCHES" if streamed else "TRI_VOL_LAUNCHES"
+
+        # ---- (a) the forward path ------------------------------------------
+        count = 2 if streamed else 5
+        acc = film.zero_accumulators(n, device=dev)
+        rate, calls = batches(scene, camera, count, spp, acc)
+        launches = (megatrace.LAUNCHES, getattr(megatrace, counter),
+                    megatrace.TRI_AUX_LAUNCHES + megatrace.STREAM_AUX_LAUNCHES
+                    + megatrace.TRI_LAUNCHES, meshtrace.SYNC_LAUNCHES,
+                    wavefront_launches())
+        if launches != (count, count, 0, 0, 0):
+            raise RuntimeError(f"{name} forward: launches (batch kernel, "
+                               f"{counter}, other triangle builds, sync, "
+                               f"wavefront) {launches}; want {count} of "
+                               "the volume build alone")
+        img = finite_image(name, acc)
+        targets[name] = img.detach()
+        (args, kwargs, res), = calls
+        rays64 = float(res["rays"].sum())
+        print(f"mesh+volume forward: {name} {width}x{width} depth 8, {spp} "
+              f"spp/batch: median {rate:.3f} MRays/s over {count} batches "
+              f"({rays64:.0f} rays/batch; launches {counter} "
+              f"{launches[1]}); image mean {float(img.mean()):.4f} [{card}]")
+        out[f"{name}_fwd_mrays"] = rate
+        entries[entry] = dict(launches=launches[1], fwd_mrays=rate)
+        parity_rows(f"{entry}, {name} {width}x{width} {spp} spp main-path "
+                    "batch" + (", Morton lanes" if streamed else ""),
+                    args, kwargs, rows, width, tape=not streamed,
+                    bitwise=True, record=into(entry))
+        del calls, args, kwargs, res
+
+        # ---- (b) the build alone, in turns with its twin --------------------
+        twin_kw = {k: v for k, v in kw.items() if k != "vol0"}
+        aux_rows = sum(t[0].shape[0] for t in (rect, box) if t is not None)
+        alone = {}
+        for few, reps in (((4, 5), (spp, 2)) if streamed
+                          else ((4, 10), (spp, 3))):
+            times = {"vol": [], "twin": []}
+            for which in ("twin", "vol", "vol", "twin"):
+                times[which].append(tri_launch_ms(
+                    tables, tri, few, reps, kw if which == "vol"
+                    else twin_kw))
+            alone[few] = {k: statistics.mean(v) for k, v in times.items()}
+            print(f"{entry} alone, {name} {width}x{width} {few} spp, depth 8 "
+                  f"(CUDA events over {reps} launches, in turns): "
+                  f"{times['vol']} ms; its twin without the walk "
+                  f"{times['twin']} ms [{card}]")
+        s = tables[1].shape[0]
+        info = megatrace.tri_kernel_info(s, aux_rows, stream=streamed,
+                                         has_vol=True)
+        kname = (("megatrace_stream_kernelILb0ELb" if streamed
+                  else "megatrace_tri_kernelILb0ELb")
+                 + ("1" if rect else "0") + "ELb1EE")
+        report = ptxas_report(megatrace.BUILD_LOG, kname)
+        print(f"{entry}: ptxas {report or '(not built here)'}; "
+              f"{info['registers']} registers, {info['local_bytes']} B local "
+              f"a thread, {info['blocks']} blocks of 128 an SM (occupancy "
+              f"API) [{card}]")
+        args4 = (torch.full((n,), 4, dtype=torch.int32, device=dev), zeros,
+                 *tables, 7)
+        kw4 = dict(kw, samples=4)
+        res4 = megatrace.sample_batch(*args4, **kw4)
+        bounces4 = float(res4["rays"].sum())
+        entries[entry].update(
+            ms=alone[4]["vol"], ms_64spp=alone[spp]["vol"],
+            twin_ms=alone[4]["twin"], twin_ms_64spp=alone[spp]["twin"],
+            bounces=bounces4, registers=info["registers"],
+            local_bytes=info["local_bytes"], blocks_per_sm=info["blocks"])
+
+        def walk_counts(counts, entry=entry, bounces=bounces4, scene=scene,
+                        kw=kw4, rays64=rays64, name=name):
+            index_pairs, index_slabs, model, seconds, kinds = counts
+            extra = walk_flops(bounces, kinds)
+            pairs, slabs = index_pairs, index_slabs
+            if model is not None:
+                # the streamed kernel's least work, as phases 20 and 30
+                # take it: its traversal model's tests or the index
+                # order's, whichever bound is lower
+                pairs, slabs = min(
+                    (model["lane_pairs"], model["lane_slabs"]),
+                    (index_pairs, index_slabs),
+                    key=lambda c: mesh_aux_bound(bounces, *c, n, scene, kw,
+                                                 extra)[0])
+                print(f"{entry} tests a bounce, {name}: the traversal "
+                      f"model's {model['lane_pairs'] / bounces:.1f} "
+                      f"triangles and {model['lane_slabs'] / bounces:.1f} "
+                      f"AABBs (winners equal to the index-order sweep's on "
+                      f"every live lane), the index order's "
+                      f"{index_pairs / bounces:.1f} and "
+                      f"{index_slabs / bounces:.1f}; the bound takes the "
+                      "lower")
+            bnd = mesh_aux_bound(bounces, pairs, slabs, n, scene, kw, extra)
+            scale = rays64 / bounces
+            bnd64 = mesh_aux_bound(rays64, pairs * scale, slabs * scale, n,
+                                   scene, kw, extra * scale)
+            for field, v in (("bound_ms", bnd[0]), ("bound_by", bnd[1]),
+                             ("bound_ms_64spp", bnd64[0]),
+                             ("tri_pairs_per_bounce", pairs / bounces),
+                             ("plain_ms", seconds * 1e3)):
+                late(entry, field, v)
+            print(f"{entry} bound, {name} {width}x{width} 4 spp: {bounces:.0f}"
+                  f" bounces, {pairs / bounces:.1f} triangles and "
+                  f"{slabs / bounces:.1f} AABBs tested a bounce; winners "
+                  + ", ".join(f"{k} {v}" for k, v in kinds.items())
+                  + f": {bnd[0]:.4f} ms by {bnd[1]}; 64 spp (scaled) "
+                  f"{bnd64[0]:.4f} ms; the plain version {seconds:.1f} s "
+                  f"[{card}]")
+
+        check_parity(f"{entry}, {name} {width}x{width} 4 spp (whole batch)",
+                     args4, kw4, record=into(entry), tape=not streamed,
+                     plain=plain_with_counts, more=walk_counts, bitwise=True)
+        del res4
+
+    # ---- (c) training through MESH_AUX_VOL and MESH_VOL ----------------------
+    for name, kind, names in (
+            ("cornell_mesh_volumes", "MESH_AUX_VOL",
+             ("texture_colors", "triangle_vertices", "rect_positions",
+              "box_positions", "material_parameters")),
+            ("mesh_fog", "MESH_VOL",
+             ("texture_colors", "triangle_vertices", "sphere_centers",
+              "material_parameters"))):
+        scene, camera, tables, kw, tri = scenes[name]
+        entry = f"megatrace_bwd_{kind.lower()}"
+        counter = f"{kind}_LAUNCHES"
+        seeds = [int(torch.randint(0, renderer.SEED_RANGE, (),
+                                   generator=gen)) for _ in range(3)]
+        fwd_rays = []
+        for seed in seeds:
+            _, m = renderer.render_batch(
+                scene, camera, film.zero_accumulators(n, device=dev),
+                width=width, height=width, samples=spp, trace_depth=8,
+                seed=seed, differentiable=False)
+            fwd_rays.append(float(m.total_rays))
+        reset_launches()
+        rates = []
+        with recorded_calls(megatrace_bwd, "replay_grad",
+                            copy=False) as calls:
+            for seed, r in zip(seeds, fwd_rays):
+                calls.clear()
+                params = {k: v.detach().clone().requires_grad_() for k, v in
+                          params_mod.extract_params(scene, names).items()}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step = renderer.render_image(
+                    params_mod.apply_params(scene, params), camera,
+                    width=width, height=width, samples_per_pixel=spp,
+                    trace_depth=8, seed=seed, differentiable=True)
+                torch.mean((step.color - targets[name]) ** 2).backward()
+                torch.cuda.synchronize()
+                rates.append(r / (time.perf_counter() - t) / 1e6)
+        launches = (megatrace.TRI_VOL_LAUNCHES, megatrace_bwd.SCAN_LAUNCHES,
+                    megatrace_bwd.LAUNCHES, getattr(megatrace_bwd, counter))
+        if (launches[0] != 3 or launches[2] != 3 or launches[3] != 3
+                or megatrace.LAUNCHES != 3 or launches[1] == 0
+                or wavefront_launches()):
+            raise RuntimeError(f"{name} fwd+bwd: launches (tri+vol, scan, "
+                               f"path kernel, {kind}) {launches}, wavefront "
+                               f"{wavefront_launches()}; want 3 steps "
+                               "through the volume builds")
+        grads = {k: v.grad for k, v in params.items()}
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            raise RuntimeError(f"{name} fwd+bwd: gradients not finite")
+        bwd_rate = statistics.median(rates[1:])
+        out[f"{name}_fwd_bwd_mrays"] = bwd_rate
+        print(f"mesh+volume fwd+bwd: {name} {width}x{width} depth 8, {spp} "
+              f"spp: median {bwd_rate:.3f} MRays/s over 2 steps after a "
+              f"warm-up ({fwd_rays[-1]:.0f} forward rays/step; launches "
+              f"tri+vol {launches[0]}, tape scan {launches[1]}, path kernel "
+              f"{launches[2]}, of them {kind} {launches[3]}); max |grad| "
+              + ", ".join(f"{k} {float(g.abs().max()):.4g}"
+                          for k, g in grads.items()) + f" [{card}]")
+        entries[entry] = dict(launches=launches[3],
+                              scan_launches=launches[1],
+                              fwd_bwd_mrays=bwd_rate)
+        (bargs, bkwargs, _), = calls
+        m = rows * width  # the first rows: lane i renders pixel i there too
+        band_args = (bargs[0][:, :m].contiguous(), bargs[1][:m],
+                     *bargs[2:9], bargs[9][:m].contiguous(),
+                     bargs[10][:m].contiguous())
+        band_got = megatrace_bwd.replay_grad(*band_args, **bkwargs)
+        leaf_names = volume_leaf_names(bkwargs)
+        s = bargs[3].shape[0]
+        brect, bbox = bkwargs["rect_tables"], bkwargs["box_tables"]
+        tri_code = megatrace.tri_code_base(s, brect, bbox)
+        winners = tape_winners(band_args[0], s, brect, bbox)
+        need = {"triangles": ("tri_geo", "tri_rec")}
+        if brect is not None or bbox is not None:
+            need["rects or boxes"] = ("rect_geo", "rect_rec", "box_geo",
+                                      "box_rec")
+
+        def band_finish(want, seconds, got=band_got, winners=winners,
+                        names=leaf_names, need=need, scene=scene,
+                        entry=entry, kind=kind):
+            grads, ends = want
+            plain = dict(zip(names, grads))
+            def amax(x):
+                return float(plain[x].abs().max()) if plain[x].numel() else 0.0
+
+            dead = [k for k, leaves in need.items()
+                    if not any(x in plain and amax(x) > 0.0 for x in leaves)]
+            density = density_grads(plain, scene)
+            vol0 = amax("vol0")
+            if density == 0.0 and vol0 == 0.0:
+                dead.append("a volume's density or vol0")
+            print(f"{kind} band, rows 0-{rows - 1}: winners over its tape "
+                  + ", ".join(f"{k} {v}" for k, v in winners.items())
+                  + f"; segments in a medium that end at a triangle {ends}; "
+                  "the plain gradient's max abs "
+                  + ", ".join(f"{x} {amax(x):.4g}" for x in names
+                              if x != "camera_row")
+                  + f", densities {density:.4g}")
+            if dead:
+                raise RuntimeError(f"{kind} band: the plain gradient of "
+                                   f"every {', '.join(dead)} leaf is 0 "
+                                   "there")
+            rel = volume_errors(got, grads, names)
+            print(f"{kind} backward vs plain on the last step's replay_grad "
+                  f"call, rows 0-{rows - 1} ({m} lanes, {spp} spp, depth 8): "
+                  f"max error {rel:.3e} of the leaf's max abs over "
+                  f"{', '.join(names)}; plain version {seconds:.1f} s")
+            late(entry, "max_abs_err", rel)
+            late(entry, "plain_ms", seconds * 1e3)
+
+        plain_check(replay_grad_band, band_args,
+                    dict(bkwargs, tri_base=tri_code), band_finish)
+        del calls, bargs, bkwargs
+        for few in (4, spp):
+            lane_count = torch.full((n,), few, dtype=torch.int32, device=dev)
+            fkw = dict(kw, samples=few)
+            fwd = megatrace.sample_batch(lane_count, zeros, *tables, 7,
+                                         want_tape=True, **fkw)
+            cots = probe_cotangents(fwd["color"], fwd["count"])
+            live = float(fwd["rays"].sum())
+            kinds = tape_winners(fwd["tape"], s, brect, bbox)
+            tri_live = float(kinds["triangles"])
+            aux_live = float(kinds["rects"] + kinds["boxes"])
+            scan_ms, glue_ms, paths_ms, table = bwd_parts_ms(
+                tables, tri, lane_count, fwd["tape"], cots, 7, fkw,
+                5 if few == 4 else 3, rect=kw["rect_tables"],
+                box=kw["box_tables"], vol0=kw["vol0"])
+            ent_rows = (megatrace.sphere_pad_count(s)
+                        + sum(t[0].shape[0] for t in (brect, bbox)
+                              if t is not None) + tri[0].shape[0])
+            bnd = bwd_bound(live, table.shape[0], n, ent_rows * 4 * 38,
+                            live * VOL_BWD_FLOPS + aux_live * AUX_BWD_FLOPS
+                            + tri_live * 3 * MT_FLOPS)
+            stats = path_stats(table, 8)
+            print(f"{kind} alone, {name} {width}x{width} depth 8, {few} spp "
+                  f"(CUDA events): tape scan's two launches {scan_ms:.3f} ms "
+                  f"(glue {glue_ms:.3f} ms more), path kernel "
+                  f"{paths_ms:.3f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, "
+                  f"{live:.0f} live iterations, {tri_live:.0f} at triangles, "
+                  f"{aux_live:.0f} at rects and boxes); {stats['paths']} "
+                  f"paths, idle warp slots {stats['idle_warp_slots']:.6f} "
+                  f"[{card}]")
+            key = "" if few == 4 else "_64spp"
+            entries[entry].update({f"ms{key}": paths_ms,
+                                   f"scan_ms{key}": scan_ms,
+                                   f"bound_ms{key}": bnd[0]})
+            if few == 4:
+                entries[entry]["bound_by"] = bnd[1]
+            del fwd, table, cots
+        path_report = ptxas_report(
+            megatrace_bwd.BUILD_LOG, "megatrace_paths_kernelILb1ELb"
+            + ("1" if kind == "MESH_AUX_VOL" else "0") + "ELb1E")
+        print(f"{kind} path kernel: ptxas {path_report or '(not built here)'}")
+        entries[entry]["ptxas"] = path_report
+
+    # ---- (d) BLUE against white on the four noise builds ---------------------
+    blue = randomsource.make_noise_state(NoiseColor.BLUE, seed=7, device=dev)
+    noise_kw = dict(noise_color=int(NoiseColor.BLUE), noise_state=blue)
+    for _, name, streamed in MESH_VOL_BUILDS:
+        scene, camera, tables, kw, _ = scenes[name]
+        build = megatrace.noise_build(tables[1].shape[0], **kw)
+        nspp = 4 if streamed else noise_spp
+        acc = film.zero_accumulators(n, device=dev)
+        nrate, calls = batches(scene, camera, 2, nspp, acc, **noise_kw)
+        if (megatrace.NOISE_BUILDS != {build: 2} or megatrace.LAUNCHES != 2
+                or wavefront_launches() or meshtrace.SYNC_LAUNCHES):
+            raise RuntimeError(f"{name} with BLUE: noise builds "
+                               f"{megatrace.NOISE_BUILDS}, batch kernel "
+                               f"launches {megatrace.LAUNCHES}; want 2 of "
+                               f"{build}")
+        finite_image(f"{name} BLUE", acc)
+        (args, kwargs, _), = calls
+        route = ("tables" if kwargs.get("noise_tbl") is not None
+                 else "pre_drawn")
+        if route != ("pre_drawn" if streamed else "tables"):
+            raise RuntimeError(f"{name} with BLUE took the {route} route")
+        noise_parity(f"noise build {build}, BLUE ({route}), {name} "
+                     f"{width}x{width} {nspp} spp main-path batch",
+                     args, kwargs, width,
+                     record=with_plain_ms(noise_kernel_name(build)),
+                     rows=rows, bitwise=True)
+        del calls, args, kwargs
+        e = entries[f"noise_{build}"] = dict(launches=2, fwd_mrays=nrate)
+        for few, reps in ((4, 5), (spp, 2)):
+            with recorded_calls(megatrace, "sample_batch") as calls:
+                renderer.render_batch(
+                    scene, camera, film.zero_accumulators(n, device=dev), gen,
+                    width=width, height=width, samples=few, trace_depth=8,
+                    **noise_kw)
+            (args, kwargs, res), = calls
+            white_kw = {k: v for k, v in kwargs.items()
+                        if k not in NOISE_KEYS}
+            timed = {"white": [], "blue": []}
+            for flavor in ("white", "blue", "blue", "white"):
+                timed[flavor].append(time_batch(
+                    megatrace.sample_batch, *args, repeats=reps,
+                    **(kwargs if flavor == "blue" else white_kw))[0])
+            rays = float(res["rays"].sum())
+            bnd = noise_beside_bound(args, kwargs, rays,
+                                     float(args[0].sum()), scene)
+            key = "" if few == 4 else "_64spp"
+            e.update({f"ms{key}": statistics.mean(timed["blue"]),
+                      f"white_ms{key}": statistics.mean(timed["white"]),
+                      f"bound_ms{key}": bnd[0]})
+            if few == 4:
+                e["bound_by"] = bnd[1]
+            print(f"noise build {build} alone, {name} {width}x{width} {few} "
+                  f"spp, depth 8 (CUDA events over sample_batch calls, in "
+                  f"turns): blue {timed['blue']} ms against its white twin's "
+                  f"{timed['white']} ms; bound {bnd[0]:.4f} ms by {bnd[1]} "
+                  f"[{card}]")
+            del calls, args, kwargs, res
+        aux_rows = sum(t[0].shape[0] for t in (kw["rect_tables"],
+                                               kw["box_tables"])
+                       if t is not None)
+        ninfo = megatrace.noise_kernel_info(
+            tables[1].shape[0], aux_rows=aux_rows, has_vol=True,
+            tri=2 if streamed else 1)
+        e.update(registers=ninfo["registers"],
+                 local_bytes=ninfo["local_bytes"],
+                 blocks_per_sm=ninfo["blocks"])
+        print(f"noise build {build}: {ninfo['registers']} registers, "
+              f"{ninfo['local_bytes']} B local, {ninfo['blocks']} blocks an "
+              f"SM; median MRays/s of 2 BLUE batches {nrate:.3f} [{card}]")
+        out[f"{name}_blue_fwd_mrays"] = nrate
+
+    # ---- (e) a camera in the fog; the non-convex torus ------------------------
+    small = 128
+    inside, ics = mesh_volume_scene("mesh_fog_inside")
+    inside = inside.to(dev)
+    icam, _ = batch_inputs(inside, ics, small, small, dev)
+    reset_launches()
+    with recorded_calls(megatrace, "sample_batch") as calls:
+        renderer.render_batch(inside, icam,
+                              film.zero_accumulators(small * small,
+                                                     device=dev), gen,
+                              width=small, height=small, samples=8,
+                              trace_depth=8)
+    (args, kwargs, _), = calls
+    vol_id = float(kwargs["vol0"][0])
+    if megatrace.TRI_VOL_LAUNCHES != 1 or vol_id < 0.0:
+        raise RuntimeError(f"mesh_fog_inside: tri+vol launches "
+                           f"{megatrace.TRI_VOL_LAUNCHES}, vol0 id {vol_id}")
+    print(f"mesh_fog_inside {small}x{small}: the camera in the fog (vol0 "
+          f"{[round(float(v), 4) for v in kwargs['vol0']]}), through "
+          f"tri+vol [{card}]")
+    check_parity(f"megatrace_batch_tri_vol, mesh_fog_inside {small}x{small} "
+                 "8 spp (whole batch, vol0 nonzero)", args, kwargs,
+                 record=into("megatrace_batch_tri_vol"), bitwise=True)
+    del calls, args, kwargs
+    torus, tcs = mesh_volume_scene("torus_volume")
+    torus = torus.to(dev)
+    tcam, _ = batch_inputs(torus, tcs, small, small, dev)
+    reset_launches()
+    acc = film.zero_accumulators(small * small, device=dev)
+    renderer.render_batch(torus, tcam, acc, gen, width=small, height=small,
+                          samples=8, trace_depth=8)
+    img = finite_image("torus_volume", acc, small)
+    if megatrace.LAUNCHES or triangle_select.LAUNCHES == 0:
+        raise RuntimeError(f"torus_volume: batch kernel launches "
+                           f"{megatrace.LAUNCHES}, triangle_select "
+                           f"{triangle_select.LAUNCHES}; want the wavefront")
+    print(f"torus_volume (a volume-material torus, non-convex) {small}x"
+          f"{small}, 8 spp: the wavefront (triangle_select launches "
+          f"{triangle_select.LAUNCHES}, sphere_select "
+          f"{sum(sphere_select.LAUNCHES.values())}), image mean "
+          f"{float(img.mean()):.4f}, finite [{card}]")
+    out["torus_volume_mean"] = float(img.mean())
+    print(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
+
+    src = "raytracing_in_one_weekend_tpu_torch/csrc/"
+    fwd_replaces = "raytracing_in_one_weekend_tpu/ops/pallas_megatrace.py:2457"
+    kernels = []
+    builds = [(entry, entry, "megatrace_batch.cu", fwd_replaces)
+              for entry, _, _ in MESH_VOL_BUILDS]
+    builds += [(noise_kernel_name(b), f"noise_{b}", "megatrace_noise.cu",
+                fwd_replaces)
+               for b in ("tri+aux+vol", "tri+vol", "stream+aux+vol",
+                         "stream+vol")]
+    builds += [(f"megatrace_bwd_{k}", f"megatrace_bwd_{k}",
+                "megatrace_bwd.cu",
+                "raytracing_in_one_weekend_tpu/ops/megatrace_bwd.py:132")
+               for k in ("mesh_aux_vol", "mesh_vol")]
+    for name, key, source, replaces in builds:
+        e = entries[key]
+        kernels.append(dict(
+            {"name": name, "route": "cuda", "source": src + source,
+             "replaces": replaces, "launches": e.pop("launches"),
+             "max_abs_err": None, "ms": e.pop("ms"), "plain_ms": None,
+             "bound_ms": e.pop("bound_ms", None),
+             "bound_by": e.pop("bound_by", None), "library_ms": None},
+            **e))
+    return {"kernels": kernels, "paths": out}
+
+
 SASS_SOURCES = ("megatrace_batch", "megatrace_noise", "megatrace_wave",
                 "megatrace_bwd", "meshtrace_sync", "meshtrace_permute",
                 "sphere_select", "triangle_select")
@@ -7282,6 +8019,39 @@ def replay_grad_ms(scene, cs, width: int, samples: int, repeats: int):
                       *tables, 7, *cots, repeats=repeats, **kw)[0]
 
 
+def plain_stream_band(scene, tables, order, width: int, rows: int = 16,
+                      spp: int = 16) -> dict:
+    """The plain streamed sweep as a check-stage job runs it: the plain
+    version (sample_batch_reference, one CPU thread, its lanes in one
+    chunk on the card) on `rows` rows' worth of a width x width batch's
+    Morton lanes at its centre, `spp` spp, depth 8: its seconds (wall
+    clock, the card waited for) and the (lane, triangle) and (lane, AABB)
+    tests its sweeps counted, which a faster sweep keeps."""
+    dev = tables[1].device
+    r0 = (width - rows) // 2
+    lo, hi = r0 * width, (r0 + rows) * width
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    pairs, slabs = megatrace.TRI_PAIRS, megatrace.SLAB_TESTS
+    try:
+        out, seconds = run_plain(
+            megatrace.sample_batch_reference,
+            (torch.full((hi - lo,), spp, dtype=torch.int32, device=dev),
+             torch.zeros(hi - lo, device=dev), *tables, 7, lo),
+            dict(samples=spp, trace_depth=8, sky_on=True,
+                 has_dielectrics=scene.flags.has_dielectrics,
+                 tri_stream_tables=megatrace.pack_tri_stream_tables(
+                     scene, materials.pack_materials(scene)),
+                 pixel_index=order[lo:hi].contiguous(),
+                 chunk_lanes=hi - lo))
+    finally:
+        torch.set_num_threads(threads)
+    return dict(plain_stream_band_s=seconds,
+                plain_stream_pairs=megatrace.TRI_PAIRS - pairs,
+                plain_stream_slabs=megatrace.SLAB_TESTS - slabs,
+                plain_stream_rays=int(out["rays"].sum()))
+
+
 def turn_readings() -> dict:
     """One turn of `--against`, on the package found first on sys.path, at
     512x512, depth 8: the batch kernel's streamed arm on mesh_large (4
@@ -7295,7 +8065,8 @@ def turn_readings() -> dict:
     and on mesh_showcase at 4 spp; the forward MRays/s of render_batch (64
     spp, median of 5 batches) on the cover, mesh_showcase and mesh_huge
     (the sync sampler), and the fwd+bwd MRays/s of phases 8 (cover) and
-    17a (mesh_showcase), median of 3 steps."""
+    17a (mesh_showcase), median of 3 steps; the plain streamed sweep's
+    check-stage job (`plain_stream_band`)."""
     dev = torch.device("cuda", 0)
     for load in (megatrace.load_kernel, megatrace.load_wave_kernel,
                  megatrace_bwd.load_kernel, meshtrace.load_sync_kernel,
@@ -7320,6 +8091,7 @@ def turn_readings() -> dict:
         tri_stream_tables=megatrace.pack_tri_stream_tables(
             large, materials.pack_materials(large)),
         samples=4, trace_depth=8, pixel_index=order)
+    out.update(plain_stream_band(large, tables, order, width))
     cover, cover_cs = book_scenes.cover_scene()
     cover = cover.to(dev)
     _, tables = batch_inputs(cover, cover_cs, width, width, dev)
@@ -7693,6 +8465,7 @@ def main() -> int:
     noise = noise_phases(dev, card)
     beside = noise_beside_phases(dev, card)
     mesh_aux = mesh_aux_phases(dev, card)
+    mesh_vol = mesh_volume_phases(dev, card)
     run_check_stage()
 
     kernels = [{
@@ -7748,7 +8521,8 @@ def main() -> int:
     }] + wave["kernels"] + mesh["kernels"] + streamed["kernels"] \
         + aux["kernels"] + vol["kernels"] + motion["kernels"] \
         + texture["kernels"] + field["kernels"] + cube["kernels"] \
-        + noise["kernels"] + beside["kernels"] + mesh_aux["kernels"]
+        + noise["kernels"] + beside["kernels"] + mesh_aux["kernels"] \
+        + mesh_vol["kernels"]
     apply_late(kernels)
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the "
           "card's check to here")
@@ -7767,7 +8541,8 @@ def main() -> int:
         "volume": vol["paths"], "motion": motion["paths"],
         "texture": texture["paths"], "sphere_field": field["paths"],
         "cube": cube["paths"], "noise": noise["paths"],
-        "noise_beside": beside["paths"], "mesh_aux": mesh_aux["paths"]}))
+        "noise_beside": beside["paths"], "mesh_aux": mesh_aux["paths"],
+        "mesh_volume": mesh_vol["paths"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,8 @@
 // texture arms, its cubemap branch (:1372-1416), its noise-table arm
 // (pack_noise_tables :2126, _stbn_rows :2366, _cp_rotate :2444, their uses
 // :2625-2822) and pre-drawn rows, its triangle (VMEM) arm
-// and its streamed-triangle arm (white-noise hash PRNG, dense sphere
+// and its streamed-triangle arm, each with its convex-volume walk
+// (white-noise hash PRNG, dense sphere
 // sweep, the one-sided rect and Majercik box tests, the Beer-Lambert
 // volume walk, the Möller–Trumbore sweep over AABB-culled 192-row triangle
 // blocks, Standard Lambert/GGX-metal, dielectric and isotropic scatter,
@@ -185,6 +186,19 @@
 // is a 16x8 tile of pixels); the hash PRNG stays keyed by the lane, as in
 // JAX.
 
+// Convex volumes beside a mesh (ROADMAP step 7.2b; book 2's smoke beside a
+// scanned mesh) take the volume builds of the triangle build and the
+// streamed kernel (kVol, their last flag, with or without kAux; the
+// builds without it compile none of it and keep their SASS).  A lane
+// carries its medium as the sphere kernel's volume builds do, reset at
+// each regen from vol0 (the constants' 32-39).  The sweeps and their culls
+// are unchanged (the triangle sweep culls by the nearest sphere, rect or
+// box, as in the JAX kernel: the walk shortens nothing before it); after
+// them the winner's exit distance is computed once (exit_of: a sphere's
+// far root, a box's slab exit, none for a rect or a triangle, which has
+// no interior), and shade walks the medium.  A segment inside a medium
+// that ends at a triangle scatters in it or survives to the surface.
+//
 // Rects and boxes beside a mesh (ROADMAP step 7.1b; a Cornell box with a
 // mesh in it) take the aux builds of the triangle build and the streamed
 // kernel (kAux, their last flag; the builds without it compile none of it
@@ -261,6 +275,33 @@ extern "C" int rtiw_megatrace_tri_aux(
       AuxRows{aux_geo, aux_rec, rect_rows, box_rows, rect_code, box_code});
 }
 
+// The volume builds of the triangle build and the streamed kernel (convex
+// volumes beside a mesh, with spheres or without, with rects and boxes or
+// without): rtiw_megatrace_tri_aux's arguments, with `consts` kVolConsts
+// floats (the camera row and sky, 2 pad, then the camera's medium vol0)
+// and rect_rows + box_rows >= 0 (0: no rect or box sweep).
+// cudaErrorInvalidValue for a request without triangles.
+extern "C" int rtiw_megatrace_tri_vol(
+    const float* lane_count, const float* count_in, const float* pixel_index,
+    const float* consts, const float* sph, const float* rec,
+    const float* tri_geo, const float* tri_aabb, const float* tri_sup,
+    const float* tri_rec, float* out, float* tape, int n, int s,
+    int tri_rows, int tri_blocks, int tri_supers, int tri_code_base,
+    int seed, int lane_base, int samples, int trace_depth, float t_min,
+    int has_dielectrics, int sky_on, int jitter, const float* aux_geo,
+    const float* aux_rec, int rect_rows, int box_rows, int rect_code,
+    int box_code, void* stream) {
+  if (rect_rows < 0 || box_rows < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return batch_launch<false>(
+      lane_count, count_in, pixel_index, consts, sph, rec, tri_geo, tri_aabb,
+      tri_sup, tri_rec, out, tape, n, s, tri_rows, tri_blocks, tri_supers,
+      tri_code_base, seed, lane_base, samples, trace_depth, t_min,
+      has_dielectrics, sky_on, jitter, NoiseScene{}, stream,
+      AuxRows{aux_geo, aux_rec, rect_rows, box_rows, rect_code, box_code},
+      true);
+}
+
 // The aux, volume, motion and texture builds (scenes with rects or boxes,
 // spheres or none, convex volumes, moving spheres, checker, Perlin and
 // image albedos, in any mix): the sphere build's arguments, then aux_geo
@@ -319,10 +360,12 @@ extern "C" int rtiw_megatrace_ext_info(int s, int aux_rows, int has_vol,
 
 // sphere_info of the triangle build (megatrace_tri_kernel), or with
 // `stream` the streamed kernel, beside an s-sphere table; with aux_rows >
-// 0 its aux build's for that many rect and box rows.
+// 0 its aux build's for that many rect and box rows; with has_vol its
+// volume build's (with or without rect and box rows).
 extern "C" int rtiw_megatrace_tri_info(int s, int aux_rows, int stream,
-                                       int* info) {
-  return build_info<false>(s, aux_rows, 0, 0, 0, 0, 0, stream ? 2 : 1, info);
+                                       int has_vol, int* info) {
+  return build_info<false>(s, aux_rows, has_vol, 0, 0, 0, 0, stream ? 2 : 1,
+                           info);
 }
 
 namespace {

@@ -34,6 +34,9 @@ constexpr int kTriBlocks = 5;  // the triangle build's (its kTriRows tests
                                // a ray need more registers than 80)
 constexpr int kTriAuxBlocks = 4;  // its aux build's: the rect and box tests
                                   // beside the dealt sweep's registers
+constexpr int kTriVolBlocks = 4;  // its volume builds' and the streamed
+                                  // kernel's (the streamed kernel's other
+                                  // builds take no minimum): the medium
 constexpr int kTriRows = 3;  // rows a thread loads at each step of its
                              // dealt sweep (192 = 2 x 32 x 3): three
                              // independent tests a ray (the plain model's
@@ -705,6 +708,34 @@ __global__ void __launch_bounds__(kThreads, kVol       ? kVolBlocks
   for (int k = 0; k < kOutRows; ++k) out[(size_t)k * n + i] = acc[k];
 }
 
+// The exit distance of a volume build's winner for the walk (the JAX
+// kernel's t_exit, :428-431, :570, :637-660, :794, :1089): a sphere's far
+// root (sphere_exit), a box's slab exit (box_exit), kBig for a rect, for a
+// triangle (no interior: tri_wins) and on a miss.  best_t is the nearest
+// hit of the spheres, rects and boxes (aux_kind 0: a sphere's, when below
+// kBig); computed after the triangle sweep, from the winner alone, it is
+// the value the sphere kernel's volume builds take before their aux sweep.
+template <bool kAux>
+__device__ __forceinline__ float exit_of(const Path& p, const float4* sph,
+                                         const AuxScene* aux, float best_t,
+                                         int best, bool tri_wins,
+                                         int aux_kind, int aux_idx,
+                                         float t_min) {
+  if (tri_wins) return kBig;
+  if constexpr (kAux) {
+    if (aux_kind == 1) return kBig;
+    if (aux_kind == 2) {
+      const float o[3] = {p.ox, p.oy, p.oz}, d[3] = {p.dx, p.dy, p.dz};
+      float g[12], bo[3], dl[3], inv[3];
+      int axis;
+      bool hi;
+      aux_row(*aux, aux->rect_rows + aux_idx, g);
+      return box_exit(o, d, g, t_min, true, bo, dl, inv, axis, hi);
+    }
+  }
+  return best_t < kBig ? sphere_exit(p, sph, best, t_min) : kBig;
+}
+
 // A lane's best triangle hit as one 64-bit key ordered as (t, row): t's
 // bits made monotone (a positive t's sign bit set, a negative t's bits
 // flipped), then the row.  Of any set of hits the least key is the nearer
@@ -825,10 +856,17 @@ __device__ __forceinline__ void tri_sweep_dealt(
 // it) stages the scene's rects and boxes after the spheres (stage_aux) and
 // sweeps them after the spheres and before the triangles (aux_sweep), so
 // that the dealt sweep's culls take the nearest of the three, and shades a
-// rect or box winner; kTriAuxBlocks blocks an SM.
-template <bool kNoise = false, bool kAux = false>
+// rect or box winner; kTriAuxBlocks blocks an SM.  Its volume builds
+// (kVol, with or without kAux) read the camera's medium from
+// consts[32..39], carry each lane's and walk it (shade): the dealt sweep
+// culls by the nearest hit of the spheres, rects and boxes alone, as the
+// JAX kernel's, and the walk's decision comes after it, the winner's exit
+// (exit_of) computed there; kTriVolBlocks blocks an SM.
+template <bool kNoise = false, bool kAux = false, bool kVol = false>
 __global__ void __launch_bounds__(kThreads,
-                                  kAux ? kTriAuxBlocks : kTriBlocks)
+                                  kVol   ? kTriVolBlocks
+                                  : kAux ? kTriAuxBlocks
+                                         : kTriBlocks)
     megatrace_tri_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
     const float* __restrict__ consts, const float4* __restrict__ sph_g,
@@ -841,8 +879,9 @@ __global__ void __launch_bounds__(kThreads,
     int box_rows = 0, int rect_code = 0, int box_code = 0) {
   extern __shared__ float4 sph[];
   // camera row: origin, lower_left, horizontal, vertical, right, up,
-  // lens_radius, width, height | sky bottom | sky top
-  __shared__ float cam[kConsts];
+  // lens_radius, width, height | sky bottom | sky top (| pad | vol0)
+  constexpr int kCamFloats = kVol ? kVolConsts : kConsts;
+  __shared__ float cam[kCamFloats];
   __shared__ float acc_rows[kOutRows][kThreads];
   // each thread's ray and best triangle key, for its warp's sweep
   __shared__ float4 ray_o[kThreads];  // ox oy oz dx
@@ -855,7 +894,7 @@ __global__ void __launch_bounds__(kThreads,
     aux = stage_aux<kThreads>(sph + s, live_rows, aux_geo, aux_rec,
                               rect_rows, box_rows, rect_code, box_code);
   }
-  if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
+  if (threadIdx.x < kCamFloats) cam[threadIdx.x] = consts[threadIdx.x];
   const SharedRow acc{&acc_rows[0][threadIdx.x]};
 #pragma unroll
   for (int k = 0; k < kOutRows; ++k) acc[k] = 0.f;
@@ -886,6 +925,7 @@ __global__ void __launch_bounds__(kThreads,
     nl.lane = i;
     nlp = &nl;
   }
+  [[maybe_unused]] std::conditional_t<kVol, Medium, char> med{};
   float started = 0.f;
   int depth = 0;
 
@@ -912,6 +952,10 @@ __global__ void __launch_bounds__(kThreads,
         } else {
           camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
         }
+        if constexpr (kVol) {  // the camera's medium
+#pragma unroll
+          for (int k = 0; k < 8; ++k) med.v[k] = cam[32 + k];
+        }
         depth = 0;
         started = started + 1.0f;
       }
@@ -925,7 +969,18 @@ __global__ void __launch_bounds__(kThreads,
     if (live) {
       const bool tri_wins = tri_t < best_t;
       int winner;
-      if constexpr (kAux)
+      if constexpr (kVol) {
+        [[maybe_unused]] const AuxScene* auxp = nullptr;
+        if constexpr (kAux) auxp = &aux;
+        winner = shade<true, kAux, true, false, false, false, kNoise>(
+            p, tri_wins ? tri_t : best_t, best, tri_wins, tri_idx, tri_u,
+            tri_v, rec, has_dielectrics != 0, sky_on != 0, cam + 24,
+            lane_key + salt + kSaltBounce, depth, tri, auxp, aux_kind,
+            aux_idx, &med,
+            exit_of<kAux>(p, sph, auxp, best_t, best, tri_wins, aux_kind,
+                          aux_idx, t_min),
+            nullptr, 0.f, nullptr, nullptr, nlp);
+      } else if constexpr (kAux)
         winner = shade<true, true, false, false, false, false, kNoise>(
             p, tri_wins ? tri_t : best_t, best, tri_wins, tri_idx, tri_u,
             tri_v, rec, has_dielectrics != 0, sky_on != 0, cam + 24,
@@ -957,9 +1012,15 @@ __global__ void __launch_bounds__(kThreads,
 // aux build (kAux; the others compile none of it) stages the scene's rects
 // and boxes after the spheres (stage_aux) and sweeps them after the
 // spheres and before the group traversal (aux_sweep), whose culls then
-// take the nearest of the three, and shades a rect or box winner.
-template <bool kNoise = false, bool kAux = false>
-__global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
+// take the nearest of the three, and shades a rect or box winner.  Its
+// volume builds (kVol, with or without kAux) read the camera's medium
+// from consts[32..39], carry each lane's (per-lane state: the group's
+// traversal is unchanged) and walk it, the winner's exit (exit_of) taken
+// after the traversal; kTriVolBlocks blocks an SM (its noise build
+// beside rects and boxes took 152 registers and 3 blocks without it).
+template <bool kNoise = false, bool kAux = false, bool kVol = false>
+__global__ void __launch_bounds__(kGroup, kVol ? kTriVolBlocks : 0)
+    megatrace_stream_kernel(
     const float* __restrict__ lane_count, const float* __restrict__ count_in,
     const float* __restrict__ pixel_index, const float* __restrict__ consts,
     const float4* __restrict__ sph_g, const float* __restrict__ rec,
@@ -972,7 +1033,8 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
     int box_rows = 0, int rect_code = 0, int box_code = 0) {
   extern __shared__ float4 sph[];
   __shared__ __align__(128) GroupShared g;
-  __shared__ float cam[kConsts];
+  constexpr int kCamFloats = kVol ? kVolConsts : kConsts;
+  __shared__ float cam[kCamFloats];
   for (int k = threadIdx.x; k < s; k += kGroup) sph[k] = sph_g[k];
   [[maybe_unused]] std::conditional_t<kAux, AuxScene, char> aux{};
   if constexpr (kAux) {
@@ -980,7 +1042,7 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
     aux = stage_aux<kGroup>(sph + s, live_rows, aux_geo, aux_rec, rect_rows,
                             box_rows, rect_code, box_code);
   }
-  if (threadIdx.x < kConsts) cam[threadIdx.x] = consts[threadIdx.x];
+  if (threadIdx.x < kCamFloats) cam[threadIdx.x] = consts[threadIdx.x];
   group_init(g);
   __syncthreads();
 
@@ -1006,6 +1068,7 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
     nl.lane = i;
     nlp = &nl;
   }
+  [[maybe_unused]] std::conditional_t<kVol, Medium, char> med{};
   float started = 0.f;
   int depth = 0;
   float acc[kOutRows];
@@ -1030,6 +1093,10 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
       } else {
         camera_ray(p, cam, lane_key + salt, px_row, py_row, jitter);
       }
+      if constexpr (kVol) {  // the camera's medium
+#pragma unroll
+        for (int k = 0; k < 8; ++k) med.v[k] = cam[32 + k];
+      }
       depth = 0;
       started = started + 1.0f;
     }
@@ -1046,7 +1113,18 @@ __global__ void __launch_bounds__(kGroup) megatrace_stream_kernel(
     group_hit(g, cursor, p, live, live, tri, t_min, best_t, tri_wins,
               tri_idx, tri_u, tri_v);
     if (live) {
-      if constexpr (kAux)
+      if constexpr (kVol) {
+        [[maybe_unused]] const AuxScene* auxp = nullptr;
+        if constexpr (kAux) auxp = &aux;
+        shade<true, kAux, true, false, false, false, kNoise>(
+            p, best_t, best, tri_wins, tri_idx, tri_u, tri_v, rec,
+            has_dielectrics != 0, sky_on != 0, cam + 24,
+            lane_key + salt + kSaltBounce, depth, tri, auxp, aux_kind,
+            aux_idx, &med,
+            exit_of<kAux>(p, sph, auxp, best_t, best, tri_wins, aux_kind,
+                          aux_idx, t_min),
+            nullptr, 0.f, nullptr, nullptr, nlp);
+      } else if constexpr (kAux)
         shade<true, true, false, false, false, false, kNoise>(
             p, best_t, best, tri_wins, tri_idx, tri_u, tri_v, rec,
             has_dielectrics != 0, sky_on != 0, cam + 24,
@@ -1104,7 +1182,7 @@ static size_t tri_shmem(int s, int aux_rows) {
   return ((size_t)s + 3 * (size_t)aux_rows) * sizeof(float4);
 }
 
-template <bool kNoise, bool kAux>
+template <bool kNoise, bool kAux, bool kVol = false>
 static int stream_launch(
     const float* lane_count, const float* count_in, const float* pixel_index,
     const float* consts, const float* sph, const float* rec,
@@ -1115,10 +1193,10 @@ static int stream_launch(
   const size_t shmem = tri_shmem(s, a.rect_rows + a.box_rows);
   // the tables beside ~34 KB of static shared memory
   const cudaError_t err = cudaFuncSetAttribute(
-      megatrace_stream_kernel<kNoise, kAux>,
+      megatrace_stream_kernel<kNoise, kAux, kVol>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  megatrace_stream_kernel<kNoise, kAux>
+  megatrace_stream_kernel<kNoise, kAux, kVol>
       <<<(n + kGroup - 1) / kGroup, kGroup, shmem, st>>>(
           lane_count, count_in, pixel_index, consts,
           reinterpret_cast<const float4*>(sph), rec, tri, out, n, s, seed,
@@ -1128,12 +1206,43 @@ static int stream_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The triangle build's launches with rect and box rows in `aux` beside the
+// spheres in dynamic shared memory: its aux build, and with kVol its
+// volume builds, with those rows or without (batch_launch's `vol`).
+template <bool kNoise, bool kVol>
+static int tri_aux_launch(const float* lane_count, const float* count_in,
+                          const float* consts, const float* sph,
+                          const float* rec, const TriScene& tri, float* out,
+                          float* tape, int n, int s, int seed,
+                          int lane_base, int samples, int trace_depth,
+                          float t_min, int has_dielectrics, int sky_on,
+                          int jitter, const NoiseScene& ns,
+                          const AuxRows& aux, cudaStream_t st) {
+  const bool has_aux = aux.rect_rows + aux.box_rows > 0;
+  const auto kernel = has_aux ? megatrace_tri_kernel<kNoise, true, kVol>
+                              : megatrace_tri_kernel<kNoise, false, kVol>;
+  // the spheres, then the rect and box rows (up to AUX_MAX: 48 KB)
+  const size_t shmem = tri_shmem(s, aux.rect_rows + aux.box_rows);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(n + kThreads - 1) / kThreads, kThreads, shmem, st>>>(
+      lane_count, count_in, consts, reinterpret_cast<const float4*>(sph),
+      rec, tri, out, tape, n, s, seed, lane_base, samples, trace_depth,
+      t_min, has_dielectrics, sky_on, jitter, ns,
+      reinterpret_cast<const float4*>(aux.geo), aux.rec, aux.rect_rows,
+      aux.box_rows, aux.rect_code, aux.box_code);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // rtiw_megatrace_batch's launches, white (kNoise false) or a flavor's
 // (the triangle build and the streamed kernel; the streamed one takes
 // the pre-drawn rows only, and the sphere-only build's noise twin is
 // rtiw_megatrace_ext_noise's), and with rect and box rows in `aux` the
 // aux builds of the triangle build and the streamed kernel
-// (rtiw_megatrace_tri_aux's; never the sphere-only build).
+// (rtiw_megatrace_tri_aux's; never the sphere-only build); with `vol` the
+// volume builds of those two, with rect and box rows or without
+// (rtiw_megatrace_tri_vol's: `consts` holds kVolConsts floats).
 template <bool kNoise>
 static int batch_launch(
     const float* lane_count, const float* count_in, const float* pixel_index,
@@ -1143,11 +1252,12 @@ static int batch_launch(
     int tri_rows, int tri_blocks, int tri_supers, int tri_code_base,
     int seed, int lane_base, int samples, int trace_depth, float t_min,
     int has_dielectrics, int sky_on, int jitter, const NoiseScene& ns,
-    void* stream, const AuxRows& aux = AuxRows{}) {
+    void* stream, const AuxRows& aux = AuxRows{}, bool vol = false) {
   const bool has_aux = aux.rect_rows + aux.box_rows > 0;
-  if (has_aux && (tri_rows <= 0 || aux.geo == nullptr ||
-                  aux.rec == nullptr ||
-                  reinterpret_cast<uintptr_t>(aux.geo) % 16 != 0))
+  if ((has_aux || vol) &&
+      (tri_rows <= 0 ||
+       (has_aux && (aux.geo == nullptr || aux.rec == nullptr ||
+                    reinterpret_cast<uintptr_t>(aux.geo) % 16 != 0))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const size_t shmem = (size_t)s * sizeof(float4);
@@ -1166,6 +1276,17 @@ static int batch_launch(
           reinterpret_cast<uintptr_t>(tri_geo) % 16 != 0 ||
           (kNoise && ns.tbl != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
+      if (vol)
+        return has_aux ? stream_launch<kNoise, true, true>(
+                             lane_count, count_in, pixel_index, consts, sph,
+                             rec, tri, out, n, s, seed, lane_base, samples,
+                             trace_depth, t_min, has_dielectrics, sky_on,
+                             jitter, ns, aux, st)
+                       : stream_launch<kNoise, false, true>(
+                             lane_count, count_in, pixel_index, consts, sph,
+                             rec, tri, out, n, s, seed, lane_base, samples,
+                             trace_depth, t_min, has_dielectrics, sky_on,
+                             jitter, ns, aux, st);
       return has_aux
                  ? stream_launch<kNoise, true>(
                        lane_count, count_in, pixel_index, consts, sph, rec,
@@ -1175,21 +1296,12 @@ static int batch_launch(
                        lane_count, count_in, pixel_index, consts, sph, rec,
                        tri, out, n, s, seed, lane_base, samples, trace_depth,
                        t_min, has_dielectrics, sky_on, jitter, ns, aux, st);
-    } else if (tri_rows > 0 && has_aux) {
-      // the spheres, then the rect and box rows (up to AUX_MAX: 48 KB)
-      const size_t aux_shmem = tri_shmem(s, aux.rect_rows + aux.box_rows);
-      const cudaError_t err = cudaFuncSetAttribute(
-          megatrace_tri_kernel<kNoise, true>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)aux_shmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      megatrace_tri_kernel<kNoise, true>
-          <<<(n + kThreads - 1) / kThreads, kThreads, aux_shmem, st>>>(
-              lane_count, count_in, consts,
-              reinterpret_cast<const float4*>(sph), rec, tri, out, tape, n,
-              s, seed, lane_base, samples, trace_depth, t_min,
-              has_dielectrics, sky_on, jitter, ns,
-              reinterpret_cast<const float4*>(aux.geo), aux.rec,
-              aux.rect_rows, aux.box_rows, aux.rect_code, aux.box_code);
+    } else if (vol || (tri_rows > 0 && has_aux)) {
+      return (vol ? tri_aux_launch<kNoise, true>
+                  : tri_aux_launch<kNoise, false>)(
+          lane_count, count_in, consts, sph, rec, tri, out, tape, n, s, seed,
+          lane_base, samples, trace_depth, t_min, has_dielectrics, sky_on,
+          jitter, ns, aux, st);
     } else if (tri_rows > 0) {
       megatrace_tri_kernel<kNoise>
           <<<(n + kThreads - 1) / kThreads, kThreads, shmem, st>>>(
@@ -1365,15 +1477,16 @@ static int blocked_launch(
 }
 
 // sphere_info of the triangle build (kStream false) or the streamed
-// kernel, each with kAux its aux build, for tables of `bytes` bytes.
-template <bool kNoise, bool kAux, bool kStream>
+// kernel, each with kAux its aux build and with kVol its volume build, for
+// tables of `bytes` bytes.
+template <bool kNoise, bool kAux, bool kStream, bool kVol = false>
 static int tri_info(size_t bytes, int* info) {
   const void* kernel =
       kStream ? reinterpret_cast<const void*>(
-                    megatrace_stream_kernel<kNoise, kAux>)
+                    megatrace_stream_kernel<kNoise, kAux, kVol>)
               : reinterpret_cast<const void*>(
-                    megatrace_tri_kernel<kNoise, kAux>);
-  if (kStream || kAux) {
+                    megatrace_tri_kernel<kNoise, kAux, kVol>);
+  if (kStream || kAux || kVol) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1385,12 +1498,20 @@ static int tri_info(size_t bytes, int* info) {
 // and the flags (all 0: the sphere build; has_cube: a cube build);
 // blocks > 0 takes the blocked build (static or with has_motion) for a
 // table of that many blocks; tri 1 takes the triangle build and tri 2 the
-// streamed kernel, each with aux_rows > 0 its aux build; with `noise` the
-// build's noise build.
+// streamed kernel, each with aux_rows > 0 its aux build and with has_vol
+// its volume build; with `noise` the build's noise build.
 template <bool kNoise>
 static int build_info(int s, int aux_rows, int has_vol, int has_motion,
                       int has_tex, int blocks, int has_cube, int tri,
                       int* info) {
+  if ((tri == 1 || tri == 2) && has_vol) {
+    const size_t bytes = tri_shmem(s, aux_rows);
+    if (tri == 1)
+      return aux_rows > 0 ? tri_info<kNoise, true, false, true>(bytes, info)
+                          : tri_info<kNoise, false, false, true>(bytes, info);
+    return aux_rows > 0 ? tri_info<kNoise, true, true, true>(bytes, info)
+                        : tri_info<kNoise, false, true, true>(bytes, info);
+  }
   if (tri == 1 || tri == 2) {
     const size_t bytes = tri_shmem(s, aux_rows);
     if (tri == 1)

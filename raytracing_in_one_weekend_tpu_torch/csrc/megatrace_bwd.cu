@@ -1,7 +1,8 @@
 // Backward of the fused batch kernel for Hopper (sm_90a): the reverse
 // sweep of the tape replay, sphere scenes, scenes with rects and boxes,
 // convex volumes beside either, and mesh scenes of at most TRI_MAX
-// triangles (beside spheres, rects and boxes, or alone), gradient or no
+// triangles (beside spheres, rects and boxes, convex volumes, or alone),
+// gradient or no
 // sky; sphere scenes under a cubemap sky.
 //
 // Replaces: ops/megatrace_bwd.py::_bwd_kernel of the JAX package, its
@@ -75,6 +76,13 @@
 // scalar cotangents by its 8 (kScalVol, summed per warp with the camera's
 // and the sky's).  The tape and its scan are the same: a volume scatter or
 // a pass through a volume keeps its winner's code and takes one iteration.
+//
+// Convex volumes beside triangles take the builds with kTris and kVol
+// (kinds 10 and 11, MESH_VOL and MESH_AUX_VOL: without and with rects and
+// boxes): the mesh builds' 38-column entity table and device rows, the
+// volume builds' 29-float state, kVolPathVars history and kScalVol scalar
+// cotangents.  A triangle winner has no exit root (no interior): its walk
+// reads its t as the in-medium segment alone.
 //
 // Scenes with moving spheres take the kMotion build (spheres only): a
 // path's state grows by its shutter time, and a sphere's cotangent row by
@@ -519,7 +527,8 @@ extern "C" int rtiw_bwd_scan(const float* tape, const float* lane_count,
 // 3 floats each) take the faces and their texel plane.  Kind 9 is kind 1
 // with rects or boxes beside the triangles: the whole (s_pad + R_pad +
 // B_pad + T_pad, 38) table and a zeroed `dent_rows` (R_pad + B_pad +
-// T_pad, 28), row_base the padded sphere count.
+// T_pad, 28), row_base the padded sphere count.  Kinds 10 and 11 are
+// kinds 1 and 9 with convex volumes: `consts` and dscal kScalVol floats.
 extern "C" int rtiw_bwd_paths(
     const float* tape, const int* paths, int total, int* next_warp,
     const float* lane_count, const float* consts, const float* ent,
@@ -531,7 +540,7 @@ extern "C" int rtiw_bwd_paths(
   if (total <= 0) return 0;
   if (trace_depth < 1 || trace_depth > kMaxDepth)
     return (int)cudaErrorInvalidValue;
-  const bool vol = kind == 3 || kind == 4;
+  const bool vol = kind == 3 || kind == 4 || kind == 10 || kind == 11;
   const int row = kind == 5   ? kMotionGradCols
                   : kind == 6 ? kTexGradCols
                   : kind == 7 ? 0
@@ -539,8 +548,8 @@ extern "C" int rtiw_bwd_paths(
   const size_t shmem =
       ((size_t)s * row + kThreads * (vol ? kGsStrideVol : kGsStride)) *
       sizeof(float);
-  if (kind < 0 || kind > 9 ||
-      (kind == 1 || kind == 2 || kind == 4 || kind == 9) !=
+  if (kind < 0 || kind > 11 ||
+      (kind == 1 || kind == 2 || kind == 4 || kind >= 9) !=
           (dent_rows != nullptr) ||
       (atlas != nullptr) != (datlas != nullptr) ||
       (kind == 8) != (cube != nullptr) || (cube != nullptr) != (dcube != nullptr))
@@ -548,9 +557,12 @@ extern "C" int rtiw_bwd_paths(
   // the build: 0 sphere scenes, 1 mesh scenes, 2 rects or boxes, 3 and 4
   // those of 0 and 2 with convex volumes, 5 moving spheres, 6 textured
   // albedos, 7 more than SPH_CULL_MIN spheres, 8 a cubemap sky, 9 rects
-  // or boxes beside triangles
+  // or boxes beside triangles, 10 and 11 those of 1 and 9 with convex
+  // volumes
   auto kernel =
-      kind == 9   ? megatrace_paths_kernel<true, true>
+      kind == 11  ? megatrace_paths_kernel<true, true, true>
+      : kind == 10 ? megatrace_paths_kernel<true, false, true>
+      : kind == 9 ? megatrace_paths_kernel<true, true>
       : kind == 1 ? megatrace_paths_kernel<true, false>
       : kind == 2 ? megatrace_paths_kernel<false, true>
       : kind == 3 ? megatrace_paths_kernel<false, false, true>
@@ -594,12 +606,14 @@ extern "C" int rtiw_replay_step_vjp(
     int img_h, const float* cube, int cube_w, int cube_h, void* stream) {
   // no step build of kind 7 (the big scenes' rows differ only in where
   // they are summed)
-  if (kind < 0 || kind > 9 || kind == 7 || (kind == 8) != (cube != nullptr))
+  if (kind < 0 || kind > 11 || kind == 7 || (kind == 8) != (cube != nullptr))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     auto kernel =
-        kind == 9   ? replay_step_vjp_kernel<true, true>
+        kind == 11  ? replay_step_vjp_kernel<true, true, true>
+        : kind == 10 ? replay_step_vjp_kernel<true, false, true>
+        : kind == 9 ? replay_step_vjp_kernel<true, true>
         : kind == 1 ? replay_step_vjp_kernel<true, false>
         : kind == 2 ? replay_step_vjp_kernel<false, true>
         : kind == 3 ? replay_step_vjp_kernel<false, false, true>

@@ -3,8 +3,9 @@
 // blue noise), each build of megatrace_batch.cu with the kNoise flag
 // (the sphere kernel's sphere, aux, volume, motion, texture, cube and
 // blocked builds in any mix they take, the triangle build, the streamed
-// kernel, and the aux builds of those two).  Their kernels are megatrace_batch.cuh's, instantiated here
-// only, so this source compiles beside megatrace_batch.cu.  Replaces:
+// kernel, and the aux and volume builds of those two).  Their kernels are
+// megatrace_batch.cuh's, instantiated here only, so this source compiles
+// beside megatrace_batch.cu.  Replaces:
 // ops/pallas_megatrace.py::_batch_kernel of the JAX package, its
 // noise-table arm (pack_noise_tables :2126, _stbn_rows :2366, _cp_rotate
 // :2444, their uses :2625-2822) and pre-drawn rows, in each of its arms.
@@ -67,6 +68,32 @@ extern "C" int rtiw_megatrace_tri_aux_noise(
       has_dielectrics, sky_on, jitter,
       n > 0 ? noise_of(noise, samples, n) : NoiseScene{}, stream,
       AuxRows{aux_geo, aux_rec, rect_rows, box_rows, rect_code, box_code});
+}
+
+// rtiw_megatrace_tri_vol's noise builds (the volume builds of the
+// triangle build, tables or pre-drawn rows, and of the streamed kernel,
+// pre-drawn rows only; rect and box rows or none): its arguments but the
+// tape, then `noise` (see noise_usable).  No tape.
+extern "C" int rtiw_megatrace_tri_vol_noise(
+    const float* lane_count, const float* count_in, const float* pixel_index,
+    const float* consts, const float* sph, const float* rec,
+    const float* tri_geo, const float* tri_aabb, const float* tri_sup,
+    const float* tri_rec, float* out, int n, int s, int tri_rows,
+    int tri_blocks, int tri_supers, int tri_code_base, int seed,
+    int lane_base, int samples, int trace_depth, float t_min,
+    int has_dielectrics, int sky_on, int jitter, const float* aux_geo,
+    const float* aux_rec, int rect_rows, int box_rows, int rect_code,
+    int box_code, const NoiseScene* noise, void* stream) {
+  if ((n > 0 && !noise_usable(noise)) || rect_rows < 0 || box_rows < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return batch_launch<true>(
+      lane_count, count_in, pixel_index, consts, sph, rec, tri_geo, tri_aabb,
+      tri_sup, tri_rec, out, nullptr, n, s, tri_rows, tri_blocks, tri_supers,
+      tri_code_base, seed, lane_base, samples, trace_depth, t_min,
+      has_dielectrics, sky_on, jitter,
+      n > 0 ? noise_of(noise, samples, n) : NoiseScene{}, stream,
+      AuxRows{aux_geo, aux_rec, rect_rows, box_rows, rect_code, box_code},
+      true);
 }
 
 // The noise builds of the sphere kernel but the blocked ones (a sampler

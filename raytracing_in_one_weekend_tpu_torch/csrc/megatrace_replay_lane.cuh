@@ -37,7 +37,8 @@
 // each passing no derivative to dl, as the plain replay's torch.where.
 //
 // Scenes with convex volumes take the kVol instantiations, beside spheres
-// or (with kAux) rects and boxes.  The state grows by the medium, 8 floats
+// or (with kAux) rects and boxes, and (with kTris) beside triangles too: a
+// triangle winner has no exit root, as a rect has none.  The state grows by the medium, 8 floats
 // after kLp (kVolStateVars), reset at regen from the camera's row vol0
 // (consts after the sky, kScalVol constants).  Each iteration recomputes
 // the walk's decisions bit for bit from the uniforms and the winner (the
@@ -452,15 +453,18 @@ RTIW_FN void aux_hit(IterAux& A, const float* e, float t_min) {
 // free path and the decisions, the score terms (added to I.lp) and, on an
 // in-medium scatter, its point, normal, emission and isotropic direction.
 // Returns whether the walk took the iteration (a scatter in the medium or
-// a skip), so that the material scatter does not run.
-template <bool kAux, class V>
+// a skip), so that the material scatter does not run.  A triangle winner
+// (kTris) has no exit: a triangle has no interior.
+template <bool kTris, bool kAux, class V>
 RTIW_FN bool volume_walk(V& I, const LaneEnv& E, const float* e, float mtype,
                          float u_free) {
   const float* d = I.d;
   int kind = 0;
   if constexpr (kAux) kind = I.kind;
   I.t_exit = kBig;
-  if (kind == 0) {  // a sphere's far root
+  if (kTris && I.tri) {
+    // no exit root (the JAX kernel's :794)
+  } else if (kind == 0) {  // a sphere's far root
     const float t_far = (-I.b + I.sq) * I.inv_a;
     if (t_far > E.t_min) I.t_exit = t_far;
   } else if (kind == 2) {
@@ -635,8 +639,8 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
     const float* n = I.n;
     bool walked = false;  // the volume walk took the iteration (kVol)
     if constexpr (kVol)
-      walked = volume_walk<kAux>(static_cast<IterOf<kAux, true>&>(I), E, e,
-                                 mtype, uniform(bbase, 6));
+      walked = volume_walk<kTris, kAux>(static_cast<IterOf<kAux, true>&>(I),
+                                        E, e, mtype, uniform(bbase, 6));
     if (!walked) {
       I.is_diel = E.has_diel && mtype > 0.5f;
       if (!I.is_diel) {
@@ -737,12 +741,13 @@ RTIW_FN void iter_forward(const float* s, float code, int it,
   I.ok = !active && (!I.hit || I.valid > 0.5f);
 }
 
-// One replay iteration of a volume build, in place (kVolStateVars).
-template <bool kAux>
+// One replay iteration of a volume build, in place (kVolStateVars); with
+// kTris beside triangles.
+template <bool kTris, bool kAux>
 RTIW_FN void step_forward_vol(float* s, float code, int it,
                               const LaneEnv& E) {
   IterOf<kAux, true> I;
-  iter_forward<false, kAux, true>(s, code, it, E, I);
+  iter_forward<kTris, kAux, true>(s, code, it, E, I);
   if (!I.was_active) return;
   const bool scat = I.hit && !I.skip;
   const float* pt = I.vol_scatter ? I.pe : I.p;
@@ -773,7 +778,7 @@ template <bool kTris = false, bool kAux = false, bool kVol = false,
           bool kMotion = false, bool kTex = false, bool kCube = false>
 RTIW_FN void step_forward(float* s, float code, int it, const LaneEnv& E) {
   if constexpr (kVol) {
-    step_forward_vol<kAux>(s, code, it, E);
+    step_forward_vol<kTris, kAux>(s, code, it, E);
     return;
   }
   IterOf<kAux, false, kMotion, kTex, kCube> I;
@@ -1339,12 +1344,16 @@ RTIW_FN void dielectric_vjp(const Iter& I, const float* gsd,
 }
 
 // Adjoint of step_forward_vol (kVolStateVars; gs kScalVol), as step_vjp.
-template <bool kAux>
+// A triangle winner (kTris) has no exit root, and is never the volume
+// entered or left (volume-material triangles take the wavefront): its
+// walk reads its t only as the in-medium segment's length, whose score
+// term is detached, so its geometry takes the surface's cotangents alone.
+template <bool kTris, bool kAux>
 RTIW_FN int step_vjp_vol(const float* s, float* g, float code, int it,
                          const LaneEnv& E, float* ge, float* gs) {
   IterOf<kAux, true> I;
-  iter_forward<false, kAux, true>(s, code, it, E, I);
-  for (int k = 0; k < Layout<false, kAux>::grad; ++k) ge[k] = 0.0f;
+  iter_forward<kTris, kAux, true>(s, code, it, E, I);
+  for (int k = 0; k < Layout<kTris, kAux>::grad; ++k) ge[k] = 0.0f;
   g[kActive] = g[kValid] = g[kStarted] = g[kDepth] = g[kInId] = 0.0f;
   if (!I.was_active) return -1;
 
@@ -1381,7 +1390,7 @@ RTIW_FN int step_vjp_vol(const float* s, float* g, float code, int it,
   if (!I.hit) {
     sky_vjp(I, E, grad, gd, gs);
   } else {
-    const float* e = E.ent + (size_t)I.w * Layout<false, kAux>::ent;
+    const float* e = E.ent + (size_t)I.w * Layout<kTris, kAux>::ent;
     float gt_surf = 0.0f, gt_exit = 0.0f;
     bool surface = false;  // the surface's point and normal reach the out
     if (I.skip) {
@@ -1422,7 +1431,9 @@ RTIW_FN int step_vjp_vol(const float* s, float* g, float code, int it,
     // ---- the winner's geometry: point, normal, distance, exit -----------
     int kind = 0;
     if constexpr (kAux) kind = I.kind;
-    if (kind != 0) {
+    if (kTris && I.tri) {
+      if (surface) tri_hit_vjp(I, gp, gn, go, gd, ge);
+    } else if (kind != 0) {
       if constexpr (kAux) {
         if (surface) aux_hit_vjp(I, e, E.t_min, gp, gn, go, gd, ge);
         if (gt_surf != 0.0f) aux_t_vjp(I, e, E.t_min, gt_surf, go, gd, ge);
@@ -1469,7 +1480,8 @@ template <bool kTris = false, bool kAux = false, bool kVol = false,
           bool kMotion = false, bool kTex = false, bool kCube = false>
 RTIW_FN int step_vjp(const float* s, float* g, float code, int it,
                      const LaneEnv& E, float* ge, float* gs) {
-  if constexpr (kVol) return step_vjp_vol<kAux>(s, g, code, it, E, ge, gs);
+  if constexpr (kVol)
+    return step_vjp_vol<kTris, kAux>(s, g, code, it, E, ge, gs);
   IterOf<kAux, false, kMotion, kTex, kCube> I;
   iter_forward<kTris, kAux, false, kMotion, kTex, kCube>(s, code, it, E, I);
   for (int k = 0; k < Layout<kTris, kAux, kMotion, kTex>::grad; ++k)

@@ -190,6 +190,14 @@ def mesh_large():
     sphere, a torus and a cube over a ground sphere."""
     b = SceneBuilder()
     b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambert((0.5, 0.5, 0.5)))
+    cam = add_mesh_large_meshes(b)
+    return b.build(), cam
+
+
+def add_mesh_large_meshes(b) -> CameraSettings:
+    """mesh_large's meshes (icosphere(5), a torus(16, 8) at (-2.4, 0.4,
+    0.6) scaled 0.9 and a cube: 20,748 triangles) and its gradient sky into
+    the SceneBuilder `b`.  Returns its camera."""
     v, f, n, _ = icosphere(5)  # 20480 faces
     b.add_mesh(v, f, b.metal((0.8, 0.7, 0.5), glossiness=0.9),
                normals=n, translation=(0.0, 1.0, 0.0))
@@ -200,7 +208,7 @@ def mesh_large():
     b.add_mesh(v, f, b.lambert((0.8, 0.3, 0.2)),
                translation=(2.4, 0.5, 0.4), scale=1.1, face_normals=True)
     b.set_gradient_sky()
-    return b.build(), _mesh_camera(0.8)
+    return _mesh_camera(0.8)
 
 
 def add_mesh_huge_meshes(b) -> CameraSettings:
@@ -234,6 +242,14 @@ def mesh_showcase():
     torus (576) and a cube (12) over a ground sphere: 908 triangles."""
     b = SceneBuilder()
     b.add_sphere((0.0, -1000.0, 0.0), 1000.0, b.lambert((0.5, 0.5, 0.5)))
+    cam = add_mesh_showcase_meshes(b)
+    return b.build(), cam
+
+
+def add_mesh_showcase_meshes(b) -> CameraSettings:
+    """mesh_showcase's meshes (icosphere(2), a torus at (0, 0.5, 0) and a
+    cube: 908 triangles) and its gradient sky into the SceneBuilder `b`.
+    Returns its camera."""
     v, f, n, _ = icosphere(2)
     b.add_mesh(v, f, b.metal((0.8, 0.7, 0.5), glossiness=0.9),
                normals=n, translation=(-2.2, 1.0, 0.0))
@@ -244,4 +260,4 @@ def mesh_showcase():
     b.add_mesh(v, f, b.lambert((0.8, 0.3, 0.2)),
                translation=(2.2, 0.5, 0.0), scale=1.2, face_normals=True)
     b.set_gradient_sky()
-    return b.build(), _mesh_camera(0.7)
+    return _mesh_camera(0.7)

@@ -240,6 +240,15 @@ def cornell_with_volumes() -> tuple[Scene, CameraSettings]:
     Cornell box (volumes are convex hulls, Entity.cs:24), with the port's
     cornell camera."""
     b = SceneBuilder()
+    cam = add_cornell_volumes(b)
+    return b.build(), cam
+
+
+def add_cornell_volumes(b, quat=axis_angle_quat) -> CameraSettings:
+    """cornell_with_volumes' room into the SceneBuilder `b`: 6 rects (one
+    an emitter), a smoke box (the tall one) and a fog box (the short one
+    at (0.4, -0.75, 0.25), 0.5 a side), both of density 8, no sky (`quat`:
+    the scene module's axis_angle_quat).  Returns the cornell camera."""
     red = b.lambert((0.65, 0.05, 0.05))
     green = b.lambert((0.12, 0.45, 0.15))
     white = b.lambert((0.73, 0.73, 0.73))
@@ -250,22 +259,21 @@ def cornell_with_volumes() -> tuple[Scene, CameraSettings]:
     s = 1.0
     b.add_rect((0, 0, -s), (2 * s, 2 * s), white)
     b.add_rect((-s, 0, 0), (2 * s, 2 * s), red,
-               rotation=axis_angle_quat((0, 1, 0), 90.0))
+               rotation=quat((0, 1, 0), 90.0))
     b.add_rect((s, 0, 0), (2 * s, 2 * s), green,
-               rotation=axis_angle_quat((0, 1, 0), -90.0))
+               rotation=quat((0, 1, 0), -90.0))
     b.add_rect((0, -s, 0), (2 * s, 2 * s), white,
-               rotation=axis_angle_quat((1, 0, 0), -90.0))
+               rotation=quat((1, 0, 0), -90.0))
     b.add_rect((0, s, 0), (2 * s, 2 * s), white,
-               rotation=axis_angle_quat((1, 0, 0), 90.0))
+               rotation=quat((1, 0, 0), 90.0))
     b.add_rect((0, s - 1e-3, 0), (s, s), light,
-               rotation=axis_angle_quat((1, 0, 0), 90.0))
+               rotation=quat((1, 0, 0), 90.0))
     b.add_box((-0.35, -0.55, -0.3), (0.55, 0.9, 0.55), smoke,
-              rotation=axis_angle_quat((0, 1, 0), 18.0))
+              rotation=quat((0, 1, 0), 18.0))
     b.add_box((0.4, -0.75, 0.25), (0.5, 0.5, 0.5), fog,
-              rotation=axis_angle_quat((0, 1, 0), -15.0))
+              rotation=quat((0, 1, 0), -15.0))
     b.set_no_sky()
-    _, cam = book_scenes.cornell_box()
-    return b.build(), cam
+    return book_scenes.cornell_box()[1]
 
 
 def perlin_spheres() -> tuple[Scene, CameraSettings]:

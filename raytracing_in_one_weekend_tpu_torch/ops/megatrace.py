@@ -149,6 +149,11 @@ TRI_AUX_LAUNCHES = 0  # ... of them, launches of its aux build (rects and
 #   boxes beside the triangles)
 STREAM_AUX_LAUNCHES = 0  # ... of them, launches of the streamed kernel's aux
 #   build (rects and boxes beside a streamed mesh)
+TRI_VOL_LAUNCHES = 0  # ... of them, launches of the triangle build's volume
+#   builds (convex volumes beside the triangles, with rects and boxes or
+#   without)
+STREAM_VOL_LAUNCHES = 0  # ... of them, launches of the streamed kernel's
+#   volume builds (convex volumes beside a streamed mesh)
 WAVE_LAUNCHES = 0  # CUDA kernel launches made by megatrace
 WAVE_BIG_LAUNCHES = 0  # ... of them, launches of its build for more than
 #   SPH_CULL_MIN spheres (the spheres read through the read-only cache)
@@ -184,6 +189,8 @@ AUX_MAX = 1024  # rects plus boxes the kernels stage in shared memory
 AUX_KERNEL_REC = 16  # record columns the kernel reads: 0-10 material |
 #   11 material id | 12-14 a rect's world normal
 VOLUMES_IN_MESHES = ("volumes in mesh scenes (ROADMAP queue 1, step 7.2b)")
+NONCONVEX_VOLUMES = ("volume-material triangles and rects (non-convex: "
+                     "the wavefront takes them, as the JAX package's)")
 MOTION_IN_MESHES = ("motion blur in mesh scenes (ROADMAP queue 1, "
                     "step 7.3b)")
 TEXTURES_IN_MESHES = ("checker, Perlin and image textures in mesh scenes "
@@ -220,9 +227,6 @@ def unported_feature(scene) -> str | None:
     ROADMAP item, or None (the scope of the wavefront integrator)."""
     tris = scene.triangles.vert0.shape[0] > 0
     checks = (
-        (tris and scene.flags.has_volumes, VOLUMES_IN_MESHES),
-        (scene.flags.has_nonconvex_volumes,
-         "volumes on triangles (non-convex; ROADMAP queue 1, step 7.2b)"),
         (tris and scene.flags.has_motion, MOTION_IN_MESHES),
         (tris and scene.flags.has_procedural_textures, TEXTURES_IN_MESHES),
         (scene.flags.sky == 2 and scene.environment.cubemap is None,
@@ -258,7 +262,9 @@ def unsupported_feature(scene, allow_triangles: bool = False,
     and has no volume walk, as the JAX package's), at most TRI_STREAM_MAX
     triangles and AUX_MAX rects and boxes (the JAX package's
     `scene_eligible` flags); rects and boxes beside triangles and meshes
-    without spheres are in scope (ROADMAP step 7.1b)."""
+    without spheres are in scope (ROADMAP step 7.1b), and so are convex
+    volumes beside them (step 7.2b); volume-material triangles and rects
+    are not (NONCONVEX_VOLUMES: the wavefront takes them)."""
     spheres = scene.spheres.center.shape[0]
     aux = scene.rects.rot.shape[0] + scene.boxes.rot.shape[0]
     tri_count = scene.triangles.vert0.shape[0]
@@ -271,6 +277,8 @@ def unsupported_feature(scene, allow_triangles: bool = False,
                 "megatrace is sphere-only)")
     if scene.flags.has_volumes and not allow_volumes:
         return "volumes (the per-ray megatrace has no volume walk)"
+    if scene.flags.has_nonconvex_volumes:
+        return NONCONVEX_VOLUMES
     if scene.flags.has_motion and not allow_motion:
         return "motion blur (the per-ray megatrace is static)"
     if scene.flags.has_motion and not scene.flags.motion_unit_time:
@@ -1310,6 +1318,15 @@ def _slab_may(lo, hi, o, inv, t_min, bound):
 
 def _slab(lo, hi, o, inv, t_min, bound):
     """`_slab_may` without the count."""
+    b_near, b_far = _slab_span(lo, hi, o, inv)
+    return (b_far >= torch.clamp(b_near, min=t_min)) & (b_near < bound)
+
+
+def _slab_span(lo, hi, o, inv):
+    """(b_near, b_far) of the slab test, broadcast: the AABB lo..hi
+    (3-tuples) against rays o, 1/d = inv (3-tuples); `_tri_stream_sweep`
+    takes a super's TRI_SUP boxes as (TRI_SUP, 1) columns against its
+    lanes' (L,) rows at once."""
     slab = [((lo[k] - o[k]) * inv[k], (hi[k] - o[k]) * inv[k])
             for k in range(3)]
     b_near = torch.maximum(
@@ -1318,7 +1335,7 @@ def _slab(lo, hi, o, inv, t_min, bound):
     b_far = torch.minimum(
         torch.maximum(*slab[0]),
         torch.minimum(torch.maximum(*slab[1]), torch.maximum(*slab[2])))
-    return (b_far >= torch.clamp(b_near, min=t_min)) & (b_near < bound)
+    return b_near, b_far
 
 
 def _tri_block(o, d, inv, lanes, best_t, lo, hi, rows, st, hit, t_min,
@@ -1370,7 +1387,13 @@ def _tri_sweep(o, d, best_t, geo, t_min, tested=None):
     per-lane form of the JAX kernel's per-tile skip.  Returns (t, row, u,
     v); BIG, 0, 0, 0 where no triangle is hit.  With `tested` (a list) it
     appends, block by block, the (L,) mask of the lanes that swept the
-    block's rows (`tri_loop_slots` reads them)."""
+    block's rows (`tri_loop_slots` reads them).  It keeps the block-by-block
+    form that `_tri_stream_sweep` runs in one pass a super: a table of at
+    most TRI_MAX rows has few blocks, and the best hit of the earlier ones
+    culls most pairs of the later ones, so the one-pass form, which tests
+    every pair whose box the ray meets, took twice its time on the CPU (a
+    plain mesh_showcase batch, 64x64, 2 spp).  Both give the index order's
+    winners, floats and counts (pinned in tests/test_torch_mesh_volume)."""
     inv = [_inv_d(c) for c in d]
     hit = _no_tri_hit(o[0])
     lanes = torch.arange(o[0].shape[0], device=o[0].device)
@@ -1415,21 +1438,75 @@ def _tri_stream_sweep(o, d, best_t, stream: TriStream, t_min):
     lane tests a super-block's AABB before its TRI_SUP blocks, each block
     as `_tri_sweep` does (the per-lane form of the JAX kernel's two-level
     per-tile cull; JAX and the kernel take the same nearest hit, the
-    earlier row on a tie)."""
+    earlier row on a tie).  A super's blocks go in one pass: every lane
+    that passed the super is slab-tested against its TRI_SUP boxes at
+    once, Möller–Trumbore runs on every (block, lane) pair whose box the
+    ray meets (a superset of the pairs the index-order sweep tests), and a
+    scan over the blocks in index order then takes a block's best hit only
+    where that sweep would have tested it (its box nearer than the lane's
+    best so far) and only with a strictly smaller t.  So the winners, the
+    floats and the counts (SLAB_TESTS, TRI_PAIRS: the pairs that scan
+    takes) are the block-by-block sweep's."""
+    global TRI_PAIRS, SLAB_TESTS
     inv = [_inv_d(c) for c in d]
-    hit = _no_tri_hit(o[0])
-    every = torch.arange(o[0].shape[0], device=o[0].device)
+    tri_t, tri_idx, tri_u, tri_v = _no_tri_hit(o[0])
+    dev = o[0].device
+    every = torch.arange(o[0].shape[0], device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    aabb = stream.aabb.reshape(-1, TRI_SUP, 8)
+    geo = stream.geo.reshape(-1, TRI_BLOCK, stream.geo.shape[1])
+    # (pair, row) elements of one Möller–Trumbore pass: _trace_chunk's
+    # budget
+    budget = ((1 << 25) if dev.type == "cuda" else (1 << 22)) // TRI_BLOCK
     for s in range(stream.sup.shape[0]):
         box = stream.sup[s]
         lanes = every[_slab_may(box[0:3], box[4:7], o, inv, t_min,
-                                torch.minimum(hit[0], best_t))]
+                                torch.minimum(tri_t, best_t))]
         if lanes.numel() == 0:
             continue
-        for blk in range(s * TRI_SUP, (s + 1) * TRI_SUP):
-            box, st = stream.aabb[blk], blk * TRI_BLOCK
-            _tri_block(o, d, inv, lanes, best_t, box[0:3], box[4:7],
-                       stream.geo[st:st + TRI_BLOCK], st, hit, t_min)
-    return tuple(hit)
+        SLAB_TESTS += TRI_SUP * lanes.numel()
+        ol, il = [c[lanes] for c in o], [c[lanes] for c in inv]
+        dl = [c[lanes] for c in d]
+        boxes = aabb[s]
+        near, far = _slab_span(tuple(boxes[:, k:k + 1] for k in range(3)),
+                               tuple(boxes[:, k:k + 1] for k in range(4, 7)),
+                               ol, il)
+        meets = far >= torch.clamp(near, min=t_min)  # (TRI_SUP, L)
+        blk, lane = torch.nonzero(meets, as_tuple=True)
+        shape = meets.shape
+        blk_t = torch.full(shape, BIG, dtype=torch.float32, device=dev)
+        blk_i = torch.zeros(shape, dtype=torch.int64, device=dev)
+        blk_u = torch.zeros(shape, dtype=torch.float32, device=dev)
+        blk_v = torch.zeros(shape, dtype=torch.float32, device=dev)
+        for c0 in range(0, blk.shape[0], budget):
+            b, ln = blk[c0:c0 + budget], lane[c0:c0 + budget]
+            rows = geo[s * TRI_SUP + b]  # (P, TRI_BLOCK, 12)
+            t, u, v = moller_trumbore(
+                tuple(c[ln][:, None] for c in ol),
+                tuple(c[ln][:, None] for c in dl),
+                tuple(rows[:, :, k] for k in range(0, 3)),
+                tuple(rows[:, :, k] for k in range(3, 6)),
+                tuple(rows[:, :, k] for k in range(6, 9)), t_min)
+            bt, bi = torch.min(t, dim=1)  # the first row on a tie
+            blk_t[b, ln] = bt
+            blk_i[b, ln] = bi
+            blk_u[b, ln] = torch.gather(u, 1, bi[:, None])[:, 0]
+            blk_v[b, ln] = torch.gather(v, 1, bi[:, None])[:, 0]
+        lt, li, lu, lv = (x[lanes] for x in (tri_t, tri_idx, tri_u, tri_v))
+        bound_t = best_t[lanes]
+        for k in range(TRI_SUP):
+            may = meets[k] & (near[k] < torch.minimum(lt, bound_t))
+            pairs += may.sum()
+            wins = may & (blk_t[k] < lt)
+            lt = torch.where(wins, blk_t[k], lt)
+            li = torch.where(wins, (s * TRI_SUP + k) * TRI_BLOCK + blk_i[k],
+                             li)
+            lu = torch.where(wins, blk_u[k], lu)
+            lv = torch.where(wins, blk_v[k], lv)
+        tri_t[lanes], tri_idx[lanes], tri_u[lanes], tri_v[lanes] = (
+            lt, li, lu, lv)
+    TRI_PAIRS += int(pairs) * TRI_BLOCK
+    return tri_t, tri_idx, tri_u, tri_v
 
 
 def _quat_rotate(qx, qy, qz, qw, vx, vy, vz):
@@ -1822,6 +1899,8 @@ def _bounce(p, u, sph, rec, depth, *, t_min, has_dielectrics, sky_on,
         ny = torch.where(tri_wins, tny, ny)
         nz = torch.where(tri_wins, tnz, nz)
         best_idx = torch.where(tri_wins, code_base + tri_idx, best_idx)
+        if med is not None:  # no interior (the JAX kernel's :794, :1089)
+            t_exit = torch.where(tri_wins, BIG, t_exit)
     mtype = w[:, 0]
     alb_r, alb_g, alb_b = w[:, 1], w[:, 2], w[:, 3]
     if tex is not None:
@@ -2494,6 +2573,9 @@ _ENTRY_ARGS = dict(
         _P,  # stream
     ], 7),
 )
+# the volume builds of the triangle build and the streamed kernel: tri_aux's
+# arguments, zero rect and box rows allowed
+_ENTRY_ARGS["tri_vol"] = _ENTRY_ARGS["tri_aux"]
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -2510,7 +2592,7 @@ def load_kernel() -> ctypes.CDLL:
             entry.restype = ctypes.c_int
         lib.rtiw_megatrace_ext_info.argtypes = [i, i, i, i, i, i, i, p]
         lib.rtiw_megatrace_ext_info.restype = ctypes.c_int
-        lib.rtiw_megatrace_tri_info.argtypes = [i, i, i, p]
+        lib.rtiw_megatrace_tri_info.argtypes = [i, i, i, i, p]
         lib.rtiw_megatrace_tri_info.restype = ctypes.c_int
         lib.rtiw_tile_lanes.argtypes = [i, i, p, p]
         lib.rtiw_tile_lanes.restype = ctypes.c_int
@@ -2581,15 +2663,18 @@ def noise_kernel_info(s: int, aux_rows: int = 0, has_vol: bool = False,
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
 
 
-def tri_kernel_info(s: int, aux_rows: int = 0, stream: bool = False) -> dict:
+def tri_kernel_info(s: int, aux_rows: int = 0, stream: bool = False,
+                    has_vol: bool = False) -> dict:
     """The triangle build's occupancy beside an s-sphere table on the
     current card (with aux_rows > 0 its aux build's, for that many rect and
-    box rows; with `stream` the streamed kernel's, or its aux build's):
-    blocks an SM (the occupancy API), registers a thread and local memory
-    (stack and spills) a thread in bytes."""
+    box rows; with `stream` the streamed kernel's, or its aux build's; with
+    `has_vol` the volume build of either, with or without rect and box
+    rows): blocks an SM (the occupancy API), registers a thread and local
+    memory (stack and spills) a thread in bytes."""
     info = (ctypes.c_int * 3)()
     err = load_kernel().rtiw_megatrace_tri_info(int(s), int(aux_rows),
-                                                int(stream), info)
+                                                int(stream), int(has_vol),
+                                                info)
     if err != 0:
         raise RuntimeError(f"megatrace_tri_kernel info: cudaError {err}")
     return dict(blocks=info[0], registers=info[1], local_bytes=info[2])
@@ -2763,11 +2848,12 @@ def noise_build(s: int, *, rect_tables=None, box_tables=None, vol0=None,
                 tri_tables=None, tri_stream_tables=None, **_) -> str:
     """The noise build a flavored sample_batch call with these tables
     takes, as NOISE_BUILDS counts it: "stream", "tri" (each with "+aux"
-    beside rects or boxes), "blocked" (or
+    beside rects or boxes, then "+vol" beside convex volumes), "blocked" (or
     "blocked+motion") past SPH_CULL_MIN spheres, else the sphere kernel's
     flags joined by "+" ("aux", "volume", "motion", "texture", "cube";
     "sphere" without any)."""
     aux = "+aux" if rect_tables is not None or box_tables is not None else ""
+    aux += "+vol" if vol0 is not None else ""
     if tri_stream_tables is not None:
         return "stream" + aux
     if tri_tables is not None:
@@ -3006,7 +3092,9 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
                             motion="MOTION_LAUNCHES", volume="VOL_LAUNCHES",
                             aux="AUX_LAUNCHES").get(build))
     # the triangle build or the streamed kernel, with the rect and box
-    # sweep (their aux builds, rtiw_megatrace_tri_aux) beside rects or boxes
+    # sweep (their aux builds, rtiw_megatrace_tri_aux) beside rects or
+    # boxes, with the volume walk (their volume builds,
+    # rtiw_megatrace_tri_vol) beside convex volumes
     head = (per_pixel.data_ptr(), cin.data_ptr(),
             0 if pixel is None else pixel.data_ptr(), consts.data_ptr(),
             sph.data_ptr(), rec.data_ptr(), *tri_args, out.data_ptr())
@@ -3014,10 +3102,12 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
             tri_code_base(s, rect_tables, box_tables) if has_tris else 0,
             int(seed), int(lane_base), samples, trace_depth, float(t_min),
             int(has_dielectrics), int(sky_on), int(jitter))
-    if has_aux:
-        tail += (aux_geo.data_ptr(), aux_rec.data_ptr(), rect_rows, box_rows,
-                 rect_code, box_code)
-    entry = "tri_aux" if has_aux else "batch"
+    if has_aux or vol0 is not None:
+        tail += (0 if aux_geo is None else aux_geo.data_ptr(),
+                 0 if aux_rec is None else aux_rec.data_ptr(), rect_rows,
+                 box_rows, rect_code, box_code)
+    entry = ("tri_vol" if vol0 is not None
+             else "tri_aux" if has_aux else "batch")
     err = (getattr(lib, f"rtiw_megatrace_{entry}")(
         *head, 0 if tape is None else tape.data_ptr(), *tail, stream)
         if noise is None else
@@ -3026,8 +3116,11 @@ def _sample_batch_cuda(lane_count, count_in, camera_row, centers, radii,
     if err != 0:
         raise RuntimeError(f"megatrace_batch launch failed: cudaError {err}")
     # the sphere build and the streamed kernel count in LAUNCHES alone
-    return counted(("STREAM_AUX_LAUNCHES" if tri_stream_tables is not None
-                    else "TRI_AUX_LAUNCHES") if has_aux
+    stream = tri_stream_tables is not None
+    return counted(("STREAM_VOL_LAUNCHES" if stream else "TRI_VOL_LAUNCHES")
+                   if vol0 is not None
+                   else ("STREAM_AUX_LAUNCHES" if stream
+                         else "TRI_AUX_LAUNCHES") if has_aux
                    else "TRI_LAUNCHES" if tri_tables is not None else None)
 
 
@@ -3082,7 +3175,10 @@ def sample_batch(
     box tables beside triangle tables take the aux build of the triangle
     build (TRI_AUX_LAUNCHES) or of the streamed kernel
     (STREAM_AUX_LAUNCHES); the triangles' tape codes follow the padded
-    rects and boxes (`tri_code_base`).  More
+    rects and boxes (`tri_code_base`).  `vol0` beside triangle tables takes
+    the volume build of the triangle build (TRI_VOL_LAUNCHES) or of the
+    streamed kernel (STREAM_VOL_LAUNCHES), with the rect and box sweep
+    where those tables are given.  More
     than SPH_CULL_MIN spheres take the blocked builds (BLOCKED_LAUNCHES),
     static or moving; beside any of the other tables they raise
     NotImplementedError (ROADMAP step 7.7b).  A sampler flavor
@@ -3105,9 +3201,6 @@ def sample_batch(
     if tri_tables is not None and tri_stream_tables is not None:
         raise ValueError("sample_batch: tri_tables and tri_stream_tables "
                          "clash")
-    if vol0 is not None and (tri_tables is not None
-                             or tri_stream_tables is not None):
-        raise NotImplementedError(f"sample_batch: {VOLUMES_IN_MESHES}")
     if move_offsets is not None and (tri_tables is not None
                                      or tri_stream_tables is not None):
         raise NotImplementedError(f"sample_batch: {MOTION_IN_MESHES}")

@@ -37,7 +37,10 @@ in one device table of TRI_GRAD_COLS.  Scenes with convex volumes take its
 volume instantiations (`VOL` beside spheres, `AUX_VOL` beside rects and
 boxes): the medium rides eight more state floats, and the cotangent of
 the camera's medium row `vol0` comes back with the camera and sky ones
-(the JAX kernel's `aux_cot["vol0"]`), N_SCAL_VOL scalars in all.  Scenes
+(the JAX kernel's `aux_cot["vol0"]`), N_SCAL_VOL scalars in all; beside
+triangles the instantiations with both (`MESH_VOL`, and `MESH_AUX_VOL`
+with rects or boxes: the mesh builds' rows, the volume builds' state;
+MESH_VOL_LAUNCHES, MESH_AUX_VOL_LAUNCHES).  Scenes
 with moving spheres (and neither rects, boxes nor volumes) take its
 motion instantiation (`MOTION`): a path carries its shutter time, and a
 sphere row's cotangent grows by its move offset's (the centre's times the
@@ -84,6 +87,10 @@ CUBE_LAUNCHES = 0  # ... of the path kernel, launches of its cube build (a
 #   cubemap sky: the cube texel plane)
 MESH_AUX_LAUNCHES = 0  # ... of the path kernel, launches of its build for
 #   rects and boxes beside triangles (MESH_AUX)
+MESH_VOL_LAUNCHES = 0  # ... of its build for convex volumes beside
+#   triangles (MESH_VOL)
+MESH_AUX_VOL_LAUNCHES = 0  # ... and beside triangles, rects and boxes
+#   (MESH_AUX_VOL)
 
 _DIFF_ENV = ("co", "ll", "hh", "vv", "rr", "uu")
 
@@ -504,9 +511,13 @@ def scan_paths(tape, lane_count, *, samples: int, trace_depth: int):
 # the kernels' builds: sphere scenes, mesh scenes, scenes with rects or
 # boxes, the first and third with convex volumes, sphere scenes with
 # moving spheres, with textured albedos, with more than SPH_CULL_MIN
-# static spheres, under a cubemap sky, and mesh scenes with rects or boxes
+# static spheres, under a cubemap sky, mesh scenes with rects or boxes, and
+# the mesh scenes of the second and the tenth with convex volumes
 # (csrc/megatrace_bwd.cu's `kind` argument)
-SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX, BIG, CUBE, MESH_AUX = range(10)
+(SPHERES, MESH, AUX, VOL, AUX_VOL, MOTION, TEX, BIG, CUBE, MESH_AUX,
+ MESH_VOL, MESH_AUX_VOL) = range(12)
+VOL_KINDS = (VOL, AUX_VOL, MESH_VOL, MESH_AUX_VOL)  # builds with vol0
+MESH_KINDS = (MESH, MESH_AUX, MESH_VOL, MESH_AUX_VOL)  # ... with triangles
 MOTION_BESIDE = ("the backward kernel's motion and texture adjoints beside "
                  "rects, boxes, volumes or each other (ROADMAP queue 1, step "
                  "7.3c)")
@@ -541,8 +552,6 @@ def build_kind(has_tris: bool, has_aux: bool, has_volumes: bool,
         if has_tris or has_aux or has_volumes or has_motion or has_tex:
             raise NotImplementedError(f"replay_grad: {CUBE_BESIDE}")
         return CUBE
-    if has_tris and has_volumes:
-        raise NotImplementedError(f"replay_grad: {mk.VOLUMES_IN_MESHES}")
     if has_tris and has_motion:
         raise NotImplementedError(f"replay_grad: {mk.MOTION_IN_MESHES}")
     if has_tris and has_tex:
@@ -551,6 +560,8 @@ def build_kind(has_tris: bool, has_aux: bool, has_volumes: bool,
         if has_aux or has_volumes or (has_motion and has_tex):
             raise NotImplementedError(f"replay_grad: {MOTION_BESIDE}")
         return MOTION if has_motion else TEX
+    if has_volumes and has_tris:
+        return MESH_AUX_VOL if has_aux else MESH_VOL
     if has_volumes:
         return AUX_VOL if has_aux else VOL
     if has_tris:
@@ -661,7 +672,8 @@ def kernel_args(tape, lane_count, consts, entity_rows, s: int, cot_color,
     scenes with rects or boxes: the whole padded table, which their tape
     codes, s_pad + row, index), the constants (_consts), the (4, N) color
     and count cotangents, the build (`kind`: SPHERES, MESH, AUX, VOL,
-    AUX_VOL, MOTION, TEX, BIG, CUBE or MESH_AUX), the texture build's
+    AUX_VOL, MOTION, TEX, BIG, CUBE, MESH_AUX, MESH_VOL or MESH_AUX_VOL),
+    the texture build's
     atlas ((A * H, W, 3) or None) and its (W, H), and the cube build's faces
     (pack_cubemap_table's (6 * h, w, 3) or None) and its (w, h)."""
     return dict(
@@ -688,6 +700,7 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
     cube texel plane's, the cube table's shape, in the cube build, else
     None)."""
     global LAUNCHES, BIG_LAUNCHES, CUBE_LAUNCHES, MESH_AUX_LAUNCHES
+    global MESH_VOL_LAUNCHES, MESH_AUX_VOL_LAUNCHES
     lib = load_kernel()
     dev = args["tape"].device
     s, n, kind = args["s"], args["per_pixel"].shape[0], args["kind"]
@@ -699,12 +712,11 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
     datlas = None if atlas is None else torch.zeros_like(atlas)
     cube = args["cube"]
     dcube = None if cube is None else torch.zeros_like(cube)
-    dscal = torch.zeros(N_SCAL_VOL if kind in (VOL, AUX_VOL) else N_SCAL,
-                        **f32)
+    dscal = torch.zeros(N_SCAL_VOL if kind in VOL_KINDS else N_SCAL, **f32)
     next_warp = torch.zeros(1, dtype=torch.int32, device=dev)
     dent_rows = (None if kind in SPHERE_ROWS_ONLY else torch.zeros(
         (args["ent"].shape[0] - s_pad,
-         len(mr.TRI_GRAD_COLS if kind in (MESH, MESH_AUX)
+         len(mr.TRI_GRAD_COLS if kind in MESH_KINDS
              else mr.AUX_GRAD_COLS)), **f32))
     if paths.shape[0]:
         err = lib.rtiw_bwd_paths(
@@ -728,6 +740,8 @@ def _paths_cuda(paths, args: dict, seed, lane_base, *, trace_depth: int,
         BIG_LAUNCHES += int(kind == BIG)
         CUBE_LAUNCHES += int(kind == CUBE)
         MESH_AUX_LAUNCHES += int(kind == MESH_AUX)
+        MESH_VOL_LAUNCHES += int(kind == MESH_VOL)
+        MESH_AUX_VOL_LAUNCHES += int(kind == MESH_AUX_VOL)
     return dent, dscal, dent_rows, datlas, dcube
 
 

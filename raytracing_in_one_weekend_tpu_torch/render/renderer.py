@@ -523,6 +523,10 @@ def render_batch(
     statics = dict(samples=samples, trace_depth=trace_depth,
                    has_dielectrics=scene.flags.has_dielectrics,
                    sky_on=scene.flags.sky == 1, jitter=sub_pixel_jitter)
+    # the camera's medium: gradients to its density, albedo and emission
+    # flow through this row
+    vol0 = (megatrace.camera_containment_row(scene, packed, camera.origin)
+            if scene.flags.has_volumes else None)
     if streamed:
         # ---- a mesh beyond TRI_MAX: the streamed tables, forward only ------
         stream = megatrace.pack_tri_stream_tables(scene, packed)
@@ -545,13 +549,15 @@ def render_batch(
         # a flavor's pre-drawn columns follow the lanes
         order, rank = (t.to(dev) for t in megatrace.morton_order(width,
                                                                   height))
-        # rects and boxes beside the mesh: the streamed kernel's aux build
+        # rects and boxes beside the mesh: the streamed kernel's aux build;
+        # convex volumes: its volume builds (JAX's :454-460)
         rect_tables, box_tables = megatrace.pack_aux_tables(scene, packed)
         d = megatrace.sample_batch(
             lane_count[order], acc.sample_count[order],
             megatrace.pack_camera_row(camera, width, height), *sphere_args,
             seed, pixel_index=order, tri_stream_tables=stream,
-            rect_tables=rect_tables, box_tables=box_tables, **statics,
+            rect_tables=rect_tables, box_tables=box_tables, vol0=vol0,
+            **statics,
             **noise_args(route, noise_state, acc, width, height, samples,
                           trace_depth, draw_base, order))
         d = {k: v[rank] for k, v in d.items()}
@@ -565,10 +571,6 @@ def render_batch(
     # gradients to the rects' and boxes' rotations, positions, extents and
     # materials flow through this pack
     rect_tables, box_tables = megatrace.pack_aux_tables(scene, packed)
-    # the camera's medium: gradients to its density, albedo and emission
-    # flow through this row
-    vol0 = (megatrace.camera_containment_row(scene, packed, camera.origin)
-            if scene.flags.has_volumes else None)
     # the environment map: gradients to the faces flow through this pack
     cube, cube_dims = (megatrace.pack_cubemap_table(scene)
                        if scene.flags.sky == 2 else (None, (0, 0)))

@@ -246,8 +246,8 @@ def _mesh_with_a_rect():
 
 
 def _mesh_with_a_fog_sphere():
-    """A triangle beside a volume sphere: volumes in mesh scenes are ROADMAP
-    step 7.2b."""
+    """A triangle beside a volume sphere: convex volumes in mesh scenes are
+    ported (ROADMAP step 7.2b)."""
     from raytracing_in_one_weekend_tpu_torch.scene.scene import SceneBuilder
 
     b = SceneBuilder()
@@ -272,7 +272,7 @@ def _mesh_with_a_moving_sphere():
 
 
 def test_scope_refusals_name_the_roadmap():
-    refused = [_mesh_with_a_moving_sphere(), _mesh_with_a_fog_sphere()]
+    refused = [_mesh_with_a_moving_sphere()]
     for scene in refused:
         assert not megatrace.scene_eligible(scene, allow_triangles=True,
                                             allow_rect_box=True,
@@ -288,8 +288,17 @@ def test_scope_refusals_name_the_roadmap():
                                     allow_motion=True)
     assert megatrace.unported_feature(mesh_rect) is None
     renderer.check_scope(mesh_rect)
-    with pytest.raises(NotImplementedError, match="step 7.2b"):
-        renderer.check_scope(_mesh_with_a_fog_sphere())
+    # convex volumes beside triangles are ported (step 7.2b): the volume
+    # builds of the triangle build and the streamed kernel, MESH_VOL and
+    # MESH_AUX_VOL in the backward
+    mesh_fog = _mesh_with_a_fog_sphere()
+    assert megatrace.scene_eligible(mesh_fog, allow_triangles=True,
+                                    allow_rect_box=True, allow_volumes=True,
+                                    allow_motion=True)
+    assert megatrace.unported_feature(mesh_fog) is None
+    assert megatrace_replay.replay_eligible(mesh_fog)
+    assert megatrace_replay.kernel_backward_built(mesh_fog)
+    renderer.check_scope(mesh_fog)
     with pytest.raises(NotImplementedError, match="step 7.3b"):
         renderer.check_scope(_mesh_with_a_moving_sphere())
     # cubemap skies are ported (step 7.6): the builder takes them and the

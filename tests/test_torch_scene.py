@@ -154,11 +154,15 @@ def _textured_triangle(b, texture=None):
 
 
 def _streamed_mesh(b):
-    """Meshes are ported, with spheres or without (step 7.1b); a volume
-    sphere beside one is not yet (step 7.2b)."""
+    """Meshes are ported, with spheres or without (step 7.1b), and so are
+    volume spheres beside them (step 7.2b); a moving sphere beside one is
+    not yet (step 7.3b)."""
     v, f, _, _ = meshes.icosphere(4)  # 5120 faces
     b.add_mesh(v, f, b.lambert((0.5, 0.5, 0.5)))
     b.add_sphere((0.0, 0.0, 3.0), 0.5, b.volume(1.0, (0.9, 0.9, 0.9)))
+    renderer.check_scope(b.build())
+    b.add_sphere((0.0, 0.0, -3.0), 0.5, b.lambert((0.5, 0.5, 0.5)),
+                 move_offset=(0.0, 0.3, 0.0))
     renderer.check_scope(b.build())
 
 

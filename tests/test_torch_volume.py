@@ -298,29 +298,31 @@ def test_scope():
         renderer.check_scope(scene)
     assert "volume walk" in megatrace.unsupported_feature(
         port_scene("volume")[0])
-    # volumes beside triangles: ROADMAP step 7.2b
+    # volumes beside triangles are ported (ROADMAP step 7.2b): the volume
+    # builds of the triangle build; the plain version renders them here
     b = scene_mod.SceneBuilder()
     white = b.lambert((0.7, 0.7, 0.7))
     b.add_sphere((0.0, -100.5, 0.0), 100.0, white)
     b.add_sphere((0.0, 0.0, -1.0), 0.5, b.volume(1.0, (0.9, 0.9, 0.9)))
     b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), white)
     mesh_fog = b.build()
-    assert not megatrace.scene_eligible(mesh_fog, allow_triangles=True,
-                                        allow_rect_box=True,
-                                        allow_volumes=True)
-    with pytest.raises(NotImplementedError, match="step 7.2b"):
-        renderer.check_scope(mesh_fog)
+    assert megatrace.scene_eligible(mesh_fog, allow_triangles=True,
+                                    allow_rect_box=True, allow_volumes=True)
+    renderer.check_scope(mesh_fog)
     packed = materials.pack_materials(mesh_fog)
-    with pytest.raises(NotImplementedError, match="step 7.2b"):
-        megatrace.sample_batch(
-            torch.ones(4, dtype=torch.int32), torch.zeros(4),
-            torch.zeros(24), mesh_fog.spheres.center,
-            mesh_fog.spheres.radius,
-            megatrace.pack_sphere_records(mesh_fog, packed),
-            torch.zeros(3), torch.zeros(3), 1, samples=1, trace_depth=1,
-            vol0=megatrace.camera_containment_row(mesh_fog, packed,
-                                                  torch.zeros(3)),
-            tri_tables=megatrace.pack_tri_tables(mesh_fog, packed))
+    cam = camera.make_camera((0.0, 0.0, 1.0), (0.0, 0.0, -1.0), (0, 1, 0),
+                             60.0, 1.0)
+    out = megatrace.sample_batch(
+        torch.ones(4, dtype=torch.int32), torch.zeros(4),
+        megatrace.pack_camera_row(cam, 2, 2), mesh_fog.spheres.center,
+        mesh_fog.spheres.radius,
+        megatrace.pack_sphere_records(mesh_fog, packed),
+        torch.zeros(3), torch.zeros(3), 1, samples=1, trace_depth=1,
+        vol0=megatrace.camera_containment_row(mesh_fog, packed,
+                                              cam.origin),
+        tri_tables=megatrace.pack_tri_tables(mesh_fog, packed))
+    assert int(out["rays"].sum()) == 4
+    assert bool(torch.isfinite(out["color"]).all())
 
 
 def test_render_batch_takes_the_batch_kernel(monkeypatch):
